@@ -1,0 +1,98 @@
+"""Decode strategies (counterpart of ``repro/api/strategies.py``): adapters
+from the engine step functions to the canonical ``StepResult``. This slice
+ports the dense baseline and AR SpecEE; tree decoding is a later slice."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.api.types import StepResult
+from repro_torch.core import engine as eng
+from repro_torch.models.model import Model
+
+
+def _single_token_result(token: torch.Tensor, info: eng.StepInfo
+                         ) -> StepResult:
+    """Pack a 1-token-per-tick engine emit as a (device) StepResult."""
+    B = token.shape[0]
+    zeros = torch.zeros(B, dtype=torch.int32, device=token.device)
+    return StepResult(tokens=token[:, None], counts=zeros + 1,
+                      done=zeros.bool(), exit_layer=info.exit_point,
+                      accept_len=zeros, exited=info.exited,
+                      units_run=info.units_run)
+
+
+@dataclass(frozen=True)
+class DecodeStrategy:
+    """Base: one decode mode behind the Engine/DecodeSession surface."""
+    name = "base"
+    requires_sw = True
+
+    def emit_width(self, model: Model) -> int:
+        return 1
+
+    def cache_seq_len(self, model: Model, max_seq: int) -> int:
+        return max_seq
+
+    def validate(self, model: Model, sw) -> None:
+        if self.requires_sw and sw is None:
+            raise ValueError(f"{type(self).__name__} needs SpecEE weights "
+                             "(draft + predictors); pass sw=")
+
+    def init_state(self, model: Model, params, sw,
+                   batch: Dict[str, torch.Tensor], max_seq: int
+                   ) -> Tuple[torch.Tensor, eng.DecodeState]:
+        """Prefill → (first greedy token (B,), state)."""
+        return eng.init_decode_state(model, params, sw, batch,
+                                     self.cache_seq_len(model, max_seq))
+
+    def step(self, model: Model, params, sw, state: eng.DecodeState
+             ) -> Tuple[StepResult, eng.DecodeState]:
+        raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class DenseStrategy(DecodeStrategy):
+    """Full-depth greedy baseline."""
+    name = "dense"
+    requires_sw = False
+
+    def step(self, model, params, sw, state):
+        token, new_state, info = eng.dense_decode_step(model, params, sw,
+                                                       state)
+        return _single_token_result(token, info), new_state
+
+
+@dataclass(frozen=True)
+class SpecEEStrategy(DecodeStrategy):
+    """Autoregressive speculative early exiting (paper T1+T2).
+    ``threshold=None`` takes ``run.specee.exit_threshold``; a threshold > 1
+    disables exits (equal to dense greedy)."""
+    threshold: Optional[float] = None
+    name = "specee"
+
+    def step(self, model, params, sw, state):
+        token, new_state, info = eng.ar_decode_step(
+            model, params, sw, state, threshold=self.threshold)
+        return _single_token_result(token, info), new_state
+
+
+_BY_NAME = {"dense": DenseStrategy, "specee": SpecEEStrategy,
+            "ar": SpecEEStrategy}
+
+
+def get_strategy(spec: Union[str, DecodeStrategy, None]) -> DecodeStrategy:
+    """Resolve a strategy name ("dense" | "specee" | "ar") or pass an
+    instance through."""
+    if spec is None:
+        return SpecEEStrategy()
+    if isinstance(spec, DecodeStrategy):
+        return spec
+    try:
+        return _BY_NAME[spec]()
+    except KeyError:
+        raise ValueError(
+            f"unknown strategy {spec!r}; expected one of {sorted(_BY_NAME)} "
+            "or a DecodeStrategy instance") from None

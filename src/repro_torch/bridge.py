@@ -1,0 +1,54 @@
+"""Weights from the JAX package to the port, leaf for leaf.
+
+The caller turns a JAX pytree into numpy arrays (``jax.tree_util.tree_map(
+np.asarray, tree)``) and hands it here; the port never imports JAX. The
+nesting and every layout are kept:
+
+  params — ``Model.init``: ``embed.tok`` (V, D); ``segments[si]`` with
+           ``u{i}`` entries stacked over reps; ``final_norm``;
+           ``lm_head.w`` as (D, V);
+  SpecEE — ``draft``; ``predictors`` stacked (E, ...); ``offline_mask``.
+
+Floating weights move into the compute dtype (``dtype``); the predictor bank
+stays fp32, as the JAX package keeps it.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import SpecEEWeights
+
+
+def to_torch(tree: Any, device, dtype: torch.dtype = torch.float32) -> Any:
+    """Numpy leaves of a nest of dicts/lists/tuples -> tensors on
+    ``device``; floating leaves in ``dtype``, integer and bool leaves as
+    they are."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_torch(v, device, dtype) for v in tree)
+    arr = np.asarray(tree)
+    if arr.dtype.kind in "biu":
+        return torch.from_numpy(arr.copy()).to(device)
+    # float32, float16 and bfloat16 (an extension dtype) all pass via fp32
+    return torch.from_numpy(arr.astype(np.float32)).to(device=device,
+                                                       dtype=dtype)
+
+
+def params_from_numpy(params: Any, device, dtype: torch.dtype) -> Any:
+    """A JAX ``Model.init`` pytree (as numpy) -> the port's params."""
+    return to_torch(params, device, dtype)
+
+
+def specee_from_numpy(draft: Any, predictors: Any, offline_mask: Any,
+                      device, dtype: torch.dtype) -> SpecEEWeights:
+    """The three fields of a JAX ``SpecEEWeights`` (as numpy) -> the port's
+    ``SpecEEWeights``."""
+    return SpecEEWeights(
+        draft=to_torch(draft, device, dtype),
+        predictors=to_torch(predictors, device, torch.float32),
+        offline_mask=torch.as_tensor(np.array(offline_mask, bool),
+                                     device=device))

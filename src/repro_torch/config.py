@@ -1,0 +1,91 @@
+"""Configuration for the PyTorch port (counterpart of ``repro/config.py``).
+
+The port keeps its own copy of the configuration dataclasses, holding only
+the fields the ported decode path reads, so that it never imports the JAX
+package. Field names, defaults and ``smoke()`` reductions are those of
+``repro.config``; the tests hold the two against each other.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Tuple
+
+ATTN = "attention"            # global causal attention
+LOCAL_ATTN = "local_attention"  # sliding-window attention
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0           # 0 -> d_model // num_heads
+    block_pattern: Tuple[str, ...] = ()
+    use_bias: bool = False
+    norm: str = "rmsnorm"
+    activation: str = "silu"
+    rope_theta: float = 10000.0
+    gated_mlp: bool = True
+    dtype: str = "bfloat16"     # compute/weight dtype on the card
+
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        if self.num_heads == 0:
+            return 0
+        return self.d_model // self.num_heads
+
+    def blocks(self) -> Tuple[str, ...]:
+        if self.block_pattern:
+            assert len(self.block_pattern) == self.num_layers
+            return self.block_pattern
+        return tuple([ATTN] * self.num_layers)
+
+    def smoke(self) -> "ModelConfig":
+        """Reduced same-family config for CPU tests (``repro.config``'s
+        reduction, attention family only)."""
+        kw = dict(name=self.name + "-smoke",
+                  num_layers=min(self.num_layers, 4), d_model=128,
+                  num_heads=4, d_ff=256, vocab_size=512, head_dim=32,
+                  dtype="float32")
+        if self.num_kv_heads == self.num_heads:
+            kw["num_kv_heads"] = 4
+        elif self.num_kv_heads == 1:
+            kw["num_kv_heads"] = 1
+        else:
+            kw["num_kv_heads"] = 2
+        return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class SpecEEConfig:
+    num_speculative: int = 4          # k speculative tokens (paper: 4)
+    predictor_hidden: int = 512       # MLP hidden dim
+    predictor_layers: int = 2         # MLP depth
+    exit_threshold: float = 0.5       # sigmoid threshold
+    schedule_enabled: bool = True     # T2 two-level scheduling
+    online_window: int = 5            # circular queue length
+    online_radius: int = 2            # ±radius exit points
+
+    def feature_dim(self) -> int:
+        return 3 * self.num_speculative  # logits, local probs, prob variation
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_new_tokens: int = 256
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    specee: SpecEEConfig = field(default_factory=SpecEEConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+
+    def smoke(self) -> "RunConfig":
+        return replace(self, model=self.model.smoke(),
+                       serve=replace(self.serve, max_new_tokens=8))

@@ -1,0 +1,107 @@
+"""EAGLE-style one-layer draft model (counterpart of ``repro/core/draft.py``).
+
+One decoder layer at the target's width, fed with the fusion of (embedding
+of the current token, target hidden state of the previous position); the
+target's embedding and LM head are reused. The draft keeps its own
+single-layer KV cache, written in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.exit_gate import ops as gate_lib
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import common
+from repro_torch.models.common import Params
+
+
+def _draft_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The draft layer reuses the target's geometry but is always 1 layer."""
+    return dataclasses.replace(cfg, num_layers=1, block_pattern=(),
+                               head_dim=cfg.resolved_head_dim())
+
+
+def init_draft(cfg: ModelConfig, gen: torch.Generator, dtype,
+               device) -> Params:
+    dc = _draft_cfg(cfg)
+    d = cfg.d_model
+    return {
+        "fuse": common.init_linear(gen, 2 * d, d, True, dtype, device),
+        "ln1": common.init_norm(d, dtype, device),
+        "attn": attn_lib.init_attention(dc, gen, dtype, device),
+        "ln2": common.init_norm(d, dtype, device),
+        "mlp": common.init_mlp(dc, gen, dtype, device),
+    }
+
+
+def draft_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                device) -> Any:
+    dc = _draft_cfg(cfg)
+    shape = (batch, max_seq, dc.num_kv_heads, dc.resolved_head_dim())
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _fused_input(p: Params, embed_tok: torch.Tensor,
+                 h_target: torch.Tensor) -> torch.Tensor:
+    x = torch.cat([embed_tok, h_target.to(embed_tok.dtype)], dim=-1)
+    return common.apply_linear(p["fuse"], x)
+
+
+def draft_step(cfg: ModelConfig, p: Params, embed_tok: torch.Tensor,
+               h_target: torch.Tensor, cache: Any, pos: torch.Tensor
+               ) -> Tuple[torch.Tensor, Any]:
+    """One draft forward. embed_tok, h_target: (B, D); pos: (B,) position
+    this step writes. The K/V is written into ``cache`` in place. Returns
+    (h_draft (B, D), cache)."""
+    dc = _draft_cfg(cfg)
+    B = embed_tok.shape[0]
+    h = _fused_input(p, embed_tok, h_target)
+    x = common.apply_norm(dc, p["ln1"], h)[:, None, :]
+    pvec = pos.long()
+    q, k, v = attn_lib.qkv(dc, p["attn"], x, pvec[:, None])
+    rows = torch.arange(B, device=h.device)
+    cache["k"][rows, pvec] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, pvec] = v[:, 0].to(cache["v"].dtype)
+    o = attn_lib.attend_decode(dc, q, cache["k"], cache["v"], pvec + 1)
+    h = h + attn_lib.out_proj(p["attn"], o)[:, 0, :]
+    x2 = common.apply_norm(dc, p["ln2"], h[:, None, :])
+    h = h + common.apply_mlp(dc, p["mlp"], x2)[:, 0, :]
+    return h, cache
+
+
+def shift_hidden(h: torch.Tensor) -> torch.Tensor:
+    """h[:, t] -> h[:, t-1] with zeros at t=0."""
+    return torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+
+
+def draft_prefill(cfg: ModelConfig, p: Params, embeds: torch.Tensor,
+                  h_targets: torch.Tensor, max_seq: int) -> Any:
+    """Build the draft cache over a prompt. embeds/h_targets: (B, S, D),
+    same-position hiddens (shifted here)."""
+    dc = _draft_cfg(cfg)
+    B, S, D = embeds.shape
+    x = torch.cat([embeds, shift_hidden(h_targets).to(embeds.dtype)], dim=-1)
+    h = common.apply_linear(p["fuse"], x)
+    xn = common.apply_norm(dc, p["ln1"], h)
+    positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
+    _, k, v = attn_lib.qkv(dc, p["attn"], xn, positions)
+    cache = draft_cache(cfg, B, max_seq, embeds.dtype, embeds.device)
+    cache["k"][:, :S] = k.to(embeds.dtype)
+    cache["v"][:, :S] = v.to(embeds.dtype)
+    return cache
+
+
+def propose_topk(model, params: Params, h_draft: torch.Tensor, k: int,
+                 lm_w=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Draft hidden -> top-k speculative ids through the streaming LM-head
+    top-k (``verify_topk``). Returns (spec_ids (B, k) int32, logits)."""
+    hn = model.final_norm(params, h_draft)
+    if lm_w is None:
+        lm_w = common.lm_head_weight(params)
+    return gate_lib.verify_topk(hn, lm_w, k,
+                                impl=gate_lib.impl_for_flags(model.flags))

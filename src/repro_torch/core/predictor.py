@@ -1,0 +1,52 @@
+"""T1 — the early-exit predictor (counterpart of ``repro/core/predictor.py``).
+
+A 2-layer MLP (hidden 512, ReLU, sigmoid head) over the 3k speculation
+features, one per exit point, stacked over exit points. The bank stays in
+fp32 whatever the model's dtype, as in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.config import SpecEEConfig
+from repro_torch.models.common import Params, normal_init, tree_map
+
+
+def init_predictor(spec: SpecEEConfig, gen: torch.Generator,
+                   device) -> Params:
+    """Single predictor MLP: feature_dim -> hidden^(layers-1) -> 1."""
+    dims = ([spec.feature_dim()] +
+            [spec.predictor_hidden] * (spec.predictor_layers - 1) + [1])
+    return {"layers": [
+        {"w": normal_init(gen, (dims[i], dims[i + 1]),
+                          1.0 / math.sqrt(dims[i]), torch.float32, device),
+         "b": torch.zeros(dims[i + 1], dtype=torch.float32, device=device)}
+        for i in range(len(dims) - 1)]}
+
+
+def init_predictors(spec: SpecEEConfig, num_exit_points: int,
+                    gen: torch.Generator, device) -> Params:
+    """Stacked predictors: every leaf gains a leading (E,) dim."""
+    ones = [init_predictor(spec, gen, device) for _ in range(num_exit_points)]
+    return {"layers": [
+        {name: torch.stack([p["layers"][i][name] for p in ones])
+         for name in ("w", "b")}
+        for i in range(len(ones[0]["layers"]))]}
+
+
+def apply_predictor(p: Params, features: torch.Tensor) -> torch.Tensor:
+    """features: (..., feature_dim) -> exit probability (...,) in [0, 1]."""
+    x = features.float()
+    layers = p["layers"]
+    for i, layer in enumerate(layers):
+        x = x @ layer["w"] + layer["b"]
+        if i + 1 < len(layers):
+            x = torch.relu(x)
+    return torch.sigmoid(x[..., 0])
+
+
+def predictor_at(stacked: Params, idx: int) -> Params:
+    """One predictor out of the stacked bank (views)."""
+    return tree_map(lambda x: x[idx], stacked)

@@ -1,0 +1,43 @@
+"""T2 — two-level predictor scheduling (counterpart of
+``repro/core/scheduler.py``): the offline top-fraction mask united with
+±radius neighbourhoods of each row's last ``online_window`` exit points."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.config import SpecEEConfig
+
+SchedState = Dict[str, torch.Tensor]
+
+
+def init_state(batch: int, spec: SpecEEConfig, device) -> SchedState:
+    return {
+        "queue": torch.full((batch, spec.online_window), -1,
+                            dtype=torch.int32, device=device),
+        "qpos": torch.zeros(batch, dtype=torch.int32, device=device),
+    }
+
+
+def active_mask(state: SchedState, offline: torch.Tensor,
+                spec: SpecEEConfig, num_exit_points: int) -> torch.Tensor:
+    """-> (B, E) bool: which exit points run a predictor for each row."""
+    queue = state["queue"]
+    B = queue.shape[0]
+    if not spec.schedule_enabled:
+        return torch.ones(B, num_exit_points, dtype=torch.bool,
+                          device=queue.device)
+    pts = torch.arange(num_exit_points, device=queue.device)[None, None, :]
+    q = queue[:, :, None]
+    near = ((pts - q).abs() <= spec.online_radius) & (q >= 0)
+    return near.any(dim=1) | offline[None, :]
+
+
+def update(state: SchedState, exit_point: torch.Tensor) -> SchedState:
+    """Push each row's exit point into its circular queue. exit_point: (B,)."""
+    B, N = state["queue"].shape
+    rows = torch.arange(B, device=exit_point.device)
+    queue = state["queue"].clone()
+    queue[rows, state["qpos"].long()] = exit_point.to(torch.int32)
+    return {"queue": queue, "qpos": (state["qpos"] + 1) % N}

@@ -1,0 +1,69 @@
+// Shared device helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel file exposes a plain C interface (pointers and the stream as
+// void*, sizes as int) and returns cudaGetLastError() after its launches, so
+// the Python wrapper can raise on a refused launch. Kernels take fp32 or
+// bf16 activations/weights (dtype code DT_F32 / DT_BF16) and accumulate in
+// fp32.
+#pragma once
+
+#include <climits>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace rt {
+
+enum { DT_F32 = 0, DT_BF16 = 1 };
+
+constexpr float NEG_INF = -1e30f;   // masked score, as in the Pallas kernels
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// Total order used by every argmax / top-k: larger value first, and among
+// equal values the lower vocabulary id first (jnp.argmax's first
+// occurrence, lax.top_k's lower-index-first rule).
+__device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+// Butterfly reduction: every lane ends with the warp's best (value, id).
+__device__ __forceinline__ void warp_best(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (before(ov, oi, v, i)) { v = ov; i = oi; }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Block-wide best (value, id); every thread gets the result. blockDim.x is
+// a multiple of 32 and at most 1024. sv/si: 32-entry shared scratch.
+__device__ __forceinline__ void block_best(float& v, int& i, float* sv,
+                                           int* si) {
+  warp_best(v, i);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  __syncthreads();                     // scratch may hold a previous call's
+  if (lane == 0) { sv[w] = v; si[w] = i; }
+  __syncthreads();
+  v = lane < nw ? sv[lane] : -CUDART_INF_F;
+  i = lane < nw ? si[lane] : INT_MAX;
+  warp_best(v, i);
+}
+
+}  // namespace rt

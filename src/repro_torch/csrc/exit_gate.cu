@@ -1,0 +1,143 @@
+// Fused SpecEE exit gate for one exit point, one CTA per row b:
+//   logits[j] = hn[b] . W[:, ids[b, j]]            (k gathered head columns)
+//   probs     = softmax(logits)
+//   feats     = [logits, probs, probs - prev[b]]   (3k)
+//   p_exit[b] = sigmoid(relu(feats . W1 + b1) . W2 + b2)
+// all in fp32; the features and the H hidden units never leave the CTA.
+//
+// Replaces the Pallas kernel exit_gate_fused (_gate_kernel) in
+// src/repro/kernels/exit_gate/exit_gate.py, whose (B, k, nd) grid gathers
+// column blocks through scalar-prefetched index maps.
+//
+// Layout choice: the head stays (D, V) row-major, shared with the verify
+// kernels, and the gather reads W[d, ids[b, j]] for every d — a strided
+// read with a stride of V elements. Each of those reads costs one 32-byte
+// sector, so a row moves k * D * 32 B (4 * 4096 * 32 B = 512 KB) from memory
+// or L2 for k * D * sizeof(T) useful bytes (32 KB in bf16). A V-major copy
+// of the head would make the gather contiguous but costs another 262 MB of
+// card memory for Llama-2-7B; at B <= 8 the strided gather (<= 4 MB per
+// exit point) is the cheaper side.
+//
+// Bound on the H100: bytes — the k * D useful head elements and the
+// predictor weights (3k*H + 2H + 1 floats) per row; the arithmetic is tiny.
+// The design gives the D loop to 256 threads so the strided loads of one
+// row are all in flight at once, and B CTAs run in parallel.
+#include "common.cuh"
+
+namespace {
+
+constexpr int EG_THREADS = 256;
+constexpr int EG_MAXK = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(EG_THREADS)
+exit_gate_kernel(const T* __restrict__ hn, const T* __restrict__ w,
+                 const int* __restrict__ ids, const float* __restrict__ prev,
+                 const float* __restrict__ w1, const float* __restrict__ b1,
+                 const float* __restrict__ w2, const float* __restrict__ b2,
+                 float* __restrict__ p_out, float* __restrict__ probs_out,
+                 float* __restrict__ logits_out, int D, int V, int k, int H) {
+  __shared__ float red[EG_MAXK][32];
+  __shared__ float s_feats[3 * EG_MAXK];
+  __shared__ float s_out[32];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = EG_THREADS / 32;
+
+  int col[EG_MAXK];
+  float acc[EG_MAXK];
+#pragma unroll
+  for (int j = 0; j < EG_MAXK; ++j) {
+    // ids come from the draft's top-k; clamp so a bad id cannot read
+    // outside the head
+    col[j] = j < k ? min(max(ids[b * k + j], 0), V - 1) : 0;
+    acc[j] = 0.f;
+  }
+  for (int d = threadIdx.x; d < D; d += EG_THREADS) {
+    const float x = rt::to_f(hn[(size_t)b * D + d]);
+    const T* wr = w + (size_t)d * V;
+#pragma unroll
+    for (int j = 0; j < EG_MAXK; ++j)
+      if (j < k) acc[j] = fmaf(x, rt::to_f(wr[col[j]]), acc[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < EG_MAXK; ++j) {
+    const float s = rt::warp_sum(acc[j]);
+    if (lane == 0) red[j][wid] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float logits[EG_MAXK];
+    float m = -CUDART_INF_F;
+    for (int j = 0; j < k; ++j) {
+      float s = 0.f;
+      for (int q = 0; q < nw; ++q) s += red[j][q];
+      logits[j] = s;
+      m = fmaxf(m, s);
+    }
+    float e[EG_MAXK];
+    float z = 0.f;
+    for (int j = 0; j < k; ++j) { e[j] = expf(logits[j] - m); z += e[j]; }
+    for (int j = 0; j < k; ++j) {
+      const float p = e[j] / z;
+      s_feats[j] = logits[j];
+      s_feats[k + j] = p;
+      s_feats[2 * k + j] = p - prev[b * k + j];
+      probs_out[b * k + j] = p;
+      logits_out[b * k + j] = logits[j];
+    }
+  }
+  __syncthreads();
+  const int F = 3 * k;
+  float part = 0.f;
+  for (int h = threadIdx.x; h < H; h += EG_THREADS) {
+    float hid = b1[h];
+    for (int f = 0; f < F; ++f) hid = fmaf(s_feats[f], w1[f * H + h], hid);
+    part = fmaf(fmaxf(hid, 0.f), w2[h], part);
+  }
+  part = rt::warp_sum(part);
+  if (lane == 0) s_out[wid] = part;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float o = b2[0];
+    for (int q = 0; q < nw; ++q) o += s_out[q];
+    p_out[b] = 1.f / (1.f + expf(-o));
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int exit_gate_max_k() { return EG_MAXK; }
+const char* exit_gate_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// hn (B, D) and w (D, V) of one dtype; ids (B, k) int32; prev (B, k) f32;
+// w1 (3k, H), b1 (H,), w2 (H, 1), b2 (1,) f32; outputs p (B,),
+// probs (B, k), logits (B, k) f32.
+int exit_gate_launch(const void* hn, const void* w, const void* ids,
+                     const void* prev, const void* w1, const void* b1,
+                     const void* w2, const void* b2, void* p, void* probs,
+                     void* logits, int B, int D, int V, int k, int H,
+                     int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define EG_ARGS(T)                                                         \
+  static_cast<const T*>(hn), static_cast<const T*>(w),                     \
+      static_cast<const int*>(ids), static_cast<const float*>(prev),       \
+      static_cast<const float*>(w1), static_cast<const float*>(b1),        \
+      static_cast<const float*>(w2), static_cast<const float*>(b2),        \
+      static_cast<float*>(p), static_cast<float*>(probs),                  \
+      static_cast<float*>(logits), D, V, k, H
+  if (dtype == rt::DT_BF16) {
+    exit_gate_kernel<__nv_bfloat16><<<B, EG_THREADS, 0, st>>>(
+        EG_ARGS(__nv_bfloat16));
+  } else {
+    exit_gate_kernel<float><<<B, EG_THREADS, 0, st>>>(EG_ARGS(float));
+  }
+#undef EG_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,57 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch versions.
+
+Each kernel package ships:
+  ref.py — the plain PyTorch version (mirrors the JAX package's ``ref.py``);
+  ops.py — the wrapper: on a CPU tensor it runs the plain version, on a
+           CUDA tensor it launches the kernel from ``csrc/`` or raises.
+
+``LAUNCHES`` counts kernel launches per wrapper (one per wrapper call that
+launched its kernel, never for the plain version), so a run can show that a
+path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence
+
+import torch
+
+LAUNCHES: Dict[str, int] = {"exit_gate": 0, "argmax_verify": 0,
+                            "topk_verify": 0, "decode_attention": 0}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def check_arg(name: str, t: torch.Tensor, device: torch.device,
+              dtype=None, shape: Sequence[int] = None) -> None:
+    """Validate one kernel argument before its pointer is passed."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise ValueError(f"kernels take float32 or bfloat16, got "
+                         f"{t.dtype}") from None
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,0 +1,103 @@
+"""Build and load the port's CUDA kernels (``src/repro_torch/csrc/*.cu``).
+
+Each kernel source is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface under ``build/kernels/`` at the
+repository root, named by a hash of the sources so an edited kernel is
+rebuilt, and loaded with ``ctypes``. ``build_all`` starts one ``nvcc`` per
+source at once. Nothing is built or loaded on import: the CPU tests import
+every module on a machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("exit_gate", "argmax_verify", "topk_verify", "decode_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return str(path)
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every missing library in parallel; returns ``{name: ptxas
+    report}`` for the ones built now. Raises with the compiler's output on
+    the first failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    reports, failed = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu failed ---\n{log}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = (f"built {out.name} in "
+                         f"{time.perf_counter() - t0:.1f}s\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name`` (built if missing)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(path))
+        _LIBS[name] = lib
+    return lib
+
+
+def c_func(name: str, fn: str, argtypes, restype=ctypes.c_int):
+    f = getattr(load(name), fn)
+    f.argtypes = list(argtypes)
+    f.restype = restype
+    return f
+
+
+def check(name: str, rc: int, what: Optional[str] = None) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if rc != 0:
+        err = c_func(name, f"{name}_error", [ctypes.c_int], ctypes.c_char_p)
+        raise RuntimeError(f"{what or name} kernel launch failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")

@@ -1,0 +1,31 @@
+"""Plain PyTorch decode attention (counterpart of
+``repro/kernels/decode_attention/ref.py::decode_attention_ref``)."""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, cache_len,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, 1, H, hd); k_cache/v_cache: (B, S, KVH, hd); cache_len:
+    (B,) int. Returns (B, 1, H, hd)."""
+    B, S, KVH, hd = k_cache.shape
+    n_rep = q.shape[2] // KVH
+    if n_rep > 1:
+        k_cache = k_cache.repeat_interleave(n_rep, dim=2)
+        v_cache = v_cache.repeat_interleave(n_rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k_cache).float()
+    logits = logits * (1.0 / math.sqrt(hd))
+    kpos = torch.arange(S, device=q.device)[None, :]
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = kpos < clen
+    if window is not None:
+        valid = valid & (kpos >= clen - window)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v_cache.dtype), v_cache)

@@ -1,0 +1,128 @@
+"""Wrappers of the three exit-gate CUDA kernels (counterparts of the Pallas
+kernels in ``repro/kernels/exit_gate/exit_gate.py``).
+
+``exit_gate_fused``     — csrc/exit_gate.cu: gather-GEMM + softmax +
+                          Δ-features + 2-layer predictor, one CTA per row.
+``argmax_verify_fused`` — csrc/argmax_verify.cu: streaming LM-head argmax.
+``topk_verify_fused``   — csrc/topk_verify.cu: streaming LM-head top-k.
+
+On a CPU tensor each wrapper runs its plain version from ``ref.py``; on a
+CUDA tensor it launches its kernel (counted in ``kernels.LAUNCHES``) or
+raises. Outputs and scratch are allocated here with ``torch.empty``; the
+kernels run on the current stream and do not synchronize.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels import build
+from repro_torch.kernels.exit_gate import ref as gate_ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _is_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return False
+
+
+def exit_gate_fused(hn: torch.Tensor, lm_head: torch.Tensor,
+                    spec_ids: torch.Tensor, prev_probs: torch.Tensor,
+                    w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                    b2: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """hn (B, D); lm_head (D, V); spec_ids (B, k) int32; prev_probs (B, k)
+    fp32; predictor w1 (3k, H), b1 (H,), w2 (H, 1), b2 (1,) fp32.
+    Returns (p_exit (B,), probs (B, k), logits (B, k)), all fp32."""
+    if _is_cpu(hn):
+        pred = {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
+        return gate_ref.exit_gate_ref(hn, lm_head, spec_ids, prev_probs, pred)
+    B, D = hn.shape
+    V = lm_head.shape[1]
+    k = spec_ids.shape[1]
+    H = w1.shape[1]
+    dev = hn.device
+    K.check_arg("hn", hn, dev)
+    K.check_arg("lm_head", lm_head, dev, hn.dtype, (D, V))
+    K.check_arg("spec_ids", spec_ids, dev, torch.int32, (B, k))
+    K.check_arg("prev_probs", prev_probs, dev, torch.float32, (B, k))
+    K.check_arg("w1", w1, dev, torch.float32, (3 * k, H))
+    K.check_arg("b1", b1, dev, torch.float32, (H,))
+    K.check_arg("w2", w2, dev, torch.float32, (H, 1))
+    K.check_arg("b2", b2, dev, torch.float32, (1,))
+    fn = build.c_func("exit_gate", "exit_gate_launch", [_P] * 11 + [_I] * 6
+                      + [_P])
+    if k > build.c_func("exit_gate", "exit_gate_max_k", [])():
+        raise ValueError(f"exit_gate kernel: k={k} too large")
+    p = torch.empty(B, dtype=torch.float32, device=dev)
+    probs = torch.empty(B, k, dtype=torch.float32, device=dev)
+    logits = torch.empty(B, k, dtype=torch.float32, device=dev)
+    rc = fn(K.ptr(hn), K.ptr(lm_head), K.ptr(spec_ids), K.ptr(prev_probs),
+            K.ptr(w1), K.ptr(b1), K.ptr(w2), K.ptr(b2), K.ptr(p),
+            K.ptr(probs), K.ptr(logits), B, D, V, k, H, K.dtype_code(hn),
+            K.stream_ptr(dev))
+    build.check("exit_gate", rc)
+    K.LAUNCHES["exit_gate"] += 1
+    return p, probs, logits
+
+
+def _stream_args(name: str, hn: torch.Tensor, lm_head: torch.Tensor):
+    B, D = hn.shape
+    V = lm_head.shape[1]
+    dev = hn.device
+    K.check_arg("hn", hn, dev)
+    K.check_arg("lm_head", lm_head, dev, hn.dtype, (D, V))
+    if B > build.c_func(name, f"{name}_max_rows", [])():
+        raise ValueError(f"{name} kernel: batch {B} too large")
+    nblk = -(-V // build.c_func(name, f"{name}_block_cols", [])())
+    return B, D, V, dev, nblk
+
+
+def argmax_verify_fused(hn: torch.Tensor, lm_head: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hn (B, D); lm_head (D, V). Returns (argmax token (B,) int32, max
+    logit (B,) fp32), fp32 accumulation, lowest id among equal maxima."""
+    if _is_cpu(hn):
+        return gate_ref.verify_argmax_ref(hn, lm_head)
+    B, D, V, dev, nblk = _stream_args("argmax_verify", hn, lm_head)
+    fn = build.c_func("argmax_verify", "argmax_verify_launch",
+                      [_P] * 6 + [_I] * 4 + [_P])
+    pval = torch.empty(B, nblk, dtype=torch.float32, device=dev)
+    pidx = torch.empty(B, nblk, dtype=torch.int32, device=dev)
+    tok = torch.empty(B, dtype=torch.int32, device=dev)
+    mx = torch.empty(B, dtype=torch.float32, device=dev)
+    rc = fn(K.ptr(hn), K.ptr(lm_head), K.ptr(pval), K.ptr(pidx), K.ptr(tok),
+            K.ptr(mx), B, D, V, K.dtype_code(hn), K.stream_ptr(dev))
+    build.check("argmax_verify", rc)
+    K.LAUNCHES["argmax_verify"] += 1
+    return tok, mx
+
+
+def topk_verify_fused(hn: torch.Tensor, lm_head: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hn (B, D); lm_head (D, V). Returns (ids (B, k) int32, vals (B, k)
+    fp32) by descending logit, ties by ascending id, fp32 accumulation."""
+    if _is_cpu(hn):
+        return gate_ref.verify_topk_ref(hn, lm_head, k)
+    B, D, V, dev, nblk = _stream_args("topk_verify", hn, lm_head)
+    if not 1 <= k <= min(V, build.c_func("topk_verify", "topk_verify_max_k",
+                                         [])()):
+        raise ValueError(f"topk_verify kernel: unsupported k={k}")
+    fn = build.c_func("topk_verify", "topk_verify_launch",
+                      [_P] * 6 + [_I] * 5 + [_P])
+    pval = torch.empty(B, nblk, k, dtype=torch.float32, device=dev)
+    pidx = torch.empty(B, nblk, k, dtype=torch.int32, device=dev)
+    ids = torch.empty(B, k, dtype=torch.int32, device=dev)
+    vals = torch.empty(B, k, dtype=torch.float32, device=dev)
+    rc = fn(K.ptr(hn), K.ptr(lm_head), K.ptr(pval), K.ptr(pidx), K.ptr(ids),
+            K.ptr(vals), B, D, V, k, K.dtype_code(hn), K.stream_ptr(dev))
+    build.check("topk_verify", rc)
+    K.LAUNCHES["topk_verify"] += 1
+    return ids, vals

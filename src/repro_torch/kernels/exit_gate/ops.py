@@ -1,0 +1,90 @@
+"""Exit-gate entry points (counterpart of ``repro/kernels/exit_gate/ops.py``).
+
+``exit_gate()`` / ``verify_argmax()`` / ``verify_topk()`` are the decode
+engine's single entry points for the per-exit-point decision and the
+LM-head reductions. ``impl`` selects the backend:
+
+  "kernel" — the CUDA kernel wrappers (``exit_gate.py``): on a CUDA tensor
+             the kernel, on a CPU tensor its plain version. The plain
+             versions accumulate in fp32 like the kernels (the JAX "kernel"
+             impl, which the CPU tests run in Pallas interpret mode).
+  "ref"    — the engine's historical numerics: the gate is
+             ``exit_gate_ref``; verification materializes the (B, V)
+             logits with the matmul in ``hn.dtype`` (JAX ``ops.py:276-279``).
+  None / "auto" — "kernel" on a CUDA tensor, "ref" on a CPU tensor.
+
+The JAX package has a third backend, "xla", which is its CPU default for
+the gate; its gate dataflow is ``exit_gate_ref``, so the port's "ref" gate
+stands for both. Its CPU default for the verify is "ref", as here.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.predictor import predictor_at
+from repro_torch.kernels.exit_gate import ref as gate_ref
+from repro_torch.kernels.exit_gate.exit_gate import (argmax_verify_fused,
+                                                     exit_gate_fused,
+                                                     topk_verify_fused)
+
+IMPLS = (None, "auto", "kernel", "ref")
+
+
+def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
+    """Backend an ``impl`` request resolves to for tensors like ``x``."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl in (None, "auto"):
+        return "kernel" if x.is_cuda else "ref"
+    return impl
+
+
+def impl_for_flags(flags) -> str:
+    """Exit-gate backend a ``ModelFlags`` bundle selects: the fused impl
+    when ``exit_gate_kernel`` is on, else the historical "ref"."""
+    if getattr(flags, "exit_gate_kernel", False):
+        return getattr(flags, "exit_gate_impl", "auto") or "auto"
+    return "ref"
+
+
+def exit_gate(hn: torch.Tensor, lm_head: torch.Tensor, spec_ids: torch.Tensor,
+              prev_probs: torch.Tensor, predictors, ep: int,
+              impl: Optional[str] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exit decision at exit point ``ep``. hn (B, D); lm_head (D, V);
+    spec_ids (B, k) int32; prev_probs (B, k); predictors: the stacked bank.
+    Returns (p_exit (B,), local_probs (B, k), logits (B, k)), all fp32."""
+    impl = resolve_impl(impl, hn)
+    pp = predictor_at(predictors, ep)
+    layers = pp["layers"]
+    if impl == "ref":
+        return gate_ref.exit_gate_ref(hn, lm_head, spec_ids, prev_probs, pp)
+    if len(layers) != 2:
+        # the fused kernel holds a 2-layer predictor; the port has no
+        # unfused gate that would run a deeper one on the card
+        raise ValueError(f"exit_gate impl='kernel' needs a 2-layer "
+                         f"predictor, got depth {len(layers)}")
+    return exit_gate_fused(hn, lm_head, spec_ids, prev_probs.float(),
+                           layers[0]["w"], layers[0]["b"],
+                           layers[1]["w"], layers[1]["b"])
+
+
+def verify_argmax(hn: torch.Tensor, lm_head: torch.Tensor,
+                  impl: Optional[str] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-LM-head argmax. Returns (token (B,) int32, max logit (B,))."""
+    if resolve_impl(impl, hn) == "kernel":
+        return argmax_verify_fused(hn, lm_head)
+    return gate_ref.verify_argmax_ref(hn, lm_head, compute_dtype=hn.dtype)
+
+
+def verify_topk(hn: torch.Tensor, lm_head: torch.Tensor, k: int,
+                impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-LM-head top-k. Returns (ids (B, k) int32, vals (B, k) fp32),
+    descending by logit, ties by ascending id."""
+    if resolve_impl(impl, hn) == "kernel":
+        return topk_verify_fused(hn, lm_head, k)
+    return gate_ref.verify_topk_ref(hn, lm_head, k, compute_dtype=hn.dtype)

@@ -1,0 +1,54 @@
+"""Plain PyTorch versions of the exit-gate kernels (counterpart of
+``repro/kernels/exit_gate/ref.py``).
+
+``exit_gate_ref`` delegates to ``spec_head_ref`` and
+``core.predictor.apply_predictor``, as the JAX oracle does.
+``verify_argmax_ref`` / ``verify_topk_ref`` materialize the (B, V) logits;
+with ``compute_dtype=None`` they accumulate in fp32 (the kernels'
+contract), with ``compute_dtype=hn.dtype`` they are the engine's historical
+"ref" numerics.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.predictor import apply_predictor
+from repro_torch.kernels.spec_head.ref import spec_head_ref
+
+
+def exit_gate_ref(hn: torch.Tensor, lm_head: torch.Tensor,
+                  spec_ids: torch.Tensor, prev_probs: torch.Tensor,
+                  predictor) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Returns (p_exit (B,), probs (B, k), logits (B, k)), all fp32."""
+    logits, probs = spec_head_ref(hn, lm_head, spec_ids)
+    feats = torch.cat([logits, probs, probs - prev_probs.float()], dim=-1)
+    return apply_predictor(predictor, feats), probs, logits
+
+
+def _logits(hn, lm_head, compute_dtype):
+    dt = torch.float32 if compute_dtype is None else compute_dtype
+    return (hn.to(dt) @ lm_head.to(dt)).float()
+
+
+def verify_argmax_ref(hn: torch.Tensor, lm_head: torch.Tensor,
+                      compute_dtype: Optional[torch.dtype] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-head argmax (first index among equal maxima).
+    Returns (token (B,) int32, max logit (B,) fp32)."""
+    logits = _logits(hn, lm_head, compute_dtype)
+    return (torch.argmax(logits, dim=-1).to(torch.int32),
+            torch.amax(logits, dim=-1))
+
+
+def verify_topk_ref(hn: torch.Tensor, lm_head: torch.Tensor, k: int,
+                    compute_dtype: Optional[torch.dtype] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-head top-k, value descending then id ascending — a STABLE
+    descending sort (``torch.topk`` makes no promise on ties).
+    Returns (ids (B, k) int32, vals (B, k) fp32)."""
+    logits = _logits(hn, lm_head, compute_dtype)
+    vals, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return ids[:, :k].to(torch.int32), vals[:, :k]

@@ -1,0 +1,125 @@
+"""Attention (counterpart of ``repro/models/attention.py``): GQA, causal or
+sliding-window, against a (B, S, KVH, hd) KV cache. Plain torch, masked
+fp32 softmax, ``NEG_INF`` for masked scores."""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import common
+from repro_torch.models.common import Params
+
+NEG_INF = -1e30
+
+
+def init_attention(cfg: ModelConfig, gen, dtype, device) -> Params:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim()
+    out_std = 1.0 / math.sqrt(cfg.num_heads * hd) / math.sqrt(
+        2 * cfg.num_layers)
+    lin = common.init_linear
+    return {
+        "wq": lin(gen, d, cfg.num_heads * hd, cfg.use_bias, dtype, device),
+        "wk": lin(gen, d, cfg.num_kv_heads * hd, cfg.use_bias, dtype, device),
+        "wv": lin(gen, d, cfg.num_kv_heads * hd, cfg.use_bias, dtype, device),
+        "wo": lin(gen, cfg.num_heads * hd, d, cfg.use_bias, dtype, device,
+                  std=out_std),
+    }
+
+
+def qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> q (B,S,H,hd), k,v (B,S,KVH,hd), with RoPE applied."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    q = common.apply_linear(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
+    k = common.apply_linear(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    v = common.apply_linear(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    q = common.apply_rope(q, positions, cfg.rope_theta)
+    k = common.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def kv_only(cfg: ModelConfig, p: Params, x: torch.Tensor,
+            positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V projections only — SpecEE KV propagation of skipped layers."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    k = common.apply_linear(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    v = common.apply_linear(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    k = common.apply_rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KVH, hd) -> (B, S, KVH*n_rep, hd)."""
+    if n_rep == 1:
+        return x
+    B, S, KVH, hd = x.shape
+    return x[:, :, :, None, :].expand(B, S, KVH, n_rep, hd).reshape(
+        B, S, KVH * n_rep, hd)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Reference attention. q: (B, Sq, H, hd); k, v: (B, Sk, H, hd); mask
+    broadcastable to (B, H, Sq, Sk), True = attend. Softmax in fp32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if mask is not None:
+        logits = torch.where(mask, logits,
+                             torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def causal_mask(Sq: int, Sk: int, q_offset: int = 0,
+                window: Optional[int] = None, device=None) -> torch.Tensor:
+    """(1, 1, Sq, Sk) boolean mask; window = sliding-window size."""
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    return m[None, None]
+
+
+def attend_full(cfg: ModelConfig, q, k, v,
+                window: Optional[int] = None) -> torch.Tensor:
+    """Self-attention over a full sequence (prefill path)."""
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    S = q.shape[1]
+    return sdpa(q, k, v, causal_mask(S, S, 0, window, device=q.device))
+
+
+def attend_decode(cfg: ModelConfig, q, k_cache, v_cache, cache_len,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """One-step decode attention with grouped einsums.
+    q: (B, 1, H, hd); cache_len: (B,) valid slots (the current token's K/V
+    already written at cache_len - 1)."""
+    B, _, H, hd = q.shape
+    KVH = k_cache.shape[2]
+    n_rep = H // KVH
+    S = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qg = q[:, 0].reshape(B, KVH, n_rep, hd)
+    logits = torch.einsum("bgrd,bsgd->bgrs", qg, k_cache).float() * scale
+    kpos = torch.arange(S, device=q.device)[None, :]
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = kpos < clen
+    if window is not None:
+        valid = valid & (kpos >= clen - window)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrs,bsgd->bgrd", probs.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, H, hd)
+
+
+def out_proj(p: Params, attn_out: torch.Tensor) -> torch.Tensor:
+    B, S, H, hd = attn_out.shape
+    return common.apply_linear(p["wo"], attn_out.reshape(B, S, H * hd))

@@ -1,0 +1,128 @@
+"""Shared layers (counterpart of ``repro/models/common.py``).
+
+Parameters are plain nested dicts of tensors with the JAX package's nesting
+and layouts (linear weights are (d_in, d_out)), so ``repro_torch.bridge``
+moves a JAX pytree over leaf for leaf. Weights may be held in the compute
+dtype: the JAX code casts ``w.astype(x.dtype)`` at every call, so holding
+them cast already gives the same numbers.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor leaf of a nest of dicts/lists/tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def index_tree(tree, i: int):
+    """Leaf-wise ``x[i]`` — one unit out of a stacked segment (a view)."""
+    return tree_map(lambda x: x[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# seeded init (same shapes and scales as the JAX init; different numbers)
+# ---------------------------------------------------------------------------
+def normal_init(gen: torch.Generator, shape, std: float, dtype,
+                device) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (x * std).to(dtype)
+
+
+def init_norm(dim: int, dtype, device) -> Params:
+    return {"scale": torch.ones(dim, dtype=dtype, device=device)}
+
+
+def init_linear(gen, d_in: int, d_out: int, use_bias: bool, dtype, device,
+                std: Optional[float] = None) -> Params:
+    std = std if std is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": normal_init(gen, (d_in, d_out), std, dtype, device)}
+    if use_bias:
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=device)
+    return p
+
+
+def init_mlp(cfg: ModelConfig, gen, dtype, device) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    out_std = 1.0 / math.sqrt(f) / math.sqrt(2 * cfg.num_layers)
+    p: Params = {"wi": init_linear(gen, d, f, cfg.use_bias, dtype, device),
+                 "wo": init_linear(gen, f, d, cfg.use_bias, dtype, device,
+                                   std=out_std)}
+    if cfg.gated_mlp:
+        p["wg"] = init_linear(gen, d, f, cfg.use_bias, dtype, device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in fp32, output in x's dtype."""
+    assert cfg.norm == "rmsnorm", cfg.norm
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotary embedding, half-split convention (``common.py:94-104``).
+    x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * inv
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    assert cfg.activation == "silu" and cfg.gated_mlp
+    up = apply_linear(p["wi"], x)
+    up = F.silu(apply_linear(p["wg"], x)) * up
+    return apply_linear(p["wo"], up)
+
+
+def embed_tokens(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return p["tok"].to(dtype)[tokens.long()]
+
+
+def lm_head_weight(params: Params) -> torch.Tensor:
+    """(d_model, vocab) — transposed embedding when tied."""
+    if "lm_head" in params:
+        return params["lm_head"]["w"]
+    return params["embed"]["tok"].T

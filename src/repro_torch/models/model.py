@@ -1,0 +1,274 @@
+"""Model API over the attention family (counterpart of
+``repro/models/model.py``).
+
+The layer stack decomposes into segments — runs of a repeating unit of
+block kinds — and parameters and caches are stacked over each segment's
+repeat count exactly as in the JAX package: ``params["segments"][si]`` and
+``cache["segments"][si]`` hold ``u{i}`` entries whose leaves have a leading
+(reps,) dim. Exit points sit at unit boundaries.
+
+The KV cache is written IN PLACE (``index_put_`` on views of the stacked
+tensors) where the JAX package returns updated copies; every function that
+writes returns the cache it was given, so call sites read like the JAX ones.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.config import ATTN, LOCAL_ATTN, ModelConfig, RunConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import common
+from repro_torch.models.common import Params, index_tree
+
+
+def segments_of(blocks: Sequence[str], max_unit: int = 4
+                ) -> List[Tuple[Tuple[str, ...], int]]:
+    """Greedy decomposition of a block pattern into (unit, repeat) segments."""
+    blocks = list(blocks)
+    segs: List[Tuple[Tuple[str, ...], int]] = []
+    i, n = 0, len(blocks)
+    while i < n:
+        best_unit, best_cov = (blocks[i],), 1
+        for ul in range(1, max_unit + 1):
+            if i + ul > n:
+                break
+            unit = blocks[i:i + ul]
+            reps = 1
+            while (i + (reps + 1) * ul <= n and
+                   blocks[i + reps * ul: i + (reps + 1) * ul] == unit):
+                reps += 1
+            cov = reps * ul
+            if cov > best_cov:
+                best_unit, best_cov = tuple(unit), cov
+        segs.append((best_unit, best_cov // len(best_unit)))
+        i += best_cov
+    return segs
+
+
+@dataclass(frozen=True)
+class ModelFlags:
+    """Kernel selection (the subset of ``repro``'s flags this slice reads)."""
+    decode_kernel: bool = False     # CUDA decode-attention kernel
+    spec_head_kernel: bool = False  # spec-head kernel — not ported yet
+    exit_gate_kernel: bool = False  # fused exit gate + streaming verify
+    exit_gate_impl: str = "auto"    # "auto" | "kernel" | "ref"
+
+
+def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
+    return 2048 if kind == LOCAL_ATTN else None
+
+
+def _init_block(cfg: ModelConfig, kind: str, gen, dtype, device) -> Params:
+    assert kind in (ATTN, LOCAL_ATTN), kind
+    return {"ln1": common.init_norm(cfg.d_model, dtype, device),
+            "attn": attn_lib.init_attention(cfg, gen, dtype, device),
+            "ln2": common.init_norm(cfg.d_model, dtype, device),
+            "mlp": common.init_mlp(cfg, gen, dtype, device)}
+
+
+def _entry_write_token(cache_entry: Any, vals: Dict[str, torch.Tensor],
+                       rows: torch.Tensor, pvec: torch.Tensor) -> Any:
+    """Write one token's K/V into a dense cache entry at (rows, pvec), in
+    place (the JAX package's ``.at[rows, pvec].set`` makes a copy)."""
+    for name, v in vals.items():
+        cache_entry[name][rows, pvec] = v.to(cache_entry[name].dtype)
+    return cache_entry
+
+
+def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    """Prefill path. Returns (h_out, {"k", "v"})."""
+    x = common.apply_norm(cfg, p["ln1"], h)
+    q, k, v = attn_lib.qkv(cfg, p["attn"], x, positions)
+    o = attn_lib.attend_full(cfg, q, k, v, _window(cfg, kind))
+    h = h + attn_lib.out_proj(p["attn"], o)
+    x2 = common.apply_norm(cfg, p["ln2"], h)
+    h = h + common.apply_mlp(cfg, p["mlp"], x2)
+    return h, {"k": k, "v": v}
+
+
+def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
+                cache_entry: Any, pos: torch.Tensor, flags: ModelFlags
+                ) -> Tuple[torch.Tensor, Any]:
+    """One decode token. h: (B, D); pos: (B,) index of the current token.
+    Writes the token's K/V into ``cache_entry`` and attends the live prefix
+    (the decode-attention kernel under ``flags.decode_kernel``)."""
+    B = h.shape[0]
+    x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
+    pvec = pos.long()
+    rows = torch.arange(B, device=h.device)
+    q, k, v = attn_lib.qkv(cfg, p["attn"], x, pvec[:, None])
+    _entry_write_token(cache_entry, {"k": k[:, 0], "v": v[:, 0]}, rows, pvec)
+    if flags.decode_kernel:
+        from repro_torch.kernels.decode_attention import ops as da_ops
+        o = da_ops.decode_attention(cfg, q, cache_entry["k"],
+                                    cache_entry["v"], pos + 1,
+                                    window=_window(cfg, kind))
+    else:
+        o = attn_lib.attend_decode(cfg, q, cache_entry["k"], cache_entry["v"],
+                                   pos + 1, _window(cfg, kind))
+    h = h + attn_lib.out_proj(p["attn"], o)[:, 0, :]
+    x2 = common.apply_norm(cfg, p["ln2"], h[:, None, :])
+    return h + common.apply_mlp(cfg, p["mlp"], x2)[:, 0, :], cache_entry
+
+
+def _block_propagate(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
+                     cache_entry: Any, pos: torch.Tensor) -> Any:
+    """SpecEE skipped-layer KV propagation: write the K/V projections of the
+    exit hidden state so later tokens can attend this position."""
+    B = h.shape[0]
+    x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
+    pvec = pos.long()
+    k, v = attn_lib.kv_only(cfg, p["attn"], x, pvec[:, None])
+    return _entry_write_token(cache_entry, {"k": k[:, 0], "v": v[:, 0]},
+                              torch.arange(B, device=h.device), pvec)
+
+
+def _empty_cache_entry(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                       dtype, device) -> Any:
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim())
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+class Model:
+    def __init__(self, run: RunConfig, flags: ModelFlags = ModelFlags()):
+        if flags.spec_head_kernel:
+            raise NotImplementedError(
+                "spec_head_kernel: the spec-head kernel is not ported yet")
+        self.run = run
+        self.cfg = run.model
+        self.flags = flags
+        self.dtype = common.dtype_of(self.cfg.dtype)
+        self.segments = segments_of(list(self.cfg.blocks()))
+        self.num_exit_points = sum(reps for _, reps in self.segments)
+
+    # ----- init -----
+    def init(self, gen: Union[torch.Generator, int],
+             device: Union[str, torch.device] = "cuda") -> Params:
+        """Seeded weights in the compute dtype (same shapes and scales as
+        the JAX init, different numbers)."""
+        device = torch.device(device)
+        if isinstance(gen, int):
+            gen = torch.Generator(device=device).manual_seed(gen)
+        cfg, dt = self.cfg, self.dtype
+        params: Params = {"embed": {"tok": common.normal_init(
+            gen, (cfg.vocab_size, cfg.d_model), 0.02, dt, device)}}
+        segs = []
+        for unit, reps in self.segments:
+            per = [{f"u{i}": _init_block(cfg, kind, gen, dt, device)
+                    for i, kind in enumerate(unit)} for _ in range(reps)]
+            segs.append(_stack(per))
+        params["segments"] = segs
+        params["final_norm"] = common.init_norm(cfg.d_model, dt, device)
+        params["lm_head"] = {"w": common.normal_init(
+            gen, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5, dt,
+            device)}
+        return params
+
+    # ----- embedding / head -----
+    def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return common.embed_tokens(params["embed"], tokens, self.dtype)
+
+    def final_norm(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        return common.apply_norm(self.cfg, params["final_norm"], h)
+
+    def logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        w = common.lm_head_weight(params)
+        return (self.final_norm(params, h) @ w.to(h.dtype)).float()
+
+    # ----- prefill -----
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
+                max_seq: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
+        """Returns (logits of the last position (B, V) fp32, cache with
+        ``max_seq`` slots, {"h_final": (B, S, D) pre-final-norm hiddens})."""
+        tokens = batch["tokens"]
+        h = self.embed(params, tokens)
+        B, S, _ = h.shape
+        max_seq = max_seq or (S + 1)
+        positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
+        segs = []
+        for si, (unit, reps) in enumerate(self.segments):
+            seg_cache = {f"u{i}": {name: torch.zeros(
+                (reps, B, max_seq, self.cfg.num_kv_heads,
+                 self.cfg.resolved_head_dim()), dtype=self.dtype,
+                device=h.device) for name in ("k", "v")}
+                for i in range(len(unit))}
+            for r in range(reps):
+                up = index_tree(params["segments"][si], r)
+                for i, kind in enumerate(unit):
+                    h, kv = _block_seq(self.cfg, kind, up[f"u{i}"], h,
+                                       positions)
+                    for name in ("k", "v"):
+                        seg_cache[f"u{i}"][name][r, :, :S] = kv[name]
+            segs.append(seg_cache)
+        cache = {"segments": segs,
+                 "len": torch.full((B,), S, dtype=torch.int32,
+                                   device=h.device)}
+        return self.logits(params, h[:, -1, :]), cache, {"h_final": h}
+
+    def empty_cache(self, batch: int, max_seq: int,
+                    device: Union[str, torch.device] = "cuda") -> Any:
+        segs = []
+        for unit, reps in self.segments:
+            segs.append({f"u{i}": {name: t.expand(reps, *t.shape).clone()
+                                   for name, t in _empty_cache_entry(
+                                       self.cfg, kind, batch, max_seq,
+                                       self.dtype, device).items()}
+                         for i, kind in enumerate(unit)})
+        return {"segments": segs,
+                "len": torch.zeros(batch, dtype=torch.int32, device=device)}
+
+    # ----- layer-granular decode API (SpecEE engine) -----
+    def run_unit(self, params: Params, seg: int, unit_idx: int,
+                 h: torch.Tensor, seg_cache: Any, pos: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Any]:
+        """Run unit ``unit_idx`` of segment ``seg`` on one token (B, D),
+        writing its K/V into ``seg_cache``. Returns (h_out, seg_cache)."""
+        unit, _ = self.segments[seg]
+        up = index_tree(params["segments"][seg], unit_idx)
+        ce = index_tree(seg_cache, unit_idx)
+        for i, kind in enumerate(unit):
+            h, _ = _block_step(self.cfg, kind, up[f"u{i}"], h, ce[f"u{i}"],
+                               pos, self.flags)
+        return h, seg_cache
+
+    def propagate_unit(self, params: Params, seg: int, unit_idx: int,
+                       h: torch.Tensor, seg_cache: Any,
+                       pos: torch.Tensor) -> Any:
+        """KV propagation for a skipped unit (SpecEE early exit)."""
+        unit, _ = self.segments[seg]
+        up = index_tree(params["segments"][seg], unit_idx)
+        ce = index_tree(seg_cache, unit_idx)
+        for i, kind in enumerate(unit):
+            _block_propagate(self.cfg, kind, up[f"u{i}"], h, ce[f"u{i}"], pos)
+        return seg_cache
+
+    # ----- dense decode (baseline, no early exit) -----
+    def decode_step_hidden(self, params: Params, token: torch.Tensor,
+                           cache: Any) -> Tuple[torch.Tensor, Any]:
+        """Full-depth decode returning the PRE-final-norm hidden (B, D);
+        the emit is the caller's. token: (B,) int."""
+        h = self.embed(params, token[:, None])[:, 0, :]
+        pos = cache["len"]
+        for seg, (_, reps) in enumerate(self.segments):
+            for u in range(reps):
+                h, _ = self.run_unit(params, seg, u, h,
+                                     cache["segments"][seg], pos)
+        return h, dict(cache, len=pos + 1)
+
+
+def _stack(per: List[Params]) -> Params:
+    """Stack a list of identically-nested param trees leaf-wise."""
+    first = per[0]
+    if isinstance(first, dict):
+        return {k: _stack([p[k] for p in per]) for k in first}
+    return torch.stack(per)
+
+
+def build_model(run: RunConfig, flags: ModelFlags = ModelFlags()) -> Model:
+    return Model(run, flags)

@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA Hopper card and ``nvcc``; without them they
+skip. On such a machine (where JAX may be absent, so the repository's
+conftest is left out):
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+Tolerances: argmax/top-k ids exact in fp32 (random inputs: the top-2 gap
+dwarfs fp32 rounding); fp32 values atol = rtol = 1e-4 (different
+summation order); attention is held against the plain version on its
+inputs upcast to fp32 (the kernel computes in fp32), atol 1e-4 and in bf16
+rtol 2**-7 (the output's rounding to bf16 errs by at most 2**-8 relative).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import build
+    build.build_all()
+    return torch.device("cuda")
+
+
+def _rand(gen, shape, dev, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_kernels_match_plain(dev, dtype):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hn = _rand(gen, (4, 512), dev, dtype)
+    w = _rand(gen, (512, 3001), dev, dtype, 0.05)
+    reset_launches()
+    tok, mx = eg.argmax_verify_fused(hn, w)
+    ids, vals = eg.topk_verify_fused(hn, w, 4)
+    torch.cuda.synchronize()
+    assert LAUNCHES["argmax_verify"] == 1 and LAUNCHES["topk_verify"] == 1
+    tok_r, mx_r = ref.verify_argmax_ref(hn, w)
+    ids_r, vals_r = ref.verify_topk_ref(hn, w, 4)
+    assert torch.equal(tok, tok_r) and torch.equal(ids, ids_r)
+    torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(vals, vals_r, atol=1e-4, rtol=1e-4)
+
+
+def test_verify_kernels_break_ties_to_lowest_id(dev):
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    gen = torch.Generator(device=dev).manual_seed(1)
+    hn = _rand(gen, (2, 256), dev)
+    w = _rand(gen, (256, 1000), dev, scale=0.05)
+    best = int((hn[0] @ w).argmax())
+    for j in (3, best + 1, 999):
+        w[:, j] = w[:, best]
+    tok, _ = eg.argmax_verify_fused(hn, w)
+    ids, _ = eg.topk_verify_fused(hn, w, 4)
+    dup = sorted({3, best, best + 1, 999})
+    assert int(tok[0]) == dup[0]
+    assert ids[0].tolist() == dup[:4]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exit_gate_kernel_matches_plain(dev, dtype):
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    gen = torch.Generator(device=dev).manual_seed(2)
+    B, D, V, k, H = 4, 512, 3001, 4, 512
+    hn = _rand(gen, (B, D), dev, dtype)
+    w = _rand(gen, (D, V), dev, dtype, 0.05)
+    ids = torch.randint(0, V, (B, k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    prev = torch.softmax(_rand(gen, (B, k), dev), -1)
+    w1, b1 = _rand(gen, (3 * k, H), dev, scale=0.3), _rand(gen, (H,), dev)
+    w2, b2 = _rand(gen, (H, 1), dev, scale=0.05), _rand(gen, (1,), dev)
+    got = eg.exit_gate_fused(hn, w, ids, prev, w1, b1, w2, b2)
+    want = eg.exit_gate_fused(hn.cpu(), w.cpu(), ids.cpu(), prev.cpu(),
+                              w1.cpu(), b1.cpu(), w2.cpu(), b2.cpu())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kvh,hd,window", [(8, 128, None), (2, 64, 5),
+                                           (4, 32, None)])
+def test_decode_attention_kernel_matches_plain(dev, dtype, kvh, hd, window):
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_fwd)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, S, H = 3, 77, 8
+    q = _rand(gen, (B, 1, H, hd), dev, dtype)
+    k = _rand(gen, (B, S, kvh, hd), dev, dtype)
+    v = _rand(gen, (B, S, kvh, hd), dev, dtype)
+    clen = torch.tensor([77, 30, 1], dtype=torch.int32, device=dev)
+    got = decode_attention_fwd(q, k, v, clen, window=window)
+    want = decode_attention_ref(q.float(), k.float(), v.float(), clen, window)
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)
+
+
+def test_engine_kernels_match_plain_path(dev):
+    """The SpecEE slice on the card: kernel flags vs plain flags, smoke
+    width, fp32 — tokens and exit decisions identical."""
+    from repro_torch.api import Engine, SpecEEStrategy
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine as eng
+    from repro_torch.models.model import ModelFlags, build_model
+    run = get_config("llama2-7b").smoke()
+    m_plain = build_model(run)
+    m_ker = build_model(run, ModelFlags(exit_gate_kernel=True,
+                                        exit_gate_impl="kernel",
+                                        decode_kernel=True))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = m_plain.init(gen, dev)
+    sw = eng.init_specee(m_plain, gen, dev)
+    prompts = np.random.default_rng(0).integers(0, 512, (2, 8))
+    for thresh in (1.5, 0.4, -0.1):
+        outs = []
+        for m in (m_plain, m_ker):
+            s = Engine.create(m, params, sw,
+                              strategy=SpecEEStrategy(threshold=thresh)
+                              ).new_session()
+            res = [s.prefill(prompts, max_new_tokens=5)]
+            while not s.all_done():
+                res.append(s.step())
+            outs.append([(r.tokens.tolist(), r.exit_layer.tolist(),
+                          r.exited.tolist()) for r in res])
+        assert outs[0] == outs[1]

@@ -1,0 +1,182 @@
+"""The port's kernel modules on the CPU (where every wrapper runs its plain
+version) against the JAX package's Pallas kernels in interpret mode and its
+``ref.py`` oracles.
+
+Tolerances: argmax and top-k ids exact — the inputs are small integers, so
+every logit is an exact fp32 integer in any summation order and ties are
+real, exercising the lowest-id rule; other float outputs atol = rtol =
+1e-5 (fp32, different summation order)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.config import SpecEEConfig as JSpecEEConfig  # noqa: E402
+from repro.core import predictor as jpred  # noqa: E402
+from repro.kernels.decode_attention.decode_attention import (  # noqa: E402
+    decode_attention_fwd as jax_decode_attention_fwd)
+from repro.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref as jax_decode_attention_ref)
+from repro.kernels.exit_gate import ops as jgate  # noqa: E402
+from repro.kernels.exit_gate.exit_gate import (  # noqa: E402
+    argmax_verify_fused as jax_argmax, topk_verify_fused as jax_topk)
+from repro_torch import bridge  # noqa: E402
+from repro_torch import kernels as K  # noqa: E402
+from repro_torch.config import SpecEEConfig  # noqa: E402
+from repro_torch.core import predictor as tpred  # noqa: E402
+from repro_torch.kernels.decode_attention.decode_attention import (  # noqa
+    decode_attention_fwd)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref)
+from repro_torch.kernels.exit_gate import ops as tgate  # noqa: E402
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _close(a, b):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), **TOL)
+
+
+# ---------------- decode attention (Pallas row 4) ----------------
+@pytest.mark.parametrize("kvh", [4, 2])
+@pytest.mark.parametrize("window", [None, 3])
+def test_decode_attention_matches_pallas(kvh, window):
+    rng = np.random.default_rng(0)
+    B, S, H, hd = 3, 16, 4, 32
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, kvh, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, kvh, hd)).astype(np.float32)
+    clen = np.array([16, 5, 1], np.int32)               # ragged, >= 1
+    want = jax_decode_attention_fwd(q, k, v, clen, window=window, block_k=4)
+    got = decode_attention_fwd(_t(q), _t(k), _t(v), _t(clen), window=window)
+    _close(got, want)
+    _close(decode_attention_ref(_t(q), _t(k), _t(v), _t(clen), window),
+           jax_decode_attention_ref(q, k, v, clen, window))
+
+
+# ---------------- LM-head verify kernels (Pallas rows 2, 3) --------------
+def _int_inputs(B, D, V, seed):
+    """Small-integer hn and head: exact logits and many exact ties."""
+    rng = np.random.default_rng(seed)
+    hn = rng.integers(-2, 3, (B, D)).astype(np.float32)
+    w = rng.integers(-2, 3, (D, V)).astype(np.float32)
+    # duplicate the best column of row 0 at a higher and a lower id: the
+    # tie must resolve to the lowest id
+    best = int(np.argmax(hn[0] @ w))
+    w[:, (best + 7) % V] = w[:, best]
+    w[:, (best + V - 5) % V] = w[:, best]
+    return hn, w
+
+
+@pytest.mark.parametrize("B,D,V,seed", [(4, 128, 512, 0), (3, 96, 300, 1),
+                                        (2, 64, 1000, 2)])
+def test_verify_argmax_ties_match_pallas(B, D, V, seed):
+    hn, w = _int_inputs(B, D, V, seed)
+    logits = hn @ w
+    assert (logits == logits.max(1, keepdims=True)).sum() > B  # real ties
+    tok_j, mx_j = jax_argmax(hn, w, block_v=128, block_d=32)
+    tok_t, mx_t = tgate.verify_argmax(_t(hn), _t(w), impl="kernel")
+    np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+    np.testing.assert_array_equal(tok_t.numpy(), np.argmax(logits, 1))
+    _close(mx_t, mx_j)
+    ref_j = jgate.verify_argmax(hn, w, impl="ref")
+    ref_t = tgate.verify_argmax(_t(hn), _t(w), impl="ref")
+    np.testing.assert_array_equal(ref_t[0].numpy(), np.asarray(ref_j[0]))
+    assert tok_t.dtype == torch.int32
+
+
+@pytest.mark.parametrize("B,D,V,seed", [(4, 128, 512, 3), (3, 96, 300, 4),
+                                        (2, 64, 1000, 5)])
+@pytest.mark.parametrize("k", [4, 2])
+def test_verify_topk_ties_match_pallas(B, D, V, seed, k):
+    hn, w = _int_inputs(B, D, V, seed)
+    ids_j, vals_j = jax_topk(hn, w, k, block_v=128, block_d=32)
+    ids_t, vals_t = tgate.verify_topk(_t(hn), _t(w), k, impl="kernel")
+    np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+    _close(vals_t, vals_j)
+    _, ids_lax = jax.lax.top_k(jnp.asarray(hn @ w), k)
+    np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_lax))
+    ref_j = jgate.verify_topk(hn, w, k, impl="ref")
+    ref_t = tgate.verify_topk(_t(hn), _t(w), k, impl="ref")
+    np.testing.assert_array_equal(ref_t[0].numpy(), np.asarray(ref_j[0]))
+
+
+# ---------------- exit gate (Pallas row 1) ----------------
+@pytest.mark.parametrize("B,D,V,k", [(4, 128, 512, 4), (3, 96, 300, 3)])
+@pytest.mark.parametrize("impl", ["kernel", "ref"])
+def test_exit_gate_matches_jax(B, D, V, k, impl):
+    spec_j = JSpecEEConfig(num_speculative=k)
+    bank_j = jpred.init_predictors(spec_j, 5, jax.random.PRNGKey(7))
+    bank_t = bridge.to_torch(jax.tree_util.tree_map(np.asarray, bank_j),
+                             "cpu")
+    rng = np.random.default_rng(B)
+    hn = rng.standard_normal((B, D)).astype(np.float32)
+    w = (rng.standard_normal((D, V)) * 0.05).astype(np.float32)
+    ids = rng.integers(0, V, (B, k)).astype(np.int32)
+    prev = rng.dirichlet(np.ones(k), B).astype(np.float32)
+    for ep in (0, 4):
+        want = jgate.exit_gate(hn, w, ids, prev, bank_j, jnp.int32(ep),
+                               impl=impl)
+        got = tgate.exit_gate(_t(hn), _t(w), _t(ids), _t(prev), bank_t, ep,
+                              impl=impl)
+        for a, b in zip(got, want):
+            _close(a, b)
+
+
+def test_exit_gate_kernel_rejects_other_predictor_depths():
+    """The fused gate holds a 2-layer predictor: a deeper bank raises under
+    impl="kernel" (no silent plain gate) and runs under impl="ref"."""
+    gen = torch.Generator().manual_seed(0)
+    bank = tpred.init_predictors(SpecEEConfig(predictor_layers=3), 2, gen,
+                                 "cpu")
+    hn, w = torch.randn(2, 16), torch.randn(16, 32)
+    ids = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
+    prev = torch.full((2, 4), 0.25)
+    with pytest.raises(ValueError, match="depth 3"):
+        tgate.exit_gate(hn, w, ids, prev, bank, 0, impl="kernel")
+    p, _, _ = tgate.exit_gate(hn, w, ids, prev, bank, 0, impl="ref")
+    assert p.shape == (2,) and bool(torch.isfinite(p).all())
+
+
+def test_predictor_matches_jax():
+    spec_j, spec_t = JSpecEEConfig(), SpecEEConfig()
+    bank_j = jpred.init_predictors(spec_j, 3, jax.random.PRNGKey(1))
+    bank_t = bridge.to_torch(jax.tree_util.tree_map(np.asarray, bank_j),
+                             "cpu")
+    feats = np.random.default_rng(0).standard_normal((5, 12)).astype(
+        np.float32)
+    _close(tpred.apply_predictor(tpred.predictor_at(bank_t, 2), _t(feats)),
+           jpred.apply_predictor(jpred.predictor_at(bank_j, 2), feats))
+    gen = torch.Generator().manual_seed(0)
+    bank = tpred.init_predictors(spec_t, 3, gen, "cpu")
+    assert [tuple(l["w"].shape) for l in bank["layers"]] == \
+        [tuple(l["w"].shape) for l in bank_j["layers"]]
+
+
+# ---------------- impl switch and wrapper rules ----------------
+def test_impl_resolution_and_cpu_wrappers_do_not_launch():
+    x = torch.zeros(2, 8)
+    assert tgate.resolve_impl("auto", x) == "ref"
+    assert tgate.resolve_impl(None, x) == "ref"
+    assert tgate.resolve_impl("kernel", x) == "kernel"
+    with pytest.raises(ValueError):
+        tgate.resolve_impl("xla", x)
+
+    class Flags:
+        exit_gate_kernel = True
+        exit_gate_impl = "kernel"
+    assert tgate.impl_for_flags(Flags) == "kernel"
+    Flags.exit_gate_kernel = False
+    assert tgate.impl_for_flags(Flags) == "ref"
+    K.reset_launches()
+    tgate.verify_argmax(torch.randn(2, 8), torch.randn(8, 16), impl="kernel")
+    tgate.verify_topk(torch.randn(2, 8), torch.randn(8, 16), 4,
+                      impl="kernel")
+    assert all(n == 0 for n in K.LAUNCHES.values())
