@@ -1,31 +1,49 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper card: builds the port's CUDA kernels, holds each against its plain
-PyTorch version, and drives greedy SpecEE decode of Llama-2-7B through the
-port's public entry points.
+PyTorch version, drives greedy SpecEE decode of Llama-2-7B through the
+port's public entry points, and serves requests through its
+continuous-batching ``ServingEngine`` on the paged KV cache.
 
     python3 chip_smoke.py
 
 Phases (one line each, ``[phase] ...``):
   1. device + build — the card's name and power limit, then ``nvcc`` builds
-     every kernel of ``src/repro_torch/csrc`` for sm_90a (in parallel);
-  2. kernels — each kernel vs its plain version at the decode path's shapes
-     (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128, caches up to 1024)
-     in fp32 and bf16, then timed beside its plain version, a library call
-     as yardstick, and the least time the card could take (bound);
+     the six kernels of ``src/repro_torch/csrc`` for sm_90a (in parallel);
+  2. kernels — each kernel vs its plain version in fp32 and bf16 at the
+     main paths' shapes (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128,
+     dense caches up to 1024; paged: B=8, 128-token pages, a shuffled page
+     table, ragged lengths with a retired all-trash row; flash: B in {1, 4},
+     S in {77, 512}, window None/64, GQA n_rep=4), then timed beside its
+     plain version, a library call as yardstick, and the least time the
+     card could take (bound);
   3. parity — llama2-7b at full width, 4 layers, fp32, seeded weights:
      Engine.create → new_session → prefill(4 prompts) → step x 8 at
      thresholds 1.5, 0.4, -0.1, with the kernels and with the plain
      versions; tokens, exit points and exits must match, threshold 1.5 must
-     equal dense decoding, and an oracle speculative set must force exits;
+     equal dense decoding, and an oracle speculative set must force exits.
+     Then ServingEngine with every kernel (paged and dense caches, blocking
+     and 64-token chunked admission) against ServingEngine on the plain
+     paths: 8 requests through 4 slots, per-request tokens and exit points
+     identical, with the draft's speculative set and with an oracle set
+     that forces exits (skipped layers' K/V propagated through the page
+     table and read back by the paged kernel);
   4. full run — llama2-7b, 32 layers, bf16, 4 prompts of 128 tokens,
-     32 SpecEE decode steps; the kernel launch counts are zeroed right
-     before and read right after;
-  5. the ``{"kernels": [...]}`` line, the card line, and as the last line
+     32 SpecEE decode steps (whole-batch session, dense cache);
+  5. serve — the same weights, ServingEngine(cache="paged") with
+     max_batch 8, 4096-token rows of 128-token pages: 16 requests with
+     prompts of 64-512 tokens, 32 new tokens each, once with blocking
+     admission and once with 256-token chunks; for each request on which
+     the two differ, the top-2 logit margin at the first differing token;
+     then a profile of serving ticks by kernel family;
+  6. the ``{"kernels": [...]}`` line, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
-Any failure exits non-zero without the last line. Without a CUDA card, or
-without the repository beside this file, it fails at once.
+Each main path (phases 4 and 5, each serve run on its own) zeroes the
+kernel launch counts right before it and reads them right after; a kernel
+of that path that never launched fails the run. Any failure exits non-zero
+without the last line. Without a CUDA card, or without the repository
+beside this file, it fails at once.
 """
 from __future__ import annotations
 
@@ -50,11 +68,18 @@ REPLACES = {
     "topk_verify": "src/repro/kernels/exit_gate/exit_gate.py:336",
     "decode_attention":
         "src/repro/kernels/decode_attention/decode_attention.py:143",
+    "paged_decode_attention":
+        "src/repro/kernels/decode_attention/decode_attention.py:270",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:116",
 }
 
 B, D, V, K_SPEC, H_PRED = 4, 4096, 32000, 4, 512
 HEADS, HD = 32, 128
 FULL_PROMPT, FULL_STEPS = 128, 32
+PAGE = 128                                   # tokens per page when serving
+SERVE_BATCH, SERVE_SEQ, SERVE_REQS, SERVE_NEW = 8, 4096, 16, 32
+SERVE_PROMPTS = (64, 512)                    # prompt lengths, inclusive
 
 
 def log(phase: str, msg: str) -> None:
@@ -271,6 +296,11 @@ def check_kernels(torch, dev):
     b_big = bound_ms(2 * B * 1024 * HEADS * HD * 2, 0, dname)[0]
     log("kernels", f"decode_attention at 1024 live slots, bf16: "
         f"{ms_big:.4f} ms (bound {b_big:.4f} ms)")
+    del big, caches, kv_t
+    errs_attn, t_attn = check_attention_kernels(torch, dev, rnd)
+    t.update(t_attn)
+    for name in rows:
+        rows[name].update(errs_attn[name])
     for name, (ms, plain, lib, (bnd, by)) in t.items():
         lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
         log("kernels", f"{name} bf16 timing: kernel {ms:.4f} ms, plain "
@@ -279,15 +309,160 @@ def check_kernels(torch, dev):
     return rows["bfloat16"], t
 
 
+def _paged_case(torch, dev, rnd, dt, P, lens, seed):
+    """B = len(lens) rows of P pages each, a shuffled table over a pool with
+    spare pages, the last row retired (every entry the trash page)."""
+    import numpy as np
+    Bp = len(lens)
+    NP = Bp * P + 5                              # + spare, then the trash
+    q = rnd((Bp, 1, HEADS, HD), dt)
+    kp = rnd((NP + 1, PAGE, HEADS, HD), dt)
+    vp = rnd((NP + 1, PAGE, HEADS, HD), dt)
+    perm = np.random.default_rng(seed).permutation(NP)[:Bp * P]
+    table = torch.as_tensor(perm.reshape(Bp, P).astype(np.int32), device=dev)
+    table[-1] = NP
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, table, cl
+
+
+def _live_keys(lens, window) -> int:
+    return sum(min(n, window) if window else n for n in lens)
+
+
+def check_attention_kernels(torch, dev, rnd):
+    """Phase 2 for the paged decode-attention and flash-attention kernels:
+    each against its plain version in fp32 and bf16, then bf16 timings."""
+    import torch.nn.functional as F
+    from repro_torch.core import paged as paged_lib
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        paged_decode_attention_fwd)
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    # live spans of about 150 (a serving tick early in a request) and 1024
+    paged_cases = ((2, [150, 1, 77, 149, 150, 128, 129, 1]),
+                   (8, [1024, 1, 700, 1000, 513, 1024, 300, 1]))
+    flash_cases = ((1, 77, HEADS), (1, 512, HEADS), (4, 77, HEADS),
+                   (4, 512, HEADS), (1, 512, HEADS // 4))
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        # both kernels keep scores, probabilities and sums in fp32, so the
+        # plain versions run on the inputs upcast to fp32 (exact for bf16);
+        # atol 1e-4 covers the summation order, and in bf16 rtol 2**-7
+        # covers rounding the output to bf16 (2**-8 relative at most)
+        rtol = 1e-4 if dt == torch.float32 else 2.0 ** -7
+        err_pd = 0.0
+        for i, (P, lens) in enumerate(paged_cases):
+            q, kp, vp, table, cl = _paged_case(torch, dev, rnd, dt, P, lens,
+                                               i)
+            for window in (None, 20):
+                o = paged_decode_attention_fwd(q, kp, vp, table, cl,
+                                               window=window).float()
+                o_r = paged_decode_attention_ref(q.float(), kp.float(),
+                                                 vp.float(), table, cl,
+                                                 window)
+                # the retired row's output is never read: compare live rows
+                torch.testing.assert_close(o[:-1], o_r[:-1], atol=1e-4,
+                                           rtol=rtol)
+                err_pd = max(err_pd, (o[:-1] - o_r[:-1]).abs().max().item())
+            del kp, vp
+        err_fa = 0.0
+        for Bf, S, kvh in flash_cases:
+            q = rnd((Bf, S, HEADS, HD), dt)
+            k = rnd((Bf, S, kvh, HD), dt)
+            v = rnd((Bf, S, kvh, HD), dt)
+            for window in (None, 64):
+                o = flash_attention_fwd(q, k, v, causal=True,
+                                        window=window).float()
+                o_r = flash_attention_ref(q.float(), k.float(), v.float(),
+                                          True, window)
+                torch.testing.assert_close(o, o_r, atol=1e-4, rtol=rtol)
+                err_fa = max(err_fa, (o - o_r).abs().max().item())
+        torch.cuda.synchronize()
+        log("kernels", f"{name}: paged_decode_attention err {err_pd:.3g} "
+            f"(spans ~150 and ~1024, window None/20, retired row); "
+            f"flash_attention err {err_fa:.3g} (B 1/4, S 77/512, window "
+            f"None/64, n_rep 1/4)")
+        errs[name] = {"paged_decode_attention": err_pd,
+                      "flash_attention": err_fa}
+
+    # ---- bf16 timings at the serving shapes ----
+    dt, dname = torch.bfloat16, "bfloat16"
+    t = {}
+    for P, lens in paged_cases:
+        # 4 distinct pools (~0.6 GB together) so each call reads its pages
+        # from memory, as a decode tick does after the layer's weights
+        cases = [_paged_case(torch, dev, rnd, dt, P, lens, 10 + j)
+                 for j in range(4)]
+        live = _live_keys(lens, None)
+        nbytes = (2 * live * HEADS * HD * 2 + 2 * len(lens) * HEADS * HD * 2
+                  + len(lens) * (P + 1) * 4)
+        ops = 4 * live * HEADS * HD
+        views = []
+        for q, kp, vp, table, cl in cases:
+            kv = paged_lib.gather_view(kp, table).transpose(1, 2)
+            vv = paged_lib.gather_view(vp, table).transpose(1, 2)
+            mask = (torch.arange(kv.shape[2], device=dev)[None, :]
+                    < cl[:, None])[:, None, None, :]
+            views.append((q.transpose(1, 2), kv, vv, mask))
+        row = (graph_ms(torch, [lambda c=c: paged_decode_attention_fwd(*c)
+                                for c in cases] * 3),
+               graph_ms(torch, [lambda c=c: paged_decode_attention_ref(*c)
+                                for c in cases] * 3),
+               graph_ms(torch, [lambda w=w: F.scaled_dot_product_attention(
+                   w[0], w[1], w[2], attn_mask=w[3]) for w in views] * 3),
+               bound_ms(nbytes, ops, dname))
+        log("kernels", f"paged_decode_attention bf16, B=8, {live} live keys "
+            f"({P} pages/row): kernel {row[0]:.4f} ms, plain {row[1]:.4f} "
+            f"ms, SDPA on the gathered view {row[2]:.4f} ms, bound "
+            f"{row[3][0]:.4f} ms ({row[3][1]})")
+        if P == paged_cases[0][0]:
+            t["paged_decode_attention"] = row
+        del cases, views
+    for Bf, S, kvh in flash_cases:
+        q = rnd((Bf, S, HEADS, HD), dt)
+        k = rnd((Bf, S, kvh, HD), dt)
+        v = rnd((Bf, S, kvh, HD), dt)
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        ops = 4 * Bf * HEADS * HD * S * (S + 1) // 2
+        n = 10
+        row = (graph_ms(torch, [lambda: flash_attention_fwd(q, k, v)] * n),
+               graph_ms(torch, [lambda: flash_attention_ref(q, k, v)] * n),
+               graph_ms(torch, [lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, is_causal=True,
+                   enable_gqa=kvh != HEADS)] * n),
+               bound_ms(nbytes, ops, dname))
+        log("kernels", f"flash_attention bf16, B={Bf}, S={S}, n_rep="
+            f"{HEADS // kvh}: kernel {row[0]:.4f} ms, plain {row[1]:.4f} "
+            f"ms, causal SDPA {row[2]:.4f} ms, bound {row[3][0]:.4f} ms "
+            f"({row[3][1]})")
+        if (Bf, S, kvh) == (1, 512, HEADS):     # one serving prefill
+            t["flash_attention"] = row
+    return errs, t
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the decode path through the public entry points
 # ---------------------------------------------------------------------------
-def llama(layers: int, dtype: str):
+def llama(layers: int, dtype: str, **serve):
+    """llama2-7b at full width with ``layers`` layers in ``dtype``; keyword
+    arguments replace ``ServeConfig`` fields."""
     import dataclasses
     from repro_torch.configs import get_config
     run = get_config("llama2-7b")
-    return dataclasses.replace(run, model=dataclasses.replace(
-        run.model, num_layers=layers, dtype=dtype))
+    return dataclasses.replace(
+        run, model=dataclasses.replace(run.model, num_layers=layers,
+                                       dtype=dtype),
+        serve=dataclasses.replace(run.serve, **serve))
+
+
+ALL_KERNELS = dict(flash_attention=True, decode_kernel=True,
+                   exit_gate_kernel=True, exit_gate_impl="kernel")
 
 
 def drive(model, params, sw, strategy, prompts, new_tokens):
@@ -368,19 +543,124 @@ def parity(torch, dev):
     log("parity", f"oracle set: every row exits (exit points {expect}) with "
         "the verified token; propagated K/V equal (atol 1e-4) with kernels "
         "and plain")
+    serving_parity(torch, dev, params, sw)
     del params, sw
 
 
-def full_run(torch, dev):
-    import numpy as np
-    from repro_torch import kernels as K
-    from repro_torch.api import DenseStrategy, Engine, SpecEEStrategy
+def _serve(model, params, sw, prompts, new_tokens, **kw):
+    from repro_torch.serving import ServingEngine
+    se = ServingEngine(model, params, sw, **kw)
+    reqs = [se.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    se.run_to_completion()
+    mgr = se.session.cache_mgr
+    require(mgr.free_pages == getattr(mgr, "num_pages", 0),
+            f"{mgr.free_pages} pages free after serving, expected all")
+    return [(r.output, r.exit_points) for r in reqs]
+
+
+def top2_margin(torch, model, params, tokens):
+    """(top-2 logit margin, top logit) of the plain model's next token
+    after ``tokens`` (the ROADMAP parity rule: a flipped token is reported
+    with its margin, not hidden behind a looser check)."""
+    logits, _, _ = model.prefill(
+        params, {"tokens": torch.as_tensor([tokens], device=params[
+            "lm_head"]["w"].device)})
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1]), float(top[0])
+
+
+def oracle_strategy(threshold: float):
+    """SpecEE with an oracle speculative set, so that rows really exit and
+    the skipped layers' K/V is propagated (through the page table on a
+    paged cache) and read back by later ticks. The set is the plain
+    full-head argmax after unit 1, got by running units 0 and 1 ahead of
+    the step (they write the same K/V the step then writes again); on
+    every third position a row gets a set that misses it instead, so it
+    runs to full depth."""
+    import dataclasses
+    import torch
+    from repro_torch.api import SpecEEStrategy
+    from repro_torch.api.strategies import _single_token_result
     from repro_torch.core import engine as eng
+
+    @dataclasses.dataclass(frozen=True)
+    class OracleSpecEE(SpecEEStrategy):
+        def step(self, model, params, sw, state):
+            pos = state.cache["len"]
+            pages = state.cache.get("page_table")
+            h = model.embed(params, state.last_token[:, None])[:, 0, :]
+            seg = state.cache["segments"][0]
+            for u in range(2):
+                h, seg = model.run_unit(params, 0, u, h, seg, pos,
+                                        pages=pages)
+            hit = torch.argmax(model.logits(params, h), -1).to(torch.int32)
+            miss = (hit + 1) % model.cfg.vocab_size
+            ids = torch.where(pos % 3 == 0, miss, hit)
+            token, new_state, info = eng.ar_decode_step(
+                model, params, sw, state, threshold=self.threshold,
+                spec_ids_override=ids[:, None].expand(-1, K_SPEC))
+            return _single_token_result(token, info), new_state
+
+    return OracleSpecEE(threshold=threshold)
+
+
+def serving_parity(torch, dev, params, sw):
+    """ServingEngine with every kernel vs ServingEngine on the plain paths
+    (flags off, reference gate, dense cache — on the card a paged cache
+    always takes the paged kernel): 8 requests with prompts of 20-200
+    tokens through 4 slots of 512 tokens, so slots are reused; blocking and
+    64-token chunked admission. Threshold -0.1 sends every active exit
+    point through the verify; with the draft's own set no row exits, so
+    the check is run again with an oracle set that forces exits (and must
+    give some)."""
+    import numpy as np
+    from repro_torch.api import SpecEEStrategy
     from repro_torch.models.model import ModelFlags, build_model
-    run = llama(32, "bfloat16")
-    model = build_model(run, ModelFlags(exit_gate_kernel=True,
-                                        exit_gate_impl="kernel",
-                                        decode_kernel=True))
+    run = llama(4, "float32", max_batch=4, max_seq_len=512, page_size=PAGE)
+    m_ker = build_model(run, ModelFlags(**ALL_KERNELS))
+    m_plain = build_model(run, ModelFlags(exit_gate_impl="ref"))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, V, int(n)) for n in rng.integers(20, 201, 8)]
+    cells = (("kernels, paged, blocking", m_ker, True, "paged", 0),
+             ("kernels, paged, chunked", m_ker, True, "paged", 64),
+             ("kernels, dense, blocking", m_ker, True, "dense", 0),
+             ("plain, dense, chunked", m_plain, False, "dense", 64))
+    for set_name, strat in (("draft", SpecEEStrategy(threshold=-0.1)),
+                            ("oracle", oracle_strategy(-0.1))):
+        want = _serve(m_plain, params, sw, prompts, 8, strategy=strat,
+                      fused_gate=False, cache="dense", prefill_chunk=0)
+        for label, m, fused, cache, chunk in cells:
+            label = f"{set_name} set, {label}"
+            got = _serve(m, params, sw, prompts, 8, strategy=strat,
+                         fused_gate=fused, cache=cache, prefill_chunk=chunk)
+            for i, ((out, eps), (out_w, eps_w)) in enumerate(zip(got, want)):
+                if out != out_w:
+                    j = next(j for j, (a, b) in enumerate(zip(out, out_w))
+                             if a != b)
+                    margin, _ = top2_margin(torch, m_plain, params,
+                                            list(prompts[i]) + out_w[:j])
+                    raise AssertionError(
+                        f"serving parity ({label}): request {i} token {j} "
+                        f"is {out[j]}, plain dense blocking gives "
+                        f"{out_w[j]}; top-2 logit margin there {margin:.3g}")
+                require(eps == eps_w, f"serving parity ({label}): request "
+                        f"{i} exit points {eps} vs {eps_w}")
+        exits = sum(e < m_ker.num_exit_points for _, eps in want for e in eps)
+        require(set_name == "draft" or exits > 0,
+                "the oracle set forced no exit in serving")
+        log("parity", f"serving, {set_name} set: 8 requests through 4 "
+            f"slots, per-request tokens and exit points identical for "
+            f"{len(cells)} kernel/cache/admission cells and the plain dense "
+            f"blocking run ({exits} exits of "
+            f"{sum(len(e) for _, e in want)} ticks); every page returned")
+
+
+def full_weights(torch, dev):
+    """llama2-7b, 32 layers, bf16, seeded once on the card; phases 4 and 5
+    share these weights."""
+    from repro_torch.core import engine as eng
+    from repro_torch.models.model import build_model
+    model = build_model(llama(32, "bfloat16"))
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(7)
     params = model.init(gen, dev)
@@ -389,6 +669,18 @@ def full_run(torch, dev):
     n_params = sum(x.numel() for x in _leaves(params))
     log("full", f"llama2-7b 32 layers bf16: {n_params / 1e9:.3f} B params "
         f"seeded on the card in {time.perf_counter() - t0:.1f} s")
+    return params, sw
+
+
+def full_run(torch, dev, params, sw):
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.api import DenseStrategy, Engine, SpecEEStrategy
+    from repro_torch.models.model import ModelFlags, build_model
+    run = llama(32, "bfloat16")
+    model = build_model(run, ModelFlags(exit_gate_kernel=True,
+                                        exit_gate_impl="kernel",
+                                        decode_kernel=True))
     prompts = np.random.default_rng(1).integers(0, V, (B, FULL_PROMPT))
     torch.cuda.reset_peak_memory_stats()
 
@@ -424,7 +716,8 @@ def full_run(torch, dev):
         f"card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("full", "launches: " + ", ".join(
         f"{k} {v} ({v / FULL_STEPS:.2f}/step)" for k, v in launches.items()))
-    missing = [k for k, v in launches.items() if v == 0]
+    path = ("exit_gate", "argmax_verify", "topk_verify", "decode_attention")
+    missing = [k for k in path if launches[k] == 0]
     require(not missing, f"kernels never launched on the main path: "
             f"{missing}")
     if exits == 0:
@@ -438,32 +731,214 @@ def full_run(torch, dev):
     return launches
 
 
-# where the device time of a decode step goes, by kernel family
+# ---------------------------------------------------------------------------
+# phase 5: continuous-batching serving on the paged cache
+# ---------------------------------------------------------------------------
+def serve_prompts():
+    import numpy as np
+    rng = np.random.default_rng(11)
+    lo, hi = SERVE_PROMPTS
+    return [rng.integers(0, V, int(n))
+            for n in rng.integers(lo, hi + 1, SERVE_REQS)]
+
+
+def serve_engine(torch, params, sw, chunk):
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine
+    run = llama(32, "bfloat16", max_batch=SERVE_BATCH,
+                max_seq_len=SERVE_SEQ, page_size=PAGE)
+    model = build_model(run, ModelFlags(**ALL_KERNELS))
+    return ServingEngine(model, params, sw, cache="paged",
+                         prefill_chunk=chunk)
+
+
+def serve_run(torch, dev, params, sw, chunk: int):
+    """One serving run: 16 requests, blocking (chunk 0) or chunked
+    admission. The launch counts are zeroed right before the requests are
+    submitted and read right after the last one completes."""
+    import numpy as np
+    from repro_torch import kernels as K
+    label = "blocking" if chunk == 0 else f"chunked {chunk}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    se = serve_engine(torch, params, sw, chunk)
+    mgr = se.session.cache_mgr
+    pool_gb = sum(x.numel() * x.element_size()
+                  for x in _leaves(se.session._state.cache["segments"])) / 1e9
+    weights_gb = sum(x.numel() * x.element_size()
+                     for x in _leaves([params, sw])) / 1e9
+    prompts = serve_prompts()
+    prefill_s = [0.0]
+    tick = se.scheduler.tick
+
+    def timed_tick(*a, **kw):                # admission time, synced
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tick(*a, **kw)
+        torch.cuda.synchronize()
+        prefill_s[0] += time.perf_counter() - t0
+        return out
+
+    se.scheduler.tick = timed_tick
+    seen, reused, ticks = set(), 0, 0
+    K.reset_launches()                       # ---- the main path ----
+    t0 = time.perf_counter()
+    reqs = [se.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    while se.busy:
+        occupants = [r.uid if r is not None else None for r in se.slots]
+        se.step()
+        ticks += 1
+        for slot, r in enumerate(se.slots):
+            if r is not None and r.uid != occupants[slot]:
+                reused += slot in seen
+                seen.add(slot)
+        if ticks > 10_000:
+            raise AssertionError("serving did not finish in 10000 ticks")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)              # ---- read right after ----
+    del se.scheduler.tick                    # the wrapper pins the engine
+
+    require(all(r.done and len(r.output) == SERVE_NEW for r in reqs),
+            "a request did not finish with its 32 tokens")
+    require(all(0 <= t < V for r in reqs for t in r.output),
+            "token out of vocabulary")
+    require(mgr.free_pages == mgr.num_pages,
+            f"{mgr.free_pages} of {mgr.num_pages} pages free at the end")
+    require(bool(torch.isfinite(se.session._state.h_last.float()).all()),
+            "non-finite hidden state")
+    path = ("paged_decode_attention", "exit_gate", "argmax_verify",
+            "topk_verify") + (("flash_attention",) if chunk == 0 else ())
+    missing = [k for k in path if launches[k] == 0]
+    require(not missing, f"kernels never launched on the serving path "
+            f"({label}): {missing}")
+    require(launches["decode_attention"] == 0,
+            "the dense decode kernel ran on the paged serving path")
+    tokens = sum(len(r.output) for r in reqs)
+    decode_ticks = sum(len(r.exit_points) for r in reqs)
+    exits = sum(e < se.model.num_exit_points for r in reqs
+                for e in r.exit_points)
+    log("serve", f"{label}: {SERVE_REQS} requests (prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
+        f"{SERVE_NEW} new each) through {SERVE_BATCH} slots in {wall:.3f} s "
+        f"= {SERVE_REQS / wall:.3f} requests/s, {tokens / wall:.2f} tokens/s;"
+        f" {ticks} ticks, {wall / ticks * 1e3:.2f} ms/tick "
+        f"({(wall - prefill_s[0]) / ticks * 1e3:.2f} ms/tick without "
+        f"admission); admission (prefill) {prefill_s[0]:.3f} s; exits per "
+        f"token {exits / max(decode_ticks, 1):.4f}; admissions after "
+        f"retirement {reused}; free pages at the end {mgr.free_pages} of "
+        f"{mgr.num_pages}")
+    cfg = se.model.cfg
+    row_gb = (2 * cfg.num_layers * SERVE_SEQ * cfg.num_kv_heads
+              * cfg.resolved_head_dim() * se.model.dtype.itemsize / 1e9)
+    log("serve", f"{label}: memory reckoned {weights_gb:.2f} GB weights + "
+        f"{pool_gb:.2f} GB page pools ({mgr.num_pages + 1} pages of {PAGE} "
+        f"tokens x {cfg.num_layers} layers x K,V) + {row_gb:.2f} GB for one "
+        f"row's {SERVE_SEQ}-token prefill cache = "
+        f"{weights_gb + pool_gb + row_gb:.2f} GB before activations; peak "
+        f"card memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log("serve", f"{label} launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    outs = [(r.output, r.exit_points) for r in reqs]
+    del se
+    return launches, outs
+
+
+def profile_serving(torch, dev, params, sw, n: int = 4) -> None:
+    """torch.profiler over ``n`` steady serving ticks (8 live rows, no
+    admission): device time per kernel family per tick and the device's
+    busy share of the profiled wall time."""
+    se = serve_engine(torch, params, sw, 0)
+    for p in serve_prompts()[:SERVE_BATCH]:
+        se.submit(p, max_new_tokens=n + 4)
+    se.step()                                 # admits all 8, one tick
+    se.step()
+    torch.cuda.synchronize()
+    profile_ticks(torch, "profile-serve", se.step, n)
+    del se
+
+
+def serve_phase(torch, dev, params, sw):
+    torch.cuda.empty_cache()
+    l_block, out_block = serve_run(torch, dev, params, sw, 0)
+    torch.cuda.empty_cache()
+    l_chunk, out_chunk = serve_run(torch, dev, params, sw, 256)
+    same = sum(a == b for (ra, _), (rb, _) in zip(out_block, out_chunk)
+               for a, b in zip(ra, rb))
+    log("serve", f"blocking vs chunked admission: {same} of "
+        f"{SERVE_REQS * SERVE_NEW} tokens identical (bf16; the exact "
+        f"parity of the two is phase 3's, in fp32)")
+    flip_margins(torch, params, out_block, out_chunk)
+    torch.cuda.empty_cache()
+    profile_serving(torch, dev, params, sw)
+    return {"serve_blocking": l_block, "serve_chunked": l_chunk}
+
+
+def flip_margins(torch, params, out_block, out_chunk) -> None:
+    """For each request whose blocking and chunked outputs differ: the
+    plain model's top-2 logit margin at the first differing token, after
+    the prompt and the blocking run's tokens before it, beside the spacing
+    of bf16 numbers at the top logit (the logits are a bf16 product), and
+    the exit points both runs took there."""
+    import math
+    from repro_torch.models.model import build_model
+    plain = build_model(llama(32, "bfloat16"))
+    E = plain.num_exit_points
+    prompts = serve_prompts()
+    notes = []
+    for i, ((out_b, eps_b), (out_c, eps_c)) in enumerate(
+            zip(out_block, out_chunk)):
+        j = next((j for j, (a, b) in enumerate(zip(out_b, out_c)) if a != b),
+                 None)
+        if j is None:
+            continue
+        margin, top = top2_margin(torch, plain, params,
+                                  list(prompts[i]) + out_b[:j])
+        ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 0.0
+        eps = ("the prefill's token" if j == 0 else
+               f"exit points {eps_b[j - 1]}/{eps_c[j - 1]} of {E}")
+        notes.append(f"request {i} token {j}: margin {margin:.4g} "
+                     f"(top {top:.4g}, bf16 spacing {ulp:.4g}; {eps})")
+    log("serve", f"{len(notes)} of {SERVE_REQS} requests diverged between "
+        f"blocking and chunked admission" + (": " if notes else "")
+        + "; ".join(notes))
+
+
+# where the device time of a decode step goes, by kernel family (the paged
+# kernel's name contains the dense one's, so it is matched first)
 FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
             ("topk_verify", ("topk_partial", "topk_merge")),
             ("exit_gate", ("exit_gate_kernel",)),
+            ("paged_decode_attention", ("paged_decode_attention_kernel",)),
             ("decode_attention", ("decode_attention_kernel",)),
+            ("flash_attention", ("flash_attention_kernel",)),
             ("matmul", ("gemm", "gemv", "cutlass", "cublas", "sm90_xmma",
                         "splitK", "nvjet")))
 
 
 def profile_steps(torch, model, params, sw, prompts, step_s: float,
                   n: int = 4) -> None:
-    """torch.profiler over ``n`` more SpecEE steps: device time per kernel
-    family per step, and the device's busy share of the profiled wall time
-    (the profiler's own cost inflates that wall time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """torch.profiler over ``n`` more whole-batch SpecEE steps."""
     from repro_torch.api import Engine, SpecEEStrategy
     session = Engine.create(model, params, sw,
                             strategy=SpecEEStrategy()).new_session()
     session.prefill(prompts, max_new_tokens=n + 1)
     torch.cuda.synchronize()
+    profile_ticks(torch, "profile", session.step, n,
+                  f" ({step_s * 1e3:.2f} unprofiled)")
+
+
+def profile_ticks(torch, phase: str, tick, n: int, note: str = "") -> None:
+    """Device time per kernel family per call of ``tick`` over ``n`` calls,
+    and the device's busy share of the profiled wall time (the profiler's
+    own cost inflates that wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            session.step()
+            tick()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam = {name: 0.0 for name, _ in FAMILIES}
@@ -483,13 +958,12 @@ def profile_steps(torch, model, params, sw, prompts, step_s: float,
         else:
             fam["other"] += us / 1e3
     if total == 0.0:
-        log("profile", "the profiler recorded no device time")
+        log(phase, "the profiler recorded no device time")
         return
-    log("profile", f"{n} steps: wall {wall_ms / n:.2f} ms/step profiled "
-        f"({step_s * 1e3:.2f} unprofiled), device busy "
-        f"{total / n:.2f} ms/step = {100 * total / wall_ms:.1f}% of the "
-        f"profiled wall; " + ", ".join(
-            f"{k} {v / n:.3f} ms/step" for k, v in
+    log(phase, f"{n} ticks: wall {wall_ms / n:.2f} ms/tick profiled{note}, "
+        f"device busy {total / n:.2f} ms/tick = "
+        f"{100 * total / wall_ms:.1f}% of the profiled wall; " + ", ".join(
+            f"{k} {v / n:.3f} ms/tick" for k, v in
             sorted(fam.items(), key=lambda kv: -kv[1])))
 
 
@@ -536,18 +1010,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     parity(torch, dev)
     torch.cuda.empty_cache()
-    launches = full_run(torch, dev)
+    params, sw = full_weights(torch, dev)
+    by_path = {"whole_batch": full_run(torch, dev, params, sw)}
+    torch.cuda.empty_cache()
+    by_path.update(serve_phase(torch, dev, params, sw))
 
-    sources = {"exit_gate": "exit_gate.cu", "argmax_verify":
-               "argmax_verify.cu", "topk_verify": "topk_verify.cu",
-               "decode_attention": "decode_attention.cu"}
     kernels = []
     for name in build.SOURCES:
         ms, plain, lib, (bnd, by) = timing[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{sources[name]}",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name],
+            "launches": sum(l[name] for l in by_path.values()),
+            "launches_by_path": {p: l[name] for p, l in by_path.items()},
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,27 +1,308 @@
-"""KV cache managers (counterpart of ``repro/api/cache.py``). This slice
-ports the dense layout only; the paged layout is a later slice."""
+"""KV cache managers (counterpart of ``repro/api/cache.py``): a session's KV
+memory as an object that builds the cache, admits rows into it and retires
+them out of it.
+
+* ``DenseKVCache`` — the slot-masked ``(reps, B, max_seq, KVH, hd)`` layout,
+  the reference the paged layout is held against.
+* ``PagedKVCache`` — every attention entry keeps K/V in a per-layer page
+  pool ``(reps, num_pages + 1, page_size, KVH, hd)``; one ``page_table (B,
+  pages_per_row)`` int32, shared by all layers, maps each row's logical
+  pages to physical ids. The ``+1`` page is a write-only trash page that
+  empty and retired rows alias. A host-side free list gates admission
+  (``can_admit``); ``retire_row`` returns a finished row's pages and zeroes
+  its length, so an idle slot stops paying attention span.
+
+Allocation is by reservation: a row claims its full ``pages_per_row`` at
+admission and returns them at retirement, in the JAX package's order, so
+page ids come out equal to the JAX manager's for the same calls. The port
+holds only attention entries (its model zoo is the attention family), and
+the pools are written in place.
+"""
 from __future__ import annotations
 
-from typing import Any
+from dataclasses import dataclass
+from typing import Any, List, Optional, Union
 
+import numpy as np
 import torch
 
+from repro_torch.core import paged as paged_lib
 
-class DenseKVCache:
-    """The slot-masked dense ``(reps, B, max_seq, KVH, hd)`` layout."""
 
-    kind = "dense"
+@dataclass(frozen=True)
+class CacheSpec:
+    """How a session's KV memory is laid out.
 
-    def __init__(self, model, batch: int, seq_len: int, device):
+    kind: "dense" (slot-masked reference) | "paged" (page pool + table).
+    page_size: tokens per page (paged only).
+    num_pages: physical pages per layer pool. None = ``batch *
+        pages_per_row`` (the dense layout's capacity).
+    """
+    kind: str = "dense"
+    page_size: int = 128
+    num_pages: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        if self.kind not in ("dense", "paged"):
+            raise ValueError(
+                f"CacheSpec.kind must be 'dense' or 'paged', got {self.kind!r}")
+        if self.page_size <= 0:
+            raise ValueError(
+                f"CacheSpec.page_size must be > 0, got {self.page_size}")
+
+    @staticmethod
+    def resolve(spec: Union[None, str, "CacheSpec"],
+                serve_cfg=None) -> "CacheSpec":
+        """None -> dense; "dense"/"paged" -> a spec with the run's
+        ``ServeConfig.page_size``; a CacheSpec passes through."""
+        if isinstance(spec, CacheSpec):
+            return spec
+        if spec is None:
+            spec = "dense"
+        page = serve_cfg.page_size if serve_cfg is not None else 128
+        return CacheSpec(kind=spec, page_size=page)
+
+
+def insert_row_pytree(big: Any, small: Any, row: int, batch: int) -> Any:
+    """Write batch-1 tree ``small`` into row ``row`` of batched ``big``, in
+    place, and return ``big``. The batch axis of each leaf is the first dim
+    where ``big`` has ``batch`` and ``small`` has 1 (the JAX rule)."""
+    if isinstance(big, dict):
+        return {k: insert_row_pytree(big[k], small[k], row, batch)
+                for k in big}
+    if isinstance(big, (list, tuple)):
+        return type(big)(insert_row_pytree(b, s, row, batch)
+                         for b, s in zip(big, small))
+    axis = None
+    for i, (db, ds) in enumerate(zip(big.shape, small.shape)):
+        if db == batch and ds == 1:
+            axis = i
+            break
+    assert axis is not None, f"no batch axis: {big.shape} vs {small.shape}"
+    big.select(axis, row).copy_(small.select(axis, 0))
+    return big
+
+
+class KVCacheManager:
+    """Owner of one session's KV memory: layout, admission, compaction."""
+
+    kind = "base"
+
+    def __init__(self, model, batch: int, seq_len: int, spec: CacheSpec,
+                 device):
         self.model = model
         self.batch = batch
-        self.seq_len = seq_len
+        self.seq_len = seq_len          # requested logical capacity per row
+        self.spec = spec
         self.device = torch.device(device)
+
+    # ----- layout -----
+    def empty_cache(self) -> Any:
+        raise NotImplementedError
+
+    def from_prefill(self, dense_cache: Any) -> Any:
+        """Adopt a whole-batch dense prefill cache (``model.prefill``'s
+        output) into this manager's layout."""
+        raise NotImplementedError
+
+    # ----- admission / retirement -----
+    def insert_row(self, cache: Any, row: int, row_cache: Any) -> Any:
+        """Admit a batch-1 dense cache (one prefilled request) into ``row``."""
+        raise NotImplementedError
+
+    def retire_row(self, cache: Any, row: int) -> Any:
+        """Per-row compaction: drop the row's logical length (and, when
+        paged, return its pages to the free list)."""
+        raise NotImplementedError
+
+    def can_admit(self, prompt_len: int = 0) -> bool:
+        """Admission gate (paged: a full row reservation of free pages)."""
+        return True
+
+    # ----- allocator state -----
+    def export_state(self) -> dict:
+        """Host-side allocator state (the device tensors travel in the
+        DecodeState)."""
+        return {"kind": self.kind}
+
+    def import_state(self, st: dict) -> None:
+        """Adopt exported allocator state of the same layout."""
+        if st.get("kind") != self.kind:
+            raise ValueError(
+                f"cache state is {st.get('kind')!r}, manager is "
+                f"{self.kind!r}: restore needs the same cache layout")
+
+    # ----- introspection -----
+    def row_span(self, cache: Any, row: int) -> int:
+        """Attention span the row currently pays (valid cache positions)."""
+        return int(cache["len"][row])
+
+    @property
+    def free_pages(self) -> int:
+        return 0
+
+    @property
+    def capacity(self) -> int:
+        return self.seq_len
+
+
+class DenseKVCache(KVCacheManager):
+    """The slot-masked dense layout (the reference)."""
+
+    kind = "dense"
 
     def empty_cache(self) -> Any:
         return self.model.empty_cache(self.batch, self.seq_len, self.device)
 
     def from_prefill(self, dense_cache: Any) -> Any:
-        """Adopt a whole-batch prefill cache (already in this layout)."""
         return dense_cache
 
+    def insert_row(self, cache: Any, row: int, row_cache: Any) -> Any:
+        segs = insert_row_pytree(cache["segments"], row_cache["segments"],
+                                 row, self.batch)
+        length = cache["len"].clone()
+        length[row] = row_cache["len"][0]
+        return dict(cache, segments=segs, len=length)
+
+    def retire_row(self, cache: Any, row: int) -> Any:
+        length = cache["len"].clone()
+        length[row] = 0
+        return dict(cache, len=length)
+
+
+class PagedKVCache(KVCacheManager):
+    """Paged layout: per-layer page pools + one shared page table."""
+
+    kind = "paged"
+
+    def __init__(self, model, batch: int, seq_len: int, spec: CacheSpec,
+                 device):
+        super().__init__(model, batch, seq_len, spec, device)
+        ps = spec.page_size
+        self.page_size = ps
+        self.pages_per_row = -(-seq_len // ps)
+        self.num_pages = (spec.num_pages if spec.num_pages is not None
+                          else batch * self.pages_per_row)
+        if self.num_pages < self.pages_per_row:
+            raise ValueError(
+                f"paged cache pool of {self.num_pages} pages cannot hold even "
+                f"one row ({self.pages_per_row} pages/row)")
+        self.trash_page = self.num_pages        # extra write-only page
+        self._free: List[int] = list(range(self.num_pages - 1, -1, -1))
+        self._row_pages: List[List[int]] = [[] for _ in range(batch)]
+
+    @property
+    def capacity(self) -> int:
+        """Logical per-row capacity (rounded up to whole pages)."""
+        return self.pages_per_row * self.page_size
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def can_admit(self, prompt_len: int = 0) -> bool:
+        return len(self._free) >= self.pages_per_row
+
+    def export_state(self) -> dict:
+        return {"kind": self.kind, "page_size": self.page_size,
+                "num_pages": self.num_pages,
+                "free": [int(p) for p in self._free],
+                "row_pages": [[int(p) for p in r] for r in self._row_pages]}
+
+    def import_state(self, st: dict) -> None:
+        super().import_state(st)
+        if (st["page_size"] != self.page_size
+                or st["num_pages"] != self.num_pages):
+            raise ValueError(
+                f"paged state geometry (page_size={st['page_size']}, "
+                f"num_pages={st['num_pages']}) does not match manager "
+                f"(page_size={self.page_size}, num_pages={self.num_pages})")
+        self._free = [int(p) for p in st["free"]]
+        self._row_pages = [[int(p) for p in r] for r in st["row_pages"]]
+
+    # ----- layout -----
+    def empty_cache(self) -> Any:
+        cfg = self.model.cfg
+        shape = (self.num_pages + 1, self.page_size, cfg.num_kv_heads,
+                 cfg.resolved_head_dim())
+        segs = [{f"u{i}": {name: torch.zeros((reps,) + shape,
+                                             dtype=self.model.dtype,
+                                             device=self.device)
+                           for name in ("k", "v")}
+                 for i in range(len(unit))}
+                for unit, reps in self.model.segments]
+        table = torch.full((self.batch, self.pages_per_row), self.trash_page,
+                           dtype=torch.int32, device=self.device)
+        return {"segments": segs,
+                "len": torch.zeros(self.batch, dtype=torch.int32,
+                                   device=self.device),
+                "page_table": table}
+
+    def _alloc_row(self, row: int) -> np.ndarray:
+        if not self._row_pages[row]:
+            if len(self._free) < self.pages_per_row:
+                raise RuntimeError(
+                    f"paged KV pool exhausted: row {row} needs "
+                    f"{self.pages_per_row} pages, {len(self._free)} free "
+                    "(gate admission with can_admit())")
+            self._row_pages[row] = [self._free.pop()
+                                    for _ in range(self.pages_per_row)]
+        return np.asarray(self._row_pages[row], np.int32)
+
+    def _scatter_segments(self, cache: Any, dense_segments: Any,
+                          slots: torch.Tensor) -> None:
+        """Copy dense entries' logical slots into the pools, in place.
+        slots: flat pool slot ids, (B, S) for whole-batch dense leaves
+        (reps, B, S, ...) or (S,) for one row's leaves (reps, S, ...)."""
+        for seg, entry in enumerate(cache["segments"]):
+            for key, sub in entry.items():
+                for name, pool in sub.items():
+                    src = dense_segments[seg][key][name]
+                    flat = pool.view((pool.shape[0],
+                                      pool.shape[1] * pool.shape[2])
+                                     + tuple(pool.shape[3:]))
+                    flat[:, slots] = src.to(pool.dtype)
+
+    def from_prefill(self, dense_cache: Any) -> Any:
+        table = torch.as_tensor(
+            np.stack([self._alloc_row(r) for r in range(self.batch)]),
+            device=self.device)
+        cache = self.empty_cache()
+        S = dense_cache["segments"][0]["u0"]["k"].shape[2]
+        slots = paged_lib.view_slots(table, self.page_size)[:, :S]  # (B, S)
+        self._scatter_segments(cache, dense_cache["segments"], slots)
+        return {"segments": cache["segments"], "len": dense_cache["len"],
+                "page_table": table}
+
+    def insert_row(self, cache: Any, row: int, row_cache: Any) -> Any:
+        pages = self._alloc_row(row)
+        table = cache["page_table"].clone()
+        table[row] = torch.as_tensor(pages, device=self.device)
+        S = row_cache["segments"][0]["u0"]["k"].shape[2]
+        row_slots = (pages[:, None].astype(np.int64) * self.page_size
+                     + np.arange(self.page_size)[None, :]).reshape(-1)[:S]
+        src = [{key: {name: x[:, 0] for name, x in sub.items()}
+                for key, sub in entry.items()}
+               for entry in row_cache["segments"]]
+        self._scatter_segments(cache, src,
+                               torch.as_tensor(row_slots, device=self.device))
+        length = cache["len"].clone()
+        length[row] = row_cache["len"][0]
+        return dict(cache, len=length, page_table=table)
+
+    def retire_row(self, cache: Any, row: int) -> Any:
+        self._free.extend(self._row_pages[row])
+        self._row_pages[row] = []
+        table = cache["page_table"].clone()
+        table[row] = self.trash_page
+        length = cache["len"].clone()
+        length[row] = 0
+        return dict(cache, len=length, page_table=table)
+
+
+def make_cache_manager(model, batch: int, seq_len: int,
+                       spec: Union[None, str, CacheSpec],
+                       device) -> KVCacheManager:
+    spec = CacheSpec.resolve(spec, model.run.serve)
+    cls = PagedKVCache if spec.kind == "paged" else DenseKVCache
+    return cls(model, batch, seq_len, spec, device)

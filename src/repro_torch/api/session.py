@@ -1,5 +1,5 @@
-"""Engine / DecodeSession (counterpart of ``repro/api/session.py``),
-whole-batch style with single ticks:
+"""Engine / DecodeSession (counterpart of ``repro/api/session.py``) with
+single ticks:
 
     engine = Engine.create(model, params, sw, strategy="specee")
     session = engine.new_session()
@@ -9,20 +9,38 @@ whole-batch style with single ticks:
 
 ``Engine`` binds (model, params, SpecEE weights, strategy); a session owns
 one batched ``DecodeState`` plus per-row token budgets, EOS cut-off and the
-``done`` mask, kept on the host. The state's KV cache is updated in place
-every tick. Slot-based admission, megaticks and snapshots are later slices.
+``done`` mask, kept on the host. Its KV memory is owned by a
+``KVCacheManager`` (``api.cache``): ``new_session(cache="paged")`` swaps the
+dense layout for page pools + a page table with no change to the step, and
+``retire_row`` compacts a finished row. The KV cache is updated in place
+every tick.
+
+Two session styles:
+  * whole-batch: ``prefill(prompts)`` then ``step()``;
+  * slot-based (continuous batching): ``new_session(batch=B, max_seq=S)``
+    pre-allocates empty rows; admission is one-shot (``prefill_row(slot,
+    prompt)``) or chunked (``begin_admission`` + ``prefill_chunk``), which
+    splits the prompt forward into fixed-token chunks so the serving loop
+    can interleave them with decode ticks.
+
+Megaticks, async ticks, snapshots and sampling are later slices (ROADMAP
+queue 1 items 7, 11 and 8).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Union
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.api.cache import DenseKVCache
+from repro_torch.api.cache import (CacheSpec, KVCacheManager,
+                                   insert_row_pytree, make_cache_manager)
 from repro_torch.api.strategies import DecodeStrategy, get_strategy
 from repro_torch.api.types import StepResult
+from repro_torch.core import draft as draft_lib
 from repro_torch.core import engine as eng
+from repro_torch.core import scheduler as sched_lib
 from repro_torch.models.common import lm_head_weight
 from repro_torch.models.model import Model
 
@@ -53,28 +71,97 @@ class Engine:
     def emit_width(self) -> int:
         return self.strategy.emit_width(self.model)
 
-    def new_session(self, max_seq: Optional[int] = None
+    def new_session(self, batch: Optional[int] = None,
+                    max_seq: Optional[int] = None,
+                    cache: Union[None, str, CacheSpec] = None
                     ) -> "DecodeSession":
-        """A whole-batch session over the dense KV cache (the paged layout
-        is a later slice)."""
-        return DecodeSession(self, max_seq=max_seq)
+        """``batch=None``: an empty shell, filled by ``prefill(prompts)``.
+        ``batch=B``: B pre-allocated empty rows for slot-based serving
+        (``max_seq`` defaults to the run's ``serve.max_seq_len``).
+        ``cache``: "dense" (default) | "paged" | a ``CacheSpec``."""
+        return DecodeSession(self, batch=batch, max_seq=max_seq, cache=cache)
+
+
+@dataclass
+class Admission:
+    """One in-flight chunked prefill (host-side handle).
+
+    Created by ``DecodeSession.begin_admission``; each ``prefill_chunk``
+    call advances ``consumed`` by at most one chunk of prompt tokens. When
+    the prompt is exhausted the session inserts the finished batch-1 state
+    into ``row`` and sets ``first_token``.
+    """
+    row: int
+    tokens: np.ndarray
+    max_new_tokens: Optional[int] = None
+    eos_token: Optional[int] = None
+    consumed: int = 0
+    cache: Any = None               # batch-1 dense extend cache
+    h_parts: List[Any] = field(default_factory=list)
+    first_token: Optional[int] = None
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.tokens.shape[0])
+
+    @property
+    def complete(self) -> bool:
+        return self.first_token is not None
+
+    @property
+    def remaining(self) -> int:
+        return self.prompt_len - self.consumed
 
 
 class DecodeSession:
-    def __init__(self, engine: Engine, max_seq: Optional[int] = None):
+    def __init__(self, engine: Engine, batch: Optional[int] = None,
+                 max_seq: Optional[int] = None,
+                 cache: Union[None, str, CacheSpec] = None):
         self.engine = engine
         self._max_seq = max_seq
+        self._cache_spec = CacheSpec.resolve(cache, engine.model.run.serve)
         self._state: Optional[eng.DecodeState] = None
-        self.cache_mgr = None
+        self.cache_mgr: Optional[KVCacheManager] = None
         self.batch: Optional[int] = None
+        if batch is not None:
+            if max_seq is None:
+                max_seq = engine.model.run.serve.max_seq_len
+                self._max_seq = max_seq
+            self.cache_mgr = self._make_manager(batch, max_seq)
+            self._state = engine.strategy.empty_state(
+                engine.model, engine.sw, batch, max_seq,
+                cache=self.cache_mgr.empty_cache(), device=engine.device)
+            self._alloc_bookkeeping(batch, live=False)
+
+    def _make_manager(self, batch: int, max_seq: int) -> KVCacheManager:
+        e = self.engine
+        seq = e.strategy.cache_seq_len(e.model, max_seq)
+        return make_cache_manager(e.model, batch, seq, self._cache_spec,
+                                  e.device)
 
     # ----- host-side bookkeeping -----
-    def _alloc_bookkeeping(self, batch: int) -> None:
+    def _alloc_bookkeeping(self, batch: int, live: bool) -> None:
         self.batch = batch
         self._emitted = np.zeros(batch, np.int64)
         self._budget = np.full(batch, _NO_BUDGET, np.int64)
         self._eos: List[Optional[int]] = [None] * batch
-        self._done = np.zeros(batch, bool)
+        # empty slots count as done until a request is admitted
+        self._done = np.full(batch, not live, bool)
+        # rows compacted by retire_row: their logical length is pinned to 0
+        # after every tick (the batched step advances len uniformly).
+        # Never-admitted slots start retired too ("retired from birth"):
+        # without the pin their length would creep up every tick until it
+        # saturates the row's capacity, and the degenerate attention there
+        # would touch live rows through the batch-shared kernels
+        self._retired: set = set() if live else set(range(batch))
+
+    def _set_row_limits(self, row: int, max_new_tokens: Optional[int],
+                        eos_token: Optional[int]) -> None:
+        self._emitted[row] = 0
+        self._budget[row] = (_NO_BUDGET if max_new_tokens is None
+                             else max_new_tokens)
+        self._eos[row] = eos_token
+        self._done[row] = False
 
     def _account_row(self, row: int, toks: np.ndarray, count: int) -> int:
         """Apply budget + EOS to one row's raw emit; returns the kept count
@@ -109,6 +196,32 @@ class DecodeSession:
     def all_done(self) -> bool:
         return self._state is None or bool(self._done.all())
 
+    def row_done(self, row: int) -> bool:
+        return bool(self._done[row])
+
+    def live_rows(self) -> np.ndarray:
+        return ~self._done
+
+    # ----- cache management -----
+    def can_admit(self, prompt_len: int = 0) -> bool:
+        """Does the cache manager have room for one more request (paged: a
+        full row reservation of free pages)?"""
+        return self.cache_mgr is None or self.cache_mgr.can_admit(prompt_len)
+
+    def retire_row(self, row: int) -> None:
+        """Per-row compaction: release the finished row's cache footprint
+        (paged: pages back to the free list; dense: length to zero)."""
+        assert self._state is not None and self.cache_mgr is not None
+        self._done[row] = True
+        self._retired.add(row)
+        self._state = self._state._replace(
+            cache=self.cache_mgr.retire_row(self._state.cache, row))
+
+    def row_span(self, row: int) -> int:
+        """Attention span the row currently pays."""
+        assert self._state is not None and self.cache_mgr is not None
+        return self.cache_mgr.row_span(self._state.cache, row)
+
     # ----- whole-batch entry -----
     def prefill(self, prompts, max_new_tokens: Optional[int] = None,
                 eos_token: Optional[int] = None,
@@ -132,17 +245,16 @@ class DecodeSession:
         self._max_seq = max_seq
         first, state = e.strategy.init_state(e.model, e.params, e.sw,
                                              {"tokens": tokens}, max_seq)
-        self.cache_mgr = DenseKVCache(
-            e.model, B, e.strategy.cache_seq_len(e.model, max_seq), e.device)
+        self.cache_mgr = self._make_manager(B, max_seq)
         self._state = state._replace(
             cache=self.cache_mgr.from_prefill(state.cache))
-        self._alloc_bookkeeping(B)
+        self._alloc_bookkeeping(B, live=True)
         # the cache has max_seq slots: bound the budget by the remaining
         # capacity so a budgetless session still terminates
         cap = max(max_seq - T - 1, 1)
         budget = cap if max_new_tokens is None else min(max_new_tokens, cap)
-        self._budget[:] = budget
-        self._eos = [eos_token] * B
+        for row in range(B):
+            self._set_row_limits(row, budget, eos_token)
         W, E = e.emit_width, e.model.num_exit_points
         zeros = torch.zeros(B, dtype=torch.int32, device=e.device)
         tok = torch.zeros(B, W, dtype=torch.int32, device=e.device)
@@ -152,11 +264,133 @@ class DecodeSession:
                          exited=zeros.bool(), units_run=0)
         return self._wrap(raw)
 
+    # ----- slot-based admission (continuous batching) -----
+    def _insert_state1(self, row: int, st1: eng.DecodeState, prompt_len: int,
+                       max_new_tokens: Optional[int],
+                       eos_token: Optional[int]) -> int:
+        """Insert a finished batch-1 state into slot ``row`` (cache through
+        the manager, the rest leaf-wise) + budget/EOS accounting. Returns
+        the first token."""
+        st = self._state
+        self._retired.discard(row)
+        B = self.batch
+        self._state = eng.DecodeState(
+            cache=self.cache_mgr.insert_row(st.cache, row, st1.cache),
+            draft_cache=insert_row_pytree(st.draft_cache, st1.draft_cache,
+                                          row, B),
+            sched=insert_row_pytree(st.sched, st1.sched, row, B),
+            last_token=insert_row_pytree(st.last_token, st1.last_token,
+                                         row, B),
+            h_last=insert_row_pytree(st.h_last, st1.h_last, row, B))
+        cap = max(self._max_seq - prompt_len - 1, 1)
+        budget = cap if max_new_tokens is None else min(max_new_tokens, cap)
+        self._set_row_limits(row, budget, eos_token)
+        tok = int(st1.last_token[0])
+        n = self._account_row(row, np.asarray([tok]), 1)
+        assert n <= 1
+        return tok
+
+    def prefill_row(self, row: int, prompt,
+                    max_new_tokens: Optional[int] = None,
+                    eos_token: Optional[int] = None) -> int:
+        """Admit one request into slot ``row``: blocking batch-1 prefill,
+        then insert its state into the batch. Returns the first token."""
+        assert self._state is not None and self.batch is not None, \
+            "prefill_row needs a pre-allocated session (new_session(batch=B))"
+        e = self.engine
+        tokens = torch.as_tensor(np.asarray(prompt), dtype=torch.int32,
+                                 device=e.device)[None, :]
+        _, st1 = e.strategy.init_state(e.model, e.params, e.sw,
+                                       {"tokens": tokens}, self._max_seq)
+        return self._insert_state1(row, st1, tokens.shape[1],
+                                   max_new_tokens, eos_token)
+
+    # ----- chunked admission (Sarathi-style) -----
+    def begin_admission(self, row: int, prompt,
+                        max_new_tokens: Optional[int] = None,
+                        eos_token: Optional[int] = None) -> Admission:
+        """Start admitting one request into slot ``row``; ``prefill_chunk``
+        runs its prompt forward a chunk per call."""
+        assert self._state is not None and self.batch is not None, \
+            "begin_admission needs a pre-allocated session"
+        return Admission(row=row, tokens=np.asarray(prompt, np.int64),
+                         max_new_tokens=max_new_tokens, eos_token=eos_token)
+
+    def prefill_chunk(self, adm: Admission,
+                      max_tokens: Optional[int] = None) -> int:
+        """Run at most ``max_tokens`` prompt tokens of ``adm``'s prefill.
+
+        ``max_tokens=None`` (or a model without chunked-prefill support)
+        takes the blocking one-shot path and completes the admission in one
+        call. Returns the number of prompt tokens processed; when the prompt
+        is exhausted the row is inserted and ``adm.first_token`` is set.
+        """
+        if adm.complete:
+            return 0
+        e = self.engine
+        T = adm.prompt_len
+        if max_tokens is None or not e.model.supports_chunked_prefill():
+            assert adm.consumed == 0, \
+                "cannot fall back to blocking admission mid-chunk"
+            adm.first_token = self.prefill_row(
+                adm.row, adm.tokens, max_new_tokens=adm.max_new_tokens,
+                eos_token=adm.eos_token)
+            adm.consumed = T
+            return T
+        # a fixed-width chunk, padded as the JAX package pads it
+        C = int(max_tokens)
+        if adm.cache is None:
+            seq = e.strategy.cache_seq_len(e.model, self._max_seq)
+            adm.cache = e.model.empty_cache(1, seq, e.device)
+        n = min(C, adm.remaining)
+        chunk = np.zeros((1, C), np.int32)
+        chunk[0, :n] = adm.tokens[adm.consumed:adm.consumed + n]
+        h, adm.cache = e.model.prefill_extend(
+            e.params, torch.as_tensor(chunk, device=e.device), adm.cache, n)
+        adm.h_parts.append(h[:, :n])
+        adm.consumed += n
+        if adm.remaining == 0:
+            self._finish_admission(adm)
+        return n
+
+    def _finish_admission(self, adm: Admission) -> None:
+        """Last chunk done: first token, draft prefill over the accumulated
+        hiddens, batch-1 state assembly, row insert."""
+        e = self.engine
+        model, params, sw = e.model, e.params, e.sw
+        tokens = torch.as_tensor(adm.tokens, dtype=torch.int32,
+                                 device=e.device)[None, :]
+        h_all = torch.cat(adm.h_parts, dim=1)                 # (1, T, D)
+        logits = model.logits(params, h_all[:, -1, :])
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        if sw is not None:
+            seq = e.strategy.cache_seq_len(model, self._max_seq)
+            dcache = draft_lib.draft_prefill(model.cfg, sw.draft,
+                                             model.embed(params, tokens),
+                                             h_all, seq)
+        else:
+            dcache = {}
+        st1 = eng.DecodeState(
+            cache=adm.cache, draft_cache=dcache,
+            sched=sched_lib.init_state(1, model.run.specee, e.device),
+            last_token=first, h_last=h_all[:, -1, :])
+        adm.first_token = self._insert_state1(
+            adm.row, st1, adm.prompt_len, adm.max_new_tokens, adm.eos_token)
+        adm.cache = None
+        adm.h_parts = []
+
     # ----- decode tick -----
     def step(self) -> StepResult:
-        """One batched decode tick through the strategy's step."""
+        """One batched decode tick through the strategy's step, with
+        host-side budget/EOS accounting. Retired rows' lengths are pinned
+        back to 0 after the tick (the step advances every row's length)."""
         assert self._state is not None, "prefill first"
         e = self.engine
         raw, self._state = e.strategy.step(e.model, e.params, e.sw,
                                            self._state)
+        if self._retired:
+            cache = self._state.cache
+            length = cache["len"].clone()
+            length[sorted(self._retired)] = 0
+            self._state = self._state._replace(cache=dict(cache, len=length))
         return self._wrap(raw)

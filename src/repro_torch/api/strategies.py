@@ -48,6 +48,16 @@ class DecodeStrategy:
         return eng.init_decode_state(model, params, sw, batch,
                                      self.cache_seq_len(model, max_seq))
 
+    def empty_state(self, model: Model, sw, batch: int, max_seq: int,
+                    cache=None, device="cuda") -> eng.DecodeState:
+        """``batch`` empty slots. ``cache``: a cache built by the session's
+        ``KVCacheManager`` (dense or paged); None allocates the dense
+        layout. The step functions read the layout off the state
+        (``cache["page_table"]``), so one step serves both."""
+        return eng.empty_decode_state(model, sw, batch,
+                                      self.cache_seq_len(model, max_seq),
+                                      device=device, cache=cache)
+
     def step(self, model: Model, params, sw, state: eng.DecodeState
              ) -> Tuple[StepResult, eng.DecodeState]:
         raise NotImplementedError

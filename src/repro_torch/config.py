@@ -25,11 +25,15 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0           # 0 -> d_model // num_heads
     block_pattern: Tuple[str, ...] = ()
+    causal: bool = True         # False for encoder-only archs
     use_bias: bool = False
     norm: str = "rmsnorm"
     activation: str = "silu"
     rope_theta: float = 10000.0
     gated_mlp: bool = True
+    # modality frontend: "none" here (the frontends are ROADMAP queue 1
+    # item 13); read by ``Model.supports_chunked_prefill`` as in the JAX code
+    frontend: str = "none"
     dtype: str = "bfloat16"     # compute/weight dtype on the card
 
     def resolved_head_dim(self) -> int:
@@ -38,6 +42,9 @@ class ModelConfig:
         if self.num_heads == 0:
             return 0
         return self.d_model // self.num_heads
+
+    def is_decoder(self) -> bool:
+        return self.causal
 
     def blocks(self) -> Tuple[str, ...]:
         if self.block_pattern:
@@ -63,6 +70,7 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class SpecEEConfig:
+    enabled: bool = True              # serving picks the specee strategy
     num_speculative: int = 4          # k speculative tokens (paper: 4)
     predictor_hidden: int = 512       # MLP hidden dim
     predictor_layers: int = 2         # MLP depth
@@ -77,7 +85,29 @@ class SpecEEConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
+    max_batch: int = 128
+    max_seq_len: int = 32768
+    page_size: int = 128             # paged KV block size (api.cache)
     max_new_tokens: int = 256
+    greedy: bool = True
+    temperature: float = 1.0
+    # chunked (Sarathi-style) prefill admission: max prompt tokens the serving
+    # scheduler runs per decode tick; 0 = blocking (whole-prompt) admission
+    prefill_chunk: int = 512
+
+    def __post_init__(self) -> None:
+        if self.page_size <= 0:
+            raise ValueError(
+                f"ServeConfig.page_size must be > 0, got {self.page_size}")
+        if self.max_seq_len % self.page_size:
+            raise ValueError(
+                f"ServeConfig.page_size ({self.page_size}) must divide "
+                f"max_seq_len ({self.max_seq_len}) so pages tile the KV "
+                "cache exactly")
+        if self.prefill_chunk < 0:
+            raise ValueError(
+                "ServeConfig.prefill_chunk must be >= 0 (0 = blocking "
+                f"admission), got {self.prefill_chunk}")
 
 
 @dataclass(frozen=True)
@@ -88,4 +118,6 @@ class RunConfig:
 
     def smoke(self) -> "RunConfig":
         return replace(self, model=self.model.smoke(),
-                       serve=replace(self.serve, max_new_tokens=8))
+                       serve=replace(self.serve, max_batch=2, max_seq_len=128,
+                                     page_size=16, max_new_tokens=8,
+                                     prefill_chunk=32))

@@ -90,11 +90,16 @@ def init_decode_state(model: Model, params: Params,
 
 
 def empty_decode_state(model: Model, sw: Optional[SpecEEWeights], batch: int,
-                       max_seq: int, device="cuda") -> DecodeState:
-    """All-zeros batched state with ``batch`` empty rows."""
+                       max_seq: int, device="cuda", cache=None) -> DecodeState:
+    """All-zeros batched state with ``batch`` empty slots — the serving
+    engine's starting point; rows are later filled by inserting batch-1
+    ``init_decode_state`` results. ``cache``: a cache built by a
+    ``KVCacheManager`` (``repro_torch.api.cache``), e.g. paged pools + page
+    table; None allocates the dense layout."""
     device = torch.device(device)
     return DecodeState(
-        cache=model.empty_cache(batch, max_seq, device),
+        cache=(cache if cache is not None
+               else model.empty_cache(batch, max_seq, device)),
         draft_cache=(draft_lib.draft_cache(model.cfg, batch, max_seq,
                                            model.dtype, device)
                      if sw is not None else {}),
@@ -119,6 +124,7 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     E = model.num_exit_points
     lm_w = lm_head_weight(params)
     pos = state.cache["len"]
+    pages = state.cache.get("page_table")       # paged KV: table indirection
     B = state.last_token.shape[0]
     k = spec.num_speculative
     dev = pos.device
@@ -149,7 +155,7 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
         u = 0
         while u < reps and not bool(exited.all()):
             h_new, seg_cache = model.run_unit(params, seg, u, h, seg_cache,
-                                              pos)
+                                              pos, pages=pages)
             h = torch.where(exited[:, None], h, h_new)
             ep = ep_base + u
             act = active[:, ep] & ~exited
@@ -173,7 +179,7 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
         # ---- 4. KV propagation for units the loop never reached ----
         for u_skip in range(u, reps):
             seg_cache = model.propagate_unit(params, seg, u_skip, h,
-                                             seg_cache, pos)
+                                             seg_cache, pos, pages=pages)
         ep_base += reps
 
     # ---- 5. emit: exited rows use the verified token, others the full head

@@ -1,0 +1,186 @@
+// Decode attention body shared by the dense and the paged kernel: one query
+// token per row against that row's live K/V prefix, with an optional
+// sliding window.
+//   out[b, h] = softmax_s(q[b, h] . k[b, s, g] / sqrt(hd)) . v[b, s, g]
+// over lo <= s < len, lo = max(0, len - window), h = g * n_rep + r (GQA:
+// the n_rep query heads of a KV head share its K/V).
+//
+// The two kernels differ only in where key s of row b lives, which an
+// addressing functor answers (element offset of the key's (g, 0) entry):
+// DenseAddr for a (B, S, KVH, hd) cache, PagedAddr for a page pool read
+// through the row's page table. One body, so the two cannot drift.
+//
+// CTA = one (row, KV head). DA_WARPS warps split the live keys DA_U at a
+// time; each lane holds hd/32 consecutive elements of q, k, v, so one key's
+// K (or V) row is one coalesced 2*hd-byte read per warp. Each warp keeps its
+// own online softmax (m, l, acc) per query head in fp32; the warps' states
+// merge in shared memory at the end. Keys outside [lo, len) are never read
+// (the tail of the last group of DA_U re-reads key len - 1 and gets
+// probability 0), and l == 0 (no live key) writes zeros, as the Pallas
+// l == 0 guard does.
+#pragma once
+
+#include "common.cuh"
+
+namespace da {
+
+constexpr int DA_WARPS = 8;   // warps per CTA, each on its own keys
+constexpr int DA_U = 4;       // keys per warp per iteration (loads in flight)
+
+// key s of row b in a dense (B, S, KVH, hd) cache
+struct DenseAddr {
+  size_t row_base;            // ((b * S) * KVH + g) * hd
+  size_t key_stride;          // KVH * hd
+  __device__ __forceinline__ size_t operator()(int s) const {
+    return row_base + (size_t)s * key_stride;
+  }
+};
+
+// key s of row b in a (NP, ps, KVH, hd) pool: physical slot
+// pages[s / ps] * ps + s % ps, with the row's live page ids in shared memory
+struct PagedAddr {
+  const int* pages;           // shared: the row's page ids, logical order
+  int ps;
+  size_t key_stride;          // KVH * hd
+  size_t g_off;               // g * hd
+  __device__ __forceinline__ size_t operator()(int s) const {
+    const int pi = s / ps;
+    const size_t slot = (size_t)pages[pi] * ps + (s - pi * ps);
+    return slot * key_stride + g_off;
+  }
+};
+
+template <typename T, int NREP, int E, typename Addr>
+__device__ __forceinline__ void decode_body(
+    const T* __restrict__ q, const T* __restrict__ kc,
+    const T* __restrict__ vc, T* __restrict__ out, int b, int g, int KVH,
+    int lo, int len, float scale, Addr addr) {
+  constexpr int HD = 32 * E;
+  __shared__ float s_m[DA_WARPS][NREP];
+  __shared__ float s_l[DA_WARPS][NREP];
+  __shared__ float s_acc[DA_WARPS][NREP][HD];
+  const int H = KVH * NREP;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+
+  float qr[NREP][E], acc[NREP][E], m[NREP], l[NREP];
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) {
+    const T* qp = q + ((size_t)b * H + g * NREP + r) * HD + lane * E;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      qr[r][e] = rt::to_f(qp[e]);
+      acc[r][e] = 0.f;
+    }
+    m[r] = rt::NEG_INF;
+    l[r] = 0.f;
+  }
+
+  for (int s0 = lo + wid * DA_U; s0 < len; s0 += DA_WARPS * DA_U) {
+    // keys past len load the last live key instead (always a valid
+    // address, so all 2 * DA_U loads issue back to back without branches);
+    // their probability is 0 below
+    float kr[DA_U][E], vr[DA_U][E];
+#pragma unroll
+    for (int u = 0; u < DA_U; ++u) {
+      const size_t base = addr(min(s0 + u, len - 1)) + lane * E;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        kr[u][e] = rt::to_f(kc[base + e]);
+        vr[u][e] = rt::to_f(vc[base + e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < NREP; ++r) {
+      float sc[DA_U];
+#pragma unroll
+      for (int u = 0; u < DA_U; ++u) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d = fmaf(qr[r][e], kr[u][e], d);
+        sc[u] = d;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int u = 0; u < DA_U; ++u)
+          sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], off);
+      }
+      float mx = m[r];
+#pragma unroll
+      for (int u = 0; u < DA_U; ++u) {
+        sc[u] *= scale;
+        if (s0 + u < len) mx = fmaxf(mx, sc[u]);
+      }
+      const float alpha = expf(m[r] - mx);
+      float p[DA_U];
+      float psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < DA_U; ++u) {
+        p[u] = s0 + u < len ? expf(sc[u] - mx) : 0.f;
+        psum += p[u];
+      }
+      l[r] = alpha * l[r] + psum;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        float a = acc[r][e] * alpha;
+#pragma unroll
+        for (int u = 0; u < DA_U; ++u) a = fmaf(p[u], vr[u][e], a);
+        acc[r][e] = a;
+      }
+      m[r] = mx;
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) {
+    if (lane == 0) { s_m[wid][r] = m[r]; s_l[wid][r] = l[r]; }
+#pragma unroll
+    for (int e = 0; e < E; ++e) s_acc[wid][r][lane * E + e] = acc[r][e];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < NREP * HD; t += DA_WARPS * 32) {
+    const int r = t / HD, c = t - r * HD;
+    float M = rt::NEG_INF;
+#pragma unroll
+    for (int w = 0; w < DA_WARPS; ++w) M = fmaxf(M, s_m[w][r]);
+    float L = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < DA_WARPS; ++w) {
+      const float f = expf(s_m[w][r] - M);
+      L = fmaf(s_l[w][r], f, L);
+      o = fmaf(s_acc[w][r][c], f, o);
+    }
+    if (L == 0.f) L = 1.f;
+    rt::store_f(out + ((size_t)b * H + g * NREP + r) * HD + c, o / L);
+  }
+}
+
+// Runs LAUNCH<T, NREP, E>() for a runtime (dtype, n_rep, hd); false when no
+// instance exists (n_rep in {1, 2, 4, 8}, hd in {32, 64, 128}).
+template <template <typename, int, int> class LAUNCH, typename... Args>
+bool dispatch(int dtype, int n_rep, int hd, Args... args) {
+#define DA_CASE_E(T, R)                                              \
+  switch (hd) {                                                      \
+    case 32: LAUNCH<T, R, 1>::run(args...); return true;             \
+    case 64: LAUNCH<T, R, 2>::run(args...); return true;             \
+    case 128: LAUNCH<T, R, 4>::run(args...); return true;            \
+    default: return false;                                           \
+  }
+#define DA_CASE_R(T)                                                 \
+  switch (n_rep) {                                                   \
+    case 1: DA_CASE_E(T, 1)                                          \
+    case 2: DA_CASE_E(T, 2)                                          \
+    case 4: DA_CASE_E(T, 4)                                          \
+    case 8: DA_CASE_E(T, 8)                                          \
+    default: return false;                                           \
+  }
+  if (dtype == rt::DT_BF16) {
+    DA_CASE_R(__nv_bfloat16)
+  } else {
+    DA_CASE_R(float)
+  }
+#undef DA_CASE_R
+#undef DA_CASE_E
+}
+
+}  // namespace da

@@ -17,7 +17,9 @@ from typing import Dict, Sequence
 import torch
 
 LAUNCHES: Dict[str, int] = {"exit_gate": 0, "argmax_verify": 0,
-                            "topk_verify": 0, "decode_attention": 0}
+                            "topk_verify": 0, "decode_attention": 0,
+                            "paged_decode_attention": 0,
+                            "flash_attention": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

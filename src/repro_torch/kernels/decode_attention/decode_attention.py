@@ -1,9 +1,11 @@
-"""Wrapper of the decode-attention CUDA kernel (counterpart of
-``repro/kernels/decode_attention/decode_attention.py::decode_attention_fwd``;
-the kernel is csrc/decode_attention.cu).
+"""Wrappers of the decode-attention CUDA kernels (counterparts of
+``repro/kernels/decode_attention/decode_attention.py::decode_attention_fwd``
+and ``paged_decode_attention_fwd``; the kernels are
+csrc/decode_attention.cu and csrc/paged_decode_attention.cu, one body in
+csrc/decode_attention.cuh).
 
-On a CPU tensor it runs ``ref.decode_attention_ref``; on a CUDA tensor it
-launches the kernel (counted in ``kernels.LAUNCHES``) or raises.
+On a CPU tensor each runs its plain version from ``ref.py``; on a CUDA
+tensor it launches its kernel (counted in ``kernels.LAUNCHES``) or raises.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, paged_decode_attention_ref)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -46,4 +49,45 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     build.check("decode_attention", rc,
                 f"decode_attention (n_rep={H // KVH}, hd={hd})")
     K.LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, page_table: torch.Tensor,
+                               cache_len: torch.Tensor,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention reading K/V through a page table. q: (B, 1, H, hd);
+    k_pool/v_pool: (n_pages, page_size, KVH, hd), the shared pool;
+    page_table: (B, P) int32 logical -> physical page; cache_len: (B,)
+    int32 live length per row. Returns (B, 1, H, hd) in q's dtype. Only the
+    live pages of each row are read."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, page_table,
+                                          cache_len, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    B, _, H, hd = q.shape
+    NP, ps, KVH = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    P = page_table.shape[1]
+    dev = q.device
+    K.check_arg("q", q, dev, None, (B, 1, H, hd))
+    K.check_arg("k_pool", k_pool, dev, q.dtype, (NP, ps, KVH, hd))
+    K.check_arg("v_pool", v_pool, dev, q.dtype, (NP, ps, KVH, hd))
+    K.check_arg("page_table", page_table, dev, torch.int32, (B, P))
+    K.check_arg("cache_len", cache_len, dev, torch.int32, (B,))
+    if H % KVH:
+        raise ValueError(
+            f"paged_decode_attention: {H} heads over {KVH} KV heads")
+    fn = build.c_func("paged_decode_attention",
+                      "paged_decode_attention_launch",
+                      [_P] * 6 + [_I] * 8 + [_P])
+    out = torch.empty_like(q)
+    rc = fn(K.ptr(q), K.ptr(k_pool), K.ptr(v_pool), K.ptr(page_table),
+            K.ptr(cache_len), K.ptr(out), B, P, ps, H, KVH, hd,
+            0 if window is None else window, K.dtype_code(q),
+            K.stream_ptr(dev))
+    build.check("paged_decode_attention", rc,
+                f"paged_decode_attention (n_rep={H // KVH}, hd={hd}, "
+                f"pages/row={P})")
+    K.LAUNCHES["paged_decode_attention"] += 1
     return out

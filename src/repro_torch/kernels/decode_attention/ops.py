@@ -1,4 +1,4 @@
-"""Model-layer entry point for decode attention (counterpart of
+"""Model-layer entry points for decode attention (counterpart of
 ``repro/kernels/decode_attention/ops.py``)."""
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.decode_attention.decode_attention import (
-    decode_attention_fwd)
+    decode_attention_fwd, paged_decode_attention_fwd)
 
 
 def decode_attention(cfg, q, k_cache, v_cache, cache_len,
@@ -15,3 +15,11 @@ def decode_attention(cfg, q, k_cache, v_cache, cache_len,
     """Same signature as ``models.attention.attend_decode``."""
     return decode_attention_fwd(q, k_cache, v_cache, cache_len,
                                 window=window)
+
+
+def paged_decode_attention(cfg, q, k_pool, v_pool, page_table, cache_len,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """Page-table-aware variant read by the paged decode path
+    (``model._block_step`` under ``flags.decode_kernel``)."""
+    return paged_decode_attention_fwd(q, k_pool, v_pool, page_table,
+                                      cache_len, window=window)

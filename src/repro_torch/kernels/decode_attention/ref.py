@@ -29,3 +29,17 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v_cache.dtype), v_cache)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, page_table: torch.Tensor,
+                               cache_len,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the paged kernel (counterpart of ``repro/kernels/
+    decode_attention/ref.py::paged_decode_attention_ref``): gather the
+    logical view, then run the dense version. k_pool/v_pool: (n_pages, ps,
+    KVH, hd); page_table: (B, P) int32."""
+    from repro_torch.core import paged as paged_lib
+    k_cache = paged_lib.gather_view(k_pool, page_table)
+    v_cache = paged_lib.gather_view(v_pool, page_table)
+    return decode_attention_ref(q, k_cache, v_cache, cache_len, window=window)

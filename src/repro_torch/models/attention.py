@@ -120,6 +120,27 @@ def attend_decode(cfg: ModelConfig, q, k_cache, v_cache, cache_len,
     return out.reshape(B, 1, H, hd)
 
 
+def attend_extend(cfg: ModelConfig, q, k_cache, v_cache, start_pos,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Chunked-prefill attention: C queries extend a prefix cache.
+    q: (B, C, H, hd) at absolute positions start_pos + i; k_cache/v_cache:
+    (B, S, KVH, hd) with the chunk's K/V already written there; start_pos:
+    (B,) prefix length. Query i attends kpos <= start_pos + i, so one chunk
+    at a time reproduces full causal attention (``attend_decode`` is C = 1).
+    """
+    B, C, H, hd = q.shape
+    S, KVH = k_cache.shape[1], k_cache.shape[2]
+    n_rep = H // KVH
+    kk, vv = _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep)
+    qpos = (torch.as_tensor(start_pos, device=q.device).reshape(-1, 1).long()
+            + torch.arange(C, device=q.device)[None, :])           # (B, C)
+    kpos = torch.arange(S, device=q.device)
+    valid = kpos[None, None, :] <= qpos[:, :, None]                 # (B,C,S)
+    if window is not None:
+        valid = valid & (kpos[None, None, :] > qpos[:, :, None] - window)
+    return sdpa(q, kk, vv, valid[:, None])
+
+
 def out_proj(p: Params, attn_out: torch.Tensor) -> torch.Tensor:
     B, S, H, hd = attn_out.shape
     return common.apply_linear(p["wo"], attn_out.reshape(B, S, H * hd))

@@ -10,6 +10,9 @@ repeat count exactly as in the JAX package: ``params["segments"][si]`` and
 The KV cache is written IN PLACE (``index_put_`` on views of the stacked
 tensors) where the JAX package returns updated copies; every function that
 writes returns the cache it was given, so call sites read like the JAX ones.
+A cache is dense ``(reps, B, S, KVH, hd)`` or, when the caller passes the
+session's ``pages`` table, a paged pool ``(reps, n_pages, page_size, KVH,
+hd)`` read and written through ``core.paged``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.config import ATTN, LOCAL_ATTN, ModelConfig, RunConfig
+from repro_torch.core import paged as paged_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common
 from repro_torch.models.common import Params, index_tree
@@ -50,8 +54,11 @@ def segments_of(blocks: Sequence[str], max_unit: int = 4
 
 @dataclass(frozen=True)
 class ModelFlags:
-    """Kernel selection (the subset of ``repro``'s flags this slice reads)."""
-    decode_kernel: bool = False     # CUDA decode-attention kernel
+    """Kernel selection (the subset of ``repro``'s flags the port reads).
+    ``kv_quant`` (int8 KV pools) is not ported yet (ROADMAP queue 1 item
+    10), so the flag does not exist here and passing it fails loudly."""
+    flash_attention: bool = False   # CUDA flash-attention prefill kernel
+    decode_kernel: bool = False     # CUDA (paged) decode-attention kernel
     spec_head_kernel: bool = False  # spec-head kernel — not ported yet
     exit_gate_kernel: bool = False  # fused exit gate + streaming verify
     exit_gate_impl: str = "auto"    # "auto" | "kernel" | "ref"
@@ -70,20 +77,33 @@ def _init_block(cfg: ModelConfig, kind: str, gen, dtype, device) -> Params:
 
 
 def _entry_write_token(cache_entry: Any, vals: Dict[str, torch.Tensor],
-                       rows: torch.Tensor, pvec: torch.Tensor) -> Any:
-    """Write one token's K/V into a dense cache entry at (rows, pvec), in
-    place (the JAX package's ``.at[rows, pvec].set`` makes a copy)."""
+                       pages: Optional[torch.Tensor], rows: torch.Tensor,
+                       pvec: torch.Tensor) -> Any:
+    """Write one token's K/V into a cache entry, in place (the JAX
+    package's ``.at[...].set`` makes a copy). The ONE place the dense
+    row-scatter vs paged table-scatter choice is made for single-token
+    writes: the decode step and skipped-layer propagation share it."""
     for name, v in vals.items():
-        cache_entry[name][rows, pvec] = v.to(cache_entry[name].dtype)
+        if pages is None:
+            cache_entry[name][rows, pvec] = v.to(cache_entry[name].dtype)
+        else:
+            paged_lib.scatter_token(cache_entry[name], pages, pvec, v)
     return cache_entry
 
 
 def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
-               positions: torch.Tensor) -> Tuple[torch.Tensor, Any]:
-    """Prefill path. Returns (h_out, {"k", "v"})."""
+               positions: torch.Tensor, flags: ModelFlags
+               ) -> Tuple[torch.Tensor, Any]:
+    """Prefill path. Returns (h_out, {"k", "v"}). Under
+    ``flags.flash_attention`` the attention is the flash kernel."""
     x = common.apply_norm(cfg, p["ln1"], h)
     q, k, v = attn_lib.qkv(cfg, p["attn"], x, positions)
-    o = attn_lib.attend_full(cfg, q, k, v, _window(cfg, kind))
+    if flags.flash_attention and cfg.causal:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        o = fa_ops.flash_attention(q, k, v, causal=True,
+                                   window=_window(cfg, kind))
+    else:
+        o = attn_lib.attend_full(cfg, q, k, v, _window(cfg, kind))
     h = h + attn_lib.out_proj(p["attn"], o)
     x2 = common.apply_norm(cfg, p["ln2"], h)
     h = h + common.apply_mlp(cfg, p["mlp"], x2)
@@ -91,32 +111,48 @@ def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
 
 
 def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
-                cache_entry: Any, pos: torch.Tensor, flags: ModelFlags
+                cache_entry: Any, pos: torch.Tensor, flags: ModelFlags,
+                pages: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Any]:
     """One decode token. h: (B, D); pos: (B,) index of the current token.
-    Writes the token's K/V into ``cache_entry`` and attends the live prefix
-    (the decode-attention kernel under ``flags.decode_kernel``)."""
+    Writes the token's K/V into ``cache_entry`` and attends the live prefix.
+    ``pages``: the (B, P) page table when the entry is a page pool; then
+    ``flags.decode_kernel`` selects the paged kernel, which reads the pool
+    directly, and otherwise the logical view is gathered for the plain
+    attention. Dense entries take the dense kernel under the flag."""
     B = h.shape[0]
     x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
     pvec = pos.long()
     rows = torch.arange(B, device=h.device)
     q, k, v = attn_lib.qkv(cfg, p["attn"], x, pvec[:, None])
-    _entry_write_token(cache_entry, {"k": k[:, 0], "v": v[:, 0]}, rows, pvec)
-    if flags.decode_kernel:
+    _entry_write_token(cache_entry, {"k": k[:, 0], "v": v[:, 0]}, pages, rows,
+                       pvec)
+    window = _window(cfg, kind)
+    if pages is not None and flags.decode_kernel:
         from repro_torch.kernels.decode_attention import ops as da_ops
-        o = da_ops.decode_attention(cfg, q, cache_entry["k"],
-                                    cache_entry["v"], pos + 1,
-                                    window=_window(cfg, kind))
+        o = da_ops.paged_decode_attention(cfg, q, cache_entry["k"],
+                                          cache_entry["v"], pages, pos + 1,
+                                          window=window)
+    elif pages is not None:
+        o = attn_lib.attend_decode(cfg, q,
+                                   paged_lib.gather_view(cache_entry["k"], pages),
+                                   paged_lib.gather_view(cache_entry["v"], pages),
+                                   pos + 1, window)
+    elif flags.decode_kernel:
+        from repro_torch.kernels.decode_attention import ops as da_ops
+        o = da_ops.decode_attention(cfg, q, cache_entry["k"], cache_entry["v"],
+                                    pos + 1, window=window)
     else:
         o = attn_lib.attend_decode(cfg, q, cache_entry["k"], cache_entry["v"],
-                                   pos + 1, _window(cfg, kind))
+                                   pos + 1, window)
     h = h + attn_lib.out_proj(p["attn"], o)[:, 0, :]
     x2 = common.apply_norm(cfg, p["ln2"], h[:, None, :])
     return h + common.apply_mlp(cfg, p["mlp"], x2)[:, 0, :], cache_entry
 
 
 def _block_propagate(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
-                     cache_entry: Any, pos: torch.Tensor) -> Any:
+                     cache_entry: Any, pos: torch.Tensor,
+                     pages: Optional[torch.Tensor] = None) -> Any:
     """SpecEE skipped-layer KV propagation: write the K/V projections of the
     exit hidden state so later tokens can attend this position."""
     B = h.shape[0]
@@ -124,7 +160,34 @@ def _block_propagate(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     pvec = pos.long()
     k, v = attn_lib.kv_only(cfg, p["attn"], x, pvec[:, None])
     return _entry_write_token(cache_entry, {"k": k[:, 0], "v": v[:, 0]},
-                              torch.arange(B, device=h.device), pvec)
+                              pages, torch.arange(B, device=h.device), pvec)
+
+
+def _block_extend(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
+                  cache_entry: Any, pos0: torch.Tensor,
+                  positions: torch.Tensor, flags: ModelFlags
+                  ) -> Tuple[torch.Tensor, Any]:
+    """A C-token prompt chunk against a DENSE decode cache entry.
+
+    h: (B, C, D); pos0: (B,) prefix length; positions: (B, C) absolute
+    positions of the chunk. The chunk's K/V is written (in place; positions
+    past the cache are dropped, as JAX's ``mode="drop"``) before attending,
+    so intra-chunk causal attention sees its own keys as the decode step
+    does. Attention-family blocks only."""
+    assert kind in (ATTN, LOCAL_ATTN), kind
+    B, C, _ = h.shape
+    x = common.apply_norm(cfg, p["ln1"], h)
+    q, k, v = attn_lib.qkv(cfg, p["attn"], x, positions)
+    k_cache, v_cache = cache_entry["k"], cache_entry["v"]
+    keep = positions < k_cache.shape[1]
+    rows = torch.arange(B, device=h.device)[:, None].expand(B, C)
+    k_cache[rows[keep], positions[keep]] = k[keep].to(k_cache.dtype)
+    v_cache[rows[keep], positions[keep]] = v[keep].to(v_cache.dtype)
+    o = attn_lib.attend_extend(cfg, q, k_cache, v_cache, pos0,
+                               window=_window(cfg, kind))
+    h = h + attn_lib.out_proj(p["attn"], o)
+    x2 = common.apply_norm(cfg, p["ln2"], h)
+    return h + common.apply_mlp(cfg, p["mlp"], x2), cache_entry
 
 
 def _empty_cache_entry(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
@@ -202,7 +265,7 @@ class Model:
                 up = index_tree(params["segments"][si], r)
                 for i, kind in enumerate(unit):
                     h, kv = _block_seq(self.cfg, kind, up[f"u{i}"], h,
-                                       positions)
+                                       positions, self.flags)
                     for name in ("k", "v"):
                         seg_cache[f"u{i}"][name][r, :, :S] = kv[name]
             segs.append(seg_cache)
@@ -223,29 +286,68 @@ class Model:
         return {"segments": segs,
                 "len": torch.zeros(batch, dtype=torch.int32, device=device)}
 
+    # ----- chunked prefill (Sarathi-style admission) -----
+    def supports_chunked_prefill(self) -> bool:
+        """Chunked prefill needs blocks whose state extension is "write K/V,
+        attend the prefix": a causal attention-family stack without a
+        frontend (the JAX rule; every block the port has qualifies)."""
+        return (self.cfg.is_decoder() and self.cfg.frontend == "none" and
+                all(k in (ATTN, LOCAL_ATTN)
+                    for unit, _ in self.segments for k in unit))
+
+    def prefill_extend(self, params: Params, tokens: torch.Tensor, cache: Any,
+                       n_valid: int) -> Tuple[torch.Tensor, Any]:
+        """Extend a DENSE decode cache with one prompt chunk, in place.
+
+        tokens: (B, C) int, the first ``n_valid`` real (the tail is padding
+        whose K/V lands past the prompt and is later overwritten or masked —
+        intra-chunk causality hides it from the real queries). Returns
+        (h (B, C, D) pre-final-norm hiddens, cache with ``len +=
+        n_valid``)."""
+        assert self.supports_chunked_prefill(), \
+            f"{self.cfg.name}: chunked prefill needs a pure-attention " \
+            "decoder stack"
+        h = self.embed(params, tokens)                       # (B, C, D)
+        pos0 = cache["len"]
+        B, C = tokens.shape
+        positions = (pos0.long()[:, None]
+                     + torch.arange(C, device=h.device)[None, :])
+        for seg, (unit, reps) in enumerate(self.segments):
+            for r in range(reps):
+                up = index_tree(params["segments"][seg], r)
+                ce = index_tree(cache["segments"][seg], r)
+                for i, kind in enumerate(unit):
+                    h, _ = _block_extend(self.cfg, kind, up[f"u{i}"], h,
+                                         ce[f"u{i}"], pos0, positions,
+                                         self.flags)
+        return h, dict(cache, len=pos0 + int(n_valid))
+
     # ----- layer-granular decode API (SpecEE engine) -----
     def run_unit(self, params: Params, seg: int, unit_idx: int,
-                 h: torch.Tensor, seg_cache: Any, pos: torch.Tensor
+                 h: torch.Tensor, seg_cache: Any, pos: torch.Tensor,
+                 pages: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Any]:
         """Run unit ``unit_idx`` of segment ``seg`` on one token (B, D),
-        writing its K/V into ``seg_cache``. Returns (h_out, seg_cache)."""
+        writing its K/V into ``seg_cache``. ``pages``: the session page
+        table when the cache is paged. Returns (h_out, seg_cache)."""
         unit, _ = self.segments[seg]
         up = index_tree(params["segments"][seg], unit_idx)
         ce = index_tree(seg_cache, unit_idx)
         for i, kind in enumerate(unit):
             h, _ = _block_step(self.cfg, kind, up[f"u{i}"], h, ce[f"u{i}"],
-                               pos, self.flags)
+                               pos, self.flags, pages=pages)
         return h, seg_cache
 
     def propagate_unit(self, params: Params, seg: int, unit_idx: int,
-                       h: torch.Tensor, seg_cache: Any,
-                       pos: torch.Tensor) -> Any:
+                       h: torch.Tensor, seg_cache: Any, pos: torch.Tensor,
+                       pages: Optional[torch.Tensor] = None) -> Any:
         """KV propagation for a skipped unit (SpecEE early exit)."""
         unit, _ = self.segments[seg]
         up = index_tree(params["segments"][seg], unit_idx)
         ce = index_tree(seg_cache, unit_idx)
         for i, kind in enumerate(unit):
-            _block_propagate(self.cfg, kind, up[f"u{i}"], h, ce[f"u{i}"], pos)
+            _block_propagate(self.cfg, kind, up[f"u{i}"], h, ce[f"u{i}"], pos,
+                             pages=pages)
         return seg_cache
 
     # ----- dense decode (baseline, no early exit) -----
@@ -255,10 +357,11 @@ class Model:
         the emit is the caller's. token: (B,) int."""
         h = self.embed(params, token[:, None])[:, 0, :]
         pos = cache["len"]
+        pages = cache.get("page_table")
         for seg, (_, reps) in enumerate(self.segments):
             for u in range(reps):
                 h, _ = self.run_unit(params, seg, u, h,
-                                     cache["segments"][seg], pos)
+                                     cache["segments"][seg], pos, pages=pages)
         return h, dict(cache, len=pos + 1)
 
 

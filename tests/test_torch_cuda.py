@@ -135,3 +135,105 @@ def test_engine_kernels_match_plain_path(dev):
             outs.append([(r.tokens.tolist(), r.exit_layer.tolist(),
                           r.exited.tolist()) for r in res])
         assert outs[0] == outs[1]
+
+
+def _shuffled_table(B, P, n_pages, seed):
+    """(B, P) page table over pages [0, n_pages) in shuffled order."""
+    rng = np.random.default_rng(seed)
+    return rng.permutation(n_pages)[:B * P].reshape(B, P).astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kvh,hd,ps,window", [(8, 128, 16, None),
+                                              (2, 64, 7, 5),
+                                              (4, 32, 32, None),
+                                              (8, 128, 128, 20)])
+def test_paged_decode_attention_kernel_matches_plain(dev, dtype, kvh, hd, ps,
+                                                     window):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        paged_decode_attention_fwd)
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, H, P = 4, 8, 6
+    NP = B * P + 3
+    q = _rand(gen, (B, 1, H, hd), dev, dtype)
+    kp = _rand(gen, (NP + 1, ps, kvh, hd), dev, dtype)
+    vp = _rand(gen, (NP + 1, ps, kvh, hd), dev, dtype)
+    table = torch.as_tensor(_shuffled_table(B, P, NP, 0), device=dev)
+    table[3] = NP                        # a retired row: all trash page
+    clen = torch.tensor([P * ps, 2 * ps + 3, 1, 1], dtype=torch.int32,
+                        device=dev)
+    reset_launches()
+    got = paged_decode_attention_fwd(q, kp, vp, table, clen, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_decode_attention"] == 1
+    want = paged_decode_attention_ref(q.float(), kp.float(), vp.float(),
+                                      table, clen, window)
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,kvh,hd,window", [(77, 8, 8, 128, None),
+                                               (130, 8, 2, 64, 9),
+                                               (64, 4, 4, 32, None),
+                                               (1, 8, 8, 128, None),
+                                               (200, 8, 2, 128, 64)])
+def test_flash_attention_kernel_matches_plain(dev, dtype, S, H, kvh, hd,
+                                              window):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B = 2
+    q = _rand(gen, (B, S, H, hd), dev, dtype)
+    k = _rand(gen, (B, S, kvh, hd), dev, dtype)
+    v = _rand(gen, (B, S, kvh, hd), dev, dtype)
+    reset_launches()
+    got = flash_attention_fwd(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    want = flash_attention_ref(q.float(), k.float(), v.float(), True, window)
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)
+
+
+def test_serving_kernels_match_plain_path(dev):
+    """Continuous batching on the card at smoke width, fp32: the kernel
+    path (flash prefill, paged decode, fused gate) gives the same
+    per-request tokens and exit points as the plain path (dense cache —
+    a paged cache on the card always takes the paged kernel — and the
+    reference gate), and every page returns to the free list."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine
+    run = get_config("llama2-7b").smoke()
+    m_plain = build_model(run, ModelFlags(exit_gate_impl="ref"))
+    m_ker = build_model(run, ModelFlags(flash_attention=True,
+                                        decode_kernel=True,
+                                        exit_gate_kernel=True,
+                                        exit_gate_impl="kernel"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = m_plain.init(gen, dev)
+    sw = eng.init_specee(m_plain, gen, dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, n) for n in (5, 19, 3, 40, 11)]
+    outs = []
+    reset_launches()
+    for m, fused, cache in ((m_ker, True, "paged"),
+                            (m_plain, False, "dense")):
+        e = ServingEngine(m, params, sw, cache=cache, prefill_chunk=0,
+                          fused_gate=fused)
+        reqs = [e.submit(p, max_new_tokens=6) for p in prompts]
+        e.run_to_completion()
+        mgr = e.session.cache_mgr
+        assert mgr.free_pages == getattr(mgr, "num_pages", 0)
+        outs.append([(r.output, r.exit_points) for r in reqs])
+    assert outs[0] == outs[1]
+    assert LAUNCHES["flash_attention"] > 0
+    assert LAUNCHES["paged_decode_attention"] > 0

@@ -199,8 +199,8 @@ def test_dense_decode_step_matches_jax(setup):
         np.testing.assert_array_equal(_np(tok_t), _np(tok_j))
         assert info_t.units_run == int(info_j.units_run)
     from repro.api.cache import CacheSpec, DenseKVCache as JDense
-    from repro_torch.api.cache import DenseKVCache
-    kc_t = DenseKVCache(m_t, 3, 9, "cpu").empty_cache()
+    from repro_torch.api.cache import CacheSpec as TCacheSpec, DenseKVCache
+    kc_t = DenseKVCache(m_t, 3, 9, TCacheSpec(), "cpu").empty_cache()
     kc_j = JDense(m_j, 3, 9, CacheSpec()).empty_cache()
     assert kc_t["segments"][0]["u0"]["k"].shape == \
         kc_j["segments"][0]["u0"]["k"].shape

@@ -63,7 +63,9 @@ def test_config_matches_jax(full):
     for f in dataclasses.fields(tcfg.SpecEEConfig):
         assert getattr(t.specee, f.name) == getattr(j.specee, f.name), f.name
     assert t.specee.feature_dim() == j.specee.feature_dim()
-    assert t.serve.max_new_tokens == j.serve.max_new_tokens
+    for f in dataclasses.fields(tcfg.ServeConfig):
+        assert getattr(t.serve, f.name) == getattr(j.serve, f.name), f.name
+    assert t.model.is_decoder() == j.model.is_decoder()
 
 
 @pytest.mark.parametrize("pattern", [
