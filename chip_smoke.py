@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper card: builds the port's CUDA kernels, holds each against its plain
-PyTorch version, drives greedy SpecEE decode of Llama-2-7B through the
-port's public entry points, and serves requests through its
-continuous-batching ``ServingEngine`` on the paged KV cache.
+PyTorch version, drives greedy SpecEE decode and T3 tree speculative
+decoding of Llama-2-7B through the port's public entry points, and serves
+requests through its continuous-batching ``ServingEngine`` on the paged KV
+cache, in AR and in tree mode.
 
     python3 chip_smoke.py
 
 Phases (one line each, ``[phase] ...``):
   1. device + build — the card's name and power limit, then ``nvcc`` builds
-     the six kernels of ``src/repro_torch/csrc`` for sm_90a (in parallel);
+     the eight kernels of ``src/repro_torch/csrc`` for sm_90a (in parallel);
   2. kernels — each kernel vs its plain version in fp32 and bf16 at the
      main paths' shapes (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128,
      dense caches up to 1024; paged: B=8, 128-token pages, a shuffled page
      table, ragged lengths with a retired all-trash row; flash: B in {1, 4},
      S in {77, 512}, window None/64, GQA n_rep=4), then timed beside its
      plain version, a library call as yardstick, and the least time the
-     card could take (bound);
+     card could take (bound); then the tree path's kernels at its row
+     counts: spec_head (R in {1, 160, 320}, edge and repeated ids),
+     predictor_mlp (R in {1, 108, 216}) and the verify kernels at R in
+     {9, 160, 320} with planted ties, timed at R = 8/160/320;
   3. parity — llama2-7b at full width, 4 layers, fp32, seeded weights:
      Engine.create → new_session → prefill(4 prompts) → step x 8 at
      thresholds 1.5, 0.4, -0.1, with the kernels and with the plain
@@ -27,7 +31,14 @@ Phases (one line each, ``[phase] ...``):
      paths: 8 requests through 4 slots, per-request tokens and exit points
      identical, with the draft's speculative set and with an oracle set
      that forces exits (skipped layers' K/V propagated through the page
-     table and read back by the paged kernel);
+     table and read back by the paged kernel). Then T3 tree decoding
+     (TreeSpec(3, 3): 40 nodes, 27 paths) with every kernel on
+     (spec_head_kernel, exit_gate_kernel, decode_kernel, flash_attention)
+     against the plain paths on dense and paged caches at thresholds 1.5
+     (must equal dense greedy), 0.4 and -0.1 (must force exits), an oracle
+     tree whose first chain follows dense greedy (accepted length = depth
+     every step), and tree-mode ServingEngine on the paged cache
+     (per-request tokens, exit points and accept lengths);
   4. full run — llama2-7b, 32 layers, bf16, 4 prompts of 128 tokens,
      32 SpecEE decode steps (whole-batch session, dense cache);
   5. serve — the same weights, ServingEngine(cache="paged") with
@@ -36,10 +47,18 @@ Phases (one line each, ``[phase] ...``):
      admission and once with 256-token chunks; for each request on which
      the two differ, the top-2 logit margin at the first differing token;
      then a profile of serving ticks by kernel family;
-  6. the ``{"kernels": [...]}`` line, the card line, and as the last line
+  6. tree — the same weights in T3 tree mode (TreeSpec(3, 3)): a
+     whole-batch session (B=4, prompt 128, 16 tree steps, dense cache) and
+     ServingEngine(strategy="tree", cache="paged") with max_batch 8:
+     8 requests with prompts of 64-512 tokens, 32 new tokens each;
+  7. the ``{"kernels": [...]}`` line, the card line, and as the last line
      ``{"ok": true, "device": {...}}``.
 
-Each main path (phases 4 and 5, each serve run on its own) zeroes the
+With random draft and predictor weights the tree accepts about no draft
+token per step (one emitted token per tree step), so the tree runs measure
+the mechanism's cost, not its gain.
+
+Each main path (phases 4, 5 and 6, each serve run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -72,6 +91,8 @@ REPLACES = {
         "src/repro/kernels/decode_attention/decode_attention.py:270",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:116",
+    "spec_head": "src/repro/kernels/spec_head/spec_head.py:63",
+    "predictor_mlp": "src/repro/kernels/predictor_mlp/predictor_mlp.py:47",
 }
 
 B, D, V, K_SPEC, H_PRED = 4, 4096, 32000, 4, 512
@@ -80,6 +101,8 @@ FULL_PROMPT, FULL_STEPS = 128, 32
 PAGE = 128                                   # tokens per page when serving
 SERVE_BATCH, SERVE_SEQ, SERVE_REQS, SERVE_NEW = 8, 4096, 16, 32
 SERVE_PROMPTS = (64, 512)                    # prompt lengths, inclusive
+TREE_DEPTH, TREE_BRANCH = 3, 3               # 40 nodes, 27 root-leaf paths
+TREE_STEPS, TREE_SERVE_REQS = 16, 8
 
 
 def log(phase: str, msg: str) -> None:
@@ -446,6 +469,170 @@ def check_attention_kernels(torch, dev, rnd):
     return errs, t
 
 
+def _plant_ties(torch, hn, w, rows):
+    """Copy each listed row's best column to id 0 and to a higher id, in
+    order (a later row's copy may overwrite an earlier row's, so only the
+    last row's tie at id 0 is sure): the verify kernels must give the
+    lowest id among equal logits."""
+    V = w.shape[1]
+    for r in rows:
+        best = int((hn[r].float() @ w.float()).argmax())
+        for j in (0, (best + 5) % V):
+            w[:, j] = w[:, best]
+
+
+def check_tree_kernels(torch, dev):
+    """Phase 2 for the tree path: spec_head and predictor_mlp against their
+    plain versions, and the verify kernels past one 8-row group, at the row
+    counts the tree gives them (B*N node rows, B*P paths), in fp32 and
+    bf16; then bf16 timings. Returns (max errors by kernel in bf16,
+    timing rows, verify timings by row count)."""
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref as gref
+    from repro_torch.kernels.predictor_mlp.predictor_mlp import (
+        predictor_mlp_fused)
+    from repro_torch.kernels.predictor_mlp.ref import predictor_mlp_ref
+    from repro_torch.kernels.spec_head.ref import spec_logits_ref
+    from repro_torch.kernels.spec_head.spec_head import spec_head_logits
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def rnd(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def ids_for(R):
+        ids = torch.randint(0, V, (R, K_SPEC), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[0] = torch.tensor([0, V - 1, V - 1, 0], dtype=torch.int32)
+        return ids
+
+    F = 3 * K_SPEC
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        w = rnd((D, V), dt, 0.05)
+        # spec_head: fp32 sums of the same (upcast) products in another
+        # order, logits of size ~3: atol = rtol = 1e-4
+        err_sh = 0.0
+        for R in (1, 160, 320):
+            hn = rnd((R, D), dt)
+            ids = ids_for(R)
+            got = spec_head_logits(hn, w, ids)
+            want = spec_logits_ref(hn, w, ids)
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+            err_sh = max(err_sh, (got - want).abs().max().item())
+        # verify kernels at row counts past one 8-row group, planted ties;
+        # ids exact, values atol = rtol = 1e-4
+        err_av = err_tk = 0.0
+        for R in (9, 160, 320):
+            hn = rnd((R, D), dt)
+            wt = w.clone()
+            _plant_ties(torch, hn, wt, (0, R // 2, R - 1))
+            tok, mx = eg.argmax_verify_fused(hn, wt)
+            tok_r, mx_r = gref.verify_argmax_ref(hn, wt)
+            require(torch.equal(tok, tok_r), f"argmax ids differ at R={R} "
+                    f"({name})")
+            require(int(tok[R - 1]) == 0, f"argmax tie-break at R={R}")
+            torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)
+            ids, vals = eg.topk_verify_fused(hn, wt, K_SPEC)
+            ids_r, vals_r = gref.verify_topk_ref(hn, wt, K_SPEC)
+            require(torch.equal(ids, ids_r), f"top-k ids differ at R={R} "
+                    f"({name})")
+            require(int(ids[R - 1, 0]) == 0, f"top-k tie-break at R={R}")
+            torch.testing.assert_close(vals, vals_r, atol=1e-4, rtol=1e-4)
+            err_av = max(err_av, (mx - mx_r).abs().max().item())
+            err_tk = max(err_tk, (vals - vals_r).abs().max().item())
+            del wt
+        del w
+        # predictor MLP (fp32 weights whatever the model dtype): atol =
+        # rtol = 1e-5 on probabilities
+        err_pm = 0.0
+        for R in (1, 108, 216):
+            x = rnd((R, F), torch.float32)
+            w1 = rnd((F, H_PRED), torch.float32, F ** -0.5)
+            b1 = rnd((H_PRED,), torch.float32, 0.1)
+            w2 = rnd((H_PRED, 1), torch.float32, H_PRED ** -0.5)
+            b2 = rnd((1,), torch.float32, 0.1)
+            got = predictor_mlp_fused(x, w1, b1, w2, b2)
+            want = predictor_mlp_ref(x, w1, b1, w2, b2)
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            err_pm = max(err_pm, (got - want).abs().max().item())
+        torch.cuda.synchronize()
+        log("kernels", f"{name}: spec_head err {err_sh:.3g} (R 1/160/320, "
+            f"ids 0 and V-1, repeated); verify at R 9/160/320: argmax and "
+            f"top-k ids exact, ties -> lowest id, err {err_av:.3g} / "
+            f"{err_tk:.3g}; predictor_mlp err {err_pm:.3g} (R 1/108/216)")
+        errs[name] = {"spec_head": err_sh, "predictor_mlp": err_pm,
+                      "argmax_verify": err_av, "topk_verify": err_tk}
+
+    # ---- bf16 timings at the tree path's shapes ----
+    dt, dname = torch.bfloat16, "bfloat16"
+    w = rnd((D, V), dt, 0.05)
+    t, by_rows = {}, {}
+    for R in (160, 320):
+        hn = rnd((R, D), dt)
+        id_sets = [ids_for(R) for _ in range(4)]
+        uniq = len(torch.unique(torch.cat(id_sets)))
+        nbytes = (R * D * 2 + uniq * D * 2 / len(id_sets)
+                  + R * K_SPEC * 8)
+        row = (graph_ms(torch, [lambda i=i: spec_head_logits(hn, w, i)
+                                for i in id_sets] * 3),
+               graph_ms(torch, [lambda i=i: spec_logits_ref(hn, w, i)
+                                for i in id_sets] * 3),
+               None,
+               bound_ms(nbytes, 2 * R * K_SPEC * D, dname))
+        log("kernels", f"spec_head bf16, R={R}: kernel {row[0]:.4f} ms, "
+            f"plain {row[1]:.4f} ms, bound {row[3][0]:.4f} ms "
+            f"({row[3][1]})")
+        if R == 160:                        # whole-batch tree, B=4 x 40
+            t["spec_head"] = row
+    for R in (108, 216):
+        x = rnd((R, F), torch.float32)
+        w1 = rnd((F, H_PRED), torch.float32, F ** -0.5)
+        b1 = rnd((H_PRED,), torch.float32)
+        w2 = rnd((H_PRED, 1), torch.float32, H_PRED ** -0.5)
+        b2 = rnd((1,), torch.float32)
+        nbytes = (R * F + F * H_PRED + 2 * H_PRED + 1 + R) * 4
+        ops = R * (2 * F * H_PRED + 2 * H_PRED)
+        n = 20
+        row = (graph_ms(torch, [lambda: predictor_mlp_fused(
+                   x, w1, b1, w2, b2)] * n),
+               graph_ms(torch, [lambda: predictor_mlp_ref(
+                   x, w1, b1, w2, b2)] * n),
+               None,
+               bound_ms(nbytes, ops, "float32"))
+        log("kernels", f"predictor_mlp fp32, R={R}: kernel {row[0]:.4f} ms,"
+            f" plain {row[1]:.4f} ms, bound {row[3][0]:.4f} ms "
+            f"({row[3][1]})")
+        if R == 108:                        # whole-batch tree, B=4 x 27
+            t["predictor_mlp"] = row
+    for R in (8, 160, 320):
+        hn = rnd((R, D), dt)
+        n = 5
+        nbytes = R * D * 2 + D * V * 2
+        rows = {}
+        for name, ker, plain, lib, out_b in (
+                ("argmax_verify", lambda: eg.argmax_verify_fused(hn, w),
+                 lambda: gref.verify_argmax_ref(hn, w),
+                 lambda: torch.argmax(hn @ w, -1), R * 8),
+                ("topk_verify", lambda: eg.topk_verify_fused(hn, w, K_SPEC),
+                 lambda: gref.verify_topk_ref(hn, w, K_SPEC),
+                 lambda: torch.topk(hn @ w, K_SPEC, -1), R * K_SPEC * 8)):
+            bnd = bound_ms(nbytes + out_b, 2 * R * D * V, dname)
+            rows[name] = (graph_ms(torch, [ker] * n),
+                          graph_ms(torch, [plain] * n),
+                          graph_ms(torch, [lib] * n), bnd)
+            ms, p_ms, l_ms, (b, by) = rows[name]
+            fp32_floor = 2 * R * D * V / PEAK_OPS_PER_S["float32"] * 1e3
+            log("kernels", f"{name} bf16, R={R}: kernel {ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b:.4f} ms "
+                f"({by}; the kernel's fp32 CUDA-core floor "
+                f"{fp32_floor:.4f} ms)")
+        by_rows[R] = rows
+    return errs["bfloat16"], t, by_rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the decode path through the public entry points
 # ---------------------------------------------------------------------------
@@ -463,12 +650,13 @@ def llama(layers: int, dtype: str, **serve):
 
 ALL_KERNELS = dict(flash_attention=True, decode_kernel=True,
                    exit_gate_kernel=True, exit_gate_impl="kernel")
+TREE_KERNELS = dict(ALL_KERNELS, spec_head_kernel=True)
 
 
-def drive(model, params, sw, strategy, prompts, new_tokens):
+def drive(model, params, sw, strategy, prompts, new_tokens, cache=None):
     from repro_torch.api import Engine
     session = Engine.create(model, params, sw,
-                            strategy=strategy).new_session()
+                            strategy=strategy).new_session(cache=cache)
     results = [session.prefill(prompts, max_new_tokens=new_tokens)]
     while not session.all_done():
         results.append(session.step())
@@ -544,10 +732,11 @@ def parity(torch, dev):
         "the verified token; propagated K/V equal (atol 1e-4) with kernels "
         "and plain")
     serving_parity(torch, dev, params, sw)
+    tree_parity(torch, dev, params, sw)
     del params, sw
 
 
-def _serve(model, params, sw, prompts, new_tokens, **kw):
+def _serve(model, params, sw, prompts, new_tokens, accept=False, **kw):
     from repro_torch.serving import ServingEngine
     se = ServingEngine(model, params, sw, **kw)
     reqs = [se.submit(p, max_new_tokens=new_tokens) for p in prompts]
@@ -555,6 +744,8 @@ def _serve(model, params, sw, prompts, new_tokens, **kw):
     mgr = se.session.cache_mgr
     require(mgr.free_pages == getattr(mgr, "num_pages", 0),
             f"{mgr.free_pages} pages free after serving, expected all")
+    if accept:
+        return [(r.output, r.exit_points, r.accept_lens) for r in reqs]
     return [(r.output, r.exit_points) for r in reqs]
 
 
@@ -653,6 +844,131 @@ def serving_parity(torch, dev, params, sw):
             f"{len(cells)} kernel/cache/admission cells and the plain dense "
             f"blocking run ({exits} exits of "
             f"{sum(len(e) for _, e in want)} ticks); every page returned")
+
+
+def tree_strategy(threshold=None):
+    from repro_torch.api import TreeStrategy
+    from repro_torch.core.tree import TreeSpec
+    return TreeStrategy(tree=TreeSpec(TREE_DEPTH, TREE_BRANCH),
+                        threshold=threshold)
+
+
+def tree_parity(torch, dev, params, sw):
+    """T3 tree decoding at full width, 4 layers, fp32: every kernel on
+    against the plain paths on dense and paged caches at thresholds 1.5,
+    0.4 and -0.1; an oracle tree whose first chain is dense greedy; tree
+    serving on the paged cache against plain tree serving."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.api import DenseStrategy, Engine
+    from repro_torch.core import engine as eng
+    from repro_torch.models.model import ModelFlags, build_model
+    run = llama(4, "float32")
+    m_plain = build_model(run)
+    m_ker = build_model(run, ModelFlags(**TREE_KERNELS))
+    prompts = np.random.default_rng(5).integers(0, V, (B, 16))
+    new = 12
+
+    def summary(results):
+        return [(r.tokens.tolist(), r.counts.tolist(), r.accept_len.tolist(),
+                 r.exit_layer.tolist(), r.exited.tolist(), r.units_run)
+                for r in results]
+
+    def stream(results):
+        return [sum((r.row_tokens(b) for r in results), [])
+                for b in range(B)]
+
+    # 16 dense tokens: the first 12 are the no-exit reference, all 16 the
+    # oracle's chains (3 steps of depth + 1)
+    dense = drive(m_plain, params, sw, DenseStrategy(), prompts, 16)
+    greedy = [row[:new] for row in stream(dense)]
+    for cache in ("dense", "paged"):
+        for thresh in (1.5, 0.4, -0.1):
+            K.reset_launches()
+            a = drive(m_ker, params, sw, tree_strategy(thresh), prompts, new,
+                      cache=cache)
+            launched = {k: K.LAUNCHES[k] for k in
+                        ("spec_head", "predictor_mlp", "argmax_verify")}
+            b = drive(m_plain, params, sw, tree_strategy(thresh), prompts,
+                      new, cache=cache)
+            require(summary(a) == summary(b), f"tree: kernel vs plain run "
+                    f"differs ({cache} cache, threshold {thresh})")
+            require(all(launched.values()), f"tree kernels not launched: "
+                    f"{launched}")
+            exits = sum(int(r.exited.sum()) for r in a[1:])
+            if thresh > 1:
+                require(stream(a) == greedy, f"tree at threshold "
+                        f"{thresh} differs from dense greedy ({cache})")
+            if thresh < 0:
+                require(exits > 0, "threshold -0.1 forced no exit")
+            log("parity", f"tree {cache} cache, threshold {thresh}: "
+                f"{len(a) - 1} steps, tokens/accept lengths/exit points "
+                f"identical with kernels and plain versions ({exits} exits; "
+                + ("equals dense greedy; " if thresh > 1 else "")
+                + "launches " + ", ".join(f"{k} {v}"
+                                          for k, v in launched.items()) + ")")
+
+    # oracle: the first chain of every tree follows dense greedy decoding,
+    # so each step accepts `depth` draft tokens + the bonus
+    tree = tree_strategy().tree
+    ref = np.stack([np.concatenate([r.tokens[b, :r.counts[b]]
+                                    for r in dense]) for b in range(B)])
+    chain = [tree.level_offsets[d] for d in range(1, tree.depth + 1)]
+    for cache in ("dense", "paged"):
+        outs = []
+        for m in (m_ker, m_plain):
+            s = Engine.create(m, params, sw,
+                              strategy=tree_strategy()).new_session(
+                                  cache=cache)
+            s.prefill(prompts, max_seq=64)
+            st = s._state
+            ptr, got = 1, []
+            for step in range(3):
+                toks = np.random.default_rng(step).integers(
+                    0, V, (B, tree.num_nodes)).astype(np.int32)
+                toks[:, chain] = ref[:, ptr:ptr + tree.depth]
+                out, n, st, info = eng.tree_decode_step(
+                    m, params, sw, st, tree, threshold=1.5,
+                    node_tokens_override=torch.as_tensor(toks, device=dev))
+                require(info.accepted_len.tolist() == [tree.depth] * B,
+                        f"oracle accepted {info.accepted_len.tolist()}")
+                require(np.array_equal(out.cpu().numpy(),
+                                       ref[:, ptr:ptr + tree.depth + 1]),
+                        "oracle tree tokens differ from dense greedy")
+                ptr += tree.depth + 1
+                got.append(out.tolist())
+            outs.append(got)
+        require(outs[0] == outs[1], f"oracle tree: kernels vs plain differ "
+                f"({cache})")
+        log("parity", f"tree oracle, {cache} cache: 3 steps, accepted "
+            f"length {tree.depth} every step, {3 * (tree.depth + 1)} tokens "
+            "per row equal dense greedy, with kernels and plain versions")
+
+    # tree serving: 8 requests through 4 slots, paged kernels vs plain
+    srun = llama(4, "float32", max_batch=4, max_seq_len=512, page_size=PAGE)
+    s_ker = build_model(srun, ModelFlags(**TREE_KERNELS))
+    s_plain = build_model(srun, ModelFlags(exit_gate_impl="ref"))
+    rng = np.random.default_rng(6)
+    sprompts = [rng.integers(0, V, int(n)) for n in rng.integers(20, 201, 8)]
+    strat = tree_strategy(0.4)
+    K.reset_launches()
+    got = _serve(s_ker, params, sw, sprompts, 8, strategy=strat,
+                 fused_gate=True, cache="paged", prefill_chunk=0,
+                 accept=True)
+    launched = dict(K.LAUNCHES)
+    want = _serve(s_plain, params, sw, sprompts, 8, strategy=strat,
+                  fused_gate=False, cache="dense", prefill_chunk=0,
+                  accept=True)
+    require(got == want, "tree serving: kernels (paged) vs plain (dense) "
+            "differ in tokens, exit points or accept lengths")
+    missing = [k for k in ("spec_head", "predictor_mlp", "argmax_verify",
+                           "flash_attention") if launched[k] == 0]
+    require(not missing, f"tree serving never launched {missing}")
+    exits = sum(e < s_ker.num_exit_points for _, eps, _ in want for e in eps)
+    log("parity", f"tree serving: 8 requests through 4 slots, per-request "
+        f"tokens, exit points and accept lengths identical, paged kernels "
+        f"vs plain dense ({exits} exits of {sum(len(e) for _, e, _ in want)}"
+        f" ticks); every page returned")
 
 
 def full_weights(torch, dev):
@@ -874,6 +1190,134 @@ def serve_phase(torch, dev, params, sw):
     return {"serve_blocking": l_block, "serve_chunked": l_chunk}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: T3 tree decoding at full width
+# ---------------------------------------------------------------------------
+TREE_PATH = ("spec_head", "predictor_mlp", "argmax_verify", "flash_attention")
+
+
+def _per_step(launches, n):
+    return ", ".join(f"{k} {launches[k]} ({launches[k] / n:.2f}/step)"
+                     for k in ("spec_head", "predictor_mlp", "argmax_verify"))
+
+
+def tree_phase(torch, dev, params, sw):
+    """Whole-batch tree session (B=4, prompt 128, 16 tree steps, dense
+    cache), then tree serving on the paged cache (8 requests, 8 slots).
+    Each zeroes the launch counts right before and reads them right
+    after."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.api import Engine
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine
+    model = build_model(llama(32, "bfloat16"), ModelFlags(**TREE_KERNELS))
+    tree = tree_strategy().tree
+    prompts = np.random.default_rng(1).integers(0, V, (B, FULL_PROMPT))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    K.reset_launches()                       # ---- the main path ----
+    session = Engine.create(model, params, sw,
+                            strategy=tree_strategy()).new_session()
+    t0 = time.perf_counter()
+    session.prefill(prompts,
+                    max_new_tokens=(TREE_STEPS + 4) * (tree.depth + 1))
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steps = [session.step() for _ in range(TREE_STEPS)]
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)              # ---- read right after ----
+
+    require(all(((r.tokens >= 0) & (r.tokens < V)).all() for r in steps),
+            "tree token out of vocabulary")
+    require(all((r.counts >= 1).all() for r in steps), "a row emitted none")
+    require(bool(torch.isfinite(session._state.h_last.float()).all()),
+            "non-finite hidden state")
+    missing = [k for k in TREE_PATH if launches[k] == 0]
+    require(not missing, f"kernels never launched on the tree path: "
+            f"{missing}")
+    tokens = sum(int(r.counts.sum()) for r in steps)
+    accept = np.mean([r.accept_len for r in steps])
+    exits = sum(int(r.exited.sum()) for r in steps)
+    units = np.mean([r.units_run for r in steps])
+    log("tree", f"whole batch, TreeSpec({tree.depth}, {tree.branch}) "
+        f"({tree.num_nodes} nodes, {len(tree.path_nodes)} paths): prefill "
+        f"{B}x{FULL_PROMPT} in {t_prefill:.3f} s; {TREE_STEPS} tree steps in "
+        f"{t_decode:.3f} s = {t_decode / TREE_STEPS * 1e3:.2f} ms/step, "
+        f"{tokens} tokens = {tokens / t_decode:.2f} tokens/s; mean accepted "
+        f"length {accept:.3f} (random draft weights: ~0 expected); exits "
+        f"per step {exits / TREE_STEPS:.2f} of {B} rows; mean units_run "
+        f"{units:.2f} of {model.num_exit_points}; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("tree", "whole batch launches: " + _per_step(launches, TREE_STEPS))
+    profile_ticks(torch, "profile-tree", session.step, 3,
+                  f" ({t_decode / TREE_STEPS * 1e3:.2f} unprofiled)")
+    del session
+    torch.cuda.empty_cache()
+
+    srun = llama(32, "bfloat16", max_batch=SERVE_BATCH,
+                 max_seq_len=SERVE_SEQ, page_size=PAGE)
+    se = ServingEngine(build_model(srun, ModelFlags(**TREE_KERNELS)), params,
+                       sw, strategy=tree_strategy(), cache="paged",
+                       prefill_chunk=0)
+    mgr = se.session.cache_mgr
+    sprompts = serve_prompts()[:TREE_SERVE_REQS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tick_s = []
+    K.reset_launches()                       # ---- the main path ----
+    t0 = time.perf_counter()
+    reqs = [se.submit(p, max_new_tokens=SERVE_NEW) for p in sprompts]
+    while se.busy:
+        t1 = time.perf_counter()
+        se.step()
+        torch.cuda.synchronize()
+        tick_s.append(time.perf_counter() - t1)
+        require(len(tick_s) <= 10_000, "tree serving did not finish")
+    wall = time.perf_counter() - t0
+    ticks = len(tick_s)
+    s_launches = dict(K.LAUNCHES)            # ---- read right after ----
+
+    require(all(r.done and len(r.output) == SERVE_NEW for r in reqs),
+            "a tree request did not finish with its 32 tokens")
+    require(all(0 <= t < V for r in reqs for t in r.output),
+            "token out of vocabulary")
+    require(mgr.free_pages == mgr.num_pages,
+            f"{mgr.free_pages} of {mgr.num_pages} pages free at the end")
+    missing = [k for k in TREE_PATH if s_launches[k] == 0]
+    require(not missing, f"kernels never launched on the tree serving "
+            f"path: {missing}")
+    row_ticks = sum(len(r.accept_lens) for r in reqs)
+    exits = sum(e < se.model.num_exit_points for r in reqs
+                for e in r.exit_points)
+    log("tree", f"serve: {TREE_SERVE_REQS} requests (prompts "
+        f"{min(map(len, sprompts))}-{max(map(len, sprompts))} tokens, "
+        f"{SERVE_NEW} new each) through {SERVE_BATCH} slots of "
+        f"{mgr.pages_per_row} pages in {wall:.3f} s = "
+        f"{TREE_SERVE_REQS / wall:.3f} requests/s, "
+        f"{TREE_SERVE_REQS * SERVE_NEW / wall:.2f} tokens/s; {ticks} ticks, "
+        f"{wall / ticks * 1e3:.2f} ms/tick (median "
+        f"{sorted(tick_s)[ticks // 2] * 1e3:.2f}, first tick, with the "
+        f"admissions, {tick_s[0] * 1e3:.2f}); mean accepted length "
+        f"{sum(sum(r.accept_lens) for r in reqs) / row_ticks:.3f}; exits per "
+        f"row tick {exits / row_ticks:.4f}; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; free pages at "
+        f"the end {mgr.free_pages} of {mgr.num_pages}")
+    log("tree", "serve launches: " + _per_step(s_launches, ticks)
+        .replace("/step", "/tick"))
+    for p in sprompts:                       # 8 live rows, no admission
+        se.submit(p, max_new_tokens=8)
+    se.step()
+    se.step()
+    torch.cuda.synchronize()
+    profile_ticks(torch, "profile-tree-serve", se.step, 3)
+    del se
+    return {"tree_whole_batch": launches, "tree_serve": s_launches}
+
+
 def flip_margins(torch, params, out_block, out_chunk) -> None:
     """For each request whose blocking and chunked outputs differ: the
     plain model's top-2 logit margin at the first differing token, after
@@ -909,6 +1353,8 @@ def flip_margins(torch, params, out_block, out_chunk) -> None:
 FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
             ("topk_verify", ("topk_partial", "topk_merge")),
             ("exit_gate", ("exit_gate_kernel",)),
+            ("spec_head", ("spec_head_kernel",)),
+            ("predictor_mlp", ("predictor_mlp_kernel",)),
             ("paged_decode_attention", ("paged_decode_attention_kernel",)),
             ("decode_attention", ("decode_attention_kernel",)),
             ("flash_attention", ("flash_attention_kernel",)),
@@ -1008,24 +1454,38 @@ def main() -> int:
 
     errs, timing = check_kernels(torch, dev)
     torch.cuda.empty_cache()
+    errs_tree, t_tree, verify_rows = check_tree_kernels(torch, dev)
+    for name, err in errs_tree.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    timing.update(t_tree)
+    torch.cuda.empty_cache()
     parity(torch, dev)
     torch.cuda.empty_cache()
     params, sw = full_weights(torch, dev)
     by_path = {"whole_batch": full_run(torch, dev, params, sw)}
     torch.cuda.empty_cache()
     by_path.update(serve_phase(torch, dev, params, sw))
+    torch.cuda.empty_cache()
+    by_path.update(tree_phase(torch, dev, params, sw))
 
     kernels = []
     for name in build.SOURCES:
         ms, plain, lib, (bnd, by) = timing[name]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
             "launches": sum(l[name] for l in by_path.values()),
             "launches_by_path": {p: l[name] for p, l in by_path.items()},
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib})
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+        if name in ("argmax_verify", "topk_verify"):
+            row["at_rows"] = {
+                str(R): {"ms": r[name][0], "plain_ms": r[name][1],
+                         "library_ms": r[name][2], "bound_ms": r[name][3][0],
+                         "bound_by": r[name][3][1]}
+                for R, r in verify_rows.items()}
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ from repro_torch.api.cache import (CacheSpec, DenseKVCache, KVCacheManager,
                                    PagedKVCache)
 from repro_torch.api.session import DecodeSession, Engine
 from repro_torch.api.strategies import (DecodeStrategy, DenseStrategy,
-                                        SpecEEStrategy, get_strategy)
+                                        SpecEEStrategy, TreeStrategy,
+                                        get_strategy)
 from repro_torch.api.types import StepResult
 
 __all__ = ["CacheSpec", "DecodeSession", "DecodeStrategy", "DenseKVCache",
            "DenseStrategy", "Engine", "KVCacheManager", "PagedKVCache",
-           "SpecEEStrategy", "StepResult", "get_strategy"]
+           "SpecEEStrategy", "StepResult", "TreeStrategy", "get_strategy"]

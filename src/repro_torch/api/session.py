@@ -1,5 +1,5 @@
 """Engine / DecodeSession (counterpart of ``repro/api/session.py``) with
-single ticks:
+single ticks (a tree tick emits up to ``depth + 1`` tokens per row):
 
     engine = Engine.create(model, params, sw, strategy="specee")
     session = engine.new_session()
@@ -64,7 +64,8 @@ class Engine:
     def create(cls, model: Model, params, sw=None,
                strategy: Union[str, DecodeStrategy, None] = None
                ) -> "Engine":
-        """``Engine.create(model, params, sw, strategy="dense"|"specee")``."""
+        """``Engine.create(model, params, sw,
+        strategy="dense"|"specee"|"tree")``."""
         return cls(model, params, sw=sw, strategy=strategy)
 
     @property

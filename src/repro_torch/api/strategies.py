@@ -1,6 +1,9 @@
 """Decode strategies (counterpart of ``repro/api/strategies.py``): adapters
-from the engine step functions to the canonical ``StepResult``. This slice
-ports the dense baseline and AR SpecEE; tree decoding is a later slice."""
+from the engine step functions to the canonical ``StepResult``: the dense
+baseline, AR SpecEE and T3 tree decoding. A strategy owns what is
+mode-specific: how wide a step's emit can be, how many cache slots a
+session of ``max_seq`` needs (the tree reserves its node scratch), and
+which engine step runs per tick."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,6 +13,7 @@ import torch
 
 from repro_torch.api.types import StepResult
 from repro_torch.core import engine as eng
+from repro_torch.core.tree import TreeSpec
 from repro_torch.models.model import Model
 
 
@@ -89,13 +93,56 @@ class SpecEEStrategy(DecodeStrategy):
         return _single_token_result(token, info), new_state
 
 
+@dataclass(frozen=True)
+class TreeStrategy(DecodeStrategy):
+    """T3: tree speculative decoding with the hyper-token merged mapping.
+    Emits up to ``tree.depth + 1`` tokens per tick (accepted chain + bonus).
+    ``tree=None`` builds the TreeSpec from ``run.specee.tree_depth`` /
+    ``tree_branch``."""
+    tree: Optional[TreeSpec] = None
+    threshold: Optional[float] = None
+    name = "tree"
+
+    def tree_for(self, model: Model) -> TreeSpec:
+        if self.tree is not None:
+            return self.tree
+        spec = model.run.specee
+        return TreeSpec(depth=spec.tree_depth, branch=spec.tree_branch)
+
+    def emit_width(self, model):
+        return self.tree_for(model).depth + 1
+
+    def cache_seq_len(self, model, max_seq):
+        return max_seq + self.tree_for(model).num_nodes
+
+    def validate(self, model, sw):
+        super().validate(model, sw)
+        if not model.supports_tree():
+            raise ValueError(
+                "tree strategy requires a stack of global attention blocks; "
+                f"{model.cfg.name} has {sorted(set(model.cfg.blocks()))}")
+
+    def step(self, model, params, sw, state):
+        out, n_emit, new_state, info = eng.tree_decode_step(
+            model, params, sw, state, self.tree_for(model),
+            threshold=self.threshold)
+        B = out.shape[0]
+        res = StepResult(tokens=out, counts=n_emit,
+                         done=torch.zeros(B, dtype=torch.bool,
+                                          device=out.device),
+                         exit_layer=info.exit_point,
+                         accept_len=info.accepted_len, exited=info.exited,
+                         units_run=info.units_run)
+        return res, new_state
+
+
 _BY_NAME = {"dense": DenseStrategy, "specee": SpecEEStrategy,
-            "ar": SpecEEStrategy}
+            "ar": SpecEEStrategy, "tree": TreeStrategy}
 
 
 def get_strategy(spec: Union[str, DecodeStrategy, None]) -> DecodeStrategy:
-    """Resolve a strategy name ("dense" | "specee" | "ar") or pass an
-    instance through."""
+    """Resolve a strategy name ("dense" | "specee" | "ar" | "tree") or pass
+    an instance through."""
     if spec is None:
         return SpecEEStrategy()
     if isinstance(spec, DecodeStrategy):

@@ -78,6 +78,8 @@ class SpecEEConfig:
     schedule_enabled: bool = True     # T2 two-level scheduling
     online_window: int = 5            # circular queue length
     online_radius: int = 2            # ±radius exit points
+    tree_depth: int = 3               # T3: draft levels under the root
+    tree_branch: int = 3              # T3: top-b expansion per node
 
     def feature_dim(self) -> int:
         return 3 * self.num_speculative  # logits, local probs, prob variation

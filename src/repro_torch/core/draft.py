@@ -8,6 +8,7 @@ single-layer KV cache, written in place.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Tuple
 
 import torch
@@ -56,7 +57,9 @@ def draft_step(cfg: ModelConfig, p: Params, embed_tok: torch.Tensor,
                h_target: torch.Tensor, cache: Any, pos: torch.Tensor
                ) -> Tuple[torch.Tensor, Any]:
     """One draft forward. embed_tok, h_target: (B, D); pos: (B,) position
-    this step writes. The K/V is written into ``cache`` in place. Returns
+    this step writes. The K/V is written into ``cache`` in place; a
+    position past the cache is dropped, as JAX's scatter drops it (a row
+    the tree path carried past its session length). Returns
     (h_draft (B, D), cache)."""
     dc = _draft_cfg(cfg)
     B = embed_tok.shape[0]
@@ -65,13 +68,65 @@ def draft_step(cfg: ModelConfig, p: Params, embed_tok: torch.Tensor,
     pvec = pos.long()
     q, k, v = attn_lib.qkv(dc, p["attn"], x, pvec[:, None])
     rows = torch.arange(B, device=h.device)
-    cache["k"][rows, pvec] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, pvec] = v[:, 0].to(cache["v"].dtype)
+    S = cache["k"].shape[1]
+    slot = pvec.clamp(max=S - 1)
+    inside = (pvec < S)[:, None, None]
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        c[rows, slot] = torch.where(inside, new[:, 0].to(c.dtype),
+                                    c[rows, slot])
     o = attn_lib.attend_decode(dc, q, cache["k"], cache["v"], pvec + 1)
     h = h + attn_lib.out_proj(p["attn"], o)[:, 0, :]
     x2 = common.apply_norm(dc, p["ln2"], h[:, None, :])
     h = h + common.apply_mlp(dc, p["mlp"], x2)[:, 0, :]
     return h, cache
+
+
+def draft_step_readonly(cfg: ModelConfig, p: Params, embed_tok: torch.Tensor,
+                        h_parent: torch.Tensor, cache: Any, pos,
+                        cache_len) -> torch.Tensor:
+    """Tree-expansion draft forward that does not write the cache: each node
+    attends its row's trunk context (slots < ``cache_len``) plus itself;
+    parent information flows through the fused ``h_parent`` input.
+
+    embed_tok, h_parent: (B*G, D), G nodes per cache row, row-major;
+    cache: {"k", "v"} of (B, S, KVH, hd); pos, cache_len: (B,) per cache row
+    (or scalars). Returns h (B*G, D).
+
+    The JAX version repeats the cache once per node (``jnp.repeat``); here
+    the node queries are grouped per cache row and attend the row's cache
+    in place, so nothing of the cache size is copied."""
+    dc = _draft_cfg(cfg)
+    kc, vc = cache["k"], cache["v"]
+    B, S, KVH, hd = kc.shape
+    Bs = embed_tok.shape[0]
+    G = Bs // B
+    H = dc.num_heads
+    n_rep = H // KVH
+    h = _fused_input(p, embed_tok, h_parent)
+    x = common.apply_norm(dc, p["ln1"], h)[:, None, :]
+    dev = h.device
+    pos = torch.as_tensor(pos, device=dev).long().reshape(-1)
+    pos = pos.expand(B) if pos.numel() == 1 else pos
+    q, k, v = attn_lib.qkv(dc, p["attn"], x,
+                           pos.repeat_interleave(G)[:, None])
+    scale = 1.0 / math.sqrt(hd)
+    qg = q[:, 0].reshape(B, G, KVH, n_rep, hd)
+    ks = k[:, 0].reshape(B, G, KVH, hd).to(kc.dtype)
+    vs = v[:, 0].reshape(B, G, KVH, hd).to(vc.dtype)
+    s_ctx = torch.einsum("bngrd,bsgd->bngrs", qg, kc).float() * scale
+    s_self = torch.einsum("bngrd,bngd->bngr", qg, ks).float() * scale
+    clen = torch.as_tensor(cache_len, device=dev).reshape(-1, 1)
+    valid = torch.arange(S, device=dev)[None, :] < clen          # (B|1, S)
+    s_ctx = torch.where(valid[:, None, None, None, :], s_ctx,
+                        torch.full_like(s_ctx, attn_lib.NEG_INF))
+    probs = torch.softmax(torch.cat([s_ctx, s_self[..., None]], -1),
+                          dim=-1).to(vc.dtype)
+    o = (torch.einsum("bngrs,bsgd->bngrd", probs[..., :S], vc)
+         + probs[..., S:] * vs[:, :, :, None, :])
+    h = h + attn_lib.out_proj(p["attn"], o.reshape(Bs, 1, H, hd))[:, 0, :]
+    x2 = common.apply_norm(dc, p["ln2"], h[:, None, :])
+    return h + common.apply_mlp(dc, p["mlp"], x2)[:, 0, :]
 
 
 def shift_hidden(h: torch.Tensor) -> torch.Tensor:

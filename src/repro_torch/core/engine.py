@@ -6,11 +6,17 @@
     LM-head argmax at the exit layer is in the speculative set) → KV
     propagation for the layers the loop never reached.
 
+``tree_decode_step`` — T3: tree speculative decoding with the hyper-token
+    merged mapping: the draft expands a static token tree, the target runs
+    every node at once under a tree mask with one predictor evaluation per
+    root→leaf path (the Cannikin min-merge of its nodes' features), and the
+    accepted chain is the greedy path match at the exit layer.
+
 JAX's ``lax.while_loop`` / ``lax.cond`` become host loops and branches
 here. Their conditions (``all(exited)``, ``any(act)``, ``any(would)``) are
 read back from the card once per layer; removing those syncs with a CUDA
-graph is later work. ``StepInfo.units_run`` counts the loop's iterations
-exactly as the JAX while loop does.
+graph is later work. ``units_run`` counts the loops' iterations exactly as
+the JAX while loops do.
 
 Semantics guarantees (held against the JAX package in tests/):
   * with the predictor disabled (threshold > 1) the emitted tokens equal
@@ -22,11 +28,14 @@ from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import draft as draft_lib
+from repro_torch.core import features as feat_lib
 from repro_torch.core import predictor as pred_lib
 from repro_torch.core import scheduler as sched_lib
+from repro_torch.core.tree import TreeSpec
 from repro_torch.kernels.exit_gate import ops as gate_lib
 from repro_torch.models.common import Params, lm_head_weight
 from repro_torch.models.model import Model
@@ -163,7 +172,8 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
                 hn = model.final_norm(params, h)
                 p_exit, probs, _ = gate_lib.exit_gate(
                     hn, lm_w, spec_ids, prev_probs, sw.predictors, ep,
-                    impl=gate_impl)
+                    impl=gate_impl,
+                    spec_head_kernel=model.flags.spec_head_kernel)
                 would = act & (p_exit > thresh)
                 if bool(would.any()):
                     gtok, _ = gate_lib.verify_argmax(hn, lm_w, impl=gate_impl)
@@ -196,6 +206,233 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     info = StepInfo(exit_point=exit_pt, exited=exited, units_run=units_run,
                     spec_hit=spec_hit)
     return token, new_state, info
+
+
+# ---------------------------------------------------------------------------
+# T3: tree speculative decoding with hyper-token merged early exit
+# ---------------------------------------------------------------------------
+class TreeStepInfo(NamedTuple):
+    accepted_len: torch.Tensor  # (B,) matched draft tokens (excl. bonus)
+    exit_point: torch.Tensor    # (B,) unit index at exit
+    exited: torch.Tensor        # (B,)
+    units_run: int              # units the layer loop executed
+
+
+def _top_b(logits: torch.Tensor, b: int) -> torch.Tensor:
+    """Ids of the b largest logits per row, ties by ascending id (a stable
+    descending sort, as ``lax.top_k``; ``torch.topk`` makes no promise)."""
+    return torch.sort(logits, dim=-1, descending=True, stable=True)[1][:, :b]
+
+
+def build_tree(model: Model, params: Params, sw: SpecEEWeights,
+               state: DecodeState, tree: TreeSpec
+               ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+    """Draft-expand the static tree. Returns (node_tokens (B, N) int32,
+    node draft hiddens (B, N, D), the draft cache with the root written)."""
+    cfg = model.cfg
+    B = state.last_token.shape[0]
+    pos0 = state.cache["len"]
+    b = tree.branch
+    # root draft step (writes the trunk cache at pos0)
+    emb = model.embed(params, state.last_token[:, None])[:, 0, :]
+    h_root, draft_cache = draft_lib.draft_step(
+        cfg, sw.draft, emb, state.h_last, state.draft_cache, pos0)
+    node_tokens = torch.zeros(B, tree.num_nodes, dtype=torch.int32,
+                              device=emb.device)
+    node_tokens[:, 0] = state.last_token
+    h_nodes = h_root.new_zeros((B, tree.num_nodes, h_root.shape[-1]))
+    h_nodes[:, 0] = h_root
+    for lvl in range(1, tree.depth + 1):
+        p_off, p_size = tree.level_offsets[lvl - 1], tree.level_sizes[lvl - 1]
+        off, size = tree.level_offsets[lvl], tree.level_sizes[lvl]
+        # children = top-b of each parent's draft logits
+        hp = h_nodes[:, p_off:p_off + p_size].reshape(B * p_size, -1)
+        toks = _top_b(model.logits(params, hp), b).to(torch.int32).reshape(
+            B, size)
+        node_tokens[:, off:off + size] = toks
+        if lvl < tree.depth:            # hiddens to expand further
+            emb_c = model.embed(params, toks.reshape(B * size, 1))[:, 0, :]
+            hp_rep = hp.repeat_interleave(b, dim=0)
+            h_c = draft_lib.draft_step_readonly(
+                cfg, sw.draft, emb_c, hp_rep, draft_cache, pos0 + lvl,
+                pos0 + 1)
+            h_nodes[:, off:off + size] = h_c.reshape(B, size, -1)
+    return node_tokens, h_nodes, draft_cache
+
+
+def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
+                     state: DecodeState, tree: TreeSpec,
+                     threshold: Optional[float] = None,
+                     node_tokens_override: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, DecodeState,
+                                TreeStepInfo]:
+    """One tree-speculative step with hyper-token merged early exit.
+
+    Returns (tokens (B, depth+1) emitted left-aligned, num_emitted (B,),
+    new state, info). The cache needs ``tree.num_nodes`` scratch slots at
+    the end of its logical capacity (``init_tree_decode_state``, or a
+    strategy's ``cache_seq_len``); the caches are updated in place.
+    node_tokens_override: (B, N) oracle node tokens (tests, benchmarks);
+    the root keeps the last token.
+    """
+    assert model.supports_tree(), \
+        "T3 tree mode requires a pure-attention stack"
+    spec = model.run.specee
+    thresh = spec.exit_threshold if threshold is None else threshold
+    E = model.num_exit_points
+    lm_w = lm_head_weight(params)
+    B = state.last_token.shape[0]
+    N, k = tree.num_nodes, spec.num_speculative
+    pos0 = state.cache["len"]
+    dev = pos0.device
+    gate_impl = gate_lib.impl_for_flags(model.flags)
+    sh_kernel = model.flags.spec_head_kernel
+    # the predictor stage takes the kernel wrapper only when the fused
+    # backend resolves to the kernel path (JAX's rule)
+    pred_kernel = (model.flags.exit_gate_kernel
+                   and gate_lib.resolve_impl(gate_impl, lm_w) == "kernel")
+    # static scratch offset = logical capacity minus N; with a paged cache
+    # the capacity is pages_per_row * page_size
+    pages = state.cache.get("page_table")
+    any_k = state.cache["segments"][0]["u0"]["k"]
+    capacity = (any_k.shape[2] if pages is None
+                else pages.shape[1] * any_k.shape[2])
+    scratch_off = capacity - N
+
+    node_tokens, _, draft_cache = build_tree(model, params, sw, state, tree)
+    if node_tokens_override is not None:
+        node_tokens = node_tokens_override.to(device=dev,
+                                              dtype=torch.int32).clone()
+        node_tokens[:, 0] = state.last_token
+
+    # children token matrix per node, padded (or cut) to k for the features
+    children = torch.as_tensor(tree.children, device=dev).long()   # (N, b)
+    child_toks = node_tokens[:, children.clamp(min=0)]              # (B,N,b)
+    if tree.branch < k:
+        child_toks = torch.cat([child_toks, child_toks[:, :, :1].expand(
+            B, N, k - tree.branch)], dim=2)
+    child_toks = child_toks[:, :, :k].reshape(B * N, k).contiguous()
+
+    # ---- layer loop with hyper-token early exit ----
+    mask = tree.attention_mask(pos0, scratch_off)          # (B, 1, N, cap)
+    positions = tree.positions(pos0).expand(B, N)
+    h = model.embed(params, node_tokens)                   # (B, N, D)
+    exited = torch.zeros(B, dtype=torch.bool, device=dev)
+    exit_pt = torch.full((B,), E, dtype=torch.int32, device=dev)
+    prev_probs = torch.full((B, N, k), 1.0 / k, dtype=torch.float32,
+                            device=dev)
+    units_run = 0
+    active = sched_lib.active_mask(state.sched, sw.offline_mask, spec, E)
+    path_nodes = torch.as_tensor(tree.path_nodes, device=dev)
+    ep_base = 0
+    for seg, (_, reps) in enumerate(model.segments):
+        seg_cache = state.cache["segments"][seg]
+        u = 0
+        while u < reps and not bool(exited.all()):
+            h_new, seg_cache = model.run_unit_tree(
+                params, seg, u, h, seg_cache, mask, positions, scratch_off,
+                pages=pages)
+            h = torch.where(exited[:, None, None], h, h_new)
+            ep = ep_base + u
+            act = active[:, ep] & ~exited
+            if bool(act.any()):
+                hn = model.final_norm(params, h).reshape(B * N, -1)
+                feats, probs = feat_lib.extract_features(
+                    hn, lm_w, child_toks, prev_probs.reshape(B * N, k),
+                    use_kernel=sh_kernel)
+                # hyper-token merge: one predictor evaluation per path
+                pf, _ = feat_lib.merge_path_features(
+                    feats.reshape(B, N, -1), probs.reshape(B, N, k),
+                    path_nodes)
+                p_exit = pred_lib.apply_predictor_banked(
+                    sw.predictors, ep, pf, use_kernel=pred_kernel)  # (B, P)
+                newly = act & (p_exit.amax(dim=1) > thresh)  # best path
+                exit_pt = torch.where(newly, torch.full_like(exit_pt, ep),
+                                      exit_pt)
+                prev_probs = torch.where(act[:, None, None],
+                                         probs.reshape(B, N, k), prev_probs)
+                exited = exited | newly
+            u += 1
+            units_run += 1
+        for u_skip in range(u, reps):
+            seg_cache = model.propagate_unit_tree(
+                params, seg, u_skip, h, seg_cache, positions, scratch_off,
+                pages=pages)
+        ep_base += reps
+
+    # ---- acceptance walk on global logits at the (per-row) exit layer ----
+    # the B*N node rows stream through one verify: no (B, N, V) logits
+    hn_nodes = model.final_norm(params, h).reshape(B * N, -1)
+    gtok = gate_lib.verify_argmax(hn_nodes, lm_w, impl=gate_impl)[0]
+    # the walk is a few integer steps per row: on the host, from one copy
+    g = gtok.reshape(B, N).cpu().numpy()
+    toks = node_tokens.cpu().numpy()
+    ch = tree.children
+    cur = np.zeros(B, np.int64)                            # root
+    acc_nodes = np.full((B, tree.depth + 1), -1, np.int64)
+    acc_nodes[:, 0] = 0
+    acc_len = np.ones(B, np.int64)                         # root always in
+    out = np.zeros((B, tree.depth + 1), np.int32)
+    for r in range(B):
+        for d in range(1, tree.depth + 1):
+            target = g[r, cur[r]]
+            hit = [c for c in ch[cur[r]] if c >= 0 and toks[r, c] == target]
+            if not hit:
+                break
+            out[r, d - 1] = target
+            acc_nodes[r, d] = cur[r] = hit[0]
+            acc_len[r] += 1
+        out[r, acc_len[r] - 1] = g[r, cur[r]]              # bonus token
+    n_emit = acc_len.copy()                                # matched + bonus
+
+    # ---- commit: copy accepted K/V into real cache positions ----
+    cache = model.accept_tree_kv(
+        dict(state.cache), torch.as_tensor(acc_nodes),
+        torch.as_tensor(acc_len), pos0, scratch_off)
+    acc_len_t = torch.as_tensor(acc_len, device=dev)
+    cache["len"] = (pos0 + acc_len_t).to(pos0.dtype)
+    rows = torch.arange(B, device=dev)
+    cur_t = torch.as_tensor(cur, device=dev)
+    out_t = torch.as_tensor(out, device=dev)
+
+    # ---- draft cache catch-up for accepted tokens beyond the root ----
+    # rows without a d-th accepted token keep their draft cache: the slot
+    # the batched draft step writes is restored for them
+    acc_nodes_t = torch.as_tensor(acc_nodes, device=dev)
+    S_draft = draft_cache["k"].shape[1]
+    for d in range(1, tree.depth + 1):
+        if not (acc_len > d).any():
+            break
+        valid = acc_len_t > d
+        pos_d = pos0.long() + d
+        slot = pos_d.clamp(max=S_draft - 1)
+        kept = {n: draft_cache[n][rows, slot].clone() for n in ("k", "v")}
+        emb_d = model.embed(params, out_t[:, d - 1:d])[:, 0, :]
+        parent_h = h[rows, acc_nodes_t[:, d - 1].clamp(min=0)]
+        _, draft_cache = draft_lib.draft_step(
+            model.cfg, sw.draft, emb_d, parent_h, draft_cache, pos_d)
+        for n in ("k", "v"):
+            draft_cache[n][rows, slot] = torch.where(
+                valid[:, None, None], draft_cache[n][rows, slot], kept[n])
+
+    sched = sched_lib.update(state.sched, exit_pt.clamp(max=E - 1))
+    bonus = out_t[rows, acc_len_t - 1]
+    new_state = DecodeState(cache=cache, draft_cache=draft_cache, sched=sched,
+                            last_token=bonus, h_last=h[rows, cur_t])
+    info = TreeStepInfo(accepted_len=acc_len_t.to(torch.int32) - 1,
+                        exit_point=exit_pt, exited=exited,
+                        units_run=units_run)
+    return out_t, acc_len_t.to(torch.int32), new_state, info
+
+
+def init_tree_decode_state(model: Model, params: Params, sw: SpecEEWeights,
+                           batch: Dict[str, torch.Tensor], max_seq: int,
+                           tree: TreeSpec
+                           ) -> Tuple[torch.Tensor, DecodeState]:
+    """Like ``init_decode_state`` but reserves N scratch slots in the cache
+    (cache lengths are per-row throughout: rows accept ragged counts)."""
+    return init_decode_state(model, params, sw, batch,
+                             max_seq + tree.num_nodes)
 
 
 def dense_decode_step(model: Model, params: Params,

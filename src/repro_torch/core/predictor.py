@@ -1,7 +1,9 @@
 """T1 — the early-exit predictor (counterpart of ``repro/core/predictor.py``).
 
 A 2-layer MLP (hidden 512, ReLU, sigmoid head) over the 3k speculation
-features, one per exit point, stacked over exit points. The bank stays in
+features, one per exit point, stacked over exit points. The AR gate runs it
+inside the fused exit gate; the tree gate runs it per root→leaf path
+through ``apply_predictor_banked``. The bank stays in
 fp32 whatever the model's dtype, as in the JAX package.
 """
 from __future__ import annotations
@@ -11,6 +13,7 @@ import math
 import torch
 
 from repro_torch.config import SpecEEConfig
+from repro_torch.kernels.predictor_mlp.ops import predictor_mlp_at
 from repro_torch.models.common import Params, normal_init, tree_map
 
 
@@ -50,3 +53,18 @@ def apply_predictor(p: Params, features: torch.Tensor) -> torch.Tensor:
 def predictor_at(stacked: Params, idx: int) -> Params:
     """One predictor out of the stacked bank (views)."""
     return tree_map(lambda x: x[idx], stacked)
+
+
+def apply_predictor_banked(stacked: Params, idx: int,
+                           features: torch.Tensor,
+                           use_kernel: bool = False) -> torch.Tensor:
+    """Predictor ``idx`` of the stacked bank on features (..., F) -> exit
+    probability (...,). ``use_kernel`` routes a 2-layer bank through the
+    fused predictor-MLP wrapper (the kernel on a CUDA tensor); a bank of
+    another depth takes the plain chain, chosen from its depth as in the
+    JAX package."""
+    if use_kernel and len(stacked["layers"]) == 2:
+        lead = features.shape[:-1]
+        flat = features.reshape(-1, features.shape[-1])
+        return predictor_mlp_at(flat, stacked, idx).reshape(lead)
+    return apply_predictor(predictor_at(stacked, idx), features)

@@ -9,25 +9,19 @@
 // src/repro/kernels/exit_gate/exit_gate.py, whose (B, k, nd) grid gathers
 // column blocks through scalar-prefetched index maps.
 //
-// Layout choice: the head stays (D, V) row-major, shared with the verify
-// kernels, and the gather reads W[d, ids[b, j]] for every d — a strided
-// read with a stride of V elements. Each of those reads costs one 32-byte
-// sector, so a row moves k * D * 32 B (4 * 4096 * 32 B = 512 KB) from memory
-// or L2 for k * D * sizeof(T) useful bytes (32 KB in bf16). A V-major copy
-// of the head would make the gather contiguous but costs another 262 MB of
-// card memory for Llama-2-7B; at B <= 8 the strided gather (<= 4 MB per
-// exit point) is the cheaper side.
+// The gather-dot (first stage) is spec_head.cuh, shared with spec_head.cu;
+// its note records the strided-gather layout choice.
 //
 // Bound on the H100: bytes — the k * D useful head elements and the
 // predictor weights (3k*H + 2H + 1 floats) per row; the arithmetic is tiny.
 // The design gives the D loop to 256 threads so the strided loads of one
 // row are all in flight at once, and B CTAs run in parallel.
-#include "common.cuh"
+#include "spec_head.cuh"
 
 namespace {
 
-constexpr int EG_THREADS = 256;
-constexpr int EG_MAXK = 8;
+constexpr int EG_THREADS = rt::SH_THREADS;
+constexpr int EG_MAXK = rt::SH_MAXK;
 
 template <typename T>
 __global__ void __launch_bounds__(EG_THREADS)
@@ -38,42 +32,21 @@ exit_gate_kernel(const T* __restrict__ hn, const T* __restrict__ w,
                  float* __restrict__ p_out, float* __restrict__ probs_out,
                  float* __restrict__ logits_out, int D, int V, int k, int H) {
   __shared__ float red[EG_MAXK][32];
+  __shared__ float s_logits[EG_MAXK];
   __shared__ float s_feats[3 * EG_MAXK];
   __shared__ float s_out[32];
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int nw = EG_THREADS / 32;
 
-  int col[EG_MAXK];
-  float acc[EG_MAXK];
-#pragma unroll
-  for (int j = 0; j < EG_MAXK; ++j) {
-    // ids come from the draft's top-k; clamp so a bad id cannot read
-    // outside the head
-    col[j] = j < k ? min(max(ids[b * k + j], 0), V - 1) : 0;
-    acc[j] = 0.f;
-  }
-  for (int d = threadIdx.x; d < D; d += EG_THREADS) {
-    const float x = rt::to_f(hn[(size_t)b * D + d]);
-    const T* wr = w + (size_t)d * V;
-#pragma unroll
-    for (int j = 0; j < EG_MAXK; ++j)
-      if (j < k) acc[j] = fmaf(x, rt::to_f(wr[col[j]]), acc[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < EG_MAXK; ++j) {
-    const float s = rt::warp_sum(acc[j]);
-    if (lane == 0) red[j][wid] = s;
-  }
-  __syncthreads();
+  rt::spec_head_row(hn + (size_t)b * D, w, ids + (size_t)b * k, D, V, k, red,
+                    s_logits);
   if (threadIdx.x == 0) {
     float logits[EG_MAXK];
     float m = -CUDART_INF_F;
     for (int j = 0; j < k; ++j) {
-      float s = 0.f;
-      for (int q = 0; q < nw; ++q) s += red[j][q];
-      logits[j] = s;
-      m = fmaxf(m, s);
+      logits[j] = s_logits[j];
+      m = fmaxf(m, logits[j]);
     }
     float e[EG_MAXK];
     float z = 0.f;

@@ -4,16 +4,18 @@
 // Replaces the Pallas kernel topk_verify_fused (_topk_kernel) in
 // src/repro/kernels/exit_gate/exit_gate.py, which folds vocabulary tiles in
 // order into a running sorted top-k list. Here pass 1 gives each CTA a
-// 128-column strip (the streaming layout of argmax_verify.cu) and extracts
+// 128-column strip and a group of up to 8 rows (any row count R; the
+// streaming layout of argmax_verify.cu, lm_head_stream.cuh) and extracts
 // the strip's own top-k per row by k rounds of a block-wide best under
 // rt::before, excluding the ids already taken; pass 2 runs the same k
 // rounds over the (nblk * k) candidates of a row. A global top-k entry is
 // always inside its strip's top-k, and rt::before is a total order, so the
 // merge keeps value-descending, id-ascending order across CTAs.
 //
-// Bound on the H100: bytes, one pass over the (D, V) head (262 MB in bf16
-// for Llama-2-7B, ~78 us at 3.35 TB/s); the k extraction rounds touch only
-// registers and 128 B of shared memory per round.
+// Bound on the H100: bytes at decode batch, one pass over the (D, V) head
+// (262 MB in bf16 for Llama-2-7B, ~78 us at 3.35 TB/s); with many rows the
+// 2*R*D*V fp32 operations. The k extraction rounds touch only registers and
+// 128 B of shared memory per round.
 #include "lm_head_stream.cuh"
 
 namespace {
@@ -32,18 +34,20 @@ __device__ __forceinline__ bool taken(int id, const int (&sel)[TK_MAXK],
 template <typename T>
 __global__ void __launch_bounds__(rt::LH_THREADS)
 topk_partial(const T* __restrict__ hn, const T* __restrict__ w,
-             float* __restrict__ pval, int* __restrict__ pidx, int B, int D,
+             float* __restrict__ pval, int* __restrict__ pidx, int R, int D,
              int V, int k) {
-  __shared__ float sh[rt::LH_MAXB * rt::LH_DC];
+  __shared__ __align__(16) float sh[rt::LH_ROWS * rt::LH_DC];
   __shared__ float sv[32];
   __shared__ int si[32];
-  const int col = blockIdx.x * rt::LH_THREADS + threadIdx.x;
-  float acc[rt::LH_MAXB];
-  rt::lm_head_column(hn, w, B, D, V, col, sh, acc);
+  const int col = blockIdx.y * rt::LH_THREADS + threadIdx.x;
+  const int row0 = blockIdx.x * rt::LH_ROWS;
+  const int nb = min(rt::LH_ROWS, R - row0);
+  float acc[rt::LH_ROWS];
+  rt::lm_head_column(hn, w, row0, nb, D, V, col, sh, acc);
   const bool in = col < V;
 #pragma unroll
-  for (int b = 0; b < rt::LH_MAXB; ++b) {
-    if (b < B) {                             // uniform across the block
+  for (int b = 0; b < rt::LH_ROWS; ++b) {
+    if (b < nb) {                            // uniform across the block
       float cand = in ? acc[b] : -CUDART_INF_F;
       int cid = in ? col : INT_MAX;
       for (int j = 0; j < k; ++j) {
@@ -51,7 +55,8 @@ topk_partial(const T* __restrict__ hn, const T* __restrict__ w,
         int i = cid;
         rt::block_best(v, i, sv, si);
         if (threadIdx.x == 0) {
-          const size_t o = ((size_t)b * gridDim.x + blockIdx.x) * k + j;
+          const size_t o =
+              ((size_t)(row0 + b) * gridDim.y + blockIdx.y) * k + j;
           pval[o] = v;
           pidx[o] = i;
         }
@@ -100,33 +105,33 @@ __global__ void topk_merge(const float* __restrict__ pval,
 extern "C" {
 
 int topk_verify_block_cols() { return rt::LH_THREADS; }
-int topk_verify_max_rows() { return rt::LH_MAXB; }
 int topk_verify_max_k() { return TK_MAXK; }
 const char* topk_verify_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// hn (B, D), w (D, V) of one dtype; pval/pidx (B, nblk, k) scratch with
-// nblk = ceil(V / topk_verify_block_cols()); ids (B, k) int32,
-// vals (B, k) f32.
+// hn (R, D), w (D, V) of one dtype, any R >= 1; pval/pidx (R, nblk, k)
+// scratch with nblk = ceil(V / topk_verify_block_cols()); ids (R, k) int32,
+// vals (R, k) f32.
 int topk_verify_launch(const void* hn, const void* w, void* pval, void* pidx,
-                       void* ids, void* vals, int B, int D, int V, int k,
+                       void* ids, void* vals, int R, int D, int V, int k,
                        int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nblk = (V + rt::LH_THREADS - 1) / rt::LH_THREADS;
+  const dim3 grid((R + rt::LH_ROWS - 1) / rt::LH_ROWS, nblk);
   if (dtype == rt::DT_BF16) {
-    topk_partial<__nv_bfloat16><<<nblk, rt::LH_THREADS, 0, st>>>(
+    topk_partial<__nv_bfloat16><<<grid, rt::LH_THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(hn),
         static_cast<const __nv_bfloat16*>(w), static_cast<float*>(pval),
-        static_cast<int*>(pidx), B, D, V, k);
+        static_cast<int*>(pidx), R, D, V, k);
   } else {
-    topk_partial<float><<<nblk, rt::LH_THREADS, 0, st>>>(
+    topk_partial<float><<<grid, rt::LH_THREADS, 0, st>>>(
         static_cast<const float*>(hn), static_cast<const float*>(w),
-        static_cast<float*>(pval), static_cast<int*>(pidx), B, D, V, k);
+        static_cast<float*>(pval), static_cast<int*>(pidx), R, D, V, k);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  topk_merge<<<B, 256, 0, st>>>(static_cast<const float*>(pval),
+  topk_merge<<<R, 256, 0, st>>>(static_cast<const float*>(pval),
                                 static_cast<const int*>(pidx), nblk * k, k,
                                 static_cast<int*>(ids),
                                 static_cast<float*>(vals));

@@ -19,7 +19,8 @@ import torch
 LAUNCHES: Dict[str, int] = {"exit_gate": 0, "argmax_verify": 0,
                             "topk_verify": 0, "decode_attention": 0,
                             "paged_decode_attention": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "spec_head": 0,
+                            "predictor_mlp": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -27,6 +28,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def runs_plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` runs its plain version: True on the
+    CPU, False on a CUDA card (the kernel launches or the wrapper raises);
+    any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return False
 
 
 def check_arg(name: str, t: torch.Tensor, device: torch.device,

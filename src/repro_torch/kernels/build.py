@@ -21,7 +21,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("exit_gate", "argmax_verify", "topk_verify", "decode_attention",
-           "paged_decode_attention", "flash_attention")
+           "paged_decode_attention", "flash_attention", "spec_head",
+           "predictor_mlp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

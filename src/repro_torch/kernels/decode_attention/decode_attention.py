@@ -27,10 +27,8 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
                          window: Optional[int] = None) -> torch.Tensor:
     """q: (B, 1, H, hd); k_cache/v_cache: (B, S, KVH, hd); cache_len: (B,)
     int32 live length per row (>= 1). Returns (B, 1, H, hd) in q's dtype."""
-    if q.device.type == "cpu":
+    if K.runs_plain(q):
         return decode_attention_ref(q, k_cache, v_cache, cache_len, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
     B, _, H, hd = q.shape
     S, KVH = k_cache.shape[1], k_cache.shape[2]
     dev = q.device
@@ -61,11 +59,9 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
     page_table: (B, P) int32 logical -> physical page; cache_len: (B,)
     int32 live length per row. Returns (B, 1, H, hd) in q's dtype. Only the
     live pages of each row are read."""
-    if q.device.type == "cpu":
+    if K.runs_plain(q):
         return paged_decode_attention_ref(q, k_pool, v_pool, page_table,
                                           cache_len, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
     B, _, H, hd = q.shape
     NP, ps, KVH = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     P = page_table.shape[1]

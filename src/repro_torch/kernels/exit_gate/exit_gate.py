@@ -5,6 +5,7 @@ kernels in ``repro/kernels/exit_gate/exit_gate.py``).
                           Δ-features + 2-layer predictor, one CTA per row.
 ``argmax_verify_fused`` — csrc/argmax_verify.cu: streaming LM-head argmax.
 ``topk_verify_fused``   — csrc/topk_verify.cu: streaming LM-head top-k.
+The two streaming kernels take any row count (groups of 8 rows per CTA).
 
 On a CPU tensor each wrapper runs its plain version from ``ref.py``; on a
 CUDA tensor it launches its kernel (counted in ``kernels.LAUNCHES``) or
@@ -25,14 +26,6 @@ from repro_torch.kernels.exit_gate import ref as gate_ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _is_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t.device}")
-    return False
-
-
 def exit_gate_fused(hn: torch.Tensor, lm_head: torch.Tensor,
                     spec_ids: torch.Tensor, prev_probs: torch.Tensor,
                     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -41,7 +34,7 @@ def exit_gate_fused(hn: torch.Tensor, lm_head: torch.Tensor,
     """hn (B, D); lm_head (D, V); spec_ids (B, k) int32; prev_probs (B, k)
     fp32; predictor w1 (3k, H), b1 (H,), w2 (H, 1), b2 (1,) fp32.
     Returns (p_exit (B,), probs (B, k), logits (B, k)), all fp32."""
-    if _is_cpu(hn):
+    if K.runs_plain(hn):
         pred = {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
         return gate_ref.exit_gate_ref(hn, lm_head, spec_ids, prev_probs, pred)
     B, D = hn.shape
@@ -79,8 +72,6 @@ def _stream_args(name: str, hn: torch.Tensor, lm_head: torch.Tensor):
     dev = hn.device
     K.check_arg("hn", hn, dev)
     K.check_arg("lm_head", lm_head, dev, hn.dtype, (D, V))
-    if B > build.c_func(name, f"{name}_max_rows", [])():
-        raise ValueError(f"{name} kernel: batch {B} too large")
     nblk = -(-V // build.c_func(name, f"{name}_block_cols", [])())
     return B, D, V, dev, nblk
 
@@ -89,7 +80,7 @@ def argmax_verify_fused(hn: torch.Tensor, lm_head: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hn (B, D); lm_head (D, V). Returns (argmax token (B,) int32, max
     logit (B,) fp32), fp32 accumulation, lowest id among equal maxima."""
-    if _is_cpu(hn):
+    if K.runs_plain(hn):
         return gate_ref.verify_argmax_ref(hn, lm_head)
     B, D, V, dev, nblk = _stream_args("argmax_verify", hn, lm_head)
     fn = build.c_func("argmax_verify", "argmax_verify_launch",
@@ -109,7 +100,7 @@ def topk_verify_fused(hn: torch.Tensor, lm_head: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hn (B, D); lm_head (D, V). Returns (ids (B, k) int32, vals (B, k)
     fp32) by descending logit, ties by ascending id, fp32 accumulation."""
-    if _is_cpu(hn):
+    if K.runs_plain(hn):
         return gate_ref.verify_topk_ref(hn, lm_head, k)
     B, D, V, dev, nblk = _stream_args("topk_verify", hn, lm_head)
     if not 1 <= k <= min(V, build.c_func("topk_verify", "topk_verify_max_k",

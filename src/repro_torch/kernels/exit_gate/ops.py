@@ -23,11 +23,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.predictor import predictor_at
+from repro_torch.core.predictor import apply_predictor, predictor_at
 from repro_torch.kernels.exit_gate import ref as gate_ref
 from repro_torch.kernels.exit_gate.exit_gate import (argmax_verify_fused,
                                                      exit_gate_fused,
                                                      topk_verify_fused)
+from repro_torch.kernels.spec_head import ops as sh_ops
 
 IMPLS = (None, "auto", "kernel", "ref")
 
@@ -51,24 +52,29 @@ def impl_for_flags(flags) -> str:
 
 def exit_gate(hn: torch.Tensor, lm_head: torch.Tensor, spec_ids: torch.Tensor,
               prev_probs: torch.Tensor, predictors, ep: int,
-              impl: Optional[str] = None
+              impl: Optional[str] = None, spec_head_kernel: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exit decision at exit point ``ep``. hn (B, D); lm_head (D, V);
     spec_ids (B, k) int32; prev_probs (B, k); predictors: the stacked bank.
-    Returns (p_exit (B,), local_probs (B, k), logits (B, k)), all fp32."""
+    Returns (p_exit (B,), local_probs (B, k), logits (B, k)), all fp32.
+
+    As in the JAX package, the choice is made from the bank's depth before
+    any launch: the fused kernel holds a 2-layer predictor, and a bank of
+    another depth (design-space sweeps) takes the plain chain under every
+    impl. ``spec_head_kernel`` under "ref" computes the features with the
+    spec-head kernel and the predictor with the plain MLP."""
     impl = resolve_impl(impl, hn)
     pp = predictor_at(predictors, ep)
     layers = pp["layers"]
-    if impl == "ref":
-        return gate_ref.exit_gate_ref(hn, lm_head, spec_ids, prev_probs, pp)
-    if len(layers) != 2:
-        # the fused kernel holds a 2-layer predictor; the port has no
-        # unfused gate that would run a deeper one on the card
-        raise ValueError(f"exit_gate impl='kernel' needs a 2-layer "
-                         f"predictor, got depth {len(layers)}")
-    return exit_gate_fused(hn, lm_head, spec_ids, prev_probs.float(),
-                           layers[0]["w"], layers[0]["b"],
-                           layers[1]["w"], layers[1]["b"])
+    if impl == "kernel" and len(layers) == 2:
+        return exit_gate_fused(hn, lm_head, spec_ids, prev_probs.float(),
+                               layers[0]["w"], layers[0]["b"],
+                               layers[1]["w"], layers[1]["b"])
+    if impl == "ref" and spec_head_kernel:
+        logits, probs = sh_ops.spec_head(hn, lm_head, spec_ids)
+        feats = torch.cat([logits, probs, probs - prev_probs.float()], -1)
+        return apply_predictor(pp, feats), probs, logits
+    return gate_ref.exit_gate_ref(hn, lm_head, spec_ids, prev_probs, pp)
 
 
 def verify_argmax(hn: torch.Tensor, lm_head: torch.Tensor,

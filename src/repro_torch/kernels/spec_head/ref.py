@@ -7,10 +7,16 @@ from typing import Tuple
 import torch
 
 
+def spec_logits_ref(hn: torch.Tensor, lm_head: torch.Tensor,
+                    spec_ids: torch.Tensor) -> torch.Tensor:
+    """hn: (R, D); lm_head: (D, V); spec_ids: (R, k) int.
+    Returns (R, k) fp32 logits — the k head columns gathered per row."""
+    cols = lm_head[:, spec_ids.long()].permute(1, 0, 2)      # (R, D, k)
+    return torch.einsum("bd,bdk->bk", hn.float(), cols.float())
+
+
 def spec_head_ref(hn: torch.Tensor, lm_head: torch.Tensor,
                   spec_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """hn: (B, D); lm_head: (D, V); spec_ids: (B, k) int.
-    Returns (logits (B, k) fp32, local_probs (B, k) fp32)."""
-    cols = lm_head[:, spec_ids.long()].permute(1, 0, 2)      # (B, D, k)
-    logits = torch.einsum("bd,bdk->bk", hn.float(), cols.float())
+    """Returns (logits (R, k) fp32, local_probs (R, k) fp32)."""
+    logits = spec_logits_ref(hn, lm_head, spec_ids)
     return logits, torch.softmax(logits, dim=-1)

@@ -59,7 +59,8 @@ class ModelFlags:
     10), so the flag does not exist here and passing it fails loudly."""
     flash_attention: bool = False   # CUDA flash-attention prefill kernel
     decode_kernel: bool = False     # CUDA (paged) decode-attention kernel
-    spec_head_kernel: bool = False  # spec-head kernel — not ported yet
+    spec_head_kernel: bool = False  # spec-head kernel: tree gate features;
+    #                                 AR gate features under impl "ref"
     exit_gate_kernel: bool = False  # fused exit gate + streaming verify
     exit_gate_impl: str = "auto"    # "auto" | "kernel" | "ref"
 
@@ -190,6 +191,51 @@ def _block_extend(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     return h + common.apply_mlp(cfg, p["mlp"], x2), cache_entry
 
 
+def _write_scratch(cache_entry: Any, vals: Dict[str, torch.Tensor],
+                   scratch_off: int, pages: Optional[torch.Tensor]) -> Any:
+    """Write the N tree nodes' K/V (B, N, ...) into LOGICAL cache slots
+    [scratch_off, scratch_off + N) of every row, in place (through the page
+    table when ``pages`` is given)."""
+    B, N = next(iter(vals.values())).shape[:2]
+    for name, v in vals.items():
+        if pages is None:
+            cache_entry[name][:, scratch_off:scratch_off + N] = v.to(
+                cache_entry[name].dtype)
+        else:
+            pos = (scratch_off + torch.arange(N, device=v.device))[None, :]
+            paged_lib.scatter_slab(cache_entry[name], pages,
+                                   pos.expand(B, N), v)
+    return cache_entry
+
+
+def _block_step_tree(cfg: ModelConfig, p: Params, h: torch.Tensor,
+                     cache_entry: Any, mask: torch.Tensor,
+                     positions: torch.Tensor, scratch_off: int,
+                     pages: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Any]:
+    """N tree tokens at once against a cache with N scratch slots.
+
+    h: (B, N, D); mask: (B|1, 1, N, scratch_off + N) bool (context +
+    ancestors); positions: (B, N) absolute positions. The nodes' K/V land
+    at logical slots [scratch_off, scratch_off + N) before attending. Plain
+    masked attention, as in the JAX package (it has no Pallas kernel here);
+    attention-family blocks only."""
+    x = common.apply_norm(cfg, p["ln1"], h)
+    q, k, v = attn_lib.qkv(cfg, p["attn"], x, positions)
+    _write_scratch(cache_entry, {"k": k, "v": v}, scratch_off, pages)
+    if pages is None:
+        k_cache, v_cache = cache_entry["k"], cache_entry["v"]
+    else:
+        k_cache = paged_lib.gather_view(cache_entry["k"], pages)
+        v_cache = paged_lib.gather_view(cache_entry["v"], pages)
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    o = attn_lib.sdpa(q, attn_lib._repeat_kv(k_cache, n_rep),
+                      attn_lib._repeat_kv(v_cache, n_rep), mask)
+    h = h + attn_lib.out_proj(p["attn"], o)
+    x2 = common.apply_norm(cfg, p["ln2"], h)
+    return h + common.apply_mlp(cfg, p["mlp"], x2), cache_entry
+
+
 def _empty_cache_entry(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                        dtype, device) -> Any:
     shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim())
@@ -199,9 +245,6 @@ def _empty_cache_entry(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
 
 class Model:
     def __init__(self, run: RunConfig, flags: ModelFlags = ModelFlags()):
-        if flags.spec_head_kernel:
-            raise NotImplementedError(
-                "spec_head_kernel: the spec-head kernel is not ported yet")
         self.run = run
         self.cfg = run.model
         self.flags = flags
@@ -349,6 +392,87 @@ class Model:
             _block_propagate(self.cfg, kind, up[f"u{i}"], h, ce[f"u{i}"], pos,
                              pages=pages)
         return seg_cache
+
+    # ----- tree-verification API (T3) -----
+    def supports_tree(self) -> bool:
+        return all(k == ATTN for unit, _ in self.segments for k in unit)
+
+    def run_unit_tree(self, params: Params, seg: int, unit_idx: int,
+                      h: torch.Tensor, seg_cache: Any, mask: torch.Tensor,
+                      positions: torch.Tensor, scratch_off: int,
+                      pages: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Any]:
+        """Tree analogue of ``run_unit``: h is (B, N, D) tree-node hiddens;
+        their K/V go to the scratch slots. Returns (h_out, seg_cache)."""
+        unit, _ = self.segments[seg]
+        up = index_tree(params["segments"][seg], unit_idx)
+        ce = index_tree(seg_cache, unit_idx)
+        for i, kind in enumerate(unit):
+            assert kind == ATTN, "tree mode requires pure-attention stacks"
+            h, _ = _block_step_tree(self.cfg, up[f"u{i}"], h, ce[f"u{i}"],
+                                    mask, positions, scratch_off,
+                                    pages=pages)
+        return h, seg_cache
+
+    def propagate_unit_tree(self, params: Params, seg: int, unit_idx: int,
+                            h: torch.Tensor, seg_cache: Any,
+                            positions: torch.Tensor, scratch_off: int,
+                            pages: Optional[torch.Tensor] = None) -> Any:
+        """KV propagation into the tree scratch slots of a skipped unit."""
+        unit, _ = self.segments[seg]
+        up = index_tree(params["segments"][seg], unit_idx)
+        ce = index_tree(seg_cache, unit_idx)
+        for i, _ in enumerate(unit):
+            p = up[f"u{i}"]
+            x = common.apply_norm(self.cfg, p["ln1"], h)
+            k, v = attn_lib.kv_only(self.cfg, p["attn"], x, positions)
+            _write_scratch(ce[f"u{i}"], {"k": k, "v": v}, scratch_off, pages)
+        return seg_cache
+
+    def accept_tree_kv(self, cache: Any, accepted_nodes: torch.Tensor,
+                       accepted_len: torch.Tensor, pos0: torch.Tensor,
+                       scratch_off: int) -> Any:
+        """Copy the K/V of accepted tree nodes from their scratch slots to
+        their real positions, in place. accepted_nodes: (B, Dmax) node ids
+        (-1 pad); accepted_len: (B,); the node at chain index d lands at
+        pos0 + d. Chain index d is copied after d - 1, each read from the
+        cache as it stands, as the JAX package does; a destination past the
+        cache is dropped. Paged caches route through the table."""
+        pages = cache.get("page_table")
+        B, Dmax = accepted_nodes.shape
+        dev = pos0.device
+        rows = torch.arange(B, device=dev)
+        nodes = accepted_nodes.to(dev).long()
+        acc_len = accepted_len.to(dev)
+        pos0 = pos0.long()
+        for seg in cache["segments"]:
+            for sub in seg.values():
+                for x in sub.values():
+                    if pages is None:
+                        xf, cap = x, x.shape[2]
+                    else:
+                        ps = x.shape[2]
+                        xf = x.view((x.shape[0], x.shape[1] * ps)
+                                    + tuple(x.shape[3:]))
+                        cap = pages.shape[1] * ps
+                    for d in range(Dmax):
+                        node = nodes[:, d]
+                        dst = pos0 + d
+                        ok = (d < acc_len) & (node >= 0) & (dst < cap)
+                        src = scratch_off + node.clamp(min=0)
+                        dst = dst.clamp(max=cap - 1)
+                        if pages is not None:
+                            src = paged_lib.flat_slots(pages, ps, src)
+                            dst = paged_lib.flat_slots(pages, ps, dst)
+                            new = torch.where(ok[None, :, None, None],
+                                              xf[:, src], xf[:, dst])
+                            xf[:, dst] = new
+                        else:
+                            new = torch.where(ok[None, :, None, None],
+                                              xf[:, rows, src],
+                                              xf[:, rows, dst])
+                            xf[:, rows, dst] = new
+        return cache
 
     # ----- dense decode (baseline, no early exit) -----
     def decode_step_hidden(self, params: Params, token: torch.Tensor,

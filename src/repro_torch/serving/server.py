@@ -10,7 +10,9 @@
     (``api.scheduler``): prompts split into ``ServeConfig.prefill_chunk``
     -token chunks interleaved with decode ticks; ``prefill_chunk=0`` is
     blocking whole-prompt admission;
-  * every engine tick runs ONE batched strategy step for all live slots;
+  * every engine tick runs ONE batched strategy step for all live slots
+    (dense, AR SpecEE, or ``strategy="tree"``, whose tick emits up to
+    depth + 1 tokens per row and records its accept length per tick);
     finished rows retire and compact (``session.retire_row``): their pages
     return to the pool and their length drops to zero, and later requests
     are admitted into the freed slots.

@@ -237,3 +237,116 @@ def test_serving_kernels_match_plain_path(dev):
     assert outs[0] == outs[1]
     assert LAUNCHES["flash_attention"] > 0
     assert LAUNCHES["paged_decode_attention"] > 0
+
+
+def _plant_ties(w, hn, rows):
+    """Copy each listed row's best column to a higher and a lower id, and
+    to id 0, in order (only the last row's tie at id 0 is sure to survive
+    the later copies): the kernels must keep the lowest id among equal
+    logits."""
+    for r in rows:
+        best = int((hn[r].float() @ w.float()).argmax())
+        for j in (0, (best + 5) % w.shape[1], (best + w.shape[1] - 3)
+                  % w.shape[1]):
+            w[:, j] = w[:, best]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [9, 160, 320])
+def test_verify_kernels_any_row_count(dev, dtype, R):
+    """Row counts past one 8-row group (the tree acceptance walk verifies
+    B*N node rows): ids equal the plain version's, ties to the lowest id."""
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    gen = torch.Generator(device=dev).manual_seed(R)
+    hn = _rand(gen, (R, 256), dev, dtype)
+    w = _rand(gen, (256, 3001), dev, dtype, 0.05)
+    _plant_ties(w, hn, (0, R // 2, R - 1))
+    tok, mx = eg.argmax_verify_fused(hn, w)
+    ids, vals = eg.topk_verify_fused(hn, w, 4)
+    tok_r, mx_r = ref.verify_argmax_ref(hn, w)
+    ids_r, vals_r = ref.verify_topk_ref(hn, w, 4)
+    assert torch.equal(tok, tok_r) and torch.equal(ids, ids_r)
+    assert int(tok[R - 1]) == 0 and int(ids[R - 1, 0]) == 0
+    torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(vals, vals_r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 160, 320])
+def test_spec_head_kernel_matches_plain(dev, dtype, R):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.spec_head.ref import spec_logits_ref
+    from repro_torch.kernels.spec_head.spec_head import spec_head_logits
+    gen = torch.Generator(device=dev).manual_seed(4)
+    D, V, k = 512, 3001, 4
+    hn = _rand(gen, (R, D), dev, dtype)
+    w = _rand(gen, (D, V), dev, dtype, 0.05)
+    ids = torch.randint(0, V, (R, k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[0] = torch.tensor([0, V - 1, V - 1, 0], dtype=torch.int32)
+    reset_launches()
+    got = spec_head_logits(hn, w, ids)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spec_head"] == 1
+    torch.testing.assert_close(got, spec_logits_ref(hn, w, ids), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("R", [1, 108, 216])
+def test_predictor_mlp_kernel_matches_plain(dev, R):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.predictor_mlp.predictor_mlp import (
+        predictor_mlp_fused)
+    from repro_torch.kernels.predictor_mlp.ref import predictor_mlp_ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    F, H = 12, 512
+    x = _rand(gen, (R, F), dev)
+    w1, b1 = _rand(gen, (F, H), dev, scale=0.3), _rand(gen, (H,), dev)
+    w2, b2 = _rand(gen, (H, 1), dev, scale=0.05), _rand(gen, (1,), dev)
+    reset_launches()
+    got = predictor_mlp_fused(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert LAUNCHES["predictor_mlp"] == 1
+    torch.testing.assert_close(got, predictor_mlp_ref(x, w1, b1, w2, b2),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_tree_kernels_match_plain_path(dev, cache):
+    """Tree decode on the card at smoke width, fp32: every kernel on
+    (spec head, predictor MLP, verify, decode attention) against the plain
+    paths — tokens, accept lengths and exit points identical."""
+    from repro_torch.api import Engine, TreeStrategy
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import ModelFlags, build_model
+    run = get_config("llama2-7b").smoke()
+    m_plain = build_model(run)
+    m_ker = build_model(run, ModelFlags(spec_head_kernel=True,
+                                        exit_gate_kernel=True,
+                                        exit_gate_impl="kernel",
+                                        decode_kernel=True))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = m_plain.init(gen, dev)
+    sw = eng.init_specee(m_plain, gen, dev)
+    prompts = np.random.default_rng(0).integers(0, 512, (2, 8))
+    for thresh in (1.5, 0.4, -0.1):
+        outs = []
+        reset_launches()
+        for m in (m_plain, m_ker):
+            s = Engine.create(m, params, sw,
+                              strategy=TreeStrategy(threshold=thresh)
+                              ).new_session(cache=cache)
+            res = [s.prefill(prompts, max_new_tokens=6)]
+            while not s.all_done():
+                res.append(s.step())
+            outs.append([(r.tokens.tolist(), r.counts.tolist(),
+                          r.accept_len.tolist(), r.exit_layer.tolist())
+                         for r in res])
+        assert outs[0] == outs[1]
+        assert LAUNCHES["argmax_verify"] > 0
+        if thresh < 1:
+            assert LAUNCHES["spec_head"] > 0
+            assert LAUNCHES["predictor_mlp"] > 0

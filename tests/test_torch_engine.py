@@ -26,7 +26,7 @@ from repro.models.model import ModelFlags as JFlags  # noqa: E402
 from repro.models.model import build_model as jbuild  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.api import (DenseStrategy, Engine, SpecEEStrategy,  # noqa
-                             get_strategy)
+                             TreeStrategy, get_strategy)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import draft as tdraft  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
@@ -248,7 +248,8 @@ def test_strategy_resolution(setup):
     run_j, run_t, m_j, m_t, params_j, params_t, sw_j, sw_t, prompts = setup
     assert isinstance(get_strategy("dense"), DenseStrategy)
     assert isinstance(get_strategy("ar"), SpecEEStrategy)
+    assert isinstance(get_strategy("tree"), TreeStrategy)
     with pytest.raises(ValueError):
-        get_strategy("tree")
+        get_strategy("beam")
     with pytest.raises(ValueError):
         Engine.create(m_t, params_t, None, strategy="specee")

@@ -23,6 +23,12 @@ from repro.kernels.decode_attention.ref import (  # noqa: E402
 from repro.kernels.exit_gate import ops as jgate  # noqa: E402
 from repro.kernels.exit_gate.exit_gate import (  # noqa: E402
     argmax_verify_fused as jax_argmax, topk_verify_fused as jax_topk)
+from repro.kernels.predictor_mlp import ops as jpm_ops  # noqa: E402
+from repro.kernels.predictor_mlp.predictor_mlp import (  # noqa: E402
+    predictor_mlp_fused as jax_predictor_mlp)
+from repro.kernels.spec_head import ops as jsh_ops  # noqa: E402
+from repro.kernels.spec_head.spec_head import (  # noqa: E402
+    spec_head_logits as jax_spec_head_logits)
 from repro_torch import bridge  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.config import SpecEEConfig  # noqa: E402
@@ -32,6 +38,12 @@ from repro_torch.kernels.decode_attention.decode_attention import (  # noqa
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref)
 from repro_torch.kernels.exit_gate import ops as tgate  # noqa: E402
+from repro_torch.kernels.predictor_mlp import ops as tpm_ops  # noqa: E402
+from repro_torch.kernels.predictor_mlp.predictor_mlp import (  # noqa: E402
+    predictor_mlp_fused)
+from repro_torch.kernels.spec_head import ops as tsh_ops  # noqa: E402
+from repro_torch.kernels.spec_head.spec_head import (  # noqa: E402
+    spec_head_logits)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -131,18 +143,109 @@ def test_exit_gate_matches_jax(B, D, V, k, impl):
 
 
 def test_exit_gate_kernel_rejects_other_predictor_depths():
-    """The fused gate holds a 2-layer predictor: a deeper bank raises under
-    impl="kernel" (no silent plain gate) and runs under impl="ref"."""
-    gen = torch.Generator().manual_seed(0)
-    bank = tpred.init_predictors(SpecEEConfig(predictor_layers=3), 2, gen,
-                                 "cpu")
-    hn, w = torch.randn(2, 16), torch.randn(16, 32)
-    ids = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
-    prev = torch.full((2, 4), 0.25)
-    with pytest.raises(ValueError, match="depth 3"):
-        tgate.exit_gate(hn, w, ids, prev, bank, 0, impl="kernel")
-    p, _, _ = tgate.exit_gate(hn, w, ids, prev, bank, 0, impl="ref")
-    assert p.shape == (2,) and bool(torch.isfinite(p).all())
+    """The fused gate holds a 2-layer predictor. A bank of another depth is
+    not refused: as in the JAX package it is dispatched, from its depth and
+    before any launch, to the plain chain under every impl, and gives JAX's
+    values (JAX's ``test_exit_gate_non_2layer_bank_falls_back``)."""
+    spec_j = JSpecEEConfig(predictor_layers=3)
+    bank_j = jpred.init_predictors(spec_j, 2, jax.random.PRNGKey(3))
+    bank = bridge.to_torch(jax.tree_util.tree_map(np.asarray, bank_j), "cpu")
+    rng = np.random.default_rng(6)
+    hn = rng.standard_normal((2, 16)).astype(np.float32)
+    w = rng.standard_normal((16, 32)).astype(np.float32)
+    ids = np.array([[1, 2, 3, 4], [5, 6, 7, 31]], np.int32)
+    prev = np.full((2, 4), 0.25, np.float32)
+    K.reset_launches()
+    for impl in ("kernel", "ref"):
+        for sh in (False, True):
+            want = jgate.exit_gate(hn, w, ids, prev, bank_j, jnp.int32(1),
+                                   impl=impl, spec_head_kernel=sh)
+            got = tgate.exit_gate(_t(hn), _t(w), _t(ids), _t(prev), bank, 1,
+                                  impl=impl, spec_head_kernel=sh)
+            for a, b in zip(got, want):
+                _close(a, b)
+    assert all(n == 0 for n in K.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("B,D,V,k", [(4, 128, 512, 4), (3, 96, 300, 3)])
+def test_exit_gate_spec_head_kernel_matches_jax(B, D, V, k):
+    """``spec_head_kernel`` under the "ref" gate: spec-head features plus
+    the plain MLP (JAX ``exit_gate(impl="ref", spec_head_kernel=True)``,
+    its Pallas spec head in interpret mode)."""
+    bank_j = jpred.init_predictors(JSpecEEConfig(num_speculative=k), 3,
+                                   jax.random.PRNGKey(8))
+    bank_t = bridge.to_torch(jax.tree_util.tree_map(np.asarray, bank_j),
+                             "cpu")
+    rng = np.random.default_rng(B + 10)
+    hn = rng.standard_normal((B, D)).astype(np.float32)
+    w = (rng.standard_normal((D, V)) * 0.05).astype(np.float32)
+    ids = rng.integers(0, V, (B, k)).astype(np.int32)
+    prev = rng.dirichlet(np.ones(k), B).astype(np.float32)
+    want = jgate.exit_gate(hn, w, ids, prev, bank_j, jnp.int32(2),
+                           impl="ref", spec_head_kernel=True)
+    got = tgate.exit_gate(_t(hn), _t(w), _t(ids), _t(prev), bank_t, 2,
+                          impl="ref", spec_head_kernel=True)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+# ---------------- spec head (Pallas row 10) ----------------
+@pytest.mark.parametrize("R", [1, 7, 40])
+def test_spec_head_matches_pallas(R):
+    rng = np.random.default_rng(R)
+    D, V, k = 256, 700, 4
+    hn = rng.standard_normal((R, D)).astype(np.float32)
+    w = (rng.standard_normal((D, V)) * 0.05).astype(np.float32)
+    ids = rng.integers(0, V, (R, k)).astype(np.int32)
+    ids[0] = [V - 1, 0, V - 1, 3]                     # edge, repeated ids
+    want = jax_spec_head_logits(hn, w, ids, block_d=64)
+    K.reset_launches()
+    _close(spec_head_logits(_t(hn), _t(w), _t(ids)), want)
+    for a, b in zip(tsh_ops.spec_head(_t(hn), _t(w), _t(ids)),
+                    jsh_ops.spec_head(hn, w, ids)):
+        _close(a, b)
+    assert K.LAUNCHES["spec_head"] == 0
+
+
+# ---------------- predictor MLP (Pallas row 12) ----------------
+@pytest.mark.parametrize("R", [1, 9, 40])
+def test_predictor_mlp_matches_pallas(R):
+    bank_j = jpred.init_predictors(JSpecEEConfig(), 4, jax.random.PRNGKey(R))
+    bank_t = bridge.to_torch(jax.tree_util.tree_map(np.asarray, bank_j),
+                             "cpu")
+    x = np.random.default_rng(R).standard_normal((R, 12)).astype(np.float32)
+    l1, l2 = (jax.tree_util.tree_map(lambda a: a[3], l)
+              for l in bank_j["layers"])
+    want = jax_predictor_mlp(x, l1["w"], l1["b"], l2["w"], l2["b"])
+    t1, t2 = ({n: v[3] for n, v in l.items()} for l in bank_t["layers"])
+    K.reset_launches()
+    _close(predictor_mlp_fused(_t(x), t1["w"], t1["b"], t2["w"], t2["b"]),
+           want)
+    _close(tpm_ops.predictor_mlp_at(_t(x), bank_t, 3),
+           jpm_ops.predictor_mlp_at(x, bank_j, jnp.int32(3)))
+    assert K.LAUNCHES["predictor_mlp"] == 0
+
+
+@pytest.mark.parametrize("layers", [2, 3])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_apply_predictor_banked_matches_jax(layers, use_kernel):
+    """(B, P, F) path features through the stacked bank: the fused MLP for
+    a 2-layer bank, the plain chain for another depth (chosen from the
+    bank's depth, as in JAX)."""
+    spec_j = JSpecEEConfig(predictor_layers=layers)
+    bank_j = jpred.init_predictors(spec_j, 3, jax.random.PRNGKey(layers))
+    bank_t = bridge.to_torch(jax.tree_util.tree_map(np.asarray, bank_j),
+                             "cpu")
+    feats = np.random.default_rng(4).standard_normal((2, 27, 12)).astype(
+        np.float32)
+    want = jpred.apply_predictor_banked(bank_j, jnp.int32(1), feats,
+                                        use_kernel=use_kernel)
+    got = tpred.apply_predictor_banked(bank_t, 1, _t(feats),
+                                       use_kernel=use_kernel)
+    assert got.shape == (2, 27)
+    _close(got, want)
+    _close(tpred.apply_predictor(tpred.predictor_at(bank_t, 1), _t(feats)),
+           want)
 
 
 def test_predictor_matches_jax():
