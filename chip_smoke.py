@@ -2,15 +2,17 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper card: builds the port's CUDA kernels, holds each against its plain
 PyTorch version, drives greedy SpecEE decode and T3 tree speculative
-decoding of Llama-2-7B through the port's public entry points, and serves
+decoding of Llama-2-7B through the port's public entry points, serves
 requests through its continuous-batching ``ServingEngine`` on the paged KV
-cache, in AR and in tree mode.
+cache, in AR and in tree mode, and runs all three with weight-only int8
+and int4 quantization.
 
     python3 chip_smoke.py
 
-Phases (one line each, ``[phase] ...``):
+Phases (lines ``[phase +seconds since the start] ...``):
   1. device + build — the card's name and power limit, then ``nvcc`` builds
-     the eight kernels of ``src/repro_torch/csrc`` for sm_90a (in parallel);
+     the twelve kernels of ``src/repro_torch/csrc`` for sm_90a (in
+     parallel);
   2. kernels — each kernel vs its plain version in fp32 and bf16 at the
      main paths' shapes (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128,
      dense caches up to 1024; paged: B=8, 128-token pages, a shuffled page
@@ -20,7 +22,15 @@ Phases (one line each, ``[phase] ...``):
      card could take (bound); then the tree path's kernels at its row
      counts: spec_head (R in {1, 160, 320}, edge and repeated ids),
      predictor_mlp (R in {1, 108, 216}) and the verify kernels at R in
-     {9, 160, 320} with planted ties, timed at R = 8/160/320;
+     {9, 160, 320} with planted ties, timed at R = 8/160/320; then the
+     four quantized kernels (argmax_verify_q, topk_verify_q, spec_head_q,
+     predictor_mlp_q) in int8 and int4 with fp32 and bf16 activations at
+     R in {4, 160, 320} (the MLP at {4, 108, 216}), planted ties and edge
+     ids, against their plain versions and the fp kernels on the
+     dequantized head, timed in bf16 beside the fp kernel on the
+     dequantized bf16 head (a yardstick: no one PyTorch call computes the
+     same function), and the host time per call of the fp and the
+     quantized gate and verify entry points;
   3. parity — llama2-7b at full width, 4 layers, fp32, seeded weights:
      Engine.create → new_session → prefill(4 prompts) → step x 8 at
      thresholds 1.5, 0.4, -0.1, with the kernels and with the plain
@@ -38,7 +48,13 @@ Phases (one line each, ``[phase] ...``):
      (must equal dense greedy), 0.4 and -0.1 (must force exits), an oracle
      tree whose first chain follows dense greedy (accepted length = depth
      every step), and tree-mode ServingEngine on the paged cache
-     (per-request tokens, exit points and accept lengths);
+     (per-request tokens, exit points and accept lengths). Then
+     Engine.create(quant="int8"/"int4"): kernels vs plain for AR (the
+     draft's set and an oracle set that forces exits), dense and tree
+     decoding (int8 on the dense cache, int4 on the paged one), a
+     quantized ServingEngine
+     (blocking and chunked), and the quantized engine against the plain
+     engine on ``dequantized_reference``; no fp gate kernel may launch;
   4. full run — llama2-7b, 32 layers, bf16, 4 prompts of 128 tokens,
      32 SpecEE decode steps (whole-batch session, dense cache);
   5. serve — the same weights, ServingEngine(cache="paged") with
@@ -51,14 +67,22 @@ Phases (one line each, ``[phase] ...``):
      whole-batch session (B=4, prompt 128, 16 tree steps, dense cache) and
      ServingEngine(strategy="tree", cache="paged") with max_batch 8:
      8 requests with prompts of 64-512 tokens, 32 new tokens each;
-  7. the ``{"kernels": [...]}`` line, the card line, and as the last line
-     ``{"ok": true, "device": {...}}``.
+  7. quant — the same weights through Engine.create(quant="int8"), then
+     "int4" (each engine freed before the next): whole-batch AR (B=4,
+     prompt 128, 32 steps) and whole-batch tree decoding (4 steps); then
+     ServingEngine(quant="int8", cache="paged") serving the first 8 serve
+     prompts; each run must launch every kernel its fp path launches, with
+     the gate and verify kernels replaced by their quantized siblings
+     (``quantized``), and none of exit_gate, argmax_verify and
+     topk_verify;
+  8. the ``{"kernels": [...]}`` line (12 kernels), the card line, and as
+     the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
 token per step (one emitted token per tree step), so the tree runs measure
 the mechanism's cost, not its gain.
 
-Each main path (phases 4, 5 and 6, each serve run on its own) zeroes the
+Each main path (phases 4 to 7, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -93,7 +117,34 @@ REPLACES = {
         "src/repro/kernels/flash_attention/flash_attention.py:116",
     "spec_head": "src/repro/kernels/spec_head/spec_head.py:63",
     "predictor_mlp": "src/repro/kernels/predictor_mlp/predictor_mlp.py:47",
+    "argmax_verify_q": "src/repro/kernels/exit_gate/exit_gate.py:604",
+    "topk_verify_q": "src/repro/kernels/exit_gate/exit_gate.py:647",
+    "spec_head_q": "src/repro/kernels/spec_head/spec_head.py:152",
+    "predictor_mlp_q":
+        "src/repro/kernels/predictor_mlp/predictor_mlp.py:119",
 }
+QUANT_KERNELS = ("argmax_verify_q", "topk_verify_q", "spec_head_q",
+                 "predictor_mlp_q")
+FP_GATE_KERNELS = ("exit_gate", "argmax_verify", "topk_verify")
+# The kernels each main path must launch: whole-batch AR on the dense
+# cache, serving on the paged one (plus flash_attention under blocking
+# admission), and tree decoding.
+AR_PATH = ("exit_gate", "argmax_verify", "topk_verify", "decode_attention")
+SERVE_PATH = ("paged_decode_attention", "exit_gate", "argmax_verify",
+              "topk_verify")
+TREE_PATH = ("spec_head", "predictor_mlp", "argmax_verify", "flash_attention")
+# Under weight quantization the fused gate becomes the piecewise one and
+# each gate or verify kernel its quantized sibling; attention is unchanged.
+QUANTIZED = {"exit_gate": ("spec_head_q", "predictor_mlp_q"),
+             "argmax_verify": ("argmax_verify_q",),
+             "topk_verify": ("topk_verify_q",),
+             "spec_head": ("spec_head_q",),
+             "predictor_mlp": ("predictor_mlp_q",)}
+
+
+def quantized(path):
+    """``path`` with each fp gate or verify kernel replaced as above."""
+    return tuple(q for k in path for q in QUANTIZED.get(k, (k,)))
 
 B, D, V, K_SPEC, H_PRED = 4, 4096, 32000, 4, 512
 HEADS, HD = 32, 128
@@ -103,10 +154,16 @@ SERVE_BATCH, SERVE_SEQ, SERVE_REQS, SERVE_NEW = 8, 4096, 16, 32
 SERVE_PROMPTS = (64, 512)                    # prompt lengths, inclusive
 TREE_DEPTH, TREE_BRANCH = 3, 3               # 40 nodes, 27 root-leaf paths
 TREE_STEPS, TREE_SERVE_REQS = 16, 8
+QUANT_TREE_STEPS = 4                         # tree steps of the quant phase
+
+
+T_START = time.perf_counter()
 
 
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line, tagged with its phase and the seconds since the start."""
+    print(f"[{phase} +{time.perf_counter() - T_START:.1f}s] {msg}",
+          flush=True)
 
 
 def card_line() -> str:
@@ -633,6 +690,245 @@ def check_tree_kernels(torch, dev):
     return errs["bfloat16"], t, by_rows
 
 
+def _plant_ties_q(torch, hn, qt, rows):
+    """``_plant_ties`` for a quantized head: each listed row's best column
+    (codes and scale) copied to id 0 and a higher id."""
+    from repro_torch.kernels.exit_gate import ref as gref
+    V = qt.shape[1]
+    for r in rows:
+        best = int(gref.verify_argmax_q_ref(hn[r:r + 1], qt)[0][0])
+        for j in (0, (best + 5) % V):
+            qt.q[:, j], qt.scale[j] = qt.q[:, best], qt.scale[best]
+
+
+def check_quant_kernels(torch, dev):
+    """Phase 2 for the weight-only quantized kernels: each against its
+    plain version in int8 and int4, with fp32 and bf16 activations, at the
+    AR path's B=4 rows and the tree's R=160/320 (predictor MLP: B=4 and the
+    tree's 108/216 paths), planted ties and edge ids; the verify and
+    spec-head kernels also against the fp kernels on the dequantized fp32
+    head. Then bf16 timings beside the plain version, the fp kernel on the
+    dequantized bf16 head as a yardstick (no one PyTorch call computes the
+    same function), and the bound. Returns (max errors by kernel, timing
+    rows at B=4 for int8, {bits: {rows: timing row}})."""
+    from repro_torch import quant
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref as gref
+    from repro_torch.kernels.predictor_mlp.predictor_mlp import (
+        predictor_mlp_fused, predictor_mlp_fused_q)
+    from repro_torch.kernels.predictor_mlp.ref import predictor_mlp_q_ref
+    from repro_torch.kernels.spec_head.ref import spec_logits_ref
+    from repro_torch.kernels.spec_head.spec_head import (spec_head_logits,
+                                                         spec_head_logits_q)
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+
+    def rnd(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def ids_for(R):
+        ids = torch.randint(0, V, (R, K_SPEC), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[0] = torch.tensor([0, V - 1, V - 1, 0], dtype=torch.int32)
+        return ids
+
+    F = 3 * K_SPEC
+    errs = {k: 0.0 for k in QUANT_KERNELS}
+
+    def note(name, a, b, atol, rtol):
+        # the kernels and the plain versions sum the same fp32 products of
+        # the widened codes in different orders, and scale after the sum:
+        # atol = rtol = 1e-4 on logits of size ~3, 1e-5 on probabilities
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+        errs[name] = max(errs[name], (a - b).abs().max().item())
+
+    for bits in (8, 4):
+        w = rnd((D, V), torch.float32, 0.05)
+        qt0 = quant.quantize_tensor(w, bits)
+        wdq = qt0.dequantize()
+        del w
+        for dt in (torch.float32, torch.bfloat16):
+            name = f"int{bits}, {str(dt).split('.')[1]}"
+            for R in (B, 160, 320):
+                hn = rnd((R, D), dt)
+                qt = quant.QTensor(qt0.q.clone(), qt0.scale.clone(), bits)
+                _plant_ties_q(torch, hn, qt, (0, R // 2, R - 1))
+                tok, mx = eg.argmax_verify_fused_q(hn, qt)
+                tok_r, mx_r = gref.verify_argmax_q_ref(hn, qt)
+                require(torch.equal(tok, tok_r), f"argmax_q ids differ at "
+                        f"R={R} ({name})")
+                require(int(tok[R - 1]) == 0, f"argmax_q tie-break, R={R}")
+                note("argmax_verify_q", mx, mx_r, 1e-4, 1e-4)
+                ids, vals = eg.topk_verify_fused_q(hn, qt, K_SPEC)
+                ids_r, vals_r = gref.verify_topk_q_ref(hn, qt, K_SPEC)
+                require(torch.equal(ids, ids_r), f"top-k_q ids differ at "
+                        f"R={R} ({name})")
+                require(int(ids[R - 1, 0]) == 0, f"top-k_q tie-break, R={R}")
+                note("topk_verify_q", vals, vals_r, 1e-4, 1e-4)
+                if R != 320:
+                    # the fp kernels on the dequantized fp32 head
+                    wq = qt.dequantize()
+                    require(torch.equal(eg.argmax_verify_fused(
+                        hn.float(), wq)[0], tok), f"argmax_q vs fp kernel "
+                        f"on the dequantized head, R={R} ({name})")
+                    require(torch.equal(eg.topk_verify_fused(
+                        hn.float(), wq, K_SPEC)[0], ids), f"top-k_q vs fp "
+                        f"kernel on the dequantized head, R={R} ({name})")
+                    del wq
+                sids = ids_for(R)
+                got = spec_head_logits_q(hn, qt0, sids)
+                note("spec_head_q", got, spec_logits_ref(hn, qt0, sids),
+                     1e-4, 1e-4)
+                torch.testing.assert_close(got, spec_head_logits(
+                    hn.float(), wdq, sids), atol=1e-4, rtol=1e-4)
+                del qt
+        for R in (B, 108, 216):
+            x = rnd((R, F), torch.float32)
+            q1 = quant.quantize_tensor(rnd((F, H_PRED), torch.float32,
+                                           F ** -0.5), bits)
+            q2 = quant.quantize_tensor(rnd((H_PRED, 1), torch.float32,
+                                           H_PRED ** -0.5), bits)
+            b1 = rnd((H_PRED,), torch.float32, 0.1)
+            b2 = rnd((1,), torch.float32, 0.1)
+            got = predictor_mlp_fused_q(x, q1, b1, q2, b2)
+            note("predictor_mlp_q", got,
+                 predictor_mlp_q_ref(x, q1, b1, q2, b2), 1e-5, 1e-5)
+            torch.testing.assert_close(got, predictor_mlp_fused(
+                x, q1.dequantize(), b1, q2.dequantize(), b2), atol=1e-5,
+                rtol=1e-5)
+        del qt0, wdq
+        torch.cuda.synchronize()
+        log("kernels", f"int{bits}: argmax_verify_q and topk_verify_q at R "
+            f"{B}/160/320 (fp32 and bf16): ids exact, ties -> lowest id, "
+            f"equal to the fp kernels on the dequantized head; spec_head_q "
+            f"(ids 0 and V-1, repeated) and predictor_mlp_q (R {B}/108/216) "
+            f"match their plain versions and the fp kernels")
+    log("kernels", "quantized kernels, max err over int8/int4 and fp32/"
+        "bf16: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+    # ---- bf16 timings: B=4 (AR) and R=160/320 (tree), int8 and int4 ----
+    # Every int8 or int4 code is exact in bf16, so with bf16 hidden rows
+    # the products' rate is the bf16 one (as for the fp kernels).
+    dt, dname = torch.bfloat16, "bfloat16"
+    by_bits = {}
+    for bits in (8, 4):
+        qt = quant.quantize_tensor(rnd((D, V), torch.float32, 0.05), bits)
+        yard_w = qt.dequantize().to(dt)
+        code_b = qt.q.numel() + 4 * V                 # codes + scales
+        rows = {}
+        for R in (B, 160, 320):
+            hn = rnd((R, D), dt)
+            n = 20 if R == B else 5
+            out = {}
+            for name, ker, plain, yard, out_b in (
+                    ("argmax_verify_q",
+                     lambda: eg.argmax_verify_fused_q(hn, qt),
+                     lambda: gref.verify_argmax_q_ref(hn, qt),
+                     lambda: eg.argmax_verify_fused(hn, yard_w), R * 8),
+                    ("topk_verify_q",
+                     lambda: eg.topk_verify_fused_q(hn, qt, K_SPEC),
+                     lambda: gref.verify_topk_q_ref(hn, qt, K_SPEC),
+                     lambda: eg.topk_verify_fused(hn, yard_w, K_SPEC),
+                     R * K_SPEC * 8)):
+                out[name] = (graph_ms(torch, [ker] * n),
+                             graph_ms(torch, [plain] * n), None,
+                             bound_ms(R * D * 2 + code_b + out_b,
+                                      2 * R * D * V, dname),
+                             graph_ms(torch, [yard] * n))
+            id_sets = [ids_for(R) for _ in range(4)]
+            uniq = len(torch.unique(torch.cat(id_sets)))
+            col_b = (D // 2 if bits == 4 else D) + 4
+            out["spec_head_q"] = (
+                graph_ms(torch, [lambda i=i: spec_head_logits_q(hn, qt, i)
+                                 for i in id_sets] * 3),
+                graph_ms(torch, [lambda i=i: spec_logits_ref(hn, qt, i)
+                                 for i in id_sets] * 3),
+                None,
+                bound_ms(R * D * 2 + uniq * col_b / len(id_sets)
+                         + R * K_SPEC * 8, 2 * R * K_SPEC * D, dname),
+                graph_ms(torch, [lambda i=i: spec_head_logits(hn, yard_w, i)
+                                 for i in id_sets] * 3))
+            for name, (ms, p_ms, _, (b, by), y_ms) in out.items():
+                log("kernels", f"{name} int{bits}, bf16, R={R}: kernel "
+                    f"{ms:.4f} ms, plain {p_ms:.4f} ms, fp kernel on the "
+                    f"dequantized bf16 head {y_ms:.4f} ms, bound {b:.4f} ms "
+                    f"({by})")
+            rows[R] = out
+        for R in (B, 108):
+            x = rnd((R, F), torch.float32)
+            q1 = quant.quantize_tensor(rnd((F, H_PRED), torch.float32,
+                                           F ** -0.5), bits)
+            q2 = quant.quantize_tensor(rnd((H_PRED, 1), torch.float32,
+                                           H_PRED ** -0.5), bits)
+            b1 = rnd((H_PRED,), torch.float32)
+            b2 = rnd((1,), torch.float32)
+            w1, w2 = q1.dequantize(), q2.dequantize()
+            nbytes = (R * F * 4 + q1.nbytes() + q2.nbytes()
+                      + (H_PRED + 1) * 4 + R * 4)
+            n = 20
+            row = (graph_ms(torch, [lambda: predictor_mlp_fused_q(
+                       x, q1, b1, q2, b2)] * n),
+                   graph_ms(torch, [lambda: predictor_mlp_q_ref(
+                       x, q1, b1, q2, b2)] * n),
+                   None,
+                   bound_ms(nbytes, R * (2 * F * H_PRED + 2 * H_PRED),
+                            "float32"),
+                   graph_ms(torch, [lambda: predictor_mlp_fused(
+                       x, w1, b1, w2, b2)] * n))
+            log("kernels", f"predictor_mlp_q int{bits}, R={R}: kernel "
+                f"{row[0]:.4f} ms, plain {row[1]:.4f} ms, fp kernel on the "
+                f"dequantized weights {row[4]:.4f} ms, bound {row[3][0]:.5f}"
+                f" ms ({row[3][1]})")
+            rows.setdefault(R, {})["predictor_mlp_q"] = row
+        by_bits[bits] = rows
+        del qt, yard_w
+    host_gate_times(torch, dev, rnd)
+    timing = {name: by_bits[8][B][name] for name in QUANT_KERNELS}
+    return errs, timing, by_bits
+
+
+def host_gate_times(torch, dev, rnd, n: int = 200) -> None:
+    """Host time per call (launches enqueued, no sync inside) of the AR
+    gate and verify entry points at B=4 in bf16: the fused fp gate against
+    the piecewise quantized one (spec head, features, predictor MLP), and
+    the fp against the quantized verify. The AR step makes 32 gate calls,
+    so this is the host cost the quantized path adds per step."""
+    from repro_torch import quant
+    from repro_torch.core.predictor import init_predictors
+    from repro_torch.kernels.exit_gate import ops as gate_ops
+    from repro_torch.models.model import build_model
+    spec = build_model(llama(32, "bfloat16")).run.specee
+    bank = init_predictors(spec, 32, torch.Generator(device=dev)
+                           .manual_seed(3), dev)
+    qbank = {"layers": [{"w": quant.quantize_tensor(l["w"], 8), "b": l["b"]}
+                        for l in bank["layers"]]}
+    w = rnd((D, V), torch.bfloat16, 0.05)
+    qt = quant.quantize_tensor(w, 8)
+    hn = rnd((B, D), torch.bfloat16)
+    ids = torch.randint(0, V, (B, K_SPEC), device=dev, dtype=torch.int32)
+    prev = torch.full((B, K_SPEC), 1.0 / K_SPEC, device=dev)
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / n * 1e6
+
+    gate = {"fp fused": (w, bank), "int8 piecewise": (qt, qbank)}
+    times = {f"gate {k}": host_us(lambda h=h, b=b: gate_ops.exit_gate(
+        hn, h, ids, prev, b, 5, impl="kernel")) for k, (h, b) in gate.items()}
+    times.update({f"verify {k}": host_us(lambda h=h: gate_ops.verify_argmax(
+        hn, h, impl="kernel")) for k, h in (("fp", w), ("int8", qt))})
+    log("kernels", "host time per call at B=4, bf16 (launches enqueued, "
+        "mean of 200): " + ", ".join(f"{k} {v:.1f} us"
+                                     for k, v in times.items()))
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the decode path through the public entry points
 # ---------------------------------------------------------------------------
@@ -653,10 +949,11 @@ ALL_KERNELS = dict(flash_attention=True, decode_kernel=True,
 TREE_KERNELS = dict(ALL_KERNELS, spec_head_kernel=True)
 
 
-def drive(model, params, sw, strategy, prompts, new_tokens, cache=None):
+def drive(model, params, sw, strategy, prompts, new_tokens, cache=None,
+          quant=None):
     from repro_torch.api import Engine
-    session = Engine.create(model, params, sw,
-                            strategy=strategy).new_session(cache=cache)
+    session = Engine.create(model, params, sw, strategy=strategy,
+                            quant=quant).new_session(cache=cache)
     results = [session.prefill(prompts, max_new_tokens=new_tokens)]
     while not session.all_done():
         results.append(session.step())
@@ -733,6 +1030,7 @@ def parity(torch, dev):
         "and plain")
     serving_parity(torch, dev, params, sw)
     tree_parity(torch, dev, params, sw)
+    quant_parity(torch, dev, params, sw)
     del params, sw
 
 
@@ -773,10 +1071,12 @@ def oracle_strategy(threshold: float):
     from repro_torch.api import SpecEEStrategy
     from repro_torch.api.strategies import _single_token_result
     from repro_torch.core import engine as eng
+    from repro_torch.kernels.exit_gate import ref as gref
+    from repro_torch.models.common import lm_head_weight
 
     @dataclasses.dataclass(frozen=True)
     class OracleSpecEE(SpecEEStrategy):
-        def step(self, model, params, sw, state):
+        def step(self, model, params, sw, state, qw=None):
             pos = state.cache["len"]
             pages = state.cache.get("page_table")
             h = model.embed(params, state.last_token[:, None])[:, 0, :]
@@ -784,12 +1084,17 @@ def oracle_strategy(threshold: float):
             for u in range(2):
                 h, seg = model.run_unit(params, 0, u, h, seg, pos,
                                         pages=pages)
-            hit = torch.argmax(model.logits(params, h), -1).to(torch.int32)
+            # the plain argmax of the head the verify reads (a quantized
+            # head's dequantized copy under ``qw``)
+            head = (qw["lm_head"] if qw and qw.get("lm_head") is not None
+                    else lm_head_weight(params))
+            hit = gref.verify_argmax_ref(model.final_norm(params, h), head,
+                                         compute_dtype=h.dtype)[0]
             miss = (hit + 1) % model.cfg.vocab_size
             ids = torch.where(pos % 3 == 0, miss, hit)
             token, new_state, info = eng.ar_decode_step(
                 model, params, sw, state, threshold=self.threshold,
-                spec_ids_override=ids[:, None].expand(-1, K_SPEC))
+                spec_ids_override=ids[:, None].expand(-1, K_SPEC), qw=qw)
             return _single_token_result(token, info), new_state
 
     return OracleSpecEE(threshold=threshold)
@@ -971,6 +1276,119 @@ def tree_parity(torch, dev, params, sw):
         f" ticks); every page returned")
 
 
+def quant_parity(torch, dev, params, sw):
+    """Weight-only quantization at full width, 4 layers, fp32:
+    Engine.create(quant=...) with every kernel against the plain paths —
+    AR SpecEE (the draft's set at threshold -0.1, and an oracle set that
+    forces exits), dense decoding and tree decoding (thresholds 1.5, which
+    must equal quantized dense greedy, and -0.1), int8 on the dense cache
+    and int4 on the paged one, and a quantized ServingEngine (paged kernels vs plain dense,
+    blocking and chunked admission, oracle set); then the quantized engine
+    against the plain engine on ``dequantized_reference``. Every kernel run
+    must launch the quantized kernels and none of the fp gate kernels."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch import quant
+    from repro_torch.api import DenseStrategy, SpecEEStrategy
+    from repro_torch.models.model import ModelFlags, build_model
+    run = llama(4, "float32")
+    m_plain = build_model(run)
+    m_ker = build_model(run, ModelFlags(**TREE_KERNELS))
+    prompts = np.random.default_rng(7).integers(0, V, (B, 16))
+
+    def summary(results):
+        return [(r.tokens.tolist(), r.counts.tolist(), r.accept_len.tolist(),
+                 r.exit_layer.tolist(), r.exited.tolist(), r.units_run)
+                for r in results]
+
+    def both(strategy, spec, cache, new=9):
+        K.reset_launches()
+        a = drive(m_ker, params, sw, strategy, prompts, new, cache=cache,
+                  quant=spec)
+        launched = dict(K.LAUNCHES)
+        b = drive(m_plain, params, sw, strategy, prompts, new, cache=cache,
+                  quant=spec)
+        require(summary(a) == summary(b), f"quant {spec}: kernel vs plain "
+                f"differs ({strategy}, {cache} cache)")
+        fp = [k for k in FP_GATE_KERNELS if launched[k]]
+        require(not fp, f"quant {spec}: fp gate kernels launched {fp}")
+        require(launched["argmax_verify_q"] > 0, "argmax_verify_q idle")
+        return a, launched
+
+    # int8 on the dense cache, int4 on the paged one: quantization changes
+    # the weights, the cache layout only the attention
+    for spec, cache in (("int8", "dense"), ("int4", "paged")):
+        notes = []
+        for label, strat in (("draft", SpecEEStrategy(threshold=-0.1)),
+                             ("oracle", oracle_strategy(-0.1))):
+            a, launched = both(strat, spec, cache)
+            exits = sum(int(r.exited.sum()) for r in a[1:])
+            require(label == "draft" or exits > 0,
+                    f"quant {spec}: the oracle set forced no exit")
+            missing = [k for k in QUANT_KERNELS if not launched[k]]
+            require(not missing, f"quant {spec} AR never launched "
+                    f"{missing}")
+            notes.append(f"AR {label} {cache} ({exits} exits)")
+        dense, _ = both(DenseStrategy(), spec, cache)
+        notes.append(f"dense {cache}")
+        greedy = [r.tokens[:, 0].tolist() for r in dense]
+        for thresh in (1.5, -0.1):
+            a, _ = both(tree_strategy(thresh), spec, cache, new=12)
+            if thresh > 1:
+                rows = [sum((r.row_tokens(b) for r in a), [])[:9]
+                        for b in range(B)]
+                require(rows == [list(t) for t in zip(*greedy)],
+                        f"quant {spec} tree at 1.5 differs from "
+                        f"quantized dense greedy ({cache})")
+            exits = sum(int(r.exited.sum()) for r in a[1:])
+            require(thresh > 1 or exits > 0,
+                    "quant tree at -0.1 forced no exit")
+            notes.append(f"tree {thresh} {cache} ({exits} exits)")
+        log("parity", f"quant {spec}: kernels equal plain versions for "
+            + "; ".join(notes) + "; no fp gate kernel launched")
+
+    # quantized serving: 8 requests through 4 slots, oracle set
+    srun = llama(4, "float32", max_batch=4, max_seq_len=512, page_size=PAGE)
+    s_ker = build_model(srun, ModelFlags(**ALL_KERNELS))
+    s_plain = build_model(srun, ModelFlags(exit_gate_impl="ref"))
+    rng = np.random.default_rng(8)
+    sprompts = [rng.integers(0, V, int(n)) for n in rng.integers(20, 201, 8)]
+    strat = oracle_strategy(-0.1)
+    want = _serve(s_plain, params, sw, sprompts, 8, strategy=strat,
+                  fused_gate=False, cache="dense", prefill_chunk=0,
+                  quant="int4")
+    for chunk in (0, 64):
+        K.reset_launches()
+        got = _serve(s_ker, params, sw, sprompts, 8, strategy=strat,
+                     fused_gate=True, cache="paged", prefill_chunk=chunk,
+                     quant="int4")
+        require(got == want, f"quant serving (int4, chunk {chunk}): paged "
+                "kernels vs plain dense differ")
+        fp = [k for k in FP_GATE_KERNELS if K.LAUNCHES[k]]
+        require(not fp, f"quant serving launched fp gate kernels {fp}")
+    exits = sum(e < s_ker.num_exit_points for _, eps in want for e in eps)
+    require(exits > 0, "quant serving: the oracle set forced no exit")
+    log("parity", f"quant serving int4: 8 requests through 4 slots, paged "
+        f"kernels (blocking and 64-token chunks) equal plain dense "
+        f"({exits} exits); every page returned")
+
+    # the contract of the JAX package's quant parity test
+    for spec in ("int8", "int4"):
+        from repro_torch.api import Engine
+        e = Engine.create(m_ker, params, sw, quant=spec)
+        pv, sv = quant.dequantized_reference(params, sw, e.qw)
+        for strat in (SpecEEStrategy(threshold=-0.1), DenseStrategy()):
+            a = drive(m_ker, params, sw, strat, prompts, 9, cache="paged",
+                      quant=spec)
+            b = drive(m_ker, pv, sv, strat, prompts, 9, cache="paged")
+            require(summary(a) == summary(b), f"quant {spec}: engine vs "
+                    f"plain engine on the dequantized reference differ "
+                    f"({strat.name})")
+        del e, pv, sv
+    log("parity", "quant int8/int4: the quantized engine equals the plain "
+        "engine on dequantized_reference (specee and dense, paged cache)")
+
+
 def full_weights(torch, dev):
     """llama2-7b, 32 layers, bf16, seeded once on the card; phases 4 and 5
     share these weights."""
@@ -1032,8 +1450,7 @@ def full_run(torch, dev, params, sw):
         f"card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("full", "launches: " + ", ".join(
         f"{k} {v} ({v / FULL_STEPS:.2f}/step)" for k, v in launches.items()))
-    path = ("exit_gate", "argmax_verify", "topk_verify", "decode_attention")
-    missing = [k for k in path if launches[k] == 0]
+    missing = [k for k in AR_PATH if launches[k] == 0]
     require(not missing, f"kernels never launched on the main path: "
             f"{missing}")
     if exits == 0:
@@ -1123,8 +1540,7 @@ def serve_run(torch, dev, params, sw, chunk: int):
             f"{mgr.free_pages} of {mgr.num_pages} pages free at the end")
     require(bool(torch.isfinite(se.session._state.h_last.float()).all()),
             "non-finite hidden state")
-    path = ("paged_decode_attention", "exit_gate", "argmax_verify",
-            "topk_verify") + (("flash_attention",) if chunk == 0 else ())
+    path = SERVE_PATH + (("flash_attention",) if chunk == 0 else ())
     missing = [k for k in path if launches[k] == 0]
     require(not missing, f"kernels never launched on the serving path "
             f"({label}): {missing}")
@@ -1193,9 +1609,6 @@ def serve_phase(torch, dev, params, sw):
 # ---------------------------------------------------------------------------
 # phase 6: T3 tree decoding at full width
 # ---------------------------------------------------------------------------
-TREE_PATH = ("spec_head", "predictor_mlp", "argmax_verify", "flash_attention")
-
-
 def _per_step(launches, n):
     return ", ".join(f"{k} {launches[k]} ({launches[k] / n:.2f}/step)"
                      for k in ("spec_head", "predictor_mlp", "argmax_verify"))
@@ -1318,6 +1731,175 @@ def tree_phase(torch, dev, params, sw):
     return {"tree_whole_batch": launches, "tree_serve": s_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: weight-only quantized decode at full width
+# ---------------------------------------------------------------------------
+def _require_quant_path(launches, path, label):
+    """Each kernel of the quantized ``path`` launched, and no fp gate
+    kernel."""
+    missing = [k for k in quantized(path) if launches[k] == 0]
+    require(not missing, f"{label}: kernels never launched {missing}")
+    fp = [k for k in FP_GATE_KERNELS if launches[k]]
+    require(not fp, f"{label}: fp gate kernels launched {fp}")
+
+
+def quant_phase(torch, dev, params, sw):
+    """Engine.create(quant="int8"), then "int4", on the phase-4 weights:
+    whole-batch AR (B=4, prompt 128, 32 steps, dense cache; int8 then
+    profiled over 3 more steps) and a whole-batch tree run (4 steps); then
+    ServingEngine(quant="int8", cache="paged") serving the first 8 serve
+    prompts. Each run zeroes the launch counts right before and reads them
+    right after; each engine is freed before the next is built."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.api import DenseStrategy, Engine, SpecEEStrategy
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine
+    model = build_model(llama(32, "bfloat16"), ModelFlags(**TREE_KERNELS))
+    prompts = np.random.default_rng(1).integers(0, V, (B, FULL_PROMPT))
+    by_path = {}
+    for spec in ("int8", "int4"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = Engine.create(model, params, sw, strategy=SpecEEStrategy(),
+                               quant=spec)
+        engine.prefill_weights()             # the dequantized view, once
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        code_gb = sum(x.nbytes() if hasattr(x, "bits") else
+                      x.numel() * x.element_size()
+                      for x in _leaves(engine.qw) if x is not None) / 1e9
+
+        K.reset_launches()                   # ---- the main path ----
+        session = engine.new_session()
+        t0 = time.perf_counter()
+        first = session.prefill(prompts, max_new_tokens=FULL_STEPS + 1)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        steps = [session.step() for _ in range(FULL_STEPS)]
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)          # ---- read right after ----
+
+        toks = np.stack([r.tokens[:, 0] for r in [first] + steps], 1)
+        require(toks.shape == (B, FULL_STEPS + 1), f"token shape "
+                f"{toks.shape}")
+        require(((toks >= 0) & (toks < V)).all(), "token out of vocabulary")
+        require(bool(torch.isfinite(session._state.h_last.float()).all()),
+                "non-finite hidden state")
+        _require_quant_path(launches, AR_PATH, f"quant {spec} AR")
+        exits = sum(int(r.exited.sum()) for r in steps)
+        units = np.mean([r.units_run for r in steps])
+        log("quant", f"{spec}: quantized in {t_quant:.2f} s ({code_gb:.2f} "
+            f"GB of codes and scales); prefill {B}x{FULL_PROMPT} in "
+            f"{t_prefill:.3f} s; {FULL_STEPS} steps in {t_decode:.3f} s = "
+            f"{B * FULL_STEPS / t_decode:.2f} tokens/s "
+            f"({t_decode / FULL_STEPS * 1e3:.2f} ms/step); exits per token "
+            f"{exits / (B * FULL_STEPS):.4f}; mean units_run {units:.2f}; "
+            f"peak card memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+            f" GB")
+        log("quant", f"{spec} AR launches: " + ", ".join(
+            f"{k} {launches[k]} ({launches[k] / FULL_STEPS:.2f}/step)"
+            for k in QUANT_KERNELS + FP_GATE_KERNELS))
+        if exits == 0:
+            # no row exited: the quantized dense strategy gives the tokens
+            dense = Engine.create(model, params, sw, strategy=DenseStrategy(),
+                                  quant=spec)
+            s = dense.new_session()
+            res = [s.prefill(prompts, max_new_tokens=FULL_STEPS + 1)]
+            res += [s.step() for _ in range(FULL_STEPS)]
+            require(np.array_equal(np.stack([r.tokens[:, 0] for r in res],
+                                            1), toks),
+                    f"quant {spec} AR differs from quantized dense greedy")
+            log("quant", f"{spec}: no row exited; tokens equal quantized "
+                "dense greedy decoding")
+            del dense, s, res
+        if spec == "int8":                   # one profile keeps the time
+            profile_ticks(torch, "profile-quant-int8", session.step, 3,
+                          f" ({t_decode / FULL_STEPS * 1e3:.2f} unprofiled)")
+        del session, engine
+        torch.cuda.empty_cache()
+        by_path[f"quant_{spec}_whole_batch"] = launches
+
+        tree = tree_strategy()
+        engine = Engine.create(model, params, sw, strategy=tree, quant=spec)
+        K.reset_launches()                   # ---- the main path ----
+        session = engine.new_session()
+        session.prefill(prompts, max_new_tokens=(QUANT_TREE_STEPS + 4)
+                        * (tree.tree.depth + 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tsteps = [session.step() for _ in range(QUANT_TREE_STEPS)]
+        torch.cuda.synchronize()
+        t_tree = time.perf_counter() - t0
+        t_launch = dict(K.LAUNCHES)          # ---- read right after ----
+        require(all(((r.tokens >= 0) & (r.tokens < V)).all()
+                    for r in tsteps), "tree token out of vocabulary")
+        tree_path = quantized(TREE_PATH)
+        _require_quant_path(t_launch, TREE_PATH, f"quant {spec} tree")
+        tokens = sum(int(r.counts.sum()) for r in tsteps)
+        log("quant", f"{spec} tree: {QUANT_TREE_STEPS} steps in "
+            f"{t_tree:.3f} s = {t_tree / QUANT_TREE_STEPS * 1e3:.2f} ms/step,"
+            f" {tokens / t_tree:.2f} tokens/s; mean units_run "
+            f"{np.mean([r.units_run for r in tsteps]):.2f}; launches "
+            + ", ".join(f"{k} {t_launch[k]} "
+                        f"({t_launch[k] / QUANT_TREE_STEPS:.2f}/step)"
+                        for k in tree_path))
+        by_path[f"quant_{spec}_tree"] = t_launch
+        del session, engine
+        torch.cuda.empty_cache()
+
+    # serving: the first 8 serve prompts through 8 paged slots, int8
+    srun = llama(32, "bfloat16", max_batch=SERVE_BATCH,
+                 max_seq_len=SERVE_SEQ, page_size=PAGE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    se = ServingEngine(build_model(srun, ModelFlags(**ALL_KERNELS)), params,
+                       sw, cache="paged", prefill_chunk=0, quant="int8")
+    mgr = se.session.cache_mgr
+    sprompts = serve_prompts()[:TREE_SERVE_REQS]
+    tick_s = []
+    K.reset_launches()                       # ---- the main path ----
+    t0 = time.perf_counter()
+    reqs = [se.submit(p, max_new_tokens=SERVE_NEW) for p in sprompts]
+    while se.busy:
+        t1 = time.perf_counter()
+        se.step()
+        torch.cuda.synchronize()
+        tick_s.append(time.perf_counter() - t1)
+        require(len(tick_s) <= 10_000, "quant serving did not finish")
+    wall = time.perf_counter() - t0
+    s_launch = dict(K.LAUNCHES)              # ---- read right after ----
+    ticks = len(tick_s)
+    require(all(r.done and len(r.output) == SERVE_NEW for r in reqs),
+            "a quant request did not finish with its 32 tokens")
+    require(all(0 <= t < V for r in reqs for t in r.output),
+            "token out of vocabulary")
+    require(mgr.free_pages == mgr.num_pages,
+            f"{mgr.free_pages} of {mgr.num_pages} pages free at the end")
+    _require_quant_path(s_launch, SERVE_PATH + ("flash_attention",),
+                        "quant serving")
+    log("quant", f"serve int8: {TREE_SERVE_REQS} requests (prompts "
+        f"{min(map(len, sprompts))}-{max(map(len, sprompts))} tokens, "
+        f"{SERVE_NEW} new each) through {SERVE_BATCH} slots in {wall:.3f} s"
+        f" = {TREE_SERVE_REQS / wall:.3f} requests/s, "
+        f"{TREE_SERVE_REQS * SERVE_NEW / wall:.2f} tokens/s; {ticks} ticks, "
+        f"{wall / ticks * 1e3:.2f} ms/tick (median "
+        f"{sorted(tick_s)[ticks // 2] * 1e3:.2f}, first tick, with the "
+        f"admissions, {tick_s[0] * 1e3:.2f}); peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; free pages at "
+        f"the end {mgr.free_pages} of {mgr.num_pages}")
+    log("quant", "serve int8 launches: " + ", ".join(
+        f"{k} {s_launch[k]} ({s_launch[k] / ticks:.2f}/tick)"
+        for k in QUANT_KERNELS + FP_GATE_KERNELS))
+    by_path["quant_int8_serve"] = s_launch
+    del se
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def flip_margins(torch, params, out_block, out_chunk) -> None:
     """For each request whose blocking and chunked outputs differ: the
     plain model's top-2 logit margin at the first differing token, after
@@ -1349,12 +1931,15 @@ def flip_margins(torch, params, out_block, out_chunk) -> None:
 
 
 # where the device time of a decode step goes, by kernel family (the paged
-# kernel's name contains the dense one's, so it is matched first)
+# kernel's name contains the dense one's, so it is matched first); the
+# quantized verify and spec-head kernels are the fp ones' templates on an
+# Int8Cols / Int4Cols reader, and count under the family's "_q" name
 FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
             ("topk_verify", ("topk_partial", "topk_merge")),
             ("exit_gate", ("exit_gate_kernel",)),
             ("spec_head", ("spec_head_kernel",)),
             ("predictor_mlp", ("predictor_mlp_kernel",)),
+            ("predictor_mlp_q", ("predictor_mlp_q_kernel",)),
             ("paged_decode_attention", ("paged_decode_attention_kernel",)),
             ("decode_attention", ("decode_attention_kernel",)),
             ("flash_attention", ("flash_attention_kernel",)),
@@ -1388,6 +1973,8 @@ def profile_ticks(torch, phase: str, tick, n: int, note: str = "") -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam = {name: 0.0 for name, _ in FAMILIES}
+    fam.update({f"{name}_q": 0.0 for name in
+                ("argmax_verify", "topk_verify", "spec_head")})
     fam["other"] = 0.0
     total = 0.0
     for evt in prof.key_averages():
@@ -1399,6 +1986,8 @@ def profile_ticks(torch, phase: str, tick, n: int, note: str = "") -> None:
         total += us / 1e3
         for name, keys in FAMILIES:
             if any(k in evt.key for k in keys):
+                if "Int8Cols" in evt.key or "Int4Cols" in evt.key:
+                    name += "_q"
                 fam[name] += us / 1e3
                 break
         else:
@@ -1410,7 +1999,7 @@ def profile_ticks(torch, phase: str, tick, n: int, note: str = "") -> None:
         f"device busy {total / n:.2f} ms/tick = "
         f"{100 * total / wall_ms:.1f}% of the profiled wall; " + ", ".join(
             f"{k} {v / n:.3f} ms/tick" for k, v in
-            sorted(fam.items(), key=lambda kv: -kv[1])))
+            sorted(fam.items(), key=lambda kv: -kv[1]) if v > 0))
 
 
 def _leaves(tree):
@@ -1459,6 +2048,10 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0.0), err)
     timing.update(t_tree)
     torch.cuda.empty_cache()
+    errs_q, t_q, quant_rows = check_quant_kernels(torch, dev)
+    errs.update(errs_q)
+    timing.update(t_q)
+    torch.cuda.empty_cache()
     parity(torch, dev)
     torch.cuda.empty_cache()
     params, sw = full_weights(torch, dev)
@@ -1467,10 +2060,12 @@ def main() -> int:
     by_path.update(serve_phase(torch, dev, params, sw))
     torch.cuda.empty_cache()
     by_path.update(tree_phase(torch, dev, params, sw))
+    torch.cuda.empty_cache()
+    by_path.update(quant_phase(torch, dev, params, sw))
 
     kernels = []
     for name in build.SOURCES:
-        ms, plain, lib, (bnd, by) = timing[name]
+        ms, plain, lib, (bnd, by) = timing[name][:4]
         row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
@@ -1485,6 +2080,17 @@ def main() -> int:
                          "library_ms": r[name][2], "bound_ms": r[name][3][0],
                          "bound_by": r[name][3][1]}
                 for R, r in verify_rows.items()}
+        if name in QUANT_KERNELS:
+            # int8 at B=4 above; every measured shape, int8 and int4, with
+            # the fp kernel on the dequantized bf16 head as a yardstick
+            row["yardstick_ms"] = timing[name][4]
+            row["by_bits"] = {
+                f"int{bits}": {str(R): {
+                    "ms": r[name][0], "plain_ms": r[name][1],
+                    "yardstick_ms": r[name][4], "bound_ms": r[name][3][0],
+                    "bound_by": r[name][3][1]}
+                    for R, r in rows.items() if name in r}
+                for bits, rows in quant_rows.items()}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -15,6 +15,22 @@ dense layout for page pools + a page table with no change to the step, and
 ``retire_row`` compacts a finished row. The KV cache is updated in place
 every tick.
 
+Weight-only quantization (``Engine.create(..., quant="int8"|"int4"|
+QuantSpec)``): the engine builds the parallel bundle ``engine.qw``
+(``repro_torch.quant.quantize_params``); ``engine.params`` is never
+touched. The decode step reads the quantized LM head and predictor bank
+(the ``*_q`` kernels). Every prefill site — ``prefill``, ``prefill_row``,
+``prefill_chunk`` and the end of a chunked admission — reads
+``engine.prefill_weights()``, the cached ``dequantized_reference`` view,
+so the prompt's K/V and first token come from the weights the decode step
+uses. The decode step's projections are that view's dequantized
+projections too. The JAX engine dequantizes them inside its jitted step,
+where XLA fuses the dequantization into each matmul; eager PyTorch has no
+such fusion, and dequantizing every step would move about 13 GB per step at
+llama2-7b's width for the same numbers. The JAX engine holds the same view
+for prefill, so memory is no worse than the reference's: the fp params,
+the codes, and one dequantized copy of the projections.
+
 Two session styles:
   * whole-batch: ``prefill(prompts)`` then ``step()``;
   * slot-based (continuous batching): ``new_session(batch=B, max_seq=S)``
@@ -43,6 +59,8 @@ from repro_torch.core import engine as eng
 from repro_torch.core import scheduler as sched_lib
 from repro_torch.models.common import lm_head_weight
 from repro_torch.models.model import Model
+from repro_torch.quant import (QuantSpec, dequantized_reference,
+                               quantize_params)
 
 _NO_BUDGET = np.iinfo(np.int64).max
 
@@ -52,33 +70,69 @@ class Engine:
     The engine runs on the device its weights live on."""
 
     def __init__(self, model: Model, params, sw=None,
-                 strategy: Union[str, DecodeStrategy, None] = None):
+                 strategy: Union[str, DecodeStrategy, None] = None,
+                 quant=None):
         self.model = model
         self.params = params
         self.sw = sw
         self.strategy = get_strategy(strategy)
         self.strategy.validate(model, sw)
         self.device = lm_head_weight(params).device
+        # weight-only quantization: a parallel bundle of codes + scales
+        self.quant_spec = QuantSpec.resolve(quant)
+        self.qw = quantize_params(params, sw, self.quant_spec)
+        self._prefill_view = None
+        self._decode_view = None
 
     @classmethod
     def create(cls, model: Model, params, sw=None,
-               strategy: Union[str, DecodeStrategy, None] = None
-               ) -> "Engine":
+               strategy: Union[str, DecodeStrategy, None] = None,
+               quant=None) -> "Engine":
         """``Engine.create(model, params, sw,
-        strategy="dense"|"specee"|"tree")``."""
-        return cls(model, params, sw=sw, strategy=strategy)
+        strategy="dense"|"specee"|"tree",
+        quant=None|"int8"|"int4"|QuantSpec(...))``."""
+        return cls(model, params, sw=sw, strategy=strategy, quant=quant)
 
     @property
     def emit_width(self) -> int:
         return self.strategy.emit_width(self.model)
 
+    def prefill_weights(self):
+        """(params, sw) every prefill and admission path reads: the
+        originals, or under quantization the ``dequantized_reference``
+        view (its LM head fp32; ``Model.logits`` casts it to the
+        activation dtype), made once and cached."""
+        if self.qw is None:
+            return self.params, self.sw
+        if self._prefill_view is None:
+            self._prefill_view = dequantized_reference(self.params, self.sw,
+                                                       self.qw)
+        return self._prefill_view
+
+    def decode_weights(self):
+        """(params, sw, qw) the decode step reads. Under quantization with
+        quantized projections, ``params`` takes the prefill view's
+        dequantized segments (shared, not copied) beside the original LM
+        head and embeddings, and ``qw`` drops its ``proj`` entry, which
+        those segments already hold (see the module docstring)."""
+        if self.qw is None or self.qw.get("proj") is None:
+            return self.params, self.sw, self.qw
+        if self._decode_view is None:
+            view, _ = self.prefill_weights()
+            self._decode_view = (dict(self.params,
+                                      segments=view["segments"]),
+                                 self.sw, dict(self.qw, proj=None))
+        return self._decode_view
+
     def new_session(self, batch: Optional[int] = None,
-                    max_seq: Optional[int] = None,
+                    max_seq: Optional[int] = None, prng_seed: int = 0,
                     cache: Union[None, str, CacheSpec] = None
                     ) -> "DecodeSession":
         """``batch=None``: an empty shell, filled by ``prefill(prompts)``.
         ``batch=B``: B pre-allocated empty rows for slot-based serving
         (``max_seq`` defaults to the run's ``serve.max_seq_len``).
+        ``prng_seed``: the seed of a sampling strategy, in the JAX
+        package's argument order; the greedy strategies ignore it.
         ``cache``: "dense" (default) | "paged" | a ``CacheSpec``."""
         return DecodeSession(self, batch=batch, max_seq=max_seq, cache=cache)
 
@@ -244,7 +298,8 @@ class DecodeSession:
                    else e.model.run.serve.max_new_tokens)
             max_seq = T + new + e.emit_width + 1
         self._max_seq = max_seq
-        first, state = e.strategy.init_state(e.model, e.params, e.sw,
+        params, sw = e.prefill_weights()
+        first, state = e.strategy.init_state(e.model, params, sw,
                                              {"tokens": tokens}, max_seq)
         self.cache_mgr = self._make_manager(B, max_seq)
         self._state = state._replace(
@@ -301,7 +356,8 @@ class DecodeSession:
         e = self.engine
         tokens = torch.as_tensor(np.asarray(prompt), dtype=torch.int32,
                                  device=e.device)[None, :]
-        _, st1 = e.strategy.init_state(e.model, e.params, e.sw,
+        params, sw = e.prefill_weights()
+        _, st1 = e.strategy.init_state(e.model, params, sw,
                                        {"tokens": tokens}, self._max_seq)
         return self._insert_state1(row, st1, tokens.shape[1],
                                    max_new_tokens, eos_token)
@@ -347,7 +403,8 @@ class DecodeSession:
         chunk = np.zeros((1, C), np.int32)
         chunk[0, :n] = adm.tokens[adm.consumed:adm.consumed + n]
         h, adm.cache = e.model.prefill_extend(
-            e.params, torch.as_tensor(chunk, device=e.device), adm.cache, n)
+            e.prefill_weights()[0], torch.as_tensor(chunk, device=e.device),
+            adm.cache, n)
         adm.h_parts.append(h[:, :n])
         adm.consumed += n
         if adm.remaining == 0:
@@ -358,7 +415,8 @@ class DecodeSession:
         """Last chunk done: first token, draft prefill over the accumulated
         hiddens, batch-1 state assembly, row insert."""
         e = self.engine
-        model, params, sw = e.model, e.params, e.sw
+        model = e.model
+        params, sw = e.prefill_weights()
         tokens = torch.as_tensor(adm.tokens, dtype=torch.int32,
                                  device=e.device)[None, :]
         h_all = torch.cat(adm.h_parts, dim=1)                 # (1, T, D)
@@ -387,8 +445,9 @@ class DecodeSession:
         back to 0 after the tick (the step advances every row's length)."""
         assert self._state is not None, "prefill first"
         e = self.engine
-        raw, self._state = e.strategy.step(e.model, e.params, e.sw,
-                                           self._state)
+        params, sw, qw = e.decode_weights()
+        raw, self._state = e.strategy.step(e.model, params, sw, self._state,
+                                           qw=qw)
         if self._retired:
             cache = self._state.cache
             length = cache["len"].clone()

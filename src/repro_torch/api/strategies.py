@@ -62,8 +62,11 @@ class DecodeStrategy:
                                       self.cache_seq_len(model, max_seq),
                                       device=device, cache=cache)
 
-    def step(self, model: Model, params, sw, state: eng.DecodeState
-             ) -> Tuple[StepResult, eng.DecodeState]:
+    def step(self, model: Model, params, sw, state: eng.DecodeState,
+             qw=None) -> Tuple[StepResult, eng.DecodeState]:
+        """One tick. ``qw``: optional quantized-weight bundle
+        (``repro_torch.quant.quantize_params``) threaded into the engine
+        step."""
         raise NotImplementedError
 
 
@@ -73,9 +76,9 @@ class DenseStrategy(DecodeStrategy):
     name = "dense"
     requires_sw = False
 
-    def step(self, model, params, sw, state):
+    def step(self, model, params, sw, state, qw=None):
         token, new_state, info = eng.dense_decode_step(model, params, sw,
-                                                       state)
+                                                       state, qw=qw)
         return _single_token_result(token, info), new_state
 
 
@@ -87,9 +90,9 @@ class SpecEEStrategy(DecodeStrategy):
     threshold: Optional[float] = None
     name = "specee"
 
-    def step(self, model, params, sw, state):
+    def step(self, model, params, sw, state, qw=None):
         token, new_state, info = eng.ar_decode_step(
-            model, params, sw, state, threshold=self.threshold)
+            model, params, sw, state, threshold=self.threshold, qw=qw)
         return _single_token_result(token, info), new_state
 
 
@@ -122,10 +125,10 @@ class TreeStrategy(DecodeStrategy):
                 "tree strategy requires a stack of global attention blocks; "
                 f"{model.cfg.name} has {sorted(set(model.cfg.blocks()))}")
 
-    def step(self, model, params, sw, state):
+    def step(self, model, params, sw, state, qw=None):
         out, n_emit, new_state, info = eng.tree_decode_step(
             model, params, sw, state, self.tree_for(model),
-            threshold=self.threshold)
+            threshold=self.threshold, qw=qw)
         B = out.shape[0]
         res = StepResult(tokens=out, counts=n_emit,
                          done=torch.zeros(B, dtype=torch.bool,

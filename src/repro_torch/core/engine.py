@@ -18,6 +18,15 @@ read back from the card once per layer; removing those syncs with a CUDA
 graph is later work. ``units_run`` counts the loops' iterations exactly as
 the JAX while loops do.
 
+Weight-only quantization: each step takes an optional bundle ``qw``
+(``repro_torch.quant.quantize_params``). ``_apply_qw`` resolves it as the
+JAX package does: the LM head the gate, the verify and the draft's top-k
+read is the ``QTensor`` (the quantized kernels) and the predictor bank is
+the quantized one. Unlike JAX's, the steps take no ``proj`` entry: the
+caller passes params whose projections are already dequantized
+(``Engine.decode_weights``, once per engine, not once per step). The tree's top-b expansion reads ``params``' own LM head, the fp
+original, as JAX's ``build_tree`` does.
+
 Semantics guarantees (held against the JAX package in tests/):
   * with the predictor disabled (threshold > 1) the emitted tokens equal
     dense greedy decoding;
@@ -61,6 +70,27 @@ class StepInfo(NamedTuple):
     exited: torch.Tensor        # (B,) bool — predictor-driven exit happened
     units_run: int              # units the layer loop executed
     spec_hit: torch.Tensor      # (B,) bool — final token ∈ speculative set
+
+
+def _apply_qw(params: Params, sw: Optional[SpecEEWeights], qw):
+    """One step's weight views under an optional quantized bundle ``qw``.
+    Returns ``(params, lm_w, predictors)``: ``lm_w`` the quantized LM head
+    or else ``params``' own, ``predictors`` the quantized bank or else
+    ``sw``'s. ``params`` must already hold dequantized projections, so a
+    ``proj`` entry is refused (see the module docstring)."""
+    predictors = sw.predictors if sw is not None else None
+    if not qw:
+        return params, lm_head_weight(params), predictors
+    if qw.get("proj") is not None:
+        raise ValueError("qw['proj'] is not taken by a decode step: pass "
+                         "params with dequantized projections and "
+                         "qw['proj']=None (Engine.decode_weights)")
+    lm_w = qw.get("lm_head")
+    if lm_w is None:
+        lm_w = lm_head_weight(params)
+    if qw.get("predictors") is not None:
+        predictors = qw["predictors"]
+    return params, lm_w, predictors
 
 
 def init_specee(model: Model, gen: torch.Generator,
@@ -120,18 +150,19 @@ def empty_decode_state(model: Model, sw: Optional[SpecEEWeights], batch: int,
 
 def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
                    state: DecodeState, threshold: Optional[float] = None,
-                   spec_ids_override: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, DecodeState, StepInfo]:
+                   spec_ids_override: Optional[torch.Tensor] = None,
+                   qw=None) -> Tuple[torch.Tensor, DecodeState, StepInfo]:
     """Decode one token for every row with speculative early exiting.
 
     The caches in ``state`` are updated in place; use the returned state.
     spec_ids_override: (B, k) — oracle speculative set (bypasses the draft
     proposal; the draft cache is still maintained).
+    qw: optional quantized-weight bundle (``_apply_qw``).
     """
     spec = model.run.specee
     thresh = spec.exit_threshold if threshold is None else threshold
     E = model.num_exit_points
-    lm_w = lm_head_weight(params)
+    params, lm_w, predictors = _apply_qw(params, sw, qw)
     pos = state.cache["len"]
     pages = state.cache.get("page_table")       # paged KV: table indirection
     B = state.last_token.shape[0]
@@ -171,7 +202,7 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
             if bool(act.any()):
                 hn = model.final_norm(params, h)
                 p_exit, probs, _ = gate_lib.exit_gate(
-                    hn, lm_w, spec_ids, prev_probs, sw.predictors, ep,
+                    hn, lm_w, spec_ids, prev_probs, predictors, ep,
                     impl=gate_impl,
                     spec_head_kernel=model.flags.spec_head_kernel)
                 would = act & (p_exit > thresh)
@@ -263,9 +294,9 @@ def build_tree(model: Model, params: Params, sw: SpecEEWeights,
 def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
                      state: DecodeState, tree: TreeSpec,
                      threshold: Optional[float] = None,
-                     node_tokens_override: Optional[torch.Tensor] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor, DecodeState,
-                                TreeStepInfo]:
+                     node_tokens_override: Optional[torch.Tensor] = None,
+                     qw=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                       DecodeState, TreeStepInfo]:
     """One tree-speculative step with hyper-token merged early exit.
 
     Returns (tokens (B, depth+1) emitted left-aligned, num_emitted (B,),
@@ -273,14 +304,16 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     the end of its logical capacity (``init_tree_decode_state``, or a
     strategy's ``cache_seq_len``); the caches are updated in place.
     node_tokens_override: (B, N) oracle node tokens (tests, benchmarks);
-    the root keeps the last token.
+    the root keeps the last token. qw: optional quantized-weight bundle —
+    the gate's features and predictors and the B*N-row verify read it, the
+    draft's top-b expansion reads ``params``' fp head (as in JAX).
     """
     assert model.supports_tree(), \
         "T3 tree mode requires a pure-attention stack"
     spec = model.run.specee
     thresh = spec.exit_threshold if threshold is None else threshold
     E = model.num_exit_points
-    lm_w = lm_head_weight(params)
+    params, lm_w, predictors = _apply_qw(params, sw, qw)
     B = state.last_token.shape[0]
     N, k = tree.num_nodes, spec.num_speculative
     pos0 = state.cache["len"]
@@ -290,7 +323,7 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     # the predictor stage takes the kernel wrapper only when the fused
     # backend resolves to the kernel path (JAX's rule)
     pred_kernel = (model.flags.exit_gate_kernel
-                   and gate_lib.resolve_impl(gate_impl, lm_w) == "kernel")
+                   and gate_lib.resolve_impl(gate_impl, pos0) == "kernel")
     # static scratch offset = logical capacity minus N; with a paged cache
     # the capacity is pages_per_row * page_size
     pages = state.cache.get("page_table")
@@ -345,7 +378,7 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
                     feats.reshape(B, N, -1), probs.reshape(B, N, k),
                     path_nodes)
                 p_exit = pred_lib.apply_predictor_banked(
-                    sw.predictors, ep, pf, use_kernel=pred_kernel)  # (B, P)
+                    predictors, ep, pf, use_kernel=pred_kernel)  # (B, P)
                 newly = act & (p_exit.amax(dim=1) > thresh)  # best path
                 exit_pt = torch.where(newly, torch.full_like(exit_pt, ep),
                                       exit_pt)
@@ -436,13 +469,15 @@ def init_tree_decode_state(model: Model, params: Params, sw: SpecEEWeights,
 
 
 def dense_decode_step(model: Model, params: Params,
-                      sw: Optional[SpecEEWeights], state: DecodeState
-                      ) -> Tuple[torch.Tensor, DecodeState, StepInfo]:
+                      sw: Optional[SpecEEWeights], state: DecodeState,
+                      qw=None) -> Tuple[torch.Tensor, DecodeState, StepInfo]:
     """One dense (full-depth) greedy step; the emit streams the LM head
-    through ``verify_argmax`` with the impl the model's flags select."""
+    (the quantized one under ``qw``) through ``verify_argmax`` with the impl
+    the model's flags select."""
+    params, lm_w, _ = _apply_qw(params, sw, qw)
     h, cache = model.decode_step_hidden(params, state.last_token, state.cache)
     token, _ = gate_lib.verify_argmax(
-        model.final_norm(params, h), lm_head_weight(params),
+        model.final_norm(params, h), lm_w,
         impl=gate_lib.impl_for_flags(model.flags))
     B, E = token.shape[0], model.num_exit_points
     new_state = DecodeState(cache=cache, draft_cache=state.draft_cache,

@@ -8,7 +8,9 @@ Three features per speculative token, k=4 tokens -> 12-dim input:
 The AR engine computes them inside the fused exit gate
 (``kernels.exit_gate``); this module is the tree gate's building block,
 whose hyper-token min-merge sits between the features and the predictor.
-``use_kernel`` selects the spec-head kernel (``kernels.spec_head``).
+``use_kernel`` selects the spec-head kernel (``kernels.spec_head``); a
+quantized head (``QTensor``) takes its quantized sibling, or gathers then
+dequantizes on the plain path.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch.kernels.spec_head.ref import spec_logits_ref
 __all__ = ["spec_logits_ref", "extract_features", "merge_path_features"]
 
 
-def extract_features(hn: torch.Tensor, lm_head: torch.Tensor,
+def extract_features(hn: torch.Tensor, lm_head,
                      spec_ids: torch.Tensor, prev_probs: torch.Tensor,
                      use_kernel: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -15,6 +15,7 @@ import torch
 from repro_torch.config import SpecEEConfig
 from repro_torch.kernels.predictor_mlp.ops import predictor_mlp_at
 from repro_torch.models.common import Params, normal_init, tree_map
+from repro_torch.quant import QTensor
 
 
 def init_predictor(spec: SpecEEConfig, gen: torch.Generator,
@@ -40,18 +41,24 @@ def init_predictors(spec: SpecEEConfig, num_exit_points: int,
 
 
 def apply_predictor(p: Params, features: torch.Tensor) -> torch.Tensor:
-    """features: (..., feature_dim) -> exit probability (...,) in [0, 1]."""
+    """features: (..., feature_dim) -> exit probability (...,) in [0, 1].
+    A quantized bank (``QTensor`` weight leaves) is dequantized here: the
+    plain path the quantized MLP kernel is held against."""
     x = features.float()
     layers = p["layers"]
     for i, layer in enumerate(layers):
-        x = x @ layer["w"] + layer["b"]
+        w = layer["w"]
+        if isinstance(w, QTensor):
+            w = w.dequantize()
+        x = x @ w + layer["b"]
         if i + 1 < len(layers):
             x = torch.relu(x)
     return torch.sigmoid(x[..., 0])
 
 
 def predictor_at(stacked: Params, idx: int) -> Params:
-    """One predictor out of the stacked bank (views)."""
+    """One predictor out of the stacked bank (views; a quantized leaf's
+    codes and scales are sliced together)."""
     return tree_map(lambda x: x[idx], stacked)
 
 

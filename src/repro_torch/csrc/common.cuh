@@ -8,6 +8,7 @@
 #pragma once
 
 #include <climits>
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -26,6 +27,57 @@ __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+
+// Readers of a (D, V) row-major LM head: element (d, col) of the stored
+// matrix is at index d * V + col. P is the number of hidden entries one
+// stored element multiplies: 1 for fp weights and int8 codes, 2 for a
+// plane-packed int4 byte (rows d and d + D/2 of the logical head, the
+// layout of repro_torch.quant). A SCALED reader's column sums are
+// multiplied by scale(col) once, after the dot (per-column scales are
+// constant down the contracted dimension), as the Pallas kernels fold
+// their scale after the tile dot. Loads go through the read-only path.
+template <typename T>
+struct FpCols {
+  static constexpr int P = 1;
+  static constexpr bool SCALED = false;
+  const T* w;
+  __device__ __forceinline__ void load(size_t i, float (&x)[P]) const {
+    x[0] = to_f(__ldg(w + i));
+  }
+  __device__ __forceinline__ float scale(int) const { return 1.f; }
+};
+
+struct Int8Cols {
+  static constexpr int P = 1;
+  static constexpr bool SCALED = true;
+  const int8_t* q;
+  const float* s;
+  __device__ __forceinline__ void load(size_t i, float (&x)[P]) const {
+    x[0] = static_cast<float>(__ldg(q + i));
+  }
+  __device__ __forceinline__ float scale(int col) const {
+    return __ldg(s + col);
+  }
+};
+
+struct Int4Cols {
+  static constexpr int P = 2;
+  static constexpr bool SCALED = true;
+  const int8_t* q;
+  const float* s;
+  // low nibble: row d, sign-extended by shifting it to the top of a byte
+  // and back; high nibble: row d + D/2, an arithmetic shift of the byte
+  // (JAX: (p << 28) >> 28 and p >> 4 on int32)
+  __device__ __forceinline__ void load(size_t i, float (&x)[P]) const {
+    const int8_t p = __ldg(q + i);
+    x[0] = static_cast<float>(
+        static_cast<int8_t>(static_cast<uint8_t>(p) << 4) >> 4);
+    x[1] = static_cast<float>(p >> 4);
+  }
+  __device__ __forceinline__ float scale(int col) const {
+    return __ldg(s + col);
+  }
+};
 
 // Total order used by every argmax / top-k: larger value first, and among
 // equal values the lower vocabulary id first (jnp.argmax's first

@@ -25,7 +25,7 @@ constexpr int EG_MAXK = rt::SH_MAXK;
 
 template <typename T>
 __global__ void __launch_bounds__(EG_THREADS)
-exit_gate_kernel(const T* __restrict__ hn, const T* __restrict__ w,
+exit_gate_kernel(const T* __restrict__ hn, rt::FpCols<T> w,
                  const int* __restrict__ ids, const float* __restrict__ prev,
                  const float* __restrict__ w1, const float* __restrict__ b1,
                  const float* __restrict__ w2, const float* __restrict__ b2,
@@ -39,8 +39,9 @@ exit_gate_kernel(const T* __restrict__ hn, const T* __restrict__ w,
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int nw = EG_THREADS / 32;
 
-  rt::spec_head_row(hn + (size_t)b * D, w, ids + (size_t)b * k, D, V, k, red,
-                    s_logits);
+  rt::spec_head_row<T, rt::FpCols<T>, true>(hn + (size_t)b * D, w,
+                                           ids + (size_t)b * k, D, V, k, red,
+                                           s_logits);
   if (threadIdx.x == 0) {
     float logits[EG_MAXK];
     float m = -CUDART_INF_F;
@@ -97,7 +98,7 @@ int exit_gate_launch(const void* hn, const void* w, const void* ids,
                      int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define EG_ARGS(T)                                                         \
-  static_cast<const T*>(hn), static_cast<const T*>(w),                     \
+  static_cast<const T*>(hn), rt::FpCols<T>{static_cast<const T*>(w)},     \
       static_cast<const int*>(ids), static_cast<const float*>(prev),       \
       static_cast<const float*>(w1), static_cast<const float*>(b1),        \
       static_cast<const float*>(w2), static_cast<const float*>(b2),        \

@@ -14,23 +14,8 @@
 // 160 * 4 * 4096 * 2 B = 5.2 MB of useful bf16, ~2 us at 3.35 TB/s); the
 // 2 * R * k * D operations are tiny. What the kernel pays is the 32-byte
 // sector per strided element (spec_head.cuh); R CTAs spread over the SMs.
+// The kernel body is in spec_head.cuh, shared with spec_head_q.cu.
 #include "spec_head.cuh"
-
-namespace {
-
-template <typename T>
-__global__ void __launch_bounds__(rt::SH_THREADS)
-spec_head_kernel(const T* __restrict__ hn, const T* __restrict__ w,
-                 const int* __restrict__ ids, float* __restrict__ logits,
-                 int D, int V, int k) {
-  __shared__ float red[rt::SH_MAXK][32];
-  __shared__ float s_out[rt::SH_MAXK];
-  const size_t r = blockIdx.x;
-  rt::spec_head_row(hn + r * D, w, ids + r * k, D, V, k, red, s_out);
-  if (threadIdx.x < k) logits[r * k + threadIdx.x] = s_out[threadIdx.x];
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -45,16 +30,13 @@ int spec_head_launch(const void* hn, const void* w, const void* ids,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::DT_BF16) {
-    spec_head_kernel<__nv_bfloat16><<<R, rt::SH_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(hn),
-        static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(ids),
-        static_cast<float*>(logits), D, V, k);
-  } else {
-    spec_head_kernel<float><<<R, rt::SH_THREADS, 0, st>>>(
-        static_cast<const float*>(hn), static_cast<const float*>(w),
-        static_cast<const int*>(ids), static_cast<float*>(logits), D, V, k);
+    using T = __nv_bfloat16;
+    return rt::spec_head_run<T>(hn, rt::FpCols<T>{static_cast<const T*>(w)},
+                                ids, logits, R, D, V, k, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return rt::spec_head_run<float>(
+      hn, rt::FpCols<float>{static_cast<const float*>(w)}, ids, logits, R, D,
+      V, k, st);
 }
 
 }  // extern "C"

@@ -1,8 +1,12 @@
-// Speculative LM-head gather-dot shared by spec_head.cu and exit_gate.cu:
-// one CTA of SH_THREADS threads computes, for one row,
+// Speculative LM-head gather-dot shared by spec_head.cu, spec_head_q.cu
+// and exit_gate.cu: one CTA of SH_THREADS threads computes, for one row,
 //   logits[j] = hn_row . W[:, ids_row[j]]     (j < k, fp32)
-// over the (D, V) row-major head. Both kernels take this one body, so the
-// spec-head features and the fused gate's cannot drift.
+// over the (D, V) row-major head, read through a column reader
+// (common.cuh): fp weights, int8 codes, or plane-packed int4 bytes, where
+// one byte at stored row d < D/2 feeds hidden entries d and d + D/2 and a
+// column's sum is multiplied by its scale after the block reduction. All
+// three kernels take this one body, so the spec-head features and the
+// fused gate's cannot drift.
 //
 // Layout choice: the head stays (D, V) row-major, shared with the verify
 // kernels, and the gather reads W[d, ids[j]] for every d — a strided read
@@ -27,29 +31,64 @@ namespace rt {
 constexpr int SH_THREADS = 256;
 constexpr int SH_MAXK = 8;
 
+// Ids are clamped to [0, V) so a bad id cannot read outside the head.
+__device__ __forceinline__ int spec_col(const int* ids_row, int j, int V) {
+  return min(max(ids_row[j], 0), V - 1);
+}
+
 // red: (SH_MAXK, 32) shared scratch; out: SH_MAXK shared floats, holding
-// the k logits for every thread of the CTA when the call returns. Ids are
-// clamped to [0, V) so a bad id cannot read outside the head.
-template <typename T>
+// the k logits for every thread of the CTA when the call returns.
+// HOIST issues a row's k gathered loads before its k multiply-adds: the
+// same sums in the same order, scheduled otherwise. Inside the fused exit
+// gate ptxas otherwise settles on 48 registers and serializes the loads,
+// which made the gate 1.5x slower on an H100 (0.0227 against 0.0150 ms at
+// B=4 in bf16, chip_smoke.py phase 2). For the standalone spec-head
+// kernels the order is a trade-off: without HOIST they were faster at the
+// AR path's B=4 rows (32 launches per step), with it at the tree's 160
+// rows (2-3 launches per step), in a one-off A/B of the two orders on an
+// H100. They keep the order without it; choosing by row count is open.
+template <typename T, typename W, bool HOIST = false>
 __device__ __forceinline__ void spec_head_row(
-    const T* __restrict__ hn_row, const T* __restrict__ w,
+    const T* __restrict__ hn_row, W w,
     const int* __restrict__ ids_row, int D, int V, int k,
     float (*red)[32], float* out) {
+  constexpr int P = W::P;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   constexpr int nw = SH_THREADS / 32;
+  const int Dp = D / P;                      // stored rows of the head
   int col[SH_MAXK];
   float acc[SH_MAXK];
 #pragma unroll
   for (int j = 0; j < SH_MAXK; ++j) {
-    col[j] = j < k ? min(max(ids_row[j], 0), V - 1) : 0;
+    col[j] = j < k ? spec_col(ids_row, j, V) : 0;
     acc[j] = 0.f;
   }
-  for (int d = threadIdx.x; d < D; d += SH_THREADS) {
-    const float x = to_f(hn_row[d]);
-    const T* wr = w + (size_t)d * V;
+  for (int d = threadIdx.x; d < Dp; d += SH_THREADS) {
+    float x[P];
 #pragma unroll
-    for (int j = 0; j < SH_MAXK; ++j)
-      if (j < k) acc[j] = fmaf(x, to_f(wr[col[j]]), acc[j]);
+    for (int p = 0; p < P; ++p) x[p] = to_f(hn_row[p * Dp + d]);
+    const size_t row = (size_t)d * V;
+    if constexpr (HOIST) {
+      float c[SH_MAXK][P];
+#pragma unroll
+      for (int j = 0; j < SH_MAXK; ++j)
+        if (j < k) w.load(row + col[j], c[j]);
+#pragma unroll
+      for (int j = 0; j < SH_MAXK; ++j)
+        if (j < k) {
+#pragma unroll
+          for (int p = 0; p < P; ++p) acc[j] = fmaf(x[p], c[j][p], acc[j]);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < SH_MAXK; ++j)
+        if (j < k) {
+          float c[P];
+          w.load(row + col[j], c);
+#pragma unroll
+          for (int p = 0; p < P; ++p) acc[j] = fmaf(x[p], c[p], acc[j]);
+        }
+    }
   }
 #pragma unroll
   for (int j = 0; j < SH_MAXK; ++j) {
@@ -60,9 +99,31 @@ __device__ __forceinline__ void spec_head_row(
   if (threadIdx.x < k) {
     float s = 0.f;
     for (int q = 0; q < nw; ++q) s += red[threadIdx.x][q];
+    if constexpr (W::SCALED) s *= w.scale(spec_col(ids_row, threadIdx.x, V));
     out[threadIdx.x] = s;
   }
   __syncthreads();
+}
+
+// One CTA per row r: logits[r, j] for j < k (spec_head.cu, spec_head_q.cu).
+template <typename T, typename W>
+__global__ void __launch_bounds__(SH_THREADS)
+spec_head_kernel(const T* __restrict__ hn, W w, const int* __restrict__ ids,
+                 float* __restrict__ logits, int D, int V, int k) {
+  __shared__ float red[SH_MAXK][32];
+  __shared__ float s_out[SH_MAXK];
+  const size_t r = blockIdx.x;
+  spec_head_row(hn + r * D, w, ids + r * k, D, V, k, red, s_out);
+  if (threadIdx.x < k) logits[r * k + threadIdx.x] = s_out[threadIdx.x];
+}
+
+template <typename T, typename W>
+int spec_head_run(const void* hn, W w, const void* ids, void* logits, int R,
+                  int D, int V, int k, cudaStream_t st) {
+  spec_head_kernel<T, W><<<R, SH_THREADS, 0, st>>>(
+      static_cast<const T*>(hn), w, static_cast<const int*>(ids),
+      static_cast<float*>(logits), D, V, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace rt

@@ -7,7 +7,8 @@ Each kernel package ships:
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per wrapper call that
 launched its kernel, never for the plain version), so a run can show that a
-path went through the kernels.
+path went through the kernels. The quantized kernels (``*_q``) count under
+their own names, so a run also shows which of the two paths it took.
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ LAUNCHES: Dict[str, int] = {"exit_gate": 0, "argmax_verify": 0,
                             "topk_verify": 0, "decode_attention": 0,
                             "paged_decode_attention": 0,
                             "flash_attention": 0, "spec_head": 0,
-                            "predictor_mlp": 0}
+                            "predictor_mlp": 0, "argmax_verify_q": 0,
+                            "topk_verify_q": 0, "spec_head_q": 0,
+                            "predictor_mlp_q": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,6 +56,19 @@ def check_arg(name: str, t: torch.Tensor, device: torch.device,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_qtensor(name: str, qt, device: torch.device, shape) -> None:
+    """Validate a ``QTensor`` argument of logical ``shape`` (d_in, d_out):
+    int8 codes (d_in, d_out) for bits 8 or packed (d_in/2, d_out) for bits
+    4, fp32 scales (d_out,), both contiguous on ``device``."""
+    d_in, d_out = shape
+    if qt.bits not in (4, 8) or (qt.bits == 4 and d_in % 2):
+        raise ValueError(f"{name}: cannot hold {qt.bits}-bit codes of "
+                         f"{d_in} rows")
+    rows = d_in // 2 if qt.bits == 4 else d_in
+    check_arg(f"{name}.q", qt.q, device, torch.int8, (rows, d_out))
+    check_arg(f"{name}.scale", qt.scale, device, torch.float32, (d_out,))
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -5,7 +5,11 @@ kernels in ``repro/kernels/exit_gate/exit_gate.py``).
                           Δ-features + 2-layer predictor, one CTA per row.
 ``argmax_verify_fused`` — csrc/argmax_verify.cu: streaming LM-head argmax.
 ``topk_verify_fused``   — csrc/topk_verify.cu: streaming LM-head top-k.
-The two streaming kernels take any row count (groups of 8 rows per CTA).
+``argmax_verify_fused_q`` / ``topk_verify_fused_q`` — csrc/argmax_verify_q.cu
+                          and csrc/topk_verify_q.cu: the same over a
+                          quantized head (``repro_torch.quant.QTensor``,
+                          int8 or plane-packed int4 codes + column scales).
+The streaming kernels take any row count (groups of 8 rows per CTA).
 
 On a CPU tensor each wrapper runs its plain version from ``ref.py``; on a
 CUDA tensor it launches its kernel (counted in ``kernels.LAUNCHES``) or
@@ -22,6 +26,7 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.kernels import build
 from repro_torch.kernels.exit_gate import ref as gate_ref
+from repro_torch.quant import QTensor
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -116,4 +121,60 @@ def topk_verify_fused(hn: torch.Tensor, lm_head: torch.Tensor, k: int
             K.ptr(vals), B, D, V, k, K.dtype_code(hn), K.stream_ptr(dev))
     build.check("topk_verify", rc)
     K.LAUNCHES["topk_verify"] += 1
+    return ids, vals
+
+
+def _stream_args_q(name: str, hn: torch.Tensor, qt: QTensor):
+    B, D = hn.shape
+    V = qt.shape[-1]
+    dev = hn.device
+    K.check_arg("hn", hn, dev)
+    K.check_qtensor("lm_head", qt, dev, (D, V))
+    nblk = -(-V // build.c_func(name, f"{name}_block_cols", [])())
+    return B, D, V, dev, nblk
+
+
+def argmax_verify_fused_q(hn: torch.Tensor, qt: QTensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hn (B, D); qt a QTensor of logical shape (D, V). Returns (argmax
+    token (B,) int32, max logit (B,) fp32); fp32 products with the codes,
+    each column's sum times its scale, lowest id among equal maxima."""
+    if K.runs_plain(hn):
+        return gate_ref.verify_argmax_q_ref(hn, qt)
+    B, D, V, dev, nblk = _stream_args_q("argmax_verify_q", hn, qt)
+    fn = build.c_func("argmax_verify_q", "argmax_verify_q_launch",
+                      [_P] * 7 + [_I] * 5 + [_P])
+    pval = torch.empty(B, nblk, dtype=torch.float32, device=dev)
+    pidx = torch.empty(B, nblk, dtype=torch.int32, device=dev)
+    tok = torch.empty(B, dtype=torch.int32, device=dev)
+    mx = torch.empty(B, dtype=torch.float32, device=dev)
+    rc = fn(K.ptr(hn), K.ptr(qt.q), K.ptr(qt.scale), K.ptr(pval),
+            K.ptr(pidx), K.ptr(tok), K.ptr(mx), B, D, V, qt.bits,
+            K.dtype_code(hn), K.stream_ptr(dev))
+    build.check("argmax_verify_q", rc)
+    K.LAUNCHES["argmax_verify_q"] += 1
+    return tok, mx
+
+
+def topk_verify_fused_q(hn: torch.Tensor, qt: QTensor, k: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hn (B, D); qt a QTensor of logical shape (D, V). Returns (ids (B, k)
+    int32, vals (B, k) fp32) by descending logit, ties by ascending id."""
+    if K.runs_plain(hn):
+        return gate_ref.verify_topk_q_ref(hn, qt, k)
+    B, D, V, dev, nblk = _stream_args_q("topk_verify_q", hn, qt)
+    if not 1 <= k <= min(V, build.c_func("topk_verify_q",
+                                         "topk_verify_q_max_k", [])()):
+        raise ValueError(f"topk_verify_q kernel: unsupported k={k}")
+    fn = build.c_func("topk_verify_q", "topk_verify_q_launch",
+                      [_P] * 7 + [_I] * 6 + [_P])
+    pval = torch.empty(B, nblk, k, dtype=torch.float32, device=dev)
+    pidx = torch.empty(B, nblk, k, dtype=torch.int32, device=dev)
+    ids = torch.empty(B, k, dtype=torch.int32, device=dev)
+    vals = torch.empty(B, k, dtype=torch.float32, device=dev)
+    rc = fn(K.ptr(hn), K.ptr(qt.q), K.ptr(qt.scale), K.ptr(pval),
+            K.ptr(pidx), K.ptr(ids), K.ptr(vals), B, D, V, k, qt.bits,
+            K.dtype_code(hn), K.stream_ptr(dev))
+    build.check("topk_verify_q", rc)
+    K.LAUNCHES["topk_verify_q"] += 1
     return ids, vals

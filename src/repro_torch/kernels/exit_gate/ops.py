@@ -16,6 +16,12 @@ LM-head reductions. ``impl`` selects the backend:
 The JAX package has a third backend, "xla", which is its CPU default for
 the gate; its gate dataflow is ``exit_gate_ref``, so the port's "ref" gate
 stands for both. Its CPU default for the verify is "ref", as here.
+
+A quantized LM head or bank (``repro_torch.quant.QTensor``) is dispatched
+on its type, as in the JAX package: the verify entry points take the
+quantized streaming kernels, and under "kernel" the gate runs piecewise —
+the quantized spec-head kernel, the Δ-features, then the predictor-MLP
+kernel (quantized for a quantized bank) — instead of the fused gate.
 """
 from __future__ import annotations
 
@@ -26,9 +32,13 @@ import torch
 from repro_torch.core.predictor import apply_predictor, predictor_at
 from repro_torch.kernels.exit_gate import ref as gate_ref
 from repro_torch.kernels.exit_gate.exit_gate import (argmax_verify_fused,
+                                                     argmax_verify_fused_q,
                                                      exit_gate_fused,
-                                                     topk_verify_fused)
+                                                     topk_verify_fused,
+                                                     topk_verify_fused_q)
+from repro_torch.kernels.predictor_mlp import ops as pm_ops
 from repro_torch.kernels.spec_head import ops as sh_ops
+from repro_torch.quant import QTensor
 
 IMPLS = (None, "auto", "kernel", "ref")
 
@@ -50,47 +60,66 @@ def impl_for_flags(flags) -> str:
     return "ref"
 
 
-def exit_gate(hn: torch.Tensor, lm_head: torch.Tensor, spec_ids: torch.Tensor,
+def _features(hn, lm_head, spec_ids, prev_probs):
+    logits, probs = sh_ops.spec_head(hn, lm_head, spec_ids)
+    feats = torch.cat([logits, probs, probs - prev_probs.float()], -1)
+    return feats, probs, logits
+
+
+def exit_gate(hn: torch.Tensor, lm_head, spec_ids: torch.Tensor,
               prev_probs: torch.Tensor, predictors, ep: int,
               impl: Optional[str] = None, spec_head_kernel: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Exit decision at exit point ``ep``. hn (B, D); lm_head (D, V);
-    spec_ids (B, k) int32; prev_probs (B, k); predictors: the stacked bank.
-    Returns (p_exit (B,), local_probs (B, k), logits (B, k)), all fp32.
+    """Exit decision at exit point ``ep``. hn (B, D); lm_head (D, V) or a
+    QTensor; spec_ids (B, k) int32; prev_probs (B, k); predictors: the
+    stacked bank (fp or quantized). Returns (p_exit (B,), local_probs
+    (B, k), logits (B, k)), all fp32.
 
-    As in the JAX package, the choice is made from the bank's depth before
-    any launch: the fused kernel holds a 2-layer predictor, and a bank of
-    another depth (design-space sweeps) takes the plain chain under every
-    impl. ``spec_head_kernel`` under "ref" computes the features with the
-    spec-head kernel and the predictor with the plain MLP."""
+    As in the JAX package, the choice is made from the bank's depth and the
+    weights' types before any launch: the fused kernel holds a 2-layer fp
+    predictor on an fp head; quantized weights take the piecewise kernels
+    (spec head, then predictor MLP); a bank of another depth (design-space
+    sweeps) takes the plain chain under every impl. ``spec_head_kernel``
+    under "ref" computes the features with the spec-head kernel and the
+    predictor with the plain MLP."""
     impl = resolve_impl(impl, hn)
     pp = predictor_at(predictors, ep)
     layers = pp["layers"]
+    quantized = (isinstance(lm_head, QTensor)
+                 or any(isinstance(l["w"], QTensor) for l in layers))
+    if impl == "kernel" and len(layers) == 2 and quantized:
+        feats, probs, logits = _features(hn, lm_head, spec_ids, prev_probs)
+        return pm_ops.predictor_mlp(feats, pp), probs, logits
     if impl == "kernel" and len(layers) == 2:
         return exit_gate_fused(hn, lm_head, spec_ids, prev_probs.float(),
                                layers[0]["w"], layers[0]["b"],
                                layers[1]["w"], layers[1]["b"])
     if impl == "ref" and spec_head_kernel:
-        logits, probs = sh_ops.spec_head(hn, lm_head, spec_ids)
-        feats = torch.cat([logits, probs, probs - prev_probs.float()], -1)
+        feats, probs, logits = _features(hn, lm_head, spec_ids, prev_probs)
         return apply_predictor(pp, feats), probs, logits
     return gate_ref.exit_gate_ref(hn, lm_head, spec_ids, prev_probs, pp)
 
 
-def verify_argmax(hn: torch.Tensor, lm_head: torch.Tensor,
+def verify_argmax(hn: torch.Tensor, lm_head,
                   impl: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-LM-head argmax. Returns (token (B,) int32, max logit (B,))."""
+    """Full-LM-head argmax; ``lm_head`` (D, V) or a QTensor. Returns
+    (token (B,) int32, max logit (B,))."""
     if resolve_impl(impl, hn) == "kernel":
+        if isinstance(lm_head, QTensor):
+            return argmax_verify_fused_q(hn, lm_head)
         return argmax_verify_fused(hn, lm_head)
     return gate_ref.verify_argmax_ref(hn, lm_head, compute_dtype=hn.dtype)
 
 
-def verify_topk(hn: torch.Tensor, lm_head: torch.Tensor, k: int,
+def verify_topk(hn: torch.Tensor, lm_head, k: int,
                 impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-LM-head top-k. Returns (ids (B, k) int32, vals (B, k) fp32),
-    descending by logit, ties by ascending id."""
+    """Full-LM-head top-k; ``lm_head`` (D, V) or a QTensor. Returns (ids
+    (B, k) int32, vals (B, k) fp32), descending by logit, ties by ascending
+    id."""
     if resolve_impl(impl, hn) == "kernel":
+        if isinstance(lm_head, QTensor):
+            return topk_verify_fused_q(hn, lm_head, k)
         return topk_verify_fused(hn, lm_head, k)
     return gate_ref.verify_topk_ref(hn, lm_head, k, compute_dtype=hn.dtype)

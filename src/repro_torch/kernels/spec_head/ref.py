@@ -1,21 +1,30 @@
 """Plain PyTorch speculative LM head (counterpart of
-``repro/kernels/spec_head/ref.py``): gather + k-GEMM + softmax."""
+``repro/kernels/spec_head/ref.py``): gather + k-GEMM + softmax. A
+quantized head (``QTensor``) is gathered first and then dequantized
+(``take_columns``): with per-column scales that equals gathering the
+dequantized head."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
 
+from repro_torch.quant import QTensor, take_columns
 
-def spec_logits_ref(hn: torch.Tensor, lm_head: torch.Tensor,
+
+def spec_logits_ref(hn: torch.Tensor, lm_head,
                     spec_ids: torch.Tensor) -> torch.Tensor:
-    """hn: (R, D); lm_head: (D, V); spec_ids: (R, k) int.
+    """hn: (R, D); lm_head: (D, V) tensor or QTensor; spec_ids: (R, k) int.
     Returns (R, k) fp32 logits — the k head columns gathered per row."""
-    cols = lm_head[:, spec_ids.long()].permute(1, 0, 2)      # (R, D, k)
+    if isinstance(lm_head, QTensor):
+        cols = take_columns(lm_head, spec_ids)                # (D, R, k)
+    else:
+        cols = lm_head[:, spec_ids.long()]
+    cols = cols.permute(1, 0, 2)                              # (R, D, k)
     return torch.einsum("bd,bdk->bk", hn.float(), cols.float())
 
 
-def spec_head_ref(hn: torch.Tensor, lm_head: torch.Tensor,
+def spec_head_ref(hn: torch.Tensor, lm_head,
                   spec_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (R, k) fp32, local_probs (R, k) fp32)."""
     logits = spec_logits_ref(hn, lm_head, spec_ids)

@@ -1,7 +1,8 @@
-"""Wrapper of the speculative LM-head CUDA kernel (counterpart of
-``repro/kernels/spec_head/spec_head.py::spec_head_logits``; the kernel is
-csrc/spec_head.cu, whose gather-dot body csrc/spec_head.cuh the fused exit
-gate shares).
+"""Wrappers of the speculative LM-head CUDA kernels (counterparts of
+``repro/kernels/spec_head/spec_head.py::spec_head_logits`` and
+``spec_head_logits_q``; the kernels are csrc/spec_head.cu and
+csrc/spec_head_q.cu, whose gather-dot body csrc/spec_head.cuh the fused
+exit gate shares).
 
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
 kernel (counted in ``kernels.LAUNCHES``) or raises.
@@ -15,6 +16,7 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.kernels import build
 from repro_torch.kernels.spec_head.ref import spec_logits_ref
+from repro_torch.quant import QTensor
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -41,4 +43,31 @@ def spec_head_logits(hn: torch.Tensor, lm_head: torch.Tensor,
             V, k, K.dtype_code(hn), K.stream_ptr(dev))
     build.check("spec_head", rc)
     K.LAUNCHES["spec_head"] += 1
+    return logits
+
+
+def spec_head_logits_q(hn: torch.Tensor, qt: QTensor,
+                       spec_ids: torch.Tensor) -> torch.Tensor:
+    """hn (R, D); qt a QTensor of logical shape (D, V); spec_ids (R, k)
+    int32 -> logits (R, k) fp32 (each gathered column's sum times its
+    scale), any R >= 1."""
+    if K.runs_plain(hn):
+        return spec_logits_ref(hn, qt, spec_ids)
+    R, D = hn.shape
+    V = qt.shape[-1]
+    k = spec_ids.shape[1]
+    dev = hn.device
+    K.check_arg("hn", hn, dev)
+    K.check_qtensor("lm_head", qt, dev, (D, V))
+    K.check_arg("spec_ids", spec_ids, dev, torch.int32, (R, k))
+    if not 1 <= k <= build.c_func("spec_head_q", "spec_head_q_max_k", [])():
+        raise ValueError(f"spec_head_q kernel: unsupported k={k}")
+    fn = build.c_func("spec_head_q", "spec_head_q_launch", [_P] * 5
+                      + [_I] * 6 + [_P])
+    logits = torch.empty(R, k, dtype=torch.float32, device=dev)
+    rc = fn(K.ptr(hn), K.ptr(qt.q), K.ptr(qt.scale), K.ptr(spec_ids),
+            K.ptr(logits), R, D, V, k, qt.bits, K.dtype_code(hn),
+            K.stream_ptr(dev))
+    build.check("spec_head_q", rc)
+    K.LAUNCHES["spec_head_q"] += 1
     return logits

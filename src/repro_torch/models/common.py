@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.quant.core import QTensor
 
 Params = Dict[str, Any]
 
@@ -25,11 +26,15 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a nest of dicts/lists/tuples."""
+    """Apply ``fn`` to every tensor leaf of a nest of dicts/lists/tuples;
+    a ``QTensor`` maps over its codes and its scales (a stacked quantized
+    bank slices like a plain one)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
+    if isinstance(tree, QTensor):
+        return QTensor(fn(tree.q), fn(tree.scale), tree.bits)
     return fn(tree)
 
 

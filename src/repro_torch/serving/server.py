@@ -58,7 +58,7 @@ class ServingEngine:
                  cache: Union[None, str, CacheSpec] = "paged",
                  page_size: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 megatick: int = 1):
+                 megatick: int = 1, quant=None):
         if megatick != 1:
             raise ValueError(
                 f"megatick={megatick}: megaticks are not ported yet "
@@ -93,8 +93,11 @@ class ServingEngine:
         if strategy is None:
             strategy = "specee" if model.run.specee.enabled else "dense"
         self.strategy = get_strategy(strategy)
+        # ``quant``: None | "int8" | "int4" | QuantSpec — weight-only
+        # compression applied once at engine build (a parallel bundle; the
+        # fp params are untouched)
         self.engine = Engine.create(model, params, sw=sw,
-                                    strategy=self.strategy)
+                                    strategy=self.strategy, quant=quant)
         B = self.serve_cfg.max_batch
         S = self.serve_cfg.max_seq_len
         self.B, self.S = B, S

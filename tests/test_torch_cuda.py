@@ -350,3 +350,144 @@ def test_tree_kernels_match_plain_path(dev, cache):
         if thresh < 1:
             assert LAUNCHES["spec_head"] > 0
             assert LAUNCHES["predictor_mlp"] > 0
+
+
+# ---------------- weight-only quantized kernels ----------------
+def _quant_head(gen, dev, bits, D=512, V=3001):
+    from repro_torch import quant
+    return quant.quantize_tensor(_rand(gen, (D, V), dev, scale=0.05), bits)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("R", [1, 4, 9, 160, 320])
+def test_verify_q_kernels_match_plain(dev, dtype, bits, R):
+    """argmax_verify_q / topk_verify_q against their plain versions and
+    against the fp kernels on the dequantized fp32 head (hn upcast
+    exactly): ids exact, planted ties (codes and scale copied) to the
+    lowest id, values atol = rtol = 1e-4."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    gen = torch.Generator(device=dev).manual_seed(10 * R + bits)
+    qt = _quant_head(gen, dev, bits)
+    hn = _rand(gen, (R, 512), dev, dtype)
+    V = qt.shape[1]
+    best = int(ref.verify_argmax_q_ref(hn[-1:], qt)[0][0])
+    for j in (0, (best + 5) % V):
+        qt.q[:, j], qt.scale[j] = qt.q[:, best], qt.scale[best]
+    reset_launches()
+    tok, mx = eg.argmax_verify_fused_q(hn, qt)
+    ids, vals = eg.topk_verify_fused_q(hn, qt, 4)
+    torch.cuda.synchronize()
+    assert LAUNCHES["argmax_verify_q"] == 1 and LAUNCHES["topk_verify_q"] == 1
+    assert LAUNCHES["argmax_verify"] == LAUNCHES["topk_verify"] == 0
+    tok_r, mx_r = ref.verify_argmax_q_ref(hn, qt)
+    ids_r, vals_r = ref.verify_topk_q_ref(hn, qt, 4)
+    assert torch.equal(tok, tok_r) and torch.equal(ids, ids_r)
+    assert int(tok[-1]) == 0 and int(ids[-1, 0]) == 0
+    torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(vals, vals_r, atol=1e-4, rtol=1e-4)
+    w = qt.dequantize()
+    tok_f, mx_f = eg.argmax_verify_fused(hn.float(), w)
+    ids_f, _ = eg.topk_verify_fused(hn.float(), w, 4)
+    assert torch.equal(tok, tok_f) and torch.equal(ids, ids_f)
+    torch.testing.assert_close(mx, mx_f, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("R", [1, 4, 9, 160, 320])
+def test_spec_head_q_kernel_matches_plain(dev, dtype, bits, R):
+    """spec_head_q against its plain version (gather, then dequantize) and
+    the fp kernel on the dequantized fp32 head; ids 0 and V-1, repeated."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.spec_head.ref import spec_logits_ref
+    from repro_torch.kernels.spec_head.spec_head import (spec_head_logits,
+                                                         spec_head_logits_q)
+    gen = torch.Generator(device=dev).manual_seed(20 * R + bits)
+    qt = _quant_head(gen, dev, bits)
+    V = qt.shape[1]
+    hn = _rand(gen, (R, 512), dev, dtype)
+    ids = torch.randint(0, V, (R, 4), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[0] = torch.tensor([0, V - 1, V - 1, 0], dtype=torch.int32)
+    reset_launches()
+    got = spec_head_logits_q(hn, qt, ids)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spec_head_q"] == 1 and LAUNCHES["spec_head"] == 0
+    torch.testing.assert_close(got, spec_logits_ref(hn, qt, ids), atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(got, spec_head_logits(hn.float(),
+                                                     qt.dequantize(), ids),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("R", [1, 4, 9, 160, 320])
+def test_predictor_mlp_q_kernel_matches_plain(dev, bits, R):
+    """predictor_mlp_q against its plain version and the fp kernel on the
+    dequantized weights: atol = rtol = 1e-5 on probabilities."""
+    from repro_torch import quant
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.predictor_mlp.predictor_mlp import (
+        predictor_mlp_fused, predictor_mlp_fused_q)
+    from repro_torch.kernels.predictor_mlp.ref import predictor_mlp_q_ref
+    gen = torch.Generator(device=dev).manual_seed(30 * R + bits)
+    F, H = 12, 512
+    x = _rand(gen, (R, F), dev)
+    q1 = quant.quantize_tensor(_rand(gen, (F, H), dev, scale=0.3), bits)
+    q2 = quant.quantize_tensor(_rand(gen, (H, 1), dev, scale=0.05), bits)
+    b1, b2 = _rand(gen, (H,), dev), _rand(gen, (1,), dev)
+    reset_launches()
+    got = predictor_mlp_fused_q(x, q1, b1, q2, b2)
+    torch.cuda.synchronize()
+    assert LAUNCHES["predictor_mlp_q"] == 1 and LAUNCHES["predictor_mlp"] == 0
+    torch.testing.assert_close(got, predictor_mlp_q_ref(x, q1, b1, q2, b2),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got, predictor_mlp_fused(
+        x, q1.dequantize(), b1, q2.dequantize(), b2), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("strategy", ["specee", "dense", "tree"])
+@pytest.mark.parametrize("spec", ["int8", "int4"])
+def test_quant_engine_kernels_match_plain_path(dev, strategy, spec):
+    """Engine.create(quant=...) on the card at smoke width, fp32: kernel
+    flags vs plain flags give identical tokens and step fields; the kernel
+    path launches the quantized kernels and neither the fp verify kernels
+    nor the fused exit gate."""
+    from repro_torch.api import Engine, SpecEEStrategy, TreeStrategy
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import ModelFlags, build_model
+    run = get_config("llama2-7b").smoke()
+    m_plain = build_model(run)
+    m_ker = build_model(run, ModelFlags(spec_head_kernel=True,
+                                        exit_gate_kernel=True,
+                                        exit_gate_impl="kernel",
+                                        decode_kernel=True))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = m_plain.init(gen, dev)
+    sw = eng.init_specee(m_plain, gen, dev)
+    prompts = np.random.default_rng(0).integers(0, 512, (2, 8))
+    strat = {"specee": SpecEEStrategy(threshold=-0.1), "dense": "dense",
+             "tree": TreeStrategy(threshold=-0.1)}[strategy]
+    outs = []
+    for m in (m_plain, m_ker):
+        reset_launches()
+        s = Engine.create(m, params, sw, strategy=strat,
+                          quant=spec).new_session()
+        res = [s.prefill(prompts, max_new_tokens=6)]
+        while not s.all_done():
+            res.append(s.step())
+        outs.append([(r.tokens.tolist(), r.counts.tolist(),
+                      r.exit_layer.tolist(), r.exited.tolist(), r.units_run)
+                     for r in res])
+    assert outs[0] == outs[1]
+    assert LAUNCHES["argmax_verify_q"] > 0
+    assert (LAUNCHES["exit_gate"] == LAUNCHES["argmax_verify"]
+            == LAUNCHES["topk_verify"] == 0)
+    if strategy == "specee":
+        assert LAUNCHES["topk_verify_q"] > 0 and LAUNCHES["spec_head_q"] > 0
+        assert LAUNCHES["predictor_mlp_q"] > 0

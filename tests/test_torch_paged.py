@@ -228,3 +228,21 @@ def test_new_session_takes_batch_first(setup, cache):
     assert s_t._retired == s_j._retired == {0, 1}    # retired from birth
     assert Engine.create(m_t, params_t, strategy="dense").new_session(
         ).batch is None
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_new_session_positional_args_match_jax(setup, cache):
+    """``new_session(batch, max_seq, prng_seed, cache)`` positionally means
+    the same in both packages (JAX ``session.py:210-214``): the third
+    argument is the seed (ignored by the greedy paths), not the cache."""
+    m_j, m_t, params_j, params_t = setup
+    s_j = JEngine.create(m_j, params_j, strategy="dense").new_session(
+        2, 64, 0, cache)
+    s_t = Engine.create(m_t, params_t, strategy="dense").new_session(
+        2, 64, 0, cache)
+    assert s_t.batch == s_j.batch == 2
+    assert s_t._max_seq == s_j._max_seq == 64
+    assert s_t.cache_mgr.kind == s_j.cache_mgr.kind == cache
+    s_t = Engine.create(m_t, params_t, strategy="dense").new_session(
+        2, 64, 7)
+    assert s_t.cache_mgr.kind == "dense"
