@@ -4,14 +4,15 @@ Hopper card: builds the port's CUDA kernels, holds each against its plain
 PyTorch version, drives greedy SpecEE decode and T3 tree speculative
 decoding of Llama-2-7B through the port's public entry points, serves
 requests through its continuous-batching ``ServingEngine`` on the paged KV
-cache, in AR and in tree mode, and runs all three with weight-only int8
-and int4 quantization.
+cache, in AR and in tree mode, runs all three with weight-only int8
+and int4 quantization, and serves on an int8 KV cache
+(``ModelFlags(kv_quant=True)``), alone and with int8 weights.
 
     python3 chip_smoke.py
 
 Phases (lines ``[phase +seconds since the start] ...``):
   1. device + build — the card's name and power limit, then ``nvcc`` builds
-     the twelve kernels of ``src/repro_torch/csrc`` for sm_90a (in
+     the thirteen kernels of ``src/repro_torch/csrc`` for sm_90a (in
      parallel);
   2. kernels — each kernel vs its plain version in fp32 and bf16 at the
      main paths' shapes (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128,
@@ -19,7 +20,12 @@ Phases (lines ``[phase +seconds since the start] ...``):
      table, ragged lengths with a retired all-trash row; flash: B in {1, 4},
      S in {77, 512}, window None/64, GQA n_rep=4), then timed beside its
      plain version, a library call as yardstick, and the least time the
-     card could take (bound); then the tree path's kernels at its row
+     card could take (bound); the int8 paged kernel (paged_decode_attention_q:
+     int8 pools with fp32 scale pools, fp32 and bf16 queries, windows
+     None/64, n_rep 1/4, the retired row reading the zeroed trash page),
+     timed beside the fp paged kernel at the same live keys, SDPA on the
+     gathered view dequantized to bf16 (a yardstick) and its byte bound;
+     then the tree path's kernels at its row
      counts: spec_head (R in {1, 160, 320}, edge and repeated ids),
      predictor_mlp (R in {1, 108, 216}) and the verify kernels at R in
      {9, 160, 320} with planted ties, timed at R = 8/160/320; then the
@@ -52,9 +58,13 @@ Phases (lines ``[phase +seconds since the start] ...``):
      Engine.create(quant="int8"/"int4"): kernels vs plain for AR (the
      draft's set and an oracle set that forces exits), dense and tree
      decoding (int8 on the dense cache, int4 on the paged one), a
-     quantized ServingEngine
-     (blocking and chunked), and the quantized engine against the plain
-     engine on ``dequantized_reference``; no fp gate kernel may launch;
+     quantized ServingEngine (blocking and chunked), and the quantized
+     engine against the plain engine on ``dequantized_reference``; no fp
+     gate kernel may launch. Then ModelFlags(kv_quant=True): AR on dense
+     and paged caches at thresholds 1.5, 0.4, -0.1 and an oracle set that
+     forces exits, kv_quant ServingEngine (blocking and 64-token chunked,
+     each against the plain run of its own admission mode, which differ by
+     design under kv_quant), and the same with quant="int8";
   4. full run — llama2-7b, 32 layers, bf16, 4 prompts of 128 tokens,
      32 SpecEE decode steps (whole-batch session, dense cache);
   5. serve — the same weights, ServingEngine(cache="paged") with
@@ -75,14 +85,22 @@ Phases (lines ``[phase +seconds since the start] ...``):
      the gate and verify kernels replaced by their quantized siblings
      (``quantized``), and none of exit_gate, argmax_verify and
      topk_verify;
-  8. the ``{"kernels": [...]}`` line (12 kernels), the card line, and as
+  8. kvq — the same weights with ModelFlags(kv_quant=True): phase 5's
+     serve cell on int8 page pools, blocking and 256-token chunked, each
+     compared with phase 5's run of the same admission (requests that
+     differ, with the top-2 margin at the first differing token), the pool
+     size against the bf16 pools', a profile of serving ticks; then
+     ServingEngine(quant="int8") on the first 8 serve prompts, compared with
+     phase 7's int8 run; each run must launch paged_decode_attention_q and
+     never paged_decode_attention;
+  9. the ``{"kernels": [...]}`` line (13 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
 token per step (one emitted token per tree step), so the tree runs measure
 the mechanism's cost, not its gain.
 
-Each main path (phases 4 to 7, each run on its own) zeroes the
+Each main path (phases 4 to 8, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -122,6 +140,8 @@ REPLACES = {
     "spec_head_q": "src/repro/kernels/spec_head/spec_head.py:152",
     "predictor_mlp_q":
         "src/repro/kernels/predictor_mlp/predictor_mlp.py:119",
+    "paged_decode_attention_q":
+        "src/repro/kernels/decode_attention/decode_attention.py:173",
 }
 QUANT_KERNELS = ("argmax_verify_q", "topk_verify_q", "spec_head_q",
                  "predictor_mlp_q")
@@ -132,6 +152,9 @@ FP_GATE_KERNELS = ("exit_gate", "argmax_verify", "topk_verify")
 AR_PATH = ("exit_gate", "argmax_verify", "topk_verify", "decode_attention")
 SERVE_PATH = ("paged_decode_attention", "exit_gate", "argmax_verify",
               "topk_verify")
+# serving on an int8 KV cache: the int8 paged kernel in the fp one's place
+KVQ_SERVE_PATH = tuple("paged_decode_attention_q" if k ==
+                       "paged_decode_attention" else k for k in SERVE_PATH)
 TREE_PATH = ("spec_head", "predictor_mlp", "argmax_verify", "flash_attention")
 # Under weight quantization the fused gate becomes the piecewise one and
 # each gate or verify kernel its quantized sibling; attention is unchanged.
@@ -381,7 +404,8 @@ def check_kernels(torch, dev):
     t.update(t_attn)
     for name in rows:
         rows[name].update(errs_attn[name])
-    for name, (ms, plain, lib, (bnd, by)) in t.items():
+    for name, row in t.items():
+        ms, plain, lib, (bnd, by) = row[:4]
         lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
         log("kernels", f"{name} bf16 timing: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, library {lib_s}, bound {bnd:.4f} ms ({by})")
@@ -523,6 +547,121 @@ def check_attention_kernels(torch, dev, rnd):
             f"({row[3][1]})")
         if (Bf, S, kvh) == (1, 512, HEADS):     # one serving prefill
             t["flash_attention"] = row
+    errs_q, t_q = check_kv_quant_kernel(torch, dev, rnd, paged_cases)
+    for name in errs:
+        errs[name].update(errs_q[name])
+    t.update(t_q)
+    return errs, t
+
+
+def _paged_q_case(torch, dev, rnd, dt, P, lens, kvh, seed):
+    """``_paged_case`` over int8 pools: codes and fp32 scales quantized as
+    the model stores them, the trash page (the last) zeroed, scales too.
+    Returns (q, k, v, table, cache_len, k_scale, v_scale)."""
+    import numpy as np
+    from repro_torch.models.model import _kv_quantize
+    Bp = len(lens)
+    NP = Bp * P + 5
+    q = rnd((Bp, 1, HEADS, HD), dt)
+    pools = []
+    for _ in range(2):
+        codes, scale = _kv_quantize(rnd((NP + 1, PAGE, kvh, HD),
+                                        torch.float32))
+        codes[-1], scale[-1] = 0, 0.0
+        pools += [codes, scale]
+    perm = np.random.default_rng(seed).permutation(NP)[:Bp * P]
+    table = torch.as_tensor(perm.reshape(Bp, P).astype(np.int32), device=dev)
+    table[-1] = NP
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, pools[0], pools[2], table, cl, pools[1], pools[3]
+
+
+def check_kv_quant_kernel(torch, dev, rnd, paged_cases):
+    """Phase 2 for the int8 paged decode-attention kernel: against its
+    plain version (codes and scales gathered, dequantized and attended in
+    fp32) with fp32 and bf16 queries, windows None and 64, n_rep 1 and 4,
+    the retired row included (it reads the zeroed trash page); then bf16
+    timings beside the fp paged kernel at the same live keys, SDPA on the
+    gathered view dequantized to bf16 (a yardstick: no one PyTorch call
+    takes int8 codes) and the byte bound."""
+    import torch.nn.functional as F
+    from repro_torch.core import paged as paged_lib
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        paged_decode_attention_fwd)
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref)
+    from repro_torch.models.model import _kv_dequantize
+
+    def run(c, window=None):
+        return paged_decode_attention_fwd(*c[:5], window=window,
+                                          k_scale=c[5], v_scale=c[6])
+
+    def plain(c, window=None):
+        return paged_decode_attention_ref(*c[:5], window, c[5], c[6])
+
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        # the kernel and the plain version (on q upcast to fp32, exact)
+        # dequantize the same codes in fp32 and sum in fp32 in other
+        # orders: atol 1e-4; in bf16 rtol 2**-7 covers rounding the output
+        # to bf16
+        rtol = 1e-4 if dt == torch.float32 else 2.0 ** -7
+        err = 0.0
+        for i, (P, lens) in enumerate(paged_cases):
+            for kvh in (HEADS, HEADS // 4):
+                c = _paged_q_case(torch, dev, rnd, dt, P, lens, kvh, 20 + i)
+                for window in (None, 64):
+                    o = run(c, window).float()
+                    o_r = plain((c[0].float(),) + c[1:], window)
+                    require(bool(torch.isfinite(o).all()),
+                            "paged_decode_attention_q: non-finite output")
+                    torch.testing.assert_close(o, o_r, atol=1e-4, rtol=rtol)
+                    err = max(err, (o - o_r).abs().max().item())
+                del c
+        torch.cuda.synchronize()
+        log("kernels", f"{name}: paged_decode_attention_q err {err:.3g} "
+            f"(int8 pools, B=8, spans ~150 and ~1024, window None/64, "
+            f"n_rep 1/4, the retired row included)")
+        errs[name] = {"paged_decode_attention_q": err}
+
+    dt, dname = torch.bfloat16, "bfloat16"
+    t = {}
+    for P, lens in paged_cases:
+        cases = [_paged_q_case(torch, dev, rnd, dt, P, lens, HEADS, 30 + j)
+                 for j in range(4)]
+        fp_cases = [_paged_case(torch, dev, rnd, dt, P, lens, 30 + j)
+                    for j in range(4)]
+        live = _live_keys(lens, None)
+        nbytes = (live * HEADS * (2 * HD + 8) + 2 * len(lens) * HEADS * HD * 2
+                  + len(lens) * (P + 1) * 4)
+        ops = 4 * live * HEADS * HD
+        views = []
+        for c in cases:
+            kv = _kv_dequantize(paged_lib.gather_view(c[1], c[3]),
+                                paged_lib.gather_view(c[5], c[3]), dt)
+            vv = _kv_dequantize(paged_lib.gather_view(c[2], c[3]),
+                                paged_lib.gather_view(c[6], c[3]), dt)
+            mask = (torch.arange(kv.shape[1], device=dev)[None, :]
+                    < c[4][:, None])[:, None, None, :]
+            views.append((c[0].transpose(1, 2), kv.transpose(1, 2),
+                          vv.transpose(1, 2), mask))
+        ms = graph_ms(torch, [lambda c=c: run(c) for c in cases] * 3)
+        fp_ms = graph_ms(torch, [lambda c=c: paged_decode_attention_fwd(*c)
+                                 for c in fp_cases] * 3)
+        plain_ms = graph_ms(torch, [lambda c=c: plain(c) for c in cases] * 3)
+        sdpa_ms = graph_ms(torch, [lambda w=w: F.scaled_dot_product_attention(
+            w[0], w[1], w[2], attn_mask=w[3]) for w in views] * 3)
+        bnd = bound_ms(nbytes, ops, dname)
+        log("kernels", f"paged_decode_attention_q bf16, B=8, {live} live "
+            f"keys ({P} pages/row): kernel {ms:.4f} ms, fp paged kernel "
+            f"{fp_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the gathered "
+            f"dequantized view {sdpa_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]})")
+        if P == paged_cases[0][0]:
+            t["paged_decode_attention_q"] = (ms, plain_ms, None, bnd, sdpa_ms,
+                                             fp_ms)
+        del cases, fp_cases, views
     return errs, t
 
 
@@ -1031,6 +1170,7 @@ def parity(torch, dev):
     serving_parity(torch, dev, params, sw)
     tree_parity(torch, dev, params, sw)
     quant_parity(torch, dev, params, sw)
+    kvq_parity(torch, dev, params, sw)
     del params, sw
 
 
@@ -1389,6 +1529,94 @@ def quant_parity(torch, dev, params, sw):
         "engine on dequantized_reference (specee and dense, paged cache)")
 
 
+def kvq_parity(torch, dev, params, sw):
+    """The int8 KV cache (``ModelFlags(kv_quant=True)``) at full width, 4
+    layers, fp32, kernels against plain versions: AR SpecEE on the dense
+    cache (the dense kernel on the dequantized view) and the paged one (the
+    int8 paged kernel) at thresholds 1.5, 0.4 and -0.1 and with an oracle
+    set that forces exits, so propagated codes and scales are read back;
+    then ``ServingEngine`` (paged kernels vs plain dense) with blocking and
+    64-token chunked admission, each against the plain run of the same
+    admission mode (the two modes differ by design under kv_quant), with
+    the draft's set and the oracle set; then the same with quant="int8"."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.api import SpecEEStrategy
+    from repro_torch.models.model import ModelFlags, build_model
+    run = llama(4, "float32")
+    m_plain = build_model(run, ModelFlags(kv_quant=True))
+    m_ker = build_model(run, ModelFlags(exit_gate_kernel=True,
+                                        exit_gate_impl="kernel",
+                                        decode_kernel=True, kv_quant=True))
+    prompts = np.random.default_rng(9).integers(0, V, (B, 16))
+
+    def summary(results):
+        return [(r.tokens.tolist(), r.exit_layer.tolist(), r.exited.tolist(),
+                 r.units_run) for r in results]
+
+    attn = {"dense": "decode_attention", "paged": "paged_decode_attention_q"}
+    for cache in ("dense", "paged"):
+        notes = []
+        for label, strat in (("1.5", SpecEEStrategy(threshold=1.5)),
+                             ("0.4", SpecEEStrategy(threshold=0.4)),
+                             ("-0.1", SpecEEStrategy(threshold=-0.1)),
+                             ("oracle -0.1", oracle_strategy(-0.1))):
+            K.reset_launches()
+            a = summary(drive(m_ker, params, sw, strat, prompts, 9,
+                              cache=cache))
+            launched = dict(K.LAUNCHES)
+            b = summary(drive(m_plain, params, sw, strat, prompts, 9,
+                              cache=cache))
+            require(a == b, f"kv_quant AR ({cache}, {label}): kernel vs "
+                    "plain differs")
+            require(launched[attn[cache]] > 0
+                    and launched["paged_decode_attention"] == 0,
+                    f"kv_quant AR ({cache}): attention launches {launched}")
+            exits = sum(sum(x) for _, _, x, _ in a[1:])
+            require(not label.startswith("oracle") or exits > 0,
+                    f"kv_quant AR ({cache}): the oracle set forced no exit")
+            notes.append(f"{label} ({exits} exits)")
+        log("parity", f"kv_quant AR, {cache} cache: tokens/exit points/"
+            f"exits identical with kernels ({attn[cache]}) and plain "
+            "versions at " + ", ".join(notes))
+
+    srun = llama(4, "float32", max_batch=4, max_seq_len=512, page_size=PAGE)
+    s_ker = build_model(srun, ModelFlags(**ALL_KERNELS, kv_quant=True))
+    s_plain = build_model(srun, ModelFlags(exit_gate_impl="ref",
+                                           kv_quant=True))
+    rng = np.random.default_rng(10)
+    sprompts = [rng.integers(0, V, int(n)) for n in rng.integers(20, 201, 8)]
+    for spec in (None, "int8"):
+        notes = []
+        sets = ((("draft", SpecEEStrategy(threshold=-0.1)),)
+                if spec is None else ()) + (("oracle", oracle_strategy(-0.1)),)
+        for set_name, strat in sets:
+            for chunk in (0, 64):
+                want = _serve(s_plain, params, sw, sprompts, 8,
+                              strategy=strat, fused_gate=False,
+                              cache="dense", prefill_chunk=chunk, quant=spec)
+                K.reset_launches()
+                got = _serve(s_ker, params, sw, sprompts, 8, strategy=strat,
+                             fused_gate=True, cache="paged",
+                             prefill_chunk=chunk, quant=spec)
+                require(got == want, f"kv_quant serving (quant {spec}, "
+                        f"{set_name} set, chunk {chunk}): paged kernels vs "
+                        "plain dense differ")
+                require(K.LAUNCHES["paged_decode_attention_q"] > 0
+                        and K.LAUNCHES["paged_decode_attention"] == 0,
+                        "kv_quant serving: attention launches "
+                        f"{dict(K.LAUNCHES)}")
+                exits = sum(e < s_ker.num_exit_points
+                            for _, eps in want for e in eps)
+                require(set_name == "draft" or exits > 0,
+                        "kv_quant serving: the oracle set forced no exit")
+                notes.append(f"{set_name} set, chunk {chunk} ({exits} "
+                             "exits)")
+        log("parity", f"kv_quant serving{'' if spec is None else ' ' + spec}"
+            ": 8 requests through 4 slots, paged kernels equal plain dense "
+            "for " + "; ".join(notes) + "; every page returned")
+
+
 def full_weights(torch, dev):
     """llama2-7b, 32 layers, bf16, seeded once on the card; phases 4 and 5
     share these weights."""
@@ -1475,26 +1703,30 @@ def serve_prompts():
             for n in rng.integers(lo, hi + 1, SERVE_REQS)]
 
 
-def serve_engine(torch, params, sw, chunk):
+def serve_engine(torch, params, sw, chunk, kv_quant=False):
     from repro_torch.models.model import ModelFlags, build_model
     from repro_torch.serving import ServingEngine
     run = llama(32, "bfloat16", max_batch=SERVE_BATCH,
                 max_seq_len=SERVE_SEQ, page_size=PAGE)
-    model = build_model(run, ModelFlags(**ALL_KERNELS))
+    model = build_model(run, ModelFlags(**ALL_KERNELS, kv_quant=kv_quant))
     return ServingEngine(model, params, sw, cache="paged",
                          prefill_chunk=chunk)
 
 
-def serve_run(torch, dev, params, sw, chunk: int):
+def serve_run(torch, dev, params, sw, chunk: int, kv_quant: bool = False):
     """One serving run: 16 requests, blocking (chunk 0) or chunked
-    admission. The launch counts are zeroed right before the requests are
-    submitted and read right after the last one completes."""
+    admission, on bf16 or (``kv_quant``) int8 page pools. The launch counts
+    are zeroed right before the requests are submitted and read right
+    after the last one completes. Returns (launches, per-request (output,
+    exit points), pool GB)."""
     import numpy as np
     from repro_torch import kernels as K
-    label = "blocking" if chunk == 0 else f"chunked {chunk}"
+    label = ("kv_quant " if kv_quant else "") + (
+        "blocking" if chunk == 0 else f"chunked {chunk}")
+    phase = "kvq" if kv_quant else "serve"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    se = serve_engine(torch, params, sw, chunk)
+    se = serve_engine(torch, params, sw, chunk, kv_quant)
     mgr = se.session.cache_mgr
     pool_gb = sum(x.numel() * x.element_size()
                   for x in _leaves(se.session._state.cache["segments"])) / 1e9
@@ -1540,17 +1772,21 @@ def serve_run(torch, dev, params, sw, chunk: int):
             f"{mgr.free_pages} of {mgr.num_pages} pages free at the end")
     require(bool(torch.isfinite(se.session._state.h_last.float()).all()),
             "non-finite hidden state")
-    path = SERVE_PATH + (("flash_attention",) if chunk == 0 else ())
+    path = ((KVQ_SERVE_PATH if kv_quant else SERVE_PATH)
+            + (("flash_attention",) if chunk == 0 else ()))
     missing = [k for k in path if launches[k] == 0]
     require(not missing, f"kernels never launched on the serving path "
             f"({label}): {missing}")
     require(launches["decode_attention"] == 0,
             "the dense decode kernel ran on the paged serving path")
+    other = "paged_decode_attention" + ("" if kv_quant else "_q")
+    require(launches[other] == 0, f"{other} ran on the {label} serving "
+            "path")
     tokens = sum(len(r.output) for r in reqs)
     decode_ticks = sum(len(r.exit_points) for r in reqs)
     exits = sum(e < se.model.num_exit_points for r in reqs
                 for e in r.exit_points)
-    log("serve", f"{label}: {SERVE_REQS} requests (prompts "
+    log(phase, f"{label}: {SERVE_REQS} requests (prompts "
         f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
         f"{SERVE_NEW} new each) through {SERVE_BATCH} slots in {wall:.3f} s "
         f"= {SERVE_REQS / wall:.3f} requests/s, {tokens / wall:.2f} tokens/s;"
@@ -1561,49 +1797,57 @@ def serve_run(torch, dev, params, sw, chunk: int):
         f"retirement {reused}; free pages at the end {mgr.free_pages} of "
         f"{mgr.num_pages}")
     cfg = se.model.cfg
-    row_gb = (2 * cfg.num_layers * SERVE_SEQ * cfg.num_kv_heads
-              * cfg.resolved_head_dim() * se.model.dtype.itemsize / 1e9)
-    log("serve", f"{label}: memory reckoned {weights_gb:.2f} GB weights + "
+    # one row's prefill cache holds SERVE_SEQ token slots of the pools'
+    # layout
+    row_gb = pool_gb * SERVE_SEQ / ((mgr.num_pages + 1) * PAGE)
+    leaves = "codes + scales" if kv_quant else "K,V"
+    log(phase, f"{label}: memory reckoned {weights_gb:.2f} GB weights + "
         f"{pool_gb:.2f} GB page pools ({mgr.num_pages + 1} pages of {PAGE} "
-        f"tokens x {cfg.num_layers} layers x K,V) + {row_gb:.2f} GB for one "
-        f"row's {SERVE_SEQ}-token prefill cache = "
+        f"tokens x {cfg.num_layers} layers x {leaves}) + {row_gb:.2f} GB "
+        f"for one row's {SERVE_SEQ}-token prefill cache = "
         f"{weights_gb + pool_gb + row_gb:.2f} GB before activations; peak "
         f"card memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    log("serve", f"{label} launches: " + ", ".join(
-        f"{k} {v}" for k, v in launches.items()))
+    log(phase, f"{label} launches: " + ", ".join(
+        f"{k} {v} ({v / ticks:.2f}/tick)" for k, v in launches.items()))
     outs = [(r.output, r.exit_points) for r in reqs]
     del se
-    return launches, outs
+    return launches, outs, pool_gb
 
 
-def profile_serving(torch, dev, params, sw, n: int = 4) -> None:
+def profile_serving(torch, dev, params, sw, n: int = 4,
+                    kv_quant: bool = False) -> None:
     """torch.profiler over ``n`` steady serving ticks (8 live rows, no
     admission): device time per kernel family per tick and the device's
     busy share of the profiled wall time."""
-    se = serve_engine(torch, params, sw, 0)
+    se = serve_engine(torch, params, sw, 0, kv_quant)
     for p in serve_prompts()[:SERVE_BATCH]:
         se.submit(p, max_new_tokens=n + 4)
     se.step()                                 # admits all 8, one tick
     se.step()
     torch.cuda.synchronize()
-    profile_ticks(torch, "profile-serve", se.step, n)
+    profile_ticks(torch, "profile-kvq" if kv_quant else "profile-serve",
+                  se.step, n)
     del se
 
 
 def serve_phase(torch, dev, params, sw):
+    """Phase 5. Returns the launches by path and, for phase 8, the
+    per-request outputs of both runs and the bf16 pool size."""
     torch.cuda.empty_cache()
-    l_block, out_block = serve_run(torch, dev, params, sw, 0)
+    l_block, out_block, pool_gb = serve_run(torch, dev, params, sw, 0)
     torch.cuda.empty_cache()
-    l_chunk, out_chunk = serve_run(torch, dev, params, sw, 256)
+    l_chunk, out_chunk, _ = serve_run(torch, dev, params, sw, 256)
     same = sum(a == b for (ra, _), (rb, _) in zip(out_block, out_chunk)
                for a, b in zip(ra, rb))
     log("serve", f"blocking vs chunked admission: {same} of "
         f"{SERVE_REQS * SERVE_NEW} tokens identical (bf16; the exact "
         f"parity of the two is phase 3's, in fp32)")
-    flip_margins(torch, params, out_block, out_chunk)
+    flip_margins(torch, params, out_block, out_chunk, "serve",
+                 "blocking and chunked admission")
     torch.cuda.empty_cache()
     profile_serving(torch, dev, params, sw)
-    return {"serve_blocking": l_block, "serve_chunked": l_chunk}
+    return ({"serve_blocking": l_block, "serve_chunked": l_chunk},
+            {"blocking": out_block, "chunked": out_chunk, "pool_gb": pool_gb})
 
 
 # ---------------------------------------------------------------------------
@@ -1754,7 +1998,6 @@ def quant_phase(torch, dev, params, sw):
     from repro_torch import kernels as K
     from repro_torch.api import DenseStrategy, Engine, SpecEEStrategy
     from repro_torch.models.model import ModelFlags, build_model
-    from repro_torch.serving import ServingEngine
     model = build_model(llama(32, "bfloat16"), ModelFlags(**TREE_KERNELS))
     prompts = np.random.default_rng(1).integers(0, V, (B, FULL_PROMPT))
     by_path = {}
@@ -1852,12 +2095,33 @@ def quant_phase(torch, dev, params, sw):
         torch.cuda.empty_cache()
 
     # serving: the first 8 serve prompts through 8 paged slots, int8
+    s_launch, outs, se = quant_serve_run(torch, params, sw, "quant",
+                                         "serve int8")
+    by_path["quant_int8_serve"] = s_launch
+    del se
+    torch.cuda.empty_cache()
+    return by_path, outs
+
+
+def quant_serve_run(torch, params, sw, phase: str, label: str,
+                    kv_quant: bool = False):
+    """ServingEngine(quant="int8", cache="paged") with every kernel, on bf16
+    or (``kv_quant``) int8 page pools: the first 8 serve prompts through 8
+    slots, blocking admission (phases 7 and 8). The launch counts are
+    zeroed right before the requests are submitted and read right after the
+    last one completes. Returns (launches, per-request (output, exit
+    points), the engine)."""
+    from repro_torch import kernels as K
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine
     srun = llama(32, "bfloat16", max_batch=SERVE_BATCH,
                  max_seq_len=SERVE_SEQ, page_size=PAGE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    se = ServingEngine(build_model(srun, ModelFlags(**ALL_KERNELS)), params,
-                       sw, cache="paged", prefill_chunk=0, quant="int8")
+    se = ServingEngine(build_model(srun, ModelFlags(**ALL_KERNELS,
+                                                    kv_quant=kv_quant)),
+                       params, sw, cache="paged", prefill_chunk=0,
+                       quant="int8")
     mgr = se.session.cache_mgr
     sprompts = serve_prompts()[:TREE_SERVE_REQS]
     tick_s = []
@@ -1869,19 +2133,21 @@ def quant_phase(torch, dev, params, sw):
         se.step()
         torch.cuda.synchronize()
         tick_s.append(time.perf_counter() - t1)
-        require(len(tick_s) <= 10_000, "quant serving did not finish")
+        require(len(tick_s) <= 10_000, f"{label} did not finish")
     wall = time.perf_counter() - t0
-    s_launch = dict(K.LAUNCHES)              # ---- read right after ----
+    launches = dict(K.LAUNCHES)              # ---- read right after ----
     ticks = len(tick_s)
     require(all(r.done and len(r.output) == SERVE_NEW for r in reqs),
-            "a quant request did not finish with its 32 tokens")
+            f"{label}: a request did not finish with its 32 tokens")
     require(all(0 <= t < V for r in reqs for t in r.output),
             "token out of vocabulary")
     require(mgr.free_pages == mgr.num_pages,
             f"{mgr.free_pages} of {mgr.num_pages} pages free at the end")
-    _require_quant_path(s_launch, SERVE_PATH + ("flash_attention",),
-                        "quant serving")
-    log("quant", f"serve int8: {TREE_SERVE_REQS} requests (prompts "
+    _require_quant_path(launches, (KVQ_SERVE_PATH if kv_quant else SERVE_PATH)
+                        + ("flash_attention",), label)
+    other = "paged_decode_attention" + ("" if kv_quant else "_q")
+    require(launches[other] == 0, f"{other} ran on the {label} path")
+    log(phase, f"{label}: {TREE_SERVE_REQS} requests (prompts "
         f"{min(map(len, sprompts))}-{max(map(len, sprompts))} tokens, "
         f"{SERVE_NEW} new each) through {SERVE_BATCH} slots in {wall:.3f} s"
         f" = {TREE_SERVE_REQS / wall:.3f} requests/s, "
@@ -1891,21 +2157,58 @@ def quant_phase(torch, dev, params, sw):
         f"admissions, {tick_s[0] * 1e3:.2f}); peak card memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; free pages at "
         f"the end {mgr.free_pages} of {mgr.num_pages}")
-    log("quant", "serve int8 launches: " + ", ".join(
-        f"{k} {s_launch[k]} ({s_launch[k] / ticks:.2f}/tick)"
-        for k in QUANT_KERNELS + FP_GATE_KERNELS))
-    by_path["quant_int8_serve"] = s_launch
-    del se
+    log(phase, f"{label} launches: " + ", ".join(
+        f"{k} {v} ({v / ticks:.2f}/tick)" for k, v in launches.items()))
+    return launches, [(r.output, r.exit_points) for r in reqs], se
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serving on an int8 KV cache at full width
+# ---------------------------------------------------------------------------
+def kvq_phase(torch, dev, params, sw, fp_serve, q8_outs):
+    """``ModelFlags(kv_quant=True)`` on the phase-4 weights: phase 5's AR
+    serve cell, blocking and 256-token chunked, then
+    ``ServingEngine(quant="int8")`` on the first 8 serve prompts. Each run
+    must launch the int8 paged kernel and never the fp one. Outputs are
+    compared with phase 5's fp runs and phase 7's int8 serve run (the same
+    admission mode), with the top-2 margin at each first differing token."""
+    by_path = {}
+    for chunk, ref_name in ((0, "blocking"), (256, "chunked")):
+        torch.cuda.empty_cache()
+        launches, outs, pool_gb = serve_run(torch, dev, params, sw, chunk,
+                                            kv_quant=True)
+        by_path[f"kvq_serve_{ref_name}"] = launches
+        log("kvq", f"kv_quant {ref_name}: int8 page pools {pool_gb:.2f} GB "
+            f"against the bf16 pools' {fp_serve['pool_gb']:.2f} GB "
+            f"({fp_serve['pool_gb'] / pool_gb:.3f}x smaller)")
+        flip_margins(torch, params, fp_serve[ref_name], outs, "kvq",
+                     f"phase 5's fp {ref_name} run and the kv_quant one")
+    torch.cuda.empty_cache()
+    profile_serving(torch, dev, params, sw, kv_quant=True)
+
+    # composed with weight-only int8: the first 8 serve prompts, blocking
+    torch.cuda.empty_cache()
+    launches, outs, se = quant_serve_run(torch, params, sw, "kvq",
+                                         "kv_quant + int8 weights serve",
+                                         kv_quant=True)
+    by_path["kvq_quant_int8_serve"] = launches
+    view, _ = se.engine.prefill_weights()
+    flip_margins(torch, view, q8_outs, outs, "kvq",
+                 "phase 7's int8 serve run and the kv_quant one (margins "
+                 "on the dequantized weights)")
+    del se, view
     torch.cuda.empty_cache()
     return by_path
 
 
-def flip_margins(torch, params, out_block, out_chunk) -> None:
-    """For each request whose blocking and chunked outputs differ: the
-    plain model's top-2 logit margin at the first differing token, after
-    the prompt and the blocking run's tokens before it, beside the spacing
-    of bf16 numbers at the top logit (the logits are a bf16 product), and
-    the exit points both runs took there."""
+def flip_margins(torch, params, out_block, out_chunk, phase: str,
+                 what: str) -> None:
+    """For each request whose two runs' outputs differ (``out_block`` the
+    reference run): the plain model's top-2 logit margin on ``params`` at
+    the first differing token, after the prompt and the reference run's
+    tokens before it, beside the spacing of bf16 numbers at the top logit
+    (the logits are a bf16 product), and the exit points both runs took
+    there."""
     import math
     from repro_torch.models.model import build_model
     plain = build_model(llama(32, "bfloat16"))
@@ -1925,15 +2228,16 @@ def flip_margins(torch, params, out_block, out_chunk) -> None:
                f"exit points {eps_b[j - 1]}/{eps_c[j - 1]} of {E}")
         notes.append(f"request {i} token {j}: margin {margin:.4g} "
                      f"(top {top:.4g}, bf16 spacing {ulp:.4g}; {eps})")
-    log("serve", f"{len(notes)} of {SERVE_REQS} requests diverged between "
-        f"blocking and chunked admission" + (": " if notes else "")
-        + "; ".join(notes))
+    log(phase, f"{len(notes)} of {len(out_block)} requests diverged between "
+        f"{what}" + (": " if notes else "") + "; ".join(notes))
 
 
 # where the device time of a decode step goes, by kernel family (the paged
 # kernel's name contains the dense one's, so it is matched first); the
-# quantized verify and spec-head kernels are the fp ones' templates on an
-# Int8Cols / Int4Cols reader, and count under the family's "_q" name
+# quantized verify, spec-head and paged-attention kernels are the fp ones'
+# templates on an Int8Cols / Int4Cols / Int8KV reader, and count under the
+# family's "_q" name
+QUANT_READERS = ("Int8Cols", "Int4Cols", "Int8KV")
 FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
             ("topk_verify", ("topk_partial", "topk_merge")),
             ("exit_gate", ("exit_gate_kernel",)),
@@ -1974,7 +2278,8 @@ def profile_ticks(torch, phase: str, tick, n: int, note: str = "") -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam = {name: 0.0 for name, _ in FAMILIES}
     fam.update({f"{name}_q": 0.0 for name in
-                ("argmax_verify", "topk_verify", "spec_head")})
+                ("argmax_verify", "topk_verify", "spec_head",
+                 "paged_decode_attention")})
     fam["other"] = 0.0
     total = 0.0
     for evt in prof.key_averages():
@@ -1986,7 +2291,7 @@ def profile_ticks(torch, phase: str, tick, n: int, note: str = "") -> None:
         total += us / 1e3
         for name, keys in FAMILIES:
             if any(k in evt.key for k in keys):
-                if "Int8Cols" in evt.key or "Int4Cols" in evt.key:
+                if any(r in evt.key for r in QUANT_READERS):
                     name += "_q"
                 fam[name] += us / 1e3
                 break
@@ -2057,11 +2362,14 @@ def main() -> int:
     params, sw = full_weights(torch, dev)
     by_path = {"whole_batch": full_run(torch, dev, params, sw)}
     torch.cuda.empty_cache()
-    by_path.update(serve_phase(torch, dev, params, sw))
+    serve_launches, fp_serve = serve_phase(torch, dev, params, sw)
+    by_path.update(serve_launches)
     torch.cuda.empty_cache()
     by_path.update(tree_phase(torch, dev, params, sw))
     torch.cuda.empty_cache()
-    by_path.update(quant_phase(torch, dev, params, sw))
+    quant_launches, q8_outs = quant_phase(torch, dev, params, sw)
+    by_path.update(quant_launches)
+    by_path.update(kvq_phase(torch, dev, params, sw, fp_serve, q8_outs))
 
     kernels = []
     for name in build.SOURCES:
@@ -2080,6 +2388,10 @@ def main() -> int:
                          "library_ms": r[name][2], "bound_ms": r[name][3][0],
                          "bound_by": r[name][3][1]}
                 for R, r in verify_rows.items()}
+        if name == "paged_decode_attention_q":
+            # library_ms is null: no one PyTorch call takes int8 codes
+            row["yardstick_ms"] = timing[name][4]    # SDPA, dequantized
+            row["fp_kernel_ms"] = timing[name][5]    # at the same keys
         if name in QUANT_KERNELS:
             # int8 at B=4 above; every measured shape, int8 and int4, with
             # the fp kernel on the dequantized bf16 head as a yardstick

@@ -5,12 +5,14 @@ them out of it.
 * ``DenseKVCache`` — the slot-masked ``(reps, B, max_seq, KVH, hd)`` layout,
   the reference the paged layout is held against.
 * ``PagedKVCache`` — every attention entry keeps K/V in a per-layer page
-  pool ``(reps, num_pages + 1, page_size, KVH, hd)``; one ``page_table (B,
-  pages_per_row)`` int32, shared by all layers, maps each row's logical
-  pages to physical ids. The ``+1`` page is a write-only trash page that
-  empty and retired rows alias. A host-side free list gates admission
-  (``can_admit``); ``retire_row`` returns a finished row's pages and zeroes
-  its length, so an idle slot stops paying attention span.
+  pool ``(reps, num_pages + 1, page_size, KVH, hd)`` (under ``kv_quant``
+  int8 codes, beside fp32 scale pools without the ``hd`` dim); one
+  ``page_table (B, pages_per_row)`` int32, shared by all layers, maps each
+  row's logical pages to physical ids. The ``+1`` page is a write-only
+  trash page that empty and retired rows alias. A host-side free list
+  gates admission (``can_admit``); ``retire_row`` returns a finished row's
+  pages and zeroes its length, so an idle slot stops paying attention
+  span.
 
 Allocation is by reservation: a row claims its full ``pages_per_row`` at
 admission and returns them at retirement, in the JAX package's order, so
@@ -222,13 +224,10 @@ class PagedKVCache(KVCacheManager):
 
     # ----- layout -----
     def empty_cache(self) -> Any:
-        cfg = self.model.cfg
-        shape = (self.num_pages + 1, self.page_size, cfg.num_kv_heads,
-                 cfg.resolved_head_dim())
-        segs = [{f"u{i}": {name: torch.zeros((reps,) + shape,
-                                             dtype=self.model.dtype,
-                                             device=self.device)
-                           for name in ("k", "v")}
+        # pool leaves (num_pages + 1, page_size, ...): the last page is the
+        # trash page; zeroed, so a retired row reads finite K/V and scales
+        segs = [{f"u{i}": self.model.empty_cache_entry(
+                    reps, self.num_pages + 1, self.page_size, self.device)
                  for i in range(len(unit))}
                 for unit, reps in self.model.segments]
         table = torch.full((self.batch, self.pages_per_row), self.trash_page,

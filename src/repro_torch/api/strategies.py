@@ -124,6 +124,14 @@ class TreeStrategy(DecodeStrategy):
             raise ValueError(
                 "tree strategy requires a stack of global attention blocks; "
                 f"{model.cfg.name} has {sorted(set(model.cfg.blocks()))}")
+        if model.flags.kv_quant:
+            # JAX's message, word for word
+            raise ValueError(
+                "tree strategy does not support kv_quant: tree scratch "
+                "writes are full-precision (the node K/V is re-read within "
+                "the same step, where int8 round-tripping would corrupt "
+                "verification); decode with the AR engine instead "
+                "(DESIGN.md §4)")
 
     def step(self, model, params, sw, state, qw=None):
         out, n_emit, new_state, info = eng.tree_decode_step(

@@ -19,8 +19,7 @@ namespace {
 
 template <typename T, int NREP, int E>
 __global__ void __launch_bounds__(da::DA_WARPS * 32)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                        const T* __restrict__ vc,
+decode_attention_kernel(const T* __restrict__ q, const da::FpKV<T> kv,
                         const int* __restrict__ cache_len,
                         T* __restrict__ out, int S, int KVH, int window,
                         float scale) {
@@ -29,8 +28,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int len = min(cache_len[b], S);
   const int lo = window > 0 ? max(0, len - window) : 0;
   const da::DenseAddr addr{((size_t)b * S * KVH + g) * HD, (size_t)KVH * HD};
-  da::decode_body<T, NREP, E>(q, kc, vc, out, b, g, KVH, lo, len, scale,
-                              addr);
+  da::decode_body<T, NREP, E>(q, kv, out, b, g, KVH, lo, len, scale, addr);
 }
 
 template <typename T, int NREP, int E>
@@ -40,8 +38,9 @@ struct Launch {
                   int window, float scale, cudaStream_t st) {
     decode_attention_kernel<T, NREP, E>
         <<<dim3(B, KVH), da::DA_WARPS * 32, 0, st>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<const int*>(clen),
+            static_cast<const T*>(q),
+            da::FpKV<T>{static_cast<const T*>(k), static_cast<const T*>(v)},
+            static_cast<const int*>(clen),
             static_cast<T*>(out), S, KVH, window, scale);
   }
 };

@@ -5,14 +5,18 @@
 // over lo <= s < len, lo = max(0, len - window), h = g * n_rep + r (GQA:
 // the n_rep query heads of a KV head share its K/V).
 //
-// The two kernels differ only in where key s of row b lives, which an
+// The kernels differ only in where key s of row b lives, which an
 // addressing functor answers (element offset of the key's (g, 0) entry):
 // DenseAddr for a (B, S, KVH, hd) cache, PagedAddr for a page pool read
-// through the row's page table. One body, so the two cannot drift.
+// through the row's page table; and in how a key's K and V are stored,
+// which a reader answers: FpKV for K/V in the compute type, Int8KV for int8
+// codes with one fp32 scale per (slot, KV head), dequantized in registers.
+// One body, so the kernels cannot drift.
 //
 // CTA = one (row, KV head). DA_WARPS warps split the live keys DA_U at a
 // time; each lane holds hd/32 consecutive elements of q, k, v, so one key's
-// K (or V) row is one coalesced 2*hd-byte read per warp. Each warp keeps its
+// K (or V) row is one coalesced read per warp (2*hd bytes in bf16, hd as
+// int8 codes). Each warp keeps its
 // own online softmax (m, l, acc) per query head in fp32; the warps' states
 // merge in shared memory at the end. Keys outside [lo, len) are never read
 // (the tail of the last group of DA_U re-reads key len - 1 and gets
@@ -50,11 +54,95 @@ struct PagedAddr {
   }
 };
 
-template <typename T, int NREP, int E, typename Addr>
+// E consecutive values of a lane in one load of E * sizeof(T) bytes (4
+// int8 codes, 8 bytes of bf16 at hd = 128); the wrappers check that the
+// pools are aligned to it
+__device__ __forceinline__ void load_vals(const float* p, float (&x)[4]) {
+  const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+  x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
+}
+__device__ __forceinline__ void load_vals(const float* p, float (&x)[2]) {
+  const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+  x[0] = f.x; x[1] = f.y;
+}
+__device__ __forceinline__ void load_vals(const float* p, float (&x)[1]) {
+  x[0] = __ldg(p);
+}
+__device__ __forceinline__ void load_vals(const __nv_bfloat16* p,
+                                          float (&x)[4]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+}
+__device__ __forceinline__ void load_vals(const __nv_bfloat16* p,
+                                          float (&x)[2]) {
+  const __nv_bfloat162 h = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+  const float2 a = __bfloat1622float2(h);
+  x[0] = a.x; x[1] = a.y;
+}
+__device__ __forceinline__ void load_vals(const __nv_bfloat16* p,
+                                          float (&x)[1]) {
+  x[0] = __bfloat162float(__ldg(p));
+}
+
+__device__ __forceinline__ void load_vals(const int8_t* p, float (&x)[4]) {
+  const char4 c = __ldg(reinterpret_cast<const char4*>(p));
+  x[0] = c.x; x[1] = c.y; x[2] = c.z; x[3] = c.w;
+}
+__device__ __forceinline__ void load_vals(const int8_t* p, float (&x)[2]) {
+  const char2 c = __ldg(reinterpret_cast<const char2*>(p));
+  x[0] = c.x; x[1] = c.y;
+}
+__device__ __forceinline__ void load_vals(const int8_t* p, float (&x)[1]) {
+  x[0] = __ldg(p);
+}
+
+// K and V of one key as a lane's E consecutive fp32 values, through the
+// read-only path. ``base`` is the element offset of the key's (slot, g, 0)
+// entry.
+template <typename T>
+struct FpKV {
+  const T* k;
+  const T* v;
+  template <int E>
+  __device__ __forceinline__ void load(size_t base, int lane, float (&kr)[E],
+                                       float (&vr)[E]) const {
+    const size_t i = base + lane * E;
+    load_vals(k + i, kr);
+    load_vals(v + i, vr);
+  }
+};
+
+// int8 pools (NP, ps, KVH, hd) with fp32 scale pools (NP, ps, KVH): the
+// key's scale sits at index base / hd = slot * KVH + g, one broadcast read
+// per warp; each code is multiplied by it in fp32, as the Pallas tile does.
+struct Int8KV {
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+  template <int E>
+  __device__ __forceinline__ void load(size_t base, int lane, float (&kr)[E],
+                                       float (&vr)[E]) const {
+    const size_t i = base + lane * E, si = base / (32 * E);
+    const float sk = __ldg(ks + si), sv = __ldg(vs + si);
+    load_vals(k + i, kr);
+    load_vals(v + i, vr);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      kr[e] *= sk;
+      vr[e] *= sv;
+    }
+  }
+};
+
+template <typename T, int NREP, int E, typename KV, typename Addr>
 __device__ __forceinline__ void decode_body(
-    const T* __restrict__ q, const T* __restrict__ kc,
-    const T* __restrict__ vc, T* __restrict__ out, int b, int g, int KVH,
-    int lo, int len, float scale, Addr addr) {
+    const T* __restrict__ q, const KV kv, T* __restrict__ out, int b, int g,
+    int KVH, int lo, int len, float scale, Addr addr) {
   constexpr int HD = 32 * E;
   __shared__ float s_m[DA_WARPS][NREP];
   __shared__ float s_l[DA_WARPS][NREP];
@@ -81,14 +169,8 @@ __device__ __forceinline__ void decode_body(
     // their probability is 0 below
     float kr[DA_U][E], vr[DA_U][E];
 #pragma unroll
-    for (int u = 0; u < DA_U; ++u) {
-      const size_t base = addr(min(s0 + u, len - 1)) + lane * E;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        kr[u][e] = rt::to_f(kc[base + e]);
-        vr[u][e] = rt::to_f(vc[base + e]);
-      }
-    }
+    for (int u = 0; u < DA_U; ++u)
+      kv.template load<E>(addr(min(s0 + u, len - 1)), lane, kr[u], vr[u]);
 #pragma unroll
     for (int r = 0; r < NREP; ++r) {
       float sc[DA_U];
@@ -153,6 +235,33 @@ __device__ __forceinline__ void decode_body(
     if (L == 0.f) L = 1.f;
     rt::store_f(out + ((size_t)b * H + g * NREP + r) * HD + c, o / L);
   }
+}
+
+// The paged kernel, for either reader: a CTA copies its row's live page
+// ids [lo / ps, ceil(len / ps)) into shared memory once and reads only keys
+// in [lo, len), so pages past the prefix (or before the window) are never
+// touched. Grid (B, KVH); P * sizeof(int) bytes of dynamic shared memory.
+constexpr int MAX_PAGES = 2048;   // page ids of one row in shared memory
+                                  // (8 KB beside the 32 KB merge scratch)
+
+template <typename T, int NREP, int E, typename KV>
+__global__ void __launch_bounds__(DA_WARPS * 32)
+paged_decode_attention_kernel(const T* __restrict__ q, const KV kv,
+                              const int* __restrict__ table,
+                              const int* __restrict__ cache_len,
+                              T* __restrict__ out, int P, int ps, int KVH,
+                              int window, float scale) {
+  constexpr int HD = 32 * E;
+  extern __shared__ int s_pages[];
+  const int b = blockIdx.x, g = blockIdx.y;
+  const int len = min(cache_len[b], P * ps);
+  const int lo = window > 0 ? max(0, len - window) : 0;
+  const int p_lo = lo / ps, p_hi = (len + ps - 1) / ps;
+  for (int i = p_lo + threadIdx.x; i < p_hi; i += blockDim.x)
+    s_pages[i] = table[(size_t)b * P + i];
+  __syncthreads();
+  const PagedAddr addr{s_pages, ps, (size_t)KVH * HD, (size_t)g * HD};
+  decode_body<T, NREP, E>(q, kv, out, b, g, KVH, lo, len, scale, addr);
 }
 
 // Runs LAUNCH<T, NREP, E>() for a runtime (dtype, n_rep, hd); false when no

@@ -9,9 +9,9 @@
 // table is scalar-prefetched and consumed by the K/V BlockSpec index maps,
 // one page per grid step, and pages past the live prefix are clamped to the
 // last live page so their DMA is elided: a compacted (retired) row costs no
-// bytes. Here a CTA copies its row's live page ids [lo / ps, ceil(len / ps))
-// into shared memory once and reads only keys in [lo, len): pages past the
-// prefix (or before the window) are never touched, so the same holds.
+// bytes. Here a CTA copies its row's live page ids into shared memory once
+// and reads only keys in [lo, len) (da::paged_decode_attention_kernel), so
+// the same holds.
 //
 // Grid (B, KVH). Offsets are 64-bit: page * ps * KVH * hd overflows int32
 // for pools beyond 2**31 elements. A retired row (table row all trash page,
@@ -23,42 +23,16 @@
 
 namespace {
 
-constexpr int MAX_PAGES = 2048;   // page ids of one row in shared memory
-                                  // (8 KB beside the 32 KB merge scratch)
-
-template <typename T, int NREP, int E>
-__global__ void __launch_bounds__(da::DA_WARPS * 32)
-paged_decode_attention_kernel(const T* __restrict__ q,
-                              const T* __restrict__ kp,
-                              const T* __restrict__ vp,
-                              const int* __restrict__ table,
-                              const int* __restrict__ cache_len,
-                              T* __restrict__ out, int P, int ps, int KVH,
-                              int window, float scale) {
-  constexpr int HD = 32 * E;
-  extern __shared__ int s_pages[];
-  const int b = blockIdx.x, g = blockIdx.y;
-  const int len = min(cache_len[b], P * ps);
-  const int lo = window > 0 ? max(0, len - window) : 0;
-  const int p_lo = lo / ps, p_hi = (len + ps - 1) / ps;
-  for (int i = p_lo + threadIdx.x; i < p_hi; i += blockDim.x)
-    s_pages[i] = table[(size_t)b * P + i];
-  __syncthreads();
-  const da::PagedAddr addr{s_pages, ps, (size_t)KVH * HD, (size_t)g * HD};
-  da::decode_body<T, NREP, E>(q, kp, vp, out, b, g, KVH, lo, len, scale,
-                              addr);
-}
-
 template <typename T, int NREP, int E>
 struct Launch {
   static void run(const void* q, const void* k, const void* v,
                   const void* table, const void* clen, void* out, int B,
                   int P, int ps, int KVH, int window, float scale,
                   cudaStream_t st) {
-    paged_decode_attention_kernel<T, NREP, E>
+    const da::FpKV<T> kv{static_cast<const T*>(k), static_cast<const T*>(v)};
+    da::paged_decode_attention_kernel<T, NREP, E>
         <<<dim3(B, KVH), da::DA_WARPS * 32, P * sizeof(int), st>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<const int*>(table),
+            static_cast<const T*>(q), kv, static_cast<const int*>(table),
             static_cast<const int*>(clen), static_cast<T*>(out), P, ps, KVH,
             window, scale);
   }
@@ -76,13 +50,14 @@ const char* paged_decode_attention_error(int code) {
 // (B, P) int32; cache_len (B,) int32; out (B, 1, H, hd). window <= 0 means
 // no window. Returns cudaErrorInvalidValue for an (n_rep, hd) pair without
 // an instance (n_rep in {1, 2, 4, 8}, hd in {32, 64, 128}) or more than
-// MAX_PAGES pages per row.
+// da::MAX_PAGES pages per row.
 int paged_decode_attention_launch(const void* q, const void* k, const void* v,
                                   const void* page_table,
                                   const void* cache_len, void* out, int B,
                                   int P, int ps, int H, int KVH, int hd,
                                   int window, int dtype, void* stream) {
-  if (P > MAX_PAGES || ps <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (P > da::MAX_PAGES || ps <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = 1.f / sqrtf(static_cast<float>(hd));
   const bool ok = da::dispatch<Launch>(dtype, H / KVH, hd, q, k, v,

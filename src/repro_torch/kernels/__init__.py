@@ -7,8 +7,9 @@ Each kernel package ships:
 
 ``LAUNCHES`` counts kernel launches per wrapper (one per wrapper call that
 launched its kernel, never for the plain version), so a run can show that a
-path went through the kernels. The quantized kernels (``*_q``) count under
-their own names, so a run also shows which of the two paths it took.
+path went through the kernels. The quantized kernels (``*_q``: weight-only
+quantization's, and the paged decode attention over an int8 KV cache)
+count under their own names, so a run also shows which path it took.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ LAUNCHES: Dict[str, int] = {"exit_gate": 0, "argmax_verify": 0,
                             "flash_attention": 0, "spec_head": 0,
                             "predictor_mlp": 0, "argmax_verify_q": 0,
                             "topk_verify_q": 0, "spec_head_q": 0,
-                            "predictor_mlp_q": 0}
+                            "predictor_mlp_q": 0,
+                            "paged_decode_attention_q": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,6 +58,14 @@ def check_arg(name: str, t: torch.Tensor, device: torch.device,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_kv_aligned(name: str, t: torch.Tensor, hd: int) -> None:
+    """The attention kernels read a lane's hd/32 consecutive K/V elements
+    in one load: ``t`` must start on a boundary of that many bytes."""
+    nbytes = max(hd // 32, 1) * t.element_size()
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: must be {nbytes}-byte aligned")
 
 
 def check_qtensor(name: str, qt, device: torch.device, shape) -> None:

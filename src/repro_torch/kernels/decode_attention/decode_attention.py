@@ -1,7 +1,8 @@
 """Wrappers of the decode-attention CUDA kernels (counterparts of
 ``repro/kernels/decode_attention/decode_attention.py::decode_attention_fwd``
 and ``paged_decode_attention_fwd``; the kernels are
-csrc/decode_attention.cu and csrc/paged_decode_attention.cu, one body in
+csrc/decode_attention.cu, csrc/paged_decode_attention.cu and, over int8
+pools, csrc/paged_decode_attention_q.cu, one body in
 csrc/decode_attention.cuh).
 
 On a CPU tensor each runs its plain version from ``ref.py``; on a CUDA
@@ -36,6 +37,8 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     K.check_arg("k_cache", k_cache, dev, q.dtype, (B, S, KVH, hd))
     K.check_arg("v_cache", v_cache, dev, q.dtype, (B, S, KVH, hd))
     K.check_arg("cache_len", cache_len, dev, torch.int32, (B,))
+    K.check_kv_aligned("k_cache", k_cache, hd)
+    K.check_kv_aligned("v_cache", v_cache, hd)
     if H % KVH:
         raise ValueError(f"decode_attention: {H} heads over {KVH} KV heads")
     fn = build.c_func("decode_attention", "decode_attention_launch",
@@ -53,37 +56,62 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
 def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, page_table: torch.Tensor,
                                cache_len: torch.Tensor,
-                               window: Optional[int] = None) -> torch.Tensor:
+                               window: Optional[int] = None,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Decode attention reading K/V through a page table. q: (B, 1, H, hd);
     k_pool/v_pool: (n_pages, page_size, KVH, hd), the shared pool;
     page_table: (B, P) int32 logical -> physical page; cache_len: (B,)
     int32 live length per row. Returns (B, 1, H, hd) in q's dtype. Only the
-    live pages of each row are read."""
+    live pages of each row are read.
+
+    ``k_scale``/``v_scale``: (n_pages, page_size, KVH) fp32 scale pools of
+    int8 K/V pools (``ModelFlags.kv_quant``), read through the same table;
+    the kernel dequantizes in registers, in fp32 (counted under
+    ``paged_decode_attention_q``)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_decode_attention: give both k_scale and "
+                         "v_scale, or neither")
     if K.runs_plain(q):
         return paged_decode_attention_ref(q, k_pool, v_pool, page_table,
-                                          cache_len, window)
+                                          cache_len, window, k_scale,
+                                          v_scale)
     B, _, H, hd = q.shape
     NP, ps, KVH = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     P = page_table.shape[1]
     dev = q.device
+    quantized = k_scale is not None
+    pool_dtype = torch.int8 if quantized else q.dtype
     K.check_arg("q", q, dev, None, (B, 1, H, hd))
-    K.check_arg("k_pool", k_pool, dev, q.dtype, (NP, ps, KVH, hd))
-    K.check_arg("v_pool", v_pool, dev, q.dtype, (NP, ps, KVH, hd))
+    K.check_arg("k_pool", k_pool, dev, pool_dtype, (NP, ps, KVH, hd))
+    K.check_arg("v_pool", v_pool, dev, pool_dtype, (NP, ps, KVH, hd))
     K.check_arg("page_table", page_table, dev, torch.int32, (B, P))
     K.check_arg("cache_len", cache_len, dev, torch.int32, (B,))
+    K.check_kv_aligned("k_pool", k_pool, hd)
+    K.check_kv_aligned("v_pool", v_pool, hd)
     if H % KVH:
         raise ValueError(
             f"paged_decode_attention: {H} heads over {KVH} KV heads")
-    fn = build.c_func("paged_decode_attention",
-                      "paged_decode_attention_launch",
-                      [_P] * 6 + [_I] * 8 + [_P])
     out = torch.empty_like(q)
-    rc = fn(K.ptr(q), K.ptr(k_pool), K.ptr(v_pool), K.ptr(page_table),
-            K.ptr(cache_len), K.ptr(out), B, P, ps, H, KVH, hd,
-            0 if window is None else window, K.dtype_code(q),
-            K.stream_ptr(dev))
-    build.check("paged_decode_attention", rc,
-                f"paged_decode_attention (n_rep={H // KVH}, hd={hd}, "
-                f"pages/row={P})")
-    K.LAUNCHES["paged_decode_attention"] += 1
+    what = (f"paged_decode_attention{'_q' if quantized else ''} "
+            f"(n_rep={H // KVH}, hd={hd}, pages/row={P})")
+    win = 0 if window is None else window
+    if quantized:
+        K.check_arg("k_scale", k_scale, dev, torch.float32, (NP, ps, KVH))
+        K.check_arg("v_scale", v_scale, dev, torch.float32, (NP, ps, KVH))
+        name = "paged_decode_attention_q"
+        fn = build.c_func(name, f"{name}_launch", [_P] * 8 + [_I] * 8 + [_P])
+        rc = fn(K.ptr(q), K.ptr(k_pool), K.ptr(v_pool), K.ptr(k_scale),
+                K.ptr(v_scale), K.ptr(page_table), K.ptr(cache_len),
+                K.ptr(out), B, P, ps, H, KVH, hd, win, K.dtype_code(q),
+                K.stream_ptr(dev))
+    else:
+        name = "paged_decode_attention"
+        fn = build.c_func(name, f"{name}_launch", [_P] * 6 + [_I] * 8 + [_P])
+        rc = fn(K.ptr(q), K.ptr(k_pool), K.ptr(v_pool), K.ptr(page_table),
+                K.ptr(cache_len), K.ptr(out), B, P, ps, H, KVH, hd, win,
+                K.dtype_code(q), K.stream_ptr(dev))
+    build.check(name, rc, what)
+    K.LAUNCHES[name] += 1
     return out

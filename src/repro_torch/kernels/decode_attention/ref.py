@@ -34,12 +34,28 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
 def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, page_table: torch.Tensor,
                                cache_len,
-                               window: Optional[int] = None) -> torch.Tensor:
+                               window: Optional[int] = None,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Plain version of the paged kernel (counterpart of ``repro/kernels/
     decode_attention/ref.py::paged_decode_attention_ref``): gather the
     logical view, then run the dense version. k_pool/v_pool: (n_pages, ps,
-    KVH, hd); page_table: (B, P) int32."""
+    KVH, hd); page_table: (B, P) int32.
+
+    With ``k_scale``/``v_scale`` ((n_pages, ps, KVH) fp32) the pools hold
+    int8 codes: the gathered codes are dequantized in fp32 and attended in
+    fp32, as the Pallas tile of ``_paged_kernel_q`` does, and the output
+    is cast to q's dtype."""
     from repro_torch.core import paged as paged_lib
     k_cache = paged_lib.gather_view(k_pool, page_table)
     v_cache = paged_lib.gather_view(v_pool, page_table)
-    return decode_attention_ref(q, k_cache, v_cache, cache_len, window=window)
+    if k_scale is None:
+        return decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                    window=window)
+    k_cache = (k_cache.float()
+               * paged_lib.gather_view(k_scale, page_table)[..., None])
+    v_cache = (v_cache.float()
+               * paged_lib.gather_view(v_scale, page_table)[..., None])
+    return decode_attention_ref(q.float(), k_cache, v_cache, cache_len,
+                                window=window).to(q.dtype)

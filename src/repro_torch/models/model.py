@@ -12,7 +12,9 @@ tensors) where the JAX package returns updated copies; every function that
 writes returns the cache it was given, so call sites read like the JAX ones.
 A cache is dense ``(reps, B, S, KVH, hd)`` or, when the caller passes the
 session's ``pages`` table, a paged pool ``(reps, n_pages, page_size, KVH,
-hd)`` read and written through ``core.paged``.
+hd)`` read and written through ``core.paged``. Under ``ModelFlags.kv_quant``
+an entry holds int8 codes ``k``/``v`` of that shape beside fp32 scales
+``ks``/``vs`` without the ``hd`` dim (one per position and KV head).
 """
 from __future__ import annotations
 
@@ -54,15 +56,18 @@ def segments_of(blocks: Sequence[str], max_unit: int = 4
 
 @dataclass(frozen=True)
 class ModelFlags:
-    """Kernel selection (the subset of ``repro``'s flags the port reads).
-    ``kv_quant`` (int8 KV pools) is not ported yet (ROADMAP queue 1 item
-    10), so the flag does not exist here and passing it fails loudly."""
+    """Kernel selection and the KV cache's storage (the subset of
+    ``repro``'s flags the port reads). ``kv_quant`` stores K/V as int8
+    codes with a per-(position, KV head) fp32 scale (``_kv_quantize``);
+    attention reads them dequantized: the paged kernel in registers, every
+    other path as a dequantized copy in the compute dtype."""
     flash_attention: bool = False   # CUDA flash-attention prefill kernel
     decode_kernel: bool = False     # CUDA (paged) decode-attention kernel
     spec_head_kernel: bool = False  # spec-head kernel: tree gate features;
     #                                 AR gate features under impl "ref"
     exit_gate_kernel: bool = False  # fused exit gate + streaming verify
     exit_gate_impl: str = "auto"    # "auto" | "kernel" | "ref"
+    kv_quant: bool = False          # int8 K/V cache with fp32 scales
 
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -75,6 +80,32 @@ def _init_block(cfg: ModelConfig, kind: str, gen, dtype, device) -> Params:
             "attn": attn_lib.init_attention(cfg, gen, dtype, device),
             "ln2": common.init_norm(cfg.d_model, dtype, device),
             "mlp": common.init_mlp(cfg, gen, dtype, device)}
+
+
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(position, head) symmetric int8: x (..., hd) -> (codes int8,
+    scale fp32 (...)), bit-equal to JAX's (``torch.round`` rounds half to
+    even as ``jnp.round`` does)."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) + 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def _kv_vals(k: torch.Tensor, v: torch.Tensor, kv_quant: bool
+             ) -> Dict[str, torch.Tensor]:
+    """The cache leaves that store K/V: as they are, or as codes and
+    scales under ``kv_quant``."""
+    if not kv_quant:
+        return {"k": k, "v": v}
+    kq, ks = _kv_quantize(k)
+    vq, vs = _kv_quantize(v)
+    return {"k": kq, "v": vq, "ks": ks, "vs": vs}
 
 
 def _entry_write_token(cache_entry: Any, vals: Dict[str, torch.Tensor],
@@ -120,39 +151,52 @@ def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     ``pages``: the (B, P) page table when the entry is a page pool; then
     ``flags.decode_kernel`` selects the paged kernel, which reads the pool
     directly, and otherwise the logical view is gathered for the plain
-    attention. Dense entries take the dense kernel under the flag."""
+    attention. Dense entries take the dense kernel under the flag. Under
+    ``kv_quant`` the token's codes and scales are written; the paged kernel
+    dequantizes in registers, every other path attends the dequantized
+    view in ``h``'s dtype (as the JAX package does; there is no dense int8
+    kernel)."""
     B = h.shape[0]
     x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
     pvec = pos.long()
     rows = torch.arange(B, device=h.device)
     q, k, v = attn_lib.qkv(cfg, p["attn"], x, pvec[:, None])
-    _entry_write_token(cache_entry, {"k": k[:, 0], "v": v[:, 0]}, pages, rows,
+    _entry_write_token(cache_entry, _kv_vals(k[:, 0], v[:, 0],
+                                             flags.kv_quant), pages, rows,
                        pvec)
     window = _window(cfg, kind)
     if pages is not None and flags.decode_kernel:
         from repro_torch.kernels.decode_attention import ops as da_ops
         o = da_ops.paged_decode_attention(cfg, q, cache_entry["k"],
                                           cache_entry["v"], pages, pos + 1,
-                                          window=window)
-    elif pages is not None:
-        o = attn_lib.attend_decode(cfg, q,
-                                   paged_lib.gather_view(cache_entry["k"], pages),
-                                   paged_lib.gather_view(cache_entry["v"], pages),
-                                   pos + 1, window)
-    elif flags.decode_kernel:
-        from repro_torch.kernels.decode_attention import ops as da_ops
-        o = da_ops.decode_attention(cfg, q, cache_entry["k"], cache_entry["v"],
-                                    pos + 1, window=window)
+                                          window=window,
+                                          k_scale=cache_entry.get("ks"),
+                                          v_scale=cache_entry.get("vs"))
     else:
-        o = attn_lib.attend_decode(cfg, q, cache_entry["k"], cache_entry["v"],
-                                   pos + 1, window)
+        if pages is None:
+            view = cache_entry
+        else:
+            view = {name: paged_lib.gather_view(pool, pages)
+                    for name, pool in cache_entry.items()}
+        if flags.kv_quant:
+            k_cache = _kv_dequantize(view["k"], view["ks"], h.dtype)
+            v_cache = _kv_dequantize(view["v"], view["vs"], h.dtype)
+        else:
+            k_cache, v_cache = view["k"], view["v"]
+        if pages is None and flags.decode_kernel:
+            from repro_torch.kernels.decode_attention import ops as da_ops
+            o = da_ops.decode_attention(cfg, q, k_cache, v_cache, pos + 1,
+                                        window=window)
+        else:
+            o = attn_lib.attend_decode(cfg, q, k_cache, v_cache, pos + 1,
+                                       window)
     h = h + attn_lib.out_proj(p["attn"], o)[:, 0, :]
     x2 = common.apply_norm(cfg, p["ln2"], h[:, None, :])
     return h + common.apply_mlp(cfg, p["mlp"], x2)[:, 0, :], cache_entry
 
 
 def _block_propagate(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
-                     cache_entry: Any, pos: torch.Tensor,
+                     cache_entry: Any, pos: torch.Tensor, flags: ModelFlags,
                      pages: Optional[torch.Tensor] = None) -> Any:
     """SpecEE skipped-layer KV propagation: write the K/V projections of the
     exit hidden state so later tokens can attend this position."""
@@ -160,7 +204,8 @@ def _block_propagate(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
     pvec = pos.long()
     k, v = attn_lib.kv_only(cfg, p["attn"], x, pvec[:, None])
-    return _entry_write_token(cache_entry, {"k": k[:, 0], "v": v[:, 0]},
+    return _entry_write_token(cache_entry,
+                              _kv_vals(k[:, 0], v[:, 0], flags.kv_quant),
                               pages, torch.arange(B, device=h.device), pvec)
 
 
@@ -171,19 +216,27 @@ def _block_extend(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     """A C-token prompt chunk against a DENSE decode cache entry.
 
     h: (B, C, D); pos0: (B,) prefix length; positions: (B, C) absolute
-    positions of the chunk. The chunk's K/V is written (in place; positions
-    past the cache are dropped, as JAX's ``mode="drop"``) before attending,
-    so intra-chunk causal attention sees its own keys as the decode step
-    does. Attention-family blocks only."""
+    positions of the chunk. The chunk's K/V is written (in place, quantized
+    under ``kv_quant``; positions past the cache are dropped, as JAX's
+    ``mode="drop"``) before attending, so intra-chunk causal attention sees
+    its own keys as the decode step does: under ``kv_quant`` the prompt
+    attends the dequantized cache, where blocking prefill (``_block_seq``)
+    attends full-precision K/V, as in the JAX package. Attention-family
+    blocks only."""
     assert kind in (ATTN, LOCAL_ATTN), kind
     B, C, _ = h.shape
     x = common.apply_norm(cfg, p["ln1"], h)
     q, k, v = attn_lib.qkv(cfg, p["attn"], x, positions)
-    k_cache, v_cache = cache_entry["k"], cache_entry["v"]
-    keep = positions < k_cache.shape[1]
+    keep = positions < cache_entry["k"].shape[1]
     rows = torch.arange(B, device=h.device)[:, None].expand(B, C)
-    k_cache[rows[keep], positions[keep]] = k[keep].to(k_cache.dtype)
-    v_cache[rows[keep], positions[keep]] = v[keep].to(v_cache.dtype)
+    for name, val in _kv_vals(k, v, flags.kv_quant).items():
+        dst = cache_entry[name]
+        dst[rows[keep], positions[keep]] = val[keep].to(dst.dtype)
+    if flags.kv_quant:
+        k_cache = _kv_dequantize(cache_entry["k"], cache_entry["ks"], h.dtype)
+        v_cache = _kv_dequantize(cache_entry["v"], cache_entry["vs"], h.dtype)
+    else:
+        k_cache, v_cache = cache_entry["k"], cache_entry["v"]
     o = attn_lib.attend_extend(cfg, q, k_cache, v_cache, pos0,
                                window=_window(cfg, kind))
     h = h + attn_lib.out_proj(p["attn"], o)
@@ -236,13 +289,6 @@ def _block_step_tree(cfg: ModelConfig, p: Params, h: torch.Tensor,
     return h + common.apply_mlp(cfg, p["mlp"], x2), cache_entry
 
 
-def _empty_cache_entry(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
-                       dtype, device) -> Any:
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim())
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
-
-
 class Model:
     def __init__(self, run: RunConfig, flags: ModelFlags = ModelFlags()):
         self.run = run
@@ -291,7 +337,9 @@ class Model:
                 max_seq: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
         """Returns (logits of the last position (B, V) fp32, cache with
-        ``max_seq`` slots, {"h_final": (B, S, D) pre-final-norm hiddens})."""
+        ``max_seq`` slots, {"h_final": (B, S, D) pre-final-norm hiddens}).
+        The prompt attends full-precision K/V; under ``kv_quant`` the cache
+        then stores its codes and scales (JAX's ``_materialize_cache``)."""
         tokens = batch["tokens"]
         h = self.embed(params, tokens)
         B, S, _ = h.shape
@@ -299,33 +347,48 @@ class Model:
         positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
         segs = []
         for si, (unit, reps) in enumerate(self.segments):
-            seg_cache = {f"u{i}": {name: torch.zeros(
-                (reps, B, max_seq, self.cfg.num_kv_heads,
-                 self.cfg.resolved_head_dim()), dtype=self.dtype,
-                device=h.device) for name in ("k", "v")}
-                for i in range(len(unit))}
+            seg_cache = {f"u{i}": self.empty_cache_entry(reps, B, max_seq,
+                                                         h.device)
+                         for i in range(len(unit))}
             for r in range(reps):
                 up = index_tree(params["segments"][si], r)
                 for i, kind in enumerate(unit):
                     h, kv = _block_seq(self.cfg, kind, up[f"u{i}"], h,
                                        positions, self.flags)
-                    for name in ("k", "v"):
-                        seg_cache[f"u{i}"][name][r, :, :S] = kv[name]
+                    for name, val in _kv_vals(kv["k"], kv["v"],
+                                              self.flags.kv_quant).items():
+                        seg_cache[f"u{i}"][name][r, :, :S] = val
             segs.append(seg_cache)
         cache = {"segments": segs,
                  "len": torch.full((B,), S, dtype=torch.int32,
                                    device=h.device)}
         return self.logits(params, h[:, -1, :]), cache, {"h_final": h}
 
+    def empty_cache_entry(self, reps: int, batch: int, max_seq: int,
+                          device) -> Any:
+        """One zeroed attention cache entry (counterpart of JAX's
+        ``_empty_cache_entry``, stacked over ``reps``): K/V (reps, batch,
+        max_seq, KVH, hd), or under ``kv_quant`` int8 codes beside fp32
+        scales (reps, batch, max_seq, KVH). The paged manager builds its
+        pools with ``batch`` = pages and ``max_seq`` = page size."""
+        shape = (reps, batch, max_seq, self.cfg.num_kv_heads,
+                 self.cfg.resolved_head_dim())
+        if not self.flags.kv_quant:
+            return {name: torch.zeros(shape, dtype=self.dtype, device=device)
+                    for name in ("k", "v")}
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=device),
+                "vs": torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=device)}
+
     def empty_cache(self, batch: int, max_seq: int,
                     device: Union[str, torch.device] = "cuda") -> Any:
-        segs = []
-        for unit, reps in self.segments:
-            segs.append({f"u{i}": {name: t.expand(reps, *t.shape).clone()
-                                   for name, t in _empty_cache_entry(
-                                       self.cfg, kind, batch, max_seq,
-                                       self.dtype, device).items()}
-                         for i, kind in enumerate(unit)})
+        segs = [{f"u{i}": self.empty_cache_entry(reps, batch, max_seq,
+                                                 device)
+                 for i in range(len(unit))}
+                for unit, reps in self.segments]
         return {"segments": segs,
                 "len": torch.zeros(batch, dtype=torch.int32, device=device)}
 
@@ -390,7 +453,7 @@ class Model:
         ce = index_tree(seg_cache, unit_idx)
         for i, kind in enumerate(unit):
             _block_propagate(self.cfg, kind, up[f"u{i}"], h, ce[f"u{i}"], pos,
-                             pages=pages)
+                             self.flags, pages=pages)
         return seg_cache
 
     # ----- tree-verification API (T3) -----

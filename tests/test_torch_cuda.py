@@ -491,3 +491,95 @@ def test_quant_engine_kernels_match_plain_path(dev, strategy, spec):
     if strategy == "specee":
         assert LAUNCHES["topk_verify_q"] > 0 and LAUNCHES["spec_head_q"] > 0
         assert LAUNCHES["predictor_mlp_q"] > 0
+
+
+def _int8_pools(gen, dev, n_pages, ps, kvh, hd):
+    """int8 K/V pools with their fp32 scale pools, quantized as the model
+    stores them; the last page (the trash page) zeroed, scales too."""
+    from repro_torch.models.model import _kv_quantize
+    out = []
+    for _ in range(2):
+        codes, scale = _kv_quantize(_rand(gen, (n_pages, ps, kvh, hd), dev))
+        codes[-1], scale[-1] = 0, 0.0
+        out += [codes, scale]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kvh,hd,ps,window", [(8, 128, 16, None),
+                                              (2, 64, 7, 5),
+                                              (4, 32, 32, None),
+                                              (8, 128, 128, 20)])
+def test_paged_decode_attention_q_kernel_matches_plain(dev, dtype, kvh, hd,
+                                                       ps, window):
+    """The int8 paged kernel against its plain version (codes and scales
+    gathered, dequantized and attended in fp32): a shuffled table, ragged
+    lengths, a retired row reading the zeroed trash page; counted under
+    ``paged_decode_attention_q`` only."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        paged_decode_attention_fwd)
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    B, H, P = 4, 8, 6
+    NP = B * P + 3
+    q = _rand(gen, (B, 1, H, hd), dev, dtype)
+    kp, ks, vp, vs = _int8_pools(gen, dev, NP + 1, ps, kvh, hd)
+    table = torch.as_tensor(_shuffled_table(B, P, NP, 1), device=dev)
+    table[3] = NP
+    clen = torch.tensor([P * ps, 2 * ps + 3, 1, 1], dtype=torch.int32,
+                        device=dev)
+    reset_launches()
+    got = paged_decode_attention_fwd(q, kp, vp, table, clen, window=window,
+                                     k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_decode_attention_q"] == 1
+    assert LAUNCHES["paged_decode_attention"] == 0
+    want = paged_decode_attention_ref(q.float(), kp, vp, table, clen,
+                                      window, ks, vs)
+    assert bool(torch.isfinite(got.float()).all())
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)
+
+
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_kv_quant_serving_kernels_match_plain_path(dev, chunk):
+    """kv_quant ``ServingEngine`` on the card at smoke width, fp32: the
+    kernel path (int8 paged kernel, flash prefill, fused gate) gives the
+    same per-request tokens and exit points as the plain path (dense cache,
+    reference gate) at the same admission mode; the kernel path launches
+    ``paged_decode_attention_q`` and never the fp paged kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine
+    run = get_config("llama2-7b").smoke()
+    m_plain = build_model(run, ModelFlags(exit_gate_impl="ref",
+                                          kv_quant=True))
+    m_ker = build_model(run, ModelFlags(flash_attention=True,
+                                        decode_kernel=True,
+                                        exit_gate_kernel=True,
+                                        exit_gate_impl="kernel",
+                                        kv_quant=True))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = m_plain.init(gen, dev)
+    sw = eng.init_specee(m_plain, gen, dev)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 512, n) for n in (5, 19, 3, 40, 11)]
+    outs = []
+    for m, fused, cache in ((m_ker, True, "paged"),
+                            (m_plain, False, "dense")):
+        reset_launches()
+        e = ServingEngine(m, params, sw, cache=cache, prefill_chunk=chunk,
+                          fused_gate=fused)
+        reqs = [e.submit(p, max_new_tokens=6) for p in prompts]
+        e.run_to_completion()
+        mgr = e.session.cache_mgr
+        assert mgr.free_pages == getattr(mgr, "num_pages", 0)
+        outs.append([(r.output, r.exit_points) for r in reqs])
+        if m is m_ker:
+            assert LAUNCHES["paged_decode_attention_q"] > 0
+            assert LAUNCHES["paged_decode_attention"] == 0
+    assert outs[0] == outs[1]
