@@ -5,14 +5,15 @@ PyTorch version, drives greedy SpecEE decode and T3 tree speculative
 decoding of Llama-2-7B through the port's public entry points, serves
 requests through its continuous-batching ``ServingEngine`` on the paged KV
 cache, in AR and in tree mode, runs all three with weight-only int8
-and int4 quantization, and serves on an int8 KV cache
-(``ModelFlags(kv_quant=True)``), alone and with int8 weights.
+and int4 quantization, serves on an int8 KV cache
+(``ModelFlags(kv_quant=True)``), alone and with int8 weights, and decodes
+and serves Mamba2 (mamba2-130m) with the SSD intra-chunk kernel.
 
     python3 chip_smoke.py
 
 Phases (lines ``[phase +seconds since the start] ...``):
   1. device + build — the card's name and power limit, then ``nvcc`` builds
-     the thirteen kernels of ``src/repro_torch/csrc`` for sm_90a (in
+     the fourteen kernels of ``src/repro_torch/csrc`` for sm_90a (in
      parallel);
   2. kernels — each kernel vs its plain version in fp32 and bf16 at the
      main paths' shapes (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128,
@@ -36,7 +37,13 @@ Phases (lines ``[phase +seconds since the start] ...``):
      dequantized head, timed in bf16 beside the fp kernel on the
      dequantized bf16 head (a yardstick: no one PyTorch call computes the
      same function), and the host time per call of the fp and the
-     quantized gate and verify entry points;
+     quantized gate and verify entry points; then the SSD intra-chunk
+     kernel (ssd_chunk: fp32 and bf16 B/C, c 32/64, d_state 16/128, head
+     dim 32/64, 1/8/32 cells, decay steep enough that exp(cum_t - cum_s)
+     overflows for s > t) against its plain version, timed at a 512-token
+     mamba2-130m admission beside a yardstick (bmm + batched product), and
+     the gate and verify kernels at mamba2's D=768, V=50280 on a tied head
+     made contiguous;
   3. parity — llama2-7b at full width, 4 layers, fp32, seeded weights:
      Engine.create → new_session → prefill(4 prompts) → step x 8 at
      thresholds 1.5, 0.4, -0.1, with the kernels and with the plain
@@ -64,7 +71,13 @@ Phases (lines ``[phase +seconds since the start] ...``):
      and paged caches at thresholds 1.5, 0.4, -0.1 and an oracle set that
      forces exits, kv_quant ServingEngine (blocking and 64-token chunked,
      each against the plain run of its own admission mode, which differ by
-     design under kv_quant), and the same with quant="int8";
+     design under kv_quant), and the same with quant="int8". Then
+     mamba2-130m at full width, 4 layers, fp32: AR sessions with every
+     kernel (ssd_kernel too) against the plain paths on dense and paged
+     caches at thresholds 1.5 (must equal dense greedy), 0.4, -0.1 and an
+     oracle set that forces exits (frozen SSD states, shifted conv
+     windows), and ServingEngine blocking and with 64-token chunks (which
+     fall back to whole-prompt admission);
   4. full run — llama2-7b, 32 layers, bf16, 4 prompts of 128 tokens,
      32 SpecEE decode steps (whole-batch session, dense cache);
   5. serve — the same weights, ServingEngine(cache="paged") with
@@ -93,14 +106,20 @@ Phases (lines ``[phase +seconds since the start] ...``):
      ServingEngine(quant="int8") on the first 8 serve prompts, compared with
      phase 7's int8 run; each run must launch paged_decode_attention_q and
      never paged_decode_attention;
-  9. the ``{"kernels": [...]}`` line (13 kernels), the card line, and as
+  9. mamba — mamba2-130m at published size (24 layers, D=768, V=50280
+     tied, bf16, seeded): whole-batch AR SpecEE (B=4, prompt 128, 32
+     steps, dense cache) and ServingEngine(cache="paged") with max_batch 8:
+     16 requests with prompts of 64-512 tokens, 32 new tokens each; each
+     must launch ssd_chunk (once per layer per prefill), exit_gate,
+     argmax_verify and topk_verify; then profiles of steps and ticks;
+ 10. the ``{"kernels": [...]}`` line (14 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
 token per step (one emitted token per tree step), so the tree runs measure
 the mechanism's cost, not its gain.
 
-Each main path (phases 4 to 8, each run on its own) zeroes the
+Each main path (phases 4 to 9, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -142,6 +161,7 @@ REPLACES = {
         "src/repro/kernels/predictor_mlp/predictor_mlp.py:119",
     "paged_decode_attention_q":
         "src/repro/kernels/decode_attention/decode_attention.py:173",
+    "ssd_chunk": "src/repro/kernels/ssd_chunk/ssd_chunk.py:47",
 }
 QUANT_KERNELS = ("argmax_verify_q", "topk_verify_q", "spec_head_q",
                  "predictor_mlp_q")
@@ -156,6 +176,9 @@ SERVE_PATH = ("paged_decode_attention", "exit_gate", "argmax_verify",
 KVQ_SERVE_PATH = tuple("paged_decode_attention_q" if k ==
                        "paged_decode_attention" else k for k in SERVE_PATH)
 TREE_PATH = ("spec_head", "predictor_mlp", "argmax_verify", "flash_attention")
+# Mamba2 (no attention): the SSD kernel in prefill and admission, the fp
+# gate and verify kernels in every decode step
+MAMBA_PATH = ("ssd_chunk", "exit_gate", "argmax_verify", "topk_verify")
 # Under weight quantization the fused gate becomes the piecewise one and
 # each gate or verify kernel its quantized sibling; attention is unchanged.
 QUANTIZED = {"exit_gate": ("spec_head_q", "predictor_mlp_q"),
@@ -178,6 +201,9 @@ SERVE_PROMPTS = (64, 512)                    # prompt lengths, inclusive
 TREE_DEPTH, TREE_BRANCH = 3, 3               # 40 nodes, 27 root-leaf paths
 TREE_STEPS, TREE_SERVE_REQS = 16, 8
 QUANT_TREE_STEPS = 4                         # tree steps of the quant phase
+# mamba2-130m (src/repro_torch/configs/mamba2_130m.py): D=768, V=50280 tied,
+# 24 SSD layers of 24 heads of 64, d_state 128, 64-token chunks
+M_D, M_V, M_NH, M_HD, M_DS, M_CHUNK = 768, 50280, 24, 64, 128, 64
 
 
 T_START = time.perf_counter()
@@ -1193,7 +1219,7 @@ def top2_margin(torch, model, params, tokens):
     with its margin, not hidden behind a looser check)."""
     logits, _, _ = model.prefill(
         params, {"tokens": torch.as_tensor([tokens], device=params[
-            "lm_head"]["w"].device)})
+            "embed"]["tok"].device)})
     top = torch.topk(logits[0].float(), 2).values
     return float(top[0] - top[1]), float(top[0])
 
@@ -1220,7 +1246,11 @@ def oracle_strategy(threshold: float):
             pos = state.cache["len"]
             pages = state.cache.get("page_table")
             h = model.embed(params, state.last_token[:, None])[:, 0, :]
-            seg = state.cache["segments"][0]
+            # running ahead rewrites the same K/V, but would advance an
+            # SSD state twice: per-row state entries run on a copy
+            seg = {k: ({n: x.clone() for n, x in e.items()}
+                       if "state" in e else e)
+                   for k, e in state.cache["segments"][0].items()}
             for u in range(2):
                 h, seg = model.run_unit(params, 0, u, h, seg, pos,
                                         pages=pages)
@@ -1695,11 +1725,11 @@ def full_run(torch, dev, params, sw):
 # ---------------------------------------------------------------------------
 # phase 5: continuous-batching serving on the paged cache
 # ---------------------------------------------------------------------------
-def serve_prompts():
+def serve_prompts(vocab: int = V):
     import numpy as np
     rng = np.random.default_rng(11)
     lo, hi = SERVE_PROMPTS
-    return [rng.integers(0, V, int(n))
+    return [rng.integers(0, vocab, int(n))
             for n in rng.integers(lo, hi + 1, SERVE_REQS)]
 
 
@@ -2232,6 +2262,417 @@ def flip_margins(torch, params, out_block, out_chunk, phase: str,
         f"{what}" + (": " if notes else "") + "; ".join(notes))
 
 
+# ---------------------------------------------------------------------------
+# Mamba2 (mamba2-130m): the SSD kernel (phase 2), parity (phase 3) and the
+# model at published size (phase 9)
+# ---------------------------------------------------------------------------
+def check_ssd_kernel(torch, dev):
+    """Phase 2, SSD: ``ssd_chunk`` against its plain version with fp32 and
+    bf16 B/C, c in {32, 64}, ds in {16, 128}, hd in {32, 64}, 1, 8 and 32
+    cells, mild decay and steep decay (cum falls by up to 40 per token, so
+    exp(cum_t - cum_s) for s > t overflows fp32 and must not be evaluated);
+    then timed at a 512-token admission of mamba2-130m (8 cells, c=64,
+    nh=24, hd=64, ds=128, bf16 B/C) beside its plain version, a yardstick
+    (``torch.bmm`` for C.B^T, then the masked decayed scores, built
+    outside the timed call, times x in one batched product; no one PyTorch
+    call computes the function) and its bound. Then the gate and verify
+    kernels at mamba2's widths (D=768, V=50280) on a tied head made
+    contiguous, and the refusal of the strided ``embed.T`` view."""
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref as gref
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk_fwd
+    from repro_torch.models.common import lm_head_weight, with_contiguous_head
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def rnd(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def inputs(cells, c, hd, ds, bc_dtype, steep):
+        cum = -torch.cumsum(torch.rand((cells, c, M_NH), generator=gen,
+                                       device=dev) * steep, dim=1)
+        return (rnd((cells, c, M_NH, hd)), cum,
+                rnd((cells, c, ds), bc_dtype, ds ** -0.25),
+                rnd((cells, c, ds), bc_dtype, ds ** -0.25))
+
+    # fp32 accumulation of the same (upcast) inputs in another order:
+    # atol = rtol = 1e-4
+    err, cases = 0.0, 0
+    for bc in (torch.float32, torch.bfloat16):
+        for c, ds, hd in ((32, 16, 32), (64, 128, 64), (64, 16, 32),
+                          (32, 128, 64)):
+            for cells in (1, 8, 32):
+                for steep in (1.0, 40.0):
+                    args = inputs(cells, c, hd, ds, bc, steep)
+                    got, want = ssd_chunk_fwd(*args), ssd_chunk_ref(*args)
+                    require(bool(torch.isfinite(got).all()),
+                            f"ssd_chunk: non-finite output (c {c}, ds "
+                            f"{ds}, hd {hd}, steep {steep})")
+                    torch.testing.assert_close(got, want, atol=1e-4,
+                                               rtol=1e-4)
+                    err = max(err, (got - want).abs().max().item())
+                    cases += 1
+    torch.cuda.synchronize()
+    log("kernels", f"ssd_chunk: {cases} cases (fp32/bf16 B,C; c 32/64; ds "
+        f"16/128; hd 32/64; 1/8/32 cells; decay up to 40 per token) equal "
+        f"the plain version, max err {err:.3g}")
+
+    cells, c = 8, M_CHUNK
+    sets = [inputs(cells, c, M_HD, M_DS, torch.bfloat16, 1.0)
+            for _ in range(16)]
+    causal = torch.ones(c, c, dtype=torch.bool, device=dev).tril()
+    yard_in = []
+    for xdt, cum, bm, cm in sets:             # prepared outside the timing
+        rel = cum[:, :, None, :] - cum[:, None, :, :]
+        dec = torch.where(causal[None, :, :, None], torch.exp(rel),
+                          torch.zeros((), device=dev))
+        yard_in.append((bm.float(), cm.float(),
+                        dec.permute(0, 3, 1, 2).contiguous(),
+                        xdt.permute(0, 2, 1, 3).contiguous()))
+
+    def yardstick(bm, cm, dec, xt):
+        cb = torch.bmm(cm, bm.transpose(1, 2))            # (cells, c, c)
+        return torch.matmul(cb[:, None] * dec, xt)        # (cells, nh, c, hd)
+
+    nbytes = (2 * cells * c * M_DS * 2 + cells * c * M_NH * 4
+              + 2 * cells * c * M_NH * M_HD * 4)
+    ops = cells * (2 * c * c * M_DS + 2 * c * c * M_NH * M_HD)
+    timing = {"ssd_chunk": (
+        graph_ms(torch, [lambda a=a: ssd_chunk_fwd(*a) for a in sets]),
+        graph_ms(torch, [lambda a=a: ssd_chunk_ref(*a) for a in sets]),
+        None,
+        bound_ms(nbytes, ops, "float32"),
+        graph_ms(torch, [lambda a=a: yardstick(*a) for a in yard_in]))}
+    ms, plain, _, (bnd, by), yard = timing["ssd_chunk"]
+    log("kernels", f"ssd_chunk at a 512-token admission ({cells} cells of "
+        f"{c}, {M_NH} heads of {M_HD}, d_state {M_DS}, bf16 B/C): kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, yardstick (bmm + batched "
+        f"product) {yard:.4f} ms, bound {bnd:.4f} ms ({by}: "
+        f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP fp32)")
+    del sets, yard_in
+
+    # the gate and verify kernels at mamba2's widths, tied head
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        params = {"embed": {"tok": rnd((M_V, M_D), dt, 0.05)}}
+        head = lm_head_weight(with_contiguous_head(params))
+        hn = rnd((B, M_D), dt)
+        tok, mx = eg.argmax_verify_fused(hn, head)
+        tok_r, mx_r = gref.verify_argmax_ref(hn, head)
+        require(torch.equal(tok, tok_r), f"mamba2 width: argmax ids ({name})")
+        torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)
+        ids, vals = eg.topk_verify_fused(hn, head, K_SPEC)
+        ids_r, vals_r = gref.verify_topk_ref(hn, head, K_SPEC)
+        require(torch.equal(ids, ids_r), f"mamba2 width: top-k ids ({name})")
+        torch.testing.assert_close(vals, vals_r, atol=1e-4, rtol=1e-4)
+        spec = torch.randint(M_V - 8, M_V, (B, K_SPEC), generator=gen,
+                             device=dev, dtype=torch.int32)   # ragged tail
+        prev = torch.softmax(rnd((B, K_SPEC)), -1)
+        w1, b1 = rnd((3 * K_SPEC, H_PRED), scale=12 ** -0.5), rnd((H_PRED,))
+        w2, b2 = rnd((H_PRED, 1), scale=H_PRED ** -0.5), rnd((1,))
+        pred = {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
+        e_gate = 0.0
+        for a, b in zip(eg.exit_gate_fused(hn, head, spec, prev, w1, b1, w2,
+                                           b2),
+                        gref.exit_gate_ref(hn, head, spec, prev, pred)):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+            e_gate = max(e_gate, (a - b).abs().max().item())
+        try:
+            eg.argmax_verify_fused(hn, lm_head_weight(params))
+            require(False, "the strided embed.T head was not refused")
+        except ValueError:
+            pass
+        errs[name] = ((mx - mx_r).abs().max().item(),
+                      (vals - vals_r).abs().max().item(), e_gate)
+        del params, head
+    log("kernels", "gate and verify at D=768, V=50280 on the contiguous "
+        "tied head: ids exact; max err argmax/top-k/gate " + "; ".join(
+            f"{k} {a:.3g}/{b:.3g}/{g:.3g}" for k, (a, b, g) in errs.items())
+        + "; the strided embed.T view raises")
+    return {"ssd_chunk": err}, timing
+
+
+def mamba(layers: int, dtype: str, **serve):
+    """mamba2-130m at full width with ``layers`` layers in ``dtype``;
+    keyword arguments replace ``ServeConfig`` fields."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    run = get_config("mamba2-130m")
+    return dataclasses.replace(
+        run, model=dataclasses.replace(run.model, num_layers=layers,
+                                       dtype=dtype),
+        serve=dataclasses.replace(run.serve, **serve))
+
+
+MAMBA_KERNELS = dict(ALL_KERNELS, ssd_kernel=True)
+
+
+def _same_streams(torch, m_plain, params, prompts, got, want, label):
+    """Session summaries (tokens, exit points, exits, units_run per
+    result) must be equal; a flipped token is reported with the plain
+    model's top-2 logit margin there."""
+    for step, (g, w) in enumerate(zip(got, want)):
+        if g[0] != w[0]:
+            row = next(r for r in range(len(g[0])) if g[0][r] != w[0][r])
+            before = [res[0][row][0] for res in want[:step]]
+            margin, _ = top2_margin(torch, m_plain, params,
+                                    list(prompts[row]) + before)
+            raise AssertionError(
+                f"{label}: row {row} token {step} is {g[0][row][0]}, plain "
+                f"gives {w[0][row][0]}; top-2 logit margin {margin:.3g}")
+    require(got == want, f"{label}: exit points or units differ")
+
+
+def mamba_parity(torch, dev):
+    """Phase 3, Mamba2: mamba2-130m at full width, 4 layers, fp32, seeded
+    weights. AR SpecEE sessions with every kernel flag (``ssd_kernel``
+    too) against the plain paths on dense and paged caches at thresholds
+    1.5 (must equal dense greedy), 0.4 and -0.1, and with an oracle set
+    that forces exits (frozen SSD states, shifted conv windows); then
+    ``ServingEngine`` blocking and with ``prefill_chunk=64`` (falls back to
+    whole-prompt admission), draft and oracle sets, against the plain
+    blocking dense run."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.api import DenseStrategy, SpecEEStrategy
+    from repro_torch.core import engine as eng
+    from repro_torch.models.model import ModelFlags, build_model
+    run = mamba(4, "float32", max_batch=4, max_seq_len=512, page_size=PAGE)
+    m_plain = build_model(run, ModelFlags(exit_gate_impl="ref"))
+    m_ker = build_model(run, ModelFlags(**MAMBA_KERNELS))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = m_plain.init(gen, dev)
+    sw = eng.init_specee(m_plain, gen, dev)
+    # 100 tokens: one whole 64-token chunk and a ragged one
+    prompts = np.random.default_rng(6).integers(0, M_V, (B, 100))
+
+    def summary(results):
+        return [(r.tokens.tolist(), r.exit_layer.tolist(), r.exited.tolist(),
+                 r.units_run) for r in results]
+
+    dense = summary(drive(m_plain, params, sw, DenseStrategy(), prompts, 9))
+    for cache in ("dense", "paged"):
+        for label, strat in (("threshold 1.5", SpecEEStrategy(1.5)),
+                             ("threshold 0.4", SpecEEStrategy(0.4)),
+                             ("threshold -0.1", SpecEEStrategy(-0.1)),
+                             ("oracle set", oracle_strategy(-0.1))):
+            K.reset_launches()
+            a = summary(drive(m_ker, params, sw, strat, prompts, 9,
+                              cache=cache))
+            launched = {k: K.LAUNCHES[k] for k in MAMBA_PATH}
+            b = summary(drive(m_plain, params, sw, strat, prompts, 9,
+                              cache=cache))
+            _same_streams(torch, m_plain, params, prompts, a, b,
+                          f"mamba2 {cache} cache, {label}")
+            require(all(launched.values()), f"mamba2 {label}: kernels not "
+                    f"launched: {launched}")
+            require(launched["ssd_chunk"] == 4, "mamba2: ssd_chunk "
+                    f"launched {launched['ssd_chunk']} times in one prefill "
+                    "of 4 layers")
+            exits = sum(sum(x) for _, _, x, _ in a[1:])
+            if label == "threshold 1.5":
+                require([r[0] for r in a] == [r[0] for r in dense],
+                        "mamba2 at threshold 1.5 differs from dense greedy")
+            if label == "oracle set":
+                require(exits > 0, "mamba2: the oracle set forced no exit")
+            log("parity", f"mamba2 {cache} cache, {label}: 8 steps, tokens/"
+                f"exit points/exits identical with kernels and plain "
+                f"versions ({exits} exits"
+                + ("; equals dense greedy" if label == "threshold 1.5"
+                   else "") + "; launches " + ", ".join(
+                    f"{k} {v}" for k, v in launched.items()) + ")")
+
+    rng = np.random.default_rng(7)
+    sprompts = [rng.integers(0, M_V, int(n)) for n in rng.integers(20, 201, 8)]
+    for set_name, strat in (("draft", SpecEEStrategy(threshold=-0.1)),
+                            ("oracle", oracle_strategy(-0.1))):
+        want = _serve(m_plain, params, sw, sprompts, 8, strategy=strat,
+                      fused_gate=False, cache="dense", prefill_chunk=0)
+        for cache, chunk in (("paged", 0), ("paged", 64), ("dense", 64)):
+            K.reset_launches()
+            got = _serve(m_ker, params, sw, sprompts, 8, strategy=strat,
+                         fused_gate=True, cache=cache, prefill_chunk=chunk)
+            require(K.LAUNCHES["ssd_chunk"] == 8 * 4, "mamba2 serving: "
+                    f"ssd_chunk launched {K.LAUNCHES['ssd_chunk']} times for "
+                    "8 whole-prompt admissions of 4 layers")
+            for i, ((out, eps), (out_w, eps_w)) in enumerate(zip(got, want)):
+                if out != out_w:
+                    j = next(j for j, (a, b) in enumerate(zip(out, out_w))
+                             if a != b)
+                    margin, _ = top2_margin(torch, m_plain, params,
+                                            list(sprompts[i]) + out_w[:j])
+                    raise AssertionError(
+                        f"mamba2 serving ({set_name} set, {cache}, chunk "
+                        f"{chunk}): request {i} token {j} is {out[j]}, plain "
+                        f"gives {out_w[j]}; top-2 logit margin {margin:.3g}")
+                require(eps == eps_w, f"mamba2 serving ({set_name} set, "
+                        f"{cache}, chunk {chunk}): request {i} exit points")
+        exits = sum(e < m_ker.num_exit_points for _, eps in want for e in eps)
+        require(set_name == "draft" or exits > 0,
+                "mamba2 serving: the oracle set forced no exit")
+        log("parity", f"mamba2 serving, {set_name} set: 8 requests through "
+            "4 slots, per-request tokens and exit points identical for "
+            "paged blocking, paged and dense 64-token chunks (whole-prompt "
+            f"fallback) and the plain dense blocking run ({exits} exits); "
+            "every page returned")
+    del params, sw
+
+
+def mamba_phase(torch, dev):
+    """Phase 9: mamba2-130m at published size (24 layers, bf16, seeded):
+    whole-batch AR SpecEE (B=4, 128-token prompts, 32 steps, dense cache)
+    and ``ServingEngine(cache="paged")`` (max_batch 8, 16 requests with
+    prompts of 64-512 tokens, 32 new tokens each; the default 512-token
+    chunked admission falls back to whole prompts). Each run zeroes the
+    launch counts right before it and reads them right after."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.api import DenseStrategy, Engine, SpecEEStrategy
+    from repro_torch.core import engine as eng
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine
+    model = build_model(mamba(24, "bfloat16"), ModelFlags(**MAMBA_KERNELS))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    params = model.init(gen, dev)
+    sw = eng.init_specee(model, gen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    n_draft = sum(x.numel() for x in _leaves(sw))
+    log("mamba", f"mamba2-130m 24 layers bf16: {n_params / 1e6:.1f} M "
+        f"params (+{n_draft / 1e6:.1f} M draft and predictors) seeded on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    prompts = np.random.default_rng(12).integers(0, M_V, (B, FULL_PROMPT))
+    torch.cuda.reset_peak_memory_stats()
+
+    K.reset_launches()                     # ---- the main path ----
+    session = Engine.create(model, params, sw,
+                            strategy=SpecEEStrategy()).new_session()
+    t0 = time.perf_counter()
+    first = session.prefill(prompts, max_new_tokens=FULL_STEPS + 1)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    steps = []
+    t0 = time.perf_counter()
+    for _ in range(FULL_STEPS):
+        steps.append(session.step())
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+
+    require(session.all_done(), "mamba2 session not done after the budget")
+    toks = np.stack([r.tokens[:, 0] for r in [first] + steps], 1)
+    require(toks.shape == (B, FULL_STEPS + 1), f"token shape {toks.shape}")
+    require(((toks >= 0) & (toks < M_V)).all(), "token out of vocabulary")
+    require(bool(torch.isfinite(session._state.h_last.float()).all()),
+            "non-finite hidden state")
+    require(launches["ssd_chunk"] == model.num_exit_points,
+            f"ssd_chunk launched {launches['ssd_chunk']} times in one "
+            "whole-batch prefill of 24 layers")
+    missing = [k for k in MAMBA_PATH if launches[k] == 0]
+    require(not missing, f"kernels never launched on the mamba2 path: "
+            f"{missing}")
+    exits = sum(int(r.exited.sum()) for r in steps)
+    units = [r.units_run for r in steps]
+    log("mamba", f"whole batch: prefill {B}x{FULL_PROMPT} in "
+        f"{t_prefill:.3f} s; {FULL_STEPS} steps in {t_decode:.3f} s = "
+        f"{B * FULL_STEPS / t_decode:.2f} tokens/s "
+        f"({t_decode / FULL_STEPS * 1e3:.2f} ms/step); exits per token "
+        f"{exits / (B * FULL_STEPS):.4f}; mean units_run "
+        f"{sum(units) / len(units):.2f} of {model.num_exit_points}; peak "
+        f"card memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("mamba", "whole batch launches: " + ", ".join(
+        f"{k} {launches[k]} ({launches[k] / FULL_STEPS:.2f}/step)"
+        for k in MAMBA_PATH))
+    if exits == 0:
+        dense = drive(model, params, sw, DenseStrategy(), prompts,
+                      FULL_STEPS + 1)
+        require(np.array_equal(np.stack([r.tokens[:, 0] for r in dense], 1),
+                               toks), "mamba2 run differs from dense greedy")
+        log("mamba", "no row exited: tokens equal dense greedy decoding")
+    del session
+    profile_steps(torch, model, params, sw, prompts, t_decode / FULL_STEPS,
+                  phase="profile-mamba")
+
+    srun = mamba(24, "bfloat16", max_batch=SERVE_BATCH,
+                 max_seq_len=SERVE_SEQ, page_size=PAGE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    se = ServingEngine(build_model(srun, ModelFlags(**MAMBA_KERNELS)),
+                       params, sw, cache="paged")
+    mgr = se.session.cache_mgr
+    sprompts = serve_prompts(M_V)
+    admit_s = [0.0]
+    tick = se.scheduler.tick
+
+    def timed_tick(*a, **kw):                # admission time, synced
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tick(*a, **kw)
+        torch.cuda.synchronize()
+        admit_s[0] += time.perf_counter() - t0
+        return out
+
+    se.scheduler.tick = timed_tick
+    ticks = 0
+    K.reset_launches()                       # ---- the main path ----
+    t0 = time.perf_counter()
+    reqs = [se.submit(p, max_new_tokens=SERVE_NEW) for p in sprompts]
+    while se.busy:
+        se.step()
+        ticks += 1
+        require(ticks <= 10_000, "mamba2 serving did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s_launches = dict(K.LAUNCHES)            # ---- read right after ----
+    del se.scheduler.tick
+
+    require(all(r.done and len(r.output) == SERVE_NEW for r in reqs),
+            "a mamba2 request did not finish with its 32 tokens")
+    require(all(0 <= t < M_V for r in reqs for t in r.output),
+            "token out of vocabulary")
+    require(mgr.free_pages == mgr.num_pages, "pages not returned")
+    require(s_launches["ssd_chunk"] == SERVE_REQS * 24,
+            f"ssd_chunk launched {s_launches['ssd_chunk']} times for "
+            f"{SERVE_REQS} whole-prompt admissions of 24 layers")
+    missing = [k for k in MAMBA_PATH if s_launches[k] == 0]
+    require(not missing, f"kernels never launched on the mamba2 serving "
+            f"path: {missing}")
+    tokens = sum(len(r.output) for r in reqs)
+    decode_ticks = sum(len(r.exit_points) for r in reqs)
+    exits = sum(e < model.num_exit_points for r in reqs
+                for e in r.exit_points)
+    state_gb = sum(x.numel() * x.element_size() for x in _leaves(
+        se.session._state.cache["segments"])) / 1e9
+    log("mamba", f"serve: {SERVE_REQS} requests (prompts "
+        f"{min(map(len, sprompts))}-{max(map(len, sprompts))} tokens, "
+        f"{SERVE_NEW} new each) through {SERVE_BATCH} slots in {wall:.3f} s "
+        f"= {SERVE_REQS / wall:.3f} requests/s, {tokens / wall:.2f} "
+        f"tokens/s; {ticks} ticks, {wall / ticks * 1e3:.2f} ms/tick "
+        f"({(wall - admit_s[0]) / ticks * 1e3:.2f} ms/tick without "
+        f"admission); admission (prefill) {admit_s[0]:.3f} s; exits per "
+        f"token {exits / max(decode_ticks, 1):.4f}; SSD state + conv "
+        f"{state_gb:.3f} GB, no page pool; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log("mamba", "serve launches: " + ", ".join(
+        f"{k} {s_launches[k]} ({s_launches[k] / ticks:.2f}/tick)"
+        for k in MAMBA_PATH))
+    del se
+    se = ServingEngine(build_model(srun, ModelFlags(**MAMBA_KERNELS)),
+                       params, sw, cache="paged")
+    for p in sprompts[:SERVE_BATCH]:
+        se.submit(p, max_new_tokens=8)
+    se.step()                                 # admits all 8, one tick
+    se.step()
+    torch.cuda.synchronize()
+    profile_ticks(torch, "profile-mamba-serve", se.step, 4)
+    del se, params, sw
+    return {"mamba_whole_batch": launches, "mamba_serve": s_launches}
+
+
 # where the device time of a decode step goes, by kernel family (the paged
 # kernel's name contains the dense one's, so it is matched first); the
 # quantized verify, spec-head and paged-attention kernels are the fp ones'
@@ -2247,19 +2688,20 @@ FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
             ("paged_decode_attention", ("paged_decode_attention_kernel",)),
             ("decode_attention", ("decode_attention_kernel",)),
             ("flash_attention", ("flash_attention_kernel",)),
+            ("ssd_chunk", ("ssd_chunk_kernel",)),
             ("matmul", ("gemm", "gemv", "cutlass", "cublas", "sm90_xmma",
                         "splitK", "nvjet")))
 
 
 def profile_steps(torch, model, params, sw, prompts, step_s: float,
-                  n: int = 4) -> None:
+                  n: int = 4, phase: str = "profile") -> None:
     """torch.profiler over ``n`` more whole-batch SpecEE steps."""
     from repro_torch.api import Engine, SpecEEStrategy
     session = Engine.create(model, params, sw,
                             strategy=SpecEEStrategy()).new_session()
     session.prefill(prompts, max_new_tokens=n + 1)
     torch.cuda.synchronize()
-    profile_ticks(torch, "profile", session.step, n,
+    profile_ticks(torch, phase, session.step, n,
                   f" ({step_s * 1e3:.2f} unprofiled)")
 
 
@@ -2357,7 +2799,13 @@ def main() -> int:
     errs.update(errs_q)
     timing.update(t_q)
     torch.cuda.empty_cache()
+    errs_ssd, t_ssd = check_ssd_kernel(torch, dev)
+    errs.update(errs_ssd)
+    timing.update(t_ssd)
+    torch.cuda.empty_cache()
     parity(torch, dev)
+    torch.cuda.empty_cache()
+    mamba_parity(torch, dev)
     torch.cuda.empty_cache()
     params, sw = full_weights(torch, dev)
     by_path = {"whole_batch": full_run(torch, dev, params, sw)}
@@ -2370,6 +2818,9 @@ def main() -> int:
     quant_launches, q8_outs = quant_phase(torch, dev, params, sw)
     by_path.update(quant_launches)
     by_path.update(kvq_phase(torch, dev, params, sw, fp_serve, q8_outs))
+    del params, sw, fp_serve, q8_outs
+    torch.cuda.empty_cache()
+    by_path.update(mamba_phase(torch, dev))
 
     kernels = []
     for name in build.SOURCES:
@@ -2388,6 +2839,9 @@ def main() -> int:
                          "library_ms": r[name][2], "bound_ms": r[name][3][0],
                          "bound_by": r[name][3][1]}
                 for R, r in verify_rows.items()}
+        if name == "ssd_chunk":
+            # library_ms is null: no one PyTorch call computes the term
+            row["yardstick_ms"] = timing[name][4]    # bmm + batched product
         if name == "paged_decode_attention_q":
             # library_ms is null: no one PyTorch call takes int8 codes
             row["yardstick_ms"] = timing[name][4]    # SDPA, dequantized

@@ -16,9 +16,9 @@ them out of it.
 
 Allocation is by reservation: a row claims its full ``pages_per_row`` at
 admission and returns them at retirement, in the JAX package's order, so
-page ids come out equal to the JAX manager's for the same calls. The port
-holds only attention entries (its model zoo is the attention family), and
-the pools are written in place.
+page ids come out equal to the JAX manager's for the same calls. Only
+attention entries are paged: an SSD entry (per-row state) stays dense per
+row in both layouts. The pools are written in place.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from typing import Any, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.config import ATTN, LOCAL_ATTN
 from repro_torch.core import paged as paged_lib
 
 
@@ -139,6 +140,10 @@ class KVCacheManager:
         """Attention span the row currently pays (valid cache positions)."""
         return int(cache["len"][row])
 
+    def row_pages(self, row: int) -> int:
+        """Pages the row holds (0 in the dense layout)."""
+        return 0
+
     @property
     def free_pages(self) -> int:
         return 0
@@ -146,6 +151,12 @@ class KVCacheManager:
     @property
     def capacity(self) -> int:
         return self.seq_len
+
+    def _attention_units(self):
+        """(segment, unit key, kind, is attention) of every cache entry."""
+        for seg, (unit, _reps) in enumerate(self.model.segments):
+            for i, kind in enumerate(unit):
+                yield seg, f"u{i}", kind, kind in (ATTN, LOCAL_ATTN)
 
 
 class DenseKVCache(KVCacheManager):
@@ -202,6 +213,9 @@ class PagedKVCache(KVCacheManager):
     def free_pages(self) -> int:
         return len(self._free)
 
+    def row_pages(self, row: int) -> int:
+        return len(self._row_pages[row])
+
     def can_admit(self, prompt_len: int = 0) -> bool:
         return len(self._free) >= self.pages_per_row
 
@@ -225,11 +239,14 @@ class PagedKVCache(KVCacheManager):
     # ----- layout -----
     def empty_cache(self) -> Any:
         # pool leaves (num_pages + 1, page_size, ...): the last page is the
-        # trash page; zeroed, so a retired row reads finite K/V and scales
-        segs = [{f"u{i}": self.model.empty_cache_entry(
-                    reps, self.num_pages + 1, self.page_size, self.device)
-                 for i in range(len(unit))}
-                for unit, reps in self.model.segments]
+        # trash page; zeroed, so a retired row reads finite K/V and scales.
+        # Per-row (SSD) entries keep the batch layout.
+        reps = [r for _, r in self.model.segments]
+        segs = [{} for _ in reps]
+        for seg, key, kind, is_attn in self._attention_units():
+            segs[seg][key] = self.model.empty_cache_entry(
+                reps[seg], self.num_pages + 1 if is_attn else self.batch,
+                self.page_size, self.device, kind)
         table = torch.full((self.batch, self.pages_per_row), self.trash_page,
                            dtype=torch.int32, device=self.device)
         return {"segments": segs,
@@ -248,43 +265,52 @@ class PagedKVCache(KVCacheManager):
                                     for _ in range(self.pages_per_row)]
         return np.asarray(self._row_pages[row], np.int32)
 
-    def _scatter_segments(self, cache: Any, dense_segments: Any,
-                          slots: torch.Tensor) -> None:
-        """Copy dense entries' logical slots into the pools, in place.
-        slots: flat pool slot ids, (B, S) for whole-batch dense leaves
-        (reps, B, S, ...) or (S,) for one row's leaves (reps, S, ...)."""
-        for seg, entry in enumerate(cache["segments"]):
-            for key, sub in entry.items():
-                for name, pool in sub.items():
-                    src = dense_segments[seg][key][name]
-                    flat = pool.view((pool.shape[0],
-                                      pool.shape[1] * pool.shape[2])
-                                     + tuple(pool.shape[3:]))
-                    flat[:, slots] = src.to(pool.dtype)
+    @staticmethod
+    def _scatter_entry(pool_entry: Any, dense_entry: Any,
+                       slots: torch.Tensor) -> None:
+        """Copy a dense attention entry's first logical slots into its
+        pools, in place. slots: flat pool slot ids, (B, S) for whole-batch
+        dense leaves (reps, B, S, ...) or (S,) for one row's leaves
+        (reps, S, ...)."""
+        for name, pool in pool_entry.items():
+            flat = pool.view((pool.shape[0], pool.shape[1] * pool.shape[2])
+                             + tuple(pool.shape[3:]))
+            flat[:, slots] = dense_entry[name].to(pool.dtype)
 
     def from_prefill(self, dense_cache: Any) -> Any:
         table = torch.as_tensor(
             np.stack([self._alloc_row(r) for r in range(self.batch)]),
             device=self.device)
-        cache = self.empty_cache()
-        S = dense_cache["segments"][0]["u0"]["k"].shape[2]
-        slots = paged_lib.view_slots(table, self.page_size)[:, :S]  # (B, S)
-        self._scatter_segments(cache, dense_cache["segments"], slots)
-        return {"segments": cache["segments"], "len": dense_cache["len"],
+        segs = self.empty_cache()["segments"]
+        view = paged_lib.view_slots(table, self.page_size)       # (B, cap)
+        for seg, key, _, is_attn in self._attention_units():
+            dense = dense_cache["segments"][seg][key]
+            if not is_attn:
+                segs[seg][key] = dense        # per-row state: unchanged
+                continue
+            S = dense["k"].shape[2]
+            self._scatter_entry(segs[seg][key], dense, view[:, :S])
+        return {"segments": segs, "len": dense_cache["len"],
                 "page_table": table}
 
     def insert_row(self, cache: Any, row: int, row_cache: Any) -> Any:
         pages = self._alloc_row(row)
         table = cache["page_table"].clone()
         table[row] = torch.as_tensor(pages, device=self.device)
-        S = row_cache["segments"][0]["u0"]["k"].shape[2]
-        row_slots = (pages[:, None].astype(np.int64) * self.page_size
-                     + np.arange(self.page_size)[None, :]).reshape(-1)[:S]
-        src = [{key: {name: x[:, 0] for name, x in sub.items()}
-                for key, sub in entry.items()}
-               for entry in row_cache["segments"]]
-        self._scatter_segments(cache, src,
-                               torch.as_tensor(row_slots, device=self.device))
+        row_slots = torch.as_tensor(
+            (pages[:, None].astype(np.int64) * self.page_size
+             + np.arange(self.page_size)[None, :]).reshape(-1),
+            device=self.device)
+        for seg, key, _, is_attn in self._attention_units():
+            src = row_cache["segments"][seg][key]
+            dst = cache["segments"][seg][key]
+            if not is_attn:
+                insert_row_pytree(dst, src, row, self.batch)
+                continue
+            S = src["k"].shape[2]
+            self._scatter_entry(dst, {name: x[:, 0]
+                                      for name, x in src.items()},
+                                row_slots[:S])
         length = cache["len"].clone()
         length[row] = row_cache["len"][0]
         return dict(cache, len=length, page_table=table)

@@ -14,8 +14,8 @@ bounded amount of prefill work before the batched strategy step:
 Admission is also gated by the session's ``KVCacheManager``
 (``session.can_admit``): a paged pool without a free row reservation defers
 the queue head instead of overcommitting memory. Withdrawing requests
-(``remove``, ``abort_active``) comes with cancel and deadlines (ROADMAP
-queue 1 item 11).
+(``remove``, ``abort_active``) comes with cancel and deadlines (ROADMAP:
+the rest of serving).
 """
 from __future__ import annotations
 

@@ -17,7 +17,7 @@ every tick.
 
 Weight-only quantization (``Engine.create(..., quant="int8"|"int4"|
 QuantSpec)``): the engine builds the parallel bundle ``engine.qw``
-(``repro_torch.quant.quantize_params``); ``engine.params`` is never
+(``repro_torch.quant.quantize_params``); the caller's params are never
 touched. The decode step reads the quantized LM head and predictor bank
 (the ``*_q`` kernels). Every prefill site — ``prefill``, ``prefill_row``,
 ``prefill_chunk`` and the end of a chunked admission — reads
@@ -39,8 +39,8 @@ Two session styles:
     splits the prompt forward into fixed-token chunks so the serving loop
     can interleave them with decode ticks.
 
-Megaticks, async ticks, snapshots and sampling are later slices (ROADMAP
-queue 1 items 7, 11 and 8).
+Megaticks, async ticks, snapshots and sampling are later slices (the
+ROADMAP items on megaticks, fault tolerance and the rest of serving).
 """
 from __future__ import annotations
 
@@ -57,7 +57,7 @@ from repro_torch.api.types import StepResult
 from repro_torch.core import draft as draft_lib
 from repro_torch.core import engine as eng
 from repro_torch.core import scheduler as sched_lib
-from repro_torch.models.common import lm_head_weight
+from repro_torch.models.common import lm_head_weight, with_contiguous_head
 from repro_torch.models.model import Model
 from repro_torch.quant import (QuantSpec, dequantized_reference,
                                quantize_params)
@@ -73,14 +73,15 @@ class Engine:
                  strategy: Union[str, DecodeStrategy, None] = None,
                  quant=None):
         self.model = model
-        self.params = params
+        # a tied head (Mamba2) as one contiguous copy for the kernels
+        self.params = with_contiguous_head(params)
         self.sw = sw
         self.strategy = get_strategy(strategy)
         self.strategy.validate(model, sw)
-        self.device = lm_head_weight(params).device
+        self.device = lm_head_weight(self.params).device
         # weight-only quantization: a parallel bundle of codes + scales
         self.quant_spec = QuantSpec.resolve(quant)
-        self.qw = quantize_params(params, sw, self.quant_spec)
+        self.qw = quantize_params(self.params, sw, self.quant_spec)
         self._prefill_view = None
         self._decode_view = None
 
@@ -439,10 +440,16 @@ class DecodeSession:
         adm.h_parts = []
 
     # ----- decode tick -----
-    def step(self) -> StepResult:
+    def step(self, num_ticks: Optional[int] = None) -> StepResult:
         """One batched decode tick through the strategy's step, with
         host-side budget/EOS accounting. Retired rows' lengths are pinned
-        back to 0 after the tick (the step advances every row's length)."""
+        back to 0 after the tick (the step advances every row's length).
+        ``num_ticks``: None or 1, as in the JAX package; more ticks in one
+        call (a megatick) are not ported yet and raise."""
+        if num_ticks is not None and int(num_ticks) != 1:
+            raise ValueError(
+                f"num_ticks={num_ticks}: megaticks are not ported yet "
+                "(ROADMAP: megaticks and a device-resident tick)")
         assert self._state is not None, "prefill first"
         e = self.engine
         params, sw, qw = e.decode_weights()

@@ -121,9 +121,10 @@ class TreeStrategy(DecodeStrategy):
     def validate(self, model, sw):
         super().validate(model, sw)
         if not model.supports_tree():
+            # JAX's message, word for word
             raise ValueError(
-                "tree strategy requires a stack of global attention blocks; "
-                f"{model.cfg.name} has {sorted(set(model.cfg.blocks()))}")
+                "tree strategy requires a pure-attention stack (DESIGN.md "
+                f"§4); {model.cfg.name} is {model.cfg.family}")
         if model.flags.kv_quant:
             # JAX's message, word for word
             raise ValueError(

@@ -8,15 +8,36 @@ package. Field names, defaults and ``smoke()`` reductions are those of
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Tuple
+from typing import Any, Dict, Optional, Tuple
 
 ATTN = "attention"            # global causal attention
 LOCAL_ATTN = "local_attention"  # sliding-window attention
+SSD = "ssd"                   # Mamba2 state-space duality block
+
+FAMILY_DENSE = "dense"
+FAMILY_SSM = "ssm"
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) hyperparameters."""
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    conv_kernel: int = 4
+    chunk_size: int = 64
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
+    family: str                 # dense | ssm (the families the port has)
     num_layers: int
     d_model: int
     num_heads: int
@@ -31,8 +52,10 @@ class ModelConfig:
     activation: str = "silu"
     rope_theta: float = 10000.0
     gated_mlp: bool = True
-    # modality frontend: "none" here (the frontends are ROADMAP queue 1
-    # item 13); read by ``Model.supports_chunked_prefill`` as in the JAX code
+    tie_embeddings: bool = False
+    ssm: Optional[SSMConfig] = None
+    # modality frontend: "none" here (the frontends are a later ROADMAP
+    # item); read by ``Model.supports_chunked_prefill`` as in the JAX code
     frontend: str = "none"
     dtype: str = "bfloat16"     # compute/weight dtype on the card
 
@@ -50,21 +73,38 @@ class ModelConfig:
         if self.block_pattern:
             assert len(self.block_pattern) == self.num_layers
             return self.block_pattern
-        return tuple([ATTN] * self.num_layers)
+        kind = SSD if self.family == FAMILY_SSM else ATTN
+        return tuple([kind] * self.num_layers)
 
     def smoke(self) -> "ModelConfig":
-        """Reduced same-family config for CPU tests (``repro.config``'s
-        reduction, attention family only)."""
-        kw = dict(name=self.name + "-smoke",
-                  num_layers=min(self.num_layers, 4), d_model=128,
-                  num_heads=4, d_ff=256, vocab_size=512, head_dim=32,
-                  dtype="float32")
-        if self.num_kv_heads == self.num_heads:
-            kw["num_kv_heads"] = 4
-        elif self.num_kv_heads == 1:
-            kw["num_kv_heads"] = 1
-        else:
-            kw["num_kv_heads"] = 2
+        """Reduced same-family config for CPU tests: ``repro.config``'s
+        reduction of every field the port has."""
+        kw: Dict[str, Any] = dict(
+            name=self.name + "-smoke",
+            num_layers=6 if self.block_pattern else min(self.num_layers, 4),
+            d_model=128,
+            num_heads=4 if self.num_heads else 0,
+            num_kv_heads=0,
+            d_ff=256,
+            vocab_size=512,
+            head_dim=32 if self.num_heads else 0,
+            dtype="float32")
+        # kv == heads (MHA) stays MHA; otherwise kv < heads
+        if self.num_heads:
+            if self.num_kv_heads == self.num_heads:
+                kw["num_kv_heads"] = 4
+            elif self.num_kv_heads == 1:
+                kw["num_kv_heads"] = 1
+            else:
+                kw["num_kv_heads"] = 2
+        if self.ssm is not None:
+            kw["ssm"] = SSMConfig(d_state=16, expand=2, head_dim=32,
+                                  conv_kernel=4, chunk_size=32)
+        if self.block_pattern:
+            n = kw["num_layers"]
+            kw["block_pattern"] = tuple(
+                self.block_pattern[i % len(self.block_pattern)]
+                for i in range(n))
         return replace(self, **kw)
 
 

@@ -2,7 +2,7 @@
 
 32L d_model=4096 32H (MHA) d_ff=11008 vocab=32000, 4k context.
 """
-from repro_torch.config import ModelConfig, RunConfig
+from repro_torch.config import FAMILY_DENSE, ModelConfig, RunConfig
 from repro_torch.configs.registry import register
 
 
@@ -10,6 +10,7 @@ from repro_torch.configs.registry import register
 def config() -> RunConfig:
     model = ModelConfig(
         name="llama2-7b",
+        family=FAMILY_DENSE,
         num_layers=32,
         d_model=4096,
         num_heads=32,

@@ -195,7 +195,8 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
         u = 0
         while u < reps and not bool(exited.all()):
             h_new, seg_cache = model.run_unit(params, seg, u, h, seg_cache,
-                                              pos, pages=pages)
+                                              pos, live_mask=~exited,
+                                              pages=pages)
             h = torch.where(exited[:, None], h, h_new)
             ep = ep_base + u
             act = active[:, ep] & ~exited

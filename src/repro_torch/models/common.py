@@ -131,3 +131,14 @@ def lm_head_weight(params: Params) -> torch.Tensor:
     if "lm_head" in params:
         return params["lm_head"]["w"]
     return params["embed"]["tok"].T
+
+
+def with_contiguous_head(params: Params) -> Params:
+    """``params`` with a tied LM head stored once as its own contiguous
+    (d_model, vocab) copy of ``embed.T``. The transposed embedding is a
+    strided view, which the streaming gate and verify kernels refuse; an
+    engine builds this copy once, not once per step. Params with an
+    ``lm_head`` entry come back as they are."""
+    if "lm_head" in params:
+        return params
+    return dict(params, lm_head={"w": params["embed"]["tok"].T.contiguous()})

@@ -1,4 +1,4 @@
-"""Model API over the attention family (counterpart of
+"""Model API over the attention family and Mamba2 (counterpart of
 ``repro/models/model.py``).
 
 The layer stack decomposes into segments — runs of a repeating unit of
@@ -14,7 +14,10 @@ A cache is dense ``(reps, B, S, KVH, hd)`` or, when the caller passes the
 session's ``pages`` table, a paged pool ``(reps, n_pages, page_size, KVH,
 hd)`` read and written through ``core.paged``. Under ``ModelFlags.kv_quant``
 an entry holds int8 codes ``k``/``v`` of that shape beside fp32 scales
-``ks``/``vs`` without the ``hd`` dim (one per position and KV head).
+``ks``/``vs`` without the ``hd`` dim (one per position and KV head). An
+SSD (Mamba2) entry is per-row state, never paged: the fp32 SSM state
+``(reps, B, nh, hd, ds)`` and the conv window ``(reps, B, K-1, di+2ds)``
+in the compute dtype, both updated in place.
 """
 from __future__ import annotations
 
@@ -23,10 +26,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.config import ATTN, LOCAL_ATTN, ModelConfig, RunConfig
+from repro_torch.config import (ATTN, LOCAL_ATTN, SSD, ModelConfig,
+                                RunConfig, SSMConfig)
 from repro_torch.core import paged as paged_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common
+from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.common import Params, index_tree
 
 
@@ -68,6 +73,8 @@ class ModelFlags:
     exit_gate_kernel: bool = False  # fused exit gate + streaming verify
     exit_gate_impl: str = "auto"    # "auto" | "kernel" | "ref"
     kv_quant: bool = False          # int8 K/V cache with fp32 scales
+    ssd_kernel: bool = False        # CUDA SSD intra-chunk kernel: Mamba2
+    #                                 prefill's diagonal-block term
 
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -75,6 +82,9 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen, dtype, device) -> Params:
+    if kind == SSD:
+        return {"ln": common.init_norm(cfg.d_model, dtype, device),
+                "ssd": ssd_lib.init_ssd(cfg, gen, dtype, device)}
     assert kind in (ATTN, LOCAL_ATTN), kind
     return {"ln1": common.init_norm(cfg.d_model, dtype, device),
             "attn": attn_lib.init_attention(cfg, gen, dtype, device),
@@ -126,8 +136,16 @@ def _entry_write_token(cache_entry: Any, vals: Dict[str, torch.Tensor],
 def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                positions: torch.Tensor, flags: ModelFlags
                ) -> Tuple[torch.Tensor, Any]:
-    """Prefill path. Returns (h_out, {"k", "v"}). Under
-    ``flags.flash_attention`` the attention is the flash kernel."""
+    """Prefill path. Returns (h_out, {"k", "v"}) for attention, under
+    ``flags.flash_attention`` through the flash kernel; (h_out, {"state",
+    "conv"}) for SSD, under ``flags.ssd_kernel`` with the intra-chunk term
+    through the SSD kernel ("conv" is None for a prompt shorter than the
+    conv window, as in the JAX package)."""
+    if kind == SSD:
+        x = common.apply_norm(cfg, p["ln"], h)
+        out, state, conv_tail = ssd_lib.ssd_block_seq(
+            cfg, p["ssd"], x, use_kernel=flags.ssd_kernel)
+        return h + out, {"state": state, "conv": conv_tail}
     x = common.apply_norm(cfg, p["ln1"], h)
     q, k, v = attn_lib.qkv(cfg, p["attn"], x, positions)
     if flags.flash_attention and cfg.causal:
@@ -144,9 +162,14 @@ def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
 
 def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                 cache_entry: Any, pos: torch.Tensor, flags: ModelFlags,
-                pages: Optional[torch.Tensor] = None
+                pages: Optional[torch.Tensor] = None,
+                live_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Any]:
     """One decode token. h: (B, D); pos: (B,) index of the current token.
+    SSD: the recurrent update of the entry's state and conv window, in
+    place; ``live_mask`` (B,) bool keeps the state of rows that have exited
+    (SpecEE) while their conv window still advances, as in the JAX
+    package.
     Writes the token's K/V into ``cache_entry`` and attends the live prefix.
     ``pages``: the (B, P) page table when the entry is a page pool; then
     ``flags.decode_kernel`` selects the paged kernel, which reads the pool
@@ -156,6 +179,16 @@ def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     dequantizes in registers, every other path attends the dequantized
     view in ``h``'s dtype (as the JAX package does; there is no dense int8
     kernel)."""
+    if kind == SSD:
+        x = common.apply_norm(cfg, p["ln"], h)
+        out, new_state, new_conv = ssd_lib.ssd_block_step(
+            cfg, p["ssd"], x, cache_entry["state"], cache_entry["conv"])
+        if live_mask is not None:
+            new_state = torch.where(live_mask[:, None, None, None],
+                                    new_state, cache_entry["state"])
+        cache_entry["state"].copy_(new_state)
+        cache_entry["conv"].copy_(new_conv)
+        return h + out, cache_entry
     B = h.shape[0]
     x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
     pvec = pos.long()
@@ -198,8 +231,18 @@ def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
 def _block_propagate(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                      cache_entry: Any, pos: torch.Tensor, flags: ModelFlags,
                      pages: Optional[torch.Tensor] = None) -> Any:
-    """SpecEE skipped-layer KV propagation: write the K/V projections of the
-    exit hidden state so later tokens can attend this position."""
+    """SpecEE skipped-layer state maintenance: write the K/V projections of
+    the exit hidden state so later tokens can attend this position. SSD:
+    the state goes stale and the conv window takes the current input, so
+    the window stays aligned."""
+    if kind == SSD:
+        x = common.apply_norm(cfg, p["ln"], h)
+        proj = common.apply_linear(p["ssd"]["in_proj"], x)
+        _, xBC, _ = ssd_lib._split_proj(cfg, proj)
+        conv = cache_entry["conv"]
+        window = torch.cat([conv.to(xBC.dtype), xBC[:, None, :]], dim=1)
+        conv.copy_(window[:, 1:])
+        return cache_entry
     B = h.shape[0]
     x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
     pvec = pos.long()
@@ -316,9 +359,10 @@ class Model:
             segs.append(_stack(per))
         params["segments"] = segs
         params["final_norm"] = common.init_norm(cfg.d_model, dt, device)
-        params["lm_head"] = {"w": common.normal_init(
-            gen, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5, dt,
-            device)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = {"w": common.normal_init(
+                gen, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5, dt,
+                device)}
         return params
 
     # ----- embedding / head -----
@@ -339,7 +383,8 @@ class Model:
         """Returns (logits of the last position (B, V) fp32, cache with
         ``max_seq`` slots, {"h_final": (B, S, D) pre-final-norm hiddens}).
         The prompt attends full-precision K/V; under ``kv_quant`` the cache
-        then stores its codes and scales (JAX's ``_materialize_cache``)."""
+        then stores its codes and scales (JAX's ``_materialize_cache``). SSD
+        entries are stored as ``_block_seq`` returns them."""
         tokens = batch["tokens"]
         h = self.embed(params, tokens)
         B, S, _ = h.shape
@@ -348,16 +393,24 @@ class Model:
         segs = []
         for si, (unit, reps) in enumerate(self.segments):
             seg_cache = {f"u{i}": self.empty_cache_entry(reps, B, max_seq,
-                                                         h.device)
-                         for i in range(len(unit))}
+                                                         h.device, kind)
+                         for i, kind in enumerate(unit)}
             for r in range(reps):
                 up = index_tree(params["segments"][si], r)
                 for i, kind in enumerate(unit):
-                    h, kv = _block_seq(self.cfg, kind, up[f"u{i}"], h,
+                    h, ce = _block_seq(self.cfg, kind, up[f"u{i}"], h,
                                        positions, self.flags)
-                    for name, val in _kv_vals(kv["k"], kv["v"],
+                    entry = seg_cache[f"u{i}"]
+                    if kind == SSD:
+                        for name, val in ce.items():
+                            if val is None:     # prompt shorter than K-1
+                                entry[name] = None
+                            elif entry[name] is not None:
+                                entry[name][r] = val
+                        continue
+                    for name, val in _kv_vals(ce["k"], ce["v"],
                                               self.flags.kv_quant).items():
-                        seg_cache[f"u{i}"][name][r, :, :S] = val
+                        entry[name][r, :, :S] = val
             segs.append(seg_cache)
         cache = {"segments": segs,
                  "len": torch.full((B,), S, dtype=torch.int32,
@@ -365,12 +418,23 @@ class Model:
         return self.logits(params, h[:, -1, :]), cache, {"h_final": h}
 
     def empty_cache_entry(self, reps: int, batch: int, max_seq: int,
-                          device) -> Any:
-        """One zeroed attention cache entry (counterpart of JAX's
-        ``_empty_cache_entry``, stacked over ``reps``): K/V (reps, batch,
-        max_seq, KVH, hd), or under ``kv_quant`` int8 codes beside fp32
-        scales (reps, batch, max_seq, KVH). The paged manager builds its
-        pools with ``batch`` = pages and ``max_seq`` = page size."""
+                          device, kind: str = ATTN) -> Any:
+        """One zeroed cache entry of block ``kind`` (counterpart of JAX's
+        ``_empty_cache_entry``, stacked over ``reps``). Attention: K/V
+        (reps, batch, max_seq, KVH, hd), or under ``kv_quant`` int8 codes
+        beside fp32 scales (reps, batch, max_seq, KVH); the paged manager
+        builds its pools with ``batch`` = pages and ``max_seq`` = page
+        size. SSD: the fp32 state (reps, batch, nh, hd, ds) and the conv
+        window (reps, batch, K-1, di+2ds) in the compute dtype (``max_seq``
+        unused)."""
+        if kind == SSD:
+            s = self.cfg.ssm or SSMConfig()
+            di, nh, hd, ds = ssd_lib.dims(self.cfg)
+            return {"state": torch.zeros((reps, batch, nh, hd, ds),
+                                         dtype=torch.float32, device=device),
+                    "conv": torch.zeros((reps, batch, s.conv_kernel - 1,
+                                         di + 2 * ds), dtype=self.dtype,
+                                        device=device)}
         shape = (reps, batch, max_seq, self.cfg.num_kv_heads,
                  self.cfg.resolved_head_dim())
         if not self.flags.kv_quant:
@@ -386,8 +450,8 @@ class Model:
     def empty_cache(self, batch: int, max_seq: int,
                     device: Union[str, torch.device] = "cuda") -> Any:
         segs = [{f"u{i}": self.empty_cache_entry(reps, batch, max_seq,
-                                                 device)
-                 for i in range(len(unit))}
+                                                 device, kind)
+                 for i, kind in enumerate(unit)}
                 for unit, reps in self.segments]
         return {"segments": segs,
                 "len": torch.zeros(batch, dtype=torch.int32, device=device)}
@@ -396,7 +460,8 @@ class Model:
     def supports_chunked_prefill(self) -> bool:
         """Chunked prefill needs blocks whose state extension is "write K/V,
         attend the prefix": a causal attention-family stack without a
-        frontend (the JAX rule; every block the port has qualifies)."""
+        frontend (the JAX rule); SSD stacks admit with one whole-prompt
+        chunk."""
         return (self.cfg.is_decoder() and self.cfg.frontend == "none" and
                 all(k in (ATTN, LOCAL_ATTN)
                     for unit, _ in self.segments for k in unit))
@@ -431,17 +496,21 @@ class Model:
     # ----- layer-granular decode API (SpecEE engine) -----
     def run_unit(self, params: Params, seg: int, unit_idx: int,
                  h: torch.Tensor, seg_cache: Any, pos: torch.Tensor,
+                 live_mask: Optional[torch.Tensor] = None,
                  pages: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Any]:
         """Run unit ``unit_idx`` of segment ``seg`` on one token (B, D),
-        writing its K/V into ``seg_cache``. ``pages``: the session page
-        table when the cache is paged. Returns (h_out, seg_cache)."""
+        writing its K/V (or SSD state) into ``seg_cache``. ``live_mask``
+        (B,) bool: rows that have exited keep their SSD state. ``pages``:
+        the session page table when the cache is paged. Returns (h_out,
+        seg_cache)."""
         unit, _ = self.segments[seg]
         up = index_tree(params["segments"][seg], unit_idx)
         ce = index_tree(seg_cache, unit_idx)
         for i, kind in enumerate(unit):
             h, _ = _block_step(self.cfg, kind, up[f"u{i}"], h, ce[f"u{i}"],
-                               pos, self.flags, pages=pages)
+                               pos, self.flags, pages=pages,
+                               live_mask=live_mask)
         return h, seg_cache
 
     def propagate_unit(self, params: Params, seg: int, unit_idx: int,

@@ -19,9 +19,10 @@
 
 On a paged cache on a CUDA card the engine turns on the paged
 decode-attention kernel (``ModelFlags.decode_kernel``), as the JAX engine
-does on a TPU. This is the core loop: megaticks and async ticks (ROADMAP
-queue 1 item 7), sampling (item 8), and eviction, checkpoints and fault
-injection (item 11) are not ported; asking for them raises ``ValueError``.
+does on a TPU. The constructor takes the JAX engine's arguments in its
+order. This is the core loop: megaticks and async ticks, sampling, and
+eviction, checkpoints, watchdogs and fault injection, and the mesh, are not
+ported; asking for them raises ``ValueError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -51,22 +52,51 @@ class Request:
     done: bool = False
 
 
+_MEGATICKS = "ROADMAP: megaticks and a device-resident tick"
+_FAULTS = "ROADMAP: fault tolerance"
+
+
+def _refuse_unported(**given) -> None:
+    """Raise for each argument of the JAX engine whose feature the port
+    does not have, when it asks for that feature; ``given`` maps the
+    argument to (value, the value that asks for nothing, ROADMAP item)."""
+    for name, (value, idle, item) in given.items():
+        if value != idle:
+            raise ValueError(f"{name}={value!r} is not ported yet ({item})")
+
+
 class ServingEngine:
-    def __init__(self, model: Model, params, sw=None,
+    def __init__(self, model: Model, params, sw=None, specee: bool = True,
                  strategy: Union[str, DecodeStrategy, None] = None,
-                 fused_gate: bool = True,
+                 prng_seed: int = 0, fused_gate: bool = True,
                  cache: Union[None, str, CacheSpec] = "paged",
                  page_size: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 megatick: int = 1, quant=None):
-        if megatick != 1:
+                 megatick: int = 1,
+                 async_ticks: Optional[bool] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 guard=None, victim=None, evict_patience: int = 2,
+                 watchdog_s: Optional[float] = None, backoff=None,
+                 cooldown_ticks: int = 8, quant=None, mesh=None,
+                 policy: str = "tp_dp", fault_log_cap: int = 256):
+        # async ticks pipeline megaticks; False is the port's one mode
+        _refuse_unported(
+            megatick=(megatick, 1, _MEGATICKS),
+            async_ticks=(bool(async_ticks), False, _MEGATICKS),
+            checkpoint_dir=(checkpoint_dir, None, _FAULTS),
+            guard=(guard, None, _FAULTS), victim=(victim, None, _FAULTS),
+            evict_patience=(evict_patience, 2, _FAULTS),
+            watchdog_s=(watchdog_s, None, _FAULTS),
+            backoff=(backoff, None, _FAULTS),
+            cooldown_ticks=(cooldown_ticks, 8, _FAULTS),
+            fault_log_cap=(fault_log_cap, 256, _FAULTS),
+            mesh=(mesh, None, "ROADMAP: multi-GPU"),
+            policy=(policy, "tp_dp", "ROADMAP: multi-GPU"))
+        if strategy is None and not (specee and model.run.specee.enabled) \
+                and not model.run.serve.greedy:
             raise ValueError(
-                f"megatick={megatick}: megaticks are not ported yet "
-                "(ROADMAP queue 1 item 7)")
-        if not model.run.serve.greedy:
-            raise ValueError(
-                "serve.greedy=False: sampling is not ported yet (ROADMAP "
-                "queue 1 item 8, serving/sampler.py)")
+                "serve.greedy=False: sampling is not ported yet (ROADMAP: "
+                "the rest of serving, serving/sampler.py)")
         spec = CacheSpec.resolve(cache, model.run.serve)
         if page_size is not None:
             # the override obeys the rule ServeConfig validates (pages tile
@@ -90,8 +120,9 @@ class ServingEngine:
             model = build_model(model.run, flags)
         self.model = model
         self.serve_cfg = model.run.serve
-        if strategy is None:
-            strategy = "specee" if model.run.specee.enabled else "dense"
+        if strategy is None:        # the JAX engine's default
+            strategy = ("specee" if specee and model.run.specee.enabled
+                        else "dense")
         self.strategy = get_strategy(strategy)
         # ``quant``: None | "int8" | "int4" | QuantSpec — weight-only
         # compression applied once at engine build (a parallel bundle; the
@@ -102,6 +133,7 @@ class ServingEngine:
         S = self.serve_cfg.max_seq_len
         self.B, self.S = B, S
         self.session = self.engine.new_session(batch=B, max_seq=S,
+                                               prng_seed=prng_seed,
                                                cache=self.cache_spec)
         mgr = self.session.cache_mgr
         if (isinstance(mgr, PagedKVCache)
@@ -110,7 +142,7 @@ class ServingEngine:
                 f"paged pool of {mgr.num_pages} pages is smaller than "
                 f"max_batch x pages_per_row = {B * mgr.pages_per_row}: "
                 "serving an oversubscribed pool needs eviction, which is "
-                "not ported yet (ROADMAP queue 1 item 11)")
+                f"not ported yet ({_FAULTS})")
         chunk = (self.serve_cfg.prefill_chunk if prefill_chunk is None
                  else prefill_chunk)
         self.scheduler = ChunkedPrefillScheduler(

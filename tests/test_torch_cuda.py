@@ -583,3 +583,128 @@ def test_kv_quant_serving_kernels_match_plain_path(dev, chunk):
             assert LAUNCHES["paged_decode_attention_q"] > 0
             assert LAUNCHES["paged_decode_attention"] == 0
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,ds,hd,nh", [(32, 16, 32, 4), (64, 128, 64, 24),
+                                        (64, 16, 32, 5), (32, 128, 64, 24)])
+@pytest.mark.parametrize("cells", [1, 8, 32])
+def test_ssd_chunk_kernel_matches_plain(dev, bc_dtype, c, ds, hd, nh, cells):
+    """The SSD intra-chunk kernel against its plain version on the same
+    inputs (bf16 B/C upcast in both): fp32 accumulation in another order,
+    atol = rtol = 1e-4. Steep decay (cum falling by up to 40 per token)
+    makes exp(cum_t - cum_s) overflow for s > t: the kernel must not
+    evaluate it there, so the output stays finite."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk_fwd
+    gen = torch.Generator(device=dev).manual_seed(c + ds + cells)
+    xdt = _rand(gen, (cells, c, nh, hd), dev)
+    steep = torch.rand((cells, c, nh), generator=gen, device=dev) * 40.0
+    cum = -torch.cumsum(steep, dim=1)
+    bm = _rand(gen, (cells, c, ds), dev, bc_dtype, ds ** -0.25)
+    cm = _rand(gen, (cells, c, ds), dev, bc_dtype, ds ** -0.25)
+    reset_launches()
+    got = ssd_chunk_fwd(xdt, cum, bm, cm)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_chunk"] == 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ssd_chunk_ref(xdt, cum, bm, cm),
+                               atol=1e-4, rtol=1e-4)
+    mild = -torch.cumsum(steep / 40.0, dim=1)
+    torch.testing.assert_close(ssd_chunk_fwd(xdt, mild, bm, cm),
+                               ssd_chunk_ref(xdt, mild, bm, cm),
+                               atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError):
+        ssd_chunk_fwd(xdt[:, :, :1].expand(cells, c, nh, hd), cum, bm, cm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_and_verify_kernels_at_mamba2_width(dev, dtype):
+    """The fused gate and the streaming verifies at mamba2-130m's widths
+    (D=768: three 256-entry stages; V=50280: a ragged last column block)
+    on a tied head made contiguous once, as the engine holds it: ids exact,
+    values atol = rtol = 1e-4. The strided ``embed.T`` view itself is
+    refused, not read."""
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    from repro_torch.models.common import lm_head_weight, with_contiguous_head
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, D, V, k, H = 4, 768, 50280, 4, 512
+    params = {"embed": {"tok": _rand(gen, (V, D), dev, dtype, 0.05)}}
+    head = lm_head_weight(with_contiguous_head(params))
+    assert head.is_contiguous() and head.shape == (D, V)
+    hn = _rand(gen, (B, D), dev, dtype)
+    tok, mx = eg.argmax_verify_fused(hn, head)
+    tok_r, mx_r = ref.verify_argmax_ref(hn, head)
+    assert torch.equal(tok, tok_r)
+    torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)
+    ids, vals = eg.topk_verify_fused(hn, head, k)
+    ids_r, vals_r = ref.verify_topk_ref(hn, head, k)
+    assert torch.equal(ids, ids_r)
+    torch.testing.assert_close(vals, vals_r, atol=1e-4, rtol=1e-4)
+    spec = torch.randint(V - 8, V, (B, k), generator=gen, device=dev,
+                         dtype=torch.int32)          # the ragged tail
+    prev = torch.softmax(_rand(gen, (B, k), dev), -1)
+    w1 = _rand(gen, (3 * k, H), dev, scale=12 ** -0.5)
+    b1 = _rand(gen, (H,), dev, scale=0.1)
+    w2 = _rand(gen, (H, 1), dev, scale=H ** -0.5)
+    b2 = _rand(gen, (1,), dev, scale=0.1)
+    got = eg.exit_gate_fused(hn, head, spec, prev, w1, b1, w2, b2)
+    pred = {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
+    for a, b in zip(got, ref.exit_gate_ref(hn, head, spec, prev, pred)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    tied = lm_head_weight(params)
+    assert not tied.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        eg.argmax_verify_fused(hn, tied)
+    with pytest.raises(ValueError, match="contiguous"):
+        eg.topk_verify_fused(hn, tied, k)
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+def test_mamba2_serving_kernels_match_plain_path(dev, quant):
+    """mamba2-130m at smoke width on the card, fp32: ``ServingEngine`` with
+    the SSD, gate and verify kernels gives the same per-request tokens and
+    exit points as the plain path (dense cache, reference gate, plain
+    intra-chunk term), at threshold -0.1 so the verify runs at every active
+    exit point; 4-token chunks fall back to whole-prompt admission; the
+    kernel path launches ``ssd_chunk`` once per layer per admission. Under
+    ``quant=`` the quantized tied head and bank take the quantized gate
+    and verify kernels, on both paths' quantized weights."""
+    from repro_torch.api import SpecEEStrategy
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine as eng
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine
+    run = get_config("mamba2-130m").smoke()
+    m_plain = build_model(run, ModelFlags(exit_gate_impl="ref"))
+    m_ker = build_model(run, ModelFlags(ssd_kernel=True,
+                                        exit_gate_kernel=True,
+                                        exit_gate_impl="kernel"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = m_plain.init(gen, dev)
+    sw = eng.init_specee(m_plain, gen, dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, n) for n in (5, 19, 3, 40, 70)]
+    outs = []
+    for m, fused, cache in ((m_ker, True, "paged"),
+                            (m_plain, False, "dense")):
+        reset_launches()
+        e = ServingEngine(m, params, sw, cache=cache, prefill_chunk=4,
+                          fused_gate=fused, quant=quant,
+                          strategy=SpecEEStrategy(threshold=-0.1))
+        reqs = [e.submit(p, max_new_tokens=6) for p in prompts]
+        e.run_to_completion()
+        mgr = e.session.cache_mgr
+        assert mgr.free_pages == getattr(mgr, "num_pages", 0)
+        outs.append([(r.output, r.exit_points) for r in reqs])
+        if m is m_ker:
+            assert LAUNCHES["ssd_chunk"] == len(prompts) * run.model.num_layers
+            q = "" if quant is None else "_q"
+            assert LAUNCHES["argmax_verify" + q] > 0
+            assert LAUNCHES["topk_verify" + q] > 0
+        else:
+            assert all(v == 0 for v in LAUNCHES.values())
+    assert outs[0] == outs[1]

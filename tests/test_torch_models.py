@@ -50,14 +50,24 @@ def smoke():
     return run_j, run_t, m_j, params_j, params_t
 
 
+@pytest.mark.parametrize("name", ["llama2-7b", "mamba2-130m"])
 @pytest.mark.parametrize("full", [True, False])
-def test_config_matches_jax(full):
-    """The port's own config copy equals the JAX one, field for field."""
-    j, t = jax_get_config("llama2-7b"), get_config("llama2-7b")
+def test_config_matches_jax(full, name):
+    """The port's own config copy equals the JAX one, field for field (the
+    SSM sub-config too, with its derived widths)."""
+    j, t = jax_get_config(name), get_config(name)
     if not full:
         j, t = j.smoke(), t.smoke()
     for f in dataclasses.fields(tcfg.ModelConfig):
-        assert getattr(t.model, f.name) == getattr(j.model, f.name), f.name
+        a, b = getattr(t.model, f.name), getattr(j.model, f.name)
+        if f.name == "ssm" and a is not None:
+            assert b is not None
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+            d = t.model.d_model
+            assert (a.d_inner(d), a.n_heads(d)) == (b.d_inner(d),
+                                                    b.n_heads(d))
+        else:
+            assert a == b, f.name
     assert t.model.resolved_head_dim() == j.model.resolved_head_dim()
     assert t.model.blocks() == j.model.blocks()
     for f in dataclasses.fields(tcfg.SpecEEConfig):

@@ -246,3 +246,59 @@ def test_new_session_positional_args_match_jax(setup, cache):
     s_t = Engine.create(m_t, params_t, strategy="dense").new_session(
         2, 64, 7)
     assert s_t.cache_mgr.kind == "dense"
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_single_tick_step_result_matches_jax(setup, cache):
+    """The single-tick ``StepResult`` surface of JAX's ``api/types.py``:
+    ``width``, ``ticks == 1``, ``is_megatick`` False, ``row_exit_points`` and
+    ``row_accept_lens`` equal JAX's on every tick; ``step(num_ticks=1)`` is
+    one tick and ``step(num_ticks=2)`` raises ValueError until megaticks
+    are ported."""
+    m_j, m_t, params_j, params_t = setup
+    prompts = np.random.default_rng(6).integers(0, 512, (2, 7))
+    logs = []
+    for E, m, p, arr in ((JEngine, m_j, params_j, jnp.asarray),
+                         (Engine, m_t, params_t, _t)):
+        s = E.create(m, p, strategy="dense").new_session(cache=cache)
+        res = [s.prefill(arr(prompts), max_new_tokens=4)]
+        res += [s.step(num_ticks=1), s.step(), s.step(num_ticks=None)]
+        assert s.all_done()
+        logs.append([(r.width, int(r.ticks), r.is_megatick, r.tick_counts,
+                      r.tick_live, [r.row_exit_points(i) for i in range(2)],
+                      [r.row_accept_lens(i) for i in range(2)],
+                      [r.row_tokens(i) for i in range(2)]) for r in res])
+    assert logs[0] == logs[1]
+    assert logs[1][0][:3] == (1, 1, False)
+    s = Engine.create(m_t, params_t, strategy="dense").new_session(
+        cache=cache)
+    s.prefill(prompts, max_new_tokens=4)
+    with pytest.raises(ValueError, match="megaticks"):
+        s.step(num_ticks=2)
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_row_pages_matches_jax(setup, cache):
+    """``row_pages`` on both managers after admission, retirement and
+    re-admission equals JAX's (0 throughout in the dense layout)."""
+    m_j, m_t, params_j, params_t = setup
+    rng = np.random.default_rng(7)
+    a, b = (rng.integers(0, 512, n).astype(np.int32) for n in (5, 9))
+    sessions = [JEngine.create(m_j, params_j, strategy="dense").new_session(
+                    2, 40, 0, cache),
+                Engine.create(m_t, params_t, strategy="dense").new_session(
+                    2, 40, 0, cache)]
+    logs = [[], []]
+    for i, s in enumerate(sessions):
+        mgr = s.cache_mgr
+        logs[i].append([mgr.row_pages(r) for r in range(2)])
+        s.prefill_row(0, a, max_new_tokens=3)
+        logs[i].append([mgr.row_pages(r) for r in range(2)])
+        s.prefill_row(1, b, max_new_tokens=3)
+        s.retire_row(0)
+        logs[i].append([mgr.row_pages(r) for r in range(2)])
+        s.prefill_row(0, b, max_new_tokens=3)
+        logs[i].append([mgr.row_pages(r) for r in range(2)])
+    assert logs[0] == logs[1]
+    if cache == "paged":
+        assert logs[1][1] == [sessions[1].cache_mgr.pages_per_row, 0]

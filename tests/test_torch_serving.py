@@ -190,17 +190,63 @@ def test_flash_flag_gives_same_tokens(setup):
 
 def test_serving_raises_on_what_is_not_ported(setup):
     """No silent degradation: an oversubscribed pool (JAX evicts), sampling
-    and megaticks raise ValueError naming their ROADMAP item."""
+    (JAX's default strategy when ``specee=False`` and ``serve.greedy`` is
+    off), megaticks, async ticks, the fault-tolerance options and a mesh
+    raise ValueError naming their ROADMAP item."""
     run, _, m, _, params, _, sw = setup
     one_row = CacheSpec(kind="paged", page_size=16,
                         num_pages=run.serve.max_seq_len // 16)
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="ROADMAP: fault tolerance"):
         ServingEngine(m, params, sw, cache=one_row)
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="ROADMAP: megaticks"):
         ServingEngine(m, params, sw, megatick=4)
-    sampled = dataclasses.replace(
-        run, serve=dataclasses.replace(run.serve, greedy=False))
-    with pytest.raises(ValueError, match="item 8"):
-        ServingEngine(build_model(sampled), params, sw)
+    with pytest.raises(ValueError, match="ROADMAP: megaticks"):
+        ServingEngine(m, params, sw, async_ticks=True)
+    for kw in (dict(checkpoint_dir="ckpt"), dict(guard=object()),
+               dict(victim=object()), dict(evict_patience=3),
+               dict(watchdog_s=1.0), dict(backoff=object()),
+               dict(cooldown_ticks=2), dict(fault_log_cap=8)):
+        with pytest.raises(ValueError, match="ROADMAP: fault tolerance"):
+            ServingEngine(m, params, sw, **kw)
+    for kw in (dict(mesh=object()), dict(policy="fsdp")):
+        with pytest.raises(ValueError, match="ROADMAP: multi-GPU"):
+            ServingEngine(m, params, sw, **kw)
+    sampled = build_model(dataclasses.replace(
+        run, serve=dataclasses.replace(run.serve, greedy=False)))
+    with pytest.raises(ValueError, match="sampling.*ROADMAP"):
+        ServingEngine(sampled, params, sw, specee=False)
+    # with SpecEE on, JAX serves the (greedy) SpecEE strategy here too
+    assert ServingEngine(sampled, params, sw).strategy.name == "specee"
     with pytest.raises(ValueError, match="divide"):
         ServingEngine(m, params, sw, page_size=48)
+
+
+def test_constructor_takes_jax_order_and_default_strategy(setup):
+    """The cross-mode check of JAX's ``test_continuous_batching_matches_
+    dense`` through both packages: ``ServingEngine(m, p, sw)`` serves SpecEE,
+    ``specee=False`` (by name or as the fourth positional argument, JAX's
+    order) picks JAX's default "dense", and ``prng_seed=`` is taken. The
+    untrained predictor never exits unverified, so all equal JAX's dense
+    serving."""
+    run, m_j, m_t, params_j, params_t, sw_j, sw_t = setup
+    prompts = [np.arange(5) % 512, np.arange(9) % 512,
+               (np.arange(3) + 7) % 512]
+    outs = {}
+    for label, E, m, p, sw, args, kw in (
+            ("jax dense", JServingEngine, m_j, params_j, sw_j, (),
+             dict(specee=False)),
+            ("specee", ServingEngine, m_t, params_t, sw_t, (),
+             dict(prng_seed=3)),
+            ("specee=False", ServingEngine, m_t, params_t, sw_t, (),
+             dict(specee=False)),
+            ("positional", ServingEngine, m_t, params_t, sw_t, (False,),
+             dict(prng_seed=3))):
+        se = E(m, p, sw, *args, **kw)
+        assert se.strategy.name == ("specee" if label == "specee"
+                                    else "dense"), label
+        reqs = [se.submit(pr, max_new_tokens=n)
+                for pr, n in zip(prompts, (6, 4, 5))]
+        se.run_to_completion()
+        assert [len(r.output) for r in reqs] == [6, 4, 5]
+        outs[label] = [r.output for r in reqs]
+    assert all(o == outs["jax dense"] for o in outs.values())

@@ -299,7 +299,7 @@ def test_get_strategy_tree(setup):
     local = dataclasses.replace(
         m_t.run, model=dataclasses.replace(
             m_t.cfg, block_pattern=("attention", "local_attention") * 2))
-    with pytest.raises(ValueError, match="global attention"):
+    with pytest.raises(ValueError, match="pure-attention stack"):
         Engine.create(build_model(local), params_t, sw_t, strategy="tree")
 
 
