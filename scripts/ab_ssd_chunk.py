@@ -19,38 +19,12 @@ on distinct inputs, CUDA events), and the card's name and power limit.
 """
 from __future__ import annotations
 
-import ctypes
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-CSRC = ROOT / "src" / "repro_torch" / "csrc"
-OUT = ROOT / "build" / "ab_ssd"
+import ab_common as ab
+
 C, NH, HD, DS = 64, 24, 64, 128
-
-
-def build(tag: str, src_dir: Path):
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build as kbuild
-    OUT.mkdir(parents=True, exist_ok=True)
-    so = OUT / f"{tag}_ssd_chunk.so"
-    proc = subprocess.run(
-        [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-I", str(src_dir), "-I",
-         str(CSRC), "-o", str(so), str(src_dir / "ssd_chunk.cu")],
-        capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc {tag} failed:\n{proc.stdout}{proc.stderr}")
-    regs = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-            if "registers" in ln]
-    print(f"{tag}: " + " | ".join(regs), flush=True)
-    lib = ctypes.CDLL(str(so))
-    f = lib.ssd_chunk_launch
-    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    return f
 
 
 def main() -> int:
@@ -58,21 +32,20 @@ def main() -> int:
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         print(__doc__)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
-    versions = {"base": build("base", Path(sys.argv[1]).resolve()),
-                "tree": build("tree", CSRC)}
+    versions = {}
+    for tag, src in (("base", Path(sys.argv[1]).resolve()),
+                     ("tree", ab.CSRC)):
+        lib, _, report = ab.build(tag, src, "ssd_chunk",
+                                  ab.ROOT / "build" / "ab_ssd")
+        print(f"{tag}: {ab.registers(report)}", flush=True)
+        versions[tag] = ab.c_fn(lib, "ssd_chunk_launch", 5, 6)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
+    ptr = ab.ptr
 
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
-
-    def stream():
-        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-    cases = {}
+    cases, firsts = {}, {}
     for cells in (1, 2, 8, 32):
         sets = []
         for _ in range(16):
@@ -90,30 +63,11 @@ def main() -> int:
             f = versions[tag]
             return [lambda a=a: f(ptr(a[0]), ptr(a[1]), ptr(a[2]),
                                   ptr(a[3]), ptr(a[4]), cells, C, NH, HD,
-                                  DS, 1, stream()) for a in sets]
-        cases[f"{cells} cells"] = (calls, sets[0])
+                                  DS, 1, ab.stream()) for a in sets]
+        cases[f"{cells} cells"], firsts[f"{cells} cells"] = calls, sets[0]
 
-    def graph_ms(calls, reps=5):
-        for fn in calls[:3]:
-            if fn() != 0:
-                raise RuntimeError("launch failed")
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for fn in calls:
-                fn()
-        g.replay()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            g.replay()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / (reps * len(calls))
-
-    for label, (calls, a) in cases.items():
+    for label, calls in cases.items():
+        a = firsts[label]
         want = ssd_chunk_ref(*a[:4])
         for tag in versions:
             a[4].fill_(float("nan"))
@@ -121,24 +75,12 @@ def main() -> int:
                 raise RuntimeError(f"{tag} launch failed")
             torch.cuda.synchronize()
             torch.testing.assert_close(a[4], want, atol=1e-4, rtol=1e-4)
-    times = {(label, tag): [] for label in cases for tag in versions}
-    order = ["base", "tree", "tree", "base"]
-    for r in range(6):
-        for label, (calls, _) in cases.items():
-            for tag in (order if r % 2 == 0 else order[::-1]):
-                times[(label, tag)].append(graph_ms(calls(tag)))
+    times = ab.alternate(cases)
     for label in cases:
         print(f"{label}: both equal the plain version (atol 1e-4); " +
-              "; ".join(
-                  f"{tag} median {statistics.median(times[(label, tag)]):.4f}"
-                  f" ms (range {min(times[(label, tag)]):.4f}-"
-                  f"{max(times[(label, tag)]):.4f}, "
-                  f"{len(times[(label, tag)])} runs)" for tag in versions),
-              flush=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card)
+              "; ".join(f"{tag} {ab.summary(times[(label, tag)])}"
+                        for tag in versions), flush=True)
+    print(ab.card())
     return 0
 
 

@@ -4,42 +4,87 @@
 // src/repro/kernels/exit_gate/exit_gate.py, whose grid is (rows, vocabulary
 // tiles): the tiles run one after another on one core with a running
 // (max, argmax) in SMEM. Here the tiles run in parallel: pass 1 gives each
-// CTA a 128-column strip and a group of up to 8 rows (any row count R, see
-// lm_head_stream.cuh) and writes one (max, argmax) partial per (row, strip);
-// pass 2 merges the partials of a row in one CTA. Both passes use
-// rt::before, so equal maxima resolve to the lowest id, and columns >= V
-// never win. The (R, V) logits are never written.
+// CTA a 128-column strip and a tile of rows (any row count R) and writes
+// one (max, argmax) partial per (row, strip); pass 2 (argmax_merge) merges
+// the partials of a row in one CTA. Both passes use rt::before, so equal
+// maxima resolve to the lowest id, and columns >= V never win. The (R, V)
+// logits are never written.
 //
-// Bound on the H100: at decode batch (R <= 8) bytes, one pass over the head,
-// D*V*sizeof(T) (4096 * 32000 * 2 B = 262 MB for Llama-2-7B in bf16, ~78 us
-// at 3.35 TB/s). The tree acceptance walk verifies B*N node rows (160 at
-// B=4 with the default 40-node tree): there the 2*R*D*V fp32 operations
-// bound it (42 GFLOP, ~0.63 ms at 67 TFLOP/s). The design keeps the read
-// coalesced (one column per thread), keeps LH_UNROLL loads in flight per
-// thread, spreads V/128 = 250 strips over the 132 SMs, and orders the grid
-// so that the row groups of one strip share it through L2. Tensor cores
-// (the head as a bf16 GEMM operand) are later work. The passes are in
-// argmax_verify.cuh, shared with the quantized sibling argmax_verify_q.cu.
+// Which instance runs which body:
+//   bf16 — argmax_partial_mma (lm_head_mma.cuh) on the tensor cores: the
+//          head and the hidden rows stream through a cp.async ring into
+//          shared memory and are multiplied with mma.sync m16n8k16 (bf16 x
+//          bf16 -> fp32), one instruction shape and one k-order for every
+//          R, so a row's logits do not depend on the rows verified with it;
+//   fp32 — argmax_partial (argmax_verify.cuh over lm_head_stream.cuh): one
+//          column per thread on the fp32 CUDA cores, groups of 8 rows, so
+//          its sums stay those of the plain fp32 version (TF32 would not).
+//
+// Bound on the H100 (700 W): at decode batch (R <= 16) bytes, one pass over
+// the head, D*V*2 B in bf16 (4096 * 32000 * 2 B = 262 MB for Llama-2-7B,
+// 0.078 ms at 3.35 TB/s). The first (streaming) body kept ~4 KB in flight
+// per CTA and reached 3.4x that bound (0.263 ms at B=4); the bf16 body keeps
+// two 16 KB chunks of head in flight per CTA, about two CTAs per SM at
+// V = 32000, in 16-byte copies (0.093 ms, 1.2x the bound). The tree
+// acceptance walk verifies B*N node rows (160-320): the bound stays
+// 0.079-0.085 ms (the bytes at 160 rows, the 84 GFLOP at the bf16 peak at
+// 320), where the fp32 CUDA-core peak floored the first body at 0.63-1.25
+// ms (it took 2.09 / 4.01 ms); the bf16 body reads the head once per tile
+// of up to 256 rows (two warp rows, 8 warps) and takes 0.17 / 0.32 ms
+// (cuBLAS bf16 matmul + argmax: 0.11 / 0.14 ms). Numbers: PERF.md, from
+// chip_smoke.py and scripts/ab_argmax_verify.py.
 #include "argmax_verify.cuh"
+#include "lm_head_mma.cuh"
 
 extern "C" {
 
-int argmax_verify_block_cols() { return rt::LH_THREADS; }
+int argmax_verify_block_cols() {
+  static_assert(rt::LM_BN == rt::LH_THREADS, "one strip width for both");
+  return rt::LM_BN;
+}
 const char* argmax_verify_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// hn (R, D), w (D, V) of one dtype, any R >= 1; pval/pidx (R, nblk)
-// scratch with nblk = ceil(V / argmax_verify_block_cols()); tok (R,) int32,
-// mx (R,) f32.
+// hn (R, D), w (D, V) of one dtype, any R >= 1 (bf16: D % 8 == 0 and hn
+// 16-byte aligned); pval/pidx (R, nblk) scratch with nblk = ceil(V /
+// argmax_verify_block_cols()); tok (R,) int32, mx (R,) f32.
 int argmax_verify_launch(const void* hn, const void* w, void* pval,
                          void* pidx, void* tok, void* mx, int R, int D, int V,
                          int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rt::DT_BF16) {
+    if (D % 8 || reinterpret_cast<uintptr_t>(hn) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // the row tile: as few tiles as cover R, evened out. Up to 8 m-tiles
+    // of 16 rows: one warp row of 4 warps (R <= 16: one m-tile); more: two
+    // warp rows of 5-8 m-tiles each (R = 160: one tile of 160 rows; 320:
+    // two), so the head is read once per tile of up to 256 rows.
+    const int mtiles = (R + 15) / 16;
+    const int wm = mtiles > rt::LM_MT_MAX ? 2 : 1;
+    const int tiles = (mtiles + wm * rt::LM_MT_MAX - 1) / (wm * rt::LM_MT_MAX);
+    const int mt = (mtiles + wm * tiles - 1) / (wm * tiles);
+    const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    int err;
+    switch (wm * 16 + mt) {
+#define RT_MT(wm, mt)                                                    \
+  case wm * 16 + mt:                                                     \
+    err = rt::argmax_partial_mma_launch<mt, wm>(hn, w, pval, pidx, R, D, \
+                                                V, vec, st);             \
+    break;
+      RT_MT(1, 1) RT_MT(1, 2) RT_MT(1, 3) RT_MT(1, 4) RT_MT(1, 5)
+      RT_MT(1, 6) RT_MT(1, 7) RT_MT(1, 8) RT_MT(2, 5) RT_MT(2, 6)
+      RT_MT(2, 7) RT_MT(2, 8)
+#undef RT_MT
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (err != 0) return err;
     using T = __nv_bfloat16;
-    return rt::argmax_verify_run<T>(hn, rt::FpCols<T>{static_cast<const T*>(
-        w)}, pval, pidx, tok, mx, R, D, V, st);
+    rt::argmax_merge<rt::FpCols<T>><<<R, 256, 0, st>>>(
+        static_cast<const float*>(pval), static_cast<const int*>(pidx),
+        (V + rt::LM_BN - 1) / rt::LM_BN, static_cast<int*>(tok),
+        static_cast<float*>(mx));
+    return static_cast<int>(cudaGetLastError());
   }
   return rt::argmax_verify_run<float>(
       hn, rt::FpCols<float>{static_cast<const float*>(w)}, pval, pidx, tok,

@@ -1,5 +1,15 @@
-// Streaming LM-head product shared by argmax_verify.cu, topk_verify.cu and
-// their quantized siblings argmax_verify_q.cu and topk_verify_q.cu.
+// Streaming LM-head product on the fp32 CUDA cores, shared by the fp32
+// instance of argmax_verify.cu, by topk_verify.cu (fp32 and bf16) and by
+// the quantized argmax_verify_q.cu and topk_verify_q.cu. The bf16 instance
+// of argmax_verify.cu runs the tensor-core tile of lm_head_mma.cuh instead.
+//
+// Bound on the H100: one column per thread and a 2-byte load per bf16
+// element keep ~4 KB in flight per 128-thread CTA (LH_UNROLL loads a
+// thread), far too little to hide device-memory latency, so these kernels
+// are bound by load latency, not bytes (3.4x the byte bound at B=4 in
+// bf16); at 160-320 rows the fp32 multiply-adds bound them (0.63-1.25 ms at
+// the 67 TFLOP/s fp32 peak). lm_head_mma.cuh shows the way out for the
+// others: 16-byte cp.async copies, a multi-stage ring, bf16 MMA.
 //
 // Grid: (row groups, vocabulary strips). A CTA owns LH_THREADS consecutive
 // vocabulary columns, one per thread, and a group of at most LH_ROWS rows
@@ -9,7 +19,9 @@
 // group's hidden rows are staged in shared memory LH_DC entries at a time
 // and read as 16-byte broadcasts (one shared load per four multiply-adds).
 // Each thread sums its column for its rows in fp32, sequentially over d, so
-// identical columns give bit-identical logits whatever the row count.
+// identical columns give bit-identical logits whatever the row count (the
+// tensor-core tile keeps the same property with one MMA shape and one
+// k-order for every R).
 //
 // The head is read through a column reader (common.cuh): fp weights, int8
 // codes, or plane-packed int4 bytes, whose one byte at stored row d < D/2

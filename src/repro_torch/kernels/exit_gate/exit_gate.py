@@ -9,7 +9,8 @@ kernels in ``repro/kernels/exit_gate/exit_gate.py``).
                           and csrc/topk_verify_q.cu: the same over a
                           quantized head (``repro_torch.quant.QTensor``,
                           int8 or plane-packed int4 codes + column scales).
-The streaming kernels take any row count (groups of 8 rows per CTA).
+The streaming kernels take any row count (groups of 8 rows per CTA; the
+bf16 ``argmax_verify_fused`` runs tensor-core tiles of up to 256 rows).
 
 On a CPU tensor each wrapper runs its plain version from ``ref.py``; on a
 CUDA tensor it launches its kernel (counted in ``kernels.LAUNCHES``) or
@@ -88,6 +89,10 @@ def argmax_verify_fused(hn: torch.Tensor, lm_head: torch.Tensor
     if K.runs_plain(hn):
         return gate_ref.verify_argmax_ref(hn, lm_head)
     B, D, V, dev, nblk = _stream_args("argmax_verify", hn, lm_head)
+    if hn.dtype == torch.bfloat16 and (D % 8 or hn.data_ptr() % 16):
+        # the tensor-core tile copies the hidden rows 16 bytes at a time
+        raise ValueError(f"argmax_verify (bf16): hn needs D % 8 == 0 and a "
+                         f"16-byte aligned start (D={D})")
     fn = build.c_func("argmax_verify", "argmax_verify_launch",
                       [_P] * 6 + [_I] * 4 + [_P])
     pval = torch.empty(B, nblk, dtype=torch.float32, device=dev)

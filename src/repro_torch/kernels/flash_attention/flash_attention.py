@@ -6,6 +6,8 @@ On a CPU tensor it runs ``ref.flash_attention_ref``; on a CUDA tensor it
 launches the kernel (counted in ``kernels.LAUNCHES``) or raises. The JAX
 wrapper's block halving (``S % block == 0``) is a TPU tiling rule: the
 kernel masks the ragged last tile itself, so any S is taken as it is.
+bf16 inputs run the tensor-core body of the kernel, which copies K and V
+rows 16 bytes at a time: their starts must be 16-byte aligned.
 """
 from __future__ import annotations
 
@@ -36,6 +38,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K.check_arg("v", v, dev, q.dtype, (B, S, KVH, hd))
     if H % KVH:
         raise ValueError(f"flash_attention: {H} heads over {KVH} KV heads")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:     # the bf16 kernel copies 16-byte rows
+                raise ValueError(f"flash_attention: {name} must be 16-byte "
+                                 f"aligned in bf16")
     fn = build.c_func("flash_attention", "flash_attention_launch",
                       [_P] * 4 + [_I] * 8 + [_P])
     out = torch.empty_like(q)

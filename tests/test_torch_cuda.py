@@ -9,8 +9,11 @@ conftest is left out):
 Tolerances: argmax/top-k ids exact in fp32 (random inputs: the top-2 gap
 dwarfs fp32 rounding); fp32 values atol = rtol = 1e-4 (different
 summation order); attention is held against the plain version on its
-inputs upcast to fp32 (the kernel computes in fp32), atol 1e-4 and in bf16
-rtol 2**-7 (the output's rounding to bf16 errs by at most 2**-8 relative).
+inputs upcast to fp32 (the kernels keep scores and sums in fp32; the bf16
+flash kernel multiplies P as two bf16 parts, ~16 bits), atol 1e-4 and in
+bf16 rtol 2**-7 (the output's rounding to bf16 errs by at most 2**-8
+relative). The bf16 argmax runs on the tensor cores: bf16 products are
+exact in fp32, so its values keep the fp32 tolerance.
 """
 import numpy as np
 import pytest
@@ -708,3 +711,135 @@ def test_mamba2_serving_kernels_match_plain_path(dev, quant):
         else:
             assert all(v == 0 for v in LAUNCHES.values())
     assert outs[0] == outs[1]
+
+
+def _plant_ties_mma(w, hn, r):
+    """Copy row r's best column inside its own 8-column MMA tile, into
+    another 128-column strip and into the same offset of the first strip:
+    the bf16 tensor-core tile must give the copies bit-identical logits and
+    keep the lowest id. Returns that id."""
+    V = w.shape[1]
+    best = int((hn[r].float() @ w.float()).argmax())
+    dups = {best, (best // 8) * 8 + (best % 8 + 1) % 8, (best + 3 * 128) % V,
+            best % 128}
+    dups = {j for j in dups if j < V}
+    for j in dups:
+        w[:, j] = w[:, best]
+    return min(dups)
+
+
+@pytest.mark.parametrize("D,V", [(128, 3001), (768, 50280), (4096, 32000)])
+@pytest.mark.parametrize("R", [1, 4, 8, 17, 160, 320])
+def test_argmax_verify_bf16_mma_matches_plain(dev, R, D, V):
+    """The bf16 tensor-core argmax (csrc/lm_head_mma.cuh) at every row-tile
+    choice, the element-load head path (V = 3001) and ragged last strips
+    and hidden chunks (D = 128, 768; V = 50280): ids equal the plain fp32
+    version's, values atol = rtol = 1e-4 (fp32 sums of exact bf16
+    products in another order); ties planted inside one MMA tile and
+    across strips resolve to the lowest id."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    gen = torch.Generator(device=dev).manual_seed(R * 7 + D)
+    hn = _rand(gen, (R, D), dev, torch.bfloat16)
+    w = _rand(gen, (D, V), dev, torch.bfloat16, 0.05)
+    lowest = _plant_ties_mma(w, hn, R - 1)
+    reset_launches()
+    tok, mx = eg.argmax_verify_fused(hn, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["argmax_verify"] == 1
+    tok_r, mx_r = ref.verify_argmax_ref(hn, w)
+    assert torch.equal(tok, tok_r)
+    assert int(tok[R - 1]) == lowest
+    torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("D,V", [(768, 50280), (4096, 32000)])
+def test_argmax_verify_bf16_row_alone_bit_identical(dev, D, V):
+    """A row's max logit is bit-identical whether it is verified alone, in
+    a batch of 8 or inside the 160 node rows of a tree step (one, one and
+    two row tiles of different heights)."""
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    gen = torch.Generator(device=dev).manual_seed(D)
+    hn = _rand(gen, (160, D), dev, torch.bfloat16)
+    w = _rand(gen, (D, V), dev, torch.bfloat16, 0.05)
+    tok, mx = eg.argmax_verify_fused(hn, w)
+    for r in (0, 7, 15, 16, 100, 159):
+        t1, m1 = eg.argmax_verify_fused(hn[r:r + 1].clone(), w)
+        assert int(t1[0]) == int(tok[r]) and torch.equal(m1[0], mx[r])
+    t8, m8 = eg.argmax_verify_fused(hn[152:].clone(), w)
+    assert torch.equal(t8, tok[152:]) and torch.equal(m8, mx[152:])
+
+
+def test_bf16_kernels_refuse_what_their_tiles_cannot_take(dev):
+    """The bf16 argmax refuses hidden rows it cannot copy 16 bytes at a time
+    (D % 8 != 0, or a start off 16 bytes) and the strided ``embed.T``
+    view; a head off 16 bytes is staged with element loads instead and
+    gives the plain version's ids. The fp32 instance keeps taking any D.
+    The bf16 flash kernel refuses q, k or v off 16 bytes."""
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    hn = _rand(gen, (4, 100), dev, bf)
+    w = _rand(gen, (100, 1000), dev, bf, 0.05)
+    with pytest.raises(ValueError, match="D % 8"):
+        eg.argmax_verify_fused(hn, w)
+    tok, mx = eg.argmax_verify_fused(hn.float(), w.float())
+    tok_r, mx_r = ref.verify_argmax_ref(hn.float(), w.float())
+    assert torch.equal(tok, tok_r)
+    torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)
+    off = torch.empty(4 * 128 + 1, device=dev, dtype=bf)[1:].view(4, 128)
+    off.copy_(_rand(gen, (4, 128), dev, bf))
+    w = _rand(gen, (128, 1024), dev, bf, 0.05)
+    with pytest.raises(ValueError, match="aligned"):
+        eg.argmax_verify_fused(off, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        eg.argmax_verify_fused(off.clone(), w.t().contiguous().t())
+    w_off = torch.empty(128 * 1024 + 1, device=dev, dtype=bf)[1:].view(
+        128, 1024)
+    w_off.copy_(w)
+    tok, mx = eg.argmax_verify_fused(off.clone(), w_off)
+    tok_r, mx_r = ref.verify_argmax_ref(off.clone(), w)
+    assert torch.equal(tok, tok_r)
+    torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)
+    q = _rand(gen, (1, 9, 4, 64), dev, bf)
+    kv = _rand(gen, (1, 9, 4, 64), dev, bf)
+    q_off = torch.empty(q.numel() + 1, device=dev, dtype=bf)[1:].view(
+        q.shape)
+    q_off.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(q_off, kv, kv)
+    torch.testing.assert_close(flash_attention_fwd(q.clone(), kv, kv).float(),
+                               flash_attention_fwd(q, kv, kv).float())
+
+
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 777])
+def test_flash_attention_bf16_mma_matches_plain(dev, S, hd, n_rep, window):
+    """The bf16 tensor-core flash kernel against the plain version on the
+    inputs upcast to fp32, with the bf16 tolerance of the fp kernels'
+    tests (atol 1e-4, rtol 2**-7: the output's rounding to bf16 errs by at
+    most 2**-8 relative; P enters the products as two bf16 parts, ~16
+    bits): one key tile, its edges and a ragged many-tile prompt, GQA up
+    to 8 query heads per KV head, causal with and without a window."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(device=dev).manual_seed(S * 3 + hd + n_rep)
+    B, H = 2, 8
+    kvh = H // n_rep
+    q = _rand(gen, (B, S, H, hd), dev, torch.bfloat16)
+    k = _rand(gen, (B, S, kvh, hd), dev, torch.bfloat16)
+    v = _rand(gen, (B, S, kvh, hd), dev, torch.bfloat16)
+    reset_launches()
+    got = flash_attention_fwd(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    want = flash_attention_ref(q.float(), k.float(), v.float(), True, window)
+    torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=2.0 ** -7)
