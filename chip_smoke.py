@@ -94,10 +94,10 @@ Phases (lines ``[phase +seconds since the start] ...``):
      "int4" (each engine freed before the next): whole-batch AR (B=4,
      prompt 128, 32 steps) and whole-batch tree decoding (4 steps); then
      ServingEngine(quant="int8", cache="paged") serving the first 8 serve
-     prompts; each run must launch every kernel its fp path launches, with
-     the gate and verify kernels replaced by their quantized siblings
-     (``quantized``), and none of exit_gate, argmax_verify and
-     topk_verify;
+     prompts, then a profile of its serving ticks; each run must launch
+     every kernel its fp path launches, with the gate and verify kernels
+     replaced by their quantized siblings (``quantized``), and none of
+     exit_gate, argmax_verify and topk_verify;
   8. kvq — the same weights with ModelFlags(kv_quant=True): phase 5's
      serve cell on int8 page pools, blocking and 256-token chunked, each
      compared with phase 5's run of the same admission (requests that
@@ -846,14 +846,10 @@ def check_tree_kernels(torch, dev):
                           graph_ms(torch, [plain] * n),
                           graph_ms(torch, [lib] * n), bnd)
             ms, p_ms, l_ms, (b, by) = rows[name]
-            # the bf16 argmax runs on the tensor cores; top-k still sums
-            # on the fp32 CUDA cores, whose peak floors it
-            floor = "" if name == "argmax_verify" else (
-                f"; the kernel's fp32 CUDA-core floor "
-                f"{2 * R * D * V / PEAK_OPS_PER_S['float32'] * 1e3:.4f} ms")
+            # both bf16 verifies run on the tensor cores
             log("kernels", f"{name} bf16, R={R}: kernel {ms:.4f} ms, plain "
                 f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b:.4f} ms "
-                f"({by}{floor})")
+                f"({by})")
         by_rows[R] = rows
     return errs["bfloat16"], t, by_rows
 
@@ -1847,20 +1843,16 @@ def serve_run(torch, dev, params, sw, chunk: int, kv_quant: bool = False):
     return launches, outs, pool_gb
 
 
-def profile_serving(torch, dev, params, sw, n: int = 4,
-                    kv_quant: bool = False) -> None:
-    """torch.profiler over ``n`` steady serving ticks (8 live rows, no
-    admission): device time per kernel family per tick and the device's
-    busy share of the profiled wall time."""
-    se = serve_engine(torch, params, sw, 0, kv_quant)
+def profile_serving(torch, se, phase: str, n: int = 4) -> None:
+    """torch.profiler over ``n`` steady ticks of the idle serving engine
+    ``se`` (8 live rows, no admission): device time per kernel family per
+    tick and the device's busy share of the profiled wall time."""
     for p in serve_prompts()[:SERVE_BATCH]:
         se.submit(p, max_new_tokens=n + 4)
     se.step()                                 # admits all 8, one tick
     se.step()
     torch.cuda.synchronize()
-    profile_ticks(torch, "profile-kvq" if kv_quant else "profile-serve",
-                  se.step, n)
-    del se
+    profile_ticks(torch, phase, se.step, n)
 
 
 def serve_phase(torch, dev, params, sw):
@@ -1878,7 +1870,8 @@ def serve_phase(torch, dev, params, sw):
     flip_margins(torch, params, out_block, out_chunk, "serve",
                  "blocking and chunked admission")
     torch.cuda.empty_cache()
-    profile_serving(torch, dev, params, sw)
+    profile_serving(torch, serve_engine(torch, params, sw, 0),
+                    "profile-serve")
     return ({"serve_blocking": l_block, "serve_chunked": l_chunk},
             {"blocking": out_block, "chunked": out_chunk, "pool_gb": pool_gb})
 
@@ -2025,8 +2018,9 @@ def quant_phase(torch, dev, params, sw):
     whole-batch AR (B=4, prompt 128, 32 steps, dense cache; int8 then
     profiled over 3 more steps) and a whole-batch tree run (4 steps); then
     ServingEngine(quant="int8", cache="paged") serving the first 8 serve
-    prompts. Each run zeroes the launch counts right before and reads them
-    right after; each engine is freed before the next is built."""
+    prompts, profiled over 4 more ticks. Each run zeroes the launch counts
+    right before and reads them right after; each engine is freed before
+    the next is built."""
     import numpy as np
     from repro_torch import kernels as K
     from repro_torch.api import DenseStrategy, Engine, SpecEEStrategy
@@ -2131,6 +2125,7 @@ def quant_phase(torch, dev, params, sw):
     s_launch, outs, se = quant_serve_run(torch, params, sw, "quant",
                                          "serve int8")
     by_path["quant_int8_serve"] = s_launch
+    profile_serving(torch, se, "profile-quant-serve")
     del se
     torch.cuda.empty_cache()
     return by_path, outs
@@ -2217,7 +2212,8 @@ def kvq_phase(torch, dev, params, sw, fp_serve, q8_outs):
         flip_margins(torch, params, fp_serve[ref_name], outs, "kvq",
                      f"phase 5's fp {ref_name} run and the kv_quant one")
     torch.cuda.empty_cache()
-    profile_serving(torch, dev, params, sw, kv_quant=True)
+    profile_serving(torch, serve_engine(torch, params, sw, 0, True),
+                    "profile-kvq")
 
     # composed with weight-only int8: the first 8 serve prompts, blocking
     torch.cuda.empty_cache()
@@ -2679,9 +2675,10 @@ def mamba_phase(torch, dev):
 # where the device time of a decode step goes, by kernel family (the paged
 # kernel's name contains the dense one's, so it is matched first); the
 # quantized verify, spec-head and paged-attention kernels are the fp ones'
-# templates on an Int8Cols / Int4Cols / Int8KV reader, and count under the
-# family's "_q" name
-QUANT_READERS = ("Int8Cols", "Int4Cols", "Int8KV")
+# templates on an Int8Cols / Int4Cols / Int8KV reader (the quantized
+# argmax with bf16 hidden rows: the tile's Int8Tile / Int4Tile), and count
+# under the family's "_q" name
+QUANT_READERS = ("Int8Cols", "Int4Cols", "Int8Tile", "Int4Tile", "Int8KV")
 FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
             ("topk_verify", ("topk_partial", "topk_merge")),
             ("exit_gate", ("exit_gate_kernel",)),

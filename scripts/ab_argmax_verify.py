@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
-"""A/B of the port's streaming LM-head verify kernels between another
-version of the sources and this tree's, on one card.
+"""A/B of the port's LM-head verify kernels between another version of the
+sources and this tree's, on one card.
 
-Builds ``argmax_verify.cu`` (whose bf16 instance is the tensor-core tile of
-``csrc/lm_head_mma.cuh``), and, since every header is part of every
-library, ``topk_verify.cu``, ``argmax_verify_q.cu`` and
-``topk_verify_q.cu`` from both trees with the flags of
-``repro_torch.kernels.build``; prints each build's ptxas report and the
-HMMA count per kernel in ``cuobjdump -sass`` of this tree's
-``argmax_verify`` library (it fails if the tensor-core kernel has none).
-Then times both versions in one process, in alternating order (base,
-tree, tree, base, then reversed; 12 timings each), each timing a CUDA
-graph of calls on distinct hidden rows:
+Builds ``argmax_verify.cu``, ``topk_verify.cu`` and ``argmax_verify_q.cu``
+(whose bf16 instances are the tensor-core tile of ``csrc/lm_head_mma.cuh``)
+and, since every header is part of every library, ``topk_verify_q.cu``,
+from both trees with the flags of ``repro_torch.kernels.build``; prints
+each build's registers, this tree's ptxas report (registers, spills) of
+the three tile libraries and the HMMA count per kernel in their
+``cuobjdump -sass`` (it fails if a tile kernel has none: the argmax, the
+top-k and the int8 and int4 argmax). Then times both versions in one
+process, in alternating order (base, tree, tree, base, then reversed; 12
+timings each), each timing a CUDA graph of calls on distinct hidden rows:
   bf16 argmax at B=4, R=8, 160, 320 (D=4096, V=32000: Llama-2-7B's head)
   and B=4 at D=768, V=50280 (mamba2-130m's tied head);
-  bf16 top-k (k=4) at B=4 and R=160; the int8 and int4 argmax and top-k
-  at B=4 (D=4096, V=32000).
+  bf16 top-k (k=4) at B=4, R=160 and 320; the int8 and int4 argmax at
+  B=4, R=160 and 320 and the int8 and int4 top-k at B=4 (D=4096,
+  V=32000, bf16 hidden rows).
 Each version of each case is first held to the plain version (ids exact,
-values atol = rtol = 1e-4: fp32 sums in another order).
+values atol = rtol = 1e-4: fp32 sums in another order), and the bf16
+argmax of both versions to each other (bit-equal ids and values).
 
     python3 scripts/ab_argmax_verify.py <dir holding the other csrc>
 
@@ -33,6 +35,10 @@ import ab_common as ab
 
 NAMES = ("argmax_verify", "topk_verify", "argmax_verify_q", "topk_verify_q")
 K_TOP = 4
+# the tensor-core tile kernels each library must hold, with HMMA
+TILES = {"argmax_verify": ("argmax_partial_mma",),
+         "topk_verify": ("topk_partial_mma",),
+         "argmax_verify_q": ("Int8Tile", "Int4Tile")}
 
 
 def main() -> int:
@@ -50,16 +56,17 @@ def main() -> int:
             lib, so, report = ab.build(tag, src, name, out)
             libs[(tag, name)] = lib
             print(f"{tag} {name}: {ab.registers(report)}", flush=True)
-            if tag == "tree" and name == "argmax_verify":
-                print("tree argmax_verify ptxas report:\n  "
-                      + "\n  ".join(report), flush=True)
-                hmma = ab.hmma_by_function(so)
-                print(f"tree argmax_verify SASS, HMMA per kernel: {hmma}",
+            if tag == "tree" and name in TILES:
+                print(f"tree {name} ptxas report:\n  " + "\n  ".join(report),
                       flush=True)
-                mma = [n for n in hmma if "argmax_partial_mma" in n]
-                if not mma or any(hmma[n] == 0 for n in mma):
-                    raise RuntimeError("the tensor-core argmax kernel has no "
-                                       "HMMA instruction")
+                hmma = ab.hmma_by_function(so)
+                print(f"tree {name} SASS, HMMA per kernel: {hmma}",
+                      flush=True)
+                for key in TILES[name]:
+                    tile = [n for n in hmma if key in n and "partial" in n]
+                    if not tile or any(hmma[n] == 0 for n in tile):
+                        raise RuntimeError(f"a tensor-core {name} kernel "
+                                           f"({key}) has no HMMA instruction")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -128,16 +135,18 @@ def main() -> int:
                    heads[(4096, 32000)])
     plain_case("argmax bf16 B=4 D=768 V=50280", "argmax_verify", 4, 768,
                50280, heads[(768, 50280)])
-    for R in (4, 160):
+    for R in (4, 160, 320):
         plain_case(f"topk bf16 R={R}", "topk_verify", R, 4096, 32000,
                    heads[(4096, 32000)], k=K_TOP)
     for bits in (8, 4):
-        plain_case(f"argmax_q int{bits} B=4", "argmax_verify_q", 4, 4096,
-                   32000, qheads[bits], bits=bits)
+        for R in (4, 160, 320):
+            plain_case(f"argmax_q int{bits} R={R}", "argmax_verify_q", R,
+                       4096, 32000, qheads[bits], bits=bits)
         plain_case(f"topk_q int{bits} B=4", "topk_verify_q", 4, 4096, 32000,
                    qheads[bits], k=K_TOP, bits=bits)
 
     for label, calls, a, b, (ids_r, vals_r) in checks:
+        got = {}
         for tag in ("base", "tree"):
             a.fill_(-1)
             b.fill_(float("nan"))
@@ -148,8 +157,14 @@ def main() -> int:
                 raise AssertionError(f"{tag} {label}: ids differ from the "
                                      f"plain version")
             torch.testing.assert_close(b, vals_r, atol=1e-4, rtol=1e-4)
+            got[tag] = (a.clone(), b.clone())
+        if label.startswith("argmax bf16") and not (
+                torch.equal(got["base"][0], got["tree"][0])
+                and torch.equal(got["base"][1], got["tree"][1])):
+            raise AssertionError(f"{label}: the two versions differ")
     print("every case of both versions equals the plain version (ids "
-          "exact, values atol = rtol = 1e-4)", flush=True)
+          "exact, values atol = rtol = 1e-4); the bf16 argmax of both "
+          "versions is bit-equal", flush=True)
     times = ab.alternate(cases)
     for label in cases:
         print(f"{label}: " + "; ".join(

@@ -56,28 +56,13 @@ int argmax_verify_launch(const void* hn, const void* w, void* pval,
   if (dtype == rt::DT_BF16) {
     if (D % 8 || reinterpret_cast<uintptr_t>(hn) % 16)
       return static_cast<int>(cudaErrorInvalidValue);
-    // the row tile: as few tiles as cover R, evened out. Up to 8 m-tiles
-    // of 16 rows: one warp row of 4 warps (R <= 16: one m-tile); more: two
-    // warp rows of 5-8 m-tiles each (R = 160: one tile of 160 rows; 320:
-    // two), so the head is read once per tile of up to 256 rows.
-    const int mtiles = (R + 15) / 16;
-    const int wm = mtiles > rt::LM_MT_MAX ? 2 : 1;
-    const int tiles = (mtiles + wm * rt::LM_MT_MAX - 1) / (wm * rt::LM_MT_MAX);
-    const int mt = (mtiles + wm * tiles - 1) / (wm * tiles);
     const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    int err;
-    switch (wm * 16 + mt) {
-#define RT_MT(wm, mt)                                                    \
-  case wm * 16 + mt:                                                     \
-    err = rt::argmax_partial_mma_launch<mt, wm>(hn, w, pval, pidx, R, D, \
-                                                V, vec, st);             \
-    break;
-      RT_MT(1, 1) RT_MT(1, 2) RT_MT(1, 3) RT_MT(1, 4) RT_MT(1, 5)
-      RT_MT(1, 6) RT_MT(1, 7) RT_MT(1, 8) RT_MT(2, 5) RT_MT(2, 6)
-      RT_MT(2, 7) RT_MT(2, 8)
-#undef RT_MT
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    const rt::Bf16Tile head{static_cast<const __nv_bfloat16*>(w)};
+    const int err = rt::lm_mma_dispatch(R, [&](auto mt, auto wm) {
+      return rt::argmax_partial_mma_launch<rt::Bf16Tile, decltype(mt)::value,
+                                           decltype(wm)::value>(
+          hn, head, pval, pidx, R, D, V, vec, st);
+    });
     if (err != 0) return err;
     using T = __nv_bfloat16;
     rt::argmax_merge<rt::FpCols<T>><<<R, 256, 0, st>>>(

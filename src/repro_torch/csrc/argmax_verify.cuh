@@ -1,6 +1,7 @@
 // Streaming LM-head argmax, the two passes and their launch, over any
-// column reader (common.cuh); argmax_verify.cu instantiates it for fp
-// heads, argmax_verify_q.cu for int8 and int4 codes. See argmax_verify.cu.
+// column reader (common.cuh); argmax_verify.cu and argmax_verify_q.cu
+// instantiate it for fp32 hidden rows (fp heads, int8 and int4 codes), and
+// argmax_merge for every instance. See argmax_verify.cu.
 #pragma once
 
 #include "lm_head_stream.cuh"

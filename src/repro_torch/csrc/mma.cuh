@@ -29,6 +29,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 4 bytes global -> shared through L1 (cp.async.cg takes only 16), for rows
+// that are 4-byte but not 16-byte aligned; zero-filled when !full.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -68,6 +78,42 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four int8 codes (bytes b0..b3 of r) as two bf16 pairs, exactly: even =
+// (b0, b2), odd = (b1, b3), the first in the low half. Each byte, biased
+// to c + 128, is placed in the mantissa of 2^23 (fp32), 2^23 + 128 is
+// subtracted, and the top half of the fp32 result is its bf16 (a code
+// has at most 8 significant bits).
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t r, uint32_t& even,
+                                               uint32_t& odd) {
+  const uint32_t u = r ^ 0x80808080u;
+  const uint32_t base = 0x4B000000u;
+  const float f0 = __uint_as_float(__byte_perm(u, base, 0x7650)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, base, 0x7651)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, base, 0x7652)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, base, 0x7653)) - 8388736.f;
+  even = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
+  odd = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632);
+}
+
+// Four plane-packed int4 bytes of r (low nibble plane 0, high nibble plane
+// 1, two's complement) as two bf16 pairs of plane p, exactly: even = (b0,
+// b2), odd = (b1, b3). Each nibble, biased to c + 8, goes into the
+// mantissa of bf16 128 (0x4300 | n = 128 + n), and 136 is subtracted.
+__device__ __forceinline__ uint32_t bf16x2_minus136(uint32_t x) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(x), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return d;
+}
+__device__ __forceinline__ void i4x8_to_bf16x2(uint32_t r, int p,
+                                               uint32_t& even,
+                                               uint32_t& odd) {
+  const uint32_t u = r ^ 0x88888888u;
+  even = bf16x2_minus136(((u >> (4 * p)) & 0x000F000Fu) | 0x43004300u);
+  odd = bf16x2_minus136(((u >> (8 + 4 * p)) & 0x000F000Fu) | 0x43004300u);
 }
 
 // Two floats rounded to bf16 (nearest even), `lo` in the low half.

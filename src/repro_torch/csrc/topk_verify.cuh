@@ -1,6 +1,7 @@
 // Streaming LM-head top-k, the two passes and their launch, over any
-// column reader (common.cuh); topk_verify.cu instantiates it for fp heads,
-// topk_verify_q.cu for int8 and int4 codes. See topk_verify.cu.
+// column reader (common.cuh); topk_verify.cu instantiates it for fp32
+// hidden rows (and topk_merge for its bf16 tile too), topk_verify_q.cu for
+// int8 and int4 codes. See topk_verify.cu.
 #pragma once
 
 #include "lm_head_stream.cuh"

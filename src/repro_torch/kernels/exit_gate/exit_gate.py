@@ -3,14 +3,17 @@ kernels in ``repro/kernels/exit_gate/exit_gate.py``).
 
 ``exit_gate_fused``     — csrc/exit_gate.cu: gather-GEMM + softmax +
                           Δ-features + 2-layer predictor, one CTA per row.
-``argmax_verify_fused`` — csrc/argmax_verify.cu: streaming LM-head argmax.
-``topk_verify_fused``   — csrc/topk_verify.cu: streaming LM-head top-k.
+``argmax_verify_fused`` — csrc/argmax_verify.cu: LM-head argmax.
+``topk_verify_fused``   — csrc/topk_verify.cu: LM-head top-k.
 ``argmax_verify_fused_q`` / ``topk_verify_fused_q`` — csrc/argmax_verify_q.cu
                           and csrc/topk_verify_q.cu: the same over a
                           quantized head (``repro_torch.quant.QTensor``,
                           int8 or plane-packed int4 codes + column scales).
-The streaming kernels take any row count (groups of 8 rows per CTA; the
-bf16 ``argmax_verify_fused`` runs tensor-core tiles of up to 256 rows).
+Every verify takes any row count. With bf16 hidden rows the argmax, the
+top-k and the quantized argmax run the tensor-core tile of
+``csrc/lm_head_mma.cuh`` (row tiles of up to 256 rows; they refuse hidden
+rows that the tile cannot copy 16 bytes at a time); fp32 hidden rows, and
+the quantized top-k, stream on the CUDA cores (groups of 8 rows per CTA).
 
 On a CPU tensor each wrapper runs its plain version from ``ref.py``; on a
 CUDA tensor it launches its kernel (counted in ``kernels.LAUNCHES``) or
@@ -82,6 +85,16 @@ def _stream_args(name: str, hn: torch.Tensor, lm_head: torch.Tensor):
     return B, D, V, dev, nblk
 
 
+def _check_tile_rows(name: str, hn: torch.Tensor, d_mult: int) -> None:
+    """The tensor-core tile copies bf16 hidden rows 16 bytes at a time (an
+    int4 head's high half from D/2 on): D % d_mult == 0 and a 16-byte
+    aligned start, or a ValueError before any launch."""
+    D = hn.shape[1]
+    if hn.dtype == torch.bfloat16 and (D % d_mult or hn.data_ptr() % 16):
+        raise ValueError(f"{name} (bf16): hn needs D % {d_mult} == 0 and a "
+                         f"16-byte aligned start (D={D})")
+
+
 def argmax_verify_fused(hn: torch.Tensor, lm_head: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hn (B, D); lm_head (D, V). Returns (argmax token (B,) int32, max
@@ -89,10 +102,7 @@ def argmax_verify_fused(hn: torch.Tensor, lm_head: torch.Tensor
     if K.runs_plain(hn):
         return gate_ref.verify_argmax_ref(hn, lm_head)
     B, D, V, dev, nblk = _stream_args("argmax_verify", hn, lm_head)
-    if hn.dtype == torch.bfloat16 and (D % 8 or hn.data_ptr() % 16):
-        # the tensor-core tile copies the hidden rows 16 bytes at a time
-        raise ValueError(f"argmax_verify (bf16): hn needs D % 8 == 0 and a "
-                         f"16-byte aligned start (D={D})")
+    _check_tile_rows("argmax_verify", hn, 8)
     fn = build.c_func("argmax_verify", "argmax_verify_launch",
                       [_P] * 6 + [_I] * 4 + [_P])
     pval = torch.empty(B, nblk, dtype=torch.float32, device=dev)
@@ -113,6 +123,7 @@ def topk_verify_fused(hn: torch.Tensor, lm_head: torch.Tensor, k: int
     if K.runs_plain(hn):
         return gate_ref.verify_topk_ref(hn, lm_head, k)
     B, D, V, dev, nblk = _stream_args("topk_verify", hn, lm_head)
+    _check_tile_rows("topk_verify", hn, 8)
     if not 1 <= k <= min(V, build.c_func("topk_verify", "topk_verify_max_k",
                                          [])()):
         raise ValueError(f"topk_verify kernel: unsupported k={k}")
@@ -147,6 +158,7 @@ def argmax_verify_fused_q(hn: torch.Tensor, qt: QTensor
     if K.runs_plain(hn):
         return gate_ref.verify_argmax_q_ref(hn, qt)
     B, D, V, dev, nblk = _stream_args_q("argmax_verify_q", hn, qt)
+    _check_tile_rows("argmax_verify_q", hn, 16 if qt.bits == 4 else 8)
     fn = build.c_func("argmax_verify_q", "argmax_verify_q_launch",
                       [_P] * 7 + [_I] * 5 + [_P])
     pval = torch.empty(B, nblk, dtype=torch.float32, device=dev)

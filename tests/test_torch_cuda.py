@@ -843,3 +843,157 @@ def test_flash_attention_bf16_mma_matches_plain(dev, S, hd, n_rep, window):
     assert LAUNCHES["flash_attention"] == 1
     want = flash_attention_ref(q.float(), k.float(), v.float(), True, window)
     torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=2.0 ** -7)
+
+
+# ---- the bf16 top-k and the quantized argmax on the tensor-core tile ----
+def _plant_ties_q_mma(qt, hn, r):
+    """Copy row r's best column (codes and scale) inside its own MMA tile
+    (the code tile's n-tiles hold the even or the odd columns of a
+    16-column block: best ^ 2 shares best's n-tile, best ^ 1 is in the
+    other), into another 128-column strip and into the same offset of the
+    first strip. Returns the lowest id among the copies."""
+    from repro_torch.kernels.exit_gate import ref
+    V = qt.shape[1]
+    best = int(ref.verify_argmax_q_ref(hn[r:r + 1], qt)[0][0])
+    dups = {best, best ^ 1, best ^ 2, (best + 3 * 128) % V, best % 128}
+    dups = {j for j in dups if j < V}
+    for j in dups:
+        qt.q[:, j], qt.scale[j] = qt.q[:, best], qt.scale[best]
+    return min(dups)
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("D,V", [(128, 3001), (768, 50280), (4096, 32000)])
+@pytest.mark.parametrize("R", [1, 4, 8, 17, 160, 320])
+def test_topk_verify_bf16_mma_matches_plain(dev, R, D, V, k):
+    """The bf16 tensor-core top-k (csrc/lm_head_mma.cuh, top-k epilogue)
+    at every row-tile choice, the element-load head path (V = 3001) and
+    ragged last strips and hidden chunks: ids equal the plain fp32
+    version's (value descending, then id ascending), values atol = rtol =
+    1e-4 (fp32 sums of exact bf16 products in another order); ties
+    planted inside one MMA tile and across strips come out lowest id
+    first."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    gen = torch.Generator(device=dev).manual_seed(R * 11 + D + k)
+    hn = _rand(gen, (R, D), dev, torch.bfloat16)
+    w = _rand(gen, (D, V), dev, torch.bfloat16, 0.05)
+    lowest = _plant_ties_mma(w, hn, R - 1)
+    reset_launches()
+    ids, vals = eg.topk_verify_fused(hn, w, k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["topk_verify"] == 1
+    ids_r, vals_r = ref.verify_topk_ref(hn, w, k)
+    assert torch.equal(ids, ids_r)
+    assert int(ids[R - 1, 0]) == lowest
+    torch.testing.assert_close(vals, vals_r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("D,V", [(512, 3001), (768, 50280), (4096, 32000)])
+@pytest.mark.parametrize("R", [1, 4, 8, 17, 160, 320])
+def test_argmax_verify_q_bf16_mma_matches_plain(dev, R, D, V, bits):
+    """argmax_verify_q with bf16 hidden rows on the tensor-core tile (int8
+    codes or plane-packed int4 bytes made bf16 in registers) at every
+    row-tile choice and each head staging (16-byte copies at V = 32000,
+    4-byte at V = 50280, element loads at V = 3001): ids equal the plain
+    version's, values atol = rtol = 1e-4; planted ties (codes and scale
+    copied) resolve to the lowest id; and ids and values equal the fp
+    kernel's on the dequantized fp32 head."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    gen = torch.Generator(device=dev).manual_seed(R * 13 + D + bits)
+    qt = _quant_head(gen, dev, bits, D, V)
+    hn = _rand(gen, (R, D), dev, torch.bfloat16)
+    lowest = _plant_ties_q_mma(qt, hn, R - 1)
+    reset_launches()
+    tok, mx = eg.argmax_verify_fused_q(hn, qt)
+    torch.cuda.synchronize()
+    assert LAUNCHES["argmax_verify_q"] == 1
+    tok_r, mx_r = ref.verify_argmax_q_ref(hn, qt)
+    assert torch.equal(tok, tok_r)
+    assert int(tok[R - 1]) == lowest
+    torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)
+    tok_f, mx_f = eg.argmax_verify_fused(hn.float(), qt.dequantize())
+    assert torch.equal(tok, tok_f)
+    torch.testing.assert_close(mx, mx_f, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kernel", ["topk", "int8", "int4"])
+@pytest.mark.parametrize("D,V", [(768, 50280), (4096, 32000)])
+def test_verify_bf16_tiles_row_alone_bit_identical(dev, kernel, D, V):
+    """The bf16 top-k and the bf16-input quantized argmax give a row
+    bit-identical values whether it is verified alone, in a batch of 8 or
+    inside the 160 node rows of a tree step (one, one and two row tiles of
+    different heights)."""
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    gen = torch.Generator(device=dev).manual_seed(D + len(kernel))
+    hn = _rand(gen, (160, D), dev, torch.bfloat16)
+    if kernel == "topk":
+        w = _rand(gen, (D, V), dev, torch.bfloat16, 0.05)
+
+        def run(x):
+            return eg.topk_verify_fused(x, w, 4)
+    else:
+        qt = _quant_head(gen, dev, 8 if kernel == "int8" else 4, D, V)
+
+        def run(x):
+            return eg.argmax_verify_fused_q(x, qt)
+    ids, vals = run(hn)
+    for r in (0, 7, 15, 16, 100, 159):
+        i1, v1 = run(hn[r:r + 1].clone())
+        assert torch.equal(i1[0], ids[r]) and torch.equal(v1[0], vals[r])
+    i8, v8 = run(hn[152:].clone())
+    assert torch.equal(i8, ids[152:]) and torch.equal(v8, vals[152:])
+
+
+def test_bf16_tiles_refuse_before_any_launch(dev):
+    """The bf16 top-k refuses hidden rows with D % 8 != 0 or a start off 16
+    bytes, and the bf16-input quantized argmax D % 8 != 0 (int8) or D % 16
+    != 0 (int4, whose high half must start 16-byte aligned), with a
+    ValueError before any launch; fp32 hidden rows of the same width still
+    stream. Codes off 16 bytes (and off 4) are staged with element loads
+    and give the plain version's ids."""
+    from repro_torch import quant
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bf = torch.bfloat16
+    reset_launches()
+    hn = _rand(gen, (4, 100), dev, bf)
+    w = _rand(gen, (100, 1000), dev, bf, 0.05)
+    with pytest.raises(ValueError, match="D % 8"):
+        eg.topk_verify_fused(hn, w, 4)
+    off = torch.empty(4 * 128 + 1, device=dev, dtype=bf)[1:].view(4, 128)
+    off.copy_(_rand(gen, (4, 128), dev, bf))
+    with pytest.raises(ValueError, match="aligned"):
+        eg.topk_verify_fused(off, _rand(gen, (128, 1000), dev, bf, 0.05), 4)
+    q8 = _quant_head(gen, dev, 8, 100, 1000)
+    with pytest.raises(ValueError, match="D % 8"):
+        eg.argmax_verify_fused_q(hn, q8)
+    h24 = _rand(gen, (4, 24), dev, bf)
+    q4 = _quant_head(gen, dev, 4, 24, 1000)
+    with pytest.raises(ValueError, match="D % 16"):
+        eg.argmax_verify_fused_q(h24, q4)
+    with pytest.raises(ValueError, match="aligned"):
+        eg.argmax_verify_fused_q(off, _quant_head(gen, dev, 8, 128, 1000))
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in LAUNCHES.values())
+    ids, _ = eg.topk_verify_fused(hn.float(), w.float(), 4)
+    assert torch.equal(ids, ref.verify_topk_ref(hn.float(), w.float(), 4)[0])
+    for x, qt in ((hn, q8), (h24, q4)):
+        tok, _ = eg.argmax_verify_fused_q(x.float(), qt)
+        assert torch.equal(tok, ref.verify_argmax_q_ref(x.float(), qt)[0])
+    qt = _quant_head(gen, dev, 8, 128, 1024)
+    codes = torch.empty(qt.q.numel() + 1, device=dev,
+                        dtype=torch.int8)[1:].view(128, 1024)
+    codes.copy_(qt.q)
+    q_off = quant.QTensor(codes, qt.scale, 8)
+    h128 = _rand(gen, (4, 128), dev, bf)
+    tok, mx = eg.argmax_verify_fused_q(h128, q_off)
+    tok_r, mx_r = ref.verify_argmax_q_ref(h128, qt)
+    assert torch.equal(tok, tok_r)
+    torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)

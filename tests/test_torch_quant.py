@@ -209,17 +209,50 @@ def _t_q(qt_j):
                                 "cpu")
 
 
+def _verify_q_plain_vs_jax_kernel(bits, R, dtype):
+    """The plain argmax/top-k over a quantized head (the port, CPU) against
+    JAX's Pallas kernels in interpret mode on the same hidden rows in
+    ``dtype``: ids exact, with the last row's best column planted at ids 0
+    and V-1 (codes and scale), so three columns tie and the lowest id must
+    win; values atol = rtol = 1e-5. The hidden rows are small integers, so
+    they are exact in bf16 and each column's integer dot is exact in any
+    order: equal columns give equal logits on both sides."""
+    _, qt_j = _head(bits, seed=R)
+    hn = np.random.default_rng(10 + R).integers(-2, 3, (R, 64)).astype(
+        np.float32)
+    h_t = _t(hn).to(dtype)
+    h_j = jnp.asarray(hn, dtype=jnp.bfloat16 if dtype == torch.bfloat16
+                      else jnp.float32)
+    q, s = np.array(qt_j.q), np.array(qt_j.scale)
+    V = q.shape[1]
+    best = int(eg.argmax_verify_fused_q(h_t[-1:], _t_q(qt_j))[0][0])
+    for j in (0, V - 1):
+        q[:, j], s[j] = q[:, best], s[best]
+    qt_j = jquant.QTensor(jnp.asarray(q), jnp.asarray(s), bits)
+    qt_t = _t_q(qt_j)
+    K.reset_launches()
+    tok, mx = eg.argmax_verify_fused_q(h_t, qt_t)
+    ids, vals = eg.topk_verify_fused_q(h_t, qt_t, 4)
+    assert all(v == 0 for v in K.LAUNCHES.values())      # CPU: plain
+    tok_j, mx_j = jgate_ops.verify_argmax(h_j, qt_j, impl="kernel",
+                                          block_v=128)
+    ids_j, vals_j = jgate_ops.verify_topk(h_j, qt_j, 4, impl="kernel",
+                                          block_v=128)
+    np.testing.assert_array_equal(_np(tok), np.asarray(tok_j))
+    np.testing.assert_array_equal(_np(ids), np.asarray(ids_j))
+    dup = sorted({0, best, V - 1})
+    assert int(tok[-1]) == 0 and _np(ids[-1, :len(dup)]).tolist() == dup
+    np.testing.assert_allclose(_np(mx), np.asarray(mx_j), **VTOL)
+    np.testing.assert_allclose(_np(vals), np.asarray(vals_j), **VTOL)
+
+
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("R", [1, 4, 9])
+@pytest.mark.parametrize("R", [1, 4, 9, 17])
 def test_verify_q_plain_matches_jax_kernel(bits, R):
     """argmax_verify_fused_q / topk_verify_fused_q (plain on the CPU)
-    against JAX's Pallas kernels: ids exact, with the last row's best
-    column planted at ids 0 and V-1 (codes and scale), so three columns
-    tie and the lowest id must win. The hidden rows are small integers, so
-    each column's integer dot is exact in any order and equal columns give
-    equal logits on both sides. Then the "ref" impl, which dequantizes the
-    head first (so its sums round, and the unplanted head is used), against
-    JAX's."""
+    against JAX's Pallas kernels (``_verify_q_plain_vs_jax_kernel``, fp32
+    hidden rows; R = 17 crosses a 16-row m-tile). First the "ref" impl,
+    which dequantizes the head first (so its sums round), against JAX's."""
     _, qt_j = _head(bits, seed=R)
     hn = np.random.default_rng(10 + R).integers(-2, 3, (R, 64)).astype(
         np.float32)
@@ -233,27 +266,17 @@ def test_verify_q_plain_matches_jax_kernel(bits, R):
                                              impl="ref"))):
         np.testing.assert_array_equal(_np(got[0]), np.asarray(want[0]))
         np.testing.assert_allclose(_np(got[1]), np.asarray(want[1]), **VTOL)
-    q, s = np.array(qt_j.q), np.array(qt_j.scale)
-    V = q.shape[1]
-    best = int(eg.argmax_verify_fused_q(_t(hn[-1:]), _t_q(qt_j))[0][0])
-    for j in (0, V - 1):
-        q[:, j], s[j] = q[:, best], s[best]
-    qt_j = jquant.QTensor(jnp.asarray(q), jnp.asarray(s), bits)
-    qt_t = _t_q(qt_j)
-    K.reset_launches()
-    tok, mx = eg.argmax_verify_fused_q(_t(hn), qt_t)
-    ids, vals = eg.topk_verify_fused_q(_t(hn), qt_t, 4)
-    assert all(v == 0 for v in K.LAUNCHES.values())      # CPU: plain
-    tok_j, mx_j = jgate_ops.verify_argmax(jnp.asarray(hn), qt_j,
-                                          impl="kernel", block_v=128)
-    ids_j, vals_j = jgate_ops.verify_topk(jnp.asarray(hn), qt_j, 4,
-                                          impl="kernel", block_v=128)
-    np.testing.assert_array_equal(_np(tok), np.asarray(tok_j))
-    np.testing.assert_array_equal(_np(ids), np.asarray(ids_j))
-    dup = sorted({0, best, V - 1})
-    assert int(tok[-1]) == 0 and _np(ids[-1, :len(dup)]).tolist() == dup
-    np.testing.assert_allclose(_np(mx), np.asarray(mx_j), **VTOL)
-    np.testing.assert_allclose(_np(vals), np.asarray(vals_j), **VTOL)
+    _verify_q_plain_vs_jax_kernel(bits, R, torch.float32)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("R", [4, 17])
+def test_verify_q_plain_matches_jax_kernel_bf16_rows(bits, R):
+    """The same with bf16 hidden rows, the input of the tensor-core tile on
+    the card: the plain versions that the card tests hold the tile against
+    equal JAX's kernels at the tile's input dtype, across a 16-row m-tile
+    boundary (R = 17)."""
+    _verify_q_plain_vs_jax_kernel(bits, R, torch.bfloat16)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
