@@ -18,12 +18,15 @@ Phases (lines ``[phase +seconds since the start] ...``):
   2. kernels — each kernel vs its plain version in fp32 and bf16 at the
      main paths' shapes (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128,
      dense caches up to 1024; paged: B=8, 128-token pages, a shuffled page
-     table, ragged lengths with a retired all-trash row; flash: B in {1, 4},
+     table, 785, 4563, 4103 (one 4096-token row among fresh ones) and
+     32768 (8 x 4096) live keys, windows None/20/300, ragged lengths with a
+     retired all-trash row; flash: B in {1, 4},
      S in {77, 512}, window None/64, GQA n_rep=4), then timed beside its
      plain version, a library call as yardstick, and the least time the
      card could take (bound); the int8 paged kernel (paged_decode_attention_q:
-     int8 pools with fp32 scale pools, fp32 and bf16 queries, windows
-     None/64, n_rep 1/4, the retired row reading the zeroed trash page),
+     int8 pools with fp32 scale pools, fp32 and bf16 queries, the same
+     four shapes, windows None/64/300, n_rep 1/4, the retired row reading
+     the zeroed trash page),
      timed beside the fp paged kernel at the same live keys, SDPA on the
      gathered view dequantized to bf16 (a yardstick) and its byte bound;
      then the tree path's kernels at its row
@@ -441,7 +444,8 @@ def check_kernels(torch, dev):
 
 def _paged_case(torch, dev, rnd, dt, P, lens, seed):
     """B = len(lens) rows of P pages each, a shuffled table over a pool with
-    spare pages, the last row retired (every entry the trash page)."""
+    spare pages; a last row of length 1 is retired (every entry the trash
+    page)."""
     import numpy as np
     Bp = len(lens)
     NP = Bp * P + 5                              # + spare, then the trash
@@ -450,7 +454,8 @@ def _paged_case(torch, dev, rnd, dt, P, lens, seed):
     vp = rnd((NP + 1, PAGE, HEADS, HD), dt)
     perm = np.random.default_rng(seed).permutation(NP)[:Bp * P]
     table = torch.as_tensor(perm.reshape(Bp, P).astype(np.int32), device=dev)
-    table[-1] = NP
+    if lens[-1] == 1:
+        table[-1] = NP
     cl = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, kp, vp, table, cl
 
@@ -472,9 +477,14 @@ def check_attention_kernels(torch, dev, rnd):
         flash_attention_fwd)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    # live spans of about 150 (a serving tick early in a request) and 1024
+    # live spans of about 150 (a serving tick early in a request) and 1024;
+    # one full 4096-token row among fresh ones; the serve cell's full rows
+    # (8 x 4096, no retired row). The kernels cut the long rows into
+    # splits; window 300 leaves whole splits before its first key.
     paged_cases = ((2, [150, 1, 77, 149, 150, 128, 129, 1]),
-                   (8, [1024, 1, 700, 1000, 513, 1024, 300, 1]))
+                   (8, [1024, 1, 700, 1000, 513, 1024, 300, 1]),
+                   (32, [4096, 1, 1, 1, 1, 1, 1, 1]),
+                   (32, [4096] * 8))
     flash_cases = ((1, 77, HEADS), (1, 512, HEADS), (4, 77, HEADS),
                    (4, 512, HEADS), (1, 512, HEADS // 4))
     errs = {}
@@ -489,16 +499,18 @@ def check_attention_kernels(torch, dev, rnd):
         for i, (P, lens) in enumerate(paged_cases):
             q, kp, vp, table, cl = _paged_case(torch, dev, rnd, dt, P, lens,
                                                i)
-            for window in (None, 20):
+            live = len(lens) - (lens[-1] == 1)
+            for window in (None, 20, 300):
                 o = paged_decode_attention_fwd(q, kp, vp, table, cl,
                                                window=window).float()
                 o_r = paged_decode_attention_ref(q.float(), kp.float(),
                                                  vp.float(), table, cl,
                                                  window)
                 # the retired row's output is never read: compare live rows
-                torch.testing.assert_close(o[:-1], o_r[:-1], atol=1e-4,
+                torch.testing.assert_close(o[:live], o_r[:live], atol=1e-4,
                                            rtol=rtol)
-                err_pd = max(err_pd, (o[:-1] - o_r[:-1]).abs().max().item())
+                err_pd = max(err_pd,
+                             (o[:live] - o_r[:live]).abs().max().item())
             del kp, vp
         err_fa = 0.0
         for Bf, S, kvh in flash_cases:
@@ -514,7 +526,8 @@ def check_attention_kernels(torch, dev, rnd):
                 err_fa = max(err_fa, (o - o_r).abs().max().item())
         torch.cuda.synchronize()
         log("kernels", f"{name}: paged_decode_attention err {err_pd:.3g} "
-            f"(spans ~150 and ~1024, window None/20, retired row); "
+            f"(785, 4563, 4103 and 32768 live keys, window None/20/300, "
+            f"retired row); "
             f"flash_attention err {err_fa:.3g} (B 1/4, S 77/512, window "
             f"None/64, n_rep 1/4)")
         errs[name] = {"paged_decode_attention": err_pd,
@@ -597,7 +610,8 @@ def _paged_q_case(torch, dev, rnd, dt, P, lens, kvh, seed):
         pools += [codes, scale]
     perm = np.random.default_rng(seed).permutation(NP)[:Bp * P]
     table = torch.as_tensor(perm.reshape(Bp, P).astype(np.int32), device=dev)
-    table[-1] = NP
+    if lens[-1] == 1:
+        table[-1] = NP
     cl = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, pools[0], pools[2], table, cl, pools[1], pools[3]
 
@@ -605,7 +619,8 @@ def _paged_q_case(torch, dev, rnd, dt, P, lens, kvh, seed):
 def check_kv_quant_kernel(torch, dev, rnd, paged_cases):
     """Phase 2 for the int8 paged decode-attention kernel: against its
     plain version (codes and scales gathered, dequantized and attended in
-    fp32) with fp32 and bf16 queries, windows None and 64, n_rep 1 and 4,
+    fp32) with fp32 and bf16 queries, windows None, 64 and 300, n_rep 1
+    and 4,
     the retired row included (it reads the zeroed trash page); then bf16
     timings beside the fp paged kernel at the same live keys, SDPA on the
     gathered view dequantized to bf16 (a yardstick: no one PyTorch call
@@ -637,7 +652,7 @@ def check_kv_quant_kernel(torch, dev, rnd, paged_cases):
         for i, (P, lens) in enumerate(paged_cases):
             for kvh in (HEADS, HEADS // 4):
                 c = _paged_q_case(torch, dev, rnd, dt, P, lens, kvh, 20 + i)
-                for window in (None, 64):
+                for window in (None, 64, 300):
                     o = run(c, window).float()
                     o_r = plain((c[0].float(),) + c[1:], window)
                     require(bool(torch.isfinite(o).all()),
@@ -647,8 +662,8 @@ def check_kv_quant_kernel(torch, dev, rnd, paged_cases):
                 del c
         torch.cuda.synchronize()
         log("kernels", f"{name}: paged_decode_attention_q err {err:.3g} "
-            f"(int8 pools, B=8, spans ~150 and ~1024, window None/64, "
-            f"n_rep 1/4, the retired row included)")
+            f"(int8 pools, B=8, 785, 4563, 4103 and 32768 live keys, "
+            f"window None/64/300, n_rep 1/4, the retired row included)")
         errs[name] = {"paged_decode_attention_q": err}
 
     dt, dname = torch.bfloat16, "bfloat16"
@@ -2673,19 +2688,20 @@ def mamba_phase(torch, dev):
 
 
 # where the device time of a decode step goes, by kernel family (the paged
-# kernel's name contains the dense one's, so it is matched first); the
-# quantized verify, spec-head and paged-attention kernels are the fp ones'
-# templates on an Int8Cols / Int4Cols / Int8KV reader (the quantized
-# argmax with bf16 hidden rows: the tile's Int8Tile / Int4Tile), and count
-# under the family's "_q" name
-QUANT_READERS = ("Int8Cols", "Int4Cols", "Int8Tile", "Int4Tile", "Int8KV")
+# kernels are pa::paged_split_kernel, whose merge runs in the same launch);
+# the quantized verify, spec-head and paged-attention kernels are the fp
+# ones' templates on an Int8Cols / Int4Cols / Int8Pools reader (the
+# quantized argmax with bf16 hidden rows: the tile's Int8Tile / Int4Tile),
+# and count under the family's "_q" name
+QUANT_READERS = ("Int8Cols", "Int4Cols", "Int8Tile", "Int4Tile",
+                 "Int8Pools")
 FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
             ("topk_verify", ("topk_partial", "topk_merge")),
             ("exit_gate", ("exit_gate_kernel",)),
             ("spec_head", ("spec_head_kernel",)),
             ("predictor_mlp", ("predictor_mlp_kernel",)),
             ("predictor_mlp_q", ("predictor_mlp_q_kernel",)),
-            ("paged_decode_attention", ("paged_decode_attention_kernel",)),
+            ("paged_decode_attention", ("paged_split_kernel",)),
             ("decode_attention", ("decode_attention_kernel",)),
             ("flash_attention", ("flash_attention_kernel",)),
             ("ssd_chunk", ("ssd_chunk_kernel",)),

@@ -118,4 +118,33 @@ __device__ __forceinline__ void block_best(float& v, int& i, float* sv,
   warp_best(v, i);
 }
 
+// Runs LAUNCH<T, NREP, E>::run(args...) of an attention kernel for a
+// runtime (dtype, n_rep, hd), E = hd / 32; false when no instance exists
+// (n_rep in {1, 2, 4, 8}, hd in {32, 64, 128}).
+template <template <typename, int, int> class LAUNCH, typename... Args>
+bool dispatch(int dtype, int n_rep, int hd, Args... args) {
+#define DA_CASE_E(T, R)                                              \
+  switch (hd) {                                                      \
+    case 32: LAUNCH<T, R, 1>::run(args...); return true;             \
+    case 64: LAUNCH<T, R, 2>::run(args...); return true;             \
+    case 128: LAUNCH<T, R, 4>::run(args...); return true;            \
+    default: return false;                                           \
+  }
+#define DA_CASE_R(T)                                                 \
+  switch (n_rep) {                                                   \
+    case 1: DA_CASE_E(T, 1)                                          \
+    case 2: DA_CASE_E(T, 2)                                          \
+    case 4: DA_CASE_E(T, 4)                                          \
+    case 8: DA_CASE_E(T, 8)                                          \
+    default: return false;                                           \
+  }
+  if (dtype == DT_BF16) {
+    DA_CASE_R(__nv_bfloat16)
+  } else {
+    DA_CASE_R(float)
+  }
+#undef DA_CASE_R
+#undef DA_CASE_E
+}
+
 }  // namespace rt

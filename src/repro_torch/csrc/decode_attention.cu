@@ -63,7 +63,7 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  const bool ok = da::dispatch<Launch>(dtype, H / KVH, hd, q, k, v,
+  const bool ok = rt::dispatch<Launch>(dtype, H / KVH, hd, q, k, v,
                                        cache_len, out, B, S, KVH, window,
                                        scale, st);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);

@@ -1,27 +1,22 @@
-// Decode attention body shared by the dense and the paged kernel: one query
-// token per row against that row's live K/V prefix, with an optional
+// Decode attention body of the dense kernel (decode_attention.cu): one
+// query token per row against that row's live K/V prefix, with an optional
 // sliding window.
 //   out[b, h] = softmax_s(q[b, h] . k[b, s, g] / sqrt(hd)) . v[b, s, g]
 // over lo <= s < len, lo = max(0, len - window), h = g * n_rep + r (GQA:
-// the n_rep query heads of a KV head share its K/V).
-//
-// The kernels differ only in where key s of row b lives, which an
-// addressing functor answers (element offset of the key's (g, 0) entry):
-// DenseAddr for a (B, S, KVH, hd) cache, PagedAddr for a page pool read
-// through the row's page table; and in how a key's K and V are stored,
-// which a reader answers: FpKV for K/V in the compute type, Int8KV for int8
-// codes with one fp32 scale per (slot, KV head), dequantized in registers.
-// One body, so the kernels cannot drift.
+// the n_rep query heads of a KV head share its K/V). Where key s of row b
+// lives is answered by an addressing functor (DenseAddr: element offset of
+// the key's (g, 0) entry in a (B, S, KVH, hd) cache), how its K and V are
+// stored by a reader (FpKV: K/V in the compute type). The paged kernels
+// have their own split-KV body (paged_attention_split.cuh).
 //
 // CTA = one (row, KV head). DA_WARPS warps split the live keys DA_U at a
 // time; each lane holds hd/32 consecutive elements of q, k, v, so one key's
-// K (or V) row is one coalesced read per warp (2*hd bytes in bf16, hd as
-// int8 codes). Each warp keeps its
-// own online softmax (m, l, acc) per query head in fp32; the warps' states
-// merge in shared memory at the end. Keys outside [lo, len) are never read
-// (the tail of the last group of DA_U re-reads key len - 1 and gets
-// probability 0), and l == 0 (no live key) writes zeros, as the Pallas
-// l == 0 guard does.
+// K (or V) row is one coalesced read per warp (2*hd bytes in bf16). Each
+// warp keeps its own online softmax (m, l, acc) per query head in fp32;
+// the warps' states merge in shared memory at the end. Keys outside [lo,
+// len) are never read (the tail of the last group of DA_U re-reads key
+// len - 1 and gets probability 0), and l == 0 (no live key) writes zeros,
+// as the Pallas l == 0 guard does.
 #pragma once
 
 #include "common.cuh"
@@ -40,23 +35,9 @@ struct DenseAddr {
   }
 };
 
-// key s of row b in a (NP, ps, KVH, hd) pool: physical slot
-// pages[s / ps] * ps + s % ps, with the row's live page ids in shared memory
-struct PagedAddr {
-  const int* pages;           // shared: the row's page ids, logical order
-  int ps;
-  size_t key_stride;          // KVH * hd
-  size_t g_off;               // g * hd
-  __device__ __forceinline__ size_t operator()(int s) const {
-    const int pi = s / ps;
-    const size_t slot = (size_t)pages[pi] * ps + (s - pi * ps);
-    return slot * key_stride + g_off;
-  }
-};
-
-// E consecutive values of a lane in one load of E * sizeof(T) bytes (4
-// int8 codes, 8 bytes of bf16 at hd = 128); the wrappers check that the
-// pools are aligned to it
+// E consecutive values of a lane in one load of E * sizeof(T) bytes (8
+// bytes of bf16 at hd = 128); the wrapper checks that the cache is
+// aligned to it
 __device__ __forceinline__ void load_vals(const float* p, float (&x)[4]) {
   const float4 f = __ldg(reinterpret_cast<const float4*>(p));
   x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
@@ -88,18 +69,6 @@ __device__ __forceinline__ void load_vals(const __nv_bfloat16* p,
   x[0] = __bfloat162float(__ldg(p));
 }
 
-__device__ __forceinline__ void load_vals(const int8_t* p, float (&x)[4]) {
-  const char4 c = __ldg(reinterpret_cast<const char4*>(p));
-  x[0] = c.x; x[1] = c.y; x[2] = c.z; x[3] = c.w;
-}
-__device__ __forceinline__ void load_vals(const int8_t* p, float (&x)[2]) {
-  const char2 c = __ldg(reinterpret_cast<const char2*>(p));
-  x[0] = c.x; x[1] = c.y;
-}
-__device__ __forceinline__ void load_vals(const int8_t* p, float (&x)[1]) {
-  x[0] = __ldg(p);
-}
-
 // K and V of one key as a lane's E consecutive fp32 values, through the
 // read-only path. ``base`` is the element offset of the key's (slot, g, 0)
 // entry.
@@ -113,29 +82,6 @@ struct FpKV {
     const size_t i = base + lane * E;
     load_vals(k + i, kr);
     load_vals(v + i, vr);
-  }
-};
-
-// int8 pools (NP, ps, KVH, hd) with fp32 scale pools (NP, ps, KVH): the
-// key's scale sits at index base / hd = slot * KVH + g, one broadcast read
-// per warp; each code is multiplied by it in fp32, as the Pallas tile does.
-struct Int8KV {
-  const int8_t* k;
-  const int8_t* v;
-  const float* ks;
-  const float* vs;
-  template <int E>
-  __device__ __forceinline__ void load(size_t base, int lane, float (&kr)[E],
-                                       float (&vr)[E]) const {
-    const size_t i = base + lane * E, si = base / (32 * E);
-    const float sk = __ldg(ks + si), sv = __ldg(vs + si);
-    load_vals(k + i, kr);
-    load_vals(v + i, vr);
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      kr[e] *= sk;
-      vr[e] *= sv;
-    }
   }
 };
 
@@ -235,61 +181,6 @@ __device__ __forceinline__ void decode_body(
     if (L == 0.f) L = 1.f;
     rt::store_f(out + ((size_t)b * H + g * NREP + r) * HD + c, o / L);
   }
-}
-
-// The paged kernel, for either reader: a CTA copies its row's live page
-// ids [lo / ps, ceil(len / ps)) into shared memory once and reads only keys
-// in [lo, len), so pages past the prefix (or before the window) are never
-// touched. Grid (B, KVH); P * sizeof(int) bytes of dynamic shared memory.
-constexpr int MAX_PAGES = 2048;   // page ids of one row in shared memory
-                                  // (8 KB beside the 32 KB merge scratch)
-
-template <typename T, int NREP, int E, typename KV>
-__global__ void __launch_bounds__(DA_WARPS * 32)
-paged_decode_attention_kernel(const T* __restrict__ q, const KV kv,
-                              const int* __restrict__ table,
-                              const int* __restrict__ cache_len,
-                              T* __restrict__ out, int P, int ps, int KVH,
-                              int window, float scale) {
-  constexpr int HD = 32 * E;
-  extern __shared__ int s_pages[];
-  const int b = blockIdx.x, g = blockIdx.y;
-  const int len = min(cache_len[b], P * ps);
-  const int lo = window > 0 ? max(0, len - window) : 0;
-  const int p_lo = lo / ps, p_hi = (len + ps - 1) / ps;
-  for (int i = p_lo + threadIdx.x; i < p_hi; i += blockDim.x)
-    s_pages[i] = table[(size_t)b * P + i];
-  __syncthreads();
-  const PagedAddr addr{s_pages, ps, (size_t)KVH * HD, (size_t)g * HD};
-  decode_body<T, NREP, E>(q, kv, out, b, g, KVH, lo, len, scale, addr);
-}
-
-// Runs LAUNCH<T, NREP, E>() for a runtime (dtype, n_rep, hd); false when no
-// instance exists (n_rep in {1, 2, 4, 8}, hd in {32, 64, 128}).
-template <template <typename, int, int> class LAUNCH, typename... Args>
-bool dispatch(int dtype, int n_rep, int hd, Args... args) {
-#define DA_CASE_E(T, R)                                              \
-  switch (hd) {                                                      \
-    case 32: LAUNCH<T, R, 1>::run(args...); return true;             \
-    case 64: LAUNCH<T, R, 2>::run(args...); return true;             \
-    case 128: LAUNCH<T, R, 4>::run(args...); return true;            \
-    default: return false;                                           \
-  }
-#define DA_CASE_R(T)                                                 \
-  switch (n_rep) {                                                   \
-    case 1: DA_CASE_E(T, 1)                                          \
-    case 2: DA_CASE_E(T, 2)                                          \
-    case 4: DA_CASE_E(T, 4)                                          \
-    case 8: DA_CASE_E(T, 8)                                          \
-    default: return false;                                           \
-  }
-  if (dtype == rt::DT_BF16) {
-    DA_CASE_R(__nv_bfloat16)
-  } else {
-    DA_CASE_R(float)
-  }
-#undef DA_CASE_R
-#undef DA_CASE_E
 }
 
 }  // namespace da

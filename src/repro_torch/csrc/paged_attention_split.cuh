@@ -1,0 +1,516 @@
+// Split-KV ("flash-decoding") paged decode attention, shared by the bf16 /
+// fp32 pool kernel (paged_decode_attention.cu) and the int8 pool kernel
+// (paged_decode_attention_q.cu): one query token per row against that row's
+// live K/V, read through the row's page table,
+//   out[b, h] = softmax_s(q[b, h] . k[b, s, g] / sqrt(hd)) . v[b, s, g]
+// over lo <= s < len, lo = max(0, len - window), h = g * n_rep + r.
+//
+// Work unit: one CTA per (split j, KV head g, row b) of `split` keys (a
+// multiple of the page size, chosen on the host from P and ps by
+// split_keys, never from cache_len, so the grid needs no sync). A CTA whose
+// split misses [lo, len) returns at once. In a live CTA one producer warp
+// streams the split's keys into a ring of STAGES shared-memory stages,
+// STAGES stages ahead of the eight consumer warps: 16-byte cp.async copies
+// (a key row's chunks on neighbouring lanes), each stage's completion
+// tracked by its "full" mbarrier, each stage handed back by the consumers
+// through its "empty" mbarrier. So copies keep flowing while the consumers
+// reduce, and neither side waits on a block-wide barrier. A stage holds the
+// K and V rows of KS keys (int8 stages: twice the keys of a bf16 stage, the
+// same bytes, and the keys' fp32 scales).
+//
+// Reduction inside a CTA: a key is reduced by a group of G = HD / EL lanes,
+// each holding EL of its elements (EL fewer as n_rep grows, to bound the
+// registers), so a warp takes 32 / G keys at once and a dot product needs
+// log2(G) shuffles. Each group keeps its own online softmax (m, l, acc)
+// per query head in fp32, in log2 units (q is scaled by log2(e) / sqrt(hd)
+// once). At the end the groups merge in shared memory in a fixed order.
+//
+// Across CTAs: a row with one live split writes its output directly.
+// Otherwise each split writes (m, l, acc[n_rep][hd]) to the fp32 workspace,
+// takes a ticket of its (row, KV head) after a fence, and the CTA that
+// draws the last ticket merges the partials in split order j = lo / split
+// .. and resets the ticket to 0 for the next call: one launch, and an
+// output that does not depend on which CTA finished last.
+//
+// Contracts of the kernel it replaces (da::decode_body): keys outside [lo,
+// len) are never read; l == 0 writes zeros; a retired row (table all trash
+// page, cache_len 1) reads one key of the trash page; 64-bit offsets.
+#pragma once
+
+#include <algorithm>
+
+#include "mma.cuh"
+
+namespace pa {
+
+constexpr int WARPS = 8;                  // consumer warps
+constexpr int THREADS = (WARPS + 1) * 32; // and one producer warp
+constexpr int STAGES = 3;                 // ring depth
+constexpr int STAGE_BYTES = 16 * 1024;    // K + V bytes of a stage, at least
+constexpr int MAX_SPLITS = 64;            // splits of a row, at most
+constexpr int MAX_PAGES = 2048;           // pages per row (P)
+constexpr int MAX_SPLIT_PAGES = 256;      // page ids of one split in smem
+
+// The pools a kernel reads: E is the stored element type, MIN_SPLIT the
+// fewest keys a split takes: 256 KB of K and V at hd = 128 (timed on the
+// H100: shorter splits lose more to each CTA's fixed cost and to the merge
+// than they win by spreading a row over more SMs).
+template <typename T>
+struct FpPools {
+  using E = T;
+  static constexpr bool SCALED = false;
+  static constexpr int MIN_SPLIT = 512;
+  const T* k;
+  const T* v;
+};
+
+// int8 codes with one fp32 scale per (slot, KV head) in (NP, ps, KVH) pools
+struct Int8Pools {
+  using E = int8_t;
+  static constexpr bool SCALED = true;
+  static constexpr int MIN_SPLIT = 1024;
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+};
+
+// Keys per split: a multiple of ps, at least PL::MIN_SPLIT keys (or one
+// page) and at most MAX_SPLITS splits of the row's P * ps keys, within
+// MAX_SPLIT_PAGES pages. Fewer, longer splits mean fewer partials to merge;
+// more splits spread one long row over more SMs.
+template <typename PL>
+int split_keys(int P, int ps) {
+  const long long keys = (long long)P * ps;
+  const long long want = std::max<long long>(
+      PL::MIN_SPLIT, (keys + MAX_SPLITS - 1) / MAX_SPLITS);
+  return static_cast<int>(
+      std::min<long long>((want + ps - 1) / ps, MAX_SPLIT_PAGES) * ps);
+}
+
+// 32-bit words of E as fp32: bf16 pairs (the lower element in the low
+// half), int8 quads exactly through the mantissa of 2^23 (each byte biased
+// to c + 128, then 2^23 + 128 subtracted), fp32 as they are.
+template <typename E>
+struct Words;
+template <>
+struct Words<float> {
+  static constexpr int PER = 1;
+  __device__ __forceinline__ static void to_f(uint32_t w, float* f) {
+    f[0] = __uint_as_float(w);
+  }
+};
+template <>
+struct Words<__nv_bfloat16> {
+  static constexpr int PER = 2;
+  __device__ __forceinline__ static void to_f(uint32_t w, float* f) {
+    f[0] = __uint_as_float(w << 16);
+    f[1] = __uint_as_float(w & 0xffff0000u);
+  }
+};
+template <>
+struct Words<int8_t> {
+  static constexpr int PER = 4;
+  __device__ __forceinline__ static void to_f(uint32_t w, float* f) {
+    const uint32_t u = w ^ 0x80808080u, base = 0x4B000000u;
+    f[0] = __uint_as_float(__byte_perm(u, base, 0x7650)) - 8388736.f;
+    f[1] = __uint_as_float(__byte_perm(u, base, 0x7651)) - 8388736.f;
+    f[2] = __uint_as_float(__byte_perm(u, base, 0x7652)) - 8388736.f;
+    f[3] = __uint_as_float(__byte_perm(u, base, 0x7653)) - 8388736.f;
+  }
+};
+
+// NW 32-bit words from shared memory in one load (NW * 4 bytes, aligned)
+template <int NW>
+__device__ __forceinline__ void lds(const void* p, uint32_t (&w)[NW]) {
+  if constexpr (NW == 4) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+  } else if constexpr (NW == 2) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x; w[1] = u.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// The static shape of one instance: T the query / output type, PL the
+// pools, NREP query heads per KV head, HD the head dim.
+template <typename T, typename PL, int NREP, int HD>
+struct Shape {
+  using E = typename PL::E;
+  static constexpr int EL = NREP == 1 ? 16 : NREP <= 4 ? 8 : 4;
+  static constexpr int G = HD / EL;             // lanes per key
+  static constexpr int KPW = 32 / G;            // keys per warp at once
+  static constexpr int NG = WARPS * KPW;        // groups of a CTA
+  static constexpr int VB = EL * (int)sizeof(E) < 16 ? EL * (int)sizeof(E)
+                                                     : 16;  // bytes per load
+  static constexpr int VE = VB / (int)sizeof(E);   // elements per load
+  static constexpr int NV = EL / VE;               // loads per key and lane
+  static constexpr int ROW = HD * (int)sizeof(E);  // bytes of one K row
+  static constexpr int KS_BYTES = STAGE_BYTES / (2 * ROW);
+  static constexpr int KS = KS_BYTES > NG ? KS_BYTES : NG;   // keys / stage
+  static constexpr int STAGE = 2 * KS * ROW + (PL::SCALED ? 2 * KS * 4 : 0);
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int SCRATCH = (NG * NREP * (HD + 3) + 2 * NREP) * 4;
+  static constexpr int SMEM =
+      (RING > SCRATCH ? RING : SCRATCH) + MAX_SPLIT_PAGES * 4;
+  static_assert(HD % EL == 0 && 32 % G == 0, "lane layout");
+  static_assert(KS % NG == 0 && ROW % 16 == 0, "stage layout");
+  static_assert(MAX_SPLIT_PAGES <= THREADS, "one page id per thread");
+};
+
+// mbarrier helpers of the producer / consumer ring
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   rt::smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   rt::smem_addr(bar))
+               : "memory");
+}
+// the bar's pending count tracks this thread's cp.async issued so far
+__device__ __forceinline__ void mbar_track_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   rt::smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(rt::smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+template <typename T, typename PL, int NREP, int HD>
+__global__ void __launch_bounds__(THREADS, NREP <= 2 ? 3 : 2)
+paged_split_kernel(const T* __restrict__ q, const PL pools,
+                   const int* __restrict__ table,
+                   const int* __restrict__ cache_len, T* __restrict__ out,
+                   float* __restrict__ ws, int* __restrict__ tickets, int P,
+                   int ps, int KVH, int window, int split, float qscale) {
+  using S = Shape<T, PL, NREP, HD>;
+  using E = typename S::E;
+  constexpr int EL = S::EL, G = S::G, KPW = S::KPW, NG = S::NG, VE = S::VE,
+                NV = S::NV, KS = S::KS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_pages = reinterpret_cast<int*>(
+      smem + (S::RING > S::SCRATCH ? S::RING : S::SCRATCH));
+  __shared__ uint64_t s_full[STAGES], s_empty[STAGES];
+  __shared__ int s_last;
+
+  const int g = blockIdx.x, b = blockIdx.y, j = blockIdx.z;
+  const int NS = gridDim.z, H = KVH * NREP;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  // the split's page ids, loaded beside its length (they are valid table
+  // entries whatever the length)
+  const int page0 = j * (split / ps), n_pg = min(split / ps, P - page0);
+  const int pg = tid < n_pg ? table[(size_t)b * P + page0 + tid] : 0;
+  const int len = max(0, min(cache_len[b], P * ps));
+  const int lo = window > 0 ? max(0, len - window) : 0;
+  T* o = out + ((size_t)b * H + (size_t)g * NREP) * HD;
+  if (len <= lo) {                        // no live key: zeros, once
+    if (j == 0)
+      for (int t = tid; t < NREP * HD; t += THREADS) rt::store_f(o + t, 0.f);
+    return;
+  }
+  const int j_lo = lo / split, j_hi = (len + split - 1) / split;
+  if (j < j_lo || j >= j_hi) return;
+  const int s_begin = max(lo, j * split), s_end = min(len, (j + 1) * split);
+  if (tid < n_pg) s_pages[tid] = pg;
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&s_full[i], 1);           // the producer's lane 0
+      mbar_init(&s_empty[i], WARPS);      // each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_stage = (s_end - s_begin + KS - 1) / KS;
+  const int kg = lane / G, sl = lane % G;
+  float acc[NREP][EL], m[NREP], l[NREP];
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) {
+#pragma unroll
+    for (int e = 0; e < EL; ++e) acc[r][e] = 0.f;
+    m[r] = rt::NEG_INF;
+    l[r] = 0.f;
+  }
+  if (wid == WARPS) {
+    // ---- producer warp: STAGES stages ahead of the consumers, 16-byte
+    // cp.async copies (a key row's chunks on neighbouring lanes), the int8
+    // scales by 4-byte copies; the stage's full barrier tracks them ----
+    constexpr int CPR = S::ROW / 16;      // 16-byte chunks per key row
+    constexpr int KPI = 32 / CPR;         // key rows per warp copy
+    constexpr int NKB = (KS + 31) / 32;   // key offsets per lane
+    const size_t key_stride = (size_t)KVH * HD;   // elements per slot
+    const size_t g_off = (size_t)g * HD;
+    for (int st = 0; st < n_stage; ++st) {
+      const int buf = st % STAGES;
+      if (st >= STAGES) mbar_wait(&s_empty[buf], (st / STAGES - 1) & 1);
+      unsigned char* base = smem + buf * S::STAGE;
+      const int s0 = s_begin + st * KS, nk = min(KS, s_end - s0);
+      size_t slot[NKB];                   // of keys lane + 32 i
+#pragma unroll
+      for (int i = 0; i < NKB; ++i) {
+        const int s = min(s0 + lane + 32 * i, s_end - 1), pi = s / ps;
+        slot[i] = (size_t)s_pages[pi - page0] * ps + (s - pi * ps);
+      }
+#pragma unroll
+      for (int t = 0; t < KS / KPI; ++t) {
+        const int kk = t * KPI + lane / CPR, col = lane % CPR;
+        const size_t sl_kk =
+            __shfl_sync(0xffffffffu, slot[t * KPI / 32], kk % 32);
+        const bool ok = kk < nk;
+        const size_t off = ((sl_kk * key_stride + g_off) * sizeof(E)) +
+                           col * 16;
+        rt::cp_async16(base + kk * S::ROW + col * 16,
+                       reinterpret_cast<const unsigned char*>(pools.k) + off,
+                       ok);
+        rt::cp_async16(base + (KS + kk) * S::ROW + col * 16,
+                       reinterpret_cast<const unsigned char*>(pools.v) + off,
+                       ok);
+      }
+      if constexpr (PL::SCALED) {
+        float* sc = reinterpret_cast<float*>(base + 2 * KS * S::ROW);
+#pragma unroll
+        for (int i = 0; i < NKB; ++i) {
+          const int kk = lane + 32 * i;
+          if (kk < KS) {
+            const size_t off = slot[i] * KVH + g;
+            rt::cp_async4(sc + kk, pools.ks + off, kk < nk);
+            rt::cp_async4(sc + KS + kk, pools.vs + off, kk < nk);
+          }
+        }
+      }
+      mbar_track_cp_async(&s_full[buf]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s_full[buf]);
+    }
+  } else {
+    // ---- consumer warps: this lane's query elements, pre-scaled: dims
+    // (v * G + sl) * VE + e ----
+    float qr[NREP][EL];
+#pragma unroll
+    for (int r = 0; r < NREP; ++r) {
+      const T* qp = q + ((size_t)b * H + (size_t)g * NREP + r) * HD;
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < VE; ++e)
+          qr[r][v * VE + e] = rt::to_f(qp[(v * G + sl) * VE + e]) * qscale;
+    }
+    for (int st = 0; st < n_stage; ++st) {
+      const int buf = st % STAGES;
+      mbar_wait(&s_full[buf], (st / STAGES) & 1);
+      const unsigned char* base = smem + buf * S::STAGE;
+      const int s0 = s_begin + st * KS;
+#pragma unroll
+      for (int p = 0; p < KS / NG; ++p) {
+        const int kk = (p * WARPS + wid) * KPW + kg;
+        const E* kr = reinterpret_cast<const E*>(base + kk * S::ROW);
+        const E* vr = reinterpret_cast<const E*>(base + (KS + kk) * S::ROW);
+        float sc[NREP][2];                // two chains: more FMAs in flight
+#pragma unroll
+        for (int r = 0; r < NREP; ++r) sc[r][0] = sc[r][1] = 0.f;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          uint32_t w[S::VB / 4];
+          lds(kr + (v * G + sl) * VE, w);
+          float kf[VE];
+#pragma unroll
+          for (int i = 0; i < S::VB / 4; ++i)
+            Words<E>::to_f(w[i], kf + i * Words<E>::PER);
+#pragma unroll
+          for (int r = 0; r < NREP; ++r)
+#pragma unroll
+            for (int e = 0; e < VE; ++e)
+              sc[r][e & 1] = fmaf(qr[r][v * VE + e], kf[e], sc[r][e & 1]);
+        }
+        float d[NREP];
+#pragma unroll
+        for (int r = 0; r < NREP; ++r) d[r] = sc[r][0] + sc[r][1];
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int r = 0; r < NREP; ++r)
+            d[r] += __shfl_xor_sync(0xffffffffu, d[r], off);
+        if (s0 + kk < s_end) {
+          float vscale = 1.f;
+          if constexpr (PL::SCALED) {
+            const float* scl =
+                reinterpret_cast<const float*>(base + 2 * KS * S::ROW);
+#pragma unroll
+            for (int r = 0; r < NREP; ++r) d[r] *= scl[kk];
+            vscale = scl[KS + kk];
+          }
+          float pv[NREP];
+#pragma unroll
+          for (int r = 0; r < NREP; ++r) {
+            if (d[r] > m[r]) {            // a new max: rescale the state
+              const float a = exp2f(m[r] - d[r]);
+              l[r] *= a;
+#pragma unroll
+              for (int e = 0; e < EL; ++e) acc[r][e] *= a;
+              m[r] = d[r];
+            }
+            const float pr = exp2f(d[r] - m[r]);
+            l[r] += pr;
+            pv[r] = pr * vscale;
+          }
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            uint32_t w[S::VB / 4];
+            lds(vr + (v * G + sl) * VE, w);
+            float vf[VE];
+#pragma unroll
+            for (int i = 0; i < S::VB / 4; ++i)
+              Words<E>::to_f(w[i], vf + i * Words<E>::PER);
+#pragma unroll
+            for (int r = 0; r < NREP; ++r)
+#pragma unroll
+              for (int e = 0; e < VE; ++e)
+                acc[r][v * VE + e] = fmaf(pv[r], vf[e], acc[r][v * VE + e]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s_empty[buf]);   // buffer free again
+    }
+  }
+  __syncthreads();                        // the ring becomes merge scratch
+
+  // ---- the CTA's groups, merged in group order ----
+  float* s_m = reinterpret_cast<float*>(smem);         // [NG][NREP]
+  float* s_l = s_m + NG * NREP;                          // [NG][NREP]
+  float* s_f = s_l + NG * NREP;                          // [NG][NREP]
+  float* s_ml = s_f + NG * NREP;                         // [2][NREP]: M, L
+  float* s_acc = s_ml + 2 * NREP;                        // [NG][NREP][HD]
+  if (wid < WARPS) {
+    const int grp = wid * KPW + kg;
+#pragma unroll
+    for (int r = 0; r < NREP; ++r) {
+      if (sl == 0) {
+        s_m[grp * NREP + r] = m[r];
+        s_l[grp * NREP + r] = l[r];
+      }
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < VE; ++e)
+          s_acc[(grp * NREP + r) * HD + (v * G + sl) * VE + e] =
+              acc[r][v * VE + e];
+    }
+  }
+  __syncthreads();
+  if (wid < NREP) {                       // warp r: head r's M, L, factors
+    const int r = wid;
+    float M = rt::NEG_INF;
+    for (int gi = lane; gi < NG; gi += 32) M = fmaxf(M, s_m[gi * NREP + r]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    float L = 0.f;
+    for (int gi = lane; gi < NG; gi += 32) {
+      const float f = exp2f(s_m[gi * NREP + r] - M);
+      s_f[gi * NREP + r] = f;
+      L = fmaf(s_l[gi * NREP + r], f, L);
+    }
+    L = rt::warp_sum(L);
+    if (lane == 0) { s_ml[r] = M; s_ml[NREP + r] = L; }
+  }
+  __syncthreads();
+  const int n_live = j_hi - j_lo;
+  constexpr int PART = NREP * (HD + 2);   // floats of one split's partial
+  float* part = ws + (((size_t)b * KVH + g) * NS + j) * PART;
+  for (int t = tid; t < NREP * HD; t += THREADS) {
+    const int r = t / HD;
+    float O = 0.f;
+    for (int gi = 0; gi < NG; ++gi)
+      O = fmaf(s_acc[(gi * NREP + r) * HD + (t - r * HD)],
+               s_f[gi * NREP + r], O);
+    const float L = s_ml[NREP + r];
+    if (n_live == 1)
+      rt::store_f(o + t, L == 0.f ? 0.f : O / L);
+    else
+      part[2 * NREP + t] = O;
+  }
+  if (n_live == 1) return;
+
+  // ---- across splits: the last CTA of (b, g) merges, in split order ----
+  if (tid < 2 * NREP) part[tid] = s_ml[tid];   // m then l, as s_ml
+  __threadfence();
+  __syncthreads();
+  int* ticket = tickets + (size_t)b * KVH + g;
+  if (tid == 0) s_last = atomicAdd(ticket, 1) == n_live - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* parts = ws + (((size_t)b * KVH + g) * NS) * PART;
+  for (int t = tid; t < NREP * HD; t += THREADS) {
+    const int r = t / HD;
+    float M = rt::NEG_INF;
+    for (int jj = j_lo; jj < j_hi; ++jj)
+      M = fmaxf(M, __ldcg(parts + (size_t)jj * PART + r));
+    float L = 0.f, O = 0.f;
+    for (int jj = j_lo; jj < j_hi; ++jj) {
+      const float* pj = parts + (size_t)jj * PART;
+      const float f = exp2f(__ldcg(pj + r) - M);
+      L = fmaf(__ldcg(pj + NREP + r), f, L);
+      O = fmaf(__ldcg(pj + 2 * NREP + t), f, O);
+    }
+    rt::store_f(o + t, L == 0.f ? 0.f : O / L);
+  }
+  if (tid == 0) *ticket = 0;              // ready for the next call
+}
+
+// Launches one instance: grid (KVH, B, ceil(P * ps / split)), the split
+// index slowest, so every row's first splits are dispatched before any
+// row's later ones (at a serve tick most later splits lie past the rows'
+// lengths and return at once); SMEM bytes of dynamic shared memory (above
+// 48 KB for bf16 pools: opted into once per instance). The function is
+// static, so each library keeps its own opt-in flag.
+template <typename T, typename PL, int NREP, int HD>
+static void launch(const PL& pools, const void* q, const void* table,
+                   const void* clen, void* out, void* ws, void* tickets,
+                   int B, int P, int ps, int KVH, int window, int split,
+                   cudaStream_t st) {
+  using S = Shape<T, PL, NREP, HD>;
+  static bool configured = false;
+  if (!configured) {                      // a failure stays the last error
+    if (cudaFuncSetAttribute(paged_split_kernel<T, PL, NREP, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             S::SMEM) != cudaSuccess)
+      return;
+    configured = true;
+  }
+  const int NS = (int)(((long long)P * ps + split - 1) / split);
+  // scores in log2 units: exp2(x * log2 e) = exp(x)
+  const float qscale = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  paged_split_kernel<T, PL, NREP, HD>
+      <<<dim3(KVH, B, NS), THREADS, S::SMEM, st>>>(
+          static_cast<const T*>(q), pools, static_cast<const int*>(table),
+          static_cast<const int*>(clen), static_cast<T*>(out),
+          static_cast<float*>(ws), static_cast<int*>(tickets), P, ps, KVH,
+          window, split, qscale);
+}
+
+// Whether the launchers take these shapes: P <= MAX_PAGES, split a
+// positive multiple of ps with at most MAX_SPLIT_PAGES pages, grid
+// dimensions within range (n_rep and hd: rt::dispatch).
+inline bool shape_ok(int B, int P, int ps, int KVH, int split) {
+  return P > 0 && P <= MAX_PAGES && ps > 0 && split > 0 && split % ps == 0 &&
+         split / ps <= MAX_SPLIT_PAGES && B > 0 && B <= 65535 && KVH > 0 &&
+         KVH <= 65535;
+}
+
+}  // namespace pa

@@ -1,9 +1,9 @@
 """Wrappers of the decode-attention CUDA kernels (counterparts of
 ``repro/kernels/decode_attention/decode_attention.py::decode_attention_fwd``
 and ``paged_decode_attention_fwd``; the kernels are
-csrc/decode_attention.cu, csrc/paged_decode_attention.cu and, over int8
-pools, csrc/paged_decode_attention_q.cu, one body in
-csrc/decode_attention.cuh).
+csrc/decode_attention.cu (body in csrc/decode_attention.cuh) and the
+split-KV paged kernels csrc/paged_decode_attention.cu and, over int8 pools,
+csrc/paged_decode_attention_q.cu (body in csrc/paged_attention_split.cuh)).
 
 On a CPU tensor each runs its plain version from ``ref.py``; on a CUDA
 tensor it launches its kernel (counted in ``kernels.LAUNCHES``) or raises.
@@ -11,7 +11,7 @@ tensor it launches its kernel (counted in ``kernels.LAUNCHES``) or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -53,6 +53,44 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     return out
 
 
+class _Workspace:
+    """Scratch of the split-KV paged kernels on one device: int32 tickets,
+    one per (row, KV head), and the fp32 partials of the splits. The
+    kernels leave every ticket at 0 (the CTA that merges resets its own),
+    so the tickets are zeroed once, at allocation. Both grow and never
+    shrink; a buffer that is outgrown stays alive, since a CUDA graph
+    captured earlier may still point at it. The port launches on one
+    stream: two calls in flight on two streams would share the scratch."""
+
+    def __init__(self, dev: torch.device) -> None:
+        self.dev = dev
+        self.tickets = torch.zeros(0, dtype=torch.int32, device=dev)
+        self.partials = torch.empty(0, dtype=torch.float32, device=dev)
+        self.outgrown: List[torch.Tensor] = []
+
+    def get(self, n_tickets: int,
+            n_floats: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.tickets.numel() < n_tickets:
+            self.outgrown.append(self.tickets)
+            self.tickets = torch.zeros(max(n_tickets, 1024),
+                                       dtype=torch.int32, device=self.dev)
+        if self.partials.numel() < n_floats:
+            self.outgrown.append(self.partials)
+            self.partials = torch.empty(max(n_floats, 1 << 16),
+                                        dtype=torch.float32, device=self.dev)
+        return self.tickets, self.partials
+
+
+_WORKSPACES: Dict[torch.device, _Workspace] = {}
+
+
+def split_keys(name: str, P: int, ps: int) -> int:
+    """Keys per split of the paged kernel ``name`` for rows of ``P`` pages
+    of ``ps`` tokens: a multiple of ``ps``, chosen by the kernel source
+    (``pa::split_keys``) from the shapes alone, never from the lengths."""
+    return build.c_func(name, f"{name}_split_keys", [_I, _I])(P, ps)
+
+
 def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, page_table: torch.Tensor,
                                cache_len: torch.Tensor,
@@ -88,30 +126,37 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
     K.check_arg("v_pool", v_pool, dev, pool_dtype, (NP, ps, KVH, hd))
     K.check_arg("page_table", page_table, dev, torch.int32, (B, P))
     K.check_arg("cache_len", cache_len, dev, torch.int32, (B,))
-    K.check_kv_aligned("k_pool", k_pool, hd)
-    K.check_kv_aligned("v_pool", v_pool, hd)
+    for pname, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if pool.data_ptr() % 16:        # the kernels copy 16-byte chunks
+            raise ValueError(f"paged_decode_attention: {pname} must be "
+                             f"16-byte aligned")
     if H % KVH:
         raise ValueError(
             f"paged_decode_attention: {H} heads over {KVH} KV heads")
+    name = "paged_decode_attention" + ("_q" if quantized else "")
+    split = split_keys(name, P, ps)
+    n_split = -(-P * ps // split)
+    if dev not in _WORKSPACES:
+        _WORKSPACES[dev] = _Workspace(dev)
+    tickets, partials = _WORKSPACES[dev].get(
+        B * KVH, B * KVH * n_split * (H // KVH) * (hd + 2))
     out = torch.empty_like(q)
-    what = (f"paged_decode_attention{'_q' if quantized else ''} "
-            f"(n_rep={H // KVH}, hd={hd}, pages/row={P})")
-    win = 0 if window is None else window
+    what = (f"{name} (n_rep={H // KVH}, hd={hd}, pages/row={P}, "
+            f"page size={ps})")
+    tail = (K.ptr(out), K.ptr(partials), K.ptr(tickets), B, P, ps, H, KVH,
+            hd, 0 if window is None else window, split, K.dtype_code(q),
+            K.stream_ptr(dev))
     if quantized:
         K.check_arg("k_scale", k_scale, dev, torch.float32, (NP, ps, KVH))
         K.check_arg("v_scale", v_scale, dev, torch.float32, (NP, ps, KVH))
-        name = "paged_decode_attention_q"
-        fn = build.c_func(name, f"{name}_launch", [_P] * 8 + [_I] * 8 + [_P])
+        fn = build.c_func(name, f"{name}_launch",
+                          [_P] * 10 + [_I] * 9 + [_P])
         rc = fn(K.ptr(q), K.ptr(k_pool), K.ptr(v_pool), K.ptr(k_scale),
-                K.ptr(v_scale), K.ptr(page_table), K.ptr(cache_len),
-                K.ptr(out), B, P, ps, H, KVH, hd, win, K.dtype_code(q),
-                K.stream_ptr(dev))
+                K.ptr(v_scale), K.ptr(page_table), K.ptr(cache_len), *tail)
     else:
-        name = "paged_decode_attention"
-        fn = build.c_func(name, f"{name}_launch", [_P] * 6 + [_I] * 8 + [_P])
+        fn = build.c_func(name, f"{name}_launch", [_P] * 8 + [_I] * 9 + [_P])
         rc = fn(K.ptr(q), K.ptr(k_pool), K.ptr(v_pool), K.ptr(page_table),
-                K.ptr(cache_len), K.ptr(out), B, P, ps, H, KVH, hd, win,
-                K.dtype_code(q), K.stream_ptr(dev))
+                K.ptr(cache_len), *tail)
     build.check(name, rc, what)
     K.LAUNCHES[name] += 1
     return out

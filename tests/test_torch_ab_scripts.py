@@ -1,6 +1,7 @@
-"""The kernel A/B scripts (``scripts/ab_*.py``) on the CPU: the SASS
-reader of ``ab_common`` counts HMMA instructions per kernel, and each
-script refuses to run without a card."""
+"""The kernel A/B and probe scripts (``scripts/ab_*.py``,
+``scripts/probe_paged_attention.py``) on the CPU: the SASS reader of
+``ab_common`` counts HMMA instructions per kernel, and each script refuses
+to run without a card."""
 import importlib
 import sys
 from pathlib import Path
@@ -39,7 +40,8 @@ def test_count_hmma_by_function():
 
 
 @pytest.mark.parametrize("script", ["ab_argmax_verify", "ab_flash_attention",
-                                    "ab_decode_attention", "ab_ssd_chunk"])
+                                    "ab_decode_attention", "ab_ssd_chunk",
+                                    "probe_paged_attention"])
 def test_ab_script_refuses_without_a_card(script, monkeypatch, capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the script would run")

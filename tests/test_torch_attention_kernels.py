@@ -1,6 +1,7 @@
 """The port's paged decode-attention and flash-attention modules on the CPU
 (where each wrapper runs its plain version) against the JAX package's
-Pallas kernels in interpret mode, plus the chunked-prefill attention
+Pallas kernels in interpret mode, an emulation of the paged CUDA kernels'
+split-KV arithmetic against both, plus the chunked-prefill attention
 (``attend_extend``) and ``Model.prefill_extend`` against JAX.
 
 Tolerance: atol = rtol = 1e-5 for the attention functions (fp32, different
@@ -68,6 +69,91 @@ def test_paged_decode_attention_matches_pallas(kvh, window):
     # the model-layer entry point is the same function
     _close(da_ops.paged_decode_attention(None, _t(q), _t(kp), _t(vp),
                                          _t(table), _t(clen), window), want)
+
+
+# ---------------- the split-KV arithmetic of the paged kernels ----------
+def _split_merge(q, kp, vp, table, clen, window, split, ks=None, vs=None):
+    """The paged CUDA kernels' split-and-merge, emulated in torch: each
+    row's keys cut into splits of ``split`` keys (a multiple of the page
+    size), each split's (m, l, acc) in fp32 (a split wholly outside
+    [lo, len) at m = -1e30, l = 0, acc = 0), merged in split order; l == 0
+    writes zeros. With ``ks``/``vs`` the pools hold int8 codes: a key's
+    score is its scale times q . codes, and its V row enters at weight
+    p * vs."""
+    B, _, H, hd = q.shape
+    ps, KVH = kp.shape[1], kp.shape[2]
+    n_rep, P = H // KVH, table.shape[1]
+    out = torch.zeros(B, 1, H, hd)
+    for b in range(B):
+        n = min(int(clen[b]), P * ps)
+        lo = max(0, n - window) if window else 0
+        slots = (table[b].long()[:, None] * ps
+                 + torch.arange(ps)[None, :]).reshape(-1)
+        k = kp.reshape(-1, KVH, hd)[slots].float().repeat_interleave(n_rep, 1)
+        v = vp.reshape(-1, KVH, hd)[slots].float().repeat_interleave(n_rep, 1)
+        sk = sv = torch.ones(len(slots), H)
+        if ks is not None:
+            sk = ks.reshape(-1, KVH)[slots].repeat_interleave(n_rep, 1)
+            sv = vs.reshape(-1, KVH)[slots].repeat_interleave(n_rep, 1)
+        parts = []
+        for j in range(-(-P * ps // split)):
+            s0, s1 = max(lo, j * split), min(n, (j + 1) * split)
+            if s0 >= s1:
+                parts.append((torch.full((H,), -1e30), torch.zeros(H),
+                              torch.zeros(H, hd)))
+                continue
+            sc = (torch.einsum("hd,shd->hs", q[b, 0].float(), k[s0:s1])
+                  * sk[s0:s1].T / np.sqrt(hd))
+            m = sc.max(-1).values
+            p = torch.exp(sc - m[:, None])
+            acc = torch.einsum("hs,shd->hd", p * sv[s0:s1].T, v[s0:s1])
+            parts.append((m, p.sum(-1), acc))
+        M = torch.stack([m for m, _, _ in parts]).max(0).values
+        L, O = torch.zeros(H), torch.zeros(H, hd)
+        for m, l, acc in parts:
+            f = torch.exp(m - M)
+            L, O = L + l * f, O + acc * f[:, None]
+        out[b, 0] = torch.where(L[:, None] > 0, O / L[:, None],
+                                torch.zeros(()))
+    return out
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("window", [None, 20])
+def test_split_merge_matches_pallas_and_plain(quantized, window):
+    """The emulated split-and-merge at splits of 1, 2, 3 and 8 pages
+    against JAX's Pallas kernel in interpret mode and the port's plain
+    version: a shuffled table, rows of 64, 1, 37 and 17 keys (window 20
+    leaves whole splits before the first key of row 0; row 1 is one key;
+    splits past a row's length are empty), fp32 or int8 pools."""
+    from repro.models import model as jmodel
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref)
+    rng = np.random.default_rng(5)
+    B, H, KVH, hd, ps, P = 4, 4, 2, 32, 8, 8
+    NP = B * P + 3
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    kp = rng.standard_normal((NP, ps, KVH, hd)).astype(np.float32)
+    vp = rng.standard_normal((NP, ps, KVH, hd)).astype(np.float32)
+    table = rng.permutation(NP)[:B * P].reshape(B, P).astype(np.int32)
+    clen = np.array([64, 1, 37, 17], np.int32)
+    scales = {}
+    if quantized:
+        kp, ks = map(np.asarray, jmodel._kv_quantize(jnp.asarray(kp)))
+        vp, vs = map(np.asarray, jmodel._kv_quantize(jnp.asarray(vp)))
+        scales = dict(k_scale=ks, v_scale=vs)
+    want = jax_paged_fwd(q, kp, vp, table, clen, window=window, **scales)
+    t = {name: _t(x) for name, x in scales.items()}
+    plain = paged_decode_attention_ref(_t(q), _t(kp), _t(vp), _t(table),
+                                       _t(clen), window, t.get("k_scale"),
+                                       t.get("v_scale"))
+    _close(plain, want)
+    for split in (ps, 2 * ps, 3 * ps, P * ps):
+        got = _split_merge(_t(q), _t(kp), _t(vp), _t(table), _t(clen),
+                           window, split, t.get("k_scale"),
+                           t.get("v_scale"))
+        _close(got, want)
+        _close(got, plain)
 
 
 # ---------------- flash attention (Pallas row 7) ----------------

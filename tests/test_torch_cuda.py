@@ -546,6 +546,83 @@ def test_paged_decode_attention_q_kernel_matches_plain(dev, dtype, kvh, hd,
     torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)
 
 
+def _split_case(gen, dev, reader, dtype, n_rep, hd, lens, kvh=2, P=32,
+                ps=128):
+    """Inputs of a paged kernel over rows of P pages of ps tokens: a
+    shuffled table, pools (int8 codes and fp32 scales for ``reader``
+    "int8", trash page zeroed) and the given lengths; a last row of length
+    1 is retired (every entry the trash page). Returns the wrapper's
+    positional and keyword arguments."""
+    B = len(lens)
+    NP = B * P + 3
+    q = _rand(gen, (B, 1, kvh * n_rep, hd), dev, dtype)
+    table = torch.as_tensor(_shuffled_table(B, P, NP, 2), device=dev)
+    if lens[-1] == 1:
+        table[-1] = NP
+    clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if reader == "int8":
+        kp, ks, vp, vs = _int8_pools(gen, dev, NP + 1, ps, kvh, hd)
+        return (q, kp, vp, table, clen), dict(k_scale=ks, v_scale=vs)
+    kp = _rand(gen, (NP + 1, ps, kvh, hd), dev, dtype)
+    vp = _rand(gen, (NP + 1, ps, kvh, hd), dev, dtype)
+    return (q, kp, vp, table, clen), {}
+
+
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reader", ["fp", "int8"])
+def test_paged_kernels_split_long_rows(dev, reader, dtype, n_rep, hd,
+                                       window):
+    """Both paged kernels on rows cut into many splits: 32 pages of 128
+    tokens, lengths 4096 (every split live), 1, 2 * ps + 3, one ending on
+    a split boundary, one ending one key past it, and a retired row;
+    window 300 leaves whole splits before its first key. Against the plain
+    version on q upcast to fp32, at the file's tolerances; one launch."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        paged_decode_attention_fwd, split_keys)
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref)
+    name = "paged_decode_attention" + ("_q" if reader == "int8" else "")
+    split = split_keys(name, 32, 128)
+    assert split % 128 == 0 and 32 * 128 // split >= 4
+    gen = torch.Generator(device=dev).manual_seed(24)
+    args, kw = _split_case(gen, dev, reader, dtype, n_rep, hd,
+                           [4096, 1, 2 * 128 + 3, 2 * split, split + 1, 1])
+    reset_launches()
+    got = paged_decode_attention_fwd(*args, window=window, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == 1 and sum(LAUNCHES.values()) == 1
+    q, kp, vp, table, clen = args
+    if reader == "fp":
+        kp, vp = kp.float(), vp.float()
+    want = paged_decode_attention_ref(q.float(), kp, vp, table, clen, window,
+                                      kw.get("k_scale"), kw.get("v_scale"))
+    assert bool(torch.isfinite(got.float()).all())
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float()[:-1], want[:-1], atol=1e-4,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("reader", ["fp", "int8"])
+def test_paged_kernels_deterministic(dev, reader):
+    """The splits of a row merge in split order, whichever CTA merges: two
+    calls on the same inputs are bit-equal, and every (row, KV head)
+    ticket is back at 0 after each."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(25)
+    args, kw = _split_case(gen, dev, reader, torch.bfloat16, 1, 128,
+                           [4096, 3001, 1, 2048, 4095, 1], kvh=8)
+    outs = []
+    for _ in range(2):
+        outs.append(da.paged_decode_attention_fwd(*args, **kw))
+        torch.cuda.synchronize()
+        assert int(da._WORKSPACES[args[0].device].tickets.abs().sum()) == 0
+    assert torch.equal(outs[0], outs[1])
+
+
 @pytest.mark.parametrize("chunk", [0, 4])
 def test_kv_quant_serving_kernels_match_plain_path(dev, chunk):
     """kv_quant ``ServingEngine`` on the card at smoke width, fp32: the
