@@ -16,11 +16,14 @@ Phases (lines ``[phase +seconds since the start] ...``):
      the fourteen kernels of ``src/repro_torch/csrc`` for sm_90a (in
      parallel);
   2. kernels — each kernel vs its plain version in fp32 and bf16 at the
-     main paths' shapes (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128,
-     dense caches up to 1024; paged: B=8, 128-token pages, a shuffled page
-     table, 785, 4563, 4103 (one 4096-token row among fresh ones) and
-     32768 (8 x 4096) live keys, windows None/20/300, ragged lengths with a
-     retired all-trash row; flash: B in {1, 4},
+     main paths' shapes (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128;
+     the gate also at a serve tick's B=8, beside its byte bound and its
+     bound in 32-byte sectors; dense caches of 162, 1024 and 4096 slots
+     with 150, 1024 and 4096 live keys, each timed beside SDPA; paged:
+     B=8, 128-token pages, a shuffled page table, 785, 4563, 4103 (one
+     4096-token row among fresh ones) and 32768 (8 x 4096) live keys,
+     windows None/20/300, ragged lengths with a retired all-trash row;
+     flash: B in {1, 4},
      S in {77, 512}, window None/64, GQA n_rep=4), then timed beside its
      plain version, a library call as yardstick, and the least time the
      card could take (bound); the int8 paged kernel (paged_decode_attention_q:
@@ -200,6 +203,7 @@ HEADS, HD = 32, 128
 FULL_PROMPT, FULL_STEPS = 128, 32
 PAGE = 128                                   # tokens per page when serving
 SERVE_BATCH, SERVE_SEQ, SERVE_REQS, SERVE_NEW = 8, 4096, 16, 32
+GATE_BATCH = SERVE_BATCH                     # a full serve tick's gate rows
 SERVE_PROMPTS = (64, 512)                    # prompt lengths, inclusive
 TREE_DEPTH, TREE_BRANCH = 3, 3               # 40 nodes, 27 root-leaf paths
 TREE_STEPS, TREE_SERVE_REQS = 16, 8
@@ -275,7 +279,7 @@ def check_kernels(torch, dev):
     import torch.nn.functional as F
     from repro_torch import kernels as K
     from repro_torch.kernels.decode_attention.decode_attention import (
-        decode_attention_fwd)
+        decode_attention_fwd, dense_split_keys)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.exit_gate import exit_gate as eg
     from repro_torch.kernels.exit_gate import ref as gref
@@ -317,21 +321,23 @@ def check_kernels(torch, dev):
                 == want[:4], f"top-k tie-break ({name})")
         del wt
 
-        spec_ids = torch.randint(0, V, (B, K_SPEC), generator=gen,
-                                 device=dev, dtype=torch.int32)
-        prev = torch.softmax(rnd((B, K_SPEC), torch.float32), -1)
         w1 = rnd((3 * K_SPEC, H_PRED), torch.float32, 12 ** -0.5)
         b1 = rnd((H_PRED,), torch.float32, 0.1)
         w2 = rnd((H_PRED, 1), torch.float32, H_PRED ** -0.5)
         b2 = rnd((1,), torch.float32, 0.1)
-        got = eg.exit_gate_fused(hn, w, spec_ids, prev, w1, b1, w2, b2)
         pred = {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
-        want_g = gref.exit_gate_ref(hn, w, spec_ids, prev, pred)
         err_eg = 0.0
-        for a, b in zip(got, want_g):
-            # fp32 gate on upcast inputs: atol = rtol = 1e-4
-            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
-            err_eg = max(err_eg, (a - b).abs().max().item())
+        for rows_g in (B, GATE_BATCH):       # the AR batch and a full serve
+            hg = hn if rows_g == B else rnd((rows_g, D), dt)
+            spec_ids = torch.randint(0, V, (rows_g, K_SPEC), generator=gen,
+                                     device=dev, dtype=torch.int32)
+            prev = torch.softmax(rnd((rows_g, K_SPEC), torch.float32), -1)
+            got = eg.exit_gate_fused(hg, w, spec_ids, prev, w1, b1, w2, b2)
+            want_g = gref.exit_gate_ref(hg, w, spec_ids, prev, pred)
+            for a, b in zip(got, want_g):
+                # fp32 gate on upcast inputs: atol = rtol = 1e-4
+                torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+                err_eg = max(err_eg, (a - b).abs().max().item())
 
         err_da = 0.0
         # attention: the kernel keeps scores, probabilities and sums in
@@ -340,10 +346,17 @@ def check_kernels(torch, dev):
         # rtol 2**-7: rounding the output to bf16 errs by at most 2**-8
         # relative — dropping one of 150 keys moves an output by ~5 %
         rtol = 1e-4 if dt == torch.float32 else 2.0 ** -7
+        # a 4096-slot cache cuts each row into splits: lengths one past a
+        # split boundary and on it; window 700 leaves whole splits before
+        # the first key of the full row
+        split = dense_split_keys(4096, HD, hn.element_size())
+        long_rows = [4096, 1, split + 1, split]
         for S, clen, window in ((FULL_PROMPT + FULL_STEPS + 2,
                                  [150, 150, 150, 150], None),
                                 (1024, [1024, 700, 300, 1], None),
-                                (1024, [1024, 700, 300, 1], 256)):
+                                (1024, [1024, 700, 300, 1], 256),
+                                (4096, long_rows, None),
+                                (4096, long_rows, 700)):
             q = rnd((B, 1, HEADS, HD), dt)
             kc = rnd((B, S, HEADS, HD), dt)
             vc = rnd((B, S, HEADS, HD), dt)
@@ -378,57 +391,75 @@ def check_kernels(torch, dev):
         graph_ms(torch, [lambda: torch.topk(hn @ w, K_SPEC, -1)] * n),
         bound_ms(B * D * 2 + D * V * 2 + B * K_SPEC * 8, 2 * B * D * V,
                  dname))
-    ids_sets = [torch.randint(0, V, (B, K_SPEC), generator=gen, device=dev,
-                              dtype=torch.int32) for _ in range(n)]
-    prev = torch.softmax(rnd((B, K_SPEC), torch.float32), -1)
     w1 = rnd((3 * K_SPEC, H_PRED), torch.float32, 12 ** -0.5)
     b1 = rnd((H_PRED,), torch.float32)
     w2 = rnd((H_PRED, 1), torch.float32, H_PRED ** -0.5)
     b2 = rnd((1,), torch.float32)
     pred = {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
-    gate_bytes = (B * D * 2 + B * K_SPEC * D * 2 + B * K_SPEC * 8
-                  + (3 * K_SPEC * H_PRED + 2 * H_PRED + 1) * 4
-                  + B * (1 + 2 * K_SPEC) * 4)
-    gate_ops = B * (2 * K_SPEC * D + 2 * 3 * K_SPEC * H_PRED + 4 * H_PRED)
-    # distinct speculative ids per call: the gathered columns start cold
-    t["exit_gate"] = (
-        graph_ms(torch, [lambda i=i: eg.exit_gate_fused(
-            hn, w, i, prev, w1, b1, w2, b2) for i in ids_sets]),
-        graph_ms(torch, [lambda i=i: gref.exit_gate_ref(hn, w, i, prev, pred)
-                         for i in ids_sets]),
-        None,
-        bound_ms(gate_bytes, gate_ops, "float32"))
+    gate_rows = {}
+    for rows_g in (B, GATE_BATCH):
+        hg = hn if rows_g == B else rnd((rows_g, D), dt)
+        ids_sets = [torch.randint(0, V, (rows_g, K_SPEC), generator=gen,
+                                  device=dev, dtype=torch.int32)
+                    for _ in range(n)]
+        prev = torch.softmax(rnd((rows_g, K_SPEC), torch.float32), -1)
+        fixed = (rows_g * D * 2 + rows_g * K_SPEC * 8
+                 + (3 * K_SPEC * H_PRED + 2 * H_PRED + 1) * 4
+                 + rows_g * (1 + 2 * K_SPEC) * 4)
+        gate_ops = rows_g * (2 * K_SPEC * D + 2 * 3 * K_SPEC * H_PRED
+                             + 4 * H_PRED)
+        # distinct speculative ids per call: the gathered columns start
+        # cold; the sector bound counts the 32-byte sector each gathered
+        # element of the strided head costs
+        gate_rows[rows_g] = (
+            graph_ms(torch, [lambda i=i: eg.exit_gate_fused(
+                hg, w, i, prev, w1, b1, w2, b2) for i in ids_sets]),
+            graph_ms(torch, [lambda i=i: gref.exit_gate_ref(hg, w, i, prev,
+                                                            pred)
+                             for i in ids_sets]),
+            None,
+            bound_ms(fixed + rows_g * K_SPEC * D * 2, gate_ops, "float32"))
+        ms, plain, _, (bnd, by) = gate_rows[rows_g]
+        sectors = bound_ms(fixed + rows_g * K_SPEC * D * 32, gate_ops,
+                           "float32")[0]
+        log("kernels", f"exit_gate bf16, B={rows_g}: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {bnd:.5f} ms ({by}), "
+            f"{sectors:.5f} ms in 32-byte sectors")
+    t["exit_gate"] = gate_rows[B]
     # the full run's attention: S slots, 150 live per row; 8 distinct
     # caches (>50 MB together) so each call reads its K/V from memory, as a
-    # decode step does after the layer's weights have passed through L2
-    S, live = FULL_PROMPT + FULL_STEPS + 2, 150
+    # decode step does after the layer's weights have passed through L2;
+    # then longer contexts, each beside SDPA on the same cache
     q = rnd((B, 1, HEADS, HD), dt)
-    cl = torch.full((B,), live, dtype=torch.int32, device=dev)
-    caches = [(rnd((B, S, HEADS, HD), dt), rnd((B, S, HEADS, HD), dt))
-              for _ in range(8)]
-    mask = (torch.arange(S, device=dev) < live)[None, None, None, :]
     qs = q.transpose(1, 2)
-    kv_t = [(k.transpose(1, 2), v.transpose(1, 2)) for k, v in caches]
-    da_bytes = 2 * B * live * HEADS * HD * 2 + 2 * B * HEADS * HD * 2 + B * 4
-    da_ops = 4 * B * live * HEADS * HD
-    t["decode_attention"] = (
-        graph_ms(torch, [lambda c=c: decode_attention_fwd(q, c[0], c[1], cl)
-                         for c in caches] * 3),
-        graph_ms(torch, [lambda c=c: decode_attention_ref(q, c[0], c[1], cl)
-                         for c in caches] * 3),
-        graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
-            qs, c[0], c[1], attn_mask=mask) for c in kv_t] * 3),
-        bound_ms(da_bytes, da_ops, dname))
-    # one more attention time at a 1024-slot cache, fully live
-    big = [(rnd((B, 1024, HEADS, HD), dt), rnd((B, 1024, HEADS, HD), dt))
-           for _ in range(2)]
-    cl_big = torch.full((B,), 1024, dtype=torch.int32, device=dev)
-    ms_big = graph_ms(torch, [lambda c=c: decode_attention_fwd(
-        q, c[0], c[1], cl_big) for c in big] * 4)
-    b_big = bound_ms(2 * B * 1024 * HEADS * HD * 2, 0, dname)[0]
-    log("kernels", f"decode_attention at 1024 live slots, bf16: "
-        f"{ms_big:.4f} ms (bound {b_big:.4f} ms)")
-    del big, caches, kv_t
+    contexts = {}
+    for S, live, n_c in ((FULL_PROMPT + FULL_STEPS + 2, 150, 8),
+                         (4096, 150, 8), (1024, 1024, 2), (4096, 4096, 2)):
+        cl = torch.full((B,), live, dtype=torch.int32, device=dev)
+        caches = [(rnd((B, S, HEADS, HD), dt), rnd((B, S, HEADS, HD), dt))
+                  for _ in range(n_c)]
+        mask = (None if live == S else
+                (torch.arange(S, device=dev) < live)[None, None, None, :])
+        kv_t = [(k.transpose(1, 2), v.transpose(1, 2)) for k, v in caches]
+        da_bytes = (2 * B * live * HEADS * HD * 2 + 2 * B * HEADS * HD * 2
+                    + B * 4)
+        da_ops = 4 * B * live * HEADS * HD
+        reps = 24 // n_c
+        row = (graph_ms(torch, [lambda c=c: decode_attention_fwd(
+                   q, c[0], c[1], cl) for c in caches] * reps),
+               graph_ms(torch, [lambda c=c: decode_attention_ref(
+                   q, c[0], c[1], cl) for c in caches] * reps),
+               graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
+                   qs, c[0], c[1], attn_mask=mask) for c in kv_t] * reps),
+               bound_ms(da_bytes, da_ops, dname))
+        contexts[(S, live)] = row
+        log("kernels", f"decode_attention bf16, {live} live keys of {S} "
+            f"slots: kernel {row[0]:.4f} ms, plain {row[1]:.4f} ms, SDPA "
+            f"{row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]})")
+        del caches, kv_t
+    t["decode_attention"] = contexts[(FULL_PROMPT + FULL_STEPS + 2, 150)] + (
+        contexts,)
+    t["exit_gate"] += (gate_rows,)
     errs_attn, t_attn = check_attention_kernels(torch, dev, rnd)
     t.update(t_attn)
     for name in rows:
@@ -2688,7 +2719,8 @@ def mamba_phase(torch, dev):
 
 
 # where the device time of a decode step goes, by kernel family (the paged
-# kernels are pa::paged_split_kernel, whose merge runs in the same launch);
+# kernels are pa::paged_split_kernel, the dense one pa::dense_split_kernel,
+# each with its merge in the same launch);
 # the quantized verify, spec-head and paged-attention kernels are the fp
 # ones' templates on an Int8Cols / Int4Cols / Int8Pools reader (the
 # quantized argmax with bf16 hidden rows: the tile's Int8Tile / Int4Tile),
@@ -2702,7 +2734,7 @@ FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
             ("predictor_mlp", ("predictor_mlp_kernel",)),
             ("predictor_mlp_q", ("predictor_mlp_q_kernel",)),
             ("paged_decode_attention", ("paged_split_kernel",)),
-            ("decode_attention", ("decode_attention_kernel",)),
+            ("decode_attention", ("dense_split_kernel",)),
             ("flash_attention", ("flash_attention_kernel",)),
             ("ssd_chunk", ("ssd_chunk_kernel",)),
             ("matmul", ("gemm", "gemv", "cutlass", "cublas", "sm90_xmma",
@@ -2855,6 +2887,19 @@ def main() -> int:
                          "library_ms": r[name][2], "bound_ms": r[name][3][0],
                          "bound_by": r[name][3][1]}
                 for R, r in verify_rows.items()}
+        if name == "decode_attention":
+            # the full run's 150 live keys above; longer contexts here
+            row["at_contexts"] = {
+                f"{live} live of {S} slots": {
+                    "ms": r[0], "plain_ms": r[1], "library_ms": r[2],
+                    "bound_ms": r[3][0], "bound_by": r[3][1]}
+                for (S, live), r in timing[name][4].items()}
+        if name == "exit_gate":
+            # B=4 above; every measured batch here
+            row["at_rows"] = {
+                str(R): {"ms": r[0], "plain_ms": r[1], "bound_ms": r[3][0],
+                         "bound_by": r[3][1]}
+                for R, r in timing[name][4].items()}
         if name == "ssd_chunk":
             # library_ms is null: no one PyTorch call computes the term
             row["yardstick_ms"] = timing[name][4]    # bmm + batched product

@@ -1,6 +1,6 @@
-"""Helpers of the kernel A/B scripts (``scripts/ab_argmax_verify.py``,
-``scripts/ab_flash_attention.py``): build one kernel source of two source
-trees side by side, read its SASS, and time closures in a CUDA graph."""
+"""Helpers of the kernel A/B scripts (``scripts/ab_*.py``): build one
+kernel source of two source trees side by side, read its SASS, and time
+closures in a CUDA graph."""
 from __future__ import annotations
 
 import ctypes

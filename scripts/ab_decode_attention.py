@@ -7,16 +7,18 @@ Both versions are built side by side with ``nvcc`` (the flags of
 ``repro_torch.kernels.build``) and timed in one process, in alternating
 order (base, tree, tree, base, then reversed), at the shapes of
 ``chip_smoke.py`` phase 2: dense B=4 over the full run's 162-slot cache
-with 150 live keys and over 1024 live keys; paged B=8 with 128-token pages
+with 150 live keys, over a 4096-slot cache with 150 live keys, over 1024
+and over 4096 live keys; paged B=8 with 128-token pages
 at 785 (2 pages per row), 4563 (8 pages), 4103 (32 pages: one 4096-token
 row among fresh ones), 32768 (32 pages: 8 x 4096) and 2203 live keys (32
 pages: a serve tick of phase 5); bf16, 32 heads of 128. Each version is
-called through its own C signature (the split-KV paged kernels take a
+called through its own C signature (the split-KV kernels take a
 workspace and a split; a library that exports ``<name>_split_keys`` has
-them). The dense outputs must be
-bit-equal between the versions (the same kernel); each paged output is
-held against the plain version on the inputs upcast to fp32 (atol 1e-4,
-rtol 2**-7: the versions sum in other orders) on its live rows.
+them). Every output is held against the plain version on the inputs
+upcast to fp32 (atol 1e-4, rtol 2**-7) on its live rows; the paged
+outputs must also be bit-equal between the versions (the dense kernel's
+split-KV redesign sums in another order than its one-CTA-per-row
+predecessor, so its outputs are held to the plain version only).
 
     git archive <commit> src/repro_torch/csrc | tar -x -C build/base
     python3 scripts/ab_decode_attention.py build/base/src/repro_torch/csrc
@@ -43,6 +45,12 @@ PAGED_CASES = ((2, [150, 1, 77, 149, 150, 128, 129, 1]),
                # a serve tick of chip_smoke.py phase 5: its first eight
                # requests 16 tokens into decoding, on 4096-token rows
                (32, [140, 137, 437, 304, 344, 350, 399, 92]))
+# (label, slots, live keys per row, distinct caches: > 50 MB of live K/V
+# together where they fit, so each call reads its K/V from memory)
+DENSE_CASES = (("dense, 150 live keys", 162, 150, 8),
+               ("dense, 150 live keys of 4096 slots", 4096, 150, 8),
+               ("dense, 1024 live keys", 1024, 1024, 2),
+               ("dense, 4096 live keys", 4096, 4096, 2))
 
 
 def paged_caller(lib, name: str):
@@ -75,6 +83,30 @@ def paged_caller(lib, name: str):
     return call
 
 
+def dense_caller(lib):
+    """``call(args, B, S)``: a closure launching ``decode_attention`` of
+    ``lib`` on ``args`` (q, k, v, cache_len, out; H query and KV heads of
+    HD) through the library's own signature: with a workspace and the
+    library's split when it exports ``decode_attention_split_keys``."""
+    import torch
+    if not hasattr(lib, "decode_attention_split_keys"):
+        fn = ab.c_fn(lib, "decode_attention_launch", 5, 7)
+        return lambda args, B, S: lambda: fn(*map(ab.ptr, args), B, S, H, H,
+                                             HD, 0, 1, ab.stream())
+    fn = ab.c_fn(lib, "decode_attention_launch", 7, 8)
+    split_keys = lib.decode_attention_split_keys
+
+    def call(args, B, S):
+        split = split_keys(S, HD, 2)
+        dev = args[0].device
+        ws = torch.empty(B * H * -(-S // split) * (HD + 2),
+                         dtype=torch.float32, device=dev)
+        tickets = torch.zeros(B * H, dtype=torch.int32, device=dev)
+        return lambda: fn(*map(ab.ptr, args), ab.ptr(ws), ab.ptr(tickets), B,
+                          S, H, H, HD, 0, split, 1, ab.stream())
+    return call
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -82,7 +114,7 @@ def main() -> int:
         print(__doc__)
         return 1
     from repro_torch.kernels.decode_attention.ref import (
-        paged_decode_attention_ref)
+        decode_attention_ref, paged_decode_attention_ref)
     from repro_torch.models.model import _kv_quantize
     fns = {}
     for tag, src in (("base", Path(sys.argv[1]).resolve()),
@@ -91,7 +123,7 @@ def main() -> int:
             lib, _, report = ab.build(tag, src, name,
                                       ab.ROOT / "build" / "ab")
             print(f"{tag} {name}: {ab.registers(report)}", flush=True)
-            fns[(tag, name)] = (ab.c_fn(lib, f"{name}_launch", 5, 7)
+            fns[(tag, name)] = (dense_caller(lib)
                                 if name == "decode_attention"
                                 else paged_caller(lib, name))
     dev = torch.device("cuda", 0)
@@ -101,10 +133,8 @@ def main() -> int:
     def rnd(shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    ptr = ab.ptr
-    cases, outs, bounds = {}, {}, {}
-    for label, S, live, n in (("dense, 150 live keys", 162, 150, 8),
-                              ("dense, 1024 live keys", 1024, 1024, 2)):
+    cases, outs, bounds, checks = {}, {}, {}, []
+    for label, S, live, n in DENSE_CASES:
         B = 4
         q, out = rnd((B, 1, H, HD)), torch.empty(B, 1, H, HD, device=dev,
                                                  dtype=torch.bfloat16)
@@ -112,13 +142,15 @@ def main() -> int:
         caches = [(rnd((B, S, H, HD)), rnd((B, S, H, HD))) for _ in range(n)]
 
         def calls(tag, q=q, out=out, cl=cl, caches=caches, B=B, S=S):
-            f = fns[(tag, "decode_attention")]
-            return [lambda c=c: f(ptr(q), ptr(c[0]), ptr(c[1]), ptr(cl),
-                                  ptr(out), B, S, H, H, HD, 0, 1,
-                                  ab.stream()) for c in caches] * 3
+            call = fns[(tag, "decode_attention")]
+            return [call((q, c[0], c[1], cl, out), B, S)
+                    for c in caches] * (24 // n)
         cases[label], outs[label] = calls, out
         bounds[label] = (2 * B * live + 2 * B) * H * HD * 2 / 3.35e9
-    checks = []
+        k, v = caches[0]
+        checks.append((label, decode_attention_ref(
+            q.float(), k.float(), v.float(), cl), B))
+    dense = list(cases)
     for P, lens in PAGED_CASES:
         B, NP = len(lens), len(lens) * P + 5
         live = sum(lens)
@@ -171,8 +203,8 @@ def main() -> int:
                 raise RuntimeError(f"{label}: {tag} launch failed")
             torch.cuda.synchronize()
             got[(label, tag)] = outs[label].clone()
-        if label.startswith("dense") and not torch.equal(
-                got[(label, "base")], got[(label, "tree")]):
+        if label not in dense and not torch.equal(got[(label, "base")],
+                                                  got[(label, "tree")]):
             raise AssertionError(f"{label}: outputs differ between versions")
     for label, plain, n in checks:
         for tag in ("base", "tree"):
@@ -184,11 +216,12 @@ def main() -> int:
                   f"version", flush=True)
     times = ab.alternate(cases)
     for label in cases:
-        held = ("outputs bit-equal" if label.startswith("dense")
-                else "both held to the plain version")
-        print(f"{label}: {held}; bound {bounds[label]:.4f} ms; " + "; ".join(
-            f"{tag} {ab.summary(times[(label, tag)])}"
-            for tag in ("base", "tree")), flush=True)
+        held = ("both held to the plain version" if label in dense else
+                "outputs bit-equal, both held to the plain version")
+        print(f"{label}: {held}; bound "
+              f"{bounds[label]:.4f} ms; " + "; ".join(
+                  f"{tag} {ab.summary(times[(label, tag)])}"
+                  for tag in ("base", "tree")), flush=True)
     print(ab.card())
     return 0
 

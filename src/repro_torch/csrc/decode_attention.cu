@@ -1,47 +1,36 @@
 // Decode attention against a dense (B, S, KVH, hd) KV cache with a per-row
-// live length and an optional sliding window. The math and the CTA design
-// are in decode_attention.cuh, shared with paged_decode_attention.cu.
+// live length and an optional sliding window: the split-KV body of
+// paged_attention_split.cuh (a producer warp feeding a cp.async ring, eight
+// consumer warps, a last-CTA merge in split order) over DenseRows, whose
+// key s of row b is slot b * S + s, under its own kernel name
+// (dense_split_kernel).
 //
 // Replaces the Pallas kernel decode_attention_fwd (_kernel and
 // _online_softmax_step) in src/repro/kernels/decode_attention/
 // decode_attention.py, which walks key tiles in order with online-softmax
 // scratch and skips dead tiles with pl.when.
 //
-// Grid (B, KVH): one CTA per (row, KV head) — 128 CTAs for Llama-2-7B at
-// B = 4.
+// Grid (KVH, B, ceil(S / split)), split from S, hd and the element size
+// alone (pa::dense_split_keys: 2048 keys at hd = 128 in bf16), never from
+// cache_len: the full run's 162-slot cache is one split per (row, KV head),
+// 128 CTAs for Llama-2-7B at B = 4, with no merge; a 4096-slot cache is 2
+// splits, of which one past a row's length returns at once.
 //
 // Bound on the H100: bytes — the live K and V prefix, read once:
-// 2 * B * L * KVH * hd * sizeof(T) per layer. Split-KV across CTAs (for
-// long caches or small B * KVH) is later work.
-#include "decode_attention.cuh"
+// 2 * B * L * KVH * hd * sizeof(T) per layer.
+#include "paged_attention_split.cuh"
 
 namespace {
 
 template <typename T, int NREP, int E>
-__global__ void __launch_bounds__(da::DA_WARPS * 32)
-decode_attention_kernel(const T* __restrict__ q, const da::FpKV<T> kv,
-                        const int* __restrict__ cache_len,
-                        T* __restrict__ out, int S, int KVH, int window,
-                        float scale) {
-  constexpr int HD = 32 * E;
-  const int b = blockIdx.x, g = blockIdx.y;
-  const int len = min(cache_len[b], S);
-  const int lo = window > 0 ? max(0, len - window) : 0;
-  const da::DenseAddr addr{((size_t)b * S * KVH + g) * HD, (size_t)KVH * HD};
-  da::decode_body<T, NREP, E>(q, kv, out, b, g, KVH, lo, len, scale, addr);
-}
-
-template <typename T, int NREP, int E>
 struct Launch {
   static void run(const void* q, const void* k, const void* v,
-                  const void* clen, void* out, int B, int S, int KVH,
-                  int window, float scale, cudaStream_t st) {
-    decode_attention_kernel<T, NREP, E>
-        <<<dim3(B, KVH), da::DA_WARPS * 32, 0, st>>>(
-            static_cast<const T*>(q),
-            da::FpKV<T>{static_cast<const T*>(k), static_cast<const T*>(v)},
-            static_cast<const int*>(clen),
-            static_cast<T*>(out), S, KVH, window, scale);
+                  const void* clen, void* out, void* ws, void* tickets,
+                  int B, int S, int KVH, int window, int split,
+                  cudaStream_t st) {
+    pa::launch_dense<T, pa::FpPools<T>, NREP, 32 * E>(
+        pa::FpPools<T>{static_cast<const T*>(k), static_cast<const T*>(v)},
+        S, q, clen, out, ws, tickets, B, KVH, window, split, st);
   }
 };
 
@@ -53,20 +42,30 @@ const char* decode_attention_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q (B, 1, H, hd), k/v (B, S, KVH, hd) of one dtype, cache_len (B,) int32,
-// out (B, 1, H, hd) in q's dtype. window <= 0 means no window. Returns
-// cudaErrorInvalidValue for an (n_rep, hd) pair without an instance
-// (n_rep in {1, 2, 4, 8}, hd in {32, 64, 128}).
+// Keys per split of a cache of S slots of head dim hd in elements of esize
+// bytes; the caller sizes the workspace from it and passes it back to the
+// launch.
+int decode_attention_split_keys(int S, int hd, int esize) {
+  return pa::dense_split_keys(S, hd, esize);
+}
+
+// q (B, 1, H, hd), k/v (B, S, KVH, hd) of one dtype, 16-byte aligned,
+// cache_len (B,) int32, out (B, 1, H, hd) in q's dtype. ws: fp32 workspace
+// of B * KVH * ceil(S / split) * n_rep * (hd + 2) floats; tickets: B * KVH
+// int32, zero before the call and zero after it. window <= 0 means no
+// window. Returns cudaErrorInvalidValue for an (n_rep, hd) pair without an
+// instance (n_rep in {1, 2, 4, 8}, hd in {32, 64, 128}) or a split out of
+// range.
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            const void* cache_len, void* out, int B, int S,
-                            int H, int KVH, int hd, int window, int dtype,
+                            const void* cache_len, void* out, void* ws,
+                            void* tickets, int B, int S, int H, int KVH,
+                            int hd, int window, int split, int dtype,
                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  const bool ok = rt::dispatch<Launch>(dtype, H / KVH, hd, q, k, v,
-                                       cache_len, out, B, S, KVH, window,
-                                       scale, st);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!pa::dense_shape_ok(B, S, KVH, split) || H % KVH ||
+      !rt::dispatch<Launch>(dtype, H / KVH, hd, q, k, v, cache_len, out, ws,
+                            tickets, B, S, KVH, window, split,
+                            static_cast<cudaStream_t>(stream)))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

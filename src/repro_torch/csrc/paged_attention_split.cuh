@@ -1,14 +1,18 @@
-// Split-KV ("flash-decoding") paged decode attention, shared by the bf16 /
-// fp32 pool kernel (paged_decode_attention.cu) and the int8 pool kernel
+// Split-KV ("flash-decoding") decode attention, shared by the dense cache
+// kernel (decode_attention.cu), the bf16 / fp32 pool kernel
+// (paged_decode_attention.cu) and the int8 pool kernel
 // (paged_decode_attention_q.cu): one query token per row against that row's
-// live K/V, read through the row's page table,
+// live K/V,
 //   out[b, h] = softmax_s(q[b, h] . k[b, s, g] / sqrt(hd)) . v[b, s, g]
-// over lo <= s < len, lo = max(0, len - window), h = g * n_rep + r.
+// over lo <= s < len, lo = max(0, len - window), h = g * n_rep + r. Where
+// key s of row b lives is a Rows policy: PagedRows reads it through the
+// row's page table (slot table[b, s / ps] * ps + s % ps of the (NP, ps, KVH,
+// hd) pools), DenseRows from a (B, S, KVH, hd) cache (slot b * S + s).
 //
-// Work unit: one CTA per (split j, KV head g, row b) of `split` keys (a
-// multiple of the page size, chosen on the host from P and ps by
-// split_keys, never from cache_len, so the grid needs no sync). A CTA whose
-// split misses [lo, len) returns at once. In a live CTA one producer warp
+// Work unit: one CTA per (split j, KV head g, row b) of `split` keys (paged:
+// a multiple of the page size; chosen on the host from the shapes alone,
+// never from cache_len, so the grid needs no sync). A CTA whose split misses
+// [lo, len) returns at once. In a live CTA one producer warp
 // streams the split's keys into a ring of STAGES shared-memory stages,
 // STAGES stages ahead of the eight consumer warps: 16-byte cp.async copies
 // (a key row's chunks on neighbouring lanes), each stage's completion
@@ -32,9 +36,9 @@
 // .. and resets the ticket to 0 for the next call: one launch, and an
 // output that does not depend on which CTA finished last.
 //
-// Contracts of the kernel it replaces (da::decode_body): keys outside [lo,
-// len) are never read; l == 0 writes zeros; a retired row (table all trash
-// page, cache_len 1) reads one key of the trash page; 64-bit offsets.
+// Contracts of the kernels they replace: keys outside [lo, len) are never
+// read; l == 0 writes zeros; a retired row (table all trash page,
+// cache_len 1) reads one key of the trash page; 64-bit offsets.
 #pragma once
 
 #include <algorithm>
@@ -51,7 +55,7 @@ constexpr int MAX_SPLITS = 64;            // splits of a row, at most
 constexpr int MAX_PAGES = 2048;           // pages per row (P)
 constexpr int MAX_SPLIT_PAGES = 256;      // page ids of one split in smem
 
-// The pools a kernel reads: E is the stored element type, MIN_SPLIT the
+// The K/V a kernel reads: E is the stored element type, MIN_SPLIT the
 // fewest keys a split takes: 256 KB of K and V at hd = 128 (timed on the
 // H100: shorter splits lose more to each CTA's fixed cost and to the merge
 // than they win by spreading a row over more SMs).
@@ -87,6 +91,66 @@ int split_keys(int P, int ps) {
   return static_cast<int>(
       std::min<long long>((want + ps - 1) / ps, MAX_SPLIT_PAGES) * ps);
 }
+
+// Keys per split of a dense cache of S slots, by the same rule with P * ps
+// replaced by S and no page to round to: at least the keys of 1 MB of K
+// and V (2048 at hd = 128 in bf16) and at most MAX_SPLITS splits of the S
+// slots. Timed on the H100 (scripts/probe_dense_split.py, Llama-2-7B's 32
+// KV heads at B = 4: 128 CTAs per split index): one split per row was the
+// fastest up to 2048 keys and 2048-key splits at 4096; shorter splits lost
+// more to the merge and each CTA's fixed cost than they won in spread.
+inline int dense_split_keys(int S, int hd, int esize) {
+  const long long min_keys = (1LL << 20) / (2LL * hd * esize);
+  return static_cast<int>(std::max<long long>(
+      min_keys, ((long long)S + MAX_SPLITS - 1) / MAX_SPLITS));
+}
+
+// Where the keys of a row live. A CTA calls split(b, j, split, tid, ext)
+// before it reads the row's length, stash(tid) once it knows its split is
+// live, then slot(s): the slot of key s, whose (g, 0) entry is element
+// slot * KVH * HD + g * HD of K and V. SMEM: bytes of shared memory the
+// policy takes beside the body's (at ext).
+struct PagedRows {
+  static constexpr int SMEM = MAX_SPLIT_PAGES * 4;   // the split's page ids
+  const int* table;                   // (B, P) int32
+  int P, ps;
+  struct Split {
+    int* s_pages;
+    int page0, n_pg, pg, ps;
+    __device__ __forceinline__ void stash(int tid) const {
+      if (tid < n_pg) s_pages[tid] = pg;
+    }
+    __device__ __forceinline__ size_t slot(int s) const {
+      const int pi = s / ps;
+      return (size_t)s_pages[pi - page0] * ps + (s - pi * ps);
+    }
+  };
+  __device__ __forceinline__ int keys() const { return P * ps; }
+  // the split's page ids, loaded beside its length (they are valid table
+  // entries whatever the length)
+  __device__ __forceinline__ Split split(int b, int j, int keys_per_split,
+                                         int tid, unsigned char* ext) const {
+    const int page0 = j * (keys_per_split / ps);
+    const int n_pg = min(keys_per_split / ps, P - page0);
+    return {reinterpret_cast<int*>(ext), page0, n_pg,
+            tid < n_pg ? table[(size_t)b * P + page0 + tid] : 0, ps};
+  }
+};
+
+struct DenseRows {
+  static constexpr int SMEM = 0;
+  int S;                              // slots per row
+  struct Split {
+    size_t row0;                      // b * S
+    __device__ __forceinline__ void stash(int) const {}
+    __device__ __forceinline__ size_t slot(int s) const { return row0 + s; }
+  };
+  __device__ __forceinline__ int keys() const { return S; }
+  __device__ __forceinline__ Split split(int b, int, int, int,
+                                         unsigned char*) const {
+    return {(size_t)b * S};
+  }
+};
 
 // 32-bit words of E as fp32: bf16 pairs (the lower element in the low
 // half), int8 quads exactly through the mantissa of 2^23 (each byte biased
@@ -153,8 +217,7 @@ struct Shape {
   static constexpr int STAGE = 2 * KS * ROW + (PL::SCALED ? 2 * KS * 4 : 0);
   static constexpr int RING = STAGES * STAGE;
   static constexpr int SCRATCH = (NG * NREP * (HD + 3) + 2 * NREP) * 4;
-  static constexpr int SMEM =
-      (RING > SCRATCH ? RING : SCRATCH) + MAX_SPLIT_PAGES * 4;
+  static constexpr int BODY = RING > SCRATCH ? RING : SCRATCH;
   static_assert(HD % EL == 0 && 32 % G == 0, "lane layout");
   static_assert(KS % NG == 0 && ROW % 16 == 0, "stage layout");
   static_assert(MAX_SPLIT_PAGES <= THREADS, "one page id per thread");
@@ -190,31 +253,28 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "memory");
   } while (!done);
 }
-template <typename T, typename PL, int NREP, int HD>
-__global__ void __launch_bounds__(THREADS, NREP <= 2 ? 3 : 2)
-paged_split_kernel(const T* __restrict__ q, const PL pools,
-                   const int* __restrict__ table,
-                   const int* __restrict__ cache_len, T* __restrict__ out,
-                   float* __restrict__ ws, int* __restrict__ tickets, int P,
-                   int ps, int KVH, int window, int split, float qscale) {
+// The body of every split-KV kernel: one CTA of THREADS threads, grid
+// (KVH, B, ceil(rows.keys() / split)); SMEM of S::BODY + Rows::SMEM bytes.
+template <typename T, typename PL, int NREP, int HD, typename Rows>
+__device__ __forceinline__ void split_body(
+    const T* __restrict__ q, const PL pools, const Rows& rows,
+    const int* __restrict__ cache_len, T* __restrict__ out,
+    float* __restrict__ ws, int* __restrict__ tickets, int KVH, int window,
+    int split, float qscale) {
   using S = Shape<T, PL, NREP, HD>;
   using E = typename S::E;
   constexpr int EL = S::EL, G = S::G, KPW = S::KPW, NG = S::NG, VE = S::VE,
                 NV = S::NV, KS = S::KS;
   extern __shared__ __align__(16) unsigned char smem[];
-  int* s_pages = reinterpret_cast<int*>(
-      smem + (S::RING > S::SCRATCH ? S::RING : S::SCRATCH));
   __shared__ uint64_t s_full[STAGES], s_empty[STAGES];
   __shared__ int s_last;
 
   const int g = blockIdx.x, b = blockIdx.y, j = blockIdx.z;
   const int NS = gridDim.z, H = KVH * NREP;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  // the split's page ids, loaded beside its length (they are valid table
-  // entries whatever the length)
-  const int page0 = j * (split / ps), n_pg = min(split / ps, P - page0);
-  const int pg = tid < n_pg ? table[(size_t)b * P + page0 + tid] : 0;
-  const int len = max(0, min(cache_len[b], P * ps));
+  const typename Rows::Split cur = rows.split(b, j, split, tid,
+                                              smem + S::BODY);
+  const int len = max(0, min(cache_len[b], rows.keys()));
   const int lo = window > 0 ? max(0, len - window) : 0;
   T* o = out + ((size_t)b * H + (size_t)g * NREP) * HD;
   if (len <= lo) {                        // no live key: zeros, once
@@ -225,7 +285,7 @@ paged_split_kernel(const T* __restrict__ q, const PL pools,
   const int j_lo = lo / split, j_hi = (len + split - 1) / split;
   if (j < j_lo || j >= j_hi) return;
   const int s_begin = max(lo, j * split), s_end = min(len, (j + 1) * split);
-  if (tid < n_pg) s_pages[tid] = pg;
+  cur.stash(tid);
   if (tid == 0) {
     for (int i = 0; i < STAGES; ++i) {
       mbar_init(&s_full[i], 1);           // the producer's lane 0
@@ -261,10 +321,8 @@ paged_split_kernel(const T* __restrict__ q, const PL pools,
       const int s0 = s_begin + st * KS, nk = min(KS, s_end - s0);
       size_t slot[NKB];                   // of keys lane + 32 i
 #pragma unroll
-      for (int i = 0; i < NKB; ++i) {
-        const int s = min(s0 + lane + 32 * i, s_end - 1), pi = s / ps;
-        slot[i] = (size_t)s_pages[pi - page0] * ps + (s - pi * ps);
-      }
+      for (int i = 0; i < NKB; ++i)
+        slot[i] = cur.slot(min(s0 + lane + 32 * i, s_end - 1));
 #pragma unroll
       for (int t = 0; t < KS / KPI; ++t) {
         const int kk = t * KPI + lane / CPR, col = lane % CPR;
@@ -473,35 +531,82 @@ paged_split_kernel(const T* __restrict__ q, const PL pools,
   if (tid == 0) *ticket = 0;              // ready for the next call
 }
 
-// Launches one instance: grid (KVH, B, ceil(P * ps / split)), the split
-// index slowest, so every row's first splits are dispatched before any
-// row's later ones (at a serve tick most later splits lie past the rows'
-// lengths and return at once); SMEM bytes of dynamic shared memory (above
-// 48 KB for bf16 pools: opted into once per instance). The function is
-// static, so each library keeps its own opt-in flag.
+// The kernels: the paged one and the dense one, each under its own name so
+// a profile tells them apart.
+template <typename T, typename PL, int NREP, int HD>
+__global__ void __launch_bounds__(THREADS, NREP <= 2 ? 3 : 2)
+paged_split_kernel(const T* __restrict__ q, const PL pools,
+                   const PagedRows rows,
+                   const int* __restrict__ cache_len, T* __restrict__ out,
+                   float* __restrict__ ws, int* __restrict__ tickets,
+                   int KVH, int window, int split, float qscale) {
+  split_body<T, PL, NREP, HD>(q, pools, rows, cache_len, out, ws, tickets,
+                              KVH, window, split, qscale);
+}
+
+template <typename T, typename PL, int NREP, int HD>
+__global__ void __launch_bounds__(THREADS, NREP <= 2 ? 3 : 2)
+dense_split_kernel(const T* __restrict__ q, const PL pools,
+                   const DenseRows rows,
+                   const int* __restrict__ cache_len, T* __restrict__ out,
+                   float* __restrict__ ws, int* __restrict__ tickets,
+                   int KVH, int window, int split, float qscale) {
+  split_body<T, PL, NREP, HD>(q, pools, rows, cache_len, out, ws, tickets,
+                              KVH, window, split, qscale);
+}
+
+// Launches one instance of `kernel` over rows of `keys` keys: grid (KVH, B,
+// ceil(keys / split)), the split index slowest, so every row's first splits
+// are dispatched before any row's later ones (at a serve tick most later
+// splits lie past the rows' lengths and return at once); S::BODY +
+// Rows::SMEM bytes of dynamic shared memory (above 48 KB for bf16: opted
+// into once per instance). The function is static, so each library keeps
+// its own opt-in flag.
+template <typename T, typename PL, int NREP, int HD, typename Rows,
+          typename Kernel>
+static void launch_rows(Kernel kernel, const PL& pools, const Rows& rows,
+                        long long keys, const void* q, const void* clen,
+                        void* out, void* ws, void* tickets, int B, int KVH,
+                        int window, int split, cudaStream_t st) {
+  constexpr int SMEM = Shape<T, PL, NREP, HD>::BODY + Rows::SMEM;
+  static bool configured = false;
+  if (!configured) {                      // a failure stays the last error
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM) != cudaSuccess)
+      return;
+    configured = true;
+  }
+  const int NS = (int)((keys + split - 1) / split);
+  // scores in log2 units: exp2(x * log2 e) = exp(x)
+  const float qscale = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  kernel<<<dim3(KVH, B, NS), THREADS, SMEM, st>>>(
+      static_cast<const T*>(q), pools, rows, static_cast<const int*>(clen),
+      static_cast<T*>(out), static_cast<float*>(ws),
+      static_cast<int*>(tickets), KVH, window, split, qscale);
+}
+
+// Paged: rows of P pages of ps tokens through a (B, P) page table.
 template <typename T, typename PL, int NREP, int HD>
 static void launch(const PL& pools, const void* q, const void* table,
                    const void* clen, void* out, void* ws, void* tickets,
                    int B, int P, int ps, int KVH, int window, int split,
                    cudaStream_t st) {
-  using S = Shape<T, PL, NREP, HD>;
-  static bool configured = false;
-  if (!configured) {                      // a failure stays the last error
-    if (cudaFuncSetAttribute(paged_split_kernel<T, PL, NREP, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             S::SMEM) != cudaSuccess)
-      return;
-    configured = true;
-  }
-  const int NS = (int)(((long long)P * ps + split - 1) / split);
-  // scores in log2 units: exp2(x * log2 e) = exp(x)
-  const float qscale = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
-  paged_split_kernel<T, PL, NREP, HD>
-      <<<dim3(KVH, B, NS), THREADS, S::SMEM, st>>>(
-          static_cast<const T*>(q), pools, static_cast<const int*>(table),
-          static_cast<const int*>(clen), static_cast<T*>(out),
-          static_cast<float*>(ws), static_cast<int*>(tickets), P, ps, KVH,
-          window, split, qscale);
+  launch_rows<T, PL, NREP, HD>(
+      paged_split_kernel<T, PL, NREP, HD>, pools,
+      PagedRows{static_cast<const int*>(table), P, ps}, (long long)P * ps,
+      q, clen, out, ws, tickets, B, KVH, window, split, st);
+}
+
+// Dense: rows of S slots of a (B, S, KVH, hd) cache.
+template <typename T, typename PL, int NREP, int HD>
+static void launch_dense(const PL& pools, int S, const void* q,
+                         const void* clen, void* out, void* ws,
+                         void* tickets, int B, int KVH, int window,
+                         int split, cudaStream_t st) {
+  launch_rows<T, PL, NREP, HD>(dense_split_kernel<T, PL, NREP, HD>, pools,
+                               DenseRows{S}, S, q, clen, out, ws, tickets,
+                               B, KVH, window, split, st);
 }
 
 // Whether the launchers take these shapes: P <= MAX_PAGES, split a
@@ -511,6 +616,13 @@ inline bool shape_ok(int B, int P, int ps, int KVH, int split) {
   return P > 0 && P <= MAX_PAGES && ps > 0 && split > 0 && split % ps == 0 &&
          split / ps <= MAX_SPLIT_PAGES && B > 0 && B <= 65535 && KVH > 0 &&
          KVH <= 65535;
+}
+
+// The same for a dense cache of S slots: a positive split, at most 65535
+// splits of a row.
+inline bool dense_shape_ok(int B, int S, int KVH, int split) {
+  return S > 0 && split > 0 && ((long long)S + split - 1) / split <= 65535 &&
+         B > 0 && B <= 65535 && KVH > 0 && KVH <= 65535;
 }
 
 }  // namespace pa

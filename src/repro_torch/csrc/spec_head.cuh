@@ -1,12 +1,13 @@
-// Speculative LM-head gather-dot shared by spec_head.cu, spec_head_q.cu
-// and exit_gate.cu: one CTA of SH_THREADS threads computes, for one row,
+// Speculative LM-head gather-dot shared by spec_head.cu and spec_head_q.cu:
+// one CTA of SH_THREADS threads computes, for one row,
 //   logits[j] = hn_row . W[:, ids_row[j]]     (j < k, fp32)
 // over the (D, V) row-major head, read through a column reader
 // (common.cuh): fp weights, int8 codes, or plane-packed int4 bytes, where
 // one byte at stored row d < D/2 feeds hidden entries d and d + D/2 and a
-// column's sum is multiplied by its scale after the block reduction. All
-// three kernels take this one body, so the spec-head features and the
-// fused gate's cannot drift.
+// column's sum is multiplied by its scale after the block reduction. Both
+// kernels take this one body. The fused exit gate (exit_gate.cu) spreads
+// a row over a cluster of CTAs instead (spec_slice.cuh): the same products,
+// summed in another order.
 //
 // Layout choice: the head stays (D, V) row-major, shared with the verify
 // kernels, and the gather reads W[d, ids[j]] for every d — a strided read
@@ -38,16 +39,12 @@ __device__ __forceinline__ int spec_col(const int* ids_row, int j, int V) {
 
 // red: (SH_MAXK, 32) shared scratch; out: SH_MAXK shared floats, holding
 // the k logits for every thread of the CTA when the call returns.
-// HOIST issues a row's k gathered loads before its k multiply-adds: the
-// same sums in the same order, scheduled otherwise. Inside the fused exit
-// gate ptxas otherwise settles on 48 registers and serializes the loads,
-// which made the gate 1.5x slower on an H100 (0.0227 against 0.0150 ms at
-// B=4 in bf16, chip_smoke.py phase 2). For the standalone spec-head
-// kernels the order is a trade-off: without HOIST they were faster at the
-// AR path's B=4 rows (32 launches per step), with it at the tree's 160
-// rows (2-3 launches per step), in a one-off A/B of the two orders on an
-// H100. They keep the order without it; choosing by row count is open.
-template <typename T, typename W, bool HOIST = false>
+// Each of a row's k gathered loads is followed by its multiply-adds. Issuing
+// all k loads first (as the cluster gate's spec_slice.cuh does) was slower
+// at the AR path's B=4 rows (32 launches per step) and faster at the tree's
+// 160 rows (2-3 launches per step), in a one-off A/B of the two orders on
+// an H100; choosing the order by row count is open.
+template <typename T, typename W>
 __device__ __forceinline__ void spec_head_row(
     const T* __restrict__ hn_row, W w,
     const int* __restrict__ ids_row, int D, int V, int k,
@@ -68,27 +65,14 @@ __device__ __forceinline__ void spec_head_row(
 #pragma unroll
     for (int p = 0; p < P; ++p) x[p] = to_f(hn_row[p * Dp + d]);
     const size_t row = (size_t)d * V;
-    if constexpr (HOIST) {
-      float c[SH_MAXK][P];
 #pragma unroll
-      for (int j = 0; j < SH_MAXK; ++j)
-        if (j < k) w.load(row + col[j], c[j]);
+    for (int j = 0; j < SH_MAXK; ++j)
+      if (j < k) {
+        float c[P];
+        w.load(row + col[j], c);
 #pragma unroll
-      for (int j = 0; j < SH_MAXK; ++j)
-        if (j < k) {
-#pragma unroll
-          for (int p = 0; p < P; ++p) acc[j] = fmaf(x[p], c[j][p], acc[j]);
-        }
-    } else {
-#pragma unroll
-      for (int j = 0; j < SH_MAXK; ++j)
-        if (j < k) {
-          float c[P];
-          w.load(row + col[j], c);
-#pragma unroll
-          for (int p = 0; p < P; ++p) acc[j] = fmaf(x[p], c[p], acc[j]);
-        }
-    }
+        for (int p = 0; p < P; ++p) acc[j] = fmaf(x[p], c[p], acc[j]);
+      }
   }
 #pragma unroll
   for (int j = 0; j < SH_MAXK; ++j) {

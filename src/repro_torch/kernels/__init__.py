@@ -61,12 +61,11 @@ def check_arg(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name}: must be contiguous")
 
 
-def check_kv_aligned(name: str, t: torch.Tensor, hd: int) -> None:
-    """The attention kernels read a lane's hd/32 consecutive K/V elements
-    in one load: ``t`` must start on a boundary of that many bytes."""
-    nbytes = max(hd // 32, 1) * t.element_size()
-    if t.data_ptr() % nbytes:
-        raise ValueError(f"{name}: must be {nbytes}-byte aligned")
+def check_kv_aligned(name: str, t: torch.Tensor) -> None:
+    """The split-KV attention kernels copy K/V rows in 16-byte chunks:
+    ``t`` must start on a 16-byte boundary."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
 
 
 def check_qtensor(name: str, qt, device: torch.device, shape) -> None:

@@ -1,9 +1,9 @@
 """Wrappers of the decode-attention CUDA kernels (counterparts of
 ``repro/kernels/decode_attention/decode_attention.py::decode_attention_fwd``
-and ``paged_decode_attention_fwd``; the kernels are
-csrc/decode_attention.cu (body in csrc/decode_attention.cuh) and the
-split-KV paged kernels csrc/paged_decode_attention.cu and, over int8 pools,
-csrc/paged_decode_attention_q.cu (body in csrc/paged_attention_split.cuh)).
+and ``paged_decode_attention_fwd``; the kernels are the split-KV kernels
+csrc/decode_attention.cu (dense cache), csrc/paged_decode_attention.cu
+and, over int8 pools, csrc/paged_decode_attention_q.cu, all on the body in
+csrc/paged_attention_split.cuh).
 
 On a CPU tensor each runs its plain version from ``ref.py``; on a CUDA
 tensor it launches its kernel (counted in ``kernels.LAUNCHES``) or raises.
@@ -11,6 +11,7 @@ tensor it launches its kernel (counted in ``kernels.LAUNCHES``) or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -37,25 +38,29 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     K.check_arg("k_cache", k_cache, dev, q.dtype, (B, S, KVH, hd))
     K.check_arg("v_cache", v_cache, dev, q.dtype, (B, S, KVH, hd))
     K.check_arg("cache_len", cache_len, dev, torch.int32, (B,))
-    K.check_kv_aligned("k_cache", k_cache, hd)
-    K.check_kv_aligned("v_cache", v_cache, hd)
+    K.check_kv_aligned("k_cache", k_cache)
+    K.check_kv_aligned("v_cache", v_cache)
     if H % KVH:
         raise ValueError(f"decode_attention: {H} heads over {KVH} KV heads")
+    split = dense_split_keys(S, hd, q.element_size())
+    tickets, partials = _workspace(dev).get(
+        B * KVH, B * KVH * -(-S // split) * (H // KVH) * (hd + 2))
     fn = build.c_func("decode_attention", "decode_attention_launch",
-                      [_P] * 5 + [_I] * 7 + [_P])
+                      [_P] * 7 + [_I] * 8 + [_P])
     out = torch.empty_like(q)
     rc = fn(K.ptr(q), K.ptr(k_cache), K.ptr(v_cache), K.ptr(cache_len),
-            K.ptr(out), B, S, H, KVH, hd, 0 if window is None else window,
-            K.dtype_code(q), K.stream_ptr(dev))
+            K.ptr(out), K.ptr(partials), K.ptr(tickets), B, S, H, KVH, hd,
+            0 if window is None else window, split, K.dtype_code(q),
+            K.stream_ptr(dev))
     build.check("decode_attention", rc,
-                f"decode_attention (n_rep={H // KVH}, hd={hd})")
+                f"decode_attention (n_rep={H // KVH}, hd={hd}, slots={S})")
     K.LAUNCHES["decode_attention"] += 1
     return out
 
 
 class _Workspace:
-    """Scratch of the split-KV paged kernels on one device: int32 tickets,
-    one per (row, KV head), and the fp32 partials of the splits. The
+    """Scratch of the split-KV kernels on one device: int32 tickets, one
+    per (row, KV head), and the fp32 partials of the splits. The
     kernels leave every ticket at 0 (the CTA that merges resets its own),
     so the tickets are zeroed once, at allocation. Both grow and never
     shrink; a buffer that is outgrown stays alive, since a CUDA graph
@@ -82,6 +87,22 @@ class _Workspace:
 
 
 _WORKSPACES: Dict[torch.device, _Workspace] = {}
+
+
+def _workspace(dev: torch.device) -> _Workspace:
+    if dev not in _WORKSPACES:
+        _WORKSPACES[dev] = _Workspace(dev)
+    return _WORKSPACES[dev]
+
+
+@functools.lru_cache(maxsize=None)
+def dense_split_keys(S: int, hd: int, esize: int) -> int:
+    """Keys per split of the dense kernel over a cache of ``S`` slots of
+    head dim ``hd`` in elements of ``esize`` bytes, chosen by the kernel
+    source (``pa::dense_split_keys``) from the shapes alone, never from the
+    lengths; cached, since the decode step asks for it once per layer."""
+    return build.c_func("decode_attention", "decode_attention_split_keys",
+                        [_I, _I, _I])(S, hd, esize)
 
 
 def split_keys(name: str, P: int, ps: int) -> int:
@@ -126,19 +147,15 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
     K.check_arg("v_pool", v_pool, dev, pool_dtype, (NP, ps, KVH, hd))
     K.check_arg("page_table", page_table, dev, torch.int32, (B, P))
     K.check_arg("cache_len", cache_len, dev, torch.int32, (B,))
-    for pname, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if pool.data_ptr() % 16:        # the kernels copy 16-byte chunks
-            raise ValueError(f"paged_decode_attention: {pname} must be "
-                             f"16-byte aligned")
+    K.check_kv_aligned("k_pool", k_pool)
+    K.check_kv_aligned("v_pool", v_pool)
     if H % KVH:
         raise ValueError(
             f"paged_decode_attention: {H} heads over {KVH} KV heads")
     name = "paged_decode_attention" + ("_q" if quantized else "")
     split = split_keys(name, P, ps)
     n_split = -(-P * ps // split)
-    if dev not in _WORKSPACES:
-        _WORKSPACES[dev] = _Workspace(dev)
-    tickets, partials = _WORKSPACES[dev].get(
+    tickets, partials = _workspace(dev).get(
         B * KVH, B * KVH * n_split * (H // KVH) * (hd + 2))
     out = torch.empty_like(q)
     what = (f"{name} (n_rep={H // KVH}, hd={hd}, pages/row={P}, "

@@ -2,7 +2,10 @@
 kernels in ``repro/kernels/exit_gate/exit_gate.py``).
 
 ``exit_gate_fused``     — csrc/exit_gate.cu: gather-GEMM + softmax +
-                          Δ-features + 2-layer predictor, one CTA per row.
+                          Δ-features + 2-layer predictor, a thread-block
+                          cluster per row (the CTAs split the hidden
+                          dimension and the hidden units, and sum their
+                          partials in rank order through shared memory).
 ``argmax_verify_fused`` — csrc/argmax_verify.cu: LM-head argmax.
 ``topk_verify_fused``   — csrc/topk_verify.cu: LM-head top-k.
 ``argmax_verify_fused_q`` / ``topk_verify_fused_q`` — csrc/argmax_verify_q.cu

@@ -41,6 +41,8 @@ def test_count_hmma_by_function():
 
 @pytest.mark.parametrize("script", ["ab_argmax_verify", "ab_flash_attention",
                                     "ab_decode_attention", "ab_ssd_chunk",
+                                    "ab_exit_gate", "probe_exit_gate",
+                                    "probe_dense_split",
                                     "probe_paged_attention"])
 def test_ab_script_refuses_without_a_card(script, monkeypatch, capsys):
     if torch.cuda.is_available():

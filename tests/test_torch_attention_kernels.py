@@ -1,8 +1,9 @@
 """The port's paged decode-attention and flash-attention modules on the CPU
 (where each wrapper runs its plain version) against the JAX package's
-Pallas kernels in interpret mode, an emulation of the paged CUDA kernels'
-split-KV arithmetic against both, plus the chunked-prefill attention
-(``attend_extend``) and ``Model.prefill_extend`` against JAX.
+Pallas kernels in interpret mode, an emulation of the split-KV CUDA
+kernels' arithmetic (paged and dense) against both, plus the
+chunked-prefill attention (``attend_extend``) and
+``Model.prefill_extend`` against JAX.
 
 Tolerance: atol = rtol = 1e-5 for the attention functions (fp32, different
 summation order); the prefill_extend hiddens and cache atol = rtol = 1e-4
@@ -73,22 +74,32 @@ def test_paged_decode_attention_matches_pallas(kvh, window):
 
 # ---------------- the split-KV arithmetic of the paged kernels ----------
 def _split_merge(q, kp, vp, table, clen, window, split, ks=None, vs=None):
-    """The paged CUDA kernels' split-and-merge, emulated in torch: each
-    row's keys cut into splits of ``split`` keys (a multiple of the page
-    size), each split's (m, l, acc) in fp32 (a split wholly outside
-    [lo, len) at m = -1e30, l = 0, acc = 0), merged in split order; l == 0
-    writes zeros. With ``ks``/``vs`` the pools hold int8 codes: a key's
-    score is its scale times q . codes, and its V row enters at weight
-    p * vs."""
+    """The split-KV CUDA kernels' split-and-merge, emulated in torch: each
+    row's keys cut into splits of ``split`` keys, each split's (m, l, acc)
+    in fp32 (a split wholly outside [lo, len) at m = -1e30, l = 0, acc =
+    0), merged in split order; l == 0 writes zeros. With a ``table`` the
+    K/V are pools read through it (the paged kernels; ``split`` a multiple
+    of the page size); with ``table`` None a dense (B, S, KVH, hd) cache
+    (the dense kernel: key s of row b at slot b * S + s). With ``ks``/``vs``
+    the pools hold int8 codes: a key's score is its scale times q . codes,
+    and its V row enters at weight p * vs."""
     B, _, H, hd = q.shape
-    ps, KVH = kp.shape[1], kp.shape[2]
-    n_rep, P = H // KVH, table.shape[1]
+    KVH = kp.shape[2]
+    n_rep = H // KVH
+    if table is None:
+        n_keys = kp.shape[1]
+        slots_of = [torch.arange(n_keys) + b * n_keys for b in range(B)]
+    else:
+        ps, P = kp.shape[1], table.shape[1]
+        n_keys = P * ps
+        slots_of = [(table[b].long()[:, None] * ps
+                     + torch.arange(ps)[None, :]).reshape(-1)
+                    for b in range(B)]
     out = torch.zeros(B, 1, H, hd)
     for b in range(B):
-        n = min(int(clen[b]), P * ps)
+        n = min(int(clen[b]), n_keys)
         lo = max(0, n - window) if window else 0
-        slots = (table[b].long()[:, None] * ps
-                 + torch.arange(ps)[None, :]).reshape(-1)
+        slots = slots_of[b]
         k = kp.reshape(-1, KVH, hd)[slots].float().repeat_interleave(n_rep, 1)
         v = vp.reshape(-1, KVH, hd)[slots].float().repeat_interleave(n_rep, 1)
         sk = sv = torch.ones(len(slots), H)
@@ -96,7 +107,7 @@ def _split_merge(q, kp, vp, table, clen, window, split, ks=None, vs=None):
             sk = ks.reshape(-1, KVH)[slots].repeat_interleave(n_rep, 1)
             sv = vs.reshape(-1, KVH)[slots].repeat_interleave(n_rep, 1)
         parts = []
-        for j in range(-(-P * ps // split)):
+        for j in range(-(-n_keys // split)):
             s0, s1 = max(lo, j * split), min(n, (j + 1) * split)
             if s0 >= s1:
                 parts.append((torch.full((H,), -1e30), torch.zeros(H),
@@ -154,6 +165,33 @@ def test_split_merge_matches_pallas_and_plain(quantized, window):
                            t.get("v_scale"))
         _close(got, want)
         _close(got, plain)
+
+
+@pytest.mark.parametrize("split", [8, 13, 40])
+@pytest.mark.parametrize("window", [None, 20])
+def test_split_merge_dense_matches_pallas_and_plain(split, window):
+    """The emulated split-and-merge over a dense 40-slot cache (the dense
+    kernel's DenseRows) at splits of 8, 13 and 40 keys against JAX's
+    Pallas decode_attention_fwd in interpret mode and the port's plain
+    version: rows of 40 keys, 1 key, and lengths at and one past the
+    second split boundary (window 20 leaves whole splits before the first
+    key of row 0 at split 8; splits past a row's length are empty)."""
+    from repro.kernels.decode_attention.decode_attention import (
+        decode_attention_fwd as jax_decode_fwd)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    rng = np.random.default_rng(split)
+    B, S, H, KVH, hd = 4, 40, 4, 2, 32
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, KVH, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, KVH, hd)).astype(np.float32)
+    clen = np.array([S, 1, min(2 * split, S), min(2 * split + 1, S)],
+                    np.int32)
+    want = jax_decode_fwd(q, k, v, clen, window=window, block_k=8)
+    plain = decode_attention_ref(_t(q), _t(k), _t(v), _t(clen), window)
+    _close(plain, want)
+    got = _split_merge(_t(q), _t(k), _t(v), None, _t(clen), window, split)
+    _close(got, want)
+    _close(got, plain)
 
 
 # ---------------- flash attention (Pallas row 7) ----------------

@@ -1074,3 +1074,98 @@ def test_bf16_tiles_refuse_before_any_launch(dev):
     tok_r, mx_r = ref.verify_argmax_q_ref(h128, qt)
     assert torch.equal(tok, tok_r)
     torch.testing.assert_close(mx, mx_r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("window", [None, "splits"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_split_long_cache(dev, dtype, n_rep, hd, window):
+    """The dense split-KV kernel over a cache of four splits (4 * split
+    slots, split from the kernel's rule): lengths 4 * split (every split
+    live), 1, one key past a split boundary and one ending on it; a window
+    of split + 300 keys leaves two whole splits before the first key of
+    the full row. Against the plain version on the inputs upcast to fp32,
+    at the file's tolerances; one launch."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_fwd, dense_split_keys)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    kvh = 2
+    split = dense_split_keys(4096, hd, torch.empty(0, dtype=dtype)
+                             .element_size())
+    S = 4 * split
+    assert dense_split_keys(S, hd, 2 if dtype == torch.bfloat16 else 4) \
+        == split
+    window = None if window is None else split + 300
+    gen = torch.Generator(device=dev).manual_seed(26)
+    q = _rand(gen, (4, 1, kvh * n_rep, hd), dev, dtype)
+    k = _rand(gen, (4, S, kvh, hd), dev, dtype)
+    v = _rand(gen, (4, S, kvh, hd), dev, dtype)
+    clen = torch.tensor([S, 1, split + 1, split], dtype=torch.int32,
+                        device=dev)
+    reset_launches()
+    got = decode_attention_fwd(q, k, v, clen, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["decode_attention"] == 1 and sum(LAUNCHES.values()) == 1
+    want = decode_attention_ref(q.float(), k.float(), v.float(), clen, window)
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)
+
+
+def test_decode_attention_split_deterministic(dev):
+    """The dense kernel's splits merge in split order, whichever CTA
+    merges: two calls on the same inputs are bit-equal, and every (row, KV
+    head) ticket is back at 0 after each."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    gen = torch.Generator(device=dev).manual_seed(27)
+    S = 4096
+    q = _rand(gen, (6, 1, 32, 128), dev, torch.bfloat16)
+    k = _rand(gen, (6, S, 8, 128), dev, torch.bfloat16)
+    v = _rand(gen, (6, S, 8, 128), dev, torch.bfloat16)
+    clen = torch.tensor([4096, 3001, 1, 2048, 4095, 513], dtype=torch.int32,
+                        device=dev)
+    outs = []
+    for _ in range(2):
+        outs.append(da.decode_attention_fwd(q, k, v, clen))
+        torch.cuda.synchronize()
+        assert int(da._WORKSPACES[q.device].tickets.abs().sum()) == 0
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("B", [1, 4, 8, 33])
+@pytest.mark.parametrize("D,V", [(768, 50280), (4096, 32000)])
+def test_exit_gate_cluster_matches_plain(dev, D, V, B, k, dtype):
+    """The cluster-split gate at mamba2-130m's and Llama-2-7B's widths
+    (clusters of 3 and 8 CTAs per row), any row count, k up to its
+    limit: against the plain version on the ids clamped to [0, V) (ids 0,
+    V - 1, -5 and V + 7 among them), atol = rtol = 1e-4; one launch; two
+    calls bit-equal (the partials are summed in rank order)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    gen = torch.Generator(device=dev).manual_seed(28)
+    H = 512
+    hn = _rand(gen, (B, D), dev, dtype)
+    w = _rand(gen, (D, V), dev, dtype, 0.05)
+    ids = torch.randint(0, V, (B, k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    edge = torch.tensor([0, V - 1, -5, V + 7], dtype=torch.int32, device=dev)
+    ids.view(-1)[:min(4, B * k)] = edge[:min(4, B * k)]
+    prev = torch.softmax(_rand(gen, (B, k), dev), -1)
+    w1 = _rand(gen, (3 * k, H), dev, scale=(3 * k) ** -0.5)
+    b1 = _rand(gen, (H,), dev, scale=0.1)
+    w2 = _rand(gen, (H, 1), dev, scale=H ** -0.5)
+    b2 = _rand(gen, (1,), dev, scale=0.1)
+    reset_launches()
+    got = eg.exit_gate_fused(hn, w, ids, prev, w1, b1, w2, b2)
+    again = eg.exit_gate_fused(hn, w, ids, prev, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert LAUNCHES["exit_gate"] == 2 and sum(LAUNCHES.values()) == 2
+    pred = {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
+    want = ref.exit_gate_ref(hn, w, ids.clamp(0, V - 1), prev, pred)
+    for a, a2, b in zip(got, again, want):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

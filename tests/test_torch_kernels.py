@@ -189,6 +189,68 @@ def test_exit_gate_spec_head_kernel_matches_jax(B, D, V, k):
         _close(a, b)
 
 
+def _cluster_gate(hn, w, ids, prev, w1, b1, w2, b2, C):
+    """The cluster-split CUDA gate (csrc/exit_gate.cu), emulated in torch:
+    rank c of C gathers head rows [c * Dc, (c + 1) * Dc), Dc = ceil(D / C),
+    the C partial logits are summed in rank order; rank c computes the
+    hidden units [c * Hc, (c + 1) * Hc), Hc = ceil(H / C), and the C MLP
+    shares are summed in rank order before b2 and the sigmoid. Ids are
+    clamped to [0, V)."""
+    B, D = hn.shape
+    V, k, H = w.shape[1], ids.shape[1], w1.shape[1]
+    cols = ids.long().clamp(0, V - 1)
+    Dc, Hc = -(-D // C), -(-H // C)
+    p_out, probs, logits = torch.zeros(B), torch.zeros(B, k), torch.zeros(
+        B, k)
+    for b in range(B):
+        lg = torch.zeros(k)
+        for c in range(C):
+            sl = slice(c * Dc, (c + 1) * Dc)
+            lg = lg + (hn[b, sl, None] * w[sl][:, cols[b]]).sum(0)
+        pr = torch.softmax(lg, -1)
+        feats = torch.cat([lg, pr, pr - prev[b]])
+        o = torch.zeros(())
+        for c in range(C):
+            hs = slice(c * Hc, (c + 1) * Hc)
+            o = o + (torch.relu(feats @ w1[:, hs] + b1[hs])
+                     * w2[hs, 0]).sum()
+        p_out[b] = torch.sigmoid(o + b2[0])
+        probs[b], logits[b] = pr, lg
+    return p_out, probs, logits
+
+
+@pytest.mark.parametrize("C", [1, 4, 16])
+@pytest.mark.parametrize("D", [768, 1024])
+@pytest.mark.parametrize("k", [1, 4])
+def test_cluster_gate_matches_pallas_and_plain(C, D, k):
+    """The emulated cluster split at C CTAs per row against JAX's Pallas
+    exit_gate_fused in interpret mode and the port's plain version (H =
+    64 hidden units: at C = 16 four per rank); ids include 0 and V - 1."""
+    from repro.kernels.exit_gate.exit_gate import (
+        exit_gate_fused as jax_exit_gate_fused)
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    rng = np.random.default_rng(C + D + k)
+    B, V, H = 3, 300, 64
+    hn = rng.standard_normal((B, D)).astype(np.float32)
+    w = (rng.standard_normal((D, V)) * 0.05).astype(np.float32)
+    ids = rng.integers(0, V, (B, k)).astype(np.int32)
+    ids[0, 0], ids[-1, -1] = 0, V - 1
+    prev = rng.dirichlet(np.ones(k), B).astype(np.float32)
+    w1 = (rng.standard_normal((3 * k, H)) * 0.3).astype(np.float32)
+    b1 = (rng.standard_normal(H) * 0.1).astype(np.float32)
+    w2 = (rng.standard_normal((H, 1)) * H ** -0.5).astype(np.float32)
+    b2 = (rng.standard_normal(1) * 0.1).astype(np.float32)
+    args = (hn, w, ids, prev, w1, b1, w2, b2)
+    want = jax_exit_gate_fused(*args)
+    K.reset_launches()
+    plain = eg.exit_gate_fused(*map(_t, args))
+    assert K.LAUNCHES["exit_gate"] == 0
+    got = _cluster_gate(*map(_t, args), C)
+    for a, b, c in zip(got, want, plain):
+        _close(a, b)
+        _close(a, c)
+
+
 # ---------------- spec head (Pallas row 10) ----------------
 @pytest.mark.parametrize("R", [1, 7, 40])
 def test_spec_head_matches_pallas(R):
