@@ -13,7 +13,7 @@ and serves Mamba2 (mamba2-130m) with the SSD intra-chunk kernel.
 
 Phases (lines ``[phase +seconds since the start] ...``):
   1. device + build — the card's name and power limit, then ``nvcc`` builds
-     the fourteen kernels of ``src/repro_torch/csrc`` for sm_90a (in
+     the fifteen kernels of ``src/repro_torch/csrc`` for sm_90a (in
      parallel);
   2. kernels — each kernel vs its plain version in fp32 and bf16 at the
      main paths' shapes (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128;
@@ -42,8 +42,17 @@ Phases (lines ``[phase +seconds since the start] ...``):
      ids, against their plain versions and the fp kernels on the
      dequantized head, timed in bf16 beside the fp kernel on the
      dequantized bf16 head (a yardstick: no one PyTorch call computes the
-     same function), and the host time per call of the fp and the
-     quantized gate and verify entry points; then the SSD intra-chunk
+     same function); then the quantized exit gate (exit_gate_q: fp32 and
+     bf16 hidden rows, B in {1, 4, 8, 33}, Llama-2-7B's and mamba2-130m's
+     widths, every (head, bank) pair of fp / int8 / int4 but the fp one,
+     k in {1, 3, 4}, ids 0, V-1, repeated and out of range, two calls
+     bit-equal) against its plain version, timed in bf16 at B = 4 and 8
+     (int8, int4) beside the plain version, the piecewise chain it
+     replaced (spec_head_q, softmax, difference, concatenation,
+     predictor_mlp_q) in one CUDA graph as a yardstick, its byte bound and
+     its bound in 32-byte sectors; and the host time per call of the fp
+     and the quantized gate (fused and piecewise) and verify entry points;
+     then the SSD intra-chunk
      kernel (ssd_chunk: fp32 and bf16 B/C, c 32/64, d_state 16/128, head
      dim 32/64, 1/8/32 cells, decay steep enough that exp(cum_t - cum_s)
      overflows for s > t) against its plain version, timed at a 512-token
@@ -102,8 +111,10 @@ Phases (lines ``[phase +seconds since the start] ...``):
      ServingEngine(quant="int8", cache="paged") serving the first 8 serve
      prompts, then a profile of its serving ticks; each run must launch
      every kernel its fp path launches, with the gate and verify kernels
-     replaced by their quantized siblings (``quantized``), and none of
-     exit_gate, argmax_verify and topk_verify;
+     replaced by their quantized siblings (``quantized``: the AR and serve
+     gate by exit_gate_q, and neither spec_head_q nor predictor_mlp_q; the
+     tree gate by both), and none of exit_gate, argmax_verify and
+     topk_verify;
   8. kvq — the same weights with ModelFlags(kv_quant=True): phase 5's
      serve cell on int8 page pools, blocking and 256-token chunked, each
      compared with phase 5's run of the same admission (requests that
@@ -118,7 +129,7 @@ Phases (lines ``[phase +seconds since the start] ...``):
      16 requests with prompts of 64-512 tokens, 32 new tokens each; each
      must launch ssd_chunk (once per layer per prefill), exit_gate,
      argmax_verify and topk_verify; then profiles of steps and ticks;
- 10. the ``{"kernels": [...]}`` line (14 kernels), the card line, and as
+ 10. the ``{"kernels": [...]}`` line (15 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
@@ -168,9 +179,15 @@ REPLACES = {
     "paged_decode_attention_q":
         "src/repro/kernels/decode_attention/decode_attention.py:173",
     "ssd_chunk": "src/repro/kernels/ssd_chunk/ssd_chunk.py:47",
+    # the two Pallas kernels that the JAX package composes into its
+    # quantized gate (src/repro/kernels/exit_gate/ops.py)
+    "exit_gate_q": "src/repro/kernels/spec_head/spec_head.py:152 + "
+                   "src/repro/kernels/predictor_mlp/predictor_mlp.py:119",
 }
 QUANT_KERNELS = ("argmax_verify_q", "topk_verify_q", "spec_head_q",
-                 "predictor_mlp_q")
+                 "predictor_mlp_q", "exit_gate_q")
+# the quantized gate's two pieces, which only the tree gate launches
+PIECEWISE_Q = ("spec_head_q", "predictor_mlp_q")
 FP_GATE_KERNELS = ("exit_gate", "argmax_verify", "topk_verify")
 # The kernels each main path must launch: whole-batch AR on the dense
 # cache, serving on the paged one (plus flash_attention under blocking
@@ -185,9 +202,10 @@ TREE_PATH = ("spec_head", "predictor_mlp", "argmax_verify", "flash_attention")
 # Mamba2 (no attention): the SSD kernel in prefill and admission, the fp
 # gate and verify kernels in every decode step
 MAMBA_PATH = ("ssd_chunk", "exit_gate", "argmax_verify", "topk_verify")
-# Under weight quantization the fused gate becomes the piecewise one and
-# each gate or verify kernel its quantized sibling; attention is unchanged.
-QUANTIZED = {"exit_gate": ("spec_head_q", "predictor_mlp_q"),
+# Under weight quantization each gate or verify kernel becomes its
+# quantized sibling (the tree gate's pieces each theirs); attention is
+# unchanged.
+QUANTIZED = {"exit_gate": ("exit_gate_q",),
              "argmax_verify": ("argmax_verify_q",),
              "topk_verify": ("topk_verify_q",),
              "spec_head": ("spec_head_q",),
@@ -1093,19 +1111,151 @@ def check_quant_kernels(torch, dev):
             rows.setdefault(R, {})["predictor_mlp_q"] = row
         by_bits[bits] = rows
         del qt, yard_w
+    errs["exit_gate_q"], gate_rows = check_exit_gate_q(torch, dev, rnd)
+    for bits, rows in gate_rows.items():
+        for R, row in rows.items():
+            by_bits[bits].setdefault(R, {})["exit_gate_q"] = row
     host_gate_times(torch, dev, rnd)
     timing = {name: by_bits[8][B][name] for name in QUANT_KERNELS}
     return errs, timing, by_bits
 
 
+def piecewise_gate_q(torch, hn, head, ids, prev, l1, l2):
+    """The quantized AR gate as the port ran it before exit_gate_q, five
+    launches: the spec-head kernel (the quantized one for a quantized
+    head) with its softmax, the difference, the concatenation, then the
+    predictor-MLP kernel (the quantized one for a quantized bank)."""
+    from repro_torch.kernels.predictor_mlp.ops import predictor_mlp
+    from repro_torch.kernels.spec_head.ops import spec_head
+    logits, probs = spec_head(hn, head, ids)
+    feats = torch.cat([logits, probs, probs - prev], -1)
+    return predictor_mlp(feats, {"layers": [l1, l2]}), probs, logits
+
+
+def check_exit_gate_q(torch, dev, rnd):
+    """Phase 2 for the quantized gate (exit_gate_q): against its plain
+    version with fp32 and bf16 hidden rows, B in {1, 4, 8, 33}, at
+    Llama-2-7B's and mamba2-130m's widths, every (head, bank) pair of fp /
+    int8 / int4 but the fp pair, k in {1, 3, 4} (k = 3: F = 9, whose W1
+    stays int8 under int4), ids 0, V-1, repeated and out of range (the
+    plain version on the ids clamped to [0, V)); two calls bit-equal.
+    Then bf16 timings at B = 4 and 8 on int8 and int4 heads and banks (the
+    AR and serve gate under quant="int8" / "int4"), beside the plain
+    version, the piecewise chain it replaced in one CUDA graph (a
+    yardstick: no one PyTorch call computes the gate), the byte bound and
+    the bound in 32-byte sectors. Returns (max error, {bits: {B: timing
+    row}})."""
+    from repro_torch import quant
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref as gref
+    gen = torch.Generator(device=dev).manual_seed(1357)
+
+    def bank(k, bits):
+        F = 3 * k
+        w1 = rnd((F, H_PRED), torch.float32, F ** -0.5)
+        w2 = rnd((H_PRED, 1), torch.float32, H_PRED ** -0.5)
+        if bits:
+            w1, w2 = (quant.quantize_tensor(w1, bits),
+                      quant.quantize_tensor(w2, bits))
+        return ({"w": w1, "b": rnd((H_PRED,), torch.float32, 0.1)},
+                {"w": w2, "b": rnd((1,), torch.float32, 0.1)})
+
+    combos = [(h, b) for h in (0, 8, 4) for b in (0, 8, 4) if h or b]
+    banks = {(k, bits): bank(k, bits) for k in (1, 3, 4)
+             for bits in (0, 8, 4)}
+    err, n_calls = 0.0, 0
+    for d, v in ((D, V), (M_D, M_V)):
+        w32 = rnd((d, v), torch.float32, 0.05)
+        heads = {8: quant.quantize_tensor(w32, 8),
+                 4: quant.quantize_tensor(w32, 4)}
+        for dt in (torch.float32, torch.bfloat16):
+            heads[0] = w32.to(dt)
+            for R in (1, 4, 8, 33):
+                hn = rnd((R, d), dt)
+                for k in (1, 3, 4):
+                    ids = torch.randint(0, v, (R, k), generator=gen,
+                                        device=dev, dtype=torch.int32)
+                    edge = torch.tensor([0, v - 1, -5, v + 7, 0, v - 1],
+                                        dtype=torch.int32, device=dev)
+                    ids.view(-1)[:min(6, R * k)] = edge[:min(6, R * k)]
+                    if R > 1:
+                        ids[-1] = ids[-1, 0].item()      # a repeated id
+                    prev = torch.softmax(rnd((R, k), torch.float32), -1)
+                    clamped = ids.clamp(0, v - 1)
+                    for hb, bb in combos:
+                        l1, l2 = banks[(k, bb)]
+                        got = eg.exit_gate_fused_q(hn, heads[hb], ids, prev,
+                                                   l1, l2)
+                        again = eg.exit_gate_fused_q(hn, heads[hb], ids,
+                                                     prev, l1, l2)
+                        want = gref.exit_gate_q_ref(hn, heads[hb], clamped,
+                                                    prev, l1, l2)
+                        what = (f"exit_gate_q D={d} {dt} R={R} k={k} head "
+                                f"{hb or 'fp'} bank {bb or 'fp'}")
+                        for a, a2, b in zip(got, again, want):
+                            require(torch.equal(a, a2), f"{what}: two calls "
+                                    "differ")
+                            # fp32 sums of the same products in another
+                            # order, the scales after them: 1e-4
+                            torch.testing.assert_close(a, b, atol=1e-4,
+                                                       rtol=1e-4)
+                            err = max(err, (a - b).abs().max().item())
+                        n_calls += 2
+        del w32, heads
+    torch.cuda.synchronize()
+    log("kernels", f"exit_gate_q: {n_calls} calls (fp32 and bf16 rows, B "
+        f"1/4/8/33, D {D} and {M_D}, k 1/3/4, {len(combos)} head x bank "
+        f"pairs, edge, repeated and out-of-range ids) match the plain "
+        f"version, max err {err:.3g}; every pair of calls bit-equal")
+
+    dt = torch.bfloat16
+    w32 = rnd((D, V), torch.float32, 0.05)
+    rows = {}
+    for bits in (8, 4):
+        head = quant.quantize_tensor(w32, bits)
+        l1, l2 = bank(K_SPEC, bits)
+        Dp = D // 2 if bits == 4 else D             # stored head rows
+        bank_b = (l1["w"].nbytes() + l2["w"].nbytes() + (H_PRED + 1) * 4)
+        rows[bits] = {}
+        for R in (B, GATE_BATCH):
+            hn = rnd((R, D), dt)
+            # distinct speculative ids per call: the columns start cold
+            id_sets = [torch.randint(0, V, (R, K_SPEC), generator=gen,
+                                     device=dev, dtype=torch.int32)
+                       for _ in range(20)]
+            prev = torch.softmax(rnd((R, K_SPEC), torch.float32), -1)
+            fixed = (R * D * 2 + R * K_SPEC * 8 + bank_b
+                     + R * (1 + 2 * K_SPEC) * 4)
+            ops = R * (2 * K_SPEC * D + 2 * 3 * K_SPEC * H_PRED
+                       + 4 * H_PRED)
+            row = (graph_ms(torch, [lambda i=i: eg.exit_gate_fused_q(
+                       hn, head, i, prev, l1, l2) for i in id_sets]),
+                   graph_ms(torch, [lambda i=i: gref.exit_gate_q_ref(
+                       hn, head, i, prev, l1, l2) for i in id_sets]),
+                   None,
+                   bound_ms(fixed + R * K_SPEC * (Dp + 4), ops, "float32"),
+                   graph_ms(torch, [lambda i=i: piecewise_gate_q(
+                       torch, hn, head, i, prev, l1, l2) for i in id_sets]),
+                   bound_ms(fixed + R * K_SPEC * Dp * 32, ops,
+                            "float32")[0])
+            rows[bits][R] = row
+            log("kernels", f"exit_gate_q int{bits}, bf16, B={R}: kernel "
+                f"{row[0]:.4f} ms, plain {row[1]:.4f} ms, piecewise chain "
+                f"(5 launches) {row[4]:.4f} ms, bound {row[3][0]:.5f} ms "
+                f"({row[3][1]}), {row[5]:.5f} ms in 32-byte sectors")
+        del head
+    return err, rows
+
+
 def host_gate_times(torch, dev, rnd, n: int = 200) -> None:
     """Host time per call (launches enqueued, no sync inside) of the AR
-    gate and verify entry points at B=4 in bf16: the fused fp gate against
-    the piecewise quantized one (spec head, features, predictor MLP), and
-    the fp against the quantized verify. The AR step makes 32 gate calls,
-    so this is the host cost the quantized path adds per step."""
+    gate and verify entry points at B=4 in bf16: the fused fp gate, the
+    quantized one as it ran before exit_gate_q (spec head, features,
+    predictor MLP: ``piecewise_gate_q``) and as it runs now (one launch),
+    and the fp against the quantized verify. The AR step makes 32 gate
+    calls, so this is the host cost the quantized path adds per step."""
     from repro_torch import quant
-    from repro_torch.core.predictor import init_predictors
+    from repro_torch.core.predictor import init_predictors, predictor_at
     from repro_torch.kernels.exit_gate import ops as gate_ops
     from repro_torch.models.model import build_model
     spec = build_model(llama(32, "bfloat16")).run.specee
@@ -1129,9 +1279,13 @@ def host_gate_times(torch, dev, rnd, n: int = 200) -> None:
         torch.cuda.synchronize()
         return t / n * 1e6
 
-    gate = {"fp fused": (w, bank), "int8 piecewise": (qt, qbank)}
-    times = {f"gate {k}": host_us(lambda h=h, b=b: gate_ops.exit_gate(
-        hn, h, ids, prev, b, 5, impl="kernel")) for k, (h, b) in gate.items()}
+    q1, q2 = predictor_at(qbank, 5)["layers"]
+    times = {"gate fp fused": host_us(lambda: gate_ops.exit_gate(
+                 hn, w, ids, prev, bank, 5, impl="kernel")),
+             "gate int8 piecewise": host_us(lambda: piecewise_gate_q(
+                 torch, hn, qt, ids, prev, q1, q2)),
+             "gate int8 fused": host_us(lambda: gate_ops.exit_gate(
+                 hn, qt, ids, prev, qbank, 5, impl="kernel"))}
     times.update({f"verify {k}": host_us(lambda h=h: gate_ops.verify_argmax(
         hn, h, impl="kernel")) for k, h in (("fp", w), ("int8", qt))})
     log("kernels", "host time per call at B=4, bf16 (launches enqueued, "
@@ -1540,9 +1694,13 @@ def quant_parity(torch, dev, params, sw):
             exits = sum(int(r.exited.sum()) for r in a[1:])
             require(label == "draft" or exits > 0,
                     f"quant {spec}: the oracle set forced no exit")
-            missing = [k for k in QUANT_KERNELS if not launched[k]]
+            missing = [k for k in quantized(FP_GATE_KERNELS)
+                       if not launched[k]]
             require(not missing, f"quant {spec} AR never launched "
                     f"{missing}")
+            pieces = [k for k in PIECEWISE_Q if launched[k]]
+            require(not pieces, f"quant {spec} AR launched the piecewise "
+                    f"gate's {pieces}")
             notes.append(f"AR {label} {cache} ({exits} exits)")
         dense, _ = both(DenseStrategy(), spec, cache)
         notes.append(f"dense {cache}")
@@ -2051,12 +2209,15 @@ def tree_phase(torch, dev, params, sw):
 # phase 7: weight-only quantized decode at full width
 # ---------------------------------------------------------------------------
 def _require_quant_path(launches, path, label):
-    """Each kernel of the quantized ``path`` launched, and no fp gate
-    kernel."""
-    missing = [k for k in quantized(path) if launches[k] == 0]
+    """Each kernel of the quantized ``path`` launched, no fp gate kernel,
+    and neither piece of the piecewise gate off the tree path."""
+    want = quantized(path)
+    missing = [k for k in want if launches[k] == 0]
     require(not missing, f"{label}: kernels never launched {missing}")
     fp = [k for k in FP_GATE_KERNELS if launches[k]]
     require(not fp, f"{label}: fp gate kernels launched {fp}")
+    pieces = [k for k in PIECEWISE_Q if launches[k] and k not in want]
+    require(not pieces, f"{label}: the piecewise gate's {pieces} launched")
 
 
 def quant_phase(torch, dev, params, sw):
@@ -2730,6 +2891,7 @@ QUANT_READERS = ("Int8Cols", "Int4Cols", "Int8Tile", "Int4Tile",
 FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
             ("topk_verify", ("topk_partial", "topk_merge")),
             ("exit_gate", ("exit_gate_kernel",)),
+            ("exit_gate_q", ("exit_gate_q_kernel",)),
             ("spec_head", ("spec_head_kernel",)),
             ("predictor_mlp", ("predictor_mlp_kernel",)),
             ("predictor_mlp_q", ("predictor_mlp_q_kernel",)),
@@ -2781,7 +2943,8 @@ def profile_ticks(torch, phase: str, tick, n: int, note: str = "") -> None:
         total += us / 1e3
         for name, keys in FAMILIES:
             if any(k in evt.key for k in keys):
-                if any(r in evt.key for r in QUANT_READERS):
+                if (not name.endswith("_q")
+                        and any(r in evt.key for r in QUANT_READERS)):
                     name += "_q"
                 fam[name] += us / 1e3
                 break
@@ -2910,6 +3073,7 @@ def main() -> int:
         if name in QUANT_KERNELS:
             # int8 at B=4 above; every measured shape, int8 and int4, with
             # the fp kernel on the dequantized bf16 head as a yardstick
+            # (the quantized gate's: the piecewise chain it replaced)
             row["yardstick_ms"] = timing[name][4]
             row["by_bits"] = {
                 f"int{bits}": {str(R): {

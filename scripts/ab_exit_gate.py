@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""A/B of the port's fused exit gate (``csrc/exit_gate.cu``) between
-another version of ``src/repro_torch/csrc`` and this tree's, on one card,
-with the two spec-head kernels that share the gather header
-(``spec_head.cu``, ``spec_head_q.cu``).
+"""A/B of the port's exit gates between another version of
+``src/repro_torch/csrc`` and this tree's, on one card: the fused fp gate
+(``csrc/exit_gate.cu``) against the other version's, the two spec-head
+kernels that share the gather header (``spec_head.cu``, ``spec_head_q.cu``)
+and ``predictor_mlp_q.cu``, and the quantized gate (``csrc/exit_gate_q.cu``)
+against the other version's piecewise quantized gate (its ``spec_head_q``,
+then the softmax, the difference and the concatenation in PyTorch, then its
+``predictor_mlp_q``: five launches).
 
 Each version is built side by side with ``nvcc`` (the flags of
 ``repro_torch.kernels.build``) and timed in one process, in alternating
-order (base, tree, tree, base, then reversed), bf16 activations and head,
-k = 4, H = 512, 20 distinct speculative id sets per CUDA graph (the
-gathered columns start cold), at the gate shapes of ``chip_smoke.py``
-phase 2: B = 4 and B = 8 rows of Llama-2-7B (D = 4096, V = 32000) and B =
-4 of mamba2-130m (D = 768, V = 50280). Every gate output of each version
-is held against the plain version (``exit_gate_ref``) at atol = rtol =
-1e-4; the spec heads (B = 4 and R = 160, bf16; int8 and int4 codes) must
-be bit-equal between the versions.
+order (base, tree, tree, base, then reversed), bf16 hidden rows, k = 4,
+H = 512, 20 distinct speculative id sets per CUDA graph (the gathered
+columns start cold): the fp gate at B = 4 and B = 8 rows of Llama-2-7B
+(D = 4096, V = 32000) and B = 4 of mamba2-130m (D = 768, V = 50280); the
+quantized gate with an int8 head and bank, and with int4 ones, at B = 4
+and B = 8 of both widths. Every gate output of each version is held
+against the plain version (``exit_gate_ref`` / ``exit_gate_q_ref``) at
+atol = rtol = 1e-4; the fp gates, the spec heads (B = 4 and R = 160; int8
+and int4 codes) and ``predictor_mlp_q`` (R = 4, int8 and int4) must be
+bit-equal between the versions.
 
     git archive <commit> src/repro_torch/csrc | tar -x -C build/base
     python3 scripts/ab_exit_gate.py build/base/src/repro_torch/csrc
@@ -21,7 +27,7 @@ be bit-equal between the versions.
 Prints the ptxas report of each build, then per case the median and range
 of each version's device time per call (CUDA events) beside the gate's
 byte bound (useful bytes) and sector bound (a 32-byte sector per gathered
-element) at 3.35 TB/s, and the card's name and power limit.
+stored element) at 3.35 TB/s, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -31,20 +37,32 @@ from pathlib import Path
 import ab_common as ab
 
 K_SPEC, H_PRED, N_SETS = 4, 512, 20
+F_PRED = 3 * K_SPEC
 # pointer and int arguments before the stream of each launch function
-C_ARGS = {"exit_gate": (11, 6), "spec_head": (4, 5), "spec_head_q": (5, 6)}
+C_ARGS = {"exit_gate": (11, 6), "spec_head": (4, 5), "spec_head_q": (5, 6),
+          "predictor_mlp_q": (8, 5), "exit_gate_q": (14, 9)}
+BASE_LIBS = ("exit_gate", "spec_head", "spec_head_q", "predictor_mlp_q")
 GATES = (("gate B=4 D=4096", 4, 4096, 32000),
          ("gate B=8 D=4096", 8, 4096, 32000),
          ("gate B=4 D=768", 4, 768, 50280))
+QGATES = tuple((f"gate_q int{bits} B={B} D={D}", bits, B, D, V)
+               for bits in (8, 4) for D, V in ((4096, 32000), (768, 50280))
+               for B in (4, 8))
 
 
-def gate_bounds(B: int, D: int):
-    """(useful-byte bound, sector bound) in ms of one bf16 gate call."""
-    fixed = (B * D * 2 + B * K_SPEC * 8
-             + (3 * K_SPEC * H_PRED + 2 * H_PRED + 1) * 4
+def gate_bounds(B: int, D: int, stored_b: float = 2.0, bank_b: float = (
+        F_PRED * H_PRED + 2 * H_PRED + 1) * 4, rows: int = None,
+        col_b: float = 0.0):
+    """(useful-byte bound, sector bound) in ms of one gate call with bf16
+    hidden rows: ``stored_b`` bytes per gathered head element (2 for bf16,
+    1 for int8, 0.5 for int4 per hidden entry), ``rows`` stored head rows
+    (D, or D/2 for int4) each costing a 32-byte sector per column,
+    ``col_b`` bytes of scale per column, ``bank_b`` bytes of predictor."""
+    rows = D if rows is None else rows
+    fixed = (B * D * 2 + B * K_SPEC * 8 + bank_b + 4
              + B * (1 + 2 * K_SPEC) * 4)
-    return ((fixed + B * K_SPEC * D * 2) / 3.35e9,
-            (fixed + B * K_SPEC * D * 32) / 3.35e9)
+    return ((fixed + B * K_SPEC * (D * stored_b + col_b)) / 3.35e9,
+            (fixed + B * K_SPEC * rows * 32) / 3.35e9)
 
 
 def main() -> int:
@@ -52,13 +70,15 @@ def main() -> int:
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         print(__doc__)
         return 1
-    from repro_torch.kernels.exit_gate.ref import exit_gate_ref
+    from repro_torch.kernels.exit_gate.ref import (exit_gate_q_ref,
+                                                   exit_gate_ref)
     from repro_torch.quant.core import quantize_tensor
     out_dir = ab.ROOT / "build" / "ab_gate"
     fns = {}
-    for tag, src in (("base", Path(sys.argv[1]).resolve()),
-                     ("tree", ab.CSRC)):
-        for name in ("exit_gate", "spec_head", "spec_head_q"):
+    for tag, src, names in (
+            ("base", Path(sys.argv[1]).resolve(), BASE_LIBS),
+            ("tree", ab.CSRC, BASE_LIBS + ("exit_gate_q",))):
+        for name in names:
             lib, _, report = ab.build(tag, src, name, out_dir)
             print(f"{tag} {name}: {ab.registers(report)}", flush=True)
             fns[(tag, name)] = ab.c_fn(lib, f"{name}_launch",
@@ -72,45 +92,94 @@ def main() -> int:
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(
             dtype)
 
-    w1 = rnd((3 * K_SPEC, H_PRED), torch.float32, 12 ** -0.5)
+    def ids_for(B, V):
+        return [torch.randint(0, V, (B, K_SPEC), generator=gen, device=dev,
+                              dtype=torch.int32) for _ in range(N_SETS)]
+
+    w1 = rnd((F_PRED, H_PRED), torch.float32, F_PRED ** -0.5)
     b1 = rnd((H_PRED,), torch.float32, 0.1)
     w2 = rnd((H_PRED, 1), torch.float32, H_PRED ** -0.5)
     b2 = rnd((1,), torch.float32, 0.1)
     pred = {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
-    gate_cases, spec_cases, bounds, checks = {}, {}, {}, []
+    qbank = {bits: (quantize_tensor(w1, bits), quantize_tensor(w2, bits))
+             for bits in (8, 4)}
+    gate_cases, bounds, checks, fp_outs = {}, {}, [], {}
     for label, B, D, V in GATES:
         hn, w = rnd((B, D)), rnd((D, V), scale=0.05)
         prev = torch.softmax(rnd((B, K_SPEC), torch.float32), -1)
-        id_sets = [torch.randint(0, V, (B, K_SPEC), generator=gen,
-                                 device=dev, dtype=torch.int32)
-                   for _ in range(N_SETS)]
-        outs = (torch.empty(B, device=dev),
-                torch.empty(B, K_SPEC, device=dev),
-                torch.empty(B, K_SPEC, device=dev))
+        id_sets = ids_for(B, V)
+        outs = {tag: (torch.empty(B, device=dev),
+                      torch.empty(B, K_SPEC, device=dev),
+                      torch.empty(B, K_SPEC, device=dev))
+                for tag in ("base", "tree")}
 
         def calls(tag, hn=hn, w=w, prev=prev, id_sets=id_sets, outs=outs,
                   B=B, D=D, V=V):
             f = fns[(tag, "exit_gate")]
             return [lambda i=i: f(ptr(hn), ptr(w), ptr(i), ptr(prev),
                                   ptr(w1), ptr(b1), ptr(w2), ptr(b2),
-                                  *map(ptr, outs), B, D, V, K_SPEC, H_PRED,
-                                  1, ab.stream()) for i in id_sets]
+                                  *map(ptr, outs[tag]), B, D, V, K_SPEC,
+                                  H_PRED, 1, ab.stream()) for i in id_sets]
         gate_cases[label] = calls
         bounds[label] = gate_bounds(B, D)
         checks.append((label, calls, outs,
                        exit_gate_ref(hn, w, id_sets[0], prev, pred)))
+        fp_outs[label] = outs
 
-    heads = {}
+    for label, bits, B, D, V in QGATES:
+        hn = rnd((B, D))
+        head = quantize_tensor(rnd((D, V), torch.float32, 0.05), bits)
+        q1, q2 = qbank[bits]
+        prev = torch.softmax(rnd((B, K_SPEC), torch.float32), -1)
+        id_sets = ids_for(B, V)
+        # the chain's probabilities are its softmax's own output (no copy)
+        outs = {tag: [torch.empty(B, device=dev),
+                      torch.empty(B, K_SPEC, device=dev),
+                      torch.empty(B, K_SPEC, device=dev)]
+                for tag in ("base", "tree")}
+
+        def calls(tag, hn=hn, head=head, q1=q1, q2=q2, prev=prev,
+                  id_sets=id_sets, outs=outs, B=B, D=D, V=V, bits=bits):
+            p, probs, logits = outs[tag]
+            if tag == "tree":
+                f = fns[("tree", "exit_gate_q")]
+                return [lambda i=i: f(
+                    ptr(hn), ptr(head.q), ptr(head.scale), ptr(i), ptr(prev),
+                    ptr(q1.q), ptr(q1.scale), ptr(b1), ptr(q2.q),
+                    ptr(q2.scale), ptr(b2), ptr(p), ptr(probs), ptr(logits),
+                    B, D, V, K_SPEC, H_PRED, bits, q1.bits, q2.bits, 1,
+                    ab.stream()) for i in id_sets]
+            fsh = fns[("base", "spec_head_q")]
+            fpm = fns[("base", "predictor_mlp_q")]
+
+            def chain(i):
+                rc = fsh(ptr(hn), ptr(head.q), ptr(head.scale), ptr(i),
+                         ptr(logits), B, D, V, K_SPEC, bits, 1, ab.stream())
+                pr = outs["base"][1] = torch.softmax(logits, -1)
+                feats = torch.cat([logits, pr, pr - prev], -1)
+                return rc | fpm(ptr(feats), ptr(q1.q), ptr(q1.scale),
+                                ptr(b1), ptr(q2.q), ptr(q2.scale), ptr(b2),
+                                ptr(p), B, F_PRED, H_PRED, q1.bits, q2.bits,
+                                ab.stream())
+            return [lambda i=i: chain(i) for i in id_sets]
+        rows = D // 2 if bits == 4 else D
+        gate_cases[label] = calls
+        bounds[label] = gate_bounds(
+            B, D, stored_b=0.5 if bits == 4 else 1.0,
+            bank_b=q1.nbytes() + q2.nbytes() + (H_PRED + 1) * 4, rows=rows,
+            col_b=4)
+        l1, l2 = {"w": q1, "b": b1}, {"w": q2, "b": b2}
+        checks.append((label, calls, outs,
+                       exit_gate_q_ref(hn, head, id_sets[0], prev, l1, l2)))
+
+    spec_cases, spec_outs = {}, {}
     w = rnd((4096, 32000), scale=0.05)
-    heads[None] = w
+    heads = {None: w}
     for bits in (8, 4):
         heads[bits] = quantize_tensor(w.float(), bits)
-    spec_outs = {}
     for R in (4, 160):
         hn = rnd((R, 4096))
-        id_sets = [torch.randint(0, 32000, (R, K_SPEC), generator=gen,
-                                 device=dev, dtype=torch.int32)
-                   for _ in range(N_SETS)]
+        id_sets = ids_for(R, 32000)
         for bits, head in heads.items():
             name = "spec_head" if bits is None else "spec_head_q"
             label = f"{name} R={R}" + ("" if bits is None else f" int{bits}")
@@ -128,20 +197,36 @@ def main() -> int:
                                       K_SPEC, bits, 1, ab.stream())
                         for i in id_sets]
             spec_cases[label], spec_outs[label] = calls, out
+    x = rnd((4, F_PRED), torch.float32)
+    for bits, (q1, q2) in qbank.items():
+        label = f"predictor_mlp_q R=4 int{bits}"
+        out = torch.empty(4, device=dev)
+
+        def calls(tag, q1=q1, q2=q2, out=out):
+            f = fns[(tag, "predictor_mlp_q")]
+            return [lambda: f(ptr(x), ptr(q1.q), ptr(q1.scale), ptr(b1),
+                              ptr(q2.q), ptr(q2.scale), ptr(b2), ptr(out), 4,
+                              F_PRED, H_PRED, q1.bits, q2.bits,
+                              ab.stream())] * N_SETS
+        spec_cases[label], spec_outs[label] = calls, out
 
     for label, calls, outs, want in checks:
         for tag in ("base", "tree"):
-            for o in outs:
+            for o in outs[tag]:
                 o.fill_(float("nan"))
             if calls(tag)[0]() != 0:
                 raise RuntimeError(f"{label}: {tag} launch failed")
             torch.cuda.synchronize()
             err = 0.0
-            for a, b in zip(outs, want):
+            for a, b in zip(outs[tag], want):
                 torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
                 err = max(err, (a - b).abs().max().item())
             print(f"{label}: {tag} max abs err {err:.3g} against the plain "
                   f"version", flush=True)
+    for label, outs in fp_outs.items():
+        if not all(torch.equal(a, b) for a, b in zip(outs["base"],
+                                                     outs["tree"])):
+            raise AssertionError(f"{label}: outputs differ between versions")
     for label, calls in spec_cases.items():
         got = {}
         for tag in ("base", "tree"):
@@ -155,8 +240,11 @@ def main() -> int:
     times = ab.alternate({**gate_cases, **spec_cases})
     for label in gate_cases:
         byte_b, sector_b = bounds[label]
-        print(f"{label}: both held to the plain version; bound "
-              f"{byte_b:.5f} ms (bytes), {sector_b:.5f} ms (sectors); " +
+        how = ("bit-equal between the versions, held to the plain version"
+               if label in fp_outs else "base: the piecewise chain; tree: "
+               "exit_gate_q; both held to the plain version")
+        print(f"{label}: {how}; bound {byte_b:.5f} ms (bytes), "
+              f"{sector_b:.5f} ms (sectors); " +
               "; ".join(f"{tag} {ab.summary(times[(label, tag)])}"
                         for tag in ("base", "tree")), flush=True)
     for label in spec_cases:

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the port's cluster-split exit gate
-(``csrc/exit_gate.cu``) goes, on one card, and what clusters of 16 CTAs
+"""Where the time of the port's cluster-split exit gates
+(``csrc/exit_gate.cu`` and ``csrc/exit_gate_q.cu`` on the body of
+``csrc/exit_gate.cuh``) goes, on one card, and what clusters of 16 CTAs
 would change.
 
-Builds this tree's gate and four variants of it, each made from a copy of
-the sources under ``build/probe_gate/``:
+Builds this tree's gates and four variants of the fp gate, each made from
+a copy of the sources under ``build/probe_gate/``:
   - clusters of 16: the cap of a row's cluster raised from the portable 8
     to 16 (opted into with ``cudaFuncAttributeNonPortableClusterSizeAllowed``),
     so at D = 4096 each thread gathers one head row; its outputs, as the
@@ -18,12 +19,13 @@ construction; only their times are read):
     second cluster barrier);
   - floor: both cut: launch, the id and hidden loads, the block and
     cluster reductions of the logits, the softmax.
-Times each (bf16, k = 4, H = 512, 20 distinct speculative id sets per
-CUDA graph, CUDA events, alternating order) at B = 1, 4 and 8 rows of
+Times each fp gate (bf16, k = 4, H = 512, 20 distinct speculative id sets
+per CUDA graph, CUDA events, alternating order) at B = 1, 4 and 8 rows of
 Llama-2-7B (D = 4096, V = 32000: clusters of 8 CTAs, or 16) and B = 4 of
 mamba2-130m (D = 768, V = 50280: clusters of 3), beside the number of
-32-byte sectors the gather reads, then prints the card's name and power
-limit.
+32-byte sectors the gather reads; then the quantized gate (int8 and int4
+head and bank, the same shapes but B = 1, outputs held to its plain
+version first); then prints the card's name and power limit.
 
     python3 scripts/probe_exit_gate.py
 """
@@ -41,16 +43,16 @@ SHAPES = ((1, 4096, 32000), (4, 4096, 32000), (8, 4096, 32000),
 # (file, text of this tree, text of the variant)
 NO_GATHER = ("spec_slice.cuh", "if (j < k) w.load(row + col[j], c[j]);",
              "if (j < k) c[j][0] = x[0];")
-NO_MLP = ("exit_gate.cu", "  __syncthreads();\n\n  float share = 0.f;",
+NO_MLP = ("exit_gate.cuh", "  __syncthreads();\n\n  float share = 0.f;",
           "  __syncthreads();\n  if (c == 0 && tid == 0) p_out[b] = bias;\n"
           "  return;\n\n  float share = 0.f;")
-WIDE = (("exit_gate.cu", "constexpr int EG_MAX_C = 8; ",
+WIDE = (("exit_gate.cuh", "constexpr int EG_MAX_C = 8; ",
          "constexpr int EG_MAX_C = 16;"),
-        ("exit_gate.cu", "  cudaLaunchConfig_t cfg = {};",
+        ("exit_gate.cuh", "  cudaLaunchConfig_t cfg = {};",
          "  static bool wide = false;\n"
          "  if (!wide) {\n"
          "    const cudaError_t e = cudaFuncSetAttribute(\n"
-         "        exit_gate_kernel<T>,\n"
+         "        kernel,\n"
          "        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
          "    if (e != cudaSuccess) return e;\n"
          "    wide = true;\n"
@@ -62,7 +64,8 @@ def variant(tag: str, cuts):
     """A copy of this tree's gate sources with each cut applied."""
     out = ab.ROOT / "build" / "probe_gate" / tag
     out.mkdir(parents=True, exist_ok=True)
-    for name in ("exit_gate.cu", "spec_slice.cuh"):
+    for name in ("exit_gate.cu", "exit_gate_q.cu", "exit_gate.cuh",
+                 "spec_slice.cuh"):
         shutil.copy(ab.CSRC / name, out / name)
     for name, old, new in cuts:
         text = (out / name).read_text()
@@ -77,7 +80,9 @@ def main() -> int:
     if len(sys.argv) != 1 or not torch.cuda.is_available():
         print(__doc__)
         return 1
-    from repro_torch.kernels.exit_gate.ref import exit_gate_ref
+    from repro_torch.kernels.exit_gate.ref import (exit_gate_q_ref,
+                                                   exit_gate_ref)
+    from repro_torch.quant.core import quantize_tensor
     sources = {"gate": ab.CSRC,
                "clusters of 16": variant("c16", WIDE),
                "no gather": variant("no_gather", [NO_GATHER]),
@@ -89,6 +94,10 @@ def main() -> int:
                                   ab.ROOT / "build" / "probe_gate")
         print(f"{tag}: {ab.registers(report)}", flush=True)
         fns[tag] = ab.c_fn(lib, "exit_gate_launch", 11, 6)
+    lib, _, report = ab.build("gate", ab.CSRC, "exit_gate_q",
+                              ab.ROOT / "build" / "probe_gate")
+    print(f"gate (exit_gate_q): {ab.registers(report)}", flush=True)
+    qfn = ab.c_fn(lib, "exit_gate_q_launch", 14, 9)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -135,6 +144,30 @@ def main() -> int:
               "; ".join(f"{tag} {statistics.median(ts):.4f} ms "
                         f"({min(ts):.4f}-{max(ts):.4f})"
                         for tag, ts in times.items()), flush=True)
+        if B == 1:
+            continue
+        for bits in (8, 4):
+            head = quantize_tensor(w.float(), bits)
+            q1, q2 = quantize_tensor(w1, bits), quantize_tensor(w2, bits)
+
+            def qcalls(head=head, q1=q1, q2=q2, bits=bits):
+                return [lambda i=i: qfn(
+                    ptr(hn), ptr(head.q), ptr(head.scale), ptr(i), ptr(prev),
+                    ptr(q1.q), ptr(q1.scale), ptr(b1), ptr(q2.q),
+                    ptr(q2.scale), ptr(b2), *map(ptr, outs), B, D, V, K_SPEC,
+                    H_PRED, bits, q1.bits, q2.bits, 1, ab.stream())
+                    for i in id_sets]
+            want = exit_gate_q_ref(hn, head, id_sets[0], prev,
+                                   {"w": q1, "b": b1}, {"w": q2, "b": b2})
+            if qcalls()[0]() != 0:
+                raise RuntimeError(f"B={B} D={D} int{bits}: launch failed")
+            torch.cuda.synchronize()
+            for a, b in zip(outs, want):
+                torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+            ts = [ab.graph_ms(qcalls()) for _ in range(6)]
+            print(f"exit_gate_q int{bits} B={B} D={D}: "
+                  f"{statistics.median(ts):.4f} ms ({min(ts):.4f}-"
+                  f"{max(ts):.4f})", flush=True)
     print(ab.card())
     return 0
 

@@ -79,6 +79,22 @@ struct Int4Cols {
   }
 };
 
+// Code (row, col) of a (rows, cols) weight stored as int8 codes (bits 8)
+// or as plane-packed int4 bytes ((rows/2, cols): low nibble row, high
+// nibble row + rows/2, sign-extended as Int4Cols does), widened to fp32.
+// No local array: a register array indexed by a runtime value would go to
+// the stack and wait on the load.
+__device__ __forceinline__ float code_at(const int8_t* q, int bits, int row,
+                                         int col, int rows, int cols) {
+  if (bits == 8)
+    return static_cast<float>(__ldg(q + (size_t)row * cols + col));
+  const int half = rows / 2;
+  const bool lo = row < half;
+  const int8_t p = __ldg(q + (size_t)(lo ? row : row - half) * cols + col);
+  return static_cast<float>(
+      lo ? static_cast<int8_t>(static_cast<uint8_t>(p) << 4) >> 4 : p >> 4);
+}
+
 // Total order used by every argmax / top-k: larger value first, and among
 // equal values the lower vocabulary id first (jnp.argmax's first
 // occurrence, lax.top_k's lower-index-first rule).

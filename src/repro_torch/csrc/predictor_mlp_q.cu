@@ -27,19 +27,6 @@ constexpr int PM_THREADS = 256;   // 8 warps
 constexpr int PM_ROWS = 32;       // rows per CTA
 constexpr int PM_MAXF = 32;       // one feature per lane
 
-// Code (row, col) of a (rows, cols) weight stored as int8 codes or as
-// plane-packed int4 bytes ((rows/2, cols): low nibble row, high nibble
-// row + rows/2).
-__device__ __forceinline__ float code_at(const int8_t* q, int bits, int row,
-                                         int col, int rows, int cols) {
-  if (bits == 8) return static_cast<float>(q[(size_t)row * cols + col]);
-  const int half = rows / 2;
-  float x[2];
-  rt::Int4Cols{q, nullptr}.load(
-      (size_t)(row < half ? row : row - half) * cols + col, x);
-  return row < half ? x[0] : x[1];
-}
-
 __global__ void __launch_bounds__(PM_THREADS)
 predictor_mlp_q_kernel(const float* __restrict__ x,
                        const int8_t* __restrict__ q1,
@@ -55,11 +42,11 @@ predictor_mlp_q_kernel(const float* __restrict__ x,
   float* s_b1 = s_s1 + H;          // (H,)
   float* s_c2 = s_b1 + H;          // (H,)
   for (int i = threadIdx.x; i < F * H; i += PM_THREADS)
-    s_c1[i] = code_at(q1, bits1, i / H, i % H, F, H);
+    s_c1[i] = rt::code_at(q1, bits1, i / H, i % H, F, H);
   for (int i = threadIdx.x; i < H; i += PM_THREADS) {
     s_s1[i] = s1[i];
     s_b1[i] = b1[i];
-    s_c2[i] = code_at(q2, bits2, i, 0, H, 1);
+    s_c2[i] = rt::code_at(q2, bits2, i, 0, H, 1);
   }
   __syncthreads();
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;

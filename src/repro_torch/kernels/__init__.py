@@ -26,7 +26,7 @@ LAUNCHES: Dict[str, int] = {"exit_gate": 0, "argmax_verify": 0,
                             "topk_verify_q": 0, "spec_head_q": 0,
                             "predictor_mlp_q": 0,
                             "paged_decode_attention_q": 0,
-                            "ssd_chunk": 0}
+                            "ssd_chunk": 0, "exit_gate_q": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

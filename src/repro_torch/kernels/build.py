@@ -24,7 +24,7 @@ SOURCES = ("exit_gate", "argmax_verify", "topk_verify", "decode_attention",
            "paged_decode_attention", "flash_attention", "spec_head",
            "predictor_mlp", "argmax_verify_q", "topk_verify_q",
            "spec_head_q", "predictor_mlp_q", "paged_decode_attention_q",
-           "ssd_chunk")
+           "ssd_chunk", "exit_gate_q")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

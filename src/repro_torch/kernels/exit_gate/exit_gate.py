@@ -6,6 +6,10 @@ kernels in ``repro/kernels/exit_gate/exit_gate.py``).
                           cluster per row (the CTAs split the hidden
                           dimension and the hidden units, and sum their
                           partials in rank order through shared memory).
+``exit_gate_fused_q``   — csrc/exit_gate_q.cu: the same gate, one launch,
+                          with a quantized head or predictor bank (or
+                          both); the body of both gates is
+                          csrc/exit_gate.cuh.
 ``argmax_verify_fused`` — csrc/argmax_verify.cu: LM-head argmax.
 ``topk_verify_fused``   — csrc/topk_verify.cu: LM-head top-k.
 ``argmax_verify_fused_q`` / ``topk_verify_fused_q`` — csrc/argmax_verify_q.cu
@@ -75,6 +79,74 @@ def exit_gate_fused(hn: torch.Tensor, lm_head: torch.Tensor,
             K.stream_ptr(dev))
     build.check("exit_gate", rc)
     K.LAUNCHES["exit_gate"] += 1
+    return p, probs, logits
+
+
+def _bank_args(dev, F: int, l1, l2):
+    """(bits1, bits2, w1, s1, w2, s2) of a 2-layer predictor, fp32 or
+    quantized (each layer's codes and scales checked, contiguous: a bank
+    slice that is not is refused, never copied); bits1 = 0 for fp32."""
+    H = l1["b"].shape[-1]
+    K.check_arg("b1", l1["b"], dev, torch.float32, (H,))
+    K.check_arg("b2", l2["b"], dev, torch.float32, (1,))
+    w1, w2 = l1["w"], l2["w"]
+    if isinstance(w1, QTensor) != isinstance(w2, QTensor):
+        raise ValueError("exit_gate_q kernel: predictor layers must be both "
+                         "quantized or both fp")
+    if not isinstance(w1, QTensor):
+        K.check_arg("w1", w1, dev, torch.float32, (F, H))
+        K.check_arg("w2", w2, dev, torch.float32, (H, 1))
+        return 0, 0, w1, w1, w2, w2
+    K.check_qtensor("w1", w1, dev, (F, H))
+    K.check_qtensor("w2", w2, dev, (H, 1))
+    return w1.bits, w2.bits, w1.q, w1.scale, w2.q, w2.scale
+
+
+def exit_gate_fused_q(hn: torch.Tensor, lm_head, spec_ids: torch.Tensor,
+                      prev_probs: torch.Tensor, l1, l2
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The exit gate with quantized weights in one launch. hn (B, D);
+    lm_head (D, V) of hn's dtype or a QTensor of logical shape (D, V);
+    spec_ids (B, k) int32; prev_probs (B, k) fp32; the predictor's layers
+    l1 = {"w": (3k, H), "b": (H,)}, l2 = {"w": (H, 1), "b": (1,)}, each
+    ``w`` fp32 or a QTensor; the head or the bank (or both) quantized.
+    Returns (p_exit (B,), probs (B, k), logits (B, k)), all fp32."""
+    if K.runs_plain(hn):
+        return gate_ref.exit_gate_q_ref(hn, lm_head, spec_ids, prev_probs,
+                                        l1, l2)
+    B, D = hn.shape
+    k = spec_ids.shape[1]
+    dev = hn.device
+    K.check_arg("hn", hn, dev)
+    if isinstance(lm_head, QTensor):
+        V = lm_head.shape[-1]
+        K.check_qtensor("lm_head", lm_head, dev, (D, V))
+        head_bits, head, head_scale = lm_head.bits, lm_head.q, lm_head.scale
+    else:
+        V = lm_head.shape[1]
+        K.check_arg("lm_head", lm_head, dev, hn.dtype, (D, V))
+        head_bits, head, head_scale = 0, lm_head, lm_head
+    K.check_arg("spec_ids", spec_ids, dev, torch.int32, (B, k))
+    K.check_arg("prev_probs", prev_probs, dev, torch.float32, (B, k))
+    bits1, bits2, w1, s1, w2, s2 = _bank_args(dev, 3 * k, l1, l2)
+    if head_bits == 0 and bits1 == 0:
+        raise ValueError("exit_gate_q kernel: neither the head nor the bank "
+                         "is quantized (the fp gate is exit_gate_fused)")
+    if not 1 <= k <= build.c_func("exit_gate_q", "exit_gate_q_max_k", [])():
+        raise ValueError(f"exit_gate_q kernel: unsupported k={k}")
+    fn = build.c_func("exit_gate_q", "exit_gate_q_launch",
+                      [_P] * 14 + [_I] * 9 + [_P])
+    H = l1["b"].shape[-1]
+    p = torch.empty(B, dtype=torch.float32, device=dev)
+    probs = torch.empty(B, k, dtype=torch.float32, device=dev)
+    logits = torch.empty(B, k, dtype=torch.float32, device=dev)
+    rc = fn(K.ptr(hn), K.ptr(head), K.ptr(head_scale), K.ptr(spec_ids),
+            K.ptr(prev_probs), K.ptr(w1), K.ptr(s1), K.ptr(l1["b"]),
+            K.ptr(w2), K.ptr(s2), K.ptr(l2["b"]), K.ptr(p), K.ptr(probs),
+            K.ptr(logits), B, D, V, k, H, head_bits, bits1, bits2,
+            K.dtype_code(hn), K.stream_ptr(dev))
+    build.check("exit_gate_q", rc)
+    K.LAUNCHES["exit_gate_q"] += 1
     return p, probs, logits
 
 

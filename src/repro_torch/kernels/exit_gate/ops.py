@@ -19,9 +19,13 @@ stands for both. Its CPU default for the verify is "ref", as here.
 
 A quantized LM head or bank (``repro_torch.quant.QTensor``) is dispatched
 on its type, as in the JAX package: the verify entry points take the
-quantized streaming kernels, and under "kernel" the gate runs piecewise —
-the quantized spec-head kernel, the Δ-features, then the predictor-MLP
-kernel (quantized for a quantized bank) — instead of the fused gate.
+quantized streaming kernels, and under "kernel" the gate takes the
+quantized gate kernel (``exit_gate_fused_q``: the whole gate in one
+launch, as the fp gate). The JAX package runs that gate piecewise — the
+quantized spec-head kernel, the Δ-features, then the predictor-MLP kernel
+— and the port's plain version computes that chain; the tree gate
+(``core/features.py``, ``core/predictor.py``) keeps the two pieces, since
+the hyper-token merge sits between them.
 """
 from __future__ import annotations
 
@@ -34,9 +38,9 @@ from repro_torch.kernels.exit_gate import ref as gate_ref
 from repro_torch.kernels.exit_gate.exit_gate import (argmax_verify_fused,
                                                      argmax_verify_fused_q,
                                                      exit_gate_fused,
+                                                     exit_gate_fused_q,
                                                      topk_verify_fused,
                                                      topk_verify_fused_q)
-from repro_torch.kernels.predictor_mlp import ops as pm_ops
 from repro_torch.kernels.spec_head import ops as sh_ops
 from repro_torch.quant import QTensor
 
@@ -60,12 +64,6 @@ def impl_for_flags(flags) -> str:
     return "ref"
 
 
-def _features(hn, lm_head, spec_ids, prev_probs):
-    logits, probs = sh_ops.spec_head(hn, lm_head, spec_ids)
-    feats = torch.cat([logits, probs, probs - prev_probs.float()], -1)
-    return feats, probs, logits
-
-
 def exit_gate(hn: torch.Tensor, lm_head, spec_ids: torch.Tensor,
               prev_probs: torch.Tensor, predictors, ep: int,
               impl: Optional[str] = None, spec_head_kernel: bool = False
@@ -77,25 +75,26 @@ def exit_gate(hn: torch.Tensor, lm_head, spec_ids: torch.Tensor,
 
     As in the JAX package, the choice is made from the bank's depth and the
     weights' types before any launch: the fused kernel holds a 2-layer fp
-    predictor on an fp head; quantized weights take the piecewise kernels
-    (spec head, then predictor MLP); a bank of another depth (design-space
-    sweeps) takes the plain chain under every impl. ``spec_head_kernel``
-    under "ref" computes the features with the spec-head kernel and the
-    predictor with the plain MLP."""
+    predictor on an fp head; a quantized head or bank takes the quantized
+    gate kernel (JAX: the piecewise spec head, then predictor MLP); a bank
+    of another depth (design-space sweeps) takes the plain chain under
+    every impl. ``spec_head_kernel`` under "ref" computes the features with
+    the spec-head kernel and the predictor with the plain MLP."""
     impl = resolve_impl(impl, hn)
     pp = predictor_at(predictors, ep)
     layers = pp["layers"]
     quantized = (isinstance(lm_head, QTensor)
                  or any(isinstance(l["w"], QTensor) for l in layers))
     if impl == "kernel" and len(layers) == 2 and quantized:
-        feats, probs, logits = _features(hn, lm_head, spec_ids, prev_probs)
-        return pm_ops.predictor_mlp(feats, pp), probs, logits
+        return exit_gate_fused_q(hn, lm_head, spec_ids, prev_probs.float(),
+                                 layers[0], layers[1])
     if impl == "kernel" and len(layers) == 2:
         return exit_gate_fused(hn, lm_head, spec_ids, prev_probs.float(),
                                layers[0]["w"], layers[0]["b"],
                                layers[1]["w"], layers[1]["b"])
     if impl == "ref" and spec_head_kernel:
-        feats, probs, logits = _features(hn, lm_head, spec_ids, prev_probs)
+        logits, probs = sh_ops.spec_head(hn, lm_head, spec_ids)
+        feats = torch.cat([logits, probs, probs - prev_probs.float()], -1)
         return apply_predictor(pp, feats), probs, logits
     return gate_ref.exit_gate_ref(hn, lm_head, spec_ids, prev_probs, pp)
 

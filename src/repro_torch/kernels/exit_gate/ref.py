@@ -3,6 +3,10 @@
 
 ``exit_gate_ref`` delegates to ``spec_head_ref`` and
 ``core.predictor.apply_predictor``, as the JAX oracle does.
+``exit_gate_q_ref`` is the plain version of the quantized gate kernel:
+the JAX package's piecewise quantized gate (the spec head's gather, then
+dequantize; the softmax and the features; the predictor MLP with each
+scale after its dot).
 ``verify_argmax_ref`` / ``verify_topk_ref`` materialize the (B, V) logits;
 with ``compute_dtype=None`` they accumulate in fp32 (the kernels'
 contract), with ``compute_dtype=hn.dtype`` they are the engine's historical
@@ -19,6 +23,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.predictor import apply_predictor
+from repro_torch.kernels.predictor_mlp.ref import (predictor_mlp_q_ref,
+                                                   predictor_mlp_ref)
 from repro_torch.kernels.spec_head.ref import spec_head_ref
 from repro_torch.quant import QTensor, matmul_codes
 
@@ -31,6 +37,20 @@ def exit_gate_ref(hn: torch.Tensor, lm_head: torch.Tensor,
     logits, probs = spec_head_ref(hn, lm_head, spec_ids)
     feats = torch.cat([logits, probs, probs - prev_probs.float()], dim=-1)
     return apply_predictor(predictor, feats), probs, logits
+
+
+def exit_gate_q_ref(hn: torch.Tensor, lm_head, spec_ids: torch.Tensor,
+                    prev_probs: torch.Tensor, l1, l2
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``exit_gate_fused_q``: the head (D, V) or a
+    QTensor; the predictor's layers ``l1``, ``l2`` ({"w", "b"}, each
+    ``w`` fp or a QTensor). Returns (p_exit (B,), probs (B, k),
+    logits (B, k)), all fp32."""
+    logits, probs = spec_head_ref(hn, lm_head, spec_ids)
+    feats = torch.cat([logits, probs, probs - prev_probs.float()], dim=-1)
+    mlp = (predictor_mlp_q_ref if isinstance(l1["w"], QTensor)
+           else predictor_mlp_ref)
+    return mlp(feats, l1["w"], l1["b"], l2["w"], l2["b"]), probs, logits
 
 
 def _logits(hn, lm_head, compute_dtype):

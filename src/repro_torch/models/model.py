@@ -607,6 +607,12 @@ class Model:
         return cache
 
     # ----- dense decode (baseline, no early exit) -----
+    def decode_step(self, params: Params, token: torch.Tensor, cache: Any
+                    ) -> Tuple[torch.Tensor, Any]:
+        """token: (B,) int. Returns (logits (B, V) fp32, new cache)."""
+        h, cache = self.decode_step_hidden(params, token, cache)
+        return self.logits(params, h), cache
+
     def decode_step_hidden(self, params: Params, token: torch.Tensor,
                            cache: Any) -> Tuple[torch.Tensor, Any]:
         """Full-depth decode returning the PRE-final-norm hidden (B, D);

@@ -492,8 +492,13 @@ def test_quant_engine_kernels_match_plain_path(dev, strategy, spec):
     assert (LAUNCHES["exit_gate"] == LAUNCHES["argmax_verify"]
             == LAUNCHES["topk_verify"] == 0)
     if strategy == "specee":
-        assert LAUNCHES["topk_verify_q"] > 0 and LAUNCHES["spec_head_q"] > 0
-        assert LAUNCHES["predictor_mlp_q"] > 0
+        # the AR gate is the one quantized gate kernel, never the pieces
+        assert LAUNCHES["topk_verify_q"] > 0 and LAUNCHES["exit_gate_q"] > 0
+        assert LAUNCHES["spec_head_q"] == LAUNCHES["predictor_mlp_q"] == 0
+    if strategy == "tree":
+        # the tree gate keeps its pieces around the hyper-token merge
+        assert LAUNCHES["spec_head_q"] > 0 and LAUNCHES["predictor_mlp_q"] > 0
+        assert LAUNCHES["exit_gate_q"] == 0
 
 
 def _int8_pools(gen, dev, n_pages, ps, kvh, hd):
@@ -785,6 +790,7 @@ def test_mamba2_serving_kernels_match_plain_path(dev, quant):
             q = "" if quant is None else "_q"
             assert LAUNCHES["argmax_verify" + q] > 0
             assert LAUNCHES["topk_verify" + q] > 0
+            assert LAUNCHES["exit_gate" + q] > 0
         else:
             assert all(v == 0 for v in LAUNCHES.values())
     assert outs[0] == outs[1]
@@ -1169,3 +1175,97 @@ def test_exit_gate_cluster_matches_plain(dev, D, V, B, k, dtype):
     for a, a2, b in zip(got, again, want):
         assert torch.equal(a, a2)
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _quant_bank(gen, dev, k, H, bits):
+    """A 2-layer predictor (l1, l2): fp32 weights for ``bits`` None, else
+    ``quantize_tensor``'d (an odd 3k quantizes W1 to int8 under int4)."""
+    from repro_torch import quant
+    w1 = _rand(gen, (3 * k, H), dev, scale=(3 * k) ** -0.5)
+    w2 = _rand(gen, (H, 1), dev, scale=H ** -0.5)
+    if bits is not None:
+        w1, w2 = quant.quantize_tensor(w1, bits), quant.quantize_tensor(
+            w2, bits)
+    return ({"w": w1, "b": _rand(gen, (H,), dev, scale=0.1)},
+            {"w": w2, "b": _rand(gen, (1,), dev, scale=0.1)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_bits,bank_bits",
+                         [(h, b) for h in (None, 8, 4) for b in (None, 8, 4)
+                          if (h, b) != (None, None)])
+@pytest.mark.parametrize("B", [1, 4, 8, 33])
+@pytest.mark.parametrize("D,V", [(256, 3001), (768, 50280), (4096, 32000)])
+def test_exit_gate_q_matches_plain(dev, D, V, B, head_bits, bank_bits,
+                                   dtype):
+    """The quantized cluster gate (csrc/exit_gate_q.cu) at mamba2-130m's
+    and Llama-2-7B's widths and at D = 256 (a cluster of one CTA, whose
+    threads each take two of the H = 512 hidden units), every (head, bank)
+    pair of fp / int8 / int4 but the fp pair, any row count: against its plain version on the ids
+    clamped to [0, V) (ids 0, V - 1, -5 and V + 7 among them), atol = rtol
+    = 1e-4; k = 3 at odd B (F = 9: an int4 bank's W1 stays int8) and 4 at
+    even B; one launch per call; two calls bit-equal."""
+    from repro_torch import quant
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    gen = torch.Generator(device=dev).manual_seed(B + D)
+    k, H = (3 if B % 2 else 4), 512
+    hn = _rand(gen, (B, D), dev, dtype)
+    w = _rand(gen, (D, V), dev, dtype, 0.05)
+    head = w if head_bits is None else quant.quantize_tensor(w.float(),
+                                                             head_bits)
+    del w
+    ids = torch.randint(0, V, (B, k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    edge = torch.tensor([0, V - 1, -5, V + 7], dtype=torch.int32, device=dev)
+    ids.view(-1)[:min(4, B * k)] = edge[:min(4, B * k)]
+    prev = torch.softmax(_rand(gen, (B, k), dev), -1)
+    l1, l2 = _quant_bank(gen, dev, k, H, bank_bits)
+    reset_launches()
+    got = eg.exit_gate_fused_q(hn, head, ids, prev, l1, l2)
+    again = eg.exit_gate_fused_q(hn, head, ids, prev, l1, l2)
+    torch.cuda.synchronize()
+    assert LAUNCHES["exit_gate_q"] == 2 and sum(LAUNCHES.values()) == 2
+    want = ref.exit_gate_q_ref(hn, head, ids.clamp(0, V - 1), prev, l1, l2)
+    for a, a2, b in zip(got, again, want):
+        assert torch.equal(a, a2)
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_exit_gate_q_refuses_before_any_launch(dev):
+    """The quantized gate raises a ValueError, and launches nothing, for k
+    above ``exit_gate_q_max_k``, a bank slice that is not contiguous (never
+    copied), layers of which one is quantized and one not, and an fp head
+    with an fp bank (the fp gate's)."""
+    from repro_torch import quant
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import build
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    gen = torch.Generator(device=dev).manual_seed(41)
+    B, D, V, H = 4, 512, 3001, 64
+    hn = _rand(gen, (B, D), dev)
+    w = _rand(gen, (D, V), dev, scale=0.05)
+    head = quant.quantize_tensor(w, 8)
+    reset_launches()
+    k = build.c_func("exit_gate_q", "exit_gate_q_max_k", [])() + 1
+    ids = torch.zeros(B, k, dtype=torch.int32, device=dev)
+    prev = torch.full((B, k), 1.0 / k, device=dev)
+    with pytest.raises(ValueError, match="k="):
+        eg.exit_gate_fused_q(hn, head, ids, prev,
+                             *_quant_bank(gen, dev, k, H, 8))
+    ids, prev = ids[:, :4].contiguous(), prev[:, :4].contiguous()
+    l1, l2 = _quant_bank(gen, dev, 4, H, 8)
+    # a stacked bank laid out (E, H, F): its slice's (F, H) codes are strided
+    codes = torch.zeros(3, H, 12, dtype=torch.int8, device=dev)
+    strided = dict(l1, w=quant.QTensor(codes.transpose(1, 2)[1],
+                                       l1["w"].scale, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        eg.exit_gate_fused_q(hn, head, ids, prev, strided, l2)
+    fp1, fp2 = _quant_bank(gen, dev, 4, H, None)
+    with pytest.raises(ValueError, match="both"):
+        eg.exit_gate_fused_q(hn, head, ids, prev, l1, fp2)
+    with pytest.raises(ValueError, match="neither"):
+        eg.exit_gate_fused_q(hn, w, ids, prev, fp1, fp2)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in LAUNCHES.values())
