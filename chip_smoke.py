@@ -13,7 +13,7 @@ and serves Mamba2 (mamba2-130m) with the SSD intra-chunk kernel.
 
 Phases (lines ``[phase +seconds since the start] ...``):
   1. device + build — the card's name and power limit, then ``nvcc`` builds
-     the fifteen kernels of ``src/repro_torch/csrc`` for sm_90a (in
+     the sixteen kernels of ``src/repro_torch/csrc`` for sm_90a (in
      parallel);
   2. kernels — each kernel vs its plain version in fp32 and bf16 at the
      main paths' shapes (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128;
@@ -33,14 +33,18 @@ Phases (lines ``[phase +seconds since the start] ...``):
      timed beside the fp paged kernel at the same live keys, SDPA on the
      gathered view dequantized to bf16 (a yardstick) and its byte bound;
      then the tree path's kernels at its row
-     counts: spec_head (R in {1, 160, 320}, edge and repeated ids),
+     counts: the fp spec head's two stages, spec_head_gather (bit-equal)
+     and the spec_head dot (R in {1, 160, 320}, random ids with edge and
+     repeated ones, and a tree step's ids: the B*N node tokens gathered
+     once, the nodes' children read from them; timed both ways),
      predictor_mlp (R in {1, 108, 216}) and the verify kernels at R in
      {9, 160, 320} with planted ties, timed at R = 8/160/320; then the
      four quantized kernels (argmax_verify_q, topk_verify_q, spec_head_q,
      predictor_mlp_q) in int8 and int4 with fp32 and bf16 activations at
      R in {4, 160, 320} (the MLP at {4, 108, 216}), planted ties and edge
      ids, against their plain versions and the fp kernels on the
-     dequantized head, timed in bf16 beside the fp kernel on the
+     dequantized head (bf16 rows: top-k_q's first column bit-equal to
+     argmax_q's max), timed in bf16 beside the fp kernel on the
      dequantized bf16 head (a yardstick: no one PyTorch call computes the
      same function); then the quantized exit gate (exit_gate_q: fp32 and
      bf16 hidden rows, B in {1, 4, 8, 33}, Llama-2-7B's and mamba2-130m's
@@ -129,7 +133,7 @@ Phases (lines ``[phase +seconds since the start] ...``):
      16 requests with prompts of 64-512 tokens, 32 new tokens each; each
      must launch ssd_chunk (once per layer per prefill), exit_gate,
      argmax_verify and topk_verify; then profiles of steps and ticks;
- 10. the ``{"kernels": [...]}`` line (15 kernels), the card line, and as
+ 10. the ``{"kernels": [...]}`` line (16 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
@@ -169,7 +173,9 @@ REPLACES = {
         "src/repro/kernels/decode_attention/decode_attention.py:270",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:116",
+    # the fp spec head's two stages (column gather, then dot)
     "spec_head": "src/repro/kernels/spec_head/spec_head.py:63",
+    "spec_head_gather": "src/repro/kernels/spec_head/spec_head.py:63",
     "predictor_mlp": "src/repro/kernels/predictor_mlp/predictor_mlp.py:47",
     "argmax_verify_q": "src/repro/kernels/exit_gate/exit_gate.py:604",
     "topk_verify_q": "src/repro/kernels/exit_gate/exit_gate.py:647",
@@ -189,6 +195,8 @@ QUANT_KERNELS = ("argmax_verify_q", "topk_verify_q", "spec_head_q",
 # the quantized gate's two pieces, which only the tree gate launches
 PIECEWISE_Q = ("spec_head_q", "predictor_mlp_q")
 FP_GATE_KERNELS = ("exit_gate", "argmax_verify", "topk_verify")
+# the fp spec head's two stages, which no quantized path may launch
+FP_SPEC_HEAD = ("spec_head_gather", "spec_head")
 # The kernels each main path must launch: whole-batch AR on the dense
 # cache, serving on the paged one (plus flash_attention under blocking
 # admission), and tree decoding.
@@ -198,16 +206,19 @@ SERVE_PATH = ("paged_decode_attention", "exit_gate", "argmax_verify",
 # serving on an int8 KV cache: the int8 paged kernel in the fp one's place
 KVQ_SERVE_PATH = tuple("paged_decode_attention_q" if k ==
                        "paged_decode_attention" else k for k in SERVE_PATH)
-TREE_PATH = ("spec_head", "predictor_mlp", "argmax_verify", "flash_attention")
+TREE_PATH = ("spec_head_gather", "spec_head", "predictor_mlp",
+             "argmax_verify", "flash_attention")
 # Mamba2 (no attention): the SSD kernel in prefill and admission, the fp
 # gate and verify kernels in every decode step
 MAMBA_PATH = ("ssd_chunk", "exit_gate", "argmax_verify", "topk_verify")
 # Under weight quantization each gate or verify kernel becomes its
-# quantized sibling (the tree gate's pieces each theirs); attention is
-# unchanged.
+# quantized sibling (the tree gate's pieces each theirs; the fp spec head's
+# column gather has none: spec_head_q gathers its columns itself);
+# attention is unchanged.
 QUANTIZED = {"exit_gate": ("exit_gate_q",),
              "argmax_verify": ("argmax_verify_q",),
              "topk_verify": ("topk_verify_q",),
+             "spec_head_gather": (),
              "spec_head": ("spec_head_q",),
              "predictor_mlp": ("predictor_mlp_q",)}
 
@@ -767,19 +778,47 @@ def _plant_ties(torch, hn, w, rows):
             w[:, j] = w[:, best]
 
 
+def tree_ids(torch, dev, gen, B_rows: int):
+    """A tree step's spec-head ids (TreeSpec(TREE_DEPTH, TREE_BRANCH), k =
+    K_SPEC): node tokens (B_rows, N) int32 with ids 0, V - 1 and repeats,
+    the rows of their gathered columns that each node's k children read
+    (B_rows*N, k) int32, as core/engine.py builds them, and the children's
+    ids (B_rows*N, k) int32."""
+    from repro_torch.core.tree import TreeSpec
+    tree = TreeSpec(TREE_DEPTH, TREE_BRANCH)
+    N = tree.num_nodes
+    toks = torch.randint(0, V, (B_rows, N), generator=gen, device=dev,
+                         dtype=torch.int32)
+    toks[0, :4] = torch.tensor([0, V - 1, V - 1, 0], dtype=torch.int32)
+    child = torch.as_tensor(tree.children, device=dev).long().clamp(min=0)
+    if TREE_BRANCH < K_SPEC:
+        child = torch.cat([child, child[:, :1].expand(
+            N, K_SPEC - TREE_BRANCH)], 1)
+    child = child[:, :K_SPEC]
+    rows = (torch.arange(B_rows, device=dev)[:, None, None] * N
+            + child[None]).reshape(B_rows * N, K_SPEC).to(torch.int32)
+    ids = toks.reshape(-1)[rows.long()].contiguous()
+    return toks, rows, ids
+
+
 def check_tree_kernels(torch, dev):
-    """Phase 2 for the tree path: spec_head and predictor_mlp against their
-    plain versions, and the verify kernels past one 8-row group, at the row
-    counts the tree gives them (B*N node rows, B*P paths), in fp32 and
-    bf16; then bf16 timings. Returns (max errors by kernel in bf16,
-    timing rows, verify timings by row count)."""
+    """Phase 2 for the tree path: the spec head's two stages and
+    predictor_mlp against their plain versions, and the verify kernels past
+    one 8-row group, at the row counts the tree gives them (B*N node rows,
+    B*P paths), in fp32 and bf16; then bf16 timings. Returns (max errors
+    by kernel in bf16, timing rows, verify timings by row count, spec-head
+    timings at a tree step's ids)."""
     from repro_torch.kernels.exit_gate import exit_gate as eg
     from repro_torch.kernels.exit_gate import ref as gref
     from repro_torch.kernels.predictor_mlp.predictor_mlp import (
         predictor_mlp_fused)
     from repro_torch.kernels.predictor_mlp.ref import predictor_mlp_ref
-    from repro_torch.kernels.spec_head.ref import spec_logits_ref
-    from repro_torch.kernels.spec_head.spec_head import spec_head_logits
+    from repro_torch.kernels.spec_head.ref import (spec_dot_ref,
+                                                   spec_gather_ref,
+                                                   spec_logits_ref)
+    from repro_torch.kernels.spec_head.spec_head import (spec_head_dot,
+                                                         spec_head_gather,
+                                                         spec_head_logits)
 
     gen = torch.Generator(device=dev).manual_seed(4321)
 
@@ -798,8 +837,11 @@ def check_tree_kernels(torch, dev):
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
         w = rnd((D, V), dt, 0.05)
-        # spec_head: fp32 sums of the same (upcast) products in another
-        # order, logits of size ~3: atol = rtol = 1e-4
+        # the spec head: the gather bit-equal; the dot fp32 sums of the
+        # same (upcast) products in another order, logits of size ~3:
+        # atol = rtol = 1e-4; at random ids (spec_head_logits: a gather of
+        # the R*k ids, then the dot) and at a tree step's (B = 4 and 8:
+        # the node tokens gathered once, the children read from them)
         err_sh = 0.0
         for R in (1, 160, 320):
             hn = rnd((R, D), dt)
@@ -808,6 +850,23 @@ def check_tree_kernels(torch, dev):
             want = spec_logits_ref(hn, w, ids)
             torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
             err_sh = max(err_sh, (got - want).abs().max().item())
+            if R == 1:
+                continue
+            toks, rows, t_ids = tree_ids(torch, dev, gen, R // 40)
+            cols = spec_head_gather(w, toks.reshape(-1))
+            require(torch.equal(cols, spec_gather_ref(w, toks.reshape(-1))),
+                    f"spec_head_gather differs from its plain version "
+                    f"({name}, {R // 40} trees)")
+            got = spec_head_dot(hn, cols, rows)
+            torch.testing.assert_close(got, spec_dot_ref(hn, cols, rows),
+                                       atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(got, spec_logits_ref(hn, w, t_ids),
+                                       atol=1e-4, rtol=1e-4)
+            require(torch.equal(got, spec_head_logits(hn, w, t_ids)),
+                    f"spec_head at tree ids: the step's composition and "
+                    f"spec_head_logits differ ({name})")
+            err_sh = max(err_sh, (got - spec_logits_ref(hn, w, t_ids))
+                         .abs().max().item())
         # verify kernels at row counts past one 8-row group, planted ties;
         # ids exact, values atol = rtol = 1e-4
         err_av = err_tk = 0.0
@@ -846,33 +905,89 @@ def check_tree_kernels(torch, dev):
             err_pm = max(err_pm, (got - want).abs().max().item())
         torch.cuda.synchronize()
         log("kernels", f"{name}: spec_head err {err_sh:.3g} (R 1/160/320, "
-            f"ids 0 and V-1, repeated); verify at R 9/160/320: argmax and "
+            f"ids 0 and V-1, repeated; tree ids at R 160/320, the gather "
+            f"bit-equal); verify at R 9/160/320: argmax and "
             f"top-k ids exact, ties -> lowest id, err {err_av:.3g} / "
             f"{err_tk:.3g}; predictor_mlp err {err_pm:.3g} (R 1/108/216)")
-        errs[name] = {"spec_head": err_sh, "predictor_mlp": err_pm,
+        errs[name] = {"spec_head": err_sh, "spec_head_gather": 0.0,
+                      "predictor_mlp": err_pm,
                       "argmax_verify": err_av, "topk_verify": err_tk}
 
     # ---- bf16 timings at the tree path's shapes ----
     dt, dname = torch.bfloat16, "bfloat16"
     w = rnd((D, V), dt, 0.05)
-    t, by_rows = {}, {}
-    for R in (160, 320):
+    t, by_rows, sh_rows = {}, {}, {}
+    for R in (160, 320):                    # B = 4 and 8 trees of 40 nodes
         hn = rnd((R, D), dt)
+        # spec_head_logits alone at random ids (on no main path): a gather
+        # of the R*k ids, then the dot
         id_sets = [ids_for(R) for _ in range(4)]
         uniq = len(torch.unique(torch.cat(id_sets)))
-        nbytes = (R * D * 2 + uniq * D * 2 / len(id_sets)
-                  + R * K_SPEC * 8)
-        row = (graph_ms(torch, [lambda i=i: spec_head_logits(hn, w, i)
-                                for i in id_sets] * 3),
-               graph_ms(torch, [lambda i=i: spec_logits_ref(hn, w, i)
-                                for i in id_sets] * 3),
-               None,
-               bound_ms(nbytes, 2 * R * K_SPEC * D, dname))
-        log("kernels", f"spec_head bf16, R={R}: kernel {row[0]:.4f} ms, "
-            f"plain {row[1]:.4f} ms, bound {row[3][0]:.4f} ms "
-            f"({row[3][1]})")
+        rand_ms = graph_ms(torch, [lambda i=i: spec_head_logits(hn, w, i)
+                                   for i in id_sets] * 3)
+        rand_plain = graph_ms(torch, [lambda i=i: spec_logits_ref(hn, w, i)
+                                      for i in id_sets] * 3)
+        rand_bnd = bound_ms(R * D * 2 + uniq * D * 2 / len(id_sets)
+                            + R * K_SPEC * 8, 2 * R * K_SPEC * D, dname)
+        # a tree step's ids: the gather of its R = B*N node tokens (once
+        # per step; the head is 262 MB, so every call starts cold) ...
+        trees = [tree_ids(torch, dev, gen, R // 40) for _ in range(4)]
+        g_ms = graph_ms(torch, [lambda tk=tk: spec_head_gather(
+            w, tk.reshape(-1)) for tk, _, _ in trees] * 3)
+        g_plain = graph_ms(torch, [lambda tk=tk: spec_gather_ref(
+            w, tk.reshape(-1)) for tk, _, _ in trees] * 3)
+        # the same elements in one PyTorch call, (D, C) laid out
+        g_lib = graph_ms(torch, [lambda tk=tk: torch.index_select(
+            w, 1, tk.reshape(-1)) for tk, _, _ in trees] * 3)
+        g_bnd = bound_ms(2 * R * D * 2 + R * 4, 0, dname)
+        g_sectors = (R * D * 32 + R * D * 2 + R * 4) / HBM_BYTES_PER_S * 1e3
+        # ... and the dot at each exit point, on distinct hidden rows and
+        # column buffers (more than the 50 MB L2 in all: a layer's weights
+        # pass between two exit points)
+        n_sets = max(4, int(64e6 // (2 * R * D * 2)) + 1)
+        dots = []
+        for q in range(n_sets):
+            tk, rows, _ = trees[q % len(trees)]
+            dots.append((rnd((R, D), dt), spec_head_gather(w, tk.reshape(-1)),
+                         rows))
+        d_ms = graph_ms(torch, [lambda a=a, c=c, r=r: spec_head_dot(a, c, r)
+                                for a, c, r in dots])
+        d_plain = graph_ms(torch, [lambda a=a, c=c, r=r: spec_dot_ref(a, c, r)
+                                   for a, c, r in dots])
+        d_bnd = bound_ms(2 * R * D * 2 + R * K_SPEC * 8,
+                         2 * R * K_SPEC * D, dname)
+        # the per-call composition at the step's ids, as every exit point
+        # ran the spec head before the gather was hoisted
+        tree_call_ms = graph_ms(torch, [
+            lambda a=a, i=i: spec_head_logits(a, w, i)
+            for (a, _, _), (_, _, i) in zip(dots, trees * n_sets)])
+        del dots
+        step_ms = g_ms + 3 * d_ms
+        log("kernels", f"spec_head bf16, R={R} ({R // 40} trees of 40 "
+            f"nodes): gather of the {R} node tokens' columns "
+            f"(spec_head_gather) {g_ms:.4f} ms (plain {g_plain:.4f}, "
+            f"index_select {g_lib:.4f}, bound {g_bnd[0]:.4f} ms in bytes, "
+            f"{g_sectors:.4f} in 32-byte sectors); dot (spec_head) "
+            f"{d_ms:.4f} ms (plain {d_plain:.4f}, bound {d_bnd[0]:.4f} ms "
+            f"({d_bnd[1]})); one step's gather + 3 dots {step_ms:.4f} ms; "
+            f"spec_head_logits per call at the step's ids {tree_call_ms:.4f}"
+            f" ms, at random ids {rand_ms:.4f} ms (plain {rand_plain:.4f}, "
+            f"bound {rand_bnd[0]:.4f} ms ({rand_bnd[1]}))")
+        sh_rows[R] = {
+            "spec_head_gather": {
+                "ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib,
+                "bound_ms": g_bnd[0], "bound_by": g_bnd[1]},
+            "spec_head": {
+                "ms": d_ms, "plain_ms": d_plain, "library_ms": None,
+                "bound_ms": d_bnd[0], "bound_by": d_bnd[1],
+                "step_gather_plus_3_dots_ms": step_ms,
+                "spec_head_logits_tree_ids_ms": tree_call_ms,
+                "spec_head_logits_random_ids": {
+                    "ms": rand_ms, "plain_ms": rand_plain,
+                    "bound_ms": rand_bnd[0], "bound_by": rand_bnd[1]}}}
         if R == 160:                        # whole-batch tree, B=4 x 40
-            t["spec_head"] = row
+            t["spec_head"] = (d_ms, d_plain, None, d_bnd)
+            t["spec_head_gather"] = (g_ms, g_plain, g_lib, g_bnd)
     for R in (108, 216):
         x = rnd((R, F), torch.float32)
         w1 = rnd((F, H_PRED), torch.float32, F ** -0.5)
@@ -915,7 +1030,7 @@ def check_tree_kernels(torch, dev):
                 f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b:.4f} ms "
                 f"({by})")
         by_rows[R] = rows
-    return errs["bfloat16"], t, by_rows
+    return errs["bfloat16"], t, by_rows, sh_rows
 
 
 def _plant_ties_q(torch, hn, qt, rows):
@@ -927,6 +1042,61 @@ def _plant_ties_q(torch, hn, qt, rows):
         best = int(gref.verify_argmax_q_ref(hn[r:r + 1], qt)[0][0])
         for j in (0, (best + 5) % V):
             qt.q[:, j], qt.scale[j] = qt.q[:, best], qt.scale[best]
+
+
+# Top-k_q ids must equal the plain version's. fp32 sums of the same
+# D = 4096 products in another order (the tile's k-steps, the plain
+# product's) stray from the exact sum by ~1e-6 of |v|: at R=320, int8,
+# bf16, row 153 the tile gave 14.059741 where the fp64 sum is 14.0597662
+# (1.8e-6), and gave columns 6255 and 19836 one value, 12.1521358, where
+# the fp64 sums are 12.1521456 and 12.1521539 (PERF.md, PR 22). Two
+# columns can change places only where their exact logits lie within the
+# two sums' errors of each other; SWAP_RTOL * |v| bounds that with a
+# margin of ~2.5 over 2 * 2e-6.
+SWAP_RTOL = 1e-5
+
+
+def _exact_logits(torch, quant, hn_row, qt, cols):
+    """The logits of one hidden row at head columns ``cols``, summed in
+    fp64: each product of a bf16 or fp32 value and an integer code is
+    exact there, so this is the sum the fp32 versions round."""
+    qcols = qt.q[:, cols]
+    codes = (torch.cat(quant.unpack_int4(qcols), dim=0) if qt.bits == 4
+             else qcols)
+    return (hn_row.double() @ codes.double()) * qt.scale[cols].double()
+
+
+def _topk_ids_exact(torch, hn, qt, ids, ids_r, what):
+    """Top-k_q ids against the plain version's: equal, but for one narrow
+    exception. At a rank where they differ, the two ids' fp64 logits may
+    lie within SWAP_RTOL * |v| of each other (a near-tie: fp32 sums may
+    order it either way), unless the two columns are equal (an exact tie:
+    lowest id first, as the plain version orders it). Returns a
+    description of each excepted row; raises on any other difference."""
+    from repro_torch import quant
+    out = []
+    for r in (ids != ids_r).any(dim=1).nonzero().flatten().tolist():
+        got, want = ids[r].long(), ids_r[r].long()
+        require(len(set(got.tolist())) == len(got),
+                f"{what}: row {r} repeats an id: {got.tolist()}")
+        rank = (got != want).nonzero().flatten()
+        a, b = got[rank], want[rank]
+        la, lb = (_exact_logits(torch, quant, hn[r], qt, c) for c in (a, b))
+        same = ((qt.q[:, a] == qt.q[:, b]).all(dim=0)
+                & (qt.scale[a] == qt.scale[b]))
+        gap = (la - lb).abs()
+        require(not bool(same.any()),
+                f"{what}: row {r} ids {got.tolist()} against the plain "
+                f"version's {want.tolist()}: an exact tie not lowest id first")
+        require(bool((gap <= SWAP_RTOL * lb.abs()).all()),
+                f"{what}: row {r} ids {got.tolist()} differ from the plain "
+                f"version's {want.tolist()} beyond a near-tie: fp64 logits "
+                f"{la.tolist()} against {lb.tolist()}")
+        out.append(f"{what} row {r}: {got.tolist()} against "
+                   f"{want.tolist()}, fp64 logits {la.tolist()} against "
+                   f"{lb.tolist()} (gap {gap.max().item():.3g}, "
+                   f"{gap.max().item() / lb.abs().min().item():.3g} of |v|)")
+    return out
 
 
 def check_quant_kernels(torch, dev):
@@ -971,6 +1141,7 @@ def check_quant_kernels(torch, dev):
         torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
         errs[name] = max(errs[name], (a - b).abs().max().item())
 
+    near_ties = []
     for bits in (8, 4):
         w = rnd((D, V), torch.float32, 0.05)
         qt0 = quant.quantize_tensor(w, bits)
@@ -990,10 +1161,16 @@ def check_quant_kernels(torch, dev):
                 note("argmax_verify_q", mx, mx_r, 1e-4, 1e-4)
                 ids, vals = eg.topk_verify_fused_q(hn, qt, K_SPEC)
                 ids_r, vals_r = gref.verify_topk_q_ref(hn, qt, K_SPEC)
-                require(torch.equal(ids, ids_r), f"top-k_q ids differ at "
-                        f"R={R} ({name})")
+                near_ties += _topk_ids_exact(
+                    torch, hn, qt, ids, ids_r, f"top-k_q at R={R} ({name})")
                 require(int(ids[R - 1, 0]) == 0, f"top-k_q tie-break, R={R}")
                 note("topk_verify_q", vals, vals_r, 1e-4, 1e-4)
+                if dt == torch.bfloat16:
+                    # one tile main loop and k-order for both kernels
+                    require(torch.equal(ids[:, 0], tok)
+                            and torch.equal(vals[:, 0], mx), f"top-k_q's "
+                            f"first column differs from argmax_q, R={R} "
+                            f"({name})")
                 if R != 320:
                     # the fp kernels on the dequantized fp32 head
                     wq = qt.dequantize()
@@ -1028,12 +1205,18 @@ def check_quant_kernels(torch, dev):
         del qt0, wdq
         torch.cuda.synchronize()
         log("kernels", f"int{bits}: argmax_verify_q and topk_verify_q at R "
-            f"{B}/160/320 (fp32 and bf16): ids exact, ties -> lowest id, "
-            f"equal to the fp kernels on the dequantized head; spec_head_q "
+            f"{B}/160/320 (fp32 and bf16): ids exact (but for the near-ties "
+            f"logged below), ties -> lowest id, "
+            f"equal to the fp kernels on the dequantized head, bf16 top-k_q's "
+            f"first column bit-equal to argmax_q; spec_head_q "
             f"(ids 0 and V-1, repeated) and predictor_mlp_q (R {B}/108/216) "
             f"match their plain versions and the fp kernels")
     log("kernels", "quantized kernels, max err over int8/int4 and fp32/"
         "bf16: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    log("kernels", f"top-k_q: {len(near_ties)} rows of "
+        f"{2 * 2 * (B + 160 + 320)} ordered a near-tie (fp64 logits within "
+        f"{SWAP_RTOL:g} of |v|) otherwise than the plain version"
+        + "".join(f"; {t}" for t in near_ties))
 
     # ---- bf16 timings: B=4 (AR) and R=160/320 (tree), int8 and int4 ----
     # Every int8 or int4 code is exact in bf16, so with bf16 hidden rows
@@ -1562,13 +1745,18 @@ def tree_parity(torch, dev, params, sw):
             a = drive(m_ker, params, sw, tree_strategy(thresh), prompts, new,
                       cache=cache)
             launched = {k: K.LAUNCHES[k] for k in
-                        ("spec_head", "predictor_mlp", "argmax_verify")}
+                        ("spec_head_gather", "spec_head", "predictor_mlp",
+                         "argmax_verify")}
             b = drive(m_plain, params, sw, tree_strategy(thresh), prompts,
                       new, cache=cache)
             require(summary(a) == summary(b), f"tree: kernel vs plain run "
                     f"differs ({cache} cache, threshold {thresh})")
             require(all(launched.values()), f"tree kernels not launched: "
                     f"{launched}")
+            # the node columns are gathered once per step, at most
+            require(launched["spec_head_gather"] <= len(a) - 1
+                    <= launched["spec_head"], f"tree: {launched} in "
+                    f"{len(a) - 1} steps")
             exits = sum(int(r.exited.sum()) for r in a[1:])
             if thresh > 1:
                 require(stream(a) == greedy, f"tree at threshold "
@@ -1635,8 +1823,9 @@ def tree_parity(torch, dev, params, sw):
                   accept=True)
     require(got == want, "tree serving: kernels (paged) vs plain (dense) "
             "differ in tokens, exit points or accept lengths")
-    missing = [k for k in ("spec_head", "predictor_mlp", "argmax_verify",
-                           "flash_attention") if launched[k] == 0]
+    missing = [k for k in ("spec_head_gather", "spec_head", "predictor_mlp",
+                           "argmax_verify", "flash_attention")
+               if launched[k] == 0]
     require(not missing, f"tree serving never launched {missing}")
     exits = sum(e < s_ker.num_exit_points for _, eps, _ in want for e in eps)
     log("parity", f"tree serving: 8 requests through 4 slots, per-request "
@@ -1679,7 +1868,7 @@ def quant_parity(torch, dev, params, sw):
                   quant=spec)
         require(summary(a) == summary(b), f"quant {spec}: kernel vs plain "
                 f"differs ({strategy}, {cache} cache)")
-        fp = [k for k in FP_GATE_KERNELS if launched[k]]
+        fp = [k for k in FP_GATE_KERNELS + FP_SPEC_HEAD if launched[k]]
         require(not fp, f"quant {spec}: fp gate kernels launched {fp}")
         require(launched["argmax_verify_q"] > 0, "argmax_verify_q idle")
         return a, launched
@@ -1737,7 +1926,7 @@ def quant_parity(torch, dev, params, sw):
                      quant="int4")
         require(got == want, f"quant serving (int4, chunk {chunk}): paged "
                 "kernels vs plain dense differ")
-        fp = [k for k in FP_GATE_KERNELS if K.LAUNCHES[k]]
+        fp = [k for k in FP_GATE_KERNELS + FP_SPEC_HEAD if K.LAUNCHES[k]]
         require(not fp, f"quant serving launched fp gate kernels {fp}")
     exits = sum(e < s_ker.num_exit_points for _, eps in want for e in eps)
     require(exits > 0, "quant serving: the oracle set forced no exit")
@@ -2085,7 +2274,8 @@ def serve_phase(torch, dev, params, sw):
 # ---------------------------------------------------------------------------
 def _per_step(launches, n):
     return ", ".join(f"{k} {launches[k]} ({launches[k] / n:.2f}/step)"
-                     for k in ("spec_head", "predictor_mlp", "argmax_verify"))
+                     for k in ("spec_head_gather", "spec_head",
+                               "predictor_mlp", "argmax_verify"))
 
 
 def tree_phase(torch, dev, params, sw):
@@ -2214,7 +2404,7 @@ def _require_quant_path(launches, path, label):
     want = quantized(path)
     missing = [k for k in want if launches[k] == 0]
     require(not missing, f"{label}: kernels never launched {missing}")
-    fp = [k for k in FP_GATE_KERNELS if launches[k]]
+    fp = [k for k in FP_GATE_KERNELS + FP_SPEC_HEAD if launches[k]]
     require(not fp, f"{label}: fp gate kernels launched {fp}")
     pieces = [k for k in PIECEWISE_Q if launches[k] and k not in want]
     require(not pieces, f"{label}: the piecewise gate's {pieces} launched")
@@ -2881,18 +3071,20 @@ def mamba_phase(torch, dev):
 
 # where the device time of a decode step goes, by kernel family (the paged
 # kernels are pa::paged_split_kernel, the dense one pa::dense_split_kernel,
-# each with its merge in the same launch);
+# each with its merge in the same launch; the fp spec head's two stages
+# count as spec_head_gather and spec_head);
 # the quantized verify, spec-head and paged-attention kernels are the fp
 # ones' templates on an Int8Cols / Int4Cols / Int8Pools reader (the
-# quantized argmax with bf16 hidden rows: the tile's Int8Tile / Int4Tile),
-# and count under the family's "_q" name
+# quantized argmax and top-k with bf16 hidden rows: the tile's Int8Tile /
+# Int4Tile), and count under the family's "_q" name
 QUANT_READERS = ("Int8Cols", "Int4Cols", "Int8Tile", "Int4Tile",
                  "Int8Pools")
 FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
             ("topk_verify", ("topk_partial", "topk_merge")),
             ("exit_gate", ("exit_gate_kernel",)),
             ("exit_gate_q", ("exit_gate_q_kernel",)),
-            ("spec_head", ("spec_head_kernel",)),
+            ("spec_head_gather", ("spec_head_gather_kernel",)),
+            ("spec_head", ("spec_head_kernel", "spec_head_dot_kernel")),
             ("predictor_mlp", ("predictor_mlp_kernel",)),
             ("predictor_mlp_q", ("predictor_mlp_q_kernel",)),
             ("paged_decode_attention", ("paged_split_kernel",)),
@@ -3001,7 +3193,7 @@ def main() -> int:
 
     errs, timing = check_kernels(torch, dev)
     torch.cuda.empty_cache()
-    errs_tree, t_tree, verify_rows = check_tree_kernels(torch, dev)
+    errs_tree, t_tree, verify_rows, sh_rows = check_tree_kernels(torch, dev)
     for name, err in errs_tree.items():
         errs[name] = max(errs.get(name, 0.0), err)
     timing.update(t_tree)
@@ -3050,6 +3242,13 @@ def main() -> int:
                          "library_ms": r[name][2], "bound_ms": r[name][3][0],
                          "bound_by": r[name][3][1]}
                 for R, r in verify_rows.items()}
+        if name in ("spec_head", "spec_head_gather"):
+            # R = 160 above (a B = 4 tree step's node rows), B = 8's 320
+            # here; the dot's with a step's gather + 3 dots and the
+            # composed spec_head_logits per call at tree and random ids.
+            # The gather's library_ms is torch.index_select(w, 1, ids): the
+            # same elements laid out (D, C).
+            row["at_rows"] = {str(R): r[name] for R, r in sh_rows.items()}
         if name == "decode_attention":
             # the full run's 150 live keys above; longer contexts here
             row["at_contexts"] = {

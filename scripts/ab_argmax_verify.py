@@ -2,21 +2,20 @@
 """A/B of the port's LM-head verify kernels between another version of the
 sources and this tree's, on one card.
 
-Builds ``argmax_verify.cu``, ``topk_verify.cu`` and ``argmax_verify_q.cu``
-(whose bf16 instances are the tensor-core tile of ``csrc/lm_head_mma.cuh``)
-and, since every header is part of every library, ``topk_verify_q.cu``,
-from both trees with the flags of ``repro_torch.kernels.build``; prints
-each build's registers, this tree's ptxas report (registers, spills) of
-the three tile libraries and the HMMA count per kernel in their
-``cuobjdump -sass`` (it fails if a tile kernel has none: the argmax, the
-top-k and the int8 and int4 argmax). Then times both versions in one
+Builds ``argmax_verify.cu``, ``topk_verify.cu``, ``argmax_verify_q.cu``
+and ``topk_verify_q.cu`` (whose bf16 instances are the tensor-core tile of
+``csrc/lm_head_mma.cuh``) from both trees with the flags of
+``repro_torch.kernels.build``; prints each build's registers, this tree's
+ptxas report (registers, spills) of the four tile libraries and the HMMA
+count per kernel in their ``cuobjdump -sass`` (it fails if a tile kernel
+has none: the argmax, the top-k and the int8 and int4 argmax and top-k). Then times both versions in one
 process, in alternating order (base, tree, tree, base, then reversed; 12
 timings each), each timing a CUDA graph of calls on distinct hidden rows:
   bf16 argmax at B=4, R=8, 160, 320 (D=4096, V=32000: Llama-2-7B's head)
   and B=4 at D=768, V=50280 (mamba2-130m's tied head);
   bf16 top-k (k=4) at B=4, R=160 and 320; the int8 and int4 argmax at
-  B=4, R=160 and 320 and the int8 and int4 top-k at B=4 (D=4096,
-  V=32000, bf16 hidden rows).
+  B=4, R=160 and 320 and the int8 and int4 top-k at B=4, R=160 and 320
+  (D=4096, V=32000, bf16 hidden rows).
 Each version of each case is first held to the plain version (ids exact,
 values atol = rtol = 1e-4: fp32 sums in another order), and the bf16
 argmax of both versions to each other (bit-equal ids and values).
@@ -38,7 +37,8 @@ K_TOP = 4
 # the tensor-core tile kernels each library must hold, with HMMA
 TILES = {"argmax_verify": ("argmax_partial_mma",),
          "topk_verify": ("topk_partial_mma",),
-         "argmax_verify_q": ("Int8Tile", "Int4Tile")}
+         "argmax_verify_q": ("Int8Tile", "Int4Tile"),
+         "topk_verify_q": ("Int8Tile", "Int4Tile")}
 
 
 def main() -> int:
@@ -142,8 +142,9 @@ def main() -> int:
         for R in (4, 160, 320):
             plain_case(f"argmax_q int{bits} R={R}", "argmax_verify_q", R,
                        4096, 32000, qheads[bits], bits=bits)
-        plain_case(f"topk_q int{bits} B=4", "topk_verify_q", 4, 4096, 32000,
-                   qheads[bits], k=K_TOP, bits=bits)
+        for R in (4, 160, 320):
+            plain_case(f"topk_q int{bits} R={R}", "topk_verify_q", R, 4096,
+                       32000, qheads[bits], k=K_TOP, bits=bits)
 
     for label, calls, a, b, (ids_r, vals_r) in checks:
         got = {}

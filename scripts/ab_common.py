@@ -18,15 +18,18 @@ sys.path.insert(0, str(ROOT / "src"))
 
 
 def build(tag: str, src_dir: Path, name: str, out: Path):
-    """Compile ``src_dir/<name>.cu`` (its own headers first, then this
-    tree's) with the port's nvcc flags; returns (loaded library, path,
-    ptxas report: each kernel's name, spills and registers)."""
+    """Compile library ``name`` of ``src_dir`` (its sources there, its own
+    headers first, then this tree's) with the port's nvcc flags; returns
+    (loaded library, path, ptxas report: each kernel's name, spills and
+    registers)."""
     from repro_torch.kernels import build as kbuild
     out.mkdir(parents=True, exist_ok=True)
     so = out / f"{tag}_{name}.so"
+    srcs = [src_dir / f"{p}.cu" for p in kbuild.parts(name)
+            if (src_dir / f"{p}.cu").exists()]
     proc = subprocess.run(
         [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-I", str(src_dir), "-I",
-         str(CSRC), "-o", str(so), str(src_dir / f"{name}.cu")],
+         str(CSRC), "-o", str(so), *map(str, srcs)],
         capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc {tag} {name} failed:\n{proc.stdout}"

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """A/B of the port's exit gates between another version of
 ``src/repro_torch/csrc`` and this tree's, on one card: the fused fp gate
-(``csrc/exit_gate.cu``) against the other version's, the two spec-head
-kernels that share the gather header (``spec_head.cu``, ``spec_head_q.cu``)
+(``csrc/exit_gate.cu``) against the other version's, the quantized
+spec-head kernel (``spec_head_q.cu``, on the gather header ``spec_head.cuh``)
 and ``predictor_mlp_q.cu``, and the quantized gate (``csrc/exit_gate_q.cu``)
 against the other version's piecewise quantized gate (its ``spec_head_q``,
 then the softmax, the difference and the concatenation in PyTorch, then its
@@ -17,7 +17,7 @@ columns start cold): the fp gate at B = 4 and B = 8 rows of Llama-2-7B
 quantized gate with an int8 head and bank, and with int4 ones, at B = 4
 and B = 8 of both widths. Every gate output of each version is held
 against the plain version (``exit_gate_ref`` / ``exit_gate_q_ref``) at
-atol = rtol = 1e-4; the fp gates, the spec heads (B = 4 and R = 160; int8
+atol = rtol = 1e-4; the fp gates, ``spec_head_q`` (B = 4 and R = 160; int8
 and int4 codes) and ``predictor_mlp_q`` (R = 4, int8 and int4) must be
 bit-equal between the versions.
 
@@ -39,9 +39,9 @@ import ab_common as ab
 K_SPEC, H_PRED, N_SETS = 4, 512, 20
 F_PRED = 3 * K_SPEC
 # pointer and int arguments before the stream of each launch function
-C_ARGS = {"exit_gate": (11, 6), "spec_head": (4, 5), "spec_head_q": (5, 6),
+C_ARGS = {"exit_gate": (11, 6), "spec_head_q": (5, 6),
           "predictor_mlp_q": (8, 5), "exit_gate_q": (14, 9)}
-BASE_LIBS = ("exit_gate", "spec_head", "spec_head_q", "predictor_mlp_q")
+BASE_LIBS = ("exit_gate", "spec_head_q", "predictor_mlp_q")
 GATES = (("gate B=4 D=4096", 4, 4096, 32000),
          ("gate B=8 D=4096", 8, 4096, 32000),
          ("gate B=4 D=768", 4, 768, 50280))
@@ -173,25 +173,18 @@ def main() -> int:
                        exit_gate_q_ref(hn, head, id_sets[0], prev, l1, l2)))
 
     spec_cases, spec_outs = {}, {}
-    w = rnd((4096, 32000), scale=0.05)
-    heads = {None: w}
-    for bits in (8, 4):
-        heads[bits] = quantize_tensor(w.float(), bits)
+    w = rnd((4096, 32000), torch.float32, 0.05)
+    heads = {bits: quantize_tensor(w, bits) for bits in (8, 4)}
     for R in (4, 160):
         hn = rnd((R, 4096))
         id_sets = ids_for(R, 32000)
         for bits, head in heads.items():
-            name = "spec_head" if bits is None else "spec_head_q"
-            label = f"{name} R={R}" + ("" if bits is None else f" int{bits}")
+            label = f"spec_head_q R={R} int{bits}"
             out = torch.empty(R, K_SPEC, device=dev)
 
-            def calls(tag, name=name, hn=hn, head=head, bits=bits, R=R,
+            def calls(tag, hn=hn, head=head, bits=bits, R=R,
                       id_sets=id_sets, out=out):
-                f = fns[(tag, name)]
-                if bits is None:
-                    return [lambda i=i: f(ptr(hn), ptr(head), ptr(i),
-                                          ptr(out), R, 4096, 32000, K_SPEC,
-                                          1, ab.stream()) for i in id_sets]
+                f = fns[(tag, "spec_head_q")]
                 return [lambda i=i: f(ptr(hn), ptr(head.q), ptr(head.scale),
                                       ptr(i), ptr(out), R, 4096, 32000,
                                       K_SPEC, bits, 1, ab.stream())

@@ -339,13 +339,23 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
                                               dtype=torch.int32).clone()
         node_tokens[:, 0] = state.last_token
 
-    # children token matrix per node, padded (or cut) to k for the features
-    children = torch.as_tensor(tree.children, device=dev).long()   # (N, b)
-    child_toks = node_tokens[:, children.clamp(min=0)]              # (B,N,b)
+    # children token matrix per node, padded (or cut) to k for the features:
+    # a leaf's missing children clamp to the root, the padding repeats the
+    # first child
+    child = torch.as_tensor(tree.children, device=dev).long().clamp(min=0)
     if tree.branch < k:
-        child_toks = torch.cat([child_toks, child_toks[:, :, :1].expand(
-            B, N, k - tree.branch)], dim=2)
-    child_toks = child_toks[:, :, :k].reshape(B * N, k).contiguous()
+        child = torch.cat([child, child[:, :1].expand(N, k - tree.branch)],
+                          dim=1)
+    child = child[:, :k]                                            # (N, k)
+    # node b*N + n's speculative tokens are the step's node tokens at rows
+    # b*N + child(n, j): fixed for the step, so where the spec head takes
+    # two stages their head columns are gathered once, at the first exit
+    # point that runs the gate, and each exit point dots with those rows
+    child_rows = (torch.arange(B, device=dev)[:, None, None] * N
+                  + child[None]).reshape(B * N, k)
+    child_toks = node_tokens.reshape(-1)[child_rows]               # (B*N, k)
+    child_rows = child_rows.to(torch.int32)
+    node_cols = None
 
     # ---- layer loop with hyper-token early exit ----
     mask = tree.attention_mask(pos0, scratch_off)          # (B, 1, N, cap)
@@ -371,9 +381,17 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
             act = active[:, ep] & ~exited
             if bool(act.any()):
                 hn = model.final_norm(params, h).reshape(B * N, -1)
-                feats, probs = feat_lib.extract_features(
-                    hn, lm_w, child_toks, prev_probs.reshape(B * N, k),
-                    use_kernel=sh_kernel)
+                if node_cols is None:
+                    node_cols = feat_lib.node_columns(lm_w, node_tokens,
+                                                      sh_kernel)
+                if node_cols is not None:
+                    feats, probs = feat_lib.column_features(
+                        hn, node_cols, child_rows,
+                        prev_probs.reshape(B * N, k))
+                else:
+                    feats, probs = feat_lib.extract_features(
+                        hn, lm_w, child_toks, prev_probs.reshape(B * N, k),
+                        use_kernel=sh_kernel)
                 # hyper-token merge: one predictor evaluation per path
                 pf, _ = feat_lib.merge_path_features(
                     feats.reshape(B, N, -1), probs.reshape(B, N, k),

@@ -10,18 +10,28 @@ The AR engine computes them inside the fused exit gate
 whose hyper-token min-merge sits between the features and the predictor.
 ``use_kernel`` selects the spec-head kernel (``kernels.spec_head``); a
 quantized head (``QTensor``) takes its quantized sibling, or gathers then
-dequantizes on the plain path.
+dequantizes on the plain path. The fp tree gate takes the spec-head kernel
+in its two stages instead: the node tokens' columns gathered once per step
+(``node_columns``), then ``column_features`` at each exit point.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.spec_head import ops as sh_ops
+from repro_torch.kernels.spec_head import spec_head as sh_kern
 from repro_torch.kernels.spec_head.ref import spec_logits_ref
+from repro_torch.quant import QTensor
 
-__all__ = ["spec_logits_ref", "extract_features", "merge_path_features"]
+__all__ = ["spec_logits_ref", "extract_features", "node_columns",
+           "column_features", "merge_path_features"]
+
+
+def _features(logits: torch.Tensor, probs: torch.Tensor,
+              prev_probs: torch.Tensor) -> torch.Tensor:
+    return torch.cat([logits, probs, probs - prev_probs.float()], dim=-1)
 
 
 def extract_features(hn: torch.Tensor, lm_head,
@@ -37,8 +47,31 @@ def extract_features(hn: torch.Tensor, lm_head,
     else:
         logits = spec_logits_ref(hn, lm_head, spec_ids)
         probs = torch.softmax(logits, dim=-1)
-    feats = torch.cat([logits, probs, probs - prev_probs.float()], dim=-1)
-    return feats, probs
+    return _features(logits, probs, prev_probs), probs
+
+
+def node_columns(lm_head, node_tokens: torch.Tensor, use_kernel: bool
+                 ) -> Optional[torch.Tensor]:
+    """The spec-head kernel's first stage for a tree step: the (D, V) fp
+    head's columns of every node token, ``node_tokens`` (B, N) int32, as
+    a (B*N, D) buffer in the head's dtype (``spec_head_gather``). None
+    where the spec head does not take two stages (the plain path, a
+    quantized head): there ``extract_features`` gathers at each call."""
+    if not use_kernel or isinstance(lm_head, QTensor):
+        return None
+    return sh_kern.spec_head_gather(lm_head, node_tokens.reshape(-1))
+
+
+def column_features(hn: torch.Tensor, cols: torch.Tensor,
+                    col_idx: torch.Tensor, prev_probs: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``extract_features`` over gathered columns: row r's k speculative
+    tokens are the rows ``col_idx[r]`` (R, k) of ``cols``
+    (``spec_head_gather``'s output). Returns (features (R, 3k) fp32,
+    local_probs (R, k) fp32)."""
+    logits = sh_kern.spec_head_dot(hn, cols, col_idx)
+    probs = torch.softmax(logits, dim=-1)
+    return _features(logits, probs, prev_probs), probs
 
 
 def merge_path_features(node_feats: torch.Tensor, node_probs: torch.Tensor,

@@ -39,10 +39,7 @@ namespace {
 template <typename H>
 int run_mma(const void* hn, H head, void* pval, void* pidx, void* tok,
             void* mx, int R, int D, int V, cudaStream_t st) {
-  const uintptr_t q = reinterpret_cast<uintptr_t>(head.q);
-  const int vec = V % 16 == 0 && q % 16 == 0 ? 16
-                  : V % 4 == 0 && q % 4 == 0 ? 4
-                                             : 0;
+  const int vec = head.copy_width(V);
   const int err = rt::lm_mma_dispatch(R, [&](auto mt, auto wm) {
     return rt::argmax_partial_mma_launch<H, decltype(mt)::value,
                                          decltype(wm)::value>(

@@ -1,8 +1,8 @@
 // LM-head verify on the tensor cores: the bf16 instances of
 // argmax_verify.cu (argmax over a bf16 head), topk_verify.cu (top-k over a
-// bf16 head) and argmax_verify_q.cu (argmax over int8 or plane-packed int4
-// codes, bf16 hidden rows). The fp32 instances, and topk_verify_q.cu, keep
-// the streaming body of lm_head_stream.cuh.
+// bf16 head), argmax_verify_q.cu and topk_verify_q.cu (argmax and top-k
+// over int8 or plane-packed int4 codes, bf16 hidden rows). The fp32
+// instances keep the streaming body of lm_head_stream.cuh.
 //
 // Grid: (row tiles, vocabulary strips), as argmax_partial's. A CTA owns a
 // strip of LM_BN = 128 columns and a tile of 16 * MT * WM rows of the
@@ -171,6 +171,13 @@ struct ByteTile {
   static constexpr int WS = LM_BN + 16;           // padded row, bytes
   const int8_t* q;
   const float* s;
+
+  // stage's copy width in bytes for a (., V) code array: 16, 4 or 0
+  // (element loads, e.g. for an odd V); mamba2's V = 50280 takes 4
+  int copy_width(int V) const {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(q);
+    return V % 16 == 0 && a % 16 == 0 ? 16 : V % 4 == 0 && a % 4 == 0 ? 4 : 0;
+  }
 
   template <int BK, int NTH>
   __device__ __forceinline__ void stage(unsigned char* ws, int k0, int Dp,

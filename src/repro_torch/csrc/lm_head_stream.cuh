@@ -1,15 +1,14 @@
 // Streaming LM-head product on the fp32 CUDA cores, shared by the fp32
-// instances of argmax_verify.cu, topk_verify.cu and argmax_verify_q.cu and
-// by both instances of topk_verify_q.cu. The bf16 instances of the first
-// three run the tensor-core tile of lm_head_mma.cuh instead.
+// instances of argmax_verify.cu, topk_verify.cu, argmax_verify_q.cu and
+// topk_verify_q.cu. Their bf16 instances run the tensor-core tile of
+// lm_head_mma.cuh instead.
 //
 // Bound on the H100: one column per thread and a 2-byte load per bf16
 // element keep ~4 KB in flight per 128-thread CTA (LH_UNROLL loads a
 // thread), far too little to hide device-memory latency, so these kernels
 // are bound by load latency, not bytes (3.4x the byte bound at B=4 in
 // bf16); at 160-320 rows the fp32 multiply-adds bound them (0.63-1.25 ms at
-// the 67 TFLOP/s fp32 peak). lm_head_mma.cuh is the way out for the
-// quantized top-k too: its code readers and its top-k epilogue.
+// the 67 TFLOP/s fp32 peak).
 //
 // Grid: (row groups, vocabulary strips). A CTA owns LH_THREADS consecutive
 // vocabulary columns, one per thread, and a group of at most LH_ROWS rows

@@ -1,24 +1,27 @@
-// Speculative LM-head gather-dot shared by spec_head.cu and spec_head_q.cu:
-// one CTA of SH_THREADS threads computes, for one row,
+// Speculative LM-head gather-dot of spec_head_q.cu (the quantized tree
+// gate): one CTA of SH_THREADS threads computes, for one row,
 //   logits[j] = hn_row . W[:, ids_row[j]]     (j < k, fp32)
 // over the (D, V) row-major head, read through a column reader
-// (common.cuh): fp weights, int8 codes, or plane-packed int4 bytes, where
-// one byte at stored row d < D/2 feeds hidden entries d and d + D/2 and a
-// column's sum is multiplied by its scale after the block reduction. Both
-// kernels take this one body. The fused exit gate (exit_gate.cu) spreads
-// a row over a cluster of CTAs instead (spec_slice.cuh): the same products,
-// summed in another order.
+// (common.cuh): int8 codes, or plane-packed int4 bytes, where one byte at
+// stored row d < D/2 feeds hidden entries d and d + D/2 and a column's sum
+// is multiplied by its scale after the block reduction. The fused exit
+// gates (exit_gate.cu, exit_gate_q.cu) spread a row over a cluster of
+// CTAs instead (spec_slice.cuh): the same products, summed in another
+// order. The fp spec head no longer runs this body: spec_head_gather.cu
+// and spec_head.cu split it into a gather and a dot.
 //
 // Layout choice: the head stays (D, V) row-major, shared with the verify
 // kernels, and the gather reads W[d, ids[j]] for every d — a strided read
 // with a stride of V elements. Each of those reads costs one 32-byte
 // sector, so a row moves k * D * 32 B (4 * 4096 * 32 B = 512 KB) from memory
-// or L2 for k * D * sizeof(T) useful bytes (32 KB in bf16). A V-major copy
-// of the head would make the gather contiguous but costs another 262 MB of
-// card memory for Llama-2-7B. At decode batch (B <= 8 rows: <= 4 MB per exit
-// point) and for the tree gate (B*N = 160-320 node rows: 80-160 MB of
-// sectors per exit point, much of it L2 hits because sibling nodes share
-// parents' candidate columns) the strided gather is the cheaper side.
+// or L2 for k * D * sizeof(T) useful bytes (32 KB in bf16). Three ways to
+// pay less: a V-major copy of the head (contiguous columns, but another
+// copy of the head in card memory: 262 MB in bf16 for Llama-2-7B); a
+// gather of each distinct column once, into a contiguous buffer that the
+// dots then read (what the fp tree gate does since its ids are the step's
+// B*N node tokens: one gather per step instead of one per exit point,
+// spec_head_gather.cu); or fewer sectors per column (int4 halves them).
+// At decode batch (B <= 8 rows) the AR gates take the cluster body.
 //
 // Thread t sums d = t, t + SH_THREADS, ... in order; each warp reduces with
 // shuffles; thread j < k then adds the SH_THREADS / 32 warp sums in warp
@@ -89,7 +92,7 @@ __device__ __forceinline__ void spec_head_row(
   __syncthreads();
 }
 
-// One CTA per row r: logits[r, j] for j < k (spec_head.cu, spec_head_q.cu).
+// One CTA per row r: logits[r, j] for j < k (spec_head_q.cu).
 template <typename T, typename W>
 __global__ void __launch_bounds__(SH_THREADS)
 spec_head_kernel(const T* __restrict__ hn, W w, const int* __restrict__ ids,

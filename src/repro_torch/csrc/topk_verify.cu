@@ -30,9 +30,9 @@
 // The streaming body took 0.27 ms at B=4 and 2.15 / 4.11 ms at 160 / 320
 // rows, floored by load latency and then by the fp32 peak; the bf16 tile
 // reads the head once per tile of up to 256 rows. Numbers: PERF.md, from
-// chip_smoke.py and scripts/ab_argmax_verify.py. The streaming passes are
-// in topk_verify.cuh, shared with the quantized sibling topk_verify_q.cu.
-#include "lm_head_mma.cuh"
+// chip_smoke.py and scripts/ab_argmax_verify.py. Both bodies' passes are
+// launched from topk_verify.cuh, shared with the quantized sibling
+// topk_verify_q.cu (+ topk_verify_q4.cu).
 #include "topk_verify.cuh"
 
 extern "C" {
@@ -59,20 +59,9 @@ int topk_verify_launch(const void* hn, const void* w, void* pval, void* pidx,
         k > rt::TK_MAXK)
       return static_cast<int>(cudaErrorInvalidValue);
     const int vec = V % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    const rt::Bf16Tile head{static_cast<const __nv_bfloat16*>(w)};
-    const int err = rt::lm_mma_dispatch(R, [&](auto mt, auto wm) {
-      constexpr int MT = decltype(mt)::value, WM = decltype(wm)::value;
-      return k <= 4 ? rt::topk_partial_mma_launch<rt::Bf16Tile, 4, MT, WM>(
-                          hn, head, pval, pidx, R, D, V, k, vec, st)
-                    : rt::topk_partial_mma_launch<rt::Bf16Tile, 8, MT, WM>(
-                          hn, head, pval, pidx, R, D, V, k, vec, st);
-    });
-    if (err != 0) return err;
-    const int nblk = (V + rt::LM_BN - 1) / rt::LM_BN;
-    rt::topk_merge<rt::Bf16Tile><<<R, 256, 0, st>>>(
-        static_cast<const float*>(pval), static_cast<const int*>(pidx),
-        nblk * k, k, static_cast<int*>(ids), static_cast<float*>(vals));
-    return static_cast<int>(cudaGetLastError());
+    return rt::topk_mma_run(hn,
+                            rt::Bf16Tile{static_cast<const __nv_bfloat16*>(w)},
+                            pval, pidx, ids, vals, R, D, V, k, vec, st);
   }
   return rt::topk_verify_run<float>(
       hn, rt::FpCols<float>{static_cast<const float*>(w)}, pval, pidx, ids,

@@ -1,9 +1,11 @@
-// Streaming LM-head top-k, the two passes and their launch, over any
-// column reader (common.cuh); topk_verify.cu instantiates it for fp32
-// hidden rows (and topk_merge for its bf16 tile too), topk_verify_q.cu for
-// int8 and int4 codes. See topk_verify.cu.
+// LM-head top-k: the streaming passes and their launch, over any column
+// reader (common.cuh), and the launch of the tensor-core tile's passes
+// over any tile reader (lm_head_mma.cuh). topk_verify.cu instantiates them
+// for fp32 and bf16 hidden rows, topk_verify_q.cu and topk_verify_q4.cu
+// for int8 and int4 codes. See topk_verify.cu.
 #pragma once
 
+#include "lm_head_mma.cuh"
 #include "lm_head_stream.cuh"
 
 namespace rt {
@@ -102,6 +104,31 @@ int topk_verify_run(const void* hn, W w, void* pval, void* pidx, void* ids,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   topk_merge<W><<<R, 256, 0, st>>>(static_cast<const float*>(pval),
+                                   static_cast<const int*>(pidx), nblk * k, k,
+                                   static_cast<int*>(ids),
+                                   static_cast<float*>(vals));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 tile's two passes on `stream`: topk_partial_mma over head
+// reader H in the row tile lm_mma_dispatch picks for R (lists of KP = 4
+// for k <= 4, else 8), then topk_merge; returns the first launch error.
+// vec is H's copy flag (Bf16Tile: 0 or 1; ByteTile: copy_width's bytes);
+// pval/pidx: (R, ceil(V / LM_BN), k) scratch; 1 <= k <= TK_MAXK.
+template <typename H>
+static int topk_mma_run(const void* hn, H head, void* pval, void* pidx,
+                        void* ids, void* vals, int R, int D, int V, int k,
+                        int vec, cudaStream_t st) {
+  const int err = lm_mma_dispatch(R, [&](auto mt, auto wm) {
+    constexpr int MT = decltype(mt)::value, WM = decltype(wm)::value;
+    return k <= 4 ? topk_partial_mma_launch<H, 4, MT, WM>(
+                        hn, head, pval, pidx, R, D, V, k, vec, st)
+                  : topk_partial_mma_launch<H, 8, MT, WM>(
+                        hn, head, pval, pidx, R, D, V, k, vec, st);
+  });
+  if (err != 0) return err;
+  const int nblk = (V + LM_BN - 1) / LM_BN;
+  topk_merge<H><<<R, 256, 0, st>>>(static_cast<const float*>(pval),
                                    static_cast<const int*>(pidx), nblk * k, k,
                                    static_cast<int*>(ids),
                                    static_cast<float*>(vals));

@@ -9,7 +9,9 @@ Each kernel package ships:
 launched its kernel, never for the plain version), so a run can show that a
 path went through the kernels. The quantized kernels (``*_q``: weight-only
 quantization's, and the paged decode attention over an int8 KV cache)
-count under their own names, so a run also shows which path it took.
+count under their own names, so a run also shows which path it took. The
+fp spec head's two stages count as ``spec_head_gather`` (the column
+gather) and ``spec_head`` (the dot over the gathered columns).
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ LAUNCHES: Dict[str, int] = {"exit_gate": 0, "argmax_verify": 0,
                             "topk_verify_q": 0, "spec_head_q": 0,
                             "predictor_mlp_q": 0,
                             "paged_decode_attention_q": 0,
-                            "ssd_chunk": 0, "exit_gate_q": 0}
+                            "ssd_chunk": 0, "exit_gate_q": 0,
+                            "spec_head_gather": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -16,11 +16,10 @@ kernels in ``repro/kernels/exit_gate/exit_gate.py``).
                           and csrc/topk_verify_q.cu: the same over a
                           quantized head (``repro_torch.quant.QTensor``,
                           int8 or plane-packed int4 codes + column scales).
-Every verify takes any row count. With bf16 hidden rows the argmax, the
-top-k and the quantized argmax run the tensor-core tile of
-``csrc/lm_head_mma.cuh`` (row tiles of up to 256 rows; they refuse hidden
-rows that the tile cannot copy 16 bytes at a time); fp32 hidden rows, and
-the quantized top-k, stream on the CUDA cores (groups of 8 rows per CTA).
+Every verify takes any row count. With bf16 hidden rows all four run the
+tensor-core tile of ``csrc/lm_head_mma.cuh`` (row tiles of up to 256 rows;
+they refuse hidden rows that the tile cannot copy 16 bytes at a time);
+fp32 hidden rows stream on the CUDA cores (groups of 8 rows per CTA).
 
 On a CPU tensor each wrapper runs its plain version from ``ref.py``; on a
 CUDA tensor it launches its kernel (counted in ``kernels.LAUNCHES``) or
@@ -255,6 +254,7 @@ def topk_verify_fused_q(hn: torch.Tensor, qt: QTensor, k: int
     if K.runs_plain(hn):
         return gate_ref.verify_topk_q_ref(hn, qt, k)
     B, D, V, dev, nblk = _stream_args_q("topk_verify_q", hn, qt)
+    _check_tile_rows("topk_verify_q", hn, 16 if qt.bits == 4 else 8)
     if not 1 <= k <= min(V, build.c_func("topk_verify_q",
                                          "topk_verify_q_max_k", [])()):
         raise ValueError(f"topk_verify_q kernel: unsupported k={k}")

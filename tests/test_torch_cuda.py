@@ -291,7 +291,7 @@ def test_spec_head_kernel_matches_plain(dev, dtype, R):
     reset_launches()
     got = spec_head_logits(hn, w, ids)
     torch.cuda.synchronize()
-    assert LAUNCHES["spec_head"] == 1
+    assert LAUNCHES["spec_head_gather"] == 1 and LAUNCHES["spec_head"] == 1
     torch.testing.assert_close(got, spec_logits_ref(hn, w, ids), atol=1e-4,
                                rtol=1e-4)
 
@@ -351,7 +351,8 @@ def test_tree_kernels_match_plain_path(dev, cache):
         assert outs[0] == outs[1]
         assert LAUNCHES["argmax_verify"] > 0
         if thresh < 1:
-            assert LAUNCHES["spec_head"] > 0
+            # the node columns gathered once per step, a dot per exit point
+            assert 0 < LAUNCHES["spec_head_gather"] <= LAUNCHES["spec_head"]
             assert LAUNCHES["predictor_mlp"] > 0
 
 
@@ -499,6 +500,7 @@ def test_quant_engine_kernels_match_plain_path(dev, strategy, spec):
         # the tree gate keeps its pieces around the hyper-token merge
         assert LAUNCHES["spec_head_q"] > 0 and LAUNCHES["predictor_mlp_q"] > 0
         assert LAUNCHES["exit_gate_q"] == 0
+    assert LAUNCHES["spec_head"] == LAUNCHES["spec_head_gather"] == 0
 
 
 def _int8_pools(gen, dev, n_pages, ps, kvh, hd):
@@ -1004,13 +1006,14 @@ def test_argmax_verify_q_bf16_mma_matches_plain(dev, R, D, V, bits):
     torch.testing.assert_close(mx, mx_f, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("kernel", ["topk", "int8", "int4"])
+@pytest.mark.parametrize("kernel", ["topk", "int8", "int4", "topk_int8",
+                                    "topk_int4"])
 @pytest.mark.parametrize("D,V", [(768, 50280), (4096, 32000)])
 def test_verify_bf16_tiles_row_alone_bit_identical(dev, kernel, D, V):
-    """The bf16 top-k and the bf16-input quantized argmax give a row
-    bit-identical values whether it is verified alone, in a batch of 8 or
-    inside the 160 node rows of a tree step (one, one and two row tiles of
-    different heights)."""
+    """The bf16 top-k and the bf16-input quantized argmax and top-k give a
+    row bit-identical values whether it is verified alone, in a batch of 8
+    or inside the 160 node rows of a tree step (one, one and two row tiles
+    of different heights)."""
     from repro_torch.kernels.exit_gate import exit_gate as eg
     gen = torch.Generator(device=dev).manual_seed(D + len(kernel))
     hn = _rand(gen, (160, D), dev, torch.bfloat16)
@@ -1019,6 +1022,11 @@ def test_verify_bf16_tiles_row_alone_bit_identical(dev, kernel, D, V):
 
         def run(x):
             return eg.topk_verify_fused(x, w, 4)
+    elif kernel.startswith("topk_"):
+        qt = _quant_head(gen, dev, 8 if kernel == "topk_int8" else 4, D, V)
+
+        def run(x):
+            return eg.topk_verify_fused_q(x, qt, 4)
     else:
         qt = _quant_head(gen, dev, 8 if kernel == "int8" else 4, D, V)
 
@@ -1269,3 +1277,182 @@ def test_exit_gate_q_refuses_before_any_launch(dev):
         eg.exit_gate_fused_q(hn, w, ids, prev, fp1, fp2)
     torch.cuda.synchronize()
     assert all(v == 0 for v in LAUNCHES.values())
+
+
+# ---- the quantized top-k on the tensor-core tile ----
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("D,V", [(512, 3008), (768, 50280), (512, 3001)])
+@pytest.mark.parametrize("R", [1, 4, 8, 33, 160, 320])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_topk_verify_q_bf16_mma_matches_plain(dev, bits, R, D, V, k):
+    """topk_verify_q with bf16 hidden rows on the tensor-core tile (int8
+    codes or plane-packed int4 bytes made bf16 in registers, the top-k
+    epilogue) at every row-tile choice, k up to its limit and each head
+    staging (16-byte copies at V = 3008, 4-byte at V = 50280, element
+    loads at V = 3001): ids equal the plain version's (value descending,
+    then id ascending), values atol = rtol = 1e-4; ties planted inside one
+    MMA tile and across strips (codes and scale copied) come out lowest id
+    first; and the first column is argmax_verify_q's result on the same
+    inputs, the value bit-equal (one main loop, one k-order)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    gen = torch.Generator(device=dev).manual_seed(R * 7 + D + V + k + bits)
+    qt = _quant_head(gen, dev, bits, D, V)
+    hn = _rand(gen, (R, D), dev, torch.bfloat16)
+    lowest = _plant_ties_q_mma(qt, hn, R - 1)
+    reset_launches()
+    ids, vals = eg.topk_verify_fused_q(hn, qt, k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["topk_verify_q"] == 1 and sum(LAUNCHES.values()) == 1
+    ids_r, vals_r = ref.verify_topk_q_ref(hn, qt, k)
+    assert torch.equal(ids, ids_r)
+    assert int(ids[R - 1, 0]) == lowest
+    torch.testing.assert_close(vals, vals_r, atol=1e-4, rtol=1e-4)
+    tok, mx = eg.argmax_verify_fused_q(hn, qt)
+    assert torch.equal(ids[:, 0], tok) and torch.equal(vals[:, 0], mx)
+
+
+def test_topk_verify_q_refuses_before_any_launch(dev):
+    """The bf16-input quantized top-k refuses hidden rows the tile cannot
+    copy 16 bytes at a time (int8: D % 8 != 0; int4: D % 16 != 0, whose
+    high half must start 16-byte aligned; a start off 16 bytes) and k above
+    its limit, with a ValueError before any launch; fp32 hidden rows of the
+    same widths still stream and give the plain version's ids."""
+    from repro_torch.kernels import LAUNCHES, build, reset_launches
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bf = torch.bfloat16
+    reset_launches()
+    hn = _rand(gen, (4, 100), dev, bf)
+    q8 = _quant_head(gen, dev, 8, 100, 1000)
+    with pytest.raises(ValueError, match="D % 8"):
+        eg.topk_verify_fused_q(hn, q8, 4)
+    h24 = _rand(gen, (4, 24), dev, bf)
+    q4 = _quant_head(gen, dev, 4, 24, 1000)
+    with pytest.raises(ValueError, match="D % 16"):
+        eg.topk_verify_fused_q(h24, q4, 4)
+    off = torch.empty(4 * 128 + 1, device=dev, dtype=bf)[1:].view(4, 128)
+    off.copy_(_rand(gen, (4, 128), dev, bf))
+    with pytest.raises(ValueError, match="aligned"):
+        eg.topk_verify_fused_q(off, _quant_head(gen, dev, 8, 128, 1000), 4)
+    k = build.c_func("topk_verify_q", "topk_verify_q_max_k", [])() + 1
+    with pytest.raises(ValueError, match="k="):
+        eg.topk_verify_fused_q(off.clone(),
+                               _quant_head(gen, dev, 8, 128, 1000), k)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in LAUNCHES.values())
+    for x, qt in ((hn, q8), (h24, q4)):
+        ids, _ = eg.topk_verify_fused_q(x.float(), qt, 4)
+        assert torch.equal(ids, ref.verify_topk_q_ref(x.float(), qt, 4)[0])
+
+
+# ---- the fp spec head in two stages: column gather, then dot ----
+def _tree_shaped(gen, dev, B, V, k=4, depth=3, branch=3):
+    """Node tokens (B, N) with ids 0 and V - 1 and repeats, and rows of the
+    gathered node columns (B*N, k) as the tree step builds them."""
+    from repro_torch.core.tree import TreeSpec
+    tree = TreeSpec(depth, branch)
+    N = tree.num_nodes
+    toks = torch.randint(0, V, (B, N), generator=gen, device=dev,
+                         dtype=torch.int32)
+    toks[0, :4] = torch.tensor([0, V - 1, V - 1, 0], dtype=torch.int32)
+    child = torch.as_tensor(tree.children, device=dev).long().clamp(min=0)
+    if branch < k:
+        child = torch.cat([child, child[:, :1].expand(N, k - branch)], 1)
+    child = child[:, :k]
+    rows = (torch.arange(B, device=dev)[:, None, None] * N
+            + child[None]).reshape(B * N, k).to(torch.int32)
+    return toks, rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,V", [(512, 3001), (4096, 32000)])
+@pytest.mark.parametrize("C", [1, 5, 160, 320])
+def test_spec_head_gather_is_exact(dev, C, D, V, dtype):
+    """The column gather: an exact (bit-equal) copy of the plain version's
+    columns, ids 0, V - 1, repeated and out of range (clamped to [0, V))
+    among them; one launch."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.spec_head.ref import spec_gather_ref
+    from repro_torch.kernels.spec_head.spec_head import spec_head_gather
+    gen = torch.Generator(device=dev).manual_seed(C + D)
+    w = _rand(gen, (D, V), dev, dtype, 0.05)
+    ids = torch.randint(0, V, (C,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    edge = torch.tensor([0, V - 1, V - 1, -4, V + 9], dtype=torch.int32,
+                        device=dev)
+    ids[:min(C, 5)] = edge[:min(C, 5)]
+    reset_launches()
+    cols = spec_head_gather(w, ids)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spec_head_gather"] == 1 and sum(LAUNCHES.values()) == 1
+    assert cols.dtype == dtype and cols.shape == (C, D)
+    assert torch.equal(cols, spec_gather_ref(w, ids))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,V", [(512, 3001), (4096, 32000), (100, 999)])
+@pytest.mark.parametrize("R", [1, 5, 160, 320])
+def test_spec_head_dot_matches_plain(dev, R, D, V, dtype):
+    """The dot over gathered columns against its plain version, atol = rtol
+    = 1e-4 (fp32 sums in another order): on tree-shaped rows (the node
+    columns of B = R // 40 rows of a TreeSpec(3, 3) step, gathered once)
+    where R is a whole number of trees, else on rows of R*k gathered ids;
+    D = 100 in bf16 takes the element path. Two calls are bit-equal, and a
+    row's logits do not depend on the rows beside it."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.spec_head.ref import spec_dot_ref
+    from repro_torch.kernels.spec_head.spec_head import (spec_head_dot,
+                                                         spec_head_gather)
+    gen = torch.Generator(device=dev).manual_seed(R + D)
+    w = _rand(gen, (D, V), dev, dtype, 0.05)
+    if R % 40 == 0:
+        toks, rows = _tree_shaped(gen, dev, R // 40, V)
+        ids = toks.reshape(-1)
+    else:
+        ids = torch.randint(0, V, (R * 4,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[:4] = torch.tensor([0, V - 1, V - 1, 0], dtype=torch.int32)
+        rows = torch.arange(R * 4, device=dev, dtype=torch.int32).view(R, 4)
+    hn = _rand(gen, (R, D), dev, dtype)
+    cols = spec_head_gather(w, ids)
+    reset_launches()
+    got = spec_head_dot(hn, cols, rows)
+    again = spec_head_dot(hn, cols, rows)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spec_head"] == 2 and sum(LAUNCHES.values()) == 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, spec_dot_ref(hn, cols, rows), atol=1e-4,
+                               rtol=1e-4)
+    alone = spec_head_dot(hn[-1:].clone(), cols, rows[-1:].clone())
+    assert torch.equal(alone[0], got[-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spec_head_two_stages_on_tree_ids(dev, dtype):
+    """One step's composition at Llama-2-7B widths: the node tokens of a
+    B = 4 TreeSpec(3, 3) step gathered once, dotted with the nodes'
+    children, equal spec_head_logits on the children's ids and the plain
+    version (atol = rtol = 1e-4); spec_head_logits itself is one gather
+    and one dot."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.spec_head.ref import spec_logits_ref
+    from repro_torch.kernels.spec_head.spec_head import (spec_head_dot,
+                                                         spec_head_gather,
+                                                         spec_head_logits)
+    gen = torch.Generator(device=dev).manual_seed(160)
+    D, V = 4096, 32000
+    toks, rows = _tree_shaped(gen, dev, 4, V)
+    w = _rand(gen, (D, V), dev, dtype, 0.05)
+    hn = _rand(gen, (rows.shape[0], D), dev, dtype)
+    ids = toks.reshape(-1)[rows.long()].contiguous()
+    got = spec_head_dot(hn, spec_head_gather(w, toks.reshape(-1)), rows)
+    reset_launches()
+    direct = spec_head_logits(hn, w, ids)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spec_head_gather"] == 1 and LAUNCHES["spec_head"] == 1
+    assert torch.equal(got, direct)
+    torch.testing.assert_close(got, spec_logits_ref(hn, w, ids), atol=1e-4,
+                               rtol=1e-4)
