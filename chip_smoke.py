@@ -13,7 +13,7 @@ and serves Mamba2 (mamba2-130m) with the SSD intra-chunk kernel.
 
 Phases (lines ``[phase +seconds since the start] ...``):
   1. device + build — the card's name and power limit, then ``nvcc`` builds
-     the sixteen kernels of ``src/repro_torch/csrc`` for sm_90a (in
+     the seventeen kernels of ``src/repro_torch/csrc`` for sm_90a (in
      parallel);
   2. kernels — each kernel vs its plain version in fp32 and bf16 at the
      main paths' shapes (B=4, D=4096, V=32000, k=4, H=512, 32 heads of 128;
@@ -39,21 +39,27 @@ Phases (lines ``[phase +seconds since the start] ...``):
      once, the nodes' children read from them; timed both ways),
      predictor_mlp (R in {1, 108, 216}) and the verify kernels at R in
      {9, 160, 320} with planted ties, timed at R = 8/160/320; then the
-     four quantized kernels (argmax_verify_q, topk_verify_q, spec_head_q,
+     quantized kernels (argmax_verify_q, topk_verify_q, the quantized spec
+     head's two stages spec_head_gather_q and the spec_head_q dot, and
      predictor_mlp_q) in int8 and int4 with fp32 and bf16 activations at
      R in {4, 160, 320} (the MLP at {4, 108, 216}), planted ties and edge
      ids, against their plain versions and the fp kernels on the
      dequantized head (bf16 rows: top-k_q's first column bit-equal to
-     argmax_q's max), timed in bf16 beside the fp kernel on the
+     argmax_q's max; the spec head also at a tree step's ids, B = 4 and 8,
+     its gather bit-equal), timed in bf16 beside the fp kernel on the
      dequantized bf16 head (a yardstick: no one PyTorch call computes the
-     same function); then the quantized exit gate (exit_gate_q: fp32 and
+     same function; the spec head's stages at the tree's ids, the gather
+     beside index_select, with a step's gather + dots and the per-call
+     composition at the step's and at random ids, the predictor at R in
+     {4, 108, 216}); then the quantized exit gate (exit_gate_q: fp32 and
      bf16 hidden rows, B in {1, 4, 8, 33}, Llama-2-7B's and mamba2-130m's
      widths, every (head, bank) pair of fp / int8 / int4 but the fp one,
      k in {1, 3, 4}, ids 0, V-1, repeated and out of range, two calls
      bit-equal) against its plain version, timed in bf16 at B = 4 and 8
      (int8, int4) beside the plain version, the piecewise chain it
-     replaced (spec_head_q, softmax, difference, concatenation,
-     predictor_mlp_q) in one CUDA graph as a yardstick, its byte bound and
+     replaced (the quantized spec head, softmax, difference,
+     concatenation, predictor_mlp_q) in one CUDA graph as a yardstick, its
+     byte bound and
      its bound in 32-byte sectors; and the host time per call of the fp
      and the quantized gate (fused and piecewise) and verify entry points;
      then the SSD intra-chunk
@@ -116,9 +122,11 @@ Phases (lines ``[phase +seconds since the start] ...``):
      prompts, then a profile of its serving ticks; each run must launch
      every kernel its fp path launches, with the gate and verify kernels
      replaced by their quantized siblings (``quantized``: the AR and serve
-     gate by exit_gate_q, and neither spec_head_q nor predictor_mlp_q; the
-     tree gate by both), and none of exit_gate, argmax_verify and
-     topk_verify;
+     gate by exit_gate_q, and none of spec_head_gather_q, spec_head_q and
+     predictor_mlp_q; the tree gate by all three, spec_head_gather_q at
+     most once per step), and none of exit_gate, argmax_verify,
+     topk_verify, spec_head_gather and spec_head; then a profile of 3 more
+     whole-batch tree steps of each, by kernel family;
   8. kvq — the same weights with ModelFlags(kv_quant=True): phase 5's
      serve cell on int8 page pools, blocking and 256-token chunked, each
      compared with phase 5's run of the same admission (requests that
@@ -133,7 +141,7 @@ Phases (lines ``[phase +seconds since the start] ...``):
      16 requests with prompts of 64-512 tokens, 32 new tokens each; each
      must launch ssd_chunk (once per layer per prefill), exit_gate,
      argmax_verify and topk_verify; then profiles of steps and ticks;
- 10. the ``{"kernels": [...]}`` line (16 kernels), the card line, and as
+ 10. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
@@ -179,7 +187,9 @@ REPLACES = {
     "predictor_mlp": "src/repro/kernels/predictor_mlp/predictor_mlp.py:47",
     "argmax_verify_q": "src/repro/kernels/exit_gate/exit_gate.py:604",
     "topk_verify_q": "src/repro/kernels/exit_gate/exit_gate.py:647",
+    # the quantized spec head's two stages (code-column gather, then dot)
     "spec_head_q": "src/repro/kernels/spec_head/spec_head.py:152",
+    "spec_head_gather_q": "src/repro/kernels/spec_head/spec_head.py:152",
     "predictor_mlp_q":
         "src/repro/kernels/predictor_mlp/predictor_mlp.py:119",
     "paged_decode_attention_q":
@@ -191,9 +201,9 @@ REPLACES = {
                    "src/repro/kernels/predictor_mlp/predictor_mlp.py:119",
 }
 QUANT_KERNELS = ("argmax_verify_q", "topk_verify_q", "spec_head_q",
-                 "predictor_mlp_q", "exit_gate_q")
-# the quantized gate's two pieces, which only the tree gate launches
-PIECEWISE_Q = ("spec_head_q", "predictor_mlp_q")
+                 "predictor_mlp_q", "exit_gate_q", "spec_head_gather_q")
+# the quantized gate's pieces, which only the tree gate launches
+PIECEWISE_Q = ("spec_head_gather_q", "spec_head_q", "predictor_mlp_q")
 FP_GATE_KERNELS = ("exit_gate", "argmax_verify", "topk_verify")
 # the fp spec head's two stages, which no quantized path may launch
 FP_SPEC_HEAD = ("spec_head_gather", "spec_head")
@@ -212,13 +222,12 @@ TREE_PATH = ("spec_head_gather", "spec_head", "predictor_mlp",
 # gate and verify kernels in every decode step
 MAMBA_PATH = ("ssd_chunk", "exit_gate", "argmax_verify", "topk_verify")
 # Under weight quantization each gate or verify kernel becomes its
-# quantized sibling (the tree gate's pieces each theirs; the fp spec head's
-# column gather has none: spec_head_q gathers its columns itself);
-# attention is unchanged.
+# quantized sibling (the tree gate's pieces each theirs); attention is
+# unchanged.
 QUANTIZED = {"exit_gate": ("exit_gate_q",),
              "argmax_verify": ("argmax_verify_q",),
              "topk_verify": ("topk_verify_q",),
-             "spec_head_gather": (),
+             "spec_head_gather": ("spec_head_gather_q",),
              "spec_head": ("spec_head_q",),
              "predictor_mlp": ("predictor_mlp_q",)}
 
@@ -918,76 +927,20 @@ def check_tree_kernels(torch, dev):
     w = rnd((D, V), dt, 0.05)
     t, by_rows, sh_rows = {}, {}, {}
     for R in (160, 320):                    # B = 4 and 8 trees of 40 nodes
-        hn = rnd((R, D), dt)
-        # spec_head_logits alone at random ids (on no main path): a gather
-        # of the R*k ids, then the dot
-        id_sets = [ids_for(R) for _ in range(4)]
-        uniq = len(torch.unique(torch.cat(id_sets)))
-        rand_ms = graph_ms(torch, [lambda i=i: spec_head_logits(hn, w, i)
-                                   for i in id_sets] * 3)
-        rand_plain = graph_ms(torch, [lambda i=i: spec_logits_ref(hn, w, i)
-                                      for i in id_sets] * 3)
-        rand_bnd = bound_ms(R * D * 2 + uniq * D * 2 / len(id_sets)
-                            + R * K_SPEC * 8, 2 * R * K_SPEC * D, dname)
-        # a tree step's ids: the gather of its R = B*N node tokens (once
-        # per step; the head is 262 MB, so every call starts cold) ...
-        trees = [tree_ids(torch, dev, gen, R // 40) for _ in range(4)]
-        g_ms = graph_ms(torch, [lambda tk=tk: spec_head_gather(
-            w, tk.reshape(-1)) for tk, _, _ in trees] * 3)
-        g_plain = graph_ms(torch, [lambda tk=tk: spec_gather_ref(
-            w, tk.reshape(-1)) for tk, _, _ in trees] * 3)
-        # the same elements in one PyTorch call, (D, C) laid out
-        g_lib = graph_ms(torch, [lambda tk=tk: torch.index_select(
-            w, 1, tk.reshape(-1)) for tk, _, _ in trees] * 3)
-        g_bnd = bound_ms(2 * R * D * 2 + R * 4, 0, dname)
-        g_sectors = (R * D * 32 + R * D * 2 + R * 4) / HBM_BYTES_PER_S * 1e3
-        # ... and the dot at each exit point, on distinct hidden rows and
-        # column buffers (more than the 50 MB L2 in all: a layer's weights
-        # pass between two exit points)
-        n_sets = max(4, int(64e6 // (2 * R * D * 2)) + 1)
-        dots = []
-        for q in range(n_sets):
-            tk, rows, _ = trees[q % len(trees)]
-            dots.append((rnd((R, D), dt), spec_head_gather(w, tk.reshape(-1)),
-                         rows))
-        d_ms = graph_ms(torch, [lambda a=a, c=c, r=r: spec_head_dot(a, c, r)
-                                for a, c, r in dots])
-        d_plain = graph_ms(torch, [lambda a=a, c=c, r=r: spec_dot_ref(a, c, r)
-                                   for a, c, r in dots])
-        d_bnd = bound_ms(2 * R * D * 2 + R * K_SPEC * 8,
-                         2 * R * K_SPEC * D, dname)
-        # the per-call composition at the step's ids, as every exit point
-        # ran the spec head before the gather was hoisted
-        tree_call_ms = graph_ms(torch, [
-            lambda a=a, i=i: spec_head_logits(a, w, i)
-            for (a, _, _), (_, _, i) in zip(dots, trees * n_sets)])
-        del dots
-        step_ms = g_ms + 3 * d_ms
-        log("kernels", f"spec_head bf16, R={R} ({R // 40} trees of 40 "
-            f"nodes): gather of the {R} node tokens' columns "
-            f"(spec_head_gather) {g_ms:.4f} ms (plain {g_plain:.4f}, "
-            f"index_select {g_lib:.4f}, bound {g_bnd[0]:.4f} ms in bytes, "
-            f"{g_sectors:.4f} in 32-byte sectors); dot (spec_head) "
-            f"{d_ms:.4f} ms (plain {d_plain:.4f}, bound {d_bnd[0]:.4f} ms "
-            f"({d_bnd[1]})); one step's gather + 3 dots {step_ms:.4f} ms; "
-            f"spec_head_logits per call at the step's ids {tree_call_ms:.4f}"
-            f" ms, at random ids {rand_ms:.4f} ms (plain {rand_plain:.4f}, "
-            f"bound {rand_bnd[0]:.4f} ms ({rand_bnd[1]}))")
-        sh_rows[R] = {
-            "spec_head_gather": {
-                "ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib,
-                "bound_ms": g_bnd[0], "bound_by": g_bnd[1]},
-            "spec_head": {
-                "ms": d_ms, "plain_ms": d_plain, "library_ms": None,
-                "bound_ms": d_bnd[0], "bound_by": d_bnd[1],
-                "step_gather_plus_3_dots_ms": step_ms,
-                "spec_head_logits_tree_ids_ms": tree_call_ms,
-                "spec_head_logits_random_ids": {
-                    "ms": rand_ms, "plain_ms": rand_plain,
-                    "bound_ms": rand_bnd[0], "bound_by": rand_bnd[1]}}}
+        rows, times = spec_head_stage_times(
+            torch, dev, gen, rnd, rnd((R, D), dt), "spec_head bf16",
+            ("spec_head_gather", "spec_head"),
+            (lambda i: spec_head_gather(w, i),
+             lambda i: spec_gather_ref(w, i),
+             lambda i: torch.index_select(w, 1, i),
+             spec_head_dot, spec_dot_ref,
+             lambda a, i: spec_head_logits(a, w, i),
+             lambda a, i: spec_logits_ref(a, w, i)),
+            col_bytes=D * 2, col_sectors=D)
+        sh_rows[R] = rows
         if R == 160:                        # whole-batch tree, B=4 x 40
-            t["spec_head"] = (d_ms, d_plain, None, d_bnd)
-            t["spec_head_gather"] = (g_ms, g_plain, g_lib, g_bnd)
+            for name, row in times.items():
+                t[name] = row[:4]
     for R in (108, 216):
         x = rnd((R, F), torch.float32)
         w1 = rnd((F, H_PRED), torch.float32, F ** -0.5)
@@ -1105,19 +1058,26 @@ def check_quant_kernels(torch, dev):
     AR path's B=4 rows and the tree's R=160/320 (predictor MLP: B=4 and the
     tree's 108/216 paths), planted ties and edge ids; the verify and
     spec-head kernels also against the fp kernels on the dequantized fp32
-    head. Then bf16 timings beside the plain version, the fp kernel on the
-    dequantized bf16 head as a yardstick (no one PyTorch call computes the
-    same function), and the bound. Returns (max errors by kernel, timing
-    rows at B=4 for int8, {bits: {rows: timing row}})."""
+    head; the spec head also at a tree step's ids (its code-column gather
+    bit-equal). Then bf16 timings beside the plain version, the fp kernel
+    on the dequantized bf16 head as a yardstick (no one PyTorch call
+    computes the same function), and the bound: the spec head's two
+    stages at the tree's ids (R = 160, 320), the rest at B=4 too. Returns
+    (max errors by kernel, timing rows of int8 at B=4 and, for the spec
+    head, at R=160, {bits: {rows: timing row}}, {bits: {rows: the spec
+    head's timings at the tree's ids}})."""
     from repro_torch import quant
     from repro_torch.kernels.exit_gate import exit_gate as eg
     from repro_torch.kernels.exit_gate import ref as gref
     from repro_torch.kernels.predictor_mlp.predictor_mlp import (
         predictor_mlp_fused, predictor_mlp_fused_q)
     from repro_torch.kernels.predictor_mlp.ref import predictor_mlp_q_ref
-    from repro_torch.kernels.spec_head.ref import spec_logits_ref
-    from repro_torch.kernels.spec_head.spec_head import (spec_head_logits,
-                                                         spec_head_logits_q)
+    from repro_torch.kernels.spec_head.ref import (spec_dot_q_ref,
+                                                   spec_gather_q_ref,
+                                                   spec_logits_ref)
+    from repro_torch.kernels.spec_head.spec_head import (
+        spec_head_dot_q, spec_head_gather_q, spec_head_logits,
+        spec_head_logits_q)
 
     gen = torch.Generator(device=dev).manual_seed(2468)
 
@@ -1132,7 +1092,7 @@ def check_quant_kernels(torch, dev):
         return ids
 
     F = 3 * K_SPEC
-    errs = {k: 0.0 for k in QUANT_KERNELS}
+    errs = {k: 0.0 for k in QUANT_KERNELS}          # the gathers are exact
 
     def note(name, a, b, atol, rtol):
         # the kernels and the plain versions sum the same fp32 products of
@@ -1188,6 +1148,25 @@ def check_quant_kernels(torch, dev):
                 torch.testing.assert_close(got, spec_head_logits(
                     hn.float(), wdq, sids), atol=1e-4, rtol=1e-4)
                 del qt
+                if R == B:
+                    continue
+                # a tree step's ids (B = 4 and 8): the node tokens' code
+                # columns gathered once, the children read from them
+                toks, rws, t_ids = tree_ids(torch, dev, gen, R // 40)
+                cols = spec_head_gather_q(qt0, toks.reshape(-1))
+                want = spec_gather_q_ref(qt0, toks.reshape(-1))
+                require(torch.equal(cols.codes, want.codes)
+                        and torch.equal(cols.scales, want.scales),
+                        f"spec_head_gather_q differs from its plain version "
+                        f"({name}, {R // 40} trees)")
+                got = spec_head_dot_q(hn, cols, rws)
+                note("spec_head_q", got, spec_dot_q_ref(hn, cols, rws), 1e-4,
+                     1e-4)
+                torch.testing.assert_close(got, spec_logits_ref(
+                    hn, qt0, t_ids), atol=1e-4, rtol=1e-4)
+                require(torch.equal(got, spec_head_logits_q(hn, qt0, t_ids)),
+                        f"spec_head_q at tree ids: the step's composition "
+                        f"and spec_head_logits_q differ ({name})")
         for R in (B, 108, 216):
             x = rnd((R, F), torch.float32)
             q1 = quant.quantize_tensor(rnd((F, H_PRED), torch.float32,
@@ -1208,9 +1187,11 @@ def check_quant_kernels(torch, dev):
             f"{B}/160/320 (fp32 and bf16): ids exact (but for the near-ties "
             f"logged below), ties -> lowest id, "
             f"equal to the fp kernels on the dequantized head, bf16 top-k_q's "
-            f"first column bit-equal to argmax_q; spec_head_q "
+            f"first column bit-equal to argmax_q; spec_head_logits_q "
             f"(ids 0 and V-1, repeated) and predictor_mlp_q (R {B}/108/216) "
-            f"match their plain versions and the fp kernels")
+            f"match their plain versions and the fp kernels; at tree ids "
+            f"(R 160/320) spec_head_gather_q is bit-equal and the "
+            f"spec_head_q dot matches")
     log("kernels", "quantized kernels, max err over int8/int4 and fp32/"
         "bf16: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
     log("kernels", f"top-k_q: {len(near_ties)} rows of "
@@ -1222,7 +1203,7 @@ def check_quant_kernels(torch, dev):
     # Every int8 or int4 code is exact in bf16, so with bf16 hidden rows
     # the products' rate is the bf16 one (as for the fp kernels).
     dt, dname = torch.bfloat16, "bfloat16"
-    by_bits = {}
+    by_bits, sh_rows = {}, {}
     for bits in (8, 4):
         qt = quant.quantize_tensor(rnd((D, V), torch.float32, 0.05), bits)
         yard_w = qt.dequantize().to(dt)
@@ -1247,26 +1228,17 @@ def check_quant_kernels(torch, dev):
                              bound_ms(R * D * 2 + code_b + out_b,
                                       2 * R * D * V, dname),
                              graph_ms(torch, [yard] * n))
-            id_sets = [ids_for(R) for _ in range(4)]
-            uniq = len(torch.unique(torch.cat(id_sets)))
-            col_b = (D // 2 if bits == 4 else D) + 4
-            out["spec_head_q"] = (
-                graph_ms(torch, [lambda i=i: spec_head_logits_q(hn, qt, i)
-                                 for i in id_sets] * 3),
-                graph_ms(torch, [lambda i=i: spec_logits_ref(hn, qt, i)
-                                 for i in id_sets] * 3),
-                None,
-                bound_ms(R * D * 2 + uniq * col_b / len(id_sets)
-                         + R * K_SPEC * 8, 2 * R * K_SPEC * D, dname),
-                graph_ms(torch, [lambda i=i: spec_head_logits(hn, yard_w, i)
-                                 for i in id_sets] * 3))
+            if R != B:
+                out.update(quant_spec_head_times(
+                    torch, dev, gen, rnd, qt, yard_w, hn,
+                    sh_rows.setdefault(bits, {})))
             for name, (ms, p_ms, _, (b, by), y_ms) in out.items():
                 log("kernels", f"{name} int{bits}, bf16, R={R}: kernel "
                     f"{ms:.4f} ms, plain {p_ms:.4f} ms, fp kernel on the "
                     f"dequantized bf16 head {y_ms:.4f} ms, bound {b:.4f} ms "
                     f"({by})")
             rows[R] = out
-        for R in (B, 108):
+        for R in (B, 108, 216):
             x = rnd((R, F), torch.float32)
             q1 = quant.quantize_tensor(rnd((F, H_PRED), torch.float32,
                                            F ** -0.5), bits)
@@ -1299,15 +1271,157 @@ def check_quant_kernels(torch, dev):
         for R, row in rows.items():
             by_bits[bits].setdefault(R, {})["exit_gate_q"] = row
     host_gate_times(torch, dev, rnd)
-    timing = {name: by_bits[8][B][name] for name in QUANT_KERNELS}
-    return errs, timing, by_bits
+    timing = {name: by_bits[8][160 if name in ("spec_head_q",
+                                               "spec_head_gather_q") else B]
+              [name] for name in QUANT_KERNELS}
+    return errs, timing, by_bits, sh_rows
+
+
+def spec_head_stage_times(torch, dev, gen, rnd, hn, label, names, stages,
+                          col_bytes, col_sectors, yard=None):
+    """bf16 timings of a spec head's two stages at a tree step's ids (R =
+    hn's rows = B*N node rows, k = K_SPEC), the fp head's and the quantized
+    head's alike: the gather of the R node tokens' columns (once per step;
+    the head is 262 MB in bf16, 131 / 66 MB of int8 / int4 codes, so every
+    call starts cold) beside its plain version and ``torch.index_select``;
+    the dot at each exit point over distinct hidden rows and column buffers
+    (more than the 50 MB L2 in all: a layer's weights pass between two exit
+    points) beside its plain version; one CUDA graph of a step's gather then
+    3 dots; and the composed logits per call at the step's ids (as every
+    exit point ran the spec head before the gather was hoisted) and at
+    random ids (on no main path).
+
+    ``names`` = (gather, dot) kernel names; ``stages`` = (gather(ids),
+    gather_plain(ids), index_select(ids), dot(hn, cols, rows),
+    dot_plain(hn, cols, rows), logits(hn, ids), logits_plain(hn, ids));
+    ``col_bytes`` the bytes of one gathered column (its scale included),
+    ``col_sectors`` the 32-byte sectors that one column's gather reads;
+    ``yard`` an optional (gather(ids), dot(hn, cols, rows)) pair of the fp
+    stages on the dequantized bf16 head, timed beside the stages. Returns
+    ({name: row} for the kernels line, {name: (ms, plain, library, bound,
+    yardstick)})."""
+    gather, gather_plain, gather_lib, dot, dot_plain, logits, logits_plain = (
+        stages)
+    g_name, d_name = names
+    dname = "bfloat16"
+    R = hn.shape[0]
+    trees = [tree_ids(torch, dev, gen, R // 40) for _ in range(4)]
+    toks = [tk.reshape(-1) for tk, _, _ in trees]
+
+    def over_ids(fn):
+        return graph_ms(torch, [lambda t=t: fn(t) for t in toks] * 3)
+
+    def over_sets(fn, sets):
+        return graph_ms(torch, [lambda a=a, c=c, r=r: fn(a, c, r)
+                                for a, c, r in sets])
+
+    g_ms, g_plain, g_lib = (over_ids(gather), over_ids(gather_plain),
+                            over_ids(gather_lib))
+    # ids read, the columns read and written once
+    g_bnd = bound_ms(2 * R * col_bytes + R * 4, 0, dname)
+    g_sectors = ((R * col_sectors * 32 + R * col_bytes + R * 4)
+                 / HBM_BYTES_PER_S * 1e3)
+    n_sets = max(4, int(64e6 // (R * D * 2 + R * col_bytes)) + 1)
+    hns = [rnd((R, D), torch.bfloat16) for _ in range(n_sets)]
+    sets = [(a, gather(toks[q % 4]), trees[q % 4][1])
+            for q, a in enumerate(hns)]
+    d_ms, d_plain = over_sets(dot, sets), over_sets(dot_plain, sets)
+    d_bnd = bound_ms(R * D * 2 + R * col_bytes + 2 * R * K_SPEC * 4,
+                     2 * R * K_SPEC * D, dname)
+    y_ms = (None, None)
+    if yard is not None:
+        y_sets = [(a, yard[0](toks[q % 4]), trees[q % 4][1])
+                  for q, a in enumerate(hns)]
+        y_ms = (over_ids(yard[0]), over_sets(yard[1], y_sets))
+        del y_sets
+    del sets
+
+    def step(q):                            # a gather, a dot at 3 exit points
+        cols = gather(toks[q % 4])
+        for j in range(3):
+            dot(hns[(3 * q + j) % n_sets], cols, trees[q % 4][1])
+
+    step_ms = graph_ms(torch, [lambda q=q: step(q)
+                               for q in range(max(4, n_sets // 3))])
+    tree_call_ms = graph_ms(torch, [lambda a=a, q=q: logits(a, trees[q % 4][2])
+                                    for q, a in enumerate(hns)])
+    del hns
+    id_sets = []
+    for _ in range(4):
+        ids = torch.randint(0, V, (R, K_SPEC), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids[0] = torch.tensor([0, V - 1, V - 1, 0], dtype=torch.int32)
+        id_sets.append(ids)
+    uniq = len(torch.unique(torch.cat(id_sets)))
+    rand_ms = graph_ms(torch, [lambda i=i: logits(hn, i)
+                               for i in id_sets] * 3)
+    rand_plain = graph_ms(torch, [lambda i=i: logits_plain(hn, i)
+                                  for i in id_sets] * 3)
+    rand_bnd = bound_ms(R * D * 2 + uniq * col_bytes / len(id_sets)
+                        + R * K_SPEC * 8, 2 * R * K_SPEC * D, dname)
+    yard_g = (f", fp gather of the dequantized bf16 head {y_ms[0]:.4f}"
+              if yard is not None else "")
+    yard_d = (f", fp dot on the dequantized head's columns {y_ms[1]:.4f}"
+              if yard is not None else "")
+    log("kernels", f"{label}, R={R} ({R // 40} trees of 40 nodes): gather "
+        f"of the {R} node tokens' columns ({g_name}) {g_ms:.4f} ms (plain "
+        f"{g_plain:.4f}, index_select {g_lib:.4f}{yard_g}, bound "
+        f"{g_bnd[0]:.5f} ms in bytes, {g_sectors:.4f} in 32-byte sectors); "
+        f"dot ({d_name}) {d_ms:.4f} ms (plain {d_plain:.4f}{yard_d}, bound "
+        f"{d_bnd[0]:.5f} ms ({d_bnd[1]})); one step's gather then 3 dots, "
+        f"one graph, {step_ms:.4f} ms; per call at the step's ids "
+        f"{tree_call_ms:.4f} ms, at random ids {rand_ms:.4f} ms (plain "
+        f"{rand_plain:.4f}, bound {rand_bnd[0]:.5f} ms ({rand_bnd[1]}))")
+    rows = {
+        g_name: {"ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib,
+                 "bound_ms": g_bnd[0], "bound_by": g_bnd[1]},
+        d_name: {"ms": d_ms, "plain_ms": d_plain, "library_ms": None,
+                 "bound_ms": d_bnd[0], "bound_by": d_bnd[1],
+                 "step_gather_then_3_dots_ms": step_ms,
+                 "per_call_tree_ids_ms": tree_call_ms,
+                 "per_call_random_ids": {
+                     "ms": rand_ms, "plain_ms": rand_plain,
+                     "bound_ms": rand_bnd[0], "bound_by": rand_bnd[1]}}}
+    if yard is not None:
+        rows[g_name]["yardstick_ms"], rows[d_name]["yardstick_ms"] = y_ms
+    return rows, {g_name: (g_ms, g_plain, g_lib, g_bnd, y_ms[0]),
+                  d_name: (d_ms, d_plain, None, d_bnd, y_ms[1])}
+
+
+def quant_spec_head_times(torch, dev, gen, rnd, qt, yard_w, hn, sh_rows):
+    """The quantized spec head's two stages timed at a tree step's ids
+    (``spec_head_stage_times``), with the fp stages on the dequantized
+    bf16 head as the yardstick. Records the rows in ``sh_rows[R]``;
+    returns the two stages' timing rows (ms, plain, library, bound,
+    yardstick)."""
+    from repro_torch.kernels.spec_head.ref import (spec_dot_q_ref,
+                                                   spec_gather_q_ref,
+                                                   spec_logits_ref)
+    from repro_torch.kernels.spec_head.spec_head import (
+        spec_head_dot, spec_head_dot_q, spec_head_gather, spec_head_gather_q,
+        spec_head_logits_q)
+    Dp = qt.q.shape[0]
+    rows, times = spec_head_stage_times(
+        torch, dev, gen, rnd, hn, f"quantized spec head int{qt.bits} bf16",
+        ("spec_head_gather_q", "spec_head_q"),
+        (lambda i: spec_head_gather_q(qt, i),
+         lambda i: spec_gather_q_ref(qt, i),
+         lambda i: torch.index_select(qt.q, 1, i),
+         spec_head_dot_q, spec_dot_q_ref,
+         lambda a, i: spec_head_logits_q(a, qt, i),
+         lambda a, i: spec_logits_ref(a, qt, i)),
+        col_bytes=Dp + 4, col_sectors=Dp + 1,
+        yard=(lambda i: spec_head_gather(yard_w, i), spec_head_dot))
+    sh_rows[hn.shape[0]] = rows
+    return times
 
 
 def piecewise_gate_q(torch, hn, head, ids, prev, l1, l2):
-    """The quantized AR gate as the port ran it before exit_gate_q, five
-    launches: the spec-head kernel (the quantized one for a quantized
-    head) with its softmax, the difference, the concatenation, then the
-    predictor-MLP kernel (the quantized one for a quantized bank)."""
+    """The quantized AR gate as pieces, as the port ran it before
+    exit_gate_q: the spec-head kernels (over a quantized head its column
+    gather and its dot) with their softmax, the difference, the
+    concatenation, then the predictor-MLP kernel (the quantized one for a
+    quantized bank)."""
     from repro_torch.kernels.predictor_mlp.ops import predictor_mlp
     from repro_torch.kernels.spec_head.ops import spec_head
     logits, probs = spec_head(hn, head, ids)
@@ -1895,7 +2009,11 @@ def quant_parity(torch, dev, params, sw):
         notes.append(f"dense {cache}")
         greedy = [r.tokens[:, 0].tolist() for r in dense]
         for thresh in (1.5, -0.1):
-            a, _ = both(tree_strategy(thresh), spec, cache, new=12)
+            a, launched = both(tree_strategy(thresh), spec, cache, new=12)
+            # the node tokens' code columns gathered once per step, at most
+            require(0 < launched["spec_head_gather_q"] <= len(a) - 1
+                    <= launched["spec_head_q"], f"quant {spec} tree: "
+                    f"{launched} in {len(a) - 1} steps")
             if thresh > 1:
                 rows = [sum((r.row_tokens(b) for r in a), [])[:9]
                         for b in range(B)]
@@ -2413,7 +2531,8 @@ def _require_quant_path(launches, path, label):
 def quant_phase(torch, dev, params, sw):
     """Engine.create(quant="int8"), then "int4", on the phase-4 weights:
     whole-batch AR (B=4, prompt 128, 32 steps, dense cache; int8 then
-    profiled over 3 more steps) and a whole-batch tree run (4 steps); then
+    profiled over 3 more steps) and a whole-batch tree run (4 steps, then
+    profiled over 3 more); then
     ServingEngine(quant="int8", cache="paged") serving the first 8 serve
     prompts, profiled over 4 more ticks. Each run zeroes the launch counts
     right before and reads them right after; each engine is freed before
@@ -2506,6 +2625,10 @@ def quant_phase(torch, dev, params, sw):
                     for r in tsteps), "tree token out of vocabulary")
         tree_path = quantized(TREE_PATH)
         _require_quant_path(t_launch, TREE_PATH, f"quant {spec} tree")
+        require(t_launch["spec_head_gather_q"] <= QUANT_TREE_STEPS
+                and t_launch["spec_head_gather_q"]
+                <= t_launch["spec_head_q"], f"quant {spec} tree: the node "
+                f"columns gathered more than once a step ({t_launch})")
         tokens = sum(int(r.counts.sum()) for r in tsteps)
         log("quant", f"{spec} tree: {QUANT_TREE_STEPS} steps in "
             f"{t_tree:.3f} s = {t_tree / QUANT_TREE_STEPS * 1e3:.2f} ms/step,"
@@ -2515,6 +2638,8 @@ def quant_phase(torch, dev, params, sw):
                         f"({t_launch[k] / QUANT_TREE_STEPS:.2f}/step)"
                         for k in tree_path))
         by_path[f"quant_{spec}_tree"] = t_launch
+        profile_ticks(torch, f"profile-quant-{spec}-tree", session.step, 3,
+                      f" ({t_tree / QUANT_TREE_STEPS * 1e3:.2f} unprofiled)")
         del session, engine
         torch.cuda.empty_cache()
 
@@ -3071,8 +3196,10 @@ def mamba_phase(torch, dev):
 
 # where the device time of a decode step goes, by kernel family (the paged
 # kernels are pa::paged_split_kernel, the dense one pa::dense_split_kernel,
-# each with its merge in the same launch; the fp spec head's two stages
-# count as spec_head_gather and spec_head);
+# each with its merge in the same launch; the spec head's two stages count
+# as spec_head_gather and spec_head, over a quantized head as
+# spec_head_gather_q (the gather template on int8 codes, signed char) and
+# spec_head_q);
 # the quantized verify, spec-head and paged-attention kernels are the fp
 # ones' templates on an Int8Cols / Int4Cols / Int8Pools reader (the
 # quantized argmax and top-k with bf16 hidden rows: the tile's Int8Tile /
@@ -3083,8 +3210,10 @@ FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
             ("topk_verify", ("topk_partial", "topk_merge")),
             ("exit_gate", ("exit_gate_kernel",)),
             ("exit_gate_q", ("exit_gate_q_kernel",)),
-            ("spec_head_gather", ("spec_head_gather_kernel",)),
-            ("spec_head", ("spec_head_kernel", "spec_head_dot_kernel")),
+            ("spec_head_gather_q", ("spec_gather_kernel<signed char",)),
+            ("spec_head_gather", ("spec_gather_kernel",)),
+            ("spec_head_q", ("spec_head_q_dot_kernel",)),
+            ("spec_head", ("spec_head_dot_kernel",)),
             ("predictor_mlp", ("predictor_mlp_kernel",)),
             ("predictor_mlp_q", ("predictor_mlp_q_kernel",)),
             ("paged_decode_attention", ("paged_split_kernel",)),
@@ -3198,7 +3327,7 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0.0), err)
     timing.update(t_tree)
     torch.cuda.empty_cache()
-    errs_q, t_q, quant_rows = check_quant_kernels(torch, dev)
+    errs_q, t_q, quant_rows, qsh_rows = check_quant_kernels(torch, dev)
     errs.update(errs_q)
     timing.update(t_q)
     torch.cuda.empty_cache()
@@ -3244,10 +3373,10 @@ def main() -> int:
                 for R, r in verify_rows.items()}
         if name in ("spec_head", "spec_head_gather"):
             # R = 160 above (a B = 4 tree step's node rows), B = 8's 320
-            # here; the dot's with a step's gather + 3 dots and the
-            # composed spec_head_logits per call at tree and random ids.
-            # The gather's library_ms is torch.index_select(w, 1, ids): the
-            # same elements laid out (D, C).
+            # here; the dot's with one graph of a step's gather then 3 dots
+            # and the composed spec_head_logits per call at tree and random
+            # ids. The gather's library_ms is torch.index_select(w, 1, ids):
+            # the same elements laid out (D, C).
             row["at_rows"] = {str(R): r[name] for R, r in sh_rows.items()}
         if name == "decode_attention":
             # the full run's 150 live keys above; longer contexts here
@@ -3269,8 +3398,20 @@ def main() -> int:
             # library_ms is null: no one PyTorch call takes int8 codes
             row["yardstick_ms"] = timing[name][4]    # SDPA, dequantized
             row["fp_kernel_ms"] = timing[name][5]    # at the same keys
+        if name in ("spec_head_q", "spec_head_gather_q"):
+            # int8 at R = 160 above (a B = 4 tree step's node rows); every
+            # measured row count, int8 and int4, at the tree's ids: the
+            # dot's with one graph of a step's gather then 3 dots and the
+            # composed spec_head_logits_q per call at tree and random ids,
+            # both stages' with the fp stages on the dequantized head. The
+            # gather's library_ms is torch.index_select(codes, 1, ids):
+            # the codes alone, laid out (Dp, C).
+            row["at_rows"] = {f"int{bits}": {str(R): r[name]
+                                             for R, r in rows.items()}
+                              for bits, rows in qsh_rows.items()}
         if name in QUANT_KERNELS:
-            # int8 at B=4 above; every measured shape, int8 and int4, with
+            # int8 at B=4 above (the spec head: R=160); every measured
+            # shape, int8 and int4, with
             # the fp kernel on the dequantized bf16 head as a yardstick
             # (the quantized gate's: the piecewise chain it replaced)
             row["yardstick_ms"] = timing[name][4]

@@ -22,22 +22,34 @@ def build(tag: str, src_dir: Path, name: str, out: Path):
     headers first, then this tree's) with the port's nvcc flags; returns
     (loaded library, path, ptxas report: each kernel's name, spills and
     registers)."""
+    return build_many([(tag, src_dir, name, out)])[0]
+
+
+def build_many(jobs):
+    """``build`` for each (tag, src_dir, name, out) of ``jobs``, one nvcc
+    each, all started at once; returns their results in order."""
     from repro_torch.kernels import build as kbuild
-    out.mkdir(parents=True, exist_ok=True)
-    so = out / f"{tag}_{name}.so"
-    srcs = [src_dir / f"{p}.cu" for p in kbuild.parts(name)
-            if (src_dir / f"{p}.cu").exists()]
-    proc = subprocess.run(
-        [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-I", str(src_dir), "-I",
-         str(CSRC), "-o", str(so), *map(str, srcs)],
-        capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc {tag} {name} failed:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    report = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-              if "Compiling entry" in ln or "registers" in ln
-              or "spill" in ln]
-    return ctypes.CDLL(str(so)), so, report
+    procs = []
+    for tag, src_dir, name, out in jobs:
+        out.mkdir(parents=True, exist_ok=True)
+        so = out / f"{tag}_{name}.so"
+        srcs = [src_dir / f"{p}.cu" for p in kbuild.parts(name)
+                if (src_dir / f"{p}.cu").exists()]
+        procs.append((tag, name, so, subprocess.Popen(
+            [kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-I", str(src_dir), "-I",
+             str(CSRC), "-o", str(so), *map(str, srcs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs = [(tag, name, so, proc.communicate()[0], proc.returncode)
+            for tag, name, so, proc in procs]
+    results = []
+    for tag, name, so, log, rc in logs:
+        if rc:
+            raise RuntimeError(f"nvcc {tag} {name} failed:\n{log}")
+        report = [ln.strip() for ln in log.splitlines()
+                  if "Compiling entry" in ln or "registers" in ln
+                  or "spill" in ln]
+        results.append((ctypes.CDLL(str(so)), so, report))
+    return results
 
 
 def registers(report) -> str:

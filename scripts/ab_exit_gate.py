@@ -1,12 +1,9 @@
 #!/usr/bin/env python3
-"""A/B of the port's exit gates between another version of
-``src/repro_torch/csrc`` and this tree's, on one card: the fused fp gate
-(``csrc/exit_gate.cu``) against the other version's, the quantized
-spec-head kernel (``spec_head_q.cu``, on the gather header ``spec_head.cuh``)
-and ``predictor_mlp_q.cu``, and the quantized gate (``csrc/exit_gate_q.cu``)
-against the other version's piecewise quantized gate (its ``spec_head_q``,
-then the softmax, the difference and the concatenation in PyTorch, then its
-``predictor_mlp_q``: five launches).
+"""A/B of the port's fused exit gates between another version of
+``src/repro_torch/csrc`` and this tree's, on one card: the fp gate
+(``csrc/exit_gate.cu``) and the quantized gate (``csrc/exit_gate_q.cu``),
+both on the cluster body ``csrc/exit_gate.cuh`` (with the predictor's
+weight forms of ``csrc/predictor.cuh``), each against the other version's.
 
 Each version is built side by side with ``nvcc`` (the flags of
 ``repro_torch.kernels.build``) and timed in one process, in alternating
@@ -17,9 +14,8 @@ columns start cold): the fp gate at B = 4 and B = 8 rows of Llama-2-7B
 quantized gate with an int8 head and bank, and with int4 ones, at B = 4
 and B = 8 of both widths. Every gate output of each version is held
 against the plain version (``exit_gate_ref`` / ``exit_gate_q_ref``) at
-atol = rtol = 1e-4; the fp gates, ``spec_head_q`` (B = 4 and R = 160; int8
-and int4 codes) and ``predictor_mlp_q`` (R = 4, int8 and int4) must be
-bit-equal between the versions.
+atol = rtol = 1e-4, and every output must be bit-equal between the
+versions.
 
     git archive <commit> src/repro_torch/csrc | tar -x -C build/base
     python3 scripts/ab_exit_gate.py build/base/src/repro_torch/csrc
@@ -39,9 +35,8 @@ import ab_common as ab
 K_SPEC, H_PRED, N_SETS = 4, 512, 20
 F_PRED = 3 * K_SPEC
 # pointer and int arguments before the stream of each launch function
-C_ARGS = {"exit_gate": (11, 6), "spec_head_q": (5, 6),
-          "predictor_mlp_q": (8, 5), "exit_gate_q": (14, 9)}
-BASE_LIBS = ("exit_gate", "spec_head_q", "predictor_mlp_q")
+C_ARGS = {"exit_gate": (11, 6), "exit_gate_q": (14, 9)}
+LIBS = ("exit_gate", "exit_gate_q")
 GATES = (("gate B=4 D=4096", 4, 4096, 32000),
          ("gate B=8 D=4096", 8, 4096, 32000),
          ("gate B=4 D=768", 4, 768, 50280))
@@ -74,15 +69,14 @@ def main() -> int:
                                                    exit_gate_ref)
     from repro_torch.quant.core import quantize_tensor
     out_dir = ab.ROOT / "build" / "ab_gate"
+    jobs = [(tag, src, name, out_dir) for tag, src in (
+        ("base", Path(sys.argv[1]).resolve()), ("tree", ab.CSRC))
+        for name in LIBS]
     fns = {}
-    for tag, src, names in (
-            ("base", Path(sys.argv[1]).resolve(), BASE_LIBS),
-            ("tree", ab.CSRC, BASE_LIBS + ("exit_gate_q",))):
-        for name in names:
-            lib, _, report = ab.build(tag, src, name, out_dir)
-            print(f"{tag} {name}: {ab.registers(report)}", flush=True)
-            fns[(tag, name)] = ab.c_fn(lib, f"{name}_launch",
-                                       *C_ARGS[name])
+    for (tag, _, name, _), (lib, _, report) in zip(jobs,
+                                                   ab.build_many(jobs)):
+        print(f"{tag} {name}: {ab.registers(report)}", flush=True)
+        fns[(tag, name)] = ab.c_fn(lib, f"{name}_launch", *C_ARGS[name])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -103,7 +97,7 @@ def main() -> int:
     pred = {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
     qbank = {bits: (quantize_tensor(w1, bits), quantize_tensor(w2, bits))
              for bits in (8, 4)}
-    gate_cases, bounds, checks, fp_outs = {}, {}, [], {}
+    gate_cases, bounds, checks = {}, {}, []
     for label, B, D, V in GATES:
         hn, w = rnd((B, D)), rnd((D, V), scale=0.05)
         prev = torch.softmax(rnd((B, K_SPEC), torch.float32), -1)
@@ -124,7 +118,6 @@ def main() -> int:
         bounds[label] = gate_bounds(B, D)
         checks.append((label, calls, outs,
                        exit_gate_ref(hn, w, id_sets[0], prev, pred)))
-        fp_outs[label] = outs
 
     for label, bits, B, D, V in QGATES:
         hn = rnd((B, D))
@@ -132,36 +125,19 @@ def main() -> int:
         q1, q2 = qbank[bits]
         prev = torch.softmax(rnd((B, K_SPEC), torch.float32), -1)
         id_sets = ids_for(B, V)
-        # the chain's probabilities are its softmax's own output (no copy)
-        outs = {tag: [torch.empty(B, device=dev),
+        outs = {tag: (torch.empty(B, device=dev),
                       torch.empty(B, K_SPEC, device=dev),
-                      torch.empty(B, K_SPEC, device=dev)]
+                      torch.empty(B, K_SPEC, device=dev))
                 for tag in ("base", "tree")}
 
         def calls(tag, hn=hn, head=head, q1=q1, q2=q2, prev=prev,
                   id_sets=id_sets, outs=outs, B=B, D=D, V=V, bits=bits):
-            p, probs, logits = outs[tag]
-            if tag == "tree":
-                f = fns[("tree", "exit_gate_q")]
-                return [lambda i=i: f(
-                    ptr(hn), ptr(head.q), ptr(head.scale), ptr(i), ptr(prev),
-                    ptr(q1.q), ptr(q1.scale), ptr(b1), ptr(q2.q),
-                    ptr(q2.scale), ptr(b2), ptr(p), ptr(probs), ptr(logits),
-                    B, D, V, K_SPEC, H_PRED, bits, q1.bits, q2.bits, 1,
-                    ab.stream()) for i in id_sets]
-            fsh = fns[("base", "spec_head_q")]
-            fpm = fns[("base", "predictor_mlp_q")]
-
-            def chain(i):
-                rc = fsh(ptr(hn), ptr(head.q), ptr(head.scale), ptr(i),
-                         ptr(logits), B, D, V, K_SPEC, bits, 1, ab.stream())
-                pr = outs["base"][1] = torch.softmax(logits, -1)
-                feats = torch.cat([logits, pr, pr - prev], -1)
-                return rc | fpm(ptr(feats), ptr(q1.q), ptr(q1.scale),
-                                ptr(b1), ptr(q2.q), ptr(q2.scale), ptr(b2),
-                                ptr(p), B, F_PRED, H_PRED, q1.bits, q2.bits,
-                                ab.stream())
-            return [lambda i=i: chain(i) for i in id_sets]
+            f = fns[(tag, "exit_gate_q")]
+            return [lambda i=i: f(
+                ptr(hn), ptr(head.q), ptr(head.scale), ptr(i), ptr(prev),
+                ptr(q1.q), ptr(q1.scale), ptr(b1), ptr(q2.q), ptr(q2.scale),
+                ptr(b2), *map(ptr, outs[tag]), B, D, V, K_SPEC, H_PRED, bits,
+                q1.bits, q2.bits, 1, ab.stream()) for i in id_sets]
         rows = D // 2 if bits == 4 else D
         gate_cases[label] = calls
         bounds[label] = gate_bounds(
@@ -171,37 +147,6 @@ def main() -> int:
         l1, l2 = {"w": q1, "b": b1}, {"w": q2, "b": b2}
         checks.append((label, calls, outs,
                        exit_gate_q_ref(hn, head, id_sets[0], prev, l1, l2)))
-
-    spec_cases, spec_outs = {}, {}
-    w = rnd((4096, 32000), torch.float32, 0.05)
-    heads = {bits: quantize_tensor(w, bits) for bits in (8, 4)}
-    for R in (4, 160):
-        hn = rnd((R, 4096))
-        id_sets = ids_for(R, 32000)
-        for bits, head in heads.items():
-            label = f"spec_head_q R={R} int{bits}"
-            out = torch.empty(R, K_SPEC, device=dev)
-
-            def calls(tag, hn=hn, head=head, bits=bits, R=R,
-                      id_sets=id_sets, out=out):
-                f = fns[(tag, "spec_head_q")]
-                return [lambda i=i: f(ptr(hn), ptr(head.q), ptr(head.scale),
-                                      ptr(i), ptr(out), R, 4096, 32000,
-                                      K_SPEC, bits, 1, ab.stream())
-                        for i in id_sets]
-            spec_cases[label], spec_outs[label] = calls, out
-    x = rnd((4, F_PRED), torch.float32)
-    for bits, (q1, q2) in qbank.items():
-        label = f"predictor_mlp_q R=4 int{bits}"
-        out = torch.empty(4, device=dev)
-
-        def calls(tag, q1=q1, q2=q2, out=out):
-            f = fns[(tag, "predictor_mlp_q")]
-            return [lambda: f(ptr(x), ptr(q1.q), ptr(q1.scale), ptr(b1),
-                              ptr(q2.q), ptr(q2.scale), ptr(b2), ptr(out), 4,
-                              F_PRED, H_PRED, q1.bits, q2.bits,
-                              ab.stream())] * N_SETS
-        spec_cases[label], spec_outs[label] = calls, out
 
     for label, calls, outs, want in checks:
         for tag in ("base", "tree"):
@@ -216,34 +161,19 @@ def main() -> int:
                 err = max(err, (a - b).abs().max().item())
             print(f"{label}: {tag} max abs err {err:.3g} against the plain "
                   f"version", flush=True)
-    for label, outs in fp_outs.items():
+    for label, _, outs, _ in checks:
         if not all(torch.equal(a, b) for a, b in zip(outs["base"],
                                                      outs["tree"])):
             raise AssertionError(f"{label}: outputs differ between versions")
-    for label, calls in spec_cases.items():
-        got = {}
-        for tag in ("base", "tree"):
-            if calls(tag)[0]() != 0:
-                raise RuntimeError(f"{label}: {tag} launch failed")
-            torch.cuda.synchronize()
-            got[tag] = spec_outs[label].clone()
-        if not torch.equal(got["base"], got["tree"]):
-            raise AssertionError(f"{label}: outputs differ between versions")
 
-    times = ab.alternate({**gate_cases, **spec_cases})
+    times = ab.alternate(gate_cases)
     for label in gate_cases:
         byte_b, sector_b = bounds[label]
-        how = ("bit-equal between the versions, held to the plain version"
-               if label in fp_outs else "base: the piecewise chain; tree: "
-               "exit_gate_q; both held to the plain version")
-        print(f"{label}: {how}; bound {byte_b:.5f} ms (bytes), "
-              f"{sector_b:.5f} ms (sectors); " +
+        print(f"{label}: bit-equal between the versions, held to the plain "
+              f"version; bound {byte_b:.5f} ms (bytes), {sector_b:.5f} ms "
+              f"(sectors); " +
               "; ".join(f"{tag} {ab.summary(times[(label, tag)])}"
                         for tag in ("base", "tree")), flush=True)
-    for label in spec_cases:
-        print(f"{label}: outputs bit-equal; " + "; ".join(
-            f"{tag} {ab.summary(times[(label, tag)])}"
-            for tag in ("base", "tree")), flush=True)
     print(ab.card())
     return 0
 

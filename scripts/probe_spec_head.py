@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the fp spec head's two stages goes, on one card: the
-column gather (``csrc/spec_head_gather.cu``) and the dot over the
-gathered columns (``csrc/spec_head.cu``).
+column gather (``csrc/spec_head_gather.cu`` on the tile of
+``csrc/spec_gather.cuh``) and the dot over the gathered columns
+(``csrc/spec_head.cu``).
 
 The gather, timed (bf16, Llama-2-7B's head: D = 4096, V = 32000; 8
 distinct id sets per CUDA graph, the head's 262 MB start cold; 6 rounds in
@@ -34,15 +35,17 @@ LOAD = "x[i] = __ldg(w + (size_t)d * V + col);"
 
 
 def floor_dir():
-    """A copy of the gather whose loads all hit one contiguous 16 KB."""
+    """A copy of the gather whose loads all hit one contiguous 16 KB (its
+    tile, ``spec_gather.cuh``, patched beside ``spec_head_gather.cu``)."""
     out = ab.ROOT / "build" / "probe_gather" / "floor"
     if out.exists():
         shutil.rmtree(out)
     out.mkdir(parents=True)
-    src = (ab.CSRC / "spec_head_gather.cu").read_text()
-    if LOAD not in src:
+    shutil.copy(ab.CSRC / "spec_head_gather.cu", out / "spec_head_gather.cu")
+    src = (ab.CSRC / "spec_gather.cuh").read_text()
+    if src.count(LOAD) != 1:
         raise RuntimeError(f"floor: text not found: {LOAD!r}")
-    (out / "spec_head_gather.cu").write_text(src.replace(
+    (out / "spec_gather.cuh").write_text(src.replace(
         LOAD, "x[i] = __ldg(w + (d % 64) * 128 + (col % 64));"))
     return out
 

@@ -348,9 +348,10 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
                           dim=1)
     child = child[:, :k]                                            # (N, k)
     # node b*N + n's speculative tokens are the step's node tokens at rows
-    # b*N + child(n, j): fixed for the step, so where the spec head takes
-    # two stages their head columns are gathered once, at the first exit
-    # point that runs the gate, and each exit point dots with those rows
+    # b*N + child(n, j): fixed for the step, so with the spec-head kernel
+    # their head columns (a quantized head's codes and scales) are gathered
+    # once, at the first exit point that runs the gate, and each exit point
+    # dots with those rows
     child_rows = (torch.arange(B, device=dev)[:, None, None] * N
                   + child[None]).reshape(B * N, k)
     child_toks = node_tokens.reshape(-1)[child_rows]               # (B*N, k)
@@ -388,10 +389,9 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
                     feats, probs = feat_lib.column_features(
                         hn, node_cols, child_rows,
                         prev_probs.reshape(B * N, k))
-                else:
+                else:                          # the plain path
                     feats, probs = feat_lib.extract_features(
-                        hn, lm_w, child_toks, prev_probs.reshape(B * N, k),
-                        use_kernel=sh_kernel)
+                        hn, lm_w, child_toks, prev_probs.reshape(B * N, k))
                 # hyper-token merge: one predictor evaluation per path
                 pf, _ = feat_lib.merge_path_features(
                     feats.reshape(B, N, -1), probs.reshape(B, N, k),

@@ -8,21 +8,20 @@ Three features per speculative token, k=4 tokens -> 12-dim input:
 The AR engine computes them inside the fused exit gate
 (``kernels.exit_gate``); this module is the tree gate's building block,
 whose hyper-token min-merge sits between the features and the predictor.
-``use_kernel`` selects the spec-head kernel (``kernels.spec_head``); a
-quantized head (``QTensor``) takes its quantized sibling, or gathers then
-dequantizes on the plain path. The fp tree gate takes the spec-head kernel
-in its two stages instead: the node tokens' columns gathered once per step
-(``node_columns``), then ``column_features`` at each exit point.
+``extract_features`` is the plain route (a quantized head, ``QTensor``,
+gathers then dequantizes). The tree gate takes the spec-head kernel
+(``kernels.spec_head``) in two stages, for an fp head and a quantized one
+alike: the node tokens' columns (or code columns and scales) gathered once
+per step (``node_columns``), then ``column_features`` at each exit point.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels.spec_head import ops as sh_ops
 from repro_torch.kernels.spec_head import spec_head as sh_kern
-from repro_torch.kernels.spec_head.ref import spec_logits_ref
+from repro_torch.kernels.spec_head.ref import QCols, spec_logits_ref
 from repro_torch.quant import QTensor
 
 __all__ = ["spec_logits_ref", "extract_features", "node_columns",
@@ -35,41 +34,44 @@ def _features(logits: torch.Tensor, probs: torch.Tensor,
 
 
 def extract_features(hn: torch.Tensor, lm_head,
-                     spec_ids: torch.Tensor, prev_probs: torch.Tensor,
-                     use_kernel: bool = False
+                     spec_ids: torch.Tensor, prev_probs: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The 3k feature vector at one exit point. hn: (R, D) final-normed
-    hidden; spec_ids: (R, k) int32; prev_probs: (R, k) local probabilities
-    at the previous exit point. Returns (features (R, 3k) fp32,
-    local_probs (R, k) fp32)."""
-    if use_kernel:
-        logits, probs = sh_ops.spec_head(hn, lm_head, spec_ids)
-    else:
-        logits = spec_logits_ref(hn, lm_head, spec_ids)
-        probs = torch.softmax(logits, dim=-1)
+    """The 3k feature vector at one exit point, on the plain route. hn:
+    (R, D) final-normed hidden; spec_ids: (R, k) int32; prev_probs: (R, k)
+    local probabilities at the previous exit point. Returns (features
+    (R, 3k) fp32, local_probs (R, k) fp32)."""
+    logits = spec_logits_ref(hn, lm_head, spec_ids)
+    probs = torch.softmax(logits, dim=-1)
     return _features(logits, probs, prev_probs), probs
 
 
 def node_columns(lm_head, node_tokens: torch.Tensor, use_kernel: bool
-                 ) -> Optional[torch.Tensor]:
-    """The spec-head kernel's first stage for a tree step: the (D, V) fp
-    head's columns of every node token, ``node_tokens`` (B, N) int32, as
-    a (B*N, D) buffer in the head's dtype (``spec_head_gather``). None
-    where the spec head does not take two stages (the plain path, a
-    quantized head): there ``extract_features`` gathers at each call."""
-    if not use_kernel or isinstance(lm_head, QTensor):
+                 ) -> Optional[Union[torch.Tensor, QCols]]:
+    """The spec-head kernel's first stage for a tree step: the head's
+    columns of every node token, ``node_tokens`` (B, N) int32 — for a
+    (D, V) fp head a (B*N, D) buffer in the head's dtype
+    (``spec_head_gather``), for a ``QTensor`` head the columns' stored
+    codes and scales (``spec_head_gather_q``). None on the plain path:
+    there ``extract_features`` gathers at each call."""
+    if not use_kernel:
         return None
-    return sh_kern.spec_head_gather(lm_head, node_tokens.reshape(-1))
+    ids = node_tokens.reshape(-1)
+    if isinstance(lm_head, QTensor):
+        return sh_kern.spec_head_gather_q(lm_head, ids)
+    return sh_kern.spec_head_gather(lm_head, ids)
 
 
-def column_features(hn: torch.Tensor, cols: torch.Tensor,
+def column_features(hn: torch.Tensor, cols: Union[torch.Tensor, QCols],
                     col_idx: torch.Tensor, prev_probs: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``extract_features`` over gathered columns: row r's k speculative
-    tokens are the rows ``col_idx[r]`` (R, k) of ``cols``
-    (``spec_head_gather``'s output). Returns (features (R, 3k) fp32,
-    local_probs (R, k) fp32)."""
-    logits = sh_kern.spec_head_dot(hn, cols, col_idx)
+    tokens are the rows ``col_idx[r]`` (R, k) of ``cols`` (``node_columns``'
+    output, fp or quantized). Returns (features (R, 3k) fp32, local_probs
+    (R, k) fp32)."""
+    if isinstance(cols, QCols):
+        logits = sh_kern.spec_head_dot_q(hn, cols, col_idx)
+    else:
+        logits = sh_kern.spec_head_dot(hn, cols, col_idx)
     probs = torch.softmax(logits, dim=-1)
     return _features(logits, probs, prev_probs), probs
 

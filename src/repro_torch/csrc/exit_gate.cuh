@@ -8,8 +8,9 @@
 // all in fp32; the logits, the features and the H hidden units never leave
 // the cluster. The head is read through a column reader of common.cuh (fp
 // weights, int8 codes or plane-packed int4 bytes; an fp head has no
-// scale); the predictor through a weight form below (fp32 weights, no
-// scales, or int8 / int4 codes with column scales s1 (H,) and s2 (1,)).
+// scale); the predictor through a weight form of predictor.cuh (fp32
+// weights, no scales, or int8 / int4 codes with column scales s1 (H,) and
+// s2 (1,)).
 //
 // Bound on the H100: bytes — the k * D useful head elements and the
 // predictor weights per row; the arithmetic is tiny. The gather reads one
@@ -47,6 +48,7 @@
 
 #include <cooperative_groups.h>
 
+#include "predictor.cuh"
 #include "spec_slice.cuh"
 
 namespace rt {
@@ -67,88 +69,6 @@ constexpr int EG_ROWS = EG_THREADS;     // head rows per CTA, at least
 // the cluster allows it (at D = 4096 two per thread, one for int4)
 inline int cluster_size(int Dp) {
   return std::min(EG_MAX_C, std::max(1, (Dp + EG_ROWS - 1) / EG_ROWS));
-}
-
-// Predictor weights in fp32: W1 (F, H), b1 (H,), W2 (H, 1), b2 (1,).
-struct FpPred {
-  static constexpr bool SCALED = false;
-  const float* w1;
-  const float* b1;
-  const float* w2;
-  const float* b2;
-  __device__ __forceinline__ float w1_at(int f, int h, int, int H) const {
-    return __ldg(w1 + (size_t)f * H + h);
-  }
-  // W1's column h, rows f < F
-  __device__ __forceinline__ void w1_col(int h, int F, int H,
-                                         float (&x)[3 * EG_MAXK]) const {
-#pragma unroll
-    for (int f = 0; f < 3 * EG_MAXK; ++f)
-      if (f < F) x[f] = w1_at(f, h, F, H);
-  }
-  __device__ __forceinline__ float w2_at(int h, int) const {
-    return __ldg(w2 + h);
-  }
-  __device__ __forceinline__ float s1(int) const { return 1.f; }
-  __device__ __forceinline__ float s2() const { return 1.f; }
-};
-
-// Quantized predictor weights (repro_torch.quant's layout): W1 as int8
-// codes (F, H) or plane-packed int4 (F/2, H) with column scales s1 (H,),
-// W2 as codes (H, 1) or packed (H/2, 1) with scale s2 (1,), each weight's
-// bits on its own (an odd F quantizes W1 to int8 even under int4); fp32
-// biases.
-struct QPred {
-  static constexpr bool SCALED = true;
-  const int8_t* q1;
-  const float* sc1;
-  const float* b1;
-  const int8_t* q2;
-  const float* sc2;
-  const float* b2;
-  int bits1, bits2;
-  __device__ __forceinline__ float w1_at(int f, int h, int F, int H) const {
-    return code_at(q1, bits1, f, h, F, H);
-  }
-  // W1's column h, rows f < F, the bits chosen once for the column
-  __device__ __forceinline__ void w1_col(int h, int F, int H,
-                                         float (&x)[3 * EG_MAXK]) const {
-    if (bits1 == 8) {
-#pragma unroll
-      for (int f = 0; f < 3 * EG_MAXK; ++f)
-        if (f < F) x[f] = code_at(q1, 8, f, h, F, H);
-    } else {
-#pragma unroll
-      for (int f = 0; f < 3 * EG_MAXK; ++f)
-        if (f < F) x[f] = code_at(q1, 4, f, h, F, H);
-    }
-  }
-  __device__ __forceinline__ float w2_at(int h, int H) const {
-    return code_at(q2, bits2, h, 0, H, 1);
-  }
-  __device__ __forceinline__ float s1(int h) const { return __ldg(sc1 + h); }
-  __device__ __forceinline__ float s2() const { return __ldg(sc2); }
-};
-
-// Hidden unit h before the ReLU, from the 3k features and W1's column h
-// (codes for a scaled form: the dot, then s1[h], then b1[h])
-template <typename Pred>
-__device__ __forceinline__ float hidden_unit(const float* feats,
-                                             const float* w1c, int F,
-                                             float s1, float b1) {
-  if constexpr (Pred::SCALED) {
-    float dot = 0.f;
-#pragma unroll
-    for (int f = 0; f < 3 * EG_MAXK; ++f)
-      if (f < F) dot = fmaf(feats[f], w1c[f], dot);
-    return fmaf(dot, s1, b1);
-  } else {
-    float hid = b1;
-#pragma unroll
-    for (int f = 0; f < 3 * EG_MAXK; ++f)
-      if (f < F) hid = fmaf(feats[f], w1c[f], hid);
-    return hid;
-  }
 }
 
 // The gate of row blockIdx.y, run by every CTA of its cluster.
@@ -235,7 +155,8 @@ __device__ __forceinline__ void exit_gate_row(
 
   float share = 0.f;
   if (h0 < h_hi)
-    share = fmaxf(hidden_unit<Pred>(s_feats, w1r, F, s1r, b1r), 0.f) * w2r;
+    share = fmaxf(hidden_unit<Pred, 3 * EG_MAXK>(s_feats, w1r, F, s1r,
+                                                   b1r), 0.f) * w2r;
   for (int h = h0 + EG_THREADS; h < h_hi; h += EG_THREADS) {
     float hid = Pred::SCALED ? 0.f : __ldg(pred.b1 + h);
     for (int f = 0; f < F; ++f)

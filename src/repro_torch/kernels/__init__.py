@@ -10,8 +10,9 @@ launched its kernel, never for the plain version), so a run can show that a
 path went through the kernels. The quantized kernels (``*_q``: weight-only
 quantization's, and the paged decode attention over an int8 KV cache)
 count under their own names, so a run also shows which path it took. The
-fp spec head's two stages count as ``spec_head_gather`` (the column
-gather) and ``spec_head`` (the dot over the gathered columns).
+spec head's two stages count as ``spec_head_gather`` (the column gather)
+and ``spec_head`` (the dot over the gathered columns), and over a
+quantized head as ``spec_head_gather_q`` and ``spec_head_q``.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ LAUNCHES: Dict[str, int] = {"exit_gate": 0, "argmax_verify": 0,
                             "predictor_mlp_q": 0,
                             "paged_decode_attention_q": 0,
                             "ssd_chunk": 0, "exit_gate_q": 0,
-                            "spec_head_gather": 0}
+                            "spec_head_gather": 0,
+                            "spec_head_gather_q": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

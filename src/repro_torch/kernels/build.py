@@ -25,7 +25,8 @@ SOURCES = ("exit_gate", "argmax_verify", "topk_verify", "decode_attention",
            "paged_decode_attention", "flash_attention", "spec_head",
            "predictor_mlp", "argmax_verify_q", "topk_verify_q",
            "spec_head_q", "predictor_mlp_q", "paged_decode_attention_q",
-           "ssd_chunk", "exit_gate_q", "spec_head_gather")
+           "ssd_chunk", "exit_gate_q", "spec_head_gather",
+           "spec_head_gather_q")
 # libraries split over several sources, so that their parts compile at
 # once: topk_verify_q's int4 tile instances are as many as its int8 ones
 PARTS = {"topk_verify_q": ("topk_verify_q", "topk_verify_q4")}

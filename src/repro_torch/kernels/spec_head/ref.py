@@ -4,14 +4,25 @@ quantized head (``QTensor``) is gathered first and then dequantized
 (``take_columns``): with per-column scales that equals gathering the
 dequantized head. ``spec_gather_ref`` and ``spec_dot_ref`` are the plain
 versions of the fp kernel's two stages (the column gather and the dot over
-the gathered columns)."""
+the gathered columns), ``spec_gather_q_ref`` and ``spec_dot_q_ref`` those
+of the quantized kernel's (the code columns and their scales gathered,
+then the dot over the widened codes and the scale)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.quant import QTensor, take_columns
+from repro_torch.quant import QTensor, take_columns, unpack_int4
+
+
+class QCols(NamedTuple):
+    """Gathered columns of a quantized head: ``codes`` (C, Dp) int8, the
+    stored bytes of each column (Dp = D for int8, D/2 for plane-packed
+    int4), ``scales`` (C,) fp32, and the codes' ``bits``."""
+    codes: torch.Tensor
+    scales: torch.Tensor
+    bits: int
 
 
 def spec_logits_ref(hn: torch.Tensor, lm_head,
@@ -40,6 +51,31 @@ def spec_dot_ref(hn: torch.Tensor, cols: torch.Tensor,
     to [0, C). Returns (R, k) fp32 logits ``hn[r] . cols[idx[r, j]]``."""
     rows = cols[idx.long().clamp(0, cols.shape[0] - 1)]       # (R, k, D)
     return torch.einsum("bd,bkd->bk", hn.float(), rows.float())
+
+
+def spec_gather_q_ref(qt: QTensor, ids: torch.Tensor) -> QCols:
+    """qt: QTensor of logical shape (D, V); ids: (C,) int. Returns the
+    (C, Dp) stored code columns ``qt.q[:, ids[c]]`` and their (C,) scales,
+    ids clamped to [0, V) as the kernel clamps them."""
+    V = qt.q.shape[-1]
+    i = ids.long().clamp(0, V - 1)
+    return QCols(qt.q[:, i].t().contiguous(), qt.scale[i].contiguous(),
+                 qt.bits)
+
+
+def spec_dot_q_ref(hn: torch.Tensor, cols: QCols,
+                   idx: torch.Tensor) -> torch.Tensor:
+    """hn: (R, D); cols: ``spec_gather_q_ref``'s output; idx: (R, k) int
+    rows of the gathered columns, clamped to [0, C). Returns (R, k) fp32
+    logits ``(hn[r] . codes[c]) * scales[c]``, c = idx[r, j]: the codes
+    widened (an int4 byte at stored row d to hidden rows d and d + D/2),
+    the fp32 dot, then the scale."""
+    i = idx.long().clamp(0, cols.codes.shape[0] - 1)
+    codes = cols.codes[i]                                     # (R, k, Dp)
+    if cols.bits == 4:
+        codes = torch.cat(unpack_int4(codes), dim=-1)         # (R, k, D)
+    dots = torch.einsum("bd,bkd->bk", hn.float(), codes.float())
+    return dots * cols.scales[i]
 
 
 def spec_head_ref(hn: torch.Tensor, lm_head,

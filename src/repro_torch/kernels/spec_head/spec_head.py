@@ -2,14 +2,17 @@
 ``repro/kernels/spec_head/spec_head.py::spec_head_logits`` and
 ``spec_head_logits_q``).
 
-The fp spec head runs in two stages: ``spec_head_gather``
+The spec head runs in two stages: ``spec_head_gather``
 (csrc/spec_head_gather.cu) copies the needed head columns into a
 contiguous (C, D) buffer, and ``spec_head_dot`` (csrc/spec_head.cu) takes
-each row's dots with its columns there. ``spec_head_logits`` composes the
-two for any ids; the tree step calls them itself, to gather its node
-tokens' columns once per step (``core/engine.py::tree_decode_step``).
-``spec_head_logits_q`` is csrc/spec_head_q.cu, on the one-CTA gather-dot
-body csrc/spec_head.cuh.
+each row's dots with its columns there. Over a quantized head
+``spec_head_gather_q`` (csrc/spec_head_gather_q.cu) copies the columns'
+codes and scales (a ``QCols``), and ``spec_head_dot_q``
+(csrc/spec_head_q.cu) dots with the codes and scales each sum.
+``spec_head_logits`` and ``spec_head_logits_q`` compose the two for any
+ids; the tree step calls the stages itself, to gather its node tokens'
+columns once per step (``core/engine.py::tree_decode_step``,
+``core/features.py``).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel (counted in ``kernels.LAUNCHES``) or raises.
@@ -22,7 +25,10 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.kernels import build
-from repro_torch.kernels.spec_head.ref import (spec_dot_ref, spec_gather_ref,
+from repro_torch.kernels.spec_head.ref import (QCols, spec_dot_q_ref,
+                                               spec_dot_ref,
+                                               spec_gather_q_ref,
+                                               spec_gather_ref,
                                                spec_logits_ref)
 from repro_torch.quant import QTensor
 
@@ -97,28 +103,80 @@ def spec_head_logits(hn: torch.Tensor, lm_head: torch.Tensor,
     return spec_head_dot(hn, cols, idx)
 
 
-def spec_head_logits_q(hn: torch.Tensor, qt: QTensor,
-                       spec_ids: torch.Tensor) -> torch.Tensor:
-    """hn (R, D); qt a QTensor of logical shape (D, V); spec_ids (R, k)
-    int32 -> logits (R, k) fp32 (each gathered column's sum times its
-    scale), any R >= 1."""
+def spec_head_gather_q(qt: QTensor, ids: torch.Tensor) -> QCols:
+    """qt a QTensor of logical shape (D, V) (int8 codes (D, V) or packed
+    int4 (D/2, V)); ids (C,) int32, C >= 1 -> QCols: codes (C, Dp) int8,
+    ``codes[c] = qt.q[:, ids[c]]``, and scales (C,) fp32,
+    ``scales[c] = qt.scale[ids[c]]`` (ids clamped to [0, V)), exact
+    copies."""
+    if K.runs_plain(qt.q):
+        return spec_gather_q_ref(qt, ids)
+    Dp, V = qt.q.shape
+    C = ids.shape[0]
+    dev = qt.q.device
+    K.check_qtensor("lm_head", qt, dev, qt.shape)
+    K.check_arg("ids", ids, dev, torch.int32, (C,))
+    if C < 1:
+        raise ValueError("spec_head_gather_q kernel: no ids")
+    fn = build.c_func("spec_head_gather_q", "spec_head_gather_q_launch",
+                      [_P] * 5 + [_I] * 3 + [_P])
+    codes = torch.empty(C, Dp, dtype=torch.int8, device=dev)
+    scales = torch.empty(C, dtype=torch.float32, device=dev)
+    rc = fn(K.ptr(qt.q), K.ptr(qt.scale), K.ptr(ids), K.ptr(codes),
+            K.ptr(scales), C, Dp, V, K.stream_ptr(dev))
+    build.check("spec_head_gather_q", rc)
+    K.LAUNCHES["spec_head_gather_q"] += 1
+    return QCols(codes, scales, qt.bits)
+
+
+def spec_head_dot_q(hn: torch.Tensor, cols: QCols,
+                    idx: torch.Tensor) -> torch.Tensor:
+    """hn (R, D) fp32 or bf16; cols ``spec_head_gather_q``'s output (codes
+    (C, D) for int8, (C, D/2) for int4); idx (R, k) int32 rows of the
+    gathered columns (clamped to [0, C)) -> logits (R, k) fp32,
+    ``(hn[r] . codes[c]) * scales[c]``, c = idx[r, j], any R, k >= 1."""
     if K.runs_plain(hn):
-        return spec_logits_ref(hn, qt, spec_ids)
+        return spec_dot_q_ref(hn, cols, idx)
     R, D = hn.shape
-    V = qt.shape[-1]
-    k = spec_ids.shape[1]
+    C = cols.codes.shape[0]
+    k = idx.shape[1]
     dev = hn.device
+    if cols.bits not in (4, 8) or (cols.bits == 4 and D % 2):
+        raise ValueError(f"spec_head_q kernel: {cols.bits}-bit codes of "
+                         f"{D} hidden entries")
     K.check_arg("hn", hn, dev)
-    K.check_qtensor("lm_head", qt, dev, (D, V))
-    K.check_arg("spec_ids", spec_ids, dev, torch.int32, (R, k))
-    if not 1 <= k <= build.c_func("spec_head_q", "spec_head_q_max_k", [])():
-        raise ValueError(f"spec_head_q kernel: unsupported k={k}")
+    K.check_arg("codes", cols.codes, dev, torch.int8,
+                (C, D // 2 if cols.bits == 4 else D))
+    K.check_arg("scales", cols.scales, dev, torch.float32, (C,))
+    K.check_arg("idx", idx, dev, torch.int32, (R, k))
+    if R < 1 or C < 1 or k < 1:
+        raise ValueError(f"spec_head_q kernel: empty operand (R={R}, "
+                         f"C={C}, k={k})")
     fn = build.c_func("spec_head_q", "spec_head_q_launch", [_P] * 5
                       + [_I] * 6 + [_P])
     logits = torch.empty(R, k, dtype=torch.float32, device=dev)
-    rc = fn(K.ptr(hn), K.ptr(qt.q), K.ptr(qt.scale), K.ptr(spec_ids),
-            K.ptr(logits), R, D, V, k, qt.bits, K.dtype_code(hn),
+    rc = fn(K.ptr(hn), K.ptr(cols.codes), K.ptr(cols.scales), K.ptr(idx),
+            K.ptr(logits), R, C, D, k, cols.bits, K.dtype_code(hn),
             K.stream_ptr(dev))
     build.check("spec_head_q", rc)
     K.LAUNCHES["spec_head_q"] += 1
     return logits
+
+
+def spec_head_logits_q(hn: torch.Tensor, qt: QTensor,
+                       spec_ids: torch.Tensor) -> torch.Tensor:
+    """hn (R, D); qt a QTensor of logical shape (D, V); spec_ids (R, k)
+    int32 -> logits (R, k) fp32 (each gathered column's sum times its
+    scale), any R >= 1: the R*k code columns gathered, then one dot per
+    (row, column)."""
+    if K.runs_plain(hn):
+        return spec_logits_ref(hn, qt, spec_ids)
+    R, D = hn.shape
+    k = spec_ids.shape[1]
+    dev = hn.device
+    K.check_arg("hn", hn, dev)
+    K.check_qtensor("lm_head", qt, dev, (D, qt.shape[-1]))
+    K.check_arg("spec_ids", spec_ids, dev, torch.int32, (R, k))
+    cols = spec_head_gather_q(qt, spec_ids.reshape(-1))
+    idx = torch.arange(R * k, dtype=torch.int32, device=dev).view(R, k)
+    return spec_head_dot_q(hn, cols, idx)

@@ -1,5 +1,5 @@
 """The kernel A/B and probe scripts (``scripts/ab_*.py``,
-``scripts/probe_paged_attention.py``) on the CPU: the SASS reader of
+``scripts/probe_*.py``) on the CPU: the SASS reader of
 ``ab_common`` counts HMMA instructions per kernel, and each script refuses
 to run without a card."""
 import importlib
@@ -43,7 +43,9 @@ def test_count_hmma_by_function():
                                     "ab_decode_attention", "ab_ssd_chunk",
                                     "ab_exit_gate", "probe_exit_gate",
                                     "probe_dense_split",
-                                    "probe_paged_attention"])
+                                    "probe_paged_attention", "ab_spec_head",
+                                    "probe_spec_head",
+                                    "probe_predictor_mlp_q"])
 def test_ab_script_refuses_without_a_card(script, monkeypatch, capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the script would run")

@@ -403,8 +403,9 @@ def test_verify_q_kernels_match_plain(dev, dtype, bits, R):
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("R", [1, 4, 9, 160, 320])
 def test_spec_head_q_kernel_matches_plain(dev, dtype, bits, R):
-    """spec_head_q against its plain version (gather, then dequantize) and
-    the fp kernel on the dequantized fp32 head; ids 0 and V-1, repeated."""
+    """spec_head_logits_q (a gather of the R*k code columns, then the
+    dot) against its plain version (gather, then dequantize) and the fp
+    kernel on the dequantized fp32 head; ids 0 and V-1, repeated."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.spec_head.ref import spec_logits_ref
     from repro_torch.kernels.spec_head.spec_head import (spec_head_logits,
@@ -419,7 +420,9 @@ def test_spec_head_q_kernel_matches_plain(dev, dtype, bits, R):
     reset_launches()
     got = spec_head_logits_q(hn, qt, ids)
     torch.cuda.synchronize()
-    assert LAUNCHES["spec_head_q"] == 1 and LAUNCHES["spec_head"] == 0
+    # a gather of the R*k code columns, then the dot
+    assert LAUNCHES["spec_head_gather_q"] == 1 and LAUNCHES["spec_head_q"] == 1
+    assert LAUNCHES["spec_head"] == LAUNCHES["spec_head_gather"] == 0
     torch.testing.assert_close(got, spec_logits_ref(hn, qt, ids), atol=1e-4,
                                rtol=1e-4)
     torch.testing.assert_close(got, spec_head_logits(hn.float(),
@@ -496,9 +499,13 @@ def test_quant_engine_kernels_match_plain_path(dev, strategy, spec):
         # the AR gate is the one quantized gate kernel, never the pieces
         assert LAUNCHES["topk_verify_q"] > 0 and LAUNCHES["exit_gate_q"] > 0
         assert LAUNCHES["spec_head_q"] == LAUNCHES["predictor_mlp_q"] == 0
+        assert LAUNCHES["spec_head_gather_q"] == 0
     if strategy == "tree":
-        # the tree gate keeps its pieces around the hyper-token merge
-        assert LAUNCHES["spec_head_q"] > 0 and LAUNCHES["predictor_mlp_q"] > 0
+        # the tree gate keeps its pieces around the hyper-token merge: the
+        # node tokens' code columns gathered once per step, a dot per exit
+        # point
+        assert 0 < LAUNCHES["spec_head_gather_q"] <= LAUNCHES["spec_head_q"]
+        assert LAUNCHES["predictor_mlp_q"] > 0
         assert LAUNCHES["exit_gate_q"] == 0
     assert LAUNCHES["spec_head"] == LAUNCHES["spec_head_gather"] == 0
 
@@ -1456,3 +1463,131 @@ def test_spec_head_two_stages_on_tree_ids(dev, dtype):
     assert torch.equal(got, direct)
     torch.testing.assert_close(got, spec_logits_ref(hn, w, ids), atol=1e-4,
                                rtol=1e-4)
+
+
+# ---- the quantized tree gate: code-column gather, dot, predictor ----
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("D,V", [(512, 3001), (4096, 32000)])
+@pytest.mark.parametrize("C", [1, 5, 160, 320])
+def test_spec_head_gather_q_is_exact(dev, C, D, V, bits):
+    """The code-column gather: codes and scales bit-equal to the plain
+    version's, ids 0, V - 1, repeated and out of range (clamped to
+    [0, V)) among them; one launch."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.spec_head.ref import spec_gather_q_ref
+    from repro_torch.kernels.spec_head.spec_head import spec_head_gather_q
+    gen = torch.Generator(device=dev).manual_seed(C + D + bits)
+    qt = _quant_head(gen, dev, bits, D, V)
+    ids = torch.randint(0, V, (C,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    edge = torch.tensor([0, V - 1, V - 1, -4, V + 9], dtype=torch.int32,
+                        device=dev)
+    ids[:min(C, 5)] = edge[:min(C, 5)]
+    reset_launches()
+    cols = spec_head_gather_q(qt, ids)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spec_head_gather_q"] == 1 and sum(LAUNCHES.values()) == 1
+    want = spec_gather_q_ref(qt, ids)
+    assert cols.bits == bits and cols.codes.shape == want.codes.shape
+    assert torch.equal(cols.codes, want.codes)
+    assert torch.equal(cols.scales, want.scales)
+
+
+@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("D,V", [(512, 3001), (4096, 32000), (100, 999)])
+@pytest.mark.parametrize("R", [1, 160, 320])
+def test_spec_head_dot_q_matches_plain(dev, R, D, V, bits, dtype, k):
+    """The dot over gathered code columns against its plain version, atol
+    = rtol = 1e-4 (fp32 sums in another order, then the scale), on rows of
+    R*k gathered ids; D = 100 takes the stored-row path (100 or 50 stored
+    rows). Two calls are bit-equal, and a row's logits do not depend on
+    the rows beside it."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.spec_head.ref import spec_dot_q_ref
+    from repro_torch.kernels.spec_head.spec_head import (spec_head_dot_q,
+                                                         spec_head_gather_q)
+    gen = torch.Generator(device=dev).manual_seed(R + D + k + bits)
+    qt = _quant_head(gen, dev, bits, D, V)
+    ids = torch.randint(0, V, (R * k,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    n = min(2, R * k)
+    ids[:n] = torch.tensor([0, V - 1], dtype=torch.int32)[:n]
+    cols = spec_head_gather_q(qt, ids)
+    rows = torch.randint(0, R * k, (R, k), generator=gen, device=dev,
+                         dtype=torch.int32)
+    hn = _rand(gen, (R, D), dev, dtype)
+    reset_launches()
+    got = spec_head_dot_q(hn, cols, rows)
+    again = spec_head_dot_q(hn, cols, rows)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spec_head_q"] == 2 and sum(LAUNCHES.values()) == 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, spec_dot_q_ref(hn, cols, rows),
+                               atol=1e-4, rtol=1e-4)
+    alone = spec_head_dot_q(hn[-1:].clone(), cols, rows[-1:].clone())
+    assert torch.equal(alone[0], got[-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_spec_head_q_two_stages_on_tree_ids(dev, bits, dtype):
+    """One quantized tree step's composition at Llama-2-7B widths: the node
+    tokens of a B = 4 TreeSpec(3, 3) step gathered once, dotted with the
+    nodes' children, equal spec_head_logits_q on the children's ids (bit
+    for bit: the same dot of each pair) and the plain version (atol = rtol
+    = 1e-4)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.spec_head.ref import spec_logits_ref
+    from repro_torch.kernels.spec_head.spec_head import (spec_head_dot_q,
+                                                         spec_head_gather_q,
+                                                         spec_head_logits_q)
+    gen = torch.Generator(device=dev).manual_seed(160 + bits)
+    D, V = 4096, 32000
+    toks, rows = _tree_shaped(gen, dev, 4, V)
+    qt = _quant_head(gen, dev, bits, D, V)
+    hn = _rand(gen, (rows.shape[0], D), dev, dtype)
+    ids = toks.reshape(-1)[rows.long()].contiguous()
+    reset_launches()
+    got = spec_head_dot_q(hn, spec_head_gather_q(qt, toks.reshape(-1)), rows)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spec_head_gather_q"] == 1 and LAUNCHES["spec_head_q"] == 1
+    assert torch.equal(got, spec_head_logits_q(hn, qt, ids))
+    torch.testing.assert_close(got, spec_logits_ref(hn, qt, ids), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("F", [12, 15, 24])
+@pytest.mark.parametrize("H", [512, 200])
+@pytest.mark.parametrize("bits1,bits2", [(8, 8), (4, 4), (8, 4), (4, 8)])
+@pytest.mark.parametrize("R", [1, 4, 108, 216])
+def test_predictor_mlp_q_rows_match_plain(dev, R, bits1, bits2, H, F):
+    """The quantized predictor over blocks of rows against its plain
+    version, atol = rtol = 1e-5 on probabilities, each weight's bits on
+    its own (H = 200 leaves threads without a hidden unit); two calls are
+    bit-equal and a row's probability does not depend on the rows beside
+    it. F = 12 (k = 4) runs the kernel's instance unrolled to 12 features,
+    F = 15 and 24 (k = 8) the one unrolled to 32; an odd F's int4 W1 is
+    stored as int8 codes (plane packing needs even rows)."""
+    from repro_torch import quant
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.predictor_mlp.predictor_mlp import (
+        predictor_mlp_fused_q)
+    from repro_torch.kernels.predictor_mlp.ref import predictor_mlp_q_ref
+    gen = torch.Generator(device=dev).manual_seed(
+        R + 10 * bits1 + bits2 + H + 1000 * F)
+    x = _rand(gen, (R, F), dev)
+    q1 = quant.quantize_tensor(_rand(gen, (F, H), dev, scale=0.3), bits1)
+    q2 = quant.quantize_tensor(_rand(gen, (H, 1), dev, scale=0.05), bits2)
+    b1, b2 = _rand(gen, (H,), dev), _rand(gen, (1,), dev)
+    reset_launches()
+    got = predictor_mlp_fused_q(x, q1, b1, q2, b2)
+    again = predictor_mlp_fused_q(x, q1, b1, q2, b2)
+    torch.cuda.synchronize()
+    assert LAUNCHES["predictor_mlp_q"] == 2 and sum(LAUNCHES.values()) == 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, predictor_mlp_q_ref(x, q1, b1, q2, b2),
+                               atol=1e-5, rtol=1e-5)
+    alone = predictor_mlp_fused_q(x[-1:].clone(), q1, b1, q2, b2)
+    assert torch.equal(alone[0], got[-1])

@@ -112,6 +112,9 @@ def test_merge_path_features_matches_jax():
 
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_extract_features_matches_jax(use_kernel):
+    """The port's plain features against JAX's with its spec-head kernel
+    off and on (the port's kernel route is the tree step's two stages,
+    ``node_columns`` then ``column_features``)."""
     rng = np.random.default_rng(1)
     R, D, V, k = 40, 128, 512, 4
     hn = rng.standard_normal((R, D)).astype(np.float32)
@@ -121,8 +124,7 @@ def test_extract_features_matches_jax(use_kernel):
     prev = rng.dirichlet(np.ones(k), R).astype(np.float32)
     want = jfeat.extract_features(hn, w, ids, prev, use_kernel=use_kernel)
     K.reset_launches()
-    got = tfeat.extract_features(_t(hn), _t(w), _t(ids), _t(prev),
-                                 use_kernel=use_kernel)
+    got = tfeat.extract_features(_t(hn), _t(w), _t(ids), _t(prev))
     assert K.LAUNCHES["spec_head"] == 0            # CPU: plain version
     for a, b in zip(got, want):
         np.testing.assert_allclose(_np(a), _np(b), **FTOL)
