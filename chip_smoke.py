@@ -37,7 +37,8 @@ Phases (lines ``[phase +seconds since the start] ...``):
      and the spec_head dot (R in {1, 160, 320}, random ids with edge and
      repeated ones, and a tree step's ids: the B*N node tokens gathered
      once, the nodes' children read from them; timed both ways),
-     predictor_mlp (R in {1, 108, 216}) and the verify kernels at R in
+     predictor_mlp (R in {1, 108, 216}, F in {12, 15, 24}: both of its
+     feature-unroll instances) and the verify kernels at R in
      {9, 160, 320} with planted ties, timed at R = 8/160/320; then the
      quantized kernels (argmax_verify_q, topk_verify_q, the quantized spec
      head's two stages spec_head_gather_q and the spec_head_q dot, and
@@ -63,8 +64,8 @@ Phases (lines ``[phase +seconds since the start] ...``):
      its bound in 32-byte sectors; and the host time per call of the fp
      and the quantized gate (fused and piecewise) and verify entry points;
      then the SSD intra-chunk
-     kernel (ssd_chunk: fp32 and bf16 B/C, c 32/64, d_state 16/128, head
-     dim 32/64, 1/8/32 cells, decay steep enough that exp(cum_t - cum_s)
+     kernel (ssd_chunk: fp32 and bf16 B/C, c 32/40/64, d_state 16/128,
+     head dim 32/48/64, 1/8/32 cells, decay steep enough that exp(cum_t - cum_s)
      overflows for s > t) against its plain version, timed at a 512-token
      mamba2-130m admission beside a yardstick (bmm + batched product), and
      the gate and verify kernels at mamba2's D=768, V=50280 on a tied head
@@ -900,24 +901,27 @@ def check_tree_kernels(torch, dev):
             del wt
         del w
         # predictor MLP (fp32 weights whatever the model dtype): atol =
-        # rtol = 1e-5 on probabilities
+        # rtol = 1e-5 on probabilities; F = 12 (k = 4) runs the instance
+        # unrolled to 12, F = 15 and 24 the one unrolled to 32
         err_pm = 0.0
         for R in (1, 108, 216):
-            x = rnd((R, F), torch.float32)
-            w1 = rnd((F, H_PRED), torch.float32, F ** -0.5)
-            b1 = rnd((H_PRED,), torch.float32, 0.1)
-            w2 = rnd((H_PRED, 1), torch.float32, H_PRED ** -0.5)
-            b2 = rnd((1,), torch.float32, 0.1)
-            got = predictor_mlp_fused(x, w1, b1, w2, b2)
-            want = predictor_mlp_ref(x, w1, b1, w2, b2)
-            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-            err_pm = max(err_pm, (got - want).abs().max().item())
+            for f in (F, 15, 24):
+                x = rnd((R, f), torch.float32)
+                w1 = rnd((f, H_PRED), torch.float32, f ** -0.5)
+                b1 = rnd((H_PRED,), torch.float32, 0.1)
+                w2 = rnd((H_PRED, 1), torch.float32, H_PRED ** -0.5)
+                b2 = rnd((1,), torch.float32, 0.1)
+                got = predictor_mlp_fused(x, w1, b1, w2, b2)
+                want = predictor_mlp_ref(x, w1, b1, w2, b2)
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+                err_pm = max(err_pm, (got - want).abs().max().item())
         torch.cuda.synchronize()
         log("kernels", f"{name}: spec_head err {err_sh:.3g} (R 1/160/320, "
             f"ids 0 and V-1, repeated; tree ids at R 160/320, the gather "
             f"bit-equal); verify at R 9/160/320: argmax and "
             f"top-k ids exact, ties -> lowest id, err {err_av:.3g} / "
-            f"{err_tk:.3g}; predictor_mlp err {err_pm:.3g} (R 1/108/216)")
+            f"{err_tk:.3g}; predictor_mlp err {err_pm:.3g} (R 1/108/216, F "
+            f"{F}/15/24)")
         errs[name] = {"spec_head": err_sh, "spec_head_gather": 0.0,
                       "predictor_mlp": err_pm,
                       "argmax_verify": err_av, "topk_verify": err_tk}
@@ -2789,7 +2793,8 @@ def flip_margins(torch, params, out_block, out_chunk, phase: str,
 # ---------------------------------------------------------------------------
 def check_ssd_kernel(torch, dev):
     """Phase 2, SSD: ``ssd_chunk`` against its plain version with fp32 and
-    bf16 B/C, c in {32, 64}, ds in {16, 128}, hd in {32, 64}, 1, 8 and 32
+    bf16 B/C, c in {32, 64}, ds in {16, 128}, hd in {32, 64} and the
+    ragged c = 40, hd = 48 (the tensor-core tiles' zero fill), 1, 8 and 32
     cells, mild decay and steep decay (cum falls by up to 40 per token, so
     exp(cum_t - cum_s) for s > t overflows fp32 and must not be evaluated);
     then timed at a 512-token admission of mamba2-130m (8 cells, c=64,
@@ -2822,7 +2827,7 @@ def check_ssd_kernel(torch, dev):
     err, cases = 0.0, 0
     for bc in (torch.float32, torch.bfloat16):
         for c, ds, hd in ((32, 16, 32), (64, 128, 64), (64, 16, 32),
-                          (32, 128, 64)):
+                          (32, 128, 64), (40, 16, 48)):
             for cells in (1, 8, 32):
                 for steep in (1.0, 40.0):
                     args = inputs(cells, c, hd, ds, bc, steep)
@@ -2835,8 +2840,8 @@ def check_ssd_kernel(torch, dev):
                     err = max(err, (got - want).abs().max().item())
                     cases += 1
     torch.cuda.synchronize()
-    log("kernels", f"ssd_chunk: {cases} cases (fp32/bf16 B,C; c 32/64; ds "
-        f"16/128; hd 32/64; 1/8/32 cells; decay up to 40 per token) equal "
+    log("kernels", f"ssd_chunk: {cases} cases (fp32/bf16 B,C; c 32/40/64; "
+        f"ds 16/128; hd 32/48/64; 1/8/32 cells; decay up to 40 per token) equal "
         f"the plain version, max err {err:.3g}")
 
     cells, c = 8, M_CHUNK
@@ -3186,7 +3191,11 @@ def mamba_phase(torch, dev):
                        params, sw, cache="paged")
     for p in sprompts[:SERVE_BATCH]:
         se.submit(p, max_new_tokens=8)
-    se.step()                                 # admits all 8, one tick
+    lens = sorted(len(p) for p in sprompts[:SERVE_BATCH])
+    profile_ticks(torch, "profile-mamba-admission", se.step, 1,
+                  f" (one tick admitting {SERVE_BATCH} prompts of "
+                  f"{lens[0]}-{lens[-1]} tokens, {SERVE_BATCH * 24} "
+                  f"ssd_chunk launches)")
     se.step()
     torch.cuda.synchronize()
     profile_ticks(torch, "profile-mamba-serve", se.step, 4)

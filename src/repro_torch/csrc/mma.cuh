@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy helpers for the bf16 kernels
-// (lm_head_mma.cuh, flash_attention.cu): 16-byte cp.async copies into
-// shared memory, ldmatrix fragment loads and the warp-level
-// mma.sync.m16n8k16 bf16 product with fp32 sums.
+// (lm_head_mma.cuh, flash_attention.cu) and the SSD kernel
+// (ssd_chunk.cu): 16-byte cp.async copies into shared memory, ldmatrix
+// fragment loads, the warp-level mma.sync.m16n8k16 bf16 product with fp32
+// sums, and the m16n8k8 tf32 product with its 3xTF32 split.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4): A (16 x 16, row-major) a[0] = (g, 2t..2t+1), a[1] = (g + 8,
@@ -129,6 +130,48 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   hi = pack_bf16(x0, x1);
   const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
   lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// fp32 rounded to tf32 (10 stored mantissa bits, nearest, ties away from
+// zero; the low 13 bits of the result are 0), as cvt.rna.tf32.f32 rounds
+// a finite x, in two integer operations (the conversion instruction issues
+// at a fraction of their rate: PERF.md, scripts/probe_ssd_chunk.py).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo, both tf32: hi = tf32(x), lo = tf32(x - hi), so hi + lo keeps
+// ~22 significant bits of x (x - hi is exact in fp32).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a (16 x 8 tf32) . b (8 x 8 tf32), fp32 accumulators in place.
+// Fragments (lane = 4 * g + t): a[0] = (g, t), a[1] = (g + 8, t), a[2] =
+// (g, t + 4), a[3] = (g + 8, t + 4); b0 = (k = t, n = g), b1 = (k = t + 4,
+// n = g); d as m16n8k16's.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b in ~fp32 precision from split operands (3xTF32): the small
+// products a_hi . b_lo and a_lo . b_hi first, then a_hi . b_hi; a_lo . b_lo
+// (~2^-22 of a . b) is dropped.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bh0, bh1);
 }
 
 }  // namespace rt

@@ -1,6 +1,6 @@
 // The SpecEE exit predictor's weight forms and its 2-layer MLP over a
 // block of rows, shared by the fused exit gates (exit_gate.cuh) and the
-// quantized tree gate's predictor (predictor_mlp_q.cu):
+// tree gate's predictors (predictor_mlp.cu, predictor_mlp_q.cu):
 //   p[r] = sigmoid((relu((x[r] . W1) * s1 + b1) . W2) * s2 + b2)
 // in fp32; a weight form gives W1's columns, s1, b1, W2's entries and s2
 // (fp32 weights: no scales; int8 / int4 codes: per-column scales applied

@@ -4,71 +4,49 @@
 //
 // Replaces the Pallas kernel predictor_mlp_fused (_kernel) in
 // src/repro/kernels/predictor_mlp/predictor_mlp.py, whose grid tiles the
-// rows and keeps whole weight matrices in VMEM. Here each CTA copies the
-// weights (F*H + 2H floats: 28 KB at F=12, H=512) into shared memory once
-// and takes a block of PM_ROWS rows; each warp takes one row at a time, its
-// lanes split the H hidden units (consecutive lanes, consecutive units: no
-// bank conflicts), and a shuffle sum gives the output. The features and the
-// hidden units never leave the chip.
+// rows and keeps whole weight matrices in VMEM. On the path it is the fp
+// tree gate's predictor: one call per exit point that runs the gate, over
+// the B*P merged paths (R = 108 at B = 4).
 //
-// Bound on the H100: tiny — R*F*4 + the weights + R*4 bytes (~40 KB for
-// the tree gate's R = B*P = 108 paths at B=4) and 2*R*(F+1)*H operations
-// (~3 MFLOP), a fraction of a microsecond either way. The design keeps it to
-// one launch with few CTAs (ceil(R / PM_ROWS)); the kernel still takes
-// ~25 us, slower than the plain version's five launches (PERF.md), and
-// 16-byte unrolled weight copies did not change that.
-#include "common.cuh"
+// Bound on the H100: tiny — R*F*4 + the weights + R*4 bytes (~40 KB at
+// R = 108) and 2*R*(F+1)*H operations (~1.4 MFLOP), well under a
+// microsecond either way, so the launch floor (~3 us) sets what is
+// reachable. Design: the body of predictor.cuh on the FpPred weight form,
+// the fp twin of predictor_mlp_q.cu. A CTA of 256 threads takes PM_RB
+// rows, one, so R = 108 spreads over 108 CTAs; its threads span the H
+// hidden units (two each at H = 512) and load each unit's W1 column, b1
+// and W2 entry into registers once, coalesced, with no whole-matrix
+// staging; the row comes in through shared memory. The feature loops are
+// unrolled to 12 (the gate's F = 3k at k = 4) where F allows, else to 32.
+// Its summation order is predictor.cuh's: per unit the features' chain
+// from b1, per thread its units in order, a butterfly in each warp, the
+// warps in order. The first version (one CTA of 8 warps per 32 rows, W1
+// staged whole in shared memory, each warp walking its rows with feature
+// loops unrolled to 32) took 0.0257 ms at R = 108, 1.8x its plain version.
+// Why one row a CTA (scripts/ab_predictor_mlp.py, PERF.md): at F = 12 it
+// beat 2, 4, 8 and 16 rows at R = 108 and 216 (0.0030 against 0.0034 for
+// 2 and 4); at F = 24, 2 rows were faster (0.0041 against 0.0045), but
+// the gate's k = 4 gives F = 12. (The quantized twin widens its codes per
+// unit and keeps 4 rows.)
+#include "predictor.cuh"
 
 namespace {
 
-constexpr int PM_THREADS = 256;   // 8 warps
-constexpr int PM_ROWS = 32;       // rows per CTA
-constexpr int PM_MAXF = 32;       // one feature per lane
+constexpr int PM_RB = 1;          // rows per CTA
+constexpr int PM_SMALL_F = 12;    // the short instance's features, at most
 
-__global__ void __launch_bounds__(PM_THREADS)
-predictor_mlp_kernel(const float* __restrict__ x,
-                     const float* __restrict__ w1,
-                     const float* __restrict__ b1,
-                     const float* __restrict__ w2,
-                     const float* __restrict__ b2, float* __restrict__ out,
-                     int R, int F, int H) {
-  extern __shared__ float smem[];
-  float* s_w1 = smem;              // (F, H)
-  float* s_b1 = smem + F * H;      // (H,)
-  float* s_w2 = s_b1 + H;          // (H,)
-  for (int i = threadIdx.x; i < F * H; i += PM_THREADS) s_w1[i] = w1[i];
-  for (int i = threadIdx.x; i < H; i += PM_THREADS) {
-    s_b1[i] = b1[i];
-    s_w2[i] = w2[i];
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  constexpr int nw = PM_THREADS / 32;
-  const float bias2 = b2[0];
-  const int r1 = min(R, (int)(blockIdx.x + 1) * PM_ROWS);
-  for (int r = blockIdx.x * PM_ROWS + wid; r < r1; r += nw) {
-    const float xv = lane < F ? x[(size_t)r * F + lane] : 0.f;
-    float xr[PM_MAXF];
-#pragma unroll
-    for (int f = 0; f < PM_MAXF; ++f) xr[f] = __shfl_sync(0xffffffffu, xv, f);
-    float part = 0.f;
-    for (int h = lane; h < H; h += 32) {
-      float hid = s_b1[h];
-#pragma unroll
-      for (int f = 0; f < PM_MAXF; ++f)
-        if (f < F) hid = fmaf(xr[f], s_w1[f * H + h], hid);
-      part = fmaf(fmaxf(hid, 0.f), s_w2[h], part);
-    }
-    part = rt::warp_sum(part);
-    if (lane == 0) out[r] = 1.f / (1.f + expf(-(part + bias2)));
-  }
+template <int MAXF>
+__global__ void __launch_bounds__(rt::PR_THREADS)
+predictor_mlp_kernel(const float* __restrict__ x, rt::FpPred pred,
+                     float* __restrict__ out, int R, int F, int H) {
+  rt::predictor_rows<rt::FpPred, PM_RB, MAXF>(x, pred, out, R, F, H);
 }
 
 }  // namespace
 
 extern "C" {
 
-int predictor_mlp_max_f() { return PM_MAXF; }
+int predictor_mlp_max_f() { return rt::PR_MAXF; }
 const char* predictor_mlp_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -77,19 +55,16 @@ const char* predictor_mlp_error(int code) {
 int predictor_mlp_launch(const void* x, const void* w1, const void* b1,
                          const void* w2, const void* b2, void* out, int R,
                          int F, int H, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)(F * H + 2 * H) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        predictor_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int grid = (R + PM_ROWS - 1) / PM_ROWS;
-  predictor_mlp_kernel<<<grid, PM_THREADS, smem, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<float*>(out), R, F, H);
+  if (R < 1 || F < 1 || F > rt::PR_MAXF || H < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const rt::FpPred pred{
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const float*>(b2)};
+  const int grid = (R + PM_RB - 1) / PM_RB;
+  auto kernel = F <= PM_SMALL_F ? predictor_mlp_kernel<PM_SMALL_F>
+                                : predictor_mlp_kernel<rt::PR_MAXF>;
+  kernel<<<grid, rt::PR_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), pred, static_cast<float*>(out), R, F, H);
   return static_cast<int>(cudaGetLastError());
 }
 

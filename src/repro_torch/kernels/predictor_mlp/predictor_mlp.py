@@ -5,8 +5,9 @@ csrc/predictor_mlp_q.cu).
 
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
 kernel (counted in ``kernels.LAUNCHES``) or raises. The JAX wrapper pads
-rows to its block and F to the 128-lane boundary; the kernel masks its own
-ragged last row block, so no padding is made here.
+rows to its block and F to the 128-lane boundary; the kernels take any R
+(the fp one a row a CTA, the quantized one a block of 4 with its ragged
+last block masked) and F up to 32, so no padding is made here.
 """
 from __future__ import annotations
 

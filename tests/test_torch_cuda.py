@@ -296,14 +296,18 @@ def test_spec_head_kernel_matches_plain(dev, dtype, R):
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("F", [12, 15, 24])
 @pytest.mark.parametrize("R", [1, 108, 216])
-def test_predictor_mlp_kernel_matches_plain(dev, R):
+def test_predictor_mlp_kernel_matches_plain(dev, R, F):
+    """The fp predictor at one row and the tree's B*P paths at B = 4 and
+    8; F = 12 runs the instance unrolled to 12, F = 15 and 24 the one
+    unrolled to 32."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.predictor_mlp.predictor_mlp import (
         predictor_mlp_fused)
     from repro_torch.kernels.predictor_mlp.ref import predictor_mlp_ref
     gen = torch.Generator(device=dev).manual_seed(5)
-    F, H = 12, 512
+    H = 512
     x = _rand(gen, (R, F), dev)
     w1, b1 = _rand(gen, (F, H), dev, scale=0.3), _rand(gen, (H,), dev)
     w2, b2 = _rand(gen, (H, 1), dev, scale=0.05), _rand(gen, (1,), dev)
@@ -681,14 +685,17 @@ def test_kv_quant_serving_kernels_match_plain_path(dev, chunk):
 
 @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,ds,hd,nh", [(32, 16, 32, 4), (64, 128, 64, 24),
-                                        (64, 16, 32, 5), (32, 128, 64, 24)])
+                                        (64, 16, 32, 5), (32, 128, 64, 24),
+                                        (40, 16, 48, 5)])
 @pytest.mark.parametrize("cells", [1, 8, 32])
 def test_ssd_chunk_kernel_matches_plain(dev, bc_dtype, c, ds, hd, nh, cells):
     """The SSD intra-chunk kernel against its plain version on the same
     inputs (bf16 B/C upcast in both): fp32 accumulation in another order,
     atol = rtol = 1e-4. Steep decay (cum falling by up to 40 per token)
     makes exp(cum_t - cum_s) overflow for s > t: the kernel must not
-    evaluate it there, so the output stays finite."""
+    evaluate it there, so the output stays finite. c = 40, hd = 48 (not
+    multiples of 16) hold the zero-filled rows and columns of the
+    tensor-core tiles."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
     from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk_fwd
@@ -711,6 +718,37 @@ def test_ssd_chunk_kernel_matches_plain(dev, bc_dtype, c, ds, hd, nh, cells):
                                atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError):
         ssd_chunk_fwd(xdt[:, :, :1].expand(cells, c, nh, hd), cum, bm, cm)
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,ds,hd,nh", [(33, 18, 30, 3), (17, 200, 17, 2),
+                                        (64, 256, 128, 3), (1, 1, 1, 1)])
+def test_ssd_chunk_kernel_unaligned_and_wide(dev, bc_dtype, c, ds, hd, nh):
+    """The SSD kernel's other load and store paths against the plain
+    version (atol = rtol = 1e-4): B/C rows that are not 16-byte aligned
+    (ds = 18, 17, 1: element loads), xdt rows that are not (hd = 30, 17,
+    1: 4-byte copies; an odd hd's element stores), ds past one 128-column
+    slice (200, 256: the Gram matrix over two slices), hd = 128 (8
+    n-tiles a warp) and the least shape."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk_fwd
+    gen = torch.Generator(device=dev).manual_seed(c + ds + hd)
+    cells = 3
+    xdt = _rand(gen, (cells, c, nh, hd), dev)
+    cum = -torch.cumsum(torch.rand((cells, c, nh), generator=gen,
+                                   device=dev) * 40.0, dim=1)
+    bm = _rand(gen, (cells, c, ds), dev, bc_dtype, ds ** -0.25)
+    cm = _rand(gen, (cells, c, ds), dev, bc_dtype, ds ** -0.25)
+    reset_launches()
+    for decay in (1.0, 40.0):
+        got = ssd_chunk_fwd(xdt, cum / decay, bm, cm)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, ssd_chunk_ref(xdt, cum / decay, bm,
+                                                      cm),
+                                   atol=1e-4, rtol=1e-4)
+    assert LAUNCHES["ssd_chunk"] == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

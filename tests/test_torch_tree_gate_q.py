@@ -2,7 +2,8 @@
 head over a quantized head in two stages — the code-column gather
 (csrc/spec_head_gather_q.cu) and the dot over the gathered codes
 (csrc/spec_head_q.cu) — and the predictor MLP over quantized weights
-(csrc/predictor_mlp_q.cu), int8 and int4.
+(csrc/predictor_mlp_q.cu), int8 and int4, and over fp32 weights
+(csrc/predictor_mlp.cu, the same body).
 
 - The plain versions of both spec-head stages (``spec_gather_q_ref``, then
   ``spec_dot_q_ref``) on tree-shaped ids — the node tokens' code columns
@@ -15,8 +16,8 @@ head over a quantized head in two stages — the code-column gather
   they are not a multiple of 16, then a butterfly over the 32 lanes, then
   the scale) and of the predictor kernel's (per hidden unit the features'
   chain, s1 and b1; per thread its units in order; a butterfly in each
-  warp; the warps in order; s2, b2, the sigmoid) against JAX's Pallas
-  kernels in interpret mode.
+  warp; the warps in order; s2, b2, the sigmoid; the fp form's chain from
+  b1, no scales) against JAX's Pallas kernels in interpret mode.
 - ``tree_decode_step`` under ``quant="int8"`` and ``"int4"`` with the
   spec-head flag: tokens, counts, accept lengths, exit points and exits
   equal JAX's quantized tree sessions; the plain gather runs once per step
@@ -40,6 +41,8 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.core import engine as jeng  # noqa: E402
 from repro.core.tree import TreeSpec as JTreeSpec  # noqa: E402
 from repro.kernels.predictor_mlp.predictor_mlp import (  # noqa: E402
+    predictor_mlp_fused as jax_predictor_mlp)
+from repro.kernels.predictor_mlp.predictor_mlp import (  # noqa: E402
     predictor_mlp_fused_q as jax_predictor_mlp_q)
 from repro.kernels.spec_head.spec_head import (  # noqa: E402
     spec_head_logits_q as jax_spec_head_logits_q)
@@ -52,7 +55,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
 from repro_torch.core.tree import TreeSpec  # noqa: E402
 from repro_torch.kernels.predictor_mlp.predictor_mlp import (  # noqa: E402
-    predictor_mlp_fused_q)
+    predictor_mlp_fused, predictor_mlp_fused_q)
 from repro_torch.kernels.spec_head import spec_head as sh  # noqa: E402
 from repro_torch.kernels.spec_head.ref import (  # noqa: E402
     spec_dot_q_ref, spec_gather_q_ref)
@@ -167,28 +170,42 @@ def _dot_q_emulated(hn, cols, idx):
     return _butterfly(_fma_chain(terms)) * cols.scales[i]
 
 
-def _predictor_q_emulated(x, qw1, b1, qw2, b2, threads=PRED_THREADS):
-    """csrc/predictor.cuh's order on the CPU (``predictor_rows`` on the
-    quantized form): per hidden unit h the features' chain from 0, then
-    fmaf(dot, s1[h], b1[h]); thread t takes the units t, t + threads, ...
-    in order into relu(hidden) * W2[h]; a butterfly in each warp; the
-    warps' sums in warp order; fmaf(sum, s2, b2); the sigmoid."""
+def _predictor_emulated(x, w1, b1, w2, b2, s1=None, s2=None,
+                        threads=PRED_THREADS):
+    """csrc/predictor.cuh's order on the CPU (``predictor_rows``): per
+    hidden unit h the features' chain, for a scaled form (codes) from 0,
+    then fmaf(dot, s1[h], b1[h]), for the fp form from b1[h]; thread t
+    takes the units t, t + threads, ... in order into relu(hidden) *
+    W2[h]; a butterfly in each warp; the warps' sums in warp order;
+    fmaf(sum, s2, b2) for a scaled form, sum + b2 for the fp form; the
+    sigmoid. ``w1`` (F, H) and ``w2`` (H,) are the weights or the widened
+    codes."""
     R, F = x.shape
-    c1 = _widen(qw1.q, qw1.bits).double()                    # (F, H)
-    H = c1.shape[1]
-    c2 = _widen(qw2.q, qw2.bits)[:, 0].double()              # (H,)
-    terms = x.double()[:, :, None] * c1[None]                # (R, F, H)
-    dot = _fma_chain(terms)                                   # (R, H)
-    hid = (dot.double() * qw1.scale.double() + b1.double()).float()
-    share = torch.relu(hid).double() * c2                     # (R, H)
+    H = w1.shape[1]
+    terms = x.double()[:, :, None] * w1.double()[None]       # (R, F, H)
+    if s1 is None:
+        hid = _fma_chain(torch.cat([b1.double().expand(R, 1, H), terms], 1))
+    else:
+        dot = _fma_chain(terms)                               # (R, H)
+        hid = (dot.double() * s1.double() + b1.double()).float()
+    share = torch.relu(hid).double() * w2.double()            # (R, H)
     per_thread = -(-H // threads)
     pad = per_thread * threads - H
     share = torch.cat([share, share.new_zeros(R, pad)], 1)
     part = _fma_chain(share.reshape(R, per_thread, threads))  # (R, T)
     warps = _butterfly(part.reshape(R, threads // 32, 32))   # (R, W)
-    o = _fma_chain(warps.double()[:, :, None])[:, 0]
-    o = (o.double() * qw2.scale.double()[0] + b2.double()[0]).float()
+    o = _fma_chain(warps.double()[:, :, None])[:, 0].double()
+    o = (o + b2.double()[0] if s2 is None
+         else o * s2.double()[0] + b2.double()[0]).float()
     return 1.0 / (1.0 + torch.exp(-o))
+
+
+def _predictor_q_emulated(x, qw1, b1, qw2, b2, threads=PRED_THREADS):
+    """``_predictor_emulated`` on the quantized form: the widened codes
+    with their scales."""
+    return _predictor_emulated(x, _widen(qw1.q, qw1.bits), b1,
+                               _widen(qw2.q, qw2.bits)[:, 0], b2,
+                               qw1.scale, qw2.scale, threads)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -300,6 +317,31 @@ def test_predictor_q_kernel_order_matches_jax(bits1, bits2, H):
     np.testing.assert_allclose(
         got.numpy(),
         predictor_mlp_fused_q(_t(x), q1, _t(b1), q2, _t(b2)).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("R", [1, 108])
+@pytest.mark.parametrize("F", [12, 15, 24])
+def test_predictor_fp_kernel_order_matches_jax(F, R):
+    """The emulated predictor order on the fp form (csrc/predictor_mlp.cu:
+    no scales, each unit's chain from b1) against JAX's
+    ``predictor_mlp_fused`` (interpret mode) and the plain version, at
+    H = 512 and F = 12 (the instance unrolled to 12), 15 and 24 (the
+    instance unrolled to 32), one row and the B*P = 108 merged paths of
+    four TreeSpec(3, 3) rows."""
+    rng = np.random.default_rng(F * 1000 + R)
+    H = 512
+    x = rng.standard_normal((R, F)).astype(np.float32)
+    w1 = (rng.standard_normal((F, H)) * F ** -0.5).astype(np.float32)
+    w2 = (rng.standard_normal((H, 1)) * H ** -0.5).astype(np.float32)
+    b1 = (rng.standard_normal(H) * 0.1).astype(np.float32)
+    b2 = (rng.standard_normal(1) * 0.1).astype(np.float32)
+    want = np.asarray(jax_predictor_mlp(*map(jnp.asarray,
+                                             (x, w1, b1, w2, b2))))
+    got = _predictor_emulated(_t(x), _t(w1), _t(b1), _t(w2)[:, 0], _t(b2))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(
+        got.numpy(),
+        predictor_mlp_fused(*map(_t, (x, w1, b1, w2, b2))).numpy(), **TOL)
 
 
 @pytest.fixture(scope="module")
