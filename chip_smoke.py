@@ -6,8 +6,10 @@ decoding of Llama-2-7B through the port's public entry points, serves
 requests through its continuous-batching ``ServingEngine`` on the paged KV
 cache, in AR and in tree mode, runs all three with weight-only int8
 and int4 quantization, serves on an int8 KV cache
-(``ModelFlags(kv_quant=True)``), alone and with int8 weights, and decodes
-and serves Mamba2 (mamba2-130m) with the SSD intra-chunk kernel.
+(``ModelFlags(kv_quant=True)``), alone and with int8 weights, decodes
+and serves Mamba2 (mamba2-130m) with the SSD intra-chunk kernel, and
+runs the whole-batch and serving paths again as megaticks
+(``step(num_ticks=4)``, ``ServingEngine(megatick=4)``).
 
     python3 chip_smoke.py
 
@@ -102,8 +104,17 @@ Phases (lines ``[phase +seconds since the start] ...``):
      kernel (ssd_kernel too) against the plain paths on dense and paged
      caches at thresholds 1.5 (must equal dense greedy), 0.4, -0.1 and an
      oracle set that forces exits (frozen SSD states, shifted conv
-     windows), and ServingEngine blocking and with 64-token chunks (which
-     fall back to whole-prompt admission);
+     windows), the same as megaticks of 4 ticks against the single steps,
+     and ServingEngine blocking and with 64-token chunks (which fall back
+     to whole-prompt admission). Then megaticks on llama2-7b (4 layers,
+     fp32): whole-batch sessions with every kernel as megaticks of K=4 and
+     K=3 (a budget of 8 runs out inside one) against single steps with
+     the kernels and on the plain paths (SpecEE with the draft's and an
+     oracle set on dense and paged caches, tree on paged, dense decoding:
+     tokens, per-tick exit points and accept lengths, units_run
+     identical), and ServingEngine(megatick=4) (async) against the
+     per-tick engine, 8 requests through 4 slots (SpecEE, both sets, and
+     tree);
   4. full run — llama2-7b, 32 layers, bf16, 4 prompts of 128 tokens,
      32 SpecEE decode steps (whole-batch session, dense cache);
   5. serve — the same weights, ServingEngine(cache="paged") with
@@ -142,14 +153,27 @@ Phases (lines ``[phase +seconds since the start] ...``):
      16 requests with prompts of 64-512 tokens, 32 new tokens each; each
      must launch ssd_chunk (once per layer per prefill), exit_gate,
      argmax_verify and topk_verify; then profiles of steps and ticks;
- 10. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
+ 10. mega — megaticks of 4 ticks at published width on the same weights:
+     whole-batch SpecEE (phase 4's prompts, 8 megaticks), tree (phase 6's,
+     4 megaticks) and mamba2 (phase 9's, 8 megaticks), each bit-identical
+     to its phase's single steps (tokens, per-tick exit points, exits,
+     accept lengths, units_run), with ms/tick and tokens/s beside the
+     single steps' (SpecEE and tree also run as single steps here, in
+     turns: single, megatick, megatick, single);
+     ServingEngine(cache="paged", megatick=4) (async) on phase 5's 16
+     requests with blocking admission, then the per-tick engine again,
+     and mamba2 serving on phase 9's, each against its phase's run
+     (requests/s, tokens/s, ms per step() call; each llama request that
+     differs with its top-2 margin at the first differing token); then
+     profiles of 12 whole-batch single steps and of 3 megaticks;
+ 11. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
 token per step (one emitted token per tree step), so the tree runs measure
 the mechanism's cost, not its gain.
 
-Each main path (phases 4 to 9, each run on its own) zeroes the
+Each main path (phases 4 to 10, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -246,6 +270,7 @@ GATE_BATCH = SERVE_BATCH                     # a full serve tick's gate rows
 SERVE_PROMPTS = (64, 512)                    # prompt lengths, inclusive
 TREE_DEPTH, TREE_BRANCH = 3, 3               # 40 nodes, 27 root-leaf paths
 TREE_STEPS, TREE_SERVE_REQS = 16, 8
+MEGA_K = 4                                   # ticks per megatick
 QUANT_TREE_STEPS = 4                         # tree steps of the quant phase
 # mamba2-130m (src/repro_torch/configs/mamba2_130m.py): D=768, V=50280 tied,
 # 24 SSD layers of 24 heads of 64, d_state 128, 64-token chunks
@@ -1697,7 +1722,112 @@ def parity(torch, dev):
     tree_parity(torch, dev, params, sw)
     quant_parity(torch, dev, params, sw)
     kvq_parity(torch, dev, params, sw)
+    megatick_parity(torch, dev, params, sw)
     del params, sw
+
+
+def megatick_parity(torch, dev, params, sw):
+    """Phase 3, megaticks: llama2-7b at full width, 4 layers, fp32.
+    Whole-batch sessions (B=4, a budget of 8) with every kernel, stepped
+    as megaticks of K=4 and K=3 (the budget runs out inside one), against
+    single steps with the kernels and on the plain paths: SpecEE with the
+    draft's set and with an oracle set that forces exits (threshold -0.1)
+    on dense and paged caches, tree on the paged cache, dense decoding;
+    tokens, per-tick exit points and accept lengths, and units_run must be
+    identical, and the path's kernels must launch inside the megaticks.
+    Then ServingEngine(megatick=4) (async) against the per-tick blocking
+    engine: 8 requests through 4 slots, SpecEE (both sets) and tree."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.api import DenseStrategy, Engine, SpecEEStrategy
+    from repro_torch.models.model import ModelFlags, build_model
+    run = llama(4, "float32")
+    m_plain = build_model(run, ModelFlags(exit_gate_impl="ref"))
+    m_ker = build_model(run, ModelFlags(**ALL_KERNELS))
+    m_tree = build_model(run, ModelFlags(**TREE_KERNELS))
+    prompts = np.random.default_rng(9).integers(0, V, (B, 16))
+
+    def stream(model, strategy, cache, ticks):
+        s = Engine.create(model, params, sw,
+                          strategy=strategy).new_session(cache=cache)
+        first = s.prefill(prompts, max_new_tokens=8)
+        toks = [first.row_tokens(b) for b in range(B)]
+        stats = [[] for _ in range(B)]
+        units = 0
+        while not s.all_done():
+            r = s.step(num_ticks=ticks)
+            units += int(r.units_run)
+            for b in range(B):
+                toks[b] += r.row_tokens(b)
+                stats[b] += list(zip(r.row_exit_points(b),
+                                     r.row_accept_lens(b)))
+        return toks, stats, units
+
+    dec = ("decode_attention", "paged_decode_attention")
+    cells = (
+        ("SpecEE draft set, dense", m_ker, SpecEEStrategy(threshold=-0.1),
+         "dense", ("exit_gate", "argmax_verify", "topk_verify", dec[0])),
+        ("SpecEE draft set, paged", m_ker, SpecEEStrategy(threshold=-0.1),
+         "paged", ("exit_gate", "argmax_verify", "topk_verify", dec[1])),
+        ("SpecEE oracle set, paged", m_ker, oracle_strategy(-0.1), "paged",
+         ("exit_gate", "argmax_verify", "topk_verify", dec[1])),
+        # tree attention is plain SDPA over the gathered view
+        ("tree, paged", m_tree, tree_strategy(0.4), "paged",
+         ("spec_head_gather", "spec_head", "predictor_mlp",
+          "argmax_verify")),
+        ("dense, dense", m_ker, DenseStrategy(), "dense",
+         ("argmax_verify", dec[0])))
+    for label, m, strat, cache, path in cells:
+        want = stream(m_plain, strat, cache, None)
+        require(stream(m, strat, cache, None) == want,
+                f"megatick parity, {label}: single steps with kernels vs "
+                "plain differ")
+        notes = []
+        for ticks in (MEGA_K, 3):
+            K.reset_launches()
+            got = stream(m, strat, cache, ticks)
+            missing = [k for k in path if K.LAUNCHES[k] == 0]
+            require(got == want, f"megatick parity, {label}, K={ticks}: "
+                    f"{got} vs single steps {want}")
+            require(not missing, f"megatick parity, {label}, K={ticks}: "
+                    f"kernels not launched: {missing}")
+            notes.append(f"K={ticks}")
+        exits = sum(e < m.num_exit_points for row in want[1] for e, _ in row)
+        require(not label.startswith("SpecEE oracle") or exits > 0,
+                "the oracle set forced no exit under megaticks")
+        log("parity", f"megaticks, {label}: {' and '.join(notes)} identical "
+            f"to single steps with kernels and plain (tokens, per-tick exit "
+            f"points and accept lengths, units_run {want[2]}; {exits} exits "
+            f"of {sum(len(r) for r in want[1])} row ticks)")
+
+    srun = llama(4, "float32", max_batch=4, max_seq_len=512, page_size=PAGE)
+    s_ker = build_model(srun, ModelFlags(**ALL_KERNELS))
+    s_tree = build_model(srun, ModelFlags(**TREE_KERNELS))
+    rng = np.random.default_rng(10)
+    sprompts = [rng.integers(0, V, int(n)) for n in rng.integers(20, 201, 8)]
+    ar_path = ("exit_gate", "argmax_verify", "paged_decode_attention")
+    for label, m, strat, path in (
+            ("SpecEE draft set", s_ker, SpecEEStrategy(threshold=-0.1),
+             ar_path),
+            ("SpecEE oracle set", s_ker, oracle_strategy(-0.1), ar_path),
+            ("tree", s_tree, tree_strategy(0.4),
+             ("spec_head_gather", "spec_head", "argmax_verify"))):
+        want = _serve(m, params, sw, sprompts, 8, accept=True,
+                      strategy=strat, cache="paged", prefill_chunk=0)
+        K.reset_launches()
+        got = _serve(m, params, sw, sprompts, 8, accept=True,
+                     strategy=strat, cache="paged", prefill_chunk=0,
+                     megatick=MEGA_K)
+        missing = [k for k in path if K.LAUNCHES[k] == 0]
+        require(not missing, f"megatick serving ({label}): kernels not "
+                f"launched: {missing}")
+        require(got == want, f"megatick serving ({label}) differs from the "
+                "blocking per-tick engine")
+        exits = sum(e < m.num_exit_points for _, eps, _ in want for e in eps)
+        log("parity", f"megatick serving, {label}: ServingEngine(megatick="
+            f"{MEGA_K}) (async) equals the per-tick engine on 8 requests "
+            f"through 4 slots (tokens, exit points, accept lengths; {exits} "
+            f"exits); every page returned")
 
 
 def _serve(model, params, sw, prompts, new_tokens, accept=False, **kw):
@@ -2233,7 +2363,8 @@ def full_run(torch, dev, params, sw):
                                toks), "full run differs from dense greedy")
         log("full", "no row exited: tokens equal dense greedy decoding")
     profile_steps(torch, model, params, sw, prompts, t_decode / FULL_STEPS)
-    return launches
+    return launches, {"prompts": prompts, "steps": steps,
+                      "t_decode": t_decode}
 
 
 # ---------------------------------------------------------------------------
@@ -2355,7 +2486,8 @@ def serve_run(torch, dev, params, sw, chunk: int, kv_quant: bool = False):
         f"{k} {v} ({v / ticks:.2f}/tick)" for k, v in launches.items()))
     outs = [(r.output, r.exit_points) for r in reqs]
     del se
-    return launches, outs, pool_gb
+    return launches, outs, {"pool_gb": pool_gb, "wall": wall,
+                            "ticks": ticks}
 
 
 def profile_serving(torch, se, phase: str, n: int = 4) -> None:
@@ -2374,7 +2506,7 @@ def serve_phase(torch, dev, params, sw):
     """Phase 5. Returns the launches by path and, for phase 8, the
     per-request outputs of both runs and the bf16 pool size."""
     torch.cuda.empty_cache()
-    l_block, out_block, pool_gb = serve_run(torch, dev, params, sw, 0)
+    l_block, out_block, stats = serve_run(torch, dev, params, sw, 0)
     torch.cuda.empty_cache()
     l_chunk, out_chunk, _ = serve_run(torch, dev, params, sw, 256)
     same = sum(a == b for (ra, _), (rb, _) in zip(out_block, out_chunk)
@@ -2388,7 +2520,8 @@ def serve_phase(torch, dev, params, sw):
     profile_serving(torch, serve_engine(torch, params, sw, 0),
                     "profile-serve")
     return ({"serve_blocking": l_block, "serve_chunked": l_chunk},
-            {"blocking": out_block, "chunked": out_chunk, "pool_gb": pool_gb})
+            {"blocking": out_block, "chunked": out_chunk,
+             "pool_gb": stats["pool_gb"], "blocking_stats": stats})
 
 
 # ---------------------------------------------------------------------------
@@ -2514,7 +2647,8 @@ def tree_phase(torch, dev, params, sw):
     torch.cuda.synchronize()
     profile_ticks(torch, "profile-tree-serve", se.step, 3)
     del se
-    return {"tree_whole_batch": launches, "tree_serve": s_launches}
+    return ({"tree_whole_batch": launches, "tree_serve": s_launches},
+            {"prompts": prompts, "steps": steps, "t_decode": t_decode})
 
 
 # ---------------------------------------------------------------------------
@@ -2729,8 +2863,9 @@ def kvq_phase(torch, dev, params, sw, fp_serve, q8_outs):
     by_path = {}
     for chunk, ref_name in ((0, "blocking"), (256, "chunked")):
         torch.cuda.empty_cache()
-        launches, outs, pool_gb = serve_run(torch, dev, params, sw, chunk,
-                                            kv_quant=True)
+        launches, outs, stats = serve_run(torch, dev, params, sw, chunk,
+                                          kv_quant=True)
+        pool_gb = stats["pool_gb"]
         by_path[f"kvq_serve_{ref_name}"] = launches
         log("kvq", f"kv_quant {ref_name}: int8 page pools {pool_gb:.2f} GB "
             f"against the bf16 pools' {fp_serve['pool_gb']:.2f} GB "
@@ -2962,7 +3097,7 @@ def mamba_parity(torch, dev):
     blocking dense run."""
     import numpy as np
     from repro_torch import kernels as K
-    from repro_torch.api import DenseStrategy, SpecEEStrategy
+    from repro_torch.api import DenseStrategy, Engine, SpecEEStrategy
     from repro_torch.core import engine as eng
     from repro_torch.models.model import ModelFlags, build_model
     run = mamba(4, "float32", max_batch=4, max_seq_len=512, page_size=PAGE)
@@ -3009,6 +3144,30 @@ def mamba_parity(torch, dev):
                 + ("; equals dense greedy" if label == "threshold 1.5"
                    else "") + "; launches " + ", ".join(
                     f"{k} {v}" for k, v in launched.items()) + ")")
+
+    # megaticks: 8 ticks as 2 of MEGA_K, held to the single steps
+    for label, strat in (("threshold -0.1", SpecEEStrategy(-0.1)),
+                         ("oracle set", oracle_strategy(-0.1))):
+        want = drive(m_ker, params, sw, strat, prompts, 9)
+        K.reset_launches()
+        session = Engine.create(m_ker, params, sw,
+                                strategy=strat).new_session()
+        first = session.prefill(prompts, max_new_tokens=9)
+        megas = []
+        while not session.all_done():
+            megas.append(session.step(num_ticks=MEGA_K))
+        launched = {k: K.LAUNCHES[k] for k in MAMBA_PATH}
+        require(all(launched.values()), f"mamba2 megaticks ({label}): "
+                f"kernels not launched: {launched}")
+        got = _tick_planes(megas)
+        require(np.array_equal(first.tokens, want[0].tokens)
+                and got == _tick_planes(want[1:]),
+                f"mamba2 megaticks ({label}) differ from single steps")
+        exits = sum(sum(e) for _, _, e, _ in got[0])
+        log("parity", f"mamba2 dense cache, {label}: {len(megas)} "
+            f"megaticks of K={MEGA_K} identical to {len(got[0])} single "
+            f"steps with the kernels (tokens, exit points, exits; units_run "
+            f"{got[1]}; {exits} exits)")
 
     rng = np.random.default_rng(7)
     sprompts = [rng.integers(0, M_V, int(n)) for n in rng.integers(20, 201, 8)]
@@ -3199,8 +3358,253 @@ def mamba_phase(torch, dev):
     se.step()
     torch.cuda.synchronize()
     profile_ticks(torch, "profile-mamba-serve", se.step, 4)
-    del se, params, sw
-    return {"mamba_whole_batch": launches, "mamba_serve": s_launches}
+    del se
+    return ({"mamba_whole_batch": launches, "mamba_serve": s_launches},
+            {"model": model, "params": params, "sw": sw, "prompts": prompts,
+             "steps": steps, "t_decode": t_decode,
+             "serve": [(r.output, r.exit_points) for r in reqs],
+             "serve_wall": wall, "serve_ticks": ticks})
+
+
+# ---------------------------------------------------------------------------
+# phase 10: megaticks at published width
+# ---------------------------------------------------------------------------
+def _tick_planes(results):
+    """Per-tick (tokens, exit points, exits, accept lengths) of every row,
+    and units_run summed, from single-step or megatick results, for
+    whole-batch runs where every row is live on every tick."""
+    ticks, units = [], 0
+    for r in results:
+        units += int(r.units_run)
+        if not r.is_megatick:
+            ticks.append(([r.row_tokens(b) for b in range(B)],
+                          r.exit_layer.tolist(), r.exited.tolist(),
+                          r.accept_len.tolist()))
+            continue
+        require(bool(r.tick_live[:, :r.ticks].all()), "a row left the batch")
+        off = [0] * B
+        for t in range(r.ticks):
+            toks = []
+            for b in range(B):
+                n = int(r.tick_counts[b, t])
+                toks.append([int(x) for x in r.tokens[b, off[b]:off[b] + n]])
+                off[b] += n
+            ticks.append((toks, r.exit_layer[:, t].tolist(),
+                          r.exited[:, t].tolist(),
+                          r.accept_len[:, t].tolist()))
+    return ticks, units
+
+
+def _mega_whole_batch(torch, label, model, params, sw, strategy, prompts,
+                      budget, ref, path, vocab, pairs=False):
+    """A whole-batch session stepped as megaticks of MEGA_K ticks, as many
+    ticks as ``ref`` (an earlier phase's single steps on the same weights,
+    prompts and kernels); its tokens and per-tick planes must equal
+    ``ref``'s bit for bit. With ``pairs`` the same session is also run as
+    single steps before and after, and the megaticks once more (single,
+    megatick, megatick, single), each bit-identical to ``ref``, so the
+    times compare within this phase. Returns the launches of the first
+    megatick run."""
+    from repro_torch import kernels as K
+    from repro_torch.api import Engine
+    n_ticks = len(ref["steps"])
+    want = _tick_planes(ref["steps"])
+
+    def run(ticks):
+        torch.cuda.synchronize()
+        K.reset_launches()                   # ---- the main path ----
+        session = Engine.create(model, params, sw,
+                                strategy=strategy).new_session()
+        session.prefill(prompts, max_new_tokens=budget)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = [session.step(num_ticks=ticks)
+               for _ in range(n_ticks // ticks)]
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)          # ---- read right after ----
+        got = _tick_planes(res)
+        require(len(got[0]) == n_ticks, f"{label}: {len(got[0])} ticks ran, "
+                f"expected {n_ticks}")
+        for t, (g, w) in enumerate(zip(got[0], want[0])):
+            require(g == w, f"{label}, {ticks} tick(s) a call: tick {t} "
+                    f"differs from the single steps (tokens, exit points, "
+                    f"exits, accept lengths): {g} vs {w}")
+        require(got[1] == want[1], f"{label}: units_run {got[1]} vs "
+                f"{want[1]}")
+        require(all(0 <= x < vocab for r in res for b in range(B)
+                    for x in r.row_tokens(b)), "token out of vocabulary")
+        return launches, t_decode, sum(int(r.counts.sum()) for r in res)
+
+    order = (1, MEGA_K, MEGA_K, 1) if pairs else (MEGA_K,)
+    times = {1: [], MEGA_K: []}
+    launches = None
+    for ticks in order:
+        got_launches, t_decode, tokens = run(ticks)
+        times[ticks].append(t_decode)
+        if ticks == MEGA_K and launches is None:
+            launches = got_launches
+    missing = [k for k in path if launches[k] == 0]
+    require(not missing, f"{label}: kernels never launched: {missing}")
+
+    def rate(t):
+        return (f"{t:.3f} s = {t / n_ticks * 1e3:.2f} ms/tick, "
+                f"{tokens / t:.2f} tokens/s, {t / tokens * 1e3:.3f} ms/token")
+
+    log("mega", f"{label}: {n_ticks // MEGA_K} megaticks of {MEGA_K} = "
+        f"{n_ticks} ticks bit-identical to its phase's single steps "
+        f"(tokens, exit points, exits, accept lengths; units_run {want[1]})"
+        + (f", and so are this phase's single steps and second megatick "
+           f"run (order: single, megatick, megatick, single)" if pairs
+           else "") + "; megaticks " + "; ".join(map(rate, times[MEGA_K]))
+        + "".join(f"; single steps here {rate(t)}" for t in times[1])
+        + f"; single steps in its phase {rate(ref['t_decode'])}")
+    log("mega", f"{label} launches: " + ", ".join(
+        f"{k} {launches[k]} ({launches[k] / n_ticks:.2f}/tick)"
+        for k in path))
+    return launches
+
+
+def _mega_serve(torch, label, model, params, sw, prompts, vocab, path,
+                chunk, megatick=MEGA_K):
+    """``ServingEngine(megatick=megatick)`` (async when megatick > 1) on
+    the paged cache with ``prefill_chunk=chunk``. Returns (launches,
+    per-request (output, exit points), wall s, step() calls)."""
+    from repro_torch import kernels as K
+    from repro_torch.serving import ServingEngine
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    se = ServingEngine(model, params, sw, cache="paged", prefill_chunk=chunk,
+                       megatick=megatick)
+    require(se.async_ticks == (megatick > 1),
+            "async ticks not on exactly when megatick > 1")
+    mgr = se.session.cache_mgr
+    calls = 0
+    K.reset_launches()                       # ---- the main path ----
+    t0 = time.perf_counter()
+    reqs = [se.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    while se.busy:
+        se.step()
+        calls += 1
+        require(calls <= 10_000, f"{label} did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)              # ---- read right after ----
+    require(not se.in_flight, f"{label}: a megatick left in flight")
+    require(all(r.done and len(r.output) == SERVE_NEW for r in reqs),
+            f"{label}: a request did not finish with its 32 tokens")
+    require(all(0 <= t < vocab for r in reqs for t in r.output),
+            "token out of vocabulary")
+    require(mgr.free_pages == getattr(mgr, "num_pages", 0),
+            f"{label}: {mgr.free_pages} pages free at the end")
+    missing = [k for k in path if launches[k] == 0]
+    require(not missing, f"{label}: kernels never launched: {missing}")
+    tokens = sum(len(r.output) for r in reqs)
+    row_ticks = sum(len(r.exit_points) for r in reqs)
+    log("mega", f"{label}, megatick={megatick}: {len(reqs)} requests "
+        f"through {SERVE_BATCH} slots in {wall:.3f} s = "
+        f"{len(reqs) / wall:.3f} requests/s, {tokens / wall:.2f} tokens/s; "
+        f"{calls} step() calls, {wall / calls * 1e3:.2f} ms/call; "
+        f"{row_ticks} row ticks; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; every page "
+        f"returned")
+    if megatick > 1:
+        log("mega", f"{label} launches: " + ", ".join(
+            f"{k} {launches[k]} ({launches[k] / calls:.2f}/call)"
+            for k in path))
+    return launches, [(r.output, r.exit_points) for r in reqs], wall, calls
+
+
+def mega_phase(torch, dev, params, sw, ar_ref, fp_serve, tree_ref,
+               mamba_ref):
+    """Phase 10: megaticks of MEGA_K ticks at published width, on phase 4's
+    llama2-7b weights (bf16) and phase 9's mamba2-130m ones. Whole-batch
+    SpecEE, tree and mamba2 sessions must be bit-identical to phases 4, 6
+    and 9's single steps (the same kernels on the same batch in the same
+    order); ServingEngine(megatick=MEGA_K) on phase 5's 16 requests is
+    compared with phase 5's blocking run (the batch mix per tick differs,
+    so bf16 near-ties may flip: each differing request is logged with its
+    top-2 margin), and mamba2 serving with phase 9's; then torch.profiler
+    over 12 single steps and over 3 megaticks of a whole-batch session. The AR and tree sessions
+    also run as single steps before and after their megaticks, and the
+    AR serve per tick right after, so the times compare in turns."""
+    from repro_torch.api import SpecEEStrategy
+    from repro_torch.models.model import ModelFlags, build_model
+    by_path = {}
+    model = build_model(llama(32, "bfloat16"), ModelFlags(
+        exit_gate_kernel=True, exit_gate_impl="kernel", decode_kernel=True))
+    by_path["mega_whole_batch"] = _mega_whole_batch(
+        torch, "AR whole batch", model, params, sw, SpecEEStrategy(),
+        ar_ref["prompts"], FULL_STEPS + 1, ar_ref, AR_PATH, V, pairs=True)
+    torch.cuda.empty_cache()
+    tree = tree_strategy().tree
+    by_path["mega_tree"] = _mega_whole_batch(
+        torch, "tree whole batch",
+        build_model(llama(32, "bfloat16"), ModelFlags(**TREE_KERNELS)),
+        params, sw, tree_strategy(), tree_ref["prompts"],
+        (TREE_STEPS + 4) * (tree.depth + 1), tree_ref, TREE_PATH, V,
+        pairs=True)
+    torch.cuda.empty_cache()
+
+    srun = llama(32, "bfloat16", max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
+                 page_size=PAGE)
+    smodel = build_model(srun, ModelFlags(**ALL_KERNELS))
+    launches, outs, wall, calls = _mega_serve(
+        torch, "AR serve", smodel, params, sw, serve_prompts(), V,
+        SERVE_PATH + ("flash_attention",), 0)
+    by_path["mega_serve"] = launches
+    # the per-tick engine again, right after, for a comparison in turns
+    _, outs1, wall1, calls1 = _mega_serve(
+        torch, "AR serve", smodel, params, sw, serve_prompts(), V,
+        SERVE_PATH + ("flash_attention",), 0, megatick=1)
+    st = fp_serve["blocking_stats"]
+    log("mega", f"AR serve, megatick={MEGA_K} against megatick=1 here and "
+        f"phase 5's blocking run: {SERVE_REQS / wall:.3f} vs "
+        f"{SERVE_REQS / wall1:.3f} and {SERVE_REQS / st['wall']:.3f} "
+        f"requests/s; {calls} calls of {wall / calls * 1e3:.2f} ms vs "
+        f"{calls1} of {wall1 / calls1 * 1e3:.2f} and {st['ticks']} of "
+        f"{st['wall'] / st['ticks'] * 1e3:.2f} ms")
+    differ = [i for i, (a, b) in enumerate(zip(fp_serve["blocking"], outs1))
+              if a != b]
+    log("mega", f"AR serve, megatick=1: requests whose tokens or exit "
+        f"points differ from phase 5's blocking run: {differ or 'none'}")
+    flip_margins(torch, params, fp_serve["blocking"], outs, "mega",
+                 "phase 5's blocking run and the megatick one")
+
+    # device busy against wall time over 3 megaticks, and over as many
+    # single steps right before (the host's speed drifts between phases)
+    from repro_torch.api import Engine
+    for ticks, note in ((1, "single steps, before the megaticks"),
+                        (MEGA_K, f"one call: a megatick of {MEGA_K} steps")):
+        session = Engine.create(model, params, sw,
+                                strategy=SpecEEStrategy()).new_session()
+        session.prefill(ar_ref["prompts"], max_new_tokens=5 * MEGA_K + 1)
+        session.step(num_ticks=MEGA_K)
+        torch.cuda.synchronize()
+        profile_ticks(torch, "profile-mega",
+                      lambda: session.step(num_ticks=ticks),
+                      3 * MEGA_K // ticks, f" ({note})")
+        del session
+    torch.cuda.empty_cache()
+
+    m = mamba_ref
+    by_path["mega_mamba_whole_batch"] = _mega_whole_batch(
+        torch, "mamba2 whole batch", m["model"], m["params"], m["sw"],
+        SpecEEStrategy(), m["prompts"], FULL_STEPS + 1, m, MAMBA_PATH, M_V)
+    msrun = mamba(24, "bfloat16", max_batch=SERVE_BATCH,
+                  max_seq_len=SERVE_SEQ, page_size=PAGE)
+    launches, outs, wall, calls = _mega_serve(
+        torch, "mamba2 serve", build_model(msrun, ModelFlags(**MAMBA_KERNELS)),
+        m["params"], m["sw"], serve_prompts(M_V), M_V, MAMBA_PATH, None)
+    by_path["mega_mamba_serve"] = launches
+    differ = [i for i, (a, b) in enumerate(zip(m["serve"], outs)) if a != b]
+    log("mega", f"mamba2 serve against phase 9's: {SERVE_REQS / wall:.3f} vs "
+        f"{SERVE_REQS / m['serve_wall']:.3f} requests/s; {calls} calls of "
+        f"{wall / calls * 1e3:.2f} ms vs {m['serve_ticks']} of "
+        f"{m['serve_wall'] / m['serve_ticks'] * 1e3:.2f} ms; requests whose "
+        f"tokens or exit points differ: {differ or 'none'}")
+    return by_path
 
 
 # where the device time of a decode step goes, by kernel family (the paged
@@ -3349,19 +3753,26 @@ def main() -> int:
     mamba_parity(torch, dev)
     torch.cuda.empty_cache()
     params, sw = full_weights(torch, dev)
-    by_path = {"whole_batch": full_run(torch, dev, params, sw)}
+    ar_launches, ar_ref = full_run(torch, dev, params, sw)
+    by_path = {"whole_batch": ar_launches}
     torch.cuda.empty_cache()
     serve_launches, fp_serve = serve_phase(torch, dev, params, sw)
     by_path.update(serve_launches)
     torch.cuda.empty_cache()
-    by_path.update(tree_phase(torch, dev, params, sw))
+    tree_launches, tree_ref = tree_phase(torch, dev, params, sw)
+    by_path.update(tree_launches)
     torch.cuda.empty_cache()
     quant_launches, q8_outs = quant_phase(torch, dev, params, sw)
     by_path.update(quant_launches)
     by_path.update(kvq_phase(torch, dev, params, sw, fp_serve, q8_outs))
-    del params, sw, fp_serve, q8_outs
+    del q8_outs
     torch.cuda.empty_cache()
-    by_path.update(mamba_phase(torch, dev))
+    mamba_launches, mamba_ref = mamba_phase(torch, dev)
+    by_path.update(mamba_launches)
+    torch.cuda.empty_cache()
+    by_path.update(mega_phase(torch, dev, params, sw, ar_ref, fp_serve,
+                              tree_ref, mamba_ref))
+    del params, sw, fp_serve, mamba_ref
 
     kernels = []
     for name in build.SOURCES:

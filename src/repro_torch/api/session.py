@@ -1,19 +1,30 @@
-"""Engine / DecodeSession (counterpart of ``repro/api/session.py``) with
-single ticks (a tree tick emits up to ``depth + 1`` tokens per row):
+"""Engine / DecodeSession (counterpart of ``repro/api/session.py``; a tree
+tick emits up to ``depth + 1`` tokens per row):
 
     engine = Engine.create(model, params, sw, strategy="specee")
     session = engine.new_session()
     first = session.prefill(prompts, max_new_tokens=64)
     while not session.all_done():
-        res = session.step()
+        res = session.step()            # or session.step(num_ticks=4)
 
 ``Engine`` binds (model, params, SpecEE weights, strategy); a session owns
 one batched ``DecodeState`` plus per-row token budgets, EOS cut-off and the
-``done`` mask, kept on the host. Its KV memory is owned by a
-``KVCacheManager`` (``api.cache``): ``new_session(cache="paged")`` swaps the
-dense layout for page pools + a page table with no change to the step, and
-``retire_row`` compacts a finished row. The KV cache is updated in place
-every tick.
+``done`` mask. For single steps that bookkeeping runs on the host; for
+``step(num_ticks=K)`` it moves into a carry of (B,) tensors on the device,
+and K ticks run as one megatick (``engine.megatick_decode``) whose results
+are read once, at its end. Its KV memory is owned by a ``KVCacheManager``
+(``api.cache``): ``new_session(cache="paged")`` swaps the dense layout for
+page pools + a page table with no change to the step, and ``retire_row``
+compacts a finished row. The KV cache is updated in place every tick.
+
+``step_async`` is the serving engine's pipelined variant: it runs a
+megatick and returns a handle whose results are read by ``finish_step``,
+so the next megatick can be dispatched first. The carry stays on the
+device across megaticks; admission and retirement between a finish and
+the next dispatch mirror their row edits onto it. The KV cache being
+updated in place stays safe: one stream orders megatick N+1 after N, and a
+handle owns its output and carry tensors, which no later megatick or
+mirror writes.
 
 Weight-only quantization (``Engine.create(..., quant="int8"|"int4"|
 QuantSpec)``): the engine builds the parallel bundle ``engine.qw``
@@ -39,8 +50,8 @@ Two session styles:
     splits the prompt forward into fixed-token chunks so the serving loop
     can interleave them with decode ticks.
 
-Megaticks, async ticks, snapshots and sampling are later slices (the
-ROADMAP items on megaticks, fault tolerance and the rest of serving).
+Snapshots and sampling are later slices (the ROADMAP items on fault
+tolerance and the rest of serving).
 """
 from __future__ import annotations
 
@@ -63,6 +74,24 @@ from repro_torch.quant import (QuantSpec, dequantized_reference,
                                quantize_params)
 
 _NO_BUDGET = np.iinfo(np.int64).max
+_DEV_NO_BUDGET = np.iinfo(np.int32).max     # device-carry budget cap
+
+
+@dataclass
+class MegatickHandle:
+    """One dispatched-but-unread megatick (``DecodeSession.step_async``).
+
+    ``out``/``carry`` hold device tensors that ``finish_step`` reads. The
+    carry captured here is the megatick's OUTPUT limits — the tensors the
+    next megatick consumes as input. ``dirty`` collects rows whose host
+    bookkeeping advanced after this dispatch (retire / re-admit mirror
+    edits): for those rows the captured carry is stale, so ``finish_step``
+    keeps the host values instead of syncing from it.
+    """
+    out: Any
+    carry: Any
+    num_ticks: int
+    dirty: set = field(default_factory=set)
 
 
 class Engine:
@@ -125,6 +154,15 @@ class Engine:
                                  self.sw, dict(self.qw, proj=None))
         return self._decode_view
 
+    def megatick(self, state: eng.DecodeState, limits, num_ticks: int):
+        """The K-tick step on ``decode_weights()`` (JAX's
+        ``Engine.megatick_jit``, which compiles it once per K). The state's
+        caches are updated in place; the limits passed in are not written.
+        Returns ``(out, state, new_limits)``."""
+        params, sw, qw = self.decode_weights()
+        return self.strategy.megatick(self.model, params, sw, state, limits,
+                                      num_ticks, qw=qw)
+
     def new_session(self, batch: Optional[int] = None,
                     max_seq: Optional[int] = None, prng_seed: int = 0,
                     cache: Union[None, str, CacheSpec] = None
@@ -179,6 +217,13 @@ class DecodeSession:
         self._state: Optional[eng.DecodeState] = None
         self.cache_mgr: Optional[KVCacheManager] = None
         self.batch: Optional[int] = None
+        # device-side decode limits (budget/emitted/eos/done/retired): None
+        # = the host bookkeeping is authoritative, rebuilt at the next
+        # megatick dispatch; else the carry threading megatick to megatick
+        self._dev_carry: Optional[dict] = None
+        # dispatched-but-unread megaticks, oldest first (the async pipeline
+        # dispatches N+1 before finishing N)
+        self._async_handles: List[MegatickHandle] = []
         if batch is not None:
             if max_seq is None:
                 max_seq = engine.model.run.serve.max_seq_len
@@ -210,6 +255,54 @@ class DecodeSession:
         # saturates the row's capacity, and the degenerate attention there
         # would touch live rows through the batch-shared kernels
         self._retired: set = set() if live else set(range(batch))
+        self._dev_carry = None
+
+    # ----- device-side decode-limit carry (megatick path) -----
+    def _carry_from_host(self) -> dict:
+        """The device-side limits built from the host bookkeeping (at a
+        dispatch that finds no carry)."""
+        retired = np.zeros(self.batch, bool)
+        retired[sorted(self._retired)] = True
+
+        def dev(x, dtype):      # a copy: the host mirrors change later
+            return torch.tensor(np.asarray(x), dtype=dtype,
+                                device=self.engine.device)
+
+        return {
+            "budget": dev(np.minimum(self._budget, _DEV_NO_BUDGET),
+                          torch.int32),
+            "emitted": dev(np.minimum(self._emitted, _DEV_NO_BUDGET),
+                           torch.int32),
+            "eos": dev([-1 if e is None else int(e) for e in self._eos],
+                       torch.int32),
+            "done": dev(self._done, torch.bool),
+            "retired": dev(retired, torch.bool),
+        }
+
+    def _mirror_row_to_dev(self, row: int) -> None:
+        """Apply one row's host bookkeeping onto the device carry —
+        admission/retirement between a megatick's dispatch and the next
+        must edit the carried tensors, not just the host mirrors the carry
+        overwrites at the next finish. Each tensor is cloned first: an
+        outstanding handle holds the current ones."""
+        c = self._dev_carry
+        if c is None:
+            return
+        eos = self._eos[row]
+        values = {"budget": int(min(self._budget[row], _DEV_NO_BUDGET)),
+                  "emitted": int(min(self._emitted[row], _DEV_NO_BUDGET)),
+                  "eos": -1 if eos is None else int(eos),
+                  "done": bool(self._done[row]),
+                  "retired": row in self._retired}
+        carry = {}
+        for name, value in values.items():
+            carry[name] = c[name].clone()
+            carry[name][row] = value
+        self._dev_carry = carry
+        # outstanding megaticks were dispatched with a carry that predates
+        # this edit: their finish must not roll the row's host mirrors back
+        for h in self._async_handles:
+            h.dirty.add(row)
 
     def _set_row_limits(self, row: int, max_new_tokens: Optional[int],
                         eos_token: Optional[int]) -> None:
@@ -237,7 +330,10 @@ class DecodeSession:
         return count
 
     def _wrap(self, raw: StepResult) -> StepResult:
-        """Device → host + per-row budget/EOS accounting."""
+        """Device → host + per-row budget/EOS accounting. The accounting
+        runs on the host, so a device carry is stale afterwards: drop it
+        (the next megatick rebuilds it from the host)."""
+        self._dev_carry = None
         tokens = raw.tokens.cpu().numpy()
         counts = raw.counts.cpu().numpy().copy()
         for row in range(tokens.shape[0]):
@@ -266,17 +362,34 @@ class DecodeSession:
 
     def retire_row(self, row: int) -> None:
         """Per-row compaction: release the finished row's cache footprint
-        (paged: pages back to the free list; dense: length to zero)."""
+        (paged: pages back to the free list; dense: length to zero). Safe
+        after a dispatched megatick: the row's done/retired bits are
+        mirrored onto the carry, so the next megatick skips it."""
         assert self._state is not None and self.cache_mgr is not None
         self._done[row] = True
         self._retired.add(row)
         self._state = self._state._replace(
             cache=self.cache_mgr.retire_row(self._state.cache, row))
+        self._mirror_row_to_dev(row)
 
     def row_span(self, row: int) -> int:
         """Attention span the row currently pays."""
         assert self._state is not None and self.cache_mgr is not None
         return self.cache_mgr.row_span(self._state.cache, row)
+
+    @property
+    def in_flight(self) -> int:
+        """Dispatched-but-unread async megaticks outstanding."""
+        return len(self._async_handles)
+
+    def abort_async(self) -> None:
+        """Forget every dispatched-but-unread megatick. The host mirrors
+        stay at their last synced values, which are authoritative because
+        the aborted megaticks' results were never read, and the device
+        carry is dropped, so the next dispatch rebuilds it from the host.
+        The state keeps the aborted megaticks' writes."""
+        self._async_handles.clear()
+        self._dev_carry = None
 
     # ----- whole-batch entry -----
     def prefill(self, prompts, max_new_tokens: Optional[int] = None,
@@ -345,6 +458,7 @@ class DecodeSession:
         tok = int(st1.last_token[0])
         n = self._account_row(row, np.asarray([tok]), 1)
         assert n <= 1
+        self._mirror_row_to_dev(row)
         return tok
 
     def prefill_row(self, row: int, prompt,
@@ -441,16 +555,19 @@ class DecodeSession:
 
     # ----- decode tick -----
     def step(self, num_ticks: Optional[int] = None) -> StepResult:
-        """One batched decode tick through the strategy's step, with
-        host-side budget/EOS accounting. Retired rows' lengths are pinned
-        back to 0 after the tick (the step advances every row's length).
-        ``num_ticks``: None or 1, as in the JAX package; more ticks in one
-        call (a megatick) are not ported yet and raise."""
-        if num_ticks is not None and int(num_ticks) != 1:
-            raise ValueError(
-                f"num_ticks={num_ticks}: megaticks are not ported yet "
-                "(ROADMAP: megaticks and a device-resident tick)")
+        """Batched decode through the strategy's step.
+
+        ``num_ticks=None``/``1``: one tick with host-side budget/EOS
+        accounting; retired rows' lengths are pinned back to 0 after it
+        (the step advances every row's length). ``num_ticks=K > 1``: one
+        megatick (``step_async`` then ``finish_step``), token-identical to
+        K single steps, whose StepResult widens to the (B, K·W) contract
+        (``api.types``)."""
         assert self._state is not None, "prefill first"
+        assert not self._async_handles, \
+            "async megaticks are in flight; finish_step() them first"
+        if num_ticks is not None and int(num_ticks) != 1:
+            return self.finish_step(self.step_async(num_ticks))
         e = self.engine
         params, sw, qw = e.decode_weights()
         raw, self._state = e.strategy.step(e.model, params, sw, self._state,
@@ -461,3 +578,51 @@ class DecodeSession:
             length[sorted(self._retired)] = 0
             self._state = self._state._replace(cache=dict(cache, len=length))
         return self._wrap(raw)
+
+    def step_async(self, num_ticks: int = 1) -> MegatickHandle:
+        """Dispatch one megatick and return its handle; ``finish_step``
+        reads its results. The budget/EOS/done carry stays on the device
+        across megaticks, so megatick N+1 may be dispatched before N's
+        results are read (the serving engine's pipeline): the done mask
+        travels in the carry, not on the host. Handles finish in dispatch
+        order."""
+        assert self._state is not None, "prefill first"
+        K = int(num_ticks)
+        assert K >= 1, f"num_ticks must be >= 1, got {K}"
+        carry = (self._dev_carry if self._dev_carry is not None
+                 else self._carry_from_host())
+        out, self._state, carry = self.engine.megatick(self._state, carry, K)
+        self._dev_carry = carry
+        handle = MegatickHandle(out=out, carry=carry, num_ticks=K)
+        self._async_handles.append(handle)
+        return handle
+
+    def finish_step(self, handle: MegatickHandle) -> StepResult:
+        """Read a dispatched megatick's results, sync the host mirrors from
+        its carry, and wrap the (widened) StepResult. Handles finish oldest
+        first, and a finish must precede any admission or retirement that
+        reacts to its results."""
+        assert self._async_handles and self._async_handles[0] is handle, \
+            "megaticks finish in dispatch order (oldest handle first)"
+        self._async_handles.pop(0)
+        out = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+               for k, v in handle.out.items()}
+        done = out["done"].copy()
+        emitted = handle.carry["emitted"].cpu().numpy().astype(np.int64)
+        # rows retired / re-admitted after this dispatch: the host
+        # bookkeeping advanced past the dispatch-time carry — keep it (the
+        # edit was mirrored onto the next megatick's input)
+        for row in handle.dirty:
+            done[row] = self._done[row]
+            emitted[row] = self._emitted[row]
+        self._done = done
+        self._emitted = emitted
+        return StepResult(
+            tokens=out["tokens"], counts=out["counts"],
+            # the megatick's own view (what the serving engine attributes
+            # to the dispatch-time slots), not the merged host view: they
+            # differ only on dirty rows
+            done=out["done"], exit_layer=out["exit_layer"],
+            accept_len=out["accept_len"], exited=out["exited"],
+            units_run=out["units_run"], ticks=out["ticks"],
+            tick_counts=out["tick_counts"], tick_live=out["tick_live"])

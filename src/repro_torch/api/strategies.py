@@ -69,6 +69,23 @@ class DecodeStrategy:
         step."""
         raise NotImplementedError
 
+    def megatick(self, model: Model, params, sw, state: eng.DecodeState,
+                 limits, num_ticks: int, qw=None):
+        """Up to ``num_ticks`` steps in one call
+        (``engine.megatick_decode``): the per-row budgets, EOS cut-off and
+        done mask ride in ``limits`` on the device. The one adapter for
+        every strategy. Returns ``(out dict, new_state, new_limits)``."""
+        def tick(st):
+            res, new_st = self.step(model, params, sw, st, qw=qw)
+            return eng.TickEmit(tokens=res.tokens, counts=res.counts,
+                                exit_layer=res.exit_layer,
+                                accept_len=res.accept_len,
+                                exited=res.exited,
+                                units_run=res.units_run), new_st
+        return eng.megatick_decode(tick, state, limits, num_ticks,
+                                   self.emit_width(model),
+                                   model.num_exit_points)
+
 
 @dataclass(frozen=True)
 class DenseStrategy(DecodeStrategy):

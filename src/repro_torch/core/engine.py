@@ -12,11 +12,14 @@
     root→leaf path (the Cannikin min-merge of its nodes' features), and the
     accepted chain is the greedy path match at the exit layer.
 
+``megatick_decode`` — up to K strategy steps in one call, with the per-row
+    budgets, EOS cut-off and done mask kept on the device.
+
 JAX's ``lax.while_loop`` / ``lax.cond`` become host loops and branches
-here. Their conditions (``all(exited)``, ``any(act)``, ``any(would)``) are
-read back from the card once per layer; removing those syncs with a CUDA
-graph is later work. ``units_run`` counts the loops' iterations exactly as
-the JAX while loops do.
+here. Their conditions (``all(exited)``, ``any(act)``, ``any(would)``, and
+the megatick's ``all(done)``) are read back from the card once per layer or
+tick; removing those syncs with a CUDA graph is later work. ``units_run``
+counts the loops' iterations exactly as the JAX while loops do.
 
 Weight-only quantization: each step takes an optional bundle ``qw``
 (``repro_torch.quant.quantize_params``). ``_apply_qw`` resolves it as the
@@ -475,6 +478,107 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
                         exit_point=exit_pt, exited=exited,
                         units_run=units_run)
     return out_t, acc_len_t.to(torch.int32), new_state, info
+
+
+# ---------------------------------------------------------------------------
+# multi-tick decode ("megatick")
+# ---------------------------------------------------------------------------
+class TickEmit(NamedTuple):
+    """Raw per-tick emit of one strategy step, as the megatick loop sees it."""
+    tokens: torch.Tensor        # (B, W) int32 — left-aligned emitted tokens
+    counts: torch.Tensor        # (B,) int32 — valid tokens this tick
+    exit_layer: torch.Tensor    # (B,) int32
+    accept_len: torch.Tensor    # (B,) int32
+    exited: torch.Tensor        # (B,) bool
+    units_run: int              # units the layer loop executed
+
+
+def megatick_decode(tick_fn, state: DecodeState,
+                    limits: Dict[str, torch.Tensor], num_ticks: int,
+                    emit_width: int, num_exit_points: int
+                    ) -> Tuple[Dict[str, Any], DecodeState,
+                               Dict[str, torch.Tensor]]:
+    """Run up to ``num_ticks`` strategy steps with the per-row token
+    budgets, EOS cut-off and done mask kept on the device.
+
+    ``tick_fn(state) -> (TickEmit, new_state)`` is one batched strategy
+    step. ``limits`` holds (B,) tensors: ``budget``, ``emitted``, ``eos``
+    (-1: none) as int32, ``done`` and ``retired`` as bool. Emits accumulate
+    into a (B, K·W) buffer at per-row offsets, per-tick stats land in
+    (B, K) columns, and the loop stops once every row is done: JAX's
+    ``lax.while_loop`` condition, read on the host once per tick. Rows
+    retired mid-flight (``limits["retired"]``) have their cache length
+    pinned to zero after every tick.
+
+    The accounting is tick for tick the session's ``_account_row``: budget
+    clip first, EOS scan within the clipped window, ``done`` on an EOS hit
+    or an exhausted budget. Rows already done keep stepping (their emits
+    are dropped), so the state equals that of K single steps.
+
+    The limits passed in are never written: every update makes a new
+    tensor, since the async pipeline hands one megatick's output limits to
+    the next while the first's handle still holds them. Returns ``(out,
+    state, new_limits)``: ``out`` holds ``tokens`` (B, K·W), ``counts``
+    (B,), the (B, K) planes ``exit_layer``, ``accept_len``, ``exited``,
+    ``tick_counts``, ``tick_live``, the ints ``ticks`` and ``units_run``
+    (summed over the ticks run) and ``done``; ``new_limits`` is the carry
+    for the next megatick.
+    """
+    K, W = int(num_ticks), int(emit_width)
+    B = state.last_token.shape[0]
+    dev = state.last_token.device
+    buf_len = K * W
+    budget, eos, retired = limits["budget"], limits["eos"], limits["retired"]
+    done, emitted = limits["done"], limits["emitted"]
+    lanes = torch.arange(W, device=dev)
+    # column buf_len takes the lanes a row does not keep (JAX's
+    # mode="drop" scatter); a row's kept lanes never reach it
+    buf = torch.zeros(B, buf_len + 1, dtype=torch.int32, device=dev)
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    exit_layer = torch.full((B, K), num_exit_points, dtype=torch.int32,
+                            device=dev)
+    accept_len = torch.zeros(B, K, dtype=torch.int32, device=dev)
+    exited = torch.zeros(B, K, dtype=torch.bool, device=dev)
+    tick_counts = torch.zeros(B, K, dtype=torch.int32, device=dev)
+    tick_live = torch.zeros(B, K, dtype=torch.bool, device=dev)
+    units, t = 0, 0
+    while t < K and not bool(done.all()):
+        em, state = tick_fn(state)
+        live = ~done
+        # budget clip, then EOS scan within the clipped window
+        kept = torch.clamp(torch.minimum(em.counts, budget - emitted), min=0)
+        window = lanes[None, :] < kept[:, None]
+        is_eos = ((em.tokens == eos[:, None]) & (eos >= 0)[:, None]
+                  & window)
+        has_eos = is_eos.any(dim=1)
+        first_eos = torch.argmax(is_eos.to(torch.int32), dim=1) + 1
+        kept = torch.where(has_eos, first_eos.to(torch.int32), kept)
+        kept = torch.where(live, kept, 0)
+        emitted = emitted + kept
+        done = done | (live & (has_eos | (emitted >= budget)))
+        idx = torch.where(lanes[None, :] < kept[:, None],
+                          counts[:, None] + lanes[None, :], buf_len)
+        buf.scatter_(1, idx.long(), em.tokens.to(torch.int32))
+        counts = counts + kept
+        exit_layer[:, t] = em.exit_layer
+        accept_len[:, t] = em.accept_len
+        exited[:, t] = em.exited
+        tick_counts[:, t] = kept
+        tick_live[:, t] = live
+        units += int(em.units_run)
+        # the batched tick advances every length: a retired row's stays 0
+        cache = state.cache
+        state = state._replace(cache=dict(
+            cache, len=torch.where(retired, 0, cache["len"])))
+        t += 1
+    out = {"tokens": buf[:, :buf_len], "counts": counts,
+           "exit_layer": exit_layer, "accept_len": accept_len,
+           "exited": exited, "tick_counts": tick_counts,
+           "tick_live": tick_live, "ticks": t, "units_run": units,
+           "done": done}
+    new_limits = {"budget": budget, "emitted": emitted, "eos": eos,
+                  "done": done, "retired": retired}
+    return out, state, new_limits
 
 
 def init_tree_decode_state(model: Model, params: Params, sw: SpecEEWeights,

@@ -15,20 +15,27 @@
     depth + 1 tokens per row and records its accept length per tick);
     finished rows retire and compact (``session.retire_row``): their pages
     return to the pool and their length drops to zero, and later requests
-    are admitted into the freed slots.
+    are admitted into the freed slots;
+  * ``megatick=K`` folds K ticks into one megatick (the budget/EOS/done
+    accounting in a device carry, results read once per K ticks), and
+    ``async_ticks`` (on by default when K > 1) pipelines it: ``step()``
+    dispatches megatick N+1 before it reads megatick N's results, so
+    results and admissions arrive one ``step()`` call later; the done mask
+    in the carry keeps that correct. ``run_to_completion`` and ``drain``
+    finish the in-flight megatick.
 
 On a paged cache on a CUDA card the engine turns on the paged
 decode-attention kernel (``ModelFlags.decode_kernel``), as the JAX engine
 does on a TPU. The constructor takes the JAX engine's arguments in its
-order. This is the core loop: megaticks and async ticks, sampling, and
-eviction, checkpoints, watchdogs and fault injection, and the mesh, are not
-ported; asking for them raises ``ValueError`` naming their ROADMAP item.
+order. Sampling, eviction, checkpoints, dispatch retries, watchdogs and
+fault injection, and the mesh, are not ported; asking for them raises
+``ValueError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -52,7 +59,6 @@ class Request:
     done: bool = False
 
 
-_MEGATICKS = "ROADMAP: megaticks and a device-resident tick"
 _FAULTS = "ROADMAP: fault tolerance"
 
 
@@ -79,10 +85,7 @@ class ServingEngine:
                  watchdog_s: Optional[float] = None, backoff=None,
                  cooldown_ticks: int = 8, quant=None, mesh=None,
                  policy: str = "tp_dp", fault_log_cap: int = 256):
-        # async ticks pipeline megaticks; False is the port's one mode
         _refuse_unported(
-            megatick=(megatick, 1, _MEGATICKS),
-            async_ticks=(bool(async_ticks), False, _MEGATICKS),
             checkpoint_dir=(checkpoint_dir, None, _FAULTS),
             guard=(guard, None, _FAULTS), victim=(victim, None, _FAULTS),
             evict_patience=(evict_patience, 2, _FAULTS),
@@ -97,6 +100,15 @@ class ServingEngine:
             raise ValueError(
                 "serve.greedy=False: sampling is not ported yet (ROADMAP: "
                 "the rest of serving, serving/sampler.py)")
+        if megatick < 1:
+            raise ValueError(f"megatick must be >= 1, got {megatick}")
+        self.megatick = int(megatick)
+        # pipelined ticks by default whenever megaticks are on: the point
+        # of folding K ticks into one dispatch is to overlap the host work
+        # with device compute
+        self.async_ticks = (self.megatick > 1 if async_ticks is None
+                            else bool(async_ticks))
+        self._handle: Optional[Tuple] = None   # in-flight async megatick
         spec = CacheSpec.resolve(cache, model.run.serve)
         if page_size is not None:
             # the override obeys the rule ServeConfig validates (pages tile
@@ -192,27 +204,78 @@ class ServingEngine:
 
     def _collect(self, res, slots: List[Optional[Request]],
                  finished: List[Request]) -> None:
-        """Fold one tick's StepResult into the slotted requests, then retire
-        and compact the rows that finished."""
+        """Fold one (possibly multi-tick) StepResult into the requests that
+        occupied the slots when it was dispatched, then retire and compact
+        the rows that finished. The snapshot matters in the async pipeline:
+        a slot can be re-admitted between a megatick's dispatch and its
+        finish, and the old result must not go to (or retire) the new
+        occupant. A request already retired by an earlier finish is
+        skipped (later megaticks report it done again and emit nothing for
+        it)."""
         for slot in range(self.B):
             req = slots[slot]
             if req is None or req.done:
                 continue
-            self._fold_tick(req, res.row_tokens(slot),
-                            int(res.exit_layer[slot]),
-                            int(res.accept_len[slot]))
+            toks = res.row_tokens(slot)
+            if res.is_megatick:
+                # the row's tokens are packed in tick order: tick_counts
+                # splits them back into per-tick runs
+                off = 0
+                for t in range(int(res.ticks)):
+                    if not bool(res.tick_live[slot, t]):
+                        continue
+                    n = int(res.tick_counts[slot, t])
+                    self._fold_tick(req, toks[off:off + n],
+                                    int(res.exit_layer[slot, t]),
+                                    int(res.accept_len[slot, t]))
+                    off += n
+            else:
+                self._fold_tick(req, toks, int(res.exit_layer[slot]),
+                                int(res.accept_len[slot]))
             if res.done[slot]:
+                # req not done => its slot was not re-admitted (slots free
+                # only at retirement), so slots[slot] is still req
                 self._retire(slot, req, finished)
 
+    # ----- dispatch / finish -----
+    def _dispatch(self) -> Optional[Tuple]:
+        """Dispatch one megatick, with the slot snapshot its results go
+        to, if any row may still be live. The host view can trail the
+        device by one in-flight megatick, but only toward liveness, so a
+        stale dispatch at worst runs zero ticks."""
+        if np.any(self.session.live_rows()):
+            return (self.session.step_async(self.megatick),
+                    list(self.slots))
+        return None
+
+    def _finish_handle(self, prev: Tuple, finished: List[Request]) -> None:
+        """Read a dispatched megatick and fold its results in."""
+        handle, slots_at_dispatch = prev
+        self._collect(self.session.finish_step(handle), slots_at_dispatch,
+                      finished)
+
     def _sync_step(self, finished: List[Request]) -> None:
-        self._collect(self.session.step(), self.slots, finished)
+        self._collect(self.session.step(num_ticks=self.megatick),
+                      self.slots, finished)
 
     # ----- one batched engine tick -----
     def step(self) -> List[Request]:
         """Scheduled admission (at most one prefill chunk while decode is
-        live), one strategy step for all live slots, retire + compact the
-        finished. Returns the requests completed this call."""
+        live), one strategy megatick for all live slots, retire + compact
+        the finished. Returns the requests completed this call.
+
+        With ``async_ticks`` the call is one pipeline stage: megatick N+1
+        is dispatched before megatick N's results are read, so the host
+        work below (folding results, retirement, admission) follows
+        device work already queued; results arrive one call later than on
+        the blocking path."""
         finished: List[Request] = []
+        prev, self._handle = self._handle, None
+        if prev is not None:
+            if self.async_ticks:
+                # the next megatick goes out before this one is read
+                self._handle = self._dispatch()
+            self._finish_handle(prev, finished)
         live = bool(np.any(self.session.live_rows()))
         free = [s for s in range(self.B) if self.slots[s] is None]
         for ev in self.scheduler.tick(free, live_decode=live):
@@ -223,15 +286,33 @@ class ServingEngine:
                 self._retire(ev.row, req, finished)
             else:
                 self.slots[ev.row] = req
-        if np.any(self.session.live_rows()):
-            self._sync_step(finished)
+        if self._handle is None and np.any(self.session.live_rows()):
+            if self.async_ticks:
+                self._handle = self._dispatch()
+            else:
+                self._sync_step(finished)
         return finished
 
     @property
+    def in_flight(self) -> bool:
+        """An async megatick is dispatched but its results are unread."""
+        return self._handle is not None
+
+    @property
     def busy(self) -> bool:
-        """Work outstanding: queued or in-flight admission, or live rows."""
-        return (self.scheduler.has_work()
+        """Work outstanding: queued or in-flight admission, live rows, or
+        an in-flight async megatick awaiting its results."""
+        return (self._handle is not None or self.scheduler.has_work()
                 or bool(np.any(self.session.live_rows())))
+
+    def drain(self) -> List[Request]:
+        """Finish (without replacing) the in-flight async megatick, if any;
+        returns the requests it completes."""
+        finished: List[Request] = []
+        prev, self._handle = self._handle, None
+        if prev is not None:
+            self._finish_handle(prev, finished)
+        return finished
 
     def run_to_completion(self, max_ticks: int = 10_000) -> List[Request]:
         done: List[Request] = []
@@ -243,4 +324,5 @@ class ServingEngine:
             f"still busy after {max_ticks} ticks: "
             f"queued={len(self.scheduler.queued)} "
             f"admitting={len(self.scheduler.admitting)} "
-            f"live={int(np.sum(self.session.live_rows()))}")
+            f"live={int(np.sum(self.session.live_rows()))} "
+            f"in_flight={self.in_flight}")

@@ -253,8 +253,8 @@ def test_single_tick_step_result_matches_jax(setup, cache):
     """The single-tick ``StepResult`` surface of JAX's ``api/types.py``:
     ``width``, ``ticks == 1``, ``is_megatick`` False, ``row_exit_points`` and
     ``row_accept_lens`` equal JAX's on every tick; ``step(num_ticks=1)`` is
-    one tick and ``step(num_ticks=2)`` raises ValueError until megaticks
-    are ported."""
+    one tick, and ``step(num_ticks=2)`` is a megatick result
+    (``is_megatick``, ``ticks`` <= 2) equal to JAX's."""
     m_j, m_t, params_j, params_t = setup
     prompts = np.random.default_rng(6).integers(0, 512, (2, 7))
     logs = []
@@ -270,11 +270,22 @@ def test_single_tick_step_result_matches_jax(setup, cache):
                       [r.row_tokens(i) for i in range(2)]) for r in res])
     assert logs[0] == logs[1]
     assert logs[1][0][:3] == (1, 1, False)
-    s = Engine.create(m_t, params_t, strategy="dense").new_session(
-        cache=cache)
-    s.prefill(prompts, max_new_tokens=4)
-    with pytest.raises(ValueError, match="megaticks"):
-        s.step(num_ticks=2)
+    logs = []
+    for E, m, p, arr in ((JEngine, m_j, params_j, jnp.asarray),
+                         (Engine, m_t, params_t, _t)):
+        s = E.create(m, p, strategy="dense").new_session(cache=cache)
+        s.prefill(arr(prompts), max_new_tokens=4)
+        res = []
+        while not s.all_done():
+            res.append(s.step(num_ticks=2))
+        logs.append([(r.width, int(r.ticks), r.is_megatick,
+                      [np.asarray(x).tolist() for x in
+                       (r.tokens, r.counts, r.done, r.exit_layer,
+                        r.tick_counts, r.tick_live)],
+                      [r.row_exit_points(i) for i in range(2)],
+                      [r.row_tokens(i) for i in range(2)]) for r in res])
+    assert logs[0] == logs[1]
+    assert [r[1:3] for r in logs[1]] == [(2, True), (1, True)]
 
 
 @pytest.mark.parametrize("cache", ["dense", "paged"])

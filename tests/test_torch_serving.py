@@ -191,17 +191,24 @@ def test_flash_flag_gives_same_tokens(setup):
 def test_serving_raises_on_what_is_not_ported(setup):
     """No silent degradation: an oversubscribed pool (JAX evicts), sampling
     (JAX's default strategy when ``specee=False`` and ``serve.greedy`` is
-    off), megaticks, async ticks, the fault-tolerance options and a mesh
-    raise ValueError naming their ROADMAP item."""
-    run, _, m, _, params, _, sw = setup
+    off), the fault-tolerance options and a mesh raise ValueError naming
+    their ROADMAP item. Megaticks and async ticks are taken, with JAX's
+    default (``async_ticks`` on when ``megatick > 1``) and its refusal of
+    ``megatick < 1``."""
+    run, m_j, m, params_j, params, sw_j, sw = setup
     one_row = CacheSpec(kind="paged", page_size=16,
                         num_pages=run.serve.max_seq_len // 16)
     with pytest.raises(ValueError, match="ROADMAP: fault tolerance"):
         ServingEngine(m, params, sw, cache=one_row)
-    with pytest.raises(ValueError, match="ROADMAP: megaticks"):
-        ServingEngine(m, params, sw, megatick=4)
-    with pytest.raises(ValueError, match="ROADMAP: megaticks"):
-        ServingEngine(m, params, sw, async_ticks=True)
+    for kw in (dict(megatick=4), dict(async_ticks=True),
+               dict(megatick=2, async_ticks=False), dict()):
+        se = ServingEngine(m, params, sw, **kw)
+        jse = JServingEngine(m_j, params_j, sw_j, **kw)
+        assert (se.megatick, se.async_ticks) == (jse.megatick,
+                                                 jse.async_ticks)
+        assert not se.in_flight and se.drain() == []
+    with pytest.raises(ValueError, match="megatick must be >= 1"):
+        ServingEngine(m, params, sw, megatick=0)
     for kw in (dict(checkpoint_dir="ckpt"), dict(guard=object()),
                dict(victim=object()), dict(evict_patience=3),
                dict(watchdog_s=1.0), dict(backoff=object()),
