@@ -9,7 +9,9 @@ and int4 quantization, serves on an int8 KV cache
 (``ModelFlags(kv_quant=True)``), alone and with int8 weights, decodes
 and serves Mamba2 (mamba2-130m) with the SSD intra-chunk kernel, and
 runs the whole-batch and serving paths again as megaticks
-(``step(num_ticks=4)``, ``ServingEngine(megatick=4)``).
+(``step(num_ticks=4)``, ``ServingEngine(megatick=4)``), and trains
+SpecEE bundles on the card (the target, the draft, the predictors and the
+offline schedule) and decodes with them.
 
     python3 chip_smoke.py
 
@@ -166,14 +168,34 @@ Phases (lines ``[phase +seconds since the start] ...``):
      (requests/s, tokens/s, ms per step() call; each llama request that
      differs with its top-2 margin at the first differing token); then
      profiles of 12 whole-batch single steps and of 3 megaticks;
- 11. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
+ 11. trained — a SpecEE bundle trained on the card with the port's
+     modules alone, in the order of benchmarks/common.py::get_bundle
+     (TrainLoop on the synthetic DataPipeline for 30 steps, train_draft 250
+     steps over 8 batches, collect_dataset on 4 of them, train_predictors
+     300 steps, offline_exit_counts with 12 new tokens on the AR kernel
+     path, offline_mask_from_counts), for (a) llama2-7b at published width
+     with 8 of its 32 layers in fp32 (fp32 params with AdamW state at 32
+     layers do not fit one card; batches of 4 x 256) and (b) get_bundle's
+     own config (the smoke config deepened to 12 layers, fp32, batches of
+     4 x 32); each stage's seconds, ms per step, first and last loss, the
+     draft's top-4 hit rate, the predictors' accuracy and positive rate,
+     the exit histogram and the offline mask; a loss that does not fall,
+     predictors below max(pos, 1 - pos) - 0.02 or a tensor off the card
+     fails the run. Then dense, SpecEE (the AR kernels) and tree decoding
+     (the tree kernels) with each trained bundle, (a) in fp32 and cast to
+     bf16, (b) in fp32, in turns, 3 runs each (B=4 pipeline prompts of 128
+     tokens, 32 tokens a row): tokens/s, mean units_run, the exit points
+     over tokens, the share of tokens equal to dense and the tree's mean
+     accepted length; a second SpecEE run must emit the first's tokens;
+ 12. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
-token per step (one emitted token per tree step), so the tree runs measure
-the mechanism's cost, not its gain.
+token per step (one emitted token per tree step), so the tree runs of
+phases 3 to 10 measure the mechanism's cost, not its gain; phase 11's
+trained bundles are the ones that exit and accept.
 
-Each main path (phases 4 to 10, each run on its own) zeroes the
+Each main path (phases 4 to 11, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -3607,6 +3629,273 @@ def mega_phase(torch, dev, params, sw, ar_ref, fp_serve, tree_ref,
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 11: a SpecEE bundle trained on the card with the port alone
+# ---------------------------------------------------------------------------
+# the recipe of benchmarks/common.py::get_bundle, stage by stage
+TRAIN_STEPS, DRAFT_STEPS, PRED_STEPS, EXIT_NEW = 30, 250, 300, 12
+DRAFT_BATCHES, PRED_BATCHES = 8, 4
+# (a): llama2-7b at published width, 8 of its 32 layers (fp32 params with
+# AdamW's m and v at 32 layers would not fit one card), batches of 4 x 256;
+# (b): get_bundle's own config, the smoke config deepened to 12 layers,
+# its batches 4 x 32
+TRAINED_A_LAYERS, TRAINED_A_SEQ = 8, 256
+TRAINED_B_LAYERS, TRAINED_B_SEQ = 12, 32
+TRAINED_PROMPT, TRAINED_NEW, TRAINED_RUNS = 128, 32, 3
+TRAINED_PATH = tuple(dict.fromkeys(AR_PATH + TREE_PATH))
+AR_KERNELS = dict(exit_gate_kernel=True, exit_gate_impl="kernel",
+                  decode_kernel=True)
+
+
+def bundle_b_run():
+    """get_bundle's config: llama2-7b's smoke config with 12 layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    run = get_config("llama2-7b").smoke()
+    return dataclasses.replace(run, model=dataclasses.replace(
+        run.model, num_layers=TRAINED_B_LAYERS))
+
+
+def train_bundle(torch, dev, label: str, run, seq: int):
+    """get_bundle's recipe with the port's modules alone: the target for
+    TRAIN_STEPS ``TrainLoop`` steps on the pipeline (seed 0), the draft
+    against it for DRAFT_STEPS steps over DRAFT_BATCHES batches of 4 x
+    ``seq`` (pipeline seed 0), features over the first PRED_BATCHES of
+    them, the predictors for PRED_STEPS steps, offline exit counts over
+    the first batch with EXIT_NEW new tokens on the AR kernel path, and the
+    offline mask from them. Each stage's time, losses and metrics are
+    logged; a loss that does not fall, predictors below the trivial rate
+    or a tensor that left the card fails the phase. Returns (params, sw)."""
+    from repro_torch.core import draft_training as dt
+    from repro_torch.core import predictor_training as pt
+    from repro_torch.core import scheduler as sched_lib
+    from repro_torch.core.engine import SpecEEWeights
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.train import TrainLoop
+
+    def on_card(tree, what):
+        require(all(x.is_cuda for x in _leaves(tree)),
+                f"{label}: {what} left the card")
+
+    model = build_model(run)                  # training: no kernel flag
+    E = model.num_exit_points
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, dev)
+    loop = TrainLoop(model, run, params)
+    loop.run_steps(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    params = loop.params
+    on_card([params, loop.opt_state.m, loop.opt_state.v], "target training")
+    losses = [h["loss"] for h in loop.history]
+    step_ms = [h["step_time"] * 1e3 for h in loop.history]
+    t_target = time.perf_counter() - t0
+    log("trained", f"{label}: target {model.cfg.param_count() / 1e9:.3f} B "
+        f"params, {TRAIN_STEPS} TrainLoop steps of {run.train.global_batch}x"
+        f"{run.train.seq_len} in {t_target:.1f} s (init included), "
+        f"median {sorted(step_ms)[len(step_ms) // 2]:.1f} ms/step (first "
+        f"{step_ms[0]:.1f}); loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+        f"card memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    require(losses[-1] < losses[0], f"{label}: target loss did not fall "
+            f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    del loop
+    torch.cuda.empty_cache()
+
+    pipe = DataPipeline(run.model, 4, seq, seed=0)
+    batches = [torch.as_tensor(pipe.next()["tokens"], device=dev)
+               for _ in range(DRAFT_BATCHES)]
+    t0 = time.perf_counter()
+    draft, dm = dt.train_draft(model, params, batches,
+                               torch.Generator(device=dev).manual_seed(1),
+                               steps=DRAFT_STEPS)
+    torch.cuda.synchronize()
+    t_draft = time.perf_counter() - t0
+    on_card(draft, "the draft")
+    n_draft = sum(x.numel() for x in _leaves(draft))
+    log("trained", f"{label}: draft {n_draft / 1e6:.1f} M params, "
+        f"{DRAFT_STEPS} steps over {DRAFT_BATCHES} batches of 4x{seq} in "
+        f"{t_draft:.1f} s = {t_draft / DRAFT_STEPS * 1e3:.2f} ms/step (hit "
+        f"rate included); loss {dm['first_loss']:.4f} -> "
+        f"{dm['final_loss']:.4f}; "
+        f"top-{run.specee.num_speculative} hit rate {dm['topk_hit_rate']:.4f}")
+    require(dm["final_loss"] < dm["first_loss"],
+            f"{label}: draft loss did not fall")
+
+    t0 = time.perf_counter()
+    data = pt.collect_dataset(model, params, draft, batches[:PRED_BATCHES])
+    torch.cuda.synchronize()
+    t_collect = time.perf_counter() - t0
+    on_card(list(data), "the features")
+    t0 = time.perf_counter()
+    pred, pm = pt.train_predictors(run.specee, data,
+                                   torch.Generator(device=dev).manual_seed(2),
+                                   steps=PRED_STEPS)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    on_card(pred, "the predictors")
+    pos = pm["positive_rate"]
+    per_exit = data.labels.mean(dim=1).tolist()
+    log("trained", f"{label}: features {tuple(data.features.shape)} in "
+        f"{t_collect:.2f} s; predictors {PRED_STEPS} steps in "
+        f"{t_pred:.2f} s = {t_pred / PRED_STEPS * 1e3:.2f} "
+        f"ms/step; loss {pm['first_loss']:.4f} -> {pm['final_loss']:.4f}; "
+        f"accuracy {pm['accuracy']:.4f}, positive rate {pos:.4f} (by exit "
+        f"point: {', '.join(f'{p:.3f}' for p in per_exit)})")
+    require(pm["final_loss"] < pm["first_loss"],
+            f"{label}: predictor loss did not fall")
+    require(pm["accuracy"] >= max(pos, 1 - pos) - 0.02,
+            f"{label}: predictor accuracy {pm['accuracy']:.4f} below the "
+            f"trivial rate {max(pos, 1 - pos):.4f} - 0.02")
+    del data
+
+    sw = SpecEEWeights(draft=draft, predictors=pred,
+                       offline_mask=torch.ones(E, dtype=torch.bool,
+                                               device=dev))
+    t0 = time.perf_counter()
+    counts = pt.offline_exit_counts(build_model(run, ModelFlags(**AR_KERNELS)),
+                                    params, sw, batches[:1], max_new=EXIT_NEW)
+    offline = sched_lib.offline_mask_from_counts(
+        torch.as_tensor(counts[:-1], dtype=torch.float32, device=dev),
+        run.specee)
+    t_exit_counts = time.perf_counter() - t0
+    on_card(offline, "the offline mask")
+    log("trained", f"{label}: offline exit counts over 4x{seq} prompts, "
+        f"{EXIT_NEW} new tokens, every predictor on, in "
+        f"{t_exit_counts:.2f} s: {counts.tolist()} (last = full "
+        f"depth); offline mask {offline.int().tolist()}")
+    return params, sw._replace(offline_mask=offline)
+
+
+def _decode_once(torch, model, params, sw, strategy, prompts):
+    """One whole-batch session: prefill, then steps to the budget. Returns
+    (per-row tokens (B, TRAINED_NEW), decode seconds, the steps)."""
+    import numpy as np
+    from repro_torch.api import Engine
+    session = Engine.create(model, params, sw,
+                            strategy=strategy).new_session()
+    first = session.prefill(prompts, max_new_tokens=TRAINED_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = []
+    while not session.all_done():
+        steps.append(session.step())
+        require(len(steps) <= TRAINED_NEW, "decode did not finish")
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    rows = [first.row_tokens(r) + [t for s in steps for t in s.row_tokens(r)]
+            for r in range(prompts.shape[0])]
+    require(all(len(r) == TRAINED_NEW for r in rows),
+            "a row did not emit its budget")
+    return np.array(rows), dt_s, steps
+
+
+def trained_decode(torch, dev, label: str, model_run, params, sw, prompts):
+    """Dense, SpecEE (the AR kernels) and tree (the tree kernels) with the
+    trained bundle, in turns, TRAINED_RUNS runs each: tokens/s, mean
+    units_run, the histogram of exit points over tokens, the share of
+    tokens equal to dense and the tree's mean accepted length. A second
+    SpecEE run must emit the first's tokens."""
+    import numpy as np
+    from repro_torch.api import DenseStrategy, SpecEEStrategy
+    from repro_torch.models.model import ModelFlags, build_model
+    ar = build_model(model_run, ModelFlags(**AR_KERNELS))
+    tree = build_model(model_run, ModelFlags(**TREE_KERNELS))
+    E = ar.num_exit_points
+    modes = (("dense", ar, DenseStrategy()), ("specee", ar, SpecEEStrategy()),
+             ("tree", tree, tree_strategy()))
+    runs = {name: [] for name, _, _ in modes}
+    for _ in range(TRAINED_RUNS):
+        for name, model, strat in modes:
+            runs[name].append(_decode_once(torch, model, params, sw, strat,
+                                           prompts))
+    dense = runs["dense"][0][0]
+    B = prompts.shape[0]
+    for name, _, _ in modes:
+        toks, _, steps = runs[name][0]
+        rates = [(B * TRAINED_NEW - B) / r[1] for r in runs[name]]
+        live = [s.counts > 0 for s in steps]
+        pts = np.concatenate([s.exit_layer[m] for s, m in zip(steps, live)])
+        hist = np.bincount(np.minimum(pts, E), minlength=E + 1)
+        exits = sum(int(s.exited[m].sum()) for s, m in zip(steps, live))
+        emitted = sum(int(s.counts.sum()) for s in steps)
+        units = float(np.mean([s.units_run for s in steps]))
+        same = float((toks == dense).mean())
+        acc = (float(np.mean(np.concatenate(
+            [s.accept_len[m] for s, m in zip(steps, live)])))
+            if name == "tree" else 0.0)
+        log("trained", f"{label} {name}: tokens/s "
+            f"{', '.join(f'{r:.2f}' for r in rates)} (runs in turns, "
+            f"{B}x{TRAINED_PROMPT} prompts, {TRAINED_NEW} tokens a row, "
+            f"{len(steps)} steps); mean units_run {units:.2f} of {E}; exits "
+            f"per token {exits / emitted:.4f}; exit points over tokens "
+            f"{hist.tolist()} (last = full depth); share of tokens equal to "
+            f"dense {same:.4f}; {np.unique(toks).size} distinct tokens "
+            f"emitted" + (f"; mean accepted length {acc:.3f}"
+                          if name == "tree" else ""))
+    spec = [r[0] for r in runs["specee"]]
+    require(all(np.array_equal(spec[0], t) for t in spec[1:]),
+            f"{label}: a second SpecEE run emitted other tokens")
+    same_tree = all(np.array_equal(runs["tree"][0][0], r[0])
+                    for r in runs["tree"][1:])
+    log("trained", f"{label}: SpecEE runs identical; tree runs identical: "
+        f"{same_tree}")
+
+
+def trained_phase(torch, dev):
+    """Phase 11: bundles (a) and (b) trained on the card, then decoded
+    with: (a) in fp32 and cast to bf16, (b) in fp32. The launch counts are
+    zeroed right before the first stage and read right after the last
+    decode: training itself launches no kernel (the port's kernels have no
+    backward); the offline exit counts and the decodes launch the AR and
+    tree kernels."""
+    import dataclasses
+    from repro_torch import kernels as K
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.common import tree_map
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run_a = llama(TRAINED_A_LAYERS, "float32")
+    run_a = dataclasses.replace(run_a, train=dataclasses.replace(
+        run_a.train, global_batch=4, seq_len=TRAINED_A_SEQ,
+        steps=TRAIN_STEPS))
+    run_b = bundle_b_run()
+    K.reset_launches()                       # ---- the main path ----
+    params, sw = train_bundle(torch, dev, "(a) llama2-7b width, "
+                                       f"{TRAINED_A_LAYERS} layers, fp32",
+                                       run_a, TRAINED_A_SEQ)
+    prompts_a = DataPipeline(run_a.model, B, TRAINED_PROMPT,
+                             seed=1).next()["tokens"]
+    trained_decode(torch, dev, "(a) fp32", run_a, params, sw, prompts_a)
+    bf = torch.bfloat16
+    params_bf = tree_map(lambda x: x.to(bf), params)
+    sw_bf = sw._replace(draft=tree_map(lambda x: x.to(bf), sw.draft))
+    del params
+    trained_decode(torch, dev, "(a) bf16", llama(TRAINED_A_LAYERS, "bfloat16"),
+                   params_bf, sw_bf, prompts_a)
+    del params_bf, sw_bf, sw
+    torch.cuda.empty_cache()
+    params, sw = train_bundle(torch, dev, "(b) get_bundle's config, "
+                                       f"{TRAINED_B_LAYERS} layers, fp32",
+                                       run_b, TRAINED_B_SEQ)
+    prompts_b = DataPipeline(run_b.model, B, TRAINED_PROMPT,
+                             seed=1).next()["tokens"]
+    trained_decode(torch, dev, "(b) fp32", run_b, params, sw, prompts_b)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)              # ---- read right after ----
+    missing = [k for k in TRAINED_PATH if launches[k] == 0]
+    require(not missing, f"kernels never launched on the trained path: "
+            f"{missing}")
+    log("trained", "launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items() if v))
+    log("trained", f"phase in {time.perf_counter() - t_phase:.1f} s; peak "
+        f"card memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params, sw
+    torch.cuda.empty_cache()
+    return {"trained": launches}
+
+
 # where the device time of a decode step goes, by kernel family (the paged
 # kernels are pa::paged_split_kernel, the dense one pa::dense_split_kernel,
 # each with its merge in the same launch; the spec head's two stages count
@@ -3772,7 +4061,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(mega_phase(torch, dev, params, sw, ar_ref, fp_serve,
                               tree_ref, mamba_ref))
-    del params, sw, fp_serve, mamba_ref
+    del params, sw, fp_serve, mamba_ref, ar_ref, tree_ref
+    torch.cuda.empty_cache()
+    by_path.update(trained_phase(torch, dev))
 
     kernels = []
     for name in build.SOURCES:

@@ -1,9 +1,10 @@
 """Configuration for the PyTorch port (counterpart of ``repro/config.py``).
 
 The port keeps its own copy of the configuration dataclasses, holding only
-the fields the ported decode path reads, so that it never imports the JAX
-package. Field names, defaults and ``smoke()`` reductions are those of
-``repro.config``; the tests hold the two against each other.
+the fields the ported decode and training paths read, so that it never
+imports the JAX package. Field names, defaults and ``smoke()`` reductions
+are those of ``repro.config``; the tests hold the two against each
+other.
 """
 from __future__ import annotations
 
@@ -76,6 +77,36 @@ class ModelConfig:
         kind = SSD if self.family == FAMILY_SSM else ATTN
         return tuple([kind] * self.num_layers)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head) for the
+        families the port has (``repro/config.py:129``)."""
+        d = self.d_model
+        hd = self.resolved_head_dim()
+        n_mlp_mats = 3 if self.gated_mlp else 2
+        total = self.vocab_size * d              # embedding
+        if not self.tie_embeddings:
+            total += self.vocab_size * d         # lm head
+        for kind in self.blocks():
+            if kind in (ATTN, LOCAL_ATTN):
+                total += (d * self.num_heads * hd
+                          + 2 * d * self.num_kv_heads * hd
+                          + self.num_heads * hd * d)
+                total += n_mlp_mats * d * self.d_ff
+                total += 2 * d                   # two norms
+            elif kind == SSD:
+                s = self.ssm or SSMConfig()
+                di = s.d_inner(d)
+                nh = s.n_heads(d)
+                # in_proj produces [z, x, B, C, dt]
+                total += d * (2 * di + 2 * s.d_state + nh)
+                total += s.conv_kernel * (di + 2 * s.d_state)
+                total += di * d                  # out proj
+                total += 2 * nh + d              # A_log, D, norm
+            else:
+                raise ValueError(f"no parameter count for block {kind!r}")
+        total += d                               # final norm
+        return total
+
     def smoke(self) -> "ModelConfig":
         """Reduced same-family config for CPU tests: ``repro.config``'s
         reduction of every field the port has."""
@@ -118,6 +149,8 @@ class SpecEEConfig:
     schedule_enabled: bool = True     # T2 two-level scheduling
     online_window: int = 5            # circular queue length
     online_radius: int = 2            # ±radius exit points
+    offline_top_frac: float = 0.3     # share of exit points the offline
+    #                                   schedule keeps
     tree_depth: int = 3               # T3: draft levels under the root
     tree_branch: int = 3              # T3: top-b expansion per node
 
@@ -153,13 +186,36 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    microbatch: int = 0              # 0 = no accumulation
+    steps: int = 100
+    learning_rate: float = 3e-4
+    warmup_steps: int = 10
+    schedule: str = "cosine"         # cosine | wsd | constant
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+
+
+@dataclass(frozen=True)
 class RunConfig:
     model: ModelConfig
     specee: SpecEEConfig = field(default_factory=SpecEEConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     def smoke(self) -> "RunConfig":
         return replace(self, model=self.model.smoke(),
                        serve=replace(self.serve, max_batch=2, max_seq_len=128,
                                      page_size=16, max_new_tokens=8,
-                                     prefill_chunk=32))
+                                     prefill_chunk=32),
+                       train=replace(self.train, global_batch=4, seq_len=32,
+                                     steps=2, microbatch=0,
+                                     checkpoint_every=1))

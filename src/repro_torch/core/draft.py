@@ -141,6 +141,32 @@ def shift_hidden(h: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
 
 
+def draft_forward_seq(cfg: ModelConfig, p: Params, embeds: torch.Tensor,
+                      h_prev: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced full-sequence draft forward (training and feature
+    collection). embeds: (B, S, D) token embeddings at position t; h_prev:
+    (B, S, D) target hidden of position t-1 (``shift_hidden``). Returns the
+    draft hidden (B, S, D) whose LM-head logits propose the token at
+    t+1."""
+    dc = _draft_cfg(cfg)
+    B, S, D = embeds.shape
+    x = torch.cat([embeds, h_prev.to(embeds.dtype)], dim=-1)
+    h = common.apply_linear(p["fuse"], x)
+    xn = common.apply_norm(dc, p["ln1"], h)
+    positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
+    q, k, v = attn_lib.qkv(dc, p["attn"], xn, positions)
+    h = h + attn_lib.out_proj(p["attn"], attn_lib.attend_full(dc, q, k, v))
+    x2 = common.apply_norm(dc, p["ln2"], h)
+    return h + common.apply_mlp(dc, p["mlp"], x2)
+
+
+def draft_param_count(cfg: ModelConfig) -> int:
+    """Parameters of the draft for ``cfg``, counted on the meta device (no
+    memory is allocated)."""
+    p = init_draft(cfg, None, torch.float32, "meta")
+    return sum(x.numel() for x in common.tree_leaves(p))
+
+
 def draft_prefill(cfg: ModelConfig, p: Params, embeds: torch.Tensor,
                   h_targets: torch.Tensor, max_seq: int) -> Any:
     """Build the draft cache over a prompt. embeds/h_targets: (B, S, D),

@@ -38,6 +38,22 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The tensor leaves of a nest of dicts/lists/tuples in ``tree_map``'s
+    order (dict insertion order; a ``QTensor`` gives its codes, then its
+    scales)."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(tree, flat):
+    """A nest shaped like ``tree`` holding ``flat``'s tensors in
+    ``tree_leaves(tree)`` order."""
+    it = iter(flat)
+    return tree_map(lambda _: next(it), tree)
+
+
 def index_tree(tree, i: int):
     """Leaf-wise ``x[i]`` — one unit out of a stacked segment (a view)."""
     return tree_map(lambda x: x[i], tree)

@@ -25,6 +25,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (ATTN, LOCAL_ATTN, SSD, ModelConfig,
                                 RunConfig, SSMConfig)
@@ -75,6 +77,9 @@ class ModelFlags:
     kv_quant: bool = False          # int8 K/V cache with fp32 scales
     ssd_kernel: bool = False        # CUDA SSD intra-chunk kernel: Mamba2
     #                                 prefill's diagonal-block term
+    remat: str = "none"             # "none" | "full": recompute each unit
+    #                                 in the backward pass (training)
+    ce_chunk: int = 512             # sequence chunk of the chunked CE loss
 
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -375,6 +380,88 @@ class Model:
     def logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         w = common.lm_head_weight(params)
         return (self.final_norm(params, h) @ w.to(h.dtype)).float()
+
+    # ----- sequence forward (training) -----
+    def forward_hidden(self, params: Params, h: torch.Tensor,
+                       positions: torch.Tensor
+                       ) -> Tuple[torch.Tensor, None, torch.Tensor]:
+        """h: (B, S, D) -> (h_final, None, aux_loss): every unit's
+        ``_block_seq`` with autograd on; under ``flags.remat == "full"``
+        each unit is recomputed in the backward pass. The kernels are
+        ``ctypes`` calls whose outputs carry no gradient, so with grad
+        enabled a kernel flag of the sequence path raises (as ``jax.grad``
+        through a ``pallas_call`` without a VJP fails) rather than train
+        through a kernel that drops the gradient."""
+        flags = self.flags
+        if torch.is_grad_enabled() and (flags.flash_attention or
+                                        flags.ssd_kernel):
+            raise ValueError(
+                "forward_hidden with grad enabled: the flash_attention and "
+                "ssd_kernel kernels have no backward; build the training "
+                "model without them")
+        cfg = self.cfg
+
+        def unit_fwd(h_in, up, unit):
+            for i, kind in enumerate(unit):
+                h_in, _ = _block_seq(cfg, kind, up[f"u{i}"], h_in, positions,
+                                     flags)
+            return h_in
+
+        for si, (unit, reps) in enumerate(self.segments):
+            for r in range(reps):
+                up = index_tree(params["segments"][si], r)
+                if flags.remat == "full":
+                    h = checkpoint(unit_fwd, h, up, unit, use_reentrant=False)
+                else:
+                    h = unit_fwd(h, up, unit)
+        return h, None, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def train_loss(self, params: Params, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy over ``batch["tokens"]`` (B, S).
+        Returns (loss + aux, {"ce", "aux"})."""
+        if self.cfg.frontend != "none":
+            raise ValueError(f"frontend {self.cfg.frontend!r} is not ported "
+                             "yet (ROADMAP: frontends)")
+        tokens = batch["tokens"]
+        h = self.embed(params, tokens)
+        B, S, _ = h.shape
+        positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
+        h, _, aux = self.forward_hidden(params, h, positions)
+        loss = self._ce_loss(params, h[:, :-1, :], tokens[:, 1:],
+                             chunk=self.flags.ce_chunk)
+        return loss + aux, {"ce": loss, "aux": aux}
+
+    def _ce_loss(self, params: Params, h: torch.Tensor,
+                 targets: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+        """Mean cross-entropy of ``logits(h)`` against ``targets``. Above
+        S·V = 2^24 it runs over sequence chunks, each recomputed in the
+        backward pass (``torch.utils.checkpoint``), so the (B, S, V) logits
+        never exist at once: peak logits memory is (B, chunk, V)."""
+        B, S, D = h.shape
+        targets = targets.long()
+
+        def log_lik(h_c, t_c):
+            lse = torch.log_softmax(self.logits(params, h_c), dim=-1)
+            return torch.gather(lse, -1, t_c[..., None])[..., 0]
+
+        def nll_sum(h_c, t_c, w_c):
+            return -(log_lik(h_c, t_c) * w_c).sum()
+
+        if S * self.cfg.vocab_size <= (1 << 24):      # small: direct path
+            return -log_lik(h, targets).mean()
+        chunk = min(chunk, S)
+        pad = (-S) % chunk
+        w = F.pad(torch.ones(B, S, dtype=torch.float32, device=h.device),
+                  (0, pad))
+        hp = F.pad(h, (0, 0, 0, pad))
+        tp = F.pad(targets, (0, pad))
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, S + pad, chunk):
+            sl = slice(c0, c0 + chunk)
+            total = total + checkpoint(nll_sum, hp[:, sl], tp[:, sl],
+                                       w[:, sl], use_reentrant=False)
+        return total / (B * S)
 
     # ----- prefill -----
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],

@@ -1,0 +1,109 @@
+"""Training loop (counterpart of ``repro/train/loop.py``): the step builder
+(gradient accumulation, remat through ``ModelFlags``, the LR schedule) and
+the host loop over the data pipeline.
+
+The JAX loop's checkpoint/restart, straggler monitor and preemption guard
+are not ported yet (ROADMAP: fault tolerance): ``TrainLoop`` refuses a
+``ckpt_dir``.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import RunConfig, TrainConfig
+from repro_torch.data import DataPipeline
+from repro_torch.models.common import tree_leaves, tree_unflatten
+from repro_torch.models.model import Model
+from repro_torch.optim import adamw_init, adamw_update, make_schedule
+from repro_torch.optim.adamw import AdamWState
+
+
+def make_train_step(model: Model, cfg: TrainConfig
+                    ) -> Callable[[Any, AdamWState, Dict[str, torch.Tensor]],
+                                  Tuple[Any, AdamWState,
+                                        Dict[str, torch.Tensor]]]:
+    """Builds ``train_step(params, opt_state, batch) -> (params, opt_state,
+    stats)``. With ``cfg.microbatch > 0`` the batch is split into chunks of
+    that many rows whose gradients are summed in fp32 and averaged. The
+    step reads nothing back to the host: ``stats`` (loss, lr, grad_norm)
+    are 0-d tensors on the parameters' device."""
+    sched = make_schedule(cfg)
+
+    def grad_fn(params, batch):
+        leaves = [x.detach().requires_grad_(True)
+                  for x in tree_leaves(params)]
+        loss, _ = model.train_loss(tree_unflatten(params, leaves), batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def train_step(params, opt_state: AdamWState, batch):
+        if cfg.microbatch and cfg.microbatch > 0:
+            B = next(iter(batch.values())).shape[0]
+            mb = cfg.microbatch
+            assert B % mb == 0, f"batch {B} % microbatch {mb}"
+            nm = B // mb
+            gsum = lsum = None
+            for c in range(nm):
+                chunk = {k: x[c * mb:(c + 1) * mb] for k, x in batch.items()}
+                loss, g = grad_fn(params, chunk)
+                if gsum is None:
+                    gsum = [x.float().clone() for x in g]
+                    lsum = loss
+                else:
+                    for a, b in zip(gsum, g):
+                        a.add_(b.float())
+                    lsum = lsum + loss
+                del g
+            grads = [x / nm for x in gsum]
+            loss = lsum / nm
+        else:
+            loss, grads = grad_fn(params, batch)
+        lr = sched(opt_state.step)
+        params, opt_state, stats = adamw_update(
+            cfg, params, tree_unflatten(params, grads), opt_state, lr)
+        return params, opt_state, dict(stats, loss=loss, lr=lr)
+
+    return train_step
+
+
+class TrainLoop:
+    """Host-side loop: the data pipeline and the train step on the
+    parameters' device."""
+
+    def __init__(self, model: Model, run: RunConfig, params,
+                 ckpt_dir: Optional[str] = None):
+        if ckpt_dir is not None:
+            raise ValueError(f"ckpt_dir={ckpt_dir!r} is not ported yet "
+                             "(ROADMAP: fault tolerance)")
+        self.model = model
+        self.run = run
+        self.cfg = run.train
+        self.params = params
+        self.opt_state = adamw_init(params)
+        self.step_fn = make_train_step(model, self.cfg)
+        self.pipeline = DataPipeline(model.cfg, self.cfg.global_batch,
+                                     self.cfg.seq_len, seed=self.cfg.seed)
+        self.device = tree_leaves(params)[0].device
+        self.step = 0
+        self.history: list = []
+
+    def run_steps(self, n: Optional[int] = None) -> Dict[str, float]:
+        """``n`` steps (default ``cfg.steps``); each step's stats, read
+        back to the host, and its ``step_time`` (seconds, the stats' read
+        included) go to ``history``. Returns the last step's."""
+        n = n if n is not None else self.cfg.steps
+        last: Dict[str, float] = {}
+        for _ in range(n):
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in self.pipeline.next().items()}
+            t0 = time.perf_counter()
+            self.params, self.opt_state, stats = self.step_fn(
+                self.params, self.opt_state, batch)
+            stats = {k: float(v) for k, v in stats.items()}
+            stats["step_time"] = time.perf_counter() - t0
+            self.step += 1
+            self.history.append(stats)
+            last = stats
+        return last

@@ -1629,3 +1629,50 @@ def test_predictor_mlp_q_rows_match_plain(dev, R, bits1, bits2, H, F):
                                atol=1e-5, rtol=1e-5)
     alone = predictor_mlp_fused_q(x[-1:].clone(), q1, b1, q2, b2)
     assert torch.equal(alone[0], got[-1])
+
+
+def test_train_steps_on_card_match_cpu(dev, monkeypatch):
+    """Two smoke-config ``TrainLoop`` steps and three ``train_predictors``
+    steps on the card against the same steps on the CPU, from the same
+    weights and data, TF32 off: losses rtol 1e-5; parameters atol steps *
+    lr (Adam divides by sqrt(v): an element whose gradient is float noise
+    can move by up to lr a step either way; the first step's lr is 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import predictor as pred_lib
+    from repro_torch.core import predictor_training as pt
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.train import TrainLoop
+    run = get_config("llama2-7b").smoke()
+    model = build_model(run)
+    params = model.init(0, "cpu")
+    loops = [TrainLoop(model, run, tree_map(lambda x: x.to(d), params))
+             for d in ("cpu", dev)]
+    for loop in loops:
+        loop.run_steps(2)
+    cpu, card = loops
+    assert all(x.is_cuda for x in tree_leaves(card.params))
+    np.testing.assert_allclose([h["loss"] for h in card.history],
+                               [h["loss"] for h in cpu.history], rtol=1e-5)
+    atol = 2 * run.train.learning_rate
+    for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        torch.testing.assert_close(a.cpu(), b, atol=atol, rtol=0)
+    # predictors: the same init and features on both devices
+    spec = run.specee
+    gen = torch.Generator().manual_seed(3)
+    init = pred_lib.init_predictors(spec, 4, gen, "cpu")
+    feats = torch.randn(4, 300, spec.feature_dim(), generator=gen)
+    labels = (torch.rand(4, 300, generator=gen) < 0.4).float()
+    out = []
+    for d in ("cpu", dev):
+        monkeypatch.setattr(pred_lib, "init_predictors",
+                            lambda *a, d=d, **k: tree_map(lambda x: x.to(d),
+                                                          init))
+        data = pt.FeatureDataset(features=feats.to(d), labels=labels.to(d))
+        out.append(pt.train_predictors(spec, data, None, steps=3))
+    (p_cpu, m_cpu), (p_card, m_card) = out
+    assert m_card["final_loss"] == pytest.approx(m_cpu["final_loss"],
+                                                 rel=1e-5)
+    for a, b in zip(tree_leaves(p_card), tree_leaves(p_cpu)):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, atol=3e-3, rtol=0)
