@@ -9,9 +9,12 @@ and int4 quantization, serves on an int8 KV cache
 (``ModelFlags(kv_quant=True)``), alone and with int8 weights, decodes
 and serves Mamba2 (mamba2-130m) with the SSD intra-chunk kernel, and
 runs the whole-batch and serving paths again as megaticks
-(``step(num_ticks=4)``, ``ServingEngine(megatick=4)``), and trains
+(``step(num_ticks=4)``, ``ServingEngine(megatick=4)``), trains
 SpecEE bundles on the card (the target, the draft, the predictors and the
-offline schedule) and decodes with them.
+offline schedule) and decodes with them, runs the dense-family configs
+(Llama-2-13B/70B, DeepSeek-7B, MiniCPM-2B, StarCoder2-15B, Command R+),
+and serves sampled requests, cancels requests, prefills a long prompt
+through chunked attention and runs the serving launcher.
 
     python3 chip_smoke.py
 
@@ -73,7 +76,14 @@ Phases (lines ``[phase +seconds since the start] ...``):
      overflows for s > t) against its plain version, timed at a 512-token
      mamba2-130m admission beside a yardstick (bmm + batched product), and
      the gate and verify kernels at mamba2's D=768, V=50280 on a tied head
-     made contiguous;
+     made contiguous; then the dense family's shapes: the three attention
+     kernels at 12 query heads per KV head (48 over 4 of 128, fp32 and
+     bf16, rows of one and of several splits), timed at 150 of 162 and
+     4096 of 4096 slots (dense) and a serve tick's 2203 live keys (paged,
+     bf16 and int8 pools) beside SDPA; the four verify tiles at MiniCPM's
+     head (D=2304, odd V=122753) and Command R+'s (D=12288, V=256000), the
+     fp and int8 gates at D 5120, 6144 and 12288, flash at 48 over 4 heads
+     and at 36 heads of 64, each against its plain version and timed;
   3. parity — llama2-7b at full width, 4 layers, fp32, seeded weights:
      Engine.create → new_session → prefill(4 prompts) → step x 8 at
      thresholds 1.5, 0.4, -0.1, with the kernels and with the plain
@@ -187,7 +197,34 @@ Phases (lines ``[phase +seconds since the start] ...``):
      tokens, 32 tokens a row): tokens/s, mean units_run, the exit points
      over tokens, the share of tokens equal to dense and the tree's mean
      accepted length; a second SpecEE run must emit the first's tokens;
- 12. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
+ 12. dense — the dense-family configs, seeded bf16, one model at a time:
+     first each at published widths, 2 layers, fp32, SpecEE (threshold
+     0.4) on dense and paged caches and tree decoding with every kernel
+     against the plain paths (tokens and exit points identical); then
+     llama2-13b at published size (AR whole-batch B=4, prompt 128, 32
+     steps; tree, 8 steps; phase 5's 16 requests, 16 new tokens each,
+     served on the paged cache), starcoder2-15b (48 heads over 4 KV heads: n_rep 12 in the
+     dense, paged and int8 paged attention kernels; AR, serving, kv_quant
+     serving, AR with an int8 head and predictors), deepseek-7b (AR,
+     V=102400), minicpm-2b (odd V=122753, hd 64, tied: AR, tree, int8
+     AR), llama2-70b at 8 of its 80 layers (AR, serving) and
+     command-r-plus-104b at 4 of its 64 (AR); each run zeroes the launch
+     counts and requires its path's kernels; tokens/s, ms/step or tick,
+     peak memory;
+ 13. serve2 — the rest of serving on phase 5's llama2-7b weights:
+     sampled whole-batch decode (DenseStrategy(temperature=0.8,
+     top_k=50)), megaticks of 4 equal to single steps, and the sampler on
+     the card against the CPU's on the same logits and keys; sampled
+     serving of the 16 requests, 16 new tokens each (the same seed
+     replays, another differs, megatick=4 equals the per-tick run); cancel of 4 of the 16
+     greedy requests (one queued, one mid chunked admission, two slotted):
+     every page freed, ``completed`` in finish order, the other 12 against
+     a run without them (a differing request only at a near-tie); a
+     3000-token prompt through chunked and pruned chunked attention (fp32,
+     4 layers, flash off) equal to unchunked attention; and ``python -m
+     repro_torch.launch.serve --smoke --ci`` for specee, tree and dense
+     --temperature 0.8, three subprocesses at once;
+ 14. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
@@ -195,7 +232,7 @@ token per step (one emitted token per tree step), so the tree runs of
 phases 3 to 10 measure the mechanism's cost, not its gain; phase 11's
 trained bundles are the ones that exit and accept.
 
-Each main path (phases 4 to 11, each run on its own) zeroes the
+Each main path (phases 4 to 13, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -559,16 +596,17 @@ def check_kernels(torch, dev):
     return rows["bfloat16"], t
 
 
-def _paged_case(torch, dev, rnd, dt, P, lens, seed):
+def _paged_case(torch, dev, rnd, dt, P, lens, seed, heads=HEADS,
+                kvh=HEADS):
     """B = len(lens) rows of P pages each, a shuffled table over a pool with
     spare pages; a last row of length 1 is retired (every entry the trash
     page)."""
     import numpy as np
     Bp = len(lens)
     NP = Bp * P + 5                              # + spare, then the trash
-    q = rnd((Bp, 1, HEADS, HD), dt)
-    kp = rnd((NP + 1, PAGE, HEADS, HD), dt)
-    vp = rnd((NP + 1, PAGE, HEADS, HD), dt)
+    q = rnd((Bp, 1, heads, HD), dt)
+    kp = rnd((NP + 1, PAGE, kvh, HD), dt)
+    vp = rnd((NP + 1, PAGE, kvh, HD), dt)
     perm = np.random.default_rng(seed).permutation(NP)[:Bp * P]
     table = torch.as_tensor(perm.reshape(Bp, P).astype(np.int32), device=dev)
     if lens[-1] == 1:
@@ -710,7 +748,7 @@ def check_attention_kernels(torch, dev, rnd):
     return errs, t
 
 
-def _paged_q_case(torch, dev, rnd, dt, P, lens, kvh, seed):
+def _paged_q_case(torch, dev, rnd, dt, P, lens, kvh, seed, heads=HEADS):
     """``_paged_case`` over int8 pools: codes and fp32 scales quantized as
     the model stores them, the trash page (the last) zeroed, scales too.
     Returns (q, k, v, table, cache_len, k_scale, v_scale)."""
@@ -718,7 +756,7 @@ def _paged_q_case(torch, dev, rnd, dt, P, lens, kvh, seed):
     from repro_torch.models.model import _kv_quantize
     Bp = len(lens)
     NP = Bp * P + 5
-    q = rnd((Bp, 1, HEADS, HD), dt)
+    q = rnd((Bp, 1, heads, HD), dt)
     pools = []
     for _ in range(2):
         codes, scale = _kv_quantize(rnd((NP + 1, PAGE, kvh, HD),
@@ -2945,6 +2983,373 @@ def flip_margins(torch, params, out_block, out_chunk, phase: str,
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (continued): the dense family's shapes
+# ---------------------------------------------------------------------------
+# StarCoder2-15B (src/repro_torch/configs/starcoder2_15b.py): 48 query heads
+# over 4 KV heads of 128 — 12 query heads per KV head, which the three
+# split-KV attention kernels take since they gained the n_rep-12 instance
+SC_HEADS, SC_KVH = 48, 4
+# a phase-5 serve tick's 8 rows (2203 live keys), in 4096-token rows
+TICK_LENS = [150, 300, 500, 220, 180, 400, 260, 193]
+# (name, D, V) of the heads whose gate and verifies phase 12 runs: MiniCPM's
+# odd vocabulary and D = 2304, Command R+'s widest head
+DF_HEADS = (("minicpm-2b", 2304, 122753), ("command-r-plus-104b", 12288,
+                                           256000))
+# (name, D, V) of the gate widths phase 12 runs beside Llama-2-7B's
+DF_GATES = (("llama2-13b", 5120, 32000), ("starcoder2-15b", 6144, 49152),
+            ("command-r-plus-104b", 12288, 256000))
+
+
+def check_dense_family_kernels(torch, dev):
+    """Phase 2 at the dense family's shapes. (1) The dense, paged and int8
+    paged attention kernels at 12 query heads per KV head (StarCoder2-15B's
+    decode: 48 heads over 4, hd 128, B = 4): fp32 and bf16 against their
+    plain versions (windows None/300, rows of one and of several splits,
+    a retired paged row), then bf16 timings at 150 live keys of 162 slots
+    and 4096 of 4096 (dense) and at a serve tick's 2203 live keys (both
+    paged), beside SDPA (enable_gqa; on the gathered, for int8 the
+    dequantized, view) and the byte bound. (2) The four verify tiles
+    (argmax_verify_fused, topk_verify_fused and, int8, their quantized
+    variants) on bf16 rows at MiniCPM-2B's head (D = 2304, odd V = 122753)
+    and Command R+'s (D = 12288, V = 256000): B = 4 and 160 rows against
+    the plain version with a planted tie, then timed at B = 4. (3) The fp
+    gate and exit_gate_q (int8 head and bank) at D = 5120, 6144 and 12288
+    against their plain versions, timed at B = 4. (4) Flash at 48 over 4
+    heads of 128 and at MiniCPM's 36 heads of 64 (S = 512), fp32 and bf16
+    against the plain version, timed beside causal SDPA. Returns (max
+    error by kernel, {kernel: {shape: timing row}})."""
+    import torch.nn.functional as F
+    from repro_torch import quant
+    from repro_torch.core import paged as paged_lib
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_fwd, paged_decode_attention_fwd)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref as gref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.model import _kv_dequantize
+    gen = torch.Generator(device=dev).manual_seed(2468)
+
+    def rnd(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    errs = {}
+
+    def note(name, a, b, **tol):
+        torch.testing.assert_close(a, b, **tol)
+        errs[name] = max(errs.get(name, 0.0), (a - b).abs().max().item())
+
+    def paged(dt, lens, int8, seed):
+        """A paged case in 32-page rows at n_rep 12: (the wrapper's
+        positional arguments, its scale keyword arguments)."""
+        if not int8:
+            return _paged_case(torch, dev, rnd, dt, 32, lens, seed,
+                               SC_HEADS, SC_KVH), {}
+        c = _paged_q_case(torch, dev, rnd, dt, 32, lens, SC_KVH, seed,
+                          SC_HEADS)
+        return c[:5], dict(k_scale=c[5], v_scale=c[6])
+
+    # ---- (1) attention at n_rep 12 ----
+    for dt in (torch.float32, torch.bfloat16):
+        rtol = 1e-4 if dt == torch.float32 else 2.0 ** -7
+        for S, lens in ((162, [150, 150, 1, 77]), (4096, [4096, 1, 2049,
+                                                          2048])):
+            q = rnd((B, 1, SC_HEADS, HD), dt)
+            k = rnd((B, S, SC_KVH, HD), dt)
+            v = rnd((B, S, SC_KVH, HD), dt)
+            cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            for window in (None, 300):
+                note("decode_attention",
+                     decode_attention_fwd(q, k, v, cl, window).float(),
+                     decode_attention_ref(q.float(), k.float(), v.float(),
+                                          cl, window), atol=1e-4, rtol=rtol)
+        for int8 in (False, True):
+            name = "paged_decode_attention" + ("_q" if int8 else "")
+            for i, lens in enumerate((TICK_LENS, [4096, 150, 259, 1])):
+                args, kw = paged(dt, lens, int8, i)
+                live = len(lens) - (lens[-1] == 1)
+                q, kp, vp, table, cl = args
+                for window in (None, 300):
+                    got = paged_decode_attention_fwd(*args, window=window,
+                                                     **kw).float()
+                    want = paged_decode_attention_ref(
+                        q.float(), kp if int8 else kp.float(),
+                        vp if int8 else vp.float(), table, cl, window,
+                        kw.get("k_scale"), kw.get("v_scale"))
+                    note(name, got[:live], want[:live], atol=1e-4,
+                         rtol=rtol)
+    torch.cuda.synchronize()
+    log("kernels", f"n_rep 12 ({SC_HEADS} heads over {SC_KVH} KV heads "
+        f"of {HD}): "
+        f"decode_attention err {errs['decode_attention']:.3g}, "
+        f"paged_decode_attention err {errs['paged_decode_attention']:.3g}, "
+        f"paged_decode_attention_q err "
+        f"{errs['paged_decode_attention_q']:.3g} (fp32 and bf16, windows "
+        "None/300, rows of one and of several splits, a retired row)")
+    t = {"decode_attention": {}, "paged_decode_attention": {},
+         "paged_decode_attention_q": {}}
+    dt, dname = torch.bfloat16, "bfloat16"
+    for S, live, n_c in ((162, 150, 8), (4096, 4096, 2)):
+        q = rnd((B, 1, SC_HEADS, HD), dt)
+        qs = q.transpose(1, 2)
+        cl = torch.full((B,), live, dtype=torch.int32, device=dev)
+        caches = [(rnd((B, S, SC_KVH, HD), dt), rnd((B, S, SC_KVH, HD), dt))
+                  for _ in range(n_c)]
+        mask = (None if live == S else
+                (torch.arange(S, device=dev) < live)[None, None, None, :])
+        kv_t = [(k.transpose(1, 2), v.transpose(1, 2)) for k, v in caches]
+        reps = 24 // n_c
+        row = (graph_ms(torch, [lambda c=c: decode_attention_fwd(
+                   q, c[0], c[1], cl) for c in caches] * reps),
+               graph_ms(torch, [lambda c=c: decode_attention_ref(
+                   q, c[0], c[1], cl) for c in caches] * reps),
+               graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
+                   qs, c[0], c[1], attn_mask=mask, enable_gqa=True)
+                   for c in kv_t] * reps),
+               bound_ms(2 * B * live * SC_KVH * HD * 2
+                        + 2 * B * SC_HEADS * HD * 2 + B * 4,
+                        4 * B * live * SC_HEADS * HD, dname))
+        t["decode_attention"][f"n_rep 12, {live} live of {S} slots"] = row
+        log("kernels", f"decode_attention bf16, n_rep 12, {live} live keys "
+            f"of {S} slots: kernel {row[0]:.4f} ms, plain {row[1]:.4f} ms, "
+            f"SDPA {row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]})")
+        del caches, kv_t
+    live = sum(TICK_LENS)
+    for int8 in (False, True):
+        name = "paged_decode_attention" + ("_q" if int8 else "")
+        cases = [paged(dt, TICK_LENS, int8, 10 + j) for j in range(4)]
+        views = []
+        for (q, kp, vp, table, cl), kw in cases:
+            kv = paged_lib.gather_view(kp, table)
+            vv = paged_lib.gather_view(vp, table)
+            if int8:
+                kv = _kv_dequantize(kv, paged_lib.gather_view(
+                    kw["k_scale"], table), dt)
+                vv = _kv_dequantize(vv, paged_lib.gather_view(
+                    kw["v_scale"], table), dt)
+            mask = (torch.arange(kv.shape[1], device=dev)[None, :]
+                    < cl[:, None])[:, None, None, :]
+            views.append((q.transpose(1, 2), kv.transpose(1, 2),
+                          vv.transpose(1, 2), mask))
+        esize = 1 if int8 else 2
+        nbytes = (2 * live * SC_KVH * HD * esize
+                  + (2 * live * SC_KVH * 4 if int8 else 0)
+                  + 2 * len(TICK_LENS) * SC_HEADS * HD * 2
+                  + len(TICK_LENS) * 33 * 4)
+        row = (graph_ms(torch, [lambda c=c: paged_decode_attention_fwd(
+                   *c[0], **c[1]) for c in cases] * 3),
+               graph_ms(torch, [lambda c=c: paged_decode_attention_ref(
+                   *c[0], None, c[1].get("k_scale"), c[1].get("v_scale"))
+                   for c in cases] * 3),
+               graph_ms(torch, [lambda w=w: F.scaled_dot_product_attention(
+                   w[0], w[1], w[2], attn_mask=w[3], enable_gqa=True)
+                   for w in views] * 3),
+               bound_ms(nbytes, 4 * live * SC_HEADS * HD, dname))
+        t[name][f"n_rep 12, serve tick, {live} live keys"] = row
+        log("kernels", f"{name} bf16, n_rep 12, a serve tick's {live} live "
+            f"keys (B=8): kernel {row[0]:.4f} ms, plain {row[1]:.4f} ms, "
+            f"SDPA on the gathered{' dequantized' if int8 else ''} view "
+            f"{row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]})")
+        del cases, views
+
+    # ---- (2) the verify tiles and (3) the gates at the new widths ----
+    for name in ("argmax_verify", "topk_verify", "argmax_verify_q",
+                 "topk_verify_q", "exit_gate", "exit_gate_q"):
+        t[name] = {}
+
+    def plant(w, hn):
+        best = int((hn[-1].float() @ w.float()).argmax())
+        dups = {best, (best + 3 * 128) % w.shape[1], best % 128}
+        for j in dups:
+            w[:, j] = w[:, best]
+        return min(dups)
+
+    n = 10
+    for label, d, v in DF_HEADS:
+        w32 = rnd((d, v), torch.float32, 0.05)
+        hn4 = rnd((B, d), dt)
+        for R in (B, 160):
+            hn = hn4 if R == B else rnd((R, d), dt)
+            w = w32.to(dt)
+            lowest = plant(w, hn)
+            tok, mx = eg.argmax_verify_fused(hn, w)
+            tok_r, mx_r = gref.verify_argmax_ref(hn, w)
+            require(torch.equal(tok, tok_r) and int(tok[-1]) == lowest,
+                    f"argmax_verify at {label}'s head, R={R}: ids differ")
+            note("argmax_verify", mx, mx_r, atol=1e-4, rtol=1e-4)
+            ids, vals = eg.topk_verify_fused(hn, w, K_SPEC)
+            ids_r, vals_r = gref.verify_topk_ref(hn, w, K_SPEC)
+            require(torch.equal(ids, ids_r) and int(ids[-1, 0]) == lowest,
+                    f"topk_verify at {label}'s head, R={R}: ids differ")
+            note("topk_verify", vals, vals_r, atol=1e-4, rtol=1e-4)
+            del w
+            qt = quant.quantize_tensor(w32, 8)
+            tok, mx = eg.argmax_verify_fused_q(hn, qt)
+            tok_r, mx_r = gref.verify_argmax_q_ref(hn, qt)
+            require(torch.equal(tok, tok_r),
+                    f"argmax_verify_q at {label}'s head, R={R}: ids differ")
+            note("argmax_verify_q", mx, mx_r, atol=1e-4, rtol=1e-4)
+            ids, vals = eg.topk_verify_fused_q(hn, qt, K_SPEC)
+            ids_r, vals_r = gref.verify_topk_q_ref(hn, qt, K_SPEC)
+            require(torch.equal(ids, ids_r),
+                    f"topk_verify_q at {label}'s head, R={R}: ids differ")
+            note("topk_verify_q", vals, vals_r, atol=1e-4, rtol=1e-4)
+            del qt
+        w = w32.to(dt)
+        qt = quant.quantize_tensor(w32, 8)
+        wq = qt.dequantize(dt)
+        del w32
+        head_b = d * v * 2 + B * d * 2
+        ops = 2 * B * d * v
+        shape = f"{label}, D={d}, V={v}, B={B}"
+        rows = {
+            "argmax_verify": (
+                graph_ms(torch, [lambda: eg.argmax_verify_fused(hn4, w)] * n),
+                graph_ms(torch, [lambda: gref.verify_argmax_ref(hn4, w)] * n),
+                graph_ms(torch, [lambda: torch.argmax(hn4 @ w, -1)] * n),
+                bound_ms(head_b + B * 8, ops, dname)),
+            "topk_verify": (
+                graph_ms(torch, [lambda: eg.topk_verify_fused(
+                    hn4, w, K_SPEC)] * n),
+                graph_ms(torch, [lambda: gref.verify_topk_ref(
+                    hn4, w, K_SPEC)] * n),
+                graph_ms(torch, [lambda: torch.topk(hn4 @ w, K_SPEC,
+                                                    -1)] * n),
+                bound_ms(head_b + B * K_SPEC * 8, ops, dname)),
+            # yardsticks: the fp tile on the dequantized bf16 head
+            "argmax_verify_q": (
+                graph_ms(torch, [lambda: eg.argmax_verify_fused_q(
+                    hn4, qt)] * n),
+                graph_ms(torch, [lambda: gref.verify_argmax_q_ref(
+                    hn4, qt)] * n),
+                graph_ms(torch, [lambda: eg.argmax_verify_fused(
+                    hn4, wq)] * n),
+                bound_ms(qt.nbytes() + B * d * 2 + B * 8, ops, dname)),
+            "topk_verify_q": (
+                graph_ms(torch, [lambda: eg.topk_verify_fused_q(
+                    hn4, qt, K_SPEC)] * n),
+                graph_ms(torch, [lambda: gref.verify_topk_q_ref(
+                    hn4, qt, K_SPEC)] * n),
+                graph_ms(torch, [lambda: eg.topk_verify_fused(
+                    hn4, wq, K_SPEC)] * n),
+                bound_ms(qt.nbytes() + B * d * 2 + B * K_SPEC * 8, ops,
+                         dname))}
+        for name, row in rows.items():
+            t[name][shape] = row
+            lib = "fp tile on the dequantized head" if name.endswith(
+                "_q") else "matmul + " + name.split("_")[0]
+            log("kernels", f"{name} bf16 at {shape}: kernel {row[0]:.4f} "
+                f"ms, plain {row[1]:.4f} ms, {lib} {row[2]:.4f} ms, bound "
+                f"{row[3][0]:.4f} ms ({row[3][1]})")
+        del w, qt, wq
+        torch.cuda.empty_cache()
+    log("kernels", "verify tiles at " + " and ".join(
+        f"{n}'s head (D={d}, V={v})" for n, d, v in DF_HEADS)
+        + ", B 4 and 160: ids equal the plain versions', planted ties to "
+        "the lowest id; errors: "
+        + ", ".join(f"{k} {errs[k]:.3g}" for k in (
+            "argmax_verify", "topk_verify", "argmax_verify_q",
+            "topk_verify_q")))
+    for label, d, v in DF_GATES:
+        w32 = rnd((d, v), torch.float32, 0.05)
+        w, qt = w32.to(dt), quant.quantize_tensor(w32, 8)
+        del w32
+        w1 = rnd((3 * K_SPEC, H_PRED), torch.float32, 12 ** -0.5)
+        b1 = rnd((H_PRED,), torch.float32, 0.1)
+        w2 = rnd((H_PRED, 1), torch.float32, H_PRED ** -0.5)
+        b2 = rnd((1,), torch.float32, 0.1)
+        pred = {"layers": [{"w": w1, "b": b1}, {"w": w2, "b": b2}]}
+        l1 = {"w": quant.quantize_tensor(w1, 8), "b": b1}
+        l2 = {"w": quant.quantize_tensor(w2, 8), "b": b2}
+        hn = rnd((B, d), dt)
+        id_sets = [torch.randint(0, v, (B, K_SPEC), generator=gen,
+                                 device=dev, dtype=torch.int32)
+                   for _ in range(20)]
+        prev = torch.softmax(rnd((B, K_SPEC), torch.float32), -1)
+        wf = w.float()
+        for hh, head in ((hn, w), (hn.float(), wf)):
+            for a, b in zip(eg.exit_gate_fused(hh, head, id_sets[0], prev,
+                                               w1, b1, w2, b2),
+                            gref.exit_gate_ref(hh, head, id_sets[0], prev,
+                                               pred)):
+                note("exit_gate", a, b, atol=1e-4, rtol=1e-4)
+            for a, b in zip(eg.exit_gate_fused_q(hh, qt, id_sets[0], prev,
+                                                 l1, l2),
+                            gref.exit_gate_q_ref(hh, qt, id_sets[0], prev,
+                                                 l1, l2)):
+                note("exit_gate_q", a, b, atol=1e-4, rtol=1e-4)
+        del wf
+        fixed = (B * d * 2 + B * K_SPEC * 8 + B * (1 + 2 * K_SPEC) * 4)
+        ops = B * (2 * K_SPEC * d + 2 * 3 * K_SPEC * H_PRED + 4 * H_PRED)
+        shape = f"{label}, D={d}, B={B}"
+        rows = {
+            "exit_gate": (
+                graph_ms(torch, [lambda i=i: eg.exit_gate_fused(
+                    hn, w, i, prev, w1, b1, w2, b2) for i in id_sets]),
+                graph_ms(torch, [lambda i=i: gref.exit_gate_ref(
+                    hn, w, i, prev, pred) for i in id_sets]),
+                None,
+                bound_ms(fixed + (3 * K_SPEC * H_PRED + 2 * H_PRED + 1) * 4
+                         + B * K_SPEC * d * 2, ops, "float32")),
+            "exit_gate_q": (
+                graph_ms(torch, [lambda i=i: eg.exit_gate_fused_q(
+                    hn, qt, i, prev, l1, l2) for i in id_sets]),
+                graph_ms(torch, [lambda i=i: gref.exit_gate_q_ref(
+                    hn, qt, i, prev, l1, l2) for i in id_sets]),
+                None,
+                bound_ms(fixed + l1["w"].nbytes() + l2["w"].nbytes()
+                         + (H_PRED + 1) * 4 + B * K_SPEC * (d + 4), ops,
+                         "float32"))}
+        for name, row in rows.items():
+            t[name][shape] = row
+            log("kernels", f"{name} bf16 at {shape}: kernel {row[0]:.4f} "
+                f"ms, plain {row[1]:.4f} ms, bound {row[3][0]:.5f} ms "
+                f"({row[3][1]})")
+        del w, qt
+        torch.cuda.empty_cache()
+    log("kernels", "gates at D " + ", ".join(str(d) for _, d, _ in DF_GATES)
+        + f" (fp32 and bf16 rows): exit_gate err {errs['exit_gate']:.3g}, "
+        f"exit_gate_q (int8 head and bank) err {errs['exit_gate_q']:.3g}")
+
+    # ---- (4) flash at 48 over 4 heads of 128 and 36 heads of 64 ----
+    t["flash_attention"] = {}
+    for label, H, KVH, hd in (("starcoder2-15b", SC_HEADS, SC_KVH, HD),
+                              ("minicpm-2b", 36, 36, 64)):
+        for d_t in (torch.float32, torch.bfloat16):
+            rtol = 1e-4 if d_t == torch.float32 else 2.0 ** -7
+            q = rnd((1, 512, H, hd), d_t)
+            k = rnd((1, 512, KVH, hd), d_t)
+            v = rnd((1, 512, KVH, hd), d_t)
+            for window in (None, 64):
+                note("flash_attention",
+                     flash_attention_fwd(q, k, v, causal=True,
+                                         window=window).float(),
+                     flash_attention_ref(q.float(), k.float(), v.float(),
+                                         True, window), atol=1e-4, rtol=rtol)
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        row = (graph_ms(torch, [lambda: flash_attention_fwd(q, k, v)] * n),
+               graph_ms(torch, [lambda: flash_attention_ref(q, k, v)] * n),
+               graph_ms(torch, [lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, is_causal=True,
+                   enable_gqa=KVH != H)] * n),
+               bound_ms(nbytes, 4 * H * hd * 512 * 513 // 2, dname))
+        shape = f"{label}, {H} heads over {KVH} of {hd}, B=1, S=512"
+        t["flash_attention"][shape] = row
+        log("kernels", f"flash_attention bf16 at {shape}: kernel "
+            f"{row[0]:.4f} ms, plain {row[1]:.4f} ms, causal SDPA "
+            f"{row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]})")
+    log("kernels", "flash at 48 over 4 heads of 128 and 36 of 64 (fp32 and "
+        f"bf16, windows None/64): err {errs['flash_attention']:.3g}")
+    torch.cuda.empty_cache()
+    return errs, t
+
+
+# ---------------------------------------------------------------------------
 # Mamba2 (mamba2-130m): the SSD kernel (phase 2), parity (phase 3) and the
 # model at published size (phase 9)
 # ---------------------------------------------------------------------------
@@ -3649,122 +4054,69 @@ AR_KERNELS = dict(exit_gate_kernel=True, exit_gate_impl="kernel",
 
 def bundle_b_run():
     """get_bundle's config: llama2-7b's smoke config with 12 layers."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    run = get_config("llama2-7b").smoke()
-    return dataclasses.replace(run, model=dataclasses.replace(
-        run.model, num_layers=TRAINED_B_LAYERS))
+    from repro_torch.core.bundle import bundle_run
+    return bundle_run("llama2-7b", TRAINED_B_LAYERS)
 
 
 def train_bundle(torch, dev, label: str, run, seq: int):
-    """get_bundle's recipe with the port's modules alone: the target for
-    TRAIN_STEPS ``TrainLoop`` steps on the pipeline (seed 0), the draft
-    against it for DRAFT_STEPS steps over DRAFT_BATCHES batches of 4 x
-    ``seq`` (pipeline seed 0), features over the first PRED_BATCHES of
-    them, the predictors for PRED_STEPS steps, offline exit counts over
-    the first batch with EXIT_NEW new tokens on the AR kernel path, and the
-    offline mask from them. Each stage's time, losses and metrics are
-    logged; a loss that does not fall, predictors below the trivial rate
-    or a tensor that left the card fails the phase. Returns (params, sw)."""
-    from repro_torch.core import draft_training as dt
-    from repro_torch.core import predictor_training as pt
-    from repro_torch.core import scheduler as sched_lib
-    from repro_torch.core.engine import SpecEEWeights
-    from repro_torch.data import DataPipeline
-    from repro_torch.models.model import ModelFlags, build_model
-    from repro_torch.train import TrainLoop
+    """get_bundle's recipe with the port's modules alone
+    (``repro_torch.core.bundle.train_bundle``): the target for TRAIN_STEPS
+    ``TrainLoop`` steps on the pipeline (seed 0), the draft against it for
+    DRAFT_STEPS steps over DRAFT_BATCHES batches of 4 x ``seq`` (pipeline
+    seed 0), features over the first PRED_BATCHES of them, the predictors
+    for PRED_STEPS steps, offline exit counts over the first batch with
+    EXIT_NEW new tokens on the AR kernel path, and the offline mask from
+    them. Each stage's time, losses and metrics are logged; a loss that
+    does not fall, predictors below the trivial rate or a tensor that left
+    the card fails the phase. Returns (params, sw)."""
+    from repro_torch.core.bundle import train_bundle as train
 
-    def on_card(tree, what):
+    def on_card(what, tree):
         require(all(x.is_cuda for x in _leaves(tree)),
                 f"{label}: {what} left the card")
 
-    model = build_model(run)                  # training: no kernel flag
-    E = model.num_exit_points
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = model.init(gen, dev)
-    loop = TrainLoop(model, run, params)
-    loop.run_steps(TRAIN_STEPS)
-    torch.cuda.synchronize()
-    params = loop.params
-    on_card([params, loop.opt_state.m, loop.opt_state.v], "target training")
-    losses = [h["loss"] for h in loop.history]
-    step_ms = [h["step_time"] * 1e3 for h in loop.history]
-    t_target = time.perf_counter() - t0
-    log("trained", f"{label}: target {model.cfg.param_count() / 1e9:.3f} B "
+    params, sw, st = train(run, dev, seq, train_steps=TRAIN_STEPS,
+                           draft_steps=DRAFT_STEPS,
+                           draft_batches=DRAFT_BATCHES,
+                           pred_batches=PRED_BATCHES, pred_steps=PRED_STEPS,
+                           exit_new=EXIT_NEW, inspect=on_card)
+    tg, dm, pm, off = st["target"], st["draft"], st["predictors"], \
+        st["offline"]
+    losses, step_ms = tg["losses"], tg["step_ms"]
+    log("trained", f"{label}: target {run.model.param_count() / 1e9:.3f} B "
         f"params, {TRAIN_STEPS} TrainLoop steps of {run.train.global_batch}x"
-        f"{run.train.seq_len} in {t_target:.1f} s (init included), "
+        f"{run.train.seq_len} in {tg['seconds']:.1f} s (init included), "
         f"median {sorted(step_ms)[len(step_ms) // 2]:.1f} ms/step (first "
         f"{step_ms[0]:.1f}); loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
-        f"card memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        f"card memory {tg['peak_bytes'] / 1e9:.2f} GB")
     require(losses[-1] < losses[0], f"{label}: target loss did not fall "
             f"({losses[0]:.4f} -> {losses[-1]:.4f})")
-    del loop
-    torch.cuda.empty_cache()
-
-    pipe = DataPipeline(run.model, 4, seq, seed=0)
-    batches = [torch.as_tensor(pipe.next()["tokens"], device=dev)
-               for _ in range(DRAFT_BATCHES)]
-    t0 = time.perf_counter()
-    draft, dm = dt.train_draft(model, params, batches,
-                               torch.Generator(device=dev).manual_seed(1),
-                               steps=DRAFT_STEPS)
-    torch.cuda.synchronize()
-    t_draft = time.perf_counter() - t0
-    on_card(draft, "the draft")
-    n_draft = sum(x.numel() for x in _leaves(draft))
+    n_draft = sum(x.numel() for x in _leaves(sw.draft))
     log("trained", f"{label}: draft {n_draft / 1e6:.1f} M params, "
         f"{DRAFT_STEPS} steps over {DRAFT_BATCHES} batches of 4x{seq} in "
-        f"{t_draft:.1f} s = {t_draft / DRAFT_STEPS * 1e3:.2f} ms/step (hit "
-        f"rate included); loss {dm['first_loss']:.4f} -> "
+        f"{dm['seconds']:.1f} s = {dm['seconds'] / DRAFT_STEPS * 1e3:.2f} "
+        f"ms/step (hit rate included); loss {dm['first_loss']:.4f} -> "
         f"{dm['final_loss']:.4f}; "
         f"top-{run.specee.num_speculative} hit rate {dm['topk_hit_rate']:.4f}")
     require(dm["final_loss"] < dm["first_loss"],
             f"{label}: draft loss did not fall")
-
-    t0 = time.perf_counter()
-    data = pt.collect_dataset(model, params, draft, batches[:PRED_BATCHES])
-    torch.cuda.synchronize()
-    t_collect = time.perf_counter() - t0
-    on_card(list(data), "the features")
-    t0 = time.perf_counter()
-    pred, pm = pt.train_predictors(run.specee, data,
-                                   torch.Generator(device=dev).manual_seed(2),
-                                   steps=PRED_STEPS)
-    torch.cuda.synchronize()
-    t_pred = time.perf_counter() - t0
-    on_card(pred, "the predictors")
     pos = pm["positive_rate"]
-    per_exit = data.labels.mean(dim=1).tolist()
-    log("trained", f"{label}: features {tuple(data.features.shape)} in "
-        f"{t_collect:.2f} s; predictors {PRED_STEPS} steps in "
-        f"{t_pred:.2f} s = {t_pred / PRED_STEPS * 1e3:.2f} "
+    log("trained", f"{label}: features {pm['features_shape']} in "
+        f"{pm['collect_seconds']:.2f} s; predictors {PRED_STEPS} steps in "
+        f"{pm['seconds']:.2f} s = {pm['seconds'] / PRED_STEPS * 1e3:.2f} "
         f"ms/step; loss {pm['first_loss']:.4f} -> {pm['final_loss']:.4f}; "
         f"accuracy {pm['accuracy']:.4f}, positive rate {pos:.4f} (by exit "
-        f"point: {', '.join(f'{p:.3f}' for p in per_exit)})")
+        f"point: {', '.join(f'{p:.3f}' for p in pm['per_exit'])})")
     require(pm["final_loss"] < pm["first_loss"],
             f"{label}: predictor loss did not fall")
     require(pm["accuracy"] >= max(pos, 1 - pos) - 0.02,
             f"{label}: predictor accuracy {pm['accuracy']:.4f} below the "
             f"trivial rate {max(pos, 1 - pos):.4f} - 0.02")
-    del data
-
-    sw = SpecEEWeights(draft=draft, predictors=pred,
-                       offline_mask=torch.ones(E, dtype=torch.bool,
-                                               device=dev))
-    t0 = time.perf_counter()
-    counts = pt.offline_exit_counts(build_model(run, ModelFlags(**AR_KERNELS)),
-                                    params, sw, batches[:1], max_new=EXIT_NEW)
-    offline = sched_lib.offline_mask_from_counts(
-        torch.as_tensor(counts[:-1], dtype=torch.float32, device=dev),
-        run.specee)
-    t_exit_counts = time.perf_counter() - t0
-    on_card(offline, "the offline mask")
     log("trained", f"{label}: offline exit counts over 4x{seq} prompts, "
         f"{EXIT_NEW} new tokens, every predictor on, in "
-        f"{t_exit_counts:.2f} s: {counts.tolist()} (last = full "
-        f"depth); offline mask {offline.int().tolist()}")
-    return params, sw._replace(offline_mask=offline)
+        f"{off['seconds']:.2f} s: {off['counts']} (last = full "
+        f"depth); offline mask {off['mask']}")
+    return params, sw
 
 
 def _decode_once(torch, model, params, sw, strategy, prompts):
@@ -3894,6 +4246,498 @@ def trained_phase(torch, dev):
     del params, sw
     torch.cuda.empty_cache()
     return {"trained": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the dense-family configs, seeded bf16, one model at a time
+# ---------------------------------------------------------------------------
+# (arch, layers: None = published depth, the runs): the models that fit
+# the card whole run at published size; llama2-70b (140 GB of bf16
+# weights) and command-r-plus-104b (208 GB) at published widths with their
+# depth cut to what one card holds beside its runs. "int8_head_ar" keeps
+# the projections bf16 and makes the LM head and predictors int8: a 15B
+# model's bf16 params, its int8 codes and the dequantized projections the
+# quantized engine holds (ROADMAP queue 2, item 4) do not fit one card
+DF_RUNS = (("llama2-13b", None, ("ar", "tree", "serve")),
+           ("starcoder2-15b", None, ("ar", "serve", "kvq_serve",
+                                     "int8_head_ar")),
+           ("deepseek-7b", None, ("ar",)),
+           ("minicpm-2b", None, ("ar", "tree", "int8_ar")),
+           ("llama2-70b", 8, ("ar", "serve")),
+           ("command-r-plus-104b", 4, ("ar",)))
+DF_STEPS, DF_TREE_STEPS, DF_PARITY_NEW = 32, 8, 8
+DF_SERVE_NEW = 16             # new tokens a request in phase 12's serving
+DF_AR_PATH = AR_PATH + ("flash_attention",)
+DF_SERVE_PATH = SERVE_PATH + ("flash_attention",)
+
+
+def df_config(name: str, layers, dtype: str, **serve):
+    """``name``'s config in ``dtype`` with ``layers`` layers (None: its
+    published depth); keyword arguments replace ``ServeConfig`` fields."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    run = get_config(name)
+    return dataclasses.replace(
+        run, model=dataclasses.replace(
+            run.model, dtype=dtype,
+            num_layers=layers or run.model.num_layers),
+        serve=dataclasses.replace(run.serve, **serve))
+
+
+def _seeded(torch, dev, run, seed: int):
+    from repro_torch.core import engine as eng
+    from repro_torch.models.model import build_model
+    model = build_model(run)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init(gen, dev)
+    return params, eng.init_specee(model, gen, dev)
+
+
+def df_parity(torch, dev):
+    """Each new config at published widths, 2 layers, fp32: SpecEE at
+    threshold 0.4 on the dense and the paged cache and tree decoding
+    (TreeSpec(3, 3)), with every kernel against the plain paths: tokens
+    and exit points identical."""
+    import numpy as np
+    from repro_torch.api import SpecEEStrategy, TreeStrategy
+    from repro_torch.core.tree import TreeSpec
+    from repro_torch.models.model import ModelFlags, build_model
+    for name, _, _ in DF_RUNS:
+        run = df_config(name, 2, "float32", max_seq_len=512, page_size=128)
+        params, sw = _seeded(torch, dev, run, 5)
+        prompts = np.random.default_rng(2).integers(
+            0, run.model.vocab_size, (B, 64))
+        notes = []
+        for label, strategy, cache, flags in (
+                ("AR dense", SpecEEStrategy(threshold=0.4), "dense",
+                 ALL_KERNELS),
+                ("AR paged", SpecEEStrategy(threshold=0.4), "paged",
+                 ALL_KERNELS),
+                ("tree", TreeStrategy(tree=TreeSpec(3, 3), threshold=0.4),
+                 "dense", TREE_KERNELS)):
+            outs = [[(r.tokens.tolist(), r.exit_layer.tolist())
+                     for r in drive(build_model(run, ModelFlags(**f)),
+                                    params, sw, strategy, prompts,
+                                    DF_PARITY_NEW, cache=cache)]
+                    for f in (flags, {})]
+            require(outs[0] == outs[1], f"{name} {label}: the kernel path "
+                    "differs from the plain path (2 layers, fp32)")
+            exits = sum(e < 2 for _, el in outs[0][1:] for e in el)
+            notes.append(f"{label} {exits} exits")
+        log("dense", f"{name} parity at published widths, 2 layers, fp32: "
+            f"kernels = plain ({', '.join(notes)})")
+        del params, sw
+        torch.cuda.empty_cache()
+
+
+def df_whole_batch(torch, label: str, model, params, sw, strategy, steps,
+                   path, quant=None):
+    """One whole-batch session (B=4 prompts of 128, dense cache, ``steps``
+    steps) with its launch counts zeroed right before and read right
+    after; the path's kernels must have launched."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.api import Engine
+    vocab = model.cfg.vocab_size
+    prompts = np.random.default_rng(1).integers(0, vocab, (B, FULL_PROMPT))
+    engine = Engine.create(model, params, sw, strategy=strategy, quant=quant)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()                     # ---- the main path ----
+    session = engine.new_session()
+    t0 = time.perf_counter()
+    session.prefill(prompts, max_new_tokens=steps * engine.emit_width + 1)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    res = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        res.append(session.step())
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    toks = sum(int(r.counts.sum()) for r in res)
+    require(all(((r.tokens >= 0) & (r.tokens < vocab)).all() for r in res),
+            f"{label}: token out of vocabulary")
+    require(bool(torch.isfinite(session._state.h_last.float()).all()),
+            f"{label}: non-finite hidden state")
+    missing = [k for k in path if launches[k] == 0]
+    require(not missing, f"{label}: kernels never launched: {missing}")
+    exits = sum(int(r.exited.sum()) for r in res)
+    units = sum(r.units_run for r in res) / steps
+    log("dense", f"{label}: prefill {B}x{FULL_PROMPT} in {t_prefill:.3f} s;"
+        f" {steps} steps in {t_decode:.3f} s = {toks / t_decode:.2f} "
+        f"tokens/s ({t_decode / steps * 1e3:.2f} ms/step); exits "
+        f"{exits}; mean units_run {units:.2f} of {model.num_exit_points}; "
+        f"peak card memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB;"
+        " launches " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                  if v))
+    del session, engine
+    return launches
+
+
+def df_serve(torch, label: str, run, params, sw, path, kv_quant=False):
+    """Phase 5's 16 requests (DF_SERVE_NEW new tokens each, blocking
+    admission) through ServingEngine(cache="paged") with max_batch 8 and
+    4096-token
+    rows of 128-token pages; launches zeroed right before the requests and
+    read right after the last completes."""
+    import dataclasses
+    from repro_torch import kernels as K
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine
+    run = dataclasses.replace(run, serve=dataclasses.replace(
+        run.serve, max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
+        page_size=PAGE))
+    vocab = run.model.vocab_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    se = ServingEngine(build_model(run, ModelFlags(**ALL_KERNELS,
+                                                   kv_quant=kv_quant)),
+                       params, sw, cache="paged", prefill_chunk=0)
+    mgr = se.session.cache_mgr
+    prompts = serve_prompts(vocab)
+    K.reset_launches()                     # ---- the main path ----
+    t0 = time.perf_counter()
+    reqs = [se.submit(p, max_new_tokens=DF_SERVE_NEW) for p in prompts]
+    ticks = 0
+    while se.busy:
+        se.step()
+        ticks += 1
+        require(ticks <= 10_000, f"{label}: serving did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    require(all(r.done and len(r.output) == DF_SERVE_NEW for r in reqs),
+            f"{label}: a request did not finish with its tokens")
+    require(all(0 <= t < vocab for r in reqs for t in r.output),
+            f"{label}: token out of vocabulary")
+    require(mgr.free_pages == mgr.num_pages,
+            f"{label}: {mgr.free_pages} of {mgr.num_pages} pages free")
+    missing = [k for k in path if launches[k] == 0]
+    require(not missing, f"{label}: kernels never launched: {missing}")
+    tokens = sum(len(r.output) for r in reqs)
+    log("dense", f"{label}: {SERVE_REQS} requests through {SERVE_BATCH} "
+        f"slots in {wall:.3f} s = {SERVE_REQS / wall:.3f} requests/s, "
+        f"{tokens / wall:.2f} tokens/s; {ticks} ticks, "
+        f"{wall / ticks * 1e3:.2f} ms/tick; pages free at the end "
+        f"{mgr.free_pages} of {mgr.num_pages}; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    del se
+    return launches
+
+
+def dense_family_phase(torch, dev):
+    """Phase 12. Returns the launches by path."""
+    from repro_torch.api import SpecEEStrategy, TreeStrategy
+    from repro_torch.core.tree import TreeSpec
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.quant import QuantSpec
+    t_phase = time.perf_counter()
+    df_parity(torch, dev)
+    by_path = {}
+    for name, layers, runs in DF_RUNS:
+        run = df_config(name, layers, "bfloat16")
+        t0 = time.perf_counter()
+        params, sw = _seeded(torch, dev, run, 9)
+        torch.cuda.synchronize()
+        cfg = run.model
+        n_params = sum(x.numel() for x in _leaves(params))
+        depth = ("published size" if layers is None else
+                 f"published widths, {layers} of its "
+                 f"{df_config(name, None, 'bfloat16').model.num_layers} "
+                 "layers (the whole model does not fit one card)")
+        log("dense", f"{name} ({depth}): {n_params / 1e9:.3f} B params, "
+            f"{n_params * 2 / 1e9:.1f} GB in bf16, seeded in "
+            f"{time.perf_counter() - t0:.1f} s; D={cfg.d_model}, "
+            f"{cfg.num_heads} heads over {cfg.num_kv_heads} of "
+            f"{cfg.resolved_head_dim()}, V={cfg.vocab_size}, {cfg.norm}, "
+            f"{cfg.activation}, bias {cfg.use_bias}, tied "
+            f"{cfg.tie_embeddings}")
+        for what in runs:
+            label = f"{name} {what}"
+            if what == "ar":
+                got = df_whole_batch(torch, label, build_model(
+                    run, ModelFlags(**ALL_KERNELS)), params, sw,
+                    SpecEEStrategy(), DF_STEPS, DF_AR_PATH)
+            elif what == "tree":
+                got = df_whole_batch(torch, label, build_model(
+                    run, ModelFlags(**TREE_KERNELS)), params, sw,
+                    TreeStrategy(tree=TreeSpec(TREE_DEPTH, TREE_BRANCH)),
+                    DF_TREE_STEPS, TREE_PATH)
+            elif what in ("int8_ar", "int8_head_ar"):
+                spec = QuantSpec(bits=8, proj=what == "int8_ar")
+                got = df_whole_batch(torch, label, build_model(
+                    run, ModelFlags(**ALL_KERNELS)), params, sw,
+                    SpecEEStrategy(), DF_STEPS, quantized(DF_AR_PATH),
+                    quant=spec)
+                for k in FP_GATE_KERNELS:
+                    require(got[k] == 0, f"{label}: {k} ran")
+            elif what == "serve":
+                got = df_serve(torch, label, run, params, sw, DF_SERVE_PATH)
+            else:
+                got = df_serve(torch, label, run, params, sw,
+                               KVQ_SERVE_PATH + ("flash_attention",),
+                               kv_quant=True)
+            by_path[f"dense_{name}_{what}"] = got
+            torch.cuda.empty_cache()
+        del params, sw
+        torch.cuda.empty_cache()
+    log("dense", f"phase in {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the rest of serving on phase 5's llama2-7b weights
+# ---------------------------------------------------------------------------
+SAMPLE_T, SAMPLE_K = 0.8, 50
+SAMPLE_NEW = 16               # new tokens a sampled serving request
+SAMPLED_PATH = ("paged_decode_attention", "flash_attention")
+CHUNKED_PROMPT = 3000
+CANCEL_CHUNK = 256                 # admission chunk of the cancel run
+
+
+def _sampled_serve(torch, params, sw, seed: int, megatick: int = 1):
+    from repro_torch import kernels as K
+    from repro_torch.api import DenseStrategy
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine
+    run = llama(32, "bfloat16", max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
+                page_size=PAGE)
+    se = ServingEngine(build_model(run, ModelFlags(**ALL_KERNELS)), params,
+                       sw, strategy=DenseStrategy(temperature=SAMPLE_T,
+                                                  top_k=SAMPLE_K),
+                       prng_seed=seed, cache="paged", prefill_chunk=0,
+                       megatick=megatick)
+    torch.cuda.synchronize()
+    K.reset_launches()                     # ---- the main path ----
+    t0 = time.perf_counter()
+    reqs = [se.submit(p, max_new_tokens=SAMPLE_NEW)
+            for p in serve_prompts()]
+    se.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    mgr = se.session.cache_mgr
+    require(all(r.done and len(r.output) == SAMPLE_NEW for r in reqs),
+            "sampled serving: a request did not finish with its tokens")
+    require(mgr.free_pages == mgr.num_pages, "sampled serving: pages leak")
+    missing = [k for k in SAMPLED_PATH if launches[k] == 0]
+    require(not missing, f"sampled serving: kernels never launched: "
+            f"{missing}")
+    require(launches["argmax_verify"] == 0 and launches["exit_gate"] == 0,
+            "sampled serving ran the greedy verify or the gate")
+    return [r.output for r in reqs], wall, launches
+
+
+def _sampler_card_vs_cpu(torch, logits, keys):
+    """Draws of the sampler on the card against the CPU's on the same fp32
+    logits and keys: (equal, total); a differing draw must be a near-tie
+    of the CPU's perturbed scores (the fp64 noise's logarithms may differ
+    by an ulp between the two)."""
+    from repro_torch.serving import sampler
+    same = total = 0
+    lc, kc = logits.float().cpu(), keys.cpu()
+    for temperature, top_k in ((1.0, None), (SAMPLE_T, SAMPLE_K)):
+        got = sampler.sample_rows(logits.float(), keys, temperature,
+                                  top_k).cpu()
+        want = sampler.sample_rows(lc, kc, temperature, top_k)
+        total += got.numel()
+        same += int((got == want).sum())
+        for r in torch.nonzero(got != want).flatten().tolist():
+            s = (sampler._scale(lc[r:r + 1], temperature, top_k).double()
+                 + sampler._gumbel(kc[r:r + 1, None],
+                                   torch.arange(lc.shape[1])[None]))[0]
+            top2 = torch.topk(s, 2).values
+            require(float(top2[0] - top2[1]) < 1e-12 * float(
+                top2[0].abs()), f"sampler: row {r} differs from the CPU's "
+                "away from a near-tie")
+    return same, total
+
+
+def serving_rest_phase(torch, dev):
+    """Phase 13. Returns the launches by path."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.api import DenseStrategy, Engine
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine, sampler
+    t_phase = time.perf_counter()
+    by_path = {}
+    params, sw = full_weights(torch, dev)       # phase 5's weights (seed 7)
+    model = build_model(llama(32, "bfloat16"), ModelFlags(**ALL_KERNELS))
+    sampled = DenseStrategy(temperature=SAMPLE_T, top_k=SAMPLE_K)
+
+    # ---- sampled whole-batch decode: megaticks of 4 = single steps ----
+    prompts = np.random.default_rng(1).integers(0, V, (B, FULL_PROMPT))
+    outs = {}
+    for ticks in (1, MEGA_K):
+        s = Engine.create(model, params, sw, strategy=sampled).new_session(
+            prng_seed=3)
+        first = s.prefill(prompts, max_new_tokens=FULL_STEPS + 1)
+        rows = [first.row_tokens(b) for b in range(B)]
+        while not s.all_done():
+            res = s.step(num_ticks=ticks)
+            for b in range(B):
+                rows[b].extend(res.row_tokens(b))
+        outs[ticks] = rows
+        state = s._state
+    require(outs[1] == outs[MEGA_K], "sampled decode: megaticks of 4 differ "
+            "from single steps")
+    logits = model.logits(params, state.h_last)
+    keys = sampler.row_keys(3, state.cache["len"], state.last_token)
+    same, total = _sampler_card_vs_cpu(torch, logits, keys)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd_logits = torch.randn((64, V), generator=gen, device=dev) * 4
+    rnd_keys = sampler.row_keys(9, torch.arange(64, device=dev),
+                                torch.arange(64, device=dev) * 7)
+    same2, total2 = _sampler_card_vs_cpu(torch, rnd_logits, rnd_keys)
+    log("serve2", f"sampled whole-batch decode (T={SAMPLE_T}, top-k "
+        f"{SAMPLE_K}, {B}x{FULL_STEPS} tokens): megaticks of {MEGA_K} emit "
+        f"the single steps' tokens; the sampler on the card drew the CPU's "
+        f"token for {same} of {total} rows of the model's logits and "
+        f"{same2} of {total2} random rows")
+
+    # ---- sampled serving: replay, another seed, megaticks ----
+    a, wall_a, launches = _sampled_serve(torch, params, sw, 0)
+    by_path["sampled_serve"] = launches
+    a2, wall_a2, _ = _sampled_serve(torch, params, sw, 0)
+    b, _, _ = _sampled_serve(torch, params, sw, 1)
+    m4, wall_m4, launches_m4 = _sampled_serve(torch, params, sw, 0, MEGA_K)
+    by_path["sampled_serve_megatick"] = launches_m4
+    require(a == a2, "sampled serving: the same seed did not replay")
+    n_diff = sum(x != y for x, y in zip(a, b))
+    require(n_diff > 0, "sampled serving: another seed drew the same tokens")
+    differ_m4 = [i for i, (x, y) in enumerate(zip(a, m4)) if x != y]
+    # every tick runs all 8 slots, so a row's numbers do not depend on
+    # which rows are beside it, nor on when megaticks admit it
+    require(not differ_m4, f"sampled serving: megaticks of {MEGA_K} differ "
+            f"from single ticks in requests {differ_m4}")
+    log("serve2", f"sampled serving, {SERVE_REQS} requests x {SAMPLE_NEW} "
+        f"tokens: {SERVE_REQS / wall_a:.3f} requests/s "
+        f"({SERVE_REQS * SAMPLE_NEW / wall_a:.2f} tokens/s), again "
+        f"{SERVE_REQS / wall_a2:.3f}; seed 0 replays token for token; seed "
+        f"1 differs in {n_diff} of {SERVE_REQS} requests; megatick="
+        f"{MEGA_K} (async) {SERVE_REQS / wall_m4:.3f} requests/s, every "
+        "request's tokens equal to the per-tick run's")
+
+    # ---- cancel: one queued, one mid chunked admission, two slotted ----
+    run = llama(32, "bfloat16", max_batch=SERVE_BATCH, max_seq_len=SERVE_SEQ,
+                page_size=PAGE)
+    sp = serve_prompts()
+
+    def cancel_engine():
+        return ServingEngine(build_model(run, ModelFlags(**ALL_KERNELS)),
+                             params, sw, cache="paged",
+                             prefill_chunk=CANCEL_CHUNK)
+
+    # budgets that end rows apart, so that admissions run beside live rows
+    # a chunk a tick (rows that all end together would leave the next
+    # admissions no live row, and they run whole)
+    budget = [SERVE_NEW - 4 * (i % 4) for i in range(SERVE_REQS)]
+    se = cancel_engine()
+    K.reset_launches()                     # ---- the main path ----
+    reqs = [se.submit(p, max_new_tokens=n) for p, n in zip(sp, budget)]
+    finished = list(se.step())
+    cancelled = [se.scheduler.queued[-1]]
+    require(se.cancel(cancelled[0]), "cancel of a queued request")
+    for _ in range(200):
+        if se.scheduler.admitting:
+            break
+        finished += se.step()
+    require(bool(se.scheduler.admitting), "no chunked admission to cancel")
+    cancelled.append(se.scheduler.admitting[0])
+    require(se.cancel(cancelled[-1]), "cancel mid chunked admission")
+    slotted = [r.uid for r in se.slots if r is not None][:2]
+    for uid in slotted:
+        require(se.cancel(uid), "cancel of a slotted request")
+    cancelled += slotted
+    require(not se.cancel(slotted[0]), "a cancelled uid was found again")
+    while se.busy:
+        finished += se.step()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    by_path["cancel_serve"] = launches
+    mgr = se.session.cache_mgr
+    require(mgr.free_pages == mgr.num_pages, "cancel: pages leak")
+    require([r.uid for r in se.completed] == [r.uid for r in finished],
+            "completed is not in finish order")
+    kept = [r for r in reqs if r.uid not in cancelled]
+    require(sorted(r.uid for r in se.completed) == [r.uid for r in kept],
+            "completed does not hold exactly the uncancelled requests")
+    missing = [k for k in SERVE_PATH if launches[k] == 0]
+    require(not missing, f"cancel serving: kernels never launched: "
+            f"{missing}")
+    ref = cancel_engine()
+    ref_reqs = [ref.submit(sp[r.uid], max_new_tokens=budget[r.uid])
+                for r in kept]
+    ref.run_to_completion()
+    plain = build_model(llama(32, "bfloat16"))
+    notes = []
+    for r, q in zip(kept, ref_reqs):
+        j = next((j for j, (x, y) in enumerate(zip(r.output, q.output))
+                  if x != y), None)
+        if j is None:
+            continue
+        margin, top = top2_margin(torch, plain, params,
+                                  list(sp[r.uid]) + q.output[:j])
+        spacing = 2.0 ** (np.floor(np.log2(abs(top))) - 7)
+        require(margin <= 8 * spacing, f"cancel: request {r.uid} differs "
+                f"from the run without the cancelled ones at token {j}, "
+                f"top-2 margin {margin:.4g} (bf16 spacing {spacing:.4g})")
+        notes.append(f"request {r.uid} token {j}: margin {margin:.4g} "
+                     f"(bf16 spacing {spacing:.4g})")
+    log("serve2", f"cancel of uids {cancelled} (queued, mid chunked "
+        f"admission, two slotted) among {SERVE_REQS}: every page freed, "
+        f"completed in finish order {[r.uid for r in se.completed]}; the "
+        f"other {len(kept)} against a run without them: "
+        f"{len(notes)} differ" + (": " + "; ".join(notes) if notes else ""))
+    del se, ref, model
+    del params, sw
+    torch.cuda.empty_cache()
+
+    # ---- chunked attention: a 3000-token prompt, fp32, no flash ----
+    run4 = llama(4, "float32")
+    p4, sw4 = _seeded(torch, dev, run4, 13)
+    prompt = np.random.default_rng(3).integers(0, V, (1, CHUNKED_PROMPT))
+    toks = {}
+    for label, flags in (("unchunked", ModelFlags(chunk_threshold=1 << 30)),
+                         ("chunked", ModelFlags()),
+                         ("chunked, pruned", ModelFlags(attn_prune=True))):
+        res = drive(build_model(run4, flags), p4, sw4, DenseStrategy(),
+                    prompt, 8)
+        toks[label] = np.concatenate([r.tokens[:, :1] for r in res], 1)
+    require(all(np.array_equal(t, toks["unchunked"]) for t in
+                toks.values()), "chunked attention emits other tokens")
+    log("serve2", f"a {CHUNKED_PROMPT}-token prompt (llama2-7b widths, 4 "
+        "layers, fp32, flash off): chunked (512-query chunks) and pruned "
+        "chunked attention emit the unchunked plain tokens "
+        f"{toks['unchunked'][0].tolist()}")
+    del p4, sw4
+    torch.cuda.empty_cache()
+
+    # ---- the launcher, three subprocesses at once ----
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = [["--mode", "specee"], ["--mode", "tree"],
+            ["--mode", "dense", "--temperature", "0.8"]]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke", "--ci",
+         *c], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for c in cmds]
+    t0 = time.perf_counter()
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate(timeout=600)
+        summary = next((ln for ln in out.splitlines()
+                        if ln.startswith("[serve] 4 requests")), "")
+        require(p.returncode == 0 and "CI smoke OK" in out,
+                f"launcher {' '.join(c)} failed:\n{out[-3000:]}")
+        log("serve2", f"python -m repro_torch.launch.serve --smoke --ci "
+            f"{' '.join(c)}: {summary}; CI smoke OK")
+    log("serve2", f"launchers in {time.perf_counter() - t0:.1f} s; phase "
+        f"in {time.perf_counter() - t_phase:.1f} s")
+    return by_path
 
 
 # where the device time of a decode step goes, by kernel family (the paged
@@ -4037,6 +4881,10 @@ def main() -> int:
     errs.update(errs_ssd)
     timing.update(t_ssd)
     torch.cuda.empty_cache()
+    errs_df, t_df = check_dense_family_kernels(torch, dev)
+    for name, err in errs_df.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    torch.cuda.empty_cache()
     parity(torch, dev)
     torch.cuda.empty_cache()
     mamba_parity(torch, dev)
@@ -4064,6 +4912,10 @@ def main() -> int:
     del params, sw, fp_serve, mamba_ref, ar_ref, tree_ref
     torch.cuda.empty_cache()
     by_path.update(trained_phase(torch, dev))
+    torch.cuda.empty_cache()
+    by_path.update(dense_family_phase(torch, dev))
+    torch.cuda.empty_cache()
+    by_path.update(serving_rest_phase(torch, dev))
 
     kernels = []
     for name in build.SOURCES:
@@ -4102,6 +4954,16 @@ def main() -> int:
                 str(R): {"ms": r[0], "plain_ms": r[1], "bound_ms": r[3][0],
                          "bound_by": r[3][1]}
                 for R, r in timing[name][4].items()}
+        if name in t_df:
+            # phase 2 at the dense family's shapes (n_rep 12 attention,
+            # MiniCPM's and Command R+'s heads, the wider gates, flash at
+            # 48 over 4 heads and at hd 64); the verify_q rows' and the
+            # paged int8 row's library_ms is a yardstick (the fp tile on
+            # the dequantized head; SDPA on the dequantized view)
+            row["at_dense_family"] = {
+                shape: {"ms": r[0], "plain_ms": r[1], "library_ms": r[2],
+                        "bound_ms": r[3][0], "bound_by": r[3][1]}
+                for shape, r in t_df[name].items()}
         if name == "ssd_chunk":
             # library_ms is null: no one PyTorch call computes the term
             row["yardstick_ms"] = timing[name][4]    # bmm + batched product

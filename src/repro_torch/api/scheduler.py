@@ -13,9 +13,9 @@ bounded amount of prefill work before the batched strategy step:
 
 Admission is also gated by the session's ``KVCacheManager``
 (``session.can_admit``): a paged pool without a free row reservation defers
-the queue head instead of overcommitting memory. Withdrawing requests
-(``remove``, ``abort_active``) comes with cancel and deadlines (ROADMAP:
-the rest of serving).
+the queue head instead of overcommitting memory. ``remove`` withdraws a
+queued request and ``abort_active`` requeues the in-flight admission at the
+queue's front (the serving engine's ``cancel``).
 """
 from __future__ import annotations
 
@@ -128,3 +128,30 @@ class ChunkedPrefillScheduler:
         else:
             self.deferred_ticks = 0
         return events
+
+    # ----- withdrawal -----
+    def remove(self, uid: int) -> bool:
+        """Withdraw a queued request (cancel). Only the queue is searched:
+        abort the in-flight admission first if it holds the uid
+        (``abort_active`` requeues it here). Returns True when the uid was
+        queued."""
+        for p in list(self.queue):
+            if p.uid == uid:
+                self.queue.remove(p)
+                return True
+        return False
+
+    def abort_active(self) -> Optional[int]:
+        """Abort the in-flight chunked admission, requeueing its request at
+        the queue's FRONT (it keeps its turn). Safe at any point mid-prefill:
+        no session row or page is claimed until the admission's last chunk
+        inserts the row, so the partial prefill is dropped and a later tick
+        runs it again from the start. Returns the requeued uid, or None if
+        nothing was in flight."""
+        if self._active is None:
+            return None
+        uid, adm = self._active
+        self._active = None
+        self.queue.appendleft(_Pending(uid, np.asarray(adm.tokens),
+                                       adm.max_new_tokens, adm.eos_token))
+        return uid

@@ -50,8 +50,10 @@ Two session styles:
     splits the prompt forward into fixed-token chunks so the serving loop
     can interleave them with decode ticks.
 
-Snapshots and sampling are later slices (the ROADMAP items on fault
-tolerance and the rest of serving).
+A session carries its sampling seed (``new_session(prng_seed=)``) in its
+state; only a sampling ``DenseStrategy`` reads it, and the prefill's first
+token stays greedy. Snapshots are a later slice (the ROADMAP item on fault
+tolerance).
 """
 from __future__ import annotations
 
@@ -170,10 +172,11 @@ class Engine:
         """``batch=None``: an empty shell, filled by ``prefill(prompts)``.
         ``batch=B``: B pre-allocated empty rows for slot-based serving
         (``max_seq`` defaults to the run's ``serve.max_seq_len``).
-        ``prng_seed``: the seed of a sampling strategy, in the JAX
-        package's argument order; the greedy strategies ignore it.
+        ``prng_seed``: the seed of a sampling strategy, carried in the
+        session's state; the greedy strategies ignore it.
         ``cache``: "dense" (default) | "paged" | a ``CacheSpec``."""
-        return DecodeSession(self, batch=batch, max_seq=max_seq, cache=cache)
+        return DecodeSession(self, batch=batch, max_seq=max_seq,
+                             prng_seed=prng_seed, cache=cache)
 
 
 @dataclass
@@ -209,9 +212,10 @@ class Admission:
 
 class DecodeSession:
     def __init__(self, engine: Engine, batch: Optional[int] = None,
-                 max_seq: Optional[int] = None,
+                 max_seq: Optional[int] = None, prng_seed: int = 0,
                  cache: Union[None, str, CacheSpec] = None):
         self.engine = engine
+        self._prng_seed = int(prng_seed)
         self._max_seq = max_seq
         self._cache_spec = CacheSpec.resolve(cache, engine.model.run.serve)
         self._state: Optional[eng.DecodeState] = None
@@ -231,7 +235,8 @@ class DecodeSession:
             self.cache_mgr = self._make_manager(batch, max_seq)
             self._state = engine.strategy.empty_state(
                 engine.model, engine.sw, batch, max_seq,
-                cache=self.cache_mgr.empty_cache(), device=engine.device)
+                cache=self.cache_mgr.empty_cache(), device=engine.device,
+                prng=self._prng_seed)
             self._alloc_bookkeeping(batch, live=False)
 
     def _make_manager(self, batch: int, max_seq: int) -> KVCacheManager:
@@ -414,7 +419,8 @@ class DecodeSession:
         self._max_seq = max_seq
         params, sw = e.prefill_weights()
         first, state = e.strategy.init_state(e.model, params, sw,
-                                             {"tokens": tokens}, max_seq)
+                                             {"tokens": tokens}, max_seq,
+                                             prng=self._prng_seed)
         self.cache_mgr = self._make_manager(B, max_seq)
         self._state = state._replace(
             cache=self.cache_mgr.from_prefill(state.cache))
@@ -451,7 +457,8 @@ class DecodeSession:
             sched=insert_row_pytree(st.sched, st1.sched, row, B),
             last_token=insert_row_pytree(st.last_token, st1.last_token,
                                          row, B),
-            h_last=insert_row_pytree(st.h_last, st1.h_last, row, B))
+            h_last=insert_row_pytree(st.h_last, st1.h_last, row, B),
+            prng=st.prng)
         cap = max(self._max_seq - prompt_len - 1, 1)
         budget = cap if max_new_tokens is None else min(max_new_tokens, cap)
         self._set_row_limits(row, budget, eos_token)
@@ -547,7 +554,8 @@ class DecodeSession:
         st1 = eng.DecodeState(
             cache=adm.cache, draft_cache=dcache,
             sched=sched_lib.init_state(1, model.run.specee, e.device),
-            last_token=first, h_last=h_all[:, -1, :])
+            last_token=first, h_last=h_all[:, -1, :],
+            prng=self._state.prng)
         adm.first_token = self._insert_state1(
             adm.row, st1, adm.prompt_len, adm.max_new_tokens, adm.eos_token)
         adm.cache = None

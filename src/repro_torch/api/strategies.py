@@ -1,9 +1,9 @@
 """Decode strategies (counterpart of ``repro/api/strategies.py``): adapters
 from the engine step functions to the canonical ``StepResult``: the dense
-baseline, AR SpecEE and T3 tree decoding. A strategy owns what is
-mode-specific: how wide a step's emit can be, how many cache slots a
-session of ``max_seq`` needs (the tree reserves its node scratch), and
-which engine step runs per tick."""
+baseline (greedy or sampled), AR SpecEE and T3 tree decoding. A strategy
+owns what is mode-specific: how wide a step's emit can be, how many cache
+slots a session of ``max_seq`` needs (the tree reserves its node scratch),
+and which engine step runs per tick."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -46,21 +46,24 @@ class DecodeStrategy:
                              "(draft + predictors); pass sw=")
 
     def init_state(self, model: Model, params, sw,
-                   batch: Dict[str, torch.Tensor], max_seq: int
-                   ) -> Tuple[torch.Tensor, eng.DecodeState]:
-        """Prefill → (first greedy token (B,), state)."""
+                   batch: Dict[str, torch.Tensor], max_seq: int,
+                   prng: int = 0) -> Tuple[torch.Tensor, eng.DecodeState]:
+        """Prefill → (first greedy token (B,), state); ``prng``: the
+        session's sampling seed."""
         return eng.init_decode_state(model, params, sw, batch,
-                                     self.cache_seq_len(model, max_seq))
+                                     self.cache_seq_len(model, max_seq),
+                                     prng=prng)
 
     def empty_state(self, model: Model, sw, batch: int, max_seq: int,
-                    cache=None, device="cuda") -> eng.DecodeState:
+                    cache=None, device="cuda",
+                    prng: int = 0) -> eng.DecodeState:
         """``batch`` empty slots. ``cache``: a cache built by the session's
         ``KVCacheManager`` (dense or paged); None allocates the dense
         layout. The step functions read the layout off the state
         (``cache["page_table"]``), so one step serves both."""
         return eng.empty_decode_state(model, sw, batch,
                                       self.cache_seq_len(model, max_seq),
-                                      device=device, cache=cache)
+                                      device=device, cache=cache, prng=prng)
 
     def step(self, model: Model, params, sw, state: eng.DecodeState,
              qw=None) -> Tuple[StepResult, eng.DecodeState]:
@@ -89,13 +92,19 @@ class DecodeStrategy:
 
 @dataclass(frozen=True)
 class DenseStrategy(DecodeStrategy):
-    """Full-depth greedy baseline."""
+    """Full-depth baseline. Greedy by default; ``temperature > 0`` samples
+    from the full logits (``top_k``: only the k largest), keyed per row
+    from the session's seed (``Engine.new_session(prng_seed=...)`` /
+    ``ServingEngine(prng_seed=...)``)."""
+    temperature: float = 0.0
+    top_k: Optional[int] = None
     name = "dense"
     requires_sw = False
 
     def step(self, model, params, sw, state, qw=None):
-        token, new_state, info = eng.dense_decode_step(model, params, sw,
-                                                       state, qw=qw)
+        token, new_state, info = eng.dense_decode_step(
+            model, params, sw, state, temperature=self.temperature,
+            top_k=self.top_k, qw=qw)
         return _single_token_result(token, info), new_state
 
 

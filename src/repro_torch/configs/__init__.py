@@ -1,3 +1,3 @@
-from repro_torch.configs.registry import get_config, register
+from repro_torch.configs.registry import ARCHS, get_config, register
 
-__all__ = ["get_config", "register"]
+__all__ = ["ARCHS", "get_config", "register"]

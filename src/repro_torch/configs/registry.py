@@ -2,9 +2,26 @@
 from __future__ import annotations
 
 import importlib
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 from repro_torch.config import RunConfig
+
+# The archs the port registers, in the JAX registry's order
+# (``repro/configs/registry.py``). Of JAX's list the port still lacks
+# dbrx-132b and qwen3-moe-235b-a22b (MoE), internvl2-26b and hubert-xlarge
+# (frontends) and recurrentgemma-9b (RG-LRU): ROADMAP queue 1, items 5-7.
+ARCHS: List[str] = [
+    # assigned pool
+    "deepseek-7b",
+    "minicpm-2b",
+    "command-r-plus-104b",
+    "starcoder2-15b",
+    "mamba2-130m",
+    # paper's own models (for benchmarks vs. the paper's tables)
+    "llama2-7b",
+    "llama2-13b",
+    "llama2-70b",
+]
 
 _REGISTRY: Dict[str, Callable[[], RunConfig]] = {}
 

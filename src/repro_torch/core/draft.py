@@ -39,9 +39,9 @@ def init_draft(cfg: ModelConfig, gen: torch.Generator, dtype,
     dc = dataclasses.replace(dc, d_ff=cfg.d_ff if cfg.d_ff > 0 else 4 * d)
     return {
         "fuse": common.init_linear(gen, 2 * d, d, True, dtype, device),
-        "ln1": common.init_norm(d, dtype, device),
+        "ln1": common.init_norm(dc, d, dtype, device),
         "attn": attn_lib.init_attention(dc, gen, dtype, device),
-        "ln2": common.init_norm(d, dtype, device),
+        "ln2": common.init_norm(dc, d, dtype, device),
         "mlp": common.init_mlp(dc, gen, dtype, device),
     }
 

@@ -66,6 +66,7 @@ class DecodeState(NamedTuple):
     sched: Dict[str, torch.Tensor]
     last_token: torch.Tensor    # (B,) int32
     h_last: torch.Tensor        # (B, D) final hidden at the last position
+    prng: int = 0               # the session's sampling seed (constant)
 
 
 class StepInfo(NamedTuple):
@@ -110,10 +111,11 @@ def init_specee(model: Model, gen: torch.Generator,
 
 def init_decode_state(model: Model, params: Params,
                       sw: Optional[SpecEEWeights],
-                      batch: Dict[str, torch.Tensor], max_seq: int
-                      ) -> Tuple[torch.Tensor, DecodeState]:
+                      batch: Dict[str, torch.Tensor], max_seq: int,
+                      prng: int = 0) -> Tuple[torch.Tensor, DecodeState]:
     """Prefill the target (+ draft when ``sw`` is given) and build the
-    decode state. Returns (first greedy token (B,) int32, state)."""
+    decode state. Returns (first greedy token (B,) int32, state).
+    ``prng``: the session's sampling seed, carried in the state."""
     logits, cache, extras = model.prefill(params, batch, max_seq=max_seq)
     h_all = extras["h_final"]
     if sw is not None:
@@ -127,17 +129,19 @@ def init_decode_state(model: Model, params: Params,
         cache=cache, draft_cache=dcache,
         sched=sched_lib.init_state(h_all.shape[0], model.run.specee,
                                    h_all.device),
-        last_token=first, h_last=h_all[:, -1, :])
+        last_token=first, h_last=h_all[:, -1, :], prng=int(prng))
     return first, state
 
 
 def empty_decode_state(model: Model, sw: Optional[SpecEEWeights], batch: int,
-                       max_seq: int, device="cuda", cache=None) -> DecodeState:
+                       max_seq: int, device="cuda", cache=None,
+                       prng: int = 0) -> DecodeState:
     """All-zeros batched state with ``batch`` empty slots — the serving
     engine's starting point; rows are later filled by inserting batch-1
     ``init_decode_state`` results. ``cache``: a cache built by a
     ``KVCacheManager`` (``repro_torch.api.cache``), e.g. paged pools + page
-    table; None allocates the dense layout."""
+    table; None allocates the dense layout. ``prng``: the session's
+    sampling seed."""
     device = torch.device(device)
     return DecodeState(
         cache=(cache if cache is not None
@@ -148,7 +152,8 @@ def empty_decode_state(model: Model, sw: Optional[SpecEEWeights], batch: int,
         sched=sched_lib.init_state(batch, model.run.specee, device),
         last_token=torch.zeros(batch, dtype=torch.int32, device=device),
         h_last=torch.zeros(batch, model.cfg.d_model, dtype=model.dtype,
-                           device=device))
+                           device=device),
+        prng=int(prng))
 
 
 def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
@@ -237,7 +242,7 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     sched = sched_lib.update(state.sched, exit_pt.clamp(max=E - 1))
     new_state = DecodeState(cache=dict(state.cache, len=pos + 1),
                             draft_cache=draft_cache, sched=sched,
-                            last_token=token, h_last=h)
+                            last_token=token, h_last=h, prng=state.prng)
     info = StepInfo(exit_point=exit_pt, exited=exited, units_run=units_run,
                     spec_hit=spec_hit)
     return token, new_state, info
@@ -473,7 +478,8 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     sched = sched_lib.update(state.sched, exit_pt.clamp(max=E - 1))
     bonus = out_t[rows, acc_len_t - 1]
     new_state = DecodeState(cache=cache, draft_cache=draft_cache, sched=sched,
-                            last_token=bonus, h_last=h[rows, cur_t])
+                            last_token=bonus, h_last=h[rows, cur_t],
+                            prng=state.prng)
     info = TreeStepInfo(accepted_len=acc_len_t.to(torch.int32) - 1,
                         exit_point=exit_pt, exited=exited,
                         units_run=units_run)
@@ -593,18 +599,34 @@ def init_tree_decode_state(model: Model, params: Params, sw: SpecEEWeights,
 
 def dense_decode_step(model: Model, params: Params,
                       sw: Optional[SpecEEWeights], state: DecodeState,
+                      temperature: float = 0.0, top_k: Optional[int] = None,
                       qw=None) -> Tuple[torch.Tensor, DecodeState, StepInfo]:
-    """One dense (full-depth) greedy step; the emit streams the LM head
-    (the quantized one under ``qw``) through ``verify_argmax`` with the impl
-    the model's flags select."""
+    """One dense (full-depth) step.
+
+    Greedy (``temperature <= 0``) emits through ``verify_argmax``, which
+    streams the LM head (the quantized one under ``qw``) with the impl the
+    model's flags select. ``temperature > 0`` samples from the full logits
+    of the fp LM head (the distribution is the product, not its argmax;
+    under ``qw`` the projections stay dequantized) with a per-row key of
+    (session seed, row position before the step, token fed),
+    ``sampler.row_keys``: a row's samples depend on its own history alone,
+    not on batch, slot or megatick. ``state.prng`` stays constant."""
     params, lm_w, _ = _apply_qw(params, sw, qw)
+    pos_before = state.cache["len"]
     h, cache = model.decode_step_hidden(params, state.last_token, state.cache)
-    token, _ = gate_lib.verify_argmax(
-        model.final_norm(params, h), lm_w,
-        impl=gate_lib.impl_for_flags(model.flags))
+    if temperature > 0.0:
+        from repro_torch.serving.sampler import row_keys, sample_rows
+        keys = row_keys(state.prng, pos_before, state.last_token)
+        token = sample_rows(model.logits(params, h), keys,
+                            temperature=temperature, top_k=top_k)
+    else:
+        token, _ = gate_lib.verify_argmax(
+            model.final_norm(params, h), lm_w,
+            impl=gate_lib.impl_for_flags(model.flags))
     B, E = token.shape[0], model.num_exit_points
     new_state = DecodeState(cache=cache, draft_cache=state.draft_cache,
-                            sched=state.sched, last_token=token, h_last=h)
+                            sched=state.sched, last_token=token, h_last=h,
+                            prng=state.prng)
     info = StepInfo(
         exit_point=torch.full((B,), E, dtype=torch.int32, device=h.device),
         exited=torch.zeros(B, dtype=torch.bool, device=h.device),

@@ -136,7 +136,9 @@ __device__ __forceinline__ void block_best(float& v, int& i, float* sv,
 
 // Runs LAUNCH<T, NREP, E>::run(args...) of an attention kernel for a
 // runtime (dtype, n_rep, hd), E = hd / 32; false when no instance exists
-// (n_rep in {1, 2, 4, 8}, hd in {32, 64, 128}).
+// (n_rep in {1, 2, 4, 8}, hd in {32, 64, 128}; and n_rep 12 at hd 128,
+// StarCoder2-15B's 48 heads over 4 KV heads and Command R+'s 96 over 8:
+// each instance adds to the build's time, so only the one in use).
 template <template <typename, int, int> class LAUNCH, typename... Args>
 bool dispatch(int dtype, int n_rep, int hd, Args... args) {
 #define DA_CASE_E(T, R)                                              \
@@ -152,6 +154,10 @@ bool dispatch(int dtype, int n_rep, int hd, Args... args) {
     case 2: DA_CASE_E(T, 2)                                          \
     case 4: DA_CASE_E(T, 4)                                          \
     case 8: DA_CASE_E(T, 8)                                          \
+    case 12:                                                         \
+      if (hd != 128) return false;                                   \
+      LAUNCH<T, 12, 4>::run(args...);                                \
+      return true;                                                   \
     default: return false;                                           \
   }
   if (dtype == DT_BF16) {

@@ -54,8 +54,7 @@ int decode_attention_split_keys(int S, int hd, int esize) {
 // of B * KVH * ceil(S / split) * n_rep * (hd + 2) floats; tickets: B * KVH
 // int32, zero before the call and zero after it. window <= 0 means no
 // window. Returns cudaErrorInvalidValue for an (n_rep, hd) pair without an
-// instance (n_rep in {1, 2, 4, 8}, hd in {32, 64, 128}) or a split out of
-// range.
+// instance (rt::dispatch) or a split out of range.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* cache_len, void* out, void* ws,
                             void* tickets, int B, int S, int H, int KVH,

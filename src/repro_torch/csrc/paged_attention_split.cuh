@@ -470,8 +470,8 @@ __device__ __forceinline__ void split_body(
     }
   }
   __syncthreads();
-  if (wid < NREP) {                       // warp r: head r's M, L, factors
-    const int r = wid;
+  // warp w: heads w, w + 9, ...: each head's M, L and factors
+  for (int r = wid; r < NREP; r += THREADS / 32) {
     float M = rt::NEG_INF;
     for (int gi = lane; gi < NG; gi += 32) M = fmaxf(M, s_m[gi * NREP + r]);
 #pragma unroll
@@ -531,10 +531,16 @@ __device__ __forceinline__ void split_body(
   if (tid == 0) *ticket = 0;              // ready for the next call
 }
 
+// CTAs an SM must fit: fewer as the per-head registers (acc and q, EL
+// each) grow; at NREP = 12 one CTA, so the 12 heads' state stays in
+// registers rather than spilling under a 2-CTA cap of 113 a thread.
+template <int NREP>
+constexpr int min_ctas() { return NREP <= 2 ? 3 : NREP <= 8 ? 2 : 1; }
+
 // The kernels: the paged one and the dense one, each under its own name so
 // a profile tells them apart.
 template <typename T, typename PL, int NREP, int HD>
-__global__ void __launch_bounds__(THREADS, NREP <= 2 ? 3 : 2)
+__global__ void __launch_bounds__(THREADS, min_ctas<NREP>())
 paged_split_kernel(const T* __restrict__ q, const PL pools,
                    const PagedRows rows,
                    const int* __restrict__ cache_len, T* __restrict__ out,
@@ -545,7 +551,7 @@ paged_split_kernel(const T* __restrict__ q, const PL pools,
 }
 
 template <typename T, typename PL, int NREP, int HD>
-__global__ void __launch_bounds__(THREADS, NREP <= 2 ? 3 : 2)
+__global__ void __launch_bounds__(THREADS, min_ctas<NREP>())
 dense_split_kernel(const T* __restrict__ q, const PL pools,
                    const DenseRows rows,
                    const int* __restrict__ cache_len, T* __restrict__ out,

@@ -54,9 +54,8 @@ int paged_decode_attention_split_keys(int P, int ps) {
 // hd). ws: fp32 workspace of B * KVH * ceil(P * ps / split) * n_rep *
 // (hd + 2) floats; tickets: B * KVH int32, zero before the call and zero
 // after it. window <= 0 means no window. Returns cudaErrorInvalidValue for
-// an (n_rep, hd) pair without an instance (n_rep in {1, 2, 4, 8}, hd in
-// {32, 64, 128}), more than pa::MAX_PAGES pages per row or a split that is
-// not a multiple of ps.
+// an (n_rep, hd) pair without an instance (rt::dispatch), more than
+// pa::MAX_PAGES pages per row or a split that is not a multiple of ps.
 int paged_decode_attention_launch(const void* q, const void* k, const void* v,
                                   const void* page_table,
                                   const void* cache_len, void* out, void* ws,

@@ -96,6 +96,75 @@ def attend_full(cfg: ModelConfig, q, k, v,
     return sdpa(q, k, v, causal_mask(S, S, 0, window, device=q.device))
 
 
+def _chunk_of(S: int, chunk: int) -> int:
+    """The query-chunk size: ``chunk``, halved until it divides S."""
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    return chunk
+
+
+def attend_full_chunked(cfg: ModelConfig, q, k, v,
+                        window: Optional[int] = None,
+                        chunk: int = 512) -> torch.Tensor:
+    """Exact attention a query chunk at a time, so the peak logits tensor is
+    (B, H, chunk, S) rather than (B, H, S, S) (JAX ``attention.py:107``).
+    Every chunk reads every key; the mask does the causal cut."""
+    B, S, H, hd = q.shape
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    chunk = _chunk_of(S, chunk)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    outs = []
+    for i in range(S // chunk):
+        mask = None
+        if cfg.causal:
+            qpos = i * chunk + torch.arange(chunk, device=q.device)[:, None]
+            m = kpos <= qpos
+            if window is not None:
+                m = m & (kpos > qpos - window)
+            mask = m[None, None]
+        outs.append(sdpa(q[:, i * chunk:(i + 1) * chunk], k, v, mask))
+    return torch.cat(outs, dim=1)
+
+
+def attend_full_chunked_pruned(cfg: ModelConfig, q, k, v,
+                               window: Optional[int] = None,
+                               chunk: int = 512) -> torch.Tensor:
+    """Causally pruned chunked attention (JAX ``attention.py:146``): query
+    chunk i reads only key chunks ``lo .. i`` (``lo`` from the window), so
+    key blocks above the diagonal are never computed. JAX runs an online
+    softmax over those key chunks in a ``fori_loop``; here one fp32
+    softmax over their concatenation gives the same values (one launch
+    chain per query chunk, not per key chunk). Causal only."""
+    assert cfg.causal
+    B, S, H, hd = q.shape
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    chunk = _chunk_of(S, chunk)
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for i in range(S // chunk):
+        lo = 0 if window is None else max(0, (i * chunk - window) // chunk)
+        q0, k0, k1 = i * chunk, lo * chunk, (i + 1) * chunk
+        qf = q[:, q0:k1].transpose(1, 2).float() * scale      # (B,H,c,hd)
+        kf = k[:, k0:k1].transpose(1, 2).float()
+        vf = v[:, k0:k1].transpose(1, 2).float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+        qpos = torch.arange(q0, k1, device=q.device)[:, None]
+        kpos = torch.arange(k0, k1, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1, keepdim=True)
+        out = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+        out = out / torch.where(l == 0.0, torch.ones_like(l), l)
+        outs.append(out.transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def attend_decode(cfg: ModelConfig, q, k_cache, v_cache, cache_len,
                   window: Optional[int] = None) -> torch.Tensor:
     """One-step decode attention with grouped einsums.

@@ -68,8 +68,12 @@ def normal_init(gen: torch.Generator, shape, std: float, dtype,
     return (x * std).to(dtype)
 
 
-def init_norm(dim: int, dtype, device) -> Params:
-    return {"scale": torch.ones(dim, dtype=dtype, device=device)}
+def init_norm(cfg: ModelConfig, dim: int, dtype, device) -> Params:
+    """Unit scale; layernorm also a zero bias (``common.py:57``)."""
+    p = {"scale": torch.ones(dim, dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(dim, dtype=dtype, device=device)
+    return p
 
 
 def init_linear(gen, d_in: int, d_out: int, use_bias: bool, dtype, device,
@@ -97,12 +101,25 @@ def init_mlp(cfg: ModelConfig, gen, dtype, device) -> Params:
 # ---------------------------------------------------------------------------
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in fp32, output in x's dtype."""
-    assert cfg.norm == "rmsnorm", cfg.norm
+    """RMSNorm or layernorm (``cfg.norm``) in fp32, output in x's dtype."""
     xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    assert cfg.norm == "rmsnorm", cfg.norm
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
     return y.to(x.dtype)
+
+
+def activation_fn(name: str):
+    """silu, gelu or relu; ``jax.nn.gelu`` is the tanh approximation by
+    default, and so is this gelu."""
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -132,9 +149,13 @@ def apply_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    assert cfg.activation == "silu" and cfg.gated_mlp
+    """Gated (``act(x wg) * x wi``) or plain (``act(x wi)``) MLP."""
+    act = activation_fn(cfg.activation)
     up = apply_linear(p["wi"], x)
-    up = F.silu(apply_linear(p["wg"], x)) * up
+    if cfg.gated_mlp:
+        up = act(apply_linear(p["wg"], x)) * up
+    else:
+        up = act(up)
     return apply_linear(p["wo"], up)
 
 

@@ -80,6 +80,11 @@ class ModelFlags:
     remat: str = "none"             # "none" | "full": recompute each unit
     #                                 in the backward pass (training)
     ce_chunk: int = 512             # sequence chunk of the chunked CE loss
+    chunk_threshold: int = 2048     # chunked exact attention above this
+    #                                 prompt length (without flash)
+    chunk_size: int = 512           # query chunk of chunked attention
+    attn_prune: bool = False        # chunked attention that skips the key
+    #                                 chunks above the causal diagonal
 
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -88,12 +93,12 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
 
 def _init_block(cfg: ModelConfig, kind: str, gen, dtype, device) -> Params:
     if kind == SSD:
-        return {"ln": common.init_norm(cfg.d_model, dtype, device),
+        return {"ln": common.init_norm(cfg, cfg.d_model, dtype, device),
                 "ssd": ssd_lib.init_ssd(cfg, gen, dtype, device)}
     assert kind in (ATTN, LOCAL_ATTN), kind
-    return {"ln1": common.init_norm(cfg.d_model, dtype, device),
+    return {"ln1": common.init_norm(cfg, cfg.d_model, dtype, device),
             "attn": attn_lib.init_attention(cfg, gen, dtype, device),
-            "ln2": common.init_norm(cfg.d_model, dtype, device),
+            "ln2": common.init_norm(cfg, cfg.d_model, dtype, device),
             "mlp": common.init_mlp(cfg, gen, dtype, device)}
 
 
@@ -142,7 +147,9 @@ def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                positions: torch.Tensor, flags: ModelFlags
                ) -> Tuple[torch.Tensor, Any]:
     """Prefill path. Returns (h_out, {"k", "v"}) for attention, under
-    ``flags.flash_attention`` through the flash kernel; (h_out, {"state",
+    ``flags.flash_attention`` through the flash kernel, else above
+    ``flags.chunk_threshold`` tokens through chunked attention (pruned under
+    ``flags.attn_prune``), as in the JAX package; (h_out, {"state",
     "conv"}) for SSD, under ``flags.ssd_kernel`` with the intra-chunk term
     through the SSD kernel ("conv" is None for a prompt shorter than the
     conv window, as in the JAX package)."""
@@ -157,6 +164,13 @@ def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
         from repro_torch.kernels.flash_attention import ops as fa_ops
         o = fa_ops.flash_attention(q, k, v, causal=True,
                                    window=_window(cfg, kind))
+    elif x.shape[1] > flags.chunk_threshold:
+        if flags.attn_prune and cfg.causal:
+            o = attn_lib.attend_full_chunked_pruned(
+                cfg, q, k, v, _window(cfg, kind), chunk=flags.chunk_size)
+        else:
+            o = attn_lib.attend_full_chunked(cfg, q, k, v, _window(cfg, kind),
+                                             chunk=flags.chunk_size)
     else:
         o = attn_lib.attend_full(cfg, q, k, v, _window(cfg, kind))
     h = h + attn_lib.out_proj(p["attn"], o)
@@ -363,7 +377,8 @@ class Model:
                     for i, kind in enumerate(unit)} for _ in range(reps)]
             segs.append(_stack(per))
         params["segments"] = segs
-        params["final_norm"] = common.init_norm(cfg.d_model, dt, device)
+        params["final_norm"] = common.init_norm(cfg, cfg.d_model, dt,
+                                                device)
         if not cfg.tie_embeddings:
             params["lm_head"] = {"w": common.normal_init(
                 gen, (cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5, dt,

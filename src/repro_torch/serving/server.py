@@ -24,11 +24,17 @@
     in the carry keeps that correct. ``run_to_completion`` and ``drain``
     finish the in-flight megatick.
 
+  * ``cancel(uid)`` withdraws an unfinished request (queued, mid chunked
+    admission, or slotted, after the in-flight megatick drains), and
+    ``completed`` keeps every finished request in finish order;
+  * ``serve.greedy=False`` (no SpecEE) serves ``DenseStrategy(temperature=
+    serve.temperature)``, sampled per row from ``prng_seed``.
+
 On a paged cache on a CUDA card the engine turns on the paged
 decode-attention kernel (``ModelFlags.decode_kernel``), as the JAX engine
 does on a TPU. The constructor takes the JAX engine's arguments in its
-order. Sampling, eviction, checkpoints, dispatch retries, watchdogs and
-fault injection, and the mesh, are not ported; asking for them raises
+order. Eviction, checkpoints, dispatch retries, watchdogs and fault
+injection, and the mesh, are not ported; asking for them raises
 ``ValueError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -39,7 +45,8 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-from repro_torch.api import CacheSpec, DecodeStrategy, Engine, get_strategy
+from repro_torch.api import (CacheSpec, DecodeStrategy, DenseStrategy,
+                             Engine, get_strategy)
 from repro_torch.api.cache import PagedKVCache
 from repro_torch.api.scheduler import ChunkedPrefillScheduler
 from repro_torch.models.common import lm_head_weight
@@ -95,11 +102,6 @@ class ServingEngine:
             fault_log_cap=(fault_log_cap, 256, _FAULTS),
             mesh=(mesh, None, "ROADMAP: multi-GPU"),
             policy=(policy, "tp_dp", "ROADMAP: multi-GPU"))
-        if strategy is None and not (specee and model.run.specee.enabled) \
-                and not model.run.serve.greedy:
-            raise ValueError(
-                "serve.greedy=False: sampling is not ported yet (ROADMAP: "
-                "the rest of serving, serving/sampler.py)")
         if megatick < 1:
             raise ValueError(f"megatick must be >= 1, got {megatick}")
         self.megatick = int(megatick)
@@ -133,8 +135,13 @@ class ServingEngine:
         self.model = model
         self.serve_cfg = model.run.serve
         if strategy is None:        # the JAX engine's default
-            strategy = ("specee" if specee and model.run.specee.enabled
-                        else "dense")
+            if specee and model.run.specee.enabled:
+                strategy = "specee"
+            elif self.serve_cfg.greedy:
+                strategy = "dense"
+            else:
+                strategy = DenseStrategy(
+                    temperature=self.serve_cfg.temperature)
         self.strategy = get_strategy(strategy)
         # ``quant``: None | "int8" | "int4" | QuantSpec — weight-only
         # compression applied once at engine build (a parallel bundle; the
@@ -162,6 +169,7 @@ class ServingEngine:
         self.slots: List[Optional[Request]] = [None] * B
         self._inflight: Dict[int, Request] = {}
         self._next_uid = 0
+        self.completed: List[Request] = []      # in finish order
 
     # ----- request intake -----
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
@@ -291,6 +299,7 @@ class ServingEngine:
                 self._handle = self._dispatch()
             else:
                 self._sync_step(finished)
+        self.completed.extend(finished)
         return finished
 
     @property
@@ -312,7 +321,30 @@ class ServingEngine:
         prev, self._handle = self._handle, None
         if prev is not None:
             self._finish_handle(prev, finished)
+        self.completed.extend(finished)
         return finished
+
+    def cancel(self, uid: int) -> bool:
+        """Withdraw an unfinished request: drop it from the queue or the
+        in-flight chunked admission, or free its slot and pages. The
+        in-flight megatick drains first, so a slotted cancel retires a
+        coherent row; if that drain finishes the request, it stays
+        finished. Returns True when the uid was found live."""
+        if uid in self._inflight:
+            if uid in self.scheduler.admitting:
+                self.scheduler.abort_active()
+            self.scheduler.remove(uid)
+            del self._inflight[uid]
+            return True
+        for row in range(self.B):
+            req = self.slots[row]
+            if req is not None and req.uid == uid and not req.done:
+                self.drain()
+                if self.slots[row] is req and not req.done:
+                    self.slots[row] = None
+                    self.session.retire_row(row)
+                return True
+        return False
 
     def run_to_completion(self, max_ticks: int = 10_000) -> List[Request]:
         done: List[Request] = []

@@ -1676,3 +1676,136 @@ def test_train_steps_on_card_match_cpu(dev, monkeypatch):
     for a, b in zip(tree_leaves(p_card), tree_leaves(p_cpu)):
         assert a.is_cuda
         torch.testing.assert_close(a.cpu(), b, atol=3e-3, rtol=0)
+
+
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("kvh", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reader", ["dense", "fp", "int8"])
+def test_attention_kernels_at_12_heads_per_kv_head(dev, reader, dtype, kvh,
+                                                   window):
+    """The dense, paged and int8-paged split-KV kernels at 12 query heads
+    per KV head of 128 (StarCoder2-15B's 48 over 4, Command R+'s 96 over
+    8): rows of one and of many splits, a retired paged row; against the
+    plain version on the inputs upcast to fp32, at the file's tolerances;
+    one launch each. At another head dim there is no n_rep-12 instance:
+    the call raises and launches nothing."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_fwd, paged_decode_attention_fwd)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, paged_decode_attention_ref)
+    hd = 128
+    gen = torch.Generator(device=dev).manual_seed(27 + kvh)
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    if reader == "dense":
+        reset_launches()
+        with pytest.raises(RuntimeError):
+            decode_attention_fwd(
+                _rand(gen, (1, 1, 12, 64), dev, dtype),
+                *[_rand(gen, (1, 8, 1, 64), dev, dtype)] * 2,
+                torch.ones(1, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        assert sum(LAUNCHES.values()) == 0
+        S = 4096
+        q = _rand(gen, (4, 1, 12 * kvh, hd), dev, dtype)
+        k = _rand(gen, (4, S, kvh, hd), dev, dtype)
+        v = _rand(gen, (4, S, kvh, hd), dev, dtype)
+        clen = torch.tensor([150, S, 1, 2049], dtype=torch.int32,
+                            device=dev)
+        reset_launches()
+        got = decode_attention_fwd(q, k, v, clen, window=window)
+        torch.cuda.synchronize()
+        assert LAUNCHES["decode_attention"] == 1
+        want = decode_attention_ref(q.float(), k.float(), v.float(), clen,
+                                    window)
+        torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)
+        return
+    name = "paged_decode_attention" + ("_q" if reader == "int8" else "")
+    args, kw = _split_case(gen, dev, reader, dtype, 12, hd,
+                           [4096, 150, 2 * 128 + 3, 1], kvh=kvh)
+    reset_launches()
+    got = paged_decode_attention_fwd(*args, window=window, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == 1 and sum(LAUNCHES.values()) == 1
+    q, kp, vp, table, clen = args
+    if reader == "fp":
+        kp, vp = kp.float(), vp.float()
+    want = paged_decode_attention_ref(q.float(), kp, vp, table, clen, window,
+                                      kw.get("k_scale"), kw.get("v_scale"))
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float()[:-1], want[:-1], atol=1e-4,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("kernel", ["argmax", "topk", "argmax_int8",
+                                    "argmax_int4", "topk_int8", "topk_int4"])
+@pytest.mark.parametrize("R", [1, 4, 160])
+def test_verify_tiles_at_minicpm_head(dev, kernel, R):
+    """The four verify tiles (fp and quantized argmax and top-k) on bf16
+    hidden rows at MiniCPM-2B's head, D = 2304 and an odd vocabulary V =
+    122753 (element-load head staging): ids equal the plain version's,
+    values atol = rtol = 1e-4; a planted tie resolves to the lowest id."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.exit_gate import exit_gate as eg
+    from repro_torch.kernels.exit_gate import ref
+    D, V, k = 2304, 122753, 4
+    gen = torch.Generator(device=dev).manual_seed(R + len(kernel))
+    hn = _rand(gen, (R, D), dev, torch.bfloat16)
+    reset_launches()
+    if kernel in ("argmax", "topk"):
+        w = _rand(gen, (D, V), dev, torch.bfloat16, 0.05)
+        lowest = _plant_ties_mma(w, hn, R - 1)
+        if kernel == "argmax":
+            got, got_r = eg.argmax_verify_fused(hn, w), \
+                ref.verify_argmax_ref(hn, w)
+        else:
+            got, got_r = eg.topk_verify_fused(hn, w, k), \
+                ref.verify_topk_ref(hn, w, k)
+        launched = kernel + "_verify"
+    else:
+        qt = _quant_head(gen, dev, int(kernel[-1]), D, V)
+        lowest = _plant_ties_q_mma(qt, hn, R - 1)
+        if kernel.startswith("argmax"):
+            got, got_r = eg.argmax_verify_fused_q(hn, qt), \
+                ref.verify_argmax_q_ref(hn, qt)
+        else:
+            got, got_r = eg.topk_verify_fused_q(hn, qt, k), \
+                ref.verify_topk_q_ref(hn, qt, k)
+        launched = kernel.split("_")[0] + "_verify_q"
+    torch.cuda.synchronize()
+    assert LAUNCHES[launched] == 1
+    ids, vals = got
+    assert torch.equal(ids, got_r[0])
+    first = ids[R - 1] if ids.dim() == 1 else ids[R - 1, 0]
+    assert int(first) == lowest
+    torch.testing.assert_close(vals, got_r[1], atol=1e-4, rtol=1e-4)
+
+
+def test_sampler_on_card_matches_cpu(dev):
+    """The per-row sampler draws the CPU's tokens on the card for the same
+    logits and keys (integer hashing is exact on both; the fp64 Gumbel
+    noise's logarithms may differ by an ulp, so a differing draw is only
+    allowed where the CPU's top two perturbed scores lie within 1e-12 of
+    each other), across temperatures and top-k."""
+    from repro_torch.serving import sampler
+    gen = torch.Generator().manual_seed(31)
+    B, V = 64, 32000
+    logits = torch.randn((B, V), generator=gen) * 4
+    pos = torch.randint(0, 4096, (B,), generator=gen)
+    tok = torch.randint(0, V, (B,), generator=gen)
+    for seed in (0, 7):
+        keys = sampler.row_keys(seed, pos, tok)
+        keys_d = sampler.row_keys(seed, pos.to(dev), tok.to(dev))
+        assert torch.equal(keys_d.cpu(), keys)
+        for temperature, top_k in ((1.0, None), (0.8, 50), (0.3, 1)):
+            want = sampler.sample_rows(logits, keys, temperature, top_k)
+            got = sampler.sample_rows(logits.to(dev), keys_d, temperature,
+                                      top_k).cpu()
+            for r in torch.nonzero(got != want).flatten().tolist():
+                s = (sampler._scale(logits[r:r + 1], temperature, top_k)
+                     .double() + sampler._gumbel(
+                         keys[r:r + 1, None], torch.arange(V)[None]))[0]
+                top2 = torch.topk(s, 2).values
+                assert float(top2[0] - top2[1]) < 1e-12 * float(
+                    top2[0].abs()), (seed, temperature, r)

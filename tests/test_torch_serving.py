@@ -20,7 +20,7 @@ from repro.core import engine as jeng  # noqa: E402
 from repro.models.model import build_model as jbuild  # noqa: E402
 from repro.serving.server import ServingEngine as JServingEngine  # noqa
 from repro_torch import bridge  # noqa: E402
-from repro_torch.api import CacheSpec, Engine  # noqa: E402
+from repro_torch.api import CacheSpec, DenseStrategy, Engine  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.model import ModelFlags, build_model  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
@@ -189,12 +189,13 @@ def test_flash_flag_gives_same_tokens(setup):
 
 
 def test_serving_raises_on_what_is_not_ported(setup):
-    """No silent degradation: an oversubscribed pool (JAX evicts), sampling
-    (JAX's default strategy when ``specee=False`` and ``serve.greedy`` is
-    off), the fault-tolerance options and a mesh raise ValueError naming
-    their ROADMAP item. Megaticks and async ticks are taken, with JAX's
-    default (``async_ticks`` on when ``megatick > 1``) and its refusal of
-    ``megatick < 1``."""
+    """No silent degradation: an oversubscribed pool (JAX evicts), the
+    fault-tolerance options and a mesh raise ValueError naming their
+    ROADMAP item. Megaticks and async ticks are taken, with JAX's default
+    (``async_ticks`` on when ``megatick > 1``) and its refusal of
+    ``megatick < 1``; sampling (JAX's default strategy when ``specee=False``
+    and ``serve.greedy`` is off) builds JAX's ``DenseStrategy(temperature=
+    serve.temperature)``."""
     run, m_j, m, params_j, params, sw_j, sw = setup
     one_row = CacheSpec(kind="paged", page_size=16,
                         num_pages=run.serve.max_seq_len // 16)
@@ -220,8 +221,15 @@ def test_serving_raises_on_what_is_not_ported(setup):
             ServingEngine(m, params, sw, **kw)
     sampled = build_model(dataclasses.replace(
         run, serve=dataclasses.replace(run.serve, greedy=False)))
-    with pytest.raises(ValueError, match="sampling.*ROADMAP"):
-        ServingEngine(sampled, params, sw, specee=False)
+    run_j = jax_get_config("llama2-7b").smoke()
+    m_js = jbuild(dataclasses.replace(
+        run_j, serve=dataclasses.replace(run_j.serve, greedy=False)))
+    got = ServingEngine(sampled, params, sw, specee=False).strategy
+    want = JServingEngine(m_js, params_j, sw_j, specee=False).strategy
+    assert isinstance(got, DenseStrategy)
+    assert (got.name, got.temperature, got.top_k) == (
+        want.name, want.temperature, want.top_k) == (
+        "dense", run.serve.temperature, None)
     # with SpecEE on, JAX serves the (greedy) SpecEE strategy here too
     assert ServingEngine(sampled, params, sw).strategy.name == "specee"
     with pytest.raises(ValueError, match="divide"):
