@@ -13,8 +13,10 @@ runs the whole-batch and serving paths again as megaticks
 SpecEE bundles on the card (the target, the draft, the predictors and the
 offline schedule) and decodes with them, runs the dense-family configs
 (Llama-2-13B/70B, DeepSeek-7B, MiniCPM-2B, StarCoder2-15B, Command R+),
-and serves sampled requests, cancels requests, prefills a long prompt
-through chunked attention and runs the serving launcher.
+serves sampled requests, cancels requests, prefills a long prompt
+through chunked attention and runs the serving launcher, and runs the MoE
+(DBRX, Qwen3-MoE), RG-LRU hybrid (RecurrentGemma) and frontend (InternVL2,
+HuBERT) configs.
 
     python3 chip_smoke.py
 
@@ -83,7 +85,14 @@ Phases (lines ``[phase +seconds since the start] ...``):
      bf16 and int8 pools) beside SDPA; the four verify tiles at MiniCPM's
      head (D=2304, odd V=122753) and Command R+'s (D=12288, V=256000), the
      fp and int8 gates at D 5120, 6144 and 12288, flash at 48 over 4 heads
-     and at 36 heads of 64, each against its plain version and timed;
+     and at 36 heads of 64, each against its plain version and timed; then
+     the new families' shapes: the three attention kernels at 48 over 8
+     of 128, 64 over 4 of 64 and 16 over 1 of 256 (fp32 and bf16, windows
+     None/64/300), timed at 150 of 162 and 2150 of 2240 slots (dense; the
+     MQA shape under its 2048-key window) and a serve tick (paged) beside
+     SDPA; flash at hd 256 (16 over 1 heads, S = 2112, windows
+     None/64/2048) timed beside SDPA with the same mask, and at 48 over 8
+     of 128 and 64 over 4 of 64;
   3. parity — llama2-7b at full width, 4 layers, fp32, seeded weights:
      Engine.create → new_session → prefill(4 prompts) → step x 8 at
      thresholds 1.5, 0.4, -0.1, with the kernels and with the plain
@@ -224,7 +233,21 @@ Phases (lines ``[phase +seconds since the start] ...``):
      4 layers, flash off) equal to unchunked attention; and ``python -m
      repro_torch.launch.serve --smoke --ci`` for specee, tree and dense
      --temperature 0.8, three subprocesses at once;
- 14. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
+ 14. newfam — the new families, seeded bf16, one model at a time, each
+     freed before the next: dbrx-132b and qwen3-moe-235b-a22b at published
+     widths, 8 of their 40 and 94 layers (AR SpecEE B=4, 32 steps, with
+     moe_impl "dense" and again "topk": equal tokens, or each differing
+     row's top-2 margin at a near-tie; paged serving of 8 requests, 16 new
+     tokens each; tree, 8 steps); recurrentgemma-9b at published size (AR
+     SpecEE B=4 over 2112-token prompts, past its 2048-token window, so
+     flash and the decode kernel (16 heads over 1 of 256) cut the window;
+     serving on the paged hybrid cache); internvl2-26b at published size
+     (256 image patches + 128 text tokens, dense decode through a session
+     sized for the patches, 32 steps); hubert-xlarge at published size
+     (frame logits of 4 x 512 frames, then 3 fp32 TrainLoop steps); each
+     run zeroes the launch counts and requires its path's kernels;
+     tokens/s, units_run, peak memory, launches;
+ 15. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
@@ -232,7 +255,7 @@ token per step (one emitted token per tree step), so the tree runs of
 phases 3 to 10 measure the mechanism's cost, not its gain; phase 11's
 trained bundles are the ones that exit and accept.
 
-Each main path (phases 4 to 13, each run on its own) zeroes the
+Each main path (phases 4 to 14, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -597,16 +620,16 @@ def check_kernels(torch, dev):
 
 
 def _paged_case(torch, dev, rnd, dt, P, lens, seed, heads=HEADS,
-                kvh=HEADS):
+                kvh=HEADS, hd=HD):
     """B = len(lens) rows of P pages each, a shuffled table over a pool with
     spare pages; a last row of length 1 is retired (every entry the trash
     page)."""
     import numpy as np
     Bp = len(lens)
     NP = Bp * P + 5                              # + spare, then the trash
-    q = rnd((Bp, 1, heads, HD), dt)
-    kp = rnd((NP + 1, PAGE, kvh, HD), dt)
-    vp = rnd((NP + 1, PAGE, kvh, HD), dt)
+    q = rnd((Bp, 1, heads, hd), dt)
+    kp = rnd((NP + 1, PAGE, kvh, hd), dt)
+    vp = rnd((NP + 1, PAGE, kvh, hd), dt)
     perm = np.random.default_rng(seed).permutation(NP)[:Bp * P]
     table = torch.as_tensor(perm.reshape(Bp, P).astype(np.int32), device=dev)
     if lens[-1] == 1:
@@ -748,7 +771,8 @@ def check_attention_kernels(torch, dev, rnd):
     return errs, t
 
 
-def _paged_q_case(torch, dev, rnd, dt, P, lens, kvh, seed, heads=HEADS):
+def _paged_q_case(torch, dev, rnd, dt, P, lens, kvh, seed, heads=HEADS,
+                  hd=HD):
     """``_paged_case`` over int8 pools: codes and fp32 scales quantized as
     the model stores them, the trash page (the last) zeroed, scales too.
     Returns (q, k, v, table, cache_len, k_scale, v_scale)."""
@@ -756,10 +780,10 @@ def _paged_q_case(torch, dev, rnd, dt, P, lens, kvh, seed, heads=HEADS):
     from repro_torch.models.model import _kv_quantize
     Bp = len(lens)
     NP = Bp * P + 5
-    q = rnd((Bp, 1, heads, HD), dt)
+    q = rnd((Bp, 1, heads, hd), dt)
     pools = []
     for _ in range(2):
-        codes, scale = _kv_quantize(rnd((NP + 1, PAGE, kvh, HD),
+        codes, scale = _kv_quantize(rnd((NP + 1, PAGE, kvh, hd),
                                         torch.float32))
         codes[-1], scale[-1] = 0, 0.0
         pools += [codes, scale]
@@ -3350,6 +3374,231 @@ def check_dense_family_kernels(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (continued): the MoE, hybrid and VLM configs' head shapes
+# ---------------------------------------------------------------------------
+# (label, query heads, KV heads, head dim) of the attention shapes phase 14
+# decodes with: n_rep 6 at 128, 16 at 64 and 16 at 256 (MQA), each a new
+# instance of the three split-KV kernels
+NF_HEADS = (("dbrx-132b / internvl2-26b", 48, 8, 128),
+            ("qwen3-moe-235b-a22b", 64, 4, 64),
+            ("recurrentgemma-9b", 16, 1, 256))
+RG_WINDOW = 2048             # recurrentgemma-9b's local attention window
+RG_PROMPT = 2112             # phase 14's hybrid prompt: past the window
+
+
+def check_new_family_kernels(torch, dev):
+    """Phase 2 at the new families' shapes. (1) The dense, paged and int8
+    paged attention kernels at each of NF_HEADS: fp32 and bf16 against
+    their plain versions (windows None/64/300, rows of one and of several
+    splits, a retired paged row; the MQA rows cut by the fill rule), then
+    bf16 timings at 150 live keys of 162 slots (a whole-batch decode step)
+    and at 2150 live of 2240 (recurrentgemma-9b's under its 2048-key
+    window; the others unwindowed), and at a serve tick's 2203 live keys
+    (both paged), beside SDPA (enable_gqa; on the gathered, for int8 the
+    dequantized, view) and the byte bound. (2) Flash at hd 256 (16 heads
+    over one): fp32 at S = 300 and bf16 at S = 2112 against the plain
+    version, windows None/64/2048, timed at B = 1, S = 2112 under the 2048
+    window beside SDPA with the same mask; and at 48 over 8 of 128 and 64
+    over 4 of 64 (S = 512, bf16). Returns (max error by kernel, {kernel:
+    {shape: timing row}})."""
+    import torch.nn.functional as F
+    from repro_torch.core import paged as paged_lib
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_fwd, paged_decode_attention_fwd)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.model import _kv_dequantize
+    gen = torch.Generator(device=dev).manual_seed(1357)
+
+    def rnd(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    errs = {}
+
+    def note(name, a, b, **tol):
+        torch.testing.assert_close(a, b, **tol)
+        errs[name] = max(errs.get(name, 0.0), (a - b).abs().max().item())
+
+    def paged(dt, lens, int8, seed, H, KVH, hd):
+        if not int8:
+            return _paged_case(torch, dev, rnd, dt, 32, lens, seed, H, KVH,
+                               hd), {}
+        c = _paged_q_case(torch, dev, rnd, dt, 32, lens, KVH, seed, H, hd)
+        return c[:5], dict(k_scale=c[5], v_scale=c[6])
+
+    # ---- (1) correctness at each new (n_rep, hd) ----
+    for label, H, KVH, hd in NF_HEADS:
+        for dt in (torch.float32, torch.bfloat16):
+            rtol = 1e-4 if dt == torch.float32 else 2.0 ** -7
+            for S, lens in ((162, [150, 150, 1, 77]),
+                            (2300, [2300, 1, 2113, 2048])):
+                q = rnd((B, 1, H, hd), dt)
+                k = rnd((B, S, KVH, hd), dt)
+                v = rnd((B, S, KVH, hd), dt)
+                cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+                for window in (None, 64, 300):
+                    note("decode_attention",
+                         decode_attention_fwd(q, k, v, cl, window).float(),
+                         decode_attention_ref(q.float(), k.float(),
+                                              v.float(), cl, window),
+                         atol=1e-4, rtol=rtol)
+            for int8 in (False, True):
+                name = "paged_decode_attention" + ("_q" if int8 else "")
+                for i, lens in enumerate((TICK_LENS, [4096, 150, 259, 1])):
+                    args, kw = paged(dt, lens, int8, i, H, KVH, hd)
+                    live = len(lens) - (lens[-1] == 1)
+                    q, kp, vp, table, cl = args
+                    for window in (None, 64, 300):
+                        got = paged_decode_attention_fwd(
+                            *args, window=window, **kw).float()
+                        want = paged_decode_attention_ref(
+                            q.float(), kp if int8 else kp.float(),
+                            vp if int8 else vp.float(), table, cl, window,
+                            kw.get("k_scale"), kw.get("v_scale"))
+                        note(name, got[:live], want[:live], atol=1e-4,
+                             rtol=rtol)
+                    del args, kw
+        torch.cuda.synchronize()
+        log("kernels", f"{label} ({H} heads over {KVH} of {hd}, n_rep "
+            f"{H // KVH}): decode_attention, paged_decode_attention and "
+            "paged_decode_attention_q equal their plain versions (fp32 and "
+            "bf16, windows None/64/300, rows of one and of several splits, "
+            "a retired row)")
+    log("kernels", "new head shapes: errors " + ", ".join(
+        f"{k} {errs[k]:.3g}" for k in ("decode_attention",
+                                       "paged_decode_attention",
+                                       "paged_decode_attention_q")))
+
+    # ---- timings, bf16 ----
+    t = {"decode_attention": {}, "paged_decode_attention": {},
+         "paged_decode_attention_q": {}, "flash_attention": {}}
+    dt, dname = torch.bfloat16, "bfloat16"
+    for label, H, KVH, hd in NF_HEADS:
+        win = RG_WINDOW if label.startswith("recurrentgemma") else None
+        for S, live, n_c in ((162, 150, 8), (2240, 2150, 2)):
+            q = rnd((B, 1, H, hd), dt)
+            qs = q.transpose(1, 2)
+            cl = torch.full((B,), live, dtype=torch.int32, device=dev)
+            caches = [(rnd((B, S, KVH, hd), dt), rnd((B, S, KVH, hd), dt))
+                      for _ in range(n_c)]
+            kpos = torch.arange(S, device=dev)
+            keep = kpos < live
+            if win:
+                keep = keep & (kpos >= live - win)
+            mask = keep[None, None, None, :]
+            kv_t = [(k.transpose(1, 2), v.transpose(1, 2)) for k, v in caches]
+            eff = min(live, win) if win else live
+            reps = 24 // n_c
+            row = (graph_ms(torch, [lambda c=c: decode_attention_fwd(
+                       q, c[0], c[1], cl, win) for c in caches] * reps),
+                   graph_ms(torch, [lambda c=c: decode_attention_ref(
+                       q, c[0], c[1], cl, win) for c in caches] * reps),
+                   graph_ms(torch, [lambda c=c: F.scaled_dot_product_attention(
+                       qs, c[0], c[1], attn_mask=mask, enable_gqa=True)
+                       for c in kv_t] * reps),
+                   bound_ms(2 * B * eff * KVH * hd * 2
+                            + 2 * B * H * hd * 2 + B * 4,
+                            4 * B * eff * H * hd, dname))
+            shape = (f"{label}, n_rep {H // KVH} of {hd}, {live} live of "
+                     f"{S} slots" + (f", window {win}" if win else ""))
+            t["decode_attention"][shape] = row
+            log("kernels", f"decode_attention bf16 at {shape}: kernel "
+                f"{row[0]:.4f} ms, plain {row[1]:.4f} ms, SDPA "
+                f"{row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]})")
+            del caches, kv_t
+        live = sum(TICK_LENS)
+        for int8 in (False, True):
+            name = "paged_decode_attention" + ("_q" if int8 else "")
+            cases = [paged(dt, TICK_LENS, int8, 10 + j, H, KVH, hd)
+                     for j in range(4)]
+            views = []
+            for (q, kp, vp, table, cl), kw in cases:
+                kv = paged_lib.gather_view(kp, table)
+                vv = paged_lib.gather_view(vp, table)
+                if int8:
+                    kv = _kv_dequantize(kv, paged_lib.gather_view(
+                        kw["k_scale"], table), dt)
+                    vv = _kv_dequantize(vv, paged_lib.gather_view(
+                        kw["v_scale"], table), dt)
+                m = (torch.arange(kv.shape[1], device=dev)[None, :]
+                     < cl[:, None])[:, None, None, :]
+                views.append((q.transpose(1, 2), kv.transpose(1, 2),
+                              vv.transpose(1, 2), m))
+            esize = 1 if int8 else 2
+            nbytes = (2 * live * KVH * hd * esize
+                      + (2 * live * KVH * 4 if int8 else 0)
+                      + 2 * len(TICK_LENS) * H * hd * 2
+                      + len(TICK_LENS) * 33 * 4)
+            row = (graph_ms(torch, [lambda c=c: paged_decode_attention_fwd(
+                       *c[0], **c[1]) for c in cases] * 3),
+                   graph_ms(torch, [lambda c=c: paged_decode_attention_ref(
+                       *c[0], None, c[1].get("k_scale"),
+                       c[1].get("v_scale")) for c in cases] * 3),
+                   graph_ms(torch, [lambda w=w: F.scaled_dot_product_attention(
+                       w[0], w[1], w[2], attn_mask=w[3], enable_gqa=True)
+                       for w in views] * 3),
+                   bound_ms(nbytes, 4 * live * H * hd, dname))
+            shape = (f"{label}, n_rep {H // KVH} of {hd}, serve tick, "
+                     f"{live} live keys")
+            t[name][shape] = row
+            log("kernels", f"{name} bf16 at {shape} (B=8): kernel "
+                f"{row[0]:.4f} ms, plain {row[1]:.4f} ms, SDPA on the "
+                f"gathered{' dequantized' if int8 else ''} view "
+                f"{row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]})")
+            del cases, views
+        torch.cuda.empty_cache()
+
+    # ---- (2) flash at hd 256, and at 48 over 8 and 64 over 4 ----
+    for d_t, S in ((torch.float32, 300), (torch.bfloat16, RG_PROMPT)):
+        rtol = 1e-4 if d_t == torch.float32 else 2.0 ** -7
+        q = rnd((1, S, 16, 256), d_t)
+        k = rnd((1, S, 1, 256), d_t)
+        v = rnd((1, S, 1, 256), d_t)
+        for window in (None, 64, RG_WINDOW):
+            note("flash_attention",
+                 flash_attention_fwd(q, k, v, causal=True,
+                                     window=window).float(),
+                 flash_attention_ref(q.float(), k.float(), v.float(), True,
+                                     window), atol=1e-4, rtol=rtol)
+    S, W = RG_PROMPT, RG_WINDOW
+    qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    pos = torch.arange(S, device=dev)
+    wmask = ((pos[None, :] <= pos[:, None])
+             & (pos[None, :] > pos[:, None] - W))[None, None]
+    n = 10
+    pairs = sum(min(i + 1, W) for i in range(S))
+    row = (graph_ms(torch, [lambda: flash_attention_fwd(q, k, v, True,
+                                                        W)] * n),
+           graph_ms(torch, [lambda: flash_attention_ref(q, k, v, True,
+                                                        W)] * n),
+           graph_ms(torch, [lambda: F.scaled_dot_product_attention(
+               qs, ks, vs, attn_mask=wmask, enable_gqa=True)] * n),
+           bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                    4 * 16 * 256 * pairs, dname))
+    shape = f"recurrentgemma-9b, 16 heads over 1 of 256, B=1, S={S}, window {W}"
+    t["flash_attention"][shape] = row
+    log("kernels", f"flash_attention bf16 at {shape}: kernel {row[0]:.4f} "
+        f"ms, plain {row[1]:.4f} ms, SDPA (windowed causal mask) "
+        f"{row[2]:.4f} ms, bound {row[3][0]:.4f} ms ({row[3][1]})")
+    for H, KVH, hd in ((48, 8, 128), (64, 4, 64)):
+        q = rnd((1, 512, H, hd), dt)
+        k = rnd((1, 512, KVH, hd), dt)
+        v = rnd((1, 512, KVH, hd), dt)
+        note("flash_attention", flash_attention_fwd(q, k, v).float(),
+             flash_attention_ref(q.float(), k.float(), v.float()),
+             atol=1e-4, rtol=2.0 ** -7)
+    log("kernels", "flash at 16 over 1 of 256 (fp32 S=300, bf16 S="
+        f"{RG_PROMPT}; windows None/64/{RG_WINDOW}), 48 over 8 of 128 and "
+        f"64 over 4 of 64 (bf16, S=512): err {errs['flash_attention']:.3g}")
+    torch.cuda.empty_cache()
+    return errs, t
+
+
+# ---------------------------------------------------------------------------
 # Mamba2 (mamba2-130m): the SSD kernel (phase 2), parity (phase 3) and the
 # model at published size (phase 9)
 # ---------------------------------------------------------------------------
@@ -4202,6 +4451,7 @@ def trained_phase(torch, dev):
     backward); the offline exit counts and the decodes launch the AR and
     tree kernels."""
     import dataclasses
+    import math
     from repro_torch import kernels as K
     from repro_torch.data import DataPipeline
     from repro_torch.models.common import tree_map
@@ -4331,22 +4581,31 @@ def df_parity(torch, dev):
 
 
 def df_whole_batch(torch, label: str, model, params, sw, strategy, steps,
-                   path, quant=None):
-    """One whole-batch session (B=4 prompts of 128, dense cache, ``steps``
-    steps) with its launch counts zeroed right before and read right
-    after; the path's kernels must have launched."""
+                   path, quant=None, phase: str = "dense",
+                   prompt_len: int = FULL_PROMPT, patches=None, out=None):
+    """One whole-batch session (B=4 prompts of ``prompt_len``, dense cache,
+    ``steps`` steps; ``patches`` (B, P, 1024) image patches prepended, the
+    session then sized for them) with its launch counts zeroed right
+    before and read right after; the path's kernels must have launched.
+    ``out``: a list that receives each row's emitted tokens."""
     import numpy as np
     from repro_torch import kernels as K
     from repro_torch.api import Engine
     vocab = model.cfg.vocab_size
-    prompts = np.random.default_rng(1).integers(0, vocab, (B, FULL_PROMPT))
+    prompts = np.random.default_rng(1).integers(0, vocab, (B, prompt_len))
+    batch, max_seq = prompts, None
+    if patches is not None:
+        batch = {"tokens": prompts, "patches": patches}
+        max_seq = (patches.shape[1] + prompt_len
+                   + steps * strategy.emit_width(model) + 2)
     engine = Engine.create(model, params, sw, strategy=strategy, quant=quant)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()                     # ---- the main path ----
     session = engine.new_session()
     t0 = time.perf_counter()
-    session.prefill(prompts, max_new_tokens=steps * engine.emit_width + 1)
+    first = session.prefill(batch, max_new_tokens=steps * engine.emit_width
+                            + 1, max_seq=max_seq)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     res = []
@@ -4359,13 +4618,18 @@ def df_whole_batch(torch, label: str, model, params, sw, strategy, steps,
     toks = sum(int(r.counts.sum()) for r in res)
     require(all(((r.tokens >= 0) & (r.tokens < vocab)).all() for r in res),
             f"{label}: token out of vocabulary")
+    if out is not None:
+        out.extend([first.row_tokens(b) + sum(
+            (r.row_tokens(b) for r in res), []) for b in range(B)])
     require(bool(torch.isfinite(session._state.h_last.float()).all()),
             f"{label}: non-finite hidden state")
     missing = [k for k in path if launches[k] == 0]
     require(not missing, f"{label}: kernels never launched: {missing}")
     exits = sum(int(r.exited.sum()) for r in res)
     units = sum(r.units_run for r in res) / steps
-    log("dense", f"{label}: prefill {B}x{FULL_PROMPT} in {t_prefill:.3f} s;"
+    extra = "" if patches is None else f" + {patches.shape[1]} patches"
+    log(phase, f"{label}: prefill {B}x{prompt_len}{extra} in "
+        f"{t_prefill:.3f} s;"
         f" {steps} steps in {t_decode:.3f} s = {toks / t_decode:.2f} "
         f"tokens/s ({t_decode / steps * 1e3:.2f} ms/step); exits "
         f"{exits}; mean units_run {units:.2f} of {model.num_exit_points}; "
@@ -4376,12 +4640,13 @@ def df_whole_batch(torch, label: str, model, params, sw, strategy, steps,
     return launches
 
 
-def df_serve(torch, label: str, run, params, sw, path, kv_quant=False):
-    """Phase 5's 16 requests (DF_SERVE_NEW new tokens each, blocking
-    admission) through ServingEngine(cache="paged") with max_batch 8 and
-    4096-token
-    rows of 128-token pages; launches zeroed right before the requests and
-    read right after the last completes."""
+def df_serve(torch, label: str, run, params, sw, path, kv_quant=False,
+             phase: str = "dense", n_reqs: int = SERVE_REQS, flags=None):
+    """The first ``n_reqs`` of phase 5's 16 requests (DF_SERVE_NEW new
+    tokens each, blocking admission) through ServingEngine(cache="paged")
+    with max_batch 8 and 4096-token rows of 128-token pages (``flags``:
+    further ModelFlags fields); launches zeroed right before the requests
+    and read right after the last completes."""
     import dataclasses
     from repro_torch import kernels as K
     from repro_torch.models.model import ModelFlags, build_model
@@ -4393,10 +4658,11 @@ def df_serve(torch, label: str, run, params, sw, path, kv_quant=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     se = ServingEngine(build_model(run, ModelFlags(**ALL_KERNELS,
-                                                   kv_quant=kv_quant)),
+                                                   kv_quant=kv_quant,
+                                                   **(flags or {}))),
                        params, sw, cache="paged", prefill_chunk=0)
     mgr = se.session.cache_mgr
-    prompts = serve_prompts(vocab)
+    prompts = serve_prompts(vocab)[:n_reqs]
     K.reset_launches()                     # ---- the main path ----
     t0 = time.perf_counter()
     reqs = [se.submit(p, max_new_tokens=DF_SERVE_NEW) for p in prompts]
@@ -4417,8 +4683,8 @@ def df_serve(torch, label: str, run, params, sw, path, kv_quant=False):
     missing = [k for k in path if launches[k] == 0]
     require(not missing, f"{label}: kernels never launched: {missing}")
     tokens = sum(len(r.output) for r in reqs)
-    log("dense", f"{label}: {SERVE_REQS} requests through {SERVE_BATCH} "
-        f"slots in {wall:.3f} s = {SERVE_REQS / wall:.3f} requests/s, "
+    log(phase, f"{label}: {n_reqs} requests through {SERVE_BATCH} "
+        f"slots in {wall:.3f} s = {n_reqs / wall:.3f} requests/s, "
         f"{tokens / wall:.2f} tokens/s; {ticks} ticks, "
         f"{wall / ticks * 1e3:.2f} ms/tick; pages free at the end "
         f"{mgr.free_pages} of {mgr.num_pages}; peak card memory "
@@ -4770,6 +5036,213 @@ FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
                         "splitK", "nvjet")))
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the MoE, RG-LRU hybrid and frontend configs
+# ---------------------------------------------------------------------------
+# (name, layers or None for the published depth): DBRX's and Qwen3-MoE's
+# published widths with their depth cut to what one card holds beside its
+# runs (the whole models need multi-GPU: 264 and 470 GB of bf16 weights)
+NF_RUNS = (("dbrx-132b", 8), ("qwen3-moe-235b-a22b", 8),
+           ("recurrentgemma-9b", None), ("internvl2-26b", None),
+           ("hubert-xlarge", None))
+NF_SERVE_REQS = 8             # requests of phase 14's serving runs
+NF_PATCHES = 256              # internvl2-26b's image patches
+HUBERT_S, HUBERT_TRAIN_STEPS = 512, 3
+VLM_PATH = ("decode_attention", "flash_attention", "argmax_verify")
+
+
+def _nf_seed(torch, dev, label, run, seed, layers):
+    t0 = time.perf_counter()
+    params, sw = _seeded(torch, dev, run, seed)
+    torch.cuda.synchronize()
+    cfg = run.model
+    n_params = sum(x.numel() for x in _leaves(params))
+    depth = ("published size" if layers is None else
+             f"published widths, {layers} of its "
+             f"{df_config(label, None, 'bfloat16').model.num_layers} layers "
+             "(the whole model does not fit one card)")
+    extra = ""
+    if cfg.moe is not None:
+        extra = (f", {cfg.moe.num_experts} experts top-"
+                 f"{cfg.moe.num_experts_per_tok} of width "
+                 f"{cfg.moe.expert_d_ff}")
+    if cfg.rglru is not None:
+        extra = (f", RG-LRU width {cfg.rglru.lru_width}, window "
+                 f"{cfg.rglru.window}")
+    log("newfam", f"{label} ({depth}): {n_params / 1e9:.3f} B params, "
+        f"{n_params * 2 / 1e9:.1f} GB in bf16, seeded in "
+        f"{time.perf_counter() - t0:.1f} s; D={cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} of "
+        f"{cfg.resolved_head_dim()}, V={cfg.vocab_size}{extra}")
+    return params, sw
+
+
+def _moe_forms_agree(torch, label, run, params, dense, topk):
+    """Whole-batch token streams of the two MoE forms: equal, or each
+    differing row reported with the plain dense model's top-2 margin at
+    its first differing token, beside the bf16 spacing at the top logit
+    (the forms sum the experts in other orders)."""
+    import math
+    import numpy as np
+    from repro_torch.models.model import build_model
+    if dense == topk:
+        log("newfam", f"{label}: moe_impl dense and topk emit the same "
+            f"{sum(map(len, dense))} tokens")
+        return
+    plain = build_model(run)
+    prompts = np.random.default_rng(1).integers(
+        0, run.model.vocab_size, (B, FULL_PROMPT))
+    notes = []
+    for b, (a, c) in enumerate(zip(dense, topk)):
+        j = next((j for j, (x, y) in enumerate(zip(a, c)) if x != y), None)
+        if j is None:
+            continue
+        margin, top = top2_margin(torch, plain, params,
+                                  list(prompts[b]) + a[:j])
+        ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 0.0
+        notes.append(f"row {b} token {j}: margin {margin:.4g} (top "
+                     f"{top:.4g}, bf16 spacing {ulp:.4g})")
+        require(margin <= 8 * ulp, f"{label}: the MoE forms diverge at row "
+                f"{b} token {j} with a top-2 margin of {margin:.4g}, not a "
+                "near-tie")
+    log("newfam", f"{label}: moe_impl dense and topk diverge at near-ties "
+        "only: " + "; ".join(notes))
+
+
+def new_family_phase(torch, dev):
+    """Phase 14. Returns the launches by path."""
+    import numpy as np
+    from repro_torch.api import DenseStrategy, SpecEEStrategy, TreeStrategy
+    from repro_torch.core.tree import TreeSpec
+    from repro_torch.models.model import ModelFlags, build_model
+    t_phase = time.perf_counter()
+    by_path = {}
+    for name, layers in NF_RUNS:
+        t_model = time.perf_counter()
+        run = df_config(name, layers, "bfloat16")
+        cfg = run.model
+        if cfg.frontend == "audio_frames":
+            by_path.update(hubert_run(torch, dev, run))
+            log("newfam", f"{name} in {time.perf_counter() - t_model:.1f} s")
+            continue
+        params, sw = _nf_seed(torch, dev, name, run, 9, layers)
+        if cfg.moe is not None:
+            streams = {}
+            for impl in ("dense", "topk"):
+                streams[impl] = []
+                by_path[f"newfam_{name}_ar_{impl}"] = df_whole_batch(
+                    torch, f"{name} AR moe_impl={impl}", build_model(
+                        run, ModelFlags(**ALL_KERNELS, moe_impl=impl)),
+                    params, sw, SpecEEStrategy(), DF_STEPS, DF_AR_PATH,
+                    phase="newfam", out=streams[impl])
+                torch.cuda.empty_cache()
+            _moe_forms_agree(torch, name, run, params, streams["dense"],
+                             streams["topk"])
+            by_path[f"newfam_{name}_serve"] = df_serve(
+                torch, f"{name} serve moe_impl=topk", run, params, sw,
+                DF_SERVE_PATH, phase="newfam", n_reqs=NF_SERVE_REQS,
+                flags=dict(moe_impl="topk"))
+            torch.cuda.empty_cache()
+            by_path[f"newfam_{name}_tree"] = df_whole_batch(
+                torch, f"{name} tree moe_impl=topk", build_model(
+                    run, ModelFlags(**TREE_KERNELS, moe_impl="topk")),
+                params, sw, TreeStrategy(tree=TreeSpec(TREE_DEPTH,
+                                                       TREE_BRANCH)),
+                DF_TREE_STEPS, TREE_PATH, phase="newfam")
+        elif cfg.rglru is not None:
+            by_path[f"newfam_{name}_ar"] = df_whole_batch(
+                torch, f"{name} AR, prompt {RG_PROMPT} > window "
+                f"{cfg.rglru.window}", build_model(
+                    run, ModelFlags(**ALL_KERNELS)), params, sw,
+                SpecEEStrategy(), DF_STEPS, DF_AR_PATH, phase="newfam",
+                prompt_len=RG_PROMPT)
+            torch.cuda.empty_cache()
+            by_path[f"newfam_{name}_serve"] = df_serve(
+                torch, f"{name} serve (paged attention, per-row RG-LRU "
+                "state)", run, params, sw, DF_SERVE_PATH, phase="newfam",
+                n_reqs=NF_SERVE_REQS)
+        else:
+            patches = np.random.default_rng(3).standard_normal(
+                (B, NF_PATCHES, 1024)).astype(np.float32)
+            by_path[f"newfam_{name}_dense"] = df_whole_batch(
+                torch, f"{name} dense decode over {NF_PATCHES} patches + "
+                "text", build_model(run, ModelFlags(**ALL_KERNELS)), params,
+                None, DenseStrategy(), DF_STEPS, VLM_PATH, phase="newfam",
+                patches=patches)
+        del params, sw
+        torch.cuda.empty_cache()
+        log("newfam", f"{name} in {time.perf_counter() - t_model:.1f} s")
+    log("newfam", f"phase in {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def hubert_run(torch, dev, run):
+    """hubert-xlarge at published size: the encoder's frame logits over
+    B x HUBERT_S frames (bf16; bidirectional attention, which the JAX
+    package computes without a kernel, so the path launches none), then
+    HUBERT_TRAIN_STEPS TrainLoop steps in fp32 on the pipeline's frame
+    batches; finite logits and losses."""
+    import dataclasses
+    import math
+    from repro_torch import kernels as K
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.train import TrainLoop
+    run32 = dataclasses.replace(
+        run, model=dataclasses.replace(run.model, dtype="float32"),
+        train=dataclasses.replace(run.train, global_batch=B,
+                                  seq_len=HUBERT_S,
+                                  steps=HUBERT_TRAIN_STEPS))
+    model32 = build_model(run32)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    t0 = time.perf_counter()
+    params = model32.init(gen, dev)
+    n_params = sum(x.numel() for x in _leaves(params))
+    log("newfam", f"hubert-xlarge (published size): {n_params / 1e9:.3f} B "
+        f"params, seeded in fp32 in {time.perf_counter() - t0:.1f} s")
+    model = build_model(run, ModelFlags(**ALL_KERNELS))
+    p16 = tree_map(lambda x: x.to(torch.bfloat16), params)
+    batch = DataPipeline(run.model, B, HUBERT_S, seed=4).next()
+    frames = torch.as_tensor(batch["frames"], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()                     # ---- the main path ----
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache, _ = model.prefill(p16, {"frames": frames})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    require(cache is None and tuple(logits.shape) == (
+        B, HUBERT_S, run.model.vocab_size), "hubert-xlarge: frame logits "
+        f"of shape {tuple(logits.shape)}")
+    require(bool(torch.isfinite(logits).all()),
+            "hubert-xlarge: non-finite frame logits")
+    log("newfam", f"hubert-xlarge prefill frame logits {B}x{HUBERT_S} in "
+        f"{wall:.3f} s = {B * HUBERT_S / wall:.1f} frames/s; peak card "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"launches {sum(launches.values())} (bidirectional attention "
+        "takes no kernel, as in the JAX package)")
+    del p16, logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(model32, run32, params)
+    t0 = time.perf_counter()
+    losses = [loop.run_steps(1)["loss"] for _ in range(HUBERT_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(all(math.isfinite(float(x)) for x in losses),
+            f"hubert-xlarge: non-finite training loss {losses}")
+    log("newfam", f"hubert-xlarge TrainLoop fp32, batch {B}x{HUBERT_S} "
+        f"frames: {HUBERT_TRAIN_STEPS} steps in {wall:.3f} s, losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f"; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del loop, params
+    return {"newfam_hubert-xlarge_prefill": launches}
+
+
+
 def profile_steps(torch, model, params, sw, prompts, step_s: float,
                   n: int = 4, phase: str = "profile") -> None:
     """torch.profiler over ``n`` more whole-batch SpecEE steps."""
@@ -4885,6 +5358,10 @@ def main() -> int:
     for name, err in errs_df.items():
         errs[name] = max(errs.get(name, 0.0), err)
     torch.cuda.empty_cache()
+    errs_nf, t_nf = check_new_family_kernels(torch, dev)
+    for name, err in errs_nf.items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    torch.cuda.empty_cache()
     parity(torch, dev)
     torch.cuda.empty_cache()
     mamba_parity(torch, dev)
@@ -4916,6 +5393,8 @@ def main() -> int:
     by_path.update(dense_family_phase(torch, dev))
     torch.cuda.empty_cache()
     by_path.update(serving_rest_phase(torch, dev))
+    torch.cuda.empty_cache()
+    by_path.update(new_family_phase(torch, dev))
 
     kernels = []
     for name in build.SOURCES:
@@ -4964,6 +5443,14 @@ def main() -> int:
                 shape: {"ms": r[0], "plain_ms": r[1], "library_ms": r[2],
                         "bound_ms": r[3][0], "bound_by": r[3][1]}
                 for shape, r in t_df[name].items()}
+        if name in t_nf:
+            # phase 2 at the new families' head shapes (n_rep 6 at 128, 16
+            # at 64 and 16 at 256 in the split-KV kernels, flash at hd
+            # 256); library_ms as at_dense_family's
+            row["at_new_families"] = {
+                shape: {"ms": r[0], "plain_ms": r[1], "library_ms": r[2],
+                        "bound_ms": r[3][0], "bound_by": r[3][1]}
+                for shape, r in t_nf[name].items()}
         if name == "ssd_chunk":
             # library_ms is null: no one PyTorch call computes the term
             row["yardstick_ms"] = timing[name][4]    # bmm + batched product

@@ -401,14 +401,21 @@ class DecodeSession:
                 eos_token: Optional[int] = None,
                 max_seq: Optional[int] = None) -> StepResult:
         """Prefill the whole batch. ``prompts``: (B, T) int tokens (array,
-        tensor or list) or a ``{"tokens": ...}`` dict. Returns the
+        tensor or list) or a batch dict with ``"tokens"`` and, for a vision
+        config, ``"patches"``, carried to the model as JAX's session does.
+        As there, the default ``max_seq`` counts the text alone: a prompt
+        with prepended patches needs an explicit one. Returns the
         first-token StepResult (the prefill's greedy argmax counts against
         the budget)."""
         e = self.engine
-        tokens = prompts["tokens"] if isinstance(prompts, dict) else prompts
-        if not isinstance(tokens, torch.Tensor):
-            tokens = torch.as_tensor(np.asarray(tokens))
-        tokens = tokens.to(device=e.device, dtype=torch.int32)
+        batch = {}
+        for name, x in (prompts.items() if isinstance(prompts, dict)
+                        else [("tokens", prompts)]):
+            if not isinstance(x, torch.Tensor):
+                x = torch.as_tensor(np.asarray(x))
+            batch[name] = x.to(device=e.device, dtype=torch.int32
+                               if name == "tokens" else None)
+        tokens = batch["tokens"]
         B, T = tokens.shape
         if max_seq is None:
             max_seq = self._max_seq
@@ -418,9 +425,8 @@ class DecodeSession:
             max_seq = T + new + e.emit_width + 1
         self._max_seq = max_seq
         params, sw = e.prefill_weights()
-        first, state = e.strategy.init_state(e.model, params, sw,
-                                             {"tokens": tokens}, max_seq,
-                                             prng=self._prng_seed)
+        first, state = e.strategy.init_state(e.model, params, sw, batch,
+                                             max_seq, prng=self._prng_seed)
         self.cache_mgr = self._make_manager(B, max_seq)
         self._state = state._replace(
             cache=self.cache_mgr.from_prefill(state.cache))

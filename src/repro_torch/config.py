@@ -11,12 +11,28 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Optional, Tuple
 
-ATTN = "attention"            # global causal attention
+ATTN = "attention"            # global causal (or bidirectional for
+#                               encoders) attention
 LOCAL_ATTN = "local_attention"  # sliding-window attention
+RGLRU = "rglru"               # Real-Gated LRU recurrence (RecurrentGemma)
 SSD = "ssd"                   # Mamba2 state-space duality block
 
 FAMILY_DENSE = "dense"
+FAMILY_MOE = "moe"
+FAMILY_VLM = "vlm"
+FAMILY_AUDIO = "audio"
+FAMILY_HYBRID = "hybrid"
 FAMILY_SSM = "ssm"
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    num_experts_per_tok: int
+    # d_ff of each expert (may differ from the dense d_ff field)
+    expert_d_ff: int
+    # load-balancing loss weight used in training
+    router_aux_loss_weight: float = 0.01
 
 
 @dataclass(frozen=True)
@@ -36,9 +52,18 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU hyperparameters."""
+    lru_width: Optional[int] = None       # defaults to d_model
+    conv_kernel: int = 4
+    window: int = 2048                    # local attention window for
+    #                                       LOCAL_ATTN blocks
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | ssm (the families the port has)
+    family: str                 # dense | moe | vlm | audio | hybrid | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -54,10 +79,12 @@ class ModelConfig:
     rope_theta: float = 10000.0
     gated_mlp: bool = True
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    # modality frontend: "none" here (the frontends are a later ROADMAP
-    # item); read by ``Model.supports_chunked_prefill`` as in the JAX code
+    rglru: Optional[RGLRUConfig] = None
+    # modality frontend stub: "none" | "vision_patches" | "audio_frames"
     frontend: str = "none"
+    frontend_tokens: int = 256  # patches/frames prepended by the stub
     dtype: str = "bfloat16"     # compute/weight dtype on the card
 
     def resolved_head_dim(self) -> int:
@@ -78,8 +105,8 @@ class ModelConfig:
         return tuple([kind] * self.num_layers)
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head) for the
-        families the port has (``repro/config.py:129``)."""
+        """Analytic parameter count (embedding + blocks + head), as
+        ``repro/config.py:129`` counts it."""
         d = self.d_model
         hd = self.resolved_head_dim()
         n_mlp_mats = 3 if self.gated_mlp else 2
@@ -91,8 +118,15 @@ class ModelConfig:
                 total += (d * self.num_heads * hd
                           + 2 * d * self.num_kv_heads * hd
                           + self.num_heads * hd * d)
-                total += n_mlp_mats * d * self.d_ff
+                total += self._ffn_count(n_mlp_mats, router=True)
                 total += 2 * d                   # two norms
+            elif kind == RGLRU:
+                w = (self.rglru.lru_width or d) if self.rglru else d
+                k = self.rglru.conv_kernel if self.rglru else 4
+                # conv + in/out projections + gates (a, input gate)
+                total += 2 * d * w + w * d + 2 * w * w + k * w
+                total += self._ffn_count(n_mlp_mats, router=False)
+                total += 2 * d
             elif kind == SSD:
                 s = self.ssm or SSMConfig()
                 di = s.d_inner(d)
@@ -107,6 +141,17 @@ class ModelConfig:
         total += d                               # final norm
         return total
 
+    def _ffn_count(self, n_mlp_mats: int, router: bool) -> int:
+        """One block's FFN parameters: the expert banks (and, in an
+        attention block, the router) under MoE, else the MLP. JAX counts
+        no router for an RG-LRU block; the count is its."""
+        d = self.d_model
+        if self.moe is None:
+            return n_mlp_mats * d * self.d_ff
+        e = self.moe
+        return (e.num_experts * n_mlp_mats * d * e.expert_d_ff
+                + (d * e.num_experts if router else 0))
+
     def smoke(self) -> "ModelConfig":
         """Reduced same-family config for CPU tests: ``repro.config``'s
         reduction of every field the port has."""
@@ -119,6 +164,8 @@ class ModelConfig:
             d_ff=256,
             vocab_size=512,
             head_dim=32 if self.num_heads else 0,
+            frontend_tokens=(8 if self.frontend != "none"
+                             else self.frontend_tokens),
             dtype="float32")
         # kv == heads (MHA) stays MHA; otherwise kv < heads
         if self.num_heads:
@@ -128,9 +175,16 @@ class ModelConfig:
                 kw["num_kv_heads"] = 1
             else:
                 kw["num_kv_heads"] = 2
+        if self.moe is not None:
+            kw["moe"] = MoEConfig(
+                num_experts=4,
+                num_experts_per_tok=min(2, self.moe.num_experts_per_tok),
+                expert_d_ff=128)
         if self.ssm is not None:
             kw["ssm"] = SSMConfig(d_state=16, expand=2, head_dim=32,
                                   conv_kernel=4, chunk_size=32)
+        if self.rglru is not None:
+            kw["rglru"] = RGLRUConfig(lru_width=128, conv_kernel=4, window=64)
         if self.block_pattern:
             n = kw["num_layers"]
             kw["block_pattern"] = tuple(

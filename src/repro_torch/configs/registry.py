@@ -6,16 +6,19 @@ from typing import Callable, Dict, List
 
 from repro_torch.config import RunConfig
 
-# The archs the port registers, in the JAX registry's order
-# (``repro/configs/registry.py``). Of JAX's list the port still lacks
-# dbrx-132b and qwen3-moe-235b-a22b (MoE), internvl2-26b and hubert-xlarge
-# (frontends) and recurrentgemma-9b (RG-LRU): ROADMAP queue 1, items 5-7.
+# The archs the port registers: the JAX registry's list, in its order
+# (``repro/configs/registry.py``).
 ARCHS: List[str] = [
     # assigned pool
+    "dbrx-132b",
+    "qwen3-moe-235b-a22b",
     "deepseek-7b",
     "minicpm-2b",
     "command-r-plus-104b",
     "starcoder2-15b",
+    "internvl2-26b",
+    "hubert-xlarge",
+    "recurrentgemma-9b",
     "mamba2-130m",
     # paper's own models (for benchmarks vs. the paper's tables)
     "llama2-7b",

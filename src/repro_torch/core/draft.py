@@ -22,14 +22,15 @@ from repro_torch.models.common import Params
 
 def _draft_cfg(cfg: ModelConfig) -> ModelConfig:
     """The draft layer reuses the target's geometry but is always 1 layer
-    of attention: a target without attention heads (Mamba2) gives it 4
-    heads and 4 KV heads of ``d_model // 4``."""
+    of attention with a dense MLP (a MoE target's draft drops the experts):
+    a target without attention heads (Mamba2) gives it 4 heads and 4 KV
+    heads of ``d_model // 4``."""
     kv = cfg.num_kv_heads if cfg.num_kv_heads > 0 else 4
     heads = cfg.num_heads if cfg.num_heads > 0 else 4
     return dataclasses.replace(
         cfg, num_layers=1, num_heads=heads, num_kv_heads=kv,
         head_dim=cfg.resolved_head_dim() or cfg.d_model // heads,
-        block_pattern=(), causal=True)
+        block_pattern=(), causal=True, moe=None)
 
 
 def init_draft(cfg: ModelConfig, gen: torch.Generator, dtype,

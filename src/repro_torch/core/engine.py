@@ -116,6 +116,12 @@ def init_decode_state(model: Model, params: Params,
     """Prefill the target (+ draft when ``sw`` is given) and build the
     decode state. Returns (first greedy token (B,) int32, state).
     ``prng``: the session's sampling seed, carried in the state."""
+    if sw is not None and "patches" in batch:
+        raise ValueError(
+            "SpecEE's draft fuses each prompt token's embedding with the "
+            "target's hidden at that position; a prompt with prepended "
+            "image patches has more hiddens than tokens (the JAX package "
+            "fails here too): decode it with the dense strategy")
     logits, cache, extras = model.prefill(params, batch, max_seq=max_seq)
     h_all = extras["h_final"]
     if sw is not None:

@@ -59,8 +59,8 @@ def _collect_batch(model: Model, params: Params, draft_params: Params,
         for r in range(reps):
             up = index_tree(params["segments"][seg], r)
             for i, kind in enumerate(unit):
-                h, _ = _block_seq(model.cfg, kind, up[f"u{i}"], h, positions,
-                                  model.flags)
+                h, _, _ = _block_seq(model.cfg, kind, up[f"u{i}"], h,
+                                     positions, model.flags)
             hs.append(h)
     hd = draft_lib.draft_forward_seq(model.cfg, draft_params,
                                      model.embed(params, tokens),

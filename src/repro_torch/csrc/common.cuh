@@ -136,9 +136,12 @@ __device__ __forceinline__ void block_best(float& v, int& i, float* sv,
 
 // Runs LAUNCH<T, NREP, E>::run(args...) of an attention kernel for a
 // runtime (dtype, n_rep, hd), E = hd / 32; false when no instance exists
-// (n_rep in {1, 2, 4, 8}, hd in {32, 64, 128}; and n_rep 12 at hd 128,
-// StarCoder2-15B's 48 heads over 4 KV heads and Command R+'s 96 over 8:
-// each instance adds to the build's time, so only the one in use).
+// (n_rep in {1, 2, 4, 8}, hd in {32, 64, 128}; and, one instance each for
+// the configs that need them, since each adds to the build's time: n_rep
+// 12 at hd 128, StarCoder2-15B's 48 heads over 4 KV heads and Command R+'s
+// 96 over 8; n_rep 6 at hd 128, DBRX's and InternVL2's 48 over 8; n_rep 16
+// at hd 64, Qwen3-MoE's 64 over 4; n_rep 16 at hd 256, RecurrentGemma's 16
+// heads over one).
 template <template <typename, int, int> class LAUNCH, typename... Args>
 bool dispatch(int dtype, int n_rep, int hd, Args... args) {
 #define DA_CASE_E(T, R)                                              \
@@ -154,10 +157,18 @@ bool dispatch(int dtype, int n_rep, int hd, Args... args) {
     case 2: DA_CASE_E(T, 2)                                          \
     case 4: DA_CASE_E(T, 4)                                          \
     case 8: DA_CASE_E(T, 8)                                          \
+    case 6:                                                          \
+      if (hd != 128) return false;                                   \
+      LAUNCH<T, 6, 4>::run(args...);                                 \
+      return true;                                                   \
     case 12:                                                         \
       if (hd != 128) return false;                                   \
       LAUNCH<T, 12, 4>::run(args...);                                \
       return true;                                                   \
+    case 16:                                                         \
+      if (hd == 64) { LAUNCH<T, 16, 2>::run(args...); return true; } \
+      if (hd == 256) { LAUNCH<T, 16, 8>::run(args...); return true; } \
+      return false;                                                  \
     default: return false;                                           \
   }
   if (dtype == DT_BF16) {

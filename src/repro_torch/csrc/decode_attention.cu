@@ -10,8 +10,9 @@
 // decode_attention.py, which walks key tiles in order with online-softmax
 // scratch and skips dead tiles with pl.when.
 //
-// Grid (KVH, B, ceil(S / split)), split from S, hd and the element size
-// alone (pa::dense_split_keys: 2048 keys at hd = 128 in bf16), never from
+// Grid (KVH * HS, B, ceil(S / split)), split from S, hd, the element size
+// and the grid alone (pa::dense_split_keys: 2048 keys at hd = 128 in bf16;
+// pa::fill_split where the grid would leave SMs idle), never from
 // cache_len: the full run's 162-slot cache is one split per (row, KV head),
 // 128 CTAs for Llama-2-7B at B = 4, with no merge; a 4096-slot cache is 2
 // splits, of which one past a row's length returns at once.
@@ -49,10 +50,21 @@ int decode_attention_split_keys(int S, int hd, int esize) {
   return pa::dense_split_keys(S, hd, esize);
 }
 
+// The split a launch over B rows of KVH KV heads with n_rep query heads
+// each takes: the shape rule above, cut shorter by pa::fill_split where
+// one split index would leave SMs idle.
+int decode_attention_grid_split(int S, int hd, int esize, int B, int KVH,
+                                int n_rep) {
+  return pa::fill_split(pa::dense_split_keys(S, hd, esize), S,
+                        (long long)B * KVH * pa::head_split(n_rep, hd),
+                        pa::floor_keys(hd, esize), 1);
+}
+
 // q (B, 1, H, hd), k/v (B, S, KVH, hd) of one dtype, 16-byte aligned,
 // cache_len (B,) int32, out (B, 1, H, hd) in q's dtype. ws: fp32 workspace
-// of B * KVH * ceil(S / split) * n_rep * (hd + 2) floats; tickets: B * KVH
-// int32, zero before the call and zero after it. window <= 0 means no
+// of B * KVH * ceil(S / split) * n_rep * (hd + 2) floats; tickets: B * H
+// int32 (one per virtual KV head, KVH * HS <= H), zero before the call and
+// zero after it. window <= 0 means no
 // window. Returns cudaErrorInvalidValue for an (n_rep, hd) pair without an
 // instance (rt::dispatch) or a split out of range.
 int decode_attention_launch(const void* q, const void* k, const void* v,

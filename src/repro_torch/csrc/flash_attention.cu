@@ -24,7 +24,11 @@
 //          ldmatrix); the online softmax in registers (row max and sum by
 //          quad shuffles, scores never stored); O += P V with P taken
 //          straight from the score fragments as the A operand and V by
-//          ldmatrix.trans. P is split into two bf16 parts, hi = bf16(p) and
+//          ldmatrix.trans. At hd = 256 (RecurrentGemma) the O accumulator
+//          alone takes 128 registers a thread, so that instance takes
+//          32-key tiles (101 KB of shared memory, two CTAs per SM) and
+//          reloads the Q fragments from shared memory at every key tile
+//          instead of holding all 64 of their registers. P is split into two bf16 parts, hi = bf16(p) and
 //          lo = bf16(p - hi), and multiplied twice, so the product keeps ~16
 //          bits of p and the output stays within the tolerance of the fp32
 //          plain version. Only diagonal, window and ragged tiles are masked;
@@ -236,6 +240,7 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
     case 32: return launch<32>(q, k, v, out, B, S, H, KVH, causal, window, scale, st);
     case 64: return launch<64>(q, k, v, out, B, S, H, KVH, causal, window, scale, st);
     case 128: return launch<128>(q, k, v, out, B, S, H, KVH, causal, window, scale, st);
+    case 256: return launch<256>(q, k, v, out, B, S, H, KVH, causal, window, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -252,11 +257,19 @@ using rt::split_bf16;
 
 constexpr int FM_THREADS = 128;   // 4 warps x 16 query rows
 constexpr int FM_BQ = 64;         // query rows per CTA
-constexpr int FM_BK = 64;         // keys per tile
+
+// keys per tile: 64, and 32 at hd = 256 so two CTAs fit an SM
+template <int HD>
+__host__ __device__ constexpr int fm_bk() { return HD > 128 ? 32 : 64; }
+
+// whether a thread holds its Q fragments (HD / 4 registers) for the whole
+// loop; at hd = 256 they are reloaded from shared memory at every tile
+template <int HD>
+__host__ __device__ constexpr bool fm_q_in_regs() { return HD <= 128; }
 
 template <int HD>
 constexpr int fm_smem_bytes() {   // Q tile + 2 K and 2 V tiles, padded rows
-  return (FM_BQ + 4 * FM_BK) * (HD + 8) *
+  return (FM_BQ + 4 * fm_bk<HD>()) * (HD + 8) *
          static_cast<int>(sizeof(__nv_bfloat16));
 }
 
@@ -269,6 +282,8 @@ flash_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
                            int KVH, int causal, int window,
                            float scale_log2) {
   using bf16 = __nv_bfloat16;
+  constexpr int FM_BK = fm_bk<HD>();
+  constexpr bool QREG = fm_q_in_regs<HD>();
   constexpr int ST = HD + 8;            // padded row: ldmatrix conflict-free
   constexpr int CH = HD / 8;            // 16-byte chunks per row
   constexpr int NT = HD / 8;            // output n-tiles per warp
@@ -308,7 +323,7 @@ flash_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
   load_kv(0, kt_lo);
   cp_async_commit();                    // group: Q and the first K/V tile
 
-  uint32_t qf[HD / 16][4];
+  uint32_t qf[QREG ? HD / 16 : 1][4];
   float o[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -324,30 +339,37 @@ flash_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();                 // tile kt (and Q) has landed
     __syncthreads();
-    if (kt == kt_lo) {
+    if constexpr (QREG) {
+      if (kt == kt_lo) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * ST + kk * 16 +
-                                (lane >> 4) * 8);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * ST + kk * 16 +
+                                  (lane >> 4) * 8);
+      }
     }
     const bf16* ks = Ks + buf * FM_BK * ST;
     const bf16* vs = Vs + buf * FM_BK * ST;
 
-    float s[FM_BK / 8][4];              // 16 rows x 64 keys of scores
+    float s[FM_BK / 8][4];              // 16 rows x BK keys of scores
 #pragma unroll
     for (int j = 0; j < FM_BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int qi = QREG ? kk : 0;
+      if constexpr (!QREG)
+        ldmatrix_x4(qf[0], Qs + (warp * 16 + (lane & 15)) * ST + kk * 16 +
+                               (lane >> 4) * 8);
 #pragma unroll
       for (int np = 0; np < FM_BK / 16; ++np) {   // key n-tiles 2np, 2np+1
         uint32_t r[4];
         ldmatrix_x4(r, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * ST +
                            kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
+        mma_bf16(s[2 * np], qf[qi], r[0], r[1]);
+        mma_bf16(s[2 * np + 1], qf[qi], r[2], r[3]);
       }
+    }
 
     // mask only the tiles that cross the ragged end, the diagonal or the
     // window's edge
@@ -473,6 +495,7 @@ int dispatch_mma(int hd, const void* q, const void* k, const void* v,
     case 32: return launch_mma<32>(q, k, v, out, B, S, H, KVH, causal, window, scale, st);
     case 64: return launch_mma<64>(q, k, v, out, B, S, H, KVH, causal, window, scale, st);
     case 128: return launch_mma<128>(q, k, v, out, B, S, H, KVH, causal, window, scale, st);
+    case 256: return launch_mma<256>(q, k, v, out, B, S, H, KVH, causal, window, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -487,7 +510,8 @@ const char* flash_attention_error(int code) {
 
 // q (B, S, H, hd), k/v (B, S, KVH, hd) of one dtype, out (B, S, H, hd) in
 // q's dtype. causal != 0 applies the causal mask and, when window > 0, the
-// sliding window. Returns cudaErrorInvalidValue for hd outside {32, 64, 128},
+// sliding window. Returns cudaErrorInvalidValue for hd outside {32, 64, 128,
+// 256},
 // H not a multiple of KVH, or (bf16) a pointer off 16 bytes.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int S, int H, int KVH, int hd,

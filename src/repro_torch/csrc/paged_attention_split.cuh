@@ -11,7 +11,11 @@
 //
 // Work unit: one CTA per (split j, KV head g, row b) of `split` keys (paged:
 // a multiple of the page size; chosen on the host from the shapes alone,
-// never from cache_len, so the grid needs no sync). A CTA whose split misses
+// never from cache_len, so the grid needs no sync), or, where one KV head
+// has more query heads than a CTA's registers hold (16 heads of 256 at
+// RecurrentGemma's MQA), HS CTAs per KV head, each taking NR = n_rep / HS
+// of its heads and reading the same keys: "virtual" KV head gv = g * HS +
+// hh owns query heads gv * NR .. gv * NR + NR - 1. A CTA whose split misses
 // [lo, len) returns at once. In a live CTA one producer warp
 // streams the split's keys into a ring of STAGES shared-memory stages,
 // STAGES stages ahead of the eight consumer warps: 16-byte cp.async copies
@@ -24,8 +28,8 @@
 //
 // Reduction inside a CTA: a key is reduced by a group of G = HD / EL lanes,
 // each holding EL of its elements (EL fewer as n_rep grows, to bound the
-// registers), so a warp takes 32 / G keys at once and a dot product needs
-// log2(G) shuffles. Each group keeps its own online softmax (m, l, acc)
+// registers, but at least HD / 32, so a key fits one warp), so a warp takes
+// 32 / G keys at once and a dot product needs log2(G) shuffles. Each group keeps its own online softmax (m, l, acc)
 // per query head in fp32, in log2 units (q is scaled by log2(e) / sqrt(hd)
 // once). At the end the groups merge in shared memory in a fixed order.
 //
@@ -51,7 +55,10 @@ constexpr int WARPS = 8;                  // consumer warps
 constexpr int THREADS = (WARPS + 1) * 32; // and one producer warp
 constexpr int STAGES = 3;                 // ring depth
 constexpr int STAGE_BYTES = 16 * 1024;    // K + V bytes of a stage, at least
-constexpr int MAX_SPLITS = 64;            // splits of a row, at most
+constexpr int MAX_SPLITS = 64;            // splits of a row, at most (the
+//                                           shape rule; the fill rule may
+//                                           cut shorter ones)
+constexpr int SMS = 132;                  // the H100 SXM's SMs
 constexpr int MAX_PAGES = 2048;           // pages per row (P)
 constexpr int MAX_SPLIT_PAGES = 256;      // page ids of one split in smem
 
@@ -103,6 +110,46 @@ inline int dense_split_keys(int S, int hd, int esize) {
   const long long min_keys = (1LL << 20) / (2LL * hd * esize);
   return static_cast<int>(std::max<long long>(
       min_keys, ((long long)S + MAX_SPLITS - 1) / MAX_SPLITS));
+}
+
+// Elements of a key each lane of a key's group holds: fewer as n_rep grows
+// (acc and q take n_rep * EL registers each), at least hd / 32 (a key's
+// group fits one warp).
+__host__ __device__ constexpr int lane_elems(int nrep, int hd) {
+  return (nrep == 1 ? 16 : nrep <= 4 ? 8 : 4) * 32 >= hd
+             ? (nrep == 1 ? 16 : nrep <= 4 ? 8 : 4)
+             : hd / 32;
+}
+
+// CTAs per KV head: 1 while a CTA's acc and q registers (NR * EL each)
+// stay within 48 (12 heads of 128), else 2. A CTA of nine warps gets at
+// most 168 registers a thread (three warps share a quarter of the SM's
+// register file): 16 heads of 64 in one CTA spilled 768 bytes a thread
+// (ptxas), and 16 heads of 256 would hold 2 * 128; two CTAs of 8 heads
+// each read the same keys.
+__host__ __device__ constexpr int head_split(int nrep, int hd) {
+  return nrep * lane_elems(nrep, hd) <= 48 ? 1 : 2;
+}
+
+// The fill rule, on top of the shape rules above: where one split index
+// gives fewer CTAs (ctas = B * KVH * head_split) than the card has SMs,
+// rows are cut into shorter splits, as many per row as fill the SMs, down
+// to `floor_keys` (256 KB of K and V), rounded up to `unit` (the page
+// size). RecurrentGemma's one KV head at B = 4 is 8 CTAs a split index:
+// 2048-key splits left 120 of 132 SMs idle. Shapes whose grid fills the
+// card (Llama-2-7B's 32 KV heads at B = 4 and more) keep their split.
+inline int fill_split(long long split, long long keys, long long ctas,
+                      long long floor_keys, int unit) {
+  if (ctas * ((keys + split - 1) / split) >= SMS) return (int)split;
+  const long long per = (SMS + ctas - 1) / ctas;
+  long long want = std::max<long long>((keys + per - 1) / per, floor_keys);
+  want = (want + unit - 1) / unit * unit;
+  return (int)std::min<long long>(split, want);
+}
+
+// Keys of 256 KB of K and V at head dim hd in elements of esize bytes.
+inline long long floor_keys(int hd, int esize) {
+  return std::max<long long>(1, (1LL << 18) / (2LL * hd * esize));
 }
 
 // Where the keys of a row live. A CTA calls split(b, j, split, tid, ext)
@@ -203,7 +250,9 @@ __device__ __forceinline__ void lds(const void* p, uint32_t (&w)[NW]) {
 template <typename T, typename PL, int NREP, int HD>
 struct Shape {
   using E = typename PL::E;
-  static constexpr int EL = NREP == 1 ? 16 : NREP <= 4 ? 8 : 4;
+  static constexpr int EL = lane_elems(NREP, HD);
+  static constexpr int HS = head_split(NREP, HD);   // CTAs per KV head
+  static constexpr int NR = NREP / HS;              // query heads a CTA
   static constexpr int G = HD / EL;             // lanes per key
   static constexpr int KPW = 32 / G;            // keys per warp at once
   static constexpr int NG = WARPS * KPW;        // groups of a CTA
@@ -216,9 +265,11 @@ struct Shape {
   static constexpr int KS = KS_BYTES > NG ? KS_BYTES : NG;   // keys / stage
   static constexpr int STAGE = 2 * KS * ROW + (PL::SCALED ? 2 * KS * 4 : 0);
   static constexpr int RING = STAGES * STAGE;
-  static constexpr int SCRATCH = (NG * NREP * (HD + 3) + 2 * NREP) * 4;
+  static constexpr int SCRATCH = (NG * NR * (HD + 3) + 2 * NR) * 4;
   static constexpr int BODY = RING > SCRATCH ? RING : SCRATCH;
   static_assert(HD % EL == 0 && 32 % G == 0, "lane layout");
+  static_assert(NREP % HS == 0 && NR * EL <= 64, "head split");
+  static_assert(KS * (ROW / 16) % 32 == 0, "producer layout");
   static_assert(KS % NG == 0 && ROW % 16 == 0, "stage layout");
   static_assert(MAX_SPLIT_PAGES <= THREADS, "one page id per thread");
 };
@@ -254,7 +305,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 // The body of every split-KV kernel: one CTA of THREADS threads, grid
-// (KVH, B, ceil(rows.keys() / split)); SMEM of S::BODY + Rows::SMEM bytes.
+// (KVH * HS, B, ceil(rows.keys() / split)); SMEM of S::BODY + Rows::SMEM
+// bytes. ws and tickets are indexed by virtual KV head (KVH * HS of them).
 template <typename T, typename PL, int NREP, int HD, typename Rows>
 __device__ __forceinline__ void split_body(
     const T* __restrict__ q, const PL pools, const Rows& rows,
@@ -264,22 +316,22 @@ __device__ __forceinline__ void split_body(
   using S = Shape<T, PL, NREP, HD>;
   using E = typename S::E;
   constexpr int EL = S::EL, G = S::G, KPW = S::KPW, NG = S::NG, VE = S::VE,
-                NV = S::NV, KS = S::KS;
+                NV = S::NV, KS = S::KS, HS = S::HS, NR = S::NR;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t s_full[STAGES], s_empty[STAGES];
   __shared__ int s_last;
 
-  const int g = blockIdx.x, b = blockIdx.y, j = blockIdx.z;
-  const int NS = gridDim.z, H = KVH * NREP;
+  const int gv = blockIdx.x, g = gv / HS, b = blockIdx.y, j = blockIdx.z;
+  const int NS = gridDim.z, H = KVH * NREP, KVV = KVH * HS;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const typename Rows::Split cur = rows.split(b, j, split, tid,
                                               smem + S::BODY);
   const int len = max(0, min(cache_len[b], rows.keys()));
   const int lo = window > 0 ? max(0, len - window) : 0;
-  T* o = out + ((size_t)b * H + (size_t)g * NREP) * HD;
+  T* o = out + ((size_t)b * H + (size_t)gv * NR) * HD;
   if (len <= lo) {                        // no live key: zeros, once
     if (j == 0)
-      for (int t = tid; t < NREP * HD; t += THREADS) rt::store_f(o + t, 0.f);
+      for (int t = tid; t < NR * HD; t += THREADS) rt::store_f(o + t, 0.f);
     return;
   }
   const int j_lo = lo / split, j_hi = (len + split - 1) / split;
@@ -297,9 +349,9 @@ __device__ __forceinline__ void split_body(
 
   const int n_stage = (s_end - s_begin + KS - 1) / KS;
   const int kg = lane / G, sl = lane % G;
-  float acc[NREP][EL], m[NREP], l[NREP];
+  float acc[NR][EL], m[NR], l[NR];
 #pragma unroll
-  for (int r = 0; r < NREP; ++r) {
+  for (int r = 0; r < NR; ++r) {
 #pragma unroll
     for (int e = 0; e < EL; ++e) acc[r][e] = 0.f;
     m[r] = rt::NEG_INF;
@@ -310,7 +362,6 @@ __device__ __forceinline__ void split_body(
     // cp.async copies (a key row's chunks on neighbouring lanes), the int8
     // scales by 4-byte copies; the stage's full barrier tracks them ----
     constexpr int CPR = S::ROW / 16;      // 16-byte chunks per key row
-    constexpr int KPI = 32 / CPR;         // key rows per warp copy
     constexpr int NKB = (KS + 31) / 32;   // key offsets per lane
     const size_t key_stride = (size_t)KVH * HD;   // elements per slot
     const size_t g_off = (size_t)g * HD;
@@ -323,11 +374,13 @@ __device__ __forceinline__ void split_body(
 #pragma unroll
       for (int i = 0; i < NKB; ++i)
         slot[i] = cur.slot(min(s0 + lane + 32 * i, s_end - 1));
+      // warp copy t moves chunks c = 32 t + lane: chunk c % CPR of key
+      // c / CPR (several keys a copy for short rows, part of one for long)
 #pragma unroll
-      for (int t = 0; t < KS / KPI; ++t) {
-        const int kk = t * KPI + lane / CPR, col = lane % CPR;
+      for (int t = 0; t < KS * CPR / 32; ++t) {
+        const int kk = (32 * t + lane) / CPR, col = (32 * t + lane) % CPR;
         const size_t sl_kk =
-            __shfl_sync(0xffffffffu, slot[t * KPI / 32], kk % 32);
+            __shfl_sync(0xffffffffu, slot[(32 * t / CPR) / 32], kk % 32);
         const bool ok = kk < nk;
         const size_t off = ((sl_kk * key_stride + g_off) * sizeof(E)) +
                            col * 16;
@@ -357,10 +410,10 @@ __device__ __forceinline__ void split_body(
   } else {
     // ---- consumer warps: this lane's query elements, pre-scaled: dims
     // (v * G + sl) * VE + e ----
-    float qr[NREP][EL];
+    float qr[NR][EL];
 #pragma unroll
-    for (int r = 0; r < NREP; ++r) {
-      const T* qp = q + ((size_t)b * H + (size_t)g * NREP + r) * HD;
+    for (int r = 0; r < NR; ++r) {
+      const T* qp = q + ((size_t)b * H + (size_t)gv * NR + r) * HD;
 #pragma unroll
       for (int v = 0; v < NV; ++v)
 #pragma unroll
@@ -377,9 +430,9 @@ __device__ __forceinline__ void split_body(
         const int kk = (p * WARPS + wid) * KPW + kg;
         const E* kr = reinterpret_cast<const E*>(base + kk * S::ROW);
         const E* vr = reinterpret_cast<const E*>(base + (KS + kk) * S::ROW);
-        float sc[NREP][2];                // two chains: more FMAs in flight
+        float sc[NR][2];                  // two chains: more FMAs in flight
 #pragma unroll
-        for (int r = 0; r < NREP; ++r) sc[r][0] = sc[r][1] = 0.f;
+        for (int r = 0; r < NR; ++r) sc[r][0] = sc[r][1] = 0.f;
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
           uint32_t w[S::VB / 4];
@@ -389,18 +442,18 @@ __device__ __forceinline__ void split_body(
           for (int i = 0; i < S::VB / 4; ++i)
             Words<E>::to_f(w[i], kf + i * Words<E>::PER);
 #pragma unroll
-          for (int r = 0; r < NREP; ++r)
+          for (int r = 0; r < NR; ++r)
 #pragma unroll
             for (int e = 0; e < VE; ++e)
               sc[r][e & 1] = fmaf(qr[r][v * VE + e], kf[e], sc[r][e & 1]);
         }
-        float d[NREP];
+        float d[NR];
 #pragma unroll
-        for (int r = 0; r < NREP; ++r) d[r] = sc[r][0] + sc[r][1];
+        for (int r = 0; r < NR; ++r) d[r] = sc[r][0] + sc[r][1];
 #pragma unroll
         for (int off = G / 2; off > 0; off >>= 1)
 #pragma unroll
-          for (int r = 0; r < NREP; ++r)
+          for (int r = 0; r < NR; ++r)
             d[r] += __shfl_xor_sync(0xffffffffu, d[r], off);
         if (s0 + kk < s_end) {
           float vscale = 1.f;
@@ -408,12 +461,12 @@ __device__ __forceinline__ void split_body(
             const float* scl =
                 reinterpret_cast<const float*>(base + 2 * KS * S::ROW);
 #pragma unroll
-            for (int r = 0; r < NREP; ++r) d[r] *= scl[kk];
+            for (int r = 0; r < NR; ++r) d[r] *= scl[kk];
             vscale = scl[KS + kk];
           }
-          float pv[NREP];
+          float pv[NR];
 #pragma unroll
-          for (int r = 0; r < NREP; ++r) {
+          for (int r = 0; r < NR; ++r) {
             if (d[r] > m[r]) {            // a new max: rescale the state
               const float a = exp2f(m[r] - d[r]);
               l[r] *= a;
@@ -434,7 +487,7 @@ __device__ __forceinline__ void split_body(
             for (int i = 0; i < S::VB / 4; ++i)
               Words<E>::to_f(w[i], vf + i * Words<E>::PER);
 #pragma unroll
-            for (int r = 0; r < NREP; ++r)
+            for (int r = 0; r < NR; ++r)
 #pragma unroll
               for (int e = 0; e < VE; ++e)
                 acc[r][v * VE + e] = fmaf(pv[r], vf[e], acc[r][v * VE + e]);
@@ -448,73 +501,73 @@ __device__ __forceinline__ void split_body(
   __syncthreads();                        // the ring becomes merge scratch
 
   // ---- the CTA's groups, merged in group order ----
-  float* s_m = reinterpret_cast<float*>(smem);         // [NG][NREP]
-  float* s_l = s_m + NG * NREP;                          // [NG][NREP]
-  float* s_f = s_l + NG * NREP;                          // [NG][NREP]
-  float* s_ml = s_f + NG * NREP;                         // [2][NREP]: M, L
-  float* s_acc = s_ml + 2 * NREP;                        // [NG][NREP][HD]
+  float* s_m = reinterpret_cast<float*>(smem);         // [NG][NR]
+  float* s_l = s_m + NG * NR;                            // [NG][NR]
+  float* s_f = s_l + NG * NR;                            // [NG][NR]
+  float* s_ml = s_f + NG * NR;                           // [2][NR]: M, L
+  float* s_acc = s_ml + 2 * NR;                          // [NG][NR][HD]
   if (wid < WARPS) {
     const int grp = wid * KPW + kg;
 #pragma unroll
-    for (int r = 0; r < NREP; ++r) {
+    for (int r = 0; r < NR; ++r) {
       if (sl == 0) {
-        s_m[grp * NREP + r] = m[r];
-        s_l[grp * NREP + r] = l[r];
+        s_m[grp * NR + r] = m[r];
+        s_l[grp * NR + r] = l[r];
       }
 #pragma unroll
       for (int v = 0; v < NV; ++v)
 #pragma unroll
         for (int e = 0; e < VE; ++e)
-          s_acc[(grp * NREP + r) * HD + (v * G + sl) * VE + e] =
+          s_acc[(grp * NR + r) * HD + (v * G + sl) * VE + e] =
               acc[r][v * VE + e];
     }
   }
   __syncthreads();
   // warp w: heads w, w + 9, ...: each head's M, L and factors
-  for (int r = wid; r < NREP; r += THREADS / 32) {
+  for (int r = wid; r < NR; r += THREADS / 32) {
     float M = rt::NEG_INF;
-    for (int gi = lane; gi < NG; gi += 32) M = fmaxf(M, s_m[gi * NREP + r]);
+    for (int gi = lane; gi < NG; gi += 32) M = fmaxf(M, s_m[gi * NR + r]);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
     float L = 0.f;
     for (int gi = lane; gi < NG; gi += 32) {
-      const float f = exp2f(s_m[gi * NREP + r] - M);
-      s_f[gi * NREP + r] = f;
-      L = fmaf(s_l[gi * NREP + r], f, L);
+      const float f = exp2f(s_m[gi * NR + r] - M);
+      s_f[gi * NR + r] = f;
+      L = fmaf(s_l[gi * NR + r], f, L);
     }
     L = rt::warp_sum(L);
-    if (lane == 0) { s_ml[r] = M; s_ml[NREP + r] = L; }
+    if (lane == 0) { s_ml[r] = M; s_ml[NR + r] = L; }
   }
   __syncthreads();
   const int n_live = j_hi - j_lo;
-  constexpr int PART = NREP * (HD + 2);   // floats of one split's partial
-  float* part = ws + (((size_t)b * KVH + g) * NS + j) * PART;
-  for (int t = tid; t < NREP * HD; t += THREADS) {
+  constexpr int PART = NR * (HD + 2);     // floats of one split's partial
+  float* part = ws + (((size_t)b * KVV + gv) * NS + j) * PART;
+  for (int t = tid; t < NR * HD; t += THREADS) {
     const int r = t / HD;
     float O = 0.f;
     for (int gi = 0; gi < NG; ++gi)
-      O = fmaf(s_acc[(gi * NREP + r) * HD + (t - r * HD)],
-               s_f[gi * NREP + r], O);
-    const float L = s_ml[NREP + r];
+      O = fmaf(s_acc[(gi * NR + r) * HD + (t - r * HD)],
+               s_f[gi * NR + r], O);
+    const float L = s_ml[NR + r];
     if (n_live == 1)
       rt::store_f(o + t, L == 0.f ? 0.f : O / L);
     else
-      part[2 * NREP + t] = O;
+      part[2 * NR + t] = O;
   }
   if (n_live == 1) return;
 
-  // ---- across splits: the last CTA of (b, g) merges, in split order ----
-  if (tid < 2 * NREP) part[tid] = s_ml[tid];   // m then l, as s_ml
+  // ---- across splits: the last CTA of (b, gv) merges, in split order ----
+  if (tid < 2 * NR) part[tid] = s_ml[tid];     // m then l, as s_ml
   __threadfence();
   __syncthreads();
-  int* ticket = tickets + (size_t)b * KVH + g;
+  int* ticket = tickets + (size_t)b * KVV + gv;
   if (tid == 0) s_last = atomicAdd(ticket, 1) == n_live - 1;
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  const float* parts = ws + (((size_t)b * KVH + g) * NS) * PART;
-  for (int t = tid; t < NREP * HD; t += THREADS) {
+  const float* parts = ws + (((size_t)b * KVV + gv) * NS) * PART;
+  for (int t = tid; t < NR * HD; t += THREADS) {
     const int r = t / HD;
     float M = rt::NEG_INF;
     for (int jj = j_lo; jj < j_hi; ++jj)
@@ -523,24 +576,28 @@ __device__ __forceinline__ void split_body(
     for (int jj = j_lo; jj < j_hi; ++jj) {
       const float* pj = parts + (size_t)jj * PART;
       const float f = exp2f(__ldcg(pj + r) - M);
-      L = fmaf(__ldcg(pj + NREP + r), f, L);
-      O = fmaf(__ldcg(pj + 2 * NREP + t), f, O);
+      L = fmaf(__ldcg(pj + NR + r), f, L);
+      O = fmaf(__ldcg(pj + 2 * NR + t), f, O);
     }
     rt::store_f(o + t, L == 0.f ? 0.f : O / L);
   }
   if (tid == 0) *ticket = 0;              // ready for the next call
 }
 
-// CTAs an SM must fit: fewer as the per-head registers (acc and q, EL
-// each) grow; at NREP = 12 one CTA, so the 12 heads' state stays in
-// registers rather than spilling under a 2-CTA cap of 113 a thread.
-template <int NREP>
-constexpr int min_ctas() { return NREP <= 2 ? 3 : NREP <= 8 ? 2 : 1; }
+// CTAs an SM must fit: fewer as a CTA's per-head registers (acc and q, EL
+// each, for NR heads) grow; at 12 heads of 128 (NR * EL = 48) one CTA, so
+// the heads' state stays in registers rather than spilling under a 2-CTA
+// cap of 113 a thread.
+template <int NREP, int HD>
+constexpr int min_ctas() {
+  constexpr int w = NREP / head_split(NREP, HD) * lane_elems(NREP, HD);
+  return w <= 16 ? 3 : w <= 32 ? 2 : 1;
+}
 
 // The kernels: the paged one and the dense one, each under its own name so
 // a profile tells them apart.
 template <typename T, typename PL, int NREP, int HD>
-__global__ void __launch_bounds__(THREADS, min_ctas<NREP>())
+__global__ void __launch_bounds__(THREADS, (min_ctas<NREP, HD>()))
 paged_split_kernel(const T* __restrict__ q, const PL pools,
                    const PagedRows rows,
                    const int* __restrict__ cache_len, T* __restrict__ out,
@@ -551,7 +608,7 @@ paged_split_kernel(const T* __restrict__ q, const PL pools,
 }
 
 template <typename T, typename PL, int NREP, int HD>
-__global__ void __launch_bounds__(THREADS, min_ctas<NREP>())
+__global__ void __launch_bounds__(THREADS, (min_ctas<NREP, HD>()))
 dense_split_kernel(const T* __restrict__ q, const PL pools,
                    const DenseRows rows,
                    const int* __restrict__ cache_len, T* __restrict__ out,
@@ -561,8 +618,8 @@ dense_split_kernel(const T* __restrict__ q, const PL pools,
                               KVH, window, split, qscale);
 }
 
-// Launches one instance of `kernel` over rows of `keys` keys: grid (KVH, B,
-// ceil(keys / split)), the split index slowest, so every row's first splits
+// Launches one instance of `kernel` over rows of `keys` keys: grid (KVH *
+// HS, B, ceil(keys / split)), the split index slowest, so every row's first splits
 // are dispatched before any row's later ones (at a serve tick most later
 // splits lie past the rows' lengths and return at once); S::BODY +
 // Rows::SMEM bytes of dynamic shared memory (above 48 KB for bf16: opted
@@ -586,7 +643,8 @@ static void launch_rows(Kernel kernel, const PL& pools, const Rows& rows,
   const int NS = (int)((keys + split - 1) / split);
   // scores in log2 units: exp2(x * log2 e) = exp(x)
   const float qscale = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
-  kernel<<<dim3(KVH, B, NS), THREADS, SMEM, st>>>(
+  kernel<<<dim3(KVH * Shape<T, PL, NREP, HD>::HS, B, NS), THREADS, SMEM,
+           st>>>(
       static_cast<const T*>(q), pools, rows, static_cast<const int*>(clen),
       static_cast<T*>(out), static_cast<float*>(ws),
       static_cast<int*>(tickets), KVH, window, split, qscale);

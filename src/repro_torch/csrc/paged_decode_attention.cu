@@ -49,11 +49,23 @@ int paged_decode_attention_split_keys(int P, int ps) {
   return pa::split_keys<pa::FpPools<float>>(P, ps);
 }
 
+// The split a launch over B rows of KVH KV heads with n_rep query heads of
+// hd takes: the shape rule above, cut shorter by pa::fill_split (whole
+// pages, at least 256 KB of K and V of esize-byte elements) where one
+// split index would leave SMs idle.
+int paged_decode_attention_grid_split(int P, int ps, int hd, int esize,
+                                      int B, int KVH, int n_rep) {
+  return pa::fill_split(pa::split_keys<pa::FpPools<float>>(P, ps),
+                        (long long)P * ps,
+                        (long long)B * KVH * pa::head_split(n_rep, hd),
+                        pa::floor_keys(hd, esize), ps);
+}
+
 // q (B, 1, H, hd); k/v pools (NP, ps, KVH, hd) of q's dtype, 16-byte
 // aligned; page_table (B, P) int32; cache_len (B,) int32; out (B, 1, H,
 // hd). ws: fp32 workspace of B * KVH * ceil(P * ps / split) * n_rep *
-// (hd + 2) floats; tickets: B * KVH int32, zero before the call and zero
-// after it. window <= 0 means no window. Returns cudaErrorInvalidValue for
+// (hd + 2) floats; tickets: B * H int32 (one per virtual KV head), zero before
+// the call and zero after it. window <= 0 means no window. Returns cudaErrorInvalidValue for
 // an (n_rep, hd) pair without an instance (rt::dispatch), more than
 // pa::MAX_PAGES pages per row or a split that is not a multiple of ps.
 int paged_decode_attention_launch(const void* q, const void* k, const void* v,

@@ -49,6 +49,19 @@ int paged_decode_attention_q_split_keys(int P, int ps) {
   return pa::split_keys<pa::Int8Pools>(P, ps);
 }
 
+// The split a launch over B rows of KVH KV heads with n_rep query heads of
+// hd takes: the shape rule above, cut shorter by pa::fill_split (whole
+// pages, at least 256 KB of K and V of esize-byte elements) where one
+// split index would leave SMs idle.
+int paged_decode_attention_q_grid_split(int P, int ps, int hd, int esize,
+                                        int B, int KVH, int n_rep) {
+  (void)esize;                          // int8 pools: one byte
+  return pa::fill_split(pa::split_keys<pa::Int8Pools>(P, ps),
+                        (long long)P * ps,
+                        (long long)B * KVH * pa::head_split(n_rep, hd),
+                        pa::floor_keys(hd, 1), ps);
+}
+
 // q (B, 1, H, hd) fp32 or bf16 (dtype); k/v pools (NP, ps, KVH, hd) int8,
 // 16-byte aligned; ks/vs (NP, ps, KVH) fp32; page_table (B, P) int32;
 // cache_len (B,) int32; out (B, 1, H, hd) in q's dtype; ws and tickets as

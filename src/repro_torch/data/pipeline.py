@@ -8,15 +8,33 @@ for every (seed, step); batches are host numpy arrays, moved to the card by
 the caller.
 
 Synthetic text: Zipf-distributed unigrams with short repeated motifs, so
-the LM loss has learnable structure.
+the LM loss has learnable structure. Frontend configs draw their random
+patch or frame embeddings from the same stream, in JAX's order.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Any, Dict, Iterator
 
 import numpy as np
 
 from repro_torch.config import ModelConfig
+from repro_torch.models.frontends import FRONTEND_DIM
+
+
+def make_batch_specs(model_cfg: ModelConfig, batch: int, seq: int
+                     ) -> Dict[str, Any]:
+    """Shape and numpy dtype of each array of one batch."""
+    if model_cfg.frontend == "audio_frames":
+        return {
+            "frames": ((batch, seq, model_cfg.d_model), np.float32),
+            "targets": ((batch, seq), np.int32),
+            "mask": ((batch, seq), np.bool_),
+        }
+    spec: Dict[str, Any] = {"tokens": ((batch, seq), np.int32)}
+    if model_cfg.frontend == "vision_patches":
+        spec["patches"] = ((batch, model_cfg.frontend_tokens, FRONTEND_DIM),
+                           np.float32)
+    return spec
 
 
 class DataPipeline:
@@ -57,13 +75,22 @@ class DataPipeline:
         return out.astype(np.int32)
 
     def next(self) -> Dict[str, np.ndarray]:
-        if self.model_cfg.frontend != "none":
-            raise ValueError(
-                f"frontend {self.model_cfg.frontend!r} batches are not "
-                "ported yet (ROADMAP: frontends)")
         rng = self._rng(self.step)
         self.step += 1
-        return {"tokens": self._tokens(rng, (self.batch, self.seq))}
+        cfg = self.model_cfg
+        if cfg.frontend == "audio_frames":
+            frames = rng.standard_normal(
+                (self.batch, self.seq, cfg.d_model)).astype(np.float32)
+            targets = (self._tokens(rng, (self.batch, self.seq))
+                       % cfg.vocab_size)
+            mask = rng.random((self.batch, self.seq)) < 0.3
+            return {"frames": frames, "targets": targets, "mask": mask}
+        batch = {"tokens": self._tokens(rng, (self.batch, self.seq))}
+        if cfg.frontend == "vision_patches":
+            batch["patches"] = rng.standard_normal(
+                (self.batch, cfg.frontend_tokens, FRONTEND_DIM)
+            ).astype(np.float32)
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:

@@ -42,9 +42,9 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     K.check_kv_aligned("v_cache", v_cache)
     if H % KVH:
         raise ValueError(f"decode_attention: {H} heads over {KVH} KV heads")
-    split = dense_split_keys(S, hd, q.element_size())
+    split = dense_grid_split(S, hd, q.element_size(), B, KVH, H // KVH)
     tickets, partials = _workspace(dev).get(
-        B * KVH, B * KVH * -(-S // split) * (H // KVH) * (hd + 2))
+        B * H, B * KVH * -(-S // split) * (H // KVH) * (hd + 2))
     fn = build.c_func("decode_attention", "decode_attention_launch",
                       [_P] * 7 + [_I] * 8 + [_P])
     out = torch.empty_like(q)
@@ -60,7 +60,8 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
 
 class _Workspace:
     """Scratch of the split-KV kernels on one device: int32 tickets, one
-    per (row, KV head), and the fp32 partials of the splits. The
+    per (row, virtual KV head: at most one per query head), and the fp32
+    partials of the splits. The
     kernels leave every ticket at 0 (the CTA that merges resets its own),
     so the tickets are zeroed once, at allocation. Both grow and never
     shrink; a buffer that is outgrown stays alive, since a CUDA graph
@@ -103,6 +104,26 @@ def dense_split_keys(S: int, hd: int, esize: int) -> int:
     lengths; cached, since the decode step asks for it once per layer."""
     return build.c_func("decode_attention", "decode_attention_split_keys",
                         [_I, _I, _I])(S, hd, esize)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_grid_split(S: int, hd: int, esize: int, B: int, KVH: int,
+                     n_rep: int) -> int:
+    """The dense kernel's split for a launch over ``B`` rows of ``KVH`` KV
+    heads: ``dense_split_keys``, cut shorter where one split index would
+    leave SMs idle (``pa::fill_split``)."""
+    return build.c_func("decode_attention", "decode_attention_grid_split",
+                        [_I] * 6)(S, hd, esize, B, KVH, n_rep)
+
+
+@functools.lru_cache(maxsize=None)
+def grid_split(name: str, P: int, ps: int, hd: int, esize: int, B: int,
+               KVH: int, n_rep: int) -> int:
+    """The paged kernel ``name``'s split for a launch over ``B`` rows of
+    ``KVH`` KV heads: ``split_keys``, cut shorter (in whole pages) where
+    one split index would leave SMs idle (``pa::fill_split``)."""
+    return build.c_func(name, f"{name}_grid_split", [_I] * 7)(
+        P, ps, hd, esize, B, KVH, n_rep)
 
 
 def split_keys(name: str, P: int, ps: int) -> int:
@@ -153,10 +174,11 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(
             f"paged_decode_attention: {H} heads over {KVH} KV heads")
     name = "paged_decode_attention" + ("_q" if quantized else "")
-    split = split_keys(name, P, ps)
+    split = grid_split(name, P, ps, hd, k_pool.element_size(), B, KVH,
+                       H // KVH)
     n_split = -(-P * ps // split)
     tickets, partials = _workspace(dev).get(
-        B * KVH, B * KVH * n_split * (H // KVH) * (hd + 2))
+        B * H, B * KVH * n_split * (H // KVH) * (hd + 2))
     out = torch.empty_like(q)
     what = (f"{name} (n_rep={H // KVH}, hd={hd}, pages/row={P}, "
             f"page size={ps})")

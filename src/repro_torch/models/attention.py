@@ -32,14 +32,17 @@ def init_attention(cfg: ModelConfig, gen, dtype, device) -> Params:
 
 def qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> q (B,S,H,hd), k,v (B,S,KVH,hd), with RoPE applied."""
+    """x: (B, S, D) -> q (B,S,H,hd), k,v (B,S,KVH,hd), with RoPE applied
+    in a decoder (the encoder, hubert, is position-free here, as in the
+    JAX package)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     q = common.apply_linear(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
     k = common.apply_linear(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
     v = common.apply_linear(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.causal:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -50,7 +53,8 @@ def kv_only(cfg: ModelConfig, p: Params, x: torch.Tensor,
     hd = cfg.resolved_head_dim()
     k = common.apply_linear(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
     v = common.apply_linear(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.causal:
+        k = common.apply_rope(k, positions, cfg.rope_theta)
     return k, v
 
 
@@ -89,11 +93,14 @@ def causal_mask(Sq: int, Sk: int, q_offset: int = 0,
 
 def attend_full(cfg: ModelConfig, q, k, v,
                 window: Optional[int] = None) -> torch.Tensor:
-    """Self-attention over a full sequence (prefill path)."""
+    """Self-attention over a full sequence (prefill path); bidirectional
+    in an encoder."""
     n_rep = cfg.num_heads // cfg.num_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     S = q.shape[1]
-    return sdpa(q, k, v, causal_mask(S, S, 0, window, device=q.device))
+    mask = (causal_mask(S, S, 0, window, device=q.device) if cfg.causal
+            else None)
+    return sdpa(q, k, v, mask)
 
 
 def _chunk_of(S: int, chunk: int) -> int:

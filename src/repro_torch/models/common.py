@@ -65,7 +65,7 @@ def index_tree(tree, i: int):
 def normal_init(gen: torch.Generator, shape, std: float, dtype,
                 device) -> torch.Tensor:
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def init_norm(cfg: ModelConfig, dim: int, dtype, device) -> Params:

@@ -1,5 +1,6 @@
-"""Model API over the attention family and Mamba2 (counterpart of
-``repro/models/model.py``).
+"""Model API over the model zoo (counterpart of ``repro/models/model.py``):
+attention stacks with a dense MLP or a MoE FFN, Mamba2, the RG-LRU hybrid,
+and the vision and audio frontends.
 
 The layer stack decomposes into segments — runs of a repeating unit of
 block kinds — and parameters and caches are stacked over each segment's
@@ -17,7 +18,9 @@ an entry holds int8 codes ``k``/``v`` of that shape beside fp32 scales
 ``ks``/``vs`` without the ``hd`` dim (one per position and KV head). An
 SSD (Mamba2) entry is per-row state, never paged: the fp32 SSM state
 ``(reps, B, nh, hd, ds)`` and the conv window ``(reps, B, K-1, di+2ds)``
-in the compute dtype, both updated in place.
+in the compute dtype, both updated in place; so is an RG-LRU entry: the
+fp32 recurrent state ``h`` ``(reps, B, W)`` and the conv window ``(reps,
+B, K-1, W)``.
 """
 from __future__ import annotations
 
@@ -28,11 +31,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import (ATTN, LOCAL_ATTN, SSD, ModelConfig,
-                                RunConfig, SSMConfig)
+from repro_torch.config import (ATTN, LOCAL_ATTN, RGLRU, SSD, ModelConfig,
+                                RGLRUConfig, RunConfig, SSMConfig)
 from repro_torch.core import paged as paged_lib
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import common
+from repro_torch.models import common, frontends
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.common import Params, index_tree
 
@@ -67,7 +72,14 @@ class ModelFlags:
     ``repro``'s flags the port reads). ``kv_quant`` stores K/V as int8
     codes with a per-(position, KV head) fp32 scale (``_kv_quantize``);
     attention reads them dequantized: the paged kernel in registers, every
-    other path as a dequantized copy in the compute dtype."""
+    other path as a dequantized copy in the compute dtype. ``moe_impl``
+    picks the MoE form: "dense" (every expert, JAX's default) or "topk"
+    (only the selected experts); ``moe_ep_quant`` and ``moe_bf16_reduce``
+    shape expert-parallel collectives and are refused until the port has
+    multi-GPU."""
+    moe_impl: str = "dense"         # "dense" | "topk"
+    moe_ep_quant: bool = False      # int8 EP token dispatch (multi-GPU)
+    moe_bf16_reduce: bool = False   # bf16 EP combine reduction (multi-GPU)
     flash_attention: bool = False   # CUDA flash-attention prefill kernel
     decode_kernel: bool = False     # CUDA (paged) decode-attention kernel
     spec_head_kernel: bool = False  # spec-head kernel: tree gate features;
@@ -88,18 +100,44 @@ class ModelFlags:
 
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
-    return 2048 if kind == LOCAL_ATTN else None
+    if kind == LOCAL_ATTN:
+        return cfg.rglru.window if cfg.rglru else 2048
+    return None
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen, dtype, device) -> Params:
+    def norm():
+        return common.init_norm(cfg, cfg.d_model, dtype, device)
+
     if kind == SSD:
-        return {"ln": common.init_norm(cfg, cfg.d_model, dtype, device),
-                "ssd": ssd_lib.init_ssd(cfg, gen, dtype, device)}
+        return {"ln": norm(), "ssd": ssd_lib.init_ssd(cfg, gen, dtype,
+                                                      device)}
+    if kind == RGLRU:
+        return {"ln1": norm(),
+                "rec": rglru_lib.init_rglru(cfg, gen, dtype, device),
+                "ln2": norm(),
+                "mlp": common.init_mlp(cfg, gen, dtype, device)}
     assert kind in (ATTN, LOCAL_ATTN), kind
-    return {"ln1": common.init_norm(cfg, cfg.d_model, dtype, device),
-            "attn": attn_lib.init_attention(cfg, gen, dtype, device),
-            "ln2": common.init_norm(cfg, cfg.d_model, dtype, device),
-            "mlp": common.init_mlp(cfg, gen, dtype, device)}
+    p: Params = {"ln1": norm(),
+                 "attn": attn_lib.init_attention(cfg, gen, dtype, device),
+                 "ln2": norm()}
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.init_moe(cfg, gen, dtype, device)
+    else:
+        p["mlp"] = common.init_mlp(cfg, gen, dtype, device)
+    return p
+
+
+def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, flags: "ModelFlags"
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention block's FFN, a dense MLP or a MoE in the form
+    ``flags.moe_impl`` picks. Returns (out, aux loss)."""
+    if "moe" in p:
+        if flags.moe_impl == "dense":
+            return moe_lib.apply_moe(cfg, p["moe"], h)
+        return moe_lib.apply_moe_topk(cfg, p["moe"], h)
+    return (common.apply_mlp(cfg, p["mlp"], h),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,19 +183,29 @@ def _entry_write_token(cache_entry: Any, vals: Dict[str, torch.Tensor],
 
 def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                positions: torch.Tensor, flags: ModelFlags
-               ) -> Tuple[torch.Tensor, Any]:
-    """Prefill path. Returns (h_out, {"k", "v"}) for attention, under
-    ``flags.flash_attention`` through the flash kernel, else above
-    ``flags.chunk_threshold`` tokens through chunked attention (pruned under
-    ``flags.attn_prune``), as in the JAX package; (h_out, {"state",
-    "conv"}) for SSD, under ``flags.ssd_kernel`` with the intra-chunk term
-    through the SSD kernel ("conv" is None for a prompt shorter than the
-    conv window, as in the JAX package)."""
+               ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """Prefill and training path. Returns (h_out, cache entry, aux loss):
+    {"k", "v"} for attention, under ``flags.flash_attention`` (causal only,
+    as in the JAX package: the encoder takes plain attention) through the
+    flash kernel, else above ``flags.chunk_threshold`` tokens through
+    chunked attention (pruned under ``flags.attn_prune``); the MoE's
+    load-balancing loss as aux. {"state", "conv"} for SSD, under
+    ``flags.ssd_kernel`` with the intra-chunk term through the SSD kernel,
+    and {"h", "conv"} for RG-LRU ("conv" is None for a prompt shorter than
+    the conv window, as in the JAX package)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == SSD:
         x = common.apply_norm(cfg, p["ln"], h)
         out, state, conv_tail = ssd_lib.ssd_block_seq(
             cfg, p["ssd"], x, use_kernel=flags.ssd_kernel)
-        return h + out, {"state": state, "conv": conv_tail}
+        return h + out, {"state": state, "conv": conv_tail}, aux
+    if kind == RGLRU:
+        x = common.apply_norm(cfg, p["ln1"], h)
+        out, h_rec, conv_tail = rglru_lib.rglru_block_seq(cfg, p["rec"], x)
+        h = h + out
+        x2 = common.apply_norm(cfg, p["ln2"], h)
+        h = h + common.apply_mlp(cfg, p["mlp"], x2)
+        return h, {"h": h_rec, "conv": conv_tail}, aux
     x = common.apply_norm(cfg, p["ln1"], h)
     q, k, v = attn_lib.qkv(cfg, p["attn"], x, positions)
     if flags.flash_attention and cfg.causal:
@@ -175,8 +223,8 @@ def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
         o = attn_lib.attend_full(cfg, q, k, v, _window(cfg, kind))
     h = h + attn_lib.out_proj(p["attn"], o)
     x2 = common.apply_norm(cfg, p["ln2"], h)
-    h = h + common.apply_mlp(cfg, p["mlp"], x2)
-    return h, {"k": k, "v": v}
+    f, aux = _ffn(cfg, p, x2, flags)
+    return h + f, {"k": k, "v": v}, aux
 
 
 def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
@@ -185,10 +233,10 @@ def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                 live_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Any]:
     """One decode token. h: (B, D); pos: (B,) index of the current token.
-    SSD: the recurrent update of the entry's state and conv window, in
-    place; ``live_mask`` (B,) bool keeps the state of rows that have exited
-    (SpecEE) while their conv window still advances, as in the JAX
-    package.
+    SSD and RG-LRU: the recurrent update of the entry's state and conv
+    window, in place; ``live_mask`` (B,) bool keeps the state of rows that
+    have exited (SpecEE) while their conv window still advances, as in the
+    JAX package.
     Writes the token's K/V into ``cache_entry`` and attends the live prefix.
     ``pages``: the (B, P) page table when the entry is a page pool; then
     ``flags.decode_kernel`` selects the paged kernel, which reads the pool
@@ -208,6 +256,17 @@ def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
         cache_entry["state"].copy_(new_state)
         cache_entry["conv"].copy_(new_conv)
         return h + out, cache_entry
+    if kind == RGLRU:
+        x = common.apply_norm(cfg, p["ln1"], h)
+        out, new_h, new_conv = rglru_lib.rglru_block_step(
+            cfg, p["rec"], x, cache_entry["h"], cache_entry["conv"])
+        if live_mask is not None:
+            new_h = torch.where(live_mask[:, None], new_h, cache_entry["h"])
+        cache_entry["h"].copy_(new_h)
+        cache_entry["conv"].copy_(new_conv)
+        h = h + out
+        x2 = common.apply_norm(cfg, p["ln2"], h)
+        return h + common.apply_mlp(cfg, p["mlp"], x2), cache_entry
     B = h.shape[0]
     x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
     pvec = pos.long()
@@ -244,22 +303,26 @@ def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                                        window)
     h = h + attn_lib.out_proj(p["attn"], o)[:, 0, :]
     x2 = common.apply_norm(cfg, p["ln2"], h[:, None, :])
-    return h + common.apply_mlp(cfg, p["mlp"], x2)[:, 0, :], cache_entry
+    return h + _ffn(cfg, p, x2, flags)[0][:, 0, :], cache_entry
 
 
 def _block_propagate(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                      cache_entry: Any, pos: torch.Tensor, flags: ModelFlags,
                      pages: Optional[torch.Tensor] = None) -> Any:
     """SpecEE skipped-layer state maintenance: write the K/V projections of
-    the exit hidden state so later tokens can attend this position. SSD:
-    the state goes stale and the conv window takes the current input, so
-    the window stays aligned."""
-    if kind == SSD:
-        x = common.apply_norm(cfg, p["ln"], h)
-        proj = common.apply_linear(p["ssd"]["in_proj"], x)
-        _, xBC, _ = ssd_lib._split_proj(cfg, proj)
+    the exit hidden state so later tokens can attend this position. SSD
+    and RG-LRU: the state goes stale and the conv window takes the current
+    input, so the window stays aligned."""
+    if kind in (SSD, RGLRU):
+        if kind == SSD:
+            x = common.apply_norm(cfg, p["ln"], h)
+            proj = common.apply_linear(p["ssd"]["in_proj"], x)
+            _, xin, _ = ssd_lib._split_proj(cfg, proj)
+        else:
+            x = common.apply_norm(cfg, p["ln1"], h)
+            xin = common.apply_linear(p["rec"]["wx"], x)
         conv = cache_entry["conv"]
-        window = torch.cat([conv.to(xBC.dtype), xBC[:, None, :]], dim=1)
+        window = torch.cat([conv.to(xin.dtype), xin[:, None, :]], dim=1)
         conv.copy_(window[:, 1:])
         return cache_entry
     B = h.shape[0]
@@ -303,7 +366,7 @@ def _block_extend(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                                window=_window(cfg, kind))
     h = h + attn_lib.out_proj(p["attn"], o)
     x2 = common.apply_norm(cfg, p["ln2"], h)
-    return h + common.apply_mlp(cfg, p["mlp"], x2), cache_entry
+    return h + _ffn(cfg, p, x2, flags)[0], cache_entry
 
 
 def _write_scratch(cache_entry: Any, vals: Dict[str, torch.Tensor],
@@ -326,6 +389,7 @@ def _write_scratch(cache_entry: Any, vals: Dict[str, torch.Tensor],
 def _block_step_tree(cfg: ModelConfig, p: Params, h: torch.Tensor,
                      cache_entry: Any, mask: torch.Tensor,
                      positions: torch.Tensor, scratch_off: int,
+                     flags: ModelFlags,
                      pages: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Any]:
     """N tree tokens at once against a cache with N scratch slots.
@@ -348,13 +412,21 @@ def _block_step_tree(cfg: ModelConfig, p: Params, h: torch.Tensor,
                       attn_lib._repeat_kv(v_cache, n_rep), mask)
     h = h + attn_lib.out_proj(p["attn"], o)
     x2 = common.apply_norm(cfg, p["ln2"], h)
-    return h + common.apply_mlp(cfg, p["mlp"], x2), cache_entry
+    return h + _ffn(cfg, p, x2, flags)[0], cache_entry
 
 
 class Model:
     def __init__(self, run: RunConfig, flags: ModelFlags = ModelFlags()):
         self.run = run
         self.cfg = run.model
+        if flags.moe_impl not in ("dense", "topk"):
+            raise ValueError(f"ModelFlags.moe_impl must be 'dense' or "
+                             f"'topk', got {flags.moe_impl!r}")
+        if flags.moe_ep_quant or flags.moe_bf16_reduce:
+            raise ValueError(
+                "ModelFlags.moe_ep_quant / moe_bf16_reduce shape the expert-"
+                "parallel collectives of a mesh: not ported until multi-GPU "
+                "(ROADMAP queue 1, item 9)")
         self.flags = flags
         self.dtype = common.dtype_of(self.cfg.dtype)
         self.segments = segments_of(list(self.cfg.blocks()))
@@ -364,18 +436,29 @@ class Model:
     def init(self, gen: Union[torch.Generator, int],
              device: Union[str, torch.device] = "cuda") -> Params:
         """Seeded weights in the compute dtype (same shapes and scales as
-        the JAX init, different numbers)."""
+        the JAX init, different numbers; the vision or audio frontend's
+        projection after the embedding, as JAX orders them)."""
         device = torch.device(device)
         if isinstance(gen, int):
             gen = torch.Generator(device=device).manual_seed(gen)
         cfg, dt = self.cfg, self.dtype
         params: Params = {"embed": {"tok": common.normal_init(
             gen, (cfg.vocab_size, cfg.d_model), 0.02, dt, device)}}
+        fe = frontends.init_frontend(cfg, gen, dt, device)
+        if fe is not None:
+            params["frontend"] = fe
         segs = []
         for unit, reps in self.segments:
-            per = [{f"u{i}": _init_block(cfg, kind, gen, dt, device)
-                    for i, kind in enumerate(unit)} for _ in range(reps)]
-            segs.append(_stack(per))
+            stacked = None
+            for r in range(reps):
+                one = {f"u{i}": _init_block(cfg, kind, gen, dt, device)
+                       for i, kind in enumerate(unit)}
+                if stacked is None:
+                    stacked = common.tree_map(
+                        lambda x: x.new_empty((reps,) + tuple(x.shape)), one)
+                _fill_rep(stacked, one, r)
+                del one
+            segs.append(stacked)
         params["segments"] = segs
         params["final_norm"] = common.init_norm(cfg, cfg.d_model, dt,
                                                 device)
@@ -401,7 +484,8 @@ class Model:
                        positions: torch.Tensor
                        ) -> Tuple[torch.Tensor, None, torch.Tensor]:
         """h: (B, S, D) -> (h_final, None, aux_loss): every unit's
-        ``_block_seq`` with autograd on; under ``flags.remat == "full"``
+        ``_block_seq`` with autograd on, the blocks' aux losses (MoE load
+        balancing) summed; under ``flags.remat == "full"``
         each unit is recomputed in the backward pass. The kernels are
         ``ctypes`` calls whose outputs carry no gradient, so with grad
         enabled a kernel flag of the sequence path raises (as ``jax.grad``
@@ -417,33 +501,62 @@ class Model:
         cfg = self.cfg
 
         def unit_fwd(h_in, up, unit):
+            aux_u = torch.zeros((), dtype=torch.float32, device=h_in.device)
             for i, kind in enumerate(unit):
-                h_in, _ = _block_seq(cfg, kind, up[f"u{i}"], h_in, positions,
-                                     flags)
-            return h_in
+                h_in, _, aux = _block_seq(cfg, kind, up[f"u{i}"], h_in,
+                                          positions, flags)
+                aux_u = aux_u + aux
+            return h_in, aux_u
 
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
         for si, (unit, reps) in enumerate(self.segments):
+            auxs = []
             for r in range(reps):
                 up = index_tree(params["segments"][si], r)
                 if flags.remat == "full":
-                    h = checkpoint(unit_fwd, h, up, unit, use_reentrant=False)
+                    h, aux = checkpoint(unit_fwd, h, up, unit,
+                                        use_reentrant=False)
                 else:
-                    h = unit_fwd(h, up, unit)
-        return h, None, torch.zeros((), dtype=torch.float32, device=h.device)
+                    h, aux = unit_fwd(h, up, unit)
+                auxs.append(aux)
+            aux_total = aux_total + torch.stack(auxs).sum()
+        return h, None, aux_total
+
+    def _inputs(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+        """The (B, S, D) input hiddens of a batch: projected audio frames,
+        or token embeddings with projected image patches prepended."""
+        cfg = self.cfg
+        if cfg.frontend == "audio_frames":
+            return frontends.apply_frontend(cfg, params["frontend"],
+                                            batch["frames"], self.dtype)
+        h = self.embed(params, batch["tokens"])
+        if cfg.frontend == "vision_patches":
+            fe = frontends.apply_frontend(cfg, params["frontend"],
+                                          batch["patches"], self.dtype)
+            h = torch.cat([fe, h], dim=1)
+        return h
 
     def train_loss(self, params: Params, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Next-token cross-entropy over ``batch["tokens"]`` (B, S).
-        Returns (loss + aux, {"ce", "aux"})."""
-        if self.cfg.frontend != "none":
-            raise ValueError(f"frontend {self.cfg.frontend!r} is not ported "
-                             "yet (ROADMAP: frontends)")
-        tokens = batch["tokens"]
-        h = self.embed(params, tokens)
+        """Next-token cross-entropy over ``batch["tokens"]`` (B, S), on the
+        text region after any prepended patches; the audio encoder's masked
+        frame-unit cross-entropy over ``batch["frames"]``, ``["targets"]``
+        and ``["mask"]``. Returns (loss + aux, {"ce", "aux"})."""
+        h = self._inputs(params, batch)
         B, S, _ = h.shape
         positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
         h, _, aux = self.forward_hidden(params, h, positions)
-        loss = self._ce_loss(params, h[:, :-1, :], tokens[:, 1:],
+        if self.cfg.frontend == "audio_frames":
+            lse = torch.log_softmax(self.logits(params, h), dim=-1)
+            ll = torch.gather(lse, -1, batch["targets"].long()[..., None])
+            mask = batch["mask"].float()
+            loss = -(ll[..., 0] * mask).sum() / torch.clamp(mask.sum(),
+                                                             min=1.0)
+            return loss + aux, {"ce": loss, "aux": aux}
+        tokens = batch["tokens"]
+        txt0 = S - tokens.shape[1]
+        loss = self._ce_loss(params, h[:, txt0:-1, :], tokens[:, 1:],
                              chunk=self.flags.ce_chunk)
         return loss + aux, {"ce": loss, "aux": aux}
 
@@ -484,26 +597,30 @@ class Model:
                 ) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
         """Returns (logits of the last position (B, V) fp32, cache with
         ``max_seq`` slots, {"h_final": (B, S, D) pre-final-norm hiddens}).
-        The prompt attends full-precision K/V; under ``kv_quant`` the cache
-        then stores its codes and scales (JAX's ``_materialize_cache``). SSD
-        entries are stored as ``_block_seq`` returns them."""
-        tokens = batch["tokens"]
-        h = self.embed(params, tokens)
+        S counts prepended image patches (``batch["patches"]``). The prompt
+        attends full-precision K/V; under ``kv_quant`` the cache then stores
+        its codes and scales (JAX's ``_materialize_cache``). SSD and RG-LRU
+        entries are stored as ``_block_seq`` returns them. An encoder
+        returns the logits of every frame (B, S, V) and no cache."""
+        h = self._inputs(params, batch)
         B, S, _ = h.shape
-        max_seq = max_seq or (S + 1)
         positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
+        decoder = self.cfg.is_decoder()
+        max_seq = max_seq or (S + 1)
         segs = []
         for si, (unit, reps) in enumerate(self.segments):
             seg_cache = {f"u{i}": self.empty_cache_entry(reps, B, max_seq,
                                                          h.device, kind)
-                         for i, kind in enumerate(unit)}
+                         for i, kind in enumerate(unit)} if decoder else {}
             for r in range(reps):
                 up = index_tree(params["segments"][si], r)
                 for i, kind in enumerate(unit):
-                    h, ce = _block_seq(self.cfg, kind, up[f"u{i}"], h,
-                                       positions, self.flags)
+                    h, ce, _ = _block_seq(self.cfg, kind, up[f"u{i}"], h,
+                                          positions, self.flags)
+                    if not decoder:
+                        continue
                     entry = seg_cache[f"u{i}"]
-                    if kind == SSD:
+                    if kind in (SSD, RGLRU):
                         for name, val in ce.items():
                             if val is None:     # prompt shorter than K-1
                                 entry[name] = None
@@ -514,6 +631,8 @@ class Model:
                                               self.flags.kv_quant).items():
                         entry[name][r, :, :S] = val
             segs.append(seg_cache)
+        if not decoder:
+            return self.logits(params, h), None, {"h_final": h}
         cache = {"segments": segs,
                  "len": torch.full((B,), S, dtype=torch.int32,
                                    device=h.device)}
@@ -527,8 +646,16 @@ class Model:
         beside fp32 scales (reps, batch, max_seq, KVH); the paged manager
         builds its pools with ``batch`` = pages and ``max_seq`` = page
         size. SSD: the fp32 state (reps, batch, nh, hd, ds) and the conv
-        window (reps, batch, K-1, di+2ds) in the compute dtype (``max_seq``
-        unused)."""
+        window (reps, batch, K-1, di+2ds) in the compute dtype; RG-LRU: the
+        fp32 state (reps, batch, W) and the conv window (reps, batch, K-1,
+        W) (``max_seq`` unused)."""
+        if kind == RGLRU:
+            r = self.cfg.rglru or RGLRUConfig()
+            w = rglru_lib.lru_width(self.cfg)
+            return {"h": torch.zeros((reps, batch, w), dtype=torch.float32,
+                                     device=device),
+                    "conv": torch.zeros((reps, batch, r.conv_kernel - 1, w),
+                                        dtype=self.dtype, device=device)}
         if kind == SSD:
             s = self.cfg.ssm or SSMConfig()
             di, nh, hd, ds = ssd_lib.dims(self.cfg)
@@ -644,7 +771,7 @@ class Model:
         for i, kind in enumerate(unit):
             assert kind == ATTN, "tree mode requires pure-attention stacks"
             h, _ = _block_step_tree(self.cfg, up[f"u{i}"], h, ce[f"u{i}"],
-                                    mask, positions, scratch_off,
+                                    mask, positions, scratch_off, self.flags,
                                     pages=pages)
         return h, seg_cache
 
@@ -729,12 +856,15 @@ class Model:
         return h, dict(cache, len=pos + 1)
 
 
-def _stack(per: List[Params]) -> Params:
-    """Stack a list of identically-nested param trees leaf-wise."""
-    first = per[0]
-    if isinstance(first, dict):
-        return {k: _stack([p[k] for p in per]) for k in first}
-    return torch.stack(per)
+def _fill_rep(stacked: Params, one: Params, r: int) -> None:
+    """Copy one unit's params into slot ``r`` of the stacked tree, leaf by
+    leaf: a segment is built a unit at a time, so the card holds the stack
+    and one unit, never every unit twice (DBRX's 8 layers are 51 GB)."""
+    for k, v in one.items():
+        if isinstance(v, dict):
+            _fill_rep(stacked[k], v, r)
+        else:
+            stacked[k][r].copy_(v)
 
 
 def build_model(run: RunConfig, flags: ModelFlags = ModelFlags()) -> Model:

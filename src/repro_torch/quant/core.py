@@ -207,7 +207,10 @@ class QuantSpec:
 def _quantize_proj_subtree(p: Dict[str, Any], bits: int) -> Dict[str, Any]:
     """Parallel subtree of QTensors for the attn/mlp linear ``w`` leaves of
     one segment (only the quantized leaves; ``merge_dequant`` grafts them
-    back). Stacked leaves keep their leading (reps,) dim."""
+    back). Stacked leaves keep their leading (reps,) dim. A MoE block's
+    router and expert banks (``moe``) and an RG-LRU block's recurrence
+    (``rec``) are never quantized, as in the JAX package: a MoE block's
+    subtree holds its attention alone."""
     out: Dict[str, Any] = {}
     for unit_key, unit in p.items():
         got: Dict[str, Any] = {}

@@ -33,10 +33,16 @@ def make_train_step(model: Model, cfg: TrainConfig
     sched = make_schedule(cfg)
 
     def grad_fn(params, batch):
+        # a leaf the loss never reads (the token embedding of an audio
+        # encoder, which reads frames) gets a zero gradient, as under
+        # jax.grad
         leaves = [x.detach().requires_grad_(True)
                   for x in tree_leaves(params)]
         loss, _ = model.train_loss(tree_unflatten(params, leaves), batch)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), tuple(
+            torch.zeros_like(x) if g is None else g
+            for x, g in zip(leaves, grads))
 
     def train_step(params, opt_state: AdamWState, batch):
         if cfg.microbatch and cfg.microbatch > 0:

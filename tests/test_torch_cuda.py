@@ -1809,3 +1809,124 @@ def test_sampler_on_card_matches_cpu(dev):
                 top2 = torch.topk(s, 2).values
                 assert float(top2[0] - top2[1]) < 1e-12 * float(
                     top2[0].abs()), (seed, temperature, r)
+
+
+# ---- the MoE, hybrid and VLM configs' head shapes ----
+# (n_rep, hd, KV heads): DBRX's and InternVL2's 48 heads over 8 of 128,
+# Qwen3-MoE's 64 over 4 of 64, RecurrentGemma's 16 over one of 256 (MQA,
+# two CTAs per KV head of 8 heads each)
+NEW_HEAD_SHAPES = [(6, 128, 8), (16, 64, 4), (16, 256, 1)]
+
+
+@pytest.mark.parametrize("window", [None, 64, 300])
+@pytest.mark.parametrize("shape", NEW_HEAD_SHAPES,
+                         ids=lambda s: f"nrep{s[0]}-hd{s[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reader", ["dense", "fp", "int8"])
+def test_attention_kernels_at_new_head_shapes(dev, reader, dtype, shape,
+                                              window):
+    """The dense, paged and int8-paged split-KV kernels at the head shapes
+    of dbrx-132b / internvl2-26b, qwen3-moe-235b-a22b and
+    recurrentgemma-9b: rows of one and of many splits (the fill rule cuts
+    the MQA rows of one KV head into more), a retired paged row; against
+    the plain version on the inputs upcast to fp32, at the file's
+    tolerances; one launch each."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_fwd, paged_decode_attention_fwd)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, paged_decode_attention_ref)
+    n_rep, hd, kvh = shape
+    gen = torch.Generator(device=dev).manual_seed(41 + n_rep + hd)
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    if reader == "dense":
+        S = 2300
+        q = _rand(gen, (4, 1, n_rep * kvh, hd), dev, dtype)
+        k = _rand(gen, (4, S, kvh, hd), dev, dtype)
+        v = _rand(gen, (4, S, kvh, hd), dev, dtype)
+        clen = torch.tensor([150, S, 1, 2113], dtype=torch.int32,
+                            device=dev)
+        reset_launches()
+        got = decode_attention_fwd(q, k, v, clen, window=window)
+        torch.cuda.synchronize()
+        assert LAUNCHES["decode_attention"] == 1
+        want = decode_attention_ref(q.float(), k.float(), v.float(), clen,
+                                    window)
+        torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)
+        return
+    name = "paged_decode_attention" + ("_q" if reader == "int8" else "")
+    args, kw = _split_case(gen, dev, reader, dtype, n_rep, hd,
+                           [4096, 150, 2 * 128 + 3, 2113, 1], kvh=kvh)
+    reset_launches()
+    got = paged_decode_attention_fwd(*args, window=window, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == 1 and sum(LAUNCHES.values()) == 1
+    q, kp, vp, table, clen = args
+    if reader == "fp":
+        kp, vp = kp.float(), vp.float()
+    want = paged_decode_attention_ref(q.float(), kp, vp, table, clen, window,
+                                      kw.get("k_scale"), kw.get("v_scale"))
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float()[:-1], want[:-1], atol=1e-4,
+                               rtol=rtol)
+
+
+def test_grid_split_fills_the_card_only_where_it_is_idle(dev):
+    """The fill rule: a launch whose first split index already gives at
+    least one CTA per SM keeps the shape rule's split (Llama-2-7B's 32 KV
+    heads at B = 4, 4096 slots: 2 splits of 128 CTAs); RecurrentGemma's
+    one KV head at B = 4 (2 CTAs per KV head) is cut into splits of at least 256 KB of K and V that give more
+    CTAs, whole pages in the paged kernels; the merged output stays
+    deterministic and every ticket returns to 0."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    assert da.dense_grid_split(4096, 128, 2, 4, 32, 1) == \
+        da.dense_split_keys(4096, 128, 2)
+    base = da.dense_split_keys(2300, 256, 2)
+    split = da.dense_grid_split(2300, 256, 2, 4, 1, 16)
+    assert 256 <= split < base and 8 * -(-2300 // split) > 8
+    for name in ("paged_decode_attention", "paged_decode_attention_q"):
+        esize = 1 if name.endswith("_q") else 2
+        ps_split = da.grid_split(name, 20, 128, 256, esize, 4, 1, 16)
+        assert ps_split % 128 == 0
+        assert ps_split <= da.split_keys(name, 20, 128)
+        assert ps_split * 2 * 256 * esize >= 1 << 18
+    gen = torch.Generator(device=dev).manual_seed(44)
+    q = _rand(gen, (4, 1, 16, 256), dev, torch.bfloat16)
+    k = _rand(gen, (4, 2300, 1, 256), dev, torch.bfloat16)
+    v = _rand(gen, (4, 2300, 1, 256), dev, torch.bfloat16)
+    clen = torch.tensor([2300, 2200, 700, 1], dtype=torch.int32, device=dev)
+    outs = []
+    for _ in range(2):
+        outs.append(da.decode_attention_fwd(q, k, v, clen, window=2048))
+        torch.cuda.synchronize()
+        assert int(da._WORKSPACES[q.device].tickets.abs().sum()) == 0
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("window", [None, 64, 2048])
+@pytest.mark.parametrize("dtype,S", [(torch.bfloat16, 2100),
+                                     (torch.bfloat16, 77),
+                                     (torch.float32, 300)])
+def test_flash_attention_at_hd_256(dev, dtype, S, window):
+    """Flash attention at RecurrentGemma's head dim 256, 16 query heads
+    over one KV head: the bf16 tensor-core body (32-key tiles, Q
+    fragments reloaded per tile) over a prompt that crosses the 2048
+    window and a ragged one-tile prompt, and the fp32 body; against the
+    plain version on the inputs upcast to fp32, at the file's
+    tolerances; one launch each."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(device=dev).manual_seed(S + (window or 0))
+    B, H, hd = 2, 16, 256
+    q = _rand(gen, (B, S, H, hd), dev, dtype)
+    k = _rand(gen, (B, S, 1, hd), dev, dtype)
+    v = _rand(gen, (B, S, 1, hd), dev, dtype)
+    reset_launches()
+    got = flash_attention_fwd(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    want = flash_attention_ref(q.float(), k.float(), v.float(), True, window)
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)

@@ -39,9 +39,10 @@ from repro_torch.models.model import build_model  # noqa: E402
 TOL = dict(atol=1e-5, rtol=1e-5)
 DENSE_FAMILY = ["llama2-13b", "llama2-70b", "deepseek-7b", "minicpm-2b",
                 "starcoder2-15b", "command-r-plus-104b"]
-# JAX's archs the port does not register yet (ROADMAP queue 1, items 5-7)
-NOT_PORTED = {"dbrx-132b", "qwen3-moe-235b-a22b", "internvl2-26b",
-              "hubert-xlarge", "recurrentgemma-9b"}
+# JAX's archs the port does not register: none, since the MoE, RG-LRU and
+# frontend families came (tests/test_torch_moe.py, test_torch_rglru.py,
+# test_torch_frontends.py)
+NOT_PORTED: set = set()
 
 
 def _np(x):
@@ -243,9 +244,10 @@ def test_decode_attention_plain_at_12_heads_per_kv_head(window):
 
 
 def test_archs_match_jax_less_the_unported():
-    """The port registers JAX's archs, in JAX's order, less the MoE,
-    frontend and RG-LRU families (ROADMAP queue 1, items 5-7); each
-    resolves to its JAX config's fields."""
+    """The port registers every one of JAX's archs, in JAX's order; each
+    resolves to its JAX config's fields (the MoE and RG-LRU sub-configs,
+    the frontend and its tokens among them) and its train config."""
+    assert ARCHS == list(J_ARCHS)
     assert ARCHS == [a for a in J_ARCHS if a not in NOT_PORTED]
     assert set(J_ARCHS) - set(ARCHS) == NOT_PORTED
     def plain(x):

@@ -177,9 +177,16 @@ def test_pipeline_bit_identical_to_jax():
             DataPipeline.from_state(cfg_t, 4, 32, state).next()["tokens"],
             want)
         np.testing.assert_array_equal(pt.next()["tokens"], want)
-    frontends = dataclasses.replace(cfg_t, frontend="vision_patches")
-    with pytest.raises(ValueError, match="ROADMAP: frontends"):
-        DataPipeline(frontends, 2, 16).next()
+    # the frontend configs' patches and frames come from the same stream
+    for name in ("internvl2-26b", "hubert-xlarge"):
+        cfg_t = get_config(name).smoke().model
+        cfg_j = jax_get_config(name).smoke().model
+        a = DataPipeline(cfg_t, 2, 16, seed=3).next()
+        b = JPipeline(cfg_j, 2, 16, seed=3).next()
+        assert list(a) == list(b)
+        for key in a:
+            assert a[key].dtype == b[key].dtype
+            np.testing.assert_array_equal(a[key], b[key])
 
 
 @pytest.mark.parametrize("name", ["llama2-7b", "mamba2-130m"])
