@@ -16,7 +16,8 @@ offline schedule) and decodes with them, runs the dense-family configs
 serves sampled requests, cancels requests, prefills a long prompt
 through chunked attention and runs the serving launcher, and runs the MoE
 (DBRX, Qwen3-MoE), RG-LRU hybrid (RecurrentGemma) and frontend (InternVL2,
-HuBERT) configs.
+HuBERT) configs, and serves through injected faults, evictions from an
+oversubscribed pool and a checkpoint restored into a fresh engine.
 
     python3 chip_smoke.py
 
@@ -247,7 +248,32 @@ Phases (lines ``[phase +seconds since the start] ...``):
      (frame logits of 4 x 512 frames, then 3 fp32 TrainLoop steps); each
      run zeroes the launch counts and requires its path's kernels;
      tokens/s, units_run, peak memory, launches;
- 15. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
+ 15. faults — fault-tolerant serving on phase 5's weights (seeded
+     again): ServingEngine(strategy="specee", megatick=4, blocking
+     admission, max_batch 8, 1024-token rows of 128-token pages) serves
+     phase 5's 16 requests, 32 new tokens each, over a pool of 40 pages
+     (5 row reservations for 8 slots) under JAX's acceptance schedule
+     (dispatch at visit 1, finish_timeout 3, nan_logits 5, pool_exhausted
+     2-7, sigterm 6; no backoff sleep, evict_patience 2, cooldown_ticks 2,
+     a temporary checkpoint directory); each Preempted closes the engine
+     and a fresh one on the same weights restores the checkpoint. Every
+     site but device_lost fires; every request's tokens, exit points and
+     accept lengths equal a fault-free run on 64 pages; every request is
+     done with 32 tokens and every page free; the fault log holds retry,
+     recover, evict, checkpoint and restore; every engine, the restored
+     ones too, turns the paged decode kernel on and launches exit_gate,
+     argmax_verify, topk_verify, paged_decode_attention and
+     flash_attention. Logged: evictions, tokens replayed, checkpoint and
+     restore GB and seconds, wall time against the reference. Then 4
+     requests with watchdog_s=1e-9 (sync fallbacks, the reference's
+     tokens); ``python -m repro_torch.launch.serve --smoke --ci
+     --checkpoint-dir D`` sent a real SIGTERM after its first tick (exit
+     17, a committed step), then ``--restore`` (CI smoke OK), beside
+     ``--megatick 2 --inject SITE`` for the five sites, six subprocesses at
+     once; a TrainLoop restart on get_bundle's 12-layer smoke config in
+     fp32 (2 steps, save, 1 step; a fresh loop restores step 2 and runs 1:
+     step 3's batch bit-equal, its loss within rel 1e-5);
+ 16. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
@@ -255,7 +281,7 @@ token per step (one emitted token per tree step), so the tree runs of
 phases 3 to 10 measure the mechanism's cost, not its gain; phase 11's
 trained bundles are the ones that exit and accept.
 
-Each main path (phases 4 to 14, each run on its own) zeroes the
+Each main path (phases 4 to 15, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -4989,8 +5015,8 @@ def serving_rest_phase(torch, dev):
     cmds = [["--mode", "specee"], ["--mode", "tree"],
             ["--mode", "dense", "--temperature", "0.8"]]
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke", "--ci",
-         *c], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCHER, *c],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for c in cmds]
     t0 = time.perf_counter()
     for c, p in zip(cmds, procs):
@@ -5242,6 +5268,353 @@ def hubert_run(torch, dev, run):
     return {"newfam_hubert-xlarge_prefill": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: fault-tolerant serving and checkpoints
+# ---------------------------------------------------------------------------
+FAULT_SEQ = 1024              # tokens a row: 8 pages of PAGE
+FAULT_PAGES = 40              # 5 row reservations for SERVE_BATCH slots
+FAULT_REF_PAGES = 64          # every slot's reservation: no eviction
+FAULT_SITES = ("dispatch", "finish_timeout", "nan_logits", "pool_exhausted",
+               "sigterm")
+FAULT_PATH = ("exit_gate", "argmax_verify", "topk_verify",
+              "paged_decode_attention", "flash_attention")
+FAULT_ACTIONS = ("retry", "recover", "evict", "checkpoint", "restore")
+WATCHDOG_REQS = 4
+LAUNCHER = ("--smoke", "--ci")          # the launcher runs of phases 13, 15
+TRAIN_RESTART_STEPS = (2, 1)            # steps before and after the save
+
+
+def fault_engine(torch, params, sw, num_pages: int, **kw):
+    """Phase 15's engine: llama2-7b (32 layers, bf16), SpecEE, megaticks of
+    MEGA_K (async), blocking admission, SERVE_BATCH slots of FAULT_SEQ
+    tokens over ``num_pages`` pages. The model is built without
+    ``decode_kernel``: the engine turns it on for a paged cache on the
+    card, and an engine rebuilt by a restore must do so again."""
+    from repro_torch.api import CacheSpec
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serving import ServingEngine
+    run = llama(32, "bfloat16", max_batch=SERVE_BATCH,
+                max_seq_len=FAULT_SEQ, page_size=PAGE)
+    flags = dict(ALL_KERNELS, decode_kernel=False)
+    kw.setdefault("megatick", MEGA_K)
+    return ServingEngine(build_model(run, ModelFlags(**flags)), params, sw,
+                         strategy="specee", prefill_chunk=0,
+                         cache=CacheSpec("paged", page_size=PAGE,
+                                         num_pages=num_pages), **kw)
+
+
+def _state_gb(se) -> float:
+    return sum(x.numel() * x.element_size() for x in _leaves(se.session._state)
+               if hasattr(x, "element_size")) / 1e9
+
+
+def _record(reqs):
+    return {r.uid: (list(r.output), list(r.exit_points), list(r.accept_lens))
+            for r in reqs}
+
+
+def fault_reference(torch, params, sw, prompts):
+    """The fault-free run on every slot's reservation. Returns (outcome by
+    uid, wall seconds, launches)."""
+    from repro_torch import kernels as K
+    se = fault_engine(torch, params, sw, FAULT_REF_PAGES)
+    torch.cuda.synchronize()
+    K.reset_launches()                     # ---- the main path ----
+    t0 = time.perf_counter()
+    for p in prompts:
+        se.submit(p, max_new_tokens=SERVE_NEW)
+    se.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    require(len(se.completed) == len(prompts) and all(
+        r.done and len(r.output) == SERVE_NEW for r in se.completed),
+        "faults: the reference did not finish every request")
+    out = _record(se.completed)
+    se.close()
+    return out, wall, launches
+
+
+def faulted_run(torch, params, sw, prompts, ckdir: str):
+    """JAX's acceptance schedule on the oversubscribed pool; on each
+    ``Preempted`` the engine is closed and a fresh one restores the
+    checkpoint. Returns (outcome by uid, the final engine, per-incarnation
+    launches and decode_kernel flags, fault log, fired sites, wall seconds,
+    checkpoint and restore (GB, seconds))."""
+    from repro_torch import kernels as K
+    from repro_torch.runtime import faultinject
+    from repro_torch.runtime.faultinject import FaultSchedule
+    from repro_torch.serving import Backoff, Preempted
+    schedule = FaultSchedule.at(dispatch=[1], finish_timeout=[3],
+                                nan_logits=[5], pool_exhausted=range(2, 8),
+                                sigterm=[6])
+    kw = dict(checkpoint_dir=ckdir, backoff=Backoff(base_s=0.0),
+              evict_patience=2, cooldown_ticks=2)
+    saves, restores, runs, events = [], [], [], []
+
+    def timed_checkpoints(se):
+        save = se.checkpoint_now
+
+        def checkpoint_now():
+            gb = _state_gb(se)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tick = save()
+            saves.append((gb, time.perf_counter() - t0))
+            return tick
+        se.checkpoint_now = checkpoint_now
+        return se
+
+    with faultinject.injected(schedule) as inj:
+        se = timed_checkpoints(fault_engine(torch, params, sw, FAULT_PAGES,
+                                            **kw))
+        torch.cuda.synchronize()
+        K.reset_launches()                 # ---- the main path ----
+        t0 = time.perf_counter()
+        for p in prompts:
+            se.submit(p, max_new_tokens=SERVE_NEW)
+        for _ in range(8):                 # preemption / restart cycles
+            try:
+                se.run_to_completion()
+                break
+            except Preempted:
+                torch.cuda.synchronize()
+                runs.append((dict(K.LAUNCHES), se.model.flags.decode_kernel))
+                events.extend(se.fault_log)
+                se.close()
+                del se
+                se = timed_checkpoints(fault_engine(torch, params, sw,
+                                                    FAULT_PAGES, **kw))
+                torch.cuda.synchronize()
+                t_r = time.perf_counter()
+                require(se.restore_checkpoint(),
+                        "faults: restore_checkpoint() found no checkpoint")
+                torch.cuda.synchronize()
+                restores.append((_state_gb(se), time.perf_counter() - t_r))
+                K.reset_launches()
+        else:
+            raise AssertionError("faults: the engine never ran to completion")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append((dict(K.LAUNCHES), se.model.flags.decode_kernel))
+        events.extend(se.fault_log)         # ---- read right after ----
+        se.close()
+        fired = inj.fired_sites()
+    return (_record(se.completed), se, runs, events, fired, wall, saves,
+            restores)
+
+
+def watchdog_run(torch, params, sw, prompts):
+    """``watchdog_s=1e-9``: every finish is slow, so the engine keeps the
+    results and runs synchronous ticks. Returns (outcome, fault log,
+    launches)."""
+    from repro_torch import kernels as K
+    se = fault_engine(torch, params, sw, FAULT_REF_PAGES, watchdog_s=1e-9)
+    K.reset_launches()                     # ---- the main path ----
+    for p in prompts:
+        se.submit(p, max_new_tokens=SERVE_NEW)
+    se.run_to_completion()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    se.close()
+    return _record(se.completed), list(se.fault_log), launches
+
+
+def _launcher(args, env):
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCHER, *args],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def train_restart(torch, dev, ckdir: str):
+    """JAX's ``test_train_restart_reproduces_stream`` on the card, on
+    get_bundle's 12-layer smoke config in fp32: 2 steps, save, 1 step; a
+    fresh loop (other init) restores step 2 and runs 1 step. Returns (the
+    two batches of step 3, the two losses)."""
+    import dataclasses
+    from repro_torch.models.model import build_model
+    from repro_torch.train import TrainLoop
+    run = bundle_b_run()
+    run = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, checkpoint_every=100))
+    model = build_model(run)
+
+    def loop_from(seed):
+        loop = TrainLoop(model, run, model.init(
+            torch.Generator(device=dev).manual_seed(seed), dev),
+            ckpt_dir=ckdir)
+        return loop
+
+    def recorded(loop):
+        seen, nxt = [], loop.pipeline.next
+
+        def next_batch():
+            seen.append(nxt())
+            return seen[-1]
+        loop.pipeline.next = next_batch
+        return seen
+
+    first, after = TRAIN_RESTART_STEPS
+    loop = loop_from(0)
+    loop.run_steps(first)
+    loop.save()
+    loop.ckpt.wait()
+    seen = recorded(loop)
+    loop.run_steps(after)
+    loop2 = loop_from(5)
+    require(loop2.try_restore() and loop2.step == first,
+            "faults: TrainLoop did not restore its saved step")
+    seen2 = recorded(loop2)
+    loop2.run_steps(after)
+    return (seen[0], seen2[0]), (loop.history[-1]["loss"],
+                                 loop2.history[-1]["loss"])
+
+
+def faults_phase(torch, dev):
+    """Phase 15. Returns the launches by path."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    t_phase = time.perf_counter()
+    params, sw = full_weights(torch, dev)       # phase 5's weights (seed 7)
+    prompts = serve_prompts()
+    ref, ref_wall, ref_launches = fault_reference(torch, params, sw, prompts)
+    torch.cuda.empty_cache()
+    ckdir = tempfile.mkdtemp(prefix="faults-ckpt-")
+    try:
+        (got, se, runs, events, fired, wall, saves,
+         restores) = faulted_run(torch, params, sw, prompts, ckdir)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    require(fired == frozenset(FAULT_SITES),
+            f"faults: fired {sorted(fired)}, want every site but "
+            "device_lost")
+    differ = [u for u in ref if got.get(u) != ref[u]]
+    require(not differ, f"faults: requests {differ} differ from the "
+            "fault-free reference (tokens, exit points or accept lengths)")
+    require(len(se.completed) == len(prompts) and all(
+        r.done and len(r.output) == SERVE_NEW for r in se.completed),
+        f"faults: not every request is done with {SERVE_NEW} tokens")
+    mgr = se.session.cache_mgr
+    require(mgr.free_pages == mgr.num_pages, f"faults: {mgr.free_pages} of "
+            f"{mgr.num_pages} pages free at the end")
+    actions = [e.action for e in events]
+    missing = [a for a in FAULT_ACTIONS if a not in actions]
+    require(not missing, f"faults: the fault log lacks {missing}")
+    for i, (launches, decode_kernel) in enumerate(runs):
+        require(decode_kernel, f"faults: engine {i} runs without the paged "
+                "decode kernel")
+        absent = [k for k in FAULT_PATH if launches[k] == 0]
+        require(not absent, f"faults: engine {i} never launched {absent}")
+    by_path = {f"faults_serve_{i}": launches
+               for i, (launches, _) in enumerate(runs)}
+    by_path["faults_reference"] = ref_launches
+    evicts = [e for e in events if e.action == "evict"]
+    replayed = sum(int(e.detail.split("progress=")[1].split()[0])
+                   for e in evicts)
+    log("faults", f"{len(prompts)} requests x {SERVE_NEW} tokens, pool of "
+        f"{FAULT_PAGES} pages ({FAULT_PAGES * PAGE // FAULT_SEQ} row "
+        f"reservations for {SERVE_BATCH} slots): every site but device_lost "
+        f"fired; {len(runs)} engines ({len(runs) - 1} rebuilt by a "
+        f"restore, each launching {', '.join(FAULT_PATH)}, decode_kernel "
+        f"on); {len(evicts)} evictions, {replayed} tokens replayed and "
+        f"verified; every request's tokens, exit points and accept lengths "
+        f"equal the fault-free run on {FAULT_REF_PAGES} pages; every page "
+        f"free; wall {wall:.3f} s against the reference's {ref_wall:.3f} s "
+        f"({wall / ref_wall:.2f}x)")
+    log("faults", "fault log: " + ", ".join(
+        f"{e.site}:{e.action}@{e.tick}" for e in events))
+    for gb, sec in saves:
+        log("faults", f"checkpoint: {gb:.3f} GB of state (page pools, page "
+            f"table, draft cache, scheduler, last tokens) saved in "
+            f"{sec:.3f} s ({gb / sec:.2f} GB/s, the card to npz files)")
+    for gb, sec in restores:
+        log("faults", f"restore: {gb:.3f} GB into a fresh engine in "
+            f"{sec:.3f} s ({gb / sec:.2f} GB/s, npz files to the card; the "
+            "read was warm in the page cache)")
+    del se
+    torch.cuda.empty_cache()
+
+    wd, wd_log, wd_launches = watchdog_run(torch, params, sw,
+                                           prompts[:WATCHDOG_REQS])
+    by_path["faults_watchdog"] = wd_launches
+    falls = [e for e in wd_log if e.action == "sync_fallback"]
+    require(falls and falls[0].site == "watchdog",
+            "faults: watchdog_s=1e-9 logged no sync_fallback")
+    differ = [u for u in wd if wd[u] != ref[u]]
+    require(not differ, f"faults: watchdog run requests {differ} differ "
+            "from the same requests in the 16-request reference")
+    log("faults", f"watchdog_s=1e-9, {WATCHDOG_REQS} requests: "
+        f"{len(falls)} sync fallbacks; tokens, exit points and accept "
+        f"lengths equal the same requests among {len(prompts)} in the "
+        "reference")
+    del params, sw
+    torch.cuda.empty_cache()
+
+    # ---- the launcher: a real SIGTERM, then --inject for each site ----
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    launch_dir = tempfile.mkdtemp(prefix="faults-launch-")
+    t0 = time.perf_counter()
+    try:
+        term = _launcher(["--checkpoint-dir", launch_dir], env)
+        sites = [_launcher(["--megatick", "2", "--inject", site], env)
+                 for site in FAULT_SITES]
+        head = []
+        for line in term.stdout:
+            head.append(line)
+            if line.startswith("[serve] tick 1 done"):
+                term.send_signal(signal.SIGTERM)
+                break
+        rest, _ = term.communicate(timeout=600)
+        require(term.returncode == 17, f"faults: the launcher exited "
+                f"{term.returncode} on SIGTERM, want 17:\n"
+                f"{(''.join(head) + rest)[-3000:]}")
+        step = CheckpointManager(launch_dir).latest_step()
+        require(step is not None, "faults: the launcher's SIGTERM left no "
+                "committed step")
+        again = _launcher(["--checkpoint-dir", launch_dir, "--restore"], env)
+        out, _ = again.communicate(timeout=600)
+        require(again.returncode == 0 and "CI smoke OK" in out
+                and "[serve] restored tick" in out,
+                f"faults: --restore --ci failed:\n{out[-3000:]}")
+        log("faults", f"launcher: SIGTERM after its first tick -> exit 17 "
+            f"with step {step} committed; --restore --ci: " + next(
+                ln for ln in out.splitlines() if "restored tick" in ln)
+            + "; CI smoke OK")
+        for site, proc in zip(FAULT_SITES, sites):
+            out, _ = proc.communicate(timeout=600)
+            require(proc.returncode == 0 and "CI smoke OK" in out,
+                    f"faults: --inject {site} failed:\n{out[-3000:]}")
+            log("faults", f"--inject {site} --ci: " + next(
+                ln for ln in out.splitlines() if "injected" in ln))
+    finally:
+        shutil.rmtree(launch_dir, ignore_errors=True)
+    log("faults", f"launchers in {time.perf_counter() - t0:.1f} s")
+
+    # ---- TrainLoop restart ----
+    train_dir = tempfile.mkdtemp(prefix="faults-train-")
+    try:
+        (b1, b2), (l1, l2) = train_restart(torch, dev, train_dir)
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    require(set(b1) == set(b2) and all(
+        np.array_equal(np.asarray(b1[k]), np.asarray(b2[k])) for k in b1),
+        "faults: the restored pipeline's batch differs")
+    rel = abs(l2 - l1) / abs(l1)
+    require(rel <= 1e-5, f"faults: restarted loss {l2!r} against "
+            f"{l1!r}, rel {rel:.3g} > 1e-5")
+    log("faults", f"TrainLoop restart (get_bundle's 12-layer smoke config, "
+        f"fp32): step 3's batch bit-equal after the restore; loss "
+        f"{l1!r} uninterrupted, {l2!r} restarted, rel difference "
+        f"{rel:.3g}")
+    log("faults", f"phase in {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 
 def profile_steps(torch, model, params, sw, prompts, step_s: float,
                   n: int = 4, phase: str = "profile") -> None:
@@ -5395,6 +5768,8 @@ def main() -> int:
     by_path.update(serving_rest_phase(torch, dev))
     torch.cuda.empty_cache()
     by_path.update(new_family_phase(torch, dev))
+    torch.cuda.empty_cache()
+    by_path.update(faults_phase(torch, dev))
 
     kernels = []
     for name in build.SOURCES:

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.config import ATTN, LOCAL_ATTN
 from repro_torch.core import paged as paged_lib
+from repro_torch.runtime import faultinject
 
 
 @dataclass(frozen=True)
@@ -119,7 +120,15 @@ class KVCacheManager:
         raise NotImplementedError
 
     def can_admit(self, prompt_len: int = 0) -> bool:
-        """Admission gate (paged: a full row reservation of free pages)."""
+        """Admission gate (paged: a full row reservation of free pages).
+        The ``pool_exhausted`` fault site lives here, so a schedule can
+        simulate a dry pool on either layout and drive the serving
+        engine's victim eviction (``runtime.faultinject``)."""
+        if faultinject.fire("pool_exhausted"):
+            return False
+        return self._can_admit(prompt_len)
+
+    def _can_admit(self, prompt_len: int = 0) -> bool:
         return True
 
     # ----- allocator state -----
@@ -216,7 +225,7 @@ class PagedKVCache(KVCacheManager):
     def row_pages(self, row: int) -> int:
         return len(self._row_pages[row])
 
-    def can_admit(self, prompt_len: int = 0) -> bool:
+    def _can_admit(self, prompt_len: int = 0) -> bool:
         return len(self._free) >= self.pages_per_row
 
     def export_state(self) -> dict:

@@ -52,8 +52,13 @@ Two session styles:
 
 A session carries its sampling seed (``new_session(prng_seed=)``) in its
 state; only a sampling ``DenseStrategy`` reads it, and the prefill's first
-token stays greedy. Snapshots are a later slice (the ROADMAP item on fault
-tolerance).
+token stays greedy.
+
+``snapshot()`` returns the session's state and host bookkeeping, and
+``restore`` adopts one into a session built the same way (the serving
+engine's checkpoints). The snapshot's tensors are the live ones, which the
+next step writes in place: ``CheckpointManager.save`` copies them to the
+host before it returns.
 """
 from __future__ import annotations
 
@@ -70,10 +75,12 @@ from repro_torch.api.types import StepResult
 from repro_torch.core import draft as draft_lib
 from repro_torch.core import engine as eng
 from repro_torch.core import scheduler as sched_lib
-from repro_torch.models.common import lm_head_weight, with_contiguous_head
+from repro_torch.models.common import (lm_head_weight, tree_map,
+                                       with_contiguous_head)
 from repro_torch.models.model import Model
 from repro_torch.quant import (QuantSpec, dequantized_reference,
                                quantize_params)
+from repro_torch.runtime import faultinject
 
 _NO_BUDGET = np.iinfo(np.int64).max
 _DEV_NO_BUDGET = np.iinfo(np.int32).max     # device-carry budget cap
@@ -392,9 +399,71 @@ class DecodeSession:
         stay at their last synced values, which are authoritative because
         the aborted megaticks' results were never read, and the device
         carry is dropped, so the next dispatch rebuilds it from the host.
-        The state keeps the aborted megaticks' writes."""
+        Nothing of the dropped handles is read or waited on. The state
+        keeps the aborted megaticks' writes: a caller that distrusts them
+        evicts the affected rows, whose replay rebuilds them."""
         self._async_handles.clear()
         self._dev_carry = None
+
+    # ----- checkpoint / restore -----
+    def snapshot(self) -> tuple:
+        """-> ``(state_tree, meta)``: the whole decode state of the session.
+
+        ``state_tree`` is the ``DecodeState`` (page pools or dense caches,
+        page table, draft cache, scheduler state, the sampling seed);
+        ``meta`` is the host bookkeeping as JSON values (budgets, emitted
+        counts, EOS, done and retired mirrors, the cache manager's
+        allocator state). Together they let ``restore`` resume decoding
+        token-identically. The tensors are the live ones (see the module
+        docstring). Outstanding async megaticks must be finished or aborted
+        first: the host mirrors would trail the state they wrote."""
+        assert self._state is not None and self.batch is not None, \
+            "nothing to snapshot: session has no state"
+        assert not self._async_handles, \
+            "finish_step()/abort_async() outstanding megaticks before " \
+            "snapshot()"
+        meta = {
+            "batch": int(self.batch),
+            "max_seq": int(self._max_seq),
+            "strategy": self.engine.strategy.name,
+            "emitted": [int(x) for x in self._emitted],
+            "budget": [None if int(b) >= _NO_BUDGET else int(b)
+                       for b in self._budget],
+            "eos": [None if e is None else int(e) for e in self._eos],
+            "done": [bool(d) for d in self._done],
+            "retired": sorted(int(r) for r in self._retired),
+            "cache": self.cache_mgr.export_state(),
+        }
+        return self._state, meta
+
+    def restore(self, state_tree, meta: dict) -> None:
+        """Adopt a ``snapshot`` into this pre-allocated session, which must
+        be built as the snapshotting one was (batch, max_seq, strategy and
+        cache layout, checked before anything is touched). The state's
+        tensors move to the session's device. The next ``step`` or
+        ``step_async`` continues where the saved session stopped."""
+        assert self._state is not None and self.batch is not None, \
+            "restore needs a pre-allocated session (new_session(batch=B))"
+        for key, have in (("batch", self.batch), ("max_seq", self._max_seq),
+                          ("strategy", self.engine.strategy.name)):
+            if meta[key] != have:
+                raise ValueError(
+                    f"snapshot {key}={meta[key]!r} does not match this "
+                    f"session's {key}={have!r}")
+        self.cache_mgr.import_state(meta["cache"])
+        device = self.engine.device
+        self._state = tree_map(
+            lambda x: (x.to(device) if isinstance(x, torch.Tensor) else x),
+            state_tree)
+        self._emitted = np.asarray(meta["emitted"], np.int64)
+        self._budget = np.asarray(
+            [_NO_BUDGET if b is None else int(b) for b in meta["budget"]],
+            np.int64)
+        self._eos = [None if e is None else int(e) for e in meta["eos"]]
+        self._done = np.asarray(meta["done"], bool)
+        self._retired = set(int(r) for r in meta["retired"])
+        self._dev_carry = None
+        self._async_handles = []
 
     # ----- whole-batch entry -----
     def prefill(self, prompts, max_new_tokens: Optional[int] = None,
@@ -583,6 +652,9 @@ class DecodeSession:
         if num_ticks is not None and int(num_ticks) != 1:
             return self.finish_step(self.step_async(num_ticks))
         e = self.engine
+        # fault site: fires before the step writes anything to the state,
+        # so the caller may retry
+        faultinject.check("dispatch")
         params, sw, qw = e.decode_weights()
         raw, self._state = e.strategy.step(e.model, params, sw, self._state,
                                            qw=qw)
@@ -603,6 +675,9 @@ class DecodeSession:
         assert self._state is not None, "prefill first"
         K = int(num_ticks)
         assert K >= 1, f"num_ticks must be >= 1, got {K}"
+        # fault site: fires before the megatick writes anything to the
+        # state, so the caller may retry the dispatch
+        faultinject.check("dispatch")
         carry = (self._dev_carry if self._dev_carry is not None
                  else self._carry_from_host())
         out, self._state, carry = self.engine.megatick(self._state, carry, K)

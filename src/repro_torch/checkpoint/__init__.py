@@ -1,0 +1,4 @@
+"""Step-atomic checkpoints (counterpart of ``repro/checkpoint``)."""
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -12,26 +12,47 @@ seeded (weights and SpecEE bundle from seeds 0 and 1 on the device).
 (``repro_torch.core.bundle``, in ``benchmarks/common.py::get_bundle``'s
 order, on get_bundle's config: the smoke config deepened to 12 layers).
 Prompts are a pure function of the command line (numpy seed 0), 4 to 15
-tokens each.
+tokens each, so a restarted ``--restore`` run serves the same workload.
+
+Fault tolerance:
+    --checkpoint-dir D   arm SIGTERM preemption: the engine drains, saves a
+                         step-atomic snapshot into D and the process exits
+                         with code 17 (the guard is installed before the
+                         model is built)
+    --restore            resume the latest snapshot in D token-identically
+    --inject SITE        deterministic fault injection at one site
+                         (dispatch, finish_timeout, nan_logits,
+                         pool_exhausted, sigterm); the run must still
+                         complete every request. ``sigterm`` recovers in
+                         the same process. ``device_lost`` needs a
+                         tensor-parallel mesh and is refused
+    --fault-log PATH     write the engine's FaultEvent ring to PATH as
+                         JSONL after the run
+    --num-pages N        a paged pool smaller than the batch's rows need:
+                         the engine evicts under pool pressure
 
 ``--ci`` caps the run at 4 requests of 6 new tokens and asserts that every
 request completes with its budget, that every page is freed, and that the
 tokens equal those of an in-process reference: the engine on the plain
-paths (no kernel, the unfused gate), per tick, same admission and weights.
+paths (no kernel, the unfused gate), per tick, same admission and weights,
+on a full pool and with no fault.
 
-Not ported yet, and refused naming their ROADMAP item: checkpoints,
-restore, fault injection and the fault log ("fault tolerance"), a pool
-smaller than the batch's rows (eviction, same item), and a tensor-parallel
-mesh or replicas ("multi-GPU").
+A tensor-parallel mesh (``--mesh 1,N>1``) and replicas (``--replicas
+N>1``) are refused, naming their ROADMAP item ("multi-GPU").
 """
 from __future__ import annotations
 
 import argparse
+import shutil
+import sys
+import tempfile
 import time
 from typing import List, Optional
 
-_FAULTS = "ROADMAP: fault tolerance"
+from repro_torch.runtime.faultinject import SITES
+
 _MULTI = "ROADMAP: multi-GPU"
+PREEMPTED_EXIT_CODE = 17
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -52,8 +73,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--cache", default="paged", choices=["paged", "dense"])
     ap.add_argument("--page-size", type=int, default=None)
     ap.add_argument("--num-pages", type=int, default=None,
-                    help="paged pool size in pages; no fewer than the "
-                         "batch's rows need (eviction is not ported)")
+                    help="paged pool size in pages (default: every row's "
+                         "pages; fewer oversubscribes the pool and drives "
+                         "victim eviction)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked-prefill tokens per tick (0 = blocking)")
     ap.add_argument("--megatick", type=int, default=1)
@@ -72,10 +94,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "asserts")
     ap.add_argument("--ticks-per-check", type=int, default=1,
                     help="(reserved) serving ticks between health checks")
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--restore", action="store_true")
-    ap.add_argument("--inject", default=None)
-    ap.add_argument("--fault-log", default=None)
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="arm SIGTERM preemption: drain + snapshot here, "
+                         f"exit {PREEMPTED_EXIT_CODE}; restart with "
+                         "--restore to resume")
+    ap.add_argument("--restore", action="store_true",
+                    help="resume the latest checkpoint in --checkpoint-dir "
+                         "(a no-op on an empty directory)")
+    ap.add_argument("--inject", default=None, choices=list(SITES),
+                    help="inject one fault at the named site; the run must "
+                         "still complete")
+    ap.add_argument("--fault-log", default=None, metavar="PATH",
+                    help="write the FaultEvent trail to PATH as JSONL after "
+                         "the run")
     ap.add_argument("--mesh", default="1,1", metavar="DATA,MODEL")
     ap.add_argument("--replicas", type=int, default=1)
     args = ap.parse_args(argv)
@@ -83,16 +114,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         _, model_par = (int(x) for x in args.mesh.split(","))
     except ValueError:
         ap.error(f"--mesh must be DATA,MODEL ints, got {args.mesh!r}")
-    refused = {"--checkpoint-dir": (args.checkpoint_dir is not None,
-                                    _FAULTS),
-               "--restore": (args.restore, _FAULTS),
-               "--inject": (args.inject is not None, _FAULTS),
-               "--fault-log": (args.fault_log is not None, _FAULTS),
-               "--mesh": (model_par > 1, _MULTI),
-               "--replicas": (args.replicas > 1, _MULTI)}
-    for flag, (asked, item) in refused.items():
+    refused = {"--mesh": model_par > 1, "--replicas": args.replicas > 1,
+               "--inject device_lost": args.inject == "device_lost"}
+    for flag, asked in refused.items():
         if asked:
-            raise SystemExit(f"{flag} is not ported yet ({item})")
+            raise SystemExit(f"{flag} is not ported yet ({_MULTI}): "
+                             "the engine runs on one device"
+                             + (", so a lost device leaves none to remesh "
+                                "onto" if flag.startswith("--inject") else ""))
     if args.no_specee:
         args.mode = "dense"
     if args.temperature > 0.0 and args.mode != "dense":
@@ -100,6 +129,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                  "is argmax-defined)")
     if args.num_pages is not None and args.cache != "paged":
         ap.error("--num-pages requires --cache paged")
+    if args.restore and not args.checkpoint_dir:
+        ap.error("--restore requires --checkpoint-dir")
     if args.ci:
         args.requests = min(args.requests, 4)
         args.max_new = min(args.max_new, 6)
@@ -108,6 +139,29 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
+    scratch = None
+    if args.inject == "sigterm" and not args.checkpoint_dir:
+        # the injected preemption recovers in this process, which needs
+        # somewhere to put the checkpoint
+        scratch = args.checkpoint_dir = tempfile.mkdtemp(prefix="serve-ckpt-")
+    # arm SIGTERM before the heavy start (imports, weights): a preemption
+    # landing during the build defers to the first serving tick, which
+    # drains, saves and exits cleanly
+    guard = None
+    if args.checkpoint_dir:
+        from repro_torch.runtime.fault import PreemptionGuard
+        guard = PreemptionGuard()
+        guard.install()
+    try:
+        _serve(args, guard)
+    finally:
+        if guard is not None:
+            guard.uninstall()
+        if scratch is not None:
+            shutil.rmtree(scratch, ignore_errors=True)
+
+
+def _serve(args: argparse.Namespace, guard) -> None:
     import numpy as np
     import torch
 
@@ -115,7 +169,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core import engine as eng
     from repro_torch.models.model import ModelFlags, build_model
-    from repro_torch.serving import ServingEngine
+    from repro_torch.runtime import faultinject
+    from repro_torch.runtime.faultinject import FaultSchedule
+    from repro_torch.serving import Preempted, ServingEngine
 
     device = torch.device(args.device)
     if args.trained:
@@ -151,24 +207,64 @@ def main(argv: Optional[List[str]] = None) -> None:
     prompts = [rng.integers(0, run.model.vocab_size, int(rng.integers(4, 16)))
                for _ in range(args.requests)]
 
-    def run_engine(m, megatick, async_ticks, prefill_chunk, fused_gate):
-        engine = ServingEngine(m, params, sw, strategy=strategy,
-                               prng_seed=args.seed, fused_gate=fused_gate,
-                               cache=cache, page_size=args.page_size,
-                               prefill_chunk=prefill_chunk,
-                               megatick=megatick, async_ticks=async_ticks,
-                               quant=args.quant)
-        for p in prompts:
-            engine.submit(p, max_new_tokens=args.max_new)
+    def make_engine(m, megatick, async_ticks, fused_gate, cache,
+                    checkpoint_dir=None):
+        return ServingEngine(m, params, sw, strategy=strategy,
+                             prng_seed=args.seed, fused_gate=fused_gate,
+                             cache=cache, page_size=args.page_size,
+                             prefill_chunk=args.prefill_chunk,
+                             megatick=megatick, async_ticks=async_ticks,
+                             checkpoint_dir=checkpoint_dir,
+                             guard=guard if checkpoint_dir else None,
+                             quant=args.quant)
+
+    def run_engine(restore: bool):
+        engine = make_engine(model, args.megatick,
+                             False if args.sync_ticks else None,
+                             not args.no_fused_gate, cache,
+                             checkpoint_dir=args.checkpoint_dir)
+        if restore and engine.restore_checkpoint():
+            print(f"[serve] restored tick {engine._tick} from "
+                  f"{args.checkpoint_dir} ({len(engine.completed)} requests "
+                  "already complete)", flush=True)
+        else:
+            for p in prompts:
+                engine.submit(p, max_new_tokens=args.max_new)
         t0 = time.perf_counter()
-        engine.run_to_completion()
+        try:
+            if engine.busy:
+                engine.step()
+                print(f"[serve] tick {engine._tick} done: "
+                      f"{len(engine.scheduler.queued)} queued, "
+                      f"{int(np.sum(engine.session.live_rows()))} live",
+                      flush=True)
+            engine.run_to_completion()
+        except Preempted as p:
+            engine.close()
+            if args.inject == "sigterm":
+                # injected preemption: recover in this process, as a
+                # restarted --restore process would
+                print(f"[serve] {p}; recovering in-process", flush=True)
+                return run_engine(restore=True)
+            print(f"[serve] {p}", flush=True)
+            sys.exit(PREEMPTED_EXIT_CODE)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        engine.close()
         return engine, time.perf_counter() - t0
 
-    engine, dt = run_engine(model, args.megatick,
-                            False if args.sync_ticks else None,
-                            args.prefill_chunk, not args.no_fused_gate)
+    schedule = None
+    if args.inject == "pool_exhausted":
+        schedule = FaultSchedule.at(pool_exhausted=range(8))
+    elif args.inject == "sigterm":
+        schedule = FaultSchedule.once("sigterm", visit=2)
+    elif args.inject is not None:
+        schedule = FaultSchedule.once(args.inject, visit=1)
+    inj = faultinject.install(schedule) if schedule else None
+    try:
+        engine, dt = run_engine(args.restore)
+    finally:
+        faultinject.uninstall()
     done = engine.completed
     toks = sum(len(r.output) for r in done)
     mgr = engine.session.cache_mgr
@@ -180,6 +276,17 @@ def main(argv: Optional[List[str]] = None) -> None:
           f"fused_gate={not args.no_fused_gate}, "
           f"quant={args.quant or 'fp'}, temperature={args.temperature})",
           flush=True)
+    if inj is not None:
+        assert args.inject in inj.fired_sites(), \
+            f"--inject {args.inject} never fired (schedule {schedule.plan})"
+        recovery = [(e.site, e.action) for e in engine.fault_log]
+        print(f"[serve] injected {args.inject} at visits "
+              f"{sorted(schedule.plan[args.inject])}; recovery log: "
+              f"{recovery}", flush=True)
+    if args.fault_log:
+        n = engine.fault_log.dump_jsonl(args.fault_log, source="engine")
+        print(f"[serve] fault log: {n} events -> {args.fault_log}",
+              flush=True)
     if args.ci:
         assert len(done) == args.requests, \
             f"CI smoke: {len(done)}/{args.requests} requests completed"
@@ -188,9 +295,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         if mgr.kind == "paged":
             assert mgr.free_pages == mgr.num_pages, \
                 f"CI smoke: page leak ({mgr.free_pages}/{mgr.num_pages} free)"
-        # the reference: plain paths, per tick, the same admission
-        ref, _ = run_engine(build_model(run, ModelFlags()), 1, False,
-                            args.prefill_chunk, False)
+        # the reference: plain paths, per tick, the same admission, a full
+        # pool, no fault
+        ref = make_engine(build_model(run, ModelFlags()), 1, False, False,
+                          args.cache)
+        for p in prompts:
+            ref.submit(p, max_new_tokens=args.max_new)
+        ref.run_to_completion()
         got = {r.uid: r.output for r in done}
         want = {r.uid: r.output for r in ref.completed}
         assert got == want, \
@@ -201,6 +312,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     for r in sorted(done, key=lambda r: r.uid):
         line = (f"  req {r.uid}: {len(r.output)} tokens "
                 f"exits={sum(1 for e in r.exit_points if e < E)}")
+        if r.evictions:
+            line += f" evictions={r.evictions}"
         if args.mode == "tree":
             line += f" accepted={sum(r.accept_lens)}"
         print(line, flush=True)

@@ -6,15 +6,16 @@ one process on one device:
 
 Seeds the model from ``run.train.seed`` on the device and runs the
 ``TrainLoop`` on the synthetic data pipeline, printing the loss every ten
-steps. Checkpointing (``--ckpt``) and the multi-host and mesh options are
-not ported yet and are refused.
+steps. With ``--ckpt DIR`` it resumes from the latest checkpoint in DIR,
+saves every ``checkpoint_every`` steps, stops on SIGTERM, and saves once
+more at the end. The multi-host and mesh options are not ported yet and
+are refused (ROADMAP: multi-GPU).
 """
 from __future__ import annotations
 
 import argparse
 from typing import List, Optional
 
-_FAULTS = "ROADMAP: fault tolerance"
 _MULTI = "ROADMAP: multi-GPU"
 
 
@@ -32,14 +33,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--model", type=int, default=1,
                     help="tensor-parallel degree")
     args = ap.parse_args(argv)
-    refused = {"--ckpt": (args.ckpt is not None, _FAULTS),
-               "--coordinator": (args.coordinator is not None, _MULTI),
-               "--num-hosts": (args.num_hosts > 1, _MULTI),
-               "--data": (args.data > 1, _MULTI),
-               "--model": (args.model > 1, _MULTI)}
-    for flag, (asked, item) in refused.items():
+    refused = {"--coordinator": args.coordinator is not None,
+               "--num-hosts": args.num_hosts > 1,
+               "--data": args.data > 1, "--model": args.model > 1}
+    for flag, asked in refused.items():
         if asked:
-            raise SystemExit(f"{flag} is not ported yet ({item})")
+            raise SystemExit(f"{flag} is not ported yet ({_MULTI})")
     return args
 
 
@@ -58,16 +57,25 @@ def main(argv: Optional[List[str]] = None) -> None:
     model = build_model(run, ModelFlags(remat="none" if args.smoke
                                         else "full"))
     gen = torch.Generator(device=device).manual_seed(run.train.seed)
-    loop = TrainLoop(model, run, model.init(gen, device))
-    steps = args.steps if args.steps is not None else run.train.steps
-    print(f"[launch] {run.model.name} on {device}: "
-          f"{run.model.param_count() / 1e6:.1f} M params, {steps} steps of "
-          f"{run.train.global_batch}x{run.train.seq_len}", flush=True)
-    while loop.step < steps:
-        stats = loop.run_steps(min(10, steps - loop.step))
-        print(f"[train] step={loop.step} loss={stats['loss']:.4f} "
-              f"lr={stats['lr']:.2e} {stats['step_time'] * 1e3:.0f}ms",
-              flush=True)
+    loop = TrainLoop(model, run, model.init(gen, device), ckpt_dir=args.ckpt)
+    loop.guard.install()
+    try:
+        if loop.try_restore():
+            print(f"[launch] restored step {loop.step}", flush=True)
+        steps = args.steps if args.steps is not None else run.train.steps
+        print(f"[launch] {run.model.name} on {device}: "
+              f"{run.model.param_count() / 1e6:.1f} M params, {steps} steps "
+              f"of {run.train.global_batch}x{run.train.seq_len}", flush=True)
+        while loop.step < steps and not loop.guard.should_save():
+            stats = loop.run_steps(min(10, steps - loop.step))
+            print(f"[train] step={loop.step} loss={stats['loss']:.4f} "
+                  f"lr={stats['lr']:.2e} {stats['step_time'] * 1e3:.0f}ms "
+                  f"stragglers={loop.monitor.stragglers()}", flush=True)
+        if args.ckpt:
+            loop.save()
+            loop.ckpt.wait()
+    finally:
+        loop.guard.uninstall()
 
 
 if __name__ == "__main__":

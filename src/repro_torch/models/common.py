@@ -25,12 +25,20 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a nest of dicts/lists/tuples;
-    a ``QTensor`` maps over its codes and its scales (a stacked quantized
-    bank slices like a plain one)."""
+    """Apply ``fn`` to every leaf of a nest of dicts, lists, tuples and
+    NamedTuples (a ``DecodeState``, an ``AdamWState``); a ``QTensor`` maps
+    over its codes and its scales (a stacked quantized bank slices like a
+    plain one). A leaf is anything else: a tensor, or a value such as an
+    int or None."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     if isinstance(tree, QTensor):
@@ -39,12 +47,32 @@ def tree_map(fn, tree):
 
 
 def tree_leaves(tree) -> list:
-    """The tensor leaves of a nest of dicts/lists/tuples in ``tree_map``'s
-    order (dict insertion order; a ``QTensor`` gives its codes, then its
-    scales)."""
+    """The leaves of a nest in ``tree_map``'s order (dict insertion order;
+    a ``QTensor`` gives its codes, then its scales)."""
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_leaves_with_path(tree, prefix: str = "") -> list:
+    """``[(path, leaf)]`` in ``tree_leaves`` order. A path joins JAX's key
+    strings with "/": ``['key']`` for a dict entry, ``[i]`` for a list or
+    tuple item, ``.field`` for a NamedTuple field (``.q`` / ``.scale`` for
+    a ``QTensor``'s two parts)."""
+    def sub(key):
+        return f"{prefix}/{key}" if prefix else key
+    if isinstance(tree, dict):
+        items = [(f"[{k!r}]", v) for k, v in tree.items()]
+    elif _is_namedtuple(tree):
+        items = [(f".{f}", v) for f, v in zip(tree._fields, tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
+    elif isinstance(tree, QTensor):
+        items = [(".q", tree.q), (".scale", tree.scale)]
+    else:
+        return [(prefix, tree)]
+    return [kv for key, v in items
+            for kv in tree_leaves_with_path(v, sub(key))]
 
 
 def tree_unflatten(tree, flat):

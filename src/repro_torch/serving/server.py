@@ -30,16 +30,46 @@
   * ``serve.greedy=False`` (no SpecEE) serves ``DenseStrategy(temperature=
     serve.temperature)``, sampled per row from ``prng_seed``.
 
+Fault tolerance, four mechanisms as in the JAX engine:
+  * **checkpoint/restore** — ``checkpoint_now()`` drains the in-flight
+    megatick, snapshots the session (state, host mirrors, page allocator)
+    and the engine's request, queue and slot bookkeeping through
+    ``CheckpointManager``; a fresh engine's ``restore_checkpoint()`` resumes
+    token-identically. With ``checkpoint_dir`` a ``PreemptionGuard`` turns
+    SIGTERM into a checkpoint at the next ``step()``, which then raises
+    ``Preempted``.
+  * **pool-pressure eviction** — when the queue's head has waited on
+    ``can_admit`` for ``evict_patience`` ticks with a slot free,
+    ``VictimPolicy`` picks a live row to evict: its pages are freed and the
+    request requeues with its original prompt. After re-admission the row
+    emits its recorded tokens again, and the engine *verifies* them instead
+    of appending them; a difference raises ``ServingFault("replay")``. This
+    is what lets a pool hold fewer pages than ``max_batch`` full rows.
+  * **watchdog and backoff** — a failed dispatch retries through
+    ``Backoff`` before ``ServingFault("dispatch")``; a wedged or poisoned
+    finish (the ``finish_timeout`` / ``nan_logits`` sites, tokens out of the
+    vocabulary) drops the async pipeline, evicts the live rows (replay
+    regenerates their lost tokens) and runs ``cooldown_ticks`` ticks
+    synchronously; a finish slower than ``watchdog_s`` keeps its results
+    and also falls back to synchronous ticks.
+  * **fault log** — each recovery action lands in ``fault_log``.
+
+Replay needs a row's tokens to be independent of its slot and of the rows
+beside it; the batch shape is fixed by ``max_batch``, so every GEMM and
+attention call has one shape whoever occupies the slots.
+
 On a paged cache on a CUDA card the engine turns on the paged
 decode-attention kernel (``ModelFlags.decode_kernel``), as the JAX engine
 does on a TPU. The constructor takes the JAX engine's arguments in its
-order. Eviction, checkpoints, dispatch retries, watchdogs and fault
-injection, and the mesh, are not ported; asking for them raises
-``ValueError`` naming their ROADMAP item.
+order. The engine runs on one device: ``mesh`` and ``policy`` are refused
+with ``ValueError`` naming their ROADMAP item ("multi-GPU"), ``remesh``
+raises, and the ``device_lost`` site finds no surviving device, so it
+drains and raises ``ServingFault(site="device_lost")``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -47,10 +77,15 @@ import numpy as np
 
 from repro_torch.api import (CacheSpec, DecodeStrategy, DenseStrategy,
                              Engine, get_strategy)
-from repro_torch.api.cache import PagedKVCache
 from repro_torch.api.scheduler import ChunkedPrefillScheduler
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.models.common import lm_head_weight
 from repro_torch.models.model import Model, build_model
+from repro_torch.runtime import faultinject
+from repro_torch.runtime.fault import PreemptionGuard, plan_replica_remesh
+from repro_torch.serving.resilience import (Backoff, FaultEvent, FaultLog,
+                                            Preempted, ServingFault,
+                                            VictimInfo, VictimPolicy)
 
 
 @dataclass
@@ -64,18 +99,20 @@ class Request:
     exit_points: List[int] = field(default_factory=list)
     accept_lens: List[int] = field(default_factory=list)
     done: bool = False
+    # eviction bookkeeping: after an eviction the first ``replay_total``
+    # tokens the re-admitted row emits are verified against ``output``
+    # instead of appended; ``replayed`` is the verification cursor and
+    # ``evictions`` feeds VictimPolicy's protection
+    replay_total: int = 0
+    replayed: int = 0
+    evictions: int = 0
+
+    @property
+    def replaying(self) -> bool:
+        return self.replayed < self.replay_total
 
 
-_FAULTS = "ROADMAP: fault tolerance"
-
-
-def _refuse_unported(**given) -> None:
-    """Raise for each argument of the JAX engine whose feature the port
-    does not have, when it asks for that feature; ``given`` maps the
-    argument to (value, the value that asks for nothing, ROADMAP item)."""
-    for name, (value, idle, item) in given.items():
-        if value != idle:
-            raise ValueError(f"{name}={value!r} is not ported yet ({item})")
+_MULTI = "ROADMAP: multi-GPU"
 
 
 class ServingEngine:
@@ -88,20 +125,18 @@ class ServingEngine:
                  megatick: int = 1,
                  async_ticks: Optional[bool] = None,
                  checkpoint_dir: Optional[str] = None,
-                 guard=None, victim=None, evict_patience: int = 2,
-                 watchdog_s: Optional[float] = None, backoff=None,
+                 guard: Optional[PreemptionGuard] = None,
+                 victim: Optional[VictimPolicy] = None,
+                 evict_patience: int = 2,
+                 watchdog_s: Optional[float] = None,
+                 backoff: Optional[Backoff] = None,
                  cooldown_ticks: int = 8, quant=None, mesh=None,
                  policy: str = "tp_dp", fault_log_cap: int = 256):
-        _refuse_unported(
-            checkpoint_dir=(checkpoint_dir, None, _FAULTS),
-            guard=(guard, None, _FAULTS), victim=(victim, None, _FAULTS),
-            evict_patience=(evict_patience, 2, _FAULTS),
-            watchdog_s=(watchdog_s, None, _FAULTS),
-            backoff=(backoff, None, _FAULTS),
-            cooldown_ticks=(cooldown_ticks, 8, _FAULTS),
-            fault_log_cap=(fault_log_cap, 256, _FAULTS),
-            mesh=(mesh, None, "ROADMAP: multi-GPU"),
-            policy=(policy, "tp_dp", "ROADMAP: multi-GPU"))
+        for name, value, idle in (("mesh", mesh, None),
+                                  ("policy", policy, "tp_dp")):
+            if value != idle:
+                raise ValueError(f"{name}={value!r} is not ported yet "
+                                 f"({_MULTI})")
         if megatick < 1:
             raise ValueError(f"megatick must be >= 1, got {megatick}")
         self.megatick = int(megatick)
@@ -154,14 +189,6 @@ class ServingEngine:
         self.session = self.engine.new_session(batch=B, max_seq=S,
                                                prng_seed=prng_seed,
                                                cache=self.cache_spec)
-        mgr = self.session.cache_mgr
-        if (isinstance(mgr, PagedKVCache)
-                and mgr.num_pages < B * mgr.pages_per_row):
-            raise ValueError(
-                f"paged pool of {mgr.num_pages} pages is smaller than "
-                f"max_batch x pages_per_row = {B * mgr.pages_per_row}: "
-                "serving an oversubscribed pool needs eviction, which is "
-                f"not ported yet ({_FAULTS})")
         chunk = (self.serve_cfg.prefill_chunk if prefill_chunk is None
                  else prefill_chunk)
         self.scheduler = ChunkedPrefillScheduler(
@@ -169,20 +196,64 @@ class ServingEngine:
         self.slots: List[Optional[Request]] = [None] * B
         self._inflight: Dict[int, Request] = {}
         self._next_uid = 0
-        self.completed: List[Request] = []      # in finish order
+        # ----- fault tolerance -----
+        self.checkpoint_dir = checkpoint_dir
+        # synchronous saves: a preemption checkpoint must be on disk before
+        # the process exits
+        self.ckpt = (CheckpointManager(checkpoint_dir, keep=2,
+                                       async_save=False)
+                     if checkpoint_dir else None)
+        self._own_guard = guard is None and checkpoint_dir is not None
+        self.guard = (guard if guard is not None
+                      else (PreemptionGuard() if checkpoint_dir else None))
+        if self._own_guard and self.guard is not None:
+            self.guard.install()
+        self.victim = victim if victim is not None else VictimPolicy()
+        self.evict_patience = int(evict_patience)
+        self.watchdog_s = watchdog_s
+        self.backoff = backoff if backoff is not None else Backoff()
+        self.cooldown_ticks = int(cooldown_ticks)
+        self._sync_cooldown = 0         # ticks left on the sync fallback
+        self._tick = 0
+        self.fault_log = FaultLog(cap=fault_log_cap)
+        self.completed: List[Request] = []   # finish order, survives restore
+
+    @property
+    def tp_degree(self) -> int:
+        """Tensor-parallel degree: 1, the port's engine is unsharded."""
+        return 1
 
     # ----- request intake -----
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
                eos_token: Optional[int] = None) -> Request:
+        return self.adopt(prompt, max_new_tokens, eos_token)
+
+    def adopt(self, prompt: np.ndarray, max_new_tokens: int = 32,
+              eos_token: Optional[int] = None, recorded=(),
+              stats=None) -> Request:
+        """Admit a request that already emitted ``recorded`` tokens on
+        another engine (a replica's failover). It prefills here and its
+        first ``len(recorded)`` tokens run as verified replay before new
+        tokens append; ``stats`` optionally seeds the (exit_points,
+        accept_lens) recorded so far, so the finished request's stats match
+        an uninterrupted run. Empty ``recorded`` is ``submit``."""
         req = Request(uid=self._next_uid,
                       prompt=np.asarray(prompt, np.int32),
-                      max_new_tokens=max_new_tokens, eos_token=eos_token)
+                      max_new_tokens=max_new_tokens, eos_token=eos_token,
+                      output=[int(t) for t in recorded],
+                      replay_total=len(recorded))
+        if stats is not None:
+            req.exit_points = [int(x) for x in stats[0]]
+            req.accept_lens = [int(x) for x in stats[1]]
         self._next_uid += 1
+        self._enqueue(req)
+        return req
+
+    def _enqueue(self, req: Request) -> None:
         self._inflight[req.uid] = req
         self.scheduler.submit(req.uid, req.prompt,
                               max_new_tokens=req.max_new_tokens,
                               eos_token=req.eos_token)
-        return req
 
     @property
     def pending(self) -> List[Request]:
@@ -198,15 +269,46 @@ class ServingEngine:
         self.slots[row] = None
         self.session.retire_row(row)    # compaction: free pages, zero span
 
-    # ----- token accounting -----
+    # ----- token accounting (replay-aware) -----
     def _admit_token(self, req: Request, tok: int) -> None:
-        """Record a request's first token (admission)."""
-        req.output.append(int(tok))
+        """Record a request's first token (admission). A re-admitted
+        evicted request is in replay: the token is verified, not
+        appended."""
+        if req.replaying:
+            want = int(req.output[req.replayed])
+            if int(tok) != want:
+                raise ServingFault(
+                    "replay", f"uid={req.uid} diverged at token "
+                    f"{req.replayed}: re-admission produced {int(tok)}, "
+                    f"recorded {want}")
+            req.replayed += 1
+        else:
+            req.output.append(int(tok))
 
     def _fold_tick(self, req: Request, toks: List[int], exit_point: int,
                    accept_len: int) -> None:
-        """Fold one live device tick of one row into the request."""
-        req.output.extend(int(t) for t in toks)
+        """Fold one live device tick of one row into the request.
+
+        Replay ticks (tokens emitted before an eviction) are verified
+        against the recorded output and add no stats: those were recorded
+        the first time, so the finished stats equal an uninterrupted run's.
+        A tick across the replay's end verifies its head and appends the
+        rest (evictions sit on tick boundaries, but a tree tick may emit
+        several tokens)."""
+        i = 0
+        if req.replaying:
+            n = min(len(toks), req.replay_total - req.replayed)
+            want = [int(t) for t in req.output[req.replayed:req.replayed + n]]
+            got = [int(t) for t in toks[:n]]
+            if got != want:
+                raise ServingFault(
+                    "replay", f"uid={req.uid} diverged at token "
+                    f"{req.replayed}: replay produced {got}, recorded {want}")
+            req.replayed += n
+            i = n
+            if req.replaying or i == len(toks):
+                return                  # a replayed tick: stats recorded
+        req.output.extend(int(t) for t in toks[i:])
         req.exit_points.append(int(exit_point))
         req.accept_lens.append(int(accept_len))
 
@@ -245,84 +347,196 @@ class ServingEngine:
                 # only at retirement), so slots[slot] is still req
                 self._retire(slot, req, finished)
 
-    # ----- dispatch / finish -----
+    # ----- dispatch / finish with recovery -----
+    def _attempt(self, site: str, fn):
+        """Run ``fn`` under the backoff schedule; when the retries run out,
+        raise ``ServingFault`` with the site, the attempt count and the last
+        error. Any ``Exception`` is retried, as in the JAX engine: the
+        ``dispatch`` site fires before any write to the state, so its
+        retry is safe. A CUDA error is sticky, so retrying one cannot
+        succeed; it surfaces after the last attempt."""
+        delays = list(self.backoff.delays())
+        last: Optional[BaseException] = None
+        for i in range(len(delays) + 1):
+            try:
+                return fn()
+            except (ServingFault, KeyboardInterrupt):
+                raise
+            except Exception as err:
+                last = err
+                retrying = i < len(delays)
+                self.fault_log.append(FaultEvent(
+                    site=site, tick=self._tick,
+                    action="retry" if retrying else "give_up",
+                    detail=repr(err)))
+                if retrying:
+                    self.backoff.sleep(delays[i])
+        raise ServingFault(site,
+                           f"failed after {len(delays) + 1} attempts: "
+                           f"{last!r}",
+                           attempts=len(delays) + 1, cause=last) from last
+
     def _dispatch(self) -> Optional[Tuple]:
         """Dispatch one megatick, with the slot snapshot its results go
         to, if any row may still be live. The host view can trail the
         device by one in-flight megatick, but only toward liveness, so a
-        stale dispatch at worst runs zero ticks."""
+        stale dispatch at worst runs zero ticks. A failed dispatch retries
+        through the backoff schedule."""
         if np.any(self.session.live_rows()):
-            return (self.session.step_async(self.megatick),
-                    list(self.slots))
+            handle = self._attempt(
+                "dispatch", lambda: self.session.step_async(self.megatick))
+            return handle, list(self.slots)
         return None
 
+    def _checked(self, res) -> Tuple[object, bool]:
+        """Check a step result's tokens against the vocabulary (the cheap
+        host-side canary for corrupted logits). The ``nan_logits`` site
+        poisons the result here to exercise the recovery."""
+        tokens = np.asarray(res.tokens)
+        if faultinject.fire("nan_logits"):
+            tokens = np.full_like(tokens, -(1 << 30))
+            res = res._replace(tokens=tokens)
+        V = self.model.run.model.vocab_size
+        counts = np.asarray(res.counts)
+        for row in range(tokens.shape[0]):
+            n = int(counts[row])
+            if n and (np.any(tokens[row, :n] < 0)
+                      or np.any(tokens[row, :n] >= V)):
+                return res, False
+        return res, True
+
+    def _recover_lost(self, site: str, detail: str) -> None:
+        """A megatick's results are lost or untrustworthy: drop the async
+        pipeline unread (``abort_async`` waits on nothing of it) and evict
+        every live slotted request. The evictions free the rows' pages and
+        requeue the requests with their original prompts; replay
+        regenerates the lost tokens. The one stream orders the lost
+        megatick's writes before any re-admission's. Then the engine cools
+        down on synchronous ticks."""
+        self.session.abort_async()
+        self._handle = None
+        evicted = 0
+        for row in range(self.B):
+            req = self.slots[row]
+            if req is not None and not req.done:
+                self._evict(row, req, reason=site)
+                evicted += 1
+        self._sync_cooldown = self.cooldown_ticks
+        self.fault_log.append(FaultEvent(
+            site=site, tick=self._tick, action="recover",
+            detail=f"{detail}; evicted={evicted} rows, sync cooldown "
+                   f"{self.cooldown_ticks} ticks"))
+
     def _finish_handle(self, prev: Tuple, finished: List[Request]) -> None:
-        """Read a dispatched megatick and fold its results in."""
+        """Read a dispatched megatick and fold its results in, guarding
+        three failures: an injected wedge (``finish_timeout``: the results
+        never arrive), poisoned tokens (``nan_logits`` or the vocabulary
+        check), and a slow finish (over ``watchdog_s``: the results are
+        kept, and the engine runs synchronous ticks for
+        ``cooldown_ticks``)."""
         handle, slots_at_dispatch = prev
-        self._collect(self.session.finish_step(handle), slots_at_dispatch,
-                      finished)
+        if faultinject.fire("finish_timeout"):
+            self._recover_lost("finish_timeout",
+                               "megatick finish wedged past watchdog")
+            return
+        t0 = time.monotonic()
+        res = self.session.finish_step(handle)
+        dt = time.monotonic() - t0
+        res, ok = self._checked(res)
+        if not ok:
+            self._recover_lost("nan_logits",
+                               "out-of-vocab tokens in megatick result")
+            return
+        if self.watchdog_s is not None and dt > self.watchdog_s:
+            self._sync_cooldown = self.cooldown_ticks
+            self.fault_log.append(FaultEvent(
+                site="watchdog", tick=self._tick, action="sync_fallback",
+                detail=f"finish blocked {dt * 1e3:.1f}ms > "
+                       f"{self.watchdog_s * 1e3:.1f}ms"))
+        self._collect(res, slots_at_dispatch, finished)
+
+    def _drain(self, finished: List[Request]) -> None:
+        """Finish the in-flight async megatick, if any, without dispatching
+        another (the checkpoint and eviction barrier)."""
+        prev, self._handle = self._handle, None
+        if prev is not None:
+            self._finish_handle(prev, finished)
 
     def _sync_step(self, finished: List[Request]) -> None:
-        self._collect(self.session.step(num_ticks=self.megatick),
-                      self.slots, finished)
+        res = self._attempt(
+            "dispatch", lambda: self.session.step(num_ticks=self.megatick))
+        res, ok = self._checked(res)
+        if not ok:
+            self._recover_lost("nan_logits",
+                               "out-of-vocab tokens in step result")
+            return
+        self._collect(res, self.slots, finished)
 
-    # ----- one batched engine tick -----
-    def step(self) -> List[Request]:
-        """Scheduled admission (at most one prefill chunk while decode is
-        live), one strategy megatick for all live slots, retire + compact
-        the finished. Returns the requests completed this call.
+    # ----- pool-pressure eviction -----
+    def _evict(self, row: int, req: Request, reason: str) -> None:
+        """Evict a live row: free its pages, requeue the request with its
+        original prompt. After re-admission the replay re-emits the
+        recorded tokens and the engine verifies them."""
+        req.evictions += 1
+        req.replay_total = len(req.output)
+        req.replayed = 0
+        self.slots[row] = None
+        self.session.retire_row(row)    # pages back to the pool
+        self._enqueue(req)
+        self.fault_log.append(FaultEvent(
+            site=reason, tick=self._tick, action="evict",
+            detail=f"uid={req.uid} row={row} progress={len(req.output)} "
+                   f"evictions={req.evictions}"))
 
-        With ``async_ticks`` the call is one pipeline stage: megatick N+1
-        is dispatched before megatick N's results are read, so the host
-        work below (folding results, retirement, admission) follows
-        device work already queued; results arrive one call later than on
-        the blocking path."""
-        finished: List[Request] = []
-        prev, self._handle = self._handle, None
-        if prev is not None:
-            if self.async_ticks:
-                # the next megatick goes out before this one is read
-                self._handle = self._dispatch()
-            self._finish_handle(prev, finished)
-        live = bool(np.any(self.session.live_rows()))
-        free = [s for s in range(self.B) if self.slots[s] is None]
-        for ev in self.scheduler.tick(free, live_decode=live):
-            req = self._inflight.pop(ev.uid)
-            if req.max_new_tokens > 0:
-                self._admit_token(req, ev.first_token)
-            if self.session.row_done(ev.row):
-                self._retire(ev.row, req, finished)
-            else:
-                self.slots[ev.row] = req
-        if self._handle is None and np.any(self.session.live_rows()):
-            if self.async_ticks:
-                self._handle = self._dispatch()
-            else:
-                self._sync_step(finished)
-        self.completed.extend(finished)
-        return finished
+    def _maybe_evict(self, finished: List[Request]) -> None:
+        """The queue's head has waited on ``can_admit`` for
+        ``evict_patience`` ticks while a slot sat free: evict the policy's
+        victim so admission can go on. The in-flight megatick drains first,
+        so its tokens land in the victim's record before ``replay_total``
+        is fixed."""
+        if self.scheduler.deferred_ticks < self.evict_patience:
+            return
+        self._drain(finished)
+        cands = []
+        for row in range(self.B):
+            req = self.slots[row]
+            if req is None or req.done:
+                continue
+            cands.append(VictimInfo(row=row, progress=len(req.output),
+                                    pages=self.session.row_span(row),
+                                    evictions=req.evictions))
+        row = self.victim.select(cands)
+        if row is None:
+            return                      # every candidate is protected
+        self._evict(row, self.slots[row], reason="pool_pressure")
+        self.scheduler.deferred_ticks = 0
 
-    @property
-    def in_flight(self) -> bool:
-        """An async megatick is dispatched but its results are unread."""
-        return self._handle is not None
+    # ----- device loss -----
+    def remesh(self, mesh, site: str = "device_lost",
+               detail: str = "") -> None:
+        """Rebuilding onto another mesh needs more than one device."""
+        raise NotImplementedError(f"remesh is not ported yet ({_MULTI})")
 
-    @property
-    def busy(self) -> bool:
-        """Work outstanding: queued or in-flight admission, live rows, or
-        an in-flight async megatick awaiting its results."""
-        return (self._handle is not None or self.scheduler.has_work()
-                or bool(np.any(self.session.live_rows())))
-
-    def drain(self) -> List[Request]:
-        """Finish (without replacing) the in-flight async megatick, if any;
-        returns the requests it completes."""
-        finished: List[Request] = []
-        prev, self._handle = self._handle, None
-        if prev is not None:
-            self._finish_handle(prev, finished)
-        self.completed.extend(finished)
-        return finished
+    def _maybe_device_loss(self) -> None:
+        """The ``device_lost`` site. The engine runs on one device, so no
+        device survives the loss and ``plan_replica_remesh`` finds no
+        degree: drain what can be drained and raise
+        ``ServingFault(site="device_lost")``, as the JAX engine does
+        unsharded."""
+        if not faultinject.fire("device_lost"):
+            return
+        surviving = 0
+        new_tp = plan_replica_remesh(surviving, self.tp_degree)
+        assert new_tp is None, new_tp
+        self.drain()
+        self.fault_log.append(FaultEvent(
+            site="device_lost", tick=self._tick, action="give_up",
+            detail=f"no factorization over {surviving} surviving "
+                   f"devices (tp={self.tp_degree})"))
+        raise ServingFault(
+            "device_lost",
+            f"device lost with no valid remesh (tp={self.tp_degree}, "
+            f"surviving={surviving})")
 
     def cancel(self, uid: int) -> bool:
         """Withdraw an unfinished request: drop it from the queue or the
@@ -346,13 +560,195 @@ class ServingEngine:
                 return True
         return False
 
+    # ----- checkpoint / restore (SIGTERM preemption) -----
+    def _req_meta(self, req: Request) -> dict:
+        return {"uid": int(req.uid),
+                "prompt": [int(t) for t in req.prompt],
+                "max_new": int(req.max_new_tokens),
+                "eos": (None if req.eos_token is None
+                        else int(req.eos_token)),
+                "output": [int(t) for t in req.output],
+                "exit_points": [int(x) for x in req.exit_points],
+                "accept_lens": [int(x) for x in req.accept_lens],
+                "done": bool(req.done),
+                "replay_total": int(req.replay_total),
+                "replayed": int(req.replayed),
+                "evictions": int(req.evictions)}
+
+    def _all_requests(self) -> Dict[int, Request]:
+        reqs: Dict[int, Request] = {r.uid: r for r in self.completed}
+        for r in self.slots:
+            if r is not None:
+                reqs[r.uid] = r
+        reqs.update(self._inflight)
+        return reqs
+
+    def checkpoint_now(self) -> int:
+        """Drain the in-flight megatick, snapshot the session and the
+        engine's bookkeeping, and write a step-atomic checkpoint (the save
+        copies the state to the host first). Returns the tick it captures.
+        The in-flight chunked admission goes back to the queue's front (it
+        holds no pages before its last chunk, so a restored run prefills it
+        again)."""
+        assert self.ckpt is not None, \
+            "checkpoint_now() needs checkpoint_dir"
+        self.drain()
+        self.scheduler.abort_active()
+        state, session_meta = self.session.snapshot()
+        meta = {
+            "session": session_meta,
+            "serve": {
+                "tick": int(self._tick),
+                "uid_next": int(self._next_uid),
+                "requests": [self._req_meta(r)
+                             for r in self._all_requests().values()],
+                "completed": [int(r.uid) for r in self.completed],
+                "slots": [None if r is None else int(r.uid)
+                          for r in self.slots],
+                "queue": [int(u) for u in self.scheduler.queued],
+            },
+        }
+        self.ckpt.save(self._tick, {"state": state}, extra=meta)
+        self.fault_log.append(FaultEvent(
+            site="sigterm", tick=self._tick, action="checkpoint",
+            detail=f"saved tick {self._tick} to {self.ckpt.root}"))
+        return self._tick
+
+    def restore_checkpoint(self) -> bool:
+        """Adopt the latest checkpoint into this freshly built engine (same
+        config). Returns False when the directory holds no committed
+        checkpoint (first boot): the engine then starts clean. After True
+        the next ``step()`` continues the saved run token-identically."""
+        assert self.ckpt is not None, \
+            "restore_checkpoint() needs checkpoint_dir"
+        hit = self.ckpt.restore_latest(like={"state": self.session._state})
+        if hit is None:
+            return False
+        step, tree, extra = hit
+        self.session.restore(tree["state"], extra["session"])
+        sv = extra["serve"]
+        self._tick = int(sv["tick"])
+        self._next_uid = int(sv["uid_next"])
+        reqs: Dict[int, Request] = {}
+        for rm in sv["requests"]:
+            reqs[int(rm["uid"])] = Request(
+                uid=int(rm["uid"]),
+                prompt=np.asarray(rm["prompt"], np.int32),
+                max_new_tokens=int(rm["max_new"]),
+                eos_token=(None if rm["eos"] is None else int(rm["eos"])),
+                output=[int(t) for t in rm["output"]],
+                exit_points=[int(x) for x in rm["exit_points"]],
+                accept_lens=[int(x) for x in rm["accept_lens"]],
+                done=bool(rm["done"]),
+                replay_total=int(rm["replay_total"]),
+                replayed=int(rm["replayed"]),
+                evictions=int(rm["evictions"]))
+        self.completed = [reqs[int(u)] for u in sv["completed"]]
+        self.slots = [None if u is None else reqs[int(u)]
+                      for u in sv["slots"]]
+        self._inflight = {}
+        for uid in sv["queue"]:
+            self._enqueue(reqs[int(uid)])
+        self._handle = None
+        self.fault_log.append(FaultEvent(
+            site="sigterm", tick=self._tick, action="restore",
+            detail=f"resumed from tick {step} in {self.ckpt.root}"))
+        return True
+
+    def _maybe_preempt(self) -> None:
+        """SIGTERM (real, through ``PreemptionGuard``, or the ``sigterm``
+        site) between ticks: drain, checkpoint if configured, and raise
+        ``Preempted``, the launcher's signal to exit and be restarted with
+        ``--restore``."""
+        hit = faultinject.fire("sigterm")
+        if self.guard is not None and self.guard.should_save():
+            hit = True
+        if not hit:
+            return
+        if self.ckpt is not None:
+            step = self.checkpoint_now()
+            raise Preempted(step=step, path=self.ckpt.root)
+        self.drain()
+        raise Preempted(step=self._tick, path="")
+
+    def close(self) -> None:
+        """Release process-global hooks (the SIGTERM handler, if this
+        engine installed its own guard)."""
+        if self._own_guard and self.guard is not None:
+            self.guard.uninstall()
+
+    # ----- one batched engine tick -----
+    def step(self) -> List[Request]:
+        """Scheduled admission (at most one prefill chunk while decode is
+        live), one strategy megatick for all live slots, retire + compact
+        the finished. Returns the requests completed this call.
+
+        With ``async_ticks`` the call is one pipeline stage: megatick N+1
+        is dispatched before megatick N's results are read, so the host
+        work below (folding results, retirement, admission) follows
+        device work already queued; results arrive one call later than on
+        the blocking path. During a recovery cooldown ticks run
+        synchronously."""
+        self._maybe_preempt()
+        self._maybe_device_loss()
+        self._tick += 1
+        finished: List[Request] = []
+        async_enabled = self.async_ticks and self._sync_cooldown == 0
+        if self._sync_cooldown > 0:
+            self._sync_cooldown -= 1
+        prev, self._handle = self._handle, None
+        if prev is not None:
+            if async_enabled:
+                # the next megatick goes out before this one is read
+                self._handle = self._dispatch()
+            self._finish_handle(prev, finished)
+        live = bool(np.any(self.session.live_rows()))
+        free = [s for s in range(self.B) if self.slots[s] is None]
+        for ev in self.scheduler.tick(free, live_decode=live):
+            req = self._inflight.pop(ev.uid)
+            if req.max_new_tokens > 0:
+                self._admit_token(req, ev.first_token)
+            if self.session.row_done(ev.row):
+                self._retire(ev.row, req, finished)
+            else:
+                self.slots[ev.row] = req
+        self._maybe_evict(finished)
+        if self._handle is None and np.any(self.session.live_rows()):
+            if async_enabled:
+                self._handle = self._dispatch()
+            else:
+                self._sync_step(finished)
+        self.completed.extend(finished)
+        return finished
+
+    @property
+    def in_flight(self) -> bool:
+        """An async megatick is dispatched but its results are unread."""
+        return self._handle is not None
+
+    @property
+    def busy(self) -> bool:
+        """Work outstanding: queued or in-flight admission, live rows, or
+        an in-flight async megatick awaiting its results."""
+        return (self._handle is not None or self.scheduler.has_work()
+                or bool(np.any(self.session.live_rows())))
+
+    def drain(self) -> List[Request]:
+        """Finish (without replacing) the in-flight async megatick, if any;
+        returns the requests it completes."""
+        finished: List[Request] = []
+        self._drain(finished)
+        self.completed.extend(finished)
+        return finished
+
     def run_to_completion(self, max_ticks: int = 10_000) -> List[Request]:
         done: List[Request] = []
         for _ in range(max_ticks):
             done.extend(self.step())
             if not self.busy:
                 return done
-        raise RuntimeError(
+        raise ServingFault(
+            "stall",
             f"still busy after {max_ticks} ticks: "
             f"queued={len(self.scheduler.queued)} "
             f"admitting={len(self.scheduler.admitting)} "

@@ -1,10 +1,9 @@
 """Training loop (counterpart of ``repro/train/loop.py``): the step builder
 (gradient accumulation, remat through ``ModelFlags``, the LR schedule) and
-the host loop over the data pipeline.
-
-The JAX loop's checkpoint/restart, straggler monitor and preemption guard
-are not ported yet (ROADMAP: fault tolerance): ``TrainLoop`` refuses a
-``ckpt_dir``.
+the host loop over the data pipeline, with checkpoint/restart
+(``ckpt_dir``: params, AdamW state and the pipeline's position, saved every
+``checkpoint_every`` steps), a straggler monitor fed each step's time, and
+a preemption guard that the launcher installs (a SIGTERM saves and stops).
 """
 from __future__ import annotations
 
@@ -13,12 +12,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import RunConfig, TrainConfig
 from repro_torch.data import DataPipeline
 from repro_torch.models.common import tree_leaves, tree_unflatten
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw_init, adamw_update, make_schedule
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.runtime.fault import PreemptionGuard, StragglerMonitor
 
 
 def make_train_step(model: Model, cfg: TrainConfig
@@ -76,13 +77,10 @@ def make_train_step(model: Model, cfg: TrainConfig
 
 class TrainLoop:
     """Host-side loop: the data pipeline and the train step on the
-    parameters' device."""
+    parameters' device, checkpoints, fault handling."""
 
     def __init__(self, model: Model, run: RunConfig, params,
-                 ckpt_dir: Optional[str] = None):
-        if ckpt_dir is not None:
-            raise ValueError(f"ckpt_dir={ckpt_dir!r} is not ported yet "
-                             "(ROADMAP: fault tolerance)")
+                 ckpt_dir: Optional[str] = None, host_id: int = 0):
         self.model = model
         self.run = run
         self.cfg = run.train
@@ -92,13 +90,49 @@ class TrainLoop:
         self.pipeline = DataPipeline(model.cfg, self.cfg.global_batch,
                                      self.cfg.seq_len, seed=self.cfg.seed)
         self.device = tree_leaves(params)[0].device
+        self.ckpt = (CheckpointManager(ckpt_dir,
+                                       keep=self.cfg.keep_checkpoints)
+                     if ckpt_dir else None)
+        self.monitor = StragglerMonitor()
+        self.guard = PreemptionGuard()
+        self.host_id = host_id
         self.step = 0
         self.history: list = []
+
+    # ----- fault tolerance -----
+    def try_restore(self) -> bool:
+        """Load the latest committed checkpoint (params, AdamW state, the
+        pipeline's position) onto the parameters' device; False when there
+        is none."""
+        if self.ckpt is None:
+            return False
+        out = self.ckpt.restore_latest(
+            {"params": self.params, "opt": self.opt_state})
+        if out is None:
+            return False
+        step, tree, extra = out
+        self.params, self.opt_state = tree["params"], tree["opt"]
+        self.step = step
+        self.pipeline = DataPipeline.from_state(
+            self.model.cfg, self.cfg.global_batch, self.cfg.seq_len,
+            extra["data"])
+        return True
+
+    def save(self) -> None:
+        """Checkpoint this step (the tensors are copied to the host before
+        ``save`` returns; the files are written in the background)."""
+        if self.ckpt is None:
+            return
+        self.ckpt.save(self.step,
+                       {"params": self.params, "opt": self.opt_state},
+                       extra={"data": self.pipeline.state_dict()})
 
     def run_steps(self, n: Optional[int] = None) -> Dict[str, float]:
         """``n`` steps (default ``cfg.steps``); each step's stats, read
         back to the host, and its ``step_time`` (seconds, the stats' read
-        included) go to ``history``. Returns the last step's."""
+        included) go to ``history`` and the straggler monitor. Saves every
+        ``checkpoint_every`` steps; after a SIGTERM the guard caught, saves
+        and stops. Returns the last step's stats."""
         n = n if n is not None else self.cfg.steps
         last: Dict[str, float] = {}
         for _ in range(n):
@@ -108,8 +142,17 @@ class TrainLoop:
             self.params, self.opt_state, stats = self.step_fn(
                 self.params, self.opt_state, batch)
             stats = {k: float(v) for k, v in stats.items()}
-            stats["step_time"] = time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.monitor.record(self.host_id, dt)
             self.step += 1
+            stats["step_time"] = dt
             self.history.append(stats)
             last = stats
+            if self.ckpt and self.step % self.cfg.checkpoint_every == 0:
+                self.save()
+            if self.guard.should_save():
+                self.save()
+                break
+        if self.ckpt:
+            self.ckpt.wait()
         return last

@@ -188,19 +188,26 @@ def test_flash_flag_gives_same_tokens(setup):
     assert outs[0] == outs[1]
 
 
-def test_serving_raises_on_what_is_not_ported(setup):
-    """No silent degradation: an oversubscribed pool (JAX evicts), the
-    fault-tolerance options and a mesh raise ValueError naming their
-    ROADMAP item. Megaticks and async ticks are taken, with JAX's default
-    (``async_ticks`` on when ``megatick > 1``) and its refusal of
-    ``megatick < 1``; sampling (JAX's default strategy when ``specee=False``
-    and ``serve.greedy`` is off) builds JAX's ``DenseStrategy(temperature=
-    serve.temperature)``."""
+def test_serving_raises_on_what_is_not_ported(setup, tmp_path):
+    """No silent degradation: a mesh raises ValueError naming its ROADMAP
+    item ("multi-GPU"). The fault-tolerance arguments and an oversubscribed
+    pool (JAX evicts) are taken as JAX takes them. Megaticks and async
+    ticks are taken, with JAX's default (``async_ticks`` on when
+    ``megatick > 1``) and its refusal of ``megatick < 1``; sampling (JAX's
+    default strategy when ``specee=False`` and ``serve.greedy`` is off)
+    builds JAX's ``DenseStrategy(temperature=serve.temperature)``."""
+    from repro import serving as jserving
+    from repro.api import CacheSpec as JCacheSpec
+    from repro.runtime.fault import PreemptionGuard as JGuard
+    from repro_torch import serving as tserving
+    from repro_torch.runtime.fault import PreemptionGuard
     run, m_j, m, params_j, params, sw_j, sw = setup
-    one_row = CacheSpec(kind="paged", page_size=16,
-                        num_pages=run.serve.max_seq_len // 16)
-    with pytest.raises(ValueError, match="ROADMAP: fault tolerance"):
-        ServingEngine(m, params, sw, cache=one_row)
+    one_row = dict(kind="paged", page_size=16,
+                   num_pages=run.serve.max_seq_len // 16)
+    se = ServingEngine(m, params, sw, cache=CacheSpec(**one_row))
+    jse = JServingEngine(m_j, params_j, sw_j, cache=JCacheSpec(**one_row))
+    assert (se.session.cache_mgr.num_pages, se.B) == (
+        jse.session.cache_mgr.num_pages, jse.B)
     for kw in (dict(megatick=4), dict(async_ticks=True),
                dict(megatick=2, async_ticks=False), dict()):
         se = ServingEngine(m, params, sw, **kw)
@@ -210,12 +217,28 @@ def test_serving_raises_on_what_is_not_ported(setup):
         assert not se.in_flight and se.drain() == []
     with pytest.raises(ValueError, match="megatick must be >= 1"):
         ServingEngine(m, params, sw, megatick=0)
-    for kw in (dict(checkpoint_dir="ckpt"), dict(guard=object()),
-               dict(victim=object()), dict(evict_patience=3),
-               dict(watchdog_s=1.0), dict(backoff=object()),
-               dict(cooldown_ticks=2), dict(fault_log_cap=8)):
-        with pytest.raises(ValueError, match="ROADMAP: fault tolerance"):
-            ServingEngine(m, params, sw, **kw)
+
+    def fault_args(pkg, guard):
+        return (dict(checkpoint_dir=str(tmp_path / pkg.__name__)),
+                dict(guard=guard), dict(victim=pkg.VictimPolicy(1)),
+                dict(evict_patience=3), dict(watchdog_s=1.0),
+                dict(backoff=pkg.Backoff(base_s=0.0)),
+                dict(cooldown_ticks=2), dict(fault_log_cap=8))
+
+    def seen(se):
+        return (se.checkpoint_dir is not None, se.ckpt is not None,
+                se.guard is not None, se._own_guard, se.victim.max_evictions,
+                se.evict_patience, se.watchdog_s, se.backoff.base_s,
+                se.backoff.max_attempts, se.cooldown_ticks, se.fault_log.cap,
+                se.tp_degree)
+
+    for kw, jkw in zip(fault_args(tserving, PreemptionGuard()),
+                       fault_args(jserving, JGuard())):
+        se = ServingEngine(m, params, sw, **kw)
+        jse = JServingEngine(m_j, params_j, sw_j, **jkw)
+        assert seen(se) == seen(jse), kw
+        se.close()
+        jse.close()
     for kw in (dict(mesh=object()), dict(policy="fsdp")):
         with pytest.raises(ValueError, match="ROADMAP: multi-GPU"):
             ServingEngine(m, params, sw, **kw)

@@ -174,14 +174,27 @@ def test_launcher_ci_on_cpu(mode, capsys):
     (["--mesh", "1,2"], "multi-GPU"),
     (["--replicas", "2"], "multi-GPU")])
 def test_launcher_refusals_name_their_roadmap_item(argv, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP: {item}"):
-        launch_serve.parse_args(["--smoke", "--device", "cpu"] + argv)
+    """Only the multi-GPU flags are refused, naming their ROADMAP item; the
+    fault-tolerance flags (``item`` "fault tolerance") are taken, as JAX's
+    launcher takes them (``tests/test_torch_fault_serving.py`` runs
+    them)."""
+    base = ["--smoke", "--device", "cpu"]
+    if item == "multi-GPU":
+        with pytest.raises(SystemExit, match=f"ROADMAP: {item}"):
+            launch_serve.parse_args(base + argv)
+        return
+    extra = ["--checkpoint-dir", "ck"] if argv == ["--restore"] else []
+    args = launch_serve.parse_args(base + argv + extra)
+    flag = argv[0].lstrip("-").replace("-", "_")
+    assert getattr(args, flag) == (argv[1] if len(argv) > 1 else True)
 
 
 def test_launcher_argument_rules(capsys):
     """Sampling needs ``--mode dense`` (as in JAX); ``--ci`` caps the
-    workload; a pool smaller than the batch's rows is refused by the
-    engine, naming eviction's ROADMAP item."""
+    workload; ``--num-pages`` needs the paged cache and may be below the
+    batch's rows (the engine evicts), ``--restore`` needs
+    ``--checkpoint-dir`` (as in JAX), and ``--inject device_lost`` needs a
+    mesh to lose a device from, so it is refused naming "multi-GPU"."""
     with pytest.raises(SystemExit):
         launch_serve.parse_args(["--temperature", "0.5"])
     capsys.readouterr()
@@ -189,6 +202,10 @@ def test_launcher_argument_rules(capsys):
                                     "--max-new", "30"])
     assert (args.requests, args.max_new, args.mode) == (4, 6, "dense")
     assert args.device == "cuda" and not args.smoke
-    with pytest.raises(ValueError, match="ROADMAP: fault tolerance"):
-        launch_serve.main(["--smoke", "--device", "cpu", "--num-pages",
-                           "8"])      # one row's pages for 2 rows
+    assert launch_serve.parse_args(["--num-pages", "8"]).num_pages == 8
+    for argv in (["--num-pages", "8", "--cache", "dense"], ["--restore"]):
+        with pytest.raises(SystemExit):
+            launch_serve.parse_args(argv)
+    capsys.readouterr()
+    with pytest.raises(SystemExit, match="ROADMAP: multi-GPU"):
+        launch_serve.parse_args(["--inject", "device_lost"])

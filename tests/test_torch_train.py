@@ -2,7 +2,7 @@
 schedules, AdamW, the synthetic data pipeline, ``Model.train_loss`` and its
 gradients (llama2-7b and mamba2-130m smoke configs, JAX's params bridged
 in), remat, the chunked CE, ``TrainLoop`` and gradient accumulation, and
-the refusals of what is not ported.
+the refusals of what is not ported (the multi-GPU flags).
 
 Tolerances: schedules rtol 1e-6; AdamW atol 1e-6; tokens bit-identical;
 loss rtol 1e-5, gradients rtol 1e-4 with atol 1e-6 (fp32, another
@@ -289,20 +289,33 @@ def test_loss_falls_over_eight_steps():
     assert losses[-1] < losses[0], losses
 
 
-def test_refusals_name_their_roadmap_items(llama):
+def test_refusals_name_their_roadmap_items(llama, tmp_path, capsys):
+    """The multi-host and mesh flags are refused naming "multi-GPU".
+    ``TrainLoop(ckpt_dir=)`` and ``--ckpt`` are taken as JAX takes them: a
+    launch with ``--ckpt`` saves, and a second resumes from its last
+    step."""
     _, _, _, run_t, params = llama
-    model = build_model(run_t)
-    with pytest.raises(ValueError, match="ROADMAP: fault tolerance"):
-        TrainLoop(model, run_t, params, ckpt_dir="ck")
-    for argv, item in ((["--ckpt", "ck"], "fault tolerance"),
-                       (["--coordinator", "h:1"], "multi-GPU"),
-                       (["--num-hosts", "2"], "multi-GPU"),
-                       (["--data", "2"], "multi-GPU"),
-                       (["--model", "2"], "multi-GPU")):
-        with pytest.raises(SystemExit, match=f"ROADMAP: {item}"):
+    loop = TrainLoop(build_model(run_t), run_t, params,
+                     ckpt_dir=str(tmp_path / "loop"))
+    assert loop.ckpt is not None and loop.try_restore() is False
+    for argv in (["--coordinator", "h:1"], ["--num-hosts", "2"],
+                 ["--data", "2"], ["--model", "2"]):
+        with pytest.raises(SystemExit, match="ROADMAP: multi-GPU"):
             launch_train.parse_args(["--arch", "llama2-7b"] + argv)
     args = launch_train.parse_args(["--arch", "llama2-7b", "--smoke"])
     assert args.device == "cuda"
+    ck = str(tmp_path / "ck")
+    base = ["--arch", "llama2-7b", "--smoke", "--device", "cpu", "--ckpt",
+            ck, "--steps"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # tiny ops: spare the parallel workers
+    try:
+        launch_train.main(base + ["2"])
+        launch_train.main(base + ["3"])
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert "[launch] restored step 2" in out and "step=3" in out
 
 
 @pytest.mark.parametrize("flag", ["flash_attention", "ssd_kernel"])
