@@ -17,7 +17,9 @@ serves sampled requests, cancels requests, prefills a long prompt
 through chunked attention and runs the serving launcher, and runs the MoE
 (DBRX, Qwen3-MoE), RG-LRU hybrid (RecurrentGemma) and frontend (InternVL2,
 HuBERT) configs, and serves through injected faults, evictions from an
-oversubscribed pool and a checkpoint restored into a fresh engine.
+oversubscribed pool and a checkpoint restored into a fresh engine, and
+serves tensor-parallel over a (1, P) mesh whose shards share the card,
+through a device loss and a replica pool.
 
     python3 chip_smoke.py
 
@@ -187,7 +189,7 @@ Phases (lines ``[phase +seconds since the start] ...``):
      and mamba2 serving on phase 9's, each against its phase's run
      (requests/s, tokens/s, ms per step() call; each llama request that
      differs with its top-2 margin at the first differing token); then
-     profiles of 12 whole-batch single steps and of 3 megaticks;
+     profiles of 4 whole-batch single steps and of 1 megatick;
  11. trained — a SpecEE bundle trained on the card with the port's
      modules alone, in the order of benchmarks/common.py::get_bundle
      (TrainLoop on the synthetic DataPipeline for 30 steps, train_draft 250
@@ -273,7 +275,27 @@ Phases (lines ``[phase +seconds since the start] ...``):
      once; a TrainLoop restart on get_bundle's 12-layer smoke config in
      fp32 (2 steps, save, 1 step; a fresh loop restores step 2 and runs 1:
      step 3's batch bit-equal, its loss within rel 1e-5);
- 16. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
+ 16. tp — multi-GPU serving with every shard on the one card (the card
+     holds P shards of a (1, P) mesh: shard-local kernels, merges,
+     all-reduce points and replay across degrees run; no copy between
+     cards): (a) the sharded argmax and top-k verify over P = 2 and 4
+     vocabulary slices of a bf16 D=4096 head, V = 32000 and 32001 (the
+     last slice narrower), R = 4 and 320, ties across every shard,
+     bit-equal to the unsharded kernel in tokens and values, each slice's
+     and the merge's time; (e) the collectives against plain sums; (b)
+     llama2-7b at published width, fp32, 8 layers: SpecEE and tree on
+     dense and paged caches at P = 2 and 4 token-identical to P = 1;
+     32 layers bf16 SpecEE paged at P = 4 (cut from one host copy, the
+     card's copy freed) against P = 1, a row's first divergence held to
+     a near-tie (top-2 margin within 8 bf16 spacings) and the peak card
+     memory under 1.5x the weights; (c) ServingEngine(mesh=P4)
+     with device_lost at tick 2 remeshes to P = 2 and finishes with the
+     unsharded fault-free tokens (fp32), the remesh timed; (d) a
+     ReplicaPool of two unsharded bf16 llama2-7b replicas sharing one
+     param tree, device_lost in a replica: kill, requeue and replay give
+     one engine's fault-free outputs. Each of tp_decode, tp_remesh,
+     tp_full and tp_pool is a main path;
+ 17. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
@@ -281,7 +303,7 @@ token per step (one emitted token per tree step), so the tree runs of
 phases 3 to 10 measure the mechanism's cost, not its gain; phase 11's
 trained bundles are the ones that exit and accept.
 
-Each main path (phases 4 to 15, each run on its own) zeroes the
+Each main path (phases 4 to 16, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -4228,9 +4250,10 @@ def mega_phase(torch, dev, params, sw, ar_ref, fp_serve, tree_ref,
     compared with phase 5's blocking run (the batch mix per tick differs,
     so bf16 near-ties may flip: each differing request is logged with its
     top-2 margin), and mamba2 serving with phase 9's; then torch.profiler
-    over 12 single steps and over 3 megaticks of a whole-batch session. The AR and tree sessions
-    also run as single steps before and after their megaticks, and the
-    AR serve per tick right after, so the times compare in turns."""
+    over 4 single steps and over 1 megatick of a whole-batch session. The
+    AR and tree sessions also run as single steps before and after their
+    megaticks, and the AR serve per tick right after, so the times compare
+    in turns."""
     from repro_torch.api import SpecEEStrategy
     from repro_torch.models.model import ModelFlags, build_model
     by_path = {}
@@ -4274,7 +4297,7 @@ def mega_phase(torch, dev, params, sw, ar_ref, fp_serve, tree_ref,
     flip_margins(torch, params, fp_serve["blocking"], outs, "mega",
                  "phase 5's blocking run and the megatick one")
 
-    # device busy against wall time over 3 megaticks, and over as many
+    # device busy against wall time over 1 megatick, and over as many
     # single steps right before (the host's speed drifts between phases)
     from repro_torch.api import Engine
     for ticks, note in ((1, "single steps, before the megaticks"),
@@ -4286,7 +4309,7 @@ def mega_phase(torch, dev, params, sw, ar_ref, fp_serve, tree_ref,
         torch.cuda.synchronize()
         profile_ticks(torch, "profile-mega",
                       lambda: session.step(num_ticks=ticks),
-                      3 * MEGA_K // ticks, f" ({note})")
+                      MEGA_K // ticks, f" ({note})")
         del session
     torch.cuda.empty_cache()
 
@@ -5616,6 +5639,395 @@ def faults_phase(torch, dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multi-GPU serving — tensor-parallel decode over a device mesh
+# ---------------------------------------------------------------------------
+TP_DEGREES = (2, 4)
+TP_VOCABS = (V, V + 1)        # llama2-7b's head, and one that splits unevenly
+TP_ROWS = (4, 320)            # a B = 4 step's rows, a B = 8 tree step's
+TP_LAYERS = 8                 # the fp32 decode runs' depth
+TP_STEPS = 16                 # whole-batch decode steps of each run
+TP_FULL_STEPS = 16            # steps of the full-depth bf16 comparison
+TP_REQS, TP_NEW = 8, 16       # requests and new tokens of (c) and (d)
+TP_PATH = ("exit_gate", "argmax_verify", "topk_verify", "decode_attention",
+           "paged_decode_attention", "flash_attention", "spec_head_gather",
+           "spec_head", "predictor_mlp")
+TP_SERVE_PATH = SERVE_PATH + ("flash_attention",)
+
+
+def tp_mesh(P: int):
+    """A (1, P) mesh with every shard on cuda:0: the one card holds all P
+    shards, so every shard-local kernel, merge and reduction runs and no
+    byte crosses between cards."""
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(1, P, device="cuda:0")
+
+
+def check_sharded_verify(torch, dev):
+    """(a) The sharded verify against the unsharded kernel, bf16 head of
+    D x V for V in TP_VOCABS, P in TP_DEGREES, R in TP_ROWS, with each
+    row's best column copied to columns on every shard (cross-shard ties):
+    tokens and values bit-equal. Logs the unsharded kernel's time, each
+    slice's kernel time, the merge's and the whole sharded call's. Returns
+    {(name, V, P, R): timings}."""
+    from repro_torch.kernels.exit_gate import ops
+    from repro_torch.sharding import ShardCtx
+    from repro_torch.sharding.serving import split_vocab
+    gen = torch.Generator(device=dev).manual_seed(160)
+    out = {}
+    for Vt in TP_VOCABS:
+        w = (torch.randn(D, Vt, generator=gen, device=dev) * D ** -0.5).to(
+            torch.bfloat16)
+        for R in TP_ROWS:
+            hn = torch.randn(R, D, generator=gen, device=dev).to(
+                torch.bfloat16)
+            for r in range(min(R, 4)):    # ties across every shard
+                best = int((hn[r].float() @ w.float()).argmax())
+                for j in range(4):
+                    w[:, (best + j * (Vt // 4) + 1) % Vt] = w[:, best]
+            t0, v0 = ops.verify_argmax(hn, w, impl="kernel")
+            i0, x0 = ops.verify_topk(hn, w, K_SPEC, impl="kernel")
+            for P in TP_DEGREES:
+                shard = ShardCtx.from_mesh(tp_mesh(P))
+                sl = split_vocab(w, shard)
+                t1, v1 = ops.verify_argmax(hn, sl, impl="kernel")
+                i1, x1 = ops.verify_topk(hn, sl, K_SPEC, impl="kernel")
+                require(torch.equal(t0, t1) and torch.equal(v0, v1),
+                        f"sharded argmax differs at V={Vt} P={P} R={R}")
+                require(torch.equal(i0, i1) and torch.equal(x0, x1),
+                        f"sharded top-k differs at V={Vt} P={P} R={R}")
+                for name, full, one, merge in (
+                        ("argmax_verify",
+                         lambda: ops.verify_argmax(hn, w, impl="kernel"),
+                         lambda p: ops.verify_argmax(hn, p, impl="kernel"),
+                         ops.merge_argmax),
+                        ("topk_verify",
+                         lambda: ops.verify_topk(hn, w, K_SPEC,
+                                                 impl="kernel"),
+                         lambda p: ops.verify_topk(hn, p, K_SPEC,
+                                                   impl="kernel"),
+                         lambda parts: ops.merge_topk(parts, K_SPEC))):
+                    parts = [one(p) for p in sl]
+                    rec = {"unsharded_ms": graph_ms(torch, [full]),
+                           "shard_ms": [graph_ms(torch, [lambda p=p: one(p)])
+                                        for p in sl],
+                           "merge_ms": graph_ms(
+                               torch, [lambda: merge(parts)]),
+                           "sharded_ms": graph_ms(torch, [
+                               (lambda: ops.verify_argmax(hn, sl,
+                                                          impl="kernel"))
+                               if name == "argmax_verify" else
+                               (lambda: ops.verify_topk(hn, sl, K_SPEC,
+                                                        impl="kernel"))]),
+                           "widths": [p.shape[1] for p in sl]}
+                    out[(name, Vt, P, R)] = rec
+                    log("tp", f"{name} V={Vt} P={P} R={R}: bit-equal to "
+                        f"the unsharded kernel (tokens and values, ties "
+                        f"on every shard); unsharded "
+                        f"{rec['unsharded_ms']:.4f} ms, slices "
+                        f"{rec['widths']} "
+                        + "/".join(f"{t:.4f}" for t in rec["shard_ms"])
+                        + f" ms, merge {rec['merge_ms']:.4f} ms, sharded "
+                        f"call {rec['sharded_ms']:.4f} ms")
+            del hn
+        del w
+    return out
+
+
+def _tp_drive(model, params, sw, strategy, prompts, cache, mesh):
+    """Whole-batch decode of ``TP_STEPS`` steps; every row's tokens."""
+    from repro_torch.api import Engine
+    e = Engine.create(model, params, sw, strategy=strategy, mesh=mesh)
+    s = e.new_session(cache=cache)
+    first = s.prefill(prompts, max_new_tokens=TP_STEPS + 1)
+    toks = [list(first.row_tokens(b)) for b in range(first.batch)]
+    while not s.all_done():
+        r = s.step()
+        for b in range(r.batch):
+            toks[b].extend(int(t) for t in r.row_tokens(b))
+    return toks
+
+
+def tp_decode(torch, dev):
+    """(b) llama2-7b at published width, fp32, TP_LAYERS layers: SpecEE
+    and tree on dense and paged caches at P = 1, 2 and 4, every shard on
+    the one card, cut from one host copy of the weights; tokens at P = 2
+    and 4 equal P = 1's. Returns the P > 1 runs' launches, the model and
+    the weights on the card and on the host."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.sharding.serving import to_host
+    run = llama(TP_LAYERS, "float32")
+    params, sw = _seeded(torch, dev, run, 16)
+    host = to_host(params), to_host(sw)
+    model = build_model(run, ModelFlags(**TREE_KERNELS))
+    prompts = np.random.default_rng(16).integers(0, V, (B, FULL_PROMPT))
+    cases = [(s, c) for s in ("specee", "tree") for c in ("dense", "paged")]
+    ref = {}
+    for strategy, cache in cases:
+        st = tree_strategy() if strategy == "tree" else strategy
+        ref[(strategy, cache)] = _tp_drive(model, params, sw, st, prompts,
+                                           cache, None)
+    torch.cuda.synchronize()
+    K.reset_launches()                     # ---- the main path ----
+    t0 = time.perf_counter()
+    for P in TP_DEGREES:
+        for strategy, cache in cases:
+            st = tree_strategy() if strategy == "tree" else strategy
+            got = _tp_drive(model, *host, st, prompts, cache, tp_mesh(P))
+            require(got == ref[(strategy, cache)],
+                    f"tp: {strategy}/{cache} at P={P} differs from P=1")
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    for k in TP_PATH:
+        require(launches[k] > 0, f"tp decode never launched {k}")
+    log("tp", f"llama2-7b {TP_LAYERS} layers fp32, B={B}, {TP_STEPS} "
+        f"steps: SpecEE and tree x dense and paged at P = "
+        f"{', '.join(map(str, TP_DEGREES))} (all shards on cuda:0) "
+        f"token-identical to P = 1 in {time.perf_counter() - t0:.1f} s; "
+        f"peak card memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        "GB; launches: " + ", ".join(f"{k} {launches[k]}" for k in TP_PATH))
+    return launches, (model, params, sw, host)
+
+
+def tp_full_depth(torch, dev):
+    """(b, full depth) llama2-7b, 32 layers, bf16, SpecEE on the paged
+    cache at P = 1, then (d)'s pool on the same weights on the card, then
+    P = 4 cut from one host copy with the card's copy freed: tokens
+    compared, and a row's first divergence, if any, must be a near-tie of
+    the P = 1 model (top-2 margin within 8 bf16 spacings of the top
+    logit, as phase 14 holds). The P = 4 run's peak card memory must stay
+    under 1.5x the whole weights (no whole copy beside the shards).
+    Returns the P = 4 run's and the pool's launches."""
+    import gc
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.sharding.serving import to_host, unplace
+    params, sw = full_weights(torch, dev)
+    run = llama(32, "bfloat16")
+    model = build_model(run, ModelFlags(**ALL_KERNELS))
+    prompts = np.random.default_rng(17).integers(0, V, (B, FULL_PROMPT))
+    ref = _tp_drive(model, params, sw, "specee", prompts, "paged", None)
+    pool_launches = tp_pool(torch, dev, params, sw)
+    whole = sum(x.numel() * x.element_size()
+                for x in tree_leaves((params, sw))
+                if isinstance(x, torch.Tensor))
+    host = to_host(params), to_host(sw)
+    del params, sw
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()                     # ---- the main path ----
+    t0 = time.perf_counter()
+    got = _tp_drive(model, *host, "specee", prompts, "paged", tp_mesh(4))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    peak = torch.cuda.max_memory_allocated()
+    for k in SERVE_PATH + ("flash_attention",):
+        require(launches[k] > 0, f"tp full depth never launched {k}")
+    require(peak < 1.5 * whole, f"tp full depth: peak card memory "
+            f"{peak / 1e9:.2f} GB at P=4 for {whole / 1e9:.2f} GB of "
+            "weights (a whole copy beside the shards)")
+    notes, params = [], None
+    for b in range(B):
+        n = next((i for i, (x, y) in enumerate(zip(ref[b], got[b]))
+                  if x != y), None)
+        if n is None:
+            continue
+        if params is None:
+            params = unplace(host[0], dev)
+        margin, top = top2_margin(torch, build_model(run), params,
+                                  list(prompts[b]) + ref[b][:n])
+        spacing = 2.0 ** (np.floor(np.log2(abs(top))) - 7)
+        require(margin <= 8 * spacing, f"tp full depth: row {b} differs "
+                f"at token {n} ({ref[b][n]} vs {got[b][n]}), P=1 top-2 "
+                f"margin {margin:.4g} (bf16 spacing {spacing:.4g})")
+        notes.append(f"row {b} first differs at token {n} "
+                     f"({ref[b][n]} vs {got[b][n]}; P=1 top-2 margin "
+                     f"{margin:.4g} of {top:.4g}, bf16 spacing "
+                     f"{spacing:.4g})")
+    log("tp", f"llama2-7b 32 layers bf16 SpecEE paged, B={B}, "
+        f"{TP_STEPS} steps, P=4 against P=1: "
+        + ("; ".join(notes) if notes else "every token equal")
+        + f"; P=4 run {wall:.2f} s, peak card memory {peak / 1e9:.2f} GB "
+        f"for {whole / 1e9:.2f} GB of weights (the whole tree on the "
+        "host, the card's copy freed)")
+    return launches, pool_launches
+
+
+def tp_remesh(torch, dev, model, params, sw, host):
+    """(c) ServingEngine(mesh=P4) on phase (b)'s fp32 weights (its host
+    copy): device_lost fires at the second tick; the engine remeshes to
+    ``plan_replica_remesh``'s degree and finishes with the unsharded
+    fault-free run's tokens. Returns its launches."""
+    from repro_torch import kernels as K
+    from repro_torch.runtime import faultinject
+    from repro_torch.runtime.fault import plan_replica_remesh
+    from repro_torch.runtime.faultinject import FaultSchedule
+    from repro_torch.serving import ServingEngine
+    from repro_torch.models.model import ModelFlags, build_model
+    prompts = serve_prompts()[:TP_REQS]
+    model = build_model(llama(TP_LAYERS, "float32", max_batch=SERVE_BATCH,
+                              max_seq_len=1024, page_size=PAGE),
+                        ModelFlags(**ALL_KERNELS))
+    kw = dict(strategy="specee", megatick=2, prefill_chunk=0)
+    want = _serve(model, params, sw, prompts, TP_NEW, **kw)
+    se = ServingEngine(model, *host, mesh=tp_mesh(4), **kw)
+    secs = []
+    remesh = se.remesh
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        remesh(*a, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+
+    se.remesh = timed
+    reqs = [se.submit(p, max_new_tokens=TP_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    K.reset_launches()                     # ---- the main path ----
+    with faultinject.injected(FaultSchedule.once("device_lost", visit=2)):
+        se.run_to_completion()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    del se.remesh                          # the timer held se in a cycle
+    for k in TP_SERVE_PATH:
+        require(launches[k] > 0, f"tp remesh never launched {k}")
+    new_tp = plan_replica_remesh(3, 4)
+    require(se.tp_degree == new_tp == 2, f"remeshed to {se.tp_degree}")
+    detail = [e.detail for e in se.fault_log if e.action == "remesh"][0]
+    require(int(detail.split("readmitted=")[1].split(";")[0]) > 0,
+            f"tp remesh re-admitted no request ({detail})")
+    got = [(r.output, r.exit_points) for r in reqs]
+    require(got == want, "tp remesh: tokens differ from the fault-free run")
+    mgr = se.session.cache_mgr
+    require(mgr.free_pages == mgr.num_pages, "tp remesh: pages leaked")
+    log("tp", f"ServingEngine(mesh=P4) fp32 {TP_LAYERS} layers, "
+        f"{TP_REQS} requests x {TP_NEW} tokens, device_lost at tick 2: "
+        f"remeshed tp 4->{se.tp_degree} in {secs[0]:.3f} s ({detail}); "
+        "tokens and exit points equal the unsharded fault-free run; "
+        "every page returned")
+    se.close()
+    return launches
+
+
+def tp_pool(torch, dev, params, sw):
+    """(d) ReplicaPool of two unsharded llama2-7b bf16 replicas sharing one
+    param tree: device_lost fires in a replica, which cannot remesh, so
+    the pool kills it and requeues its requests; the outputs equal one
+    engine's fault-free run. Returns the pool's launches."""
+    from repro_torch import kernels as K
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.runtime import faultinject
+    from repro_torch.runtime.faultinject import FaultSchedule
+    from repro_torch.serving import ReplicaPool, ServingEngine
+    run = llama(32, "bfloat16", max_batch=4, max_seq_len=1024,
+                page_size=PAGE)
+    model = build_model(run, ModelFlags(**ALL_KERNELS))
+    prompts = serve_prompts()[:TP_REQS]
+    kw = dict(strategy="specee", megatick=2, prefill_chunk=0)
+    want = [o for o, _ in _serve(model, params, sw, prompts, TP_NEW, **kw)]
+    pool = ReplicaPool([ServingEngine(model, params, sw, **kw)
+                        for _ in range(2)])
+    prs = [pool.submit(p, max_new_tokens=TP_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    K.reset_launches()                     # ---- the main path ----
+    t0 = time.perf_counter()
+    with faultinject.injected(
+            FaultSchedule.once("device_lost", visit=3)) as inj:
+        pool.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    for k in TP_SERVE_PATH:
+        require(launches[k] > 0, f"tp pool never launched {k}")
+    require(inj.fired_sites() == frozenset({"device_lost"}),
+            "tp pool: device_lost never fired")
+    require(sorted(pool.alive) == [False, True], f"alive {pool.alive}")
+    require([list(pr.output) for pr in prs] == want,
+            "tp pool: outputs differ from one engine's fault-free run")
+    moved = sum(pr.migrations for pr in prs)
+    require(moved > 0, "tp pool: no request migrated")
+    log("tp", f"ReplicaPool of 2 llama2-7b bf16 replicas (one param tree), "
+        f"{TP_REQS} requests x {TP_NEW} tokens, device_lost on a replica: "
+        f"{[(e.site, e.action) for e in pool.fault_log]}, {moved} "
+        f"requests migrated and replay-verified, outputs equal one "
+        f"engine's fault-free run; {wall:.2f} s")
+    pool.close()
+    return launches
+
+
+def check_collectives(torch, dev):
+    """(e) The collectives on the card against plain sums: all_reduce_sum
+    in shard order, compressed_psum against the CPU's bit for bit over 8
+    steps of error feedback, collective_matmul_ag against one matmul per
+    row block."""
+    from repro_torch.runtime import collectives as coll
+    gen = torch.Generator(device=dev).manual_seed(161)
+    parts = [torch.randn(SERVE_BATCH, D, generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(4)]
+    got = coll.all_reduce_sum(parts, dev)
+    want = ((parts[0] + parts[1]) + parts[2]) + parts[3]
+    require(torch.equal(got, want), "all_reduce_sum is not in shard order")
+    errs = [torch.zeros(D, device=dev) for _ in range(4)]
+    errs_c = [e.cpu() for e in errs]
+    max_amax = 0.0
+    for _ in range(8):
+        xs = [torch.randn(D, generator=gen, device=dev) for _ in range(4)]
+        max_amax = max(max_amax, float(max((x + e).abs().max()
+                                           for x, e in zip(xs, errs))))
+        tot, errs = coll.compressed_psum(xs, errs)
+        tot_c, errs_c = coll.compressed_psum([x.cpu() for x in xs], errs_c)
+        require(torch.equal(tot[0].cpu(), tot_c[0]) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(errs, errs_c)),
+            "compressed_psum on the card differs from the CPU's")
+        # a step: the fresh and the fed-back residual, P shared scales
+        require(float((tot[0] - sum(xs)).abs().max())
+                <= 4 * max_amax / 127 + 1e-4,
+                "compressed_psum outside its bound")
+    x = torch.randn(4 * 64, D, generator=gen, device=dev)
+    w = torch.randn(D, 1024, generator=gen, device=dev)
+    outs = coll.collective_matmul_ag(list(x.chunk(4)), [w] * 4)
+    plain = torch.cat([b @ w for b in x.chunk(4)])
+    require(all(torch.equal(o, plain) for o in outs),
+            "collective_matmul_ag differs from the plain row-block matmuls")
+    log("tp", "collectives on the card: all_reduce_sum in shard order; "
+        "compressed_psum bit-equal to the CPU's over 8 steps; "
+        "collective_matmul_ag equal to the plain matmuls")
+
+
+def tp_phase(torch, dev):
+    """Phase 16: multi-GPU serving with every shard on the one card. Returns
+    the launches by path."""
+    import gc
+    gc.collect()            # earlier phases' engines that sit in cycles
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    timing = check_sharded_verify(torch, dev)
+    torch.cuda.empty_cache()
+    check_collectives(torch, dev)
+    by_path = {}
+    by_path["tp_decode"], (model, params, sw, host) = tp_decode(torch, dev)
+    torch.cuda.empty_cache()
+    by_path["tp_remesh"] = tp_remesh(torch, dev, model, params, sw, host)
+    del model, params, sw, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["tp_full"], by_path["tp_pool"] = tp_full_depth(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("tp", f"phase 16 took {time.perf_counter() - t0:.1f} s; no copy "
+        "between cards was made or measured (one card holds every shard)")
+    return by_path, timing
+
+
 def profile_steps(torch, model, params, sw, prompts, step_s: float,
                   n: int = 4, phase: str = "profile") -> None:
     """torch.profiler over ``n`` more whole-batch SpecEE steps."""
@@ -5770,6 +6182,9 @@ def main() -> int:
     by_path.update(new_family_phase(torch, dev))
     torch.cuda.empty_cache()
     by_path.update(faults_phase(torch, dev))
+    torch.cuda.empty_cache()
+    tp_launches, tp_timing = tp_phase(torch, dev)
+    by_path.update(tp_launches)
 
     kernels = []
     for name in build.SOURCES:
@@ -5808,6 +6223,13 @@ def main() -> int:
                 str(R): {"ms": r[0], "plain_ms": r[1], "bound_ms": r[3][0],
                          "bound_by": r[3][1]}
                 for R, r in timing[name][4].items()}
+        if name in ("argmax_verify", "topk_verify"):
+            # phase 16: the verify over P vocabulary slices of the bf16
+            # head against this kernel unsharded (bit-equal), per slice
+            # and for the merge
+            row["at_shards"] = {
+                f"V={Vt} P={P} R={R}": r
+                for (n, Vt, P, R), r in tp_timing.items() if n == name}
         if name in t_df:
             # phase 2 at the dense family's shapes (n_rep 12 attention,
             # MiniCPM's and Command R+'s heads, the wider gates, flash at

@@ -14,6 +14,14 @@ them out of it.
   pages and zeroes its length, so an idle slot stops paying attention
   span.
 
+Under a mesh (a sharded model, ``Model.with_shard``) every attention
+entry's leaves are ``Shards`` of each shard's KV heads — the paged pools
+split on their KV-head dim, one pool per shard, and so do the int8 pools
+and their scales — while the page table, the lengths and every
+non-attention entry stay whole on the lead device, so admission and
+retirement edit rows without knowing the layout. ``partition_specs``
+describes that layout (JAX ``api/cache.py:164``, ``:297``).
+
 Allocation is by reservation: a row claims its full ``pages_per_row`` at
 admission and returns them at retirement, in the JAX package's order, so
 page ids come out equal to the JAX manager's for the same calls. Only
@@ -30,7 +38,9 @@ import torch
 
 from repro_torch.config import ATTN, LOCAL_ATTN
 from repro_torch.core import paged as paged_lib
+from repro_torch.models.common import tree_map
 from repro_torch.runtime import faultinject
+from repro_torch.sharding.ctx import Shards
 
 
 @dataclass(frozen=True)
@@ -74,6 +84,9 @@ def insert_row_pytree(big: Any, small: Any, row: int, batch: int) -> Any:
     if isinstance(big, dict):
         return {k: insert_row_pytree(big[k], small[k], row, batch)
                 for k in big}
+    if isinstance(big, Shards):
+        return Shards((insert_row_pytree(b, s, row, batch)
+                       for b, s in zip(big, small)), dim=big.dim)
     if isinstance(big, (list, tuple)):
         return type(big)(insert_row_pytree(b, s, row, batch)
                          for b, s in zip(big, small))
@@ -144,6 +157,25 @@ class KVCacheManager:
                 f"cache state is {st.get('kind')!r}, manager is "
                 f"{self.kind!r}: restore needs the same cache layout")
 
+    # ----- mesh layout -----
+    def partition_specs(self, cache: Any, mesh, policy: str = "tp_dp"
+                        ) -> Any:
+        """Spec tree of this manager's cache on ``mesh``: JAX's
+        Megatron-role cache rules with the sequence split off (decode
+        scatters positions one at a time). Where JAX's generic rule would
+        split a dense int8 cache's scale planes along S, the port keeps
+        each KV head's scales beside its codes: a scale plane takes its
+        codes' spec without the head_dim entry."""
+        from repro_torch.sharding import policies as pol
+        specs = pol.cache_specs(self.model, mesh, policy,
+                                _shape_tree(cache), kv_seq_shard=False)
+        for seg, key, _, is_attn in self._attention_units():
+            entry = specs["segments"][seg][key]
+            for scale, codes in (("ks", "k"), ("vs", "v")):
+                if is_attn and scale in entry:
+                    entry[scale] = pol.Spec(*entry[codes][:-1])
+        return specs
+
     # ----- introspection -----
     def row_span(self, cache: Any, row: int) -> int:
         """Attention span the row currently pays (valid cache positions)."""
@@ -166,6 +198,31 @@ class KVCacheManager:
         for seg, (unit, _reps) in enumerate(self.model.segments):
             for i, kind in enumerate(unit):
                 yield seg, f"u{i}", kind, kind in (ATTN, LOCAL_ATTN)
+
+
+def _whole_shape(x):
+    """The whole tensor's shape of a leaf (a ``Shards``' parts joined)."""
+    if not isinstance(x, Shards):
+        return tuple(x.shape)
+    shape = list(x[0].shape)
+    shape[x.dim] = sum(p.shape[x.dim] for p in x)
+    return tuple(shape)
+
+
+def _shape_tree(cache: Any) -> Any:
+    """The cache tree with each tensor leaf replaced by a meta tensor of
+    its whole shape (the spec rules read shapes alone)."""
+    if isinstance(cache, dict):
+        return {k: _shape_tree(v) for k, v in cache.items()}
+    if isinstance(cache, (Shards, torch.Tensor)):
+        return torch.empty(_whole_shape(cache), device="meta")
+    if isinstance(cache, (list, tuple)):
+        return type(cache)(_shape_tree(v) for v in cache)
+    return cache
+
+
+def _parts(x) -> list:
+    return list(x) if isinstance(x, Shards) else [x]
 
 
 class DenseKVCache(KVCacheManager):
@@ -263,6 +320,30 @@ class PagedKVCache(KVCacheManager):
                                    device=self.device),
                 "page_table": table}
 
+    def partition_specs(self, cache: Any, mesh, policy: str = "tp_dp"
+                        ) -> Any:
+        """Head-sharded paged layout: attention pool leaves shard their
+        KV-head dim over 'model' (``core.paged.pool_partition_dims``: page
+        ids index the leading dims, so pages stay whole); the page table,
+        lengths and non-attention entries are replicated, so every shard
+        resolves the same page indirection."""
+        from repro_torch.sharding import policies as pol
+        M = int(dict(mesh.shape).get("model", 1))
+        attn = {(seg, key): is_attn
+                for seg, key, _, is_attn in self._attention_units()}
+        segs = []
+        for seg, entry in enumerate(cache["segments"]):
+            out = {}
+            for key, sub in entry.items():
+                if attn.get((seg, key)):
+                    out[key] = {n: pol.Spec(*paged_lib.pool_partition_dims(
+                        _whole_shape(x), M)) for n, x in sub.items()}
+                else:
+                    out[key] = pol.replicated_specs(_shape_tree(sub))
+            segs.append(out)
+        return {"segments": segs, "len": pol.Spec(),
+                "page_table": pol.Spec()}
+
     def _alloc_row(self, row: int) -> np.ndarray:
         if not self._row_pages[row]:
             if len(self._free) < self.pages_per_row:
@@ -281,10 +362,12 @@ class PagedKVCache(KVCacheManager):
         pools, in place. slots: flat pool slot ids, (B, S) for whole-batch
         dense leaves (reps, B, S, ...) or (S,) for one row's leaves
         (reps, S, ...)."""
-        for name, pool in pool_entry.items():
-            flat = pool.view((pool.shape[0], pool.shape[1] * pool.shape[2])
-                             + tuple(pool.shape[3:]))
-            flat[:, slots] = dense_entry[name].to(pool.dtype)
+        for name, pools in pool_entry.items():
+            for pool, dense in zip(_parts(pools), _parts(dense_entry[name])):
+                flat = pool.view((pool.shape[0],
+                                  pool.shape[1] * pool.shape[2])
+                                 + tuple(pool.shape[3:]))
+                flat[:, slots.to(pool.device)] = dense.to(pool.dtype)
 
     def from_prefill(self, dense_cache: Any) -> Any:
         table = torch.as_tensor(
@@ -297,7 +380,7 @@ class PagedKVCache(KVCacheManager):
             if not is_attn:
                 segs[seg][key] = dense        # per-row state: unchanged
                 continue
-            S = dense["k"].shape[2]
+            S = _whole_shape(dense["k"])[2]
             self._scatter_entry(segs[seg][key], dense, view[:, :S])
         return {"segments": segs, "len": dense_cache["len"],
                 "page_table": table}
@@ -316,9 +399,8 @@ class PagedKVCache(KVCacheManager):
             if not is_attn:
                 insert_row_pytree(dst, src, row, self.batch)
                 continue
-            S = src["k"].shape[2]
-            self._scatter_entry(dst, {name: x[:, 0]
-                                      for name, x in src.items()},
+            S = _whole_shape(src["k"])[2]
+            self._scatter_entry(dst, tree_map(lambda x: x[:, 0], src),
                                 row_slots[:S])
         length = cache["len"].clone()
         length[row] = row_cache["len"][0]

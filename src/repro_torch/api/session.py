@@ -58,7 +58,18 @@ token stays greedy.
 ``restore`` adopts one into a session built the same way (the serving
 engine's checkpoints). The snapshot's tensors are the live ones, which the
 next step writes in place: ``CheckpointManager.save`` copies them to the
-host before it returns.
+host before it returns. Under a mesh the snapshot is the whole-tensor
+layout, each shard's KV heads gathered onto the lead device (a copy), and
+``restore`` places a snapshot on its own engine's mesh: a snapshot
+restores into an engine of another degree.
+
+Tensor-parallel decode (``Engine.create(..., mesh=make_host_mesh(1, P))``):
+the engine holds its model's sharded view and the params' slices
+(``sharding.serving``); every session, megatick, ``step_async``,
+``snapshot`` and ``restore`` runs under it unchanged, the replicated state
+on the mesh's lead device. Under a mesh the whole tree is kept once, on
+the host (``Engine.source``): the device copies, and a remesh's, are cut
+from it, so no card holds it beside its shards.
 """
 from __future__ import annotations
 
@@ -81,6 +92,8 @@ from repro_torch.models.model import Model
 from repro_torch.quant import (QuantSpec, dequantized_reference,
                                quantize_params)
 from repro_torch.runtime import faultinject
+from repro_torch.sharding import serving as shard_serving
+from repro_torch.sharding.ctx import ShardCtx
 
 _NO_BUDGET = np.iinfo(np.int64).max
 _DEV_NO_BUDGET = np.iinfo(np.int32).max     # device-carry budget cap
@@ -105,32 +118,87 @@ class MegatickHandle:
 
 class Engine:
     """Binds a model + weights to a decode strategy; factory for sessions.
-    The engine runs on the device its weights live on."""
+    The engine runs on the device its weights live on, or under a mesh on
+    the mesh's lead device with each shard's slices on its own."""
 
     def __init__(self, model: Model, params, sw=None,
                  strategy: Union[str, DecodeStrategy, None] = None,
-                 quant=None):
-        self.model = model
+                 quant=None, mesh=None, policy: str = "tp_dp"):
+        # tensor-parallel serving: a (1, P) mesh places the weights by the
+        # policy's Megatron roles (``sharding.serving.shard_params``) and
+        # the model builds its KV caches per shard; a mesh of model extent
+        # 1 is the unsharded path
+        self.mesh = mesh
+        self.policy = policy
+        self.shard = ShardCtx.from_mesh(mesh)
+        if mesh is not None:
+            shard_serving.check_servable(model, mesh, policy)
         # a tied head (Mamba2) as one contiguous copy for the kernels
-        self.params = with_contiguous_head(params)
-        self.sw = sw
+        params = with_contiguous_head(params)
+        if mesh is not None:
+            # under a mesh the whole tree is kept once, on the host: it is
+            # what the device copies and a remesh's are cut from, and no
+            # card holds it beside its shard (no copy if already there)
+            params = shard_serving.to_host(params)
+            sw = shard_serving.to_host(sw)
+        self.source = (params, sw)
         self.strategy = get_strategy(strategy)
         self.strategy.validate(model, sw)
-        self.device = lm_head_weight(self.params).device
-        # weight-only quantization: a parallel bundle of codes + scales
+        # weight-only quantization: a parallel bundle of codes + scales,
+        # built from the whole tree; under a mesh it stays whole on the
+        # lead (JAX replicates the quantized tiles)
         self.quant_spec = QuantSpec.resolve(quant)
-        self.qw = quantize_params(self.params, sw, self.quant_spec)
+        self.qw = quantize_params(params, sw, self.quant_spec)
+        if self.shard is None:
+            # unsharded: on the degree-1 mesh's device, else where the
+            # weights are
+            self.model = model
+            self.device = (mesh.flat[0] if mesh is not None
+                           else lm_head_weight(params).device)
+            self.params = shard_serving.unplace(params, self.device)
+            self.sw = shard_serving.unplace(sw, self.device)
+            if self.qw is not None:
+                self.qw = shard_serving.unplace(self.qw, self.device)
+        else:
+            self.model = model.with_shard(self.shard)
+            self.params, self.sw = shard_serving.shard_params(
+                params, sw, mesh, policy, model)
+            self.device = self.shard.lead
+            if self.qw is not None:
+                self.qw = shard_serving.unplace(self.qw, self.device)
         self._prefill_view = None
         self._decode_view = None
 
     @classmethod
     def create(cls, model: Model, params, sw=None,
                strategy: Union[str, DecodeStrategy, None] = None,
-               quant=None) -> "Engine":
+               quant=None, mesh=None, policy: str = "tp_dp") -> "Engine":
         """``Engine.create(model, params, sw,
         strategy="dense"|"specee"|"tree",
-        quant=None|"int8"|"int4"|QuantSpec(...))``."""
-        return cls(model, params, sw=sw, strategy=strategy, quant=quant)
+        quant=None|"int8"|"int4"|QuantSpec(...),
+        mesh=None|repro_torch.launch.mesh.Mesh, policy="tp_dp"|"tp2d")``.
+        A mesh with a 'model' axis of extent > 1 turns on tensor-parallel
+        decode."""
+        return cls(model, params, sw=sw, strategy=strategy, quant=quant,
+                   mesh=mesh, policy=policy)
+
+    def shard_state(self, state, cache_mgr=None):
+        """Place a whole-layout ``DecodeState`` on the engine's mesh (no-op
+        unsharded): the cache by its manager's ``partition_specs``, the
+        rest on the lead device. ``restore`` calls it, so a snapshot taken
+        at one degree restores at another."""
+        if self.shard is None:
+            return state
+        specs = shard_serving.decode_state_specs(
+            self.model, self.mesh, self.policy, state, cache_mgr=cache_mgr)
+        return shard_serving.place(state, specs, self.shard)
+
+    def unshard_state(self, state):
+        """The whole-tensor layout of a ``DecodeState`` (no-op unsharded):
+        every shard's KV heads gathered onto the lead device."""
+        if self.shard is None:
+            return state
+        return shard_serving.unplace(state, self.device)
 
     @property
     def emit_width(self) -> int:
@@ -144,8 +212,15 @@ class Engine:
         if self.qw is None:
             return self.params, self.sw
         if self._prefill_view is None:
-            self._prefill_view = dequantized_reference(self.params, self.sw,
-                                                       self.qw)
+            params, sw = self.source
+            view = dequantized_reference(params, sw, self.qw)
+            if self.mesh is not None and self.shard is None:
+                view = (shard_serving.unplace(view[0], self.device),
+                        shard_serving.unplace(view[1], self.device))
+            elif self.shard is not None:
+                view = shard_serving.shard_params(*view, self.mesh,
+                                                  self.policy, self.model)
+            self._prefill_view = view
         return self._prefill_view
 
     def decode_weights(self):
@@ -434,7 +509,7 @@ class DecodeSession:
             "retired": sorted(int(r) for r in self._retired),
             "cache": self.cache_mgr.export_state(),
         }
-        return self._state, meta
+        return self.engine.unshard_state(self._state), meta
 
     def restore(self, state_tree, meta: dict) -> None:
         """Adopt a ``snapshot`` into this pre-allocated session, which must
@@ -452,9 +527,9 @@ class DecodeSession:
                     f"session's {key}={have!r}")
         self.cache_mgr.import_state(meta["cache"])
         device = self.engine.device
-        self._state = tree_map(
+        self._state = self.engine.shard_state(tree_map(
             lambda x: (x.to(device) if isinstance(x, torch.Tensor) else x),
-            state_tree)
+            state_tree), self.cache_mgr)
         self._emitted = np.asarray(meta["emitted"], np.int64)
         self._budget = np.asarray(
             [_NO_BUDGET if b is None else int(b) for b in meta["budget"]],

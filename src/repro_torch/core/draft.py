@@ -189,7 +189,8 @@ def propose_topk(model, params: Params, h_draft: torch.Tensor, k: int,
                  lm_w=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draft hidden -> top-k speculative ids through the streaming LM-head
     top-k (``verify_topk``). ``lm_w`` overrides the LM head; a ``QTensor``
-    takes the quantized top-k. Returns (spec_ids (B, k) int32, logits)."""
+    takes the quantized top-k, a ``Shards`` of vocabulary slices the
+    sharded one. Returns (spec_ids (B, k) int32, logits)."""
     hn = model.final_norm(params, h_draft)
     if lm_w is None:
         lm_w = common.lm_head_weight(params)

@@ -51,6 +51,7 @@ from repro_torch.core.tree import TreeSpec
 from repro_torch.kernels.exit_gate import ops as gate_lib
 from repro_torch.models.common import Params, lm_head_weight
 from repro_torch.models.model import Model
+from repro_torch.quant import QTensor
 
 
 class SpecEEWeights(NamedTuple):
@@ -95,6 +96,17 @@ def _apply_qw(params: Params, sw: Optional[SpecEEWeights], qw):
     if qw.get("predictors") is not None:
         predictors = qw["predictors"]
     return params, lm_w, predictors
+
+
+def _verify_head(params: Params, lm_w):
+    """The head the full-LM-head reductions read — the draft's top-k, the
+    exit verify and the emit (JAX threads ``shard`` into the same three):
+    a sharded model's vocabulary slices (``lm_head/vocab_shards``, the
+    sharded verify), else ``lm_w``. A quantized head stays whole, as in
+    JAX. The gates keep ``lm_w``, the lead device's whole copy."""
+    if isinstance(lm_w, QTensor):
+        return lm_w
+    return params.get("lm_head", {}).get("vocab_shards", lm_w)
 
 
 def init_specee(model: Model, gen: torch.Generator,
@@ -177,6 +189,7 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     thresh = spec.exit_threshold if threshold is None else threshold
     E = model.num_exit_points
     params, lm_w, predictors = _apply_qw(params, sw, qw)
+    vw = _verify_head(params, lm_w)
     pos = state.cache["len"]
     pages = state.cache.get("page_table")       # paged KV: table indirection
     B = state.last_token.shape[0]
@@ -188,7 +201,7 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     emb = model.embed(params, state.last_token[:, None])[:, 0, :]
     h_draft, draft_cache = draft_lib.draft_step(
         model.cfg, sw.draft, emb, state.h_last, state.draft_cache, pos)
-    spec_ids, _ = draft_lib.propose_topk(model, params, h_draft, k, lm_w=lm_w)
+    spec_ids, _ = draft_lib.propose_topk(model, params, h_draft, k, lm_w=vw)
     if spec_ids_override is not None:
         spec_ids = spec_ids_override.to(device=dev,
                                         dtype=torch.int32).contiguous()
@@ -222,7 +235,7 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
                     spec_head_kernel=model.flags.spec_head_kernel)
                 would = act & (p_exit > thresh)
                 if bool(would.any()):
-                    gtok, _ = gate_lib.verify_argmax(hn, lm_w, impl=gate_impl)
+                    gtok, _ = gate_lib.verify_argmax(hn, vw, impl=gate_impl)
                     newly = would & (gtok[:, None] == spec_ids).any(dim=1)
                     exit_token = torch.where(newly, gtok, exit_token)
                     exit_pt = torch.where(newly, torch.full_like(exit_pt, ep),
@@ -239,7 +252,7 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
         ep_base += reps
 
     # ---- 5. emit: exited rows use the verified token, others the full head
-    final_tok, _ = gate_lib.verify_argmax(model.final_norm(params, h), lm_w,
+    final_tok, _ = gate_lib.verify_argmax(model.final_norm(params, h), vw,
                                           impl=gate_impl)
     token = torch.where(exited, exit_token, final_tok)
     spec_hit = (token[:, None] == spec_ids).any(dim=1)
@@ -343,6 +356,7 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     # the capacity is pages_per_row * page_size
     pages = state.cache.get("page_table")
     any_k = state.cache["segments"][0]["u0"]["k"]
+    any_k = any_k[0] if isinstance(any_k, list) else any_k   # a shard's part
     capacity = (any_k.shape[2] if pages is None
                 else pages.shape[1] * any_k.shape[2])
     scratch_off = capacity - N
@@ -429,7 +443,8 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     # ---- acceptance walk on global logits at the (per-row) exit layer ----
     # the B*N node rows stream through one verify: no (B, N, V) logits
     hn_nodes = model.final_norm(params, h).reshape(B * N, -1)
-    gtok = gate_lib.verify_argmax(hn_nodes, lm_w, impl=gate_impl)[0]
+    gtok = gate_lib.verify_argmax(hn_nodes, _verify_head(params, lm_w),
+                                  impl=gate_impl)[0]
     # the walk is a few integer steps per row: on the host, from one copy
     g = gtok.reshape(B, N).cpu().numpy()
     toks = node_tokens.cpu().numpy()
@@ -627,7 +642,7 @@ def dense_decode_step(model: Model, params: Params,
                             temperature=temperature, top_k=top_k)
     else:
         token, _ = gate_lib.verify_argmax(
-            model.final_norm(params, h), lm_w,
+            model.final_norm(params, h), _verify_head(params, lm_w),
             impl=gate_lib.impl_for_flags(model.flags))
     B, E = token.shape[0], model.num_exit_points
     new_state = DecodeState(cache=cache, draft_cache=state.draft_cache,

@@ -20,7 +20,7 @@ Slot ids are int64 (torch indexes with int64; a large pool overflows int32).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -97,3 +97,21 @@ def paged_shape(dense_shape: Tuple[int, ...], num_pages: int,
     """Pool shape ``(num_pages, page_size, ...)`` of a dense cache leaf
     shape ``(B, S, ...)``."""
     return (num_pages, page_size) + tuple(dense_shape[2:])
+
+
+def pool_partition_dims(shape: Tuple[int, ...],
+                        model_extent: int) -> Tuple[Optional[str], ...]:
+    """Which dim of a pool leaf shards over the tensor-parallel ('model')
+    axis (JAX ``core/paged.py:113``). Page ids index the leading pool dims
+    (reps?, n_pages, page_size), so those stay whole and every shard
+    resolves the same page table; the KV-head dim shards when it divides
+    the degree, else head_dim, else nothing. Returns a spec tuple."""
+    dims: list = [None] * len(shape)
+    if model_extent > 1:
+        for cand in (len(shape) - 2, len(shape) - 1):
+            # cand >= 3 keeps (reps, n_pages, page_size) whole even for
+            # low-rank leaves (the 4-D scale planes)
+            if cand >= 3 and shape[cand] % model_extent == 0:
+                dims[cand] = "model"
+                break
+    return tuple(dims)

@@ -26,6 +26,20 @@ quantized spec-head kernel, the Δ-features, then the predictor-MLP kernel
 — and the port's plain version computes that chain; the tree gate
 (``core/features.py``, ``core/predictor.py``) keeps the two pieces, since
 the hyper-token merge sits between them.
+
+Tensor-parallel verify (JAX ``ops.py:241-377``): a ``Shards`` head — the
+vocabulary slices of a mesh's shards, ``sharding.serving.split_vocab`` —
+verifies each slice with the unsharded kernel (or plain version) on the
+slice's device, shifts its ids by the slice's first global column, and
+merges the (P, B) or (P, B, k) partials on the hidden's device. The D contraction never splits, so every logit a
+slice computes is the unsharded one. The merge keeps the global tie-break:
+the maximum wins and equal maxima take the lowest global id
+(``torch.argmax``'s first occurrence); top-k pools the partials
+shard-major and sorts them stably, so equal values keep ascending ids
+(``torch.topk`` promises no order for ties). JAX pads the head to P equal
+slices and masks the pad; torch slices may differ in width, so an odd
+vocabulary's last slice is narrower and nothing is masked. A quantized
+head stays on the unsharded path (its tiles are replicated).
 """
 from __future__ import annotations
 
@@ -43,6 +57,7 @@ from repro_torch.kernels.exit_gate.exit_gate import (argmax_verify_fused,
                                                      topk_verify_fused_q)
 from repro_torch.kernels.spec_head import ops as sh_ops
 from repro_torch.quant import QTensor
+from repro_torch.sharding.ctx import Shards
 
 IMPLS = (None, "auto", "kernel", "ref")
 
@@ -99,11 +114,66 @@ def exit_gate(hn: torch.Tensor, lm_head, spec_ids: torch.Tensor,
     return gate_ref.exit_gate_ref(hn, lm_head, spec_ids, prev_probs, pp)
 
 
+_I32_MAX = torch.iinfo(torch.int32).max
+
+
+def _partials(hn: torch.Tensor, slices: Shards, fn):
+    """``fn(hn on the slice's device, slice)`` per slice -> its (ids,
+    vals) with ids shifted to global columns, on hn's device."""
+    out, c0 = [], 0
+    for part in slices:
+        ids, vals = fn(hn.to(part.device), part)
+        out.append((ids.to(hn.device) + c0, vals.to(hn.device)))
+        c0 += part.shape[1]
+    return out
+
+
+def merge_argmax(parts):
+    """The global (token, max) of per-slice (global ids, maxima): the
+    maximum wins, equal maxima take the lowest global id."""
+    toks = torch.stack([t for t, _ in parts])               # (P, B)
+    vals = torch.stack([v for _, v in parts])
+    best = vals.amax(dim=0)
+    cand = torch.where(vals == best[None], toks, _I32_MAX)
+    return cand.amin(dim=0).to(torch.int32), best
+
+
+def merge_topk(parts, k: int):
+    """The global top-k of per-slice (global ids, values) top-k's: a
+    shard-major (B, sum k_s) pool — within a slice equal values come
+    id-ascending and slices are id-ascending — sorted stably, descending,
+    so equal values keep the lower id first."""
+    pool_i = torch.cat([i for i, _ in parts], dim=1)
+    pool_v = torch.cat([v for _, v in parts], dim=1)
+    nvals, sel = torch.sort(pool_v, dim=1, descending=True, stable=True)
+    nids = torch.gather(pool_i, 1, sel[:, :k])
+    return nids.to(torch.int32), nvals[:, :k]
+
+
+def _verify_argmax_sharded(hn, slices, impl):
+    return merge_argmax(_partials(
+        hn, slices, lambda h, w: verify_argmax(h, w, impl=impl)))
+
+
+def _verify_topk_sharded(hn, slices, k, impl):
+    width = max(p.shape[1] for p in slices)
+    if k > width:
+        raise ValueError(
+            f"verify_topk: k={k} exceeds the per-shard vocab slice "
+            f"({sum(p.shape[1] for p in slices)} cols / {len(slices)} "
+            f"shards = {width}); every global top-k entry must be inside "
+            "its shard's local top-k")
+    return merge_topk(_partials(hn, slices, lambda h, w: verify_topk(
+        h, w, min(k, w.shape[1]), impl=impl)), k)
+
+
 def verify_argmax(hn: torch.Tensor, lm_head,
                   impl: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-LM-head argmax; ``lm_head`` (D, V) or a QTensor. Returns
-    (token (B,) int32, max logit (B,))."""
+    """Full-LM-head argmax; ``lm_head`` (D, V), a QTensor, or a ``Shards``
+    of vocabulary slices. Returns (token (B,) int32, max logit (B,))."""
+    if isinstance(lm_head, Shards):
+        return _verify_argmax_sharded(hn, lm_head, impl)
     if resolve_impl(impl, hn) == "kernel":
         if isinstance(lm_head, QTensor):
             return argmax_verify_fused_q(hn, lm_head)
@@ -114,9 +184,11 @@ def verify_argmax(hn: torch.Tensor, lm_head,
 def verify_topk(hn: torch.Tensor, lm_head, k: int,
                 impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-LM-head top-k; ``lm_head`` (D, V) or a QTensor. Returns (ids
-    (B, k) int32, vals (B, k) fp32), descending by logit, ties by ascending
-    id."""
+    """Full-LM-head top-k; ``lm_head`` (D, V), a QTensor, or a ``Shards``
+    of vocabulary slices. Returns (ids (B, k) int32, vals (B, k) fp32),
+    descending by logit, ties by ascending id."""
+    if isinstance(lm_head, Shards):
+        return _verify_topk_sharded(hn, lm_head, k, impl)
     if resolve_impl(impl, hn) == "kernel":
         if isinstance(lm_head, QTensor):
             return topk_verify_fused_q(hn, lm_head, k)

@@ -7,7 +7,8 @@ strategy, one process on one device.
     python -m repro_torch.launch.serve --arch llama2-13b --requests 16
 
 ``--smoke`` serves the arch's smoke config; without it the published size,
-seeded (weights and SpecEE bundle from seeds 0 and 1 on the device).
+seeded (weights and SpecEE bundle from seeds 0 and 1 on the device; with
+shard slots, on the host, which keeps the one whole tree).
 ``--trained`` trains the bundle first with the port's own offline training
 (``repro_torch.core.bundle``, in ``benchmarks/common.py::get_bundle``'s
 order, on get_bundle's config: the smoke config deepened to 12 layers).
@@ -37,8 +38,18 @@ tokens equal those of an in-process reference: the engine on the plain
 paths (no kernel, the unfused gate), per tick, same admission and weights,
 on a full pool and with no fault.
 
-A tensor-parallel mesh (``--mesh 1,N>1``) and replicas (``--replicas
-N>1``) are refused, naming their ROADMAP item ("multi-GPU").
+Multi-GPU serving:
+    --mesh 1,N           tensor-parallel decode over N shards
+                         (``launch.mesh``); DATA must be 1
+    --replicas M         M engines behind one queue (``ReplicaPool``)
+    --inject device_lost the engine drops its highest device and remeshes
+                         in place (needs --mesh 1,N>1)
+
+There are ``replicas × N`` shard slots, slot i on ``cuda:(i mod
+device_count)`` (all on ``--device`` when it names one, such as ``cpu``
+or ``cuda:1``): a machine with fewer cards
+holds several shards on one card, and the launcher prints how many slots
+share each card.
 """
 from __future__ import annotations
 
@@ -51,7 +62,6 @@ from typing import List, Optional
 
 from repro_torch.runtime.faultinject import SITES
 
-_MULTI = "ROADMAP: multi-GPU"
 PREEMPTED_EXIT_CODE = 17
 
 
@@ -107,21 +117,34 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--fault-log", default=None, metavar="PATH",
                     help="write the FaultEvent trail to PATH as JSONL after "
                          "the run")
-    ap.add_argument("--mesh", default="1,1", metavar="DATA,MODEL")
-    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--mesh", default="1,1", metavar="DATA,MODEL",
+                    help="decode mesh shape; MODEL > 1 turns on tensor-"
+                         "parallel decode")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel ServingEngine replicas behind one "
+                         "shared queue (ReplicaPool), each over its own "
+                         "MODEL shard slots")
     args = ap.parse_args(argv)
     try:
-        _, model_par = (int(x) for x in args.mesh.split(","))
+        data_par, model_par = (int(x) for x in args.mesh.split(","))
     except ValueError:
         ap.error(f"--mesh must be DATA,MODEL ints, got {args.mesh!r}")
-    refused = {"--mesh": model_par > 1, "--replicas": args.replicas > 1,
-               "--inject device_lost": args.inject == "device_lost"}
-    for flag, asked in refused.items():
-        if asked:
-            raise SystemExit(f"{flag} is not ported yet ({_MULTI}): "
-                             "the engine runs on one device"
-                             + (", so a lost device leaves none to remesh "
-                                "onto" if flag.startswith("--inject") else ""))
+    if data_par != 1:
+        ap.error("--mesh DATA must be 1: data parallelism is --replicas "
+                 "(independent engines), not an in-engine mesh axis")
+    if model_par < 1 or args.replicas < 1:
+        ap.error("--mesh MODEL and --replicas must be >= 1")
+    args.model_par = model_par
+    if args.inject == "device_lost" and model_par <= 1:
+        ap.error("--inject device_lost needs a tensor-parallel mesh to "
+                 "degrade (e.g. --mesh 1,2): an unsharded engine has no "
+                 "surviving devices to remesh onto and the fault is "
+                 "terminal")
+    if args.replicas > 1 and (args.checkpoint_dir or args.restore
+                              or args.inject is not None):
+        ap.error("--replicas composes with in-pool failover (a dead "
+                 "replica's requests migrate to survivors), not with the "
+                 "single-engine --checkpoint-dir/--restore/--inject paths")
     if args.no_specee:
         args.mode = "dense"
     if args.temperature > 0.0 and args.mode != "dense":
@@ -168,17 +191,30 @@ def _serve(args: argparse.Namespace, guard) -> None:
     from repro_torch.api import CacheSpec, DenseStrategy
     from repro_torch.configs import get_config
     from repro_torch.core import engine as eng
+    from repro_torch.launch.mesh import make_mesh, make_replica_meshes, slots
     from repro_torch.models.model import ModelFlags, build_model
     from repro_torch.runtime import faultinject
     from repro_torch.runtime.faultinject import FaultSchedule
     from repro_torch.serving import Preempted, ServingEngine
+    from repro_torch.sharding.serving import unplace
 
     device = torch.device(args.device)
+    # replicas x MODEL shard slots, slot i on cuda:(i mod device_count);
+    # a named device (cpu, cuda:1) holds them all
+    named = device.type != "cuda" or device.index is not None
+    meshes = make_replica_meshes(args.replicas, args.model_par,
+                                 device=device if named else None)
+    # with meshes the one whole tree lives on the host: every engine cuts
+    # its slots' copies from it (and a remesh its new ones), so no card
+    # holds it whole
+    hosted = any(ms is not None for ms in meshes)
+    home = torch.device("cpu") if hosted else device
     if args.trained:
         from repro_torch.core.bundle import bundle_run, train_bundle
         run = bundle_run(args.arch)
         t0 = time.perf_counter()
         params, sw, _ = train_bundle(run, device, 32)
+        params, sw = unplace(params, home), unplace(sw, home)
         print(f"[serve] trained a bundle for {run.model.name} "
               f"({run.model.num_layers} layers) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -187,10 +223,10 @@ def _serve(args: argparse.Namespace, guard) -> None:
         if args.smoke:
             run = run.smoke()
         params = build_model(run).init(
-            torch.Generator(device=device).manual_seed(0), device)
+            torch.Generator(device=home).manual_seed(0), home)
         sw = eng.init_specee(build_model(run),
-                             torch.Generator(device=device).manual_seed(1),
-                             device)
+                             torch.Generator(device=home).manual_seed(1),
+                             home)
     # the card runs every kernel of the path; the CPU their plain versions
     flags = ModelFlags(flash_attention=True, decode_kernel=True,
                        spec_head_kernel=True, exit_gate_impl="kernel")
@@ -207,8 +243,11 @@ def _serve(args: argparse.Namespace, guard) -> None:
     prompts = [rng.integers(0, run.model.vocab_size, int(rng.integers(4, 16)))
                for _ in range(args.requests)]
 
+    ref_mesh = (make_mesh(slots(1, device if named else None), 1, 1)
+                if hosted else None)
+
     def make_engine(m, megatick, async_ticks, fused_gate, cache,
-                    checkpoint_dir=None):
+                    checkpoint_dir=None, mesh=None):
         return ServingEngine(m, params, sw, strategy=strategy,
                              prng_seed=args.seed, fused_gate=fused_gate,
                              cache=cache, page_size=args.page_size,
@@ -216,13 +255,34 @@ def _serve(args: argparse.Namespace, guard) -> None:
                              megatick=megatick, async_ticks=async_ticks,
                              checkpoint_dir=checkpoint_dir,
                              guard=guard if checkpoint_dir else None,
-                             quant=args.quant)
+                             quant=args.quant, mesh=mesh)
+
+    def reference():
+        """The plain paths, per tick, the same admission, a full pool, no
+        fault, unsharded (on the first slot's device)."""
+        ref = make_engine(build_model(run, ModelFlags()), 1, False, False,
+                          args.cache, mesh=ref_mesh)
+        for p in prompts:
+            ref.submit(p, max_new_tokens=args.max_new)
+        ref.run_to_completion()
+        return {r.uid: r.output for r in ref.completed}
+
+    placed = [d for ms in meshes if ms is not None for d in ms.flat]
+    if placed:
+        share = {str(d): placed.count(d) for d in dict.fromkeys(placed)}
+        print(f"[serve] {len(placed)} shard slots over {len(share)} "
+              f"device(s): {share} slots per device", flush=True)
+    if args.replicas > 1:
+        _serve_pool(args, prompts, meshes, make_engine, model, cache,
+                    reference)
+        return
 
     def run_engine(restore: bool):
         engine = make_engine(model, args.megatick,
                              False if args.sync_ticks else None,
                              not args.no_fused_gate, cache,
-                             checkpoint_dir=args.checkpoint_dir)
+                             checkpoint_dir=args.checkpoint_dir,
+                             mesh=meshes[0])
         if restore and engine.restore_checkpoint():
             print(f"[serve] restored tick {engine._tick} from "
                   f"{args.checkpoint_dir} ({len(engine.completed)} requests "
@@ -283,6 +343,16 @@ def _serve(args: argparse.Namespace, guard) -> None:
         print(f"[serve] injected {args.inject} at visits "
               f"{sorted(schedule.plan[args.inject])}; recovery log: "
               f"{recovery}", flush=True)
+        if args.inject == "device_lost":
+            # the loss degrades IN PLACE: a remesh in the log and a degree
+            # below the built mesh's
+            assert any(e.action == "remesh" for e in engine.fault_log), \
+                "--inject device_lost: no remesh in the fault log"
+            assert engine.tp_degree < args.model_par, \
+                f"--inject device_lost: tp still {engine.tp_degree}"
+            print(f"[serve] remeshed tp {args.model_par}->"
+                  f"{engine.tp_degree} (degraded mode, verified replay)",
+                  flush=True)
     if args.fault_log:
         n = engine.fault_log.dump_jsonl(args.fault_log, source="engine")
         print(f"[serve] fault log: {n} events -> {args.fault_log}",
@@ -295,16 +365,8 @@ def _serve(args: argparse.Namespace, guard) -> None:
         if mgr.kind == "paged":
             assert mgr.free_pages == mgr.num_pages, \
                 f"CI smoke: page leak ({mgr.free_pages}/{mgr.num_pages} free)"
-        # the reference: plain paths, per tick, the same admission, a full
-        # pool, no fault
-        ref = make_engine(build_model(run, ModelFlags()), 1, False, False,
-                          args.cache)
-        for p in prompts:
-            ref.submit(p, max_new_tokens=args.max_new)
-        ref.run_to_completion()
         got = {r.uid: r.output for r in done}
-        want = {r.uid: r.output for r in ref.completed}
-        assert got == want, \
+        assert got == reference(), \
             "CI smoke: tokens diverge from the plain per-tick reference"
         print("[serve] CI smoke OK (every request done, every page freed, "
               "tokens equal to the plain per-tick reference)", flush=True)
@@ -317,6 +379,46 @@ def _serve(args: argparse.Namespace, guard) -> None:
         if args.mode == "tree":
             line += f" accepted={sum(r.accept_lens)}"
         print(line, flush=True)
+
+
+def _serve_pool(args, prompts, meshes, make_engine, model, cache,
+                reference) -> None:
+    """``--replicas M``: M engines (each over its own mesh, or unsharded)
+    behind one ``ReplicaPool``; ``--ci`` holds every request to the
+    single-engine reference."""
+    from repro_torch.serving import ReplicaPool
+    pool = ReplicaPool([make_engine(model, args.megatick,
+                                    False if args.sync_ticks else None,
+                                    not args.no_fused_gate, cache, mesh=ms)
+                        for ms in meshes])
+    prs = [pool.submit(p, max_new_tokens=args.max_new) for p in prompts]
+    t0 = time.perf_counter()
+    pool.run_to_completion()
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.output) for r in pool.completed)
+    print(f"[serve] {len(pool.completed)} requests, {toks} tokens in "
+          f"{dt:.2f}s ({toks / dt:.1f} tok/s, replicas={args.replicas}, "
+          f"mesh=(1,{args.model_par}), mode={args.mode}, "
+          f"megatick={args.megatick})", flush=True)
+    if args.ci:
+        assert len(pool.completed) == args.requests, \
+            f"CI smoke: {len(pool.completed)}/{args.requests} completed"
+        assert all(r.done and len(r.output) == args.max_new for r in prs), \
+            "CI smoke: a pooled request missed its token budget"
+        want = reference()
+        assert [list(pr.output) for pr in prs] == [
+            want[uid] for uid in sorted(want)], \
+            "CI smoke: pool tokens diverge from the single-engine reference"
+        print("[serve] CI smoke OK (replica-pool token parity with the "
+              "single-engine reference)", flush=True)
+    if args.fault_log:
+        n = pool.fault_log.dump_jsonl(args.fault_log, source="pool")
+        for i, rep in enumerate(pool.replicas):
+            n += rep.fault_log.dump_jsonl(args.fault_log,
+                                          source=f"replica{i}", append=True)
+        print(f"[serve] fault log: {n} events -> {args.fault_log}",
+              flush=True)
+    pool.close()
 
 
 if __name__ == "__main__":

@@ -3,6 +3,8 @@ sliding-window, against a (B, S, KVH, hd) KV cache. Plain torch, masked
 fp32 softmax, ``NEG_INF`` for masked scores."""
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -215,6 +217,17 @@ def attend_extend(cfg: ModelConfig, q, k_cache, v_cache, start_pos,
     if window is not None:
         valid = valid & (kpos[None, None, :] > qpos[:, :, None] - window)
     return sdpa(q, kk, vv, valid[:, None])
+
+
+@functools.lru_cache(maxsize=None)
+def shard_cfg(cfg: ModelConfig, degree: int) -> ModelConfig:
+    """The config one tensor-parallel shard of ``degree`` computes with:
+    its own query and KV heads (``num_heads / degree``, ``num_kv_heads /
+    degree``) at the model's head_dim, so ``qkv``, the attention paths and
+    the kernels read a shard's slice as a whole model's."""
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // degree,
+                               num_kv_heads=cfg.num_kv_heads // degree,
+                               head_dim=cfg.resolved_head_dim())
 
 
 def out_proj(p: Params, attn_out: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.quant.core import QTensor
+from repro_torch.sharding.ctx import Shards
 
 Params = Dict[str, Any]
 
@@ -31,12 +32,15 @@ def _is_namedtuple(x) -> bool:
 
 def tree_map(fn, tree):
     """Apply ``fn`` to every leaf of a nest of dicts, lists, tuples and
-    NamedTuples (a ``DecodeState``, an ``AdamWState``); a ``QTensor`` maps
+    NamedTuples (a ``DecodeState``, an ``AdamWState``) and the parts of a
+    sharded leaf (``sharding.ctx.Shards``, kept one); a ``QTensor`` maps
     over its codes and its scales (a stacked quantized bank slices like a
     plain one). A leaf is anything else: a tensor, or a value such as an
     int or None."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, Shards):
+        return Shards((tree_map(fn, v) for v in tree), dim=tree.dim)
     if _is_namedtuple(tree):
         return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):

@@ -21,9 +21,23 @@ SSD (Mamba2) entry is per-row state, never paged: the fp32 SSM state
 in the compute dtype, both updated in place; so is an RG-LRU entry: the
 fp32 recurrent state ``h`` ``(reps, B, W)`` and the conv window ``(reps,
 B, K-1, W)``.
+
+Tensor parallelism (a mesh, ``sharding/``): the params of a sharded model
+hold ``Shards`` leaves by the Megatron roles (``sharding/serving.py``) and
+every split and reduction is explicit, in one process. Per shard, the
+column-parallel wq/wk/wv (and their biases) and mlp wi/wg, and attention
+over the shard's KV heads (``attention.shard_cfg``); then the row-parallel
+wo and mlp-down partials go through ``all_reduce_sum`` onto the lead
+device, and a row-parallel bias is added once, after the reduce. The
+vocab-parallel embedding is a masked lookup plus a reduce (exact: one shard
+owns each id). The residual stream, the norms and everything between the
+blocks stay whole on the lead. A sharded model (``with_shard``) builds its
+attention cache entries as ``Shards`` of each shard's KV heads; paged pools
+split the same way, the page table and lengths stay on the lead.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -40,6 +54,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.common import Params, index_tree
+from repro_torch.runtime.collectives import all_reduce_sum
+from repro_torch.sharding.ctx import Shards, local
 
 
 def segments_of(blocks: Sequence[str], max_unit: int = 4
@@ -75,8 +91,8 @@ class ModelFlags:
     other path as a dequantized copy in the compute dtype. ``moe_impl``
     picks the MoE form: "dense" (every expert, JAX's default) or "topk"
     (only the selected experts); ``moe_ep_quant`` and ``moe_bf16_reduce``
-    shape expert-parallel collectives and are refused until the port has
-    multi-GPU."""
+    shape the expert-parallel collectives of a mesh over MoE, which the
+    port's multi-GPU serving does not shard yet: they are refused."""
     moe_impl: str = "dense"         # "dense" | "topk"
     moe_ep_quant: bool = False      # int8 EP token dispatch (multi-GPU)
     moe_bf16_reduce: bool = False   # bf16 EP combine reduction (multi-GPU)
@@ -103,6 +119,55 @@ def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
     if kind == LOCAL_ATTN:
         return cfg.rglru.window if cfg.rglru else 2048
     return None
+
+
+def _shard_views(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """(shard index, config, params, x) for each shard of a TP block part
+    ``p`` (attention or MLP), ``x`` moved to the shard's device; one
+    ``(None, cfg, p, x)`` when ``p`` is not sharded."""
+    w = next(iter(p.values()))["w"]
+    if not isinstance(w, Shards):
+        yield None, cfg, p, x
+        return
+    cl = attn_lib.shard_cfg(cfg, len(w))
+    for s, part in enumerate(w):
+        yield s, cl, local(p, s), x.to(part.device)
+
+
+def _row_parallel(parts, p_out: Params, dst: torch.device) -> torch.Tensor:
+    """The row-parallel layer's partials reduced onto ``dst``, then its
+    bias added once (``apply_linear``'s order: matmul, then bias)."""
+    y = all_reduce_sum(parts, dst)
+    b = p_out.get("b")
+    return y if b is None else y + b.to(y.dtype)
+
+
+def _attention(cfg: ModelConfig, p_attn: Params, x: torch.Tensor, core):
+    """``out_proj(core(...))`` of an attention block, per shard under TP.
+    ``core(cfg, params, shard index, x) -> (o (B, S, H, hd), extra)`` runs
+    the block's attention on one shard's heads (index None unsharded).
+    Returns (out (B, S, D) on x's device, extra — a list per shard under
+    TP)."""
+    parts, extras = [], []
+    for s, c, pa, xs in _shard_views(cfg, p_attn, x):
+        o, extra = core(c, pa, s, xs)
+        if s is None:
+            return attn_lib.out_proj(pa, o), extra
+        parts.append(attn_lib.out_proj({"wo": {"w": pa["wo"]["w"]}}, o))
+        extras.append(extra)
+    return _row_parallel(parts, p_attn["wo"], x.device), extras
+
+
+def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``common.apply_mlp``, per shard under TP (a d_ff that the degree
+    does not divide stays whole, as JAX's ``_fit`` replicates it)."""
+    parts = []
+    for s, c, pm, xs in _shard_views(cfg, p, x):
+        if s is None:
+            return common.apply_mlp(cfg, pm, xs)
+        parts.append(common.apply_mlp(cfg, dict(pm, wo={"w": pm["wo"]["w"]}),
+                                      xs))
+    return _row_parallel(parts, p["wo"], x.device)
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen, dtype, device) -> Params:
@@ -136,7 +201,7 @@ def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, flags: "ModelFlags"
         if flags.moe_impl == "dense":
             return moe_lib.apply_moe(cfg, p["moe"], h)
         return moe_lib.apply_moe_topk(cfg, p["moe"], h)
-    return (common.apply_mlp(cfg, p["mlp"], h),
+    return (_mlp(cfg, p["mlp"], h),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
@@ -207,24 +272,32 @@ def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
         h = h + common.apply_mlp(cfg, p["mlp"], x2)
         return h, {"h": h_rec, "conv": conv_tail}, aux
     x = common.apply_norm(cfg, p["ln1"], h)
-    q, k, v = attn_lib.qkv(cfg, p["attn"], x, positions)
-    if flags.flash_attention and cfg.causal:
-        from repro_torch.kernels.flash_attention import ops as fa_ops
-        o = fa_ops.flash_attention(q, k, v, causal=True,
-                                   window=_window(cfg, kind))
-    elif x.shape[1] > flags.chunk_threshold:
-        if flags.attn_prune and cfg.causal:
-            o = attn_lib.attend_full_chunked_pruned(
-                cfg, q, k, v, _window(cfg, kind), chunk=flags.chunk_size)
+    window = _window(cfg, kind)
+
+    def core(c, pa, s, xs):
+        q, k, v = attn_lib.qkv(c, pa, xs, positions.to(xs.device))
+        if flags.flash_attention and c.causal:
+            from repro_torch.kernels.flash_attention import ops as fa_ops
+            o = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+        elif xs.shape[1] > flags.chunk_threshold:
+            if flags.attn_prune and c.causal:
+                o = attn_lib.attend_full_chunked_pruned(
+                    c, q, k, v, window, chunk=flags.chunk_size)
+            else:
+                o = attn_lib.attend_full_chunked(c, q, k, v, window,
+                                                 chunk=flags.chunk_size)
         else:
-            o = attn_lib.attend_full_chunked(cfg, q, k, v, _window(cfg, kind),
-                                             chunk=flags.chunk_size)
-    else:
-        o = attn_lib.attend_full(cfg, q, k, v, _window(cfg, kind))
-    h = h + attn_lib.out_proj(p["attn"], o)
+            o = attn_lib.attend_full(c, q, k, v, window)
+        return o, (k, v)
+
+    out, kv = _attention(cfg, p["attn"], x, core)
+    h = h + out
     x2 = common.apply_norm(cfg, p["ln2"], h)
     f, aux = _ffn(cfg, p, x2, flags)
-    return h + f, {"k": k, "v": v}, aux
+    if isinstance(kv, list):        # per shard: its KV heads
+        kv = (Shards([k for k, _ in kv], dim=-2),
+              Shards([v for _, v in kv], dim=-2))
+    return h + f, {"k": kv[0], "v": kv[1]}, aux
 
 
 def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
@@ -269,39 +342,41 @@ def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
         return h + common.apply_mlp(cfg, p["mlp"], x2), cache_entry
     B = h.shape[0]
     x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
-    pvec = pos.long()
-    rows = torch.arange(B, device=h.device)
-    q, k, v = attn_lib.qkv(cfg, p["attn"], x, pvec[:, None])
-    _entry_write_token(cache_entry, _kv_vals(k[:, 0], v[:, 0],
-                                             flags.kv_quant), pages, rows,
-                       pvec)
     window = _window(cfg, kind)
-    if pages is not None and flags.decode_kernel:
-        from repro_torch.kernels.decode_attention import ops as da_ops
-        o = da_ops.paged_decode_attention(cfg, q, cache_entry["k"],
-                                          cache_entry["v"], pages, pos + 1,
-                                          window=window,
-                                          k_scale=cache_entry.get("ks"),
-                                          v_scale=cache_entry.get("vs"))
-    else:
-        if pages is None:
-            view = cache_entry
+
+    def core(c, pa, s, xs):
+        dev = xs.device
+        ce = local(cache_entry, s)
+        pg = None if pages is None else pages.to(dev)
+        pv = pos.to(dev)
+        pvec = pv.long()
+        rows = torch.arange(B, device=dev)
+        q, k, v = attn_lib.qkv(c, pa, xs, pvec[:, None])
+        _entry_write_token(ce, _kv_vals(k[:, 0], v[:, 0], flags.kv_quant),
+                           pg, rows, pvec)
+        if pg is not None and flags.decode_kernel:
+            from repro_torch.kernels.decode_attention import ops as da_ops
+            return da_ops.paged_decode_attention(
+                c, q, ce["k"], ce["v"], pg, pv + 1, window=window,
+                k_scale=ce.get("ks"), v_scale=ce.get("vs")), None
+        if pg is None:
+            view = ce
         else:
-            view = {name: paged_lib.gather_view(pool, pages)
-                    for name, pool in cache_entry.items()}
+            view = {name: paged_lib.gather_view(pool, pg)
+                    for name, pool in ce.items()}
         if flags.kv_quant:
             k_cache = _kv_dequantize(view["k"], view["ks"], h.dtype)
             v_cache = _kv_dequantize(view["v"], view["vs"], h.dtype)
         else:
             k_cache, v_cache = view["k"], view["v"]
-        if pages is None and flags.decode_kernel:
+        if pg is None and flags.decode_kernel:
             from repro_torch.kernels.decode_attention import ops as da_ops
-            o = da_ops.decode_attention(cfg, q, k_cache, v_cache, pos + 1,
-                                        window=window)
-        else:
-            o = attn_lib.attend_decode(cfg, q, k_cache, v_cache, pos + 1,
-                                       window)
-    h = h + attn_lib.out_proj(p["attn"], o)[:, 0, :]
+            return da_ops.decode_attention(c, q, k_cache, v_cache, pv + 1,
+                                           window=window), None
+        return attn_lib.attend_decode(c, q, k_cache, v_cache, pv + 1,
+                                      window), None
+
+    h = h + _attention(cfg, p["attn"], x, core)[0][:, 0, :]
     x2 = common.apply_norm(cfg, p["ln2"], h[:, None, :])
     return h + _ffn(cfg, p, x2, flags)[0][:, 0, :], cache_entry
 
@@ -327,11 +402,15 @@ def _block_propagate(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
         return cache_entry
     B = h.shape[0]
     x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
-    pvec = pos.long()
-    k, v = attn_lib.kv_only(cfg, p["attn"], x, pvec[:, None])
-    return _entry_write_token(cache_entry,
-                              _kv_vals(k[:, 0], v[:, 0], flags.kv_quant),
-                              pages, torch.arange(B, device=h.device), pvec)
+    for s, c, pa, xs in _shard_views(cfg, p["attn"], x):
+        dev = xs.device
+        pvec = pos.to(dev).long()
+        k, v = attn_lib.kv_only(c, pa, xs, pvec[:, None])
+        _entry_write_token(local(cache_entry, s),
+                           _kv_vals(k[:, 0], v[:, 0], flags.kv_quant),
+                           None if pages is None else pages.to(dev),
+                           torch.arange(B, device=dev), pvec)
+    return cache_entry
 
 
 def _block_extend(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
@@ -351,20 +430,26 @@ def _block_extend(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     assert kind in (ATTN, LOCAL_ATTN), kind
     B, C, _ = h.shape
     x = common.apply_norm(cfg, p["ln1"], h)
-    q, k, v = attn_lib.qkv(cfg, p["attn"], x, positions)
-    keep = positions < cache_entry["k"].shape[1]
-    rows = torch.arange(B, device=h.device)[:, None].expand(B, C)
-    for name, val in _kv_vals(k, v, flags.kv_quant).items():
-        dst = cache_entry[name]
-        dst[rows[keep], positions[keep]] = val[keep].to(dst.dtype)
-    if flags.kv_quant:
-        k_cache = _kv_dequantize(cache_entry["k"], cache_entry["ks"], h.dtype)
-        v_cache = _kv_dequantize(cache_entry["v"], cache_entry["vs"], h.dtype)
-    else:
-        k_cache, v_cache = cache_entry["k"], cache_entry["v"]
-    o = attn_lib.attend_extend(cfg, q, k_cache, v_cache, pos0,
-                               window=_window(cfg, kind))
-    h = h + attn_lib.out_proj(p["attn"], o)
+
+    def core(c, pa, s, xs):
+        dev = xs.device
+        ce = local(cache_entry, s)
+        pos_d = positions.to(dev)
+        q, k, v = attn_lib.qkv(c, pa, xs, pos_d)
+        keep = pos_d < ce["k"].shape[1]
+        rows = torch.arange(B, device=dev)[:, None].expand(B, C)
+        for name, val in _kv_vals(k, v, flags.kv_quant).items():
+            dst = ce[name]
+            dst[rows[keep], pos_d[keep]] = val[keep].to(dst.dtype)
+        if flags.kv_quant:
+            k_cache = _kv_dequantize(ce["k"], ce["ks"], h.dtype)
+            v_cache = _kv_dequantize(ce["v"], ce["vs"], h.dtype)
+        else:
+            k_cache, v_cache = ce["k"], ce["v"]
+        return attn_lib.attend_extend(c, q, k_cache, v_cache, pos0.to(dev),
+                                      window=_window(cfg, kind)), None
+
+    h = h + _attention(cfg, p["attn"], x, core)[0]
     x2 = common.apply_norm(cfg, p["ln2"], h)
     return h + _ffn(cfg, p, x2, flags)[0], cache_entry
 
@@ -400,17 +485,24 @@ def _block_step_tree(cfg: ModelConfig, p: Params, h: torch.Tensor,
     masked attention, as in the JAX package (it has no Pallas kernel here);
     attention-family blocks only."""
     x = common.apply_norm(cfg, p["ln1"], h)
-    q, k, v = attn_lib.qkv(cfg, p["attn"], x, positions)
-    _write_scratch(cache_entry, {"k": k, "v": v}, scratch_off, pages)
-    if pages is None:
-        k_cache, v_cache = cache_entry["k"], cache_entry["v"]
-    else:
-        k_cache = paged_lib.gather_view(cache_entry["k"], pages)
-        v_cache = paged_lib.gather_view(cache_entry["v"], pages)
-    n_rep = cfg.num_heads // cfg.num_kv_heads
-    o = attn_lib.sdpa(q, attn_lib._repeat_kv(k_cache, n_rep),
-                      attn_lib._repeat_kv(v_cache, n_rep), mask)
-    h = h + attn_lib.out_proj(p["attn"], o)
+
+    def core(c, pa, s, xs):
+        dev = xs.device
+        ce = local(cache_entry, s)
+        pg = None if pages is None else pages.to(dev)
+        q, k, v = attn_lib.qkv(c, pa, xs, positions.to(dev))
+        _write_scratch(ce, {"k": k, "v": v}, scratch_off, pg)
+        if pg is None:
+            k_cache, v_cache = ce["k"], ce["v"]
+        else:
+            k_cache = paged_lib.gather_view(ce["k"], pg)
+            v_cache = paged_lib.gather_view(ce["v"], pg)
+        n_rep = c.num_heads // c.num_kv_heads
+        return attn_lib.sdpa(q, attn_lib._repeat_kv(k_cache, n_rep),
+                             attn_lib._repeat_kv(v_cache, n_rep),
+                             mask.to(dev)), None
+
+    h = h + _attention(cfg, p["attn"], x, core)[0]
     x2 = common.apply_norm(cfg, p["ln2"], h)
     return h + _ffn(cfg, p, x2, flags)[0], cache_entry
 
@@ -425,12 +517,22 @@ class Model:
         if flags.moe_ep_quant or flags.moe_bf16_reduce:
             raise ValueError(
                 "ModelFlags.moe_ep_quant / moe_bf16_reduce shape the expert-"
-                "parallel collectives of a mesh: not ported until multi-GPU "
-                "(ROADMAP queue 1, item 9)")
+                "parallel collectives of a mesh over MoE: not ported yet "
+                "(ROADMAP queue 1, multi-GPU)")
         self.flags = flags
         self.dtype = common.dtype_of(self.cfg.dtype)
         self.segments = segments_of(list(self.cfg.blocks()))
         self.num_exit_points = sum(reps for _, reps in self.segments)
+        self.shard = None               # ShardCtx of a sharded model
+
+    def with_shard(self, shard) -> "Model":
+        """This model over a mesh's shards (``sharding.ctx.ShardCtx``; None
+        unsharded): the same config and flags, its attention cache entries
+        built as ``Shards`` of each shard's KV heads. The layers read the
+        split from the params they are given."""
+        m = copy.copy(self)
+        m.shard = shard
+        return m
 
     # ----- init -----
     def init(self, gen: Union[torch.Generator, int],
@@ -470,7 +572,26 @@ class Model:
 
     # ----- embedding / head -----
     def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return common.embed_tokens(params["embed"], tokens, self.dtype)
+        """Token embeddings; a sharded table is vocab-parallel (a masked
+        lookup per vocabulary slice plus a reduce onto the tokens' device:
+        one slice owns each id, so the sum is the lookup) or, for an odd
+        vocabulary split on D, each slice's columns concatenated."""
+        tok = params["embed"]["tok"]
+        if not isinstance(tok, Shards):
+            return common.embed_tokens(params["embed"], tokens, self.dtype)
+        if tok.dim == -1:
+            return torch.cat([common.embed_tokens(
+                {"tok": part}, tokens.to(part.device), self.dtype).to(
+                    tokens.device) for part in tok], dim=-1)
+        parts, c0 = [], 0
+        for part in tok:
+            ids = tokens.to(part.device).long() - c0
+            owned = (ids >= 0) & (ids < part.shape[0])
+            emb = part.to(self.dtype)[ids.clamp(0, part.shape[0] - 1)]
+            parts.append(torch.where(owned[..., None], emb,
+                                     torch.zeros_like(emb)))
+            c0 += part.shape[0]
+        return all_reduce_sum(parts, tokens.device)
 
     def final_norm(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         return common.apply_norm(self.cfg, params["final_norm"], h)
@@ -627,9 +748,14 @@ class Model:
                             elif entry[name] is not None:
                                 entry[name][r] = val
                         continue
-                    for name, val in _kv_vals(ce["k"], ce["v"],
-                                              self.flags.kv_quant).items():
-                        entry[name][r, :, :S] = val
+                    k = ce["k"]         # each shard's KV heads
+                    for s in (range(len(k)) if isinstance(k, Shards)
+                              else [None]):
+                        kv = local(ce, s)
+                        for name, val in _kv_vals(
+                                kv["k"], kv["v"],
+                                self.flags.kv_quant).items():
+                            local(entry, s)[name][r, :, :S] = val
             segs.append(seg_cache)
         if not decoder:
             return self.logits(params, h), None, {"h_final": h}
@@ -664,7 +790,20 @@ class Model:
                     "conv": torch.zeros((reps, batch, s.conv_kernel - 1,
                                          di + 2 * ds), dtype=self.dtype,
                                         device=device)}
-        shape = (reps, batch, max_seq, self.cfg.num_kv_heads,
+        if self.shard is not None:      # each shard's KV heads
+            P = self.shard.degree
+            per = [self._kv_entry(reps, batch, max_seq,
+                                  self.cfg.num_kv_heads // P, dev)
+                   for dev in self.shard.devices]
+            return {name: Shards([e[name] for e in per],
+                                 dim=-2 if name in ("k", "v") else -1)
+                    for name in per[0]}
+        return self._kv_entry(reps, batch, max_seq, self.cfg.num_kv_heads,
+                              device)
+
+    def _kv_entry(self, reps: int, batch: int, max_seq: int, kv_heads: int,
+                  device) -> Any:
+        shape = (reps, batch, max_seq, kv_heads,
                  self.cfg.resolved_head_dim())
         if not self.flags.kv_quant:
             return {name: torch.zeros(shape, dtype=self.dtype, device=device)
@@ -786,8 +925,12 @@ class Model:
         for i, _ in enumerate(unit):
             p = up[f"u{i}"]
             x = common.apply_norm(self.cfg, p["ln1"], h)
-            k, v = attn_lib.kv_only(self.cfg, p["attn"], x, positions)
-            _write_scratch(ce[f"u{i}"], {"k": k, "v": v}, scratch_off, pages)
+            for s, c, pa, xs in _shard_views(self.cfg, p["attn"], x):
+                dev = xs.device
+                k, v = attn_lib.kv_only(c, pa, xs, positions.to(dev))
+                _write_scratch(local(ce[f"u{i}"], s), {"k": k, "v": v},
+                               scratch_off,
+                               None if pages is None else pages.to(dev))
         return seg_cache
 
     def accept_tree_kv(self, cache: Any, accepted_nodes: torch.Tensor,
@@ -801,38 +944,39 @@ class Model:
         cache is dropped. Paged caches route through the table."""
         pages = cache.get("page_table")
         B, Dmax = accepted_nodes.shape
-        dev = pos0.device
-        rows = torch.arange(B, device=dev)
-        nodes = accepted_nodes.to(dev).long()
-        acc_len = accepted_len.to(dev)
-        pos0 = pos0.long()
-        for seg in cache["segments"]:
-            for sub in seg.values():
-                for x in sub.values():
-                    if pages is None:
-                        xf, cap = x, x.shape[2]
-                    else:
-                        ps = x.shape[2]
-                        xf = x.view((x.shape[0], x.shape[1] * ps)
-                                    + tuple(x.shape[3:]))
-                        cap = pages.shape[1] * ps
-                    for d in range(Dmax):
-                        node = nodes[:, d]
-                        dst = pos0 + d
-                        ok = (d < acc_len) & (node >= 0) & (dst < cap)
-                        src = scratch_off + node.clamp(min=0)
-                        dst = dst.clamp(max=cap - 1)
-                        if pages is not None:
-                            src = paged_lib.flat_slots(pages, ps, src)
-                            dst = paged_lib.flat_slots(pages, ps, dst)
-                            new = torch.where(ok[None, :, None, None],
-                                              xf[:, src], xf[:, dst])
-                            xf[:, dst] = new
-                        else:
-                            new = torch.where(ok[None, :, None, None],
-                                              xf[:, rows, src],
-                                              xf[:, rows, dst])
-                            xf[:, rows, dst] = new
+        leaves = [part for seg in cache["segments"] for sub in seg.values()
+                  for x in sub.values()
+                  for part in (x if isinstance(x, Shards) else [x])]
+        for x in leaves:                # a shard's part on its own device
+            dev = x.device
+            rows = torch.arange(B, device=dev)
+            nodes = accepted_nodes.to(dev).long()
+            acc_len = accepted_len.to(dev)
+            p0 = pos0.to(dev).long()
+            table = None if pages is None else pages.to(dev)
+            if table is None:
+                xf, cap = x, x.shape[2]
+            else:
+                ps = x.shape[2]
+                xf = x.view((x.shape[0], x.shape[1] * ps)
+                            + tuple(x.shape[3:]))
+                cap = table.shape[1] * ps
+            for d in range(Dmax):
+                node = nodes[:, d]
+                dst = p0 + d
+                ok = (d < acc_len) & (node >= 0) & (dst < cap)
+                src = scratch_off + node.clamp(min=0)
+                dst = dst.clamp(max=cap - 1)
+                if table is not None:
+                    src = paged_lib.flat_slots(table, ps, src)
+                    dst = paged_lib.flat_slots(table, ps, dst)
+                    new = torch.where(ok[None, :, None, None],
+                                      xf[:, src], xf[:, dst])
+                    xf[:, dst] = new
+                else:
+                    new = torch.where(ok[None, :, None, None],
+                                      xf[:, rows, src], xf[:, rows, dst])
+                    xf[:, rows, dst] = new
         return cache
 
     # ----- dense decode (baseline, no early exit) -----

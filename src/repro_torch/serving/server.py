@@ -61,10 +61,19 @@ attention call has one shape whoever occupies the slots.
 On a paged cache on a CUDA card the engine turns on the paged
 decode-attention kernel (``ModelFlags.decode_kernel``), as the JAX engine
 does on a TPU. The constructor takes the JAX engine's arguments in its
-order. The engine runs on one device: ``mesh`` and ``policy`` are refused
-with ``ValueError`` naming their ROADMAP item ("multi-GPU"), ``remesh``
-raises, and the ``device_lost`` site finds no surviving device, so it
-drains and raises ``ServingFault(site="device_lost")``.
+order.
+
+Tensor-parallel serving: ``mesh`` (a ``(1, P)``
+``repro_torch.launch.mesh.Mesh``) shards this engine's decode over P
+shards (``api.Engine``); data parallelism is one level up, in
+``serving.replica.ReplicaPool``. Elastic degraded mode: the ``device_lost``
+site drops the mesh's highest device between ticks and, when
+``plan_replica_remesh`` finds a degree over the survivors, ``remesh``
+rebuilds the engine in place from the engine's ``source`` (the whole
+params, kept once on the host under a mesh) and re-admits every
+unfinished request with verified replay; with no degree left (unsharded,
+or no device) it drains and raises ``ServingFault(site="device_lost")``,
+which a pool turns into kill-and-requeue.
 """
 from __future__ import annotations
 
@@ -79,6 +88,7 @@ from repro_torch.api import (CacheSpec, DecodeStrategy, DenseStrategy,
                              Engine, get_strategy)
 from repro_torch.api.scheduler import ChunkedPrefillScheduler
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.common import lm_head_weight
 from repro_torch.models.model import Model, build_model
 from repro_torch.runtime import faultinject
@@ -112,9 +122,6 @@ class Request:
         return self.replayed < self.replay_total
 
 
-_MULTI = "ROADMAP: multi-GPU"
-
-
 class ServingEngine:
     def __init__(self, model: Model, params, sw=None, specee: bool = True,
                  strategy: Union[str, DecodeStrategy, None] = None,
@@ -132,11 +139,6 @@ class ServingEngine:
                  backoff: Optional[Backoff] = None,
                  cooldown_ticks: int = 8, quant=None, mesh=None,
                  policy: str = "tp_dp", fault_log_cap: int = 256):
-        for name, value, idle in (("mesh", mesh, None),
-                                  ("policy", policy, "tp_dp")):
-            if value != idle:
-                raise ValueError(f"{name}={value!r} is not ported yet "
-                                 f"({_MULTI})")
         if megatick < 1:
             raise ValueError(f"megatick must be >= 1, got {megatick}")
         self.megatick = int(megatick)
@@ -162,8 +164,9 @@ class ServingEngine:
                                         exit_gate_kernel=bool(fused_gate))
         # paged serving pairs with the page-table decode kernel on the card;
         # on the CPU the wrapper would run its plain version anyway
-        if (spec.kind == "paged" and not flags.decode_kernel
-                and lm_head_weight(params).device.type == "cuda"):
+        on_card = (mesh.flat[0] if mesh is not None
+                   else lm_head_weight(params).device).type == "cuda"
+        if spec.kind == "paged" and not flags.decode_kernel and on_card:
             flags = dataclasses.replace(flags, decode_kernel=True)
         if flags is not model.flags:
             model = build_model(model.run, flags)
@@ -181,8 +184,15 @@ class ServingEngine:
         # ``quant``: None | "int8" | "int4" | QuantSpec — weight-only
         # compression applied once at engine build (a parallel bundle; the
         # fp params are untouched)
+        # ``mesh``: tensor-parallel decode for THIS engine
         self.engine = Engine.create(model, params, sw=sw,
-                                    strategy=self.strategy, quant=quant)
+                                    strategy=self.strategy, quant=quant,
+                                    mesh=mesh, policy=policy)
+        # a device-loss rebuild cuts its weights from the engine's
+        # ``source`` (the whole tree, on the host under a mesh) — no
+        # checkpoint round trip
+        self._src_quant, self._src_policy = quant, policy
+        self._src_seed = prng_seed
         B = self.serve_cfg.max_batch
         S = self.serve_cfg.max_seq_len
         self.B, self.S = B, S
@@ -220,8 +230,10 @@ class ServingEngine:
 
     @property
     def tp_degree(self) -> int:
-        """Tensor-parallel degree: 1, the port's engine is unsharded."""
-        return 1
+        """Current tensor-parallel degree (1 = unsharded; drops on
+        remesh)."""
+        shard = self.engine.shard
+        return shard.degree if shard is not None else 1
 
     # ----- request intake -----
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
@@ -511,32 +523,90 @@ class ServingEngine:
         self._evict(row, self.slots[row], reason="pool_pressure")
         self.scheduler.deferred_ticks = 0
 
-    # ----- device loss -----
+    # ----- elastic remesh on device loss -----
     def remesh(self, mesh, site: str = "device_lost",
                detail: str = "") -> None:
-        """Rebuilding onto another mesh needs more than one device."""
-        raise NotImplementedError(f"remesh is not ported yet ({_MULTI})")
+        """Rebuild the decode stack on ``mesh`` (None = unsharded, on the
+        current lead device) and re-admit every unfinished request with
+        verified replay.
+
+        The in-flight megatick drains first, so its tokens land in each
+        request's record before ``replay_total`` freezes; the chunked
+        admission aborts back to the queue; a fresh ``Engine`` cuts the
+        old one's ``source`` (the whole tree, kept on the host under a
+        mesh) for the new mesh and a fresh session builds its pools per
+        shard. Decode is deterministic and sharded equals
+        unsharded, so replay verifies the recorded tokens and the degraded
+        engine's output equals the healthy run's; stats recorded before
+        the remesh stay on the request and replay ticks add none."""
+        finished: List[Request] = []
+        self._drain(finished)
+        self.completed.extend(finished)
+        self.scheduler.abort_active()
+        chunk = self.scheduler.chunk_tokens
+        pending: List[Request] = [
+            req for req in self.slots if req is not None and not req.done]
+        pending.extend(self._inflight[uid] for uid in self.scheduler.queued)
+        # re-admission in uid order, whichever rows held them at the loss
+        pending.sort(key=lambda r: r.uid)
+        old_tp = self.tp_degree
+        params, sw = self.engine.source
+        if mesh is None:
+            mesh = make_mesh([self.engine.device], 1, 1)
+        # the old engine's shards and pools go before the new ones exist
+        self.engine = self.session = self.scheduler = None
+        self.engine = Engine.create(self.model, params, sw=sw,
+                                    strategy=self.strategy,
+                                    quant=self._src_quant, mesh=mesh,
+                                    policy=self._src_policy)
+        self.session = self.engine.new_session(batch=self.B, max_seq=self.S,
+                                               prng_seed=self._src_seed,
+                                               cache=self.cache_spec)
+        self.scheduler = ChunkedPrefillScheduler(self.session,
+                                                 chunk_tokens=chunk)
+        self.slots = [None] * self.B
+        self._inflight = {}
+        self._handle = None
+        for req in pending:
+            req.replay_total = len(req.output)
+            req.replayed = 0
+            self._inflight[req.uid] = req
+            self.scheduler.submit(req.uid, req.prompt,
+                                  max_new_tokens=req.max_new_tokens,
+                                  eos_token=req.eos_token)
+        self.fault_log.append(FaultEvent(
+            site=site, tick=self._tick, action="remesh",
+            detail=f"tp {old_tp}->{self.tp_degree} "
+                   f"readmitted={len(pending)}"
+                   + (f"; {detail}" if detail else "")))
 
     def _maybe_device_loss(self) -> None:
-        """The ``device_lost`` site. The engine runs on one device, so no
-        device survives the loss and ``plan_replica_remesh`` finds no
-        degree: drain what can be drained and raise
-        ``ServingFault(site="device_lost")``, as the JAX engine does
-        unsharded."""
+        """The ``device_lost`` site: drop the HIGHEST device of this
+        engine's mesh between ticks. With a degree over the survivors
+        (``plan_replica_remesh``) the engine remeshes in place; with none
+        (already unsharded, or no device left) it drains what it can and
+        raises ``ServingFault(site="device_lost")`` — terminal alone, the
+        kill-and-requeue fallback under a ``ReplicaPool``."""
         if not faultinject.fire("device_lost"):
             return
-        surviving = 0
-        new_tp = plan_replica_remesh(surviving, self.tp_degree)
-        assert new_tp is None, new_tp
-        self.drain()
-        self.fault_log.append(FaultEvent(
-            site="device_lost", tick=self._tick, action="give_up",
-            detail=f"no factorization over {surviving} surviving "
-                   f"devices (tp={self.tp_degree})"))
-        raise ServingFault(
-            "device_lost",
-            f"device lost with no valid remesh (tp={self.tp_degree}, "
-            f"surviving={surviving})")
+        mesh = self.engine.mesh
+        devices = (mesh.flat if mesh is not None
+                   and self.engine.shard is not None else [])
+        lost = devices[-1] if devices else None
+        surviving = devices[:-1]
+        new_tp = plan_replica_remesh(len(surviving), self.tp_degree)
+        if new_tp is None:
+            self.drain()
+            self.fault_log.append(FaultEvent(
+                site="device_lost", tick=self._tick, action="give_up",
+                detail=f"no factorization over {len(surviving)} surviving "
+                       f"devices (tp={self.tp_degree})"))
+            raise ServingFault(
+                "device_lost",
+                f"device lost with no valid remesh (tp={self.tp_degree}, "
+                f"surviving={len(surviving)})")
+        self.remesh(make_mesh(surviving[:new_tp], 1, new_tp),
+                    detail=f"lost={lost}")
 
     def cancel(self, uid: int) -> bool:
         """Withdraw an unfinished request: drop it from the queue or the
@@ -621,7 +691,8 @@ class ServingEngine:
         the next ``step()`` continues the saved run token-identically."""
         assert self.ckpt is not None, \
             "restore_checkpoint() needs checkpoint_dir"
-        hit = self.ckpt.restore_latest(like={"state": self.session._state})
+        hit = self.ckpt.restore_latest(
+            like={"state": self.engine.unshard_state(self.session._state)})
         if hit is None:
             return False
         step, tree, extra = hit

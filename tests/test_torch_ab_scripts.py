@@ -48,7 +48,8 @@ def test_count_hmma_by_function():
                                     "probe_predictor_mlp_q",
                                     "ab_predictor_mlp", "probe_ssd_chunk",
                                     "probe_megatick",
-                                    "probe_trained_bundle", "probe_replay"])
+                                    "probe_trained_bundle", "probe_replay",
+                                    "probe_tp"])
 def test_ab_script_refuses_without_a_card(script, monkeypatch, capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the script would run")

@@ -392,13 +392,21 @@ def test_adopt_replays_recorded_tokens_matches_jax(pkgs):
 
 
 def test_one_device_only(pkgs):
-    """The port's engine is unsharded: ``tp_degree`` is 1, ``remesh`` and
-    a mesh are refused naming "multi-GPU"."""
-    _, T = pkgs
+    """Unsharded, ``tp_degree`` is 1 on both packages; ``remesh`` onto a
+    (1, 2) mesh of repeated CPU devices and back to one device is taken
+    (the remesh tests are ``tests/test_torch_replica.py`` and
+    ``tests/test_torch_remesh.py``), each logging its degrees."""
+    from repro_torch.launch.mesh import make_host_mesh
+    J, T = pkgs
     se = tserving.ServingEngine(T.m, T.params, T.sw)
+    jse = jserving.ServingEngine(J.m, J.params, J.sw)
+    assert se.tp_degree == jse.tp_degree == 1
+    se.remesh(make_host_mesh(1, 2, "cpu"), site="test")
+    assert se.tp_degree == 2
+    se.remesh(None, site="test")
     assert se.tp_degree == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP: multi-GPU"):
-        se.remesh(None)
+    assert [e.detail for e in se.fault_log] == [
+        "tp 1->2 readmitted=0", "tp 2->1 readmitted=0"]
 
 
 # ---------------- the launcher's fault flags, on the CPU ----------------

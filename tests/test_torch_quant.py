@@ -45,6 +45,17 @@ from repro_torch.kernels.spec_head import ops as sh_ops  # noqa: E402
 from repro_torch.models.model import ModelFlags, build_model  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The smoke config's ops are tiny: one intra-op thread, so that the
+    test run's parallel workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VTOL = dict(atol=1e-5, rtol=1e-5)
 KERNEL_FLAGS = dict(spec_head_kernel=True, exit_gate_kernel=True,
                     exit_gate_impl="kernel")

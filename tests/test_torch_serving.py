@@ -26,6 +26,16 @@ from repro_torch.models.model import ModelFlags, build_model  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The smoke config's ops are tiny: one intra-op thread, so that the
+    test run's parallel workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     run_j = jax_get_config("llama2-7b").smoke()
@@ -189,8 +199,11 @@ def test_flash_flag_gives_same_tokens(setup):
 
 
 def test_serving_raises_on_what_is_not_ported(setup, tmp_path):
-    """No silent degradation: a mesh raises ValueError naming its ROADMAP
-    item ("multi-GPU"). The fault-tolerance arguments and an oversubscribed
+    """No silent degradation: a mesh this slice does not shard (DATA > 1,
+    the training policy, a MoE model) raises ValueError naming its ROADMAP
+    item ("multi-GPU"); a (1, 2) mesh serves at tensor-parallel degree 2,
+    and ``policy`` without a mesh is ignored, as JAX ignores it. The
+    fault-tolerance arguments and an oversubscribed
     pool (JAX evicts) are taken as JAX takes them. Megaticks and async
     ticks are taken, with JAX's default (``async_ticks`` on when
     ``megatick > 1``) and its refusal of ``megatick < 1``; sampling (JAX's
@@ -239,9 +252,20 @@ def test_serving_raises_on_what_is_not_ported(setup, tmp_path):
         assert seen(se) == seen(jse), kw
         se.close()
         jse.close()
-    for kw in (dict(mesh=object()), dict(policy="fsdp")):
+    from repro_torch.launch.mesh import make_host_mesh
+    for kw in (dict(mesh=make_host_mesh(2, 1, "cpu")),
+               dict(mesh=make_host_mesh(1, 2, "cpu"), policy="fsdp_tp")):
         with pytest.raises(ValueError, match="ROADMAP: multi-GPU"):
             ServingEngine(m, params, sw, **kw)
+    moe = build_model(get_config("dbrx-132b").smoke())
+    with pytest.raises(ValueError, match="ROADMAP: multi-GPU"):
+        ServingEngine(moe, {}, None, specee=False,
+                      mesh=make_host_mesh(1, 2, "cpu"))
+    se = ServingEngine(m, params, sw, mesh=make_host_mesh(1, 2, "cpu"))
+    assert se.tp_degree == 2
+    assert (ServingEngine(m, params, sw, policy="fsdp").tp_degree
+            == JServingEngine(m_j, params_j, sw_j, policy="fsdp").tp_degree
+            == 1)
     sampled = build_model(dataclasses.replace(
         run, serve=dataclasses.replace(run.serve, greedy=False)))
     run_j = jax_get_config("llama2-7b").smoke()

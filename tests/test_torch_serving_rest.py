@@ -173,15 +173,24 @@ def test_launcher_ci_on_cpu(mode, capsys):
     (["--fault-log", "log.jsonl"], "fault tolerance"),
     (["--mesh", "1,2"], "multi-GPU"),
     (["--replicas", "2"], "multi-GPU")])
-def test_launcher_refusals_name_their_roadmap_item(argv, item):
-    """Only the multi-GPU flags are refused, naming their ROADMAP item; the
-    fault-tolerance flags (``item`` "fault tolerance") are taken, as JAX's
-    launcher takes them (``tests/test_torch_fault_serving.py`` runs
-    them)."""
+def test_launcher_refusals_name_their_roadmap_item(argv, item, capsys):
+    """The fault-tolerance flags (``item`` "fault tolerance") and the
+    multi-GPU ones are taken, as JAX's launcher takes them
+    (``tests/test_torch_fault_serving.py`` and
+    ``tests/test_torch_tp_decode.py`` run them); what JAX's launcher
+    refuses stays refused: ``--mesh`` with DATA > 1, and ``--replicas``
+    beside the single-engine fault paths."""
     base = ["--smoke", "--device", "cpu"]
     if item == "multi-GPU":
-        with pytest.raises(SystemExit, match=f"ROADMAP: {item}"):
-            launch_serve.parse_args(base + argv)
+        args = launch_serve.parse_args(base + argv)
+        assert (args.model_par, args.replicas) == (
+            (2, 1) if argv[0] == "--mesh" else (1, 2))
+        bad = (["--mesh", "2,1"] if argv[0] == "--mesh"
+               else argv + ["--inject", "dispatch"])
+        with pytest.raises(SystemExit):
+            launch_serve.parse_args(base + bad)
+        assert ("DATA must be 1" if argv[0] == "--mesh"
+                else "in-pool failover") in capsys.readouterr().err
         return
     extra = ["--checkpoint-dir", "ck"] if argv == ["--restore"] else []
     args = launch_serve.parse_args(base + argv + extra)
@@ -194,7 +203,7 @@ def test_launcher_argument_rules(capsys):
     workload; ``--num-pages`` needs the paged cache and may be below the
     batch's rows (the engine evicts), ``--restore`` needs
     ``--checkpoint-dir`` (as in JAX), and ``--inject device_lost`` needs a
-    mesh to lose a device from, so it is refused naming "multi-GPU"."""
+    mesh to lose a device from (JAX's refusal)."""
     with pytest.raises(SystemExit):
         launch_serve.parse_args(["--temperature", "0.5"])
     capsys.readouterr()
@@ -207,5 +216,9 @@ def test_launcher_argument_rules(capsys):
         with pytest.raises(SystemExit):
             launch_serve.parse_args(argv)
     capsys.readouterr()
-    with pytest.raises(SystemExit, match="ROADMAP: multi-GPU"):
+    with pytest.raises(SystemExit):
         launch_serve.parse_args(["--inject", "device_lost"])
+    assert "needs a tensor-parallel mesh" in capsys.readouterr().err
+    args = launch_serve.parse_args(["--inject", "device_lost",
+                                    "--mesh", "1,2"])
+    assert (args.inject, args.model_par) == ("device_lost", 2)

@@ -40,6 +40,17 @@ from repro_torch.optim import make_schedule  # noqa: E402
 from repro_torch.optim.adamw import clip_by_global_norm  # noqa: E402
 from repro_torch.train import TrainLoop, make_train_step  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The smoke config's ops are tiny: one intra-op thread, so that the
+    test run's parallel workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GTOL = dict(rtol=1e-4, atol=1e-6)
 
 
