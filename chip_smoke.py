@@ -17,9 +17,11 @@ serves sampled requests, cancels requests, prefills a long prompt
 through chunked attention and runs the serving launcher, and runs the MoE
 (DBRX, Qwen3-MoE), RG-LRU hybrid (RecurrentGemma) and frontend (InternVL2,
 HuBERT) configs, and serves through injected faults, evictions from an
-oversubscribed pool and a checkpoint restored into a fresh engine, and
+oversubscribed pool and a checkpoint restored into a fresh engine,
 serves tensor-parallel over a (1, P) mesh whose shards share the card,
-through a device loss and a replica pool.
+through a device loss and a replica pool, and serves every other family
+(MoE, Mamba2, the RG-LRU hybrid, the VLM and the encoder) over such a
+mesh.
 
     python3 chip_smoke.py
 
@@ -76,8 +78,9 @@ Phases (lines ``[phase +seconds since the start] ...``):
      its bound in 32-byte sectors; and the host time per call of the fp
      and the quantized gate (fused and piecewise) and verify entry points;
      then the SSD intra-chunk
-     kernel (ssd_chunk: fp32 and bf16 B/C, c 32/40/64, d_state 16/128,
-     head dim 32/48/64, 1/8/32 cells, decay steep enough that exp(cum_t - cum_s)
+     kernel (ssd_chunk: fp32 and bf16 B/C, 24, 12 and 6 heads (mamba2-130m
+     and its P = 2 and P = 4 shards), c 32/40/64, d_state 16/128, head dim
+     32/48/64, 1/8/32 cells, decay steep enough that exp(cum_t - cum_s)
      overflows for s > t) against its plain version, timed at a 512-token
      mamba2-130m admission beside a yardstick (bmm + batched product), and
      the gate and verify kernels at mamba2's D=768, V=50280 on a tied head
@@ -93,9 +96,13 @@ Phases (lines ``[phase +seconds since the start] ...``):
      of 128, 64 over 4 of 64 and 16 over 1 of 256 (fp32 and bf16, windows
      None/64/300), timed at 150 of 162 and 2150 of 2240 slots (dense; the
      MQA shape under its 2048-key window) and a serve tick (paged) beside
-     SDPA; flash at hd 256 (16 over 1 heads, S = 2112, windows
-     None/64/2048) timed beside SDPA with the same mask, and at 48 over 8
-     of 128 and 64 over 4 of 64;
+     SDPA, and the same at 8 and 4 over 1 of 256 (a P = 2 and a P = 4
+     shard of recurrentgemma-9b, phase 17); checked, not timed, at phase
+     17's other shards: 24 over 4 and 12 over 2 of 128 (dbrx-132b and
+     internvl2-26b at P = 2, 4), 16 over 1 of 64 (qwen3-moe at P = 4);
+     flash at hd 256 (16 over 1
+     heads, S = 2112, windows None/64/2048) timed beside SDPA with the same
+     mask, and at 48 over 8 of 128 and 64 over 4 of 64;
   3. parity — llama2-7b at full width, 4 layers, fp32, seeded weights:
      Engine.create → new_session → prefill(4 prompts) → step x 8 at
      thresholds 1.5, 0.4, -0.1, with the kernels and with the plain
@@ -212,10 +219,11 @@ Phases (lines ``[phase +seconds since the start] ...``):
  12. dense — the dense-family configs, seeded bf16, one model at a time:
      first each at published widths, 2 layers, fp32, SpecEE (threshold
      0.4) on dense and paged caches and tree decoding with every kernel
-     against the plain paths (tokens and exit points identical); then
-     llama2-13b at published size (AR whole-batch B=4, prompt 128, 32
-     steps; tree, 8 steps; phase 5's 16 requests, 16 new tokens each,
-     served on the paged cache), starcoder2-15b (48 heads over 4 KV heads: n_rep 12 in the
+     against the plain paths (tokens and exit points identical); then, at
+     published widths and 16 layers, llama2-13b (AR whole-batch B=4,
+     prompt 128, 32 steps; tree, 8 steps; phase 5's 16 requests, 16 new
+     tokens each, served on the paged cache), starcoder2-15b (48 heads
+     over 4 KV heads: n_rep 12 in the
      dense, paged and int8 paged attention kernels; AR, serving, kv_quant
      serving, AR with an int8 head and predictors), deepseek-7b (AR,
      V=102400), minicpm-2b (odd V=122753, hd 64, tied: AR, tree, int8
@@ -227,7 +235,7 @@ Phases (lines ``[phase +seconds since the start] ...``):
      sampled whole-batch decode (DenseStrategy(temperature=0.8,
      top_k=50)), megaticks of 4 equal to single steps, and the sampler on
      the card against the CPU's on the same logits and keys; sampled
-     serving of the 16 requests, 16 new tokens each (the same seed
+     serving of 8 of the 16 requests, 16 new tokens each (the same seed
      replays, another differs, megatick=4 equals the per-tick run); cancel of 4 of the 16
      greedy requests (one queued, one mid chunked admission, two slotted):
      every page freed, ``completed`` in finish order, the other 12 against
@@ -238,7 +246,7 @@ Phases (lines ``[phase +seconds since the start] ...``):
      --temperature 0.8, three subprocesses at once;
  14. newfam — the new families, seeded bf16, one model at a time, each
      freed before the next: dbrx-132b and qwen3-moe-235b-a22b at published
-     widths, 8 of their 40 and 94 layers (AR SpecEE B=4, 32 steps, with
+     widths, 4 of their 40 and 94 layers (AR SpecEE B=4, 32 steps, with
      moe_impl "dense" and again "topk": equal tokens, or each differing
      row's top-2 margin at a near-tie; paged serving of 8 requests, 16 new
      tokens each; tree, 8 steps); recurrentgemma-9b at published size (AR
@@ -295,7 +303,27 @@ Phases (lines ``[phase +seconds since the start] ...``):
      param tree, device_lost in a replica: kill, requeue and replay give
      one engine's fault-free outputs. Each of tp_decode, tp_remesh,
      tp_full and tp_pool is a main path;
- 17. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
+ 17. tpfam — tensor-parallel serving of the remaining families, every
+     shard on the one card, each model fp32 and freed before the next; its
+     P = 1 runs on the card, then its weights moved to the host and the
+     card's copy freed before P = 2 and 4, whose tokens, exit points and
+     units_run must equal P = 1's and whose peak card memory must stay
+     under 1.5x the weights (mamba2-130m alone, whose P = 1 runs already
+     hold more than half its weights again in activations and workspaces:
+     under 1.5x the weights plus what P = 1 held beyond them): mamba2-130m
+     at published size (SpecEE B=4,
+     8 steps, at P = 1, 2, 4, ssd_chunk once per layer and shard a
+     prefill; ServingEngine(mesh=P2), 8 requests); recurrentgemma-9b's
+     widths at 3 layers (rglru, rglru, local attention; rows of 128-300
+     prompt tokens; SpecEE on dense and paged caches at P = 1, 2, 4: the
+     decode kernels at 8 and 4 heads over one of 256; the int8 KV cache
+     at P = 2); dbrx-132b's widths at 1 layer, both MoE forms, P = 1, 2,
+     4; qwen3-moe's at 1 layer, top-k, paged, P = 4; internvl2-26b's at 4
+     layers, dense decode over 256 patches, P = 2, 4; hubert-xlarge at
+     published size, frame logits at P = 2, 4 against P = 1's (max
+     |diff| logged). Each family's run at each degree is a main path
+     (``tpfam_*``);
+ 18. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
@@ -303,7 +331,7 @@ token per step (one emitted token per tree step), so the tree runs of
 phases 3 to 10 measure the mechanism's cost, not its gain; phase 11's
 trained bundles are the ones that exit and accept.
 
-Each main path (phases 4 to 16, each run on its own) zeroes the
+Each main path (phases 4 to 17, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -311,6 +339,7 @@ beside this file, it fails at once.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -3424,19 +3453,29 @@ def check_dense_family_kernels(torch, dev):
 # ---------------------------------------------------------------------------
 # phase 2 (continued): the MoE, hybrid and VLM configs' head shapes
 # ---------------------------------------------------------------------------
-# (label, query heads, KV heads, head dim) of the attention shapes phase 14
-# decodes with: n_rep 6 at 128, 16 at 64 and 16 at 256 (MQA), each a new
-# instance of the three split-KV kernels
+# (label, query heads, KV heads, head dim) of the attention shapes phases
+# 14 and 17 decode with: n_rep 6 at 128, 16 at 64 and 16 at 256 (MQA), and
+# a tensor-parallel shard of recurrentgemma-9b's at P = 2 and 4 (8 and 4
+# heads over its one KV head of 256), each an instance of the three
+# split-KV kernels
 NF_HEADS = (("dbrx-132b / internvl2-26b", 48, 8, 128),
             ("qwen3-moe-235b-a22b", 64, 4, 64),
-            ("recurrentgemma-9b", 16, 1, 256))
+            ("recurrentgemma-9b", 16, 1, 256),
+            ("recurrentgemma-9b, a P = 2 shard", 8, 1, 256),
+            ("recurrentgemma-9b, a P = 4 shard", 4, 1, 256))
+# the other shards phase 17 decodes with: the same instances over fewer KV
+# heads, so fewer CTAs and other splits; checked, not timed
+TP_SHARD_HEADS = (("dbrx-132b / internvl2-26b, a P = 2 shard", 24, 4, 128),
+                  ("dbrx-132b / internvl2-26b, a P = 4 shard", 12, 2, 128),
+                  ("qwen3-moe-235b-a22b, a P = 4 shard", 16, 1, 64))
 RG_WINDOW = 2048             # recurrentgemma-9b's local attention window
 RG_PROMPT = 2112             # phase 14's hybrid prompt: past the window
 
 
 def check_new_family_kernels(torch, dev):
     """Phase 2 at the new families' shapes. (1) The dense, paged and int8
-    paged attention kernels at each of NF_HEADS: fp32 and bf16 against
+    paged attention kernels at each of NF_HEADS and TP_SHARD_HEADS: fp32
+    and bf16 against
     their plain versions (windows None/64/300, rows of one and of several
     splits, a retired paged row; the MQA rows cut by the fill rule), then
     bf16 timings at 150 live keys of 162 slots (a whole-batch decode step)
@@ -3478,8 +3517,8 @@ def check_new_family_kernels(torch, dev):
         c = _paged_q_case(torch, dev, rnd, dt, 32, lens, KVH, seed, H, hd)
         return c[:5], dict(k_scale=c[5], v_scale=c[6])
 
-    # ---- (1) correctness at each new (n_rep, hd) ----
-    for label, H, KVH, hd in NF_HEADS:
+    # ---- (1) correctness at each new (n_rep, hd) and each shard ----
+    for label, H, KVH, hd in NF_HEADS + TP_SHARD_HEADS:
         for dt in (torch.float32, torch.bfloat16):
             rtol = 1e-4 if dt == torch.float32 else 2.0 ** -7
             for S, lens in ((162, [150, 150, 1, 77]),
@@ -3674,22 +3713,24 @@ def check_ssd_kernel(torch, dev):
         return (torch.randn(shape, generator=gen, device=dev) * scale
                 ).to(dtype)
 
-    def inputs(cells, c, hd, ds, bc_dtype, steep):
-        cum = -torch.cumsum(torch.rand((cells, c, M_NH), generator=gen,
+    def inputs(cells, c, hd, ds, bc_dtype, steep, nh=M_NH):
+        cum = -torch.cumsum(torch.rand((cells, c, nh), generator=gen,
                                        device=dev) * steep, dim=1)
-        return (rnd((cells, c, M_NH, hd)), cum,
+        return (rnd((cells, c, nh, hd)), cum,
                 rnd((cells, c, ds), bc_dtype, ds ** -0.25),
                 rnd((cells, c, ds), bc_dtype, ds ** -0.25))
 
     # fp32 accumulation of the same (upcast) inputs in another order:
-    # atol = rtol = 1e-4
+    # atol = rtol = 1e-4; mamba2-130m's 24 heads and a P = 2 and P = 4
+    # shard's 12 and 6 (phase 17)
     err, cases = 0.0, 0
-    for bc in (torch.float32, torch.bfloat16):
+    for bc, nh in itertools.product((torch.float32, torch.bfloat16),
+                                    (M_NH, M_NH // 2, M_NH // 4)):
         for c, ds, hd in ((32, 16, 32), (64, 128, 64), (64, 16, 32),
                           (32, 128, 64), (40, 16, 48)):
             for cells in (1, 8, 32):
                 for steep in (1.0, 40.0):
-                    args = inputs(cells, c, hd, ds, bc, steep)
+                    args = inputs(cells, c, hd, ds, bc, steep, nh)
                     got, want = ssd_chunk_fwd(*args), ssd_chunk_ref(*args)
                     require(bool(torch.isfinite(got).all()),
                             f"ssd_chunk: non-finite output (c {c}, ds "
@@ -3699,9 +3740,10 @@ def check_ssd_kernel(torch, dev):
                     err = max(err, (got - want).abs().max().item())
                     cases += 1
     torch.cuda.synchronize()
-    log("kernels", f"ssd_chunk: {cases} cases (fp32/bf16 B,C; c 32/40/64; "
-        f"ds 16/128; hd 32/48/64; 1/8/32 cells; decay up to 40 per token) equal "
-        f"the plain version, max err {err:.3g}")
+    log("kernels", f"ssd_chunk: {cases} cases (fp32/bf16 B,C; {M_NH}/"
+        f"{M_NH // 2}/{M_NH // 4} heads; c 32/40/64; ds 16/128; hd 32/48/64; "
+        f"1/8/32 cells; decay up to 40 per token) equal the plain version, "
+        f"max err {err:.3g}")
 
     cells, c = 8, M_CHUNK
     sets = [inputs(cells, c, M_HD, M_DS, torch.bfloat16, 1.0)
@@ -4550,18 +4592,20 @@ def trained_phase(torch, dev):
 # ---------------------------------------------------------------------------
 # phase 12: the dense-family configs, seeded bf16, one model at a time
 # ---------------------------------------------------------------------------
-# (arch, layers: None = published depth, the runs): the models that fit
-# the card whole run at published size; llama2-70b (140 GB of bf16
-# weights) and command-r-plus-104b (208 GB) at published widths with their
+# (arch, layers, the runs): every config at published widths; the four
+# that fit the card whole (PERF.md keeps their published-size runs) at
+# DF_DEPTH layers since phase 17 took their time, llama2-70b
+# (140 GB of bf16 weights) and command-r-plus-104b (208 GB) with their
 # depth cut to what one card holds beside its runs. "int8_head_ar" keeps
 # the projections bf16 and makes the LM head and predictors int8: a 15B
 # model's bf16 params, its int8 codes and the dequantized projections the
 # quantized engine holds (ROADMAP queue 2, item 4) do not fit one card
-DF_RUNS = (("llama2-13b", None, ("ar", "tree", "serve")),
-           ("starcoder2-15b", None, ("ar", "serve", "kvq_serve",
-                                     "int8_head_ar")),
-           ("deepseek-7b", None, ("ar",)),
-           ("minicpm-2b", None, ("ar", "tree", "int8_ar")),
+DF_DEPTH = 16
+DF_RUNS = (("llama2-13b", DF_DEPTH, ("ar", "tree", "serve")),
+           ("starcoder2-15b", DF_DEPTH, ("ar", "serve", "kvq_serve",
+                                         "int8_head_ar")),
+           ("deepseek-7b", DF_DEPTH, ("ar",)),
+           ("minicpm-2b", DF_DEPTH, ("ar", "tree", "int8_ar")),
            ("llama2-70b", 8, ("ar", "serve")),
            ("command-r-plus-104b", 4, ("ar",)))
 DF_STEPS, DF_TREE_STEPS, DF_PARITY_NEW = 32, 8, 8
@@ -4762,7 +4806,7 @@ def dense_family_phase(torch, dev):
         depth = ("published size" if layers is None else
                  f"published widths, {layers} of its "
                  f"{df_config(name, None, 'bfloat16').model.num_layers} "
-                 "layers (the whole model does not fit one card)")
+                 "layers")
         log("dense", f"{name} ({depth}): {n_params / 1e9:.3f} B params, "
             f"{n_params * 2 / 1e9:.1f} GB in bf16, seeded in "
             f"{time.perf_counter() - t0:.1f} s; D={cfg.d_model}, "
@@ -4808,6 +4852,7 @@ def dense_family_phase(torch, dev):
 # ---------------------------------------------------------------------------
 SAMPLE_T, SAMPLE_K = 0.8, 50
 SAMPLE_NEW = 16               # new tokens a sampled serving request
+SAMPLE_REQS = 8               # sampled serving's requests (of phase 5's)
 SAMPLED_PATH = ("paged_decode_attention", "flash_attention")
 CHUNKED_PROMPT = 3000
 CANCEL_CHUNK = 256                 # admission chunk of the cancel run
@@ -4829,7 +4874,7 @@ def _sampled_serve(torch, params, sw, seed: int, megatick: int = 1):
     K.reset_launches()                     # ---- the main path ----
     t0 = time.perf_counter()
     reqs = [se.submit(p, max_new_tokens=SAMPLE_NEW)
-            for p in serve_prompts()]
+            for p in serve_prompts()[:SAMPLE_REQS]]
     se.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4929,12 +4974,13 @@ def serving_rest_phase(torch, dev):
     # which rows are beside it, nor on when megaticks admit it
     require(not differ_m4, f"sampled serving: megaticks of {MEGA_K} differ "
             f"from single ticks in requests {differ_m4}")
-    log("serve2", f"sampled serving, {SERVE_REQS} requests x {SAMPLE_NEW} "
-        f"tokens: {SERVE_REQS / wall_a:.3f} requests/s "
-        f"({SERVE_REQS * SAMPLE_NEW / wall_a:.2f} tokens/s), again "
-        f"{SERVE_REQS / wall_a2:.3f}; seed 0 replays token for token; seed "
-        f"1 differs in {n_diff} of {SERVE_REQS} requests; megatick="
-        f"{MEGA_K} (async) {SERVE_REQS / wall_m4:.3f} requests/s, every "
+    n = SAMPLE_REQS
+    log("serve2", f"sampled serving, {n} requests x {SAMPLE_NEW} "
+        f"tokens: {n / wall_a:.3f} requests/s "
+        f"({n * SAMPLE_NEW / wall_a:.2f} tokens/s), again "
+        f"{n / wall_a2:.3f}; seed 0 replays token for token; seed "
+        f"1 differs in {n_diff} of {n} requests; megatick="
+        f"{MEGA_K} (async) {n / wall_m4:.3f} requests/s, every "
         "request's tokens equal to the per-tick run's")
 
     # ---- cancel: one queued, one mid chunked admission, two slotted ----
@@ -5091,7 +5137,7 @@ FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
 # (name, layers or None for the published depth): DBRX's and Qwen3-MoE's
 # published widths with their depth cut to what one card holds beside its
 # runs (the whole models need multi-GPU: 264 and 470 GB of bf16 weights)
-NF_RUNS = (("dbrx-132b", 8), ("qwen3-moe-235b-a22b", 8),
+NF_RUNS = (("dbrx-132b", 4), ("qwen3-moe-235b-a22b", 4),
            ("recurrentgemma-9b", None), ("internvl2-26b", None),
            ("hubert-xlarge", None))
 NF_SERVE_REQS = 8             # requests of phase 14's serving runs
@@ -6028,6 +6074,305 @@ def tp_phase(torch, dev):
     return by_path, timing
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor-parallel serving of the remaining families
+# ---------------------------------------------------------------------------
+TPF_STEPS = 8                 # whole-batch decode steps of each run
+TPF_RG_LAYERS = 3             # one unit: rglru, rglru, local attention
+TPF_RG_PROMPTS = (128, 300, 211, 177)   # recurrentgemma's rows' prompts
+TPF_VLM_LAYERS = 4
+TPF_SERVE_REQS = 8            # mamba2's ServingEngine(mesh=P2) requests
+TPF_SERVE_NEW = 16
+TPF_MOE_PATH = ("decode_attention", "flash_attention", "exit_gate",
+                "argmax_verify", "topk_verify")
+TPF_RG_PATH = {2: TPF_MOE_PATH + ("paged_decode_attention",
+                                  "paged_decode_attention_q"),
+               4: TPF_MOE_PATH + ("paged_decode_attention",)}
+
+
+def _tpf_drive(model, params, sw, strategy, prompts, cache, mesh,
+               patches=None):
+    """A whole-batch session of TPF_STEPS steps on ``mesh`` (None: one
+    device): ``prompts`` (B, T) through ``prefill`` (with ``patches``
+    prepended) or a list of rows of any length through ``prefill_row``.
+    Returns each row's tokens and each step's exit points, exits and
+    units_run."""
+    from repro_torch.api import Engine
+    e = Engine.create(model, params, sw, strategy=strategy, mesh=mesh)
+    new = TPF_STEPS * e.emit_width + 1
+    if isinstance(prompts, list):
+        s = e.new_session(batch=len(prompts), cache=cache,
+                          max_seq=max(map(len, prompts)) + new + 2)
+        toks = [[s.prefill_row(b, p, max_new_tokens=new)]
+                for b, p in enumerate(prompts)]
+    else:
+        s = e.new_session(cache=cache)
+        batch, max_seq = prompts, None
+        if patches is not None:
+            batch = {"tokens": prompts, "patches": patches}
+            max_seq = patches.shape[1] + prompts.shape[1] + new + 2
+        first = s.prefill(batch, max_new_tokens=new, max_seq=max_seq)
+        toks = [list(first.row_tokens(b)) for b in range(first.batch)]
+    info = []
+    while not s.all_done():
+        r = s.step()
+        info.append((r.exit_layer.tolist(), r.exited.tolist(),
+                     int(r.units_run)))
+        for b in range(r.batch):
+            toks[b].extend(int(t) for t in r.row_tokens(b))
+    return toks, info
+
+
+def _tpf_serve(model, params, sw, mesh):
+    """mamba2's ServingEngine on the paged cache (its SSD rows per row):
+    TPF_SERVE_REQS of phase 5's prompt lengths, every request's tokens and
+    exit points, every page returned."""
+    prompts = serve_prompts(model.cfg.vocab_size)[:TPF_SERVE_REQS]
+    return _serve(model, params, sw, prompts, TPF_SERVE_NEW,
+                  strategy="specee", cache="paged", prefill_chunk=0,
+                  mesh=mesh)
+
+
+def _tpf_family(torch, dev, label, run, cases, degrees, path, seed=17,
+                check=None, small=False):
+    """One family at fp32: its weights seeded on the card, every case run
+    at P = 1 there, the weights moved to the host and the card's copy
+    freed, then each degree of ``degrees`` (every shard on cuda:0) with
+    its launch counts zeroed right before and read right after: each
+    case's tokens, exit points and units_run must equal P = 1's, the
+    path's kernels must launch (``path``: the kernels, or a dict of them
+    by degree) and the peak card memory stay under 1.5x the whole
+    weights: no whole copy beside the shards. A ``small`` model, whose
+    P = 1 runs already hold more than half its weights beyond them
+    (activations and the kernels' workspaces: mamba2-130m), is held under
+    1.5x its weights plus what its P = 1 runs held beyond them, which
+    still fails a whole extra copy. ``cases``: (name, model, strategy,
+    cache, prompts, patches, degrees or None: all); a "serve" strategy
+    runs ``_tpf_serve``. ``check(P, launches_after_case)`` adds a family's
+    checks. Returns the launches by path."""
+    import gc
+    from repro_torch import kernels as K
+    from repro_torch.models.common import tree_leaves, with_contiguous_head
+    from repro_torch.sharding.serving import to_host
+    t0 = time.perf_counter()
+    params, sw = _seeded(torch, dev, run, seed)
+    whole = sum(x.numel() * x.element_size() for x in tree_leaves(
+        (with_contiguous_head(params), sw)) if isinstance(x, torch.Tensor))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def go(case, p, s, mesh):
+        name, model, strategy, cache, prompts, patches, _ = case
+        if strategy == "serve":
+            return _tpf_serve(model, p, s, mesh)
+        if strategy == "dense":         # no draft, no predictors
+            s = None
+        return _tpf_drive(model, p, s, strategy, prompts, cache, mesh,
+                          patches)
+
+    ref = {c[0]: go(c, params, sw, None) for c in cases}
+    torch.cuda.synchronize()
+    over = max(0, torch.cuda.max_memory_allocated() - whole)  # beyond them
+    host = to_host(params), to_host(sw)
+    del params, sw
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    by_path, notes = {}, []
+    for P in degrees:
+        mine = [c for c in cases if c[6] is None or P in c[6]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        K.reset_launches()                 # ---- the main path ----
+        for c in mine:
+            got = go(c, *host, tp_mesh(P))
+            require(got == ref[c[0]], f"tpfam {label} {c[0]} at P={P} "
+                    "differs from P=1")
+            if check is not None:
+                check(P, c[0], dict(K.LAUNCHES))
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)        # ---- read right after ----
+        peak = torch.cuda.max_memory_allocated()
+        missing = [k for k in (path[P] if isinstance(path, dict) else path)
+                   if launches[k] == 0]
+        require(not missing, f"tpfam {label} P={P}: kernels never "
+                f"launched: {missing}")
+        limit = 1.5 * whole + (over if small else 0)
+        require(peak < limit, f"tpfam {label} P={P}: peak card memory "
+                f"{peak / 1e9:.2f} GB over its limit {limit / 1e9:.2f} GB "
+                f"({whole / 1e9:.2f} GB of weights, {over / 1e9:.2f} GB "
+                "beyond them at P=1)")
+        by_path[f"tpfam_{label}_p{P}"] = launches
+        notes.append(f"P={P}: {', '.join(c[0] for c in mine)} equal P=1 "
+                     f"in {time.perf_counter() - t1:.1f} s, peak "
+                     f"{peak / 1e9:.2f} GB (limit {limit / 1e9:.2f}); "
+                     "launches " + ", ".join(
+                         f"{k} {v}" for k, v in launches.items() if v))
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("tpfam", f"{label}: {whole / 1e9:.2f} GB of fp32 weights, P=1 "
+        f"references {t_ref:.1f} s holding {over / 1e9:.2f} GB beyond "
+        "them; " + "; ".join(notes))
+    return by_path
+
+
+def tpf_hubert(torch, dev):
+    """hubert-xlarge at published size, fp32: the frame logits of B x 512
+    frames at P = 2 and 4 (Engine.create(strategy="dense", mesh=) places
+    the encoder; Model.prefill over the engine's params) against P = 1's;
+    the maximum absolute difference logged and held within 1e-4 (fp32
+    sums in another order differ by a few 1e-6; a bf16 or a partly wrong
+    reduction by far more), the peak under 1.5x the weights. Bidirectional
+    attention takes no kernel. Returns the launches by path."""
+    import gc
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.api import Engine
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.sharding.serving import to_host
+    run = df_config("hubert-xlarge", None, "float32")
+    model = build_model(run, ModelFlags(**ALL_KERNELS))
+    params = model.init(torch.Generator(device=dev).manual_seed(12), dev)
+    whole = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    frames = torch.as_tensor(DataPipeline(run.model, B, HUBERT_S, seed=4)
+                             .next()["frames"], device=dev)
+    with torch.no_grad():
+        ref, _, _ = model.prefill(params, {"frames": frames})
+    torch.cuda.synchronize()
+    host = to_host(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path, notes = {}, []
+    top = float(ref.abs().max())
+    for P in TP_DEGREES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()                 # ---- the main path ----
+        e = Engine.create(model, host, None, strategy="dense",
+                          mesh=tp_mesh(P))
+        with torch.no_grad():
+            got, cache, _ = e.model.prefill(e.params, {"frames": frames})
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)        # ---- read right after ----
+        peak = torch.cuda.max_memory_allocated()
+        diff = float((got - ref).abs().max())
+        require(cache is None and got.shape == ref.shape and bool(
+            torch.isfinite(got).all()), f"tpfam hubert P={P}: frame logits")
+        require(diff <= 1e-4, f"tpfam hubert P={P}: frame logits differ "
+                f"from P=1 by {diff:.3g} (largest {top:.3g})")
+        require(peak < 1.5 * whole, f"tpfam hubert P={P}: peak "
+                f"{peak / 1e9:.2f} GB for {whole / 1e9:.2f} GB of weights")
+        by_path[f"tpfam_hubert-xlarge_p{P}"] = launches
+        notes.append(f"P={P} max |diff| {diff:.3g}, peak {peak / 1e9:.2f} "
+                     "GB")
+        del e, got
+        torch.cuda.empty_cache()
+    log("tpfam", f"hubert-xlarge (published size, fp32, {whole / 1e9:.2f} "
+        f"GB): frame logits {B}x{HUBERT_S} at P = 2, 4 against P = 1 "
+        f"(largest |logit| {top:.4g}): " + "; ".join(notes)
+        + f"; launches {sum(by_path[k][n] for k in by_path for n in by_path[k])}"
+        " (bidirectional attention takes no kernel)")
+    del host, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def tp_family_phase(torch, dev):
+    """Phase 17: tensor-parallel serving of the remaining families with
+    every shard on the one card, each model at fp32 and freed before the
+    next. Returns the launches by path."""
+    import dataclasses
+    import gc
+    import numpy as np
+    from repro_torch.api import SpecEEStrategy
+    from repro_torch.models.model import ModelFlags, build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("tpfam", card_line())
+    by_path = {}
+    rng = np.random.default_rng(170)
+
+    # mamba2-130m at published size: SpecEE (P = 1, 2, 4), serving (P = 2)
+    run = mamba(24, "float32", max_batch=SERVE_BATCH, max_seq_len=1024,
+                page_size=PAGE)
+    m = build_model(run, ModelFlags(**MAMBA_KERNELS))
+    prompts = rng.integers(0, M_V, (B, FULL_PROMPT))
+    n_ssd = {}
+
+    def ssd_once_per_shard(P, case, launches):
+        if case == "specee":            # one prefill: a launch per layer
+            n_ssd[P] = launches["ssd_chunk"]   # and shard
+            require(n_ssd[P] == 24 * P, f"tpfam mamba2 P={P}: ssd_chunk "
+                    f"launched {n_ssd[P]} times in a prefill, not 24 x {P}")
+
+    by_path.update(_tpf_family(
+        torch, dev, "mamba2-130m", run,
+        [("specee", m, SpecEEStrategy(), "dense", prompts, None, None),
+         ("serve", m, "serve", "paged", None, None, (2,))],
+        TP_DEGREES, MAMBA_PATH, check=ssd_once_per_shard, small=True))
+
+    # recurrentgemma-9b's widths, one unit of 3 layers: dense and paged
+    # caches, and the int8 KV cache at P = 2 (n_rep 8 and 4 at hd 256)
+    run = df_config("recurrentgemma-9b", None, "float32")
+    run = dataclasses.replace(run, model=dataclasses.replace(
+        run.model, num_layers=TPF_RG_LAYERS,
+        block_pattern=run.model.block_pattern[:TPF_RG_LAYERS]))
+    rows = [rng.integers(0, run.model.vocab_size, n) for n in TPF_RG_PROMPTS]
+    m = build_model(run, ModelFlags(**ALL_KERNELS))
+    mq = build_model(run, ModelFlags(**ALL_KERNELS, kv_quant=True))
+    by_path.update(_tpf_family(
+        torch, dev, "recurrentgemma-9b", run,
+        [("specee dense", m, SpecEEStrategy(), "dense", rows, None, None),
+         ("specee paged", m, SpecEEStrategy(), "paged", rows, None, None),
+         ("specee paged kv_quant", mq, SpecEEStrategy(), "paged", rows,
+          None, (2,))],
+        TP_DEGREES, TPF_RG_PATH))
+
+    # dbrx-132b's widths, one layer: both MoE forms
+    run = df_config("dbrx-132b", 1, "float32")
+    prompts = rng.integers(0, run.model.vocab_size, (B, FULL_PROMPT))
+    by_path.update(_tpf_family(
+        torch, dev, "dbrx-132b", run,
+        [(f"specee moe_impl={impl}", build_model(run, ModelFlags(
+            **ALL_KERNELS, moe_impl=impl)), SpecEEStrategy(), "dense",
+          prompts, None, None) for impl in ("dense", "topk")],
+        TP_DEGREES, TPF_MOE_PATH))
+
+    # qwen3-moe's widths, one layer, the top-k form at P = 4
+    run = df_config("qwen3-moe-235b-a22b", 1, "float32")
+    prompts = rng.integers(0, run.model.vocab_size, (B, FULL_PROMPT))
+    by_path.update(_tpf_family(
+        torch, dev, "qwen3-moe-235b-a22b", run,
+        [("specee moe_impl=topk", build_model(run, ModelFlags(
+            **ALL_KERNELS, moe_impl="topk")), SpecEEStrategy(), "paged",
+          prompts, None, None)],
+        (4,), TPF_MOE_PATH[1:] + ("paged_decode_attention",)))
+
+    # internvl2-26b's widths, 4 layers: dense decode over 256 patches
+    run = df_config("internvl2-26b", TPF_VLM_LAYERS, "float32")
+    prompts = rng.integers(0, run.model.vocab_size, (B, FULL_PROMPT))
+    patches = rng.standard_normal((B, NF_PATCHES, 1024)).astype(np.float32)
+    by_path.update(_tpf_family(
+        torch, dev, "internvl2-26b", run,
+        [("dense", build_model(run, ModelFlags(**ALL_KERNELS)), "dense",
+          "dense", prompts, patches, None)],
+        TP_DEGREES, VLM_PATH))
+
+    by_path.update(tpf_hubert(torch, dev))
+    log("tpfam", f"phase 17 took {time.perf_counter() - t0:.1f} s; every "
+        "shard on cuda:0 (no copy between cards made or measured)")
+    return by_path
+
+
 def profile_steps(torch, model, params, sw, prompts, step_s: float,
                   n: int = 4, phase: str = "profile") -> None:
     """torch.profiler over ``n`` more whole-batch SpecEE steps."""
@@ -6185,6 +6530,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp_launches, tp_timing = tp_phase(torch, dev)
     by_path.update(tp_launches)
+    torch.cuda.empty_cache()
+    by_path.update(tp_family_phase(torch, dev))
+    log("total", f"script {time.perf_counter() - T_START:.1f} s before the "
+        "kernels line")
 
     kernels = []
     for name in build.SOURCES:

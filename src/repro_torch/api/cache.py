@@ -14,13 +14,17 @@ them out of it.
   pages and zeroes its length, so an idle slot stops paying attention
   span.
 
-Under a mesh (a sharded model, ``Model.with_shard``) every attention
-entry's leaves are ``Shards`` of each shard's KV heads — the paged pools
-split on their KV-head dim, one pool per shard, and so do the int8 pools
-and their scales — while the page table, the lengths and every
-non-attention entry stay whole on the lead device, so admission and
-retirement edit rows without knowing the layout. ``partition_specs``
-describes that layout (JAX ``api/cache.py:164``, ``:297``).
+Under a mesh (a sharded model, ``Model.with_shard``) every entry's leaves
+are ``Shards``: an attention entry's of each shard's KV heads (a KV head
+on several shards where the degree exceeds the KV heads) — the paged
+pools split on their KV-head dim, one pool per shard, and so do the int8
+pools and their scales — an SSD entry's of each shard's heads and conv
+channels and an RG-LRU entry's of its W slice, per row as unsharded;
+the page table and the lengths stay whole on the lead device, so
+admission and retirement edit rows without knowing the layout.
+``partition_specs`` gives JAX's specs of the layout (JAX
+``api/cache.py:164``, ``:297``); the port's placement of replicated KV
+heads and SSD heads differs from them (``sharding/serving.py``).
 
 Allocation is by reservation: a row claims its full ``pages_per_row`` at
 admission and returns them at retirement, in the JAX package's order, so
@@ -40,7 +44,7 @@ from repro_torch.config import ATTN, LOCAL_ATTN
 from repro_torch.core import paged as paged_lib
 from repro_torch.models.common import tree_map
 from repro_torch.runtime import faultinject
-from repro_torch.sharding.ctx import Shards
+from repro_torch.sharding.ctx import Shards, parts, whole_size
 
 
 @dataclass(frozen=True)
@@ -85,8 +89,8 @@ def insert_row_pytree(big: Any, small: Any, row: int, batch: int) -> Any:
         return {k: insert_row_pytree(big[k], small[k], row, batch)
                 for k in big}
     if isinstance(big, Shards):
-        return Shards((insert_row_pytree(b, s, row, batch)
-                       for b, s in zip(big, small)), dim=big.dim)
+        return big.like(insert_row_pytree(b, s, row, batch)
+                        for b, s in zip(big, small))
     if isinstance(big, (list, tuple)):
         return type(big)(insert_row_pytree(b, s, row, batch)
                          for b, s in zip(big, small))
@@ -201,11 +205,12 @@ class KVCacheManager:
 
 
 def _whole_shape(x):
-    """The whole tensor's shape of a leaf (a ``Shards``' parts joined)."""
+    """The whole tensor's shape of a leaf (a ``Shards``' parts joined by
+    its segments, which every cache leaf carries)."""
     if not isinstance(x, Shards):
         return tuple(x.shape)
     shape = list(x[0].shape)
-    shape[x.dim] = sum(p.shape[x.dim] for p in x)
+    shape[x.dim] = whole_size(x.segs)
     return tuple(shape)
 
 
@@ -219,10 +224,6 @@ def _shape_tree(cache: Any) -> Any:
     if isinstance(cache, (list, tuple)):
         return type(cache)(_shape_tree(v) for v in cache)
     return cache
-
-
-def _parts(x) -> list:
-    return list(x) if isinstance(x, Shards) else [x]
 
 
 class DenseKVCache(KVCacheManager):
@@ -363,7 +364,7 @@ class PagedKVCache(KVCacheManager):
         dense leaves (reps, B, S, ...) or (S,) for one row's leaves
         (reps, S, ...)."""
         for name, pools in pool_entry.items():
-            for pool, dense in zip(_parts(pools), _parts(dense_entry[name])):
+            for pool, dense in zip(parts(pools), parts(dense_entry[name])):
                 flat = pool.view((pool.shape[0],
                                   pool.shape[1] * pool.shape[2])
                                  + tuple(pool.shape[3:]))

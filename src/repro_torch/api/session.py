@@ -59,7 +59,7 @@ token stays greedy.
 engine's checkpoints). The snapshot's tensors are the live ones, which the
 next step writes in place: ``CheckpointManager.save`` copies them to the
 host before it returns. Under a mesh the snapshot is the whole-tensor
-layout, each shard's KV heads gathered onto the lead device (a copy), and
+layout, each shard's part gathered onto the lead device (a copy), and
 ``restore`` places a snapshot on its own engine's mesh: a snapshot
 restores into an engine of another degree.
 
@@ -182,16 +182,15 @@ class Engine:
         return cls(model, params, sw=sw, strategy=strategy, quant=quant,
                    mesh=mesh, policy=policy)
 
-    def shard_state(self, state, cache_mgr=None):
+    def shard_state(self, state, like):
         """Place a whole-layout ``DecodeState`` on the engine's mesh (no-op
-        unsharded): the cache by its manager's ``partition_specs``, the
-        rest on the lead device. ``restore`` calls it, so a snapshot taken
-        at one degree restores at another."""
+        unsharded) in the layout of ``like``, a state of this engine (each
+        cache leaf cut as ``like``'s ``Shards`` is, the rest on the lead
+        device). ``restore`` calls it, so a snapshot taken at one degree
+        restores at another."""
         if self.shard is None:
             return state
-        specs = shard_serving.decode_state_specs(
-            self.model, self.mesh, self.policy, state, cache_mgr=cache_mgr)
-        return shard_serving.place(state, specs, self.shard)
+        return shard_serving.place_like(state, like, self.shard)
 
     def unshard_state(self, state):
         """The whole-tensor layout of a ``DecodeState`` (no-op unsharded):
@@ -529,7 +528,7 @@ class DecodeSession:
         device = self.engine.device
         self._state = self.engine.shard_state(tree_map(
             lambda x: (x.to(device) if isinstance(x, torch.Tensor) else x),
-            state_tree), self.cache_mgr)
+            state_tree), self._state)
         self._emitted = np.asarray(meta["emitted"], np.int64)
         self._budget = np.asarray(
             [_NO_BUDGET if b is None else int(b) for b in meta["budget"]],

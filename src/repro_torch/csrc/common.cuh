@@ -141,7 +141,8 @@ __device__ __forceinline__ void block_best(float& v, int& i, float* sv,
 // 12 at hd 128, StarCoder2-15B's 48 heads over 4 KV heads and Command R+'s
 // 96 over 8; n_rep 6 at hd 128, DBRX's and InternVL2's 48 over 8; n_rep 16
 // at hd 64, Qwen3-MoE's 64 over 4; n_rep 16 at hd 256, RecurrentGemma's 16
-// heads over one).
+// heads over one; n_rep 8 and 4 at hd 256, a tensor-parallel shard of
+// RecurrentGemma at P = 2 and 4: 8 or 4 query heads over its one KV head).
 template <template <typename, int, int> class LAUNCH, typename... Args>
 bool dispatch(int dtype, int n_rep, int hd, Args... args) {
 #define DA_CASE_E(T, R)                                              \
@@ -155,8 +156,12 @@ bool dispatch(int dtype, int n_rep, int hd, Args... args) {
   switch (n_rep) {                                                   \
     case 1: DA_CASE_E(T, 1)                                          \
     case 2: DA_CASE_E(T, 2)                                          \
-    case 4: DA_CASE_E(T, 4)                                          \
-    case 8: DA_CASE_E(T, 8)                                          \
+    case 4:                                                          \
+      if (hd == 256) { LAUNCH<T, 4, 8>::run(args...); return true; }  \
+      DA_CASE_E(T, 4)                                                \
+    case 8:                                                          \
+      if (hd == 256) { LAUNCH<T, 8, 8>::run(args...); return true; }  \
+      DA_CASE_E(T, 8)                                                \
     case 6:                                                          \
       if (hd != 128) return false;                                   \
       LAUNCH<T, 6, 4>::run(args...);                                 \

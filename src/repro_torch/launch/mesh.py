@@ -47,18 +47,25 @@ class Mesh:
 
 
 def _pool(device: Union[None, str, torch.device]) -> List[torch.device]:
+    """The devices slots cycle over: ``device`` alone when named, else
+    every card. Without a card and without a named device it raises: a
+    mesh never falls back to the CPU unasked (pass ``device="cpu"``)."""
     if device is not None:
         return [torch.device(device)]
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found for the mesh: pass device= (e.g. "
+            "device=\"cpu\", the launcher's --device cpu) to place every "
+            "shard on a named device")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def slots(n: int, device: Union[None, str, torch.device] = None
           ) -> List[torch.device]:
-    """``n`` device slots: slot ``i`` on ``cuda:(i mod device_count)`` (or
-    on ``device`` when given, or the CPU without a card)."""
+    """``n`` device slots: slot ``i`` on ``cuda:(i mod device_count)``, or
+    every slot on ``device`` when given (``_pool`` raises without a card
+    and without ``device``)."""
     pool = _pool(device)
     return [pool[i % len(pool)] for i in range(n)]
 

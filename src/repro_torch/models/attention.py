@@ -223,11 +223,31 @@ def attend_extend(cfg: ModelConfig, q, k_cache, v_cache, start_pos,
 def shard_cfg(cfg: ModelConfig, degree: int) -> ModelConfig:
     """The config one tensor-parallel shard of ``degree`` computes with:
     its own query and KV heads (``num_heads / degree``, ``num_kv_heads /
-    degree``) at the model's head_dim, so ``qkv``, the attention paths and
-    the kernels read a shard's slice as a whole model's."""
-    return dataclasses.replace(cfg, num_heads=cfg.num_heads // degree,
-                               num_kv_heads=cfg.num_kv_heads // degree,
-                               head_dim=cfg.resolved_head_dim())
+    degree``, or one whole KV head where the degree exceeds the KV heads:
+    ``sharding/serving.py`` gives each shard the KV head its query heads
+    read) at the model's head_dim, so ``qkv``, the attention paths and the
+    kernels read a shard's slice as a whole model's."""
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // degree,
+        num_kv_heads=max(1, cfg.num_kv_heads // degree),
+        head_dim=cfg.resolved_head_dim())
+
+
+def kv_segs(cfg: ModelConfig):
+    """The KV-head dim's shard layout (``sharding.ctx``): the KV heads
+    split among the shards, a head on several shards where the degree
+    exceeds the KV heads."""
+    return ((cfg.num_kv_heads, 1, True),)
+
+
+def param_segs(cfg: ModelConfig):
+    """Shard layouts of wk/wv (and their biases), by leaf path in the
+    block, as (dim from the end, segments): whole KV heads, so a shard of
+    a degree above the KV heads holds the one its query heads read (the
+    same split as the spec's where the degree divides the KV heads)."""
+    kv = ((cfg.num_kv_heads, cfg.resolved_head_dim(), True),)
+    leaves = ("w", "b") if cfg.use_bias else ("w",)
+    return {f"{n}/{leaf}": (-1, kv) for n in ("wk", "wv") for leaf in leaves}
 
 
 def out_proj(p: Params, attn_out: torch.Tensor) -> torch.Tensor:

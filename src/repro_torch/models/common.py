@@ -40,7 +40,7 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, Shards):
-        return Shards((tree_map(fn, v) for v in tree), dim=tree.dim)
+        return tree.like(tree_map(fn, v) for v in tree)
     if _is_namedtuple(tree):
         return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):

@@ -26,14 +26,18 @@ Tensor parallelism (a mesh, ``sharding/``): the params of a sharded model
 hold ``Shards`` leaves by the Megatron roles (``sharding/serving.py``) and
 every split and reduction is explicit, in one process. Per shard, the
 column-parallel wq/wk/wv (and their biases) and mlp wi/wg, and attention
-over the shard's KV heads (``attention.shard_cfg``); then the row-parallel
-wo and mlp-down partials go through ``all_reduce_sum`` onto the lead
-device, and a row-parallel bias is added once, after the reduce. The
-vocab-parallel embedding is a masked lookup plus a reduce (exact: one shard
-owns each id). The residual stream, the norms and everything between the
+over the shard's KV heads (``attention.shard_cfg``; one KV head, held by
+several shards, where the degree exceeds the KV heads); then the
+row-parallel wo and mlp-down partials go through ``all_reduce_sum`` onto
+the lead device, and a row-parallel bias is added once, after the reduce.
+The MoE FFN, the SSD block and the RG-LRU block shard inside their modules
+(``moe.py``, ``ssd.py``, ``rglru.py``). The vocab-parallel embedding is a
+masked lookup plus a reduce (exact: one shard owns each id). The residual
+stream, the norms, a frontend's projection and everything between the
 blocks stay whole on the lead. A sharded model (``with_shard``) builds its
-attention cache entries as ``Shards`` of each shard's KV heads; paged pools
-split the same way, the page table and lengths stay on the lead.
+cache entries as ``Shards`` in each leaf's shard layout (``_entry_segs``:
+KV heads; SSD heads and conv channels; RG-LRU W slices); paged pools split
+the same way, the page table and lengths stay on the lead.
 """
 from __future__ import annotations
 
@@ -55,7 +59,7 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.common import Params, index_tree
 from repro_torch.runtime.collectives import all_reduce_sum
-from repro_torch.sharding.ctx import Shards, local
+from repro_torch.sharding.ctx import Shards, local, part_size, parts
 
 
 def segments_of(blocks: Sequence[str], max_unit: int = 4
@@ -134,10 +138,11 @@ def _shard_views(cfg: ModelConfig, p: Params, x: torch.Tensor):
         yield s, cl, local(p, s), x.to(part.device)
 
 
-def _row_parallel(parts, p_out: Params, dst: torch.device) -> torch.Tensor:
+def _row_parallel(partials, p_out: Params, dst: torch.device
+                  ) -> torch.Tensor:
     """The row-parallel layer's partials reduced onto ``dst``, then its
     bias added once (``apply_linear``'s order: matmul, then bias)."""
-    y = all_reduce_sum(parts, dst)
+    y = all_reduce_sum(partials, dst)
     b = p_out.get("b")
     return y if b is None else y + b.to(y.dtype)
 
@@ -148,26 +153,26 @@ def _attention(cfg: ModelConfig, p_attn: Params, x: torch.Tensor, core):
     the block's attention on one shard's heads (index None unsharded).
     Returns (out (B, S, D) on x's device, extra — a list per shard under
     TP)."""
-    parts, extras = [], []
+    partials, extras = [], []
     for s, c, pa, xs in _shard_views(cfg, p_attn, x):
         o, extra = core(c, pa, s, xs)
         if s is None:
             return attn_lib.out_proj(pa, o), extra
-        parts.append(attn_lib.out_proj({"wo": {"w": pa["wo"]["w"]}}, o))
+        partials.append(attn_lib.out_proj({"wo": {"w": pa["wo"]["w"]}}, o))
         extras.append(extra)
-    return _row_parallel(parts, p_attn["wo"], x.device), extras
+    return _row_parallel(partials, p_attn["wo"], x.device), extras
 
 
 def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """``common.apply_mlp``, per shard under TP (a d_ff that the degree
     does not divide stays whole, as JAX's ``_fit`` replicates it)."""
-    parts = []
+    partials = []
     for s, c, pm, xs in _shard_views(cfg, p, x):
         if s is None:
             return common.apply_mlp(cfg, pm, xs)
-        parts.append(common.apply_mlp(cfg, dict(pm, wo={"w": pm["wo"]["w"]}),
-                                      xs))
-    return _row_parallel(parts, p["wo"], x.device)
+        partials.append(common.apply_mlp(
+            cfg, dict(pm, wo={"w": pm["wo"]["w"]}), xs))
+    return _row_parallel(partials, p["wo"], x.device)
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen, dtype, device) -> Params:
@@ -269,7 +274,7 @@ def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
         out, h_rec, conv_tail = rglru_lib.rglru_block_seq(cfg, p["rec"], x)
         h = h + out
         x2 = common.apply_norm(cfg, p["ln2"], h)
-        h = h + common.apply_mlp(cfg, p["mlp"], x2)
+        h = h + _mlp(cfg, p["mlp"], x2)
         return h, {"h": h_rec, "conv": conv_tail}, aux
     x = common.apply_norm(cfg, p["ln1"], h)
     window = _window(cfg, kind)
@@ -295,8 +300,9 @@ def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     x2 = common.apply_norm(cfg, p["ln2"], h)
     f, aux = _ffn(cfg, p, x2, flags)
     if isinstance(kv, list):        # per shard: its KV heads
-        kv = (Shards([k for k, _ in kv], dim=-2),
-              Shards([v for _, v in kv], dim=-2))
+        segs = attn_lib.kv_segs(cfg)
+        kv = (Shards([k for k, _ in kv], -2, segs),
+              Shards([v for _, v in kv], -2, segs))
     return h + f, {"k": kv[0], "v": kv[1]}, aux
 
 
@@ -319,27 +325,29 @@ def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     dequantizes in registers, every other path attends the dequantized
     view in ``h``'s dtype (as the JAX package does; there is no dense int8
     kernel)."""
-    if kind == SSD:
-        x = common.apply_norm(cfg, p["ln"], h)
-        out, new_state, new_conv = ssd_lib.ssd_block_step(
-            cfg, p["ssd"], x, cache_entry["state"], cache_entry["conv"])
-        if live_mask is not None:
-            new_state = torch.where(live_mask[:, None, None, None],
-                                    new_state, cache_entry["state"])
-        cache_entry["state"].copy_(new_state)
-        cache_entry["conv"].copy_(new_conv)
-        return h + out, cache_entry
-    if kind == RGLRU:
-        x = common.apply_norm(cfg, p["ln1"], h)
-        out, new_h, new_conv = rglru_lib.rglru_block_step(
-            cfg, p["rec"], x, cache_entry["h"], cache_entry["conv"])
-        if live_mask is not None:
-            new_h = torch.where(live_mask[:, None], new_h, cache_entry["h"])
-        cache_entry["h"].copy_(new_h)
-        cache_entry["conv"].copy_(new_conv)
+    if kind in (SSD, RGLRU):
+        name = "state" if kind == SSD else "h"
+        x = common.apply_norm(cfg, p["ln" if kind == SSD else "ln1"], h)
+        step = (ssd_lib.ssd_block_step if kind == SSD
+                else rglru_lib.rglru_block_step)
+        out, new_state, new_conv = step(
+            cfg, p["ssd" if kind == SSD else "rec"], x, cache_entry[name],
+            cache_entry["conv"])
+        for st, ns, cv, nc in zip(parts(cache_entry[name]),
+                                  parts(new_state),
+                                  parts(cache_entry["conv"]),
+                                  parts(new_conv)):
+            if live_mask is not None:
+                keep = live_mask.to(ns.device).reshape(
+                    (-1,) + (1,) * (ns.dim() - 1))
+                ns = torch.where(keep, ns, st)
+            st.copy_(ns)
+            cv.copy_(nc)
         h = h + out
+        if kind == SSD:
+            return h, cache_entry
         x2 = common.apply_norm(cfg, p["ln2"], h)
-        return h + common.apply_mlp(cfg, p["mlp"], x2), cache_entry
+        return h + _mlp(cfg, p["mlp"], x2), cache_entry
     B = h.shape[0]
     x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
     window = _window(cfg, kind)
@@ -389,16 +397,17 @@ def _block_propagate(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     and RG-LRU: the state goes stale and the conv window takes the current
     input, so the window stays aligned."""
     if kind in (SSD, RGLRU):
-        if kind == SSD:
-            x = common.apply_norm(cfg, p["ln"], h)
-            proj = common.apply_linear(p["ssd"]["in_proj"], x)
-            _, xin, _ = ssd_lib._split_proj(cfg, proj)
-        else:
-            x = common.apply_norm(cfg, p["ln1"], h)
-            xin = common.apply_linear(p["rec"]["wx"], x)
-        conv = cache_entry["conv"]
-        window = torch.cat([conv.to(xin.dtype), xin[:, None, :]], dim=1)
-        conv.copy_(window[:, 1:])
+        x = common.apply_norm(cfg, p["ln" if kind == SSD else "ln1"], h)
+        pb = p["ssd" if kind == SSD else "rec"]
+        for s, conv in enumerate(parts(cache_entry["conv"])):
+            ps, xs = local(pb, s), x.to(conv.device)
+            if kind == SSD:
+                _, xin, _ = ssd_lib._split_proj(
+                    cfg, common.apply_linear(ps["in_proj"], xs), ps)
+            else:
+                xin = common.apply_linear(ps["wx"], xs)
+            window = torch.cat([conv.to(xin.dtype), xin[:, None, :]], dim=1)
+            conv.copy_(window[:, 1:])
         return cache_entry
     B = h.shape[0]
     x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
@@ -527,9 +536,9 @@ class Model:
 
     def with_shard(self, shard) -> "Model":
         """This model over a mesh's shards (``sharding.ctx.ShardCtx``; None
-        unsharded): the same config and flags, its attention cache entries
-        built as ``Shards`` of each shard's KV heads. The layers read the
-        split from the params they are given."""
+        unsharded): the same config and flags, its cache entries built as
+        ``Shards`` (``empty_cache_entry``). The layers read the split from
+        the params they are given."""
         m = copy.copy(self)
         m.shard = shard
         return m
@@ -583,15 +592,15 @@ class Model:
             return torch.cat([common.embed_tokens(
                 {"tok": part}, tokens.to(part.device), self.dtype).to(
                     tokens.device) for part in tok], dim=-1)
-        parts, c0 = [], 0
+        partials, c0 = [], 0
         for part in tok:
             ids = tokens.to(part.device).long() - c0
             owned = (ids >= 0) & (ids < part.shape[0])
             emb = part.to(self.dtype)[ids.clamp(0, part.shape[0] - 1)]
-            parts.append(torch.where(owned[..., None], emb,
-                                     torch.zeros_like(emb)))
+            partials.append(torch.where(owned[..., None], emb,
+                                        torch.zeros_like(emb)))
             c0 += part.shape[0]
-        return all_reduce_sum(parts, tokens.device)
+        return all_reduce_sum(partials, tokens.device)
 
     def final_norm(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         return common.apply_norm(self.cfg, params["final_norm"], h)
@@ -746,7 +755,9 @@ class Model:
                             if val is None:     # prompt shorter than K-1
                                 entry[name] = None
                             elif entry[name] is not None:
-                                entry[name][r] = val
+                                for dst, v in zip(parts(entry[name]),
+                                                  parts(val)):
+                                    dst[r] = v
                         continue
                     k = ce["k"]         # each shard's KV heads
                     for s in (range(len(k)) if isinstance(k, Shards)
@@ -774,46 +785,56 @@ class Model:
         size. SSD: the fp32 state (reps, batch, nh, hd, ds) and the conv
         window (reps, batch, K-1, di+2ds) in the compute dtype; RG-LRU: the
         fp32 state (reps, batch, W) and the conv window (reps, batch, K-1,
-        W) (``max_seq`` unused)."""
-        if kind == RGLRU:
-            r = self.cfg.rglru or RGLRUConfig()
-            w = rglru_lib.lru_width(self.cfg)
-            return {"h": torch.zeros((reps, batch, w), dtype=torch.float32,
-                                     device=device),
-                    "conv": torch.zeros((reps, batch, r.conv_kernel - 1, w),
-                                        dtype=self.dtype, device=device)}
-        if kind == SSD:
-            s = self.cfg.ssm or SSMConfig()
-            di, nh, hd, ds = ssd_lib.dims(self.cfg)
-            return {"state": torch.zeros((reps, batch, nh, hd, ds),
-                                         dtype=torch.float32, device=device),
-                    "conv": torch.zeros((reps, batch, s.conv_kernel - 1,
-                                         di + 2 * ds), dtype=self.dtype,
-                                        device=device)}
-        if self.shard is not None:      # each shard's KV heads
-            P = self.shard.degree
-            per = [self._kv_entry(reps, batch, max_seq,
-                                  self.cfg.num_kv_heads // P, dev)
-                   for dev in self.shard.devices]
-            return {name: Shards([e[name] for e in per],
-                                 dim=-2 if name in ("k", "v") else -1)
-                    for name in per[0]}
-        return self._kv_entry(reps, batch, max_seq, self.cfg.num_kv_heads,
-                              device)
+        W) (``max_seq`` unused). A sharded model's leaves are ``Shards``,
+        each part on its shard's device in the leaf's layout
+        (``_entry_segs``)."""
+        leaves = self._entry_leaves(reps, batch, max_seq, kind)
+        if self.shard is None:
+            return {name: torch.zeros(shape, dtype=dt, device=device)
+                    for name, (shape, dt) in leaves.items()}
+        P, segs, out = self.shard.degree, self._entry_segs(kind), {}
+        for name, (shape, dt) in leaves.items():
+            dim, sg = segs[name]
+            part = list(shape)
+            part[dim] = part_size(sg, P)
+            out[name] = Shards([torch.zeros(part, dtype=dt, device=dev)
+                                for dev in self.shard.devices], dim, sg)
+        return out
 
-    def _kv_entry(self, reps: int, batch: int, max_seq: int, kv_heads: int,
-                  device) -> Any:
-        shape = (reps, batch, max_seq, kv_heads,
-                 self.cfg.resolved_head_dim())
+    def _entry_leaves(self, reps: int, batch: int, max_seq: int, kind: str
+                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """{leaf name: (whole shape, dtype)} of a cache entry."""
+        cfg = self.cfg
+        if kind == RGLRU:
+            r = cfg.rglru or RGLRUConfig()
+            w = rglru_lib.lru_width(cfg)
+            return {"h": ((reps, batch, w), torch.float32),
+                    "conv": ((reps, batch, r.conv_kernel - 1, w),
+                             self.dtype)}
+        if kind == SSD:
+            s = cfg.ssm or SSMConfig()
+            di, nh, hd, ds = ssd_lib.dims(cfg)
+            return {"state": ((reps, batch, nh, hd, ds), torch.float32),
+                    "conv": ((reps, batch, s.conv_kernel - 1, di + 2 * ds),
+                             self.dtype)}
+        shape = (reps, batch, max_seq, cfg.num_kv_heads,
+                 cfg.resolved_head_dim())
         if not self.flags.kv_quant:
-            return {name: torch.zeros(shape, dtype=self.dtype, device=device)
-                    for name in ("k", "v")}
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                "ks": torch.zeros(shape[:-1], dtype=torch.float32,
-                                  device=device),
-                "vs": torch.zeros(shape[:-1], dtype=torch.float32,
-                                  device=device)}
+            return {"k": (shape, self.dtype), "v": (shape, self.dtype)}
+        return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                "ks": (shape[:-1], torch.float32),
+                "vs": (shape[:-1], torch.float32)}
+
+    def _entry_segs(self, kind: str) -> Dict[str, Tuple[int, Any]]:
+        """{leaf name: (split dim from the end, ``sharding.ctx``
+        segments)} of a sharded cache entry."""
+        if kind == SSD:
+            return ssd_lib.state_segs(self.cfg)
+        if kind == RGLRU:
+            return rglru_lib.state_segs(self.cfg)
+        kv = attn_lib.kv_segs(self.cfg)
+        return {"k": (-2, kv), "v": (-2, kv), "ks": (-1, kv),
+                "vs": (-1, kv)}
 
     def empty_cache(self, batch: int, max_seq: int,
                     device: Union[str, torch.device] = "cuda") -> Any:

@@ -16,9 +16,17 @@ Top-k ties: ``jax.lax.top_k`` puts the lower expert id first among equal
 logits; ``torch.topk`` promises no order, so ``_top_k`` takes a stable
 descending sort.
 
-JAX's expert-parallel options (``_pin_experts``, ``_ep_quantized_gather``,
-``bf16_reduce``) act only on a device mesh; the port has none
-(``ModelFlags.moe_ep_quant`` / ``moe_bf16_reduce`` are refused).
+Tensor parallelism (a ``(1, P)`` mesh, JAX ``sharding/policies.py``'s
+MoE rules): the router stays whole on the lead device; ``wi``/``wg`` (E, D,
+F) and ``wo`` (E, F, D) split F over the shards (``Shards`` leaves). The
+router runs once, on the lead; each shard runs the form on its F slice
+(the dense form weights its activations by the router before its down
+projection, the top-k form takes the lead's (rows, slot) groups, made
+once, so the host reads no more ids than unsharded); the shards' (B, S,
+D) partials go through ``all_reduce_sum``. JAX's expert-parallel options
+(``_pin_experts``, ``_ep_quantized_gather``, ``bf16_reduce``) act on a
+'data' axis the port does not shard (``ModelFlags.moe_ep_quant`` /
+``moe_bf16_reduce`` are refused).
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import Params
+from repro_torch.runtime.collectives import all_reduce_sum
+from repro_torch.sharding.ctx import local, parts
 
 
 def init_moe(cfg: ModelConfig, gen, dtype, device) -> Params:
@@ -101,17 +111,23 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
     act = common.activation_fn(cfg.activation)
     E = cfg.moe.num_experts
 
-    def ffn(xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        combine, logits = router_probs(cfg, p, xc)              # (B,Sc,E)
-        up = torch.einsum("bsd,edf->ebsf", xc, p["wi"].to(x.dtype))
+    def experts(pe: Params, xc: torch.Tensor, comb: torch.Tensor
+                ) -> torch.Tensor:
+        up = torch.einsum("bsd,edf->ebsf", xc, pe["wi"].to(x.dtype))
         if cfg.gated_mlp:
-            gate_h = torch.einsum("bsd,edf->ebsf", xc, p["wg"].to(x.dtype))
+            gate_h = torch.einsum("bsd,edf->ebsf", xc, pe["wg"].to(x.dtype))
             up = act(gate_h) * up
         else:
             up = act(up)
-        up = up * combine.to(x.dtype).permute(2, 0, 1)[..., None]
-        out = torch.einsum("ebsf,efd->bsd", up, p["wo"].to(x.dtype))
-        return out, load_balancing_loss(cfg, logits.reshape(-1, E))
+        up = up * comb.to(x.dtype).permute(2, 0, 1)[..., None]
+        return torch.einsum("ebsf,efd->bsd", up, pe["wo"].to(x.dtype))
+
+    def ffn(xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        combine, logits = router_probs(cfg, p, xc)              # (B,Sc,E)
+        outs = [experts(local(p, s), xc.to(w.device), combine.to(w.device))
+                for s, w in enumerate(parts(p["wi"]))]
+        return (all_reduce_sum(outs, xc.device),
+                load_balancing_loss(cfg, logits.reshape(-1, E)))
 
     if S <= token_chunk:
         return ffn(x)
@@ -136,15 +152,25 @@ def apply_moe_topk(cfg: ModelConfig, p: Params, x: torch.Tensor
     logits = _router_logits(p, xt)
     topv, topi = _top_k(logits, e.num_experts_per_tok)
     gate = torch.softmax(topv, dim=-1).to(x.dtype)              # (T, k)
-    down = x.new_zeros((xt.shape[0], e.num_experts_per_tok, D))  # (T, k, D)
-    for ex in torch.unique(topi).tolist():
-        rows, slot = torch.nonzero(topi == ex, as_tuple=True)
-        xe = xt[rows]
-        up = xe @ p["wi"][ex].to(x.dtype)
-        if cfg.gated_mlp:
-            up = act(xe @ p["wg"][ex].to(x.dtype)) * up
-        else:
-            up = act(up)
-        down[rows, slot] = up @ p["wo"][ex].to(x.dtype)
-    out = torch.einsum("tkd,tk->td", down, gate)
+    groups = [(ex, *torch.nonzero(topi == ex, as_tuple=True))
+              for ex in torch.unique(topi).tolist()]
+
+    def experts(pe: Params, xs: torch.Tensor, gs: torch.Tensor
+                ) -> torch.Tensor:
+        dev = xs.device
+        down = xs.new_zeros((xs.shape[0], e.num_experts_per_tok, D))
+        for ex, rows, slot in groups:
+            rows, slot = rows.to(dev), slot.to(dev)
+            xe = xs[rows]
+            up = xe @ pe["wi"][ex].to(x.dtype)
+            if cfg.gated_mlp:
+                up = act(xe @ pe["wg"][ex].to(x.dtype)) * up
+            else:
+                up = act(up)
+            down[rows, slot] = up @ pe["wo"][ex].to(x.dtype)
+        return torch.einsum("tkd,tk->td", down, gs)
+
+    out = all_reduce_sum([experts(local(p, s), xt.to(w.device),
+                                  gate.to(w.device))
+                          for s, w in enumerate(parts(p["wi"]))], x.device)
     return out.reshape(B, S, D), load_balancing_loss(cfg, logits)

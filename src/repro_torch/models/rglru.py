@@ -14,6 +14,16 @@ JAX's ``lax.associative_scan`` does: log2(S) levels of whole-tensor
 combines (odd/even reduction, then the even elements from the odd ones),
 in JAX's order of operations, never a loop over the S positions. The
 decode path is the O(1) update.
+
+Tensor parallelism (a ``(1, P)`` mesh, JAX ``sharding/policies.py``'s
+RG-LRU rules): the lru width W splits over the shards for ``wx``, ``wy``,
+the conv, ``lam`` and the gates' biases; ``wa``/``wi`` (W, W) are
+column-parallel and ``wo`` row-parallel. The conv and the recurrence are
+elementwise in W, so each shard runs them on its slice; the gates read the
+whole post-conv activation, so each shard first gathers it
+(``all_gather``, which GSPMD inserts in JAX). ``wo``'s partials go through
+``all_reduce_sum``; the state and the conv window are ``Shards`` of each
+shard's W slice.
 """
 from __future__ import annotations
 
@@ -25,6 +35,8 @@ import torch
 from repro_torch.config import ModelConfig, RGLRUConfig
 from repro_torch.models import common
 from repro_torch.models.common import Params
+from repro_torch.runtime.collectives import all_gather, all_reduce_sum
+from repro_torch.sharding.ctx import from_parts, local, parts
 
 _C = 8.0
 
@@ -64,15 +76,28 @@ def init_rglru(cfg: ModelConfig, gen, dtype, device) -> Params:
     }
 
 
-def _gates(p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def state_segs(cfg: ModelConfig):
+    """Shard layouts (``sharding.ctx`` segments) of an RG-LRU cache
+    entry's leaves, as (dim from the end, segments): both split W."""
+    w = lru_width(cfg)
+    return {"h": (-1, ((w, 1, True),)), "conv": (-1, ((w, 1, True),))}
+
+
+def _gates(p: Params, x: torch.Tensor,
+           x_own: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (..., W) post-conv activations -> (log_a, b) of the recurrence,
-    fp32. Softplus as ``jax.nn.softplus`` (log(1 + e^x), no threshold)."""
+    fp32. Softplus as ``jax.nn.softplus`` (log(1 + e^x), no threshold).
+    ``x_own``: a shard's slice of x, the columns its gate weights give
+    (``x`` is then the gathered whole)."""
+    x_own = x if x_own is None else x_own
     r = torch.sigmoid(common.apply_linear(p["wa"], x).float())
     i = torch.sigmoid(common.apply_linear(p["wi"], x).float())
-    sp = torch.logaddexp(p["lam"].float(), torch.zeros((), device=x.device))
+    sp = torch.logaddexp(p["lam"].float(),
+                         torch.zeros((), device=x_own.device))
     log_a = -_C * sp * r
     a2 = torch.exp(2 * log_a)
-    b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * i * x.float()
+    b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * i * x_own.float()
     return log_a, b
 
 
@@ -113,10 +138,13 @@ def _assoc_scan(elems: List[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def rglru_scan(p: Params, x: torch.Tensor,
-               h0: Optional[torch.Tensor] = None
+               h0: Optional[torch.Tensor] = None,
+               x_own: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, W) -> (h (B, S, W) in x's dtype, h_final (B, W) fp32)."""
-    log_a, b = _gates(p, x)                                    # (B,S,W) fp32
+    """x: (B, S, W) -> (h (B, S, W) in x's dtype, h_final (B, W) fp32);
+    on a shard's slice ``x_own`` of the whole ``x`` (``_gates``), its
+    slice of h."""
+    log_a, b = _gates(p, x, x_own)                             # (B,S,W) fp32
     a = torch.exp(log_a)
     if h0 is not None:
         # fold the initial state into the first input
@@ -126,10 +154,12 @@ def rglru_scan(p: Params, x: torch.Tensor,
     return hh.to(x.dtype), hh[:, -1, :]
 
 
-def rglru_step(p: Params, x_t: torch.Tensor, h: torch.Tensor
+def rglru_step(p: Params, x_t: torch.Tensor, h: torch.Tensor,
+               x_own: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x_t: (B, W); h: (B, W) fp32 -> (out in x_t's dtype, new_h fp32)."""
-    log_a, b = _gates(p, x_t)
+    """x_t: (B, W); h: (B, W) fp32 -> (out in x_t's dtype, new_h fp32);
+    ``x_own`` as in ``rglru_scan``."""
+    log_a, b = _gates(p, x_t, x_own)
     new_h = torch.exp(log_a) * h.float() + b
     return new_h.to(x_t.dtype), new_h
 
@@ -155,29 +185,56 @@ def rglru_block_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     conv_carry_in: Optional[torch.Tensor] = None):
     """The recurrent block over a sequence. x: (B, S, D) pre-normed.
     Returns (out (B, S, D), h_final (B, W) fp32, conv_tail (B, K-1, W), or
-    None for a sequence shorter than K-1, as in the JAX package)."""
+    None for a sequence shorter than K-1, as in the JAX package); under
+    sharded params, the state and the tail as ``Shards`` of W slices."""
     r = cfg.rglru or RGLRUConfig()
     gelu = common.activation_fn("gelu")
-    gate = gelu(common.apply_linear(p["wy"], x))
-    xb = common.apply_linear(p["wx"], x)
-    xc = _conv_seq(p, xb, conv_carry_in)
-    h_seq, h_final = rglru_scan(p, xc, h0)
-    out = common.apply_linear(p["wo"], h_seq * gate)
     K = r.conv_kernel
-    conv_tail = xb[:, -(K - 1):, :] if xb.shape[1] >= K - 1 else None
-    return out, h_final, conv_tail
+    segs = state_segs(cfg)
+    ps = [local(p, s) for s in range(len(parts(p["lam"])))]
+    xs = [x.to(lam.device) for lam in parts(p["lam"])]
+    xbs = [common.apply_linear(pp["wx"], xi) for pp, xi in zip(ps, xs)]
+    xcs = [_conv_seq(pp, xb, local(conv_carry_in, s))
+           for s, (pp, xb) in enumerate(zip(ps, xbs))]
+    outs, hs = [], []
+    for s, (pp, xi, xc) in enumerate(zip(ps, xs, xcs)):
+        h_seq, h_fin = rglru_scan(pp, all_gather(xcs, xc.device),
+                                  local(h0, s), x_own=xc)
+        gate = gelu(common.apply_linear(pp["wy"], xi))
+        outs.append(common.apply_linear(pp["wo"], h_seq * gate))
+        hs.append(h_fin)
+    tail = (from_parts([xb[:, -(K - 1):, :] for xb in xbs], *segs["conv"])
+            if x.shape[1] >= K - 1 else None)
+    return all_reduce_sum(outs, x.device), from_parts(hs, *segs["h"]), tail
+
+
+def _step_conv(p: Params, xb: torch.Tensor, conv_state: torch.Tensor):
+    """The conv over the window and the new input: (xc, the window)."""
+    window = torch.cat([conv_state.to(xb.dtype), xb[:, None, :]], dim=1)
+    xc = (torch.einsum("bkc,kc->bc", window, p["conv_w"].to(xb.dtype))
+          + p["conv_b"].to(xb.dtype))
+    return xc, window
 
 
 def rglru_block_step(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
                      h: torch.Tensor, conv_state: torch.Tensor):
     """One token. x_t: (B, D) pre-normed; h: (B, W) fp32; conv_state:
-    (B, K-1, W). Returns (out (B, D), new_h, new conv window)."""
+    (B, K-1, W). Returns (out (B, D), new_h, new conv window); under
+    sharded params ``h`` and ``conv_state`` are ``Shards`` and so are the
+    new ones."""
     gelu = common.activation_fn("gelu")
-    gate = gelu(common.apply_linear(p["wy"], x_t))
-    xb = common.apply_linear(p["wx"], x_t)                      # (B, W)
-    window = torch.cat([conv_state.to(xb.dtype), xb[:, None, :]], dim=1)
-    xc = (torch.einsum("bkc,kc->bc", window, p["conv_w"].to(xb.dtype))
-          + p["conv_b"].to(xb.dtype))
-    h_out, new_h = rglru_step(p, xc, h)
-    out = common.apply_linear(p["wo"], h_out * gate)
-    return out, new_h, window[:, 1:, :]
+    segs = state_segs(cfg)
+    ps = [local(p, s) for s in range(len(parts(p["lam"])))]
+    xs = [x_t.to(lam.device) for lam in parts(p["lam"])]
+    convs = [_step_conv(pp, common.apply_linear(pp["wx"], xi), cs)
+             for pp, xi, cs in zip(ps, xs, parts(conv_state))]
+    xcs = [xc for xc, _ in convs]
+    outs, hs = [], []
+    for pp, xi, xc, hp in zip(ps, xs, xcs, parts(h)):
+        h_out, new_h = rglru_step(pp, all_gather(xcs, xc.device), hp,
+                                  x_own=xc)
+        gate = gelu(common.apply_linear(pp["wy"], xi))
+        outs.append(common.apply_linear(pp["wo"], h_out * gate))
+        hs.append(new_h)
+    return (all_reduce_sum(outs, x_t.device), from_parts(hs, *segs["h"]),
+            from_parts([w[:, 1:, :] for _, w in convs], *segs["conv"]))

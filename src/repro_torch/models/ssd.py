@@ -16,6 +16,18 @@ Layout conventions (single B/C group, as in mamba2-130m):
   Bm : (B, S, ds)          — input matrix  (shared across heads)
   Cm : (B, S, ds)          — output matrix (shared across heads)
   state: (B, nh, hd, ds)
+
+Tensor parallelism (a ``(1, P)`` mesh): each shard holds whole heads
+(``sharding/serving.py``: its z, x and dt columns of ``in_proj``, B and C
+whole, its conv channels, A, D, dt_bias and norm scale, and its
+``out_proj`` rows), so the block functions, given ``Shards`` params, run
+the projection, conv, SSD scan (the ``ssd_chunk`` kernel on the shard's
+``nh / P`` heads) and D term per shard. The gated norm's mean of squares
+runs over the whole ``di``: each shard's sum of squares goes through
+``all_reduce_sum`` (a (B, S, 1) tensor) before the ``rsqrt``, then
+``out_proj``'s row-parallel partials are reduced. The state and the conv
+window come back as ``Shards`` of each shard's heads and channels
+(``state_segs``).
 """
 from __future__ import annotations
 
@@ -30,6 +42,8 @@ from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
 from repro_torch.models import common
 from repro_torch.models.common import Params
+from repro_torch.runtime.collectives import all_reduce_sum
+from repro_torch.sharding.ctx import from_parts, local, parts
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -37,6 +51,42 @@ def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
     di = s.d_inner(cfg.d_model)
     nh = s.n_heads(cfg.d_model)
     return di, nh, s.head_dim, s.d_state
+
+
+def _segs(cfg: ModelConfig):
+    """(a head, a head's hd channels, B and C whole) as segments."""
+    _, nh, hd, ds = dims(cfg)
+    return (nh, 1, True), (nh, hd, True), (1, 2 * ds, False)
+
+
+def state_segs(cfg: ModelConfig):
+    """Shard layouts (``sharding.ctx`` segments) of an SSD cache entry's
+    leaves, as (dim from the end, segments): the state by heads, the conv
+    window's channels by the heads' x channels with B and C whole."""
+    heads, cols, bc = _segs(cfg)
+    return {"state": (-3, (heads,)), "conv": (-1, (cols, bc))}
+
+
+def param_segs(cfg: ModelConfig):
+    """Shard layouts of the block's weights, by leaf path in the block, as
+    (dim from the end, segments): whole heads on each shard — the z, x and
+    dt columns of its heads in ``in_proj`` with B and C whole, the conv
+    over the same channels, its heads' A, D, dt_bias and norm scale and
+    its heads' ``out_proj`` rows (``sharding/serving.py`` says why this
+    differs from JAX's spec)."""
+    heads, cols, bc = _segs(cfg)
+    return {"in_proj/w": (-1, (cols, cols, bc, heads)),
+            "conv_w": (-1, (cols, bc)), "conv_b": (-1, (cols, bc)),
+            "A_log": (-1, (heads,)), "D": (-1, (heads,)),
+            "dt_bias": (-1, (heads,)), "norm/scale": (-1, (cols,)),
+            "out_proj/w": (-2, (cols,))}
+
+
+def _local_dims(cfg: ModelConfig, p: Params) -> Tuple[int, int, int, int]:
+    """(di, nh, hd, ds) of the heads ``p`` holds (a shard's or all)."""
+    _, _, hd, ds = dims(cfg)
+    nh = p["A_log"].shape[-1]
+    return nh * hd, nh, hd, ds
 
 
 def init_ssd(cfg: ModelConfig, gen: torch.Generator, dtype,
@@ -74,20 +124,46 @@ def init_ssd(cfg: ModelConfig, gen: torch.Generator, dtype,
     }
 
 
-def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
-    di, nh, hd, ds = dims(cfg)
+def _split_proj(cfg: ModelConfig, proj: torch.Tensor, p: Params):
+    """(z, xBC, dt) of an ``in_proj`` output of the block params ``p``
+    (a shard's heads, or all)."""
+    di, nh, hd, ds = _local_dims(cfg, p)
     z, xBC, dt = torch.split(proj, [di, di + 2 * ds, nh], dim=-1)
     return z, xBC, dt  # (…, di), (…, di+2ds), (…, nh)
 
 
+def _gate_in(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The gated norm's input x * silu(z), fp32."""
+    return (x * F.silu(z.float()).to(x.dtype)).float()
+
+
+def _gated_rmsnorm_parts(ps, cores, dst: torch.device, di: int) -> list:
+    """Mamba2 out-norm RMSNorm(x * silu(z)) over the (x, z) ``cores`` of
+    the shards holding the block params ``ps`` (one part unsharded): the
+    mean of squares runs over the whole ``di``, from the parts' sums of
+    squares reduced onto ``dst``."""
+    gs = [_gate_in(x, z) for x, z in cores]
+    ms = all_reduce_sum([(g * g).sum(dim=-1, keepdim=True) for g in gs],
+                        dst) / di
+    return [(g * torch.rsqrt(ms.to(g.device) + 1e-6)
+             * pp["norm"]["scale"].float()).to(x.dtype)
+            for pp, g, (x, _) in zip(ps, gs, cores)]
+
+
 def _gated_rmsnorm(p: Params, x: torch.Tensor, z: torch.Tensor
                    ) -> torch.Tensor:
-    """Mamba2 out-norm: RMSNorm(x * silu(z))."""
-    y = x * F.silu(z.float()).to(x.dtype)
-    yf = y.float()
-    ms = torch.mean(yf * yf, dim=-1, keepdim=True)
-    return (yf * torch.rsqrt(ms + 1e-6)
-            * p["norm"]["scale"].float()).to(x.dtype)
+    """Mamba2 out-norm: RMSNorm(x * silu(z)), unsharded."""
+    return _gated_rmsnorm_parts([p], [(x, z)], x.device, x.shape[-1])[0]
+
+
+def _out(cfg: ModelConfig, p: Params, cores, dst: torch.device
+         ) -> torch.Tensor:
+    """The gated norm and ``out_proj`` over the shards' (y, z) ``cores``,
+    ``out_proj``'s row-parallel partials reduced onto ``dst``."""
+    ps = [local(p, s) for s in range(len(cores))]
+    ys = _gated_rmsnorm_parts(ps, cores, dst, dims(cfg)[0])
+    return all_reduce_sum([common.apply_linear(pp["out_proj"], y)
+                           for pp, y in zip(ps, ys)], dst)
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +276,31 @@ def conv1d_step(w: torch.Tensor, b: torch.Tensor, x_t: torch.Tensor,
 def _ssm_inputs(cfg: ModelConfig, p: Params, xBC: torch.Tensor,
                 dt: torch.Tensor):
     """(xin, Bm, Cm, dt, A) from the convolved xBC and the raw dt."""
-    di, _, _, ds = dims(cfg)
+    di, _, _, ds = _local_dims(cfg, p)
     xin, Bm, Cm = torch.split(xBC, [di, ds, ds], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])
     return xin, Bm, Cm, dt, -torch.exp(p["A_log"])
+
+
+def _seq_core(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              initial_state: Optional[torch.Tensor], use_kernel: bool):
+    """in_proj, conv, SSD scan and D term on the heads ``p`` holds:
+    (y (B,S,di) before the gated norm, z, final state, conv tail)."""
+    s = cfg.ssm or SSMConfig()
+    di, nh, hd, ds = _local_dims(cfg, p)
+    proj = common.apply_linear(p["in_proj"], x)              # (B,S,2di+2ds+nh)
+    z, xBC, dt = _split_proj(cfg, proj, p)
+    xBC = F.silu(conv1d_seq(p["conv_w"].to(x.dtype),
+                            p["conv_b"].to(x.dtype), xBC))
+    xin, Bm, Cm, dt, A = _ssm_inputs(cfg, p, xBC, dt)
+    xh = xin.reshape(*xin.shape[:-1], nh, hd)
+    y, h_final = ssd_chunked(xh, dt, A, Bm, Cm, s.chunk_size, initial_state,
+                             use_kernel=use_kernel)
+    y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
+    K = s.conv_kernel
+    proj_tail = (proj[:, -(K - 1):, di:di + di + 2 * ds]
+                 if x.shape[1] >= K - 1 else None)
+    return y.reshape(*x.shape[:-1], di), z, h_final, proj_tail
 
 
 def ssd_block_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -212,38 +309,43 @@ def ssd_block_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """Full-sequence SSD block (prefill). x: (B,S,D), pre-normed outside.
     Returns (out (B,S,D), final state (B,nh,hd,ds) fp32, the last K-1
     positions of the conv input (B,K-1,di+2ds) — None for a sequence
-    shorter than K-1, as in the JAX package)."""
-    s = cfg.ssm or SSMConfig()
-    di, nh, hd, ds = dims(cfg)
-    proj = common.apply_linear(p["in_proj"], x)              # (B,S,2di+2ds+nh)
-    z, xBC, dt = _split_proj(cfg, proj)
-    xBC = F.silu(conv1d_seq(p["conv_w"].to(x.dtype),
-                            p["conv_b"].to(x.dtype), xBC))
-    xin, Bm, Cm, dt, A = _ssm_inputs(cfg, p, xBC, dt)
-    xh = xin.reshape(*xin.shape[:-1], nh, hd)
-    y, h_final = ssd_chunked(xh, dt, A, Bm, Cm, s.chunk_size, initial_state,
-                             use_kernel=use_kernel)
-    y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
-    y = _gated_rmsnorm(p, y.reshape(*x.shape[:-1], di), z)
-    out = common.apply_linear(p["out_proj"], y)
-    K = s.conv_kernel
-    proj_tail = (proj[:, -(K - 1):, di:di + di + 2 * ds]
-                 if x.shape[1] >= K - 1 else None)
-    return out, h_final, proj_tail
+    shorter than K-1, as in the JAX package). Sharded params give the
+    state and the conv tail as ``Shards`` (an ``initial_state`` too)."""
+    segs = state_segs(cfg)
+    cores = [_seq_core(cfg, local(p, s), x.to(a.device),
+                       local(initial_state, s), use_kernel)
+             for s, a in enumerate(parts(p["A_log"]))]
+    tails = [c[3] for c in cores]
+    return (_out(cfg, p, [c[:2] for c in cores], x.device),
+            from_parts([c[2] for c in cores], *segs["state"]),
+            None if tails[0] is None else from_parts(tails, *segs["conv"]))
 
 
-def ssd_block_step(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
-                   state: torch.Tensor, conv_state: torch.Tensor):
-    """Single-token SSD block. x_t: (B, D) pre-normed; returns (out (B,D),
-    new_state, new_conv_state)."""
-    di, nh, hd, ds = dims(cfg)
+def _step_core(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
+               state: torch.Tensor, conv_state: torch.Tensor):
+    """One token's in_proj, conv, recurrent update and D term on the
+    heads ``p`` holds: (y (B,di), z, new state, new conv window)."""
+    di, nh, hd, ds = _local_dims(cfg, p)
     proj = common.apply_linear(p["in_proj"], x_t)            # (B, 2di+2ds+nh)
-    z, xBC, dt = _split_proj(cfg, proj)
+    z, xBC, dt = _split_proj(cfg, proj, p)
     xBC, new_conv = conv1d_step(p["conv_w"].to(x_t.dtype),
                                 p["conv_b"].to(x_t.dtype), xBC, conv_state)
     xin, Bm, Cm, dt, A = _ssm_inputs(cfg, p, F.silu(xBC), dt)
     xh = xin.reshape(-1, nh, hd)
     y, new_state = ssd_recurrent_step(xh, dt, A, Bm, Cm, state)
     y = y + xh * p["D"].to(x_t.dtype)[None, :, None]
-    y = _gated_rmsnorm(p, y.reshape(-1, di), z)
-    return common.apply_linear(p["out_proj"], y), new_state, new_conv
+    return y.reshape(-1, di), z, new_state, new_conv
+
+
+def ssd_block_step(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
+                   state: torch.Tensor, conv_state: torch.Tensor):
+    """Single-token SSD block. x_t: (B, D) pre-normed; returns (out (B,D),
+    new_state, new_conv_state) — ``Shards`` of each shard's under sharded
+    params (``state`` and ``conv_state`` then ``Shards`` too)."""
+    segs = state_segs(cfg)
+    cores = [_step_core(cfg, local(p, s), x_t.to(a.device),
+                        local(state, s), local(conv_state, s))
+             for s, a in enumerate(parts(p["A_log"]))]
+    return (_out(cfg, p, [c[:2] for c in cores], x_t.device),
+            from_parts([c[2] for c in cores], *segs["state"]),
+            from_parts([c[3] for c in cores], *segs["conv"]))

@@ -9,17 +9,21 @@ where the replicated state lives) or, for the per-shard outputs, on each
 shard's own device.
 
 * ``all_reduce_sum`` — the tensor-parallel layers' reduction (row-parallel
-  wo and mlp-down, the vocab-parallel embedding). It adds in shard order
-  0..P-1, so the result is deterministic and equal on every call.
+  wo and mlp-down, the vocab-parallel embedding, MoE's expert-down, the
+  SSD gated norm's sum of squares). It adds in shard order 0..P-1, so the
+  result is deterministic and equal on every call.
+* ``all_gather`` — the shards' parts concatenated in shard order (the
+  RG-LRU gates read the whole post-conv activation; GSPMD inserts this
+  gather in JAX).
 * ``compressed_psum`` — int8 all-reduce with error feedback: one shared
   scale (a pmax), an int8 payload summed in int32, each shard's
   quantization residual kept for its next step.
 * ``collective_matmul_ag`` — all-gather(x) @ w as a ring: each hop's
   transfer overlaps the partial GEMM of the block in hand.
 
-Serving calls ``all_reduce_sum`` only; the other two are JAX's training
-collectives, held equal to JAX's by the tests, and wait for training
-under a mesh (ROADMAP "multi-GPU").
+Serving calls ``all_reduce_sum`` and ``all_gather``; the other two are
+JAX's training collectives, held equal to JAX's by the tests, and wait
+for training under a mesh (ROADMAP "multi-GPU").
 """
 from __future__ import annotations
 
@@ -35,6 +39,15 @@ def all_reduce_sum(parts: Sequence[torch.Tensor],
     for p in parts[1:]:
         total = total + p.to(dst)
     return total
+
+
+def all_gather(parts: Sequence[torch.Tensor], dst: torch.device,
+               dim: int = -1) -> torch.Tensor:
+    """The per-shard ``parts`` concatenated along ``dim`` on ``dst``, in
+    shard order; one part is itself, on ``dst``."""
+    if len(parts) == 1:
+        return parts[0].to(dst)
+    return torch.cat([p.to(dst) for p in parts], dim=dim)
 
 
 def _per_127(amax: torch.Tensor) -> torch.Tensor:

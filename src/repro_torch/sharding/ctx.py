@@ -7,16 +7,30 @@ scheduler, the draft, the exit gates, the last token) lives once, on the
 mesh's lead device; shard-local state lives on each shard's device as a
 ``Shards`` leaf, one contiguous part per shard, in shard order. A ``Shards``
 is a list, so the tree helpers (``tree_map``, ``index_tree``) map over its
-parts and keep it a ``Shards``.
+parts and keep it a ``Shards`` (``Shards.like``).
+
+A ``Shards`` follows a layout of segments (``segs``) along its split dim
+(the even Megatron split is one split segment of width 1), or, for the
+vocabulary's uneven slices alone, holds consecutive slices of that dim
+(``segs`` None). Segments are ``(units, width, split)`` triples,
+``units`` blocks of ``width`` elements each. A split segment's blocks are
+divided among the P shards, shard s taking ``max(1, units // P)`` blocks
+from block ``s * units // P``, so a segment of fewer blocks than shards
+holds each block on ``P / units`` consecutive shards (a KV head read by
+several shards' query heads); a whole segment (``split`` False) is held by
+every shard (Mamba2's B and C columns). ``cut`` makes a part, ``gather``
+joins the parts back, taking a repeated block from its first holder.
 
 Leaf module on purpose: imports torch only.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+
+Segs = Tuple[Tuple[int, int, bool], ...]     # (units, width, split) each
 
 
 class Shards(list):
@@ -25,22 +39,94 @@ class Shards(list):
     every view that indexes leading dims away (a unit out of a stacked
     segment, a row out of a batch)."""
 
-    def __init__(self, parts=(), dim: Optional[int] = None):
+    def __init__(self, parts=(), dim: Optional[int] = None,
+                 segs: Optional[Segs] = None):
         super().__init__(parts)
         if dim is not None and dim >= 0:
             raise ValueError(f"Shards.dim counts from the end, got {dim}")
         self.dim = dim
+        self.segs = segs
+
+    def like(self, parts) -> "Shards":
+        """Other parts in this leaf's layout (same dim and segments)."""
+        return Shards(parts, dim=self.dim, segs=self.segs)
 
     def __repr__(self) -> str:
         return f"Shards({[tuple(p.shape) for p in self]}, dim={self.dim})"
 
 
+def _blocks(units: int, s: int, P: int) -> Tuple[int, int]:
+    """(first block, blocks) of a split segment on shard ``s`` of ``P``."""
+    return s * units // P, max(1, units // P)
+
+
+def part_size(segs: Segs, P: int) -> int:
+    """Size of one part along the split dim."""
+    return sum((_blocks(n, 0, P)[1] if split else n) * w
+               for n, w, split in segs)
+
+
+def whole_size(segs: Segs) -> int:
+    return sum(n * w for n, w, _ in segs)
+
+
+def cut(x: torch.Tensor, dim: int, segs: Segs, s: int, P: int
+        ) -> torch.Tensor:
+    """Shard ``s``'s part of the whole tensor ``x`` under ``segs`` along
+    ``dim`` (contiguous)."""
+    pieces, c0 = [], 0
+    for n, w, split in segs:
+        b0, nb = _blocks(n, s, P) if split else (0, n)
+        pieces.append(x.narrow(dim, c0 + b0 * w, nb * w))
+        c0 += n * w
+    out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=dim)
+    return out.contiguous()
+
+
+def _join(parts: Sequence[torch.Tensor], dim: int, segs: Segs
+          ) -> List[torch.Tensor]:
+    """The whole tensor's pieces along ``dim``, in order, from the parts:
+    each block of a split segment from the first shard that holds it,
+    a whole segment from shard 0."""
+    P, pieces, c0 = len(parts), [], 0
+    for n, w, split in segs:
+        size = (_blocks(n, 0, P)[1] if split else n) * w
+        if split:
+            seen = set()
+            for s, part in enumerate(parts):
+                b0 = _blocks(n, s, P)[0]
+                if b0 not in seen:
+                    seen.add(b0)
+                    pieces.append(part.narrow(dim, c0, size))
+        else:
+            pieces.append(parts[0].narrow(dim, c0, size))
+        c0 += size
+    return pieces
+
+
 def gather(x: Any, device: torch.device) -> Any:
     """The whole tensor of a ``Shards`` leaf on ``device`` (the parts
-    concatenated along ``dim``); any other leaf moved to ``device``."""
+    concatenated along ``dim``, or joined by its segments); any other leaf
+    moved to ``device``."""
     if isinstance(x, Shards):
-        return torch.cat([p.to(device) for p in x], dim=x.dim)
+        parts = [p.to(device) for p in x]
+        if x.segs is not None:
+            parts = _join(parts, x.dim, x.segs)
+        return torch.cat(parts, dim=x.dim)
     return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def parts(x: Any) -> list:
+    """A leaf's per-shard parts; an unsharded leaf is its one part."""
+    return list(x) if isinstance(x, Shards) else [x]
+
+
+def from_parts(xs: Sequence[Any], dim: int, segs: Optional[Segs]) -> Any:
+    """The inverse of ``parts`` for a block's per-shard outputs: one part
+    is the unsharded leaf itself, more are a ``Shards`` in the layout
+    (``dim``, ``segs``). A mesh of one shard is never sharded
+    (``ShardCtx.from_mesh``), so one part means unsharded."""
+    return xs[0] if len(xs) == 1 else Shards(xs, dim, segs)
 
 
 def local(tree: Any, s: int) -> Any:

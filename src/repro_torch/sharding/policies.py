@@ -12,9 +12,10 @@ Policies:
   fsdp_tp — training: tp_dp plus ZeRO-3 over 'data'; optimizer state
             inherits the parameter spec. (Serving refuses it.)
 
-The Megatron roles: column-parallel = {wq, wk, wv, mlp-in/gate, router,
+The Megatron roles: column-parallel = {wq, wk, wv, mlp-in/gate,
 expert-in}, row-parallel = {wo, mlp-down, expert-down}, vocab-parallel =
-{embedding, lm_head}. MoE expert stacks shard the expert dim over 'data'
+{embedding, lm_head}; the MoE router is replicated (JAX's docstring lists
+it as column-parallel, its rule gives ``P(None, None)``). MoE expert stacks shard the expert dim over 'data'
 (EP). A dim that does not divide its mesh extent falls back to replicated
 (minicpm's odd 122753 vocabulary: the embedding splits D instead).
 

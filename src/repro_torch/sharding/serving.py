@@ -1,10 +1,10 @@
-"""Decode-state specs and the placement of weights and state on a mesh
-(counterpart of ``repro/sharding/serving.py``).
+"""The placement of weights and decode state on a mesh, and what a mesh
+serves (counterpart of ``repro/sharding/serving.py``).
 
 JAX places the weights under ``PartitionSpec``s and lets XLA insert the
 collectives; torch has no GSPMD, so the port's layers make every split and
-every reduction explicit (``models/model.py``). This module decides where
-each tensor lives:
+every reduction explicit (``models/model.py``, ``moe.py``, ``ssd.py``,
+``rglru.py``). This module decides where each tensor lives:
 
 * a leaf whose spec names 'model' becomes a ``Shards``: one contiguous part
   per shard, on the shard's device (the verify and attention kernels
@@ -12,6 +12,39 @@ each tensor lives:
 * every other leaf lives once, on the mesh's lead device. JAX's
   "replicated per shard" runs the same computation P times; running it
   once is equivalent.
+
+Two placements deliberately differ from JAX's specs (``param_specs`` and
+the cache specs stay JAX's, held equal by the tests), because JAX lets
+GSPMD regroup the data between ops and the port computes each shard's
+heads whole, with no regrouping:
+
+* Mamba2's ``in_proj`` (``ssd.param_segs``). JAX splits its output columns
+  ``[z (di) | x (di) | B (ds) | C (ds) | dt (nh)]`` evenly, which does not
+  fall on head boundaries (mamba2-130m at P = 2: 3352 columns, each half
+  holding parts of z and x). The port gives shard s the z, x and dt
+  columns of its ``nh / P`` heads and B and C whole (one group, read by
+  every head), the conv's weights for the same channels (JAX replicates
+  the conv), its heads' A, D, dt_bias and norm scale, and its heads'
+  ``out_proj`` rows; the SSM state splits by heads and the conv window by
+  those channels (``ssd.state_segs``). A degree that does not divide the
+  heads is refused.
+* KV heads fewer than the degree (P % KVH == 0, H % P == 0). JAX's
+  ``_fit`` splits wk/wv's ``KVH·hd`` columns evenly, within a head, and
+  its decode cache splits ``head_dim``. The port replicates whole KV
+  heads: shard s holds its ``H / P`` query heads and KV head
+  ``s·KVH / P`` whole (wk/wv columns and biases, ``attention.
+  param_segs``; K/V cache entries, paged
+  pools and int8 scales), so each shard's attention and the kernels are
+  unchanged (``attention.shard_cfg`` gives one KV head a shard). The
+  cost: each KV head and its cache are stored P / KVH times (at
+  recurrentgemma-9b's one KV head and P = 4, four copies of its local
+  attention's cache).
+
+Each module states its own layout (``ssd.param_segs``,
+``attention.param_segs``; ``_layouts`` keys them by the module that owns
+the leaves). Every ``Shards`` carries segments (``sharding.ctx``; an even
+split is one split segment) except the vocabulary's uneven slices, so
+``unplace`` joins each back to the whole tensor.
 
 The LM head is held twice: its vocabulary slices on the shards
 (``lm_head/vocab_shards``, the sharded verify's) and one whole copy on the
@@ -28,8 +61,10 @@ SpecEE's weights (draft, predictors, schedule mask) and a quantized bundle
 stay whole on the lead, as JAX replicates its quantized tiles; JAX's
 ``specee_specs`` shards the draft layer, which the port runs once.
 
-Serving places by ``param_specs``, the managers' ``partition_specs`` and
-``decode_state_specs`` only. ``engine_shardings`` and the policies'
+Serving places the weights by ``param_specs`` and the two layouts above;
+a decode state is placed like the session's own state (``place_like``:
+a restored snapshot takes each leaf's layout from the state it replaces).
+``engine_shardings``, the managers' ``partition_specs`` and the policies'
 training layouts (``state_specs``, ``batch_specs``, ``fsdp_tp``, the 'pod'
 axis, ``specee_specs``) are JAX's, held equal to it by the tests, and wait
 for training under a mesh (ROADMAP "multi-GPU").
@@ -44,28 +79,9 @@ from repro_torch.models.common import (_is_namedtuple, tree_map,
                                        with_contiguous_head)
 from repro_torch.quant.core import QTensor
 from repro_torch.sharding import policies as pol
-from repro_torch.sharding.ctx import ShardCtx, Shards, gather
+from repro_torch.sharding.ctx import ShardCtx, Shards, cut, gather
 
 MULTI = "ROADMAP: multi-GPU"
-
-
-def decode_state_specs(model, mesh, policy: str, state,
-                       cache_mgr=None) -> Any:
-    """Spec tree for a ``DecodeState``: the cache by its manager's layout
-    (KV heads over 'model', bookkeeping replicated), else the generic
-    ``cache_specs`` with the sequence split off; the draft cache,
-    scheduler state, last token, last hidden and seed replicated."""
-    from repro_torch.core import engine as eng
-    if cache_mgr is not None:
-        cache_spec = cache_mgr.partition_specs(state.cache, mesh, policy)
-    else:
-        cache_spec = pol.cache_specs(model, mesh, policy, state.cache,
-                                     kv_seq_shard=False)
-    rep = pol.replicated_specs
-    return eng.DecodeState(
-        cache=cache_spec, draft_cache=rep(state.draft_cache),
-        sched=rep(state.sched), last_token=rep(state.last_token),
-        h_last=rep(state.h_last), prng=pol.Spec())
 
 
 def engine_shardings(model, mesh, policy: str, params, sw, qw
@@ -95,19 +111,22 @@ _BLOCK_BYTES = 64 << 20     # a host tensor crosses in blocks of this size
 def split_leaf(x: torch.Tensor, dim: int, shard: ShardCtx,
                widths=None) -> Shards:
     """``x`` cut along ``dim`` into one contiguous part per shard, each on
-    its shard's device (``widths``: the parts' sizes, even by default).
+    its shard's device (``widths``: the parts' sizes, the vocabulary's
+    uneven slices; even by default, then laid out as one split segment).
     A host tensor split past its leading dim crosses to each distinct
     device once, in contiguous blocks of leading rows, and is cut there:
     a strided host slice would first be staged through a pageable copy."""
     n = x.shape[dim]
+    segs = None
     if widths is None:
         widths = [n // shard.degree] * shard.degree
+        segs = ((n, 1, True),)
     starts = [sum(widths[:s]) for s in range(len(widths))]
     devices = shard.devices
     if x.device.type != "cpu" or dim == 0:
         parts = [x.narrow(dim, c0, w).to(dev).contiguous()
                  for c0, w, dev in zip(starts, widths, devices)]
-        return Shards(parts, dim=dim - x.dim())
+        return Shards(parts, dim=dim - x.dim(), segs=segs)
     parts = [torch.empty(x.shape[:dim] + (w,) + x.shape[dim + 1:],
                          dtype=x.dtype, device=dev)
              for w, dev in zip(widths, devices)]
@@ -118,7 +137,16 @@ def split_leaf(x: torch.Tensor, dim: int, shard: ShardCtx,
             for part, c0, w, d in zip(parts, starts, widths, devices):
                 if d == dev:
                     part[r0:r0 + rows].copy_(block.narrow(dim, c0, w))
-    return Shards(parts, dim=dim - x.dim())
+    return Shards(parts, dim=dim - x.dim(), segs=segs)
+
+
+def cut_leaf(x: torch.Tensor, dim: int, segs, shard: ShardCtx) -> Shards:
+    """``x`` cut by ``segs`` along ``dim`` (from the end) into each shard's
+    part on its device (``sharding.ctx.cut``); ``x`` crosses to each
+    distinct device once."""
+    on = {dev: x.to(dev) for dev in dict.fromkeys(shard.devices)}
+    return Shards([cut(on[dev], dim, segs, s, shard.degree)
+                   for s, dev in enumerate(shard.devices)], dim, segs)
 
 
 def vocab_widths(V: int, degree: int):
@@ -137,27 +165,85 @@ def split_vocab(head: torch.Tensor, shard: ShardCtx) -> Shards:
     return split_leaf(head, 1, shard, widths)
 
 
-def place(tree, spec_tree, shard: ShardCtx) -> Any:
+def place(tree, spec_tree, shard: ShardCtx,
+          layouts: Optional[dict] = None) -> Any:
     """Put ``tree`` on the mesh by ``spec_tree``: 'model'-split leaves
-    become ``Shards``, the rest move to the lead device. Non-tensor leaves
-    (ints, None) pass through."""
+    become ``Shards``, the rest move to the lead device. ``layouts``
+    ({module key: {leaf path in the module: (dim, segments)}},
+    ``_layouts``) lays those leaves of each such module out by their
+    segments instead of their specs. Non-tensor leaves (ints, None) pass
+    through."""
     if isinstance(tree, dict):
-        return {k: place(v, spec_tree[k], shard) for k, v in tree.items()}
+        return {k: (_place_module(v, spec_tree[k], shard, layouts[k], k)
+                    if layouts and k in layouts
+                    else place(v, spec_tree[k], shard, layouts))
+                for k, v in tree.items()}
     if _is_namedtuple(tree):
-        return type(tree)(*(place(v, s, shard)
+        return type(tree)(*(place(v, s, shard, layouts)
                             for v, s in zip(tree, spec_tree)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(place(v, s, shard)
+        return type(tree)(place(v, s, shard, layouts)
                           for v, s in zip(tree, spec_tree))
-    if isinstance(tree, QTensor):
-        return QTensor(tree.q.to(shard.lead), tree.scale.to(shard.lead),
-                       tree.bits)
-    if not isinstance(tree, torch.Tensor):
-        return tree
-    dim = model_dim(spec_tree)
+    return _place_leaf(tree, spec_tree, shard, None)
+
+
+def _place_module(tree, spec_tree, shard: ShardCtx, table: dict,
+                  name: str) -> Any:
+    """``place`` of one module's params (nested dicts), the leaves that
+    ``table`` names by their segments. Raises if the module lacks one of
+    them, so a renamed leaf cannot fall back to its spec unseen."""
+    seen = set()
+
+    def walk(t, sp, path):
+        if isinstance(t, dict):
+            return {k: walk(v, sp[k], f"{path}/{k}" if path else k)
+                    for k, v in t.items()}
+        seen.add(path)
+        return _place_leaf(t, sp, shard, table.get(path))
+
+    out = walk(tree, spec_tree, "")
+    missing = sorted(set(table) - seen)
+    if missing:
+        raise KeyError(f"{name}: no leaf {missing} to lay out")
+    return out
+
+
+def _place_leaf(x, spec, shard: ShardCtx, layout) -> Any:
+    """One leaf: a quantized tensor whole on the lead, a tensor cut by its
+    ``layout`` (dim, segments) or split by its spec, else as it is."""
+    if isinstance(x, QTensor):
+        return QTensor(x.q.to(shard.lead), x.scale.to(shard.lead), x.bits)
+    if not isinstance(x, torch.Tensor):
+        return x
+    if layout is not None:
+        return cut_leaf(x, *layout, shard)
+    dim = model_dim(spec)
     if dim is None:
-        return tree.to(shard.lead)
-    return split_leaf(tree, dim, shard)
+        return x.to(shard.lead)
+    return split_leaf(x, dim, shard)
+
+
+def place_like(tree, like, shard: ShardCtx) -> Any:
+    """Put a whole-layout ``tree`` (a snapshot's decode state) on the mesh
+    in the layout of ``like`` (the session's own state, of the same
+    structure, whose ``Shards`` all carry segments: ``Model.
+    empty_cache_entry``): where ``like`` holds a ``Shards``, the whole
+    tensor is cut into its layout on its devices; every other tensor goes
+    where ``like``'s does (the lead device)."""
+    if isinstance(like, Shards) and isinstance(tree, torch.Tensor):
+        return cut_leaf(tree, like.dim, like.segs, shard)
+    if isinstance(tree, dict):
+        return {k: place_like(v, like[k], shard) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(place_like(v, l, shard)
+                            for v, l in zip(tree, like)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place_like(v, l, shard)
+                          for v, l in zip(tree, like))
+    if isinstance(tree, torch.Tensor):
+        return tree.to(like.device if isinstance(like, torch.Tensor)
+                       else shard.lead)
+    return tree
 
 
 def to_host(tree) -> Any:
@@ -191,11 +277,16 @@ def unplace(tree, device) -> Any:
 
 
 def check_servable(model, mesh, policy: str) -> None:
-    """Refuse, naming "multi-GPU", what this slice does not shard: a mesh
-    over a MoE, SSD, RG-LRU or frontend model, ``DATA > 1``, the training
-    policy, and a degree that does not divide the KV heads (JAX's ``_fit``
-    would replicate wk/wv and split head_dim)."""
-    from repro_torch.config import ATTN, LOCAL_ATTN
+    """Refuse, naming "multi-GPU", what a ``(1, P)`` mesh does not serve:
+    ``DATA > 1`` (so also tp2d's second dim over 'data'), the training
+    policy ``fsdp_tp``, a degree that does not divide the query heads, or
+    whose KV heads neither divide it nor are divided by it (minicpm-2b's
+    36 heads at P = 8), and a degree that does not divide Mamba2's SSD
+    heads or the RG-LRU width. Every family of ``configs.ARCHS`` is
+    served: the attention family, MoE (both forms), SSD, the RG-LRU
+    hybrid, the VLM frontend and the encoder. MoE's ``moe_ep_quant`` /
+    ``moe_bf16_reduce`` are refused where the model is built."""
+    from repro_torch.config import ATTN, LOCAL_ATTN, RGLRU, SSD
     cfg = model.cfg
     if policy not in ("tp_dp", "tp2d"):
         raise ValueError(f"policy={policy!r}: serving takes 'tp_dp' or "
@@ -207,32 +298,53 @@ def check_servable(model, mesh, policy: str) -> None:
             "ReplicaPool (independent engines), not an in-engine mesh axis")
     P = int(mesh.shape["model"])
     kinds = {k for unit, _ in model.segments for k in unit}
-    what = ("MoE" if cfg.moe is not None else
-            "a frontend" if cfg.frontend != "none" else
-            "an encoder" if not cfg.is_decoder() else
-            None if kinds <= {ATTN, LOCAL_ATTN} else "SSD / RG-LRU blocks")
-    if what is not None:
-        raise ValueError(f"{cfg.name}: a mesh over {what} is not ported "
-                         f"yet ({MULTI}); this slice shards the attention "
-                         "family with a dense MLP")
-    if cfg.num_kv_heads % P:
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    if kinds & {ATTN, LOCAL_ATTN} and (H % P or (KVH % P and P % KVH)):
         raise ValueError(
-            f"{cfg.name}: tensor-parallel degree {P} does not divide "
-            f"{cfg.num_kv_heads} KV heads ({MULTI}: JAX would replicate "
-            "wk/wv and split head_dim)")
+            f"{cfg.name}: tensor-parallel degree {P} over {H} query heads "
+            f"and {KVH} KV heads ({MULTI}): the degree must divide the "
+            "query heads, and divide the KV heads or be a multiple of them")
+    if SSD in kinds:
+        from repro_torch.models.ssd import dims
+        nh = dims(cfg)[1]
+        if nh % P:
+            raise ValueError(
+                f"{cfg.name}: tensor-parallel degree {P} does not divide "
+                f"the {nh} SSD heads ({MULTI}): each shard holds whole "
+                "heads")
+    if RGLRU in kinds:
+        from repro_torch.models.rglru import lru_width
+        if lru_width(cfg) % P:
+            raise ValueError(
+                f"{cfg.name}: tensor-parallel degree {P} does not divide "
+                f"the RG-LRU width {lru_width(cfg)} ({MULTI})")
+
+
+def _layouts(model) -> dict:
+    """The placements that differ from JAX's specs (the module
+    docstring), by the module that owns the leaves: {module key: that
+    module's ``param_segs``}, the KV heads' (``attention``) and Mamba2's
+    head-aligned SSD leaves (``ssd``)."""
+    from repro_torch.models import attention, ssd
+    out = {"attn": attention.param_segs(model.cfg)}
+    if model.cfg.ssm is not None:
+        out["ssd"] = ssd.param_segs(model.cfg)
+    return out
 
 
 def shard_params(params, sw, mesh, policy: str, model
                  ) -> Tuple[Any, Any]:
     """Each shard's slices of ``params`` on its device by the policy's
-    specs (a tied head first gets its contiguous copy), the LM head's
-    vocabulary slices beside its lead copy, and ``sw`` whole on the lead.
-    Returns (params, sw); the inputs are not modified."""
+    specs and ``_layouts``' segments (a tied head first gets its
+    contiguous copy), the LM head's vocabulary slices beside its lead
+    copy, and ``sw`` whole on the lead. Returns (params, sw); the inputs
+    are not modified."""
     shard = ShardCtx.from_mesh(mesh)
     params = with_contiguous_head(params)
     specs = pol.param_specs(model, mesh, policy, params)
     head = params["lm_head"]["w"]
-    out = place(dict(params, lm_head={}), dict(specs, lm_head={}), shard)
+    out = place(dict(params, lm_head={}), dict(specs, lm_head={}), shard,
+                _layouts(model))
     out["lm_head"] = {"w": head.to(shard.lead),
                       "vocab_shards": split_vocab(head, shard)}
     return out, (None if sw is None else unplace(sw, shard.lead))

@@ -686,7 +686,8 @@ def test_kv_quant_serving_kernels_match_plain_path(dev, chunk):
 @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,ds,hd,nh", [(32, 16, 32, 4), (64, 128, 64, 24),
                                         (64, 16, 32, 5), (32, 128, 64, 24),
-                                        (40, 16, 48, 5)])
+                                        (40, 16, 48, 5), (64, 128, 64, 12),
+                                        (64, 128, 64, 6)])
 @pytest.mark.parametrize("cells", [1, 8, 32])
 def test_ssd_chunk_kernel_matches_plain(dev, bc_dtype, c, ds, hd, nh, cells):
     """The SSD intra-chunk kernel against its plain version on the same
@@ -1869,6 +1870,31 @@ def test_attention_kernels_at_new_head_shapes(dev, reader, dtype, shape,
     assert bool(torch.isfinite(got.float()).all())
     torch.testing.assert_close(got.float()[:-1], want[:-1], atol=1e-4,
                                rtol=rtol)
+
+
+# (n_rep, hd, KV heads) of a tensor-parallel shard of RecurrentGemma: its 16
+# query heads over one KV head of 256 at P = 2 (8 heads a shard, two CTAs a
+# KV head) and P = 4 (4 heads a shard, one CTA)
+TP_HEAD_SHAPES = [(8, 256, 1), (4, 256, 1), (6, 128, 4), (6, 128, 2),
+                  (16, 64, 1)]
+
+
+@pytest.mark.parametrize("window", [None, 64, 300])
+@pytest.mark.parametrize("shape", TP_HEAD_SHAPES,
+                         ids=lambda s: f"nrep{s[0]}-hd{s[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reader", ["dense", "fp", "int8"])
+def test_attention_kernels_at_tp_shard_head_shapes(dev, reader, dtype,
+                                                   shape, window):
+    """The dense, paged and int8-paged split-KV kernels at the head shapes
+    of the tensor-parallel shards: n_rep 8 and 4 with hd 256 (the
+    instances a shard of recurrentgemma-9b launches), and n_rep 6 at 128
+    over 4 and 2 KV heads and 16 at 64 over one (dbrx-132b / internvl2-26b
+    at P = 2, 4 and qwen3-moe at P = 4: fewer CTAs, other splits), by the
+    cases of ``test_attention_kernels_at_new_head_shapes``: against the
+    plain version, one launch each."""
+    test_attention_kernels_at_new_head_shapes(dev, reader, dtype, shape,
+                                              window)
 
 
 def test_grid_split_fills_the_card_only_where_it_is_idle(dev):

@@ -36,6 +36,17 @@ from repro_torch.models import common  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_unflatten  # noqa
 from repro_torch.models.model import build_model  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small ops: one intra-op thread, so parallel test workers do not
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 DENSE_FAMILY = ["llama2-13b", "llama2-70b", "deepseek-7b", "minicpm-2b",
                 "starcoder2-15b", "command-r-plus-104b"]

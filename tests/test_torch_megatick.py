@@ -36,6 +36,16 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small ops: one intra-op thread, so parallel test workers do not
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     run_j = jax_get_config("llama2-7b").smoke()

@@ -31,6 +31,17 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import paged as tpaged  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small ops: one intra-op thread, so parallel test workers do not
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 HTOL = dict(atol=1e-4, rtol=1e-4)
 
 

@@ -46,6 +46,17 @@ from repro_torch.models.model import segments_of  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.train import TrainLoop  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small ops: one intra-op thread, so parallel test workers do not
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 LONG_TOL = dict(atol=3e-5, rtol=3e-5)
 NAME = "recurrentgemma-9b"

@@ -199,8 +199,9 @@ def test_flash_flag_gives_same_tokens(setup):
 
 
 def test_serving_raises_on_what_is_not_ported(setup, tmp_path):
-    """No silent degradation: a mesh this slice does not shard (DATA > 1,
-    the training policy, a MoE model) raises ValueError naming its ROADMAP
+    """No silent degradation: a mesh the port does not shard (DATA > 1,
+    the training policy, a degree that does not divide a MoE model's
+    query heads) raises ValueError naming its ROADMAP
     item ("multi-GPU"); a (1, 2) mesh serves at tensor-parallel degree 2,
     and ``policy`` without a mesh is ignored, as JAX ignores it. The
     fault-tolerance arguments and an oversubscribed
@@ -260,7 +261,7 @@ def test_serving_raises_on_what_is_not_ported(setup, tmp_path):
     moe = build_model(get_config("dbrx-132b").smoke())
     with pytest.raises(ValueError, match="ROADMAP: multi-GPU"):
         ServingEngine(moe, {}, None, specee=False,
-                      mesh=make_host_mesh(1, 2, "cpu"))
+                      mesh=make_host_mesh(1, 3, "cpu"))
     se = ServingEngine(m, params, sw, mesh=make_host_mesh(1, 2, "cpu"))
     assert se.tp_degree == 2
     assert (ServingEngine(m, params, sw, policy="fsdp").tp_degree

@@ -27,6 +27,17 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models.model import ModelFlags, build_model  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small ops: one intra-op thread, so parallel test workers do not
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 

@@ -45,6 +45,17 @@ from repro_torch.core import scheduler as tsched  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_unflatten  # noqa
 from repro_torch.models.model import build_model  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small ops: one intra-op thread, so parallel test workers do not
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GTOL = dict(rtol=1e-4, atol=1e-6)
 DRAFT_STEPS, PRED_STEPS, MAX_NEW = 3, 5, 4
 

@@ -11,9 +11,10 @@ vocabulary (the last vocabulary slice narrower), ``ServingEngine(mesh=)``
 on the paged cache, starcoder2-15b's smoke config (biases, layernorm,
 GELU: a row-parallel bias added once, after the reduce), ``quant="int8"``
 and ``kv_quant`` at P = 2, and ``tp2d`` with DATA = 1. A snapshot taken at
-one degree restores at another. What this slice does not shard is refused
-naming "multi-GPU". Then the launcher's multi-GPU flags, in this process.
-Tolerance: tokens exact."""
+one degree restores at another. What a mesh does not serve is refused
+naming "multi-GPU" (the other families' meshes:
+``tests/test_torch_tp_families.py``). Then the launcher's multi-GPU
+flags, in this process. Tolerance: tokens exact."""
 import dataclasses
 
 import numpy as np
@@ -197,23 +198,44 @@ def test_snapshot_restores_at_another_degree():
         assert drain(s) == ref
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "mamba2-130m",
-                                  "recurrentgemma-9b", "internvl2-26b",
-                                  "hubert-xlarge"])
-def test_unported_meshes_refused(arch):
-    """A mesh over MoE, SSD, RG-LRU, a frontend or an encoder is refused
-    naming "multi-GPU", before anything is placed."""
-    run = get_config(arch).smoke()
-    m = build_model(run)
+def _refused(case):
+    """The call a refusal case makes (raising ValueError)."""
+    def engine(arch, data, model, policy="tp_dp", **flags):
+        m = build_model(get_config(arch).smoke(), ModelFlags(**flags))
+        Engine.create(m, {}, None, strategy="dense", policy=policy,
+                      mesh=make_host_mesh(data, model, "cpu"))
+    return {
+        "data_2": lambda: engine("llama2-7b", 2, 1),
+        "tp2d_over_data": lambda: engine("llama2-7b", 2, 2, "tp2d"),
+        "fsdp_tp": lambda: engine("llama2-7b", 1, 2, "fsdp_tp"),
+        "moe_ep_quant": lambda: engine("dbrx-132b", 1, 2,
+                                       moe_ep_quant=True),
+        "moe_bf16_reduce": lambda: engine("qwen3-moe-235b-a22b", 1, 2,
+                                          moe_bf16_reduce=True),
+        "ssd_heads": lambda: engine("mamba2-130m", 1, 3),
+        "minicpm_p3": lambda: engine("minicpm-2b", 1, 3),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["data_2", "tp2d_over_data", "fsdp_tp",
+                                  "moe_ep_quant", "moe_bf16_reduce",
+                                  "ssd_heads", "minicpm_p3"])
+def test_remaining_meshes_refused(case):
+    """What a mesh still does not serve is refused naming "multi-GPU",
+    before anything is placed: DATA > 1 (tp2d's second dim over 'data'
+    too), the training policy, MoE's expert-parallel flags, a degree that
+    does not divide Mamba2's 8 smoke SSD heads (P = 3), and minicpm-2b's
+    smoke config at P = 3 (4 query heads). Every family of ``ARCHS`` is
+    served at P = 2 and 4 (``tests/test_torch_tp_families.py``)."""
     with pytest.raises(ValueError, match="multi-GPU"):
-        Engine.create(m, {}, None, strategy="dense",
-                      mesh=make_host_mesh(1, 2, "cpu"))
+        _refused(case)()
 
 
 def test_mesh_refusals():
-    """DATA > 1, the training policy and a degree that does not divide the
-    KV heads are refused naming "multi-GPU"; MoE's expert-parallel flags
-    stay refused; a (1, 1) mesh is the unsharded engine."""
+    """DATA > 1, the training policy and a degree that neither divides the
+    KV heads nor is a multiple of them (nor divides the query heads) are
+    refused naming "multi-GPU"; MoE's expert-parallel flags stay refused;
+    a (1, 1) mesh is the unsharded engine."""
     _, _, _, m, params, sw = _pair()
     for mesh, policy in ((make_host_mesh(2, 1, "cpu"), "tp_dp"),
                          (make_host_mesh(1, 2, "cpu"), "fsdp_tp")):
@@ -222,7 +244,7 @@ def test_mesh_refusals():
     sc = build_model(get_config("starcoder2-15b").smoke())
     with pytest.raises(ValueError, match="multi-GPU"):
         Engine.create(sc, {}, None, strategy="dense",
-                      mesh=make_host_mesh(1, 4, "cpu"))
+                      mesh=make_host_mesh(1, 3, "cpu"))
     with pytest.raises(ValueError, match="multi-GPU"):
         build_model(get_config("dbrx-132b").smoke(),
                     ModelFlags(moe_ep_quant=True))
