@@ -19,9 +19,9 @@ through chunked attention and runs the serving launcher, and runs the MoE
 HuBERT) configs, and serves through injected faults, evictions from an
 oversubscribed pool and a checkpoint restored into a fresh engine,
 serves tensor-parallel over a (1, P) mesh whose shards share the card,
-through a device loss and a replica pool, and serves every other family
+through a device loss and a replica pool, serves every other family
 (MoE, Mamba2, the RG-LRU hybrid, the VLM and the encoder) over such a
-mesh.
+mesh, and trains under a (DATA, MODEL) mesh at fsdp_tp.
 
     python3 chip_smoke.py
 
@@ -220,14 +220,14 @@ Phases (lines ``[phase +seconds since the start] ...``):
      first each at published widths, 2 layers, fp32, SpecEE (threshold
      0.4) on dense and paged caches and tree decoding with every kernel
      against the plain paths (tokens and exit points identical); then, at
-     published widths and 16 layers, llama2-13b (AR whole-batch B=4,
+     published widths and 8 layers, llama2-13b (AR whole-batch B=4,
      prompt 128, 32 steps; tree, 8 steps; phase 5's 16 requests, 16 new
      tokens each, served on the paged cache), starcoder2-15b (48 heads
      over 4 KV heads: n_rep 12 in the
      dense, paged and int8 paged attention kernels; AR, serving, kv_quant
      serving, AR with an int8 head and predictors), deepseek-7b (AR,
      V=102400), minicpm-2b (odd V=122753, hd 64, tied: AR, tree, int8
-     AR), llama2-70b at 8 of its 80 layers (AR, serving) and
+     AR), llama2-70b at 4 of its 80 layers (AR, serving) and
      command-r-plus-104b at 4 of its 64 (AR); each run zeroes the launch
      counts and requires its path's kernels; tokens/s, ms/step or tick,
      peak memory;
@@ -323,7 +323,22 @@ Phases (lines ``[phase +seconds since the start] ...``):
      published size, frame logits at P = 2, 4 against P = 1's (max
      |diff| logged). Each family's run at each degree is a main path
      (``tpfam_*``);
- 18. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
+ 18. trainmesh — training under a (DATA, MODEL) mesh at fsdp_tp, every
+     slot on the one card, fp32 with TF32 off: llama2-7b's widths at 2
+     layers, B=8 x 256, remat full, 3 TrainLoop steps unsharded, then at
+     (2, 2) and (1, 4) (microbatch by JAX's rule, max(B // 16, DATA)):
+     losses and grad norms within rtol 1e-4, the largest param
+     difference, step ms, peak memory and the collectives over 'data' a
+     step by kind (calls, bytes); qwen3-moe's widths at 1 layer (E 128,
+     top-8) with expert parallelism at (2, 2), plain, ``moe_ep_quant``
+     and ``moe_bf16_reduce``, loss and gradients of one batch against
+     the unsharded run with the same flags; mamba2-130m at published
+     size at (2, 2) (loss and gradients; then a TrainLoop checkpoint
+     saved at (2, 2) and restored at (1, 2) and without a mesh,
+     bit-equal); recurrentgemma-9b's widths at 3 layers at (1, 4). The
+     path runs no kernel (no backward for flash or SSD): its launches,
+     counted from 0, must stay 0 (``trainmesh``);
+ 19. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
@@ -331,7 +346,7 @@ token per step (one emitted token per tree step), so the tree runs of
 phases 3 to 10 measure the mechanism's cost, not its gain; phase 11's
 trained bundles are the ones that exit and accept.
 
-Each main path (phases 4 to 17, each run on its own) zeroes the
+Each main path (phases 4 to 18, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -4594,19 +4609,19 @@ def trained_phase(torch, dev):
 # ---------------------------------------------------------------------------
 # (arch, layers, the runs): every config at published widths; the four
 # that fit the card whole (PERF.md keeps their published-size runs) at
-# DF_DEPTH layers since phase 17 took their time, llama2-70b
+# DF_DEPTH layers since phases 17 and 18 took their time, llama2-70b
 # (140 GB of bf16 weights) and command-r-plus-104b (208 GB) with their
 # depth cut to what one card holds beside its runs. "int8_head_ar" keeps
 # the projections bf16 and makes the LM head and predictors int8: a 15B
 # model's bf16 params, its int8 codes and the dequantized projections the
 # quantized engine holds (ROADMAP queue 2, item 4) do not fit one card
-DF_DEPTH = 16
+DF_DEPTH = 8
 DF_RUNS = (("llama2-13b", DF_DEPTH, ("ar", "tree", "serve")),
            ("starcoder2-15b", DF_DEPTH, ("ar", "serve", "kvq_serve",
                                          "int8_head_ar")),
            ("deepseek-7b", DF_DEPTH, ("ar",)),
            ("minicpm-2b", DF_DEPTH, ("ar", "tree", "int8_ar")),
-           ("llama2-70b", 8, ("ar", "serve")),
+           ("llama2-70b", 4, ("ar", "serve")),
            ("command-r-plus-104b", 4, ("ar",)))
 DF_STEPS, DF_TREE_STEPS, DF_PARITY_NEW = 32, 8, 8
 DF_SERVE_NEW = 16             # new tokens a request in phase 12's serving
@@ -6373,6 +6388,339 @@ def tp_family_phase(torch, dev):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training under a (DATA, MODEL) mesh
+# ---------------------------------------------------------------------------
+TM_LAYERS, TM_B, TM_SEQ, TM_STEPS = 2, 8, 256, 3   # llama2-7b's run
+TM_MESHES = ((2, 2), (1, 4))
+TM_MOE_B, TM_MOE_SEQ = 2, 128                      # qwen3-moe, 1 layer
+TM_MAMBA_B, TM_MAMBA_SEQ = 4, 256                  # mamba2-130m, 24 layers
+TM_RG_LAYERS, TM_RG_B, TM_RG_SEQ = 3, 2, 128       # recurrentgemma-9b
+TM_FP32_REL = 1e-3          # |grad diff| over the leaf's largest |grad|
+TM_BF16_REL = 4 * 2.0 ** -8  # four bf16 spacings of the leaf's largest
+TM_BF16_LOSS = 2.0 ** -8     # the loss within one bf16 spacing
+
+
+def tm_mesh(D: int, P: int):
+    """A (D, P) mesh with every slot on cuda:0."""
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(D, P, device="cuda:0")
+
+
+def _tm_grads(torch, model, params, batch, tm=None):
+    """(loss, gradients) of one batch: unsharded through ``train_loss``
+    (the gradients whole), or over ``tm``'s mesh through
+    ``train_loss_rows`` with the copies' all-reduce (the gradients
+    placed)."""
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    p = tree_unflatten(params, leaves)
+    if tm is None:
+        loss, _ = model.train_loss(p, batch)
+    else:
+        loss, _ = model.train_loss_rows(p, tm.split_batch(batch), tm)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = tree_unflatten(params, [torch.zeros_like(x) if g is None else g
+                                    for x, g in zip(leaves, grads)])
+    del leaves, p
+    if tm is not None:
+        grads = tm.reduce_grads(grads)
+    return float(loss.detach()), grads
+
+
+def _tm_worst(torch, dev, tm, got, want) -> float:
+    """The largest |got - want| over the leaf's largest |want|, leaf by
+    leaf on the card (``got`` placed on ``tm``'s mesh, or whole; ``want``
+    whole, on the host or the card)."""
+    if isinstance(want, dict):
+        return max(_tm_worst(torch, dev, tm, got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return max(_tm_worst(torch, dev, tm, g, w) for g, w in
+                   zip(got, want))
+    g = tm.unplace(got, dev) if tm is not None else got
+    w = want.to(dev)
+    return float((g.float() - w.float()).abs().max()
+                 / w.float().abs().max().clamp(min=1e-30))
+
+
+def _tm_free(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _tm_counts():
+    from repro_torch.runtime import collectives as C
+    return {k: dict(v) for k, v in C.COUNTS.items()}
+
+
+def _tm_counts_str(counts, per: int = 1) -> str:
+    """The collectives over 'data' (per step when ``per`` is the steps)."""
+    return ", ".join(f"{k} {v['calls'] / per:g} calls "
+                     f"{v['bytes'] / per / 1e9:.3f} GB"
+                     for k, v in counts.items())
+
+
+def tm_llama(torch, dev):
+    """llama2-7b at full width, 2 layers, remat="full" (the launcher's
+    default): 3 TrainLoop steps unsharded, then at (2, 2) and (1, 4)
+    under fsdp_tp (microbatch by JAX's rule, max(B // 16, D)); losses and
+    grad norms at rtol 1e-4."""
+    import dataclasses
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.runtime import collectives as C
+    from repro_torch.train import TrainLoop
+    run = llama(TM_LAYERS, "float32")
+    model = build_model(run, ModelFlags(remat="full"))
+    gen = torch.Generator(device=dev).manual_seed(180)
+    host = tree_map(lambda x: x.cpu(), model.init(gen, dev))
+    n_params = sum(x.numel() for x in tree_leaves(host))
+
+    def train(mesh, D):
+        r = dataclasses.replace(run, train=dataclasses.replace(
+            run.train, global_batch=TM_B, seq_len=TM_SEQ,
+            microbatch=max(TM_B // 16, D)))
+        _tm_free(torch)
+        params = host if mesh is not None else tree_map(
+            lambda x: x.to(dev), host)
+        loop = TrainLoop(model, r, params, mesh=mesh)
+        del params
+        C.reset_counts()
+        stats = [loop.run_steps(1) for _ in range(TM_STEPS)]
+        torch.cuda.synchronize()
+        return loop, stats, _tm_counts(), \
+            torch.cuda.max_memory_allocated() / 1e9
+
+    loop, ref, _, peak0 = train(None, 1)
+    step0 = sum(s["step_time"] for s in ref[1:]) / (TM_STEPS - 1) * 1e3
+    want = tree_map(lambda x: x.cpu(), loop.params)
+    del loop
+    log("trainmesh", f"llama2-7b {TM_LAYERS} layers fp32 "
+        f"({n_params / 1e9:.3f} B params), B={TM_B} x {TM_SEQ}, remat full, "
+        f"unsharded (microbatch 1): losses "
+        f"{[round(s['loss'], 6) for s in ref]}, grad norms "
+        f"{[round(s['grad_norm'], 6) for s in ref]}, step "
+        f"{step0:.1f} ms (steps 2-{TM_STEPS}), peak {peak0:.2f} GB")
+    results = {"unsharded": (step0, peak0, None)}
+    for D, P in TM_MESHES:
+        loop, stats, counts, peak = train(tm_mesh(D, P), D)
+        for a, b in zip(stats, ref):
+            for key in ("loss", "grad_norm"):
+                require(abs(a[key] - b[key]) <= 1e-4 * abs(b[key]),
+                        f"trainmesh llama ({D}, {P}) step {key} "
+                        f"{a[key]} vs unsharded {b[key]}")
+        worst = max(float((x - y.to(dev)).abs().max()) for x, y in zip(
+            tree_leaves(loop.whole(dev)["params"]), tree_leaves(want)))
+        ms = sum(s["step_time"] for s in stats[1:]) / (TM_STEPS - 1) * 1e3
+        results[(D, P)] = (ms, peak, counts)
+        log("trainmesh", f"llama2-7b at ({D}, {P}) fsdp_tp, microbatch "
+            f"{max(TM_B // 16, D)}: losses "
+            f"{[round(s['loss'], 6) for s in stats]}, grad norms "
+            f"{[round(s['grad_norm'], 6) for s in stats]} (rtol 1e-4 "
+            f"of unsharded: ok), largest param diff after {TM_STEPS} "
+            f"steps {worst:.3e}; step {ms:.1f} ms (unsharded "
+            f"{step0:.1f}), peak {peak:.2f} GB (unsharded {peak0:.2f}); "
+            f"per step: {_tm_counts_str(counts, TM_STEPS)}")
+        del loop
+    return results
+
+
+def tm_moe(torch, dev):
+    """qwen3-moe-235b-a22b at full width, 1 layer (E 128, top-8, D 4096,
+    F 1536): loss and gradients of one batch at (2, 2) with expert
+    parallelism, plain, with moe_ep_quant (act_batch_axes "data") and
+    with moe_bf16_reduce, each against the unsharded run with the same
+    flags made first. Its gradients stay on the card while the whole
+    weights are dropped (joined again from the placed tree for the next
+    run), so the two sets of gradients fit beside the placed weights.
+    Forward and backward only: params, gradients and two AdamW moments
+    would be ~60 GB before the mesh's copies."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.runtime import collectives as C
+    from repro_torch.sharding.training import TrainMesh
+    run = df_config("qwen3-moe-235b-a22b", 1, "float32")
+    gen = torch.Generator(device=dev).manual_seed(181)
+    params = build_model(run).init(gen, dev)
+    gb = sum(x.numel() for x in tree_leaves(params)) * 4 / 1e9
+    tokens = torch.randint(0, run.model.vocab_size, (TM_MOE_B, TM_MOE_SEQ),
+                           generator=torch.Generator().manual_seed(182))
+    batch = {"tokens": tokens.to(dev)}
+    mesh = tm_mesh(2, 2)
+    tm = TrainMesh(build_model(run), mesh)
+    placed = tm.place(params, tm.specs(params))
+    out = {}
+    for label, flags, bound, loss_rel in (
+            ("EP", {}, TM_FP32_REL, 1e-4),
+            ("EP + moe_ep_quant", dict(moe_ep_quant=True,
+                                       act_batch_axes="data"), TM_BF16_REL,
+             1e-4),
+            ("EP + moe_bf16_reduce", dict(moe_bf16_reduce=True),
+             TM_BF16_REL, TM_BF16_LOSS)):
+        model = build_model(run, ModelFlags(**flags))
+        if params is None:              # the whole weights, joined again
+            params = tm.unplace(placed, dev)
+        _tm_free(torch)
+        t0 = time.perf_counter()
+        loss1, ref = _tm_grads(torch, model, params, batch)
+        torch.cuda.synchronize()
+        ms1 = (time.perf_counter() - t0) * 1e3
+        peak1 = torch.cuda.max_memory_allocated() / 1e9
+        params = None                   # the gradients stay on the card
+        tm = TrainMesh(model, mesh)
+        _tm_free(torch)
+        C.reset_counts()
+        t0 = time.perf_counter()
+        loss2, g = _tm_grads(torch, model, placed, batch, tm)
+        torch.cuda.synchronize()
+        ms2 = (time.perf_counter() - t0) * 1e3
+        peak2 = torch.cuda.max_memory_allocated() / 1e9
+        counts = _tm_counts()
+        worst = _tm_worst(torch, dev, tm, g, ref)
+        del g, ref
+        require(abs(loss2 - loss1) <= loss_rel * abs(loss1),
+                f"trainmesh qwen3-moe {label}: loss {loss2} vs {loss1}")
+        require(worst <= bound, f"trainmesh qwen3-moe {label}: gradient "
+                f"diff {worst:.3e} of the leaf's largest > {bound:.3e}")
+        out[label] = (ms1, ms2, peak1, peak2, counts)
+        log("trainmesh", f"qwen3-moe-235b-a22b 1 layer fp32 ({gb:.2f} GB "
+            f"of weights), B={TM_MOE_B} x {TM_MOE_SEQ}, {label} at (2, 2): "
+            f"loss {loss2:.7f} vs unsharded {loss1:.7f} (rel "
+            f"{abs(loss2 - loss1) / abs(loss1):.2e}, bound {loss_rel:.1e}), "
+            f"largest grad diff {worst:.3e} of the leaf's largest (bound "
+            f"{bound:.3e}); forward+backward {ms2:.1f} ms (unsharded "
+            f"{ms1:.1f}, first calls), peak {peak2:.2f} GB beside the "
+            f"unsharded gradients (unsharded {peak1:.2f} beside the placed "
+            f"weights); {_tm_counts_str(counts)}")
+    del params, placed
+    return out
+
+
+def tm_family(torch, dev, label, run, D, P, B, S, seed):
+    """One batch's loss and gradients at (D, P) against unsharded, both
+    on the card, in fp32. Returns the weights (on the card)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import collectives as C
+    from repro_torch.sharding.training import TrainMesh
+    model = build_model(run)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init(gen, dev)
+    tokens = torch.randint(0, run.model.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(seed))
+    batch = {"tokens": tokens.to(dev)}
+    _tm_free(torch)
+    loss1, ref = _tm_grads(torch, model, params, batch)
+    peak1 = torch.cuda.max_memory_allocated() / 1e9
+    tm = TrainMesh(model, tm_mesh(D, P))
+    placed = tm.place(params, tm.specs(params))
+    C.reset_counts()
+    loss2, g = _tm_grads(torch, model, placed, batch, tm)
+    peak2 = torch.cuda.max_memory_allocated() / 1e9
+    worst = _tm_worst(torch, dev, tm, g, ref)
+    require(abs(loss2 - loss1) <= 1e-4 * abs(loss1),
+            f"trainmesh {label}: loss {loss2} vs {loss1}")
+    require(worst <= TM_FP32_REL, f"trainmesh {label}: gradient diff "
+            f"{worst:.3e} of the leaf's largest")
+    log("trainmesh", f"{label} at ({D}, {P}), B={B} x {S}: loss "
+        f"{loss2:.7f} vs unsharded {loss1:.7f}, largest grad diff "
+        f"{worst:.3e} of the leaf's largest; peak {peak2:.2f} GB "
+        f"(unsharded {peak1:.2f}); {_tm_counts_str(_tm_counts())}")
+    del placed, g, ref
+    return params
+
+
+def tm_checkpoint(torch, dev, run, params):
+    """A TrainLoop at (2, 2) for TM_STEPS steps, saved, and restored at
+    (1, 2) and without a mesh: params, AdamW m and v and the step
+    bit-equal once gathered (mamba2-130m at published size; llama2-7b's
+    8.00 GB of params, m and v took 17.5 s to save and 19.2 s to restore
+    in this phase, PR 32's first chip run, so the round trip uses the
+    smaller model)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.train import TrainLoop
+    model = build_model(run)
+    host = tree_map(lambda x: x.cpu(), params)
+    r = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, global_batch=TM_MAMBA_B, seq_len=TM_MAMBA_SEQ,
+        microbatch=max(TM_MAMBA_B // 16, 2)))
+    with tempfile.TemporaryDirectory() as ck:
+        loop = TrainLoop(model, r, host, ckpt_dir=ck, mesh=tm_mesh(2, 2))
+        losses = [loop.run_steps(1)["loss"] for _ in range(TM_STEPS)]
+        t0 = time.perf_counter()
+        loop.save()
+        loop.ckpt.wait()
+        t1 = time.perf_counter()
+        saved = loop.whole(dev)
+        gb = sum(x.numel() * x.element_size()
+                 for x in tree_leaves(saved)) / 1e9
+        del loop
+        times = []
+        for label, mesh in (("(1, 2)", tm_mesh(1, 2)), ("no mesh", None)):
+            t2 = time.perf_counter()
+            back = TrainLoop(model, r, host if mesh is not None else
+                             tree_map(lambda x: x.to(dev), host),
+                             ckpt_dir=ck, mesh=mesh)
+            require(back.try_restore() and back.step == TM_STEPS,
+                    f"trainmesh: the (2, 2) checkpoint did not restore at "
+                    f"{label}")
+            got = back.whole(dev)
+            require(all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(got), tree_leaves(saved))),
+                f"trainmesh: the checkpoint restored at {label} differs")
+            times.append(time.perf_counter() - t2)
+            del back, got
+    log("trainmesh", f"mamba2-130m TrainLoop at (2, 2), {TM_STEPS} steps "
+        f"(losses {[round(x, 6) for x in losses]}); checkpoint of "
+        f"{gb:.2f} GB (params, AdamW m and v, whole) saved in "
+        f"{t1 - t0:.1f} s, restored at (1, 2) in {times[0]:.1f} s and "
+        f"without a mesh in {times[1]:.1f} s: bit-equal")
+
+
+def trainmesh_phase(torch, dev):
+    """Phase 18: training under a (DATA, MODEL) mesh at fsdp_tp, every
+    slot on cuda:0, fp32 with TF32 off. The path runs no kernel (the
+    flash and SSD kernels have no backward, so training never takes
+    them): its launches are counted and must stay 0. Returns the launches
+    by path."""
+    import dataclasses
+    from repro_torch import kernels as K
+    _tm_free(torch)
+    t0 = time.perf_counter()
+    log("trainmesh", card_line())
+    K.reset_launches()
+    tm_llama(torch, dev)
+    _tm_free(torch)
+    tm_moe(torch, dev)
+    _tm_free(torch)
+    run = mamba(24, "float32")
+    params = tm_family(torch, dev, "mamba2-130m (published size; "
+                       "head-aligned SSD leaves, B/C whole on every "
+                       "shard, the tied head)", run, 2, 2, TM_MAMBA_B,
+                       TM_MAMBA_SEQ, 183)
+    tm_checkpoint(torch, dev, run, params)
+    del params
+    _tm_free(torch)
+    run = df_config("recurrentgemma-9b", None, "float32")
+    run = dataclasses.replace(run, model=dataclasses.replace(
+        run.model, num_layers=TM_RG_LAYERS,
+        block_pattern=run.model.block_pattern[:TM_RG_LAYERS]))
+    tm_family(torch, dev, f"recurrentgemma-9b {TM_RG_LAYERS} layers (one "
+              "KV head on 4 shards)", run, 1, 4, TM_RG_B, TM_RG_SEQ, 184)
+    _tm_free(torch)
+    launches = dict(K.LAUNCHES)
+    require(not any(launches.values()),
+            f"trainmesh: the training path launched kernels {launches}")
+    log("trainmesh", f"phase 18 took {time.perf_counter() - t0:.1f} s; "
+        "every slot on cuda:0 (ZeRO-3 saves no memory on one card; no copy "
+        "between cards made or measured); no kernel launched")
+    return {"trainmesh": launches}
+
+
 def profile_steps(torch, model, params, sw, prompts, step_s: float,
                   n: int = 4, phase: str = "profile") -> None:
     """torch.profiler over ``n`` more whole-batch SpecEE steps."""
@@ -6532,6 +6880,8 @@ def main() -> int:
     by_path.update(tp_launches)
     torch.cuda.empty_cache()
     by_path.update(tp_family_phase(torch, dev))
+    torch.cuda.empty_cache()
+    by_path.update(trainmesh_phase(torch, dev))
     log("total", f"script {time.perf_counter() - T_START:.1f} s before the "
         "kernels line")
 

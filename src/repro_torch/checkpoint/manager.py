@@ -29,6 +29,12 @@ pools change every tick): with ``async_save`` only the file writes run in a
 background thread, one save deep (the next ``save`` or ``wait`` joins it).
 ``restore(step, like)`` checks each leaf's path, shape and dtype against
 ``like`` and puts each tensor on the device of ``like``'s leaf.
+
+A tree placed on a training mesh (``sharding/training.py``: ``DataShards``
+leaves) is saved as its whole tensors, JAX's layout of global arrays, so
+the files do not depend on the mesh; restoring into such a tree gives
+each of those leaves as its whole tensor on the host, for the caller to
+place on whatever mesh it now runs (``TrainLoop.try_restore``).
 """
 from __future__ import annotations
 
@@ -42,7 +48,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.common import tree_leaves_with_path, tree_unflatten
+from repro_torch.models.common import _is_namedtuple, tree_leaves_with_path
+from repro_torch.quant.core import QTensor
+from repro_torch.sharding.ctx import DataShards, Shards, join, whole_shape
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
@@ -77,6 +85,8 @@ class CheckpointManager:
         self.wait()                 # one save deep
         leaves = []
         for key, v in tree_leaves_with_path(tree):
+            if isinstance(v, DataShards):
+                v = join(v, torch.device("cpu"))
             if isinstance(v, torch.Tensor):
                 leaves.append((key, _to_host(v), _dtype_name(v.dtype)))
             else:
@@ -174,13 +184,18 @@ class CheckpointManager:
         finally:
             for sh in shards:
                 sh.close()
-        return tree_unflatten(like, vals), manifest["extra"]
+        return _unflatten(like, iter(vals)), manifest["extra"]
 
     @staticmethod
     def _leaf(shards, key: str, ref: Any, meta: Dict) -> Any:
         if meta["key"] != key:
             raise ValueError(f"leaf {key} restored from saved {meta['key']}")
-        if not isinstance(ref, torch.Tensor):
+        if isinstance(ref, DataShards):     # the whole tensor, on the host
+            first = ref[0][0] if isinstance(ref[0], Shards) else ref[0]
+            shape, dtype, device = whole_shape(ref), first.dtype, "cpu"
+        elif isinstance(ref, torch.Tensor):
+            shape, dtype, device = list(ref.shape), ref.dtype, ref.device
+        else:
             if "value" not in meta:
                 raise ValueError(f"{key}: saved a tensor, expected "
                                  f"{type(ref).__name__}")
@@ -188,14 +203,14 @@ class CheckpointManager:
         if "value" in meta:
             raise ValueError(f"{key}: saved {meta['value']!r}, expected a "
                              "tensor")
-        if list(ref.shape) != meta["shape"]:
-            raise ValueError(f"{key}: shape {list(ref.shape)} != saved "
+        if shape != meta["shape"]:
+            raise ValueError(f"{key}: shape {shape} != saved "
                              f"{meta['shape']}")
-        if _dtype_name(ref.dtype) != meta["torch_dtype"]:
-            raise ValueError(f"{key}: dtype {_dtype_name(ref.dtype)} != "
+        if _dtype_name(dtype) != meta["torch_dtype"]:
+            raise ValueError(f"{key}: dtype {_dtype_name(dtype)} != "
                              f"saved {meta['torch_dtype']}")
         arr = shards[meta["shard"]][meta["name"]]
-        return _from_host(arr, ref.dtype).to(ref.device)
+        return _from_host(arr, dtype).to(device)
 
     def restore_latest(self, like: Any) -> Optional[Tuple[int, Any, Dict]]:
         step = self.latest_step()
@@ -203,3 +218,22 @@ class CheckpointManager:
             return None
         tree, extra = self.restore(step, like)
         return step, tree, extra
+
+
+def _unflatten(like: Any, vals) -> Any:
+    """A nest shaped like ``like`` holding ``vals`` in
+    ``tree_leaves_with_path`` order (a ``DataShards`` leaf becomes its one
+    whole tensor)."""
+    if isinstance(like, DataShards):
+        return next(vals)
+    if isinstance(like, dict):
+        return {k: _unflatten(v, vals) for k, v in like.items()}
+    if isinstance(like, Shards):
+        return like.like([_unflatten(v, vals) for v in like])
+    if _is_namedtuple(like):
+        return type(like)(*(_unflatten(v, vals) for v in like))
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, vals) for v in like)
+    if isinstance(like, QTensor):
+        return QTensor(next(vals), next(vals), like.bits)
+    return next(vals)

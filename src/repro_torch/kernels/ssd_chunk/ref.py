@@ -19,8 +19,12 @@ def ssd_chunk_ref(xdt: torch.Tensor, cum: torch.Tensor, Bc: torch.Tensor,
     cum = cum.float()
     rel = cum[:, :, None, :] - cum[:, None, :, :]            # (B,c,c,nh)
     causal = torch.ones(c, c, dtype=torch.bool, device=xdt.device).tril()
-    M = torch.where(causal[None, :, :, None], torch.exp(rel),
-                    torch.zeros((), device=xdt.device))
+    # masked before the exp: above the diagonal rel > 0 can overflow, and
+    # exp's backward would multiply the masked zero gradient by inf (NaN;
+    # JAX's where-after-exp does so). The forward is the same.
+    M = torch.exp(torch.where(causal[None, :, :, None], rel,
+                              torch.full((), float("-inf"),
+                                         device=xdt.device)))
     CB = torch.einsum("bqd,bsd->bqs", Cc.float(), Bc.float())
     W = CB[..., None] * M                                    # (B,c,c,nh)
     return torch.einsum("bqsh,bshp->bqhp", W, xdt.float())

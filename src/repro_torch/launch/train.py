@@ -1,15 +1,27 @@
 """Training launcher of the port (counterpart of ``repro/launch/train.py``),
-one process on one device:
+one process:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-7b \\
-        --smoke --steps 20
+        --smoke --steps 20 [--data 2 --model 2]
 
-Seeds the model from ``run.train.seed`` on the device and runs the
-``TrainLoop`` on the synthetic data pipeline, printing the loss every ten
-steps. With ``--ckpt DIR`` it resumes from the latest checkpoint in DIR,
-saves every ``checkpoint_every`` steps, stops on SIGTERM, and saves once
-more at the end. The multi-host and mesh options are not ported yet and
-are refused (ROADMAP: multi-GPU).
+Seeds the model from ``run.train.seed`` and runs the ``TrainLoop`` on the
+synthetic data pipeline, printing the loss every ten steps. With ``--ckpt
+DIR`` it resumes from the latest checkpoint in DIR, saves every
+``checkpoint_every`` steps, stops on SIGTERM, and saves once more at the
+end.
+
+The mesh (JAX's rule): ``plan_remesh(n, --model)`` over n device slots,
+training at ``fsdp_tp`` when the mesh has more than one slot, with
+``act_batch_axes="data"`` and ``act_batch_extent`` the mesh's DATA. JAX
+takes n from the visible devices and parses ``--data`` without reading
+it; here n is the visible cards (or 1 for a named device such as
+``--device cpu``), and ``--data D`` asks for ``D * --model`` slots instead
+(``launch.mesh.make_host_mesh``: slot i on card i mod the cards, or every
+slot on the named device, so slots may repeat a card). A checkpoint holds
+whole tensors, so a run restarted with other ``--data`` / ``--model``
+resumes on its new mesh. ``--coordinator`` and ``--num-hosts > 1`` are
+refused (ROADMAP: multi-GPU): the port is one process, and several hosts
+need ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -34,12 +46,31 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="tensor-parallel degree")
     args = ap.parse_args(argv)
     refused = {"--coordinator": args.coordinator is not None,
-               "--num-hosts": args.num_hosts > 1,
-               "--data": args.data > 1, "--model": args.model > 1}
+               "--num-hosts": args.num_hosts > 1}
     for flag, asked in refused.items():
         if asked:
             raise SystemExit(f"{flag} is not ported yet ({_MULTI})")
     return args
+
+
+def mesh_for(args: argparse.Namespace):
+    """(mesh or None, its (data, model) shape): JAX's ``plan_remesh`` over
+    the device slots (the module docstring)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.fault import plan_remesh
+    named = args.device != "cuda"
+    n = (args.data * args.model if args.data > 0 else
+         1 if named else torch.cuda.device_count())
+    shape = plan_remesh(n, args.model)
+    if shape is None:
+        raise SystemExit(f"cannot build a mesh from {n} device slots at "
+                         f"TP={args.model}")
+    if shape == (1, 1):
+        return None, shape
+    return make_host_mesh(*shape, device=args.device if named else None), \
+        shape
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -53,11 +84,18 @@ def main(argv: Optional[List[str]] = None) -> None:
     run = get_config(args.arch)
     if args.smoke:
         run = run.smoke()
-    device = torch.device(args.device)
-    model = build_model(run, ModelFlags(remat="none" if args.smoke
-                                        else "full"))
+    mesh, shape = mesh_for(args)
+    device = torch.device(args.device) if mesh is None else mesh.flat[0]
+    print(f"[launch] slots={shape[0] * shape[1]} mesh={shape}"
+          + (f" devices={[str(d) for d in mesh.flat]}" if mesh else ""),
+          flush=True)
+    model = build_model(run, ModelFlags(
+        remat="none" if args.smoke else "full",
+        act_batch_axes="data" if shape[0] * shape[1] > 1 else None,
+        act_batch_extent=shape[0]))
     gen = torch.Generator(device=device).manual_seed(run.train.seed)
-    loop = TrainLoop(model, run, model.init(gen, device), ckpt_dir=args.ckpt)
+    loop = TrainLoop(model, run, model.init(gen, device), ckpt_dir=args.ckpt,
+                     mesh=mesh)
     loop.guard.install()
     try:
         if loop.try_restore():

@@ -250,6 +250,8 @@ def param_segs(cfg: ModelConfig):
     return {f"{n}/{leaf}": (-1, kv) for n in ("wk", "wv") for leaf in leaves}
 
 
-def out_proj(p: Params, attn_out: torch.Tensor) -> torch.Tensor:
+def out_proj(p: Params, attn_out: torch.Tensor,
+             pet: Optional[torch.dtype] = None) -> torch.Tensor:
     B, S, H, hd = attn_out.shape
-    return common.apply_linear(p["wo"], attn_out.reshape(B, S, H * hd))
+    return common.apply_linear(p["wo"], attn_out.reshape(B, S, H * hd),
+                               pet)

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.quant.core import QTensor
-from repro_torch.sharding.ctx import Shards
+from repro_torch.sharding.ctx import DataShards, Shards
 
 Params = Dict[str, Any]
 
@@ -33,13 +33,14 @@ def _is_namedtuple(x) -> bool:
 def tree_map(fn, tree):
     """Apply ``fn`` to every leaf of a nest of dicts, lists, tuples and
     NamedTuples (a ``DecodeState``, an ``AdamWState``) and the parts of a
-    sharded leaf (``sharding.ctx.Shards``, kept one); a ``QTensor`` maps
+    sharded leaf (``sharding.ctx.Shards``, kept one) and the entries of a
+    leaf cut over 'data' (``DataShards``, kept one); a ``QTensor`` maps
     over its codes and its scales (a stacked quantized bank slices like a
     plain one). A leaf is anything else: a tensor, or a value such as an
     int or None."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, Shards):
+    if isinstance(tree, (Shards, DataShards)):
         return tree.like(tree_map(fn, v) for v in tree)
     if _is_namedtuple(tree):
         return type(tree)(*(tree_map(fn, v) for v in tree))
@@ -62,9 +63,12 @@ def tree_leaves_with_path(tree, prefix: str = "") -> list:
     """``[(path, leaf)]`` in ``tree_leaves`` order. A path joins JAX's key
     strings with "/": ``['key']`` for a dict entry, ``[i]`` for a list or
     tuple item, ``.field`` for a NamedTuple field (``.q`` / ``.scale`` for
-    a ``QTensor``'s two parts)."""
+    a ``QTensor``'s two parts). A leaf placed on a training mesh (a
+    ``DataShards``) is one leaf: one logical tensor."""
     def sub(key):
         return f"{prefix}/{key}" if prefix else key
+    if isinstance(tree, DataShards):
+        return [(prefix, tree)]
     if isinstance(tree, dict):
         items = [(f"[{k!r}]", v) for k, v in tree.items()]
     elif _is_namedtuple(tree):
@@ -173,22 +177,66 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def apply_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+class _RoundedEinsum(torch.autograd.Function):
+    """``einsum(eq, a, b)`` rounded to ``dtype``, and so are the two
+    products of its backward: JAX's ``dot_general`` with
+    ``preferred_element_type`` (its transpose rule keeps the type), which
+    on the CPU accumulates in fp32 and rounds once."""
+
+    @staticmethod
+    def forward(ctx, eq, dtype, a, b):
+        ctx.save_for_backward(a, b)
+        ctx.eq, ctx.dtype = eq, dtype
+        return torch.einsum(eq, a, b).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        with torch.enable_grad():
+            a_ = a.detach().requires_grad_(True)
+            b_ = b.detach().requires_grad_(True)
+            out = torch.einsum(ctx.eq, a_, b_)
+            ga, gb = torch.autograd.grad(out, (a_, b_), g.to(out.dtype))
+        return (None, None, ga.to(ctx.dtype).to(a.dtype),
+                gb.to(ctx.dtype).to(b.dtype))
+
+
+def rounded_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``einsum(eq, a, b)`` in ``dtype`` as JAX's ``preferred_element_
+    type`` gives it: the fp32 sum rounded once, forward and backward."""
+    if a.dtype == dtype and b.dtype == dtype:
+        return torch.einsum(eq, a, b)
+    return _RoundedEinsum.apply(eq, dtype, a, b)
+
+
+def apply_linear(p: Params, x: torch.Tensor,
+                 pet: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x @ w (+ b)``. ``pet`` (JAX's ``preferred_element_type``): the
+    product rounded to that dtype (``rounded_einsum``), then back to x's,
+    before the bias (``ModelFlags.matmul_bf16_reduce`` passes bf16 for the
+    row-parallel projections)."""
+    if pet is not None:
+        y = rounded_einsum("...i,io->...o", x, p["w"].to(x.dtype),
+                           pet).to(x.dtype)
+    else:
+        y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
 
 
-def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Gated (``act(x wg) * x wi``) or plain (``act(x wi)``) MLP."""
+def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              pet: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Gated (``act(x wg) * x wi``) or plain (``act(x wi)``) MLP; ``pet``
+    rounds the row-parallel down projection (``apply_linear``)."""
     act = activation_fn(cfg.activation)
     up = apply_linear(p["wi"], x)
     if cfg.gated_mlp:
         up = act(apply_linear(p["wg"], x)) * up
     else:
         up = act(up)
-    return apply_linear(p["wo"], up)
+    return apply_linear(p["wo"], up, pet)
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:

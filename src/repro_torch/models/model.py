@@ -38,6 +38,12 @@ blocks stay whole on the lead. A sharded model (``with_shard``) builds its
 cache entries as ``Shards`` in each leaf's shard layout (``_entry_segs``:
 KV heads; SSD heads and conv channels; RG-LRU W slices); paged pools split
 the same way, the page table and lengths stay on the lead.
+
+Training under a ``(DATA, MODEL)`` mesh (``train_loss_rows``,
+``sharding/training.py``): each data row runs these same blocks on its
+rows of the batch, over its own TP group of ``Shards``; MoE's experts run
+over every row's tokens (``moe.apply_moe_rows``); the loss is the whole
+batch's.
 """
 from __future__ import annotations
 
@@ -58,7 +64,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.common import Params, index_tree
-from repro_torch.runtime.collectives import all_reduce_sum
+from repro_torch.runtime.collectives import all_reduce_rows, all_reduce_sum
 from repro_torch.sharding.ctx import Shards, local, part_size, parts
 
 
@@ -94,12 +100,23 @@ class ModelFlags:
     attention reads them dequantized: the paged kernel in registers, every
     other path as a dequantized copy in the compute dtype. ``moe_impl``
     picks the MoE form: "dense" (every expert, JAX's default) or "topk"
-    (only the selected experts); ``moe_ep_quant`` and ``moe_bf16_reduce``
-    shape the expert-parallel collectives of a mesh over MoE, which the
-    port's multi-GPU serving does not shard yet: they are refused."""
+    (only the selected experts). JAX's mesh flags, with its names and
+    defaults: ``moe_ep_quant`` quantizes each token to int8 before the
+    dense form's expert-parallel gather, only where ``act_batch_axes``
+    is set (JAX applies it only then, so also on a ``(1, 1)`` mesh);
+    ``moe_bf16_reduce`` rounds the dense form's E/F contraction to bf16
+    wherever it runs, serving included; ``matmul_bf16_reduce`` rounds the
+    sequence path's row-parallel attention ``out_proj`` and MLP-down to
+    bf16 (training and prefill). ``act_batch_axes`` / ``act_batch_extent``
+    are otherwise sharding hints with no effect on the numbers, as are
+    JAX's ``act_pin_full``, ``act_seq_shard`` and ``unroll`` (not carried:
+    ROADMAP)."""
     moe_impl: str = "dense"         # "dense" | "topk"
-    moe_ep_quant: bool = False      # int8 EP token dispatch (multi-GPU)
-    moe_bf16_reduce: bool = False   # bf16 EP combine reduction (multi-GPU)
+    moe_ep_quant: bool = False      # int8 EP token dispatch
+    moe_bf16_reduce: bool = False   # bf16 E/F contraction of the dense form
+    matmul_bf16_reduce: bool = False  # row-parallel seq projections in bf16
+    act_batch_axes: Any = None      # mesh axes of the batch ("data")
+    act_batch_extent: int = 1       # their extent
     flash_attention: bool = False   # CUDA flash-attention prefill kernel
     decode_kernel: bool = False     # CUDA (paged) decode-attention kernel
     spec_head_kernel: bool = False  # spec-head kernel: tree gate features;
@@ -138,41 +155,51 @@ def _shard_views(cfg: ModelConfig, p: Params, x: torch.Tensor):
         yield s, cl, local(p, s), x.to(part.device)
 
 
-def _row_parallel(partials, p_out: Params, dst: torch.device
+def _row_parallel(partials, p_out: Params, dst: torch.device,
+                  dtype: torch.dtype, pet: Optional[torch.dtype] = None
                   ) -> torch.Tensor:
     """The row-parallel layer's partials reduced onto ``dst``, then its
-    bias added once (``apply_linear``'s order: matmul, then bias)."""
-    y = all_reduce_sum(partials, dst)
+    bias added once (``apply_linear``'s order: matmul, then bias). Under
+    ``pet`` each partial is rounded to it and the sum adds in it (GSPMD's
+    psum in the product's dtype), then returns to ``dtype``."""
+    if pet is not None:
+        partials = [x.to(pet) for x in partials]
+    y = all_reduce_sum(partials, dst).to(dtype)
     b = p_out.get("b")
     return y if b is None else y + b.to(y.dtype)
 
 
-def _attention(cfg: ModelConfig, p_attn: Params, x: torch.Tensor, core):
+def _attention(cfg: ModelConfig, p_attn: Params, x: torch.Tensor, core,
+               pet: Optional[torch.dtype] = None):
     """``out_proj(core(...))`` of an attention block, per shard under TP.
     ``core(cfg, params, shard index, x) -> (o (B, S, H, hd), extra)`` runs
     the block's attention on one shard's heads (index None unsharded).
-    Returns (out (B, S, D) on x's device, extra — a list per shard under
-    TP)."""
+    ``pet``: ``out_proj``'s product dtype (``_row_parallel``). Returns
+    (out (B, S, D) on x's device, extra — a list per shard under TP)."""
     partials, extras = [], []
     for s, c, pa, xs in _shard_views(cfg, p_attn, x):
         o, extra = core(c, pa, s, xs)
         if s is None:
-            return attn_lib.out_proj(pa, o), extra
-        partials.append(attn_lib.out_proj({"wo": {"w": pa["wo"]["w"]}}, o))
+            return attn_lib.out_proj(pa, o, pet), extra
+        partials.append(attn_lib.out_proj({"wo": {"w": pa["wo"]["w"]}}, o,
+                                          pet))
         extras.append(extra)
-    return _row_parallel(partials, p_attn["wo"], x.device), extras
+    return (_row_parallel(partials, p_attn["wo"], x.device, x.dtype, pet),
+            extras)
 
 
-def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor,
+         pet: Optional[torch.dtype] = None) -> torch.Tensor:
     """``common.apply_mlp``, per shard under TP (a d_ff that the degree
-    does not divide stays whole, as JAX's ``_fit`` replicates it)."""
+    does not divide stays whole, as JAX's ``_fit`` replicates it); ``pet``
+    as ``_attention``'s."""
     partials = []
     for s, c, pm, xs in _shard_views(cfg, p, x):
         if s is None:
-            return common.apply_mlp(cfg, pm, xs)
+            return common.apply_mlp(cfg, pm, xs, pet)
         partials.append(common.apply_mlp(
-            cfg, dict(pm, wo={"w": pm["wo"]["w"]}), xs))
-    return _row_parallel(partials, p["wo"], x.device)
+            cfg, dict(pm, wo={"w": pm["wo"]["w"]}), xs, pet))
+    return _row_parallel(partials, p["wo"], x.device, x.dtype, pet)
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen, dtype, device) -> Params:
@@ -198,15 +225,24 @@ def _init_block(cfg: ModelConfig, kind: str, gen, dtype, device) -> Params:
     return p
 
 
-def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, flags: "ModelFlags"
+def _ep_quant(flags: "ModelFlags") -> bool:
+    """JAX quantizes the EP tokens only where the batch axes are set."""
+    return flags.moe_ep_quant and flags.act_batch_axes is not None
+
+
+def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, flags: "ModelFlags",
+         pet: Optional[torch.dtype] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The attention block's FFN, a dense MLP or a MoE in the form
-    ``flags.moe_impl`` picks. Returns (out, aux loss)."""
+    """The attention block's FFN, a dense MLP (its down projection's
+    product in ``pet``) or a MoE in the form ``flags.moe_impl`` picks.
+    Returns (out, aux loss)."""
     if "moe" in p:
         if flags.moe_impl == "dense":
-            return moe_lib.apply_moe(cfg, p["moe"], h)
+            return moe_lib.apply_moe(cfg, p["moe"], h,
+                                     ep_quant=_ep_quant(flags),
+                                     bf16_reduce=flags.moe_bf16_reduce)
         return moe_lib.apply_moe_topk(cfg, p["moe"], h)
-    return (_mlp(cfg, p["mlp"], h),
+    return (_mlp(cfg, p["mlp"], h, pet),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
@@ -276,8 +312,18 @@ def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
         x2 = common.apply_norm(cfg, p["ln2"], h)
         h = h + _mlp(cfg, p["mlp"], x2)
         return h, {"h": h_rec, "conv": conv_tail}, aux
+    h, kv, x2, pet = _attn_seq(cfg, kind, p, h, positions, flags)
+    f, aux = _ffn(cfg, p, x2, flags, pet)
+    return h + f, kv, aux
+
+
+def _attn_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
+              positions: torch.Tensor, flags: ModelFlags):
+    """The attention half of ``_block_seq``: (h + attention, its cache
+    entry, the FFN's normed input, the row-parallel product dtype)."""
     x = common.apply_norm(cfg, p["ln1"], h)
     window = _window(cfg, kind)
+    pet = torch.bfloat16 if flags.matmul_bf16_reduce else None
 
     def core(c, pa, s, xs):
         q, k, v = attn_lib.qkv(c, pa, xs, positions.to(xs.device))
@@ -295,15 +341,39 @@ def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
             o = attn_lib.attend_full(c, q, k, v, window)
         return o, (k, v)
 
-    out, kv = _attention(cfg, p["attn"], x, core)
+    out, kv = _attention(cfg, p["attn"], x, core, pet)
     h = h + out
-    x2 = common.apply_norm(cfg, p["ln2"], h)
-    f, aux = _ffn(cfg, p, x2, flags)
     if isinstance(kv, list):        # per shard: its KV heads
         segs = attn_lib.kv_segs(cfg)
         kv = (Shards([k for k, _ in kv], -2, segs),
               Shards([v for _, v in kv], -2, segs))
-    return h + f, {"k": kv[0], "v": kv[1]}, aux
+    x2 = common.apply_norm(cfg, p["ln2"], h)
+    return h, {"k": kv[0], "v": kv[1]}, x2, pet
+
+
+def _block_seq_rows(cfg: ModelConfig, kind: str, ps: Sequence[Params],
+                    hs: Sequence[torch.Tensor],
+                    positions: Sequence[torch.Tensor], flags: ModelFlags
+                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``_block_seq`` over the data rows of a training mesh (``ps[d]``,
+    ``hs[d]``: row d's params and hiddens): each row alone, except a MoE
+    FFN over more than one row, whose experts run over every row's tokens
+    (``moe.apply_moe_rows``) and whose aux loss is the whole batch's.
+    Returns (each row's h, aux loss on row 0's device)."""
+    if len(hs) == 1 or "moe" not in ps[0]:
+        outs = [_block_seq(cfg, kind, p, h, pos, flags)
+                for p, h, pos in zip(ps, hs, positions)]
+        return [o[0] for o in outs], outs[0][2]
+    mids = [_attn_seq(cfg, kind, p, h, pos, flags)
+            for p, h, pos in zip(ps, hs, positions)]
+    moes, x2s = [p["moe"] for p in ps], [m[2] for m in mids]
+    if flags.moe_impl == "dense":
+        fs, aux = moe_lib.apply_moe_rows(cfg, moes, x2s,
+                                         ep_quant=_ep_quant(flags),
+                                         bf16_reduce=flags.moe_bf16_reduce)
+    else:
+        fs, aux = moe_lib.apply_moe_topk_rows(cfg, moes, x2s)
+    return [m[0] + f for m, f in zip(mids, fs)], aux
 
 
 def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
@@ -523,11 +593,6 @@ class Model:
         if flags.moe_impl not in ("dense", "topk"):
             raise ValueError(f"ModelFlags.moe_impl must be 'dense' or "
                              f"'topk', got {flags.moe_impl!r}")
-        if flags.moe_ep_quant or flags.moe_bf16_reduce:
-            raise ValueError(
-                "ModelFlags.moe_ep_quant / moe_bf16_reduce shape the expert-"
-                "parallel collectives of a mesh over MoE: not ported yet "
-                "(ROADMAP queue 1, multi-GPU)")
         self.flags = flags
         self.dtype = common.dtype_of(self.cfg.dtype)
         self.segments = segments_of(list(self.cfg.blocks()))
@@ -621,13 +686,7 @@ class Model:
         enabled a kernel flag of the sequence path raises (as ``jax.grad``
         through a ``pallas_call`` without a VJP fails) rather than train
         through a kernel that drops the gradient."""
-        flags = self.flags
-        if torch.is_grad_enabled() and (flags.flash_attention or
-                                        flags.ssd_kernel):
-            raise ValueError(
-                "forward_hidden with grad enabled: the flash_attention and "
-                "ssd_kernel kernels have no backward; build the training "
-                "model without them")
+        flags = self._no_kernel_under_grad("forward_hidden")
         cfg = self.cfg
 
         def unit_fwd(h_in, up, unit):
@@ -638,19 +697,40 @@ class Model:
                 aux_u = aux_u + aux
             return h_in, aux_u
 
-        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+        h, aux_total = self._units(params, h, unit_fwd, h.device)
+        return h, None, aux_total
+
+    def _units(self, params: Params, h: Any, unit_fwd, device
+               ) -> Tuple[Any, torch.Tensor]:
+        """``unit_fwd(h, unit params, unit) -> (h, aux)`` over every unit of
+        every segment, each recomputed in the backward pass under
+        ``remat == "full"``. Returns (h, the aux losses summed, on
+        ``device``)."""
+        aux_total = torch.zeros((), dtype=torch.float32, device=device)
         for si, (unit, reps) in enumerate(self.segments):
             auxs = []
             for r in range(reps):
                 up = index_tree(params["segments"][si], r)
-                if flags.remat == "full":
+                if self.flags.remat == "full":
                     h, aux = checkpoint(unit_fwd, h, up, unit,
                                         use_reentrant=False)
                 else:
                     h, aux = unit_fwd(h, up, unit)
                 auxs.append(aux)
             aux_total = aux_total + torch.stack(auxs).sum()
-        return h, None, aux_total
+        return h, aux_total
+
+    def _no_kernel_under_grad(self, where: str) -> ModelFlags:
+        """The flags, unless a sequence-path kernel flag is set with grad
+        enabled: the kernels have no backward, so that raises."""
+        flags = self.flags
+        if torch.is_grad_enabled() and (flags.flash_attention or
+                                        flags.ssd_kernel):
+            raise ValueError(
+                f"{where} with grad enabled: the flash_attention and "
+                "ssd_kernel kernels have no backward; build the training "
+                "model without them")
+        return flags
 
     def _inputs(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
@@ -677,18 +757,74 @@ class Model:
         B, S, _ = h.shape
         positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
         h, _, aux = self.forward_hidden(params, h, positions)
+        loss, _ = self._loss_parts(params, h, batch)
+        return loss + aux, {"ce": loss, "aux": aux}
+
+    def _loss_parts(self, params: Params, h: torch.Tensor,
+                    batch: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, its weight) of the final hiddens ``h``: the mean
+        next-token NLL and the count of targets, or the audio encoder's
+        masked frame NLL (its sum over the mask's count) and that count.
+        Rows split over 'data' add loss x weight and the weights before
+        the one division (``train_loss_rows``)."""
         if self.cfg.frontend == "audio_frames":
             lse = torch.log_softmax(self.logits(params, h), dim=-1)
             ll = torch.gather(lse, -1, batch["targets"].long()[..., None])
             mask = batch["mask"].float()
-            loss = -(ll[..., 0] * mask).sum() / torch.clamp(mask.sum(),
-                                                             min=1.0)
-            return loss + aux, {"ce": loss, "aux": aux}
+            return (-(ll[..., 0] * mask).sum() / torch.clamp(mask.sum(),
+                                                             min=1.0),
+                    mask.sum())
         tokens = batch["tokens"]
-        txt0 = S - tokens.shape[1]
+        txt0 = h.shape[1] - tokens.shape[1]
         loss = self._ce_loss(params, h[:, txt0:-1, :], tokens[:, 1:],
                              chunk=self.flags.ce_chunk)
-        return loss + aux, {"ce": loss, "aux": aux}
+        return loss, torch.tensor(
+            float(tokens.shape[0] * (tokens.shape[1] - 1)), device=h.device)
+
+    def train_loss_rows(self, params: Params,
+                        batches: Sequence[Dict[str, torch.Tensor]], rows
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``train_loss`` of one batch cut over the data rows of a
+        ``(D, P)`` mesh (``sharding/training.py``). ``params``: the placed
+        tree (``DataShards`` leaves); ``batches[d]``: row d's contiguous
+        rows, on its lead device; ``rows``: the ``TrainMesh`` whose
+        ``rows(subtree)`` gives each row's view of a subtree in the TP
+        layout the blocks compute with, gathered over 'data' (called
+        inside each unit, so under ``remat="full"`` the recompute gathers
+        again). Each row runs the blocks on its rows (``_block_seq_rows``:
+        MoE's experts over every row's tokens); the rows' summed losses
+        and weights are all-reduced, then divided once, so the loss is the
+        whole batch's (a row's mean loss weighs by its count of targets,
+        or of masked frames). Returns (loss + aux, {"ce", "aux"}) on row 0's
+        lead device."""
+        flags, cfg = self._no_kernel_under_grad("train_loss_rows"), self.cfg
+        ins = rows({k: params[k] for k in ("embed", "frontend")
+                    if k in params})
+        hs = [self._inputs(p, b) for p, b in zip(ins, batches)]
+        positions = [torch.arange(h.shape[1], device=h.device)[None, :]
+                     .expand(h.shape[0], h.shape[1]) for h in hs]
+        local_experts = flags.moe_impl == "dense"
+
+        def unit_fwd(hs_in, up, unit):
+            views = rows(up, local_experts=local_experts)
+            aux_u = torch.zeros((), dtype=torch.float32,
+                                device=hs_in[0].device)
+            for i, kind in enumerate(unit):
+                hs_in, aux = _block_seq_rows(
+                    cfg, kind, [v[f"u{i}"] for v in views], hs_in,
+                    positions, flags)
+                aux_u = aux_u + aux
+            return hs_in, aux_u
+
+        hs, aux_total = self._units(params, hs, unit_fwd, hs[0].device)
+        sums = [torch.stack((loss * w, w)) for loss, w in (
+            self._loss_parts(hp, h, b)
+            for hp, h, b in zip(rows.head(params), hs, batches))]
+        if len(sums) > 1:
+            sums = all_reduce_rows(sums, [x.device for x in sums])
+        loss = sums[0][0] / torch.clamp(sums[0][1], min=1.0)
+        return loss + aux_total, {"ce": loss, "aux": aux_total}
 
     def _ce_loss(self, params: Params, h: torch.Tensor,
                  targets: torch.Tensor, chunk: int = 512) -> torch.Tensor:

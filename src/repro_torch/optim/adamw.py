@@ -6,6 +6,13 @@ nest of the same shape. m and v are kept in fp32 whatever the parameters'
 dtype, the update is computed in fp32 and each parameter is cast back to
 its own dtype. The update is functional, as in the JAX package: it returns
 new parameters and a new state and leaves its arguments as they were.
+
+Placed trees (training under a mesh, ``sharding/training.py``) hold their
+leaves in pieces on several devices: the update runs piece by piece on
+each piece's device (a copy of a leaf replicated over 'data' takes the
+same update as the others, from the same all-reduced gradient), and
+``global_norm`` counts each logical element once (one copy of such a
+leaf), as JAX's norm over global arrays does.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch
 
 from repro_torch.config import TrainConfig
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding.ctx import DataShards
 
 
 class AdamWState(NamedTuple):
@@ -36,9 +44,26 @@ def adamw_init(params) -> AdamWState:
                       m=zeros(), v=zeros())
 
 
+def _unique(tree) -> list:
+    """The leaves of a nest in ``tree_leaves`` order, each logical element
+    once: a leaf replicated over 'data' (a ``DataShards`` of copies)
+    gives its first copy's pieces."""
+    if isinstance(tree, DataShards):
+        return tree_leaves(tree if tree.dim is not None else tree[0])
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _unique(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _unique(v)]
+    return tree_leaves(tree)
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(torch.stack([x.float().square().sum()
-                                   for x in tree_leaves(tree)]).sum())
+    """The l2 norm over every logical element, on the first leaf's
+    device."""
+    leaves = _unique(tree)
+    dev = leaves[0].device
+    return torch.sqrt(torch.stack([x.float().square().sum().to(dev)
+                                   for x in leaves]).sum())
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -48,7 +73,7 @@ def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
 def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
     scale = _clip_scale(norm, max_norm)
-    return tree_map(lambda g: g * scale, grads), norm
+    return tree_map(lambda g: g * scale.to(g.device), grads), norm
 
 
 def adamw_update(cfg: TrainConfig, params, grads, state: AdamWState,
@@ -65,18 +90,23 @@ def adamw_update(cfg: TrainConfig, params, grads, state: AdamWState,
     bc1 = 1 - torch.tensor(b1, device=step.device) ** stepf
     bc2 = 1 - torch.tensor(b2, device=step.device) ** stepf
     new_p, new_m, new_v = [], [], []
+    on = {}                             # the step's scalars per device
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state.m), tree_leaves(state.v)):
+        if p.device not in on:
+            on[p.device] = [x.to(p.device) if isinstance(x, torch.Tensor)
+                            else x for x in (scale, bc1, bc2, lr)]
+        sc, c1, c2, lr_p = on[p.device]
         g = g.float()
-        if scale is not None:
-            g = g * scale
+        if sc is not None:
+            g = g * sc
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        delta = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
         pf = p.float()
         if cfg.weight_decay > 0:
             delta = delta + cfg.weight_decay * pf
-        new_p.append((pf - lr * delta).to(p.dtype))
+        new_p.append((pf - lr_p * delta).to(p.dtype))
         new_m.append(m)
         new_v.append(v)
     return (tree_unflatten(params, new_p),

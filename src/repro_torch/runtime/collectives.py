@@ -21,15 +21,141 @@ shard's own device.
 * ``collective_matmul_ag`` — all-gather(x) @ w as a ring: each hop's
   transfer overlaps the partial GEMM of the block in hand.
 
-Serving calls ``all_reduce_sum`` and ``all_gather``; the other two are
-JAX's training collectives, held equal to JAX's by the tests, and wait
-for training under a mesh (ROADMAP "multi-GPU").
+Serving calls ``all_reduce_sum`` and ``all_gather`` over the 'model'
+axis. ``compressed_psum`` and ``collective_matmul_ag`` are JAX's, held
+equal to JAX's by the tests; no JAX path calls them either.
+
+Over the 'data' axis of a training mesh (``sharding/training.py``), one
+call moves one tensor between the D data rows, each row's part on that
+row's device, and is differentiable (``torch.autograd.Function``):
+
+* ``gather_rows`` — all-gather: every row gets the rows' parts
+  concatenated in row order (ZeRO-3's parameter gather, MoE's token
+  gather under expert parallelism). Its backward is a reduce-scatter:
+  each part's gradient is the sum over the rows of its slice, added in
+  row order.
+* ``reduce_scatter_rows`` — row d gets the sum over the rows of their
+  partials' slice d (MoE's expert outputs); its backward an all-gather.
+* ``all_reduce_rows`` — every row gets the sum over the rows, added in
+  row order on row 0 and copied, so the rows' results are bit-equal (the
+  MoE aux loss's statistics, the loss's sums, the gradients of leaves
+  replicated over 'data'); its backward an all-reduce.
+
+Each counts its calls and bytes in ``COUNTS`` by kind, the backward's
+collective under its own kind. The bytes are one row's result, as
+``launch/dryrun.py::collective_bytes`` reads a collective's per-device
+result shape from the HLO; under remat a unit's gathers run again in the
+recompute and count again.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
+
+KINDS = ("all-gather", "reduce-scatter", "all-reduce")
+COUNTS: Dict[str, Dict[str, int]] = {k: {"calls": 0, "bytes": 0}
+                                     for k in KINDS}
+
+
+def reset_counts() -> None:
+    for c in COUNTS.values():
+        c["calls"] = c["bytes"] = 0
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    COUNTS[kind]["calls"] += 1
+    COUNTS[kind]["bytes"] += t.numel() * t.element_size()
+
+
+def _offsets(sizes: Sequence[int]) -> List[int]:
+    return [sum(sizes[:i]) for i in range(len(sizes))]
+
+
+def _sum_to(xs: Sequence[torch.Tensor], dst: torch.device) -> torch.Tensor:
+    """The sum of ``xs`` on ``dst``, added in row order."""
+    total = xs[0].to(dst)
+    for x in xs[1:]:
+        total = total + x.to(dst)
+    return total
+
+
+def _gather(xs, dsts, dim) -> Tuple[torch.Tensor, ...]:
+    outs = tuple(torch.cat([x.to(d) for x in xs], dim=dim) for d in dsts)
+    _count("all-gather", outs[0])
+    return outs
+
+
+def _scatter_sum(xs, dsts, dim, sizes) -> Tuple[torch.Tensor, ...]:
+    outs = tuple(_sum_to([x.narrow(dim, o, n) for x in xs], d)
+                 for d, o, n in zip(dsts, _offsets(sizes), sizes))
+    _count("reduce-scatter", outs[0])
+    return outs
+
+
+def _reduce(xs, dsts) -> Tuple[torch.Tensor, ...]:
+    total = _sum_to(xs, dsts[0])
+    _count("all-reduce", total)
+    return (total,) + tuple(total.to(d, copy=True) for d in dsts[1:])
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, dsts, *xs):
+        ctx.dim, ctx.srcs = dim, [x.device for x in xs]
+        ctx.sizes = [x.shape[dim] for x in xs]
+        return _gather(xs, dsts, dim)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + _scatter_sum(grads, ctx.srcs, ctx.dim,
+                                           ctx.sizes)
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, dsts, sizes, *xs):
+        ctx.dim, ctx.srcs = dim, [x.device for x in xs]
+        return _scatter_sum(xs, dsts, dim, sizes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None) + _gather(grads, ctx.srcs, ctx.dim)
+
+
+class _AllReduceRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dsts, *xs):
+        ctx.srcs = [x.device for x in xs]
+        return _reduce(xs, dsts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + _reduce(grads, ctx.srcs)
+
+
+def gather_rows(xs: Sequence[torch.Tensor], dsts: Sequence[torch.device],
+                dim: int) -> List[torch.Tensor]:
+    """All-gather over the data rows: row d's result, on ``dsts[d]``, is
+    the rows' ``xs`` concatenated along ``dim`` in row order."""
+    return list(_GatherRows.apply(dim, tuple(dsts), *xs))
+
+
+def reduce_scatter_rows(xs: Sequence[torch.Tensor],
+                        dsts: Sequence[torch.device], dim: int,
+                        sizes: Sequence[int]) -> List[torch.Tensor]:
+    """Reduce-scatter over the data rows: row d's result, on ``dsts[d]``,
+    is the sum over the rows' ``xs`` (each whole along ``dim``) of slice
+    d, ``sizes[d]`` wide, added in row order."""
+    return list(_ReduceScatterRows.apply(dim, tuple(dsts), tuple(sizes),
+                                         *xs))
+
+
+def all_reduce_rows(xs: Sequence[torch.Tensor],
+                    dsts: Sequence[torch.device]) -> List[torch.Tensor]:
+    """All-reduce over the data rows: each row's result, on ``dsts[d]``,
+    is the same sum of ``xs`` (added in row order)."""
+    return list(_AllReduceRows.apply(tuple(dsts), *xs))
 
 
 def all_reduce_sum(parts: Sequence[torch.Tensor],
@@ -55,6 +181,28 @@ def _per_127(amax: torch.Tensor) -> torch.Tensor:
     divided by a Python number is multiplied by its reciprocal instead,
     one rounding off JAX's division."""
     return amax / amax.new_tensor(127.0)
+
+
+def quantize_tokens(x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 (JAX ``moe._ep_quantized_gather``): x
+    (..., D) -> (codes int8 (..., D), scales fp32 (...)), the codes
+    rounded half to even. JAX writes the scale ``amax / 127.0`` with
+    ``amax = max|x| + 1e-8``; its jitted step computes that as ``amax *
+    fp32(1 / 127)`` (XLA rewrites a division by a constant: on 10^5
+    values all equal the product, 95.5 % the quotient), so the port
+    multiplies by that reciprocal, as a tensor: the same on the CPU and
+    on a card. The codes carry no gradient; the scales do (JAX
+    differentiates the round to 0)."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) + 1e-8) * xf.new_tensor(1 / 127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_tokens(q: torch.Tensor, scale: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -21,6 +21,12 @@ several shards' query heads); a whole segment (``split`` False) is held by
 every shard (Mamba2's B and C columns). ``cut`` makes a part, ``gather``
 joins the parts back, taking a repeated block from its first holder.
 
+The 'data' axis (training under a ``(D, P)`` mesh, ``sharding/training``):
+a ``DataShards`` holds one entry per data row, each a tensor on the row's
+lead device or a ``Shards`` over the row's model devices. Its ``dim``
+names the dim cut over 'data' (ZeRO-3: entry d is slice d of that dim),
+or is None for a leaf replicated over 'data' (every entry a copy).
+
 Leaf module on purpose: imports torch only.
 """
 from __future__ import annotations
@@ -53,6 +59,25 @@ class Shards(list):
 
     def __repr__(self) -> str:
         return f"Shards({[tuple(p.shape) for p in self]}, dim={self.dim})"
+
+
+class DataShards(list):
+    """One leaf of a training tree under a ``(D, P)`` mesh: entry ``d``
+    lives on data row ``d``. ``dim`` is the dim cut over 'data', counted
+    from the end as ``Shards.dim``, or None when each entry is a whole
+    copy (a leaf replicated over 'data')."""
+
+    def __init__(self, entries=(), dim: Optional[int] = None):
+        super().__init__(entries)
+        if dim is not None and dim >= 0:
+            raise ValueError(f"DataShards.dim counts from the end, got {dim}")
+        self.dim = dim
+
+    def like(self, entries) -> "DataShards":
+        return DataShards(entries, dim=self.dim)
+
+    def __repr__(self) -> str:
+        return f"DataShards({list.__repr__(self)}, dim={self.dim})"
 
 
 def _blocks(units: int, s: int, P: int) -> Tuple[int, int]:
@@ -116,6 +141,32 @@ def gather(x: Any, device: torch.device) -> Any:
     return x.to(device) if isinstance(x, torch.Tensor) else x
 
 
+def _shape(x: Any) -> List[int]:
+    """The whole shape of a tensor or a ``Shards`` leaf."""
+    if not isinstance(x, Shards):
+        return list(x.shape)
+    s = list(x[0].shape)
+    s[x.dim] = (whole_size(x.segs) if x.segs is not None else
+                sum(p.shape[x.dim] for p in x))
+    return s
+
+
+def whole_shape(x: DataShards) -> List[int]:
+    """The shape of the tensor a ``DataShards`` leaf holds."""
+    s = _shape(x[0])
+    if x.dim is not None:
+        s[x.dim] = sum(_shape(e)[x.dim] for e in x)
+    return s
+
+
+def join(x: DataShards, device: torch.device) -> torch.Tensor:
+    """The whole tensor of a ``DataShards`` leaf on ``device``: its rows'
+    slices concatenated along ``dim`` (each gathered from its shards), or
+    its first copy."""
+    ws = [gather(e, device) for e in (x[:1] if x.dim is None else x)]
+    return ws[0] if len(ws) == 1 else torch.cat(ws, dim=x.dim)
+
+
 def parts(x: Any) -> list:
     """A leaf's per-shard parts; an unsharded leaf is its one part."""
     return list(x) if isinstance(x, Shards) else [x]
@@ -144,7 +195,8 @@ class ShardCtx:
     """Tensor-parallel context of one engine. ``mesh``: a
     ``repro_torch.launch.mesh.Mesh``; ``axis`` the dimension heads and
     vocabulary split over. Shard ``s`` is model index ``s`` of data row 0
-    (``DATA > 1`` is refused)."""
+    (serving refuses ``DATA > 1``; training over the rows is
+    ``sharding.training.TrainMesh``)."""
     mesh: Any
     axis: str = "model"
 

@@ -64,10 +64,12 @@ stay whole on the lead, as JAX replicates its quantized tiles; JAX's
 Serving places the weights by ``param_specs`` and the two layouts above;
 a decode state is placed like the session's own state (``place_like``:
 a restored snapshot takes each leaf's layout from the state it replaces).
-``engine_shardings``, the managers' ``partition_specs`` and the policies'
-training layouts (``state_specs``, ``batch_specs``, ``fsdp_tp``, the 'pod'
-axis, ``specee_specs``) are JAX's, held equal to it by the tests, and wait
-for training under a mesh (ROADMAP "multi-GPU").
+Training under a ``(D, P)`` mesh (``sharding/training.py``) stores the
+weights by the ``fsdp_tp`` specs and gives each data row these same
+layouts per forward. ``engine_shardings``, the managers'
+``partition_specs``, the 'pod' axis and ``specee_specs`` are JAX's, held
+equal to it by the tests, and wait for the dry-run slice (ROADMAP
+"multi-GPU").
 """
 from __future__ import annotations
 
@@ -279,15 +281,10 @@ def unplace(tree, device) -> Any:
 def check_servable(model, mesh, policy: str) -> None:
     """Refuse, naming "multi-GPU", what a ``(1, P)`` mesh does not serve:
     ``DATA > 1`` (so also tp2d's second dim over 'data'), the training
-    policy ``fsdp_tp``, a degree that does not divide the query heads, or
-    whose KV heads neither divide it nor are divided by it (minicpm-2b's
-    36 heads at P = 8), and a degree that does not divide Mamba2's SSD
-    heads or the RG-LRU width. Every family of ``configs.ARCHS`` is
-    served: the attention family, MoE (both forms), SSD, the RG-LRU
-    hybrid, the VLM frontend and the encoder. MoE's ``moe_ep_quant`` /
-    ``moe_bf16_reduce`` are refused where the model is built."""
-    from repro_torch.config import ATTN, LOCAL_ATTN, RGLRU, SSD
-    cfg = model.cfg
+    policy ``fsdp_tp``, and the degrees ``check_degree`` refuses. Every
+    family of ``configs.ARCHS`` is served: the attention family, MoE
+    (both forms, ``moe_bf16_reduce`` too), SSD, the RG-LRU hybrid, the VLM
+    frontend and the encoder."""
     if policy not in ("tp_dp", "tp2d"):
         raise ValueError(f"policy={policy!r}: serving takes 'tp_dp' or "
                          f"'tp2d' (fsdp_tp is training's, {MULTI})")
@@ -296,7 +293,17 @@ def check_servable(model, mesh, policy: str) -> None:
         raise ValueError(
             f"mesh DATA must be 1 ({MULTI}): data parallelism is "
             "ReplicaPool (independent engines), not an in-engine mesh axis")
-    P = int(mesh.shape["model"])
+    check_degree(model, int(mesh.shape["model"]))
+
+
+def check_degree(model, P: int) -> None:
+    """Refuse, naming "multi-GPU", a tensor-parallel degree the blocks
+    cannot split: one that does not divide the query heads, or whose KV
+    heads neither divide it nor are divided by it (minicpm-2b's 36 heads
+    at P = 8), one that does not divide Mamba2's SSD heads or the RG-LRU
+    width. Serving and training (``sharding/training.py``) share it."""
+    from repro_torch.config import ATTN, LOCAL_ATTN, RGLRU, SSD
+    cfg = model.cfg
     kinds = {k for unit, _ in model.segments for k in unit}
     H, KVH = cfg.num_heads, cfg.num_kv_heads
     if kinds & {ATTN, LOCAL_ATTN} and (H % P or (KVH % P and P % KVH)):

@@ -4,6 +4,17 @@ the host loop over the data pipeline, with checkpoint/restart
 (``ckpt_dir``: params, AdamW state and the pipeline's position, saved every
 ``checkpoint_every`` steps), a straggler monitor fed each step's time, and
 a preemption guard that the launcher installs (a SIGTERM saves and stops).
+
+Under a ``(DATA, MODEL)`` mesh (``TrainLoop(mesh=)``, ``make_train_step(
+param_pspec=)``) the step is JAX's ``make_train_step`` jitted with
+``launch/specs.py::input_specs``' shardings at ``fsdp_tp``: params and
+AdamW state placed by the specs (``sharding/training.py``), the batch
+first cut into microbatches, then each microbatch's rows split over
+'data', the loss the whole microbatch's (``Model.train_loss_rows``), the
+fp32 accumulators in the parameter layout (JAX's ``_pin``), and the
+gradients of leaves replicated over 'data' all-reduced over the rows.
+Checkpoints hold whole tensors, JAX's layout, so a run saved on one mesh
+restores on another (the launcher's elastic restart).
 """
 from __future__ import annotations
 
@@ -20,9 +31,11 @@ from repro_torch.models.model import Model
 from repro_torch.optim import adamw_init, adamw_update, make_schedule
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.runtime.fault import PreemptionGuard, StragglerMonitor
+from repro_torch.sharding.policies import named, state_specs
+from repro_torch.sharding.training import TrainMesh, mesh_of
 
 
-def make_train_step(model: Model, cfg: TrainConfig
+def make_train_step(model: Model, cfg: TrainConfig, param_pspec=None
                     ) -> Callable[[Any, AdamWState, Dict[str, torch.Tensor]],
                                   Tuple[Any, AdamWState,
                                         Dict[str, torch.Tensor]]]:
@@ -30,8 +43,15 @@ def make_train_step(model: Model, cfg: TrainConfig
     stats)``. With ``cfg.microbatch > 0`` the batch is split into chunks of
     that many rows whose gradients are summed in fp32 and averaged. The
     step reads nothing back to the host: ``stats`` (loss, lr, grad_norm)
-    are 0-d tensors on the parameters' device."""
+    are 0-d tensors on the parameters' device.
+
+    ``param_pspec``: JAX's argument, here the parameters' ``NamedSharding``
+    tree (``sharding.policies.named(mesh, specs)``): the step then takes
+    params and AdamW state placed on that mesh (``sharding.training.
+    TrainMesh.place``) and splits each microbatch's rows over 'data'."""
     sched = make_schedule(cfg)
+    mesh = mesh_of(param_pspec)
+    tm = None if mesh is None else TrainMesh(model, mesh)
 
     def grad_fn(params, batch):
         # a leaf the loss never reads (the token embedding of an audio
@@ -39,7 +59,11 @@ def make_train_step(model: Model, cfg: TrainConfig
         # jax.grad
         leaves = [x.detach().requires_grad_(True)
                   for x in tree_leaves(params)]
-        loss, _ = model.train_loss(tree_unflatten(params, leaves), batch)
+        p = tree_unflatten(params, leaves)
+        if tm is None:
+            loss, _ = model.train_loss(p, batch)
+        else:
+            loss, _ = model.train_loss_rows(p, tm.split_batch(batch), tm)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return loss.detach(), tuple(
             torch.zeros_like(x) if g is None else g
@@ -67,9 +91,12 @@ def make_train_step(model: Model, cfg: TrainConfig
             loss = lsum / nm
         else:
             loss, grads = grad_fn(params, batch)
+        grads = tree_unflatten(params, grads)
+        if tm is not None:
+            grads = tm.reduce_grads(grads)
         lr = sched(opt_state.step)
-        params, opt_state, stats = adamw_update(
-            cfg, params, tree_unflatten(params, grads), opt_state, lr)
+        params, opt_state, stats = adamw_update(cfg, params, grads,
+                                                opt_state, lr)
         return params, opt_state, dict(stats, loss=loss, lr=lr)
 
     return train_step
@@ -77,16 +104,26 @@ def make_train_step(model: Model, cfg: TrainConfig
 
 class TrainLoop:
     """Host-side loop: the data pipeline and the train step on the
-    parameters' device, checkpoints, fault handling."""
+    parameters' device, checkpoints, fault handling. With ``mesh`` (a
+    ``launch.mesh.Mesh``) the whole ``params`` are placed on it by JAX's
+    ``fsdp_tp`` specs and the step runs over it (the module docstring);
+    ``self.params`` and ``self.opt_state`` are then placed trees
+    (``whole()`` joins them)."""
 
     def __init__(self, model: Model, run: RunConfig, params,
-                 ckpt_dir: Optional[str] = None, host_id: int = 0):
+                 ckpt_dir: Optional[str] = None, host_id: int = 0,
+                 mesh=None):
         self.model = model
         self.run = run
         self.cfg = run.train
+        self.mesh = TrainMesh(model, mesh) if mesh is not None else None
+        pspec = None
+        if self.mesh is not None:
+            pspec = named(mesh, self.mesh.specs(params))
+            params = self.mesh.place(params, pspec)
         self.params = params
         self.opt_state = adamw_init(params)
-        self.step_fn = make_train_step(model, self.cfg)
+        self.step_fn = make_train_step(model, self.cfg, param_pspec=pspec)
         self.pipeline = DataPipeline(model.cfg, self.cfg.global_batch,
                                      self.cfg.seq_len, seed=self.cfg.seed)
         self.device = tree_leaves(params)[0].device
@@ -111,6 +148,8 @@ class TrainLoop:
         if out is None:
             return False
         step, tree, extra = out
+        if self.mesh is not None:           # whole tensors, placed again
+            tree = self.mesh.place(tree, self._specs(tree["params"]))
         self.params, self.opt_state = tree["params"], tree["opt"]
         self.step = step
         self.pipeline = DataPipeline.from_state(
@@ -120,12 +159,27 @@ class TrainLoop:
 
     def save(self) -> None:
         """Checkpoint this step (the tensors are copied to the host before
-        ``save`` returns; the files are written in the background)."""
+        ``save`` returns, a placed tree as its whole tensors; the files
+        are written in the background)."""
         if self.ckpt is None:
             return
         self.ckpt.save(self.step,
                        {"params": self.params, "opt": self.opt_state},
                        extra={"data": self.pipeline.state_dict()})
+
+    def whole(self, device="cpu") -> Dict[str, Any]:
+        """{"params", "opt"} as whole tensors (JAX's global arrays; under a
+        mesh joined onto ``device``, else as they are)."""
+        tree = {"params": self.params, "opt": self.opt_state}
+        return tree if self.mesh is None else self.mesh.unplace(tree, device)
+
+    def _specs(self, params) -> Dict[str, Any]:
+        """The specs of {"params", "opt"} for whole ``params``: the
+        params' and AdamW's (``state_specs``: m and v in the parameter
+        layout)."""
+        ps = self.mesh.specs(params)
+        return {"params": ps, "opt": state_specs(self.mesh.mesh, "fsdp_tp",
+                                                 ps, None)}
 
     def run_steps(self, n: Optional[int] = None) -> Dict[str, float]:
         """``n`` steps (default ``cfg.steps``); each step's stats, read

@@ -1956,3 +1956,89 @@ def test_flash_attention_at_hd_256(dev, dtype, S, window):
     want = flash_attention_ref(q.float(), k.float(), v.float(), True, window)
     rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(got.float(), want, atol=1e-4, rtol=rtol)
+
+
+@pytest.fixture(scope="module")
+def card():
+    """The card alone, for tests that build no kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_row_collectives_autograd_on_the_card(card):
+    """The 'data' axis's collectives (``gather_rows``, ``reduce_scatter_
+    rows``, ``all_reduce_rows``) on the card give the CPU's values and
+    gradients bit for bit, with their rows on the card, and count one
+    call each way."""
+    from repro_torch.runtime import collectives as C
+    gen = torch.Generator().manual_seed(0)
+    xs = [torch.randn(3, 5, generator=gen) for _ in range(2)]
+    ys = [torch.randn(6, 5, generator=gen) for _ in range(2)]
+    ws = [torch.randn(6, 5, generator=gen) for _ in range(2)]
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        a = [x.to(dev).requires_grad_(True) for x in xs]
+        b = [y.to(dev).requires_grad_(True) for y in ys]
+        C.reset_counts()
+        g = C.gather_rows(a, [dev, dev], 0)
+        r = C.reduce_scatter_rows(b, [dev, dev], 0, [3, 3])
+        s = C.all_reduce_rows([x * 2 for x in a], [dev, dev])
+        loss = sum((o * w.to(dev)).sum() for o, w in zip(g, ws)) + \
+            sum((o * x.to(dev)).sum() for o, x in zip(r, xs)) + \
+            sum((o ** 2).sum() for o in s)
+        loss.backward()
+        assert {k: v["calls"] for k, v in C.COUNTS.items()} == {
+            "all-gather": 2, "reduce-scatter": 2, "all-reduce": 2}
+        out[dev.type] = [t.detach().cpu() for t in g + r + s] + \
+            [x.grad.cpu() for x in a + b]
+    for u, v in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(u, v)
+
+
+def test_ep_quant_scale_on_the_card(card):
+    """``quantize_tokens`` on the card: scales and codes bit-equal to the
+    CPU's (the scale multiplies by fp32(1/127) as a tensor, which both
+    devices round alike), and so is the dequantized gradient."""
+    from repro_torch.runtime.collectives import (dequantize_tokens,
+                                                 quantize_tokens)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 64, 4096, generator=gen) * 3
+    got = {}
+    for dev in (torch.device("cpu"), card):
+        xd = x.to(dev).requires_grad_(True)
+        q, s = quantize_tokens(xd)
+        y = dequantize_tokens(q, s, torch.float32)
+        (g,) = torch.autograd.grad((y * y).sum(), xd)
+        got[dev.type] = (q.cpu(), s.detach().cpu(), g.cpu())
+    for u, v in zip(got["cpu"], got["cuda"]):
+        assert torch.equal(u, v)
+    amax = x.abs().amax(dim=-1) + 1e-8
+    assert torch.equal(got["cuda"][1], amax * torch.tensor(1 / 127.0))
+
+
+def test_mesh_training_on_the_card(card):
+    """llama2-7b's smoke config trained at (2, 2) (every slot on the
+    card, fsdp_tp) against (1, 1) on the card: three steps' losses and
+    grad norms at rtol 1e-5, params at atol 1e-6."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build_model
+    from repro_torch.train import TrainLoop
+    run = get_config("llama2-7b").smoke()
+    run = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, microbatch=2))
+    model = build_model(run)
+    params = model.init(0, "cpu")
+    a = TrainLoop(model, run, {k: v for k, v in params.items()},
+                  mesh=make_host_mesh(1, 1, card))
+    b = TrainLoop(model, run, params, mesh=make_host_mesh(2, 2, card))
+    for _ in range(3):
+        sa, sb = a.run_steps(1), b.run_steps(1)
+        assert sb["loss"] == pytest.approx(sa["loss"], rel=1e-5)
+        assert sb["grad_norm"] == pytest.approx(sa["grad_norm"], rel=1e-5)
+    for x, y in zip(tree_leaves(a.whole("cpu")), tree_leaves(b.whole("cpu"))):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-6)

@@ -3,12 +3,16 @@
 expert width 128): both MoE forms against JAX's and each other, router
 ties, decode against the full forward, AR SpecEE and tree sessions, paged
 serving, int8 weights that leave the expert banks alone, ``train_loss``
-with its load-balancing term and its gradients, and a ``TrainLoop`` step.
+with its load-balancing term and its gradients, a ``TrainLoop`` step, and
+the mesh flags ``moe_ep_quant`` and ``moe_bf16_reduce`` built and
+behaving as JAX's (expert parallelism itself: ``test_torch_train_
+mesh.py``).
 
 Tolerance: tokens, exit points, exits, accept lengths and units_run
 exact; logits, outputs and gradients atol = rtol = 1e-5 (fp32, another
 summation order; the top-k form also sums the k experts apart from the
-other E - k)."""
+other E - k); under ``moe_bf16_reduce`` logits atol = rtol = 1e-3 (a
+sum an fp32 ulp apart can round to the next bf16 value)."""
 import dataclasses
 
 import numpy as np
@@ -54,6 +58,7 @@ def one_thread():
 
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_TOL = dict(atol=1e-3, rtol=1e-3)
 MOE = ["dbrx-132b", "qwen3-moe-235b-a22b"]
 
 
@@ -339,15 +344,42 @@ def test_train_loop_step_matches_jax(bundle):
 
 
 def test_ep_options_are_refused_and_the_draft_drops_the_moe(bundle):
-    """``moe_ep_quant`` and ``moe_bf16_reduce`` need a mesh and are
-    refused, naming multi-GPU; an unknown ``moe_impl`` too. The draft of a
-    MoE target is a dense one-layer block (JAX ``draft.py``: moe=None):
-    its params carry a plain MLP."""
-    name, _, _, _, _, sw_t = bundle
+    """``moe_ep_quant`` and ``moe_bf16_reduce`` are built and behave as
+    JAX's: the prefill logits of a model with each flag against JAX's
+    same model (under ``moe_bf16_reduce`` at a quarter of a bf16 spacing,
+    rtol = atol = 1e-3: a sum one fp32 ulp apart can round to the next bf16
+    value, and later layers carry that on; ``moe_ep_quant`` quantizes
+    only under ``act_batch_axes``,
+    so without it the logits are the plain model's, in both packages;
+    JAX's with it runs under a (1, 1) ("data", "model") mesh); an unknown
+    ``moe_impl`` is refused. The draft of a MoE target is a dense
+    one-layer block (JAX ``draft.py``: moe=None): its params carry a
+    plain MLP."""
+    from jax.sharding import Mesh
+    name, _, params_j, _, params_t, sw_t = bundle
     run = get_config(name).smoke()
-    for kw in (dict(moe_ep_quant=True), dict(moe_bf16_reduce=True)):
-        with pytest.raises(ValueError, match="multi-GPU"):
-            build_model(run, ModelFlags(**kw))
+    tokens = np.random.default_rng(6).integers(0, run.model.vocab_size,
+                                               (2, 12)).astype(np.int32)
+    plain = None
+    for kw in ({}, dict(moe_ep_quant=True), dict(moe_bf16_reduce=True),
+               dict(moe_ep_quant=True, act_batch_axes="data")):
+        m_j = jbuild(jax_get_config(name).smoke(), JFlags(**kw))
+        with Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                  ("data", "model")):
+            want = np.asarray(jax.jit(lambda p, t: m_j.prefill(p, {
+                "tokens": t})[0])(params_j, jnp.asarray(tokens)))
+        with torch.no_grad():
+            got = build_model(run, ModelFlags(**kw)).prefill(
+                params_t, {"tokens": torch.from_numpy(tokens)})[0]
+        np.testing.assert_allclose(_np(got), want, err_msg=str(kw),
+                                   **(BF16_TOL if "moe_bf16_reduce" in kw
+                                      else TOL))
+        if plain is None:
+            plain = want
+        elif kw == dict(moe_ep_quant=True):
+            np.testing.assert_array_equal(want, plain)
+        else:
+            assert np.abs(want - plain).max() > 1e-6, kw
     with pytest.raises(ValueError, match="moe_impl"):
         build_model(run, ModelFlags(moe_impl="gather"))
     assert "mlp" in sw_t.draft and "moe" not in sw_t.draft

@@ -12,7 +12,9 @@ on the paged cache, starcoder2-15b's smoke config (biases, layernorm,
 GELU: a row-parallel bias added once, after the reduce), ``quant="int8"``
 and ``kv_quant`` at P = 2, and ``tp2d`` with DATA = 1. A snapshot taken at
 one degree restores at another. What a mesh does not serve is refused
-naming "multi-GPU" (the other families' meshes:
+naming "multi-GPU"; MoE's ``moe_ep_quant`` and ``moe_bf16_reduce`` are
+served at P = 2 as JAX's unsharded engine serves them (the other
+families' meshes:
 ``tests/test_torch_tp_families.py``). Then the launcher's multi-GPU
 flags, in this process. Tolerance: tokens exact."""
 import dataclasses
@@ -23,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro.api import Engine as JEngine  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
@@ -208,13 +211,49 @@ def _refused(case):
         "data_2": lambda: engine("llama2-7b", 2, 1),
         "tp2d_over_data": lambda: engine("llama2-7b", 2, 2, "tp2d"),
         "fsdp_tp": lambda: engine("llama2-7b", 1, 2, "fsdp_tp"),
-        "moe_ep_quant": lambda: engine("dbrx-132b", 1, 2,
-                                       moe_ep_quant=True),
-        "moe_bf16_reduce": lambda: engine("qwen3-moe-235b-a22b", 1, 2,
-                                          moe_bf16_reduce=True),
         "ssd_heads": lambda: engine("mamba2-130m", 1, 3),
         "minicpm_p3": lambda: engine("minicpm-2b", 1, 3),
     }[case]
+
+
+_MOE_FLAGS = {"moe_ep_quant": ("dbrx-132b", dict(moe_ep_quant=True)),
+              "moe_bf16_reduce": ("qwen3-moe-235b-a22b",
+                                  dict(moe_bf16_reduce=True))}
+
+
+def _margin(m_j, pj, prompt, toks, t):
+    """JAX's top-2 logit margin at generated token ``t`` of a row."""
+    seq = np.concatenate([prompt, np.asarray(toks[:t], np.int32)])
+    logits = np.asarray(m_j.prefill(pj, {"tokens": jnp.asarray(
+        seq[None].astype(np.int32))})[0])[0]
+    top = np.sort(logits)[-2:]
+    return float(top[1] - top[0])
+
+
+def _served_as_jax(case):
+    """A (1, 2) mesh serves a MoE flag as JAX's unsharded engine with the
+    same flag: dense decode tokens equal, or where a token differs JAX's
+    top-2 margin there is a near-tie (below 1e-2), printed."""
+    arch, flags = _MOE_FLAGS[case]
+    m_j, pj, sj, m_t, pt, st = _pair(arch, **flags)
+    want = _decode(JEngine, m_j, pj, sj, "dense", "dense")
+    got = _decode(Engine, m_t, pt, st, "dense", "dense",
+                  mesh=make_host_mesh(1, 2, "cpu"))
+    prompts = np.random.default_rng(7).integers(
+        0, m_t.run.model.vocab_size, (2, 8))
+    for b in range(2):
+        w = [int(t) for t in np.ravel(np.concatenate(
+            [np.ravel(x) for x in want[b]]))]
+        g = [int(t) for t in np.ravel(np.concatenate(
+            [np.ravel(x) for x in got[b]]))]
+        assert len(w) == len(g), case
+        diff = [t for t in range(len(w)) if w[t] != g[t]]
+        if diff:
+            margin = _margin(m_j, pj, prompts[b], w, diff[0])
+            print(f"{case}: row {b} token {diff[0]} differs "
+                  f"({w[diff[0]]} vs {g[diff[0]]}), JAX's top-2 margin "
+                  f"{margin:.3e}")
+            assert margin < 1e-2, (case, b, diff[0], margin)
 
 
 @pytest.mark.parametrize("case", ["data_2", "tp2d_over_data", "fsdp_tp",
@@ -223,10 +262,15 @@ def _refused(case):
 def test_remaining_meshes_refused(case):
     """What a mesh still does not serve is refused naming "multi-GPU",
     before anything is placed: DATA > 1 (tp2d's second dim over 'data'
-    too), the training policy, MoE's expert-parallel flags, a degree that
-    does not divide Mamba2's 8 smoke SSD heads (P = 3), and minicpm-2b's
-    smoke config at P = 3 (4 query heads). Every family of ``ARCHS`` is
-    served at P = 2 and 4 (``tests/test_torch_tp_families.py``)."""
+    too), the training policy, a degree that does not divide Mamba2's 8
+    smoke SSD heads (P = 3), and minicpm-2b's smoke config at P = 3 (4
+    query heads). MoE's ``moe_ep_quant`` and ``moe_bf16_reduce`` are
+    served: a (1, 2) mesh with each flag decodes as JAX's unsharded engine
+    with it (``_served_as_jax``). Every family of ``ARCHS`` is served at
+    P = 2 and 4 (``tests/test_torch_tp_families.py``)."""
+    if case in _MOE_FLAGS:
+        _served_as_jax(case)
+        return
     with pytest.raises(ValueError, match="multi-GPU"):
         _refused(case)()
 
@@ -234,8 +278,7 @@ def test_remaining_meshes_refused(case):
 def test_mesh_refusals():
     """DATA > 1, the training policy and a degree that neither divides the
     KV heads nor is a multiple of them (nor divides the query heads) are
-    refused naming "multi-GPU"; MoE's expert-parallel flags stay refused;
-    a (1, 1) mesh is the unsharded engine."""
+    refused naming "multi-GPU"; a (1, 1) mesh is the unsharded engine."""
     _, _, _, m, params, sw = _pair()
     for mesh, policy in ((make_host_mesh(2, 1, "cpu"), "tp_dp"),
                          (make_host_mesh(1, 2, "cpu"), "fsdp_tp")):
@@ -245,9 +288,6 @@ def test_mesh_refusals():
     with pytest.raises(ValueError, match="multi-GPU"):
         Engine.create(sc, {}, None, strategy="dense",
                       mesh=make_host_mesh(1, 3, "cpu"))
-    with pytest.raises(ValueError, match="multi-GPU"):
-        build_model(get_config("dbrx-132b").smoke(),
-                    ModelFlags(moe_ep_quant=True))
     e = Engine.create(m, params, sw, mesh=make_host_mesh(1, 1, "cpu"))
     wq = params["segments"][0]["u0"]["attn"]["wq"]["w"]
     assert e.shard is None and e.device == torch.device("cpu")

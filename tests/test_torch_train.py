@@ -2,7 +2,7 @@
 schedules, AdamW, the synthetic data pipeline, ``Model.train_loss`` and its
 gradients (llama2-7b and mamba2-130m smoke configs, JAX's params bridged
 in), remat, the chunked CE, ``TrainLoop`` and gradient accumulation, and
-the refusals of what is not ported (the multi-GPU flags).
+the refusals of what is not ported (the multi-host flags).
 
 Tolerances: schedules rtol 1e-6; AdamW atol 1e-6; tokens bit-identical;
 loss rtol 1e-5, gradients rtol 1e-4 with atol 1e-6 (fp32, another
@@ -301,18 +301,22 @@ def test_loss_falls_over_eight_steps():
 
 
 def test_refusals_name_their_roadmap_items(llama, tmp_path, capsys):
-    """The multi-host and mesh flags are refused naming "multi-GPU".
-    ``TrainLoop(ckpt_dir=)`` and ``--ckpt`` are taken as JAX takes them: a
-    launch with ``--ckpt`` saves, and a second resumes from its last
-    step."""
+    """The multi-host flags are refused naming "multi-GPU"; the mesh
+    flags ``--data`` and ``--model`` are taken (``tests/test_torch_train_
+    mesh.py`` trains with them). ``TrainLoop(ckpt_dir=)`` and ``--ckpt``
+    are taken as JAX takes them: a launch with ``--ckpt`` saves, and a
+    second resumes from its last step."""
     _, _, _, run_t, params = llama
     loop = TrainLoop(build_model(run_t), run_t, params,
                      ckpt_dir=str(tmp_path / "loop"))
     assert loop.ckpt is not None and loop.try_restore() is False
-    for argv in (["--coordinator", "h:1"], ["--num-hosts", "2"],
-                 ["--data", "2"], ["--model", "2"]):
+    for argv in (["--coordinator", "h:1"], ["--num-hosts", "2"]):
         with pytest.raises(SystemExit, match="ROADMAP: multi-GPU"):
             launch_train.parse_args(["--arch", "llama2-7b"] + argv)
+    for argv in (["--data", "2"], ["--model", "2"]):
+        args = launch_train.parse_args(["--arch", "llama2-7b"] + argv)
+        assert (args.data, args.model) == ((2, 1) if argv[0] == "--data"
+                                           else (0, 2))
     args = launch_train.parse_args(["--arch", "llama2-7b", "--smoke"])
     assert args.device == "cuda"
     ck = str(tmp_path / "ck")
