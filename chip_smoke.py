@@ -21,7 +21,8 @@ oversubscribed pool and a checkpoint restored into a fresh engine,
 serves tensor-parallel over a (1, P) mesh whose shards share the card,
 through a device loss and a replica pool, serves every other family
 (MoE, Mamba2, the RG-LRU hybrid, the VLM and the encoder) over such a
-mesh, and trains under a (DATA, MODEL) mesh at fsdp_tp.
+mesh, trains under a (DATA, MODEL) mesh at fsdp_tp, and serves over
+(DATA, MODEL) meshes with DATA > 1.
 
     python3 chip_smoke.py
 
@@ -203,7 +204,7 @@ Phases (lines ``[phase +seconds since the start] ...``):
      steps over 8 batches, collect_dataset on 4 of them, train_predictors
      300 steps, offline_exit_counts with 12 new tokens on the AR kernel
      path, offline_mask_from_counts), for (a) llama2-7b at published width
-     with 8 of its 32 layers in fp32 (fp32 params with AdamW state at 32
+     with 2 of its 32 layers in fp32 (fp32 params with AdamW state at 32
      layers do not fit one card; batches of 4 x 256) and (b) get_bundle's
      own config (the smoke config deepened to 12 layers, fp32, batches of
      4 x 32); each stage's seconds, ms per step, first and last loss, the
@@ -220,15 +221,15 @@ Phases (lines ``[phase +seconds since the start] ...``):
      first each at published widths, 2 layers, fp32, SpecEE (threshold
      0.4) on dense and paged caches and tree decoding with every kernel
      against the plain paths (tokens and exit points identical); then, at
-     published widths and 8 layers, llama2-13b (AR whole-batch B=4,
+     published widths and 4 layers, llama2-13b (AR whole-batch B=4,
      prompt 128, 32 steps; tree, 8 steps; phase 5's 16 requests, 16 new
      tokens each, served on the paged cache), starcoder2-15b (48 heads
      over 4 KV heads: n_rep 12 in the
      dense, paged and int8 paged attention kernels; AR, serving, kv_quant
      serving, AR with an int8 head and predictors), deepseek-7b (AR,
      V=102400), minicpm-2b (odd V=122753, hd 64, tied: AR, tree, int8
-     AR), llama2-70b at 4 of its 80 layers (AR, serving) and
-     command-r-plus-104b at 4 of its 64 (AR); each run zeroes the launch
+     AR), llama2-70b at 2 of its 80 layers (AR, serving) and
+     command-r-plus-104b at 2 of its 64 (AR); each run zeroes the launch
      counts and requires its path's kernels; tokens/s, ms/step or tick,
      peak memory;
  13. serve2 — the rest of serving on phase 5's llama2-7b weights:
@@ -246,7 +247,7 @@ Phases (lines ``[phase +seconds since the start] ...``):
      --temperature 0.8, three subprocesses at once;
  14. newfam — the new families, seeded bf16, one model at a time, each
      freed before the next: dbrx-132b and qwen3-moe-235b-a22b at published
-     widths, 4 of their 40 and 94 layers (AR SpecEE B=4, 32 steps, with
+     widths, 1 of their 40 and 94 layers (AR SpecEE B=4, 32 steps, with
      moe_impl "dense" and again "topk": equal tokens, or each differing
      row's top-2 margin at a near-tie; paged serving of 8 requests, 16 new
      tokens each; tree, 8 steps); recurrentgemma-9b at published size (AR
@@ -291,9 +292,9 @@ Phases (lines ``[phase +seconds since the start] ...``):
      last slice narrower), R = 4 and 320, ties across every shard,
      bit-equal to the unsharded kernel in tokens and values, each slice's
      and the merge's time; (e) the collectives against plain sums; (b)
-     llama2-7b at published width, fp32, 8 layers: SpecEE and tree on
+     llama2-7b at published width, fp32, 4 layers: SpecEE and tree on
      dense and paged caches at P = 2 and 4 token-identical to P = 1;
-     32 layers bf16 SpecEE paged at P = 4 (cut from one host copy, the
+     16 layers bf16 SpecEE paged at P = 4 (cut from one host copy, the
      card's copy freed) against P = 1, a row's first divergence held to
      a near-tie (top-2 margin within 8 bf16 spacings) and the peak card
      memory under 1.5x the weights; (c) ServingEngine(mesh=P4)
@@ -302,7 +303,7 @@ Phases (lines ``[phase +seconds since the start] ...``):
      ReplicaPool of two unsharded bf16 llama2-7b replicas sharing one
      param tree, device_lost in a replica: kill, requeue and replay give
      one engine's fault-free outputs. Each of tp_decode, tp_remesh,
-     tp_full and tp_pool is a main path;
+     tp_deep and tp_pool is a main path;
  17. tpfam — tensor-parallel serving of the remaining families, every
      shard on the one card, each model fp32 and freed before the next; its
      P = 1 runs on the card, then its weights moved to the host and the
@@ -318,7 +319,7 @@ Phases (lines ``[phase +seconds since the start] ...``):
      prompt tokens; SpecEE on dense and paged caches at P = 1, 2, 4: the
      decode kernels at 8 and 4 heads over one of 256; the int8 KV cache
      at P = 2); dbrx-132b's widths at 1 layer, both MoE forms, P = 1, 2,
-     4; qwen3-moe's at 1 layer, top-k, paged, P = 4; internvl2-26b's at 4
+     4; qwen3-moe's at 1 layer, top-k, paged, P = 4; internvl2-26b's at 2
      layers, dense decode over 256 patches, P = 2, 4; hubert-xlarge at
      published size, frame logits at P = 2, 4 against P = 1's (max
      |diff| logged). Each family's run at each degree is a main path
@@ -338,7 +339,22 @@ Phases (lines ``[phase +seconds since the start] ...``):
      bit-equal); recurrentgemma-9b's widths at 3 layers at (1, 4). The
      path runs no kernel (no backward for flash or SSD): its launches,
      counted from 0, must stay 0 (``trainmesh``);
- 19. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
+ 19. tpdata — serving over (DATA, MODEL) meshes with DATA > 1 inside one
+     engine, every slot on the one card, each model fp32 and freed
+     before the next: its (1, 1) runs on the card, then its weights moved
+     to the host and each mesh's copy cut from there: llama2-70b's
+     widths at 2 layers, SpecEE B=4 on the dense cache and
+     ServingEngine on the paged one (8 requests, 4 slots) at (2, 1)
+     tp2d, (2, 2) tp_dp / tp2d / fsdp_tp and (4, 1) tp2d, tree and
+     quant="int8" at (2, 2) tp2d; dbrx-132b's at 1 layer, both MoE
+     forms, expert parallelism at (2, 2); qwen3-moe's at 1 layer, top-k,
+     paged, (2, 2); mamba2-130m at published size, ServingEngine at
+     (2, 2); recurrentgemma-9b's at 3 layers, dense and paged, (2, 2).
+     Tokens, exit points and units_run must equal (1, 1)'s; logged: ms a
+     step or tick, the peak card memory against the weights and the
+     'data' collectives a step by kind. Each config's run at each mesh
+     is a main path (``tpdata_*``);
+ 20. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
@@ -346,7 +362,7 @@ token per step (one emitted token per tree step), so the tree runs of
 phases 3 to 10 measure the mechanism's cost, not its gain; phase 11's
 trained bundles are the ones that exit and accept.
 
-Each main path (phases 4 to 18, each run on its own) zeroes the
+Each main path (phases 4 to 19, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -4395,11 +4411,11 @@ def mega_phase(torch, dev, params, sw, ar_ref, fp_serve, tree_ref,
 # the recipe of benchmarks/common.py::get_bundle, stage by stage
 TRAIN_STEPS, DRAFT_STEPS, PRED_STEPS, EXIT_NEW = 30, 250, 300, 12
 DRAFT_BATCHES, PRED_BATCHES = 8, 4
-# (a): llama2-7b at published width, 8 of its 32 layers (fp32 params with
+# (a): llama2-7b at published width, 2 of its 32 layers (fp32 params with
 # AdamW's m and v at 32 layers would not fit one card), batches of 4 x 256;
 # (b): get_bundle's own config, the smoke config deepened to 12 layers,
 # its batches 4 x 32
-TRAINED_A_LAYERS, TRAINED_A_SEQ = 8, 256
+TRAINED_A_LAYERS, TRAINED_A_SEQ = 2, 256
 TRAINED_B_LAYERS, TRAINED_B_SEQ = 12, 32
 TRAINED_PROMPT, TRAINED_NEW, TRAINED_RUNS = 128, 32, 3
 TRAINED_PATH = tuple(dict.fromkeys(AR_PATH + TREE_PATH))
@@ -4615,14 +4631,14 @@ def trained_phase(torch, dev):
 # the projections bf16 and makes the LM head and predictors int8: a 15B
 # model's bf16 params, its int8 codes and the dequantized projections the
 # quantized engine holds (ROADMAP queue 2, item 4) do not fit one card
-DF_DEPTH = 8
+DF_DEPTH = 4
 DF_RUNS = (("llama2-13b", DF_DEPTH, ("ar", "tree", "serve")),
            ("starcoder2-15b", DF_DEPTH, ("ar", "serve", "kvq_serve",
                                          "int8_head_ar")),
            ("deepseek-7b", DF_DEPTH, ("ar",)),
            ("minicpm-2b", DF_DEPTH, ("ar", "tree", "int8_ar")),
-           ("llama2-70b", 4, ("ar", "serve")),
-           ("command-r-plus-104b", 4, ("ar",)))
+           ("llama2-70b", 2, ("ar", "serve")),
+           ("command-r-plus-104b", 2, ("ar",)))
 DF_STEPS, DF_TREE_STEPS, DF_PARITY_NEW = 32, 8, 8
 DF_SERVE_NEW = 16             # new tokens a request in phase 12's serving
 DF_AR_PATH = AR_PATH + ("flash_attention",)
@@ -5152,7 +5168,7 @@ FAMILIES = (("argmax_verify", ("argmax_partial", "argmax_merge")),
 # (name, layers or None for the published depth): DBRX's and Qwen3-MoE's
 # published widths with their depth cut to what one card holds beside its
 # runs (the whole models need multi-GPU: 264 and 470 GB of bf16 weights)
-NF_RUNS = (("dbrx-132b", 4), ("qwen3-moe-235b-a22b", 4),
+NF_RUNS = (("dbrx-132b", 1), ("qwen3-moe-235b-a22b", 1),
            ("recurrentgemma-9b", None), ("internvl2-26b", None),
            ("hubert-xlarge", None))
 NF_SERVE_REQS = 8             # requests of phase 14's serving runs
@@ -5706,9 +5722,9 @@ def faults_phase(torch, dev):
 TP_DEGREES = (2, 4)
 TP_VOCABS = (V, V + 1)        # llama2-7b's head, and one that splits unevenly
 TP_ROWS = (4, 320)            # a B = 4 step's rows, a B = 8 tree step's
-TP_LAYERS = 8                 # the fp32 decode runs' depth
+TP_LAYERS = 4                 # the fp32 decode runs' depth
+TP_DEEP_LAYERS = 16           # the bf16 comparison's depth
 TP_STEPS = 16                 # whole-batch decode steps of each run
-TP_FULL_STEPS = 16            # steps of the full-depth bf16 comparison
 TP_REQS, TP_NEW = 8, 16       # requests and new tokens of (c) and (d)
 TP_PATH = ("exit_gate", "argmax_verify", "topk_verify", "decode_attention",
            "paged_decode_attention", "flash_attention", "spec_head_gather",
@@ -5853,10 +5869,23 @@ def tp_decode(torch, dev):
     return launches, (model, params, sw, host)
 
 
-def tp_full_depth(torch, dev):
-    """(b, full depth) llama2-7b, 32 layers, bf16, SpecEE on the paged
-    cache at P = 1, then (d)'s pool on the same weights on the card, then
-    P = 4 cut from one host copy with the card's copy freed: tokens
+def _first_layers(params, sw, n: int):
+    """The first ``n`` layers of phase 5's one-segment stack and the
+    SpecEE weights' predictor bank and offline mask cut to match (views:
+    the leading dims are sliced, so every leaf stays contiguous)."""
+    from repro_torch.models.common import tree_map
+    params = dict(params, segments=[tree_map(lambda x: x[:n], seg)
+                                    for seg in params["segments"]])
+    return params, sw._replace(
+        predictors=tree_map(lambda x: x[:n], sw.predictors),
+        offline_mask=sw.offline_mask[:n])
+
+
+def tp_deep_bf16(torch, dev):
+    """(b, deep bf16) llama2-7b, TP_DEEP_LAYERS layers (not its full 32),
+    bf16, SpecEE on the paged cache at P = 1, then (d)'s pool on the same
+    weights on the card, then P = 4 cut from one host copy with the
+    card's copy freed: tokens
     compared, and a row's first divergence, if any, must be a near-tie of
     the P = 1 model (top-2 margin within 8 bf16 spacings of the top
     logit, as phase 14 holds). The P = 4 run's peak card memory must stay
@@ -5868,8 +5897,8 @@ def tp_full_depth(torch, dev):
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.model import ModelFlags, build_model
     from repro_torch.sharding.serving import to_host, unplace
-    params, sw = full_weights(torch, dev)
-    run = llama(32, "bfloat16")
+    params, sw = _first_layers(*full_weights(torch, dev), TP_DEEP_LAYERS)
+    run = llama(TP_DEEP_LAYERS, "bfloat16")
     model = build_model(run, ModelFlags(**ALL_KERNELS))
     prompts = np.random.default_rng(17).integers(0, V, (B, FULL_PROMPT))
     ref = _tp_drive(model, params, sw, "specee", prompts, "paged", None)
@@ -5891,8 +5920,8 @@ def tp_full_depth(torch, dev):
     launches = dict(K.LAUNCHES)            # ---- read right after ----
     peak = torch.cuda.max_memory_allocated()
     for k in SERVE_PATH + ("flash_attention",):
-        require(launches[k] > 0, f"tp full depth never launched {k}")
-    require(peak < 1.5 * whole, f"tp full depth: peak card memory "
+        require(launches[k] > 0, f"tp deep bf16 never launched {k}")
+    require(peak < 1.5 * whole, f"tp deep bf16: peak card memory "
             f"{peak / 1e9:.2f} GB at P=4 for {whole / 1e9:.2f} GB of "
             "weights (a whole copy beside the shards)")
     notes, params = [], None
@@ -5906,14 +5935,15 @@ def tp_full_depth(torch, dev):
         margin, top = top2_margin(torch, build_model(run), params,
                                   list(prompts[b]) + ref[b][:n])
         spacing = 2.0 ** (np.floor(np.log2(abs(top))) - 7)
-        require(margin <= 8 * spacing, f"tp full depth: row {b} differs "
+        require(margin <= 8 * spacing, f"tp deep bf16: row {b} differs "
                 f"at token {n} ({ref[b][n]} vs {got[b][n]}), P=1 top-2 "
                 f"margin {margin:.4g} (bf16 spacing {spacing:.4g})")
         notes.append(f"row {b} first differs at token {n} "
                      f"({ref[b][n]} vs {got[b][n]}; P=1 top-2 margin "
                      f"{margin:.4g} of {top:.4g}, bf16 spacing "
                      f"{spacing:.4g})")
-    log("tp", f"llama2-7b 32 layers bf16 SpecEE paged, B={B}, "
+    log("tp", f"llama2-7b {TP_DEEP_LAYERS} layers bf16 SpecEE paged, "
+        f"B={B}, "
         f"{TP_STEPS} steps, P=4 against P=1: "
         + ("; ".join(notes) if notes else "every token equal")
         + f"; P=4 run {wall:.2f} s, peak card memory {peak / 1e9:.2f} GB "
@@ -5980,7 +6010,8 @@ def tp_remesh(torch, dev, model, params, sw, host):
 
 
 def tp_pool(torch, dev, params, sw):
-    """(d) ReplicaPool of two unsharded llama2-7b bf16 replicas sharing one
+    """(d) ReplicaPool of two unsharded llama2-7b bf16 replicas (the
+    TP_DEEP_LAYERS layers of (b)) sharing one
     param tree: device_lost fires in a replica, which cannot remesh, so
     the pool kills it and requeues its requests; the outputs equal one
     engine's fault-free run. Returns the pool's launches."""
@@ -5989,7 +6020,7 @@ def tp_pool(torch, dev, params, sw):
     from repro_torch.runtime import faultinject
     from repro_torch.runtime.faultinject import FaultSchedule
     from repro_torch.serving import ReplicaPool, ServingEngine
-    run = llama(32, "bfloat16", max_batch=4, max_seq_len=1024,
+    run = llama(TP_DEEP_LAYERS, "bfloat16", max_batch=4, max_seq_len=1024,
                 page_size=PAGE)
     model = build_model(run, ModelFlags(**ALL_KERNELS))
     prompts = serve_prompts()[:TP_REQS]
@@ -6081,7 +6112,7 @@ def tp_phase(torch, dev):
     del model, params, sw, host
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["tp_full"], by_path["tp_pool"] = tp_full_depth(torch, dev)
+    by_path["tp_deep"], by_path["tp_pool"] = tp_deep_bf16(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     log("tp", f"phase 16 took {time.perf_counter() - t0:.1f} s; no copy "
@@ -6095,7 +6126,7 @@ def tp_phase(torch, dev):
 TPF_STEPS = 8                 # whole-batch decode steps of each run
 TPF_RG_LAYERS = 3             # one unit: rglru, rglru, local attention
 TPF_RG_PROMPTS = (128, 300, 211, 177)   # recurrentgemma's rows' prompts
-TPF_VLM_LAYERS = 4
+TPF_VLM_LAYERS = 2
 TPF_SERVE_REQS = 8            # mamba2's ServingEngine(mesh=P2) requests
 TPF_SERVE_NEW = 16
 TPF_MOE_PATH = ("decode_attention", "flash_attention", "exit_gate",
@@ -6721,6 +6752,260 @@ def trainmesh_phase(torch, dev):
     return {"trainmesh": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: serving with DATA > 1 — a (DATA, MODEL) mesh inside one engine
+# ---------------------------------------------------------------------------
+TPD_LAYERS = 2                # llama2-70b's depth here: 8.9 GB of fp32
+TPD_PROMPT, TPD_STEPS = 64, 8  # whole-batch rows of B prompt tokens; steps
+TPD_SLOTS, TPD_REQS, TPD_NEW = 4, 8, 8   # ServingEngine slots, requests
+TPD_MESHES = ((2, 1, "tp2d"), (2, 2, "tp_dp"), (2, 2, "tp2d"),
+              (2, 2, "fsdp_tp"), (4, 1, "tp2d"))
+TPD_RG_LAYERS = 3             # recurrentgemma-9b: one unit
+TPD_AR_PATH = AR_PATH + ("flash_attention",)
+TPD_SERVE_PATH = SERVE_PATH + ("flash_attention",)
+
+
+def dp_mesh(D: int, P: int):
+    """A (D, P) mesh with every slot on cuda:0 (no copy between cards)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(D, P, device="cuda:0")
+
+
+def _tpd_whole(torch, model, params, sw, strategy, prompts, mesh, policy,
+               cache="dense", quant=None):
+    """A whole-batch session over ``mesh`` (None: the card alone):
+    ``prefill`` then TPD_STEPS steps. Returns ((each row's tokens, each
+    step's exit points, exits and units_run), ms a step by the host clock
+    over the steps after the first two (each step ends in its host reads),
+    the 'data' collectives' calls and bytes a step by kind)."""
+    from repro_torch.api import Engine
+    from repro_torch.runtime import collectives as C
+    e = Engine.create(model, params, sw, strategy=strategy, quant=quant,
+                      mesh=mesh, policy=policy)
+    s = e.new_session(cache=cache)
+    first = s.prefill(prompts, max_new_tokens=TPD_STEPS * e.emit_width + 1)
+    toks = [list(first.row_tokens(b)) for b in range(first.batch)]
+    info, stamps = [], []
+    torch.cuda.synchronize()
+    C.reset_counts()
+    stamps.append(time.perf_counter())
+    while not s.all_done():
+        r = s.step()
+        stamps.append(time.perf_counter())
+        info.append((r.exit_layer.tolist(), r.exited.tolist(),
+                     int(r.units_run)))
+        for b in range(r.batch):
+            toks[b].extend(int(t) for t in r.row_tokens(b))
+    n = len(info)
+    warm = stamps[2:] if n > 2 else stamps
+    ms = (warm[-1] - warm[0]) * 1e3 / max(1, len(warm) - 1)
+    return (toks, info), ms, {k: (v["calls"] / n, v["bytes"] / n)
+                              for k, v in C.COUNTS.items()}
+
+
+def _tpd_serve(torch, model, params, sw, prompts, mesh, policy):
+    """``ServingEngine`` on the paged cache, TPD_SLOTS slots, blocking
+    admission: every request's tokens and exit points, every page back.
+    Returns (outputs, ms a tick, the 'data' collectives a tick)."""
+    from repro_torch.runtime import collectives as C
+    from repro_torch.serving import ServingEngine
+    se = ServingEngine(model, params, sw, strategy="specee", cache="paged",
+                       prefill_chunk=0, mesh=mesh, policy=policy)
+    reqs = [se.submit(p, max_new_tokens=TPD_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    C.reset_counts()
+    t0 = time.perf_counter()
+    se.run_to_completion()
+    torch.cuda.synchronize()
+    ticks = max(1, se._tick)
+    ms = (time.perf_counter() - t0) * 1e3 / ticks
+    mgr = se.session.cache_mgr
+    require(mgr.free_pages == mgr.num_pages,
+            f"tpdata: {mgr.free_pages} of {mgr.num_pages} pages free")
+    out = [(r.output, r.exit_points) for r in reqs]
+    se.close()
+    return out, ms, {k: (v["calls"] / ticks, v["bytes"] / ticks)
+                     for k, v in C.COUNTS.items()}
+
+
+def _tpd_counts_str(counts) -> str:
+    return ", ".join(f"{k} {c:.1f} calls {b / 1e9:.3f} GB"
+                     for k, (c, b) in counts.items() if c) or "none"
+
+
+def _tpd_family(torch, dev, label, run, cases, meshes, seed=19):
+    """One config at fp32: its weights seeded on the card and each case
+    run there (a mesh engine quantizes on its lead card too), the weights
+    moved to the host and the card's copy freed, then each (D, P, policy) of
+    ``meshes`` (every slot on cuda:0) with the launch counts zeroed right
+    before and read right after: each case's tokens, exit points and
+    units_run must equal the (1, 1) run's and its path's kernels must
+    launch. ``cases``: (name, model, kind "whole" | "serve", strategy,
+    cache, prompts, quant, path, meshes or None: all). Logs ms a step or
+    tick, the peak card memory against the weights and the 'data'
+    collectives. Returns the launches by path."""
+    import gc
+    from repro_torch import kernels as K
+    from repro_torch.models.common import tree_leaves, with_contiguous_head
+    from repro_torch.sharding.serving import to_host
+    t0 = time.perf_counter()
+    params, sw = _seeded(torch, dev, run, seed)
+    whole = sum(x.numel() * x.element_size() for x in tree_leaves(
+        (with_contiguous_head(params), sw)) if isinstance(x, torch.Tensor))
+    torch.cuda.synchronize()
+    t_seed = time.perf_counter() - t0
+
+    def go(case, p, s, mesh, policy):
+        name, model, kind, strategy, cache, prompts, quant, _, _ = case
+        if kind == "serve":
+            return _tpd_serve(torch, model, p, s, prompts, mesh, policy)
+        return _tpd_whole(torch, model, p, s if strategy != "dense" else
+                          None, strategy, prompts, mesh, policy, cache,
+                          quant)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref = {c[0]: go(c, params, sw, None, "tp_dp") for c in cases}
+    torch.cuda.synchronize()
+    peak1 = torch.cuda.max_memory_allocated()
+    t_ref = time.perf_counter() - t0 - t_seed
+    host = to_host(params), to_host(sw)
+    del params, sw
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_host = time.perf_counter() - t0 - t_seed - t_ref
+    notes = [f"seeded {t_seed:.1f} s, (1, 1) runs {t_ref:.1f} s, to the "
+             f"host {t_host:.1f} s; (1, 1): " + "; ".join(
+                 f"{n} {r[1]:.2f} ms" for n, r in ref.items())
+             + f", peak {peak1 / 1e9:.2f} GB"]
+    by_path = {}
+    for D, P, policy in meshes:
+        mine = [c for c in cases if c[8] is None or (D, P, policy) in c[8]]
+        if not mine:
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        K.reset_launches()                 # ---- the main path ----
+        got = {c[0]: go(c, *host, dp_mesh(D, P), policy) for c in mine}
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)        # ---- read right after ----
+        peak = torch.cuda.max_memory_allocated()
+        for c in mine:
+            require(got[c[0]][0] == ref[c[0]][0], f"tpdata {label} {c[0]} "
+                    f"at ({D}, {P}) {policy} differs from (1, 1)")
+        need = sorted({k for c in mine for k in c[7]})
+        missing = [k for k in need if launches[k] == 0]
+        require(not missing, f"tpdata {label} ({D}, {P}) {policy}: kernels "
+                f"never launched: {missing}")
+        by_path[f"tpdata_{label}_{D}x{P}_{policy}"] = launches
+        notes.append(
+            f"({D}, {P}) {policy}: " + "; ".join(
+                f"{n} {r[1]:.2f} ms ({ref[n][1]:.2f} at (1, 1)), 'data' "
+                f"per step or tick: {_tpd_counts_str(r[2])}"
+                for n, r in got.items())
+            + f"; equal (1, 1) in {time.perf_counter() - t1:.1f} s, peak "
+            f"{peak / 1e9:.2f} GB ({peak / whole:.2f}x the weights); "
+            "launches " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                    if v))
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("tpdata", f"{label}: {whole / 1e9:.2f} GB of fp32 weights, "
+        f"{time.perf_counter() - t0:.1f} s; " + " | ".join(notes))
+    return by_path
+
+
+def tpdata_phase(torch, dev):
+    """Phase 19: serving over (DATA, MODEL) meshes with DATA > 1, every
+    slot on the one card, each model at fp32 and freed before the next.
+    Returns the launches by path."""
+    import dataclasses
+    import gc
+    import numpy as np
+    from repro_torch.api import SpecEEStrategy, TreeStrategy
+    from repro_torch.core.tree import TreeSpec
+    from repro_torch.models.model import ModelFlags, build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("tpdata", card_line())
+    by_path = {}
+    rng = np.random.default_rng(190)
+
+    def rows(run, n=B):
+        return rng.integers(0, run.model.vocab_size, (n, TPD_PROMPT))
+
+    def requests(run):
+        return [rng.integers(0, run.model.vocab_size, int(n))
+                for n in rng.integers(16, 96, TPD_REQS)]
+
+    # llama2-70b's widths at 2 layers: SpecEE on the dense cache and
+    # ServingEngine on the paged one over every mesh; tree and int8 at
+    # (2, 2) tp2d
+    run = df_config("llama2-70b", TPD_LAYERS, "float32",
+                    max_batch=TPD_SLOTS, max_seq_len=256, page_size=PAGE)
+    m = build_model(run, ModelFlags(**ALL_KERNELS))
+    mt = build_model(run, ModelFlags(**TREE_KERNELS))
+    at = ((2, 2, "tp2d"),)
+    by_path.update(_tpd_family(torch, dev, "llama2-70b", run, [
+        ("specee dense", m, "whole", SpecEEStrategy(), "dense", rows(run),
+         None, TPD_AR_PATH, None),
+        ("serve paged", m, "serve", None, "paged", requests(run), None,
+         TPD_SERVE_PATH, None),
+        ("tree dense", mt, "whole",
+         TreeStrategy(TreeSpec(TREE_DEPTH, TREE_BRANCH)), "dense",
+         rows(run), None, TREE_PATH, at),
+        ("specee int8", m, "whole", SpecEEStrategy(), "dense", rows(run),
+         "int8", quantized(AR_PATH), at)], TPD_MESHES))
+
+    # dbrx-132b's widths, 1 layer, both MoE forms: expert parallelism at
+    # (2, 2) (16 experts over 2 rows)
+    run = df_config("dbrx-132b", 1, "float32")
+    prompts = rows(run)
+    by_path.update(_tpd_family(torch, dev, "dbrx-132b", run, [
+        (f"specee moe_impl={impl}", build_model(run, ModelFlags(
+            **ALL_KERNELS, moe_impl=impl)), "whole", SpecEEStrategy(),
+         "dense", prompts, None, TPD_AR_PATH, None)
+        for impl in ("dense", "topk")], ((2, 2, "tp_dp"),)))
+
+    # qwen3-moe's widths, 1 layer, top-k on the paged cache at (2, 2)
+    run = df_config("qwen3-moe-235b-a22b", 1, "float32")
+    by_path.update(_tpd_family(torch, dev, "qwen3-moe-235b-a22b", run, [
+        ("specee moe_impl=topk paged", build_model(run, ModelFlags(
+            **ALL_KERNELS, moe_impl="topk")), "whole", SpecEEStrategy(),
+         "paged", rows(run), None, TPD_AR_PATH[:3] + (
+             "flash_attention", "paged_decode_attention"), None)],
+        ((2, 2, "tp_dp"),)))
+
+    # mamba2-130m at published size: ServingEngine at (2, 2)
+    run = mamba(24, "float32", max_batch=TPD_SLOTS, max_seq_len=256,
+                page_size=PAGE)
+    by_path.update(_tpd_family(torch, dev, "mamba2-130m", run, [
+        ("serve", build_model(run, ModelFlags(**MAMBA_KERNELS)), "serve",
+         None, "paged", requests(run), None, MAMBA_PATH, None)],
+        ((2, 2, "tp2d"),)))
+
+    # recurrentgemma-9b's widths, one unit of 3 layers: dense and paged
+    run = df_config("recurrentgemma-9b", None, "float32")
+    run = dataclasses.replace(run, model=dataclasses.replace(
+        run.model, num_layers=TPD_RG_LAYERS,
+        block_pattern=run.model.block_pattern[:TPD_RG_LAYERS]))
+    m = build_model(run, ModelFlags(**ALL_KERNELS))
+    prompts = rows(run)
+    by_path.update(_tpd_family(torch, dev, "recurrentgemma-9b", run, [
+        (f"specee {cache}", m, "whole", SpecEEStrategy(), cache, prompts,
+         None, TPD_AR_PATH[:3] + ("flash_attention", "decode_attention"
+                                  if cache == "dense" else
+                                  "paged_decode_attention"), None)
+        for cache in ("dense", "paged")], ((2, 2, "tp2d"),)))
+    log("tpdata", f"phase 19 took {time.perf_counter() - t0:.1f} s; every "
+        "slot on cuda:0 (no copy between cards made or measured)")
+    return by_path
+
+
 def profile_steps(torch, model, params, sw, prompts, step_s: float,
                   n: int = 4, phase: str = "profile") -> None:
     """torch.profiler over ``n`` more whole-batch SpecEE steps."""
@@ -6882,6 +7167,8 @@ def main() -> int:
     by_path.update(tp_family_phase(torch, dev))
     torch.cuda.empty_cache()
     by_path.update(trainmesh_phase(torch, dev))
+    torch.cuda.empty_cache()
+    by_path.update(tpdata_phase(torch, dev))
     log("total", f"script {time.perf_counter() - T_START:.1f} s before the "
         "kernels line")
 

@@ -26,6 +26,17 @@ admission and retirement edit rows without knowing the layout.
 ``api/cache.py:164``, ``:297``); the port's placement of replicated KV
 heads and SSD heads differs from them (``sharding/serving.py``).
 
+Over the data rows of a ``(D, P)`` mesh (``Model.with_rows``) a leaf is
+a ``DataShards`` of the rows' entries: a dense entry and a per-row
+(SSD, RG-LRU) entry split their batch over the rows, and each page pool
+is a copy per row (JAX's paged specs replicate the pools over 'data').
+One allocator and one page table on the lead serve every row, so
+``free_pages``, ``row_pages`` and every eviction decision are the
+unsharded manager's; a row's K/V is written into the copy of the data
+row that owns its slot (``_owner``), and a join of the pools takes each
+page from that row (``sharding.serving.unplace_cache``). Where D does not
+divide the batch the cache is whole on row 0.
+
 Allocation is by reservation: a row claims its full ``pages_per_row`` at
 admission and returns them at retirement, in the JAX package's order, so
 page ids come out equal to the JAX manager's for the same calls. Only
@@ -44,7 +55,7 @@ from repro_torch.config import ATTN, LOCAL_ATTN
 from repro_torch.core import paged as paged_lib
 from repro_torch.models.common import tree_map
 from repro_torch.runtime import faultinject
-from repro_torch.sharding.ctx import Shards, parts, whole_size
+from repro_torch.sharding.ctx import DataShards, Shards, parts, whole_size
 
 
 @dataclass(frozen=True)
@@ -84,10 +95,17 @@ class CacheSpec:
 def insert_row_pytree(big: Any, small: Any, row: int, batch: int) -> Any:
     """Write batch-1 tree ``small`` into row ``row`` of batched ``big``, in
     place, and return ``big``. The batch axis of each leaf is the first dim
-    where ``big`` has ``batch`` and ``small`` has 1 (the JAX rule)."""
+    where ``big`` has ``batch`` and ``small`` has 1 (the JAX rule); a leaf
+    split over data rows (``DataShards``) takes it into the entry of the
+    row that owns ``row``."""
     if isinstance(big, dict):
         return {k: insert_row_pytree(big[k], small[k], row, batch)
                 for k in big}
+    if isinstance(big, DataShards):     # the batch over the data rows
+        b = batch // len(big)
+        d, r = divmod(row, b)
+        one = insert_row_pytree(big[d], small, r, b)
+        return big.like(one if i == d else e for i, e in enumerate(big))
     if isinstance(big, Shards):
         return big.like(insert_row_pytree(b, s, row, batch)
                         for b, s in zip(big, small))
@@ -206,7 +224,13 @@ class KVCacheManager:
 
 def _whole_shape(x):
     """The whole tensor's shape of a leaf (a ``Shards``' parts joined by
-    its segments, which every cache leaf carries)."""
+    its segments, which every cache leaf carries; a ``DataShards``' rows
+    joined, or one copy)."""
+    if isinstance(x, DataShards):
+        shape = list(_whole_shape(x[0]))
+        if x.dim is not None:
+            shape[x.dim] *= len(x)
+        return tuple(shape)
     if not isinstance(x, Shards):
         return tuple(x.shape)
     shape = list(x[0].shape)
@@ -219,7 +243,7 @@ def _shape_tree(cache: Any) -> Any:
     its whole shape (the spec rules read shapes alone)."""
     if isinstance(cache, dict):
         return {k: _shape_tree(v) for k, v in cache.items()}
-    if isinstance(cache, (Shards, torch.Tensor)):
+    if isinstance(cache, (DataShards, Shards, torch.Tensor)):
         return torch.empty(_whole_shape(cache), device="meta")
     if isinstance(cache, (list, tuple)):
         return type(cache)(_shape_tree(v) for v in cache)
@@ -313,7 +337,8 @@ class PagedKVCache(KVCacheManager):
         for seg, key, kind, is_attn in self._attention_units():
             segs[seg][key] = self.model.empty_cache_entry(
                 reps[seg], self.num_pages + 1 if is_attn else self.batch,
-                self.page_size, self.device, kind)
+                self.page_size, self.device, kind,
+                pool_rows=self.batch if is_attn else None)
         table = torch.full((self.batch, self.pages_per_row), self.trash_page,
                            dtype=torch.int32, device=self.device)
         return {"segments": segs,
@@ -356,14 +381,24 @@ class PagedKVCache(KVCacheManager):
                                     for _ in range(self.pages_per_row)]
         return np.asarray(self._row_pages[row], np.int32)
 
+    def _owner(self, row: int) -> int:
+        """The data row whose pool copies hold slot ``row``'s pages (0
+        without data rows or where they do not divide the batch)."""
+        rows = self.model.rows
+        if rows is None or self.batch % rows.D:
+            return 0
+        return row // (self.batch // rows.D)
+
     @staticmethod
     def _scatter_entry(pool_entry: Any, dense_entry: Any,
-                       slots: torch.Tensor) -> None:
+                       slots: torch.Tensor, d: int = 0) -> None:
         """Copy a dense attention entry's first logical slots into its
-        pools, in place. slots: flat pool slot ids, (B, S) for whole-batch
-        dense leaves (reps, B, S, ...) or (S,) for one row's leaves
-        (reps, S, ...)."""
+        pools (data row ``d``'s copy of pools held per row), in place.
+        slots: flat pool slot ids, (B, S) for whole-batch dense leaves
+        (reps, B, S, ...) or (S,) for one row's leaves (reps, S, ...)."""
         for name, pools in pool_entry.items():
+            if isinstance(pools, DataShards):
+                pools = pools[d]
             for pool, dense in zip(parts(pools), parts(dense_entry[name])):
                 flat = pool.view((pool.shape[0],
                                   pool.shape[1] * pool.shape[2])
@@ -382,7 +417,14 @@ class PagedKVCache(KVCacheManager):
                 segs[seg][key] = dense        # per-row state: unchanged
                 continue
             S = _whole_shape(dense["k"])[2]
-            self._scatter_entry(segs[seg][key], dense, view[:, :S])
+            if not isinstance(dense["k"], DataShards):
+                self._scatter_entry(segs[seg][key], dense, view[:, :S])
+                continue
+            b = self.batch // len(dense["k"])
+            for d in range(len(dense["k"])):    # each row into its copy
+                self._scatter_entry(segs[seg][key],
+                                    {n: x[d] for n, x in dense.items()},
+                                    view[d * b:(d + 1) * b, :S], d)
         return {"segments": segs, "len": dense_cache["len"],
                 "page_table": table}
 
@@ -402,7 +444,7 @@ class PagedKVCache(KVCacheManager):
                 continue
             S = _whole_shape(src["k"])[2]
             self._scatter_entry(dst, tree_map(lambda x: x[:, 0], src),
-                                row_slots[:S])
+                                row_slots[:S], self._owner(row))
         length = cache["len"].clone()
         length[row] = row_cache["len"][0]
         return dict(cache, len=length, page_table=table)

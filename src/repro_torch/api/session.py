@@ -67,7 +67,14 @@ Tensor-parallel decode (``Engine.create(..., mesh=make_host_mesh(1, P))``):
 the engine holds its model's sharded view and the params' slices
 (``sharding.serving``); every session, megatick, ``step_async``,
 ``snapshot`` and ``restore`` runs under it unchanged, the replicated state
-on the mesh's lead device. Under a mesh the whole tree is kept once, on
+on the mesh's lead device. A ``(D, P)`` mesh with D > 1 (``policy=
+"tp_dp"|"tp2d"|"fsdp_tp"``) places the weights over the data rows as
+well (``sharding.serving.shard_params``) and the model splits each block
+call's batch over the rows (``Model.with_rows``); the decode caches split
+their batch over the rows, and everything else of the state stays whole
+on the lead, so the sessions, the strategies and the engine's host loop
+are the same code. A snapshot joins a paged pool's per-row copies page by
+page (``sharding.serving.unplace_cache``). Under a mesh the whole tree is kept once, on
 the host (``Engine.source``): the device copies, and a remesh's, are cut
 from it, so no card holds it beside its shards.
 """
@@ -94,6 +101,7 @@ from repro_torch.quant import (QuantSpec, dequantized_reference,
 from repro_torch.runtime import faultinject
 from repro_torch.sharding import serving as shard_serving
 from repro_torch.sharding.ctx import ShardCtx
+from repro_torch.sharding.rows import RowMesh
 
 _NO_BUDGET = np.iinfo(np.int64).max
 _DEV_NO_BUDGET = np.iinfo(np.int32).max     # device-carry budget cap
@@ -127,10 +135,14 @@ class Engine:
         # tensor-parallel serving: a (1, P) mesh places the weights by the
         # policy's Megatron roles (``sharding.serving.shard_params``) and
         # the model builds its KV caches per shard; a mesh of model extent
-        # 1 is the unsharded path
+        # 1 is the unsharded path. DATA > 1 places over the data rows too
+        # (``self.rows``), the model splitting each batch over them
         self.mesh = mesh
         self.policy = policy
         self.shard = ShardCtx.from_mesh(mesh)
+        self.rows = (RowMesh(model, mesh) if mesh is not None
+                     and int(mesh.shape["data"]) > 1 else None)
+        self.placed = self.shard is not None or self.rows is not None
         if mesh is not None:
             shard_serving.check_servable(model, mesh, policy)
         # a tied head (Mamba2) as one contiguous copy for the kernels
@@ -145,11 +157,14 @@ class Engine:
         self.strategy = get_strategy(strategy)
         self.strategy.validate(model, sw)
         # weight-only quantization: a parallel bundle of codes + scales,
-        # built from the whole tree; under a mesh it stays whole on the
-        # lead (JAX replicates the quantized tiles)
+        # built from the whole tree; under a mesh it is made on the lead
+        # device, a tensor at a time from the host copy, and stays whole
+        # there (JAX replicates the quantized tiles)
         self.quant_spec = QuantSpec.resolve(quant)
-        self.qw = quantize_params(params, sw, self.quant_spec)
-        if self.shard is None:
+        self.qw = quantize_params(
+            params, sw, self.quant_spec,
+            device=None if mesh is None else mesh.devices[0][0])
+        if not self.placed:
             # unsharded: on the degree-1 mesh's device, else where the
             # weights are
             self.model = model
@@ -160,10 +175,11 @@ class Engine:
             if self.qw is not None:
                 self.qw = shard_serving.unplace(self.qw, self.device)
         else:
-            self.model = model.with_shard(self.shard)
+            self.model = (model.with_rows(self.rows) if self.rows is not None
+                          else model.with_shard(self.shard))
             self.params, self.sw = shard_serving.shard_params(
                 params, sw, mesh, policy, model)
-            self.device = self.shard.lead
+            self.device = mesh.devices[0][0]
             if self.qw is not None:
                 self.qw = shard_serving.unplace(self.qw, self.device)
         self._prefill_view = None
@@ -176,9 +192,10 @@ class Engine:
         """``Engine.create(model, params, sw,
         strategy="dense"|"specee"|"tree",
         quant=None|"int8"|"int4"|QuantSpec(...),
-        mesh=None|repro_torch.launch.mesh.Mesh, policy="tp_dp"|"tp2d")``.
-        A mesh with a 'model' axis of extent > 1 turns on tensor-parallel
-        decode."""
+        mesh=None|repro_torch.launch.mesh.Mesh,
+        policy="tp_dp"|"tp2d"|"fsdp_tp")``. A mesh with a 'model' axis of
+        extent > 1 turns on tensor-parallel decode, one with a 'data' axis
+        of extent > 1 splits the batch over the data rows."""
         return cls(model, params, sw=sw, strategy=strategy, quant=quant,
                    mesh=mesh, policy=policy)
 
@@ -188,16 +205,20 @@ class Engine:
         cache leaf cut as ``like``'s ``Shards`` is, the rest on the lead
         device). ``restore`` calls it, so a snapshot taken at one degree
         restores at another."""
-        if self.shard is None:
+        if not self.placed:
             return state
-        return shard_serving.place_like(state, like, self.shard)
+        return shard_serving.place_like(state, like, self.device)
 
     def unshard_state(self, state):
         """The whole-tensor layout of a ``DecodeState`` (no-op unsharded):
-        every shard's KV heads gathered onto the lead device."""
-        if self.shard is None:
+        every shard's KV heads gathered onto the lead device, the data
+        rows' batches joined, a paged pool's per-row copies joined page by
+        page (``unplace_cache``)."""
+        if not self.placed:
             return state
-        return shard_serving.unplace(state, self.device)
+        whole = shard_serving.unplace(state._replace(cache=None), self.device)
+        return whole._replace(cache=shard_serving.unplace_cache(
+            state.cache, self.device))
 
     @property
     def emit_width(self) -> int:
@@ -213,10 +234,10 @@ class Engine:
         if self._prefill_view is None:
             params, sw = self.source
             view = dequantized_reference(params, sw, self.qw)
-            if self.mesh is not None and self.shard is None:
+            if self.mesh is not None and not self.placed:
                 view = (shard_serving.unplace(view[0], self.device),
                         shard_serving.unplace(view[1], self.device))
-            elif self.shard is not None:
+            elif self.placed:
                 view = shard_serving.shard_params(*view, self.mesh,
                                                   self.policy, self.model)
             self._prefill_view = view

@@ -48,7 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.common import _is_namedtuple, tree_leaves_with_path
+from repro_torch.models.common import is_namedtuple, tree_leaves_with_path
 from repro_torch.quant.core import QTensor
 from repro_torch.sharding.ctx import DataShards, Shards, join, whole_shape
 
@@ -230,7 +230,7 @@ def _unflatten(like: Any, vals) -> Any:
         return {k: _unflatten(v, vals) for k, v in like.items()}
     if isinstance(like, Shards):
         return like.like([_unflatten(v, vals) for v in like])
-    if _is_namedtuple(like):
+    if is_namedtuple(like):
         return type(like)(*(_unflatten(v, vals) for v in like))
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, vals) for v in like)

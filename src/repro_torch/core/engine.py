@@ -356,7 +356,8 @@ def tree_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     # the capacity is pages_per_row * page_size
     pages = state.cache.get("page_table")
     any_k = state.cache["segments"][0]["u0"]["k"]
-    any_k = any_k[0] if isinstance(any_k, list) else any_k   # a shard's part
+    while isinstance(any_k, list):      # a data row's entry, a shard's part
+        any_k = any_k[0]
     capacity = (any_k.shape[2] if pages is None
                 else pages.shape[1] * any_k.shape[2])
     scratch_off = capacity - N

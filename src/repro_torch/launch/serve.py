@@ -40,7 +40,11 @@ on a full pool and with no fault.
 
 Multi-GPU serving:
     --mesh 1,N           tensor-parallel decode over N shards
-                         (``launch.mesh``); DATA must be 1
+                         (``launch.mesh``); DATA must be 1, as JAX's
+                         launcher requires (``Engine.create(mesh=)`` and
+                         ``ServingEngine(mesh=)`` take a (D, P) mesh with
+                         D > 1 from code: ``policy="tp_dp"|"tp2d"|
+                         "fsdp_tp"``)
     --replicas M         M engines behind one queue (``ReplicaPool``)
     --inject device_lost the engine drops its highest device and remeshes
                          in place (needs --mesh 1,N>1)
@@ -119,7 +123,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "the run")
     ap.add_argument("--mesh", default="1,1", metavar="DATA,MODEL",
                     help="decode mesh shape; MODEL > 1 turns on tensor-"
-                         "parallel decode")
+                         "parallel decode; DATA must be 1 (Engine and "
+                         "ServingEngine take a (DATA, MODEL) mesh with "
+                         "DATA > 1 from code)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="data-parallel ServingEngine replicas behind one "
                          "shared queue (ReplicaPool), each over its own "

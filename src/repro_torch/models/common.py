@@ -26,7 +26,7 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def _is_namedtuple(x) -> bool:
+def is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
@@ -42,7 +42,7 @@ def tree_map(fn, tree):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (Shards, DataShards)):
         return tree.like(tree_map(fn, v) for v in tree)
-    if _is_namedtuple(tree):
+    if is_namedtuple(tree):
         return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
@@ -71,7 +71,7 @@ def tree_leaves_with_path(tree, prefix: str = "") -> list:
         return [(prefix, tree)]
     if isinstance(tree, dict):
         items = [(f"[{k!r}]", v) for k, v in tree.items()]
-    elif _is_namedtuple(tree):
+    elif is_namedtuple(tree):
         items = [(f".{f}", v) for f, v in zip(tree._fields, tree)]
     elif isinstance(tree, (list, tuple)):
         items = [(f"[{i}]", v) for i, v in enumerate(tree)]

@@ -44,6 +44,19 @@ Training under a ``(DATA, MODEL)`` mesh (``train_loss_rows``,
 rows of the batch, over its own TP group of ``Shards``; MoE's experts run
 over every row's tokens (``moe.apply_moe_rows``); the loss is the whole
 batch's.
+
+Serving under a ``(DATA, MODEL)`` mesh with DATA > 1 (``with_rows``):
+every decode, tree, propagation, chunk and prefill call of a unit splits
+its batch over the data rows (``_unit``), the groups following the cache
+(its batch split over the rows, or whole on row 0). Row d runs the same
+``(1, P)`` blocks on its rows, its cache entry (a paged pool: its copy,
+its slots' page-table rows) and its view of the unit's weights, gathered
+over 'data' for the call; a MoE FFN runs its experts over every row's
+tokens (``_ffn_rows``: expert parallelism where the stacks are cut over
+'data'). The rows' hiddens join on the mesh lead after the unit, so the
+residual stream between units, the gates, the draft and the verify stay
+whole there. SSD and RG-LRU states split their batch like the KV cache;
+a frontend's patches or frames are split by row in prefill.
 """
 from __future__ import annotations
 
@@ -65,7 +78,8 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.common import Params, index_tree
 from repro_torch.runtime.collectives import all_reduce_rows, all_reduce_sum
-from repro_torch.sharding.ctx import Shards, local, part_size, parts
+from repro_torch.sharding.ctx import (DataShards, Shards, ShardCtx, local,
+                                     part_size, parts)
 
 
 def segments_of(blocks: Sequence[str], max_unit: int = 4
@@ -230,22 +244,6 @@ def _ep_quant(flags: "ModelFlags") -> bool:
     return flags.moe_ep_quant and flags.act_batch_axes is not None
 
 
-def _ffn(cfg: ModelConfig, p: Params, h: torch.Tensor, flags: "ModelFlags",
-         pet: Optional[torch.dtype] = None
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The attention block's FFN, a dense MLP (its down projection's
-    product in ``pet``) or a MoE in the form ``flags.moe_impl`` picks.
-    Returns (out, aux loss)."""
-    if "moe" in p:
-        if flags.moe_impl == "dense":
-            return moe_lib.apply_moe(cfg, p["moe"], h,
-                                     ep_quant=_ep_quant(flags),
-                                     bf16_reduce=flags.moe_bf16_reduce)
-        return moe_lib.apply_moe_topk(cfg, p["moe"], h)
-    return (_mlp(cfg, p["mlp"], h, pet),
-            torch.zeros((), dtype=torch.float32, device=h.device))
-
-
 def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(position, head) symmetric int8: x (..., hd) -> (codes int8,
     scale fp32 (...)), bit-equal to JAX's (``torch.round`` rounds half to
@@ -313,7 +311,7 @@ def _block_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
         h = h + _mlp(cfg, p["mlp"], x2)
         return h, {"h": h_rec, "conv": conv_tail}, aux
     h, kv, x2, pet = _attn_seq(cfg, kind, p, h, positions, flags)
-    f, aux = _ffn(cfg, p, x2, flags, pet)
+    (f,), aux = _ffn_rows(cfg, [p], [x2], flags, pet)
     return h + f, kv, aux
 
 
@@ -351,73 +349,91 @@ def _attn_seq(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     return h, {"k": kv[0], "v": kv[1]}, x2, pet
 
 
+def _ffn_rows(cfg: ModelConfig, ps: Sequence[Params],
+              xs: Sequence[torch.Tensor], flags: ModelFlags,
+              pet: Optional[torch.dtype] = None
+              ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The attention block's FFN over the data rows (``ps[d]``, ``xs[d]``:
+    row d's params and normed inputs): a dense MLP per row, a MoE over
+    every row's tokens (``moe.apply_moe_rows``: the experts each row holds
+    run on all rows' tokens; ``apply_moe_topk_rows``). Returns (each row's
+    out, the aux loss on row 0's device)."""
+    if "moe" not in ps[0]:
+        return ([_mlp(cfg, p["mlp"], x, pet) for p, x in zip(ps, xs)],
+                torch.zeros((), dtype=torch.float32, device=xs[0].device))
+    moes = [p["moe"] for p in ps]
+    if flags.moe_impl == "dense":
+        return moe_lib.apply_moe_rows(cfg, moes, xs,
+                                      ep_quant=_ep_quant(flags),
+                                      bf16_reduce=flags.moe_bf16_reduce)
+    return moe_lib.apply_moe_topk_rows(cfg, moes, xs)
+
+
 def _block_seq_rows(cfg: ModelConfig, kind: str, ps: Sequence[Params],
                     hs: Sequence[torch.Tensor],
                     positions: Sequence[torch.Tensor], flags: ModelFlags
-                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """``_block_seq`` over the data rows of a training mesh (``ps[d]``,
-    ``hs[d]``: row d's params and hiddens): each row alone, except a MoE
-    FFN over more than one row, whose experts run over every row's tokens
-    (``moe.apply_moe_rows``) and whose aux loss is the whole batch's.
-    Returns (each row's h, aux loss on row 0's device)."""
+                    ) -> Tuple[List[torch.Tensor], List[Any], torch.Tensor]:
+    """``_block_seq`` over the data rows of a mesh (``ps[d]``, ``hs[d]``:
+    row d's params and hiddens): each row alone, except a MoE FFN over
+    more than one row, whose experts run over every row's tokens
+    (``_ffn_rows``) and whose aux loss is the whole batch's. Returns (each
+    row's h, each row's cache entry, aux loss on row 0's device)."""
     if len(hs) == 1 or "moe" not in ps[0]:
         outs = [_block_seq(cfg, kind, p, h, pos, flags)
                 for p, h, pos in zip(ps, hs, positions)]
-        return [o[0] for o in outs], outs[0][2]
+        return [o[0] for o in outs], [o[1] for o in outs], outs[0][2]
     mids = [_attn_seq(cfg, kind, p, h, pos, flags)
             for p, h, pos in zip(ps, hs, positions)]
-    moes, x2s = [p["moe"] for p in ps], [m[2] for m in mids]
-    if flags.moe_impl == "dense":
-        fs, aux = moe_lib.apply_moe_rows(cfg, moes, x2s,
-                                         ep_quant=_ep_quant(flags),
-                                         bf16_reduce=flags.moe_bf16_reduce)
-    else:
-        fs, aux = moe_lib.apply_moe_topk_rows(cfg, moes, x2s)
-    return [m[0] + f for m, f in zip(mids, fs)], aux
+    fs, aux = _ffn_rows(cfg, ps, [m[2] for m in mids], flags)
+    return [m[0] + f for m, f in zip(mids, fs)], [m[1] for m in mids], aux
 
 
-def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
-                cache_entry: Any, pos: torch.Tensor, flags: ModelFlags,
-                pages: Optional[torch.Tensor] = None,
-                live_mask: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Any]:
-    """One decode token. h: (B, D); pos: (B,) index of the current token.
-    SSD and RG-LRU: the recurrent update of the entry's state and conv
-    window, in place; ``live_mask`` (B,) bool keeps the state of rows that
-    have exited (SpecEE) while their conv window still advances, as in the
-    JAX package.
-    Writes the token's K/V into ``cache_entry`` and attends the live prefix.
-    ``pages``: the (B, P) page table when the entry is a page pool; then
-    ``flags.decode_kernel`` selects the paged kernel, which reads the pool
-    directly, and otherwise the logical view is gathered for the plain
-    attention. Dense entries take the dense kernel under the flag. Under
-    ``kv_quant`` the token's codes and scales are written; the paged kernel
-    dequantizes in registers, every other path attends the dequantized
-    view in ``h``'s dtype (as the JAX package does; there is no dense int8
-    kernel)."""
-    if kind in (SSD, RGLRU):
-        name = "state" if kind == SSD else "h"
-        x = common.apply_norm(cfg, p["ln" if kind == SSD else "ln1"], h)
-        step = (ssd_lib.ssd_block_step if kind == SSD
-                else rglru_lib.rglru_block_step)
-        out, new_state, new_conv = step(
-            cfg, p["ssd" if kind == SSD else "rec"], x, cache_entry[name],
-            cache_entry["conv"])
-        for st, ns, cv, nc in zip(parts(cache_entry[name]),
-                                  parts(new_state),
-                                  parts(cache_entry["conv"]),
-                                  parts(new_conv)):
-            if live_mask is not None:
-                keep = live_mask.to(ns.device).reshape(
-                    (-1,) + (1,) * (ns.dim() - 1))
-                ns = torch.where(keep, ns, st)
-            st.copy_(ns)
-            cv.copy_(nc)
-        h = h + out
-        if kind == SSD:
-            return h, cache_entry
-        x2 = common.apply_norm(cfg, p["ln2"], h)
-        return h + _mlp(cfg, p["mlp"], x2), cache_entry
+def _recurrent_step(cfg: ModelConfig, kind: str, p: Params,
+                    h: torch.Tensor, cache_entry: Any,
+                    live_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """One decode token of an SSD or RG-LRU block. h: (B, D). The recurrent
+    update of the entry's state and conv window, in place; ``live_mask``
+    (B,) bool keeps the state of rows that have exited (SpecEE) while
+    their conv window still advances, as in the JAX package. Returns the
+    block's output hiddens."""
+    name = "state" if kind == SSD else "h"
+    x = common.apply_norm(cfg, p["ln" if kind == SSD else "ln1"], h)
+    step = (ssd_lib.ssd_block_step if kind == SSD
+            else rglru_lib.rglru_block_step)
+    out, new_state, new_conv = step(
+        cfg, p["ssd" if kind == SSD else "rec"], x, cache_entry[name],
+        cache_entry["conv"])
+    for st, ns, cv, nc in zip(parts(cache_entry[name]), parts(new_state),
+                              parts(cache_entry["conv"]), parts(new_conv)):
+        if live_mask is not None:
+            keep = live_mask.to(ns.device).reshape(
+                (-1,) + (1,) * (ns.dim() - 1))
+            ns = torch.where(keep, ns, st)
+        st.copy_(ns)
+        cv.copy_(nc)
+    h = h + out
+    if kind == SSD:
+        return h
+    x2 = common.apply_norm(cfg, p["ln2"], h)
+    return h + _mlp(cfg, p["mlp"], x2)
+
+
+def _attn_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
+               cache_entry: Any, pos: torch.Tensor, flags: ModelFlags,
+               pages: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention half of one decode token. h: (B, D); pos: (B,) index
+    of the current token. Writes the token's K/V into ``cache_entry`` and
+    attends the live prefix. ``pages``: the (B, P) page table when the
+    entry is a page pool; then ``flags.decode_kernel`` selects the paged
+    kernel, which reads the pool directly, and otherwise the logical view
+    is gathered for the plain attention. Dense entries take the dense
+    kernel under the flag. Under ``kv_quant`` the token's codes and scales
+    are written; the paged kernel dequantizes in registers, every other
+    path attends the dequantized view in ``h``'s dtype (as the JAX package
+    does; there is no dense int8 kernel). Returns (h + attention, the
+    FFN's normed input (B, 1, D))."""
     B = h.shape[0]
     x = common.apply_norm(cfg, p["ln1"], h)[:, None, :]
     window = _window(cfg, kind)
@@ -455,8 +471,28 @@ def _block_step(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                                       window), None
 
     h = h + _attention(cfg, p["attn"], x, core)[0][:, 0, :]
-    x2 = common.apply_norm(cfg, p["ln2"], h[:, None, :])
-    return h + _ffn(cfg, p, x2, flags)[0][:, 0, :], cache_entry
+    return h, common.apply_norm(cfg, p["ln2"], h[:, None, :])
+
+
+def _block_step(cfg: ModelConfig, kind: str, ps: Sequence[Params],
+                hs: Sequence[torch.Tensor], ces: Sequence[Any],
+                poss: Sequence[torch.Tensor], flags: ModelFlags,
+                pages: Sequence[Optional[torch.Tensor]],
+                lives: Sequence[Optional[torch.Tensor]]
+                ) -> List[torch.Tensor]:
+    """One decode token of a block over the data rows (each row's params,
+    hiddens (B_d, D), cache entry, positions, page-table rows and live
+    mask; one row unsharded): a recurrent block row by row
+    (``_recurrent_step``), an attention block's attention row by row
+    (``_attn_step``) and its FFN after (``_ffn_after``: a MoE over every
+    row's tokens). Returns each row's hiddens."""
+    if kind in (SSD, RGLRU):
+        return [_recurrent_step(cfg, kind, p, h, ce, lm)
+                for p, h, ce, lm in zip(ps, hs, ces, lives)]
+    mids = [_attn_step(cfg, kind, p, h, ce, pos, flags, pg)
+            for p, h, ce, pos, pg in zip(ps, hs, ces, poss, pages)]
+    return [h[:, 0, :] for h in _ffn_after(
+        cfg, ps, [(h[:, None, :], x2) for h, x2 in mids], flags)]
 
 
 def _block_propagate(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
@@ -492,11 +528,13 @@ def _block_propagate(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
     return cache_entry
 
 
-def _block_extend(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
-                  cache_entry: Any, pos0: torch.Tensor,
-                  positions: torch.Tensor, flags: ModelFlags
-                  ) -> Tuple[torch.Tensor, Any]:
-    """A C-token prompt chunk against a DENSE decode cache entry.
+def _attn_extend(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
+                 cache_entry: Any, pos0: torch.Tensor,
+                 positions: torch.Tensor, flags: ModelFlags
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention half of a C-token prompt chunk against a DENSE decode
+    cache entry: (h + attention, the FFN's normed input; the FFN is
+    ``_ffn_after``'s).
 
     h: (B, C, D); pos0: (B,) prefix length; positions: (B, C) absolute
     positions of the chunk. The chunk's K/V is written (in place, quantized
@@ -529,8 +567,7 @@ def _block_extend(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                                       window=_window(cfg, kind)), None
 
     h = h + _attention(cfg, p["attn"], x, core)[0]
-    x2 = common.apply_norm(cfg, p["ln2"], h)
-    return h + _ffn(cfg, p, x2, flags)[0], cache_entry
+    return h, common.apply_norm(cfg, p["ln2"], h)
 
 
 def _write_scratch(cache_entry: Any, vals: Dict[str, torch.Tensor],
@@ -550,19 +587,18 @@ def _write_scratch(cache_entry: Any, vals: Dict[str, torch.Tensor],
     return cache_entry
 
 
-def _block_step_tree(cfg: ModelConfig, p: Params, h: torch.Tensor,
-                     cache_entry: Any, mask: torch.Tensor,
-                     positions: torch.Tensor, scratch_off: int,
-                     flags: ModelFlags,
-                     pages: Optional[torch.Tensor] = None
-                     ) -> Tuple[torch.Tensor, Any]:
-    """N tree tokens at once against a cache with N scratch slots.
+def _attn_tree(cfg: ModelConfig, p: Params, h: torch.Tensor,
+               cache_entry: Any, mask: torch.Tensor, positions: torch.Tensor,
+               scratch_off: int, pages: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention half of N tree tokens at once against a cache with N
+    scratch slots: (h + attention, the FFN's normed input).
 
     h: (B, N, D); mask: (B|1, 1, N, scratch_off + N) bool (context +
     ancestors); positions: (B, N) absolute positions. The nodes' K/V land
     at logical slots [scratch_off, scratch_off + N) before attending. Plain
     masked attention, as in the JAX package (it has no Pallas kernel here);
-    attention-family blocks only."""
+    attention-family blocks only; the FFN is ``_ffn_after``'s."""
     x = common.apply_norm(cfg, p["ln1"], h)
 
     def core(c, pa, s, xs):
@@ -582,8 +618,16 @@ def _block_step_tree(cfg: ModelConfig, p: Params, h: torch.Tensor,
                              mask.to(dev)), None
 
     h = h + _attention(cfg, p["attn"], x, core)[0]
-    x2 = common.apply_norm(cfg, p["ln2"], h)
-    return h + _ffn(cfg, p, x2, flags)[0], cache_entry
+    return h, common.apply_norm(cfg, p["ln2"], h)
+
+
+def _ffn_after(cfg: ModelConfig, ps: Sequence[Params],
+               mids: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+               flags: ModelFlags) -> List[torch.Tensor]:
+    """Each row's ``h + FFN(x2)`` of its attention half's ``(h, x2)``
+    (``_ffn_rows``: a MoE over every row's tokens)."""
+    fs, _ = _ffn_rows(cfg, ps, [x2 for _, x2 in mids], flags)
+    return [h + f for (h, _), f in zip(mids, fs)]
 
 
 class Model:
@@ -598,6 +642,7 @@ class Model:
         self.segments = segments_of(list(self.cfg.blocks()))
         self.num_exit_points = sum(reps for _, reps in self.segments)
         self.shard = None               # ShardCtx of a sharded model
+        self.rows = None                # RowMesh of a (D > 1, P) mesh
 
     def with_shard(self, shard) -> "Model":
         """This model over a mesh's shards (``sharding.ctx.ShardCtx``; None
@@ -607,6 +652,73 @@ class Model:
         m = copy.copy(self)
         m.shard = shard
         return m
+
+    def with_rows(self, rows) -> "Model":
+        """This model over the data rows of a ``(D, P)`` mesh with D > 1
+        (``sharding.rows.RowMesh``; its params placed by ``RowMesh.place``,
+        ``DataShards`` leaves). Every block call splits its batch over the
+        rows (``_unit``): row d runs the ``(1, P)`` path on its contiguous
+        rows and its view of the unit's weights, gathered over 'data' per
+        call and dropped after, and the rows' outputs join on the mesh
+        lead after the unit. Its caches split their batch over the rows
+        (``empty_cache_entry``). A batch D does not divide (a batch-1
+        admission) stays whole on row 0, which computes it all, as JAX's
+        ``_fit`` keeps such a batch whole. Embedding, final norm and LM
+        head are read on the lead (row 0's view)."""
+        m = copy.copy(self)
+        m.rows = rows
+        m.shard = ShardCtx.from_mesh(rows.mesh)
+        return m
+
+    # ----- the data rows of a (D, P) mesh -----
+    def _lead_view(self, p: Params) -> Params:
+        """Row 0's view of a placed subtree (itself unplaced)."""
+        return p if self.rows is None else self.rows.views(p, [0])[0]
+
+    def _groups(self, B: int, split: bool) -> List[Tuple[Any, int, int]]:
+        """(data row, first, end) of each row's batch rows: one group
+        (row None) without rows, row 0's whole batch unless ``split``."""
+        if self.rows is None:
+            return [(None, 0, B)]
+        if not split:
+            return [(0, 0, B)]
+        b = B // self.rows.D
+        return [(d, d * b, (d + 1) * b) for d in range(self.rows.D)]
+
+    def _cut(self, x: Optional[torch.Tensor], groups) -> List[Any]:
+        """Each group's rows of ``x`` (None passes), on its row's lead."""
+        if x is None or groups[0][0] is None:
+            return [x] * len(groups)
+        return [x[lo:hi].to(self.rows.leads[d]) for d, lo, hi in groups]
+
+    @staticmethod
+    def _join(xs: Sequence[torch.Tensor], device) -> torch.Tensor:
+        """The groups' outputs, in order, on ``device`` (the lead)."""
+        if len(xs) == 1:
+            return xs[0].to(device)
+        return torch.cat([x.to(device) for x in xs])
+
+    def _unit(self, params: Params, seg: int, unit_idx: int, seg_cache: Any,
+              B: int, keys=None) -> Tuple[list, list, list]:
+        """(groups, each group's unit params, its unit cache) of unit
+        ``unit_idx`` of segment ``seg`` for a batch of B rows. Over rows
+        the groups follow the cache (its batch split over the rows, or
+        whole on row 0), the params are each row's view (``keys``: only
+        those block entries, what a skipped unit reads) and the experts
+        stay local when every row runs."""
+        up = index_tree(params["segments"][seg], unit_idx)
+        ce = index_tree(seg_cache, unit_idx)
+        if self.rows is None:
+            return [(None, 0, B)], [up], [ce]
+        if keys is not None:
+            up = {u: {k: v for k, v in bp.items() if k in keys}
+                  for u, bp in up.items()}
+        groups = self._groups(B, _has_rows(ce))
+        rows = [d for d, _, _ in groups]
+        views = self.rows.views(
+            up, rows, local_experts=(self.flags.moe_impl == "dense"
+                                     and len(rows) == self.rows.D))
+        return groups, views, [_row_of(ce, d) for d in rows]
 
     # ----- init -----
     def init(self, gen: Union[torch.Generator, int],
@@ -650,9 +762,10 @@ class Model:
         lookup per vocabulary slice plus a reduce onto the tokens' device:
         one slice owns each id, so the sum is the lookup) or, for an odd
         vocabulary split on D, each slice's columns concatenated."""
-        tok = params["embed"]["tok"]
+        emb = self._lead_view(params["embed"])
+        tok = emb["tok"]
         if not isinstance(tok, Shards):
-            return common.embed_tokens(params["embed"], tokens, self.dtype)
+            return common.embed_tokens(emb, tokens, self.dtype)
         if tok.dim == -1:
             return torch.cat([common.embed_tokens(
                 {"tok": part}, tokens.to(part.device), self.dtype).to(
@@ -668,7 +781,8 @@ class Model:
         return all_reduce_sum(partials, tokens.device)
 
     def final_norm(self, params: Params, h: torch.Tensor) -> torch.Tensor:
-        return common.apply_norm(self.cfg, params["final_norm"], h)
+        return common.apply_norm(self.cfg,
+                                 self._lead_view(params["final_norm"]), h)
 
     def logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         w = common.lm_head_weight(params)
@@ -811,7 +925,7 @@ class Model:
             aux_u = torch.zeros((), dtype=torch.float32,
                                 device=hs_in[0].device)
             for i, kind in enumerate(unit):
-                hs_in, aux = _block_seq_rows(
+                hs_in, _, aux = _block_seq_rows(
                     cfg, kind, [v[f"u{i}"] for v in views], hs_in,
                     positions, flags)
                 aux_u = aux_u + aux
@@ -868,51 +982,52 @@ class Model:
         its codes and scales (JAX's ``_materialize_cache``). SSD and RG-LRU
         entries are stored as ``_block_seq`` returns them. An encoder
         returns the logits of every frame (B, S, V) and no cache."""
-        h = self._inputs(params, batch)
-        B, S, _ = h.shape
-        positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
+        B = next(iter(batch.values())).shape[0]
+        groups = self._groups(B, self.rows is not None
+                              and B % self.rows.D == 0)
+        rows = [d for d, _, _ in groups]
+        outer = {k: params[k] for k in ("embed", "frontend") if k in params}
+        ins = ([outer] if self.rows is None else self.rows.views(outer, rows))
+        hs = [self._inputs(p, {k: x for k, x in zip(batch, xs)})
+              for p, xs in zip(ins, zip(*(self._cut(x, groups)
+                                          for x in batch.values())))]
+        S = hs[0].shape[1]
+        positions = [torch.arange(S, device=h.device)[None, :].expand(
+            h.shape[0], S) for h in hs]
+        device = hs[0].device if self.rows is None else self.rows.leads[0]
         decoder = self.cfg.is_decoder()
         max_seq = max_seq or (S + 1)
+        local = (self.rows is not None and len(rows) == self.rows.D
+                 and self.flags.moe_impl == "dense")
         segs = []
         for si, (unit, reps) in enumerate(self.segments):
             seg_cache = {f"u{i}": self.empty_cache_entry(reps, B, max_seq,
-                                                         h.device, kind)
+                                                         device, kind)
                          for i, kind in enumerate(unit)} if decoder else {}
             for r in range(reps):
                 up = index_tree(params["segments"][si], r)
+                views = ([up] if self.rows is None else
+                         self.rows.views(up, rows, local_experts=local))
                 for i, kind in enumerate(unit):
-                    h, ce, _ = _block_seq(self.cfg, kind, up[f"u{i}"], h,
-                                          positions, self.flags)
-                    if not decoder:
-                        continue
-                    entry = seg_cache[f"u{i}"]
-                    if kind in (SSD, RGLRU):
-                        for name, val in ce.items():
-                            if val is None:     # prompt shorter than K-1
-                                entry[name] = None
-                            elif entry[name] is not None:
-                                for dst, v in zip(parts(entry[name]),
-                                                  parts(val)):
-                                    dst[r] = v
-                        continue
-                    k = ce["k"]         # each shard's KV heads
-                    for s in (range(len(k)) if isinstance(k, Shards)
-                              else [None]):
-                        kv = local(ce, s)
-                        for name, val in _kv_vals(
-                                kv["k"], kv["v"],
-                                self.flags.kv_quant).items():
-                            local(entry, s)[name][r, :, :S] = val
+                    hs, ces, _ = _block_seq_rows(
+                        self.cfg, kind, [v[f"u{i}"] for v in views], hs,
+                        positions, self.flags)
+                    if decoder:
+                        for (d, _, _), ce in zip(groups, ces):
+                            _store_seq(seg_cache[f"u{i}"], ce, kind, r, S,
+                                       self.flags.kv_quant, d)
             segs.append(seg_cache)
+        h = self._join(hs, device)
         if not decoder:
             return self.logits(params, h), None, {"h_final": h}
         cache = {"segments": segs,
                  "len": torch.full((B,), S, dtype=torch.int32,
-                                   device=h.device)}
+                                   device=device)}
         return self.logits(params, h[:, -1, :]), cache, {"h_final": h}
 
     def empty_cache_entry(self, reps: int, batch: int, max_seq: int,
-                          device, kind: str = ATTN) -> Any:
+                          device, kind: str = ATTN,
+                          pool_rows: Optional[int] = None) -> Any:
         """One zeroed cache entry of block ``kind`` (counterpart of JAX's
         ``_empty_cache_entry``, stacked over ``reps``). Attention: K/V
         (reps, batch, max_seq, KVH, hd), or under ``kv_quant`` int8 codes
@@ -923,18 +1038,41 @@ class Model:
         fp32 state (reps, batch, W) and the conv window (reps, batch, K-1,
         W) (``max_seq`` unused). A sharded model's leaves are ``Shards``,
         each part on its shard's device in the leaf's layout
-        (``_entry_segs``)."""
+        (``_entry_segs``). Over data rows (``with_rows``) each leaf is a
+        ``DataShards`` of the rows' entries, its batch split over them; a
+        page pool (``pool_rows``: the rows of its session) is a copy per
+        row; either stays whole on row 0 where D does not divide the
+        rows."""
         leaves = self._entry_leaves(reps, batch, max_seq, kind)
-        if self.shard is None:
-            return {name: torch.zeros(shape, dtype=dt, device=device)
+        if self.rows is None:
+            return self._entry_on(leaves, kind, [device] if self.shard is None
+                                  else self.shard.devices)
+        D, devs = self.rows.D, self.rows.mesh.devices
+        split = (pool_rows if pool_rows is not None else batch) % D == 0
+        if not split:                   # whole, on row 0
+            return self._entry_on(leaves, kind, devs[0])
+        if pool_rows is None:           # the batch over the rows
+            leaves = {n: ((sh[0], sh[1] // D) + sh[2:], dt)
+                      for n, (sh, dt) in leaves.items()}
+        rows = [self._entry_on(leaves, kind, row) for row in devs]
+        return {n: DataShards([e[n] for e in rows],
+                              None if pool_rows is not None
+                              else 1 - len(sh))
+                for n, (sh, _) in leaves.items()}
+
+    def _entry_on(self, leaves, kind: str, devices) -> Dict[str, Any]:
+        """Zeroed leaves of a cache entry over ``devices`` (one: whole
+        tensors; more: ``Shards`` in each leaf's layout)."""
+        if len(devices) == 1:
+            return {name: torch.zeros(shape, dtype=dt, device=devices[0])
                     for name, (shape, dt) in leaves.items()}
-        P, segs, out = self.shard.degree, self._entry_segs(kind), {}
+        P, segs, out = len(devices), self._entry_segs(kind), {}
         for name, (shape, dt) in leaves.items():
             dim, sg = segs[name]
             part = list(shape)
             part[dim] = part_size(sg, P)
             out[name] = Shards([torch.zeros(part, dtype=dt, device=dev)
-                                for dev in self.shard.devices], dim, sg)
+                                for dev in devices], dim, sg)
         return out
 
     def _entry_leaves(self, reps: int, batch: int, max_seq: int, kind: str
@@ -1010,12 +1148,19 @@ class Model:
                      + torch.arange(C, device=h.device)[None, :])
         for seg, (unit, reps) in enumerate(self.segments):
             for r in range(reps):
-                up = index_tree(params["segments"][seg], r)
-                ce = index_tree(cache["segments"][seg], r)
+                groups, views, ces = self._unit(params, seg, r,
+                                                cache["segments"][seg], B)
+                hs = self._cut(h, groups)
+                p0s, poss = self._cut(pos0, groups), self._cut(positions,
+                                                              groups)
                 for i, kind in enumerate(unit):
-                    h, _ = _block_extend(self.cfg, kind, up[f"u{i}"], h,
-                                         ce[f"u{i}"], pos0, positions,
-                                         self.flags)
+                    ps = [v[f"u{i}"] for v in views]
+                    hs = _ffn_after(self.cfg, ps, [
+                        _attn_extend(self.cfg, kind, p, hh, c[f"u{i}"], p0,
+                                     pp, self.flags)
+                        for p, hh, c, p0, pp in zip(ps, hs, ces, p0s, poss)],
+                        self.flags)
+                h = self._join(hs, h.device)
         return h, dict(cache, len=pos0 + int(n_valid))
 
     # ----- layer-granular decode API (SpecEE engine) -----
@@ -1030,24 +1175,30 @@ class Model:
         the session page table when the cache is paged. Returns (h_out,
         seg_cache)."""
         unit, _ = self.segments[seg]
-        up = index_tree(params["segments"][seg], unit_idx)
-        ce = index_tree(seg_cache, unit_idx)
+        groups, views, ces = self._unit(params, seg, unit_idx, seg_cache,
+                                        h.shape[0])
+        hs = self._cut(h, groups)
+        poss, pgs, lives = (self._cut(x, groups)
+                            for x in (pos, pages, live_mask))
         for i, kind in enumerate(unit):
-            h, _ = _block_step(self.cfg, kind, up[f"u{i}"], h, ce[f"u{i}"],
-                               pos, self.flags, pages=pages,
-                               live_mask=live_mask)
-        return h, seg_cache
+            hs = _block_step(self.cfg, kind, [v[f"u{i}"] for v in views],
+                             hs, [c[f"u{i}"] for c in ces], poss, self.flags,
+                             pgs, lives)
+        return self._join(hs, h.device), seg_cache
 
     def propagate_unit(self, params: Params, seg: int, unit_idx: int,
                        h: torch.Tensor, seg_cache: Any, pos: torch.Tensor,
                        pages: Optional[torch.Tensor] = None) -> Any:
         """KV propagation for a skipped unit (SpecEE early exit)."""
         unit, _ = self.segments[seg]
-        up = index_tree(params["segments"][seg], unit_idx)
-        ce = index_tree(seg_cache, unit_idx)
-        for i, kind in enumerate(unit):
-            _block_propagate(self.cfg, kind, up[f"u{i}"], h, ce[f"u{i}"], pos,
-                             self.flags, pages=pages)
+        groups, views, ces = self._unit(params, seg, unit_idx, seg_cache,
+                                        h.shape[0], keys=_PROPAGATE_KEYS)
+        for v, c, hh, pp, pg in zip(views, ces, self._cut(h, groups),
+                                    self._cut(pos, groups),
+                                    self._cut(pages, groups)):
+            for i, kind in enumerate(unit):
+                _block_propagate(self.cfg, kind, v[f"u{i}"], hh, c[f"u{i}"],
+                                 pp, self.flags, pages=pg)
         return seg_cache
 
     # ----- tree-verification API (T3) -----
@@ -1062,14 +1213,21 @@ class Model:
         """Tree analogue of ``run_unit``: h is (B, N, D) tree-node hiddens;
         their K/V go to the scratch slots. Returns (h_out, seg_cache)."""
         unit, _ = self.segments[seg]
-        up = index_tree(params["segments"][seg], unit_idx)
-        ce = index_tree(seg_cache, unit_idx)
+        groups, views, ces = self._unit(params, seg, unit_idx, seg_cache,
+                                        h.shape[0])
+        hs = self._cut(h, groups)
+        poss, pgs = self._cut(positions, groups), self._cut(pages, groups)
+        masks = (self._cut(mask, groups) if mask.shape[0] > 1
+                 else [mask] * len(groups))
         for i, kind in enumerate(unit):
             assert kind == ATTN, "tree mode requires pure-attention stacks"
-            h, _ = _block_step_tree(self.cfg, up[f"u{i}"], h, ce[f"u{i}"],
-                                    mask, positions, scratch_off, self.flags,
-                                    pages=pages)
-        return h, seg_cache
+            ps = [v[f"u{i}"] for v in views]
+            hs = _ffn_after(self.cfg, ps, [
+                _attn_tree(self.cfg, p, hh, c[f"u{i}"], m, pp, scratch_off,
+                           pages=pg)
+                for p, hh, c, m, pp, pg in zip(ps, hs, ces, masks, poss,
+                                               pgs)], self.flags)
+        return self._join(hs, h.device), seg_cache
 
     def propagate_unit_tree(self, params: Params, seg: int, unit_idx: int,
                             h: torch.Tensor, seg_cache: Any,
@@ -1077,17 +1235,20 @@ class Model:
                             pages: Optional[torch.Tensor] = None) -> Any:
         """KV propagation into the tree scratch slots of a skipped unit."""
         unit, _ = self.segments[seg]
-        up = index_tree(params["segments"][seg], unit_idx)
-        ce = index_tree(seg_cache, unit_idx)
-        for i, _ in enumerate(unit):
-            p = up[f"u{i}"]
-            x = common.apply_norm(self.cfg, p["ln1"], h)
-            for s, c, pa, xs in _shard_views(self.cfg, p["attn"], x):
-                dev = xs.device
-                k, v = attn_lib.kv_only(c, pa, xs, positions.to(dev))
-                _write_scratch(local(ce[f"u{i}"], s), {"k": k, "v": v},
-                               scratch_off,
-                               None if pages is None else pages.to(dev))
+        groups, views, ces = self._unit(params, seg, unit_idx, seg_cache,
+                                        h.shape[0], keys=_PROPAGATE_KEYS)
+        for v, c, hh, pp, pg in zip(views, ces, self._cut(h, groups),
+                                    self._cut(positions, groups),
+                                    self._cut(pages, groups)):
+            for i, _ in enumerate(unit):
+                p = v[f"u{i}"]
+                x = common.apply_norm(self.cfg, p["ln1"], hh)
+                for s, c_, pa, xs in _shard_views(self.cfg, p["attn"], x):
+                    dev = xs.device
+                    k, vv = attn_lib.kv_only(c_, pa, xs, pp.to(dev))
+                    _write_scratch(local(c[f"u{i}"], s), {"k": k, "v": vv},
+                                   scratch_off,
+                                   None if pg is None else pg.to(dev))
         return seg_cache
 
     def accept_tree_kv(self, cache: Any, accepted_nodes: torch.Tensor,
@@ -1100,40 +1261,15 @@ class Model:
         cache as it stands, as the JAX package does; a destination past the
         cache is dropped. Paged caches route through the table."""
         pages = cache.get("page_table")
-        B, Dmax = accepted_nodes.shape
-        leaves = [part for seg in cache["segments"] for sub in seg.values()
-                  for x in sub.values()
-                  for part in (x if isinstance(x, Shards) else [x])]
-        for x in leaves:                # a shard's part on its own device
-            dev = x.device
-            rows = torch.arange(B, device=dev)
-            nodes = accepted_nodes.to(dev).long()
-            acc_len = accepted_len.to(dev)
-            p0 = pos0.to(dev).long()
-            table = None if pages is None else pages.to(dev)
-            if table is None:
-                xf, cap = x, x.shape[2]
-            else:
-                ps = x.shape[2]
-                xf = x.view((x.shape[0], x.shape[1] * ps)
-                            + tuple(x.shape[3:]))
-                cap = table.shape[1] * ps
-            for d in range(Dmax):
-                node = nodes[:, d]
-                dst = p0 + d
-                ok = (d < acc_len) & (node >= 0) & (dst < cap)
-                src = scratch_off + node.clamp(min=0)
-                dst = dst.clamp(max=cap - 1)
-                if table is not None:
-                    src = paged_lib.flat_slots(table, ps, src)
-                    dst = paged_lib.flat_slots(table, ps, dst)
-                    new = torch.where(ok[None, :, None, None],
-                                      xf[:, src], xf[:, dst])
-                    xf[:, dst] = new
-                else:
-                    new = torch.where(ok[None, :, None, None],
-                                      xf[:, rows, src], xf[:, rows, dst])
-                    xf[:, rows, dst] = new
+        B = accepted_nodes.shape[0]
+        for d, lo, hi in self._groups(B, _has_rows(cache["segments"])):
+            leaves = [part for seg in cache["segments"]
+                      for sub in seg.values() for x in sub.values()
+                      for part in parts(_row_of(x, d))]
+            _accept_leaves(leaves, accepted_nodes[lo:hi],
+                           accepted_len[lo:hi], pos0[lo:hi],
+                           None if pages is None else pages[lo:hi],
+                           scratch_off)
         return cache
 
     # ----- dense decode (baseline, no early exit) -----
@@ -1155,6 +1291,91 @@ class Model:
                 h, _ = self.run_unit(params, seg, u, h,
                                      cache["segments"][seg], pos, pages=pages)
         return h, dict(cache, len=pos + 1)
+
+
+_PROPAGATE_KEYS = ("ln", "ln1", "attn", "ssd", "rec")   # a skipped unit's
+
+
+def _has_rows(tree) -> bool:
+    """A cache (sub)tree split over data rows (``DataShards`` leaves)."""
+    if isinstance(tree, DataShards):
+        return True
+    if isinstance(tree, dict):
+        return any(_has_rows(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, Shards):
+        return any(_has_rows(v) for v in tree)
+    return False
+
+
+def _row_of(tree, d) -> Any:
+    """Data row ``d``'s entry of each ``DataShards`` leaf (``d`` None, or
+    another leaf: as it is)."""
+    if isinstance(tree, DataShards):
+        return tree if d is None else tree[d]
+    if isinstance(tree, dict):
+        return {k: _row_of(v, d) for k, v in tree.items()}
+    return tree
+
+
+def _store_seq(entry: Any, ce: Any, kind: str, r: int, S: int,
+               kv_quant: bool, d=None) -> None:
+    """Write a prompt's block output ``ce`` (``_block_seq``'s, one row
+    group's) into unit ``r`` of cache entry ``entry`` (its data row ``d``'s
+    part): SSD and RG-LRU state as it is (a None conv, a prompt shorter
+    than the window, stays None), attention K/V (codes and scales under
+    ``kv_quant``) into the first S slots of each shard's KV heads."""
+    if kind in (SSD, RGLRU):
+        for name, val in ce.items():
+            if val is None:
+                entry[name] = None
+            elif entry[name] is not None:
+                for dst, v in zip(parts(_row_of(entry[name], d)),
+                                  parts(val)):
+                    dst[r] = v
+        return
+    row = _row_of(entry, d)
+    k = ce["k"]
+    for s in (range(len(k)) if isinstance(k, Shards) else [None]):
+        kv = local(ce, s)
+        for name, val in _kv_vals(kv["k"], kv["v"], kv_quant).items():
+            local(row, s)[name][r, :, :S] = val
+
+
+def _accept_leaves(leaves, accepted_nodes: torch.Tensor,
+                   accepted_len: torch.Tensor, pos0: torch.Tensor,
+                   pages: Optional[torch.Tensor], scratch_off: int) -> None:
+    """``Model.accept_tree_kv`` on the cache tensors ``leaves`` (each a
+    shard's part on its own device) of one group of rows."""
+    B, Dmax = accepted_nodes.shape
+    for x in leaves:
+        dev = x.device
+        rows = torch.arange(B, device=dev)
+        nodes = accepted_nodes.to(dev).long()
+        acc_len = accepted_len.to(dev)
+        p0 = pos0.to(dev).long()
+        table = None if pages is None else pages.to(dev)
+        if table is None:
+            xf, cap = x, x.shape[2]
+        else:
+            ps = x.shape[2]
+            xf = x.view((x.shape[0], x.shape[1] * ps) + tuple(x.shape[3:]))
+            cap = table.shape[1] * ps
+        for d in range(Dmax):
+            node = nodes[:, d]
+            dst = p0 + d
+            ok = (d < acc_len) & (node >= 0) & (dst < cap)
+            src = scratch_off + node.clamp(min=0)
+            dst = dst.clamp(max=cap - 1)
+            if table is not None:
+                src = paged_lib.flat_slots(table, ps, src)
+                dst = paged_lib.flat_slots(table, ps, dst)
+                new = torch.where(ok[None, :, None, None],
+                                  xf[:, src], xf[:, dst])
+                xf[:, dst] = new
+            else:
+                new = torch.where(ok[None, :, None, None],
+                                  xf[:, rows, src], xf[:, rows, dst])
+                xf[:, rows, dst] = new
 
 
 def _fill_rep(stacked: Params, one: Params, r: int) -> None:

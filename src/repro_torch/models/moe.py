@@ -25,10 +25,11 @@ projection, the top-k form takes the lead's (rows, slot) groups, made
 once, so the host reads no more ids than unsharded); the shards' (B, S,
 D) partials go through ``all_reduce_sum``.
 
-The data rows of a training mesh (``apply_moe_rows``, ``apply_moe_topk_
-rows``; each row's tokens on its lead device, each row a TP group as
-above). Expert parallelism, where the expert stacks are cut over 'data'
-(JAX's ``fsdp_tp`` spec: E over 'data'): each row routes its own tokens,
+The data rows of a ``(D, P)`` mesh, in training and in serving's decode
+and prefill (``apply_moe_rows``, ``apply_moe_topk_rows``; each row's
+tokens on its lead device, each row a TP group as above). Expert
+parallelism, where the expert stacks are cut over 'data' (JAX's
+``fsdp_tp`` spec: E over 'data'): each row routes its own tokens,
 the tokens and the combine weights are gathered over the rows
 (``gather_rows``), each row runs its E / D local experts on every token,
 and the rows' outputs are reduce-scattered back to the rows that own the
@@ -254,7 +255,8 @@ def apply_moe_topk(cfg: ModelConfig, p: Params, x: torch.Tensor
     grouped by expert: expert e multiplies the rows that picked it by its
     own (D, F) and (F, D) weights, and each row's k outputs are summed
     weighted by their gates in the router's k order (JAX's ``tkd,tk->td``
-    sums over k in that order)."""
+    sums over k in that order). The one-row form of JAX's function, which
+    the tests hold against it; the model calls ``apply_moe_topk_rows``."""
     out, logits = _moe_topk(cfg, p, x)
     return out, load_balancing_loss(cfg, logits)
 

@@ -204,7 +204,8 @@ class QuantSpec:
         raise ValueError(f"cannot resolve quant spec {spec!r}")
 
 
-def _quantize_proj_subtree(p: Dict[str, Any], bits: int) -> Dict[str, Any]:
+def _quantize_proj_subtree(p: Dict[str, Any], bits: int,
+                           device=None) -> Dict[str, Any]:
     """Parallel subtree of QTensors for the attn/mlp linear ``w`` leaves of
     one segment (only the quantized leaves; ``merge_dequant`` grafts them
     back). Stacked leaves keep their leading (reps,) dim. A MoE block's
@@ -220,7 +221,8 @@ def _quantize_proj_subtree(p: Dict[str, Any], bits: int) -> Dict[str, Any]:
             qsub = {}
             for name, lin in unit[sub].items():
                 if isinstance(lin, dict) and "w" in lin and lin["w"].ndim >= 2:
-                    qsub[name] = {"w": quantize_tensor(lin["w"], bits)}
+                    qsub[name] = {"w": quantize_tensor(
+                        _on(lin["w"], device), bits)}
             if qsub:
                 got[sub] = qsub
         if got:
@@ -228,24 +230,33 @@ def _quantize_proj_subtree(p: Dict[str, Any], bits: int) -> Dict[str, Any]:
     return out
 
 
-def quantize_params(params, sw, spec) -> Optional[Dict[str, Any]]:
+def _on(x: torch.Tensor, device) -> torch.Tensor:
+    return x if device is None else x.to(device)
+
+
+def quantize_params(params, sw, spec, device=None
+                    ) -> Optional[Dict[str, Any]]:
     """The parallel quantized pytree of a params + SpecEE bundle:
     ``{"lm_head": QTensor|None, "predictors": bank|None, "proj":
     [per-segment subtree]|None}``, or None when ``spec`` is None.
-    ``params`` and ``sw`` are read, never written."""
+    ``params`` and ``sw`` are read, never written. ``device``: quantize
+    there, each tensor copied to it one at a time (a mesh engine's lead,
+    from its host copy), else where each tensor is."""
     from repro_torch.models.common import lm_head_weight
     spec = QuantSpec.resolve(spec)
     if spec is None:
         return None
     qw: Dict[str, Any] = {"lm_head": None, "predictors": None, "proj": None}
     if spec.lm_head:
-        qw["lm_head"] = quantize_tensor(lm_head_weight(params), spec.bits)
+        qw["lm_head"] = quantize_tensor(_on(lm_head_weight(params), device),
+                                        spec.bits)
     if spec.predictors and sw is not None and sw.predictors is not None:
         qw["predictors"] = {"layers": [
-            {"w": quantize_tensor(layer["w"], spec.bits), "b": layer["b"]}
+            {"w": quantize_tensor(_on(layer["w"], device), spec.bits),
+             "b": _on(layer["b"], device)}
             for layer in sw.predictors["layers"]]}
     if spec.proj:
-        qw["proj"] = [_quantize_proj_subtree(seg, spec.bits)
+        qw["proj"] = [_quantize_proj_subtree(seg, spec.bits, device)
                       for seg in params["segments"]]
     return qw
 

@@ -63,17 +63,20 @@ decode-attention kernel (``ModelFlags.decode_kernel``), as the JAX engine
 does on a TPU. The constructor takes the JAX engine's arguments in its
 order.
 
-Tensor-parallel serving: ``mesh`` (a ``(1, P)``
+Tensor-parallel serving: ``mesh`` (a ``(D, P)``
 ``repro_torch.launch.mesh.Mesh``) shards this engine's decode over P
-shards (``api.Engine``); data parallelism is one level up, in
-``serving.replica.ReplicaPool``. Elastic degraded mode: the ``device_lost``
+shards and, with D > 1, splits its batch over D data rows
+(``api.Engine``, ``policy`` tp_dp, tp2d or fsdp_tp); independent engines
+are one level up, in ``serving.replica.ReplicaPool``. ``tp_degree`` is
+the model extent. Elastic degraded mode: the ``device_lost``
 site drops the mesh's highest device between ticks and, when
 ``plan_replica_remesh`` finds a degree over the survivors, ``remesh``
-rebuilds the engine in place from the engine's ``source`` (the whole
-params, kept once on the host under a mesh) and re-admits every
-unfinished request with verified replay; with no degree left (unsharded,
-or no device) it drains and raises ``ServingFault(site="device_lost")``,
-which a pool turns into kill-and-requeue.
+rebuilds the engine in place on a ``(1, new_tp)`` mesh, as JAX's does,
+from the engine's ``source`` (the whole params, kept once on the host
+under a mesh) and re-admits every unfinished request with verified
+replay; with no degree left (unsharded, or no device) it drains and
+raises ``ServingFault(site="device_lost")``, which a pool turns into
+kill-and-requeue.
 """
 from __future__ import annotations
 

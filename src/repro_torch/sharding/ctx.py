@@ -21,7 +21,7 @@ several shards' query heads); a whole segment (``split`` False) is held by
 every shard (Mamba2's B and C columns). ``cut`` makes a part, ``gather``
 joins the parts back, taking a repeated block from its first holder.
 
-The 'data' axis (training under a ``(D, P)`` mesh, ``sharding/training``):
+The 'data' axis (a ``(D, P)`` mesh, ``sharding/rows``):
 a ``DataShards`` holds one entry per data row, each a tensor on the row's
 lead device or a ``Shards`` over the row's model devices. Its ``dim``
 names the dim cut over 'data' (ZeRO-3: entry d is slice d of that dim),
@@ -62,7 +62,7 @@ class Shards(list):
 
 
 class DataShards(list):
-    """One leaf of a training tree under a ``(D, P)`` mesh: entry ``d``
+    """One leaf of a tree placed on a ``(D, P)`` mesh: entry ``d``
     lives on data row ``d``. ``dim`` is the dim cut over 'data', counted
     from the end as ``Shards.dim``, or None when each entry is a whole
     copy (a leaf replicated over 'data')."""
@@ -195,8 +195,7 @@ class ShardCtx:
     """Tensor-parallel context of one engine. ``mesh``: a
     ``repro_torch.launch.mesh.Mesh``; ``axis`` the dimension heads and
     vocabulary split over. Shard ``s`` is model index ``s`` of data row 0
-    (serving refuses ``DATA > 1``; training over the rows is
-    ``sharding.training.TrainMesh``)."""
+    (the other rows of a ``(D, P)`` mesh: ``sharding.rows.RowMesh``)."""
     mesh: Any
     axis: str = "model"
 

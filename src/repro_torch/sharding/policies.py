@@ -10,7 +10,8 @@ Policies:
   tp2d    — serving, big archs: TP over 'model' and the other matrix dim
             over 'data' (with data = 1 the layout is tp_dp's).
   fsdp_tp — training: tp_dp plus ZeRO-3 over 'data'; optimizer state
-            inherits the parameter spec. (Serving refuses it.)
+            inherits the parameter spec. (Serving takes it too, as JAX's
+            engine does.)
 
 The Megatron roles: column-parallel = {wq, wk, wv, mlp-in/gate,
 expert-in}, row-parallel = {wo, mlp-down, expert-down}, vocab-parallel =
@@ -29,7 +30,7 @@ from typing import Any, List
 
 import numpy as np
 
-from repro_torch.models.common import _is_namedtuple
+from repro_torch.models.common import is_namedtuple
 from repro_torch.quant.core import QTensor
 
 
@@ -189,7 +190,7 @@ def map_with_paths(tree, fn, prefix: str = ""):
         return f"{prefix}/{key}" if prefix else str(key)
     if isinstance(tree, dict):
         return {k: map_with_paths(v, fn, sub(k)) for k, v in tree.items()}
-    if _is_namedtuple(tree):
+    if is_namedtuple(tree):
         return type(tree)(*(map_with_paths(v, fn, sub(f".{f}"))
                             for f, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)) and not isinstance(tree, Spec):

@@ -41,7 +41,7 @@ heads whole, with no regrouping:
   attention's cache).
 
 Each module states its own layout (``ssd.param_segs``,
-``attention.param_segs``; ``_layouts`` keys them by the module that owns
+``attention.param_segs``; ``rows.layouts`` keys them by the module that owns
 the leaves). Every ``Shards`` carries segments (``sharding.ctx``; an even
 split is one split segment) except the vocabulary's uneven slices, so
 ``unplace`` joins each back to the whole tensor.
@@ -61,29 +61,68 @@ SpecEE's weights (draft, predictors, schedule mask) and a quantized bundle
 stay whole on the lead, as JAX replicates its quantized tiles; JAX's
 ``specee_specs`` shards the draft layer, which the port runs once.
 
-Serving places the weights by ``param_specs`` and the two layouts above;
-a decode state is placed like the session's own state (``place_like``:
-a restored snapshot takes each leaf's layout from the state it replaces).
-Training under a ``(D, P)`` mesh (``sharding/training.py``) stores the
-weights by the ``fsdp_tp`` specs and gives each data row these same
-layouts per forward. ``engine_shardings``, the managers'
-``partition_specs``, the 'pod' axis and ``specee_specs`` are JAX's, held
-equal to it by the tests, and wait for the dry-run slice (ROADMAP
-"multi-GPU").
+Serving places the weights by ``param_specs`` and the two layouts above,
+on every mesh through ``sharding.rows.RowMesh`` (``shard_params``), as
+training does; a decode state is placed like the session's own state
+(``place_like``: a restored snapshot takes each leaf's layout from the
+state it replaces).
+
+A ``(DATA, MODEL)`` mesh with DATA > 1 (every policy, ``tp_dp``,
+``tp2d`` and ``fsdp_tp``) makes each leaf a ``DataShards`` of D
+entries, cut over 'data' where its spec names it (tp2d's second matrix
+dim, fsdp_tp's largest remaining dim, the MoE expert stacks under every
+policy) and a copy per row otherwise, each entry in the ``(1, P)``
+layout above on its row's devices. The model (``Model.with_rows``) splits
+every block call's batch over the rows, each row gathering its view of
+the unit's weights per call (``RowMesh.views``; under tp_dp without MoE
+no leaf is cut over 'data', so nothing is gathered). Everything between
+the units stays whole on the mesh lead, as JAX replicates the state
+(``decode_state_specs``). The decode cache's batch is split over the rows
+(``cache_specs``: a ``DataShards`` along the batch dim); where D does not
+divide the batch, JAX's ``_fit`` keeps it whole and the port holds it on
+row 0 alone, which then computes every row (JAX's copies are equal).
+Three more placements then differ from JAX's:
+
+* the LM head. JAX's spec cuts its D rows over 'data' under tp2d and
+  fsdp_tp; every verify reads all D rows, and the gates, the verify and
+  the draft run once, on the lead, so the port keeps the ``(1, P)``
+  layout: the whole copy on the lead and the vocabulary slices on row
+  0's model devices. The cost is the head's whole D·V·bytes on the lead
+  beside its slices (1.05 GB in fp32 at llama2-70b's 8192 x 32000), where
+  gathering it per step would move (D - 1) / D of that per row per step;
+* the paged cache (JAX ``api/cache.py:297``): the pools split their
+  KV-head dim over 'model' and are replicated over 'data', as JAX's
+  ``partition_specs`` says, with one page allocator and one page table
+  for every row; but each row writes only its own slots' K/V into its
+  copy, so the copies differ in the pages of the other rows' slots.
+  Whatever joins a pool (``unplace_cache``: a snapshot, a remesh's
+  source) takes each page from the row that owns the slot that holds it.
+  A paged cache's per-row entries (SSD, RG-LRU) split their batch over
+  'data' as the dense cache's do (JAX's paged specs replicate them);
+* a quantized bundle stays one copy on the lead, where its readers (the
+  gates, the verify, the draft's top-k) run; JAX replicates it on every
+  device.
+
+``engine_shardings``, the managers' ``partition_specs``, the 'pod' axis
+and ``specee_specs`` are JAX's, held equal to it by the tests.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import (_is_namedtuple, tree_map,
+from repro_torch.models.common import (is_namedtuple, tree_map,
                                        with_contiguous_head)
 from repro_torch.quant.core import QTensor
 from repro_torch.sharding import policies as pol
-from repro_torch.sharding.ctx import ShardCtx, Shards, cut, gather
+from repro_torch.sharding.ctx import (DataShards, ShardCtx, Shards, cut,
+                                     gather, join)
+from repro_torch.sharding.rows import RowMesh, place_parts
 
 MULTI = "ROADMAP: multi-GPU"
+POLICIES = ("tp_dp", "tp2d", "fsdp_tp")
 
 
 def engine_shardings(model, mesh, policy: str, params, sw, qw
@@ -99,56 +138,23 @@ def engine_shardings(model, mesh, policy: str, params, sw, qw
     return p_named, s_named, q_named
 
 
-def model_dim(spec) -> Optional[int]:
-    """The dim a spec splits over 'model' (None: whole)."""
-    for d, ax in enumerate(spec):
-        if ax == "model" or (isinstance(ax, tuple) and "model" in ax):
-            return d
-    return None
-
-
-_BLOCK_BYTES = 64 << 20     # a host tensor crosses in blocks of this size
-
-
 def split_leaf(x: torch.Tensor, dim: int, shard: ShardCtx,
                widths=None) -> Shards:
     """``x`` cut along ``dim`` into one contiguous part per shard, each on
     its shard's device (``widths``: the parts' sizes, the vocabulary's
     uneven slices; even by default, then laid out as one split segment).
-    A host tensor split past its leading dim crosses to each distinct
-    device once, in contiguous blocks of leading rows, and is cut there:
-    a strided host slice would first be staged through a pageable copy."""
+    A host tensor crosses to each distinct device once, in blocks
+    (``rows.place_parts``)."""
     n = x.shape[dim]
     segs = None
     if widths is None:
         widths = [n // shard.degree] * shard.degree
         segs = ((n, 1, True),)
     starts = [sum(widths[:s]) for s in range(len(widths))]
-    devices = shard.devices
-    if x.device.type != "cpu" or dim == 0:
-        parts = [x.narrow(dim, c0, w).to(dev).contiguous()
-                 for c0, w, dev in zip(starts, widths, devices)]
-        return Shards(parts, dim=dim - x.dim(), segs=segs)
-    parts = [torch.empty(x.shape[:dim] + (w,) + x.shape[dim + 1:],
-                         dtype=x.dtype, device=dev)
-             for w, dev in zip(widths, devices)]
-    rows = max(1, _BLOCK_BYTES // max(1, x[0].numel() * x.element_size()))
-    for dev in dict.fromkeys(devices):
-        for r0 in range(0, x.shape[0], rows):
-            block = x[r0:r0 + rows].to(dev, non_blocking=x.is_pinned())
-            for part, c0, w, d in zip(parts, starts, widths, devices):
-                if d == dev:
-                    part[r0:r0 + rows].copy_(block.narrow(dim, c0, w))
+    parts = place_parts(x, [(dev, [(dim, functools.partial(
+        torch.narrow, dim=dim, start=c0, length=w))])
+        for c0, w, dev in zip(starts, widths, shard.devices)])
     return Shards(parts, dim=dim - x.dim(), segs=segs)
-
-
-def cut_leaf(x: torch.Tensor, dim: int, segs, shard: ShardCtx) -> Shards:
-    """``x`` cut by ``segs`` along ``dim`` (from the end) into each shard's
-    part on its device (``sharding.ctx.cut``); ``x`` crosses to each
-    distinct device once."""
-    on = {dev: x.to(dev) for dev in dict.fromkeys(shard.devices)}
-    return Shards([cut(on[dev], dim, segs, s, shard.degree)
-                   for s, dev in enumerate(shard.devices)], dim, segs)
 
 
 def vocab_widths(V: int, degree: int):
@@ -167,84 +173,36 @@ def split_vocab(head: torch.Tensor, shard: ShardCtx) -> Shards:
     return split_leaf(head, 1, shard, widths)
 
 
-def place(tree, spec_tree, shard: ShardCtx,
-          layouts: Optional[dict] = None) -> Any:
-    """Put ``tree`` on the mesh by ``spec_tree``: 'model'-split leaves
-    become ``Shards``, the rest move to the lead device. ``layouts``
-    ({module key: {leaf path in the module: (dim, segments)}},
-    ``_layouts``) lays those leaves of each such module out by their
-    segments instead of their specs. Non-tensor leaves (ints, None) pass
-    through."""
-    if isinstance(tree, dict):
-        return {k: (_place_module(v, spec_tree[k], shard, layouts[k], k)
-                    if layouts and k in layouts
-                    else place(v, spec_tree[k], shard, layouts))
-                for k, v in tree.items()}
-    if _is_namedtuple(tree):
-        return type(tree)(*(place(v, s, shard, layouts)
-                            for v, s in zip(tree, spec_tree)))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(place(v, s, shard, layouts)
-                          for v, s in zip(tree, spec_tree))
-    return _place_leaf(tree, spec_tree, shard, None)
-
-
-def _place_module(tree, spec_tree, shard: ShardCtx, table: dict,
-                  name: str) -> Any:
-    """``place`` of one module's params (nested dicts), the leaves that
-    ``table`` names by their segments. Raises if the module lacks one of
-    them, so a renamed leaf cannot fall back to its spec unseen."""
-    seen = set()
-
-    def walk(t, sp, path):
-        if isinstance(t, dict):
-            return {k: walk(v, sp[k], f"{path}/{k}" if path else k)
-                    for k, v in t.items()}
-        seen.add(path)
-        return _place_leaf(t, sp, shard, table.get(path))
-
-    out = walk(tree, spec_tree, "")
-    missing = sorted(set(table) - seen)
-    if missing:
-        raise KeyError(f"{name}: no leaf {missing} to lay out")
-    return out
-
-
-def _place_leaf(x, spec, shard: ShardCtx, layout) -> Any:
-    """One leaf: a quantized tensor whole on the lead, a tensor cut by its
-    ``layout`` (dim, segments) or split by its spec, else as it is."""
-    if isinstance(x, QTensor):
-        return QTensor(x.q.to(shard.lead), x.scale.to(shard.lead), x.bits)
-    if not isinstance(x, torch.Tensor):
-        return x
-    if layout is not None:
-        return cut_leaf(x, *layout, shard)
-    dim = model_dim(spec)
-    if dim is None:
-        return x.to(shard.lead)
-    return split_leaf(x, dim, shard)
-
-
-def place_like(tree, like, shard: ShardCtx) -> Any:
+def place_like(tree, like, lead) -> Any:
     """Put a whole-layout ``tree`` (a snapshot's decode state) on the mesh
     in the layout of ``like`` (the session's own state, of the same
     structure, whose ``Shards`` all carry segments: ``Model.
     empty_cache_entry``): where ``like`` holds a ``Shards``, the whole
-    tensor is cut into its layout on its devices; every other tensor goes
-    where ``like``'s does (the lead device)."""
+    tensor is cut into its layout on its parts' devices; where it holds a
+    ``DataShards``, each row's entry takes its slice along ``dim`` (or the
+    whole tensor, a paged pool's copy) in that entry's layout; every
+    other tensor goes where ``like``'s does (else to ``lead``)."""
+    if isinstance(like, DataShards) and isinstance(tree, torch.Tensor):
+        n = 0 if like.dim is None else tree.shape[like.dim] // len(like)
+        return like.like(
+            place_like(tree if like.dim is None
+                       else tree.narrow(like.dim, d * n, n), e, lead)
+            for d, e in enumerate(like))
     if isinstance(like, Shards) and isinstance(tree, torch.Tensor):
-        return cut_leaf(tree, like.dim, like.segs, shard)
+        on = {p.device: tree.to(p.device) for p in like}
+        return like.like(cut(on[p.device], like.dim, like.segs, s, len(like))
+                         for s, p in enumerate(like))
     if isinstance(tree, dict):
-        return {k: place_like(v, like[k], shard) for k, v in tree.items()}
-    if _is_namedtuple(tree):
-        return type(tree)(*(place_like(v, l, shard)
+        return {k: place_like(v, like[k], lead) for k, v in tree.items()}
+    if is_namedtuple(tree):
+        return type(tree)(*(place_like(v, l, lead)
                             for v, l in zip(tree, like)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(place_like(v, l, shard)
+        return type(tree)(place_like(v, l, lead)
                           for v, l in zip(tree, like))
     if isinstance(tree, torch.Tensor):
         return tree.to(like.device if isinstance(like, torch.Tensor)
-                       else shard.lead)
+                       else lead)
     return tree
 
 
@@ -264,12 +222,16 @@ def to_host(tree) -> Any:
 
 def unplace(tree, device) -> Any:
     """The whole-tensor layout of a placed tree, on ``device``: every
-    ``Shards`` gathered (``ctx.gather``), every tensor moved."""
+    ``Shards`` gathered (``ctx.gather``), every ``DataShards`` joined
+    (``ctx.join``: its rows' slices, or its first copy; a paged pool's
+    copies are ``unplace_cache``'s), every tensor moved."""
     if isinstance(tree, dict):
         return {k: unplace(v, device) for k, v in tree.items()}
+    if isinstance(tree, DataShards):
+        return join(tree, device)
     if isinstance(tree, Shards):
         return gather(tree, device)
-    if _is_namedtuple(tree):
+    if is_namedtuple(tree):
         return type(tree)(*(unplace(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(unplace(v, device) for v in tree)
@@ -278,21 +240,45 @@ def unplace(tree, device) -> Any:
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
+def unplace_cache(cache, device) -> Any:
+    """The whole-tensor layout of a placed decode cache, on ``device``.
+    A paged cache's pools replicated over 'data' (``DataShards`` of
+    copies, the module docstring) are joined page by page: each page
+    from the row whose slots the page table gives it, every other page
+    (free, or the trash page) from row 0's copy."""
+    table = cache.get("page_table")
+    if table is None:
+        return unplace(cache, device)
+
+    def leaf(x):
+        if not (isinstance(x, DataShards) and x.dim is None and len(x) > 1):
+            return unplace(x, device)
+        whole = gather(x[0], device).clone()
+        trash = whole.shape[1] - 1
+        b = table.shape[0] // len(x)
+        for d in range(1, len(x)):
+            pages = table[d * b:(d + 1) * b].reshape(-1).long().to(device)
+            pages = pages[pages != trash]
+            if pages.numel():
+                whole[:, pages] = gather(x[d], device)[:, pages]
+        return whole
+
+    segs = [{k: {n: leaf(x) for n, x in sub.items()}
+             for k, sub in entry.items()} for entry in cache["segments"]]
+    return dict(unplace(dict(cache, segments=[]), device), segments=segs)
+
+
 def check_servable(model, mesh, policy: str) -> None:
-    """Refuse, naming "multi-GPU", what a ``(1, P)`` mesh does not serve:
-    ``DATA > 1`` (so also tp2d's second dim over 'data'), the training
-    policy ``fsdp_tp``, and the degrees ``check_degree`` refuses. Every
-    family of ``configs.ARCHS`` is served: the attention family, MoE
-    (both forms, ``moe_bf16_reduce`` too), SSD, the RG-LRU hybrid, the VLM
-    frontend and the encoder."""
-    if policy not in ("tp_dp", "tp2d"):
-        raise ValueError(f"policy={policy!r}: serving takes 'tp_dp' or "
-                         f"'tp2d' (fsdp_tp is training's, {MULTI})")
-    data = int(mesh.shape.get("data", 1))
-    if data != 1:
-        raise ValueError(
-            f"mesh DATA must be 1 ({MULTI}): data parallelism is "
-            "ReplicaPool (independent engines), not an in-engine mesh axis")
+    """Refuse what a mesh does not serve: a policy other than JAX's three
+    (``tp_dp``, ``tp2d``, ``fsdp_tp``), and, naming "multi-GPU", the
+    degrees ``check_degree`` refuses. Every ``(DATA, MODEL)`` mesh is
+    served, DATA > 1 too, and every family of ``configs.ARCHS``: the
+    attention family, MoE (both forms, ``moe_ep_quant`` and
+    ``moe_bf16_reduce`` too), SSD, the RG-LRU hybrid, the VLM frontend and
+    the encoder."""
+    if policy not in POLICIES:
+        raise ValueError(f"policy={policy!r}: serving takes one of "
+                         f"{POLICIES}")
     check_degree(model, int(mesh.shape["model"]))
 
 
@@ -327,31 +313,23 @@ def check_degree(model, P: int) -> None:
                 f"the RG-LRU width {lru_width(cfg)} ({MULTI})")
 
 
-def _layouts(model) -> dict:
-    """The placements that differ from JAX's specs (the module
-    docstring), by the module that owns the leaves: {module key: that
-    module's ``param_segs``}, the KV heads' (``attention``) and Mamba2's
-    head-aligned SSD leaves (``ssd``)."""
-    from repro_torch.models import attention, ssd
-    out = {"attn": attention.param_segs(model.cfg)}
-    if model.cfg.ssm is not None:
-        out["ssd"] = ssd.param_segs(model.cfg)
-    return out
-
-
 def shard_params(params, sw, mesh, policy: str, model
                  ) -> Tuple[Any, Any]:
-    """Each shard's slices of ``params`` on its device by the policy's
-    specs and ``_layouts``' segments (a tied head first gets its
-    contiguous copy), the LM head's vocabulary slices beside its lead
-    copy, and ``sw`` whole on the lead. Returns (params, sw); the inputs
-    are not modified."""
+    """The weights on ``mesh`` by the policy's specs (a tied head first
+    gets its contiguous copy), through ``RowMesh.place``: each shard's
+    slices on its device, laid out by ``rows.layouts``' segments; over
+    DATA > 1 a ``DataShards`` per leaf (the module docstring). The LM head
+    is held whole on the lead beside its vocabulary slices on row 0's
+    model devices, and ``sw`` whole on the lead. Returns (params, sw); the
+    inputs are not modified."""
     shard = ShardCtx.from_mesh(mesh)
     params = with_contiguous_head(params)
     specs = pol.param_specs(model, mesh, policy, params)
     head = params["lm_head"]["w"]
-    out = place(dict(params, lm_head={}), dict(specs, lm_head={}), shard,
-                _layouts(model))
-    out["lm_head"] = {"w": head.to(shard.lead),
-                      "vocab_shards": split_vocab(head, shard)}
-    return out, (None if sw is None else unplace(sw, shard.lead))
+    rest, rest_specs = dict(params, lm_head={}), dict(specs, lm_head={})
+    lead = mesh.devices[0][0]
+    out = RowMesh(model, mesh).place(rest, rest_specs, by_layout=True)
+    out["lm_head"] = {"w": head.to(lead)}
+    if shard is not None:
+        out["lm_head"]["vocab_shards"] = split_vocab(head, shard)
+    return out, (None if sw is None else unplace(sw, lead))

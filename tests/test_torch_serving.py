@@ -199,11 +199,12 @@ def test_flash_flag_gives_same_tokens(setup):
 
 
 def test_serving_raises_on_what_is_not_ported(setup, tmp_path):
-    """No silent degradation: a mesh the port does not shard (DATA > 1,
-    the training policy, a degree that does not divide a MoE model's
-    query heads) raises ValueError naming its ROADMAP
-    item ("multi-GPU"); a (1, 2) mesh serves at tensor-parallel degree 2,
-    and ``policy`` without a mesh is ignored, as JAX ignores it. The
+    """No silent degradation: a mesh the port does not shard (a degree
+    that does not divide a MoE model's query heads) raises ValueError
+    naming its ROADMAP item ("multi-GPU"); DATA > 1 and the training
+    policy serve two requests as JAX's unsharded engine does; a (1, 2)
+    mesh serves at tensor-parallel degree 2, and ``policy`` without a
+    mesh is ignored, as JAX ignores it. The
     fault-tolerance arguments and an oversubscribed
     pool (JAX evicts) are taken as JAX takes them. Megaticks and async
     ticks are taken, with JAX's default (``async_ticks`` on when
@@ -254,10 +255,19 @@ def test_serving_raises_on_what_is_not_ported(setup, tmp_path):
         se.close()
         jse.close()
     from repro_torch.launch.mesh import make_host_mesh
+    prompts = _prompts(2, 11, lo=6, hi=7)
+    jse = JServingEngine(m_j, params_j, sw_j)
+    want = [jse.submit(x, max_new_tokens=4) for x in prompts]
+    jse.run_to_completion()
+    jse.close()
     for kw in (dict(mesh=make_host_mesh(2, 1, "cpu")),
                dict(mesh=make_host_mesh(1, 2, "cpu"), policy="fsdp_tp")):
-        with pytest.raises(ValueError, match="ROADMAP: multi-GPU"):
-            ServingEngine(m, params, sw, **kw)
+        se = ServingEngine(m, params, sw, **kw)
+        got = [se.submit(x, max_new_tokens=4) for x in prompts]
+        se.run_to_completion()
+        se.close()
+        assert [(r.output, r.exit_points) for r in got] == \
+            [(r.output, r.exit_points) for r in want], kw
     moe = build_model(get_config("dbrx-132b").smoke())
     with pytest.raises(ValueError, match="ROADMAP: multi-GPU"):
         ServingEngine(moe, {}, None, specee=False,

@@ -331,8 +331,8 @@ def test_split_leaf_host_blocks(monkeypatch, shape, dim, widths):
     rows (here a few bytes each, so blocks end mid-tensor) and is cut on
     the device: every part equals the plain narrow, contiguous, and the
     split dim is kept from the end."""
-    from repro_torch.sharding import serving as shs
-    monkeypatch.setattr(shs, "_BLOCK_BYTES", 3 * 4 * shape[-1])
+    from repro_torch.sharding import rows, serving as shs
+    monkeypatch.setattr(rows, "_BLOCK_BYTES", 3 * 4 * shape[-1])
     shard = ShardCtx.from_mesh(make_host_mesh(1, 4, "cpu"))
     x = torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(shape)
     got = shs.split_leaf(x, dim, shard, widths)

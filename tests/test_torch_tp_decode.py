@@ -13,9 +13,10 @@ GELU: a row-parallel bias added once, after the reduce), ``quant="int8"``
 and ``kv_quant`` at P = 2, and ``tp2d`` with DATA = 1. A snapshot taken at
 one degree restores at another. What a mesh does not serve is refused
 naming "multi-GPU"; MoE's ``moe_ep_quant`` and ``moe_bf16_reduce`` are
-served at P = 2 as JAX's unsharded engine serves them (the other
-families' meshes:
-``tests/test_torch_tp_families.py``). Then the launcher's multi-GPU
+served at P = 2 as JAX's unsharded engine serves them, and DATA > 1 and
+the training policy as JAX's unsharded engine serves (the other
+families' meshes: ``tests/test_torch_tp_families.py``; the data rows:
+``tests/test_torch_dp_serving.py``). Then the launcher's multi-GPU
 flags, in this process. Tolerance: tokens exact."""
 import dataclasses
 
@@ -96,15 +97,25 @@ def _decode(E, m, params, sw, strategy, cache, mesh=None, quant=None,
     return toks
 
 
+_JAX_DECODE = {}
+
+
 def _both(strategy, cache, degrees=(2, 4), arch="llama2-7b", vocab=None,
-          quant=None, flags=None, policy="tp_dp"):
+          quant=None, flags=None, policy="tp_dp", data=1):
+    """The port over (``data``, P) meshes for P in ``degrees`` against
+    JAX's unsharded decode (memoized per case)."""
     m_j, pj, sj, m_t, pt, st = _pair(arch, vocab, **(flags or {}))
-    want = _decode(JEngine, m_j, pj, sj, strategy, cache, quant=quant)
+    key = (strategy, cache, arch, vocab, quant,
+           tuple(sorted((flags or {}).items())))
+    if key not in _JAX_DECODE:
+        _JAX_DECODE[key] = _decode(JEngine, m_j, pj, sj, strategy, cache,
+                                   quant=quant)
+    want = _JAX_DECODE[key]
     for P in degrees:
         got = _decode(Engine, m_t, pt, st, strategy, cache,
-                      mesh=make_host_mesh(1, P, "cpu"), quant=quant,
+                      mesh=make_host_mesh(data, P, "cpu"), quant=quant,
                       policy=policy)
-        assert got == want, (arch, strategy, cache, P)
+        assert got == want, (arch, strategy, cache, data, P)
     return want
 
 
@@ -140,26 +151,39 @@ def test_tp2d_with_data_one_matches_jax():
     _both("specee", "paged", degrees=(4,), policy="tp2d")
 
 
-def test_serving_engine_mesh_paged_matches_jax():
-    """``ServingEngine(mesh=)`` on the paged cache: JAX's unsharded
-    engine's outputs and stats; ``tp_degree`` reports the degree."""
-    m_j, pj, sj, m_t, pt, st = _pair()
+def _serve(S, m, p, s, **kw):
+    """Three requests through ``S`` (SpecEE, megaticks of 2, paged):
+    (engine, {uid: (output, exit points)})."""
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, 512, int(rng.integers(4, 12)))
                for _ in range(3)]
+    se = S(m, p, s, strategy="specee", megatick=2, cache="paged", **kw)
+    for x in prompts:
+        se.submit(x, max_new_tokens=6)
+    se.run_to_completion()
+    se.close()
+    return se, {r.uid: (list(r.output), list(r.exit_points))
+                for r in se.completed}
 
-    def serve(S, m, p, s, **kw):
-        se = S(m, p, s, strategy="specee", megatick=2, cache="paged", **kw)
-        for x in prompts:
-            se.submit(x, max_new_tokens=6)
-        se.run_to_completion()
-        se.close()
-        return se, {r.uid: (list(r.output), list(r.exit_points))
-                    for r in se.completed}
 
-    _, want = serve(JServingEngine, m_j, pj, sj)
-    se, got = serve(ServingEngine, m_t, pt, st,
-                    mesh=make_host_mesh(1, 2, "cpu"))
+_JAX_SERVE = []
+
+
+def _jax_serve():
+    """JAX's unsharded ``_serve`` (memoized)."""
+    if not _JAX_SERVE:
+        m_j, pj, sj, _, _, _ = _pair()
+        _JAX_SERVE.append(_serve(JServingEngine, m_j, pj, sj)[1])
+    return _JAX_SERVE[0]
+
+
+def test_serving_engine_mesh_paged_matches_jax():
+    """``ServingEngine(mesh=)`` on the paged cache: JAX's unsharded
+    engine's outputs and stats; ``tp_degree`` reports the degree."""
+    _, _, _, m_t, pt, st = _pair()
+    want = _jax_serve()
+    se, got = _serve(ServingEngine, m_t, pt, st,
+                     mesh=make_host_mesh(1, 2, "cpu"))
     assert got == want and se.tp_degree == 2
     mgr = se.session.cache_mgr
     assert mgr.free_pages == mgr.num_pages
@@ -208,12 +232,16 @@ def _refused(case):
         Engine.create(m, {}, None, strategy="dense", policy=policy,
                       mesh=make_host_mesh(data, model, "cpu"))
     return {
-        "data_2": lambda: engine("llama2-7b", 2, 1),
-        "tp2d_over_data": lambda: engine("llama2-7b", 2, 2, "tp2d"),
-        "fsdp_tp": lambda: engine("llama2-7b", 1, 2, "fsdp_tp"),
         "ssd_heads": lambda: engine("mamba2-130m", 1, 3),
         "minicpm_p3": lambda: engine("minicpm-2b", 1, 3),
     }[case]
+
+
+# the meshes with DATA > 1 and the training policy, served since they
+# were refused: (data, degrees, policy)
+_OVER_DATA = {"data_2": (2, (1,), "tp_dp"),
+              "tp2d_over_data": (2, (2,), "tp2d"),
+              "fsdp_tp": (2, (2,), "fsdp_tp")}
 
 
 _MOE_FLAGS = {"moe_ep_quant": ("dbrx-132b", dict(moe_ep_quant=True)),
@@ -261,29 +289,40 @@ def _served_as_jax(case):
                                   "ssd_heads", "minicpm_p3"])
 def test_remaining_meshes_refused(case):
     """What a mesh still does not serve is refused naming "multi-GPU",
-    before anything is placed: DATA > 1 (tp2d's second dim over 'data'
-    too), the training policy, a degree that does not divide Mamba2's 8
+    before anything is placed: a degree that does not divide Mamba2's 8
     smoke SSD heads (P = 3), and minicpm-2b's smoke config at P = 3 (4
     query heads). MoE's ``moe_ep_quant`` and ``moe_bf16_reduce`` are
     served: a (1, 2) mesh with each flag decodes as JAX's unsharded engine
-    with it (``_served_as_jax``). Every family of ``ARCHS`` is served at
-    P = 2 and 4 (``tests/test_torch_tp_families.py``)."""
+    with it (``_served_as_jax``). So are DATA > 1 and the training policy,
+    once refused: (2, 1) tp_dp, (2, 2) tp2d (the second dim over 'data')
+    and (2, 2) fsdp_tp give JAX's unsharded SpecEE tokens on the paged
+    cache. Every family of ``ARCHS`` is served at P = 2 and 4
+    (``tests/test_torch_tp_families.py``) and over data rows
+    (``tests/test_torch_dp_serving.py``)."""
     if case in _MOE_FLAGS:
         _served_as_jax(case)
+        return
+    if case in _OVER_DATA:
+        data, degrees, policy = _OVER_DATA[case]
+        _both("specee", "paged", degrees=degrees, policy=policy, data=data)
         return
     with pytest.raises(ValueError, match="multi-GPU"):
         _refused(case)()
 
 
 def test_mesh_refusals():
-    """DATA > 1, the training policy and a degree that neither divides the
-    KV heads nor is a multiple of them (nor divides the query heads) are
-    refused naming "multi-GPU"; a (1, 1) mesh is the unsharded engine."""
+    """A degree that neither divides the KV heads nor is a multiple of
+    them (nor divides the query heads) is refused naming "multi-GPU"; a
+    (1, 1) mesh is the unsharded engine. DATA > 1 and the training
+    policy, once refused, serve: ``ServingEngine`` at (2, 1) tp_dp and
+    (1, 2) fsdp_tp gives JAX's unsharded engine's outputs and stats."""
     _, _, _, m, params, sw = _pair()
+    want = _jax_serve()
     for mesh, policy in ((make_host_mesh(2, 1, "cpu"), "tp_dp"),
                          (make_host_mesh(1, 2, "cpu"), "fsdp_tp")):
-        with pytest.raises(ValueError, match="multi-GPU"):
-            ServingEngine(m, params, sw, mesh=mesh, policy=policy)
+        _, got = _serve(ServingEngine, m, params, sw, mesh=mesh,
+                        policy=policy)
+        assert got == want, (mesh, policy)
     sc = build_model(get_config("starcoder2-15b").smoke())
     with pytest.raises(ValueError, match="multi-GPU"):
         Engine.create(sc, {}, None, strategy="dense",
