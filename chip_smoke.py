@@ -22,7 +22,8 @@ serves tensor-parallel over a (1, P) mesh whose shards share the card,
 through a device loss and a replica pool, serves every other family
 (MoE, Mamba2, the RG-LRU hybrid, the VLM and the encoder) over such a
 mesh, trains under a (DATA, MODEL) mesh at fsdp_tp, and serves over
-(DATA, MODEL) meshes with DATA > 1.
+(DATA, MODEL) meshes with DATA > 1, and holds the meta device's dry
+run against what placement allocates on the card.
 
     python3 chip_smoke.py
 
@@ -354,7 +355,21 @@ Phases (lines ``[phase +seconds since the start] ...``):
      step or tick, the peak card memory against the weights and the
      'data' collectives a step by kind. Each config's run at each mesh
      is a main path (``tpdata_*``);
- 20. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
+ 20. dryrun — the dry run on the meta device (``repro_torch.launch.
+     dryrun``) held against the card: llama2-70b's widths at 2 layers,
+     fp32, the decode cell of B=4 rows of 256 slots at (2, 2) under tp_dp,
+     tp2d and fsdp_tp. The card's allocation growth across placing the
+     cell's arguments (the engine's weights from a host copy, then its
+     empty decode state; every slot on cuda:0, so the sum over the slots)
+     must be within 1 % of the meta run's summed per-slot argument bytes,
+     and one step's per-device collectives of both axes (those the lead
+     slot takes part in), counted on the card with the step taking the
+     meta step's branches (every unit, every gate and verify), must
+     equal the meta step's. The step takes the dry run's
+     flags, which turn on no kernel. Then llama2-7b's decode_32k cell at
+     published size on a (4, 4) mesh of meta slots: its largest slot's
+     bytes, flops and collectives, logged;
+ 21. the ``{"kernels": [...]}`` line (17 kernels), the card line, and as
      the last line ``{"ok": true, "device": {...}}``.
 
 With random draft and predictor weights the tree accepts about no draft
@@ -362,7 +377,7 @@ token per step (one emitted token per tree step), so the tree runs of
 phases 3 to 10 measure the mechanism's cost, not its gain; phase 11's
 trained bundles are the ones that exit and accept.
 
-Each main path (phases 4 to 19, each run on its own) zeroes the
+Each main path (phases 4 to 20, each run on its own) zeroes the
 kernel launch counts right before it and reads them right after; a kernel
 of that path that never launched fails the run. Any failure exits non-zero
 without the last line. Without a CUDA card, or without the repository
@@ -7006,6 +7021,147 @@ def tpdata_phase(torch, dev):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the dry run on the meta device held against the card
+# ---------------------------------------------------------------------------
+DRY_MESHES = ((2, 2, "tp_dp"), (2, 2, "tp2d"), (2, 2, "fsdp_tp"))
+DRY_B, DRY_S = 4, 256          # the decode cell's rows and cache slots
+DRY_FULL_MESH = (4, 4)         # llama2-7b decode_32k at published size
+DRY_RTOL = 0.01                # predicted placement bytes vs allocated
+
+
+def _dry_counts():
+    """One device's collectives by axis (``collectives.PER_DEVICE``)."""
+    from repro_torch.runtime import collectives as C
+    return {ax: {k: dict(c) for k, c in rec.items()}
+            for ax, rec in C.PER_DEVICE.items()}
+
+
+def _meta_answer(flag, on_meta: bool) -> bool:
+    """``core.engine.host_read`` as on meta: the dry run's branch."""
+    return on_meta
+
+
+def _dry_counts_str(by_axis) -> str:
+    return "; ".join(f"{ax} {k} {c['calls']} calls {c['bytes'] / 1e9:.4f} GB"
+                     for ax, rec in by_axis.items()
+                     for k, c in rec.items() if c["calls"]) or "none"
+
+
+def dryrun_phase(torch, dev):
+    """Phase 20: each mesh's dry run on meta, then the same placement and
+    step on the card from a host copy of seeded weights: the allocation
+    growth within DRY_RTOL of the predicted bytes summed over the slots,
+    the step's per-device collectives equal, the card's step taking the
+    meta step's branches (every unit, every exit point's gate and verify:
+    ``core.engine.host_read`` answers as on meta). Then the production
+    cell on meta. No kernel runs (the dry run's flags): the card part's
+    launches are counted and must stay 0. Returns the launches by path."""
+    import dataclasses
+    import gc
+    from repro_torch import kernels as K
+    from repro_torch.config import ShapeCell
+    from repro_torch.core import engine as eng
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import collectives as C
+    from repro_torch.sharding.serving import to_host
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("dryrun", card_line())
+    cell = ShapeCell("decode_32k", "decode", DRY_S, DRY_B)
+    base = df_config("llama2-70b", TPD_LAYERS, "float32")
+    model = build_model(base)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    params = model.init(gen, dev)
+    sw = eng.init_specee(model, gen, dev)
+    host = to_host(params), to_host(sw)
+    del params, sw
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("dryrun", f"llama2-70b widths, {TPD_LAYERS} layers, fp32: seeded "
+        f"and moved to the host in {time.perf_counter() - t0:.1f} s")
+    K.reset_launches()                     # ---- the card's part ----
+    for D, P, policy in DRY_MESHES:
+        run = dataclasses.replace(base, sharding=dataclasses.replace(
+            base.sharding, policy=policy))
+        r = dryrun.run_cell("llama2-70b", cell.name, run=run, cell=cell,
+                            mesh=make_host_mesh(D, P, "meta"))
+        predicted = sum(map(sum, r["analytic_arg_bytes_per_slot"]))
+        m = build_model(run, dryrun.dryrun_flags(run, cell, False, False, D))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        placed, step_model, _ = dryrun.place(m, run, cell, dp_mesh(D, P),
+                                             host + (None,), False)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        t_place = time.perf_counter() - t1
+        fn = dryrun.step_fn_for(step_model, run, cell, data_extent=D)
+        C.reset_counts()
+        host_read, eng.host_read = eng.host_read, _meta_answer
+        try:
+            out = fn(*placed)
+        finally:
+            eng.host_read = host_read
+        torch.cuda.synchronize()
+        counts = _dry_counts()
+        units_run = out[-1]
+        del placed, out, fn, step_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        label = f"({D}, {P}) {policy}"
+        log("dryrun", f"{label} predicted: argument bytes summed over the "
+            f"slots {predicted} ({predicted / 1e9:.4f} GB), largest slot "
+            f"{r['analytic_arg_bytes_per_device'] / 1e9:.4f} GB, temp (all "
+            f"slots) {r['memory']['temp_size_in_bytes_all_slots'] / 1e9:.4f}"
+            f" GB, {r['cost']['flops'] / 1e9:.3f} GFLOP, collectives "
+            f"{_dry_counts_str(r['collectives_exact']['by_axis'])}; meta "
+            f"run {r['lower_s']} s")
+        log("dryrun", f"{label} measured: allocation growth {grown} "
+            f"({grown / 1e9:.4f} GB, {grown / predicted - 1:+.4%} against "
+            f"the prediction) in {t_place:.1f} s; collectives "
+            f"{_dry_counts_str(counts)}; units_run {units_run} of "
+            f"{r['units']}")
+        require(abs(grown - predicted) <= DRY_RTOL * predicted,
+                f"dryrun {label}: the card grew {grown} bytes, the dry run "
+                f"predicted {predicted}")
+        require(counts == r["collectives_exact"]["by_axis"],
+                f"dryrun {label}: collectives {counts} on the card, "
+                f"{r['collectives_exact']['by_axis']} on meta")
+        require(units_run == r["units"] == r["units_run"],
+                f"dryrun {label}: units_run {units_run} on the card, "
+                f"{r['units_run']} on meta of {r['units']}")
+    launches = dict(K.LAUNCHES)            # ---- read right after ----
+    require(not any(launches.values()), f"dryrun: kernels launched "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    D, P = DRY_FULL_MESH
+    r = dryrun.run_cell("llama2-7b", "decode_32k",
+                        mesh=make_host_mesh(D, P, "meta"))
+    slots = r["analytic_arg_bytes_per_slot"]
+    log("dryrun", f"llama2-7b decode_32k (B=128, 32768 slots) at ({D}, {P})"
+        f" on meta in {r['lower_s']} s: largest slot (the lead) "
+        f"{slots[0][0] / 1e9:.3f} GB, the others {slots[-1][-1] / 1e9:.3f}"
+        f" GB; temp (all slots) "
+        f"{r['memory']['temp_size_in_bytes_all_slots'] / 1e9:.3f} GB; "
+        f"{r['cost']['flops'] / 1e12:.3f} TFLOP; units_run "
+        f"{r['units_run']} of {r['units']}; collectives "
+        f"{_dry_counts_str(r['collectives_exact']['by_axis'])}")
+    require(r["units_run"] == r["units"] == 32,
+            f"dryrun llama2-7b decode_32k: units_run {r['units_run']}")
+    log("dryrun", f"phase 20 took {time.perf_counter() - t0:.1f} s; every "
+        "slot on cuda:0 (no copy between cards made or measured); no "
+        "kernel launched")
+    return {"dryrun": launches}
+
+
 def profile_steps(torch, model, params, sw, prompts, step_s: float,
                   n: int = 4, phase: str = "profile") -> None:
     """torch.profiler over ``n`` more whole-batch SpecEE steps."""
@@ -7169,6 +7325,8 @@ def main() -> int:
     by_path.update(trainmesh_phase(torch, dev))
     torch.cuda.empty_cache()
     by_path.update(tpdata_phase(torch, dev))
+    torch.cuda.empty_cache()
+    by_path.update(dryrun_phase(torch, dev))
     log("total", f"script {time.perf_counter() - T_START:.1f} s before the "
         "kernels line")
 

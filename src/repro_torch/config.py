@@ -9,7 +9,7 @@ other.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 ATTN = "attention"            # global causal (or bidirectional for
 #                               encoders) attention
@@ -96,6 +96,11 @@ class ModelConfig:
 
     def is_decoder(self) -> bool:
         return self.causal
+
+    def supports_long_context(self) -> bool:
+        """True iff no block is quadratic in sequence length (global
+        attention)."""
+        return all(b in (SSD, RGLRU, LOCAL_ATTN) for b in self.blocks())
 
     def blocks(self) -> Tuple[str, ...]:
         if self.block_pattern:
@@ -240,6 +245,14 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class ShardingConfig:
+    """The field of JAX's parallelism policy the dry run reads
+    (``launch/specs.py``, ``launch/dryrun.py``): the serving policy a mesh
+    places the weights by ("tp_dp" | "tp2d"; training takes "fsdp_tp")."""
+    policy: str = "tp_dp"
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     global_batch: int = 256
     seq_len: int = 4096
@@ -264,6 +277,7 @@ class RunConfig:
     specee: SpecEEConfig = field(default_factory=SpecEEConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
 
     def smoke(self) -> "RunConfig":
         return replace(self, model=self.model.smoke(),
@@ -273,3 +287,42 @@ class RunConfig:
                        train=replace(self.train, global_batch=4, seq_len=32,
                                      steps=2, microbatch=0,
                                      checkpoint_every=1))
+
+
+# ---------------------------------------------------------------------------
+# Input shape cells (JAX's assigned shape set, ``repro/config.py:340-370``)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str       # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str       # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", "train", 4096, 256),
+    ShapeCell("prefill_32k", "prefill", 32768, 32),
+    ShapeCell("decode_32k", "decode", 32768, 128),
+    ShapeCell("long_500k", "decode", 524288, 1),
+)
+
+
+def shape_by_name(name: str) -> ShapeCell:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+def applicable_shapes(model: ModelConfig) -> List[ShapeCell]:
+    """Which of the four shapes an arch runs: an encoder has no decode
+    step, and only a stack with no global attention runs 500k tokens."""
+    out: List[ShapeCell] = []
+    for s in SHAPES:
+        if s.kind == "decode" and not model.is_decoder():
+            continue
+        if s.name == "long_500k" and not model.supports_long_context():
+            continue
+        out.append(s)
+    return out

@@ -3,11 +3,11 @@
 [hf:CohereForAI/c4ai-command-r-v01; unverified]
 64L d_model=12288 96H (GQA kv=8) d_ff=33792 vocab=256000.
 
-The JAX config also asks for 2-D tensor-parallel sharding
-(``ShardingConfig(policy="tp2d")``: 208 GB of bf16 weights); the port has
-no sharding yet, which comes with multi-GPU (ROADMAP queue 1, item 9).
+Its serving policy is JAX's 2-D tensor parallelism
+(``ShardingConfig(policy="tp2d")``: 208 GB of bf16 weights).
 """
-from repro_torch.config import FAMILY_DENSE, ModelConfig, RunConfig
+from repro_torch.config import (FAMILY_DENSE, ModelConfig, RunConfig,
+                                ShardingConfig)
 from repro_torch.configs.registry import register
 
 
@@ -27,4 +27,4 @@ def config() -> RunConfig:
         activation="silu",
         rope_theta=75000000.0,
     )
-    return RunConfig(model=model)
+    return RunConfig(model=model, sharding=ShardingConfig(policy="tp2d"))

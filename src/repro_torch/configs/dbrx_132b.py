@@ -1,12 +1,12 @@
 """DBRX-132B — fine-grained MoE, 16 experts top-4.
 
 40L d_model=6144 48H (GQA kv=8) d_ff=10752 vocab=100352, MoE 16e top-4.
-The JAX config also asks for 2-D tensor-parallel sharding with the experts
-over the data axis (``ShardingConfig(policy="tp2d")``); the port has no
-sharding yet, which comes with multi-GPU (ROADMAP queue 1, item 9). Its
-264 GB of bf16 weights do not fit one card.
+Its serving policy is JAX's 2-D tensor parallelism with the experts over
+the data axis (``ShardingConfig(policy="tp2d")``). Its 264 GB of bf16
+weights do not fit one card.
 """
-from repro_torch.config import FAMILY_MOE, ModelConfig, MoEConfig, RunConfig
+from repro_torch.config import (FAMILY_MOE, ModelConfig, MoEConfig,
+                                RunConfig, ShardingConfig)
 from repro_torch.configs.registry import register
 
 
@@ -27,4 +27,4 @@ def config() -> RunConfig:
         activation="silu",
         rope_theta=500000.0,
     )
-    return RunConfig(model=model)
+    return RunConfig(model=model, sharding=ShardingConfig(policy="tp2d"))

@@ -3,11 +3,12 @@
 Backbone: 48L d_model=6144 48H (GQA kv=8) d_ff=16384 vocab=92553. The
 vision tower is a stub: the batch carries precomputed patch embeddings
 (batch, frontend_tokens, 1024), projected to d_model and prepended to the
-text. The JAX config also asks for 2-D tensor-parallel sharding
-(``ShardingConfig(policy="tp2d")``); the port has none yet (ROADMAP queue
-1, item 9). Its 40 GB of bf16 weights fit one card.
+text. Its serving policy is JAX's 2-D tensor parallelism
+(``ShardingConfig(policy="tp2d")``). Its 40 GB of bf16 weights fit one
+card.
 """
-from repro_torch.config import FAMILY_VLM, ModelConfig, RunConfig
+from repro_torch.config import (FAMILY_VLM, ModelConfig, RunConfig,
+                                ShardingConfig)
 from repro_torch.configs.registry import register
 
 
@@ -27,4 +28,4 @@ def config() -> RunConfig:
         norm="rmsnorm",
         activation="silu",
     )
-    return RunConfig(model=model)
+    return RunConfig(model=model, sharding=ShardingConfig(policy="tp2d"))

@@ -1,11 +1,11 @@
 """Llama2-70B (paper Table 3): 80L d_model=8192 64H (GQA kv=8) d_ff=28672.
 
-The JAX config also asks for 2-D tensor-parallel sharding
-(``ShardingConfig(policy="tp2d")``); the port has no sharding yet, which
-comes with multi-GPU (ROADMAP queue 1, item 9). Its 140 GB of bf16 weights
-do not fit one card.
+Its serving policy is JAX's 2-D tensor parallelism
+(``ShardingConfig(policy="tp2d")``). Its 140 GB of bf16 weights do not fit
+one card.
 """
-from repro_torch.config import FAMILY_DENSE, ModelConfig, RunConfig
+from repro_torch.config import (FAMILY_DENSE, ModelConfig, RunConfig,
+                                ShardingConfig)
 from repro_torch.configs.registry import register
 
 
@@ -23,4 +23,4 @@ def config() -> RunConfig:
         norm="rmsnorm",
         activation="silu",
     )
-    return RunConfig(model=model)
+    return RunConfig(model=model, sharding=ShardingConfig(policy="tp2d"))

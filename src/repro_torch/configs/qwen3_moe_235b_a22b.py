@@ -1,12 +1,13 @@
 """Qwen3-MoE-235B-A22B — 128 experts top-8.
 
 94L d_model=4096 64H (GQA kv=4) head_dim=64 d_ff=1536 vocab=151936, MoE
-128e top-8; d_ff=1536 is the per-expert (moe_intermediate) width. The JAX
-config also asks for 2-D tensor-parallel sharding
-(``ShardingConfig(policy="tp2d")``); the port has none yet (ROADMAP queue
-1, item 9). Its 470 GB of bf16 weights do not fit one card.
+128e top-8; d_ff=1536 is the per-expert (moe_intermediate) width. Its
+serving policy is JAX's 2-D tensor parallelism
+(``ShardingConfig(policy="tp2d")``). Its 470 GB of bf16 weights do not fit
+one card.
 """
-from repro_torch.config import FAMILY_MOE, ModelConfig, MoEConfig, RunConfig
+from repro_torch.config import (FAMILY_MOE, ModelConfig, MoEConfig,
+                                RunConfig, ShardingConfig)
 from repro_torch.configs.registry import register
 
 
@@ -28,4 +29,4 @@ def config() -> RunConfig:
         activation="silu",
         rope_theta=1000000.0,
     )
-    return RunConfig(model=model)
+    return RunConfig(model=model, sharding=ShardingConfig(policy="tp2d"))

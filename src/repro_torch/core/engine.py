@@ -19,7 +19,9 @@ JAX's ``lax.while_loop`` / ``lax.cond`` become host loops and branches
 here. Their conditions (``all(exited)``, ``any(act)``, ``any(would)``, and
 the megatick's ``all(done)``) are read back from the card once per layer or
 tick; removing those syncs with a CUDA graph is later work. ``units_run``
-counts the loops' iterations exactly as the JAX while loops do.
+counts the loops' iterations exactly as the JAX while loops do. The AR
+step reads its three through ``host_read``, which gives a meta tensor (the
+dry run, ``launch/dryrun.py``) the full-depth answer.
 
 Weight-only quantization: each step takes an optional bundle ``qw``
 (``repro_torch.quant.quantize_params``). ``_apply_qw`` resolves it as the
@@ -174,6 +176,16 @@ def empty_decode_state(model: Model, sw: Optional[SpecEEWeights], batch: int,
         prng=int(prng))
 
 
+def host_read(flag: torch.Tensor, on_meta: bool) -> bool:
+    """``bool(flag)``, read back to the host. A meta tensor holds no
+    value, so it answers ``on_meta``: the answer JAX's dry run takes
+    (``repro/launch/hlo_analysis.py``): a dynamic loop runs to the full
+    unit count and a conditional counts both branches."""
+    if flag.device.type == "meta":
+        return on_meta
+    return bool(flag)
+
+
 def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
                    state: DecodeState, threshold: Optional[float] = None,
                    spec_ids_override: Optional[torch.Tensor] = None,
@@ -220,21 +232,21 @@ def ar_decode_step(model: Model, params: Params, sw: SpecEEWeights,
     for seg, (_, reps) in enumerate(model.segments):
         seg_cache = state.cache["segments"][seg]
         u = 0
-        while u < reps and not bool(exited.all()):
+        while u < reps and not host_read(exited.all(), False):
             h_new, seg_cache = model.run_unit(params, seg, u, h, seg_cache,
                                               pos, live_mask=~exited,
                                               pages=pages)
             h = torch.where(exited[:, None], h, h_new)
             ep = ep_base + u
             act = active[:, ep] & ~exited
-            if bool(act.any()):
+            if host_read(act.any(), True):
                 hn = model.final_norm(params, h)
                 p_exit, probs, _ = gate_lib.exit_gate(
                     hn, lm_w, spec_ids, prev_probs, predictors, ep,
                     impl=gate_impl,
                     spec_head_kernel=model.flags.spec_head_kernel)
                 would = act & (p_exit > thresh)
-                if bool(would.any()):
+                if host_read(would.any(), True):
                     gtok, _ = gate_lib.verify_argmax(hn, vw, impl=gate_impl)
                     newly = would & (gtok[:, None] == spec_ids).any(dim=1)
                     exit_token = torch.where(newly, gtok, exit_token)

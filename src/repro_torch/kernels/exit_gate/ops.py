@@ -31,7 +31,9 @@ Tensor-parallel verify (JAX ``ops.py:241-377``): a ``Shards`` head — the
 vocabulary slices of a mesh's shards, ``sharding.serving.split_vocab`` —
 verifies each slice with the unsharded kernel (or plain version) on the
 slice's device, shifts its ids by the slice's first global column, and
-merges the (P, B) or (P, B, k) partials on the hidden's device. The D contraction never splits, so every logit a
+merges the (P, B) or (P, B, k) partials on the hidden's device, pooled by
+``collectives.all_gather`` (JAX's gather of the shard_map's partials;
+counted over 'model'). The D contraction never splits, so every logit a
 slice computes is the unsharded one. The merge keeps the global tie-break:
 the maximum wins and equal maxima take the lowest global id
 (``torch.argmax``'s first occurrence); top-k pools the partials
@@ -57,6 +59,7 @@ from repro_torch.kernels.exit_gate.exit_gate import (argmax_verify_fused,
                                                      topk_verify_fused_q)
 from repro_torch.kernels.spec_head import ops as sh_ops
 from repro_torch.quant import QTensor
+from repro_torch.runtime.collectives import all_gather
 from repro_torch.sharding.ctx import Shards
 
 IMPLS = (None, "auto", "kernel", "ref")
@@ -131,8 +134,10 @@ def _partials(hn: torch.Tensor, slices: Shards, fn):
 def merge_argmax(parts):
     """The global (token, max) of per-slice (global ids, maxima): the
     maximum wins, equal maxima take the lowest global id."""
-    toks = torch.stack([t for t, _ in parts])               # (P, B)
-    vals = torch.stack([v for _, v in parts])
+    toks = all_gather([t[None] for t, _ in parts], parts[0][0].device,
+                      dim=0)                                 # (P, B)
+    vals = all_gather([v[None] for _, v in parts], parts[0][1].device,
+                      dim=0)
     best = vals.amax(dim=0)
     cand = torch.where(vals == best[None], toks, _I32_MAX)
     return cand.amin(dim=0).to(torch.int32), best
@@ -143,8 +148,8 @@ def merge_topk(parts, k: int):
     shard-major (B, sum k_s) pool — within a slice equal values come
     id-ascending and slices are id-ascending — sorted stably, descending,
     so equal values keep the lower id first."""
-    pool_i = torch.cat([i for i, _ in parts], dim=1)
-    pool_v = torch.cat([v for _, v in parts], dim=1)
+    pool_i = all_gather([i for i, _ in parts], parts[0][0].device, dim=1)
+    pool_v = all_gather([v for _, v in parts], parts[0][1].device, dim=1)
     nvals, sel = torch.sort(pool_v, dim=1, descending=True, stable=True)
     nids = torch.gather(pool_i, 1, sel[:, :k])
     return nids.to(torch.int32), nvals[:, :k]

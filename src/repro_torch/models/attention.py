@@ -43,8 +43,9 @@ def qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor
     k = common.apply_linear(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
     v = common.apply_linear(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
     if cfg.causal:
-        q = common.apply_rope(q, positions, cfg.rope_theta)
-        k = common.apply_rope(k, positions, cfg.rope_theta)
+        tables = common.rope_tables(positions, hd, cfg.rope_theta)
+        q = common.apply_rope(q, positions, cfg.rope_theta, tables)
+        k = common.apply_rope(k, positions, cfg.rope_theta, tables)
     return q, k, v
 
 

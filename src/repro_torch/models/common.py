@@ -9,7 +9,7 @@ them cast already gives the same numbers.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -164,14 +164,24 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exponents)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotary embedding, half-split convention (``common.py:94-104``).
-    x: (..., seq, heads, head_dim); positions: (..., seq)."""
-    inv = rope_freqs(x.shape[-1], theta, x.device)
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of the rotary angles at ``positions`` (..., seq), each
+    (..., seq, 1, head_dim / 2): what ``apply_rope`` multiplies by, made
+    once for the queries and keys of one call."""
+    inv = rope_freqs(head_dim, theta, positions.device)
     angles = positions[..., :, None].float() * inv
-    cos = torch.cos(angles)[..., :, None, :]
-    sin = torch.sin(angles)[..., :, None, :]
+    return (torch.cos(angles)[..., :, None, :],
+            torch.sin(angles)[..., :, None, :])
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float, tables=None) -> torch.Tensor:
+    """Rotary embedding, half-split convention (``common.py:94-104``).
+    x: (..., seq, heads, head_dim); positions: (..., seq); ``tables``:
+    ``rope_tables`` of those positions, when already made."""
+    cos, sin = (tables if tables is not None else
+                rope_tables(positions, x.shape[-1], theta))
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

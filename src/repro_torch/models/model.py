@@ -56,7 +56,11 @@ tokens (``_ffn_rows``: expert parallelism where the stacks are cut over
 'data'). The rows' hiddens join on the mesh lead after the unit, so the
 residual stream between units, the gates, the draft and the verify stay
 whole there. SSD and RG-LRU states split their batch like the KV cache;
-a frontend's patches or frames are split by row in prefill.
+a frontend's patches or frames are split by row in prefill. Every loop
+over the rows runs through ``collectives.each_row``, so one device's
+'model' collectives (``collectives.PER_DEVICE``) are row 0's; a TP
+layer's input counts its gradient's all-reduce
+(``collectives.count_backward_reduce``).
 """
 from __future__ import annotations
 
@@ -77,7 +81,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.common import Params, index_tree
-from repro_torch.runtime.collectives import all_reduce_rows, all_reduce_sum
+from repro_torch.runtime.collectives import (all_reduce_rows, all_reduce_sum,
+                                             count_backward_reduce, each_row)
 from repro_torch.sharding.ctx import (DataShards, Shards, ShardCtx, local,
                                      part_size, parts)
 
@@ -122,15 +127,25 @@ class ModelFlags:
     wherever it runs, serving included; ``matmul_bf16_reduce`` rounds the
     sequence path's row-parallel attention ``out_proj`` and MLP-down to
     bf16 (training and prefill). ``act_batch_axes`` / ``act_batch_extent``
-    are otherwise sharding hints with no effect on the numbers, as are
-    JAX's ``act_pin_full``, ``act_seq_shard`` and ``unroll`` (not carried:
-    ROADMAP)."""
+    are otherwise sharding hints with no effect on the numbers. JAX's
+    lowering hints ``act_seq_shard`` (pin the residual's sequence dim over
+    'model' at unit boundaries), ``act_pin_full`` (pin it to
+    ``P(batch, None, None)``) and ``unroll`` (Python-loop layers instead
+    of ``lax.scan``) are kept, with JAX's names and defaults, only so that
+    code written against JAX's ``ModelFlags`` (the dry run's flags,
+    ``launch/dryrun.py``) runs unchanged; they change no number and no
+    placement: the single controller places every leaf itself and keeps
+    the residual whole on the lead, and the layer loop is already
+    Python."""
     moe_impl: str = "dense"         # "dense" | "topk"
     moe_ep_quant: bool = False      # int8 EP token dispatch
     moe_bf16_reduce: bool = False   # bf16 E/F contraction of the dense form
     matmul_bf16_reduce: bool = False  # row-parallel seq projections in bf16
     act_batch_axes: Any = None      # mesh axes of the batch ("data")
     act_batch_extent: int = 1       # their extent
+    act_seq_shard: bool = False     # lowering hint (no effect here)
+    act_pin_full: bool = False      # lowering hint (no effect here)
+    unroll: bool = False            # lowering hint (no effect here)
     flash_attention: bool = False   # CUDA flash-attention prefill kernel
     decode_kernel: bool = False     # CUDA (paged) decode-attention kernel
     spec_head_kernel: bool = False  # spec-head kernel: tree gate features;
@@ -165,6 +180,8 @@ def _shard_views(cfg: ModelConfig, p: Params, x: torch.Tensor):
         yield None, cfg, p, x
         return
     cl = attn_lib.shard_cfg(cfg, len(w))
+    if len(w) > 1:
+        count_backward_reduce(x)
     for s, part in enumerate(w):
         yield s, cl, local(p, s), x.to(part.device)
 
@@ -359,7 +376,8 @@ def _ffn_rows(cfg: ModelConfig, ps: Sequence[Params],
     run on all rows' tokens; ``apply_moe_topk_rows``). Returns (each row's
     out, the aux loss on row 0's device)."""
     if "moe" not in ps[0]:
-        return ([_mlp(cfg, p["mlp"], x, pet) for p, x in zip(ps, xs)],
+        return ([_mlp(cfg, p["mlp"], x, pet)
+                 for p, x in each_row(zip(ps, xs))],
                 torch.zeros((), dtype=torch.float32, device=xs[0].device))
     moes = [p["moe"] for p in ps]
     if flags.moe_impl == "dense":
@@ -380,10 +398,10 @@ def _block_seq_rows(cfg: ModelConfig, kind: str, ps: Sequence[Params],
     row's h, each row's cache entry, aux loss on row 0's device)."""
     if len(hs) == 1 or "moe" not in ps[0]:
         outs = [_block_seq(cfg, kind, p, h, pos, flags)
-                for p, h, pos in zip(ps, hs, positions)]
+                for p, h, pos in each_row(zip(ps, hs, positions))]
         return [o[0] for o in outs], [o[1] for o in outs], outs[0][2]
     mids = [_attn_seq(cfg, kind, p, h, pos, flags)
-            for p, h, pos in zip(ps, hs, positions)]
+            for p, h, pos in each_row(zip(ps, hs, positions))]
     fs, aux = _ffn_rows(cfg, ps, [m[2] for m in mids], flags)
     return [m[0] + f for m, f in zip(mids, fs)], [m[1] for m in mids], aux
 
@@ -488,9 +506,9 @@ def _block_step(cfg: ModelConfig, kind: str, ps: Sequence[Params],
     row's tokens). Returns each row's hiddens."""
     if kind in (SSD, RGLRU):
         return [_recurrent_step(cfg, kind, p, h, ce, lm)
-                for p, h, ce, lm in zip(ps, hs, ces, lives)]
+                for p, h, ce, lm in each_row(zip(ps, hs, ces, lives))]
     mids = [_attn_step(cfg, kind, p, h, ce, pos, flags, pg)
-            for p, h, ce, pos, pg in zip(ps, hs, ces, poss, pages)]
+            for p, h, ce, pos, pg in each_row(zip(ps, hs, ces, poss, pages))]
     return [h[:, 0, :] for h in _ffn_after(
         cfg, ps, [(h[:, None, :], x2) for h, x2 in mids], flags)]
 
@@ -915,7 +933,7 @@ class Model:
         flags, cfg = self._no_kernel_under_grad("train_loss_rows"), self.cfg
         ins = rows({k: params[k] for k in ("embed", "frontend")
                     if k in params})
-        hs = [self._inputs(p, b) for p, b in zip(ins, batches)]
+        hs = [self._inputs(p, b) for p, b in each_row(zip(ins, batches))]
         positions = [torch.arange(h.shape[1], device=h.device)[None, :]
                      .expand(h.shape[0], h.shape[1]) for h in hs]
         local_experts = flags.moe_impl == "dense"
@@ -934,7 +952,7 @@ class Model:
         hs, aux_total = self._units(params, hs, unit_fwd, hs[0].device)
         sums = [torch.stack((loss * w, w)) for loss, w in (
             self._loss_parts(hp, h, b)
-            for hp, h, b in zip(rows.head(params), hs, batches))]
+            for hp, h, b in each_row(zip(rows.head(params), hs, batches)))]
         if len(sums) > 1:
             sums = all_reduce_rows(sums, [x.device for x in sums])
         loss = sums[0][0] / torch.clamp(sums[0][1], min=1.0)
@@ -989,8 +1007,8 @@ class Model:
         outer = {k: params[k] for k in ("embed", "frontend") if k in params}
         ins = ([outer] if self.rows is None else self.rows.views(outer, rows))
         hs = [self._inputs(p, {k: x for k, x in zip(batch, xs)})
-              for p, xs in zip(ins, zip(*(self._cut(x, groups)
-                                          for x in batch.values())))]
+              for p, xs in each_row(zip(ins, zip(*(self._cut(x, groups)
+                                                   for x in batch.values()))))]
         S = hs[0].shape[1]
         positions = [torch.arange(S, device=h.device)[None, :].expand(
             h.shape[0], S) for h in hs]
@@ -1158,7 +1176,8 @@ class Model:
                     hs = _ffn_after(self.cfg, ps, [
                         _attn_extend(self.cfg, kind, p, hh, c[f"u{i}"], p0,
                                      pp, self.flags)
-                        for p, hh, c, p0, pp in zip(ps, hs, ces, p0s, poss)],
+                        for p, hh, c, p0, pp in each_row(
+                            zip(ps, hs, ces, p0s, poss))],
                         self.flags)
                 h = self._join(hs, h.device)
         return h, dict(cache, len=pos0 + int(n_valid))
@@ -1193,9 +1212,9 @@ class Model:
         unit, _ = self.segments[seg]
         groups, views, ces = self._unit(params, seg, unit_idx, seg_cache,
                                         h.shape[0], keys=_PROPAGATE_KEYS)
-        for v, c, hh, pp, pg in zip(views, ces, self._cut(h, groups),
-                                    self._cut(pos, groups),
-                                    self._cut(pages, groups)):
+        for v, c, hh, pp, pg in each_row(zip(
+                views, ces, self._cut(h, groups), self._cut(pos, groups),
+                self._cut(pages, groups))):
             for i, kind in enumerate(unit):
                 _block_propagate(self.cfg, kind, v[f"u{i}"], hh, c[f"u{i}"],
                                  pp, self.flags, pages=pg)
@@ -1225,8 +1244,9 @@ class Model:
             hs = _ffn_after(self.cfg, ps, [
                 _attn_tree(self.cfg, p, hh, c[f"u{i}"], m, pp, scratch_off,
                            pages=pg)
-                for p, hh, c, m, pp, pg in zip(ps, hs, ces, masks, poss,
-                                               pgs)], self.flags)
+                for p, hh, c, m, pp, pg in each_row(zip(ps, hs, ces, masks,
+                                                        poss, pgs))],
+                self.flags)
         return self._join(hs, h.device), seg_cache
 
     def propagate_unit_tree(self, params: Params, seg: int, unit_idx: int,
@@ -1237,9 +1257,9 @@ class Model:
         unit, _ = self.segments[seg]
         groups, views, ces = self._unit(params, seg, unit_idx, seg_cache,
                                         h.shape[0], keys=_PROPAGATE_KEYS)
-        for v, c, hh, pp, pg in zip(views, ces, self._cut(h, groups),
-                                    self._cut(positions, groups),
-                                    self._cut(pages, groups)):
+        for v, c, hh, pp, pg in each_row(zip(
+                views, ces, self._cut(h, groups),
+                self._cut(positions, groups), self._cut(pages, groups))):
             for i, _ in enumerate(unit):
                 p = v[f"u{i}"]
                 x = common.apply_norm(self.cfg, p["ln1"], hh)

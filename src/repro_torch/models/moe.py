@@ -57,7 +57,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import Params
 from repro_torch.runtime.collectives import (all_reduce_rows, all_reduce_sum,
-                                             dequantize_tokens, gather_rows,
+                                             count_backward_reduce,
+                                             dequantize_tokens, each_row,
+                                             gather_rows,
                                              quantize_tokens,
                                              reduce_scatter_rows)
 from repro_torch.sharding.ctx import local, parts
@@ -171,6 +173,8 @@ def _tp_experts(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 ) -> torch.Tensor:
     """``_experts`` on each TP shard of ``p``, the partials reduced onto
     x's device."""
+    if len(parts(p["wi"])) > 1:
+        count_backward_reduce(x, comb)
     return all_reduce_sum([
         _experts(cfg, local(p, s), x.to(w.device), comb.to(w.device), dtype,
                  bf16_reduce) for s, w in enumerate(parts(p["wi"]))],
@@ -184,7 +188,7 @@ def _ffn_rows(cfg: ModelConfig, ps: Sequence[Params],
     the aux loss)."""
     dtype = xs[0].dtype
     E = cfg.moe.num_experts
-    routed = [router_probs(cfg, p, xc) for p, xc in zip(ps, xs)]
+    routed = [router_probs(cfg, p, xc) for p, xc in each_row(zip(ps, xs))]
     aux = _aux_rows(cfg, [lg for _, lg in routed])
     if ep_quant:
         codes = [quantize_tokens(xc) for xc in xs]
@@ -193,7 +197,7 @@ def _ffn_rows(cfg: ModelConfig, ps: Sequence[Params],
         ins = ([dequantize_tokens(q, sc, dtype) for q, sc in codes]
                if ep_quant else xs)
         outs = [_tp_experts(cfg, p, x, c, dtype, bf16_reduce)
-                for p, x, (c, _) in zip(ps, ins, routed)]
+                for p, x, (c, _) in each_row(zip(ps, ins, routed))]
         return [o.to(dtype) for o in outs], aux
     devs = [xc.device for xc in xs]
     if ep_quant:                    # int8 codes and their scales move
@@ -206,7 +210,7 @@ def _ffn_rows(cfg: ModelConfig, ps: Sequence[Params],
     partials = [_tp_experts(cfg, p, xg, cg[..., d * e_local:
                                            (d + 1) * e_local],
                             dtype, bf16_reduce)
-                for d, (p, xg, cg) in enumerate(zip(ps, xgs, cgs))]
+                for d, (p, xg, cg) in enumerate(each_row(zip(ps, xgs, cgs)))]
     outs = reduce_scatter_rows(partials, devs, 0, [x.shape[0] for x in xs])
     return [o.to(dtype) for o in outs], aux
 
@@ -266,7 +270,8 @@ def apply_moe_topk_rows(cfg: ModelConfig, ps: Sequence[Params],
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """``apply_moe_topk`` over the data rows of a mesh, each row with
     every expert on its own tokens; the aux loss over all rows' tokens."""
-    outs, logits = zip(*(_moe_topk(cfg, p, x) for p, x in zip(ps, xs)))
+    outs, logits = zip(*(_moe_topk(cfg, p, x)
+                         for p, x in each_row(zip(ps, xs))))
     return list(outs), _aux_rows(cfg, logits)
 
 
@@ -298,6 +303,8 @@ def _moe_topk(cfg: ModelConfig, p: Params, x: torch.Tensor
             down[rows, slot] = up @ pe["wo"][ex].to(x.dtype)
         return torch.einsum("tkd,tk->td", down, gs)
 
+    if len(parts(p["wi"])) > 1:
+        count_backward_reduce(xt, gate)
     out = all_reduce_sum([experts(local(p, s), xt.to(w.device),
                                   gate.to(w.device))
                           for s, w in enumerate(parts(p["wi"]))], x.device)

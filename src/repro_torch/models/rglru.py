@@ -35,7 +35,8 @@ import torch
 from repro_torch.config import ModelConfig, RGLRUConfig
 from repro_torch.models import common
 from repro_torch.models.common import Params
-from repro_torch.runtime.collectives import all_gather, all_reduce_sum
+from repro_torch.runtime.collectives import (all_gather, all_reduce_sum,
+                                             count_backward_reduce)
 from repro_torch.sharding.ctx import from_parts, local, parts
 
 _C = 8.0
@@ -192,13 +193,16 @@ def rglru_block_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
     K = r.conv_kernel
     segs = state_segs(cfg)
     ps = [local(p, s) for s in range(len(parts(p["lam"])))]
+    if len(ps) > 1:
+        count_backward_reduce(x)
     xs = [x.to(lam.device) for lam in parts(p["lam"])]
     xbs = [common.apply_linear(pp["wx"], xi) for pp, xi in zip(ps, xs)]
     xcs = [_conv_seq(pp, xb, local(conv_carry_in, s))
            for s, (pp, xb) in enumerate(zip(ps, xbs))]
     outs, hs = [], []
     for s, (pp, xi, xc) in enumerate(zip(ps, xs, xcs)):
-        h_seq, h_fin = rglru_scan(pp, all_gather(xcs, xc.device),
+        h_seq, h_fin = rglru_scan(pp, all_gather(xcs, xc.device,
+                                                 lead=s == 0),
                                   local(h0, s), x_own=xc)
         gate = gelu(common.apply_linear(pp["wy"], xi))
         outs.append(common.apply_linear(pp["wo"], h_seq * gate))
@@ -230,8 +234,9 @@ def rglru_block_step(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
              for pp, xi, cs in zip(ps, xs, parts(conv_state))]
     xcs = [xc for xc, _ in convs]
     outs, hs = [], []
-    for pp, xi, xc, hp in zip(ps, xs, xcs, parts(h)):
-        h_out, new_h = rglru_step(pp, all_gather(xcs, xc.device), hp,
+    for s, (pp, xi, xc, hp) in enumerate(zip(ps, xs, xcs, parts(h))):
+        h_out, new_h = rglru_step(pp, all_gather(xcs, xc.device,
+                                                 lead=s == 0), hp,
                                   x_own=xc)
         gate = gelu(common.apply_linear(pp["wy"], xi))
         outs.append(common.apply_linear(pp["wo"], h_out * gate))

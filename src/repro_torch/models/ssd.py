@@ -42,7 +42,8 @@ from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
 from repro_torch.models import common
 from repro_torch.models.common import Params
-from repro_torch.runtime.collectives import all_reduce_sum
+from repro_torch.runtime.collectives import (all_reduce_sum,
+                                             count_backward_reduce)
 from repro_torch.sharding.ctx import from_parts, local, parts
 
 
@@ -312,6 +313,8 @@ def ssd_block_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
     shorter than K-1, as in the JAX package). Sharded params give the
     state and the conv tail as ``Shards`` (an ``initial_state`` too)."""
     segs = state_segs(cfg)
+    if len(parts(p["A_log"])) > 1:
+        count_backward_reduce(x)
     cores = [_seq_core(cfg, local(p, s), x.to(a.device),
                        local(initial_state, s), use_kernel)
              for s, a in enumerate(parts(p["A_log"]))]

@@ -15,7 +15,8 @@ where each leaf is its one entry (no ``DataShards``).
 
 Each row's view (``RowMesh.views``), taken per use: a leaf cut over 'data'
 is all-gathered over the rows (``collectives.gather_rows``, counted in
-``collectives.COUNTS``; differentiable, its backward a reduce-scatter); a
+``collectives.COUNTS``, shard 0's also in ``PER_DEVICE``; differentiable,
+its backward a reduce-scatter); a
 copy is the row's own. The view is then put in the layout the blocks
 compute with (``layouts``): a leaf placed in another layout is joined on
 the row's lead and cut by its segments. Under expert parallelism
@@ -290,7 +291,8 @@ class RowMesh:
         if not isinstance(x[0], Shards):
             return gather_rows(list(x), [self.leads[d] for d in rows], x.dim)
         per_m = [gather_rows([e[m] for e in x],
-                             [self.mesh.devices[d][m] for d in rows], x.dim)
+                             [self.mesh.devices[d][m] for d in rows], x.dim,
+                             lead=m == 0)
                  for m in range(self.P)]
         return [x[0].like([g[i] for g in per_m]) for i in range(len(rows))]
 

@@ -209,9 +209,12 @@ def place_like(tree, like, lead) -> Any:
 def to_host(tree) -> Any:
     """``tree`` with every tensor on the host: a tensor on a card is copied
     into page-locked memory, so each device copy later cut from it runs at
-    the link's rate; a tensor already on the host stays as it is."""
+    the link's rate; a tensor already on the host stays as it is, and so
+    does a meta tensor (the dry run's, ``launch/dryrun.py``: no data to
+    copy)."""
     def move(x):
-        if not isinstance(x, torch.Tensor) or x.device.type == "cpu":
+        if not isinstance(x, torch.Tensor) or x.device.type in ("cpu",
+                                                                "meta"):
             return x
         if x.device.type != "cuda":
             return x.to("cpu")

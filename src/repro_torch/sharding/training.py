@@ -110,7 +110,7 @@ class TrainMesh(RowMesh):
             if not isinstance(g[0], Shards):
                 return g.like(all_reduce_rows(list(g), [e.device for e in g]))
             per_m = [all_reduce_rows([e[m] for e in g],
-                                     [e[m].device for e in g])
+                                     [e[m].device for e in g], lead=m == 0)
                      for m in range(len(g[0]))]
             return g.like([e.like([r[d] for r in per_m])
                            for d, e in enumerate(g)])
